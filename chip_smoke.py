@@ -1,0 +1,371 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
+
+1. holds each kernel against its plain PyTorch version on the card at small
+   shapes: fused ring == plain (bitwise), tiled == untiled, x/y interior
+   masks, batched (per-slot params and masks, one padded smaller request)
+   == sequential, finite-guard flags with planted NaN/Inf, guarded ==
+   unguarded outputs, and the fused ring against the f64 oracle;
+2. drives the main path at the paper's 67M grid (1024, 1024, 64):
+   `AdvectionDomain(variant="fused", fuse_T=4).advance(..., 16)` (four
+   fused launches) and `finite_guard` on the result, with the launch counts
+   set to 0 just before and read just after; checks the result against the
+   plain version on the card (bitwise), the frozen boundary planes and the
+   guard flags;
+3. times each kernel with CUDA events (median of 20 after warm-up) beside
+   its bound, the least time the card could take for the same work.
+
+Prints the card's name and power limit, one JSON line of kernel records and,
+last, `{"ok": true, "device": {...}}`. Any failed check exits nonzero
+without that last line, as does a machine without a CUDA device.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch import _build  # noqa: E402
+from repro_torch.core import roofline as R  # noqa: E402
+from repro_torch.kernels.advection import advection as K  # noqa: E402
+from repro_torch.kernels.advection import ref as REF  # noqa: E402
+from repro_torch.stencil.advection import (PAPER_GRIDS,  # noqa: E402
+                                           AdvectionDomain)
+
+DT = 0.01
+MAIN_GRID = "67M"
+MAIN_T = 4
+MAIN_SUBSTEPS = 16
+SMALL_SHAPES = ((6, 10, 12), (5, 17, 12), (8, 12, 10))
+TIMED_RUNS, WARMUP = 20, 3
+ORACLE_TOL = 1e-4       # f32 fused ring vs the f64 oracle (the JAX suite's)
+SOURCE = {"advect_fused": "src/repro_torch/csrc/advect_fused.cu",
+          "finite_guard": "src/repro_torch/csrc/finite_guard.cu"}
+REPLACES = {"advect_fused": "src/repro/kernels/advection/advection.py:404",
+            "finite_guard": "src/repro/kernels/advection/advection.py:469"}
+
+
+class Checks:
+    def __init__(self):
+        self.failed = []
+
+    def __call__(self, ok: bool, label: str) -> None:
+        print(f"[{'ok' if ok else 'FAIL'}] {label}", flush=True)
+        if not ok:
+            self.failed.append(label)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def rand_fields(shape, seed):
+    rng = np.random.default_rng(seed)
+    return REF.fields_from_numpy(*(rng.normal(size=shape) for _ in range(3)),
+                                 device="cuda")
+
+
+def same(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def plain_fused(u, v, w, p, T, xm=None, ym=None):
+    """The plain version on one (X, Y, Z) domain."""
+    X, Y = u.shape[0], u.shape[1]
+    ones = lambda n: torch.ones(n, device=u.device)  # noqa: E731
+    out = K._advect_fused_plain(u[None], v[None], w[None], p, T, DT,
+                                ones(X) if xm is None else xm,
+                                ones(Y) if ym is None else ym)
+    return tuple(o[0] for o in out)
+
+
+def time_ms(fn, runs=TIMED_RUNS, warmup=WARMUP) -> float:
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def small_shape_phase(check: Checks) -> None:
+    for si, shape in enumerate(SMALL_SHAPES):
+        X, Y, Z = shape
+        u, v, w = rand_fields(shape, seed=si)
+        p = REF.default_params(Z, device="cuda")
+        for T in (1, 2, 4):
+            plain = plain_fused(u, v, w, p, T)
+            full = K.advect_fused(u, v, w, p, T=T, dt=DT)
+            torch.cuda.synchronize()
+            check(same(full, plain), f"K1 == plain {shape} T={T}")
+            for y_tile in (4, 5, 7):
+                tiled = K.advect_fused(u, v, w, p, T=T, dt=DT, y_tile=y_tile)
+                check(same(tiled, full),
+                      f"K1 tiled == untiled {shape} T={T} y_tile={y_tile}")
+    # the f64 oracle
+    u, v, w = rand_fields((6, 10, 12), seed=0)
+    p = REF.default_params(12, device="cuda")
+    out = K.advect_fused(u, v, w, p, T=4, dt=DT)
+    oracle = REF.pw_multistep_ref_f64(u, v, w, p, 4, DT)
+    err = max(float((a.double() - b).abs().max()) for a, b in zip(out, oracle))
+    check(err < ORACLE_TOL, f"K1 vs f64 oracle T=4: {err:.3e} < {ORACLE_TOL}")
+    # x and y interior masks
+    X, Y, Z, T = 8, 12, 10, 3
+    u, v, w = rand_fields((X, Y, Z), seed=8)
+    p = REF.default_params(Z, device="cuda")
+    xm = torch.ones(X, device="cuda")
+    xm[:3] = 0.0
+    ym = torch.ones(Y, device="cuda")
+    ym[7:] = 0.0
+    ones = K.advect_fused(u, v, w, p, T=T, dt=DT,
+                          x_interior_mask=torch.ones(X, device="cuda"))
+    check(same(ones, K.advect_fused(u, v, w, p, T=T, dt=DT)),
+          "all-ones x mask is a bitwise no-op")
+    masked = K.advect_fused(u, v, w, p, T=T, dt=DT, x_interior_mask=xm,
+                            y_interior_mask=ym)
+    check(same(masked, plain_fused(u, v, w, p, T, xm, ym)),
+          "K1 masked == plain masked loop")
+    tiled = K.advect_fused(u, v, w, p, T=T, dt=DT, y_tile=4,
+                           x_interior_mask=xm, y_interior_mask=ym)
+    check(same(tiled, masked), "K1 masked tiled == untiled")
+    batched_phase(check)
+    guard_phase(check)
+
+
+LEAF_BASE_NDIM = {"tcx": 0, "tcy": 0, "tzc1": 1, "tzc2": 1}
+
+
+def slot_params(p, b):
+    """Slot b's own params out of batched ones: a leaf with the slot axis is
+    indexed, a shared leaf is kept."""
+    return REF.AdvectParams(**{
+        n: getattr(p, n)[b] if getattr(p, n).ndim > nd else getattr(p, n)
+        for n, nd in LEAF_BASE_NDIM.items()})
+
+
+def batched_phase(check: Checks) -> None:
+    """B = 3 slots with per-slot params and masks; slot 2 carries a smaller
+    (4, 11, Z) request padded into the slot shape. Then each single leaf of
+    the params per-slot with the others shared, the kernel reading one
+    parameter table for all four."""
+    B, X, Y, Z, T = 3, 5, 17, 12, 2
+    Xr, Yr = 4, 11
+    fields = [rand_fields((X, Y, Z), seed=20 + b) for b in range(B)]
+    small = rand_fields((Xr, Yr, Z), seed=30)
+    for f, s in zip(fields[2], small):
+        f.zero_()
+        f[:Xr, :Yr] = s
+    u, v, w = (torch.stack([fl[i] for fl in fields]) for i in range(3))
+    base = REF.default_params(Z, device="cuda")
+    scale = torch.tensor([1.0, 1.5, 0.5], device="cuda")
+    p = REF.AdvectParams(base.tcx * scale, base.tcy * scale,
+                         base.tzc1[None] * scale[:, None], base.tzc2)
+    xm = torch.ones(B, X, device="cuda")
+    ym = torch.ones(B, Y, device="cuda")
+    xm[1, 2] = 0.0
+    ym[0, 5:9] = 0.0
+    xm[2] = (torch.arange(X, device="cuda") <= Xr - 2).float()
+    xm[2, 0] = 0.0
+    ym[2] = ((torch.arange(Y, device="cuda") >= 1)
+             & (torch.arange(Y, device="cuda") <= Yr - 2)).float()
+    for y_tile in (None, 5):
+        out = K.advect_fused_batched(u, v, w, p, T=T, dt=DT, y_tile=y_tile,
+                                     x_interior_mask=xm, y_interior_mask=ym)
+        for b in range(B):
+            seq = K.advect_fused(u[b], v[b], w[b], slot_params(p, b), T=T,
+                                 dt=DT, y_tile=y_tile, x_interior_mask=xm[b],
+                                 y_interior_mask=ym[b])
+            check(same([o[b] for o in out], seq),
+                  f"K5 batched slot {b} == sequential, y_tile={y_tile}")
+        alone = K.advect_fused(*small, slot_params(p, 2), T=T, dt=DT)
+        check(same([o[2, :Xr, :Yr] for o in out], alone),
+              f"K5 padded request == its unpadded run, y_tile={y_tile}")
+    for leaf, nd in LEAF_BASE_NDIM.items():
+        base_leaf = getattr(base, leaf)
+        one = base._replace(**{leaf: torch.stack([base_leaf * s
+                                                  for s in scale])})
+        assert getattr(one, leaf).ndim == nd + 1
+        out = K.advect_fused_batched(u, v, w, one, T=T, dt=DT, y_tile=5,
+                                     x_interior_mask=xm, y_interior_mask=ym)
+        seq = [K.advect_fused(u[b], v[b], w[b], slot_params(one, b), T=T,
+                              dt=DT, y_tile=5, x_interior_mask=xm[b],
+                              y_interior_mask=ym[b]) for b in range(B)]
+        check(all(same([o[b] for o in out], seq[b]) for b in range(B)),
+              f"K5 only {leaf} per-slot == sequential, every slot")
+        plain = K._advect_fused_plain(u, v, w, K._slot_params(one, B, Z,
+                                                              "cuda"),
+                                      T, DT, xm, ym)
+        check(same(out, plain), f"K5 only {leaf} per-slot == plain version")
+
+
+def guard_phase(check: Checks) -> None:
+    X, Y, Z, T = 8, 16, 64, 2
+    u, v, w = rand_fields((X, Y, Z), seed=40)
+    p = REF.default_params(Z, device="cuda")
+    plain_out = K.advect_fused(u, v, w, p, T=T, dt=DT)
+    gu, gv, gw, flags = K.advect_fused(u, v, w, p, T=T, dt=DT, guard=True)
+    check(same((gu, gv, gw), plain_out), "guarded == unguarded outputs")
+    check(bool(torch.all(flags == 1.0)) and flags.shape == (X,),
+          "guard flags all 1 on finite fields")
+    bad = [f.clone() for f in (u, v, w)]
+    bad[0][2, 3, 5] = float("nan")
+    bad[2][5, 0, 0] = float("inf")
+    bad[1][7, 15, 63] = float("-inf")
+    got = K.finite_guard(*bad)
+    want = K._finite_guard_plain(*bad)
+    check(torch.equal(got, want) and got.tolist()
+          == [1.0, 1.0, 0.0, 1.0, 1.0, 0.0, 1.0, 0.0],
+          "K4 flags == plain flags with NaN/Inf planted")
+    stacked = [torch.stack([f, g, f]) for f, g in zip((u, v, w), bad)]
+    got = K.finite_guard(*stacked)
+    check(torch.equal(got, K._finite_guard_plain(*stacked)),
+          "K4 batched flags == plain")
+    odd = [f[:, :15, :61].contiguous() for f in bad]    # Y*Z % 4 != 0
+    check(torch.equal(K.finite_guard(*odd), K._finite_guard_plain(*odd)),
+          "K4 flags == plain on the scalar-load path")
+
+
+def main_path_phase(check: Checks):
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    dom = AdvectionDomain(X, Y, Z, variant="fused", fuse_T=MAIN_T, dt=DT,
+                          device="cuda")
+    u0, v0, w0 = dom.init(seed=0)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = dom.advance(u0, v0, w0, MAIN_SUBSTEPS)
+    flags = K.finite_guard(*out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    print(f"main path: {MAIN_GRID} grid {(X, Y, Z)}, advance({MAIN_SUBSTEPS})"
+          f" with fuse_T={MAIN_T}, y_tile={dom.run_y_tile} "
+          f"({K._grid_geometry(Y, dom.run_y_tile, MAIN_T)[2]} blocks on "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs)"
+          f", ring {dom.vmem_register_bytes()} B; wall {wall:.3f} s; "
+          f"launches {launches}", flush=True)
+    for name, n in launches.items():
+        check(n > 0, f"{name} launched on the main path ({n})")
+    check(launches["advect_fused"] == MAIN_SUBSTEPS // MAIN_T,
+          "advect_fused launched once per fused pass")
+    check(all(o.shape == (X, Y, Z) and bool(torch.isfinite(o).all())
+              for o in out), "main-path outputs finite, of shape (X, Y, Z)")
+    check(flags.shape == (X,) and bool(torch.all(flags == 1.0)),
+          "finite_guard flags all 1")
+    for f0, fT in zip((u0, v0, w0), out):
+        edges = (fT[0].equal(f0[0]) and fT[-1].equal(f0[-1])
+                 and fT[:, 0].equal(f0[:, 0]) and fT[:, -1].equal(f0[:, -1])
+                 and fT[:, :, 0].equal(f0[:, :, 0])
+                 and fT[:, :, -1].equal(f0[:, :, -1]))
+        check(edges, "boundary planes unchanged")
+    plain = plain_fused(u0, v0, w0, dom.params, MAIN_SUBSTEPS)
+    k1_err = max(float((a - b).abs().max()) for a, b in zip(out, plain))
+    check(k1_err == 0.0, f"main path == plain version, bitwise ({k1_err})")
+    del plain
+    k4_err = float((flags - K._finite_guard_plain(*out)).abs().max())
+    check(k4_err == 0.0, "main-path guard flags == plain flags")
+    moved = max(float((a - b).abs().max())
+                for a, b in zip(out, (u0, v0, w0)))
+    check(moved > 0.0, f"the fields moved (max change {moved:.3e})")
+    return dom, (u0, v0, w0), out, launches, k1_err, k4_err
+
+
+def timing_phase(dom, fields, out, launches, k1_err, k4_err):
+    X, Y, Z = dom.X, dom.Y, dom.Z
+    u, v, w = fields
+    p, T, cells = dom.params, dom.fuse_T, X * Y * Z
+    ones_x = torch.ones(X, device="cuda")
+    ones_y = torch.ones(Y, device="cuda")
+    k1_ms = time_ms(lambda: K.advect_fused(u, v, w, p, T=T, dt=DT,
+                                           y_tile=dom.run_y_tile))
+    k1_plain = time_ms(lambda: K._advect_fused_plain(
+        u[None], v[None], w[None], p, T, DT, ones_x, ones_y), runs=10)
+    k4_ms = time_ms(lambda: K.finite_guard(*out))
+    k4_plain = time_ms(lambda: K._finite_guard_plain(*out))
+    # bounds: each input read once, each output written once; operations
+    # are the function's: 63 per interior cell and the 2-op update of each
+    # of 3 fields per cell, per step (K1), one test per word (K4)
+    k1_bytes = 6 * cells * 4 + 2 * (Z + 2) * 4 + (X + Y) * 4
+    k1_ops = T * ((X - 2) * (Y - 2) * (Z - 2) * REF.flops_per_cell()
+                  + 6 * cells)
+    k4_bytes = R.guard_bytes_model(X, Y, Z)
+    k4_ops = 3 * cells
+    records = []
+    for name, ms, plain_ms, nbytes, ops, err in (
+            ("advect_fused", k1_ms, k1_plain, k1_bytes, k1_ops, k1_err),
+            ("finite_guard", k4_ms, k4_plain, k4_bytes, k4_ops, k4_err)):
+        t_bytes = nbytes / R.HBM_BW * 1e3
+        t_ops = ops / R.PEAK_FLOPS_F32 * 1e3
+        bound = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"{name}: {ms:.4f} ms per launch (median of {TIMED_RUNS}), "
+              f"bound {bound:.4f} ms by {bound_by}"
+              f" ({nbytes} B at {R.HBM_BW:.3g} B/s: {t_bytes:.4f} ms; "
+              f"{ops} f32 ops at {R.PEAK_FLOPS_F32:.3g}/s: {t_ops:.4f} ms), "
+              f"{nbytes / ms / 1e6:.1f} GB/s achieved, "
+              f"{bound / ms:.3f} of the bound; plain version {plain_ms:.4f} ms;"
+              f" no single PyTorch call computes this function, so no "
+              f"library time", flush=True)
+        records.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "library_ms": None})
+    return records
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; this script runs only on "
+              "a GPU", file=sys.stderr)
+        return 2
+    card = card_line()
+    print(card, flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s", flush=True)
+    print(_build.build_log().strip(), flush=True)
+    check = Checks()
+    small_shape_phase(check)
+    dom, fields, out, launches, k1_err, k4_err = main_path_phase(check)
+    records = timing_phase(dom, fields, out, launches, k1_err, k4_err)
+    if check.failed:
+        print(f"chip_smoke: {len(check.failed)} check(s) failed: "
+              f"{check.failed}", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": records}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

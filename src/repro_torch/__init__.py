@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of the PW-advection system for NVIDIA Hopper (H100).
+
+The JAX package `repro` is the reference; this package never imports it
+(or JAX). Its main path is single-device fused PW advection:
+`stencil.advection.AdvectionDomain(variant="fused")` ->
+`kernels.advection.ops.pw_advect_fused` -> `kernels.advection.advection.
+advect_fused`, which launches the hand-written CUDA ring kernel in
+`csrc/advect_fused.cu`; `finite_guard` launches `csrc/finite_guard.cu`.
+Both are built by `nvcc` at first use (`_build.py`). On CPU tensors each
+wrapper runs its plain PyTorch version instead, which is what the CPU test
+tier holds against the JAX reference.
+"""

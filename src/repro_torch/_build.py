@@ -1,0 +1,114 @@
+"""Build and load the port's CUDA kernels.
+
+`load()` compiles every `csrc/*.cu` with `nvcc` for `sm_90a` (one process
+per source, all started together), links them into one shared library with
+a plain C interface and opens it with `ctypes`. The library lands in
+`build/<hash>/` beside this file, keyed by a hash of the sources and the
+flags, so an edited source rebuilds and an unchanged one is reused. Only a
+call that launches a kernel builds; importing the package never does.
+
+Build needs `nvcc` (on PATH, or under `$CUDA_HOME/bin`). Never add
+`--use_fast_math`: it changes the arithmetic and can compile `isfinite`
+away. `--fmad=false` keeps every product and sum rounded on its own, as the
+plain PyTorch versions round them.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent / "build"
+SOURCES = ("advect_fused.cu", "finite_guard.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIB_NAME = "librepro_torch_kernels.so"
+LOG_NAME = "nvcc.log"
+
+_P, _I, _F, _LL, _SZ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                        ctypes.c_longlong, ctypes.c_size_t)
+SIGNATURES = {
+    "advect_fused_f32": [_P] * 9 + [_I] * 11 + [_F, _SZ, _P],
+    "finite_guard_f32": [_P] * 4 + [_I, _I, _LL, _I, _P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin; the "
+                       "port's CUDA kernels are built by nvcc at first use")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the sources (in parallel) and link the library; return its
+    path. Reuses a library already built from the same sources."""
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / (name + ".o") for name in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(CSRC / name),
+                                   "-o", str(obj)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for name, obj in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(f"== {n}\n{text}" for n, text in zip(SOURCES, logs))
+        (out_dir / LOG_NAME).write_text(log)
+        failed = [n for n, p in zip(SOURCES, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp_lib = Path(tmp) / LIB_NAME
+        link = subprocess.run([nvcc, "-shared", *map(str, objs), "-o",
+                               str(tmp_lib)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
+                               f"{link.stderr}")
+        os.replace(tmp_lib, lib)
+    return lib
+
+
+def build_log() -> str:
+    """The compiler's output (ptxas registers/shared memory per kernel) of
+    the current build, or "" when none was made yet."""
+    path = BUILD_ROOT / _digest() / LOG_NAME
+    return path.read_text() if path.exists() else ""
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The built library with every C entry point's signature declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a C entry point returned a nonzero cudaError_t."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

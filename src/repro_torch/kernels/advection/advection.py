@@ -1,0 +1,421 @@
+"""Fused PW advection (v4 temporal blocking) and the finite guard, on Hopper.
+
+Counterpart of the fused part of `repro.kernels.advection.advection`.
+`advect_fused` advances u, v, w by T explicit-Euler steps in one pass over
+device memory; `advect_fused_batched` does so for B slot-stacked domains in
+one launch, the slot being a dimension of the launch grid; `finite_guard`
+flags the x-slices whose three fields are all finite.
+
+Each wrapper dispatches on where its tensors lie. On a CUDA tensor it
+launches its hand-written kernel (`csrc/advect_fused.cu`,
+`csrc/finite_guard.cu`) or raises; on a CPU tensor it runs the kernel's plain
+PyTorch version beside it (`_advect_fused_plain`, `_finite_guard_plain`).
+There is no fallback from one to the other. `LAUNCHES` counts the kernel
+launches, one per launch, so a run can show it went through the kernels.
+
+The y-tile geometry is the reference's: tile t owns rows
+[t*TY, min((t+1)*TY, Y)) and streams a slab of S = TY + 2T rows clipped flush
+into the domain, so every owned row keeps T rows of margin to a cut slab
+edge and tiled outputs equal untiled ones bitwise. The ring of 3 fields x T
+levels x 3 slots x S x Z floats lives in one block's shared memory, so a
+tile whose ring exceeds `roofline.SMEM_PER_BLOCK` cannot run;
+`largest_fitting_y_tile` picks one that does.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch import _build
+from repro_torch.core.roofline import SMEM_PER_BLOCK
+from repro_torch.kernels.advection.ref import AdvectParams, pw_advect_ref
+
+TILINGS = ("grid", "host")
+HOST_TILING_TODO = ("tiling='host' (the retained host-side tile loop) is not "
+                    "ported yet: ROADMAP Queue 1, Slice B item 7")
+
+LAUNCHES = {"advect_fused": 0, "finite_guard": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# in-grid (y_tile, x) tiling geometry
+# ---------------------------------------------------------------------------
+
+
+def _check_tiling(tiling: str) -> None:
+    if tiling not in TILINGS:
+        raise ValueError(f"tiling must be one of {TILINGS}, got {tiling!r}")
+
+
+def _check_y_tile(y_tile: Optional[int]) -> None:
+    if y_tile is not None and y_tile < 1:
+        raise ValueError(f"y_tile must be >= 1, got {y_tile}")
+
+
+def _grid_geometry(Y: int, y_tile: Optional[int],
+                   halo: int) -> Tuple[int, int, int]:
+    """(TY, S, n_ty): owned rows per tile, slab rows, tile count. A tile
+    whose slab would not fit the domain degenerates to one full tile."""
+    if y_tile is None or y_tile >= Y or y_tile + 2 * halo > Y:
+        return Y, Y, 1
+    return y_tile, y_tile + 2 * halo, -(-Y // y_tile)
+
+
+def _slab_lo(t: int, Y: int, TY: int, S: int, H: int) -> int:
+    """Global row of slab row 0 for tile t, clipped flush into the domain."""
+    return min(max(t * TY - H, 0), Y - S)
+
+
+def _out_lo(t: int, Y: int, TY: int) -> int:
+    """Global row of the reference's (TY, Z) output block: the remainder
+    tile slides down and rewrites rows of the previous tile. The CUDA kernel
+    instead writes only rows [t*TY, min((t+1)*TY, Y)), since its blocks run
+    concurrently; the values are the same."""
+    return min(t * TY, Y - TY)
+
+
+def _own_start(t: int, Y: int, TY: int, S: int, H: int) -> int:
+    """Slab-local row where the reference's output block begins."""
+    return _out_lo(t, Y, TY) - _slab_lo(t, Y, TY, S, H)
+
+
+# ---------------------------------------------------------------------------
+# shared-memory and device-memory models
+# ---------------------------------------------------------------------------
+
+
+def fused_register_bytes(T: int, y_rows: int, Z: int, itemsize: int = 4,
+                         y_tile: int | None = None) -> int:
+    """Bytes of the fused ring: 3 fields x T levels x 3 slots of
+    ``min(y_tile + 2T, y_rows)`` rows. On Hopper the ring is one block's
+    dynamic shared memory, so it must stay within
+    `roofline.SMEM_PER_BLOCK`."""
+    rows = y_rows if y_tile is None else min(y_tile + 2 * T, y_rows)
+    return 3 * 3 * T * rows * Z * itemsize
+
+
+def largest_fitting_y_tile(T: int, Y: int, Z: int, itemsize: int = 4,
+                           budget: int = SMEM_PER_BLOCK) -> Optional[int]:
+    """The y_tile the fused CUDA kernel runs with when the caller names
+    none: None (untiled) when the whole-Y ring fits `budget`; else the
+    largest tile whose ring fits, taking the largest divisor of Y instead
+    when it is at least half that size (even tiles leave no remainder tile
+    that streams a full slab for a few rows). Raises when no tile fits."""
+    if fused_register_bytes(T, Y, Z, itemsize) <= budget:
+        return None
+    best = budget // (3 * 3 * T * Z * itemsize) - 2 * T
+    if best < 1:
+        raise ValueError(
+            f"no y_tile fits the fused ring in {budget} B of shared memory "
+            f"per block at T={T}, Z={Z}: even y_tile=1 needs "
+            f"{fused_register_bytes(T, Y, Z, itemsize, y_tile=1)} B")
+    divisor = max(d for d in range(1, best + 1) if Y % d == 0)
+    return divisor if 2 * divisor >= best else best
+
+
+def _padded_row_bytes(Z: int, itemsize: int) -> int:
+    """A Z row as the card moves it: rounded up to 16 bytes."""
+    return -(-Z * itemsize // 16) * 16
+
+
+def _host_overlap_rows(Y: int, y_tile: int | None, halo: int) -> int:
+    """Rows the host tile loop restages per x-slice: 2*halo per interior
+    tile boundary."""
+    n = 1 if y_tile is None or y_tile >= Y else -(-Y // y_tile)
+    return 2 * halo * (n - 1)
+
+
+def hbm_bytes_model(X: int, Y: int, Z: int, itemsize: int, variant: str,
+                    *, T: int = 1, y_tile: int | None = None,
+                    grid_tiled: bool = True,
+                    fuse_update: bool = True) -> int:
+    """Modelled device-memory bytes of one advection call advancing T
+    explicit-Euler steps.
+
+    The reference's byte algebra, with the alignment rule of the card in
+    place of the TPU's lane rule: a Z row of ``Z * itemsize`` bytes moves at
+    no penalty when it is a multiple of 16 bytes (one 16-byte vector access
+    per thread), and is otherwise charged as the row padded up to the next
+    16 bytes. The pre-fusion rungs pay a read+write pass per step, `fused`
+    streams each field in and out once for all T steps. `grid_tiled=True`
+    charges zero halo overlap (halo rows are re-read from the on-chip slab);
+    `grid_tiled=False` models the host tile loop, restaging `2*halo` rows
+    per interior tile boundary on both sides. `fuse_update=False` adds the
+    separate `f + dt*s` pass of the non-fused rungs (contiguous arrays, so
+    no row penalty). `wide` is the TPU lane-aligned rung; it is priced
+    once it is ported.
+    """
+    if variant == "wide":
+        raise NotImplementedError("hbm_bytes_model('wide') waits for "
+                                  "advect_wide (ROADMAP Queue 2, K2)")
+    slice_b = Y * Z * itemsize
+    row_b = _padded_row_bytes(Z, itemsize)
+    halo = T if variant == "fused" else 1
+    overlap_rows = 0 if grid_tiled else _host_overlap_rows(Y, y_tile, halo)
+    tiled_slice_b = (Y + overlap_rows) * row_b
+    if variant == "blocked":
+        reads = T * 3 * 3 * X * tiled_slice_b
+    elif variant == "dataflow":
+        reads = T * 3 * X * tiled_slice_b
+    elif variant == "fused":
+        reads = 3 * X * tiled_slice_b   # one pass for all T steps
+    elif variant == "pointwise":
+        reads = T * 3 * 7 * X * Y * row_b   # naive 7-point gathers
+    else:
+        raise ValueError(variant)
+    w_slice_b = Y * row_b if variant == "pointwise" else tiled_slice_b
+    writes = (1 if variant == "fused" else T) * 3 * X * w_slice_b
+    total = reads + writes
+    if not fuse_update and variant != "fused":
+        total += T * 3 * 3 * X * slice_b
+    return int(total)
+
+
+def vmem_halo_bytes_model(X: int, Y: int, Z: int, itemsize: int,
+                          variant: str, *, T: int = 1,
+                          y_tile: int | None = None) -> int:
+    """Halo re-read bytes the in-grid tiled path serves from the on-chip
+    slab (shared memory on Hopper) instead of device memory: `2*halo` rows
+    per interior tile boundary, per x-slice, per field (per view for
+    `blocked`); zero where no tiled execution exists."""
+    if variant == "pointwise":
+        return 0
+    if variant == "wide":
+        raise NotImplementedError("vmem_halo_bytes_model('wide') waits for "
+                                  "advect_wide (ROADMAP Queue 2, K2)")
+    halo = T if variant == "fused" else 1
+    _, _, n_ty = _grid_geometry(Y, y_tile, halo)
+    overlap_rows = 2 * halo * (n_ty - 1)
+    views = 3 if variant == "blocked" else 1
+    passes = 1 if variant == "fused" else T
+    return passes * views * 3 * X * overlap_rows * Z * itemsize
+
+
+# ---------------------------------------------------------------------------
+# operand checks and packing
+# ---------------------------------------------------------------------------
+
+
+def _check_fields(u, v, w, rank: int, what: str) -> None:
+    for name, f in (("u", u), ("v", v), ("w", w)):
+        if not torch.is_tensor(f):
+            raise TypeError(f"{name} must be a torch.Tensor, got "
+                            f"{type(f).__name__}")
+        if f.ndim != rank:
+            raise ValueError(f"{name} must be {what}, got rank {f.ndim}")
+        if f.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 (bf16 is not ported "
+                            f"yet), got {f.dtype}")
+        if f.device != u.device:
+            raise ValueError(f"{name} is on {f.device}, u on {u.device}")
+        if not f.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not (u.shape == v.shape == w.shape):
+        raise ValueError(f"field shapes differ: {tuple(u.shape)} "
+                         f"{tuple(v.shape)} {tuple(w.shape)}")
+
+
+def _mask(mask, n: int, B: int, name: str, device) -> torch.Tensor:
+    """(n,) shared or (B, n) per-slot interior mask as f32 on `device`."""
+    m = (torch.ones((n,), dtype=torch.float32, device=device) if mask is None
+         else torch.as_tensor(mask, dtype=torch.float32, device=device))
+    if tuple(m.shape) not in ((n,), (B, n)):
+        raise ValueError(f"{name} must have shape ({n},) or ({B}, {n}), "
+                         f"got {tuple(m.shape)}")
+    return m
+
+
+def _slot_params(p: AdvectParams, B: int, Z: int, device) -> AdvectParams:
+    """Check each leaf is shared (unbatched) or per-slot (leading B)."""
+    leaves = []
+    for name, leaf, base in (("tcx", p.tcx, ()), ("tcy", p.tcy, ()),
+                             ("tzc1", p.tzc1, (Z,)), ("tzc2", p.tzc2, (Z,))):
+        t = torch.as_tensor(leaf, dtype=torch.float32, device=device)
+        if tuple(t.shape) not in (base, (B,) + base):
+            raise ValueError(f"params.{name} must have shape {base} or "
+                             f"{(B,) + base}, got {tuple(t.shape)}")
+        leaves.append(t)
+    return AdvectParams(*leaves)
+
+
+# ---------------------------------------------------------------------------
+# K1: the fused ring
+# ---------------------------------------------------------------------------
+
+
+def _advect_fused_plain(u, v, w, p: AdvectParams, T: int, dt: float,
+                        xm, ym, y_tile=None):
+    """Plain PyTorch version of the fused kernel: T masked Euler steps of
+    the reference over (B, X, Y, Z) fields. `y_tile` is taken and ignored,
+    since tiled and untiled results are equal by contract."""
+    del y_tile
+    X = u.shape[-3]
+    j = torch.arange(X, device=u.device)
+    x_ok = (j >= 1) & (j <= X - 2) & (xm > 0.0)
+    m = x_ok[..., :, None, None] & (ym > 0.0)[..., None, :, None]
+    for _ in range(T):
+        su, sv, sw = pw_advect_ref(u, v, w, p)
+        u = u + dt * torch.where(m, su, 0.0)
+        v = v + dt * torch.where(m, sv, 0.0)
+        w = w + dt * torch.where(m, sw, 0.0)
+    return u, v, w
+
+
+def _pack_rows(rows, B: int) -> Tuple[torch.Tensor, int]:
+    """Stack per-slot (or shared) rows into a contiguous (B or 1, n) table
+    and the slot stride the kernel steps by (0 = shared)."""
+    batched = any(r.ndim == 2 for r in rows)
+    n = sum(r.shape[-1] for r in rows)
+    table = torch.cat([r.reshape(-1, r.shape[-1]).expand(B if batched else 1,
+                                                         r.shape[-1])
+                       for r in rows], dim=1).contiguous()
+    return table, (n if batched else 0)
+
+
+def _param_table(p: AdvectParams, B: int) -> Tuple[torch.Tensor, int]:
+    """The kernel's parameter rows [tcx, tcy, tzc1(Z), tzc2(Z)]: one row
+    shared by every slot (stride 0) when no leaf is per-slot, else one row
+    per slot (stride 2 + 2Z), a shared leaf repeated in each."""
+    return _pack_rows([p.tcx[..., None], p.tcy[..., None], p.tzc1, p.tzc2], B)
+
+
+def _advect_fused_cuda(u, v, w, p: AdvectParams, T: int, dt: float,
+                       xm, ym, y_tile=None):
+    """Launch the fused CUDA ring kernel on (B, X, Y, Z) fields."""
+    B, X, Y, Z = u.shape
+    ring = fused_register_bytes(T, Y, Z, 4, y_tile=y_tile)
+    if ring > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"the fused ring needs {ring} B of shared memory at T={T}, "
+            f"Y={Y}, Z={Z}, y_tile={y_tile}; one block may use "
+            f"{SMEM_PER_BLOCK} B. Pass a smaller y_tile "
+            f"(largest_fitting_y_tile gives one)")
+    lib = _build.load()
+    TY, S, n_ty = _grid_geometry(Y, y_tile, T)
+    pt, sp = _param_table(p, B)
+    xmt, sx = _pack_rows([xm], B)
+    ymt, sy = _pack_rows([ym], B)
+    outs = [torch.empty_like(u) for _ in range(3)]
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    err = lib.advect_fused_f32(
+        u.data_ptr(), v.data_ptr(), w.data_ptr(),
+        *(o.data_ptr() for o in outs), pt.data_ptr(), xmt.data_ptr(),
+        ymt.data_ptr(), B, X, Y, Z, T, TY, S, n_ty, sp, sx, sy, dt, ring,
+        stream)
+    _build.check(err, "advect_fused_f32")
+    LAUNCHES["advect_fused"] += 1
+    return tuple(outs)
+
+
+def advect_fused_batched(u, v, w, p: AdvectParams, *, T: int = 4,
+                         dt: float = 1.0, y_tile: int | None = None,
+                         tiling: str = "grid", y_interior_mask=None,
+                         x_interior_mask=None, guard: bool = False):
+    """Advance B slot-stacked (B, X, Y, Z) domains T steps in one launch.
+
+    Each `p` leaf is shared (unbatched) or per-slot (leading B);
+    `x_interior_mask` / `y_interior_mask` are shared ``(X,)`` / ``(Y,)`` or
+    per-slot ``(B, X)`` / ``(B, Y)`` (nonzero = the source may be applied).
+    A request smaller than the slot shape freezes everything outside its
+    own extent with zeros in its masks, so the padded run reproduces the
+    unpadded domain bitwise. Per-slot outputs equal B sequential
+    `advect_fused` calls bitwise. `guard=True` also returns the (B, X)
+    finite-guard flags of the advanced fields, from a separate launch.
+    """
+    if T < 1:
+        raise ValueError(f"T must be >= 1, got {T}")
+    _check_tiling(tiling)
+    _check_y_tile(y_tile)
+    if tiling == "host":
+        raise NotImplementedError(HOST_TILING_TODO)
+    _check_fields(u, v, w, 4, "slot-stacked (B, X, Y, Z)")
+    B, X, Y, Z = u.shape
+    xm = _mask(x_interior_mask, X, B, "x_interior_mask", u.device)
+    ym = _mask(y_interior_mask, Y, B, "y_interior_mask", u.device)
+    ps = _slot_params(p, B, Z, u.device)
+    run = _advect_fused_cuda if u.is_cuda else _advect_fused_plain
+    ou, ov, ow = run(u, v, w, ps, T, float(dt), xm, ym, y_tile)
+    if guard:
+        return ou, ov, ow, finite_guard(ou, ov, ow)
+    return ou, ov, ow
+
+
+def advect_fused(u, v, w, p: AdvectParams, *, T: int = 4, dt: float = 1.0,
+                 y_tile: int | None = None, tiling: str = "grid",
+                 y_interior_mask=None, x_interior_mask=None,
+                 guard: bool = False):
+    """v4: advance (X, Y, Z) fields T explicit-Euler steps in one pass.
+
+    Returns the advanced ``(u, v, w)``, or ``(u, v, w, flags)`` with
+    `guard=True`, flags being the (X,) `finite_guard` pass over the
+    advanced fields (a separate launch: the field outputs are the same bits
+    as with `guard=False`). `y_tile` runs the in-grid tiling; on CUDA the
+    ring of the chosen tile (None = untiled) must fit one block's shared
+    memory, else this raises naming the budget. `y_interior_mask` (Y,) and
+    `x_interior_mask` (X,) freeze rows / x-planes whose entry is zero.
+    This is `advect_fused_batched` with one slot.
+    """
+    _check_fields(u, v, w, 3, "(X, Y, Z)")
+    X, Y, _ = u.shape
+    for name, m, n in (("y_interior_mask", y_interior_mask, Y),
+                       ("x_interior_mask", x_interior_mask, X)):
+        if m is not None and tuple(torch.as_tensor(m).shape) != (n,):
+            raise ValueError(f"{name} must have shape ({n},), got "
+                             f"{tuple(torch.as_tensor(m).shape)}")
+    outs = advect_fused_batched(u[None], v[None], w[None], p, T=T, dt=dt,
+                                y_tile=y_tile, tiling=tiling,
+                                y_interior_mask=y_interior_mask,
+                                x_interior_mask=x_interior_mask, guard=guard)
+    return tuple(o[0] for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# K4: the finite guard
+# ---------------------------------------------------------------------------
+
+
+def _finite_guard_plain(u, v, w):
+    """Plain version: (..., X) f32 flags, 1.0 iff slice x is all finite."""
+    ok = torch.ones(u.shape[:-2], dtype=torch.bool, device=u.device)
+    for f in (u, v, w):
+        ok &= torch.isfinite(f).flatten(-2).all(dim=-1)
+    return ok.to(torch.float32)
+
+
+def _finite_guard_cuda(u, v, w):
+    """Launch the finite-guard CUDA kernel on (B, X, Y, Z) fields."""
+    lib = _build.load()
+    B, X, Y, Z = u.shape
+    flags = torch.empty((B, X), dtype=torch.float32, device=u.device)
+    vec4 = int((Y * Z) % 4 == 0
+               and all(f.data_ptr() % 16 == 0 for f in (u, v, w)))
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    err = lib.finite_guard_f32(u.data_ptr(), v.data_ptr(), w.data_ptr(),
+                               flags.data_ptr(), B, X, Y * Z, vec4, stream)
+    _build.check(err, "finite_guard_f32")
+    LAUNCHES["finite_guard"] += 1
+    return flags
+
+
+def finite_guard(u, v, w):
+    """Flags of the x-slices that are entirely finite in u, v and w.
+
+    (X, Y, Z) fields give (X,) f32 flags, slot-stacked (B, X, Y, Z) fields
+    give (B, X): ``flags[..., x] == 1.0`` iff slice x of all three fields is
+    finite, so ``flags.min() > 0`` iff the whole state is. Its bytes are
+    `roofline.guard_bytes_model`."""
+    if not torch.is_tensor(u) or u.ndim not in (3, 4):
+        raise ValueError("finite_guard takes (X, Y, Z) or slot-stacked "
+                         "(B, X, Y, Z) fields")
+    _check_fields(u, v, w, u.ndim, "(X, Y, Z) or (B, X, Y, Z)")
+    if not u.is_cuda:
+        return _finite_guard_plain(u, v, w)
+    if u.ndim == 3:
+        return _finite_guard_cuda(u[None], v[None], w[None])[0]
+    return _finite_guard_cuda(u, v, w)

@@ -1,0 +1,186 @@
+"""Domain-level PW advection: the paper's application, end to end.
+
+`AdvectionDomain` owns the (X, Y, Z) wind fields on a device and steps them
+with the plain reference (the paper's CPU baseline) or the fused kernel
+(v4: T Euler steps per pass over device memory). The stratus-cloud
+initialisation mirrors the paper's MONC case sizes (Fig. 8: 1M .. 268M grid
+points at z=64) and produces the same bytes as the reference package's.
+Mesh, exchange, batch and serving accounting wait for the slices that port
+those paths.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import roofline as R
+from repro_torch.kernels.advection import advection as K
+from repro_torch.kernels.advection import ops
+from repro_torch.kernels.advection import ref as REF
+
+VARIANTS = ("reference", "blocked", "dataflow", "wide", "fused")
+PORTED_VARIANTS = ("reference", "fused")
+
+# the paper's experiment grid sizes (Fig. 8), (x, y, z)
+PAPER_GRIDS = {
+    "1M": (16, 1024, 64),
+    "4M": (64, 1024, 64),
+    "16M": (256, 1024, 64),   # Fig. 3/5 use 512x512x64 = 16.7M
+    "67M": (1024, 1024, 64),
+    "268M": (4096, 1024, 64),
+}
+
+
+def stratus_fields(X: int, Y: int, Z: int, seed: int = 0,
+                   dtype=torch.float32,
+                   device="cuda") -> Tuple[torch.Tensor, ...]:
+    """Smooth, divergence-ish wind fields standing in for the stratus case,
+    computed in numpy float64 exactly as the reference does, then cast."""
+    rng = np.random.default_rng(seed)
+    kx = np.linspace(0, 2 * np.pi, X)[:, None, None]
+    ky = np.linspace(0, 2 * np.pi, Y)[None, :, None]
+    kz = np.linspace(0, np.pi, Z)[None, None, :]
+    u = 5.0 * np.sin(kx + 0.5) * np.cos(ky) * np.sin(kz + 0.1)
+    v = 4.0 * np.cos(kx) * np.sin(ky + 0.3) * np.sin(kz)
+    w = 0.5 * np.sin(kx) * np.sin(ky) * np.cos(kz)
+    for f in (u, v, w):
+        f += 0.01 * rng.normal(size=f.shape)
+    return REF.fields_from_numpy(u, v, w, dtype=dtype, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdvectionDomain:
+    """An (X, Y, Z) advection domain on `device` ("cuda" unless the caller
+    asks for "cpu"). Frozen: vary it with `dataclasses.replace`.
+
+    With `variant="fused"` on CUDA and `y_tile=None`, the domain runs the
+    largest y-tile whose ring fits one block's shared memory
+    (`advection.largest_fitting_y_tile`; the largest divisor of Y when it is
+    at least half that size), or untiled where the whole-Y ring fits. Tiled
+    and untiled results are equal bitwise, so this changes no result.
+    """
+    X: int
+    Y: int
+    Z: int
+    variant: str = "fused"
+    device: str = "cuda"
+    dtype: str = "float32"
+    fuse_T: int = 4                   # fused (v4): Euler steps per pass
+    y_tile: Optional[int] = None      # in-grid y-tiles of the fused ring
+    tiling: str = "grid"
+    fuse_update: bool = False         # reference: return f + dt*s
+    dt: float = 1.0
+
+    def __post_init__(self):
+        if self.variant not in VARIANTS:
+            raise ValueError(f"variant must be one of {VARIANTS}, got "
+                             f"{self.variant!r}")
+        if self.variant not in PORTED_VARIANTS:
+            raise NotImplementedError(
+                f"variant {self.variant!r} is not ported yet: ROADMAP "
+                "Queue 1, Slice B")
+        if self.dtype != "float32":
+            raise NotImplementedError("only float32 is ported; bf16 is "
+                                      "queued in ROADMAP Queue 2")
+        K._check_tiling(self.tiling)
+        K._check_y_tile(self.y_tile)
+        if self.tiling == "host":
+            raise NotImplementedError(K.HOST_TILING_TODO)
+        tile = self.y_tile
+        if (tile is None and self.variant == "fused"
+                and torch.device(self.device).type == "cuda"):
+            tile = K.largest_fitting_y_tile(self.fuse_T, self.Y, self.Z,
+                                            self.itemsize)
+        object.__setattr__(self, "run_y_tile", tile)
+        object.__setattr__(self, "params",
+                           REF.default_params(self.Z, dtype=torch.float32,
+                                              device=self.device))
+
+    @property
+    def itemsize(self) -> int:
+        return torch.empty((), dtype=getattr(torch, self.dtype)).itemsize
+
+    def init(self, seed: int = 0):
+        return stratus_fields(self.X, self.Y, self.Z, seed,
+                              getattr(torch, self.dtype), self.device)
+
+    def sources(self, u, v, w):
+        if self.variant == "fused":
+            raise ValueError("fused advances fields in-kernel; use step()")
+        if self.fuse_update:
+            raise ValueError("fuse_update advances fields; use step()")
+        return ops.pw_advect(u, v, w, self.params, variant="reference")
+
+    def step(self, u, v, w, dt: Optional[float] = None):
+        """One advection update. `fused` (and `fuse_update=True`) bakes dt
+        in, so a dt override is rejected there."""
+        if self.variant == "fused" or self.fuse_update:
+            if dt is not None and dt != self.dt:
+                raise ValueError("the fused-update path bakes dt in; set "
+                                 "AdvectionDomain(dt=...) instead")
+            if self.variant == "fused":
+                return ops.pw_advect_fused(u, v, w, self.params,
+                                           T=self.fuse_T, dt=self.dt,
+                                           y_tile=self.run_y_tile)
+            return ops.pw_advect(u, v, w, self.params, variant="reference",
+                                 fuse_update=True, dt=self.dt)
+        dt = self.dt if dt is None else dt
+        su, sv, sw = self.sources(u, v, w)
+        return u + dt * su, v + dt * sv, w + dt * sw
+
+    def substeps_per_step(self) -> int:
+        """Euler substeps one step() call advances (T for fused, else 1)."""
+        return self.fuse_T if self.variant == "fused" else 1
+
+    def advance(self, u, v, w, n_substeps: int):
+        """Run `n_substeps` Euler substeps, in chunks of `fuse_T` for the
+        fused variant."""
+        per = self.substeps_per_step()
+        if n_substeps % per:
+            raise ValueError(f"n_substeps={n_substeps} not a multiple of "
+                             f"fuse_T={per}")
+        for _ in range(n_substeps // per):
+            u, v, w = self.step(u, v, w)
+        return u, v, w
+
+    def flops_per_step(self) -> int:
+        cells = (self.X - 2) * (self.Y - 2) * (self.Z - 2)
+        return cells * REF.flops_per_cell() * self.substeps_per_step()
+
+    def hbm_bytes_per_step(self) -> int:
+        """Modelled device-memory bytes per step() call (fused: per T-step
+        pass); `reference` without `fuse_update` also pays the separate
+        `f + dt*s` pass."""
+        return K.hbm_bytes_model(
+            self.X, self.Y, self.Z, self.itemsize,
+            "fused" if self.variant == "fused" else "pointwise",
+            T=self.substeps_per_step(), y_tile=self.run_y_tile,
+            grid_tiled=True, fuse_update=self.variant == "fused"
+            or self.fuse_update)
+
+    def vmem_halo_bytes_per_step(self) -> int:
+        """Halo re-read bytes served from the on-chip slab by the tiled
+        fused path."""
+        return K.vmem_halo_bytes_model(
+            self.X, self.Y, self.Z, self.itemsize,
+            "fused" if self.variant == "fused" else "pointwise",
+            T=self.substeps_per_step(), y_tile=self.run_y_tile)
+
+    def vmem_register_bytes(self) -> int:
+        """On-chip ring bytes of the configuration (one block's shared
+        memory on Hopper)."""
+        depth = self.fuse_T if self.variant == "fused" else 1
+        return K.fused_register_bytes(depth, self.Y, self.Z, self.itemsize,
+                                      y_tile=self.run_y_tile)
+
+    def guard_bytes_per_step(self) -> int:
+        """Extra device-memory bytes of the finite-guard pass
+        (`roofline.guard_bytes_model`)."""
+        if self.variant != "fused":
+            raise ValueError("the finite guard rides the fused kernel; "
+                             f"variant={self.variant!r} has no guard path")
+        return R.guard_bytes_model(self.X, self.Y, self.Z,
+                                   itemsize=self.itemsize)

@@ -1,0 +1,77 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked `cuda`: each test skips without a CUDA device (decided inside the
+fixture). On a GPU host:
+`PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py`."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.advection import advection as TK
+from repro_torch.kernels.advection import ref as TREF
+
+pytestmark = pytest.mark.cuda
+DT = 0.01
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels run only there")
+    return "cuda"
+
+
+def fields(shape, seed, device):
+    rng = np.random.default_rng(seed)
+    return TREF.fields_from_numpy(*(rng.normal(size=shape) for _ in range(3)),
+                                  device=device)
+
+
+@pytest.mark.parametrize("shape", [(6, 10, 12), (5, 17, 12), (8, 12, 10)])
+@pytest.mark.parametrize("T", [1, 2, 4])
+def test_fused_kernel_bitwise_equals_plain(cuda, shape, T):
+    u, v, w = fields(shape, 0, cuda)
+    p = TREF.default_params(shape[2], device=cuda)
+    before = TK.LAUNCHES["advect_fused"]
+    full = TK.advect_fused(u, v, w, p, T=T, dt=DT)
+    assert TK.LAUNCHES["advect_fused"] == before + 1
+    plain = TK._advect_fused_plain(u[None], v[None], w[None], p, T, DT,
+                                   torch.ones(shape[0], device=cuda),
+                                   torch.ones(shape[1], device=cuda))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b[0]) for a, b in zip(full, plain))
+    for y_tile in (4, 5, 7):
+        tiled = TK.advect_fused(u, v, w, p, T=T, dt=DT, y_tile=y_tile)
+        assert all(torch.equal(a, b) for a, b in zip(tiled, full))
+
+
+def test_guard_kernel_equals_plain(cuda):
+    u, v, w = fields((8, 16, 64), 1, cuda)
+    u[2, 3, 5] = float("nan")
+    w[5, 0, 0] = float("inf")
+    got = TK.finite_guard(u, v, w)
+    assert torch.equal(got, TK._finite_guard_plain(u, v, w))
+    assert got.tolist() == [1.0, 1.0, 0.0, 1.0, 1.0, 0.0, 1.0, 1.0]
+
+
+def test_ring_over_budget_raises(cuda):
+    u, v, w = (torch.zeros((3, 1024, 64), device=cuda) for _ in range(3))
+    p = TREF.default_params(64, device=cuda)
+    with pytest.raises(ValueError, match="232448"):
+        TK.advect_fused(u, v, w, p, T=4)
+
+
+@pytest.mark.parametrize("leaf", ["tcx", "tcy", "tzc1", "tzc2"])
+def test_batched_one_per_slot_leaf_equals_sequential(cuda, leaf):
+    """One leaf per-slot, the others shared: each slot uses its own value."""
+    B, (X, Y, Z) = 3, (5, 17, 12)
+    slots = [fields((X, Y, Z), 10 + b, cuda) for b in range(B)]
+    u, v, w = (torch.stack([sl[i] for sl in slots]) for i in range(3))
+    base = TREF.default_params(Z, device=cuda)
+    per = torch.stack([getattr(base, leaf) * s for s in (1.0, 1.5, 0.5)])
+    p = base._replace(**{leaf: per})
+    out = TK.advect_fused_batched(u, v, w, p, T=2, dt=DT, y_tile=5)
+    for b in range(B):
+        pb = base._replace(**{leaf: per[b]})
+        seq = TK.advect_fused(u[b], v[b], w[b], pb, T=2, dt=DT, y_tile=5)
+        assert all(torch.equal(o[b], s) for o, s in zip(out, seq)), b

@@ -1,0 +1,103 @@
+"""The port stands alone: no module of `repro_torch`, and not
+`chip_smoke.py`, imports JAX or the reference package `repro`; and the
+CUDA dispatch raises what the kernel loader raises instead of falling back
+to a plain version."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import _build
+from repro_torch.kernels.advection import advection as TK
+from repro_torch.kernels.advection import ref as TREF
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+IMPORT_ALL = r"""
+import importlib, importlib.abc, importlib.util, pkgutil, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+assert hasattr(smoke, "main")
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
+assert not bad, bad
+print(len(names), "modules")
+"""
+
+
+def test_port_and_smoke_import_without_jax_or_reference():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", IMPORT_ALL,
+                          str(ROOT / "chip_smoke.py")], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert int(out.stdout.split()[0]) >= 8
+
+
+def test_no_source_line_imports_jax_or_reference():
+    pattern = re.compile(r"^\s*(import|from) (jax|repro)\b")
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    hits = [f"{f}:{n}" for f in files
+            for n, line in enumerate(f.read_text().splitlines(), 1)
+            if pattern.match(line)]
+    assert not hits, hits
+
+
+def _refuse(*args, **kwargs):
+    raise RuntimeError("kernel loader unavailable")
+
+
+def test_cuda_dispatch_propagates_loader_errors(monkeypatch):
+    monkeypatch.setattr(_build, "load", _refuse)
+    before = dict(TK.LAUNCHES)
+    u, v, w = (torch.zeros((1, 4, 8, 8)) for _ in range(3))
+    p = TK._slot_params(TREF.default_params(8, device="cpu"), 1, 8, "cpu")
+    with pytest.raises(RuntimeError, match="kernel loader unavailable"):
+        TK._advect_fused_cuda(u, v, w, p, 2, 0.01, torch.ones(4),
+                              torch.ones(8), None)
+    with pytest.raises(RuntimeError, match="kernel loader unavailable"):
+        TK._finite_guard_cuda(u, v, w)
+    assert TK.LAUNCHES == before
+
+
+def test_cpu_tensors_take_the_plain_version_without_launching(monkeypatch):
+    monkeypatch.setattr(_build, "load", _refuse)
+    before = dict(TK.LAUNCHES)
+    u, v, w = (torch.ones((4, 8, 8)) for _ in range(3))
+    p = TREF.default_params(8, device="cpu")
+    TK.advect_fused(u, v, w, p, T=2, guard=True)
+    assert TK.LAUNCHES == before
+
+
+def test_build_key_follows_sources_and_flags(monkeypatch):
+    key = _build._digest()
+    assert re.fullmatch(r"[0-9a-f]{16}", key)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build._digest() != key
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    assert "--fmad=false" in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_nonzero_cuda_error_raises():
+    _build.check(0, "fn")
+    with pytest.raises(RuntimeError, match="fn: CUDA error 700"):
+        _build.check(700, "fn")
