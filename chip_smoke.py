@@ -9,15 +9,24 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    shapes: fused ring == plain (bitwise), tiled == untiled, x/y interior
    masks, batched (per-slot params and masks, one padded smaller request)
    == sequential, finite-guard flags with planted NaN/Inf, guarded ==
-   unguarded outputs, and the fused ring against the f64 oracle;
+   unguarded outputs, and the fused ring against the f64 oracle; then the
+   v1-v3 rungs: blocked (K3) and dataflow (K2) == plain for sources and
+   `fuse_update`, tiled == untiled, K2 == K3, host tiling == grid for every
+   rung and the fused ring, wide == dataflow, wide's refusal at Z = 10;
 2. drives the main path at the paper's 67M grid (1024, 1024, 64):
    `AdvectionDomain(variant="fused", fuse_T=4).advance(..., 16)` (four
    fused launches) and `finite_guard` on the result, with the launch counts
    set to 0 just before and read just after; checks the result against the
    plain version on the card (bitwise), the frozen boundary planes and the
    guard flags;
-3. times each kernel with CUDA events (median of 20 after warm-up) beside
-   its bound, the least time the card could take for the same work.
+3. drives the Fig. 3 ladder path at the same grid: for each of `blocked`,
+   `dataflow` and `wide`, with and without `fuse_update`,
+   `AdvectionDomain(variant=...).advance(..., 4)`, the counts set to 0 just
+   before and read just after (the rung's kernel launched 4 times, no other
+   kernel), the result == the plain version bitwise, boundary frozen;
+4. times each kernel with CUDA events (median of 20 after warm-up) beside
+   its bound, the least time the card could take for the same work, and
+   each rung's Euler step through the domain beside K1's pass over T.
 
 Prints the card's name and power limit, one JSON line of kernel records and,
 last, `{"ok": true, "device": {...}}`. Any failed check exits nonzero
@@ -49,21 +58,32 @@ DT = 0.01
 MAIN_GRID = "67M"
 MAIN_T = 4
 MAIN_SUBSTEPS = 16
+LADDER_SUBSTEPS = 4
 SMALL_SHAPES = ((6, 10, 12), (5, 17, 12), (8, 12, 10))
 TIMED_RUNS, WARMUP = 20, 3
 ORACLE_TOL = 1e-4       # f32 fused ring vs the f64 oracle (the JAX suite's)
+RUNGS = {"advect_blocked": "blocked", "advect_dataflow": "dataflow",
+         "advect_wide": "wide"}
 SOURCE = {"advect_fused": "src/repro_torch/csrc/advect_fused.cu",
-          "finite_guard": "src/repro_torch/csrc/finite_guard.cu"}
+          "finite_guard": "src/repro_torch/csrc/finite_guard.cu",
+          "advect_blocked": "src/repro_torch/csrc/advect_blocked.cu",
+          "advect_dataflow": "src/repro_torch/csrc/advect_dataflow.cu",
+          "advect_wide": "src/repro_torch/csrc/advect_dataflow.cu"}
 REPLACES = {"advect_fused": "src/repro/kernels/advection/advection.py:404",
-            "finite_guard": "src/repro/kernels/advection/advection.py:469"}
+            "finite_guard": "src/repro/kernels/advection/advection.py:469",
+            "advect_blocked": "src/repro/kernels/advection/advection.py:214",
+            "advect_dataflow": "src/repro/kernels/advection/advection.py:272",
+            "advect_wide": "src/repro/kernels/advection/advection.py:367"}
 
 
 class Checks:
     def __init__(self):
         self.failed = []
+        self.count = 0
 
     def __call__(self, ok: bool, label: str) -> None:
         print(f"[{'ok' if ok else 'FAIL'}] {label}", flush=True)
+        self.count += 1
         if not ok:
             self.failed.append(label)
 
@@ -152,6 +172,68 @@ def small_shape_phase(check: Checks) -> None:
     check(same(tiled, masked), "K1 masked tiled == untiled")
     batched_phase(check)
     guard_phase(check)
+    ladder_small_phase(check)
+
+
+def ladder_small_phase(check: Checks) -> None:
+    """K3 and K2 against their plain version at slice 1's small shapes."""
+    for si, shape in enumerate(SMALL_SHAPES):
+        u, v, w = rand_fields(shape, seed=50 + si)
+        p = REF.default_params(shape[2], device="cuda")
+        for fu in (False, True):
+            kw = dict(fuse_update=fu, dt=DT)
+            plain = K._advect_rung_plain(u, v, w, p, fu, DT)
+            k3 = K.advect_blocked(u, v, w, p, **kw)
+            k2 = K.advect_dataflow(u, v, w, p, **kw)
+            torch.cuda.synchronize()
+            tag = f"{shape} fuse_update={fu}"
+            check(same(k3, plain), f"K3 blocked == plain {tag}")
+            check(same(k2, plain), f"K2 dataflow == plain {tag}")
+            check(same(k2, k3), f"K2 == K3 {tag}")
+            for name, fn in (("K3", K.advect_blocked),
+                             ("K2", K.advect_dataflow)):
+                for y_tile in (3, 4, 5):
+                    check(same(fn(u, v, w, p, y_tile=y_tile, **kw), plain),
+                          f"{name} tiled == untiled {tag} y_tile={y_tile}")
+                    check(same(fn(u, v, w, p, y_tile=y_tile, tiling="host",
+                                  **kw), plain),
+                          f"{name} host == grid {tag} y_tile={y_tile}")
+            for x_chunk in (1, 2, 3):
+                got = K._advect_rung_cuda("advect_dataflow", u, v, w, p, 4,
+                                          fu, DT, x_chunk=x_chunk)
+                check(same(got, plain),
+                      f"K2 x-chunks of {x_chunk} == plain {tag}")
+        for T in (1, 2, 4):
+            grid = K.advect_fused(u, v, w, p, T=T, dt=DT, y_tile=4)
+            host = K.advect_fused(u, v, w, p, T=T, dt=DT, y_tile=4,
+                                  tiling="host")
+            check(same(host, grid), f"K1 host == grid {shape} T={T}")
+    for Z in (12, 64):
+        shape = (6, 17, Z)
+        u, v, w = rand_fields(shape, seed=60 + Z)
+        p = REF.default_params(Z, device="cuda")
+        for fu in (False, True):
+            kw = dict(fuse_update=fu, dt=DT)
+            k2 = K.advect_dataflow(u, v, w, p, **kw)
+            tag = f"{shape} fuse_update={fu}"
+            check(same(K.advect_wide(u, v, w, p, **kw), k2),
+                  f"K2 wide == dataflow {tag}")
+            for y_tile in (3, 4, 5):
+                check(same(K.advect_wide(u, v, w, p, y_tile=y_tile, **kw),
+                           k2), f"K2 wide tiled == untiled {tag} "
+                      f"y_tile={y_tile}")
+            for x_chunk in (1, 2, 3):
+                got = K._advect_rung_cuda("advect_wide", u, v, w, p, 5, fu,
+                                          DT, x_chunk=x_chunk)
+                check(same(got, k2), f"K2 wide x-chunks of {x_chunk} == "
+                      f"dataflow {tag}")
+    u, v, w = rand_fields((6, 10, 10), seed=70)
+    try:
+        K.advect_wide(u, v, w, REF.default_params(10, device="cuda"))
+        refused = False
+    except ValueError as err:
+        refused = "multiple of 16" in str(err)
+    check(refused, "wide refuses Z = 10 (a row of 40 B), naming the rule")
 
 
 LEAF_BASE_NDIM = {"tcx": 0, "tcy": 0, "tzc1": 1, "tzc2": 1}
@@ -260,6 +342,7 @@ def main_path_phase(check: Checks):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
+    path = ("advect_fused", "finite_guard")
     print(f"main path: {MAIN_GRID} grid {(X, Y, Z)}, advance({MAIN_SUBSTEPS})"
           f" with fuse_T={MAIN_T}, y_tile={dom.run_y_tile} "
           f"({K._grid_geometry(Y, dom.run_y_tile, MAIN_T)[2]} blocks on "
@@ -267,7 +350,8 @@ def main_path_phase(check: Checks):
           f", ring {dom.vmem_register_bytes()} B; wall {wall:.3f} s; "
           f"launches {launches}", flush=True)
     for name, n in launches.items():
-        check(n > 0, f"{name} launched on the main path ({n})")
+        check((n > 0) == (name in path),
+              f"{name} launched {n} times on the main path")
     check(launches["advect_fused"] == MAIN_SUBSTEPS // MAIN_T,
           "advect_fused launched once per fused pass")
     check(all(o.shape == (X, Y, Z) and bool(torch.isfinite(o).all())
@@ -275,11 +359,7 @@ def main_path_phase(check: Checks):
     check(flags.shape == (X,) and bool(torch.all(flags == 1.0)),
           "finite_guard flags all 1")
     for f0, fT in zip((u0, v0, w0), out):
-        edges = (fT[0].equal(f0[0]) and fT[-1].equal(f0[-1])
-                 and fT[:, 0].equal(f0[:, 0]) and fT[:, -1].equal(f0[:, -1])
-                 and fT[:, :, 0].equal(f0[:, :, 0])
-                 and fT[:, :, -1].equal(f0[:, :, -1]))
-        check(edges, "boundary planes unchanged")
+        check(frozen_edges(f0, fT), "boundary planes unchanged")
     plain = plain_fused(u0, v0, w0, dom.params, MAIN_SUBSTEPS)
     k1_err = max(float((a - b).abs().max()) for a, b in zip(out, plain))
     check(k1_err == 0.0, f"main path == plain version, bitwise ({k1_err})")
@@ -292,7 +372,61 @@ def main_path_phase(check: Checks):
     return dom, (u0, v0, w0), out, launches, k1_err, k4_err
 
 
-def timing_phase(dom, fields, out, launches, k1_err, k4_err):
+def frozen_edges(f0, fT) -> bool:
+    return (fT[0].equal(f0[0]) and fT[-1].equal(f0[-1])
+            and fT[:, 0].equal(f0[:, 0]) and fT[:, -1].equal(f0[:, -1])
+            and fT[:, :, 0].equal(f0[:, :, 0])
+            and fT[:, :, -1].equal(f0[:, :, -1]))
+
+
+def ladder_path_phase(check: Checks, fields):
+    """Each v1-v3 rung through the domain at the 67M grid, with and without
+    `fuse_update`; returns {kernel: (launches in its `fuse_update=True`
+    run, max_abs_err over both runs)}."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    u0, v0, w0 = fields
+    p = REF.default_params(Z, device="cuda")
+    plain = (u0, v0, w0)
+    for _ in range(LADDER_SUBSTEPS):
+        plain = REF.pw_step_ref(*plain, p, DT)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    results = {}
+    for name, variant in RUNGS.items():
+        errs = []
+        for fu in (False, True):
+            dom = AdvectionDomain(X, Y, Z, variant=variant, fuse_update=fu,
+                                  dt=DT, device="cuda")
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = dom.advance(u0, v0, w0, LADDER_SUBSTEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+            TY, _, n_ty = K._grid_geometry(Y, dom.run_y_tile, 1)
+            blocks = n_ty * (X if name == "advect_blocked"
+                             else -(-X // K.DATAFLOW_X_CHUNK))
+            tag = f"{variant} fuse_update={fu}"
+            print(f"ladder path: {tag}: {MAIN_GRID} grid {(X, Y, Z)}, "
+                  f"advance({LADDER_SUBSTEPS}), y_tile={dom.run_y_tile}, "
+                  f"{blocks} blocks per launch on {sms} SMs, slab "
+                  f"{dom.vmem_register_bytes()} B; wall {wall:.3f} s; "
+                  f"launches {launches}", flush=True)
+            check(all((n == LADDER_SUBSTEPS) if k == name else n == 0
+                      for k, n in launches.items()),
+                  f"{tag}: {name} launched {LADDER_SUBSTEPS} times, no other "
+                  f"kernel")
+            err = max(float((a - b).abs().max()) for a, b in zip(out, plain))
+            check(err == 0.0, f"{tag}: == plain version, bitwise ({err})")
+            check(all(frozen_edges(f0, fT) for f0, fT in zip(fields, out)),
+                  f"{tag}: boundary planes unchanged")
+            errs.append(err)
+            del out
+        results[name] = (launches[name], max(errs))
+    return results
+
+
+def timing_phase(dom, fields, out, launches, k1_err, k4_err, ladder):
     X, Y, Z = dom.X, dom.Y, dom.Z
     u, v, w = fields
     p, T, cells = dom.params, dom.fuse_T, X * Y * Z
@@ -312,30 +446,78 @@ def timing_phase(dom, fields, out, launches, k1_err, k4_err):
                   + 6 * cells)
     k4_bytes = R.guard_bytes_model(X, Y, Z)
     k4_ops = 3 * cells
-    records = []
-    for name, ms, plain_ms, nbytes, ops, err in (
-            ("advect_fused", k1_ms, k1_plain, k1_bytes, k1_ops, k1_err),
-            ("finite_guard", k4_ms, k4_plain, k4_bytes, k4_ops, k4_err)):
-        t_bytes = nbytes / R.HBM_BW * 1e3
-        t_ops = ops / R.PEAK_FLOPS_F32 * 1e3
-        bound = max(t_bytes, t_ops)
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"{name}: {ms:.4f} ms per launch (median of {TIMED_RUNS}), "
-              f"bound {bound:.4f} ms by {bound_by}"
-              f" ({nbytes} B at {R.HBM_BW:.3g} B/s: {t_bytes:.4f} ms; "
-              f"{ops} f32 ops at {R.PEAK_FLOPS_F32:.3g}/s: {t_ops:.4f} ms), "
-              f"{nbytes / ms / 1e6:.1f} GB/s achieved, "
-              f"{bound / ms:.3f} of the bound; plain version {plain_ms:.4f} ms;"
-              f" no single PyTorch call computes this function, so no "
-              f"library time", flush=True)
-        records.append({
-            "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": bound_by,
-            "library_ms": None})
+    records = [
+        kernel_record("advect_fused", k1_ms, k1_plain, k1_bytes, k1_ops,
+                      launches["advect_fused"], k1_err),
+        kernel_record("finite_guard", k4_ms, k4_plain, k4_bytes, k4_ops,
+                      launches["finite_guard"], k4_err)]
+    # the v1-v3 rungs, at the domain's tile: each reads and writes the
+    # three fields once and reads the parameter row; 63 ops per interior
+    # cell, plus the 2-op update of 3 fields per cell with fuse_update
+    y_tile = K.largest_fitting_y_tile(1, Y, Z)
+    rung_bytes = 6 * cells * 4 + (2 + 2 * Z) * 4
+    src_ops = (X - 2) * (Y - 2) * (Z - 2) * REF.flops_per_cell()
+    rung_plain = time_ms(lambda: K._advect_rung_plain(u, v, w, p, True, DT),
+                         runs=5)
+    for name, variant in RUNGS.items():
+        fn = getattr(K, name)
+        src_ms = time_ms(lambda: fn(u, v, w, p, y_tile=y_tile))
+        print(f"{name} sources only: {src_ms:.4f} ms per launch, bound "
+              f"{bound_of(rung_bytes, src_ops)[0]:.4f} ms", flush=True)
+        ms = time_ms(lambda: fn(u, v, w, p, y_tile=y_tile, fuse_update=True,
+                                dt=DT))
+        n, err = ladder[name]
+        records.append(kernel_record(name, ms, rung_plain, rung_bytes,
+                                     src_ops + 6 * cells, n, err))
+    # the ladder per Euler step through the domain; without fuse_update the
+    # step pays the separate f + dt*s pass. One step must read and write
+    # the three fields once (the rung's bound); K1 shares that over T steps
+    for variant in RUNGS.values():
+        for fu in (False, True):
+            rdom = AdvectionDomain(X, Y, Z, variant=variant, fuse_update=fu,
+                                   dt=DT, device="cuda")
+            step_ms = time_ms(lambda: rdom.step(u, v, w))
+            ladder_line(f"{variant} fuse_update={fu}", step_ms,
+                        rdom.hbm_bytes_per_step(),
+                        bound_of(rung_bytes, src_ops + 6 * cells)[0])
+    ladder_line(f"fused T={T} (K1 pass / T)", k1_ms / T,
+                dom.hbm_bytes_per_step() / T,
+                bound_of(k1_bytes, k1_ops)[0] / T)
     return records
+
+
+def bound_of(nbytes: int, ops: int):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
+    card's memory rate and the f32 operations over its peak rate."""
+    t_bytes = nbytes / R.HBM_BW * 1e3
+    t_ops = ops / R.PEAK_FLOPS_F32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def kernel_record(name, ms, plain_ms, nbytes, ops, launches, err) -> dict:
+    bound, bound_by = bound_of(nbytes, ops)
+    print(f"{name}: {ms:.4f} ms per launch (median of {TIMED_RUNS}), "
+          f"bound {bound:.4f} ms by {bound_by} ({nbytes} B at "
+          f"{R.HBM_BW:.3g} B/s: {nbytes / R.HBM_BW * 1e3:.4f} ms; {ops} f32 "
+          f"ops at {R.PEAK_FLOPS_F32:.3g}/s: "
+          f"{ops / R.PEAK_FLOPS_F32 * 1e3:.4f} ms), "
+          f"{nbytes / ms / 1e6:.1f} GB/s achieved, {bound / ms:.3f} of the "
+          f"bound; plain version {plain_ms:.4f} ms; no single PyTorch call "
+          f"computes this function, so no library time", flush=True)
+    return {"name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+
+
+def ladder_line(what: str, step_ms: float, step_bytes: float,
+                bound_ms: float) -> None:
+    print(f"Fig. 3 ladder on the card: {what}: {step_ms:.4f} ms per Euler "
+          f"step (median of {TIMED_RUNS}), bound {bound_ms:.4f} ms, "
+          f"modelled {step_bytes:.0f} B per step, "
+          f"{step_bytes / step_ms / 1e6:.1f} GB/s at the modelled bytes",
+          flush=True)
 
 
 def main() -> int:
@@ -354,7 +536,12 @@ def main() -> int:
     check = Checks()
     small_shape_phase(check)
     dom, fields, out, launches, k1_err, k4_err = main_path_phase(check)
-    records = timing_phase(dom, fields, out, launches, k1_err, k4_err)
+    ladder = ladder_path_phase(check, fields)
+    records = timing_phase(dom, fields, out, launches, k1_err, k4_err,
+                           ladder)
+    print(f"chip_smoke: {len(check.failed)} of {check.count} checks failed; "
+          f"{time.perf_counter() - t0:.1f} s since the build began",
+          flush=True)
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed: "
               f"{check.failed}", file=sys.stderr)

@@ -25,7 +25,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
-SOURCES = ("advect_fused.cu", "finite_guard.cu")
+SOURCES = ("advect_fused.cu", "finite_guard.cu", "advect_blocked.cu",
+           "advect_dataflow.cu")
+HEADERS = ("pw_source.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -36,6 +38,8 @@ _P, _I, _F, _LL, _SZ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 SIGNATURES = {
     "advect_fused_f32": [_P] * 9 + [_I] * 11 + [_F, _SZ, _P],
     "finite_guard_f32": [_P] * 4 + [_I, _I, _LL, _I, _P],
+    "advect_blocked_f32": [_P] * 7 + [_I] * 7 + [_F, _SZ, _P],
+    "advect_dataflow_f32": [_P] * 7 + [_I] * 9 + [_F, _SZ, _P],
 }
 
 
@@ -52,7 +56,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

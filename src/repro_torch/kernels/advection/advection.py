@@ -1,25 +1,32 @@
-"""Fused PW advection (v4 temporal blocking) and the finite guard, on Hopper.
+"""PW advection on Hopper: the Fig. 3 ladder (v1 `blocked`, v2 `dataflow`,
+v3 `wide`, v4 `fused`) and the finite guard.
 
-Counterpart of the fused part of `repro.kernels.advection.advection`.
-`advect_fused` advances u, v, w by T explicit-Euler steps in one pass over
-device memory; `advect_fused_batched` does so for B slot-stacked domains in
-one launch, the slot being a dimension of the launch grid; `finite_guard`
-flags the x-slices whose three fields are all finite.
+Counterpart of `repro.kernels.advection.advection`. `advect_blocked`,
+`advect_dataflow` and `advect_wide` return the PW sources of u, v, w, or
+with `fuse_update=True` the fields advanced one explicit-Euler step;
+`advect_fused` advances them T steps in one pass over device memory;
+`advect_fused_batched` does so for B slot-stacked domains in one launch, the
+slot being a dimension of the launch grid; `finite_guard` flags the
+x-slices whose three fields are all finite.
 
 Each wrapper dispatches on where its tensors lie. On a CUDA tensor it
-launches its hand-written kernel (`csrc/advect_fused.cu`,
-`csrc/finite_guard.cu`) or raises; on a CPU tensor it runs the kernel's plain
-PyTorch version beside it (`_advect_fused_plain`, `_finite_guard_plain`).
+launches its hand-written kernel (`csrc/advect_blocked.cu`,
+`csrc/advect_dataflow.cu`, `csrc/advect_fused.cu`, `csrc/finite_guard.cu`)
+or raises; on a CPU tensor it runs the kernel's plain PyTorch version beside
+it (`_advect_rung_plain`, `_advect_fused_plain`, `_finite_guard_plain`).
 There is no fallback from one to the other. `LAUNCHES` counts the kernel
-launches, one per launch, so a run can show it went through the kernels.
+launches, one per launch and one key per rung, so a run can show which
+kernel it went through.
 
 The y-tile geometry is the reference's: tile t owns rows
-[t*TY, min((t+1)*TY, Y)) and streams a slab of S = TY + 2T rows clipped flush
-into the domain, so every owned row keeps T rows of margin to a cut slab
-edge and tiled outputs equal untiled ones bitwise. The ring of 3 fields x T
-levels x 3 slots x S x Z floats lives in one block's shared memory, so a
-tile whose ring exceeds `roofline.SMEM_PER_BLOCK` cannot run;
-`largest_fitting_y_tile` picks one that does.
+[t*TY, min((t+1)*TY, Y)) and streams a slab of S = TY + 2H rows clipped
+flush into the domain (H = 1 for v1-v3, T for v4), so every owned row keeps
+H rows of margin to a cut slab edge and tiled outputs equal untiled ones
+bitwise. A block keeps its slab in shared memory: 3 fields x 3 slices of
+S x Z floats for v1-v3, x T levels for v4. A tile whose slab exceeds
+`roofline.SMEM_PER_BLOCK` cannot run; `largest_fitting_y_tile` picks one
+that does. `tiling="host"` is the reference's retained host-side tile loop
+(`_y_tiled_host`): one call per halo'd block and a restitch.
 """
 from __future__ import annotations
 
@@ -29,13 +36,22 @@ import torch
 
 from repro_torch import _build
 from repro_torch.core.roofline import SMEM_PER_BLOCK
-from repro_torch.kernels.advection.ref import AdvectParams, pw_advect_ref
+from repro_torch.kernels.advection.ref import (AdvectParams, pw_advect_ref,
+                                               pw_step_ref)
 
 TILINGS = ("grid", "host")
-HOST_TILING_TODO = ("tiling='host' (the retained host-side tile loop) is not "
-                    "ported yet: ROADMAP Queue 1, Slice B item 7")
+DATAFLOW_X_CHUNK = 32   # x-slices each dataflow/wide block streams
+MAX_GRID_Y = 65535      # CUDA's limit on a launch grid's second dimension
+WIDE_ROW_RULE = ("wide moves each Z row as 16-byte vectors: Z * 4 bytes must "
+                 "be a multiple of 16 (Z % 4 == 0), got Z={Z} ({row} B); use "
+                 "dataflow for this Z")
+WIDE_HOST_RULE = ("wide runs the in-grid tiled path only: the host tile loop "
+                  "is kept as the anti-pattern baseline of the other rungs, "
+                  "and the reference refuses it for wide too; use "
+                  "tiling='grid' or dataflow with tiling='host'")
 
-LAUNCHES = {"advect_fused": 0, "finite_guard": 0}
+LAUNCHES = {"advect_fused": 0, "finite_guard": 0, "advect_blocked": 0,
+            "advect_dataflow": 0, "advect_wide": 0}
 
 
 def reset_launch_counts() -> None:
@@ -92,9 +108,10 @@ def _own_start(t: int, Y: int, TY: int, S: int, H: int) -> int:
 
 def fused_register_bytes(T: int, y_rows: int, Z: int, itemsize: int = 4,
                          y_tile: int | None = None) -> int:
-    """Bytes of the fused ring: 3 fields x T levels x 3 slots of
-    ``min(y_tile + 2T, y_rows)`` rows. On Hopper the ring is one block's
-    dynamic shared memory, so it must stay within
+    """Bytes of a ring: 3 fields x T levels x 3 slots of
+    ``min(y_tile + 2T, y_rows)`` rows. T = 1 is the v1-v3 slab (3 fields x
+    3 slices, halo 1), the v4 ring otherwise. On Hopper the ring is one
+    block's dynamic shared memory, so it must stay within
     `roofline.SMEM_PER_BLOCK`."""
     rows = y_rows if y_tile is None else min(y_tile + 2 * T, y_rows)
     return 3 * 3 * T * rows * Z * itemsize
@@ -102,11 +119,12 @@ def fused_register_bytes(T: int, y_rows: int, Z: int, itemsize: int = 4,
 
 def largest_fitting_y_tile(T: int, Y: int, Z: int, itemsize: int = 4,
                            budget: int = SMEM_PER_BLOCK) -> Optional[int]:
-    """The y_tile the fused CUDA kernel runs with when the caller names
-    none: None (untiled) when the whole-Y ring fits `budget`; else the
-    largest tile whose ring fits, taking the largest divisor of Y instead
-    when it is at least half that size (even tiles leave no remainder tile
-    that streams a full slab for a few rows). Raises when no tile fits."""
+    """The y_tile a ring kernel runs with when the caller names none (T = 1
+    for the v1-v3 slab, the fusion depth for v4): None (untiled) when the
+    whole-Y ring fits `budget`; else the largest tile whose ring fits,
+    taking the largest divisor of Y instead when it is at least half that
+    size (even tiles leave no remainder tile that streams a full slab for a
+    few rows). Raises when no tile fits."""
     if fused_register_bytes(T, Y, Z, itemsize) <= budget:
         return None
     best = budget // (3 * 3 * T * Z * itemsize) - 2 * T
@@ -131,6 +149,16 @@ def _host_overlap_rows(Y: int, y_tile: int | None, halo: int) -> int:
     return 2 * halo * (n - 1)
 
 
+def _check_wide_model(Y: int, Z: int, itemsize: int, y_tile: int | None,
+                      grid_tiled: bool) -> None:
+    """Where `advect_wide` refuses to run, and the models refuse to price
+    it: a Z row that is not whole 16-byte vectors, or host tiling."""
+    if Z * itemsize % 16:
+        raise ValueError(WIDE_ROW_RULE.format(Z=Z, row=Z * itemsize))
+    if not grid_tiled and y_tile is not None and y_tile < Y:
+        raise ValueError(WIDE_HOST_RULE)
+
+
 def hbm_bytes_model(X: int, Y: int, Z: int, itemsize: int, variant: str,
                     *, T: int = 1, y_tile: int | None = None,
                     grid_tiled: bool = True,
@@ -148,12 +176,17 @@ def hbm_bytes_model(X: int, Y: int, Z: int, itemsize: int, variant: str,
     `grid_tiled=False` models the host tile loop, restaging `2*halo` rows
     per interior tile boundary on both sides. `fuse_update=False` adds the
     separate `f + dt*s` pass of the non-fused rungs (contiguous arrays, so
-    no row penalty). `wide` is the TPU lane-aligned rung; it is priced
-    once it is ported.
+    no row penalty).
+
+    `wide` moves what `dataflow` moves: its rows are whole 16-byte vectors
+    by contract, so none is padded, and its fetch halo on the card is 1 row
+    (the reference's 8-row halo is the TPU's sublane rule). It equals the
+    reference's value wherever the reference accepts the shape (Z % 128 ==
+    0, y_tile % 8 == 0), and raises where `advect_wide` would refuse to run:
+    a row that is not whole 16-byte vectors, or host tiling.
     """
     if variant == "wide":
-        raise NotImplementedError("hbm_bytes_model('wide') waits for "
-                                  "advect_wide (ROADMAP Queue 2, K2)")
+        _check_wide_model(Y, Z, itemsize, y_tile, grid_tiled)
     slice_b = Y * Z * itemsize
     row_b = _padded_row_bytes(Z, itemsize)
     halo = T if variant == "fused" else 1
@@ -161,7 +194,7 @@ def hbm_bytes_model(X: int, Y: int, Z: int, itemsize: int, variant: str,
     tiled_slice_b = (Y + overlap_rows) * row_b
     if variant == "blocked":
         reads = T * 3 * 3 * X * tiled_slice_b
-    elif variant == "dataflow":
+    elif variant in ("dataflow", "wide"):
         reads = T * 3 * X * tiled_slice_b
     elif variant == "fused":
         reads = 3 * X * tiled_slice_b   # one pass for all T steps
@@ -183,12 +216,15 @@ def vmem_halo_bytes_model(X: int, Y: int, Z: int, itemsize: int,
     """Halo re-read bytes the in-grid tiled path serves from the on-chip
     slab (shared memory on Hopper) instead of device memory: `2*halo` rows
     per interior tile boundary, per x-slice, per field (per view for
-    `blocked`); zero where no tiled execution exists."""
+    `blocked`); zero where no tiled execution exists.
+
+    `wide` streams a 1-row fetch halo on the card, as `dataflow` does, so
+    its value is the reference's `dataflow` value; the reference's own
+    `wide` value counts its TPU 8-row sublane halo."""
     if variant == "pointwise":
         return 0
     if variant == "wide":
-        raise NotImplementedError("vmem_halo_bytes_model('wide') waits for "
-                                  "advect_wide (ROADMAP Queue 2, K2)")
+        _check_wide_model(Y, Z, itemsize, y_tile, grid_tiled=True)
     halo = T if variant == "fused" else 1
     _, _, n_ty = _grid_geometry(Y, y_tile, halo)
     overlap_rows = 2 * halo * (n_ty - 1)
@@ -231,15 +267,19 @@ def _mask(mask, n: int, B: int, name: str, device) -> torch.Tensor:
     return m
 
 
-def _slot_params(p: AdvectParams, B: int, Z: int, device) -> AdvectParams:
-    """Check each leaf is shared (unbatched) or per-slot (leading B)."""
+def _slot_params(p: AdvectParams, B: Optional[int], Z: int,
+                 device) -> AdvectParams:
+    """Check each leaf is shared (unbatched) or per-slot (leading B);
+    B = None admits unbatched leaves only (one domain)."""
     leaves = []
     for name, leaf, base in (("tcx", p.tcx, ()), ("tcy", p.tcy, ()),
                              ("tzc1", p.tzc1, (Z,)), ("tzc2", p.tzc2, (Z,))):
         t = torch.as_tensor(leaf, dtype=torch.float32, device=device)
-        if tuple(t.shape) not in (base, (B,) + base):
-            raise ValueError(f"params.{name} must have shape {base} or "
-                             f"{(B,) + base}, got {tuple(t.shape)}")
+        shapes = (base,) if B is None else (base, (B,) + base)
+        if tuple(t.shape) not in shapes:
+            raise ValueError(f"params.{name} must have shape "
+                             f"{' or '.join(map(str, shapes))}, got "
+                             f"{tuple(t.shape)}")
         leaves.append(t)
     return AdvectParams(*leaves)
 
@@ -332,10 +372,12 @@ def advect_fused_batched(u, v, w, p: AdvectParams, *, T: int = 4,
         raise ValueError(f"T must be >= 1, got {T}")
     _check_tiling(tiling)
     _check_y_tile(y_tile)
-    if tiling == "host":
-        raise NotImplementedError(HOST_TILING_TODO)
     _check_fields(u, v, w, 4, "slot-stacked (B, X, Y, Z)")
     B, X, Y, Z = u.shape
+    if _host_tiled(tiling, y_tile, Y):
+        raise ValueError("the batched launch is grid-tiled only (it always "
+                         "carries interior masks); tiling='host' takes one "
+                         "(X, Y, Z) domain through advect_fused")
     xm = _mask(x_interior_mask, X, B, "x_interior_mask", u.device)
     ym = _mask(y_interior_mask, Y, B, "y_interior_mask", u.device)
     ps = _slot_params(p, B, Z, u.device)
@@ -357,12 +399,24 @@ def advect_fused(u, v, w, p: AdvectParams, *, T: int = 4, dt: float = 1.0,
     advanced fields (a separate launch: the field outputs are the same bits
     as with `guard=False`). `y_tile` runs the in-grid tiling; on CUDA the
     ring of the chosen tile (None = untiled) must fit one block's shared
-    memory, else this raises naming the budget. `y_interior_mask` (Y,) and
-    `x_interior_mask` (X,) freeze rows / x-planes whose entry is zero.
-    This is `advect_fused_batched` with one slot.
+    memory, else this raises naming the budget. `tiling="host"` runs the
+    host tile loop with a T-row halo instead (no interior masks there).
+    `y_interior_mask` (Y,) and `x_interior_mask` (X,) freeze rows /
+    x-planes whose entry is zero. This is `advect_fused_batched` with one
+    slot.
     """
     _check_fields(u, v, w, 3, "(X, Y, Z)")
     X, Y, _ = u.shape
+    if _host_tiled(tiling, y_tile, Y):
+        if T < 1:
+            raise ValueError(f"T must be >= 1, got {T}")
+        if y_interior_mask is not None or x_interior_mask is not None:
+            raise ValueError("interior masks require the grid-tiled path "
+                             "(tiling='grid')")
+        out = _y_tiled_host(lambda a, b, c: advect_fused(a, b, c, p, T=T,
+                                                         dt=dt),
+                            u, v, w, y_tile=y_tile, halo=T)
+        return out + (finite_guard(*out),) if guard else out
     for name, m, n in (("y_interior_mask", y_interior_mask, Y),
                        ("x_interior_mask", x_interior_mask, X)):
         if m is not None and tuple(torch.as_tensor(m).shape) != (n,):
@@ -373,6 +427,145 @@ def advect_fused(u, v, w, p: AdvectParams, *, T: int = 4, dt: float = 1.0,
                                 y_interior_mask=y_interior_mask,
                                 x_interior_mask=x_interior_mask, guard=guard)
     return tuple(o[0] for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# the host tile loop (tiling="host")
+# ---------------------------------------------------------------------------
+
+
+def _y_tiled_host(fn, u, v, w, *, y_tile: int, halo: int):
+    """The reference's retained host-side tile loop (the anti-pattern
+    baseline): run `fn` untiled on each halo'd y-block and restitch.
+
+    Each block carries `halo` extra rows per interior side, copied out of
+    the fields (the restaging the in-grid path avoids); `fn` treats block
+    edges as walls, which spoils at most `halo` rows per side after `halo`
+    sweeps: exactly the rows trimmed. Global-edge blocks get no extra rows,
+    so the true boundary lands on the block edge. Plain PyTorch host code:
+    slices, one `fn` call per block and a `torch.cat`.
+    """
+    Y = u.shape[1]
+    outs = ([], [], [])
+    for y0 in range(0, Y, y_tile):
+        y1 = min(y0 + y_tile, Y)
+        lo, hi = max(y0 - halo, 0), min(y1 + halo, Y)
+        tile = fn(*(f[:, lo:hi].contiguous() for f in (u, v, w)))
+        for acc, t in zip(outs, tile):
+            acc.append(t[:, y0 - lo:y0 - lo + (y1 - y0)])
+    return tuple(torch.cat(a, dim=1) for a in outs)
+
+
+def _host_tiled(tiling: str, y_tile: Optional[int], Y: int) -> bool:
+    return tiling == "host" and y_tile is not None and y_tile < Y
+
+
+# ---------------------------------------------------------------------------
+# K3 and K2: the v1-v3 rungs
+# ---------------------------------------------------------------------------
+
+
+def _advect_rung_plain(u, v, w, p: AdvectParams, fuse_update: bool,
+                       dt: float):
+    """Plain PyTorch version of every v1-v3 kernel: the reference's sources
+    (zero on the boundary), or one Euler step with `fuse_update`."""
+    if fuse_update:
+        return pw_step_ref(u, v, w, p, dt)
+    return pw_advect_ref(u, v, w, p)
+
+
+def _advect_rung_cuda(name: str, u, v, w, p: AdvectParams,
+                      y_tile: Optional[int], fuse_update: bool, dt: float,
+                      x_chunk: int = DATAFLOW_X_CHUNK):
+    """Launch the blocked (K3) or dataflow/wide (K2) CUDA kernel on
+    (X, Y, Z) fields. `x_chunk` is the dataflow kernel's x-slices per
+    block."""
+    X, Y, Z = u.shape
+    slab = fused_register_bytes(1, Y, Z, 4, y_tile=y_tile)
+    if slab > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"{name} needs a {slab} B slab of shared memory at Y={Y}, Z={Z}, "
+            f"y_tile={y_tile}; one block may use {SMEM_PER_BLOCK} B. Pass a "
+            f"smaller y_tile (largest_fitting_y_tile(1, Y, Z) gives one)")
+    TY, S, n_ty = _grid_geometry(Y, y_tile, 1)
+    if n_ty > MAX_GRID_Y:
+        raise ValueError(f"{n_ty} y-tiles exceed the launch grid's "
+                         f"{MAX_GRID_Y}; pass a larger y_tile")
+    lib = _build.load()
+    pt, _ = _param_table(p, 1)
+    outs = [torch.empty_like(u) for _ in range(3)]
+    ptrs = [f.data_ptr() for f in (u, v, w, *outs, pt)]
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    if name == "advect_blocked":
+        err = lib.advect_blocked_f32(*ptrs, X, Y, Z, TY, S, n_ty,
+                                     int(fuse_update), dt, slab, stream)
+    else:
+        err = lib.advect_dataflow_f32(*ptrs, X, Y, Z, TY, S, n_ty, x_chunk,
+                                      int(name == "advect_wide"),
+                                      int(fuse_update), dt, slab, stream)
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return tuple(outs)
+
+
+def _advect_rung(name: str, u, v, w, p: AdvectParams, y_tile, tiling,
+                 fuse_update, dt):
+    _check_tiling(tiling)
+    _check_y_tile(y_tile)
+    _check_fields(u, v, w, 3, "(X, Y, Z)")
+    X, Y, Z = u.shape
+    if name == "advect_wide":
+        _check_wide_model(Y, Z, 4, y_tile, grid_tiled=tiling == "grid")
+        if any(f.data_ptr() % 16 for f in (u, v, w)):
+            raise ValueError("wide moves 16-byte vectors: u, v and w must "
+                             "start on a 16-byte boundary")
+    if _host_tiled(tiling, y_tile, Y):
+        return _y_tiled_host(
+            lambda a, b, c: _advect_rung(name, a, b, c, p, None, "grid",
+                                         fuse_update, dt),
+            u, v, w, y_tile=y_tile, halo=1)
+    ps = _slot_params(p, None, Z, u.device)
+    if u.is_cuda:
+        return _advect_rung_cuda(name, u, v, w, ps, y_tile, fuse_update,
+                                 float(dt))
+    return _advect_rung_plain(u, v, w, ps, fuse_update, float(dt))
+
+
+def advect_blocked(u, v, w, p: AdvectParams, *, y_tile: int | None = None,
+                   tiling: str = "grid", fuse_update: bool = False,
+                   dt: float = 1.0):
+    """v1: PW sources of (X, Y, Z) fields, zero on the boundary, or with
+    `fuse_update=True` the fields advanced one Euler step. Every output
+    slice re-reads its three input slices (the paper's anti-pattern).
+    `y_tile` runs the in-grid tiling; on CUDA the 3 x 3-slice slab of the
+    chosen tile (None = untiled) must fit one block's shared memory, else
+    this raises naming the budget. `tiling="host"` runs the host tile loop.
+    """
+    return _advect_rung("advect_blocked", u, v, w, p, y_tile, tiling,
+                        fuse_update, dt)
+
+
+def advect_dataflow(u, v, w, p: AdvectParams, *, y_tile: int | None = None,
+                    tiling: str = "grid", fuse_update: bool = False,
+                    dt: float = 1.0):
+    """v2: `advect_blocked`'s values, bitwise, through a 3-slot shift
+    register per field that reads each slice once."""
+    return _advect_rung("advect_dataflow", u, v, w, p, y_tile, tiling,
+                        fuse_update, dt)
+
+
+def advect_wide(u, v, w, p: AdvectParams, *, y_tile: int | None = None,
+                tiling: str = "grid", fuse_update: bool = False,
+                dt: float = 1.0):
+    """v3: `advect_dataflow` with 16-byte (float4) loads and stores.
+
+    Its contract is the card's, not the TPU's (Z % 128, Y % 8): each Z row
+    must be whole 16-byte vectors (Z * 4 % 16 == 0) and the fields must
+    start on 16-byte boundaries, else this raises; it runs the in-grid path
+    only and refuses host tiling, as the reference does. So it runs at the
+    paper's Z = 64, where the TPU's contract refuses it."""
+    return _advect_rung("advect_wide", u, v, w, p, y_tile, tiling,
+                        fuse_update, dt)
 
 
 # ---------------------------------------------------------------------------

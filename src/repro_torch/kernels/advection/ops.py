@@ -1,10 +1,11 @@
 """Public wrappers for the PW-advection ladder.
 
-`pw_advect(..., variant="reference")` computes the momentum sources (or,
-with `fuse_update=True`, one advanced step) with the plain oracle;
-`pw_advect_fused` is the v4 temporal-blocking entry point and returns the
-advanced fields after `T` fused Euler steps. The v1-v3 rungs (`blocked`,
-`dataflow`, `wide`) are not ported yet.
+`pw_advect(..., variant=...)` selects the Fig. 3 rung (`reference`, v1
+`blocked`, v2 `dataflow`, v3 `wide`) and returns the momentum sources, or
+with `fuse_update=True` the fields advanced one Euler step. `y_tile` runs
+the in-grid tiling (`tiling="grid"`, one launch) or the retained host tile
+loop (`tiling="host"`). `pw_advect_fused` is the v4 temporal-blocking entry
+point and returns the advanced fields after `T` fused Euler steps.
 """
 from __future__ import annotations
 
@@ -15,12 +16,18 @@ import torch
 from repro_torch.kernels.advection import advection as K
 from repro_torch.kernels.advection import ref as REF
 
-VARIANTS = ("reference", "blocked", "dataflow", "wide")
-UNPORTED_RUNGS = ("blocked", "dataflow", "wide")
+# source-computing rungs dispatchable via pw_advect; the v4 `fused` rung
+# advances whole steps instead and has its own entry point, pw_advect_fused
+VARIANTS = {
+    "reference": None,
+    "blocked": K.advect_blocked,
+    "dataflow": K.advect_dataflow,
+    "wide": K.advect_wide,
+}
 
 
 def pw_advect(u, v, w, params: REF.AdvectParams, *,
-              variant: str = "reference", y_tile: Optional[int] = None,
+              variant: str = "dataflow", y_tile: Optional[int] = None,
               tiling: str = "grid", fuse_update: bool = False,
               dt: float = 1.0) -> Tuple[torch.Tensor, ...]:
     """Momentum sources (or advanced fields with `fuse_update=True`) via the
@@ -28,16 +35,15 @@ def pw_advect(u, v, w, params: REF.AdvectParams, *,
     if variant == "fused":
         raise ValueError("fused advances fields, not sources; "
                          "use pw_advect_fused")
-    if variant in UNPORTED_RUNGS:
-        raise NotImplementedError(
-            f"variant {variant!r} (kernels K2/K3) is not ported yet: "
-            "ROADMAP Queue 1, Slice B, the next slice of the port")
-    if variant != "reference":
-        raise ValueError(f"variant must be one of {VARIANTS}, got "
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {tuple(VARIANTS)}, got "
                          f"{variant!r}")
-    if fuse_update:
-        return REF.pw_step_ref(u, v, w, params, dt)
-    return REF.pw_advect_ref(u, v, w, params)
+    if variant == "reference":
+        if fuse_update:
+            return REF.pw_step_ref(u, v, w, params, dt)
+        return REF.pw_advect_ref(u, v, w, params)
+    return VARIANTS[variant](u, v, w, params, y_tile=y_tile, tiling=tiling,
+                             fuse_update=fuse_update, dt=dt)
 
 
 def pw_advect_fused(u, v, w, params: REF.AdvectParams, *, T: int = 4,

@@ -1,8 +1,9 @@
 """Domain-level PW advection: the paper's application, end to end.
 
 `AdvectionDomain` owns the (X, Y, Z) wind fields on a device and steps them
-with the plain reference (the paper's CPU baseline) or the fused kernel
-(v4: T Euler steps per pass over device memory). The stratus-cloud
+with any rung of the kernel ladder: the plain reference (the paper's CPU
+baseline), v1 `blocked`, v2 `dataflow`, v3 `wide` and v4 `fused` (T Euler
+steps per pass over device memory). The stratus-cloud
 initialisation mirrors the paper's MONC case sizes (Fig. 8: 1M .. 268M grid
 points at z=64) and produces the same bytes as the reference package's.
 Mesh, exchange, batch and serving accounting wait for the slices that port
@@ -22,7 +23,6 @@ from repro_torch.kernels.advection import ops
 from repro_torch.kernels.advection import ref as REF
 
 VARIANTS = ("reference", "blocked", "dataflow", "wide", "fused")
-PORTED_VARIANTS = ("reference", "fused")
 
 # the paper's experiment grid sizes (Fig. 8), (x, y, z)
 PAPER_GRIDS = {
@@ -56,44 +56,40 @@ class AdvectionDomain:
     """An (X, Y, Z) advection domain on `device` ("cuda" unless the caller
     asks for "cpu"). Frozen: vary it with `dataclasses.replace`.
 
-    With `variant="fused"` on CUDA and `y_tile=None`, the domain runs the
+    With a kernel rung on CUDA and `y_tile=None`, the domain runs the
     largest y-tile whose ring fits one block's shared memory
-    (`advection.largest_fitting_y_tile`; the largest divisor of Y when it is
-    at least half that size), or untiled where the whole-Y ring fits. Tiled
-    and untiled results are equal bitwise, so this changes no result.
+    (`advection.largest_fitting_y_tile`, depth `fuse_T` for `fused` and 1
+    for v1-v3; the largest divisor of Y when it is at least half that
+    size), or untiled where the whole-Y ring fits. Tiled and untiled
+    results are equal bitwise, so this changes no result.
     """
     X: int
     Y: int
     Z: int
-    variant: str = "fused"
+    variant: str = "dataflow"
     device: str = "cuda"
     dtype: str = "float32"
     fuse_T: int = 4                   # fused (v4): Euler steps per pass
-    y_tile: Optional[int] = None      # in-grid y-tiles of the fused ring
-    tiling: str = "grid"
-    fuse_update: bool = False         # reference: return f + dt*s
+    y_tile: Optional[int] = None      # y-tiles of the on-chip slab
+    tiling: str = "grid"              # "grid": in-grid tiles, one launch;
+                                      # "host": the retained host tile loop
+    fuse_update: bool = False         # v1-v3: fold f + dt*s into the kernel
     dt: float = 1.0
 
     def __post_init__(self):
         if self.variant not in VARIANTS:
             raise ValueError(f"variant must be one of {VARIANTS}, got "
                              f"{self.variant!r}")
-        if self.variant not in PORTED_VARIANTS:
-            raise NotImplementedError(
-                f"variant {self.variant!r} is not ported yet: ROADMAP "
-                "Queue 1, Slice B")
         if self.dtype != "float32":
             raise NotImplementedError("only float32 is ported; bf16 is "
                                       "queued in ROADMAP Queue 2")
         K._check_tiling(self.tiling)
         K._check_y_tile(self.y_tile)
-        if self.tiling == "host":
-            raise NotImplementedError(K.HOST_TILING_TODO)
         tile = self.y_tile
-        if (tile is None and self.variant == "fused"
+        if (tile is None and self.variant != "reference"
                 and torch.device(self.device).type == "cuda"):
-            tile = K.largest_fitting_y_tile(self.fuse_T, self.Y, self.Z,
-                                            self.itemsize)
+            tile = K.largest_fitting_y_tile(self.substeps_per_step(), self.Y,
+                                            self.Z, self.itemsize)
         object.__setattr__(self, "run_y_tile", tile)
         object.__setattr__(self, "params",
                            REF.default_params(self.Z, dtype=torch.float32,
@@ -112,11 +108,14 @@ class AdvectionDomain:
             raise ValueError("fused advances fields in-kernel; use step()")
         if self.fuse_update:
             raise ValueError("fuse_update advances fields; use step()")
-        return ops.pw_advect(u, v, w, self.params, variant="reference")
+        return ops.pw_advect(u, v, w, self.params, variant=self.variant,
+                             y_tile=self.run_y_tile, tiling=self.tiling)
 
     def step(self, u, v, w, dt: Optional[float] = None):
-        """One advection update. `fused` (and `fuse_update=True`) bakes dt
-        in, so a dt override is rejected there."""
+        """One advection update. `fused` (and the v1-v3 rungs with
+        `fuse_update=True`) advance the fields in the kernel with dt baked
+        in, so a dt override is rejected there; otherwise the sources come
+        from the kernel and the update `f + dt*s` is a separate pass."""
         if self.variant == "fused" or self.fuse_update:
             if dt is not None and dt != self.dt:
                 raise ValueError("the fused-update path bakes dt in; set "
@@ -124,8 +123,10 @@ class AdvectionDomain:
             if self.variant == "fused":
                 return ops.pw_advect_fused(u, v, w, self.params,
                                            T=self.fuse_T, dt=self.dt,
-                                           y_tile=self.run_y_tile)
-            return ops.pw_advect(u, v, w, self.params, variant="reference",
+                                           y_tile=self.run_y_tile,
+                                           tiling=self.tiling)
+            return ops.pw_advect(u, v, w, self.params, variant=self.variant,
+                                 y_tile=self.run_y_tile, tiling=self.tiling,
                                  fuse_update=True, dt=self.dt)
         dt = self.dt if dt is None else dt
         su, sv, sw = self.sources(u, v, w)
@@ -150,28 +151,33 @@ class AdvectionDomain:
         cells = (self.X - 2) * (self.Y - 2) * (self.Z - 2)
         return cells * REF.flops_per_cell() * self.substeps_per_step()
 
+    def _model_variant(self) -> str:
+        return "pointwise" if self.variant == "reference" else self.variant
+
     def hbm_bytes_per_step(self) -> int:
         """Modelled device-memory bytes per step() call (fused: per T-step
-        pass); `reference` without `fuse_update` also pays the separate
-        `f + dt*s` pass."""
+        pass) on the configured path: in-grid or host tiling, and the Euler
+        update in the kernel (`fused`, `fuse_update`) or as a separate
+        `f + dt*s` pass (always separate for `reference`)."""
         return K.hbm_bytes_model(
-            self.X, self.Y, self.Z, self.itemsize,
-            "fused" if self.variant == "fused" else "pointwise",
+            self.X, self.Y, self.Z, self.itemsize, self._model_variant(),
             T=self.substeps_per_step(), y_tile=self.run_y_tile,
-            grid_tiled=True, fuse_update=self.variant == "fused"
-            or self.fuse_update)
+            grid_tiled=self.tiling == "grid",
+            fuse_update=self.variant == "fused" or self.fuse_update)
 
     def vmem_halo_bytes_per_step(self) -> int:
-        """Halo re-read bytes served from the on-chip slab by the tiled
-        fused path."""
+        """Halo re-read bytes served from the on-chip slab by the in-grid
+        tiled path (zero for host tiling)."""
+        if self.tiling != "grid":
+            return 0
         return K.vmem_halo_bytes_model(
-            self.X, self.Y, self.Z, self.itemsize,
-            "fused" if self.variant == "fused" else "pointwise",
+            self.X, self.Y, self.Z, self.itemsize, self._model_variant(),
             T=self.substeps_per_step(), y_tile=self.run_y_tile)
 
     def vmem_register_bytes(self) -> int:
         """On-chip ring bytes of the configuration (one block's shared
-        memory on Hopper)."""
+        memory on Hopper). `wide`'s slab has the 1-row halo of `dataflow`,
+        where the reference sizes its TPU 8-row sublane halo."""
         depth = self.fuse_T if self.variant == "fused" else 1
         return K.fused_register_bytes(depth, self.Y, self.Z, self.itemsize,
                                       y_tile=self.run_y_tile)

@@ -356,8 +356,14 @@ def test_fused_contract_errors():
         TK.advect_fused(u, v, w, p, T=2, tiling="rows")
     with pytest.raises(ValueError):
         TK.advect_fused(u, v, w, p, T=2, y_tile=0)
-    with pytest.raises(NotImplementedError, match="Slice B"):
-        TK.advect_fused(u, v, w, p, T=2, y_tile=4, tiling="host")
+    with pytest.raises(ValueError, match="grid-tiled"):
+        TK.advect_fused(u, v, w, p, T=2, y_tile=4, tiling="host",
+                        y_interior_mask=np.ones(8))
+    with pytest.raises(ValueError, match="grid-tiled"):
+        TK.advect_fused_batched(u[None], v[None], w[None], p, T=2, y_tile=4,
+                                tiling="host")
+    assert bitwise(TK.advect_fused(u, v, w, p, T=2, y_tile=4, tiling="host"),
+                   TK.advect_fused(u, v, w, p, T=2))
     with pytest.raises(TypeError, match="float32"):
         TK.advect_fused(u.double(), v.double(), w.double(), p, T=2)
     with pytest.raises(ValueError, match="contiguous"):

@@ -75,3 +75,50 @@ def test_batched_one_per_slot_leaf_equals_sequential(cuda, leaf):
         pb = base._replace(**{leaf: per[b]})
         seq = TK.advect_fused(u[b], v[b], w[b], pb, T=2, dt=DT, y_tile=5)
         assert all(torch.equal(o[b], s) for o, s in zip(out, seq)), b
+
+
+@pytest.mark.parametrize("shape", [(6, 10, 12), (5, 17, 12), (8, 12, 10)])
+@pytest.mark.parametrize("name", ["advect_blocked", "advect_dataflow",
+                                  "advect_wide"])
+def test_rung_kernels_bitwise_equal_plain(cuda, shape, name):
+    u, v, w = fields(shape, 2, cuda)
+    p = TREF.default_params(shape[2], device=cuda)
+    fn = getattr(TK, name)
+    if name == "advect_wide" and shape[2] % 4:
+        with pytest.raises(ValueError, match="multiple of 16"):
+            fn(u, v, w, p)
+        return
+    for fuse in (False, True):
+        plain = TK._advect_rung_plain(u, v, w, p, fuse, DT)
+        before = TK.LAUNCHES[name]
+        full = fn(u, v, w, p, fuse_update=fuse, dt=DT)
+        assert TK.LAUNCHES[name] == before + 1
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(full, plain))
+        for y_tile in (3, 4, 5):
+            tiled = fn(u, v, w, p, y_tile=y_tile, fuse_update=fuse, dt=DT)
+            assert all(torch.equal(a, b) for a, b in zip(tiled, full))
+        if name != "advect_wide":
+            host = fn(u, v, w, p, y_tile=4, tiling="host", fuse_update=fuse,
+                      dt=DT)
+            assert all(torch.equal(a, b) for a, b in zip(host, full))
+
+
+@pytest.mark.parametrize("x_chunk", [1, 2, 3])
+def test_dataflow_x_chunks_bitwise_equal_plain(cuda, x_chunk):
+    u, v, w = fields((7, 9, 64), 3, cuda)
+    p = TREF.default_params(64, device=cuda)
+    for name in ("advect_dataflow", "advect_wide"):
+        for fuse in (False, True):
+            got = TK._advect_rung_cuda(name, u, v, w, p, 4, fuse, DT,
+                                       x_chunk=x_chunk)
+            plain = TK._advect_rung_plain(u, v, w, p, fuse, DT)
+            assert all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+def test_rung_slab_over_budget_raises(cuda):
+    u, v, w = (torch.zeros((3, 1024, 64), device=cuda) for _ in range(3))
+    p = TREF.default_params(64, device=cuda)
+    for fn in (TK.advect_blocked, TK.advect_dataflow, TK.advect_wide):
+        with pytest.raises(ValueError, match="232448"):
+            fn(u, v, w, p)

@@ -1,6 +1,7 @@
 """The port's domain, ops wrappers and models (`repro_torch.stencil.
 advection`, `kernels.advection.ops`, the byte models and `core.roofline`)
 against the JAX reference, on the same inputs."""
+import dataclasses
 import hashlib
 
 import jax.numpy as jnp
@@ -102,12 +103,17 @@ def test_domain_reference_step_matches_jax(fuse_update):
 
 def test_domain_contract_errors():
     for variant in ("blocked", "dataflow", "wide"):
-        with pytest.raises(NotImplementedError, match="Slice B"):
-            TSA.AdvectionDomain(5, 8, 8, variant=variant, device="cpu")
+        dom = TSA.AdvectionDomain(5, 8, 8, variant=variant, device="cpu")
+        assert dom.substeps_per_step() == 1
+        with pytest.raises(ValueError, match="bakes dt in"):
+            dataclasses.replace(dom, fuse_update=True).step(
+                *dom.init(), dt=0.5)
     with pytest.raises(ValueError):
         TSA.AdvectionDomain(5, 8, 8, variant="nope", device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice B"):
-        TSA.AdvectionDomain(5, 8, 8, tiling="host", device="cpu")
+    with pytest.raises(ValueError):
+        TSA.AdvectionDomain(5, 8, 8, tiling="rows", device="cpu")
+    assert TSA.AdvectionDomain(5, 8, 8, tiling="host", device="cpu").tiling \
+        == "host"
     with pytest.raises(NotImplementedError, match="bf16"):
         TSA.AdvectionDomain(5, 8, 8, dtype="bfloat16", device="cpu")
     with pytest.raises(ValueError):
@@ -118,10 +124,11 @@ def test_domain_contract_errors():
 
 
 def test_domain_runs_given_tile_and_untiled_on_cpu():
-    dom = TSA.AdvectionDomain(5, 17, 8, fuse_T=2, y_tile=5, dt=DT,
-                              device="cpu")
+    dom = TSA.AdvectionDomain(5, 17, 8, variant="fused", fuse_T=2, y_tile=5,
+                              dt=DT, device="cpu")
     assert dom.run_y_tile == 5
-    untiled = TSA.AdvectionDomain(5, 17, 8, fuse_T=2, dt=DT, device="cpu")
+    untiled = TSA.AdvectionDomain(5, 17, 8, variant="fused", fuse_T=2, dt=DT,
+                                  device="cpu")
     assert untiled.run_y_tile is None
     fields = dom.init()
     assert all(torch.equal(a, b) for a, b in
@@ -134,6 +141,13 @@ DOMAIN_CASES = [
     dict(variant="fused", fuse_T=4, y_tile=16),
     dict(variant="reference"),
     dict(variant="reference", fuse_update=True),
+    dict(variant="blocked"),
+    dict(variant="blocked", y_tile=16, fuse_update=True),
+    dict(variant="dataflow"),
+    dict(variant="dataflow", y_tile=8),
+    dict(variant="dataflow", y_tile=16, tiling="host", fuse_update=True),
+    dict(variant="blocked", y_tile=8, tiling="host"),
+    dict(variant="fused", fuse_T=2, y_tile=8, tiling="host"),
 ]
 
 
@@ -172,8 +186,12 @@ def test_ops_wrappers_match_jax():
     with pytest.raises(ValueError):
         TOPS.pw_advect(*tf, tp, variant="fused")
     for rung in ("blocked", "dataflow", "wide"):
-        with pytest.raises(NotImplementedError, match="Slice B"):
-            TOPS.pw_advect(*tf, tp, variant=rung)
+        for fuse in (False, True):
+            got = TOPS.pw_advect(*tf, tp, variant=rung, fuse_update=fuse,
+                                 dt=DT)
+            want = JOPS.pw_advect(*jf, jp, variant="reference",
+                                  fuse_update=fuse, dt=DT)
+            assert max_diff(got, want) <= 1e-6, (rung, fuse)
 
 
 @pytest.mark.parametrize("variant", ["reference", "blocked", "dataflow",
@@ -235,10 +253,16 @@ def test_hbm_bytes_model_against_jax(variant, Z):
 
 
 def test_byte_models_refuse_the_unported_wide_rung():
-    with pytest.raises(NotImplementedError):
-        TK.hbm_bytes_model(8, 16, 128, 4, "wide")
-    with pytest.raises(NotImplementedError):
-        TK.vmem_halo_bytes_model(8, 16, 128, 4, "wide")
+    """`wide` is ported: the models price it where `advect_wide` runs and
+    refuse it only where the rung itself refuses to run."""
+    assert TK.hbm_bytes_model(8, 16, 128, 4, "wide") == \
+        JK.hbm_bytes_model(8, 16, 128, 4, "wide")
+    assert TK.vmem_halo_bytes_model(8, 16, 128, 4, "wide", y_tile=8) == \
+        JK.vmem_halo_bytes_model(8, 16, 128, 4, "dataflow", y_tile=8)
+    with pytest.raises(ValueError, match="16"):
+        TK.hbm_bytes_model(8, 16, 10, 4, "wide")
+    with pytest.raises(ValueError, match="in-grid"):
+        TK.hbm_bytes_model(8, 16, 128, 4, "wide", y_tile=8, grid_tiled=False)
     with pytest.raises(ValueError):
         TK.hbm_bytes_model(8, 16, 128, 4, "nope")
 

@@ -75,6 +75,10 @@ def test_cuda_dispatch_propagates_loader_errors(monkeypatch):
                               torch.ones(8), None)
     with pytest.raises(RuntimeError, match="kernel loader unavailable"):
         TK._finite_guard_cuda(u, v, w)
+    p1 = TK._slot_params(TREF.default_params(8, device="cpu"), None, 8, "cpu")
+    for name in ("advect_blocked", "advect_dataflow", "advect_wide"):
+        with pytest.raises(RuntimeError, match="kernel loader unavailable"):
+            TK._advect_rung_cuda(name, u[0], v[0], w[0], p1, None, True, 0.01)
     assert TK.LAUNCHES == before
 
 
@@ -84,6 +88,10 @@ def test_cpu_tensors_take_the_plain_version_without_launching(monkeypatch):
     u, v, w = (torch.ones((4, 8, 8)) for _ in range(3))
     p = TREF.default_params(8, device="cpu")
     TK.advect_fused(u, v, w, p, T=2, guard=True)
+    TK.advect_fused(u, v, w, p, T=2, y_tile=3, tiling="host")
+    for fn in (TK.advect_blocked, TK.advect_dataflow, TK.advect_wide):
+        fn(u, v, w, p, fuse_update=True)
+    TK.advect_dataflow(u, v, w, p, y_tile=3, tiling="host")
     assert TK.LAUNCHES == before
 
 
@@ -101,3 +109,15 @@ def test_nonzero_cuda_error_raises():
     _build.check(0, "fn")
     with pytest.raises(RuntimeError, match="fn: CUDA error 700"):
         _build.check(700, "fn")
+
+
+def test_build_key_follows_the_shared_header(monkeypatch, tmp_path):
+    """The rung kernels include `pw_source.cuh`: editing it rebuilds."""
+    key = _build._digest()
+    for name in _build.SOURCES + _build.HEADERS:
+        (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build._digest() == key
+    header = tmp_path / "pw_source.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build._digest() != key
