@@ -24,9 +24,21 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    `AdvectionDomain(variant=...).advance(..., 4)`, the counts set to 0 just
    before and read just after (the rung's kernel launched 4 times, no other
    kernel), the result == the plain version bitwise, boundary frozen;
-4. times each kernel with CUDA events (median of 20 after warm-up) beside
-   its bound, the least time the card could take for the same work, and
-   each rung's Euler step through the domain beside K1's pass over T.
+4. holds the spec ring (K6, `stencil_fused`) against its plain version at
+   small shapes for the six shipped operator x integrator pairs (PW,
+   tracer, diffusion x euler, rk2) over T, y_tile and interior masks:
+   K6 == plain and PW-spec K6 == K1 (bitwise), the tracer's u, v, w == the
+   PW spec's, batched == sequential, boundary frozen, the f64 oracle, and
+   the refusals (a spec outside the CUDA table, PW rk2 at T = 4, Z = 64);
+5. drives the spec path at the same 67M grid: one `stencil_fused` pass per
+   operator (PW and tracer at T = 4 euler, T = 2 rk2; diffusion at T = 4),
+   the counts set to 0 just before and read just after (`stencil_fused`
+   launched once, no other kernel), == plain bitwise, PW == K1, tracer
+   velocities == PW, within `ORACLE_TOL` of the f64 oracle;
+6. times each kernel with CUDA events (median of 20 after warm-up) beside
+   its bound, the least time the card could take for the same work, each
+   rung's Euler step through the domain beside K1's pass over T, and each
+   spec operator's pass ("spec path on the card" lines).
 
 Prints the card's name and power limit, one JSON line of kernel records and,
 last, `{"ok": true, "device": {...}}`. Any failed check exits nonzero
@@ -51,6 +63,7 @@ from repro_torch import _build  # noqa: E402
 from repro_torch.core import roofline as R  # noqa: E402
 from repro_torch.kernels.advection import advection as K  # noqa: E402
 from repro_torch.kernels.advection import ref as REF  # noqa: E402
+from repro_torch.stencil import spec as SP  # noqa: E402
 from repro_torch.stencil.advection import (PAPER_GRIDS,  # noqa: E402
                                            AdvectionDomain)
 
@@ -62,18 +75,35 @@ LADDER_SUBSTEPS = 4
 SMALL_SHAPES = ((6, 10, 12), (5, 17, 12), (8, 12, 10))
 TIMED_RUNS, WARMUP = 20, 3
 ORACLE_TOL = 1e-4       # f32 fused ring vs the f64 oracle (the JAX suite's)
+SPEC_TOL_REL = 2e-5     # f32 spec ring vs the f64 oracle, relative to the
+                        # field scale (the reference's TOL_REL["float32"])
+SPEC_FACTORIES = {"pw": SP.pw_advection_spec,
+                  "tracer": SP.tracer_advection_spec,
+                  "diffusion": SP.diffusion_spec}
+SPEC_DT = {"pw": DT, "tracer": DT, "diffusion": 1e-3}
+DIFFUSION_RESOLVED_DT = 1.0   # moves phi ~ 300 by more than an f32 ulp;
+                              # explicit-stable (dt * 2(kx+ky+kz) < 1)
+# dt of the small-shape phase: at SPEC_DT's 1e-3 diffusion moves phi ~ 300
+# by less than the f32 oracle tolerance, which could then not fail it
+SMALL_DT = dict(SPEC_DT, diffusion=DIFFUSION_RESOLVED_DT)
+# (operator, integrator, T) of the spec path at the 67M grid
+SPEC_PATH = (("pw", "euler", 4), ("pw", "rk2", 2), ("tracer", "euler", 4),
+             ("tracer", "rk2", 2), ("diffusion", "euler", 4),
+             ("diffusion", "rk2", 4))
 RUNGS = {"advect_blocked": "blocked", "advect_dataflow": "dataflow",
          "advect_wide": "wide"}
 SOURCE = {"advect_fused": "src/repro_torch/csrc/advect_fused.cu",
           "finite_guard": "src/repro_torch/csrc/finite_guard.cu",
           "advect_blocked": "src/repro_torch/csrc/advect_blocked.cu",
           "advect_dataflow": "src/repro_torch/csrc/advect_dataflow.cu",
-          "advect_wide": "src/repro_torch/csrc/advect_dataflow.cu"}
+          "advect_wide": "src/repro_torch/csrc/advect_dataflow.cu",
+          "stencil_fused": "src/repro_torch/csrc/stencil_fused.cu"}
 REPLACES = {"advect_fused": "src/repro/kernels/advection/advection.py:404",
             "finite_guard": "src/repro/kernels/advection/advection.py:469",
             "advect_blocked": "src/repro/kernels/advection/advection.py:214",
             "advect_dataflow": "src/repro/kernels/advection/advection.py:272",
-            "advect_wide": "src/repro/kernels/advection/advection.py:367"}
+            "advect_wide": "src/repro/kernels/advection/advection.py:367",
+            "stencil_fused": "src/repro/kernels/advection/advection.py:677"}
 
 
 class Checks:
@@ -520,6 +550,329 @@ def ladder_line(what: str, step_ms: float, step_bytes: float,
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the spec ring (K6)
+# ---------------------------------------------------------------------------
+
+
+def spec_inputs(op: str, shape, seed: int):
+    """(params, fields) of one operator at a small shape on the card:
+    normal velocities (and tracer), a 300 +- 1 temperature-like phi."""
+    X, Y, Z = shape
+    rng = np.random.default_rng(seed)
+    if op == "diffusion":
+        return (SP.default_diffusion_params(Z, device="cuda"),
+                REF.fields_from_numpy(300.0 + rng.normal(size=shape),
+                                      device="cuda"))
+    n = 4 if op == "tracer" else 3
+    return (REF.default_params(Z, device="cuda"),
+            REF.fields_from_numpy(*(rng.normal(size=shape)
+                                    for _ in range(n)), device="cuda"))
+
+
+def plain_spec(fields, params, spec, T, dt, xm=None, ym=None):
+    """The plain version on one (X, Y, Z) domain."""
+    X, Y = fields[0].shape[0], fields[0].shape[1]
+    ones = lambda n: torch.ones(n, device="cuda")  # noqa: E731
+    pv = K._spec_param_vectors(spec, params, "cuda")
+    out = K._stencil_fused_plain([f[None] for f in fields], pv, spec, T, dt,
+                                 ones(X) if xm is None else xm,
+                                 ones(Y) if ym is None else ym)
+    return tuple(o[0] for o in out)
+
+
+def oracle_err(out, fields, params, spec, T, dt):
+    """(max abs error against the f64 oracle, the oracle's field scale, the
+    oracle's max change from `fields`)."""
+    oracle = SP.spec_multistep_ref_f64(fields, params, spec, T, dt)
+    err = max(float((a.double() - b).abs().max())
+              for a, b in zip(out, oracle))
+    scale = max(1.0, max(float(b.abs().max()) for b in oracle))
+    moved = max(float((b - a.double()).abs().max())
+                for a, b in zip(fields, oracle))
+    return err, scale, moved
+
+
+def spec_small_phase(check: Checks) -> None:
+    """K6 against its plain version, K1 and the f64 oracle at small shapes,
+    for every shipped operator x integrator; one line per check kind, shape
+    and operator, over T in {1, 2, 3}, y_tile in {None, 3, 5} and with and
+    without interior masks (18 runs each). The oracle check also asks that
+    the update exceed 5x its tolerance, so that it fails a no-op."""
+    for si, shape in enumerate(SMALL_SHAPES):
+        X, Y, Z = shape
+        xm = torch.ones(X, device="cuda")
+        ym = torch.ones(Y, device="cuda")
+        xm[2] = 0.0
+        ym[3:5] = 0.0
+        inputs = {op: spec_inputs(op, shape, 100 + si) for op in SPEC_FACTORIES}
+        # the tracer's velocities are the PW spec's
+        inputs["tracer"] = (inputs["tracer"][0],
+                            inputs["pw"][1] + inputs["tracer"][1][3:])
+        outs = {}
+        for op, factory in SPEC_FACTORIES.items():
+            params, fields = inputs[op]
+            dt = SMALL_DT[op]
+            for integ in SP.INTEGRATORS:
+                spec = factory(integ)
+                tally = {"plain": [], "k1": [], "pw": [], "frozen": [],
+                         "oracle": []}
+                for T in (1, 2, 3):
+                    for masked in (False, True):
+                        mk = dict(x_interior_mask=xm if masked else None,
+                                  y_interior_mask=ym if masked else None)
+                        plain = plain_spec(fields, params, spec, T, dt,
+                                           *(mk.values()))
+                        for y_tile in (None, 3, 5):
+                            out = K.stencil_fused(fields, params, spec, T=T,
+                                                  dt=dt, y_tile=y_tile, **mk)
+                            torch.cuda.synchronize()
+                            outs[op, integ, T, masked, y_tile] = out
+                            tally["plain"].append(same(out, plain))
+                            tally["frozen"].append(all(
+                                frozen_edges(a, b)
+                                for a, b in zip(fields, out)))
+                            if op == "pw" and integ == "euler":
+                                k1 = K.advect_fused(*fields, params, T=T,
+                                                    dt=dt, y_tile=y_tile,
+                                                    **mk)
+                                tally["k1"].append(same(out, k1))
+                            if op == "tracer":
+                                tally["pw"].append(same(
+                                    out[:3],
+                                    outs["pw", integ, T, masked, y_tile]))
+                        if not masked:
+                            err, scale, moved = oracle_err(
+                                plain, fields, params, spec, T, dt)
+                            tally["oracle"].append(
+                                err <= SPEC_TOL_REL * scale
+                                < moved / 5.0)
+                tag = f"{spec.name} {shape}"
+                check(all(tally["plain"]), f"K6 == plain, bitwise, {tag}: "
+                      f"{len(tally['plain'])} runs (T, y_tile, masks)")
+                check(all(tally["frozen"]), f"K6 boundary frozen, {tag}")
+                check(all(tally["oracle"]), f"K6 within {SPEC_TOL_REL} x "
+                      f"scale of the f64 oracle, update > 5x that, {tag}, "
+                      f"dt={dt}, T = 1-3")
+                if tally["k1"]:
+                    check(all(tally["k1"]), f"PW-spec K6 == K1 "
+                          f"(advect_fused), bitwise, {tag}: "
+                          f"{len(tally['k1'])} runs")
+                if tally["pw"]:
+                    check(all(tally["pw"]), f"tracer K6 u, v, w == PW-spec "
+                          f"K6, bitwise, {tag}: {len(tally['pw'])} runs")
+    spec_batched_phase(check)
+    spec_refusal_phase(check)
+
+
+def spec_batched_phase(check: Checks) -> None:
+    """B = 3 slots with per-slot masks through one launch == 3 sequential
+    launches, for every operator x integrator."""
+    B, shape = 3, (5, 17, 12)
+    X, Y, Z = shape
+    xm = torch.ones(B, X, device="cuda")
+    ym = torch.ones(B, Y, device="cuda")
+    xm[1, 2] = 0.0
+    ym[2, 5:9] = 0.0
+    for op, factory in SPEC_FACTORIES.items():
+        slots = [spec_inputs(op, shape, 200 + b) for b in range(B)]
+        params = slots[0][0]
+        fields = [torch.stack([sl[1][i] for sl in slots])
+                  for i in range(len(slots[0][1]))]
+        for integ in SP.INTEGRATORS:
+            spec = factory(integ)
+            ok = []
+            for y_tile in (None, 5):
+                out = K.stencil_fused_batched(
+                    fields, params, spec, T=2, dt=SPEC_DT[op], y_tile=y_tile,
+                    x_interior_mask=xm, y_interior_mask=ym)
+                for b in range(B):
+                    seq = K.stencil_fused(
+                        [f[b] for f in fields], params, spec, T=2,
+                        dt=SPEC_DT[op], y_tile=y_tile,
+                        x_interior_mask=xm[b], y_interior_mask=ym[b])
+                    ok.append(same([o[b] for o in out], seq))
+            check(all(ok), f"K6 batched (B = {B}, per-slot masks) == "
+                  f"sequential, bitwise, {spec.name}, y_tile None and 5")
+
+
+def spec_refusal_phase(check: Checks) -> None:
+    custom = SP.StencilSpec(name="custom", fields=("a",),
+                            offsets={"a": ((1, 0, 0),)},
+                            source=lambda sh, pv: (sh(0, 1, 0, 0),),
+                            pack_params=lambda p: ())
+    star2 = tuple((d, 0, 0) for d in (-2, -1, 0, 1, 2))
+    radius2 = SP.StencilSpec(name="diffusion_r2", fields=("phi",),
+                             offsets={"phi": star2},
+                             source=SP._diff_source,
+                             pack_params=SP._diff_pack)
+    dp = SP.default_diffusion_params(8, device="cuda")
+    for spec, params in ((custom, None), (radius2, dp)):
+        before = dict(K.LAUNCHES)
+        try:
+            K.stencil_fused([torch.zeros((6, 8, 8), device="cuda")], params,
+                            spec, T=1)
+            refused = False
+        except NotImplementedError as err:
+            refused = "ROADMAP Queue 2" in str(err)
+        check(refused and K.LAUNCHES == before,
+              f"a spec outside the CUDA table ({spec.name}) is refused on "
+              f"the card, naming the queue, with no launch")
+    pw_rk2 = SP.pw_advection_spec("rk2")
+    fields = [torch.zeros((4, 1024, 64), device="cuda") for _ in range(3)]
+    try:
+        K.stencil_fused(fields, REF.default_params(64, device="cuda"),
+                        pw_rk2, T=4)
+        refused = False
+    except ValueError as err:
+        refused = str(R.SMEM_PER_BLOCK) in str(err)
+    try:
+        K.largest_fitting_y_tile(4, 1024, 64,
+                                 **K.spec_ring_knobs(pw_rk2, 4))
+        no_tile = False
+    except ValueError as err:
+        no_tile = str(R.SMEM_PER_BLOCK) in str(err)
+    check(refused and no_tile, f"PW rk2 at T = 4, Z = 64 refused, naming "
+          f"the {R.SMEM_PER_BLOCK} B budget (no y_tile fits)")
+
+
+def spec_path_phase(check: Checks, fields):
+    """One `stencil_fused` pass per operator at the 67M grid; returns
+    {(op, integrator): run record}."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    u0, v0, w0 = fields
+    q0 = SP.tracer_field(X, Y, Z, device="cuda")
+    phi0 = SP.diffusion_field(X, Y, Z, device="cuda")
+    p = REF.default_params(Z, device="cuda")
+    inputs = {"pw": (p, (u0, v0, w0)), "tracer": (p, (u0, v0, w0, q0)),
+              "diffusion": (SP.default_diffusion_params(Z, device="cuda"),
+                               (phi0,))}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    runs = {}
+    for op, integ, T in SPEC_PATH:
+        spec = SPEC_FACTORIES[op](integ)
+        params, flds = inputs[op]
+        dt = SPEC_DT[op]
+        y_tile = K.largest_fitting_y_tile(T, Y, Z,
+                                          **K.spec_ring_knobs(spec, T))
+        n_ty = K._grid_geometry(Y, y_tile, spec.halo(T))[2]
+        ring = K.fused_register_bytes(T, Y, Z, 4, y_tile,
+                                      **K.spec_ring_knobs(spec, T))
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = K.stencil_fused(flds, params, spec, T=T, dt=dt, y_tile=y_tile)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        tag = f"spec path {spec.name} T={T}"
+        print(f"{tag}: {MAIN_GRID} grid {(X, Y, Z)}, {spec.n_fields} fields, "
+              f"dt={dt}, y_tile={y_tile} ({n_ty} blocks on {sms} SMs), ring "
+              f"{ring} B; wall {wall:.3f} s; launches {launches}", flush=True)
+        check(all(n == (1 if k == "stencil_fused" else 0)
+                  for k, n in launches.items()),
+              f"{tag}: stencil_fused launched once, no other kernel")
+        check(all(o.shape == (X, Y, Z) and bool(torch.isfinite(o).all())
+                  for o in out), f"{tag}: outputs finite, of shape (X, Y, Z)")
+        plain = plain_spec(flds, params, spec, T, dt)
+        err = max(float((a - b).abs().max()) for a, b in zip(out, plain))
+        check(err == 0.0, f"{tag}: == plain version, bitwise ({err})")
+        del plain
+        check(all(frozen_edges(a, b) for a, b in zip(flds, out)),
+              f"{tag}: boundary cells unchanged")
+        if op == "pw" and integ == "euler":
+            k1 = K.advect_fused(*flds, params, T=T, dt=dt, y_tile=y_tile)
+            check(same(out, k1), f"{tag}: == K1 (advect_fused) at y_tile "
+                  f"{y_tile}, bitwise")
+            del k1
+        if op == "tracer":
+            pw = runs["pw", integ]
+            check(pw["T"] == T and same(out[:3], pw["out"]),
+                  f"{tag}: u, v, w == the PW spec's ({integ}, T={T}), "
+                  f"bitwise")
+        o_err = oracle_err(out, flds, params, spec, T, dt)[0]
+        check(o_err < ORACLE_TOL, f"{tag}: vs f64 oracle {o_err:.3e} < "
+              f"{ORACLE_TOL}")
+        moved = max(float((a - b).abs().max()) for a, b in zip(out, flds))
+        if op == "diffusion":
+            print(f"{tag}: max change {moved:.3e} (at dt={dt} the update is "
+                  f"below half an f32 ulp of phi ~ 300)", flush=True)
+            diffusion_resolved_check(check, tag, spec, params, flds, T,
+                                     y_tile)
+        else:
+            check(moved > 0.0, f"{tag}: the fields moved (max change "
+                  f"{moved:.3e})")
+        runs[op, integ] = dict(spec=spec, params=params, fields=flds, T=T,
+                               dt=dt, y_tile=y_tile, out=out,
+                               launches=launches["stencil_fused"], err=err,
+                               oracle_err=o_err)
+    for r in runs.values():
+        del r["out"]
+    return runs
+
+
+def diffusion_resolved_check(check: Checks, tag, spec, params, flds, T,
+                             y_tile) -> None:
+    """The diffusion pass again at `DIFFUSION_RESOLVED_DT`, where f32
+    resolves the update of phi ~ 300, so that == plain says something."""
+    dt = DIFFUSION_RESOLVED_DT
+    out = K.stencil_fused(flds, params, spec, T=T, dt=dt, y_tile=y_tile)
+    plain = plain_spec(flds, params, spec, T, dt)
+    moved = max(float((a - b).abs().max()) for a, b in zip(out, flds))
+    o_err = oracle_err(out, flds, params, spec, T, dt)[0]
+    check(same(out, plain) and o_err < ORACLE_TOL < moved / 5.0,
+          f"{tag} at dt={dt}: == plain, bitwise, vs f64 oracle {o_err:.3e} "
+          f"< {ORACLE_TOL}, fields moved by more than 5x that (max change "
+          f"{moved:.3e})")
+
+
+def spec_timing(runs, probe_params):
+    """Time each operator's pass; return the `stencil_fused` record (the PW
+    euler pass, the bitwise partner of K1) with one entry per operator."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    cells = X * Y * Z
+    per_op = []
+    for (op, integ), r in runs.items():
+        spec, params, flds, T, dt = (r["spec"], r["params"], r["fields"],
+                                     r["T"], r["dt"])
+        y_tile, nf, rad = r["y_tile"], spec.n_fields, spec.radius
+        ms = time_ms(lambda: K.stencil_fused(flds, params, spec, T=T, dt=dt,
+                                             y_tile=y_tile))
+        plain_ms = time_ms(lambda: plain_spec(flds, params, spec, T, dt),
+                           runs=10)
+        pv_bytes = sum(v.numel() for v in
+                       K._spec_param_vectors(spec, params, "cuda")) * 4
+        nbytes = (K.hbm_bytes_model(X, Y, Z, 4, "fused", T=T, n_fields=nf,
+                                    halo_depth=spec.halo(T))
+                  + pv_bytes + (X + Y) * 4)
+        interior = (X - 2 * rad) * (Y - 2 * rad) * (Z - 2 * rad)
+        levels = spec.stages * T
+        ops = levels * (interior * SP.spec_flops_per_cell(spec, probe_params[
+            op]) + 2 * nf * cells)
+        bound, bound_by = bound_of(nbytes, ops)
+        print(f"spec path on the card: {spec.name} T={T}: {ms:.4f} ms per "
+              f"pass, {ms / T:.4f} ms per step (median of {TIMED_RUNS}), "
+              f"bound {bound:.4f} ms by {bound_by} ({nbytes} B, {ops} f32 "
+              f"ops), {bound / ms:.3f} of the bound, "
+              f"{nbytes / ms / 1e6:.1f} GB/s; y_tile {y_tile}; plain "
+              f"version {plain_ms:.4f} ms", flush=True)
+        per_op.append({"operator": spec.name, "T": T, "y_tile": y_tile,
+                       "launches": r["launches"], "max_abs_err": r["err"],
+                       "oracle_err": r["oracle_err"], "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": bound_by})
+    pw = per_op[0]
+    record = {"name": "stencil_fused", "route": "cuda",
+              "source": SOURCE["stencil_fused"],
+              "replaces": REPLACES["stencil_fused"],
+              "launches": sum(o["launches"] for o in per_op),
+              "max_abs_err": max(o["max_abs_err"] for o in per_op),
+              "ms": pw["ms"], "plain_ms": pw["plain_ms"],
+              "bound_ms": pw["bound_ms"], "bound_by": pw["bound_by"],
+              "library_ms": None, "operators": per_op}
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -535,10 +888,16 @@ def main() -> int:
     print(_build.build_log().strip(), flush=True)
     check = Checks()
     small_shape_phase(check)
+    spec_small_phase(check)
     dom, fields, out, launches, k1_err, k4_err = main_path_phase(check)
     ladder = ladder_path_phase(check, fields)
+    spec_runs = spec_path_phase(check, fields)
     records = timing_phase(dom, fields, out, launches, k1_err, k4_err,
                            ladder)
+    probe = {"pw": REF.default_params(4, device="cpu"),
+             "tracer": REF.default_params(4, device="cpu"),
+             "diffusion": SP.default_diffusion_params(4, device="cpu")}
+    records.append(spec_timing(spec_runs, probe))
     print(f"chip_smoke: {len(check.failed)} of {check.count} checks failed; "
           f"{time.perf_counter() - t0:.1f} s since the build began",
           flush=True)

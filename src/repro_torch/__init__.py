@@ -5,8 +5,12 @@ The JAX package `repro` is the reference; this package never imports it
 `stencil.advection.AdvectionDomain(variant="fused")` ->
 `kernels.advection.ops.pw_advect_fused` -> `kernels.advection.advection.
 advect_fused`, which launches the hand-written CUDA ring kernel in
-`csrc/advect_fused.cu`; `finite_guard` launches `csrc/finite_guard.cu`.
-Both are built by `nvcc` at first use (`_build.py`). On CPU tensors each
+`csrc/advect_fused.cu`; `finite_guard` launches `csrc/finite_guard.cu`;
+the other ladder rungs launch `csrc/advect_blocked.cu` and
+`csrc/advect_dataflow.cu`. The stencil-spec frontend (`stencil.spec`)
+drives `kernels.advection.advection.stencil_fused`, which launches
+`csrc/stencil_fused.cu`. All are built by `nvcc` at first use
+(`_build.py`). On CPU tensors each
 wrapper runs its plain PyTorch version instead, which is what the CPU test
 tier holds against the JAX reference.
 """

@@ -26,8 +26,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
 SOURCES = ("advect_fused.cu", "finite_guard.cu", "advect_blocked.cu",
-           "advect_dataflow.cu")
-HEADERS = ("pw_source.cuh",)
+           "advect_dataflow.cu", "stencil_fused.cu")
+HEADERS = ("pw_source.cuh", "stencil_ops.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -40,6 +40,8 @@ SIGNATURES = {
     "finite_guard_f32": [_P] * 4 + [_I, _I, _LL, _I, _P],
     "advect_blocked_f32": [_P] * 7 + [_I] * 7 + [_F, _SZ, _P],
     "advect_dataflow_f32": [_P] * 7 + [_I] * 9 + [_F, _SZ, _P],
+    "stencil_fused_f32": ([_I] * 3 + [_P] * 9 + [_I, _P, _P] + [_I] * 10
+                          + [_F, _SZ, _P]),
 }
 
 

@@ -84,26 +84,30 @@ GUARD_FLAG_ITEMSIZE = 4   # the finite-guard flag output is f32
 
 
 def guard_bytes_model(X: int, Y: int, Z: int, *, batch: int = 1,
-                      itemsize: int = 4) -> int:
+                      itemsize: int = 4, n_fields: int = 3) -> int:
     """Extra device-memory bytes of the finite-guard pass
-    (`kernels.advection.finite_guard`): it re-reads ``3 * X * Y * Z``
-    field words and writes ``X`` f32 flag words per slot. The guard stays a
-    separate launch after the fused kernel, so its price is this read pass.
+    (`kernels.advection.finite_guard`): it re-reads ``n_fields * X * Y *
+    Z`` field words (3 for the advection ladder, `spec.n_fields` for a
+    stencil-spec operator) and writes ``X`` f32 flag words per slot. The
+    guard stays a separate launch after the fused kernel, so its price is
+    this read pass.
     """
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
     if min(X, Y, Z) < 1:
         raise ValueError(f"extents must be >= 1, got {(X, Y, Z)}")
+    if n_fields < 1:
+        raise ValueError(f"n_fields must be >= 1, got {n_fields}")
     parts = guard_bytes_model_parts(X, Y, Z, batch=batch,
-                                    itemsize=itemsize)
+                                    itemsize=itemsize, n_fields=n_fields)
     return parts["field_reads"] + parts["flag_words"]
 
 
 def guard_bytes_model_parts(X: int, Y: int, Z: int, *, batch: int = 1,
-                            itemsize: int = 4) -> dict:
+                            itemsize: int = 4, n_fields: int = 3) -> dict:
     """`guard_bytes_model` split into ``{"field_reads", "flag_words"}``;
     their sum is `guard_bytes_model`."""
-    return {"field_reads": batch * 3 * X * Y * Z * itemsize,
+    return {"field_reads": batch * n_fields * X * Y * Z * itemsize,
             "flag_words": batch * X * GUARD_FLAG_ITEMSIZE}
 
 

@@ -7,13 +7,16 @@ with `fuse_update=True` the fields advanced one explicit-Euler step;
 `advect_fused` advances them T steps in one pass over device memory;
 `advect_fused_batched` does so for B slot-stacked domains in one launch, the
 slot being a dimension of the launch grid; `finite_guard` flags the
-x-slices whose three fields are all finite.
+x-slices whose three fields are all finite; `stencil_fused[_batched]` is the
+v4 ring driven by a `stencil.spec.StencilSpec` (any number of fields, the
+spec's source, euler or in-ring midpoint RK2).
 
 Each wrapper dispatches on where its tensors lie. On a CUDA tensor it
 launches its hand-written kernel (`csrc/advect_blocked.cu`,
-`csrc/advect_dataflow.cu`, `csrc/advect_fused.cu`, `csrc/finite_guard.cu`)
-or raises; on a CPU tensor it runs the kernel's plain PyTorch version beside
-it (`_advect_rung_plain`, `_advect_fused_plain`, `_finite_guard_plain`).
+`csrc/advect_dataflow.cu`, `csrc/advect_fused.cu`, `csrc/finite_guard.cu`,
+`csrc/stencil_fused.cu`) or raises; on a CPU tensor it runs the kernel's
+plain PyTorch version beside it (`_advect_rung_plain`, `_advect_fused_plain`,
+`_finite_guard_plain`, `_stencil_fused_plain`).
 There is no fallback from one to the other. `LAUNCHES` counts the kernel
 launches, one per launch and one key per rung, so a run can show which
 kernel it went through.
@@ -51,7 +54,7 @@ WIDE_HOST_RULE = ("wide runs the in-grid tiled path only: the host tile loop "
                   "tiling='grid' or dataflow with tiling='host'")
 
 LAUNCHES = {"advect_fused": 0, "finite_guard": 0, "advect_blocked": 0,
-            "advect_dataflow": 0, "advect_wide": 0}
+            "advect_dataflow": 0, "advect_wide": 0, "stencil_fused": 0}
 
 
 def reset_launch_counts() -> None:
@@ -107,32 +110,54 @@ def _own_start(t: int, Y: int, TY: int, S: int, H: int) -> int:
 
 
 def fused_register_bytes(T: int, y_rows: int, Z: int, itemsize: int = 4,
-                         y_tile: int | None = None) -> int:
-    """Bytes of a ring: 3 fields x T levels x 3 slots of
-    ``min(y_tile + 2T, y_rows)`` rows. T = 1 is the v1-v3 slab (3 fields x
-    3 slices, halo 1), the v4 ring otherwise. On Hopper the ring is one
-    block's dynamic shared memory, so it must stay within
-    `roofline.SMEM_PER_BLOCK`."""
-    rows = y_rows if y_tile is None else min(y_tile + 2 * T, y_rows)
-    return 3 * 3 * T * rows * Z * itemsize
+                         y_tile: int | None = None,
+                         halo: int | None = None, *, n_fields: int = 3,
+                         n_slots: int = 3,
+                         n_levels: int | None = None) -> int:
+    """Bytes of a ring: by default 3 fields x T levels x 3 slots of
+    ``min(y_tile + 2*halo, y_rows)`` rows (halo defaults to T). T = 1 is the
+    v1-v3 slab (3 fields x 3 slices, halo 1), the v4 ring otherwise. The
+    spec ring (`stencil_fused`) is sized by the same formula with
+    `n_fields=spec.n_fields`, `n_slots=2*spec.radius + 1`,
+    `n_levels=spec.stages*T` and `halo=spec.halo(T)` (`spec_ring_knobs`).
+    On Hopper the ring is one block's dynamic shared memory, so it must
+    stay within `roofline.SMEM_PER_BLOCK`."""
+    h = T if halo is None else halo
+    levels = T if n_levels is None else n_levels
+    rows = y_rows if y_tile is None else min(y_tile + 2 * h, y_rows)
+    return n_fields * (n_slots * levels) * rows * Z * itemsize
+
+
+def spec_ring_knobs(spec, T: int) -> dict:
+    """The ring knobs of `fused_register_bytes` and
+    `largest_fitting_y_tile` for a StencilSpec advancing T steps."""
+    return dict(n_fields=spec.n_fields, n_slots=2 * spec.radius + 1,
+                n_levels=spec.stages * T, halo=spec.halo(T))
 
 
 def largest_fitting_y_tile(T: int, Y: int, Z: int, itemsize: int = 4,
-                           budget: int = SMEM_PER_BLOCK) -> Optional[int]:
+                           budget: int = SMEM_PER_BLOCK, *,
+                           n_fields: int = 3, n_slots: int = 3,
+                           n_levels: int | None = None,
+                           halo: int | None = None) -> Optional[int]:
     """The y_tile a ring kernel runs with when the caller names none (T = 1
-    for the v1-v3 slab, the fusion depth for v4): None (untiled) when the
-    whole-Y ring fits `budget`; else the largest tile whose ring fits,
-    taking the largest divisor of Y instead when it is at least half that
-    size (even tiles leave no remainder tile that streams a full slab for a
-    few rows). Raises when no tile fits."""
-    if fused_register_bytes(T, Y, Z, itemsize) <= budget:
+    for the v1-v3 slab, the fusion depth for v4, a spec's ring with
+    `spec_ring_knobs`): None (untiled) when the whole-Y ring fits `budget`;
+    else the largest tile whose ring fits, taking the largest divisor of Y
+    instead when it is at least half that size (even tiles leave no
+    remainder tile that streams a full slab for a few rows). Raises when no
+    tile fits."""
+    knobs = dict(halo=halo, n_fields=n_fields, n_slots=n_slots,
+                 n_levels=n_levels)
+    if fused_register_bytes(T, Y, Z, itemsize, **knobs) <= budget:
         return None
-    best = budget // (3 * 3 * T * Z * itemsize) - 2 * T
+    h = T if halo is None else halo
+    best = budget // fused_register_bytes(T, 1, Z, itemsize, **knobs) - 2 * h
     if best < 1:
         raise ValueError(
             f"no y_tile fits the fused ring in {budget} B of shared memory "
             f"per block at T={T}, Z={Z}: even y_tile=1 needs "
-            f"{fused_register_bytes(T, Y, Z, itemsize, y_tile=1)} B")
+            f"{fused_register_bytes(T, Y, Z, itemsize, 1, **knobs)} B")
     divisor = max(d for d in range(1, best + 1) if Y % d == 0)
     return divisor if 2 * divisor >= best else best
 
@@ -162,7 +187,8 @@ def _check_wide_model(Y: int, Z: int, itemsize: int, y_tile: int | None,
 def hbm_bytes_model(X: int, Y: int, Z: int, itemsize: int, variant: str,
                     *, T: int = 1, y_tile: int | None = None,
                     grid_tiled: bool = True,
-                    fuse_update: bool = True) -> int:
+                    fuse_update: bool = True, n_fields: int = 3,
+                    halo_depth: int | None = None) -> int:
     """Modelled device-memory bytes of one advection call advancing T
     explicit-Euler steps.
 
@@ -184,35 +210,44 @@ def hbm_bytes_model(X: int, Y: int, Z: int, itemsize: int, variant: str,
     reference's value wherever the reference accepts the shape (Z % 128 ==
     0, y_tile % 8 == 0), and raises where `advect_wide` would refuse to run:
     a row that is not whole 16-byte vectors, or host tiling.
+
+    `n_fields` and `halo_depth` price the spec ring (`stencil_fused`): it
+    streams `spec.n_fields` fields per pass with a slab halo of
+    `spec.halo(T)` (None keeps the ladder's depths, T for `fused` and 1
+    otherwise); on the in-grid path its bytes do not depend on the halo.
     """
     if variant == "wide":
         _check_wide_model(Y, Z, itemsize, y_tile, grid_tiled)
     slice_b = Y * Z * itemsize
     row_b = _padded_row_bytes(Z, itemsize)
-    halo = T if variant == "fused" else 1
+    if halo_depth is None:
+        halo = T if variant == "fused" else 1
+    else:
+        halo = halo_depth
     overlap_rows = 0 if grid_tiled else _host_overlap_rows(Y, y_tile, halo)
     tiled_slice_b = (Y + overlap_rows) * row_b
     if variant == "blocked":
-        reads = T * 3 * 3 * X * tiled_slice_b
+        reads = T * n_fields * 3 * X * tiled_slice_b
     elif variant in ("dataflow", "wide"):
-        reads = T * 3 * X * tiled_slice_b
+        reads = T * n_fields * X * tiled_slice_b
     elif variant == "fused":
-        reads = 3 * X * tiled_slice_b   # one pass for all T steps
+        reads = n_fields * X * tiled_slice_b   # one pass for all T steps
     elif variant == "pointwise":
-        reads = T * 3 * 7 * X * Y * row_b   # naive 7-point gathers
+        reads = T * n_fields * 7 * X * Y * row_b   # naive 7-point gathers
     else:
         raise ValueError(variant)
     w_slice_b = Y * row_b if variant == "pointwise" else tiled_slice_b
-    writes = (1 if variant == "fused" else T) * 3 * X * w_slice_b
+    writes = (1 if variant == "fused" else T) * n_fields * X * w_slice_b
     total = reads + writes
     if not fuse_update and variant != "fused":
-        total += T * 3 * 3 * X * slice_b
+        total += T * 3 * n_fields * X * slice_b
     return int(total)
 
 
 def vmem_halo_bytes_model(X: int, Y: int, Z: int, itemsize: int,
                           variant: str, *, T: int = 1,
-                          y_tile: int | None = None) -> int:
+                          y_tile: int | None = None, n_fields: int = 3,
+                          halo_depth: int | None = None) -> int:
     """Halo re-read bytes the in-grid tiled path serves from the on-chip
     slab (shared memory on Hopper) instead of device memory: `2*halo` rows
     per interior tile boundary, per x-slice, per field (per view for
@@ -220,17 +255,22 @@ def vmem_halo_bytes_model(X: int, Y: int, Z: int, itemsize: int,
 
     `wide` streams a 1-row fetch halo on the card, as `dataflow` does, so
     its value is the reference's `dataflow` value; the reference's own
-    `wide` value counts its TPU 8-row sublane halo."""
+    `wide` value counts its TPU 8-row sublane halo. `n_fields` and
+    `halo_depth` price the spec ring: `spec.n_fields` rings each re-read a
+    `spec.halo(T)`-deep slab halo."""
     if variant == "pointwise":
         return 0
     if variant == "wide":
         _check_wide_model(Y, Z, itemsize, y_tile, grid_tiled=True)
-    halo = T if variant == "fused" else 1
+    if halo_depth is None:
+        halo = T if variant == "fused" else 1
+    else:
+        halo = halo_depth
     _, _, n_ty = _grid_geometry(Y, y_tile, halo)
     overlap_rows = 2 * halo * (n_ty - 1)
     views = 3 if variant == "blocked" else 1
     passes = 1 if variant == "fused" else T
-    return passes * views * 3 * X * overlap_rows * Z * itemsize
+    return passes * views * n_fields * X * overlap_rows * Z * itemsize
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +305,16 @@ def _mask(mask, n: int, B: int, name: str, device) -> torch.Tensor:
         raise ValueError(f"{name} must have shape ({n},) or ({B}, {n}), "
                          f"got {tuple(m.shape)}")
     return m
+
+
+def _check_domain_masks(y_interior_mask, x_interior_mask, X: int,
+                        Y: int) -> None:
+    """One domain's interior masks are (Y,) and (X,), or None."""
+    for name, m, n in (("y_interior_mask", y_interior_mask, Y),
+                       ("x_interior_mask", x_interior_mask, X)):
+        if m is not None and tuple(torch.as_tensor(m).shape) != (n,):
+            raise ValueError(f"{name} must have shape ({n},), got "
+                             f"{tuple(torch.as_tensor(m).shape)}")
 
 
 def _slot_params(p: AdvectParams, B: Optional[int], Z: int,
@@ -417,11 +467,7 @@ def advect_fused(u, v, w, p: AdvectParams, *, T: int = 4, dt: float = 1.0,
                                                          dt=dt),
                             u, v, w, y_tile=y_tile, halo=T)
         return out + (finite_guard(*out),) if guard else out
-    for name, m, n in (("y_interior_mask", y_interior_mask, Y),
-                       ("x_interior_mask", x_interior_mask, X)):
-        if m is not None and tuple(torch.as_tensor(m).shape) != (n,):
-            raise ValueError(f"{name} must have shape ({n},), got "
-                             f"{tuple(torch.as_tensor(m).shape)}")
+    _check_domain_masks(y_interior_mask, x_interior_mask, X, Y)
     outs = advect_fused_batched(u[None], v[None], w[None], p, T=T, dt=dt,
                                 y_tile=y_tile, tiling=tiling,
                                 y_interior_mask=y_interior_mask,
@@ -612,3 +658,186 @@ def finite_guard(u, v, w):
     if u.ndim == 3:
         return _finite_guard_cuda(u[None], v[None], w[None])[0]
     return _finite_guard_cuda(u, v, w)
+
+
+# ---------------------------------------------------------------------------
+# K6: the spec ring
+# ---------------------------------------------------------------------------
+
+def _cuda_instantiation(spec) -> Tuple[int, int]:
+    """(functor id, stages) of the CUDA instantiation that runs `spec`,
+    the id being the spec's own `cuda_op`; raises for a spec the kernel was
+    not built for."""
+    op = spec.cuda_op
+    if op is None:
+        raise NotImplementedError(
+            f"spec {spec.name!r} (source {spec.source.__name__}, radius "
+            f"{spec.radius}, integrator {spec.integrator}) has no CUDA "
+            f"instantiation: csrc/stencil_fused.cu is built for the shipped "
+            f"PW, tracer and diffusion specs at radius 1, euler or rk2. CUDA "
+            f"sources for user-defined specs (generated from the callback) "
+            f"are queued in ROADMAP Queue 2; on CPU tensors the plain "
+            f"version runs any spec")
+    return op, spec.stages
+
+
+def _check_spec_fields(fields, spec, rank: int, what: str) -> None:
+    if len(fields) != spec.n_fields:
+        raise ValueError(
+            f"spec {spec.name!r} has {spec.n_fields} fields "
+            f"({spec.fields}), got {len(fields)} arrays")
+    for name, f in zip(spec.fields, fields):
+        if not torch.is_tensor(f):
+            raise TypeError(f"field {name!r} must be a torch.Tensor, got "
+                            f"{type(f).__name__}")
+        if f.ndim != rank:
+            raise ValueError(f"field {name!r} must be {what}, got rank "
+                             f"{f.ndim}")
+    shape = fields[0].shape
+    for name, f in zip(spec.fields, fields):
+        if f.shape != shape:
+            raise ValueError(f"field {name!r} shape {tuple(f.shape)} != "
+                             f"{tuple(shape)}")
+        if f.dtype == torch.bfloat16:
+            raise NotImplementedError("only float32 is ported; bf16 is "
+                                      "queued in ROADMAP Queue 2")
+        if f.dtype != torch.float32:
+            raise TypeError(f"field {name!r} must be float32, got {f.dtype}")
+        if f.device != fields[0].device:
+            raise ValueError(f"field {name!r} is on {f.device}, "
+                             f"{spec.fields[0]!r} on {fields[0].device}")
+        if not f.is_contiguous():
+            raise ValueError(f"field {name!r} must be contiguous")
+
+
+def _spec_param_vectors(spec, params, device) -> Tuple[torch.Tensor, ...]:
+    """`spec.pack_params(params)` as f32 vectors on `device`, checked 1-D."""
+    pv = tuple(torch.as_tensor(p, dtype=torch.float32, device=device)
+               for p in spec.pack_params(params))
+    for p in pv:
+        if p.ndim != 1:
+            raise ValueError(
+                f"spec {spec.name!r}: pack_params must return 1-D vectors, "
+                f"got shape {tuple(p.shape)}")
+    return pv
+
+
+def _stencil_fused_plain(fields, pv, spec, T: int, dt: float, xm, ym,
+                         y_tile=None):
+    """Plain PyTorch version of the spec ring: T masked integrator steps
+    of the spec's sources over (B, X, Y, Z) fields. Euler
+    `f + dt*where(m, S(f), 0)`; rk2 `g = f + (dt/2)*where(m, S(f), 0)`, then
+    `f + dt*where(m, S(g), 0)`, m being the x/y interior mask. `y_tile` is
+    taken and ignored, since tiled and untiled results are equal by
+    contract."""
+    del y_tile
+    X = fields[0].shape[-3]
+    r = spec.radius
+    j = torch.arange(X, device=fields[0].device)
+    x_ok = (j >= r) & (j <= X - 1 - r) & (xm > 0.0)
+    m = x_ok[..., :, None, None] & (ym > 0.0)[..., None, :, None]
+
+    def masked(fs):
+        return tuple(torch.where(m, s, 0.0)
+                     for s in spec.packed_sources(fs, pv))
+
+    fields = tuple(fields)
+    for _ in range(T):
+        if spec.stages == 1:
+            fields = tuple(f + dt * s for f, s in zip(fields, masked(fields)))
+        else:
+            g = tuple(f + (0.5 * dt) * s
+                      for f, s in zip(fields, masked(fields)))
+            fields = tuple(f + dt * s for f, s in zip(fields, masked(g)))
+    return fields
+
+
+def _stencil_fused_cuda(fields, pv, spec, T: int, dt: float, xm, ym,
+                        y_tile=None):
+    """Launch the spec ring CUDA kernel on (B, X, Y, Z) fields."""
+    op, stages = _cuda_instantiation(spec)
+    B, X, Y, Z = fields[0].shape
+    ring = fused_register_bytes(T, Y, Z, 4, y_tile, **spec_ring_knobs(spec, T))
+    if ring > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"the {spec.name} ring needs {ring} B of shared memory at T={T}, "
+            f"Y={Y}, Z={Z}, y_tile={y_tile}; one block may use "
+            f"{SMEM_PER_BLOCK} B. Pass a smaller y_tile "
+            f"(largest_fitting_y_tile with spec_ring_knobs gives one, or "
+            f"raises where none fits)")
+    if any(tuple(p.shape) != (Z + 2,) for p in pv):
+        raise ValueError(f"the CUDA operators read (Z+2,) = ({Z + 2},) "
+                         f"parameter vectors, got "
+                         f"{[tuple(p.shape) for p in pv]}")
+    if B > MAX_GRID_Y:
+        raise ValueError(f"{B} slots exceed the launch grid's {MAX_GRID_Y}")
+    lib = _build.load()
+    TY, S, n_ty = _grid_geometry(Y, y_tile, spec.halo(T))
+    table = torch.cat(pv).contiguous()
+    xmt, sx = _pack_rows([xm], B)
+    ymt, sy = _pack_rows([ym], B)
+    outs = [torch.empty_like(f) for f in fields]
+    ins = [f.data_ptr() for f in fields] + [None] * (4 - len(fields))
+    out_ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
+    stream = torch.cuda.current_stream(fields[0].device).cuda_stream
+    err = lib.stencil_fused_f32(
+        op, stages, spec.radius, *ins, *out_ptrs, table.data_ptr(), Z + 2,
+        xmt.data_ptr(), ymt.data_ptr(), B, X, Y, Z, T, TY, S, n_ty, sx, sy,
+        dt, ring, stream)
+    _build.check(err, "stencil_fused_f32")
+    LAUNCHES["stencil_fused"] += 1
+    return tuple(outs)
+
+
+def stencil_fused_batched(fields, params, spec, *, T: int = 4,
+                          dt: float = 1.0, y_tile: int | None = None,
+                          y_interior_mask=None, x_interior_mask=None):
+    """B domains of a StencilSpec in one launch, the slot being a dimension
+    of the launch grid. `fields` are slot-stacked ``(B, X, Y, Z)``;
+    `params` is shared across slots; interior masks may be shared
+    ``(X,)``/``(Y,)`` or per-slot ``(B, X)``/``(B, Y)``. Per-slot outputs
+    equal B sequential `stencil_fused` calls bitwise."""
+    if T < 1:
+        raise ValueError(f"T must be >= 1, got {T}")
+    _check_y_tile(y_tile)
+    fields = tuple(fields)
+    _check_spec_fields(fields, spec, 4, "slot-stacked (B, X, Y, Z)")
+    B, X, Y, Z = fields[0].shape
+    device = fields[0].device
+    xm = _mask(x_interior_mask, X, B, "x_interior_mask", device)
+    ym = _mask(y_interior_mask, Y, B, "y_interior_mask", device)
+    pv = _spec_param_vectors(spec, params, device)
+    run = _stencil_fused_cuda if fields[0].is_cuda else _stencil_fused_plain
+    return run(fields, pv, spec, T, float(dt), xm, ym, y_tile)
+
+
+def stencil_fused(fields, params, spec, *, T: int = 4, dt: float = 1.0,
+                  y_tile: int | None = None, y_interior_mask=None,
+                  x_interior_mask=None):
+    """Spec-driven v4: advance a StencilSpec's fields T integrator steps in
+    one pass over device memory, the generalisation of `advect_fused` to
+    any operator.
+
+    `fields` is a tuple of `spec.n_fields` (X, Y, Z) float32 tensors;
+    `params` is whatever `spec.pack_params` consumes. The ring depth, the
+    startup masks, the slab halo and the output lag all come from
+    `spec.halo(T) = radius * stages * T`; `y_tile` and the interior masks
+    mean what they mean for `advect_fused`. On CUDA tensors this launches
+    `csrc/stencil_fused.cu`, whose ring (`fused_register_bytes` with
+    `spec_ring_knobs`) must fit one block's shared memory, else it raises
+    naming the budget; a spec whose `cuda_op` is None raises
+    NotImplementedError there. On CPU tensors it runs the plain version,
+    for any spec. With the PW spec it equals `advect_fused` bitwise.
+    """
+    if T < 1:
+        raise ValueError(f"T must be >= 1, got {T}")
+    _check_y_tile(y_tile)
+    fields = tuple(fields)
+    _check_spec_fields(fields, spec, 3, "(X, Y, Z)")
+    X, Y, _ = fields[0].shape
+    _check_domain_masks(y_interior_mask, x_interior_mask, X, Y)
+    outs = stencil_fused_batched(tuple(f[None] for f in fields), params,
+                                 spec, T=T, dt=dt, y_tile=y_tile,
+                                 y_interior_mask=y_interior_mask,
+                                 x_interior_mask=x_interior_mask)
+    return tuple(o[0] for o in outs)

@@ -52,10 +52,12 @@ def params_from_numpy(p, *, dtype=torch.float32,
                           for leaf in (p.tcx, p.tcy, p.tzc1, p.tzc2)))
 
 
-def fields_from_numpy(u, v, w, *, dtype=torch.float32, device="cuda"):
-    """Three numpy-convertible fields -> contiguous tensors on `device`."""
+def fields_from_numpy(*fields, dtype=torch.float32, device="cuda"):
+    """Numpy-convertible fields -> contiguous tensors on `device`: the
+    three winds (u, v, w), or any spec's fields, such as the tracer's
+    (u, v, w, q) and diffusion's (phi,)."""
     return tuple(torch.tensor(np.asarray(f), dtype=dtype, device=device)
-                 for f in (u, v, w))
+                 for f in fields)
 
 
 def pw_advect_ref(u, v, w, p: AdvectParams):

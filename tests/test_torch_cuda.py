@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.kernels.advection import advection as TK
 from repro_torch.kernels.advection import ref as TREF
+from repro_torch.stencil import spec as TSP
 
 pytestmark = pytest.mark.cuda
 DT = 0.01
@@ -122,3 +123,93 @@ def test_rung_slab_over_budget_raises(cuda):
     for fn in (TK.advect_blocked, TK.advect_dataflow, TK.advect_wide):
         with pytest.raises(ValueError, match="232448"):
             fn(u, v, w, p)
+
+
+SPEC_KEYS = ["pw", "pw_rk2", "tracer", "tracer_rk2", "diffusion",
+             "diffusion_rk2"]
+
+
+def spec_case(key, shape, device):
+    """(spec, params, fields, dt) of one shipped operator on `device`."""
+    X, Y, Z = shape
+    integ = "rk2" if key.endswith("rk2") else "euler"
+    rng = np.random.default_rng(sum(shape))
+    if key.startswith("diffusion"):
+        phi = 300.0 + rng.normal(size=shape)
+        return (TSP.diffusion_spec(integ),
+                TSP.default_diffusion_params(Z, device=device),
+                TREF.fields_from_numpy(phi, device=device), 1e-3)
+    n = 4 if key.startswith("tracer") else 3
+    spec = (TSP.tracer_advection_spec(integ) if n == 4
+            else TSP.pw_advection_spec(integ))
+    return (spec, TREF.default_params(Z, device=device),
+            TREF.fields_from_numpy(*(rng.normal(size=shape)
+                                     for _ in range(n)), device=device), DT)
+
+
+@pytest.mark.parametrize("shape", [(6, 10, 12), (5, 17, 12), (8, 12, 10)])
+@pytest.mark.parametrize("key", SPEC_KEYS)
+def test_spec_kernel_bitwise_equals_plain(cuda, shape, key):
+    spec, p, flds, dt = spec_case(key, shape, cuda)
+    X, Y, _ = shape
+    xm = torch.ones(X, device=cuda)
+    ym = torch.ones(Y, device=cuda)
+    xm[2] = 0.0
+    ym[3:5] = 0.0
+    for T in (1, 2, 3):
+        for masks in ((None, None), (xm, ym)):
+            kw = dict(T=T, dt=dt, x_interior_mask=masks[0],
+                      y_interior_mask=masks[1])
+            before = TK.LAUNCHES["stencil_fused"]
+            full = TK.stencil_fused(flds, p, spec, **kw)
+            assert TK.LAUNCHES["stencil_fused"] == before + 1
+            pv = TK._spec_param_vectors(spec, p, cuda)
+            plain = TK._stencil_fused_plain(
+                [f[None] for f in flds], pv, spec, T, dt,
+                torch.ones(X, device=cuda) if masks[0] is None else xm,
+                torch.ones(Y, device=cuda) if masks[1] is None else ym)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b[0]) for a, b in zip(full, plain))
+            for y_tile in (3, 5):
+                tiled = TK.stencil_fused(flds, p, spec, y_tile=y_tile, **kw)
+                assert all(torch.equal(a, b) for a, b in zip(tiled, full))
+            if key == "pw":
+                k1 = TK.advect_fused(*flds, p, **kw)
+                assert all(torch.equal(a, b) for a, b in zip(full, k1))
+
+
+@pytest.mark.parametrize("key", SPEC_KEYS)
+def test_spec_kernel_batched_equals_sequential(cuda, key):
+    spec, p, _, dt = spec_case(key, (5, 17, 12), cuda)
+    rng = np.random.default_rng(7)
+    flds = [torch.tensor(rng.normal(size=(3, 5, 17, 12)), dtype=torch.float32,
+                         device=cuda) for _ in range(spec.n_fields)]
+    out = TK.stencil_fused_batched(flds, p, spec, T=2, dt=dt, y_tile=5)
+    for b in range(3):
+        seq = TK.stencil_fused([f[b] for f in flds], p, spec, T=2, dt=dt,
+                               y_tile=5)
+        assert all(torch.equal(o[b], s) for o, s in zip(out, seq)), b
+
+
+def test_spec_kernel_tracer_velocities_equal_pw(cuda):
+    _, p, flds, dt = spec_case("tracer", (8, 12, 10), cuda)
+    for integ in ("euler", "rk2"):
+        out4 = TK.stencil_fused(flds, p, TSP.tracer_advection_spec(integ),
+                                T=2, dt=dt, y_tile=3)
+        out3 = TK.stencil_fused(flds[:3], p, TSP.pw_advection_spec(integ),
+                                T=2, dt=dt, y_tile=3)
+        assert all(torch.equal(a, b) for a, b in zip(out4[:3], out3))
+
+
+def test_spec_kernel_refusals(cuda):
+    spec, p, _, _ = spec_case("pw_rk2", (4, 1024, 64), cuda)
+    flds = [torch.zeros((4, 1024, 64), device=cuda) for _ in range(3)]
+    with pytest.raises(ValueError, match="232448"):
+        TK.stencil_fused(flds, p, spec, T=4)
+    custom = TSP.StencilSpec(name="custom", fields=("a",),
+                             offsets={"a": ((1, 0, 0),)},
+                             source=lambda sh, pv: (sh(0, 1, 0, 0),),
+                             pack_params=lambda q: ())
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+        TK.stencil_fused([torch.zeros((4, 6, 6), device=cuda)], None, custom,
+                         T=1)
