@@ -38,7 +38,26 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 6. times each kernel with CUDA events (median of 20 after warm-up) beside
    its bound, the least time the card could take for the same work, each
    rung's Euler step through the domain beside K1's pass over T, and each
-   spec operator's pass ("spec path on the card" lines).
+   spec operator's pass ("spec path on the card" lines);
+7. holds flash attention (K8) against its plain version at small shapes:
+   the reference's `CASES` and block shapes, bf16 and f32, causal and not,
+   Sq != Skv both ways and the serving path's prompt lengths, within one
+   bf16 rounding (bf16) or 1e-5 (f32), and against `mha_ref` where Sq ==
+   Skv; and its refusals (`ValueError`, no launch);
+8. drives the token-serving path at the full width and depth of
+   `qwen2.5-14b` (f32 weights drawn on the card, bf16 compute,
+   `attention_impl="pallas"`): `ServingEngine.run` on serve.py's default
+   traffic (8 requests of 4-23 tokens, batch 4, max_len 128, max_new 16),
+   the counts set to 0 just before and read just after (K8 launched 48
+   times per prefill, no other kernel); prints the tokens, ms per decode
+   step, tokens/s and peak memory;
+9. gates `pallas` against `chunked` prefill logits on one 2048-token
+   prompt: f32 compute at all 48 layers and bf16 at the first 2 (the
+   tolerances and their basis are in PERF.md); bf16 at 48 layers is
+   printed only, with its reason;
+10. times K8 at q (1, 40, 2048, 128), k/v (1, 8, 2048, 128) bf16 causal
+   beside its plain version, `scaled_dot_product_attention` (the library
+   yardstick, timed here and used nowhere in the port) and its bound.
 
 Prints the card's name and power limit, one JSON line of kernel records and,
 last, `{"ok": true, "device": {...}}`. Any failed check exits nonzero
@@ -60,9 +79,17 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import _build  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import roofline as R  # noqa: E402
 from repro_torch.kernels.advection import advection as K  # noqa: E402
 from repro_torch.kernels.advection import ref as REF  # noqa: E402
+from repro_torch.kernels.attention import attention as A  # noqa: E402
+from repro_torch.kernels.attention.ref import mha_ref  # noqa: E402
+from repro_torch.launch.serve import (random_params,  # noqa: E402
+                                      random_requests)
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.pspec import tree_map  # noqa: E402
+from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.stencil import spec as SP  # noqa: E402
 from repro_torch.stencil.advection import (PAPER_GRIDS,  # noqa: E402
                                            AdvectionDomain)
@@ -97,13 +124,46 @@ SOURCE = {"advect_fused": "src/repro_torch/csrc/advect_fused.cu",
           "advect_blocked": "src/repro_torch/csrc/advect_blocked.cu",
           "advect_dataflow": "src/repro_torch/csrc/advect_dataflow.cu",
           "advect_wide": "src/repro_torch/csrc/advect_dataflow.cu",
-          "stencil_fused": "src/repro_torch/csrc/stencil_fused.cu"}
+          "stencil_fused": "src/repro_torch/csrc/stencil_fused.cu",
+          "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
 REPLACES = {"advect_fused": "src/repro/kernels/advection/advection.py:404",
             "finite_guard": "src/repro/kernels/advection/advection.py:469",
             "advect_blocked": "src/repro/kernels/advection/advection.py:214",
             "advect_dataflow": "src/repro/kernels/advection/advection.py:272",
             "advect_wide": "src/repro/kernels/advection/advection.py:367",
-            "stencil_fused": "src/repro/kernels/advection/advection.py:677"}
+            "stencil_fused": "src/repro/kernels/advection/advection.py:677",
+            "flash_attention": "src/repro/kernels/attention/attention.py:31"}
+# flash attention (K8): the reference's cases and block shapes
+# (tests/test_flash_attention.py), then Sq != Skv both ways and the serving
+# path's prompt shapes (40 q heads over 8 kv heads of 128)
+ATTN_CASES = (  # B, H, Hkv, Sq, Skv, D, causal, dtype, block_q, block_k
+    (2, 4, 2, 256, 256, 64, True, torch.float32, 128, 128),
+    (1, 8, 1, 128, 128, 32, True, torch.bfloat16, 128, 128),
+    (2, 4, 4, 512, 512, 64, False, torch.float32, 128, 128),
+    (1, 2, 2, 384, 384, 128, True, torch.float32, 128, 128),
+    (1, 6, 2, 256, 256, 64, True, torch.bfloat16, 128, 128),
+    (1, 2, 2, 256, 256, 64, True, torch.float32, 64, 64),
+    (1, 2, 2, 256, 256, 64, True, torch.float32, 128, 64),
+    (1, 2, 2, 256, 256, 64, True, torch.float32, 64, 128),
+    (1, 4, 2, 128, 256, 64, True, torch.float32, 64, 64),
+    (1, 4, 2, 256, 128, 64, True, torch.float32, 64, 64),
+    (1, 4, 2, 128, 256, 64, True, torch.bfloat16, 64, 128),
+    (1, 4, 2, 256, 128, 64, True, torch.bfloat16, 128, 64),
+    (1, 4, 2, 128, 384, 64, False, torch.bfloat16, 64, 128),
+    (1, 40, 8, 13, 13, 128, True, torch.bfloat16, 128, 128),
+    (1, 40, 8, 23, 23, 128, True, torch.bfloat16, 128, 128),
+    (4, 40, 8, 4, 4, 128, True, torch.float32, 128, 128),
+)
+ATTN_F32_TOL = 1e-5          # the reference's f32 tolerance
+ATTN_REF_BF16_TOL = 2e-2     # the reference's bf16 tolerance vs mha_ref
+BF16_ROUNDING = 2.0 ** -7    # one bf16 ulp, relative to the value
+SERVE_ARCH = "qwen2.5-14b"
+SERVE_TRAFFIC = dict(requests=8, batch_size=4, max_len=128, max_new=16)
+PREFILL_TOKENS = 2048
+PREFILL_F32_TOL = 1e-2       # PERF.md: written before the first chip run
+PREFILL_BF16_REL_TOL = 0.03  # x max |chunked logit|: 3.8x this gate's own
+                             # reading on the card (PERF.md)
+ATTN_TIMED = (1, 40, 8, 2048, 128)   # B, H, Hkv, S, D: bf16, causal
 
 
 class Checks:
@@ -873,11 +933,236 @@ def spec_timing(runs, probe_params):
     return record
 
 
+
+# ---------------------------------------------------------------------------
+# flash attention (K8) and the token-serving path
+# ---------------------------------------------------------------------------
+
+
+def attn_inputs(B, H, Hkv, Sq, Skv, D, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                                 device="cuda").to(dtype)
+                 for s in ((B, H, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D)))
+
+
+def within_one_bf16_rounding(got, want) -> bool:
+    """Elementwise |got - want| <= one bf16 ulp of the larger (2**-7 of
+    it), plus 1e-5 for the f32 noise of values near zero: two f32 results
+    that differ in the last bits round to bf16 at most one ulp apart."""
+    g, w = got.float(), want.float()
+    bound = BF16_ROUNDING * torch.maximum(g.abs(), w.abs()) + 1e-5
+    return bool(((g - w).abs() <= bound).all())
+
+
+def attention_small_phase(check: Checks) -> None:
+    for i, (B, H, Hkv, Sq, Skv, D, causal, dtype, bq, bk) in enumerate(
+            ATTN_CASES):
+        q, k, v = attn_inputs(B, H, Hkv, Sq, Skv, D, dtype, seed=300 + i)
+        before = A.LAUNCHES["flash_attention"]
+        got = A.flash_attention(q, k, v, causal=causal, block_q=bq,
+                                block_k=bk)
+        torch.cuda.synchronize()
+        launched = A.LAUNCHES["flash_attention"] - before
+        plain = A._flash_attention_plain(q, k, v, causal, D ** -0.5)
+        err = float((got.float() - plain.float()).abs().max())
+        tag = (f"K8 {(B, H, Hkv, Sq, Skv, D)} causal={causal} "
+               f"{str(dtype)[6:]} blocks {bq}x{bk}")
+        if dtype == torch.bfloat16:
+            ok = within_one_bf16_rounding(got, plain)
+            what = "within one bf16 rounding"
+        else:
+            ok = err <= ATTN_F32_TOL
+            what = f"within {ATTN_F32_TOL}"
+        check(ok and launched == 1 and got.dtype == dtype
+              and got.shape == q.shape, f"{tag} == plain {what} "
+              f"({err:.3e}), one launch")
+        if Sq == Skv:
+            ref = mha_ref(q, k, v, causal=causal)
+            r_err = float((got.float() - ref.float()).abs().max())
+            tol = ATTN_REF_BF16_TOL if dtype == torch.bfloat16 else \
+                ATTN_F32_TOL
+            check(r_err < tol, f"{tag} vs mha_ref {r_err:.3e} < {tol}")
+    q, k, v = attn_inputs(1, 4, 2, 128, 128, 64, torch.float32, seed=399)
+    refusals = (
+        ("H % Hkv != 0", (q[:, :3], k, v), {}),
+        ("Sq % block_q != 0", (q, k, v), dict(block_q=96)),
+        ("Skv % block_k != 0", (q, k, v), dict(block_k=96)),
+        ("tiles over the shared-memory budget",
+         attn_inputs(1, 2, 2, 512, 512, 128, torch.bfloat16, seed=398),
+         dict(block_q=256, block_k=256)))
+    for what, args, kw in refusals:
+        before = A.LAUNCHES["flash_attention"]
+        try:
+            A.flash_attention(*args, **kw)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused and A.LAUNCHES["flash_attention"] == before,
+              f"K8 refuses {what} with ValueError, no launch")
+
+
+def reset_all_counts() -> None:
+    K.reset_launch_counts()
+    A.reset_launch_counts()
+
+
+def serving_phase(check: Checks):
+    """The token-serving path at full width; returns (cfg, params, K8
+    launches)."""
+    cfg = get_config(SERVE_ARCH).replace(attention_impl="pallas")
+    t0 = time.perf_counter()
+    params = random_params(cfg, "cuda")
+    torch.cuda.synchronize()
+    print(f"serving path: {cfg.name}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, weights {cfg.param_dtype} "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) drawn on the card "
+          f"in {time.perf_counter() - t0:.2f} s; compute {cfg.compute_dtype}",
+          flush=True)
+    tr = SERVE_TRAFFIC
+    engine = ServingEngine(cfg, params, batch_size=tr["batch_size"],
+                           max_len=tr["max_len"])
+    reqs = random_requests(cfg, tr["requests"], tr["max_new"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k8 = A.LAUNCHES["flash_attention"]
+    others = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    st = engine.stats
+    total = sum(len(v) for v in done.values())
+    print(f"serving path: {len(done)} requests, {total} tokens in {wall:.3f}"
+          f" s ({total / wall:.2f} tokens/s aggregate); {st['prefills']} "
+          f"prefills, {st['prefill_s'] / st['prefills'] * 1e3:.2f} ms each; "
+          f"{st['decode_steps']} decode steps, "
+          f"{st['decode_s'] / st['decode_steps'] * 1e3:.2f} ms each "
+          f"({st['decode_steps'] * tr['batch_size'] / st['decode_s']:.2f} "
+          f"token slots/s); peak memory {peak} B ({peak / 1e9:.2f} GB); "
+          f"K8 launches {k8}", flush=True)
+    for uid in sorted(done):
+        print(f"  req {uid} (prompt {len(reqs[uid].prompt)}): {done[uid]}",
+              flush=True)
+    check(k8 == cfg.n_layers * st["prefills"] and st["prefills"] == len(reqs),
+          f"serving: K8 launched {k8} times = {cfg.n_layers} layers x "
+          f"{st['prefills']} prefills")
+    check(all(n == 0 for n in others.values()),
+          f"serving: no advection kernel launched ({others})")
+    check(sorted(done) == list(range(len(reqs)))
+          and all(len(v) == tr["max_new"] for v in done.values())
+          and all(0 <= t < cfg.vocab_size for v in done.values() for t in v),
+          f"serving: every request done with {tr['max_new']} tokens in the "
+          f"vocabulary")
+    del engine
+    return cfg, params, k8
+
+
+def prefill_gate_phase(check: Checks, cfg, params) -> None:
+    """`pallas` against `chunked` prefill logits on one 2048-token prompt."""
+    layout = M.make_layout(cfg, 1)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, PREFILL_TOKENS)), device="cuda")
+
+    def logits(c, p):
+        out = {}
+        for impl in ("pallas", "chunked"):
+            reset_all_counts()
+            out[impl] = M.forward(p, {"inputs": toks},
+                                  c.replace(attention_impl=impl), layout)[0]
+            torch.cuda.synchronize()
+            out[impl + "_k8"] = A.LAUNCHES["flash_attention"]
+        return out
+
+    first2 = dict(params, layers=tree_map(lambda a: a[:2], params["layers"],
+                                          is_leaf=torch.is_tensor))
+    runs = (("f32", 48, cfg.replace(compute_dtype="float32"), params),
+            ("bf16", 2, cfg.replace(n_layers=2), first2),
+            ("bf16", 48, cfg, params))
+    for name, depth, c, p in runs:
+        t0 = time.perf_counter()
+        out = logits(c, p)
+        wall = time.perf_counter() - t0
+        lp, lc = out["pallas"], out["chunked"]
+        diff = float((lp - lc).abs().max())
+        scale = float(lc.abs().max())
+        agree = float((lp.argmax(-1) == lc.argmax(-1)).float().mean())
+        tag = (f"prefill {PREFILL_TOKENS} tokens, {name} compute, {depth} "
+               f"layers")
+        print(f"{tag}: max |pallas - chunked| {diff:.4e}, max |logit| "
+              f"{scale:.4f}, argmax agreement {agree:.4f}; K8 launches "
+              f"{out['pallas_k8']} (pallas), {out['chunked_k8']} (chunked); "
+              f"both forwards {wall:.2f} s", flush=True)
+        check(out["pallas_k8"] == depth and out["chunked_k8"] == 0
+              and lp.shape == (1, PREFILL_TOKENS, cfg.vocab_size)
+              and bool(torch.isfinite(lp).all())
+              and bool(torch.isfinite(lc).all()),
+              f"{tag}: K8 once per layer on the pallas path only; logits "
+              f"finite, (1, {PREFILL_TOKENS}, {cfg.vocab_size})")
+        if name == "f32":
+            check(diff <= PREFILL_F32_TOL,
+                  f"{tag}: pallas == chunked within {PREFILL_F32_TOL}")
+        elif depth == 2:
+            check(diff <= PREFILL_BF16_REL_TOL * scale,
+                  f"{tag}: pallas == chunked within {PREFILL_BF16_REL_TOL} x "
+                  f"max |logit| ({PREFILL_BF16_REL_TOL * scale:.4f})")
+        else:
+            print(f"{tag}: not gated: bf16 rounding of activations differs "
+                  f"between the two algorithms and grows with depth", flush=True)
+        del out, lp, lc
+
+
+def attention_timing(launches: int, card: str) -> dict:
+    """K8 at the timed shape beside its plain version, SDPA and its bound."""
+    B, H, Hkv, S, D = ATTN_TIMED
+    q, k, v = attn_inputs(B, H, Hkv, S, S, D, torch.bfloat16, seed=500)
+    got = A.flash_attention(q, k, v, causal=True)
+    plain = A._flash_attention_plain(q, k, v, True, D ** -0.5)
+    err = float((got.float() - plain.float()).abs().max())
+    ms = time_ms(lambda: A.flash_attention(q, k, v, causal=True))
+    plain_ms = time_ms(lambda: A._flash_attention_plain(q, k, v, True,
+                                                        D ** -0.5))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    # bound: read q, k, v once, write out once; the causal half of the two
+    # products, 2 FLOP per multiply-add, at the bf16 tensor-core peak
+    nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * 2
+    flops = 4 * B * H * D * (S * (S + 1) // 2)
+    t_bytes = nbytes / R.HBM_BW * 1e3
+    t_ops = flops / R.PEAK_FLOPS_BF16 * 1e3
+    bound = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    ok = within_one_bf16_rounding(got, plain)
+    print(f"flash_attention: {(B, H, S, D)} q, {(B, Hkv, S, D)} k/v bf16 "
+          f"causal: {ms:.4f} ms (median of {TIMED_RUNS}), bound "
+          f"{bound:.4f} ms by {bound_by} ({flops} FLOP at "
+          f"{R.PEAK_FLOPS_BF16:.3g}/s: {t_ops:.4f} ms; {nbytes} B at "
+          f"{R.HBM_BW:.3g} B/s: {t_bytes:.4f} ms; H100 SXM5 data-sheet peaks; "
+          f"card {card}), "
+          f"{bound / ms:.4f} of the bound, {flops / ms / 1e9:.1f} TFLOP/s; "
+          f"plain version {plain_ms:.4f} ms; library "
+          f"scaled_dot_product_attention (enable_gqa) {lib_ms:.4f} ms; "
+          f"== plain within one bf16 rounding: {ok} ({err:.3e})", flush=True)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": SOURCE["flash_attention"],
+            "replaces": REPLACES["flash_attention"], "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+            "within_one_bf16_rounding": ok}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
               "a GPU", file=sys.stderr)
         return 2
+    # f32 products in full f32 (PyTorch's defaults, set here so that the
+    # f32 prefill gate holds whatever the environment chose)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -889,6 +1174,7 @@ def main() -> int:
     check = Checks()
     small_shape_phase(check)
     spec_small_phase(check)
+    attention_small_phase(check)
     dom, fields, out, launches, k1_err, k4_err = main_path_phase(check)
     ladder = ladder_path_phase(check, fields)
     spec_runs = spec_path_phase(check, fields)
@@ -898,6 +1184,16 @@ def main() -> int:
              "tracer": REF.default_params(4, device="cpu"),
              "diffusion": SP.default_diffusion_params(4, device="cpu")}
     records.append(spec_timing(spec_runs, probe))
+    del dom, fields, out, spec_runs
+    torch.cuda.empty_cache()
+    cfg, params, k8_launches = serving_phase(check)
+    prefill_gate_phase(check, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    k8 = attention_timing(k8_launches, card)
+    check(k8["within_one_bf16_rounding"], "K8 at the timed shape == plain "
+          "within one bf16 rounding")
+    records.append(k8)
     print(f"chip_smoke: {len(check.failed)} of {check.count} checks failed; "
           f"{time.perf_counter() - t0:.1f} s since the build began",
           flush=True)

@@ -9,7 +9,12 @@ advect_fused`, which launches the hand-written CUDA ring kernel in
 the other ladder rungs launch `csrc/advect_blocked.cu` and
 `csrc/advect_dataflow.cu`. The stencil-spec frontend (`stencil.spec`)
 drives `kernels.advection.advection.stencil_fused`, which launches
-`csrc/stencil_fused.cu`. All are built by `nvcc` at first use
+`csrc/stencil_fused.cu`. The dense-model token-serving path
+(`serving.engine.ServingEngine` -> `models.model.forward` /
+`decode_step` -> `models.blocks.attention_apply`) launches the flash-
+attention kernel `csrc/flash_attention.cu` through
+`kernels.attention.ops.gqa_layout_attention` in every prefill when
+`attention_impl="pallas"`. All are built by `nvcc` at first use
 (`_build.py`). On CPU tensors each
 wrapper runs its plain PyTorch version instead, which is what the CPU test
 tier holds against the JAX reference.

@@ -10,7 +10,8 @@ call that launches a kernel builds; importing the package never does.
 Build needs `nvcc` (on PATH, or under `$CUDA_HOME/bin`). Never add
 `--use_fast_math`: it changes the arithmetic and can compile `isfinite`
 away. `--fmad=false` keeps every product and sum rounded on its own, as the
-plain PyTorch versions round them.
+plain PyTorch versions round them; the flash-attention kernel, held to its
+plain version within a tolerance, writes its products as explicit `fmaf`.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
 SOURCES = ("advect_fused.cu", "finite_guard.cu", "advect_blocked.cu",
-           "advect_dataflow.cu", "stencil_fused.cu")
+           "advect_dataflow.cu", "stencil_fused.cu", "flash_attention.cu")
 HEADERS = ("pw_source.cuh", "stencil_ops.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,6 +43,7 @@ SIGNATURES = {
     "advect_dataflow_f32": [_P] * 7 + [_I] * 9 + [_F, _SZ, _P],
     "stencil_fused_f32": ([_I] * 3 + [_P] * 9 + [_I, _P, _P] + [_I] * 10
                           + [_F, _SZ, _P]),
+    "flash_attention_fwd": [_I] + [_P] * 4 + [_I] * 9 + [_F, _SZ, _P],
 }
 
 

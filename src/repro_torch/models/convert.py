@@ -1,0 +1,30 @@
+"""Carry the reference's parameters into the port.
+
+`params_from_numpy(tree, device=...)` turns the JAX package's parameter
+tree, given as numpy arrays (`jax.tree.map(np.asarray, params)`), into the
+port's tree of tensors. The two layouts are the same leaf for leaf (the
+stacked `(n_layers, ...)` axis included), so both packages then compute the
+same function on the same weights. bfloat16 arrays (numpy's `ml_dtypes`
+bfloat16) come across bit for bit.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.pspec import tree_map
+
+
+def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """One numpy array as a tensor of the same dtype and bits."""
+    a = np.array(a, order="C")          # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_numpy(tree, *, device="cpu"):
+    """A tree (dicts and lists) of numpy arrays as a tree of tensors."""
+    return tree_map(lambda a: tensor_from_numpy(a, device), tree,
+                    is_leaf=lambda x: isinstance(x, np.ndarray))

@@ -9,6 +9,8 @@ import torch
 
 from repro_torch.kernels.advection import advection as TK
 from repro_torch.kernels.advection import ref as TREF
+from repro_torch.kernels.attention import attention as TA
+from repro_torch.kernels.attention import ops as TOPS
 from repro_torch.stencil import spec as TSP
 
 pytestmark = pytest.mark.cuda
@@ -213,3 +215,55 @@ def test_spec_kernel_refusals(cuda):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
         TK.stencil_fused([torch.zeros((4, 6, 6), device=cuda)], None, custom,
                          T=1)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (K8)
+# ---------------------------------------------------------------------------
+
+
+def attn(shape_q, shape_kv, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                            device=device).to(dtype)
+            for s in (shape_q, shape_kv, shape_kv)]
+
+
+@pytest.mark.parametrize("Sq,Skv,D,causal,bq,bk", [
+    (256, 256, 64, True, 128, 128), (128, 128, 32, False, 64, 64),
+    (128, 256, 64, True, 64, 128), (256, 128, 128, True, 128, 64),
+    (13, 13, 128, True, 128, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_equals_plain(cuda, Sq, Skv, D, causal, bq, bk, dtype):
+    """Within 1e-5 (f32) or one bf16 rounding of the larger value (bf16)."""
+    q, k, v = attn((2, 8, Sq, D), (2, 2, Skv, D), dtype, cuda)
+    before = TA.LAUNCHES["flash_attention"]
+    got = TA.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    assert TA.LAUNCHES["flash_attention"] == before + 1
+    plain = TA._flash_attention_plain(q, k, v, causal, D ** -0.5)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    g, w = got.float(), plain.float()
+    if dtype == torch.float32:
+        assert float((g - w).abs().max()) <= 1e-5
+    else:
+        bound = 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) + 1e-5
+        assert bool(((g - w).abs() <= bound).all())
+
+
+def test_flash_kernel_gqa_layout_equals_plain(cuda):
+    rng = np.random.default_rng(1)
+    q5, k4, v4 = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
+                  for s in ((2, 40, 2, 5, 64), (2, 40, 2, 64),
+                            (2, 40, 2, 64)))
+    got = TOPS.gqa_layout_attention(q5.to(cuda), k4.to(cuda), v4.to(cuda))
+    want = TOPS.gqa_layout_attention(q5, k4, v4)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
+def test_flash_kernel_refuses_tiles_over_budget(cuda):
+    q, k, v = attn((1, 2, 512, 128), (1, 2, 512, 128), torch.bfloat16, cuda)
+    before = dict(TA.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        TA.flash_attention(q, k, v, block_q=256, block_k=256)
+    assert TA.LAUNCHES == before

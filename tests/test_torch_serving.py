@@ -1,0 +1,193 @@
+"""The port's serving engine and serve CLI against the JAX package.
+
+The tokens are held to the reference model's greedy decode (prefill, then
+one `decode_step` per token, each request alone) on the same weights in f32
+compute, where rounding cannot flip an argmax at smoke size. They are not
+held to the reference's `ServingEngine.run`: its `_prime` writes a
+request's cache into layer `slot` of the stacked caches instead of batch
+row `slot` (ROADMAP Queue 3), so only its first token per request is the
+model's; its slot lifecycle (how many tokens each request gets) is still
+compared."""
+import functools
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import pspec as JP
+from repro.configs import get_smoke_config as j_get_smoke
+from repro.models import model as JM
+from repro.serving import engine as JE
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import serve as TSERVE
+from repro_torch.models import model as TM
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.serving import engine as TE
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCH = "qwen2.5-14b"
+MAX_LEN = 40
+
+
+@functools.lru_cache(maxsize=None)
+def weights():
+    cfg = j_get_smoke(ARCH)
+    params = JP.init_params(JM.param_specs(cfg, JM.make_layout(cfg, 1)),
+                            jax.random.PRNGKey(0))
+    return jax.tree.map(np.asarray, params)
+
+
+def prompts(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 128, int(rng.integers(3, 12))).astype(np.int32)
+            for _ in range(n)]
+
+
+def port_engine(batch_size, impl="pallas", max_len=MAX_LEN):
+    cfg = get_smoke_config(ARCH).replace(compute_dtype="float32",
+                                         attention_impl=impl)
+    return TE.ServingEngine(cfg, params_from_numpy(weights()),
+                            batch_size=batch_size, max_len=max_len)
+
+
+@functools.lru_cache(maxsize=None)
+def reference_model():
+    """The reference's smoke model in f32 and its jitted decode step."""
+    cfg = j_get_smoke(ARCH).replace(compute_dtype="float32")
+    layout = JM.make_layout(cfg, 1)
+    step = jax.jit(functools.partial(JM.decode_step, cfg=cfg, layout=layout))
+    return cfg, layout, jax.tree.map(jnp.asarray, weights()), step
+
+
+def reference_greedy(prompt, max_new, max_len=MAX_LEN):
+    """The reference model's greedy tokens for one request, as the engine
+    schedules them: the prefill's argmax, then one decode step per token
+    until the budget or the cache runs out."""
+    cfg, layout, params, step = reference_model()
+    logits, _, caches = JM.forward(params, {"inputs": jnp.asarray(prompt)[None]},
+                                   cfg, layout, mode="prefill")
+    caches = JE.prefill_to_decode_cache(cfg, caches, len(prompt), max_len)
+    out = [int(jnp.argmax(logits[0, -1]))]
+    pos = len(prompt) - 1
+    while len(out) < max_new:
+        pos += 1
+        logits, caches = step(params, caches,
+                              {"token": jnp.asarray([out[-1]], jnp.int32),
+                               "pos": jnp.asarray([pos], jnp.int32)})
+        out.append(int(jnp.argmax(logits[0])))
+        if pos + 2 >= max_len:
+            break
+    return out
+
+
+def requests(ps, max_new):
+    return [TE.Request(uid=i, prompt=p, max_new_tokens=m)
+            for i, (p, m) in enumerate(zip(ps, max_new))]
+
+
+def test_engine_tokens_equal_reference_greedy():
+    """Five requests through two slots (so slots are reused while others
+    decode), budgets 1-6, f32 compute: every token is the reference's."""
+    ps = prompts(5)
+    budgets = [6, 1, 4, 5, 3]
+    done = port_engine(2).run(requests(ps, budgets))
+    assert sorted(done) == list(range(5))
+    for i, (p, m) in enumerate(zip(ps, budgets)):
+        assert done[i] == reference_greedy(p, m), i
+
+
+@pytest.mark.parametrize("impl", ["chunked", "dense"])
+def test_engine_tokens_do_not_depend_on_impl_or_batch(impl):
+    ps = prompts(4, seed=1)
+    reqs = lambda: requests(ps, [5] * 4)  # noqa: E731
+    base = port_engine(4).run(reqs())
+    assert port_engine(2, impl).run(reqs()) == base
+    assert port_engine(1, impl).run(reqs()) == base
+
+
+def test_slot_lifecycle_equals_reference_engine():
+    """The same number of tokens per request as the reference's engine,
+    including the stop at max_len, and the same first (prefill) token."""
+    ps = prompts(5, seed=2) + [np.arange(30, dtype=np.int32)]
+    budgets = [6, 1, 4, 12, 3, 12]
+    cfg = j_get_smoke(ARCH).replace(compute_dtype="float32")
+    ref = JE.ServingEngine(cfg, jax.tree.map(jnp.asarray, weights()),
+                           batch_size=2, max_len=MAX_LEN).run(
+        [JE.Request(uid=i, prompt=p, max_new_tokens=m)
+         for i, (p, m) in enumerate(zip(ps, budgets))])
+    mine = port_engine(2).run(requests(ps, budgets))
+    assert {u: len(t) for u, t in mine.items()} == \
+        {u: len(t) for u, t in ref.items()}
+    assert {u: t[0] for u, t in mine.items()} == \
+        {u: t[0] for u, t in ref.items()}
+    assert len(mine[5]) == MAX_LEN - 30   # stopped by the cache length
+
+
+def test_complete_at_prime_never_occupies_a_slot():
+    eng = port_engine(2)
+    done = eng.run(requests(prompts(3, seed=3), [1, 1, 1]))
+    assert all(len(v) == 1 for v in done.values()) and len(done) == 3
+    assert not eng.slots.any_live()
+    assert eng.stats["decode_steps"] == 0 and eng.stats["prefills"] == 3
+
+
+def test_refusals_name_the_request():
+    eng = port_engine(2)
+    with pytest.raises(ValueError, match="request 7 has 40 tokens but "
+                                         "max_len is 40"):
+        eng.run([TE.Request(uid=7, prompt=np.zeros(MAX_LEN, np.int32))])
+    with pytest.raises(ValueError, match="max_new_tokens must be >= 1, got "
+                                         "0 \\(request 3\\)"):
+        eng.run([TE.Request(uid=3, prompt=np.zeros(4, np.int32),
+                            max_new_tokens=0)])
+
+
+def test_prefill_to_decode_cache_equals_reference():
+    rng = np.random.default_rng(4)
+    k = rng.normal(size=(2, 1, 9, 1, 16)).astype(np.float32)
+    cfg = get_smoke_config(ARCH)
+    mine = TE.prefill_to_decode_cache(cfg, {"k": torch.as_tensor(k),
+                                            "v": torch.as_tensor(k)}, 9, 20)
+    ref = JE.prefill_to_decode_cache(j_get_smoke(ARCH),
+                                     {"k": jnp.asarray(k),
+                                      "v": jnp.asarray(k)}, 9, 20)
+    assert np.array_equal(mine["k"].numpy(), np.asarray(ref["k"]))
+    with pytest.raises(ValueError, match="does not fit"):
+        TE.prefill_to_decode_cache(cfg, {"k": torch.as_tensor(k),
+                                         "v": torch.as_tensor(k)}, 9, 8)
+    assert TE.prefill_to_decode_cache(cfg, None, 9, 20) is None
+
+
+def test_serve_cli_smoke_on_the_cpu():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--smoke", "--device", "cpu", "--requests", "3",
+                          "--max-new", "4"], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "[serve] qwen3-32b-smoke on cpu: 3 requests, 12 tokens" in \
+        out.stdout
+
+
+@pytest.mark.parametrize("flag,slice_", [(["--stencil"], "slice D"),
+                                         (["--ckpt-dir", "x"], "slice G2")])
+def test_serve_cli_later_paths_name_their_slice(flag, slice_):
+    with pytest.raises(NotImplementedError, match=slice_):
+        TSERVE.main(["--smoke", "--device", "cpu"] + flag)
+
+
+def test_serve_traffic_is_the_references():
+    """serve.py's prompts: 4-23 tokens from default_rng(0), in order."""
+    cfg = get_smoke_config(ARCH)
+    rng = np.random.default_rng(0)
+    want = [rng.integers(0, cfg.vocab_size, int(rng.integers(4, 24)))
+            for _ in range(8)]
+    got = TSERVE.random_requests(cfg, 8, 16)
+    assert all(np.array_equal(r.prompt, w) and r.max_new_tokens == 16
+               and r.prompt.dtype == np.int32 for r, w in zip(got, want))
