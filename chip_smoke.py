@@ -52,12 +52,37 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    times per prefill, no other kernel); prints the tokens, ms per decode
    step, tokens/s and peak memory;
 9. gates `pallas` against `chunked` prefill logits on one 2048-token
-   prompt: f32 compute at all 48 layers and bf16 at the first 2 (the
+   prompt: f32 compute at all 48 layers (within `PREFILL_F32_TOL`) and
+   bf16 at the first 2 (the
    tolerances and their basis are in PERF.md); bf16 at 48 layers is
    printed only, with its reason;
 10. times K8 at q (1, 40, 2048, 128), k/v (1, 8, 2048, 128) bf16 causal
    beside its plain version, `scaled_dot_product_attention` (the library
-   yardstick, timed here and used nowhere in the port) and its bound.
+   yardstick, timed here and used nowhere in the port) and its bound;
+11. holds the selective scan (K9) against its plain version at small
+   shapes: the reference's `CASES`, bf16 x, B, C with f32 or bf16 dt,
+   nonzero h0 and two chained half-length scans against one full scan,
+   the serving path's prompt lengths (S = 4-23, chunk = S, D 8192), D not
+   a multiple of the kernel's d-tile, within 1e-4 of the larger of 1 and
+   the plain version's largest value; and its refusals (`ValueError`, no
+   launch);
+12. drives the ssm serving path at the full width and depth of
+   `falcon-mamba-7b` (f32 weights drawn on the card after qwen's are
+   freed, bf16 compute, `attention_impl="pallas"`) on the same traffic,
+   the counts set to 0 just before and read just after (K9 launched 64
+   times per prefill, no other kernel);
+13. gates `pallas` (K9) against `chunked` on one 2048-token prompt: in
+   f32 at each of the 64 layers (both routes fed the same input, the
+   mamba mixer's output within `SSM_LAYER_F32_REL_TOL` of its largest
+   value); on the prefill logits in f32 at 64 layers within
+   `SSM_F32_WITNESS_K` times how far `chunked` at one chunk of the whole
+   prompt (another association order of the same sums) lands from
+   `chunked`, since this random init amplifies f32 rounding about
+   1e6-fold over the stack; and in bf16 at the first 2 layers
+   (tolerances and basis in PERF.md); bf16 at 64 layers is printed only;
+14. times K9 at xc (1, 2048, 8192) bf16, dt f32, B/C (1, 2048, 16) bf16
+   beside its plain version and its bound (no single PyTorch call computes
+   the scan, so no library time).
 
 Prints the card's name and power limit, one JSON line of kernel records and,
 last, `{"ok": true, "device": {...}}`. Any failed check exits nonzero
@@ -66,6 +91,7 @@ without that last line, as does a machine without a CUDA device.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -85,9 +111,12 @@ from repro_torch.kernels.advection import advection as K  # noqa: E402
 from repro_torch.kernels.advection import ref as REF  # noqa: E402
 from repro_torch.kernels.attention import attention as A  # noqa: E402
 from repro_torch.kernels.attention.ref import mha_ref  # noqa: E402
+from repro_torch.kernels.ssm import ssm as SS  # noqa: E402
 from repro_torch.launch.serve import (random_params,  # noqa: E402
                                       random_requests)
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import blocks as BL  # noqa: E402
+from repro_torch.models.blocks import Ctx  # noqa: E402
 from repro_torch.pspec import tree_map  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.stencil import spec as SP  # noqa: E402
@@ -125,14 +154,16 @@ SOURCE = {"advect_fused": "src/repro_torch/csrc/advect_fused.cu",
           "advect_dataflow": "src/repro_torch/csrc/advect_dataflow.cu",
           "advect_wide": "src/repro_torch/csrc/advect_dataflow.cu",
           "stencil_fused": "src/repro_torch/csrc/stencil_fused.cu",
-          "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
+          "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+          "selective_scan": "src/repro_torch/csrc/selective_scan.cu"}
 REPLACES = {"advect_fused": "src/repro/kernels/advection/advection.py:404",
             "finite_guard": "src/repro/kernels/advection/advection.py:469",
             "advect_blocked": "src/repro/kernels/advection/advection.py:214",
             "advect_dataflow": "src/repro/kernels/advection/advection.py:272",
             "advect_wide": "src/repro/kernels/advection/advection.py:367",
             "stencil_fused": "src/repro/kernels/advection/advection.py:677",
-            "flash_attention": "src/repro/kernels/attention/attention.py:31"}
+            "flash_attention": "src/repro/kernels/attention/attention.py:31",
+            "selective_scan": "src/repro/kernels/ssm/ssm.py:39"}
 # flash attention (K8): the reference's cases and block shapes
 # (tests/test_flash_attention.py), then Sq != Skv both ways and the serving
 # path's prompt shapes (40 q heads over 8 kv heads of 128)
@@ -164,6 +195,25 @@ PREFILL_F32_TOL = 1e-2       # PERF.md: written before the first chip run
 PREFILL_BF16_REL_TOL = 0.03  # x max |chunked logit|: 3.8x this gate's own
                              # reading on the card (PERF.md)
 ATTN_TIMED = (1, 40, 8, 2048, 128)   # B, H, Hkv, S, D: bf16, causal
+# selective scan (K9): the reference's cases (tests/test_ssm_kernel.py),
+# then D not a multiple of the kernel's d-tile of 16, N not a power of two
+# and N over 32 (two states per thread)
+SCAN_CASES = (  # B, S, D, N, chunk
+    (2, 64, 16, 8, 16), (1, 128, 32, 4, 32), (2, 96, 8, 16, 48),
+    (1, 64, 16, 16, 64), (1, 48, 37, 16, 16), (2, 32, 8200, 16, 32),
+    (1, 24, 20, 5, 8), (1, 32, 16, 40, 32))
+SCAN_SERVE_D, SCAN_SERVE_N = 8192, 16   # falcon-mamba's d_inner, d_state
+SCAN_TOL = 1e-4     # x max(1, max |plain|): two f32 orders of one
+                    # recurrence (the reference's kernel-vs-oracle 1e-4)
+SSM_ARCH = "falcon-mamba-7b"
+SSM_LAYER_F32_REL_TOL = 1e-5     # x max |chunked mamba mixer output|, per
+                                 # layer (PERF.md)
+SSM_F32_WITNESS_K = 5.0   # f32 logits at 64 layers: |pallas - chunked| <=
+                          # this x |chunked at one chunk - chunked| (PERF.md)
+SSM_PREFILL_BF16_REL_TOL = 0.03  # x max |chunked logit|; PERF.md: written
+                                 # before the first chip run
+SCAN_TIMED = (1, 2048, 8192, 16, 256)   # B, S, D, N, chunk: x, B, C bf16,
+                                        # dt f32 (the 2048-token prefill)
 
 
 class Checks:
@@ -1005,18 +1055,26 @@ def attention_small_phase(check: Checks) -> None:
 def reset_all_counts() -> None:
     K.reset_launch_counts()
     A.reset_launch_counts()
+    SS.reset_launch_counts()
 
 
-def serving_phase(check: Checks):
-    """The token-serving path at full width; returns (cfg, params, K8
-    launches)."""
-    cfg = get_config(SERVE_ARCH).replace(attention_impl="pallas")
+def all_counts() -> dict:
+    return {**K.LAUNCHES, **A.LAUNCHES, **SS.LAUNCHES}
+
+
+def serving_phase(check: Checks, arch: str, kernel: str):
+    """The token-serving path at full width under `attention_impl="pallas"`,
+    where `kernel` (K8 or K9) runs once per layer of every prefill; returns
+    (cfg, params, the kernel's launches)."""
+    cfg = get_config(arch).replace(attention_impl="pallas")
     t0 = time.perf_counter()
     params = random_params(cfg, "cuda")
     torch.cuda.synchronize()
+    shape = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}"
+             if cfg.n_heads else f"d_inner {cfg.d_inner}, d_state "
+             f"{cfg.ssm.d_state}")
     print(f"serving path: {cfg.name}, {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
-          f"{cfg.head_dim}, weights {cfg.param_dtype} "
+          f"{cfg.d_model}, {shape}, weights {cfg.param_dtype} "
           f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) drawn on the card "
           f"in {time.perf_counter() - t0:.2f} s; compute {cfg.compute_dtype}",
           flush=True)
@@ -1031,8 +1089,8 @@ def serving_phase(check: Checks):
     done = engine.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k8 = A.LAUNCHES["flash_attention"]
-    others = dict(K.LAUNCHES)
+    others = all_counts()
+    launched = others.pop(kernel)
     peak = torch.cuda.max_memory_allocated()
     st = engine.stats
     total = sum(len(v) for v in done.values())
@@ -1043,26 +1101,53 @@ def serving_phase(check: Checks):
           f"{st['decode_s'] / st['decode_steps'] * 1e3:.2f} ms each "
           f"({st['decode_steps'] * tr['batch_size'] / st['decode_s']:.2f} "
           f"token slots/s); peak memory {peak} B ({peak / 1e9:.2f} GB); "
-          f"K8 launches {k8}", flush=True)
+          f"{kernel} launches {launched}", flush=True)
     for uid in sorted(done):
         print(f"  req {uid} (prompt {len(reqs[uid].prompt)}): {done[uid]}",
               flush=True)
-    check(k8 == cfg.n_layers * st["prefills"] and st["prefills"] == len(reqs),
-          f"serving: K8 launched {k8} times = {cfg.n_layers} layers x "
-          f"{st['prefills']} prefills")
+    check(launched == cfg.n_layers * st["prefills"]
+          and st["prefills"] == len(reqs),
+          f"serving {cfg.name}: {kernel} launched {launched} times = "
+          f"{cfg.n_layers} layers x {st['prefills']} prefills")
     check(all(n == 0 for n in others.values()),
-          f"serving: no advection kernel launched ({others})")
+          f"serving {cfg.name}: no other kernel launched ({others})")
     check(sorted(done) == list(range(len(reqs)))
           and all(len(v) == tr["max_new"] for v in done.values())
           and all(0 <= t < cfg.vocab_size for v in done.values() for t in v),
-          f"serving: every request done with {tr['max_new']} tokens in the "
-          f"vocabulary")
+          f"serving {cfg.name}: every request done with {tr['max_new']} "
+          f"tokens in the vocabulary")
     del engine
-    return cfg, params, k8
+    return cfg, params, launched
 
 
-def prefill_gate_phase(check: Checks, cfg, params) -> None:
-    """`pallas` against `chunked` prefill logits on one 2048-token prompt."""
+def fixed_f32_limit(tol: float):
+    """An f32 prefill limit on max |pallas - chunked logit| set in advance."""
+    return lambda c, p, toks, layout, lc: (tol, f"{tol}")
+
+
+def witness_f32_limit(c, p, toks, layout, lc):
+    """The ssm f32 prefill limit: `SSM_F32_WITNESS_K` x max |chunked at one
+    chunk of the whole prompt - chunked|, two correct routes whose only
+    difference is the association order of the reference's own sums."""
+    lw = M.forward(p, {"inputs": toks}, c.replace(
+        attention_impl="chunked", scan_chunk=toks.shape[1]), layout)[0]
+    w = float((lw - lc).abs().max())
+    agree = float((lw.argmax(-1) == lc.argmax(-1)).float().mean())
+    print(f"{c.name} prefill {toks.shape[1]} tokens, f32 compute, "
+          f"{c.n_layers} layers: max |chunked(scan_chunk {toks.shape[1]}) - "
+          f"chunked(scan_chunk {c.scan_chunk})| {w:.4e}, argmax agreement "
+          f"{agree:.4f}", flush=True)
+    return (SSM_F32_WITNESS_K * w, f"{SSM_F32_WITNESS_K} x that of chunked "
+            f"at scan_chunk {toks.shape[1]} ({SSM_F32_WITNESS_K * w:.4e})")
+
+
+def prefill_gate_phase(check: Checks, cfg, params, kernel: str,
+                       f32_limit, bf16_rel_tol: float) -> None:
+    """`pallas` (where `kernel` runs once per layer) against `chunked`
+    prefill logits on one 2048-token prompt: f32 at all layers within
+    `f32_limit(cfg, params, tokens, layout, chunked logits)`, bf16 at the
+    first 2 layers within `bf16_rel_tol` x max |chunked logit|, bf16 at
+    all layers printed."""
     layout = M.make_layout(cfg, 1)
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (1, PREFILL_TOKENS)), device="cuda")
@@ -1074,14 +1159,15 @@ def prefill_gate_phase(check: Checks, cfg, params) -> None:
             out[impl] = M.forward(p, {"inputs": toks},
                                   c.replace(attention_impl=impl), layout)[0]
             torch.cuda.synchronize()
-            out[impl + "_k8"] = A.LAUNCHES["flash_attention"]
+            out[impl + "_n"] = all_counts()
         return out
 
     first2 = dict(params, layers=tree_map(lambda a: a[:2], params["layers"],
                                           is_leaf=torch.is_tensor))
-    runs = (("f32", 48, cfg.replace(compute_dtype="float32"), params),
+    L = cfg.n_layers
+    runs = (("f32", L, cfg.replace(compute_dtype="float32"), params),
             ("bf16", 2, cfg.replace(n_layers=2), first2),
-            ("bf16", 48, cfg, params))
+            ("bf16", L, cfg, params))
     for name, depth, c, p in runs:
         t0 = time.perf_counter()
         out = logits(c, p)
@@ -1090,25 +1176,28 @@ def prefill_gate_phase(check: Checks, cfg, params) -> None:
         diff = float((lp - lc).abs().max())
         scale = float(lc.abs().max())
         agree = float((lp.argmax(-1) == lc.argmax(-1)).float().mean())
-        tag = (f"prefill {PREFILL_TOKENS} tokens, {name} compute, {depth} "
-               f"layers")
+        n_p, n_c = out["pallas_n"], out["chunked_n"]
+        tag = (f"{cfg.name} prefill {PREFILL_TOKENS} tokens, {name} compute, "
+               f"{depth} layers")
         print(f"{tag}: max |pallas - chunked| {diff:.4e}, max |logit| "
-              f"{scale:.4f}, argmax agreement {agree:.4f}; K8 launches "
-              f"{out['pallas_k8']} (pallas), {out['chunked_k8']} (chunked); "
-              f"both forwards {wall:.2f} s", flush=True)
-        check(out["pallas_k8"] == depth and out["chunked_k8"] == 0
+              f"{scale:.4f}, argmax agreement {agree:.4f}; {kernel} launches "
+              f"{n_p[kernel]} (pallas), {n_c[kernel]} (chunked); both "
+              f"forwards {wall:.2f} s", flush=True)
+        check(n_p.pop(kernel) == depth and not any(n_p.values())
+              and not any(n_c.values())
               and lp.shape == (1, PREFILL_TOKENS, cfg.vocab_size)
               and bool(torch.isfinite(lp).all())
               and bool(torch.isfinite(lc).all()),
-              f"{tag}: K8 once per layer on the pallas path only; logits "
-              f"finite, (1, {PREFILL_TOKENS}, {cfg.vocab_size})")
+              f"{tag}: {kernel} once per layer on the pallas path only, no "
+              f"other kernel; logits finite, (1, {PREFILL_TOKENS}, "
+              f"{cfg.vocab_size})")
         if name == "f32":
-            check(diff <= PREFILL_F32_TOL,
-                  f"{tag}: pallas == chunked within {PREFILL_F32_TOL}")
+            limit, what = f32_limit(c, p, toks, layout, lc)
+            check(diff <= limit, f"{tag}: pallas == chunked within {what}")
         elif depth == 2:
-            check(diff <= PREFILL_BF16_REL_TOL * scale,
-                  f"{tag}: pallas == chunked within {PREFILL_BF16_REL_TOL} x "
-                  f"max |logit| ({PREFILL_BF16_REL_TOL * scale:.4f})")
+            check(diff <= bf16_rel_tol * scale,
+                  f"{tag}: pallas == chunked within {bf16_rel_tol} x "
+                  f"max |logit| ({bf16_rel_tol * scale:.4f})")
         else:
             print(f"{tag}: not gated: bf16 rounding of activations differs "
                   f"between the two algorithms and grows with depth", flush=True)
@@ -1154,6 +1243,159 @@ def attention_timing(launches: int, card: str) -> dict:
             "within_one_bf16_rounding": ok}
 
 
+# ---------------------------------------------------------------------------
+# the selective scan (K9) and the ssm serving path
+# ---------------------------------------------------------------------------
+
+
+def scan_inputs(B, S, D, N, dtype, dt_dtype, seed):
+    """The reference's test inputs (`make` in tests/test_ssm_kernel.py) on
+    the card: x, B, C in `dtype`, dt in `dt_dtype`, A and h0 f32."""
+    rng = np.random.default_rng(seed)
+    t = lambda a, d: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                     device="cuda").to(d)
+    return (t(rng.normal(size=(B, S, D)), dtype),
+            t(np.abs(rng.normal(size=(B, S, D))) * 0.1, dt_dtype),
+            t(rng.normal(size=(B, S, N)), dtype),
+            t(rng.normal(size=(B, S, N)), dtype),
+            t(-np.abs(rng.normal(size=(D, N))), torch.float32),
+            t(rng.normal(size=(B, D, N)) * 0.1, torch.float32))
+
+
+def scan_err(got, want) -> float:
+    """max |got - want| over y and h_final, over max(1, max |want|)."""
+    return max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+               for g, w in zip(got, want))
+
+
+def scan_check(check: Checks, tag: str, args, chunk: int) -> None:
+    B, S, D = args[0].shape
+    N = args[2].shape[-1]
+    before = SS.LAUNCHES["selective_scan"]
+    got = SS.selective_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    launched = SS.LAUNCHES["selective_scan"] - before
+    err = scan_err(got, SS._selective_scan_plain(*args))
+    check(err <= SCAN_TOL and launched == 1
+          and got[0].shape == (B, S, D) and got[1].shape == (B, D, N)
+          and all(g.dtype == torch.float32 for g in got),
+          f"K9 {tag} == plain within {SCAN_TOL} x max(1, max |plain|) "
+          f"({err:.3e}), one launch")
+
+
+def scan_small_phase(check: Checks) -> None:
+    types = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+             (torch.bfloat16, torch.bfloat16))
+    for i, (B, S, D, N, chunk) in enumerate(SCAN_CASES):
+        for x_t, dt_t in types:
+            args = scan_inputs(B, S, D, N, x_t, dt_t, seed=600 + i)
+            scan_check(check, f"{(B, S, D, N)} chunk {chunk} x "
+                       f"{str(x_t)[6:]} dt {str(dt_t)[6:]}", args, chunk)
+    xc, dt, Bm, Cm, A, h0 = scan_inputs(1, 64, 24, 16, torch.bfloat16,
+                                        torch.float32, seed=620)
+    full = SS.selective_scan(xc, dt, Bm, Cm, A, h0, chunk=16)
+    y1, h1 = SS.selective_scan(xc[:, :32], dt[:, :32], Bm[:, :32],
+                               Cm[:, :32], A, h0, chunk=16)
+    y2, h2 = SS.selective_scan(xc[:, 32:], dt[:, 32:], Bm[:, 32:],
+                               Cm[:, 32:], A, h1, chunk=16)
+    err = scan_err((torch.cat([y1, y2], 1), h2), full)
+    check(err <= SCAN_TOL, f"K9 two chained half-length scans == one full "
+          f"scan ({err:.3e})")
+    for S in range(4, 24):   # serve.py's prompt lengths, chunk = S
+        args = scan_inputs(1, S, SCAN_SERVE_D, SCAN_SERVE_N, torch.bfloat16,
+                           torch.float32, seed=640 + S)
+        scan_check(check, f"serving prompt S={S}, D {SCAN_SERVE_D}, N "
+                   f"{SCAN_SERVE_N}, chunk {S}", args, S)
+    refusals = (("S % chunk != 0", (1, 96, 16, 16), 64),
+                ("a chunk over the shared-memory budget", (1, 1024, 16, 16),
+                 1024))
+    for what, (B, S, D, N), chunk in refusals:
+        args = scan_inputs(B, S, D, N, torch.float32, torch.float32, 660)
+        before = SS.LAUNCHES["selective_scan"]
+        try:
+            SS.selective_scan(*args, chunk=chunk)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused and SS.LAUNCHES["selective_scan"] == before,
+              f"K9 refuses {what} with ValueError, no launch")
+
+
+def ssm_layer_gate_phase(check: Checks, cfg, params) -> None:
+    """`pallas` (K9) against `chunked` in f32 at each layer of the stack on
+    one 2048-token prompt: both routes take the `chunked` route's input to
+    the layer, so each layer's rounding difference reads apart from the
+    stack's growth of it. What is held is the mamba mixer's output, over
+    its own largest value: the residual the block adds it to grows to ~1e8
+    under this random init and would hide the mixer's difference."""
+    c32 = cfg.replace(compute_dtype="float32", attention_impl="chunked")
+    routes = {"chunked": c32, "pallas": c32.replace(attention_impl="pallas")}
+    layout = M.make_layout(cfg, 1)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, PREFILL_TOKENS)), device="cuda")
+    t0 = time.perf_counter()
+    reset_all_counts()
+    errs = []
+    with torch.no_grad():
+        x = M._embed(params, c32, toks)
+        for i in range(cfg.n_layers):
+            p = M._layer(params["layers"], i)
+            u = M._apply_norm(p["ln"], x, c32.norm_eps)
+            mix = {name: BL.mamba_apply(p["mamba"], u, Ctx(cfg=c,
+                                                           layout=layout))
+                   for name, c in routes.items()}
+            x = x + mix["chunked"]      # `_apply_block`'s mamba residual
+            errs.append(float((mix["pallas"] - mix["chunked"]).abs().max()
+                              / mix["chunked"].abs().max()))
+    torch.cuda.synchronize()
+    counts = all_counts()
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    tag = (f"{cfg.name} prefill {PREFILL_TOKENS} tokens, f32 compute, each "
+           f"of {cfg.n_layers} layers")
+    print(f"{tag}: max |pallas - chunked| / max |chunked| of the mamba "
+          f"mixer's output per layer: "
+          f"largest {errs[worst]:.3e} (layer {worst}), median "
+          f"{statistics.median(errs):.3e}, layer 0 {errs[0]:.3e}; "
+          f"selective_scan launches {counts['selective_scan']}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    launched = counts.pop("selective_scan")
+    check(launched == cfg.n_layers and not any(counts.values())
+          and all(math.isfinite(e) for e in errs),
+          f"{tag}: selective_scan once per layer on the pallas route, no "
+          f"other kernel; finite")
+    check(errs[worst] <= SSM_LAYER_F32_REL_TOL,
+          f"{tag}: pallas == chunked within {SSM_LAYER_F32_REL_TOL} x max "
+          f"|mamba mixer output| at every layer")
+
+
+def scan_timing(launches: int, card: str) -> dict:
+    """K9 at the 2048-token prefill's shape beside its plain version and
+    its bound."""
+    B, S, D, N, chunk = SCAN_TIMED
+    args = scan_inputs(B, S, D, N, torch.bfloat16, torch.float32, seed=700)
+    got = SS.selective_scan(*args, chunk=chunk)
+    plain = SS._selective_scan_plain(*args)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, plain))
+    rel = scan_err(got, plain)
+    ms = time_ms(lambda: SS.selective_scan(*args, chunk=chunk))
+    plain_ms = time_ms(lambda: SS._selective_scan_plain(*args), runs=3,
+                       warmup=1)
+    # bound: read every input once (x, B, C bf16; dt, A, h0 f32), write y
+    # and h_final (f32) once; per (t, d, n) dt*A, exp, a*h, dx*B, the sum,
+    # h*C and its sum over n, 7 f32 operations, and dt*x per (t, d)
+    nbytes = sum(t.numel() * t.element_size() for t in args) + \
+        sum(t.numel() * 4 for t in got)
+    ops = 7 * B * S * D * N + B * S * D
+    print(f"selective_scan: xc {(B, S, D)} bf16, dt f32, B/C {(B, S, N)} "
+          f"bf16, chunk {chunk} (card {card}); == plain within {SCAN_TOL} x "
+          f"max(1, max |plain|): {rel <= SCAN_TOL} ({rel:.3e}, max abs "
+          f"{err:.3e})", flush=True)
+    rec = kernel_record("selective_scan", ms, plain_ms, nbytes, ops,
+                        launches, err)
+    rec["within_tolerance"] = rel <= SCAN_TOL
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -1175,6 +1417,7 @@ def main() -> int:
     small_shape_phase(check)
     spec_small_phase(check)
     attention_small_phase(check)
+    scan_small_phase(check)
     dom, fields, out, launches, k1_err, k4_err = main_path_phase(check)
     ladder = ladder_path_phase(check, fields)
     spec_runs = spec_path_phase(check, fields)
@@ -1186,14 +1429,27 @@ def main() -> int:
     records.append(spec_timing(spec_runs, probe))
     del dom, fields, out, spec_runs
     torch.cuda.empty_cache()
-    cfg, params, k8_launches = serving_phase(check)
-    prefill_gate_phase(check, cfg, params)
+    cfg, params, k8_launches = serving_phase(check, SERVE_ARCH,
+                                             "flash_attention")
+    prefill_gate_phase(check, cfg, params, "flash_attention",
+                       fixed_f32_limit(PREFILL_F32_TOL), PREFILL_BF16_REL_TOL)
     del params
     torch.cuda.empty_cache()
     k8 = attention_timing(k8_launches, card)
     check(k8["within_one_bf16_rounding"], "K8 at the timed shape == plain "
           "within one bf16 rounding")
     records.append(k8)
+    cfg, params, k9_launches = serving_phase(check, SSM_ARCH,
+                                             "selective_scan")
+    ssm_layer_gate_phase(check, cfg, params)
+    prefill_gate_phase(check, cfg, params, "selective_scan",
+                       witness_f32_limit, SSM_PREFILL_BF16_REL_TOL)
+    del params
+    torch.cuda.empty_cache()
+    k9 = scan_timing(k9_launches, card)
+    check(k9["within_tolerance"], f"K9 at the timed shape == plain within "
+          f"{SCAN_TOL} x max(1, max |plain|)")
+    records.append(k9)
     print(f"chip_smoke: {len(check.failed)} of {check.count} checks failed; "
           f"{time.perf_counter() - t0:.1f} s since the build began",
           flush=True)

@@ -27,7 +27,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
 SOURCES = ("advect_fused.cu", "finite_guard.cu", "advect_blocked.cu",
-           "advect_dataflow.cu", "stencil_fused.cu", "flash_attention.cu")
+           "advect_dataflow.cu", "stencil_fused.cu", "flash_attention.cu",
+           "selective_scan.cu")
 HEADERS = ("pw_source.cuh", "stencil_ops.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,6 +45,7 @@ SIGNATURES = {
     "stencil_fused_f32": ([_I] * 3 + [_P] * 9 + [_I, _P, _P] + [_I] * 10
                           + [_F, _SZ, _P]),
     "flash_attention_fwd": [_I] + [_P] * 4 + [_I] * 9 + [_F, _SZ, _P],
+    "selective_scan_fwd": [_I] * 2 + [_P] * 8 + [_I] * 5 + [_SZ, _P],
 }
 
 

@@ -2,6 +2,7 @@
 weights.
 
     python -m repro_torch.launch.serve --arch qwen2.5-14b --requests 8
+    python -m repro_torch.launch.serve --arch falcon-mamba-7b --requests 8
     python -m repro_torch.launch.serve --smoke --device cpu
 
 The port of the token path of `repro.launch.serve`: the same arguments and
@@ -9,7 +10,10 @@ defaults, the same random prompts (`np.random.default_rng(0)`), weights
 drawn on the device from a seeded `torch.Generator` with the reference's
 init rules. It runs on `cuda` unless `--device cpu` is given. The
 reference's default `--arch qwen3-32b` needs about 131 GB of f32 weights,
-more than one 80 GB card holds; `qwen2.5-14b` (59 GB) fits. `--stencil`
+more than one 80 GB card holds; `qwen2.5-14b` (59 GB) and `falcon-mamba-7b`
+(28 GB) fit. The engine runs the config's `attention_impl` (`chunked` for
+both), so the CLI launches neither flash attention (K8) nor the selective
+scan (K9); `chip_smoke.py` serves with `attention_impl="pallas"`. `--stencil`
 (forecast serving) waits for slice D and `--ckpt-dir` (trained weights)
 for slice G2 (ROADMAP Queue 1).
 """

@@ -18,7 +18,7 @@ while `attn_chunked` keeps p in f32.
 
 M-RoPE, `attn_flash` (the custom-VJP training path) and `attn_local` (the
 hybrid family's sliding window) wait for their slices (ROADMAP Queue 1,
-G1b and G2).
+G1c and G2).
 """
 from __future__ import annotations
 
@@ -69,7 +69,7 @@ def apply_rope(x, positions, theta: float, mrope: bool = False):
     D dim, broadcast over the head dims."""
     if mrope:
         raise NotImplementedError("M-RoPE (the vlm family) waits for slice "
-                                  "G1b (ROADMAP Queue 1)")
+                                  "G1c (ROADMAP Queue 1)")
     d = x.shape[-1]
     half = d // 2
     freqs = torch.as_tensor(rope_freqs(d, theta), dtype=torch.float32,

@@ -1,7 +1,8 @@
-"""Model assembly of the dense family: parameter trees, forward, decode.
+"""Model assembly of the dense and ssm families: parameter trees,
+forward, decode.
 
-The port of the dense-family part of `repro.models.model`, with its
-uniform API:
+The port of the dense-family and ssm-family parts of `repro.models.model`,
+with its uniform API:
 
   layout      = make_layout(cfg, tp)
   specs       = param_specs(cfg, layout)          # tree of ParamSpec
@@ -12,9 +13,9 @@ uniform API:
 Parameters keep the reference's layout, stacked on a leading layer axis
 `(n_layers, ...)`, so weights carry across one to one
 (`models.convert.params_from_numpy`); `_run_stack` loops over that axis in
-Python where the reference runs `lax.scan`. The other families (moe, ssm,
+Python where the reference runs `lax.scan`. The other families (moe,
 hybrid, encdec, vlm), training's loss, remat and sharding wait for slices
-G1b and G2 (ROADMAP Queue 1) and raise `NotImplementedError` here.
+G1c and G2 (ROADMAP Queue 1) and raise `NotImplementedError` here.
 
 JAX clamps an out-of-range index where torch would raise or read past the
 end, so `_embed` refuses a token outside the vocabulary and `decode_step`
@@ -36,14 +37,15 @@ from repro_torch.models.blocks import Ctx
 from repro_torch.pspec import ParamSpec, stack_specs, torch_dtype, tree_map
 
 Params = Dict[str, Any]
-FAMILIES = ("dense",)
+FAMILIES = ("dense", "ssm")
+BLOCK_KINDS = ("attn_mlp", "mamba")
 
 
-def _require_dense(cfg: ArchConfig) -> None:
+def _require_ported(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family waits for slice G1b "
-            f"(ROADMAP Queue 1); the port runs the dense family")
+            f"{cfg.name}: the {cfg.family} family waits for slice G1c "
+            f"(ROADMAP Queue 1); the port runs the dense and ssm families")
     if not cfg.scan_layers:
         raise NotImplementedError(
             "scan_layers=False (per-layer parameter lists) is not ported; "
@@ -81,11 +83,18 @@ def _apply_norm(p: Params, x, eps: float):
     return L.rms_norm(x, p["w"], eps)
 
 
+def _require_kind(kind: str, what: str = "block") -> None:
+    if kind not in BLOCK_KINDS:
+        raise NotImplementedError(f"the {kind!r} {what} waits for slice G1c "
+                                  f"(ROADMAP Queue 1)")
+
+
 def block_specs(cfg: ArchConfig, layout: HeadLayout, kind: str,
                 dt: str) -> Params:
-    if kind != "attn_mlp":
-        raise NotImplementedError(f"the {kind!r} block waits for slice G1b "
-                                  f"(ROADMAP Queue 1)")
+    _require_kind(kind)
+    if kind == "mamba":
+        return {"ln": _norm_specs(cfg, dt),
+                "mamba": B.mamba_specs(cfg, dt)}
     ln_bias = cfg.family == "encdec"
     return {"ln1": _norm_specs(cfg, dt, ln_bias),
             "attn": B.attention_specs(cfg, layout, dt),
@@ -115,7 +124,7 @@ def _stacked(tree, n: int):
 
 
 def param_specs(cfg: ArchConfig, layout: HeadLayout) -> Params:
-    _require_dense(cfg)
+    _require_ported(cfg)
     dt = cfg.param_dtype
     E = cfg.d_model
     Vp = padded_vocab(cfg, layout.tp)
@@ -123,8 +132,8 @@ def param_specs(cfg: ArchConfig, layout: HeadLayout) -> Params:
     if not cfg.embeds_input:
         specs["tok_embed"] = ParamSpec((Vp, E), ("vocab", "embed"), dt,
                                        "embed", 0.02)
-    specs["layers"] = _stacked(block_specs(cfg, layout, "attn_mlp", dt),
-                               cfg.n_layers)
+    specs["layers"] = _stacked(block_specs(cfg, layout, layer_kinds(cfg)[0],
+                                           dt), cfg.n_layers)
     specs["final_norm"] = _norm_specs(cfg, dt)
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((E, Vp), ("embed", "vocab"), dt,
@@ -139,9 +148,13 @@ def param_specs(cfg: ArchConfig, layout: HeadLayout) -> Params:
 
 def layer_cache_specs(cfg: ArchConfig, layout: HeadLayout, kind: str,
                       batch: int, max_len: int, dt: str) -> Params:
-    if kind != "attn_mlp":
-        raise NotImplementedError(f"the {kind!r} cache waits for slice G1b "
-                                  f"(ROADMAP Queue 1)")
+    _require_kind(kind, "cache")
+    if kind == "mamba":
+        Di, N, K = cfg.d_inner, cfg.ssm.d_state, cfg.ssm.conv_k
+        return {"conv": ParamSpec((batch, K - 1, Di),
+                                  ("batch", None, "act_ffn"), dt, "zeros"),
+                "state": ParamSpec((batch, Di, N),
+                                   ("batch", "act_ffn", None), dt, "zeros")}
     D, Ks = cfg.head_dim, layout.n_kv_stored
     ax = ("batch", None, "act_kv_heads", None)
     return {"k": ParamSpec((batch, max_len, Ks, D), ax, dt, "zeros"),
@@ -150,9 +163,9 @@ def layer_cache_specs(cfg: ArchConfig, layout: HeadLayout, kind: str,
 
 def cache_specs(cfg: ArchConfig, layout: HeadLayout, batch: int,
                 max_len: int) -> Any:
-    _require_dense(cfg)
-    one = layer_cache_specs(cfg, layout, "attn_mlp", batch, max_len,
-                            cfg.compute_dtype)
+    _require_ported(cfg)
+    one = layer_cache_specs(cfg, layout, layer_kinds(cfg)[0], batch,
+                            max_len, cfg.compute_dtype)
     return _stacked(one, cfg.n_layers)
 
 
@@ -163,11 +176,13 @@ def cache_specs(cfg: ArchConfig, layout: HeadLayout, batch: int,
 
 def _apply_block(kind: str, p: Params, x, ctx: Ctx, cache=None):
     """Returns (x, new_cache)."""
-    if kind != "attn_mlp":
-        raise NotImplementedError(f"the {kind!r} block waits for slice G1b "
-                                  f"(ROADMAP Queue 1)")
+    _require_kind(kind)
     cfg = ctx.cfg
     ctx = dataclasses.replace(ctx, cache=cache, new_cache=None)
+    if kind == "mamba":
+        x = x + B.mamba_apply(p["mamba"], _apply_norm(p["ln"], x,
+                                                      cfg.norm_eps), ctx)
+        return x, ctx.new_cache
     x = x + B.attention_apply(p["attn"], _apply_norm(p["ln1"], x,
                                                      cfg.norm_eps), ctx)
     x = x + B.mlp_apply(p["mlp"], _apply_norm(p["ln2"], x, cfg.norm_eps), ctx)
@@ -238,8 +253,9 @@ def forward(params, batch, cfg: ArchConfig, layout: HeadLayout, *,
             mode: str = "train"):
     """Full-sequence forward (train, forward only, or prefill).
     batch: {"inputs": (B, S) int}. Returns (logits (B, S, Vp) f32, aux,
-    caches): the prefill caches are stacked (L, B, S, Ks, D)."""
-    _require_dense(cfg)
+    caches): the prefill caches are stacked on the layer axis: (L, B, S,
+    Ks, D) for attention, (L, B, K-1, Di) and (L, B, Di, N) for mamba."""
+    _require_ported(cfg)
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward runs mode 'train' or 'prefill', got "
                          f"{mode!r}; decode is `decode_step`")
@@ -256,15 +272,17 @@ def forward(params, batch, cfg: ArchConfig, layout: HeadLayout, *,
 def decode_step(params, caches, batch, cfg: ArchConfig, layout: HeadLayout):
     """One-token decode. batch: {"token": (B,), "pos": (B,)}.
 
-    Returns (logits (B, Vp), caches): the caches are updated in place at
-    each row's position (the reference returns new ones). A position
-    outside [0, cache length) raises before anything is written."""
-    _require_dense(cfg)
+    Returns (logits (B, Vp), caches): the caches are updated in place (the
+    reference returns new ones). Where there is a positional cache, a
+    position outside [0, cache length) raises before anything is written;
+    a mamba step reads no position."""
+    _require_ported(cfg)
     tok, pos = batch["token"], batch["pos"]
-    Lc = caches["k"].shape[-3]
-    if bool(((pos < 0) | (pos >= Lc)).any()):
-        raise ValueError(f"decode positions must lie in [0, {Lc}), the "
-                         f"cache length; got {pos.tolist()}")
+    if "k" in caches:
+        Lc = caches["k"].shape[-3]
+        if bool(((pos < 0) | (pos >= Lc)).any()):
+            raise ValueError(f"decode positions must lie in [0, {Lc}), the "
+                             f"cache length; got {pos.tolist()}")
     pos = pos.long()
     x = _embed(params, cfg, tok[:, None])
     ctx = Ctx(cfg=cfg, layout=layout, mode="decode", pos=pos)

@@ -1,10 +1,15 @@
 """Serving: prefill -> decode cache management + a batched request engine.
 
-The port of the dense-family part of `repro.serving.engine`. Decode caches
-are (B, max_len, Ks, D) linear buffers per layer, stacked (L, B, max_len,
-Ks, D), written at `pos`. `prefill_to_decode_cache` pads the prefill
-caches (length = prompt) out to the serving length. The ring buffers of
-the hybrid family and the O(1) states of ssm/rec layers wait for slice G1b.
+The port of the dense-family and ssm-family parts of
+`repro.serving.engine`. Decode caches, stacked on a leading layer axis:
+
+  * attention layers: (B, max_len, Ks, D) linear buffers, written at `pos`;
+  * mamba layers: the O(1) conv window (B, K-1, Di) and state (B, Di, N).
+
+`prefill_to_decode_cache` pads the prefill attention caches (length =
+prompt) out to the serving length and passes the mamba caches through. The
+ring buffers of the hybrid family and the rec layers' states wait for slice
+G1c.
 """
 from __future__ import annotations
 
@@ -37,10 +42,13 @@ def _to_linear(k: torch.Tensor, max_len: int) -> torch.Tensor:
 
 def prefill_to_decode_cache(cfg: ArchConfig, caches, prompt_len: int,
                             max_len: int):
-    """Convert prefill caches into decode buffers."""
+    """Convert prefill caches into decode buffers. Mamba caches come back
+    as they are, so a decode step then updates them in place."""
     if caches is None:
         return None
-    M._require_dense(cfg)
+    M._require_ported(cfg)
+    if "state" in caches:         # mamba: O(1) state, pass through
+        return caches
     return {name: _to_linear(c, max_len) for name, c in caches.items()}
 
 

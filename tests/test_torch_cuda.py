@@ -11,6 +11,7 @@ from repro_torch.kernels.advection import advection as TK
 from repro_torch.kernels.advection import ref as TREF
 from repro_torch.kernels.attention import attention as TA
 from repro_torch.kernels.attention import ops as TOPS
+from repro_torch.kernels.ssm import ssm as TS
 from repro_torch.stencil import spec as TSP
 
 pytestmark = pytest.mark.cuda
@@ -267,3 +268,94 @@ def test_flash_kernel_refuses_tiles_over_budget(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         TA.flash_attention(q, k, v, block_q=256, block_k=256)
     assert TA.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# selective scan (K9)
+# ---------------------------------------------------------------------------
+
+# the kernel and its plain version sum y over n in different orders and
+# their exp may differ by an ulp: within 1e-4 of the larger of 1 and the
+# largest |value| (the reference's kernel-vs-oracle tolerance)
+SCAN_TOL = 1e-4
+
+
+def scan_inputs(B, S, D, N, device, dtype=torch.float32, dt_dtype=None,
+                seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt_: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                       device=device).to(dt_)
+    return (t(rng.normal(size=(B, S, D)), dtype),
+            t(np.abs(rng.normal(size=(B, S, D))) * 0.1, dt_dtype or dtype),
+            t(rng.normal(size=(B, S, N)), dtype),
+            t(rng.normal(size=(B, S, N)), dtype),
+            t(-np.abs(rng.normal(size=(D, N))), torch.float32),
+            t(rng.normal(size=(B, D, N)) * 0.1, torch.float32))
+
+
+def scan_close(got, want) -> bool:
+    return all(float((g - w).abs().max())
+               <= SCAN_TOL * max(1.0, float(w.abs().max()))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("B,S,D,N,chunk", [
+    (2, 64, 16, 8, 16), (1, 128, 32, 4, 32), (2, 96, 8, 16, 48),
+    (1, 64, 16, 16, 64),                   # the reference's CASES
+    (1, 13, 64, 16, 13), (2, 23, 40, 16, 23), (1, 4, 37, 4, 4),
+    (1, 48, 20, 1, 16), (1, 32, 16, 40, 32)])
+@pytest.mark.parametrize("dtype,dt_dtype", [
+    (torch.float32, None), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, None)])
+def test_scan_kernel_equals_plain(cuda, B, S, D, N, chunk, dtype, dt_dtype):
+    args = scan_inputs(B, S, D, N, cuda, dtype, dt_dtype)
+    before = TS.LAUNCHES["selective_scan"]
+    got = TS.selective_scan(*args, chunk=chunk)
+    assert TS.LAUNCHES["selective_scan"] == before + 1
+    want = TS._selective_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert all(g.dtype == torch.float32 for g in got)
+    assert got[0].shape == (B, S, D) and got[1].shape == (B, D, N)
+    assert scan_close(got, want)
+
+
+def test_scan_kernel_chains_through_h0(cuda):
+    """Two half-length scans chained == one full scan."""
+    xc, dt, Bm, Cm, A, h0 = scan_inputs(1, 64, 24, 16, cuda, seed=5)
+    y, h = TS.selective_scan(xc, dt, Bm, Cm, A, h0, chunk=16)
+    y1, h1 = TS.selective_scan(xc[:, :32], dt[:, :32], Bm[:, :32],
+                               Cm[:, :32], A, h0, chunk=16)
+    y2, h2 = TS.selective_scan(xc[:, 32:], dt[:, 32:], Bm[:, 32:],
+                               Cm[:, 32:], A, h1, chunk=16)
+    assert scan_close((torch.cat([y1, y2], 1), h2), (y, h))
+
+
+def test_scan_kernel_refusals(cuda):
+    before = dict(TS.LAUNCHES)
+    args = scan_inputs(1, 96, 16, 16, cuda)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        TS.selective_scan(*args, chunk=64)
+    args = scan_inputs(1, 1024, 16, 16, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        TS.selective_scan(*args, chunk=1024)
+    assert TS.LAUNCHES == before
+
+
+def test_ssm_model_pallas_equals_chunked_on_the_card(cuda):
+    """The falcon-mamba smoke model in f32: K9 on the card == the chunked
+    scan within the reference's model gate (1e-3)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import random_params
+    from repro_torch.models import model as TM
+    cfg = get_smoke_config("falcon-mamba-7b").replace(
+        compute_dtype="float32")
+    params = random_params(cfg, cuda)
+    layout = TM.make_layout(cfg, 1)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)), device=cuda)
+    before = TS.LAUNCHES["selective_scan"]
+    fp = TM.forward(params, {"inputs": toks},
+                    cfg.replace(attention_impl="pallas"), layout)[0]
+    assert TS.LAUNCHES["selective_scan"] == before + cfg.n_layers
+    fc = TM.forward(params, {"inputs": toks}, cfg, layout)[0]
+    assert float((fp - fc).abs().max()) < 1e-3

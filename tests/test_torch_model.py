@@ -35,8 +35,10 @@ from repro_torch.models.convert import params_from_numpy, tensor_from_numpy
 from repro_torch.serving.engine import prefill_to_decode_cache as t_p2d
 
 DENSE = ["qwen2.5-14b", "qwen3-32b", "nemotron-4-15b", "nemotron-4-340b"]
+SSM = "falcon-mamba-7b"
+PORTED = DENSE + [SSM]
 OTHER = [a for a in ARCH_IDS if a.replace("_", "-").replace("2-5", "2.5")
-         not in DENSE]
+         not in PORTED]
 F32_LOGIT_TOL = 1e-4
 F32_CACHE_REL = 2e-5
 BF16_REL = 0.1
@@ -116,7 +118,7 @@ def test_configs_equal_reference_field_by_field(arch):
         j_get_config(arch).replace(n_layers=3, compute_dtype="float32"))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_param_specs_equal_reference_at_full_width(arch):
     tc, jc = get_config(arch), j_get_config(arch)
     tspecs = TM.param_specs(tc, TM.make_layout(tc, 1))
@@ -146,11 +148,17 @@ def test_qwen2_5_14b_has_14_77e9_parameters():
         == 14_770_033_664
 
 
+def test_falcon_mamba_7b_has_7_006e9_parameters():
+    cfg = get_config(SSM)
+    assert TP.count_params(TM.param_specs(cfg, TM.make_layout(cfg, 1))) \
+        == 7_006_326_784
+
+
 @pytest.mark.parametrize("arch", OTHER)
 def test_other_families_wait_for_their_slice(arch):
     cfg = get_smoke_config(arch)
-    assert cfg.family != "dense"
-    with pytest.raises(NotImplementedError, match="G1b"):
+    assert cfg.family not in ("dense", "ssm")
+    with pytest.raises(NotImplementedError, match="G1c"):
         TM.param_specs(cfg, TM.make_layout(cfg, 1))
 
 
@@ -335,10 +343,200 @@ def test_out_of_range_indices_raise_instead_of_clamping():
 
 @pytest.mark.parametrize("knob,value,slice_", [
     ("attention_impl", "flash", "G2"), ("attention_impl", "skip_core", "G2"),
-    ("pos", "mrope", "G1b"), ("scan_layers", False, "stacked")])
+    ("pos", "mrope", "G1c"), ("scan_layers", False, "stacked")])
 def test_later_paths_raise_naming_their_slice(knob, value, slice_):
     cfg = get_smoke_config("qwen2.5-14b").replace(**{knob: value})
     params = params_from_numpy(smoke_weights("qwen2.5-14b"))
     with pytest.raises(NotImplementedError, match=slice_):
         TM.forward(params, {"inputs": torch.tensor([[1, 2]])}, cfg,
                    TM.make_layout(cfg, 1))
+
+
+# ---------------------------------------------------------------------------
+# the ssm family (falcon-mamba): the Mamba-1 block, its caches, K9's route
+# ---------------------------------------------------------------------------
+
+
+def ssm_prefill_decode(jx, tx, toks):
+    """`prefill_decode` for mamba caches: the port's decode step updates
+    the prefill caches in place, so they are copied before it runs."""
+    (jc, jlo, jp), (tc, tlo, tp) = jx, tx
+    B, S = toks.shape
+    jl, _, jk = JM.forward(jp, {"inputs": jnp.asarray(toks[:, :-1])}, jc,
+                           jlo, mode="prefill")
+    tl, _, tk = TM.forward(tp, {"inputs": torch.as_tensor(toks[:, :-1])},
+                           tc, tlo, mode="prefill")
+    kept = {k: v.clone() for k, v in tk.items()}
+    jd, _ = JM.decode_step(jp, j_p2d(jc, jk, S - 1, S + 4),
+                           {"token": jnp.asarray(toks[:, -1]),
+                            "pos": jnp.full((B,), S - 1, jnp.int32)}, jc, jlo)
+    td, _ = TM.decode_step(tp, t_p2d(tc, tk, S - 1, S + 4),
+                           {"token": torch.as_tensor(toks[:, -1]),
+                            "pos": torch.full((B,), S - 1)}, tc, tlo)
+    return (jl, jk, jd), (tl, kept, td)
+
+
+def test_ssm_cache_specs():
+    cfg = get_config(SSM)
+    specs = TM.cache_specs(cfg, TM.make_layout(cfg, 1), 4, 128)
+    assert {k: (s.shape, s.dtype) for k, s in specs.items()} == {
+        "conv": ((64, 4, 3, 8192), "bfloat16"),
+        "state": ((64, 4, 8192, 16), "bfloat16")}
+
+
+@pytest.mark.parametrize("impl", ["pallas", "chunked"])
+def test_ssm_prefill_and_decode_equal_reference_f32(impl):
+    """The dense family's f32 tolerances: logits within 1e-4, caches within
+    2e-5 of their largest value (the smoke state reaches ~5e5)."""
+    jx, tx = both(SSM, compute_dtype="float32", attention_impl=impl)
+    (jl, jk, jd), (tl, tk, td) = ssm_prefill_decode(jx, tx,
+                                                    tokens(jx[0], (2, 32)))
+    assert tl.shape == jl.shape and tl.dtype == torch.float32
+    assert err(tl, jl) < F32_LOGIT_TOL
+    assert err(td, jd) < F32_LOGIT_TOL
+    for name in ("conv", "state"):
+        assert tk[name].shape == jk[name].shape
+        assert tk[name].dtype == torch.float32
+        assert err(tk[name], jk[name]) < F32_CACHE_REL * max(
+            1.0, float(np.abs(f32(jk[name])).max()))
+
+
+def xla_cpu_silu(x):
+    """`jax.nn.silu` as XLA on the CPU rounds it in bf16: x * logistic(x),
+    with logistic expanded to 1 / (1 + exp(-x)) and every step rounded to
+    x's dtype (the port's `F.silu` rounds once)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+@pytest.mark.parametrize("impl", ["pallas", "chunked"])
+def test_ssm_prefill_and_decode_equal_reference_bf16(impl):
+    """The dense family's bf16 tolerances (see the module docstring) for
+    the logits and the conv cache; the state cache (stored in the compute
+    dtype, as the reference stores it) within 10 % of its largest value.
+    Its error against the reference's f32 state is not bounded by the
+    reference's own: the reference's `silu` rounds three more times (see
+    `test_ssm_bf16_rounds_where_the_reference_rounds`), and the
+    recurrence carries those roundings into a state whose bf16 error is
+    already 17 % of its scale in the reference."""
+    jx, tx = both(SSM, attention_impl=impl)
+    toks = tokens(jx[0], (2, 32))
+    (jl, jk, jd), (tl, tk, td) = ssm_prefill_decode(jx, tx, toks)
+    jx32 = (jx[0].replace(compute_dtype="float32"),) + jx[1:]
+    jl32, _, jk32 = JM.forward(jx32[2], {"inputs": jnp.asarray(toks[:, :-1])},
+                               jx32[0], jx32[1], mode="prefill")
+    for mine, ref, ref32 in ((tl, jl, jl32),
+                             (tk["conv"], jk["conv"], jk32["conv"]),
+                             (tk["state"], jk["state"], jk32["state"])):
+        assert mine.dtype == (torch.float32 if mine is tl
+                              else torch.bfloat16)
+        scale = float(np.abs(f32(ref)).max())
+        assert err(mine, ref) <= BF16_REL * scale
+        if mine is not tk["state"]:
+            assert err(mine, ref32) <= BF16_VS_F32_FACTOR * err(ref, ref32)
+    assert err(td, jd) <= BF16_REL * float(np.abs(f32(jd)).max())
+
+
+@pytest.mark.parametrize("impl", ["pallas", "chunked"])
+def test_ssm_bf16_rounds_where_the_reference_rounds(monkeypatch, impl):
+    """With `silu` rounded as the reference's XLA rounds it, the port's
+    bf16 prefill caches equal the reference's bit for bit and its logits
+    agree within 2e-3 (max |logit| ~0.73): every other step rounds at the
+    same points."""
+    monkeypatch.setattr(torch.nn.functional, "silu", xla_cpu_silu)
+    jx, tx = both(SSM, attention_impl=impl)
+    (jl, jk, jd), (tl, tk, td) = ssm_prefill_decode(jx, tx,
+                                                    tokens(jx[0], (2, 32)))
+    for name in ("conv", "state"):
+        assert err(tk[name], jk[name]) == 0.0, name
+    assert err(tl, jl) < 2e-3 and err(td, jd) < 5e-3
+
+
+def test_ssm_pallas_equals_chunked_in_f32():
+    """K9's route (`pallas`: dt in f32, then `mamba_scan`) against the
+    chunked scan, at the reference's model gate (1e-3), over several
+    chunks (S 64 at scan_chunk 16); also at train mode's other impls."""
+    cfg = get_smoke_config(SSM).replace(compute_dtype="float32")
+    params = params_from_numpy(smoke_weights(SSM))
+    layout = TM.make_layout(cfg, 1)
+    batch = {"inputs": torch.as_tensor(tokens(cfg, (2, 64), seed=0))}
+    fc, _, _ = TM.forward(params, batch, cfg, layout)
+    for impl in ("pallas", "dense", "flash"):
+        fp, _, _ = TM.forward(params, batch,
+                              cfg.replace(attention_impl=impl), layout)
+        assert err(fc, fp) < 1e-3, impl
+
+
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 5e-2),
+                                       ("float32", 1e-4)])
+@pytest.mark.parametrize("impl", ["chunked", "pallas"])
+def test_ssm_prefill_plus_decode_equals_forward(impl, dtype, tol):
+    """Prefill S tokens then decode 8 one by one == the full forward's
+    logits; the positions are not read. bf16 within the reference's own
+    ssm tolerance (5e-2, `tests/test_decode_consistency.py`): prefill
+    stores the state in bf16 where the forward keeps it in f32. f32 within
+    the f32 logit tolerance."""
+    cfg = get_smoke_config(SSM).replace(attention_impl=impl,
+                                        compute_dtype=dtype)
+    params = params_from_numpy(smoke_weights(SSM))
+    layout = TM.make_layout(cfg, 1)
+    B, S, T = 2, 24, 8
+    toks = torch.as_tensor(tokens(cfg, (B, S + T), seed=3))
+    full, _, _ = TM.forward(params, {"inputs": toks}, cfg, layout)
+    _, _, caches = TM.forward(params, {"inputs": toks[:, :S]}, cfg, layout,
+                              mode="prefill")
+    caches = t_p2d(cfg, caches, S, S + T + 2)
+    errs = []
+    for t in range(T):
+        logits, caches = TM.decode_step(
+            params, caches, {"token": toks[:, S + t],
+                             "pos": torch.full((B,), 10 ** 6)}, cfg, layout)
+        errs.append(float((logits - full[:, S + t]).abs().max()))
+    assert max(errs) < tol, errs
+
+
+def test_ssm_short_prompt_conv_cache_keeps_the_zero_padding():
+    """A prompt shorter than conv_k - 1 leaves zero rows at the head of the
+    conv cache, as the reference's `xp[:, -(K-1):]` does."""
+    jx, tx = both(SSM, compute_dtype="float32")
+    toks = tokens(jx[0], (1, 3))
+    (jl, jk, jd), (tl, tk, td) = ssm_prefill_decode(jx, tx, toks)
+    assert tk["conv"].shape[2] == 3
+    assert not tk["conv"][:, :, :1].any()
+    assert err(tk["conv"], jk["conv"]) < F32_CACHE_REL * float(
+        np.abs(f32(jk["conv"])).max())
+    assert err(td, jd) < F32_LOGIT_TOL
+
+
+def test_ssm_lengths_the_chunked_scan_refuses():
+    """S = 20 at scan_chunk 16 (one chunk of 20) runs; S = 34 (two chunks
+    of 17) runs; S = 33 does not split into 2 equal chunks: ValueError
+    naming it, on both routes (the reference asserts)."""
+    cfg = get_smoke_config(SSM).replace(compute_dtype="float32")
+    params = params_from_numpy(smoke_weights(SSM))
+    layout = TM.make_layout(cfg, 1)
+    for impl in ("chunked", "pallas"):
+        c = cfg.replace(attention_impl=impl)
+        for S in (20, 34):
+            TM.forward(params, {"inputs": torch.as_tensor(
+                tokens(cfg, (1, S)))}, c, layout)
+        with pytest.raises(ValueError, match="33 tokens"):
+            TM.forward(params, {"inputs": torch.as_tensor(
+                tokens(cfg, (1, 33)))}, c, layout)
+
+
+def test_ssm_skip_core_raises_naming_g2():
+    cfg = get_smoke_config(SSM).replace(attention_impl="skip_core")
+    params = params_from_numpy(smoke_weights(SSM))
+    with pytest.raises(NotImplementedError, match="G2"):
+        TM.forward(params, {"inputs": torch.tensor([[1, 2]])}, cfg,
+                   TM.make_layout(cfg, 1))
+
+
+def test_softplus_is_logaddexp_above_the_torch_threshold():
+    """`jax.nn.softplus` is logaddexp(x, 0); `F.softplus` returns x above
+    20. The port's matches JAX on both sides of that threshold."""
+    from repro_torch.models import blocks as TB
+    x = np.array([-30.0, -1.0, 0.0, 3.0, 19.9, 20.1, 25.0, 80.0], np.float32)
+    got = TB._softplus(torch.as_tensor(x)).numpy()
+    want = np.asarray(jax.nn.softplus(jnp.asarray(x)))
+    assert np.allclose(got, want, rtol=1e-6, atol=0.0)

@@ -32,12 +32,13 @@ from repro_torch.serving import engine as TE
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "qwen2.5-14b"
+SSM = "falcon-mamba-7b"
 MAX_LEN = 40
 
 
 @functools.lru_cache(maxsize=None)
-def weights():
-    cfg = j_get_smoke(ARCH)
+def weights(arch=ARCH):
+    cfg = j_get_smoke(arch)
     params = JP.init_params(JM.param_specs(cfg, JM.make_layout(cfg, 1)),
                             jax.random.PRNGKey(0))
     return jax.tree.map(np.asarray, params)
@@ -49,27 +50,27 @@ def prompts(n, seed=0):
             for _ in range(n)]
 
 
-def port_engine(batch_size, impl="pallas", max_len=MAX_LEN):
-    cfg = get_smoke_config(ARCH).replace(compute_dtype="float32",
+def port_engine(batch_size, impl="pallas", max_len=MAX_LEN, arch=ARCH):
+    cfg = get_smoke_config(arch).replace(compute_dtype="float32",
                                          attention_impl=impl)
-    return TE.ServingEngine(cfg, params_from_numpy(weights()),
+    return TE.ServingEngine(cfg, params_from_numpy(weights(arch)),
                             batch_size=batch_size, max_len=max_len)
 
 
 @functools.lru_cache(maxsize=None)
-def reference_model():
+def reference_model(arch=ARCH):
     """The reference's smoke model in f32 and its jitted decode step."""
-    cfg = j_get_smoke(ARCH).replace(compute_dtype="float32")
+    cfg = j_get_smoke(arch).replace(compute_dtype="float32")
     layout = JM.make_layout(cfg, 1)
     step = jax.jit(functools.partial(JM.decode_step, cfg=cfg, layout=layout))
-    return cfg, layout, jax.tree.map(jnp.asarray, weights()), step
+    return cfg, layout, jax.tree.map(jnp.asarray, weights(arch)), step
 
 
-def reference_greedy(prompt, max_new, max_len=MAX_LEN):
+def reference_greedy(prompt, max_new, max_len=MAX_LEN, arch=ARCH):
     """The reference model's greedy tokens for one request, as the engine
     schedules them: the prefill's argmax, then one decode step per token
     until the budget or the cache runs out."""
-    cfg, layout, params, step = reference_model()
+    cfg, layout, params, step = reference_model(arch)
     logits, _, caches = JM.forward(params, {"inputs": jnp.asarray(prompt)[None]},
                                    cfg, layout, mode="prefill")
     caches = JE.prefill_to_decode_cache(cfg, caches, len(prompt), max_len)
@@ -180,6 +181,59 @@ def test_serve_cli_smoke_on_the_cpu():
 def test_serve_cli_later_paths_name_their_slice(flag, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         TSERVE.main(["--smoke", "--device", "cpu"] + flag)
+
+
+@pytest.mark.parametrize("impl", ["chunked", "pallas"])
+def test_ssm_engine_tokens_equal_reference_greedy(impl):
+    """falcon-mamba smoke, f32 compute: five requests through two slots
+    (slots reused while others decode, dead slots fed a fixed token),
+    budgets 1-6 and one request stopped by the cache length: every token is
+    the reference model's greedy token, on both scan routes."""
+    ps = prompts(5, seed=4) + [np.arange(30, dtype=np.int32)]
+    budgets = [6, 1, 4, 5, 3, 12]
+    done = port_engine(2, impl, arch=SSM).run(requests(ps, budgets))
+    assert sorted(done) == list(range(6))
+    assert len(done[5]) == MAX_LEN - 30
+    for i, (p, m) in enumerate(zip(ps, budgets)):
+        assert done[i] == reference_greedy(p, m, arch=SSM), i
+
+
+def test_ssm_prime_writes_the_slot_row_of_every_layer():
+    """A primed request's conv and state caches land in batch row `slot`
+    of every layer, equal to its own prefill's caches; the other rows are
+    untouched."""
+    eng = port_engine(3, arch=SSM)
+    before = {k: v.clone() for k, v in eng.caches.items()}
+    prompt = prompts(1, seed=5)[0]
+    eng._prime(1, TE.Request(uid=0, prompt=prompt, max_new_tokens=4))
+    _, _, own = TM.forward(eng.params, {"inputs": torch.as_tensor(
+        prompt.astype(np.int64))[None]}, eng.cfg, eng.layout,
+        mode="prefill")
+    for name in ("conv", "state"):
+        assert torch.equal(eng.caches[name][:, 1], own[name][:, 0])
+        for row in (0, 2):
+            assert torch.equal(eng.caches[name][:, row],
+                               before[name][:, row])
+
+
+def test_ssm_prefill_to_decode_cache_passes_through():
+    cfg = get_smoke_config(SSM)
+    caches = {"conv": torch.ones(2, 1, 3, 128),
+              "state": torch.ones(2, 1, 128, 4)}
+    assert TE.prefill_to_decode_cache(cfg, caches, 9, 20) is caches
+    ref = JE.prefill_to_decode_cache(j_get_smoke(SSM), caches, 9, 20)
+    assert ref is caches
+
+
+def test_serve_cli_ssm_smoke_on_the_cpu():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--arch", SSM, "--smoke", "--device", "cpu",
+                          "--requests", "3", "--max-new", "4"], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "[serve] falcon-mamba-7b-smoke on cpu: 3 requests, 12 tokens" \
+        in out.stdout
 
 
 def test_serve_traffic_is_the_references():
