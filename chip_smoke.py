@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # every phase, one card
+    python3 chip_smoke.py --only distributed   # phases 15-18 alone
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 
@@ -82,7 +83,26 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    (tolerances and basis in PERF.md); bf16 at 64 layers is printed only;
 14. times K9 at xc (1, 2048, 8192) bf16, dt f32, B/C (1, 2048, 16) bf16
    beside its plain version and its bound (no single PyTorch call computes
-   the scan, so no library time).
+   the scan, so no library time);
+15. holds the band exchange (K7) against its plain version on loopback
+   meshes of the one card (`BAND_CASES`: (1, 2), (2, 1), (2, 2), (1, 4),
+   (3, 1); dims 0 and 1; depth 1 to three hops a side): four blocks in a
+   row on the same slabs and counters, both parities, every recv slab ==
+   plain bitwise, the slot block 0 did not write untouched, error words 0;
+16. drives the distributed path at the 67M grid over a (2, 2) loopback
+   mesh on cuda:0: `make_distributed_run(n_blocks=4, T=4, dt=DT,
+   local_kernel="fused", overlap=True)`, 16 Euler substeps, with each
+   engine, the counts set to 0 just before and read just after (with
+   `remote_dma` K7 once per shard, phase and block and K1 twice per shard
+   and block, 32 each; with `collective` K1 alone), `remote_dma` ==
+   `collective` == the main path's single-card `advance(16)`, bitwise;
+17. times K7 per phase at the path's shapes beside its bound (bytes read
+   and written once in the card's memory), its plain version and the
+   collective engine for the same exchange (the library time), and each
+   engine's ms per block of the run;
+18. where the machine has two or more cards, repeats 15-17 on a mesh of
+   distinct cards (peer stores over NVLink), bitwise equal to the
+   loopback run; with one card it prints that it skipped.
 
 Prints the card's name and power limit, one JSON line of kernel records and,
 last, `{"ok": true, "device": {...}}`. Any failed check exits nonzero
@@ -119,6 +139,8 @@ from repro_torch.models import blocks as BL  # noqa: E402
 from repro_torch.models.blocks import Ctx  # noqa: E402
 from repro_torch.pspec import tree_map  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.launch.mesh import make_stencil_mesh  # noqa: E402
+from repro_torch.stencil import distributed as D  # noqa: E402
 from repro_torch.stencil import spec as SP  # noqa: E402
 from repro_torch.stencil.advection import (PAPER_GRIDS,  # noqa: E402
                                            AdvectionDomain)
@@ -155,7 +177,8 @@ SOURCE = {"advect_fused": "src/repro_torch/csrc/advect_fused.cu",
           "advect_wide": "src/repro_torch/csrc/advect_dataflow.cu",
           "stencil_fused": "src/repro_torch/csrc/stencil_fused.cu",
           "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
-          "selective_scan": "src/repro_torch/csrc/selective_scan.cu"}
+          "selective_scan": "src/repro_torch/csrc/selective_scan.cu",
+          "band_exchange": "src/repro_torch/csrc/band_exchange.cu"}
 REPLACES = {"advect_fused": "src/repro/kernels/advection/advection.py:404",
             "finite_guard": "src/repro/kernels/advection/advection.py:469",
             "advect_blocked": "src/repro/kernels/advection/advection.py:214",
@@ -163,7 +186,8 @@ REPLACES = {"advect_fused": "src/repro/kernels/advection/advection.py:404",
             "advect_wide": "src/repro/kernels/advection/advection.py:367",
             "stencil_fused": "src/repro/kernels/advection/advection.py:677",
             "flash_attention": "src/repro/kernels/attention/attention.py:31",
-            "selective_scan": "src/repro/kernels/ssm/ssm.py:39"}
+            "selective_scan": "src/repro/kernels/ssm/ssm.py:39",
+            "band_exchange": "src/repro/kernels/advection/advection.py:939"}
 # flash attention (K8): the reference's cases and block shapes
 # (tests/test_flash_attention.py), then Sq != Skv both ways and the serving
 # path's prompt shapes (40 q heads over 8 kv heads of 128)
@@ -214,6 +238,18 @@ SSM_PREFILL_BF16_REL_TOL = 0.03  # x max |chunked logit|; PERF.md: written
                                  # before the first chip run
 SCAN_TIMED = (1, 2048, 8192, 16, 256)   # B, S, D, N, chunk: x, B, C bf16,
                                         # dt f32 (the 2048-token prefill)
+# the band exchange (K7): loopback meshes on the one card, both dims, depth
+# 1 to multi-hop (L = 3 with depth 7: three hops a side)
+BAND_CASES = (  # nx, ny, axis, dim, shard shape, depth
+    (1, 2, "y", 1, (5, 6, 8), 1), (1, 2, "y", 0, (6, 4, 12), 3),
+    (2, 1, "x", 0, (4, 6, 8), 2), (2, 1, "x", 1, (4, 5, 8), 4),
+    (2, 2, "x", 0, (4, 6, 8), 4), (2, 2, "y", 1, (12, 4, 12), 4),
+    (1, 4, "y", 1, (5, 3, 4), 7), (1, 4, "y", 1, (4, 3, 5), 2),
+    (3, 1, "x", 0, (3, 5, 6), 7), (3, 1, "x", 1, (4, 3, 6), 5))
+BAND_BLOCKS = 4          # blocks in a row on the same slabs and counters
+BAND_FILL = -3.5         # what a recv slot holds before any block writes it
+DIST_MESH = (2, 2)       # the distributed path: the 67M grid on 4 shards
+DIST_BLOCKS = MAIN_SUBSTEPS // MAIN_T
 
 
 class Checks:
@@ -1052,6 +1088,252 @@ def attention_small_phase(check: Checks) -> None:
               f"K8 refuses {what} with ValueError, no launch")
 
 
+# ---------------------------------------------------------------------------
+# the band exchange (K7) and the distributed path
+# ---------------------------------------------------------------------------
+
+
+def slabs_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for sa, sb in zip(a.slabs, b.slabs)
+               for fa, fb in zip(sa, sb) for x, y in zip(fa, fb))
+
+
+def band_small_phase(check: Checks, devices=None, tag="loopback") -> None:
+    """K7 against its plain version at small shapes: `BAND_BLOCKS` blocks
+    in a row on the same slabs and counters (both parities); every slab ==
+    plain bitwise, the slot block 0 did not write keeps `BAND_FILL`, the
+    error words stay 0. `devices(n)` lays out the shards (default: n
+    shards on cuda:0)."""
+    for nx, ny, axis, dim, shape, depth in BAND_CASES:
+        n = nx * ny
+        if devices is not None and n > torch.cuda.device_count():
+            continue
+        devs = ["cuda:0"] * n if devices is None else devices(n)
+        mesh = make_stencil_mesh(nx, ny, devices=devs)
+        got = K.BandSlabs(mesh, shape, depth, dim, fill=BAND_FILL)
+        want = K.BandSlabs(mesh, shape, depth, dim, fill=BAND_FILL)
+        msgs = K.band_messages(mesh, axis, shape[dim], depth)
+        equal = untouched = True
+        for block in range(BAND_BLOCKS):
+            shards = [tuple(f.to(dev) for f in
+                            rand_fields(shape, 900 + 10 * block + s))
+                      for s, dev in enumerate(mesh.devices)]
+            K.halo_band_exchange_dma(shards, mesh=mesh, axis=axis,
+                                     depth=depth, dim=dim,
+                                     block_index=block, slabs=got)
+            K._band_exchange_plain(shards, want, msgs, block % 2)
+            for dev in set(mesh.devices):
+                torch.cuda.synchronize(dev)
+            equal = equal and slabs_equal(got, want)
+            if block == 0:
+                untouched = all(bool((sl[1] == BAND_FILL).all())
+                                for sh in got.slabs for f in sh
+                                for sl in f)
+        hops = len(K._band_schedule(shape[dim], depth))
+        what = (f"K7 {tag} {(nx, ny)} axis {axis} dim {dim} shard {shape} "
+                f"depth {depth} ({hops} hop{'s' if hops > 1 else ''})")
+        check(equal, f"{what}: == plain bitwise over {BAND_BLOCKS} blocks, "
+              f"both slots")
+        check(untouched, f"{what}: the slot block 0 did not write is "
+              f"untouched")
+        errors = [int(w[2]) for w in got.words]
+        check(not any(errors), f"{what}: error words {errors}")
+
+
+def distributed_run(mesh, fields, exchange: str):
+    """`make_distributed_run` on the 67M grid over `mesh`, the counts set
+    to 0 just before and read just after; returns (global out, launches,
+    wall s, run, shards)."""
+    Z = fields[0].shape[2]
+    p = REF.default_params(Z, device="cuda")
+    run = D.make_distributed_run(mesh, p, n_blocks=DIST_BLOCKS, T=MAIN_T,
+                                 dt=DT, local_kernel="fused", overlap=True,
+                                 exchange=exchange)
+    shards = D.shard(mesh, *fields)
+    for dev in set(mesh.devices):
+        torch.cuda.synchronize(dev)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    out = run(shards)
+    for dev in set(mesh.devices):
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = all_counts()
+    return D.gather(mesh, out, device="cuda:0"), launches, wall, run, shards
+
+
+def distributed_path_phase(check: Checks, fields, single):
+    """The distributed path at the 67M grid over a (2, 2) loopback mesh on
+    the one card: `make_distributed_run(n_blocks=4, T=4, fused, overlap)`
+    with each engine, == each other and == the single-card fused
+    `advance(16)` (`single`), bitwise. Returns (K7 launches, the runs)."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    nx, ny = DIST_MESH
+    mesh = make_stencil_mesh(nx, ny, devices=["cuda:0"] * (nx * ny))
+    outs, runs = {}, {}
+    for ex in ("remote_dma", "collective"):
+        out, launches, wall, run, shards = distributed_run(mesh, fields, ex)
+        outs[ex], runs[ex] = out, (run, shards)
+        want = {"advect_fused": 2 * nx * ny * DIST_BLOCKS}
+        if ex == "remote_dma":
+            want["band_exchange"] = 2 * nx * ny * DIST_BLOCKS
+            k7 = launches["band_exchange"]
+        print(f"distributed path: {MAIN_GRID} grid {(X, Y, Z)} over a "
+              f"{(nx, ny)} loopback mesh on cuda:0, exchange={ex}, "
+              f"make_distributed_run(n_blocks={DIST_BLOCKS}, T={MAIN_T}, "
+              f"local_kernel='fused', overlap=True); wall {wall:.3f} s; "
+              f"launches {launches}", flush=True)
+        check(all(n == want.get(k, 0) for k, n in launches.items()),
+              f"{ex}: launches {want}, no other kernel (K7 once per shard, "
+              f"phase and block; K1 twice per shard and block)")
+        check(all(o.shape == (X, Y, Z) and bool(torch.isfinite(o).all())
+                  for o in out), f"{ex}: outputs finite, of shape (X, Y, Z)")
+        check(all(frozen_edges(f0, fT) for f0, fT in zip(fields, out)),
+              f"{ex}: boundary planes unchanged")
+    check(same(outs["remote_dma"], outs["collective"]),
+          "distributed remote_dma == collective, bitwise")
+    err = max(float((a - b).abs().max())
+              for a, b in zip(outs["remote_dma"], single))
+    check(err == 0.0, f"distributed (2, 2) run == single-card fused "
+          f"advance({MAIN_SUBSTEPS}), bitwise ({err})")
+    return k7, mesh, outs["remote_dma"], runs
+
+
+def cross_card_phase(check: Checks, fields, loopback_out, card: str) -> None:
+    """K7 and the distributed path on a mesh of distinct cards, where the
+    machine has two or more: each engine bitwise equal to the loopback run,
+    and timed as on the loopback mesh."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"across cards: skipped, {n} card visible (the loopback mesh "
+              f"on one card carried K7)", flush=True)
+        return
+    band_small_phase(check, devices=lambda k: [f"cuda:{i}"
+                                               for i in range(k)],
+                     tag="across cards")
+    nx, ny = DIST_MESH if n >= 4 else (2, 1)
+    mesh = make_stencil_mesh(nx, ny)
+    if (nx, ny) == DIST_MESH:
+        want = loopback_out
+    else:
+        loop = make_stencil_mesh(nx, ny, devices=["cuda:0"] * (nx * ny))
+        want = distributed_run(loop, fields, "remote_dma")[0]
+    runs = {}
+    for ex in ("remote_dma", "collective"):
+        out, launches, wall, run, shards = distributed_run(mesh, fields, ex)
+        runs[ex] = (run, shards)
+        print(f"across cards: ran, exchange={ex}, a {(nx, ny)} mesh over "
+              f"{[str(d) for d in mesh.devices]}; wall {wall:.3f} s; "
+              f"launches {launches}", flush=True)
+        err = max(float((a - b).abs().max()) for a, b in zip(out, want))
+        check(err == 0.0, f"across cards {(nx, ny)} {ex} == loopback "
+              f"remote_dma, bitwise ({err})")
+    band_timing(mesh, fields, 0, runs, card, tag="across cards")
+
+
+def k7_host_and_device_ms(call, mesh, runs: int = 20):
+    """K7's host time to enqueue one exchange (median, no synchronise), and
+    its kernels' summed device time per exchange from `torch.profiler`
+    ("not measured" where the profiler sees no device time)."""
+    host = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        call()
+        host.append((time.perf_counter() - t0) * 1e3)
+        for dev in set(mesh.devices):
+            torch.cuda.synchronize(dev)
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        for _ in range(runs):
+            call()
+        for dev in set(mesh.devices):
+            torch.cuda.synchronize(dev)
+    dev_us = sum(getattr(e, "device_time_total", 0.0)
+                 for e in prof.key_averages() if "band_" in e.key)
+    device = (f"{dev_us / runs / 1e3:.4f} ms" if dev_us > 0
+              else "not measured")
+    return statistics.median(host), device
+
+
+def band_timing(mesh, fields, launches: int, runs, card: str,
+                tag: str = "loopback") -> dict:
+    """K7 per phase at the path's shapes beside its bound, its plain
+    version and the collective engine for the same exchange; each engine's
+    ms per block of the distributed run."""
+    T = MAIN_T
+    shards = D.shard(mesh, *fields)
+    Xl, Yl, Z = shards[0][0].shape
+    # the y phase sends from the x-extended slab
+    ext = [tuple(f.to(dev) for f in rand_fields((Xl + 2 * T, Yl, Z),
+                                                 1000 + s))
+           for s, dev in enumerate(mesh.devices)]
+    ms = plain_ms = lib_ms = bound = err = 0.0
+    nbytes_all = 0
+    for axis, dim, sh in (("x", 0, shards), ("y", 1, ext)):
+        shape = tuple(sh[0][0].shape)
+        slabs = K.BandSlabs(mesh, shape, T, dim)
+        plain = K.BandSlabs(mesh, shape, T, dim)
+        msgs = K.band_messages(mesh, axis, shape[dim], T)
+        blocks = iter(range(10 ** 9))
+        K.halo_band_exchange_dma(sh, mesh=mesh, axis=axis, depth=T,
+                                 dim=dim, block_index=next(blocks),
+                                 slabs=slabs)
+        K._band_exchange_plain(sh, plain, msgs, 0)
+        torch.cuda.synchronize()
+        err = max([err] + [float((x - y).abs().max())
+                           for sa, sb in zip(slabs.slabs, plain.slabs)
+                           for fa, fb in zip(sa, sb)
+                           for x, y in zip(fa, fb)])
+        def k7_call():
+            K.halo_band_exchange_dma(sh, mesh=mesh, axis=axis, depth=T,
+                                     dim=dim, block_index=next(blocks),
+                                     slabs=slabs)
+        k7 = time_ms(k7_call)
+        host, device = k7_host_and_device_ms(k7_call, mesh)
+        slabs.check()
+        pl = time_ms(lambda: K._band_exchange_plain(sh, plain, msgs, 0))
+        coll = time_ms(lambda: [D._exchange_halos(
+            mesh, [s[f] for s in sh], axis, T, dim) for f in range(3)])
+        # bound: every message's bytes read once and written once in the
+        # one card's memory (loopback)
+        other = math.prod(shape) // shape[dim]
+        sent = sum(m.cnt * other * 4 for m in msgs)
+        b, _ = bound_of(2 * sent, 0)
+        print(f"band_exchange {axis} phase ({tag}): {len(sh)} shards of "
+              f"{shape} on {sorted({str(d) for d in mesh.devices})}, "
+              f"depth {T}, dim {dim}, {len(msgs)} messages, {sent} B sent "
+              f"({sent // len(sh)} per shard): K7 {k7:.4f} ms (median of "
+              f"{TIMED_RUNS}; enter, put and wait per shard), bound "
+              f"{b:.4f} ms ({2 * sent} B read + written at "
+              f"{R.HBM_BW:.3g} B/s, all shards on one card), "
+              f"{b / k7:.4f} of the bound; host enqueue {host:.4f} ms and "
+              f"device kernel time {device} per call; "
+              f"across cards the bound would be {sent // len(sh)} B per "
+              f"shard at {R.NVLINK_BW:.3g} B/s each way: "
+              f"{sent // len(sh) / R.NVLINK_BW * 1e3:.4f} ms; plain version "
+              f"{pl:.4f} ms; collective engine {coll:.4f} ms (card {card})",
+              flush=True)
+        ms, plain_ms, lib_ms, bound = ms + k7, plain_ms + pl, \
+            lib_ms + coll, bound + b
+        nbytes_all += 2 * sent
+    for ex, (run, rshards) in runs.items():
+        per_block = time_ms(lambda: run(rshards), runs=5, warmup=1) / \
+            DIST_BLOCKS
+        print(f"distributed path ({tag}): exchange={ex}: {per_block:.4f}"
+              f" ms per block of {MAIN_T} substeps ({per_block / MAIN_T:.4f}"
+              f" ms per Euler step; median of 5 runs of {DIST_BLOCKS} "
+              f"blocks; card {card})", flush=True)
+    print(f"band_exchange per block ({tag}, x + y phases): {ms:.4f} ms, bound "
+          f"{bound:.4f} ms by bytes ({nbytes_all} B), plain {plain_ms:.4f} "
+          f"ms, library (the collective engine) {lib_ms:.4f} ms", flush=True)
+    return {"name": "band_exchange", "route": "cuda",
+            "source": SOURCE["band_exchange"],
+            "replaces": REPLACES["band_exchange"], "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms}
+
+
 def reset_all_counts() -> None:
     K.reset_launch_counts()
     A.reset_launch_counts()
@@ -1396,7 +1678,28 @@ def scan_timing(launches: int, card: str) -> dict:
     return rec
 
 
+def distributed_only(check: Checks, card: str) -> list:
+    """`--only distributed`: K7 at small shapes, the distributed path at
+    67M against the single-card fused `advance(16)`, its timing, and the
+    cross-card phase (the run to make on a machine of several cards)."""
+    band_small_phase(check)
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    dom = AdvectionDomain(X, Y, Z, variant="fused", fuse_T=MAIN_T, dt=DT,
+                          device="cuda")
+    fields = dom.init(seed=0)
+    single = dom.advance(*fields, MAIN_SUBSTEPS)
+    k7_launches, mesh, dist_out, dist_runs = distributed_path_phase(
+        check, fields, single)
+    records = [band_timing(mesh, fields, k7_launches, dist_runs, card)]
+    cross_card_phase(check, fields, dist_out, card)
+    return records
+
+
 def main() -> int:
+    only = sys.argv[1:] == ["--only", "distributed"]
+    if sys.argv[1:] and not only:
+        print("usage: chip_smoke.py [--only distributed]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
               "a GPU", file=sys.stderr)
@@ -1414,10 +1717,13 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.2f} s", flush=True)
     print(_build.build_log().strip(), flush=True)
     check = Checks()
+    if only:
+        return finish(check, distributed_only(check, card), card, t0)
     small_shape_phase(check)
     spec_small_phase(check)
     attention_small_phase(check)
     scan_small_phase(check)
+    band_small_phase(check)
     dom, fields, out, launches, k1_err, k4_err = main_path_phase(check)
     ladder = ladder_path_phase(check, fields)
     spec_runs = spec_path_phase(check, fields)
@@ -1427,7 +1733,11 @@ def main() -> int:
              "tracer": REF.default_params(4, device="cpu"),
              "diffusion": SP.default_diffusion_params(4, device="cpu")}
     records.append(spec_timing(spec_runs, probe))
-    del dom, fields, out, spec_runs
+    k7_launches, mesh, dist_out, dist_runs = distributed_path_phase(
+        check, fields, out)
+    records.append(band_timing(mesh, fields, k7_launches, dist_runs, card))
+    cross_card_phase(check, fields, dist_out, card)
+    del dom, fields, out, spec_runs, dist_out, dist_runs
     torch.cuda.empty_cache()
     cfg, params, k8_launches = serving_phase(check, SERVE_ARCH,
                                              "flash_attention")
@@ -1450,6 +1760,10 @@ def main() -> int:
     check(k9["within_tolerance"], f"K9 at the timed shape == plain within "
           f"{SCAN_TOL} x max(1, max |plain|)")
     records.append(k9)
+    return finish(check, records, card, t0)
+
+
+def finish(check: Checks, records: list, card: str, t0: float) -> int:
     print(f"chip_smoke: {len(check.failed)} of {check.count} checks failed; "
           f"{time.perf_counter() - t0:.1f} s since the build began",
           flush=True)

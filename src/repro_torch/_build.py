@@ -12,6 +12,11 @@ Build needs `nvcc` (on PATH, or under `$CUDA_HOME/bin`). Never add
 away. `--fmad=false` keeps every product and sum rounded on its own, as the
 plain PyTorch versions round them; the flash-attention kernel, held to its
 plain version within a tolerance, writes its products as explicit `fmaf`.
+
+The library carries its own CUDA runtime, which launches on the calling
+thread's current device: each wrapper makes its tensors' card current
+(`torch.cuda.device`) around its launch and passes that card's current
+stream.
 """
 from __future__ import annotations
 
@@ -28,15 +33,16 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
 SOURCES = ("advect_fused.cu", "finite_guard.cu", "advect_blocked.cu",
            "advect_dataflow.cu", "stencil_fused.cu", "flash_attention.cu",
-           "selective_scan.cu")
+           "selective_scan.cu", "band_exchange.cu")
 HEADERS = ("pw_source.cuh", "stencil_ops.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
 LOG_NAME = "nvcc.log"
 
-_P, _I, _F, _LL, _SZ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                        ctypes.c_longlong, ctypes.c_size_t)
+_P, _I, _F, _LL, _ULL, _SZ = (ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_float, ctypes.c_longlong,
+                              ctypes.c_ulonglong, ctypes.c_size_t)
 SIGNATURES = {
     "advect_fused_f32": [_P] * 9 + [_I] * 11 + [_F, _SZ, _P],
     "finite_guard_f32": [_P] * 4 + [_I, _I, _LL, _I, _P],
@@ -46,6 +52,11 @@ SIGNATURES = {
                           + [_F, _SZ, _P]),
     "flash_attention_fwd": [_I] + [_P] * 4 + [_I] * 9 + [_F, _SZ, _P],
     "selective_scan_fwd": [_I] * 2 + [_P] * 8 + [_I] * 5 + [_SZ, _P],
+    "band_exchange_enter": [_P, _I, _P],
+    "band_exchange_put": ([_P] * 4 + [_I] * 4 + [_LL, _LL, _I, _P, _ULL,
+                                                  _LL, _P]),
+    "band_exchange_wait": [_P, _ULL, _LL, _P],
+    "band_exchange_enable_peer": [_I, _I],
 }
 
 

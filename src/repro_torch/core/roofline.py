@@ -1,14 +1,17 @@
-"""Single-device roofline terms and the stencil byte/FLOP models, for one
-NVIDIA H100 SXM.
+"""Roofline terms and the stencil byte/FLOP models, for NVIDIA H100 SXM
+cards.
 
-    compute term = FLOPs / peak FLOP/s
-    memory term  = device-memory bytes / memory bandwidth
+    compute term    = FLOPs / peak FLOP/s
+    memory term     = device-memory bytes / memory bandwidth
+    collective term = halo wire bytes / wire bandwidth
 
 The hardware constants below come from NVIDIA's H100 SXM data sheet and the
 Hopper architecture white paper: data sheet, not measured. Measured times
-live in PERF.md beside the card's name and power limit. The collective term
-and the mesh, overlap and serving models of the reference wait for the
-slices that port those paths.
+live in PERF.md beside the card's name and power limit. The wire is NVLink
+between distinct cards (`NVLINK_BW`, each way) and device memory on a
+loopback mesh, whose shards share one card (`LOOPBACK_BW`: each byte is
+read and written once). The serving models of the reference wait for the
+slice that ports that tier.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ PEAK_FLOPS_F32 = 67e12       # f32 FLOP/s outside the tensor cores
 HBM_BW = 3.35e12             # bytes/s
 HBM_PER_CHIP = 80 * 10**9    # 80 GB
 SMEM_PER_BLOCK = 232_448     # dynamic shared memory one block may use
+NVLINK_BW = 450e9            # bytes/s each way to the other cards (NVLink 4)
+LOOPBACK_BW = HBM_BW / 2     # a band moved within one card: read + write
 
 
 @dataclass
@@ -32,6 +37,16 @@ class RooflineTerms:
     model_flops_global: float = 0.0
     peak_flops: float = PEAK_FLOPS_F32   # the stencil's f32 arithmetic
     hbm_bw: float = HBM_BW
+    wire_bytes: float = 0.0           # halo bytes a shard sends per step
+    wire_bw: float = NVLINK_BW        # LOOPBACK_BW on a loopback mesh
+    n_chips: int = 1
+    overlap_efficiency: float = 0.0   # fraction of collective_s the exchange
+                                      # engine hides (overlap_efficiency_model)
+
+    def __post_init__(self):
+        if not 0.0 <= self.overlap_efficiency <= 1.0:
+            raise ValueError(f"overlap_efficiency must be in [0, 1], got "
+                             f"{self.overlap_efficiency}")
 
     @property
     def compute_s(self) -> float:
@@ -42,30 +57,51 @@ class RooflineTerms:
         return self.hbm_bytes_per_dev / self.hbm_bw
 
     @property
+    def collective_s(self) -> float:
+        return self.wire_bytes / self.wire_bw
+
+    @property
+    def collective_hidden_s(self) -> float:
+        """Wire seconds the exchange engine hides behind the compute or
+        memory term: at most the whole exchange, and never more than the
+        on-chip work there is to hide behind."""
+        hideable = min(self.collective_s, max(self.compute_s, self.memory_s))
+        return self.overlap_efficiency * hideable
+
+    @property
+    def collective_exposed_s(self) -> float:
+        """Wire seconds left on the critical path after overlap."""
+        return self.collective_s - self.collective_hidden_s
+
+    @property
     def bound(self) -> str:
-        return "compute" if self.compute_s >= self.memory_s else "memory"
+        """The largest raw term."""
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
 
     @property
     def step_time_s(self) -> float:
         """Perfect-overlap model: the bottleneck term defines the step."""
-        return max(self.compute_s, self.memory_s)
+        return max(self.compute_s, self.memory_s, self.collective_s)
 
     @property
     def no_overlap_s(self) -> float:
-        return self.compute_s + self.memory_s
+        return self.compute_s + self.memory_s + self.collective_s
 
     @property
     def useful_flops_ratio(self) -> float:
         if not self.model_flops_global:
             return float("nan")
-        return self.model_flops_global / self.flops_per_dev
+        return self.model_flops_global / (self.flops_per_dev * self.n_chips)
 
     @property
     def mfu(self) -> float:
         """Model-FLOPs utilisation at the roofline step time."""
         if not self.model_flops_global:
             return float("nan")
-        return self.model_flops_global / (self.peak_flops * self.step_time_s)
+        return (self.model_flops_global
+                / (self.n_chips * self.peak_flops * self.step_time_s))
 
     @property
     def hw_flops_fraction(self) -> float:
@@ -76,8 +112,126 @@ class RooflineTerms:
         d.update(compute_s=self.compute_s, memory_s=self.memory_s,
                  bound=self.bound, step_time_s=self.step_time_s,
                  mfu=self.mfu, useful_flops_ratio=self.useful_flops_ratio,
-                 hw_flops_fraction=self.hw_flops_fraction)
+                 hw_flops_fraction=self.hw_flops_fraction,
+                 collective_s=self.collective_s,
+                 collective_hidden_s=self.collective_hidden_s,
+                 collective_exposed_s=self.collective_exposed_s)
         return d
+
+
+# fraction of a collective a library-scheduled overlap is trusted to hide:
+# the `overlap=True` collective engine only removes the data dependence
+# between the interior pass and the exchange. The in-kernel engine issues
+# and waits its own transfers, so it gets no discount. A modelling
+# assumption (the reference's), not a measurement.
+XLA_OVERLAP_DISCOUNT = 0.5
+
+
+def interior_compute_fraction(Xl: int, Yl: int, T: int, *,
+                              nx: int = 1, ny: int = 1) -> float:
+    """Fraction of a shard's cells whose depth-T dependence cone stays
+    inside the owned (Xl, Yl) slab: the halo-independent work an exchange
+    can hide behind (the interior pass of `make_distributed_step(
+    overlap=True)`). An undecomposed axis contributes no boundary band; a
+    shard of extent <= 2T leaves nothing to overlap with."""
+    if Xl < 1 or Yl < 1:
+        raise ValueError(f"shard extents must be >= 1, got ({Xl}, {Yl})")
+    if T < 1:
+        raise ValueError(f"T must be >= 1, got {T}")
+    fx = max(Xl - 2 * T, 0) / Xl if nx > 1 else 1.0
+    fy = max(Yl - 2 * T, 0) / Yl if ny > 1 else 1.0
+    return fx * fy
+
+
+def overlap_efficiency_model(*, overlap: bool, exchange: str = "collective",
+                             interior_fraction: float = 1.0) -> float:
+    """Modelled fraction of the halo exchange hidden behind compute: 0.0
+    without overlap; else the interior fraction, discounted by
+    `XLA_OVERLAP_DISCOUNT` for the `collective` engine, whose overlap is a
+    scheduling opportunity, while `remote_dma` owns its issue and wait
+    schedule. A model of each engine's intended schedule per block, not a
+    measurement. Feeds `RooflineTerms.overlap_efficiency`."""
+    if exchange not in ("collective", "remote_dma"):
+        raise ValueError(f"unknown exchange engine {exchange!r}")
+    if not 0.0 <= interior_fraction <= 1.0:
+        raise ValueError(f"interior_fraction must be in [0, 1], got "
+                         f"{interior_fraction}")
+    if not overlap:
+        return 0.0
+    eff = interior_fraction
+    if exchange == "collective":
+        eff *= XLA_OVERLAP_DISCOUNT
+    return eff
+
+
+def pipeline_efficiency_model(*, n_blocks: int, overlap: bool,
+                              exchange: str = "collective",
+                              interior_fraction: float = 1.0) -> float:
+    """Hidden fraction of the per-block exchange over a K-block pipelined
+    run, averaged over the blocks: the `collective` engine's is
+    K-independent (`overlap_efficiency_model`); `remote_dma` hides across
+    blocks (block k+1's bands land in the spare recv slot during block k's
+    interior pass), which every block but the first can, hence the
+    steady-state figure scaled by (K-1)/K."""
+    if n_blocks < 1:
+        raise ValueError(f"n_blocks must be >= 1, got {n_blocks}")
+    eff = overlap_efficiency_model(overlap=overlap, exchange=exchange,
+                                   interior_fraction=interior_fraction)
+    if exchange == "remote_dma":
+        eff *= (n_blocks - 1) / n_blocks
+    return eff
+
+
+def _check_mesh_grid(X: int, Y: int, nx: int, ny: int, T: int) -> None:
+    if nx < 1 or ny < 1:
+        raise ValueError(f"mesh shape must be >= 1, got ({nx}, {ny})")
+    if T < 1:
+        raise ValueError(f"T must be >= 1, got {T}")
+    if X % nx or Y % ny:
+        raise ValueError(f"grid ({X}, {Y}) not divisible by mesh "
+                         f"({nx}, {ny}); the mesh requires even shards")
+
+
+def halo_wire_bytes_model(X: int, Y: int, Z: int, itemsize: int, *,
+                          nx: int = 1, ny: int = 1, T: int = 1,
+                          n_fields: int = 3,
+                          depth: int | None = None) -> int:
+    """Per-shard bytes sent for ONE depth-`depth` (default T) exchange of
+    the 2D (nx, ny)-decomposed step: phase 1 trades ``2 * depth * (Y/ny) *
+    Z`` x-planes along the x ring, phase 2 ``2 * depth * (X/nx + 2*depth)
+    * Z`` y-rows of the x-extended slab (the corner blocks ride phase 2).
+    An undecomposed axis moves nothing; multi-hop moves the same total.
+    `stencil.distributed.count_exchange_wire_bytes` counts the engines'
+    messages against it."""
+    _check_mesh_grid(X, Y, nx, ny, T)
+    D = T if depth is None else depth
+    if D < 1:
+        raise ValueError(f"depth must be >= 1, got {D}")
+    Xl, Yl = X // nx, Y // ny
+    phase_x = 2 * D * Yl * Z if nx > 1 else 0
+    x_ext = Xl + (2 * D if nx > 1 else 0)
+    phase_y = 2 * D * x_ext * Z if ny > 1 else 0
+    return (phase_x + phase_y) * n_fields * itemsize
+
+
+INTEGRITY_WORD_ITEMSIZE = 4   # band checksums are one uint32 word each
+
+
+def integrity_bytes_model(X: int, Y: int, Z: int, *, nx: int = 1,
+                          ny: int = 1, T: int = 1, n_fields: int = 3,
+                          depth: int | None = None) -> int:
+    """Per-shard extra bytes of the checksummed exchange: one word per
+    band message, ``2 * n_fields * (hops_x + hops_y)`` words, hops_a =
+    ceil(depth / local extent) on a decomposed axis and 0 otherwise.
+    `stencil.distributed.count_integrity_bytes` counts against it."""
+    _check_mesh_grid(X, Y, nx, ny, T)
+    D = T if depth is None else depth
+    if D < 1:
+        raise ValueError(f"depth must be >= 1, got {D}")
+    Xl, Yl = X // nx, Y // ny
+    hops_x = -(-D // Xl) if nx > 1 else 0
+    hops_y = -(-D // Yl) if ny > 1 else 0
+    return 2 * n_fields * (hops_x + hops_y) * INTEGRITY_WORD_ITEMSIZE
 
 
 GUARD_FLAG_ITEMSIZE = 4   # the finite-guard flag output is f32

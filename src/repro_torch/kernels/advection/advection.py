@@ -9,14 +9,18 @@ with `fuse_update=True` the fields advanced one explicit-Euler step;
 slot being a dimension of the launch grid; `finite_guard` flags the
 x-slices whose three fields are all finite; `stencil_fused[_batched]` is the
 v4 ring driven by a `stencil.spec.StencilSpec` (any number of fields, the
-spec's source, euler or in-ring midpoint RK2).
+spec's source, euler or in-ring midpoint RK2); `halo_band_exchange_dma`
+(K7) moves the boundary bands of a mesh's shards into their ring
+neighbours' recv slabs, the transport of `stencil.distributed`'s
+`remote_dma` engine.
 
 Each wrapper dispatches on where its tensors lie. On a CUDA tensor it
 launches its hand-written kernel (`csrc/advect_blocked.cu`,
 `csrc/advect_dataflow.cu`, `csrc/advect_fused.cu`, `csrc/finite_guard.cu`,
-`csrc/stencil_fused.cu`) or raises; on a CPU tensor it runs the kernel's
-plain PyTorch version beside it (`_advect_rung_plain`, `_advect_fused_plain`,
-`_finite_guard_plain`, `_stencil_fused_plain`).
+`csrc/stencil_fused.cu`, `csrc/band_exchange.cu`) or raises; on a CPU
+tensor it runs the kernel's plain PyTorch version beside it
+(`_advect_rung_plain`, `_advect_fused_plain`, `_finite_guard_plain`,
+`_stencil_fused_plain`, `_band_exchange_plain`).
 There is no fallback from one to the other. `LAUNCHES` counts the kernel
 launches, one per launch and one key per rung, so a run can show which
 kernel it went through.
@@ -33,7 +37,8 @@ that does. `tiling="host"` is the reference's retained host-side tile loop
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,6 +46,7 @@ from repro_torch import _build
 from repro_torch.core.roofline import SMEM_PER_BLOCK
 from repro_torch.kernels.advection.ref import (AdvectParams, pw_advect_ref,
                                                pw_step_ref)
+from repro_torch.launch.mesh import dma_neighbor_coords
 
 TILINGS = ("grid", "host")
 DATAFLOW_X_CHUNK = 32   # x-slices each dataflow/wide block streams
@@ -54,7 +60,8 @@ WIDE_HOST_RULE = ("wide runs the in-grid tiled path only: the host tile loop "
                   "tiling='grid' or dataflow with tiling='host'")
 
 LAUNCHES = {"advect_fused": 0, "finite_guard": 0, "advect_blocked": 0,
-            "advect_dataflow": 0, "advect_wide": 0, "stencil_fused": 0}
+            "advect_dataflow": 0, "advect_wide": 0, "stencil_fused": 0,
+            "band_exchange": 0}
 
 
 def reset_launch_counts() -> None:
@@ -392,12 +399,13 @@ def _advect_fused_cuda(u, v, w, p: AdvectParams, T: int, dt: float,
     xmt, sx = _pack_rows([xm], B)
     ymt, sy = _pack_rows([ym], B)
     outs = [torch.empty_like(u) for _ in range(3)]
-    stream = torch.cuda.current_stream(u.device).cuda_stream
-    err = lib.advect_fused_f32(
-        u.data_ptr(), v.data_ptr(), w.data_ptr(),
-        *(o.data_ptr() for o in outs), pt.data_ptr(), xmt.data_ptr(),
-        ymt.data_ptr(), B, X, Y, Z, T, TY, S, n_ty, sp, sx, sy, dt, ring,
-        stream)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = lib.advect_fused_f32(
+            u.data_ptr(), v.data_ptr(), w.data_ptr(),
+            *(o.data_ptr() for o in outs), pt.data_ptr(), xmt.data_ptr(),
+            ymt.data_ptr(), B, X, Y, Z, T, TY, S, n_ty, sp, sx, sy, dt, ring,
+            stream)
     _build.check(err, "advect_fused_f32")
     LAUNCHES["advect_fused"] += 1
     return tuple(outs)
@@ -541,14 +549,15 @@ def _advect_rung_cuda(name: str, u, v, w, p: AdvectParams,
     pt, _ = _param_table(p, 1)
     outs = [torch.empty_like(u) for _ in range(3)]
     ptrs = [f.data_ptr() for f in (u, v, w, *outs, pt)]
-    stream = torch.cuda.current_stream(u.device).cuda_stream
-    if name == "advect_blocked":
-        err = lib.advect_blocked_f32(*ptrs, X, Y, Z, TY, S, n_ty,
-                                     int(fuse_update), dt, slab, stream)
-    else:
-        err = lib.advect_dataflow_f32(*ptrs, X, Y, Z, TY, S, n_ty, x_chunk,
-                                      int(name == "advect_wide"),
-                                      int(fuse_update), dt, slab, stream)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        if name == "advect_blocked":
+            err = lib.advect_blocked_f32(*ptrs, X, Y, Z, TY, S, n_ty,
+                                         int(fuse_update), dt, slab, stream)
+        else:
+            err = lib.advect_dataflow_f32(*ptrs, X, Y, Z, TY, S, n_ty, x_chunk,
+                                          int(name == "advect_wide"),
+                                          int(fuse_update), dt, slab, stream)
     _build.check(err, name)
     LAUNCHES[name] += 1
     return tuple(outs)
@@ -634,9 +643,10 @@ def _finite_guard_cuda(u, v, w):
     flags = torch.empty((B, X), dtype=torch.float32, device=u.device)
     vec4 = int((Y * Z) % 4 == 0
                and all(f.data_ptr() % 16 == 0 for f in (u, v, w)))
-    stream = torch.cuda.current_stream(u.device).cuda_stream
-    err = lib.finite_guard_f32(u.data_ptr(), v.data_ptr(), w.data_ptr(),
-                               flags.data_ptr(), B, X, Y * Z, vec4, stream)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = lib.finite_guard_f32(u.data_ptr(), v.data_ptr(), w.data_ptr(),
+                                   flags.data_ptr(), B, X, Y * Z, vec4, stream)
     _build.check(err, "finite_guard_f32")
     LAUNCHES["finite_guard"] += 1
     return flags
@@ -779,11 +789,12 @@ def _stencil_fused_cuda(fields, pv, spec, T: int, dt: float, xm, ym,
     outs = [torch.empty_like(f) for f in fields]
     ins = [f.data_ptr() for f in fields] + [None] * (4 - len(fields))
     out_ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
-    stream = torch.cuda.current_stream(fields[0].device).cuda_stream
-    err = lib.stencil_fused_f32(
-        op, stages, spec.radius, *ins, *out_ptrs, table.data_ptr(), Z + 2,
-        xmt.data_ptr(), ymt.data_ptr(), B, X, Y, Z, T, TY, S, n_ty, sx, sy,
-        dt, ring, stream)
+    with torch.cuda.device(fields[0].device):
+        stream = torch.cuda.current_stream(fields[0].device).cuda_stream
+        err = lib.stencil_fused_f32(
+            op, stages, spec.radius, *ins, *out_ptrs, table.data_ptr(), Z + 2,
+            xmt.data_ptr(), ymt.data_ptr(), B, X, Y, Z, T, TY, S, n_ty, sx, sy,
+            dt, ring, stream)
     _build.check(err, "stencil_fused_f32")
     LAUNCHES["stencil_fused"] += 1
     return tuple(outs)
@@ -841,3 +852,335 @@ def stencil_fused(fields, params, spec, *, T: int = 4, dt: float = 1.0,
                                  y_interior_mask=y_interior_mask,
                                  x_interior_mask=x_interior_mask)
     return tuple(o[0] for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# K7: the in-kernel halo-band exchange
+# ---------------------------------------------------------------------------
+
+BAND_MAX_HOPS = 8                 # the CUDA kernel's message table
+BAND_THREADS = 256                # threads of one put block
+BAND_VECS_PER_THREAD = 4          # 16-byte copies each thread makes
+BAND_MAX_BLOCKS = 64              # put blocks per message
+BAND_TIMEOUT_NS = 5_000_000_000   # the bound on every spin
+BAND_ERRORS = {1: "a put waited past its bound for its partners to enter "
+                  "the exchange (the capacity handshake)",
+               2: "a wait ran past its bound before every band arrived"}
+
+
+def _band_schedule(L: int, depth: int):
+    """Per-hop band messages of one exchange side, shared by every engine:
+    ``[(k, cnt, hi_off, lo_off), ...]``. Hop k moves `cnt` =
+    min(L, depth-(k-1)L) planes/rows to/from the k-away ring neighbour;
+    the received bands land at extended-slab offsets `hi_off` (from the
+    predecessor side, global coordinates ascending) and `lo_off` (from the
+    successor side), which partition the hi halo [0, depth) and the lo
+    halo [depth+L, depth+L+depth) exactly."""
+    hops = -(-depth // L)
+    sched = []
+    for k in range(1, hops + 1):
+        cnt = min(L, depth - (k - 1) * L)
+        sched.append((k, cnt, depth - (k - 1) * L - cnt, depth + k * L))
+    return sched
+
+
+def band_checksum(band: torch.Tensor) -> torch.Tensor:
+    """Integrity word over one `_band_schedule` message: the uint32
+    wraparound sum of the band's raw 32-bit words, shaped ``(1,)`` (int64
+    holding a value in [0, 2**32)). The int32 bit views are summed in int64
+    and taken mod 2**32, so sender and receiver get the same word from the
+    same bytes whatever the order. Requires a 4-byte element type."""
+    if band.element_size() != 4:
+        raise TypeError(
+            f"band_checksum packs 32-bit words; got dtype {band.dtype} "
+            f"(itemsize {band.element_size()})")
+    bits = band.contiguous().view(torch.int32).to(torch.int64)
+    return (bits.sum() % 2**32).reshape((1,))
+
+
+def dma_slab_bytes(shape, depth: int, dim: int, itemsize: int = 4, *,
+                   n_fields: int = 3) -> Tuple[int, int]:
+    """``(staged_send, recv)`` bytes of the reference's remote-DMA slabs for
+    one phase over a `shape` shard: per-hop ``(n_fields, 2 sides) x
+    (cnt planes/rows)`` staging slabs and ``n_fields x 2 sides x 2 slots``
+    of the depth band. The port's kernel keeps only the recv slabs
+    (`BandSlabs`); it stores straight from the field, with no staging."""
+    other = 1
+    for d, s in enumerate(shape):
+        if d != dim:
+            other *= s
+    staged = sum(n_fields * 2 * cnt * other * itemsize
+                 for _, cnt, _, _ in _band_schedule(shape[dim], depth))
+    recv = n_fields * 2 * 2 * depth * other * itemsize
+    return staged, recv
+
+
+class BandMessage(NamedTuple):
+    """One band of one exchange: `cnt` planes/rows of `field` from
+    `sender`'s field at `src_lo` into `receiver`'s recv slab of `side`
+    (0 = hi, from the predecessor; 1 = lo, from the successor) at
+    halo-local offset `dst_off`, hop `k`."""
+    sender: int
+    receiver: int
+    field: int
+    side: int
+    k: int
+    cnt: int
+    src_lo: int
+    dst_off: int
+
+
+def band_messages(mesh, axis: str, L: int,
+                  depth: int) -> List[BandMessage]:
+    """Every message of one exchange along `axis`, per sender in
+    `mesh.devices` order, then field, hop and side: the reference's
+    `_kernel_band_dma` loop. Side 0: my tail to the k-away successor's hi
+    slab; side 1: my head to the k-away predecessor's lo slab."""
+    n = mesh.axis_size(axis)
+    msgs = []
+    for s in range(len(mesh.devices)):
+        me = mesh.coords(s)
+        for f in range(3):
+            for k, cnt, hi_off, lo_off in _band_schedule(L, depth):
+                fwd = mesh.index(dma_neighbor_coords(mesh.axis_names, me,
+                                                     axis, k, n))
+                bwd = mesh.index(dma_neighbor_coords(mesh.axis_names, me,
+                                                     axis, -k, n))
+                msgs.append(BandMessage(s, fwd, f, 0, k, cnt, L - cnt,
+                                        hi_off))
+                msgs.append(BandMessage(s, bwd, f, 1, k, cnt, 0,
+                                        lo_off - (depth + L)))
+    return msgs
+
+
+class BandSlabs:
+    """The state of one K7 phase on a mesh that lasts from block to block.
+
+    Per shard, on its device: the double-buffered recv slab ``(2,) +
+    band_shape`` of each field and side (`slabs[shard][field][side]`), and
+    three u64 words ``[barrier, arrivals, error]`` (`words[shard]`). The
+    words count monotone epochs, one per exchange (`epoch`), so no exchange
+    resets them. `fill` initialises the slabs (a slot no exchange wrote
+    keeps it). `check()` raises when a kernel set an error word."""
+
+    def __init__(self, mesh, shape, depth: int, dim: int, *,
+                 fill: float = 0.0):
+        self.shape, self.depth, self.dim = tuple(shape), depth, dim
+        band = list(self.shape)
+        band[dim] = depth
+        self.band_shape = tuple(band)
+        self.devices = tuple(mesh.devices)
+        self.slabs = [[[torch.full((2,) + self.band_shape, fill,
+                                   dtype=torch.float32, device=dev)
+                        for _ in range(2)] for _ in range(3)]
+                      for dev in self.devices]
+        self.words = [torch.zeros(3, dtype=torch.int64, device=dev)
+                      for dev in self.devices]
+        self.epoch = 0
+
+    def matches(self, mesh, shape, depth: int, dim: int) -> bool:
+        return (tuple(mesh.devices) == self.devices
+                and tuple(shape) == self.shape and depth == self.depth
+                and dim == self.dim)
+
+    def check(self) -> None:
+        """Raise RuntimeError naming each shard whose kernel timed out."""
+        bad = {s: int(w[2]) for s, w in enumerate(self.words) if int(w[2])}
+        if bad:
+            why = "; ".join(
+                f"shard {s}: " + ", ".join(t for b, t in BAND_ERRORS.items()
+                                           if code & b)
+                for s, code in bad.items())
+            raise RuntimeError(f"band exchange failed after epoch "
+                               f"{self.epoch}: {why}")
+
+
+def _band_exchange_plain(fields, slabs: BandSlabs, msgs, slot: int,
+                         wire=None) -> None:
+    """Plain PyTorch version of K7: each message as a tensor copy into the
+    receiver's recv slab, slot `slot`, at its offset (the reference's
+    `_exchange_remote_dma_emulated`). `wire(msg, sent, received)` may
+    stand between send and receive (the integrity layer's checksum words
+    and fault hook) and returns the band that lands."""
+    dim = slabs.dim
+    for m in msgs:
+        sent = fields[m.sender][m.field].narrow(dim, m.src_lo, m.cnt)
+        dst = slabs.slabs[m.receiver][m.field][m.side][slot].narrow(
+            dim, m.dst_off, m.cnt)
+        got = sent.to(dst.device, copy=True)
+        if wire is not None:
+            got = wire(m, sent, got)
+        dst.copy_(got)
+
+
+_PEERS_ENABLED = set()
+
+
+def _enable_peers(pairs) -> None:
+    """Let each (card, peer) pair store into the peer's memory; raises when
+    the pair has no peer access (no route through a copy)."""
+    lib = _build.load()
+    for dev, peer in pairs:
+        if dev == peer or (dev, peer) in _PEERS_ENABLED:
+            continue
+        err = lib.band_exchange_enable_peer(dev, peer)
+        if err == -1:
+            raise RuntimeError(f"cuda:{dev} cannot access cuda:{peer}'s "
+                               f"memory (cudaDeviceCanAccessPeer is 0): the "
+                               f"band exchange stores across cards directly")
+        _build.check(err, "band_exchange_enable_peer")
+        _PEERS_ENABLED.add((dev, peer))
+
+
+def _ptr_array(values, ctype=ctypes.c_void_p):
+    return (ctype * len(values))(*values)
+
+
+def _band_exchange_cuda(fields, slabs: BandSlabs, msgs, slot: int,
+                        hops: int) -> None:
+    """Launch K7 (`csrc/band_exchange.cu`): per shard an enter, a put and
+    a wait kernel on its device's current stream, every enter issued before
+    any put and every put before any wait."""
+    if hops > BAND_MAX_HOPS:
+        raise ValueError(
+            f"the band exchange kernel's message table holds "
+            f"{BAND_MAX_HOPS} hops; depth {slabs.depth} over "
+            f"{slabs.shape[slabs.dim]} planes/rows needs {hops}")
+    lib = _build.load()
+    devs = slabs.devices
+    _enable_peers({(devs[m.sender].index, devs[m.receiver].index)
+                   for m in msgs})
+    dim, depth = slabs.dim, slabs.depth
+    A, B, C = slabs.shape
+    runs, inner = (1, B * C) if dim == 0 else (A, C)
+    src_stride, dst_stride = B * C, depth * C
+    itemsize = 4
+    n_msgs = 6 * hops
+    vecs = max(m.cnt for m in msgs) * inner * runs // 4
+    blocks = min(BAND_MAX_BLOCKS, max(1, -(-vecs // (BAND_THREADS
+                                                     * BAND_VECS_PER_THREAD))))
+    slabs.epoch += 1
+    barrier_want = slabs.epoch * 2 * hops
+    arrive_want = slabs.epoch * n_msgs * blocks
+    per_sender = [[] for _ in devs]
+    for m in msgs:
+        per_sender[m.sender].append(m)
+
+    def ptr(t):
+        return t.data_ptr()
+
+    def word(shard, i):
+        return ptr(slabs.words[shard]) + 8 * i
+
+    launches = []
+    for s, mine in enumerate(per_sender):
+        srcs, dsts = [], []
+        for m in mine:
+            slab = slabs.slabs[m.receiver][m.field][m.side][slot]
+            srcs.append(ptr(fields[s][m.field]) + m.src_lo * inner * itemsize)
+            dsts.append(ptr(slab) + m.dst_off * inner * itemsize)
+        vec4 = inner % 4 == 0 and all(p % 16 == 0 for p in srcs + dsts)
+        launches.append((s, mine, srcs, dsts, vec4))
+    for s, mine, _, _, _ in launches:
+        dev = devs[s]
+        with torch.cuda.device(dev):
+            partners = _ptr_array([word(m.receiver, 0) for m in mine
+                                   if m.field == 0])
+            err = lib.band_exchange_enter(
+                ctypes.addressof(partners), len(partners),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "band_exchange_enter")
+    for s, mine, srcs, dsts, vec4 in launches:
+        dev = devs[s]
+        with torch.cuda.device(dev):
+            arr = [_ptr_array(srcs), _ptr_array(dsts),
+                   _ptr_array([word(m.receiver, 1) for m in mine]),
+                   _ptr_array([m.cnt for m in mine], ctypes.c_int)]
+            err = lib.band_exchange_put(
+                *(ctypes.addressof(a) for a in arr), n_msgs, blocks, runs,
+                inner, src_stride, dst_stride, int(vec4), word(s, 0),
+                barrier_want, BAND_TIMEOUT_NS,
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "band_exchange_put")
+        LAUNCHES["band_exchange"] += 1
+    for s in range(len(devs)):
+        dev = devs[s]
+        with torch.cuda.device(dev):
+            err = lib.band_exchange_wait(
+                word(s, 0), arrive_want, BAND_TIMEOUT_NS,
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "band_exchange_wait")
+
+
+def _check_band_fields(fields, mesh) -> Tuple[int, ...]:
+    if len(fields) != len(mesh.devices):
+        raise ValueError(f"{len(fields)} shards given for a mesh of "
+                         f"{len(mesh.devices)}")
+    shape = None
+    for s, (trio, dev) in enumerate(zip(fields, mesh.devices)):
+        if len(trio) != 3:
+            raise ValueError(f"shard {s} holds {len(trio)} fields, not "
+                             f"(u, v, w)")
+        _check_fields(*trio, 3, "(X, Y, Z)")
+        if trio[0].device != dev:
+            raise ValueError(f"shard {s} lies on {trio[0].device}, the mesh "
+                             f"puts it on {dev}")
+        if shape is None:
+            shape = tuple(trio[0].shape)
+        elif tuple(trio[0].shape) != shape:
+            raise ValueError(f"shard {s} has shape {tuple(trio[0].shape)}, "
+                             f"shard 0 {shape}")
+    return shape
+
+
+def halo_band_exchange_dma(fields, *, mesh, axis: str, depth: int, dim: int,
+                           block_index: int = 0,
+                           slabs: Optional[BandSlabs] = None, wire=None):
+    """Exchange depth-`depth` boundary bands of three fields along mesh
+    axis `axis`, each shard's bands stored from inside a kernel into its
+    ring neighbours' double-buffered recv slabs (K7).
+
+    `fields` holds one (u, v, w) of (X, Y, Z) float32 per shard, ordered
+    like `mesh.devices`. Returns, per shard, the reference's ``((u_hi,
+    u_lo), (v_hi, v_lo), (w_hi, w_lo))``: `hi` is the band from the ring
+    predecessors (global coordinates just below the shard), `lo` from the
+    successors, both views of slot ``block_index % 2`` of `slabs`, valid
+    until the exchange of block ``block_index + 2`` writes that slot again.
+    Multi-hop: when `depth` exceeds the local extent each side moves in
+    ceil(depth / L) messages (`_band_schedule`), each landing at its
+    offset.
+
+    `slabs` (a `BandSlabs` of this mesh, shape, depth and dim) carries the
+    recv slabs and counters from one block to the next; None makes fresh
+    ones. On CUDA shards this launches `csrc/band_exchange.cu` and the
+    caller reads `slabs.check()` once the stream has run (a spin past its
+    bound sets the error word); on CPU shards it runs the plain version,
+    `_band_exchange_plain`, whose `wire` hook the CUDA kernel does not
+    take."""
+    if dim not in (0, 1):
+        raise ValueError(f"dim must be 0 (x-planes) or 1 (y-rows), got {dim}")
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+    shape = _check_band_fields(fields, mesh)
+    mesh.axis_size(axis)
+    if slabs is None:
+        slabs = BandSlabs(mesh, shape, depth, dim)
+    elif not slabs.matches(mesh, shape, depth, dim):
+        raise ValueError(f"slabs for shape {slabs.shape}, depth "
+                         f"{slabs.depth}, dim {slabs.dim} on "
+                         f"{slabs.devices}; this exchange is {shape}, "
+                         f"{depth}, {dim} on {tuple(mesh.devices)}")
+    L = shape[dim]
+    msgs = band_messages(mesh, axis, L, depth)
+    slot = int(block_index) % 2
+    if fields[0][0].is_cuda:
+        if wire is not None:
+            raise ValueError("the band exchange kernel has no wire hook: "
+                             "checksums and fault injection ride the plain "
+                             "version (CPU shards) or the collective engine")
+        _band_exchange_cuda(fields, slabs, msgs, slot,
+                            len(_band_schedule(L, depth)))
+    else:
+        _band_exchange_plain(fields, slabs, msgs, slot, wire)
+    return [tuple((sl[f][0][slot], sl[f][1][slot]) for f in range(3))
+            for sl in slabs.slabs]

@@ -99,11 +99,12 @@ def _flash_attention_cuda(q, k, v, causal: bool, scale: float,
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_attention_fwd(
-        DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B, H, Hkv, Sq, Skv, D, block_q, block_k, int(causal),
-        scale, smem_bytes(block_q, block_k, D), stream)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_fwd(
+            DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), B, H, Hkv, Sq, Skv, D, block_q, block_k,
+            int(causal), scale, smem_bytes(block_q, block_k, D), stream)
     _build.check(err, "flash_attention_fwd")
     LAUNCHES["flash_attention"] += 1
     return out

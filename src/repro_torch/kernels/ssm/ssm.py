@@ -87,13 +87,14 @@ def _selective_scan_cuda(xc, dt, Bmat, Cmat, A, h0, chunk: int):
     N = Bmat.shape[-1]
     y = torch.empty((B, S, D), dtype=torch.float32, device=xc.device)
     hout = torch.empty((B, D, N), dtype=torch.float32, device=xc.device)
-    stream = torch.cuda.current_stream(xc.device).cuda_stream
-    err = lib.selective_scan_fwd(
-        int(x_type == torch.bfloat16), int(dt_type == torch.bfloat16),
-        xc.data_ptr(), dt.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(),
-        A.data_ptr(), h0.data_ptr(), y.data_ptr(), hout.data_ptr(),
-        B, S, D, N, chunk,
-        smem_bytes(chunk, N, xc.element_size(), dt.element_size()), stream)
+    with torch.cuda.device(xc.device):
+        stream = torch.cuda.current_stream(xc.device).cuda_stream
+        err = lib.selective_scan_fwd(
+            int(x_type == torch.bfloat16), int(dt_type == torch.bfloat16),
+            xc.data_ptr(), dt.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(),
+            A.data_ptr(), h0.data_ptr(), y.data_ptr(), hout.data_ptr(),
+            B, S, D, N, chunk,
+            smem_bytes(chunk, N, xc.element_size(), dt.element_size()), stream)
     _build.check(err, "selective_scan_fwd")
     LAUNCHES["selective_scan"] += 1
     return y, hout

@@ -6,8 +6,12 @@ baseline), v1 `blocked`, v2 `dataflow`, v3 `wide` and v4 `fused` (T Euler
 steps per pass over device memory). The stratus-cloud
 initialisation mirrors the paper's MONC case sizes (Fig. 8: 1M .. 268M grid
 points at z=64) and produces the same bytes as the reference package's.
-Mesh, exchange, batch and serving accounting wait for the slices that port
-those paths.
+A (mesh_nx, mesh_ny) configuration also prices the 2D-decomposed
+distributed step (`stencil.distributed`): the per-shard pass, the depth-T
+exchange's wire bytes and, through `exchange` / `overlap` / `n_blocks`, how
+much of that exchange the engine hides behind the interior pass
+(`roofline_terms().collective_exposed_s`). Batch and serving accounting
+wait for the slice that ports that tier.
 """
 from __future__ import annotations
 
@@ -75,8 +79,22 @@ class AdvectionDomain:
                                       # "host": the retained host tile loop
     fuse_update: bool = False         # v1-v3: fold f + dt*s into the kernel
     dt: float = 1.0
+    mesh_nx: int = 1                  # 2D (x, y) mesh shape, for the
+    mesh_ny: int = 1                  # per-shard accounting below (step()
+                                      # stays single-shard; the mesh runs
+                                      # through stencil.distributed)
+    exchange: str = "collective"      # halo-band engine and interior /
+    overlap: bool = False             # boundary split, for the overlap
+                                      # accounting below
+    n_blocks: int = 1                 # substep-blocks per pipelined
+                                      # make_distributed_run (1 = a step)
 
     def __post_init__(self):
+        if self.exchange not in ("collective", "remote_dma"):
+            raise ValueError(f"exchange must be 'collective' or "
+                             f"'remote_dma', got {self.exchange!r}")
+        if self.n_blocks < 1:
+            raise ValueError(f"n_blocks must be >= 1, got {self.n_blocks}")
         if self.variant not in VARIANTS:
             raise ValueError(f"variant must be one of {VARIANTS}, got "
                              f"{self.variant!r}")
@@ -154,16 +172,87 @@ class AdvectionDomain:
     def _model_variant(self) -> str:
         return "pointwise" if self.variant == "reference" else self.variant
 
+    def _hbm_bytes_pass(self, X: int, Y: int) -> int:
+        return K.hbm_bytes_model(
+            X, Y, self.Z, self.itemsize, self._model_variant(),
+            T=self.substeps_per_step(), y_tile=self.run_y_tile,
+            grid_tiled=self.tiling == "grid",
+            fuse_update=self.variant == "fused" or self.fuse_update)
+
     def hbm_bytes_per_step(self) -> int:
         """Modelled device-memory bytes per step() call (fused: per T-step
         pass) on the configured path: in-grid or host tiling, and the Euler
         update in the kernel (`fused`, `fuse_update`) or as a separate
         `f + dt*s` pass (always separate for `reference`)."""
-        return K.hbm_bytes_model(
-            self.X, self.Y, self.Z, self.itemsize, self._model_variant(),
-            T=self.substeps_per_step(), y_tile=self.run_y_tile,
-            grid_tiled=self.tiling == "grid",
-            fuse_update=self.variant == "fused" or self.fuse_update)
+        return self._hbm_bytes_pass(self.X, self.Y)
+
+    def shard_shape(self) -> Tuple[int, int]:
+        """Owned (Xl, Yl) per-shard dims on the (mesh_nx, mesh_ny) mesh."""
+        if self.mesh_nx < 1 or self.mesh_ny < 1:
+            raise ValueError(f"mesh shape must be >= 1, got "
+                             f"({self.mesh_nx}, {self.mesh_ny})")
+        if self.X % self.mesh_nx or self.Y % self.mesh_ny:
+            raise ValueError(
+                f"grid ({self.X}, {self.Y}) not divisible by mesh "
+                f"({self.mesh_nx}, {self.mesh_ny}); the mesh requires even "
+                "shards")
+        return self.X // self.mesh_nx, self.Y // self.mesh_ny
+
+    def hbm_bytes_per_shard_step(self) -> int:
+        """Per-shard device-memory bytes per step(): the pass over the
+        halo'd (Xl+2T, Yl+2T, Z) slab the distributed step streams."""
+        Xl, Yl = self.shard_shape()
+        T = self.substeps_per_step()
+        return self._hbm_bytes_pass(Xl + (2 * T if self.mesh_nx > 1 else 0),
+                                    Yl + (2 * T if self.mesh_ny > 1 else 0))
+
+    def halo_wire_bytes_per_step(self) -> int:
+        """Per-shard wire bytes of the one depth-T exchange a distributed
+        step performs (zero on a 1x1 mesh)."""
+        return R.halo_wire_bytes_model(self.X, self.Y, self.Z, self.itemsize,
+                                       nx=self.mesh_nx, ny=self.mesh_ny,
+                                       T=self.substeps_per_step())
+
+    def _interior_fraction(self) -> float:
+        Xl, Yl = self.shard_shape()
+        return R.interior_compute_fraction(Xl, Yl, self.substeps_per_step(),
+                                           nx=self.mesh_nx, ny=self.mesh_ny)
+
+    def overlap_efficiency(self) -> float:
+        """Modelled fraction of the exchange the configured engine hides
+        behind the interior pass (`roofline.overlap_efficiency_model`);
+        0.0 on a 1x1 mesh or with overlap=False."""
+        if self.mesh_nx * self.mesh_ny == 1:
+            return 0.0
+        return R.overlap_efficiency_model(
+            overlap=self.overlap, exchange=self.exchange,
+            interior_fraction=self._interior_fraction())
+
+    def pipeline_efficiency(self) -> float:
+        """Per-block hidden fraction over an `n_blocks`-block pipelined run
+        (`roofline.pipeline_efficiency_model`); 0.0 on a 1x1 mesh."""
+        if self.mesh_nx * self.mesh_ny == 1:
+            return 0.0
+        return R.pipeline_efficiency_model(
+            n_blocks=self.n_blocks, overlap=self.overlap,
+            exchange=self.exchange,
+            interior_fraction=self._interior_fraction())
+
+    def roofline_terms(self, *, loopback: bool = False) -> R.RooflineTerms:
+        """Three-term roofline of one distributed step() on the configured
+        mesh: the exchange's wire bytes feed `collective_s` (over NVLink,
+        or device memory on a `loopback` mesh whose shards share one card),
+        split into hidden and exposed seconds by the engine's overlap
+        efficiency (the pipelined per-block one when n_blocks > 1)."""
+        n_dev = self.mesh_nx * self.mesh_ny
+        eff = (self.pipeline_efficiency() if self.n_blocks > 1
+               else self.overlap_efficiency())
+        return R.RooflineTerms(
+            flops_per_dev=self.flops_per_step() / n_dev,
+            hbm_bytes_per_dev=self.hbm_bytes_per_shard_step(),
+            wire_bytes=self.halo_wire_bytes_per_step(),
+            wire_bw=R.LOOPBACK_BW if loopback else R.NVLINK_BW,
+            n_chips=n_dev, overlap_efficiency=eff)
 
     def vmem_halo_bytes_per_step(self) -> int:
         """Halo re-read bytes served from the on-chip slab by the in-grid

@@ -359,3 +359,91 @@ def test_ssm_model_pallas_equals_chunked_on_the_card(cuda):
     assert TS.LAUNCHES["selective_scan"] == before + cfg.n_layers
     fc = TM.forward(params, {"inputs": toks}, cfg, layout)[0]
     assert float((fp - fc).abs().max()) < 1e-3
+
+
+# --- the band exchange (K7) on a loopback mesh -------------------------------
+
+K7_CASES = [  # nx, ny, axis, dim, shape, depth
+    (1, 2, "y", 1, (5, 6, 8), 2), (2, 1, "x", 0, (4, 6, 8), 3),
+    (2, 2, "x", 0, (4, 6, 8), 1), (2, 2, "y", 1, (6, 4, 12), 4),
+    (1, 4, "y", 1, (5, 3, 4), 7), (3, 1, "x", 0, (3, 5, 6), 7),
+    (2, 2, "y", 0, (6, 5, 5), 2)]
+
+
+def loopback_cuda(nx, ny):
+    from repro_torch.launch.mesh import make_stencil_mesh
+    return make_stencil_mesh(nx, ny, devices=["cuda:0"] * (nx * ny))
+
+
+@pytest.mark.parametrize("nx,ny,axis,dim,shape,depth", K7_CASES)
+def test_band_exchange_kernel_equals_plain_bitwise(cuda, nx, ny, axis, dim,
+                                                   shape, depth):
+    """Four blocks on the same slabs and counters, both parities: every
+    slab == the plain version's bit for bit, the slot a block did not
+    write keeps its fill, no error word is set."""
+    mesh = loopback_cuda(nx, ny)
+    got = TK.BandSlabs(mesh, shape, depth, dim, fill=-3.5)
+    want = TK.BandSlabs(mesh, shape, depth, dim, fill=-3.5)
+    for block in range(4):
+        shards = [fields(shape, 10 * block + s, cuda)
+                  for s in range(nx * ny)]
+        before = TK.LAUNCHES["band_exchange"]
+        TK.halo_band_exchange_dma(shards, mesh=mesh, axis=axis, depth=depth,
+                                  dim=dim, block_index=block, slabs=got)
+        assert TK.LAUNCHES["band_exchange"] == before + nx * ny
+        msgs = TK.band_messages(mesh, axis, shape[dim], depth)
+        TK._band_exchange_plain(shards, want, msgs, block % 2)
+        torch.cuda.synchronize()
+        got.check()
+        assert got.epoch == block + 1
+        for a, b in zip(got.slabs, want.slabs):
+            for fa, fb in zip(a, b):
+                for sa, sb in zip(fa, fb):
+                    assert torch.equal(sa, sb)
+                    if block == 0:
+                        assert bool((sa[1] == -3.5).all())
+
+
+def test_distributed_step_on_the_card_equals_cpu(cuda):
+    """A (2, 2) loopback mesh on the card: remote_dma (K7 + K1) ==
+    collective == the CPU plain versions, bitwise; both integrity knobs
+    are refused with remote_dma, as K7 carries neither."""
+    from repro_torch.stencil import distributed as TD
+    mesh = loopback_cuda(2, 2)
+    cpu_mesh = type(mesh)((2, 2), (torch.device("cpu"),) * 4)
+    u, v, w = fields((8, 12, 16), 4, "cpu")
+    p = TREF.default_params(16, device="cpu")
+    outs = []
+    for m, ex in ((mesh, "remote_dma"), (mesh, "collective"),
+                  (cpu_mesh, "remote_dma")):
+        run = TD.make_distributed_run(m, p, n_blocks=3, T=2, dt=DT,
+                                      exchange=ex, overlap=True,
+                                      local_kernel="fused")
+        outs.append([f.cpu() for f in TD.gather(m, run(TD.shard(m, u, v,
+                                                                  w)))])
+    assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
+    assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[2]))
+    with pytest.raises(RuntimeError, match="checksum channel"):
+        TD.make_distributed_step(mesh, p, exchange="remote_dma",
+                                 verify_integrity=True)
+    with pytest.raises(RuntimeError, match="injection hook"):
+        TD.make_distributed_step(mesh, p, exchange="remote_dma",
+                                 corrupt_halo=(0, 1, 0.0))
+
+
+def test_kernels_launch_on_the_cards_of_their_tensors(cuda):
+    """On a card other than the current one, K1 and K4 launch there (the
+    wrapper makes that card current around its launch) and equal their
+    plain versions bitwise."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second card")
+    dev = "cuda:1"
+    u, v, w = fields((6, 10, 12), 3, dev)
+    p = TREF.default_params(12, device=dev)
+    got = TK.advect_fused(u, v, w, p, T=2, dt=DT, y_tile=4)
+    plain = TK._advect_fused_plain(u[None], v[None], w[None], p, 2, DT,
+                                   torch.ones(6, device=dev),
+                                   torch.ones(10, device=dev))
+    torch.cuda.synchronize(dev)
+    assert all(torch.equal(a, b[0]) for a, b in zip(got, plain))
+    assert torch.equal(TK.finite_guard(*got), TK._finite_guard_plain(*got))
