@@ -9,17 +9,20 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 1. holds each kernel against its plain PyTorch version on the card at small
    shapes: fused ring == plain (bitwise), tiled == untiled, x/y interior
    masks, batched (per-slot params and masks, one padded smaller request)
-   == sequential, finite-guard flags with planted NaN/Inf, guarded ==
-   unguarded outputs, and the fused ring against the f64 oracle; then the
+   == sequential, T beyond K1's build (several passes) and rows cut into z
+   chunks == plain (bitwise), finite-guard flags with planted NaN/Inf,
+   guarded == unguarded outputs, and the fused ring against the f64
+   oracle; then the
    v1-v3 rungs: blocked (K3) and dataflow (K2) == plain for sources and
    `fuse_update`, tiled == untiled, K2 == K3, host tiling == grid for every
    rung and the fused ring, wide == dataflow, wide's refusal at Z = 10;
 2. drives the main path at the paper's 67M grid (1024, 1024, 64):
    `AdvectionDomain(variant="fused", fuse_T=4).advance(..., 16)` (four
-   fused launches) and `finite_guard` on the result, with the launch counts
-   set to 0 just before and read just after; checks the result against the
-   plain version on the card (bitwise), the frozen boundary planes and the
-   guard flags;
+   fused launches, each on K1's own launch plan, printed with the card's
+   registers, spills and resident blocks for it) and `finite_guard` on the
+   result, with the launch counts set to 0 just before and read just after;
+   checks the result against the plain version on the card (bitwise), the
+   frozen boundary planes and the guard flags;
 3. drives the Fig. 3 ladder path at the same grid: for each of `blocked`,
    `dataflow` and `wide`, with and without `fuse_update`,
    `AdvectionDomain(variant=...).advance(..., 4)`, the counts set to 0 just
@@ -38,8 +41,11 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    velocities == PW, within `ORACLE_TOL` of the f64 oracle;
 6. times each kernel with CUDA events (median of 20 after warm-up) beside
    its bound, the least time the card could take for the same work, each
-   rung's Euler step through the domain beside K1's pass over T, and each
-   spec operator's pass ("spec path on the card" lines);
+   rung's Euler step through the domain beside K1's pass over T (and
+   whether the fused rung's step beats v2's), a short sweep of K1's launch
+   plans at 67M (y-tiles x x-chunks, each output == the planned one
+   bitwise), and each spec operator's pass ("spec path on the card"
+   lines);
 7. holds flash attention (K8) against its plain version at small shapes:
    the reference's `CASES` and block shapes, bf16 and f32, causal and not,
    Sq != Skv both ways and the serving path's prompt lengths, within one
@@ -238,6 +244,10 @@ SSM_PREFILL_BF16_REL_TOL = 0.03  # x max |chunked logit|; PERF.md: written
                                  # before the first chip run
 SCAN_TIMED = (1, 2048, 8192, 16, 256)   # B, S, D, N, chunk: x, B, C bf16,
                                         # dt f32 (the 2048-token prefill)
+# K1's launch-plan sweep at the main grid: y_tile (None = K1's own) by the
+# plan's x chunk and these
+K1_SWEEP_TILES = (None, 4, 16)
+K1_SWEEP_CHUNKS = (64, 256, 1024)
 # the band exchange (K7): loopback meshes on the one card, both dims, depth
 # 1 to multi-hop (L = 3 with depth 7: three hops a side)
 BAND_CASES = (  # nx, ny, axis, dim, shard shape, depth
@@ -346,6 +356,30 @@ def small_shape_phase(check: Checks) -> None:
     tiled = K.advect_fused(u, v, w, p, T=T, dt=DT, y_tile=4,
                            x_interior_mask=xm, y_interior_mask=ym)
     check(same(tiled, masked), "K1 masked tiled == untiled")
+    # T beyond the build runs as passes; rows too wide for one block, and
+    # z chunks forced on a narrow one, run in z windows
+    X, Y, Z = SMALL_SHAPES[1]
+    u, v, w = rand_fields((X, Y, Z), seed=9)
+    p = REF.default_params(Z, device="cuda")
+    for T in (10, 14):
+        check(same(K.advect_fused(u, v, w, p, T=T, dt=DT, y_tile=5),
+                   plain_fused(u, v, w, p, T)),
+              f"K1 at T={T} ({K.fused_passes(T)} passes) == plain")
+    rest = (K._slot_params(p, 1, Z, "cuda"), 4, DT,
+            torch.ones(X, device="cuda"), torch.ones(Y, device="cuda"))
+    for CZ in (1, 3, 5):
+        plan = K.fused_plan_with_chunks(k1_plan((X, Y, Z), 4, 4), X, Z, 4,
+                                        CX=3, CZ=CZ)
+        got = K._advect_fused_cuda(u[None], v[None], w[None], *rest,
+                                   plan=plan)
+        check(same((g[0] for g in got), plain_fused(u, v, w, p, 4)),
+              f"K1 in z chunks of {CZ} == plain")
+    u, v, w = rand_fields((6, 3, 700), seed=10)
+    p = REF.default_params(700, device="cuda")
+    check(k1_plan((6, 3, 700), 1).n_cz > 1
+          and same(K.advect_fused(u, v, w, p, T=1, dt=DT),
+                   plain_fused(u, v, w, p, 1)),
+          "K1 on rows of 700 (planned z chunks) == plain")
     batched_phase(check)
     guard_phase(check)
     ladder_small_phase(check)
@@ -520,11 +554,9 @@ def main_path_phase(check: Checks):
     launches = dict(K.LAUNCHES)
     path = ("advect_fused", "finite_guard")
     print(f"main path: {MAIN_GRID} grid {(X, Y, Z)}, advance({MAIN_SUBSTEPS})"
-          f" with fuse_T={MAIN_T}, y_tile={dom.run_y_tile} "
-          f"({K._grid_geometry(Y, dom.run_y_tile, MAIN_T)[2]} blocks on "
-          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs)"
-          f", ring {dom.vmem_register_bytes()} B; wall {wall:.3f} s; "
-          f"launches {launches}", flush=True)
+          f" with fuse_T={MAIN_T}, y_tile={dom.run_y_tile} (K1 plans: "
+          f"{k1_plan_text(k1_plan((X, Y, Z), MAIN_T))}); wall {wall:.3f} s;"
+          f" launches {launches}", flush=True)
     for name, n in launches.items():
         check((n > 0) == (name in path),
               f"{name} launched {n} times on the main path")
@@ -546,6 +578,24 @@ def main_path_phase(check: Checks):
                 for a, b in zip(out, (u0, v0, w0)))
     check(moved > 0.0, f"the fields moved (max change {moved:.3e})")
     return dom, (u0, v0, w0), out, launches, k1_err, k4_err
+
+
+def k1_plan(shape, T, y_tile=None):
+    """K1's launch plan on cuda:0 for one (X, Y, Z) domain, as its wrapper
+    makes it."""
+    return K.fused_device_plan("cuda:0", *shape, T, 1, y_tile)
+
+
+def k1_plan_text(plan, T=MAIN_T) -> str:
+    a = K.fused_kernel_attrs("cuda:0", T, plan)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (f"TY={plan.TY} (slab {plan.S} rows), CX={plan.CX}, "
+            f"CZ={plan.CZ} (window {plan.W}, {plan.n_cz} z chunks), "
+            f"{plan.grid[0] * plan.grid[1]} blocks of {plan.threads} threads"
+            f" x {plan.cells_per_thread} cells on {sms} SMs, "
+            f"{a['blocks_per_sm']} resident per SM, {plan.shared_bytes} B "
+            f"shared, {a['registers']} registers, {a['local_bytes']} B "
+            f"spilled per thread")
 
 
 def frozen_edges(f0, fT) -> bool:
@@ -602,14 +652,14 @@ def ladder_path_phase(check: Checks, fields):
     return results
 
 
-def timing_phase(dom, fields, out, launches, k1_err, k4_err, ladder):
+def timing_phase(check: Checks, dom, fields, out, launches, k1_err, k4_err,
+                 ladder):
     X, Y, Z = dom.X, dom.Y, dom.Z
     u, v, w = fields
     p, T, cells = dom.params, dom.fuse_T, X * Y * Z
     ones_x = torch.ones(X, device="cuda")
     ones_y = torch.ones(Y, device="cuda")
-    k1_ms = time_ms(lambda: K.advect_fused(u, v, w, p, T=T, dt=DT,
-                                           y_tile=dom.run_y_tile))
+    k1_ms = time_ms(lambda: K.advect_fused(u, v, w, p, T=T, dt=DT))
     k1_plain = time_ms(lambda: K._advect_fused_plain(
         u[None], v[None], w[None], p, T, DT, ones_x, ones_y), runs=10)
     k4_ms = time_ms(lambda: K.finite_guard(*out))
@@ -622,6 +672,16 @@ def timing_phase(dom, fields, out, launches, k1_err, k4_err, ladder):
                   + 6 * cells)
     k4_bytes = R.guard_bytes_model(X, Y, Z)
     k4_ops = 3 * cells
+    k1_dev = profiled_device_ms(
+        lambda: K.advect_fused(u, v, w, p, T=T, dt=DT), "advect_ring_kernel",
+        ("cuda:0",), 10)
+    dev = (f"{k1_dev:.4f} ms per pass (torch.profiler, 10 passes; "
+           f"{bound_of(k1_bytes, k1_ops)[0] / k1_dev:.4f} of the bound)"
+           if k1_dev > 0 else "not measured")
+    print(f"advect_fused plan at {(X, Y, Z)}, T={T}: "
+          f"{k1_plan_text(k1_plan((X, Y, Z), T), T)}; the kernel's device "
+          f"time {dev} against {k1_ms:.4f} ms by events around the whole "
+          f"call", flush=True)
     records = [
         kernel_record("advect_fused", k1_ms, k1_plain, k1_bytes, k1_ops,
                       launches["advect_fused"], k1_err),
@@ -659,7 +719,53 @@ def timing_phase(dom, fields, out, launches, k1_err, k4_err, ladder):
     ladder_line(f"fused T={T} (K1 pass / T)", k1_ms / T,
                 dom.hbm_bytes_per_step() / T,
                 bound_of(k1_bytes, k1_ops)[0] / T)
+    v2 = AdvectionDomain(X, Y, Z, variant="dataflow", fuse_update=True,
+                         dt=DT, device="cuda")
+    v2_ms = time_ms(lambda: v2.step(u, v, w))
+    v4_ms = time_ms(lambda: dom.step(u, v, w)) / T
+    print(f"Fig. 3 ladder on the card: fused T={T} {v4_ms:.4f} ms per Euler "
+          f"step (domain step / T) against dataflow fuse_update=True "
+          f"{v2_ms:.4f}: the fused rung "
+          f"{'beats' if v4_ms < v2_ms else 'does not beat'} v2 "
+          f"({v2_ms / v4_ms:.3f}x)", flush=True)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dom.advance(u, v, w, MAIN_SUBSTEPS)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"main path: advance({MAIN_SUBSTEPS}) {statistics.median(walls):.4f}"
+          f" ms of wall time (median of 5 after the checked run; "
+          f"{MAIN_SUBSTEPS // T} K1 passes back to back)", flush=True)
+    k1_sweep(check, u, v, w, p, T, k1_bytes, k1_ops)
     return records
+
+
+def k1_sweep(check: Checks, u, v, w, p, T, nbytes, ops) -> None:
+    """K1's launch plans at the main grid: y-tiles by x-chunk lengths, each
+    timed (median of 10) and its output held against the planned one."""
+    X, Y, Z = u.shape
+    fields = [f[None] for f in (u, v, w)]
+    rest = (K._slot_params(p, 1, Z, "cuda"), T, DT,
+            torch.ones(X, device="cuda"), torch.ones(Y, device="cuda"))
+
+    def run(plan=None):
+        return K._advect_fused_cuda(*fields, *rest, plan=plan)
+
+    want = run()
+    bound = bound_of(nbytes, ops)[0]
+    for y_tile in K1_SWEEP_TILES:
+        base = k1_plan((X, Y, Z), T, y_tile)
+        for CX in dict.fromkeys((base.CX,) + K1_SWEEP_CHUNKS):
+            plan = K.fused_plan_with_chunks(base, X, Z, T, CX=CX)
+            tag = " (K1's own plan)" if y_tile is None and CX == base.CX \
+                else ""
+            check(same(run(plan), want), f"K1 plan TY={plan.TY} "
+                  f"CX={plan.CX} == the planned output, bitwise{tag}")
+            ms = time_ms(lambda: run(plan), runs=10)
+            print(f"K1 plan sweep: {k1_plan_text(plan, T)}: {ms:.4f} ms per "
+                  f"pass, {bound / ms:.4f} of the bound{tag}", flush=True)
 
 
 def bound_of(nbytes: int, ops: int):
@@ -1242,18 +1348,25 @@ def k7_host_and_device_ms(call, mesh, runs: int = 20):
         host.append((time.perf_counter() - t0) * 1e3)
         for dev in set(mesh.devices):
             torch.cuda.synchronize(dev)
+    dev_ms = profiled_device_ms(call, "band_", set(mesh.devices), runs)
+    device = f"{dev_ms:.4f} ms" if dev_ms > 0 else "not measured"
+    return statistics.median(host), device
+
+
+def profiled_device_ms(call, match: str, devices, runs: int) -> float:
+    """The device time per call of the kernels whose name holds `match`,
+    summed by `torch.profiler` over `runs` calls (0.0 where the profiler
+    sees no device time)."""
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=act) as prof:
         for _ in range(runs):
             call()
-        for dev in set(mesh.devices):
+        for dev in devices:
             torch.cuda.synchronize(dev)
     dev_us = sum(getattr(e, "device_time_total", 0.0)
-                 for e in prof.key_averages() if "band_" in e.key)
-    device = (f"{dev_us / runs / 1e3:.4f} ms" if dev_us > 0
-              else "not measured")
-    return statistics.median(host), device
+                 for e in prof.key_averages() if match in e.key)
+    return dev_us / runs / 1e3
 
 
 def band_timing(mesh, fields, launches: int, runs, card: str,
@@ -1727,7 +1840,7 @@ def main() -> int:
     dom, fields, out, launches, k1_err, k4_err = main_path_phase(check)
     ladder = ladder_path_phase(check, fields)
     spec_runs = spec_path_phase(check, fields)
-    records = timing_phase(dom, fields, out, launches, k1_err, k4_err,
+    records = timing_phase(check, dom, fields, out, launches, k1_err, k4_err,
                            ladder)
     probe = {"pw": REF.default_params(4, device="cpu"),
              "tracer": REF.default_params(4, device="cpu"),

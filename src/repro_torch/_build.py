@@ -35,8 +35,15 @@ SOURCES = ("advect_fused.cu", "finite_guard.cu", "advect_blocked.cu",
            "advect_dataflow.cu", "stencil_fused.cu", "flash_attention.cu",
            "selective_scan.cu", "band_exchange.cu")
 HEADERS = ("pw_source.cuh", "stencil_ops.cuh")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# K1 (`csrc/advect_fused.cu`) is built for T in 1..K1_MAX_T, by cells per
+# thread: the threads per block each build runs (its launch bound). The
+# flags below hand both to the source; its launch planner reads them here.
+K1_MAX_T = 8
+K1_BUILDS = {2: 512, 4: 384, 8: 256}
+NVCC_FLAGS = (("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+               f"-DK1_MAX_T={K1_MAX_T}")
+              + tuple(f"-DK1_THREADS_C{c}={n}" for c, n in K1_BUILDS.items()))
 LIB_NAME = "librepro_torch_kernels.so"
 LOG_NAME = "nvcc.log"
 
@@ -44,7 +51,8 @@ _P, _I, _F, _LL, _ULL, _SZ = (ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_float, ctypes.c_longlong,
                               ctypes.c_ulonglong, ctypes.c_size_t)
 SIGNATURES = {
-    "advect_fused_f32": [_P] * 9 + [_I] * 11 + [_F, _SZ, _P],
+    "advect_fused_f32": [_P] * 9 + [_I] * 19 + [_F, _SZ, _P],
+    "advect_fused_attrs": [_I, _I, _I, _SZ, _P],
     "finite_guard_f32": [_P] * 4 + [_I, _I, _LL, _I, _P],
     "advect_blocked_f32": [_P] * 7 + [_I] * 7 + [_F, _SZ, _P],
     "advect_dataflow_f32": [_P] * 7 + [_I] * 9 + [_F, _SZ, _P],

@@ -29,15 +29,20 @@ The y-tile geometry is the reference's: tile t owns rows
 [t*TY, min((t+1)*TY, Y)) and streams a slab of S = TY + 2H rows clipped
 flush into the domain (H = 1 for v1-v3, T for v4), so every owned row keeps
 H rows of margin to a cut slab edge and tiled outputs equal untiled ones
-bitwise. A block keeps its slab in shared memory: 3 fields x 3 slices of
-S x Z floats for v1-v3, x T levels for v4. A tile whose slab exceeds
+bitwise. A v1-v3 or spec block keeps its slab in shared memory: 3 fields x
+3 slices of S x Z floats (x T levels for K6). A tile whose slab exceeds
 `roofline.SMEM_PER_BLOCK` cannot run; `largest_fitting_y_tile` picks one
-that does. `tiling="host"` is the reference's retained host-side tile loop
+that does. K1 keeps its ring in registers and only each level's centre
+plane in shared memory, and also cuts x, and z where a slab row does not
+fit one block, into chunks with a T-deep halo; `fused_launch_plan` sizes
+its tiles and chunks from its builds and the card's SM count.
+`tiling="host"` is the reference's retained host-side tile loop
 (`_y_tiled_host`): one call per halo'd block and a restitch.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -51,6 +56,10 @@ from repro_torch.launch.mesh import dma_neighbor_coords
 TILINGS = ("grid", "host")
 DATAFLOW_X_CHUNK = 32   # x-slices each dataflow/wide block streams
 MAX_GRID_Y = 65535      # CUDA's limit on a launch grid's second dimension
+MAX_GRID = (2 ** 31 - 1, MAX_GRID_Y, 65535)   # CUDA's limits on (x, y, z)
+# the slab cells a planned tile of K1 (`csrc/advect_fused.cu`) aims at; its
+# builds are `_build.K1_MAX_T` and `_build.K1_BUILDS`
+K1_PLAN_CELLS = 1024
 WIDE_ROW_RULE = ("wide moves each Z row as 16-byte vectors: Z * 4 bytes must "
                  "be a multiple of 16 (Z % 4 == 0), got Z={Z} ({row} B); use "
                  "dataflow for this Z")
@@ -167,6 +176,250 @@ def largest_fitting_y_tile(T: int, Y: int, Z: int, itemsize: int = 4,
             f"{fused_register_bytes(T, Y, Z, itemsize, 1, **knobs)} B")
     divisor = max(d for d in range(1, best + 1) if Y % d == 0)
     return divisor if 2 * divisor >= best else best
+
+
+class FusedPlan(NamedTuple):
+    """One launch of K1 (`csrc/advect_fused.cu`): y-tiles of TY owned rows
+    in slabs of S rows, z chunks of CZ owned cells in windows of W (one
+    chunk, W = Z, where a whole row fits), x chunks of CX owned slices, C
+    cells of a window row per thread (z = zt + q * ceil(W / C)), the shared
+    planes' row pitch, the launch grid ``(n_ty * n_cz * n_cx, B, 1)``, the
+    block's shared bytes and the resident blocks per SM the x split
+    assumed."""
+    TY: int
+    S: int
+    n_ty: int
+    CZ: int
+    W: int
+    n_cz: int
+    CX: int
+    n_cx: int
+    cells_per_thread: int
+    threads: int
+    pitch: int
+    grid: Tuple[int, int, int]
+    shared_bytes: int
+    blocks_per_sm: int
+
+
+class _FusedBlock(NamedTuple):
+    """The part of a `FusedPlan` that does not depend on X or the card."""
+    TY: int
+    S: int
+    n_ty: int
+    CZ: int
+    W: int
+    n_cz: int
+    C: int
+    threads: int
+    pitch: int
+    shared: int
+
+
+def check_launch_grid(grid, what: str) -> None:
+    """Raise ValueError naming CUDA's limit when a dimension of `grid` is
+    beyond it (2**31 - 1 for x, 65535 for y and z)."""
+    for axis, n, limit in zip("xyz", grid, MAX_GRID):
+        if n > limit:
+            raise ValueError(f"{what}: a launch grid of {n} blocks in {axis} "
+                             f"exceeds CUDA's limit of {limit} there")
+
+
+def fused_passes(T: int) -> List[int]:
+    """The depths of the K1 launches that advance T steps: one pass up to
+    `_build.K1_MAX_T`, else ceil(T / K1_MAX_T) passes of near-equal depth.
+    Each pass is T_k masked Euler steps, so the passes in turn are the T
+    steps, bitwise."""
+    if T < 1:
+        raise ValueError(f"T must be >= 1, got {T}")
+    n = -(-T // _build.K1_MAX_T)
+    return [T // n + (i < T % n) for i in range(n)]
+
+
+def fused_plane_pitch(W: int, C: int) -> int:
+    """Floats per row of K1's shared planes for a window of W cells: W, or
+    where a warp covers several rows of ``zs = ceil(W / C) < 32`` threads,
+    the least odd multiple of zs at least W, so that those rows fall on
+    different banks."""
+    zs = -(-W // C)
+    if zs >= 32 or 32 % zs:
+        return W
+    return (-(-W // zs) | 1) * zs
+
+
+def fused_shared_bytes(T: int, S: int, W: int, C: int) -> int:
+    """K1's shared memory for a slab of S rows and a window of W cells: the
+    window's z coefficients (2W floats), the double-buffered centre plane of
+    each level below T and field (S rows at `fused_plane_pitch`), and the
+    floats the last row's z +- 1 reads may reach past it."""
+    pitch = fused_plane_pitch(W, C)
+    tail = max(-(-W // C) * C + 1 - pitch, 0)
+    return 4 * (2 * W + 2 * T * 3 * S * pitch + tail)
+
+
+def _fused_threads(S: int, W: int, C: int) -> int:
+    """Threads of K1's block: S rows of ceil(W / C), in whole warps."""
+    return -(-S * -(-W // C) // 32) * 32
+
+
+def _fused_fits(T: int, S: int, W: int, C: int) -> bool:
+    return (_fused_threads(S, W, C) <= _build.K1_BUILDS[C]
+            and fused_shared_bytes(T, S, W, C) <= SMEM_PER_BLOCK)
+
+
+def _plan_y_tile(Y: int, Z: int, T: int) -> Optional[int]:
+    """K1's own y_tile: None (untiled) when the whole slab holds at most
+    `K1_PLAN_CELLS` cells, else the tallest tile whose slab does (at least
+    1), taking the largest divisor of Y instead when it is at least half
+    that size, as `largest_fitting_y_tile` does."""
+    if Y * Z <= K1_PLAN_CELLS:
+        return None
+    best = max(K1_PLAN_CELLS // Z - 2 * T, 1)
+    divisor = max(d for d in range(1, best + 1) if Y % d == 0)
+    return divisor if 2 * divisor >= best else best
+
+
+def _plan_z_window(T: int, S: int, Z: int):
+    """(C, CZ, W, n_cz) for a slab of S rows: the whole row (one chunk) for
+    the fewest cells per thread whose build takes it; else z chunks with a
+    T-deep halo a side, for the fewest cells per thread whose widest
+    fitting window owns at least half its cells (else the widest window),
+    balanced where the balanced window still fits. None where no window
+    of 2T + 1 cells or more fits."""
+    builds = _build.K1_BUILDS
+    for C in builds:
+        if _fused_fits(T, S, Z, C):
+            return C, Z, Z, 1
+    widest = {}
+    for C in builds:
+        w = next((w for w in range(Z - 1, 2 * T, -1)
+                  if _fused_fits(T, S, w, C)), None)
+        if w is not None:
+            widest[C] = w
+    if not widest:
+        return None
+    C = next((c for c, w in widest.items() if w - 2 * T >= w // 2),
+             max(widest, key=widest.get))
+    CZ = widest[C] - 2 * T
+    n_cz = -(-Z // CZ)
+    if _fused_fits(T, S, -(-Z // n_cz) + 2 * T, C):
+        CZ = -(-Z // n_cz)
+    return C, CZ, CZ + 2 * T, n_cz
+
+
+@functools.lru_cache(maxsize=256)
+def _fused_block(Y: int, Z: int, T: int,
+                 y_tile: Optional[int]) -> _FusedBlock:
+    """K1's block for one pass of depth T and `y_tile` (None: K1's own
+    tile). Raises ValueError, naming the limit, where no build takes it."""
+    if not 1 <= T <= _build.K1_MAX_T:
+        raise ValueError(f"K1 is built for T in 1..{_build.K1_MAX_T} a pass "
+                         f"(its register ring holds T levels), got T={T}")
+    tile = _plan_y_tile(Y, Z, T) if y_tile is None else y_tile
+    TY, S, n_ty = _grid_geometry(Y, tile, T)
+    window = _plan_z_window(T, S, Z)
+    if window is None:
+        w0 = min(Z, 2 * T + 1)
+        need = min(fused_shared_bytes(T, S, w0, C) for C in _build.K1_BUILDS)
+        if need > SMEM_PER_BLOCK:
+            raise ValueError(
+                f"the fused ring needs {need} B of shared memory at T={T}, "
+                f"Y={Y}, Z={Z}, y_tile={y_tile} (a slab of {S} rows, even "
+                f"in a z window of {w0} cells); one block may use "
+                f"{SMEM_PER_BLOCK} B. Pass a smaller y_tile, or none (K1 "
+                f"then plans its own)")
+        raise ValueError(
+            f"the fused ring's slab of {S} rows at T={T}, Y={Y}, Z={Z}, "
+            f"y_tile={y_tile} needs more threads than a block of K1 runs, "
+            f"even in a z window of {w0} cells: S x ceil(W / C) threads for "
+            f"C cells per thread, at most {_build.K1_BUILDS} (C: threads, "
+            f"the ring in registers). Pass a smaller y_tile, or none (K1 "
+            f"then plans its own)")
+    C, CZ, W, n_cz = window
+    return _FusedBlock(TY, S, n_ty, CZ, W, n_cz, C, _fused_threads(S, W, C),
+                       fused_plane_pitch(W, C),
+                       fused_shared_bytes(T, S, W, C))
+
+
+def _plan_x_chunks(X: int, T: int, tiles: int, slots: int,
+                   n_sm: int) -> int:
+    """Owned x-slices per chunk: the count of chunks n minimising the waves
+    of blocks (``tiles * n`` over `slots` resident at once) times the
+    slices each block walks (``ceil(X / n) + T``), among the n that give at
+    least two blocks per SM where X allows it; ties go to fewer chunks."""
+    need = min(-(-2 * n_sm // tiles), X)
+    best, best_cost = X, None
+    for n in range(max(need, 1), X + 1):
+        CX = -(-X // n)
+        if -(-X // CX) != n:
+            continue
+        cost = -(-tiles * n // slots) * (CX + T)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = CX, cost
+    return best
+
+
+@functools.lru_cache(maxsize=256)
+def fused_launch_plan(X: int, Y: int, Z: int, T: int, B: int, n_sm: int,
+                      blocks_per_sm: int, *,
+                      y_tile: Optional[int] = None) -> FusedPlan:
+    """One K1 pass of depth T over (B, X, Y, Z) fields on a card of `n_sm`
+    SMs that holds `blocks_per_sm` of the pass's blocks at once: `y_tile`
+    as given, or K1's own (a slab of about `K1_PLAN_CELLS` cells); the
+    whole row, or z chunks, for the fewest cells per thread whose build
+    takes it (`_plan_z_window`); x chunks from `_plan_x_chunks`. Raises
+    ValueError, naming the limit, for T beyond the build, a slab beyond one
+    block's shared memory or threads, or a grid beyond CUDA's."""
+    blk = _fused_block(Y, Z, T, y_tile)
+    tiles = blk.n_ty * blk.n_cz
+    CX = _plan_x_chunks(X, T, tiles * B, n_sm * blocks_per_sm, n_sm)
+    n_cx = -(-X // CX)
+    grid = (tiles * n_cx, B, 1)
+    check_launch_grid(grid, "K1")
+    return FusedPlan(blk.TY, blk.S, blk.n_ty, blk.CZ, blk.W, blk.n_cz, CX,
+                     n_cx, blk.C, blk.threads, blk.pitch, grid, blk.shared,
+                     blocks_per_sm)
+
+
+def fused_plan_with_chunks(plan: FusedPlan, X: int, Z: int, T: int, *,
+                           CX: Optional[int] = None,
+                           CZ: Optional[int] = None) -> FusedPlan:
+    """`plan` (a pass of depth T) with x chunks of CX owned slices and z
+    chunks of CZ owned cells instead of its own, where given (the
+    launch-shape sweep and the tests of chunk remainders). Raises
+    ValueError where the z window does not fit the plan's build."""
+    CX = plan.CX if CX is None else CX
+    n_cx = -(-X // CX)
+    plan = plan._replace(CX=CX, n_cx=n_cx,
+                         grid=(plan.n_ty * plan.n_cz * n_cx,) + plan.grid[1:])
+    if CZ is None:
+        return plan
+    W, C = min(CZ + 2 * T, Z), plan.cells_per_thread
+    if not _fused_fits(T, plan.S, W, C):
+        raise ValueError(f"a z window of {W} cells does not fit K1's build "
+                         f"of {C} cells per thread at a slab of {plan.S} rows")
+    n_cz = -(-Z // CZ)
+    return plan._replace(CZ=CZ, W=W, n_cz=n_cz,
+                         threads=_fused_threads(plan.S, W, C),
+                         pitch=fused_plane_pitch(W, C),
+                         shared_bytes=fused_shared_bytes(T, plan.S, W, C),
+                         grid=(plan.n_ty * n_cz * n_cx,) + plan.grid[1:])
+
+
+def _fused_block_geometry(plan: FusedPlan, X: int, Y: int, Z: int, T: int,
+                          t: int, cz: int, cx: int):
+    """What K1's block (y-tile t, z-chunk cz, x-chunk cx) walks and owns, as
+    the kernel computes it: ``(slab_lo, own rows [lo, hi), window_lo, owned
+    cells [z0, z1), slices walked [xs, xe], owned slices [x0, x1))``, rows,
+    cells and slices global."""
+    slab_lo = _slab_lo(t, Y, plan.TY, plan.S, T)
+    own = (t * plan.TY, min((t + 1) * plan.TY, Y))
+    z0 = cz * plan.CZ
+    zlo = min(max(z0 - T, 0), Z - plan.W)
+    x0 = cx * plan.CX
+    x1 = min(x0 + plan.CX, X)
+    return (slab_lo, own, zlo, (z0, min(z0 + plan.CZ, Z)),
+            (max(x0 - T, 0), x1 - 1 + T), (x0, x1))
 
 
 def _padded_row_bytes(Z: int, itemsize: int) -> int:
@@ -369,6 +622,8 @@ def _pack_rows(rows, B: int) -> Tuple[torch.Tensor, int]:
     and the slot stride the kernel steps by (0 = shared)."""
     batched = any(r.ndim == 2 for r in rows)
     n = sum(r.shape[-1] for r in rows)
+    if len(rows) == 1 and rows[0].is_contiguous():   # no copy to make
+        return rows[0].reshape(-1, n), (n if batched else 0)
     table = torch.cat([r.reshape(-1, r.shape[-1]).expand(B if batched else 1,
                                                          r.shape[-1])
                        for r in rows], dim=1).contiguous()
@@ -383,32 +638,78 @@ def _param_table(p: AdvectParams, B: int) -> Tuple[torch.Tensor, int]:
 
 
 def _advect_fused_cuda(u, v, w, p: AdvectParams, T: int, dt: float,
-                       xm, ym, y_tile=None):
-    """Launch the fused CUDA ring kernel on (B, X, Y, Z) fields."""
+                       xm, ym, y_tile=None, *,
+                       plan: Optional[FusedPlan] = None):
+    """Launch K1 (`csrc/advect_fused.cu`) on (B, X, Y, Z) fields: one launch
+    a pass of `fused_passes(T)`, each on `fused_device_plan`'s plan for this
+    card, or on `plan`, a plan made for these shapes and T (one pass)."""
     B, X, Y, Z = u.shape
-    ring = fused_register_bytes(T, Y, Z, 4, y_tile=y_tile)
-    if ring > SMEM_PER_BLOCK:
-        raise ValueError(
-            f"the fused ring needs {ring} B of shared memory at T={T}, "
-            f"Y={Y}, Z={Z}, y_tile={y_tile}; one block may use "
-            f"{SMEM_PER_BLOCK} B. Pass a smaller y_tile "
-            f"(largest_fitting_y_tile gives one)")
+    passes = fused_passes(T)
+    if plan is not None and len(passes) > 1:
+        raise ValueError(f"a given plan runs one pass, T <= "
+                         f"{_build.K1_MAX_T}; got T={T}")
+    if plan is None:
+        for Tk in set(passes):   # the refusals, before any build
+            _fused_block(Y, Z, Tk, y_tile)
+        check_launch_grid((1, B, 1), "K1")
     lib = _build.load()
-    TY, S, n_ty = _grid_geometry(Y, y_tile, T)
     pt, sp = _param_table(p, B)
     xmt, sx = _pack_rows([xm], B)
     ymt, sy = _pack_rows([ym], B)
-    outs = [torch.empty_like(u) for _ in range(3)]
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = lib.advect_fused_f32(
-            u.data_ptr(), v.data_ptr(), w.data_ptr(),
-            *(o.data_ptr() for o in outs), pt.data_ptr(), xmt.data_ptr(),
-            ymt.data_ptr(), B, X, Y, Z, T, TY, S, n_ty, sp, sx, sy, dt, ring,
-            stream)
-    _build.check(err, "advect_fused_f32")
-    LAUNCHES["advect_fused"] += 1
-    return tuple(outs)
+    outs = (u, v, w)
+    for Tk in passes:
+        run = plan or fused_device_plan(u.device, X, Y, Z, Tk, B, y_tile)
+        ins, outs = outs, tuple(torch.empty_like(u) for _ in range(3))
+        with torch.cuda.device(u.device):
+            stream = torch.cuda.current_stream(u.device).cuda_stream
+            err = lib.advect_fused_f32(
+                *(f.data_ptr() for f in ins + outs), pt.data_ptr(),
+                xmt.data_ptr(), ymt.data_ptr(), B, X, Y, Z, Tk, run.TY,
+                run.S, run.n_ty, run.CZ, run.W, run.n_cz, run.CX, run.n_cx,
+                run.cells_per_thread, run.threads, run.pitch, sp, sx, sy, dt,
+                run.shared_bytes, stream)
+        _build.check(err, "advect_fused_f32")
+        LAUNCHES["advect_fused"] += 1
+    return outs
+
+
+@functools.lru_cache(maxsize=64)
+def _fused_attrs_cached(index: int, T: int, C: int, threads: int,
+                        shared: int) -> Tuple[int, int, int, int]:
+    lib = _build.load()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(index):
+        err = lib.advect_fused_attrs(T, C, threads, shared, out)
+    _build.check(err, "advect_fused_attrs")
+    return tuple(out)
+
+
+def _device_index(device) -> int:
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
+def fused_device_plan(device, X: int, Y: int, Z: int, T: int, B: int = 1,
+                      y_tile: Optional[int] = None) -> FusedPlan:
+    """`fused_launch_plan` on `device`'s card: its SM count, and the
+    resident blocks per SM the card reports for the pass's build."""
+    index = _device_index(device)
+    n_sm = torch.cuda.get_device_properties(index).multi_processor_count
+    blk = _fused_block(Y, Z, T, y_tile)
+    per_sm = _fused_attrs_cached(index, T, blk.C, blk.threads, blk.shared)[3]
+    return fused_launch_plan(X, Y, Z, T, B, n_sm, per_sm, y_tile=y_tile)
+
+
+def fused_kernel_attrs(device, T: int, plan: FusedPlan) -> dict:
+    """What the card says of the K1 build that runs `plan` at depth T:
+    registers and local (spill) bytes per thread, the most threads a block
+    of it can have, and its resident blocks per SM at the plan's threads and
+    shared bytes."""
+    regs, local, most, per_sm = _fused_attrs_cached(
+        _device_index(device), T, plan.cells_per_thread, plan.threads,
+        plan.shared_bytes)
+    return {"registers": regs, "local_bytes": local, "max_threads": most,
+            "blocks_per_sm": per_sm}
 
 
 def advect_fused_batched(u, v, w, p: AdvectParams, *, T: int = 4,
@@ -455,10 +756,15 @@ def advect_fused(u, v, w, p: AdvectParams, *, T: int = 4, dt: float = 1.0,
     Returns the advanced ``(u, v, w)``, or ``(u, v, w, flags)`` with
     `guard=True`, flags being the (X,) `finite_guard` pass over the
     advanced fields (a separate launch: the field outputs are the same bits
-    as with `guard=False`). `y_tile` runs the in-grid tiling; on CUDA the
-    ring of the chosen tile (None = untiled) must fit one block's shared
-    memory, else this raises naming the budget. `tiling="host"` runs the
-    host tile loop with a T-row halo instead (no interior masks there).
+    as with `guard=False`). `y_tile` runs the in-grid tiling. On CUDA,
+    None lets K1 plan its own tiles and chunks (`fused_launch_plan`); a
+    given tile's slab must fit one block of K1 in some z window (its shared
+    planes within `roofline.SMEM_PER_BLOCK`, its threads within a build's,
+    `_build.K1_BUILDS`), else this raises naming the limit. T beyond the
+    build's `_build.K1_MAX_T` runs as `fused_passes(T)`, one launch each.
+    On the CPU the plain version ignores the tile.
+    `tiling="host"` runs the host tile loop with a T-row halo instead (no
+    interior masks there).
     `y_interior_mask` (Y,) and `x_interior_mask` (X,) freeze rows /
     x-planes whose entry is zero. This is `advect_fused_batched` with one
     slot.
@@ -638,8 +944,9 @@ def _finite_guard_plain(u, v, w):
 
 def _finite_guard_cuda(u, v, w):
     """Launch the finite-guard CUDA kernel on (B, X, Y, Z) fields."""
-    lib = _build.load()
     B, X, Y, Z = u.shape
+    check_launch_grid((X, B, 1), "K4 (finite_guard)")
+    lib = _build.load()
     flags = torch.empty((B, X), dtype=torch.float32, device=u.device)
     vec4 = int((Y * Z) % 4 == 0
                and all(f.data_ptr() % 16 == 0 for f in (u, v, w)))

@@ -2,10 +2,11 @@
 
 `params_from_numpy(tree, device=...)` turns the JAX package's parameter
 tree, given as numpy arrays (`jax.tree.map(np.asarray, params)`), into the
-port's tree of tensors. The two layouts are the same leaf for leaf (the
-stacked `(n_layers, ...)` axis included), so both packages then compute the
-same function on the same weights. bfloat16 arrays (numpy's `ml_dtypes`
-bfloat16) come across bit for bit.
+port's tree of tensors, on the card unless the caller asks for "cpu" (as
+the stencil side's `params_from_numpy` does). The two layouts are the same
+leaf for leaf (the stacked `(n_layers, ...)` axis included), so both
+packages then compute the same function on the same weights. bfloat16
+arrays (numpy's `ml_dtypes` bfloat16) come across bit for bit.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 from repro_torch.pspec import tree_map
 
 
-def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     """One numpy array as a tensor of the same dtype and bits."""
     a = np.array(a, order="C")          # a writable copy
     if a.dtype.name == "bfloat16":
@@ -24,7 +25,7 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_numpy(tree, *, device="cpu"):
+def params_from_numpy(tree, *, device="cuda"):
     """A tree (dicts and lists) of numpy arrays as a tree of tensors."""
     return tree_map(lambda a: tensor_from_numpy(a, device), tree,
                     is_leaf=lambda x: isinstance(x, np.ndarray))

@@ -53,7 +53,7 @@ def prefill_to_decode_cache(cfg: ArchConfig, caches, prompt_len: int,
 
 
 def init_decode_cache(cfg: ArchConfig, layout: HeadLayout, batch: int,
-                      max_len: int, device="cpu"):
+                      max_len: int, *, device):
     specs = M.cache_specs(cfg, layout, batch, max_len)
     return tree_map(lambda s: torch.zeros(s.shape, dtype=torch_dtype(s.dtype),
                                           device=device), specs)

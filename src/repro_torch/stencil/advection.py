@@ -60,12 +60,14 @@ class AdvectionDomain:
     """An (X, Y, Z) advection domain on `device` ("cuda" unless the caller
     asks for "cpu"). Frozen: vary it with `dataclasses.replace`.
 
-    With a kernel rung on CUDA and `y_tile=None`, the domain runs the
-    largest y-tile whose ring fits one block's shared memory
-    (`advection.largest_fitting_y_tile`, depth `fuse_T` for `fused` and 1
-    for v1-v3; the largest divisor of Y when it is at least half that
-    size), or untiled where the whole-Y ring fits. Tiled and untiled
-    results are equal bitwise, so this changes no result.
+    With a v1-v3 rung on CUDA and `y_tile=None`, the domain runs the
+    largest y-tile whose slab fits one block's shared memory
+    (`advection.largest_fitting_y_tile` at depth 1; the largest divisor of
+    Y when it is at least half that size), or untiled where the whole-Y
+    slab fits. `fused` passes `y_tile` on as it is, and with None K1 runs
+    its own launch plan (`advection.fused_launch_plan`). Tiled and untiled
+    results are equal bitwise, so neither changes a result; the byte and
+    ring accounting below prices `run_y_tile` with the reference's models.
     """
     X: int
     Y: int
@@ -104,7 +106,7 @@ class AdvectionDomain:
         K._check_tiling(self.tiling)
         K._check_y_tile(self.y_tile)
         tile = self.y_tile
-        if (tile is None and self.variant != "reference"
+        if (tile is None and self.variant not in ("reference", "fused")
                 and torch.device(self.device).type == "cuda"):
             tile = K.largest_fitting_y_tile(self.substeps_per_step(), self.Y,
                                             self.Z, self.itemsize)
@@ -264,9 +266,12 @@ class AdvectionDomain:
             T=self.substeps_per_step(), y_tile=self.run_y_tile)
 
     def vmem_register_bytes(self) -> int:
-        """On-chip ring bytes of the configuration (one block's shared
-        memory on Hopper). `wide`'s slab has the 1-row halo of `dataflow`,
-        where the reference sizes its TPU 8-row sublane halo."""
+        """On-chip ring bytes of the configuration, the reference's model
+        at `run_y_tile` (for v1-v3 one block's shared memory on Hopper; K1
+        keeps its ring in registers and sizes its shared planes itself,
+        `advection.fused_shared_bytes`). `wide`'s slab has the 1-row halo
+        of `dataflow`, where the reference sizes its TPU 8-row sublane
+        halo."""
         depth = self.fuse_T if self.variant == "fused" else 1
         return K.fused_register_bytes(depth, self.Y, self.Z, self.itemsize,
                                       y_tile=self.run_y_tile)

@@ -35,8 +35,8 @@ to block. As in the reference, each block still orders its exchange before
 its compute: the cross-block landing is what the slots make possible.
 
 `local_kernel="fused"` runs each shard's update through K1
-(`advect_fused`) with its x/y interior masks; `y_tile=None` takes the
-largest tile whose ring fits one block's shared memory on CUDA, as
+(`advect_fused`) with its x/y interior masks; `y_tile=None` lets K1 run
+its own launch plan (`advection.fused_launch_plan`) on CUDA, as
 `AdvectionDomain` does. `overlap=True` adds an interior pass over the owned
 slab, which needs no exchange, and takes the T-deep bands beside each cut
 from the boundary pass.
@@ -369,11 +369,8 @@ class _LocalBlock:
         p = _on(self.params, us.device, self._params)
         T, dt = self.T, self.dt
         if self.local_kernel == "fused":
-            tile = self.y_tile
-            if tile is None and us.is_cuda:
-                tile = K.largest_fitting_y_tile(T, us.shape[1], us.shape[2])
             return K.advect_fused(
-                us, vs, ws, p, T=T, dt=dt, y_tile=tile,
+                us, vs, ws, p, T=T, dt=dt, y_tile=self.y_tile,
                 x_interior_mask=None if x_int is None else x_int.float(),
                 y_interior_mask=None if y_int is None else y_int.float())
         m = torch.ones((), dtype=torch.bool, device=us.device)

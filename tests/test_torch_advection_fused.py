@@ -377,15 +377,40 @@ def test_fused_contract_errors():
 
 
 def test_cuda_ring_budget_is_checked_before_any_build():
-    """Y = 1024 untiled at T = 4, Z = 64 needs a 9.4 MB ring: the CUDA
-    dispatch refuses it, naming the per-block budget."""
+    """K1's refusals come before any build, each naming its limit: a given
+    tile whose shared planes exceed one block's budget even in the
+    narrowest z window (Y = 1024 untiled at T = 4, Z = 64: 884,816 B), one
+    whose slab needs more threads than K1's builds run (y_tile 255: 263
+    rows, over 256 even at one thread a row), a deep T whose pass of depth
+    8 needs more shared memory than one block has, and slots beyond the grid's y limit. Without a tile K1
+    plans one that fits, and T beyond the build runs as passes, so neither
+    None nor T = 9 is refused."""
     u, v, w = (torch.zeros((1, 3, 1024, 64)) for _ in range(3))
     p = TK._slot_params(TREF.default_params(64, device="cpu"), 1, 64, "cpu")
     ones = torch.ones(3), torch.ones(1024)
     with pytest.raises(ValueError, match="232448"):
-        TK._advect_fused_cuda(u, v, w, p, 4, DT, *ones, None)
-    with pytest.raises(ValueError, match="232448"):
-        TK._advect_fused_cuda(u, v, w, p, 4, DT, *ones, 18)
+        TK._advect_fused_cuda(u, v, w, p, 4, DT, *ones, 1024)
+    with pytest.raises(ValueError, match="more threads than a block"):
+        TK._advect_fused_cuda(u, v, w, p, 4, DT, *ones, 255)
+    with pytest.raises(ValueError, match="at T=8, .* 232448"):
+        TK._advect_fused_cuda(u, v, w, p, 16, DT, *ones, 230)
+    many = [f.expand(65536, 3, 1024, 64) for f in (u, v, w)]
+    with pytest.raises(ValueError, match="65535"):
+        TK._advect_fused_cuda(*many, p, 4, DT, *ones, None)
+    assert TK.fused_launch_plan(3, 1024, 64, 4, 1, 132, 1).shared_bytes \
+        <= 232448
+    assert TK.fused_passes(9) == [5, 4]
+
+
+def test_cuda_guard_grid_is_checked_before_any_build():
+    """K4's (X, B) grid: slots beyond 65535 or slices beyond 2**31 - 1
+    are refused, naming the limit, before any build."""
+    one = torch.zeros((1, 1, 2, 2))
+    for shape, limit in (((65536, 3, 2, 2), "65535"),
+                         ((1, 2 ** 31, 2, 2), "2147483647")):
+        f = one.expand(*shape)
+        with pytest.raises(ValueError, match=limit):
+            TK._finite_guard_cuda(f, f, f)
 
 
 def test_largest_fitting_y_tile():

@@ -42,7 +42,7 @@ def inputs(B, H, Hkv, Sq, Skv, D, dtype, seed):
     rng = np.random.default_rng(seed)
     jx = [jnp.asarray(rng.normal(size=s), getattr(jnp, dtype))
           for s in ((B, H, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D))]
-    return jx, [tensor_from_numpy(np.asarray(a)) for a in jx]
+    return jx, [tensor_from_numpy(np.asarray(a), device="cpu") for a in jx]
 
 
 def f32(a) -> np.ndarray:

@@ -59,10 +59,114 @@ def test_guard_kernel_equals_plain(cuda):
 
 
 def test_ring_over_budget_raises(cuda):
-    u, v, w = (torch.zeros((3, 1024, 64), device=cuda) for _ in range(3))
+    """A given tile whose shared planes exceed one block's budget is
+    refused naming it; without a tile K1 plans one that runs, == plain."""
+    u, v, w = fields((3, 1024, 64), 5, cuda)
     p = TREF.default_params(64, device=cuda)
     with pytest.raises(ValueError, match="232448"):
-        TK.advect_fused(u, v, w, p, T=4)
+        TK.advect_fused(u, v, w, p, T=4, y_tile=1024)
+    got = TK.advect_fused(u, v, w, p, T=4, dt=DT)
+    plain = TK._advect_fused_plain(u[None], v[None], w[None], p, 4, DT,
+                                   torch.ones(3, device=cuda),
+                                   torch.ones(1024, device=cuda))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b[0]) for a, b in zip(got, plain))
+
+
+def k1_slot_inputs(B, shape, device, seed):
+    """B slots of `shape` with per-slot params (every leaf) and masks
+    holding zeros, as a batched caller gives them."""
+    X, Y, Z = shape
+    slots = [fields(shape, seed + b, device) for b in range(B)]
+    u, v, w = (torch.stack([sl[i] for sl in slots]) for i in range(3))
+    base = TREF.default_params(Z, device=device)
+    scale = torch.linspace(0.5, 1.5, B, device=device)
+    p = TREF.AdvectParams(base.tcx * scale, base.tcy * scale,
+                          base.tzc1[None] * scale[:, None],
+                          base.tzc2[None] / scale[:, None])
+    rng = np.random.default_rng(seed)
+    xm = torch.tensor(rng.random((B, X)) > 0.2, dtype=torch.float32,
+                      device=device)
+    ym = torch.tensor(rng.random((B, Y)) > 0.2, dtype=torch.float32,
+                      device=device)
+    return (u, v, w), TK._slot_params(p, B, Z, device), xm, ym
+
+
+@pytest.mark.parametrize("shape,T", [((37, 29, 61), 4), ((23, 41, 61), 3),
+                                     ((11, 9, 33), 2), ((64, 50, 64), 4)])
+@pytest.mark.parametrize("B", [1, 3])
+def test_fused_kernel_chunk_and_tile_remainders_equal_plain(cuda, shape, T,
+                                                            B):
+    """K1 == plain bitwise over plans whose x chunks, y-tiles and z chunks
+    leave remainders (odd Z = 61, 33 too), per-slot leaves and masks, its
+    own plan and explicit y_tiles of 4 and 5."""
+    X, Y, Z = shape
+    (u, v, w), p, xm, ym = k1_slot_inputs(B, shape, cuda, seed=X + T)
+    plain = TK._advect_fused_plain(u, v, w, p, T, DT, xm, ym)
+    own = TK._advect_fused_cuda(u, v, w, p, T, DT, xm, ym)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(own, plain))
+    for y_tile in (4, 5):
+        base = TK.fused_device_plan(cuda, X, Y, Z, T, B, y_tile)
+        for CX, CZ in ((1, None), (5, None), (16, None), (X, None), (5, 3),
+                       (16, 10), (X, 1)):
+            plan = TK.fused_plan_with_chunks(base, X, Z, T, CX=CX, CZ=CZ)
+            got = TK._advect_fused_cuda(u, v, w, p, T, DT, xm, ym,
+                                        plan=plan)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, plain)), \
+                (y_tile, CX, CZ)
+        got = TK.advect_fused_batched(u, v, w, p, T=T, dt=DT, y_tile=y_tile,
+                                      x_interior_mask=xm, y_interior_mask=ym)
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+def test_fused_kernel_reports_its_build(cuda):
+    """The card's view of the planned build: it launches the plan's
+    threads, and the plan's x split used the card's resident blocks."""
+    plan = TK.fused_device_plan(cuda, 1024, 1024, 64, 4)
+    attrs = TK.fused_kernel_attrs(cuda, 4, plan)
+    assert attrs["max_threads"] >= plan.threads
+    assert attrs["blocks_per_sm"] == plan.blocks_per_sm >= 1
+    assert 0 < attrs["registers"] <= 255
+
+
+@pytest.mark.parametrize("T", [8, 9, 10, 14, 16])
+def test_fused_kernel_deep_t_runs_as_passes_equal_plain(cuda, T):
+    """T up to the build's 8 in one launch, beyond it as `fused_passes(T)`
+    launches: == plain bitwise, per-slot leaves and masks, own plan and a
+    y_tile of 5 (the reference's multi-hop distributed cases run T = 10
+    and 14)."""
+    shape = (21, 40, 20)
+    (u, v, w), p, xm, ym = k1_slot_inputs(2, shape, cuda, seed=T)
+    plain = TK._advect_fused_plain(u, v, w, p, T, DT, xm, ym)
+    for y_tile in (None, 5):
+        before = TK.LAUNCHES["advect_fused"]
+        got = TK.advect_fused_batched(u, v, w, p, T=T, dt=DT, y_tile=y_tile,
+                                      x_interior_mask=xm, y_interior_mask=ym)
+        assert TK.LAUNCHES["advect_fused"] - before == len(TK.fused_passes(T))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, plain)), y_tile
+
+
+@pytest.mark.parametrize("shape,T,y_tile", [((6, 3, 700), 1, None),
+                                            ((5, 20, 2049), 4, None),
+                                            ((9, 60, 64), 4, 26),
+                                            ((7, 30, 130), 8, 3)])
+def test_fused_kernel_z_chunks_equal_plain(cuda, shape, T, y_tile):
+    """Rows too wide for one block, and tall given tiles, run in z chunks
+    with a T-deep halo a side: == plain bitwise."""
+    X, Y, Z = shape
+    plan = TK.fused_device_plan(cuda, X, Y, Z, T, 1, y_tile)
+    assert plan.n_cz > 1
+    u, v, w = fields(shape, 7, cuda)
+    p = TREF.default_params(Z, device=cuda)
+    got = TK.advect_fused(u, v, w, p, T=T, dt=DT, y_tile=y_tile)
+    plain = TK._advect_fused_plain(u[None], v[None], w[None], p, T, DT,
+                                   torch.ones(X, device=cuda),
+                                   torch.ones(Y, device=cuda))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b[0]) for a, b in zip(got, plain))
 
 
 @pytest.mark.parametrize("leaf", ["tcx", "tcy", "tzc1", "tzc2"])
@@ -429,6 +533,27 @@ def test_distributed_step_on_the_card_equals_cpu(cuda):
     with pytest.raises(RuntimeError, match="injection hook"):
         TD.make_distributed_step(mesh, p, exchange="remote_dma",
                                  corrupt_halo=(0, 1, 0.0))
+
+
+@pytest.mark.parametrize("T", [10, 14])
+def test_distributed_multi_hop_fused_on_the_card_equals_cpu(cuda, T):
+    """The reference's multi-hop cases with the fused local kernel: T deeper
+    than a shard's rows and K1's build, on a (1, 4) loopback mesh; both
+    engines == the CPU plain versions, bitwise."""
+    from repro_torch.stencil import distributed as TD
+    mesh = loopback_cuda(1, 4)
+    cpu_mesh = type(mesh)((1, 4), (torch.device("cpu"),) * 4)
+    u, v, w = fields((6, 16, 12), 6, "cpu")
+    p = TREF.default_params(12, device="cpu")
+    outs = []
+    for m, ex in ((mesh, "remote_dma"), (mesh, "collective"),
+                  (cpu_mesh, "collective")):
+        step = TD.make_distributed_step(m, p, T=T, dt=DT, exchange=ex,
+                                        local_kernel="fused")
+        outs.append([f.cpu() for f in TD.gather(m, step(TD.shard(m, u, v,
+                                                                   w)))])
+    assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[2]))
+    assert all(torch.equal(a, b) for a, b in zip(outs[1], outs[2]))
 
 
 def test_kernels_launch_on_the_cards_of_their_tensors(cuda):

@@ -82,7 +82,8 @@ def both(arch, **knobs):
     tc = get_smoke_config(arch).replace(**knobs)
     npw = smoke_weights(arch)
     return ((jc, JM.make_layout(jc, 1), jax.tree.map(jnp.asarray, npw)),
-            (tc, TM.make_layout(tc, 1), params_from_numpy(npw)))
+            (tc, TM.make_layout(tc, 1),
+             params_from_numpy(npw, device="cpu")))
 
 
 def tokens(cfg, shape, seed=1):
@@ -188,7 +189,7 @@ def test_init_rules_on_the_device():
 def test_params_from_numpy_keeps_bf16_bits():
     a = np.asarray(jnp.asarray(np.random.default_rng(0).normal(size=(5, 7)),
                                jnp.bfloat16))
-    t = tensor_from_numpy(a)
+    t = tensor_from_numpy(a, device="cpu")
     assert t.dtype == torch.bfloat16
     assert np.array_equal(t.view(torch.int16).numpy(),
                           a.view(np.int16))
@@ -259,7 +260,7 @@ def test_pallas_equals_chunked_in_f32(arch):
     """The reference's model gate (tests/test_ssm_kernel.py): within 1e-3."""
     cfg = get_smoke_config(arch).replace(compute_dtype="float32",
                                          attn_chunk=32)
-    params = params_from_numpy(smoke_weights(arch))
+    params = params_from_numpy(smoke_weights(arch), device="cpu")
     layout = TM.make_layout(cfg, 1)
     batch = {"inputs": torch.as_tensor(tokens(cfg, (2, 64), seed=0))}
     fc, _, _ = TM.forward(params, batch, cfg, layout)
@@ -277,7 +278,7 @@ def test_prefill_plus_decode_equals_forward(arch, impl):
     """tests/test_decode_consistency.py on the port: the default (bf16)
     compute, within 1e-3."""
     cfg = get_smoke_config(arch).replace(attention_impl=impl)
-    params = params_from_numpy(smoke_weights(arch))
+    params = params_from_numpy(smoke_weights(arch), device="cpu")
     layout = TM.make_layout(cfg, 1)
     B, S = 2, 32
     toks = torch.as_tensor(tokens(cfg, (B, S)))
@@ -294,7 +295,7 @@ def test_prefill_plus_decode_equals_forward(arch, impl):
 def test_multi_token_decode_chain():
     """Decode 8 tokens one by one == slices of the full forward logits."""
     cfg = get_smoke_config("qwen3_32b")
-    params = params_from_numpy(smoke_weights("qwen3_32b"))
+    params = params_from_numpy(smoke_weights("qwen3_32b"), device="cpu")
     layout = TM.make_layout(cfg, 1)
     B, S, T = 2, 24, 8
     toks = torch.as_tensor(tokens(cfg, (B, S + T), seed=3))
@@ -313,7 +314,7 @@ def test_multi_token_decode_chain():
 
 def test_train_mode_is_the_prefill_forward_without_caches():
     cfg = get_smoke_config("qwen2.5-14b")
-    params = params_from_numpy(smoke_weights("qwen2.5-14b"))
+    params = params_from_numpy(smoke_weights("qwen2.5-14b"), device="cpu")
     layout = TM.make_layout(cfg, 1)
     batch = {"inputs": torch.as_tensor(tokens(cfg, (2, 16)))}
     lt, aux, none = TM.forward(params, batch, cfg, layout)
@@ -325,7 +326,7 @@ def test_train_mode_is_the_prefill_forward_without_caches():
 
 def test_out_of_range_indices_raise_instead_of_clamping():
     cfg = get_smoke_config("qwen2.5-14b")
-    params = params_from_numpy(smoke_weights("qwen2.5-14b"))
+    params = params_from_numpy(smoke_weights("qwen2.5-14b"), device="cpu")
     layout = TM.make_layout(cfg, 1)
     with pytest.raises(ValueError, match="token ids"):
         TM.forward(params, {"inputs": torch.tensor([[1, cfg.vocab_size]])},
@@ -346,7 +347,7 @@ def test_out_of_range_indices_raise_instead_of_clamping():
     ("pos", "mrope", "G1c"), ("scan_layers", False, "stacked")])
 def test_later_paths_raise_naming_their_slice(knob, value, slice_):
     cfg = get_smoke_config("qwen2.5-14b").replace(**{knob: value})
-    params = params_from_numpy(smoke_weights("qwen2.5-14b"))
+    params = params_from_numpy(smoke_weights("qwen2.5-14b"), device="cpu")
     with pytest.raises(NotImplementedError, match=slice_):
         TM.forward(params, {"inputs": torch.tensor([[1, 2]])}, cfg,
                    TM.make_layout(cfg, 1))
@@ -456,7 +457,7 @@ def test_ssm_pallas_equals_chunked_in_f32():
     chunked scan, at the reference's model gate (1e-3), over several
     chunks (S 64 at scan_chunk 16); also at train mode's other impls."""
     cfg = get_smoke_config(SSM).replace(compute_dtype="float32")
-    params = params_from_numpy(smoke_weights(SSM))
+    params = params_from_numpy(smoke_weights(SSM), device="cpu")
     layout = TM.make_layout(cfg, 1)
     batch = {"inputs": torch.as_tensor(tokens(cfg, (2, 64), seed=0))}
     fc, _, _ = TM.forward(params, batch, cfg, layout)
@@ -477,7 +478,7 @@ def test_ssm_prefill_plus_decode_equals_forward(impl, dtype, tol):
     the f32 logit tolerance."""
     cfg = get_smoke_config(SSM).replace(attention_impl=impl,
                                         compute_dtype=dtype)
-    params = params_from_numpy(smoke_weights(SSM))
+    params = params_from_numpy(smoke_weights(SSM), device="cpu")
     layout = TM.make_layout(cfg, 1)
     B, S, T = 2, 24, 8
     toks = torch.as_tensor(tokens(cfg, (B, S + T), seed=3))
@@ -512,7 +513,7 @@ def test_ssm_lengths_the_chunked_scan_refuses():
     of 17) runs; S = 33 does not split into 2 equal chunks: ValueError
     naming it, on both routes (the reference asserts)."""
     cfg = get_smoke_config(SSM).replace(compute_dtype="float32")
-    params = params_from_numpy(smoke_weights(SSM))
+    params = params_from_numpy(smoke_weights(SSM), device="cpu")
     layout = TM.make_layout(cfg, 1)
     for impl in ("chunked", "pallas"):
         c = cfg.replace(attention_impl=impl)
@@ -526,7 +527,7 @@ def test_ssm_lengths_the_chunked_scan_refuses():
 
 def test_ssm_skip_core_raises_naming_g2():
     cfg = get_smoke_config(SSM).replace(attention_impl="skip_core")
-    params = params_from_numpy(smoke_weights(SSM))
+    params = params_from_numpy(smoke_weights(SSM), device="cpu")
     with pytest.raises(NotImplementedError, match="G2"):
         TM.forward(params, {"inputs": torch.tensor([[1, 2]])}, cfg,
                    TM.make_layout(cfg, 1))

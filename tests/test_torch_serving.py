@@ -53,7 +53,8 @@ def prompts(n, seed=0):
 def port_engine(batch_size, impl="pallas", max_len=MAX_LEN, arch=ARCH):
     cfg = get_smoke_config(arch).replace(compute_dtype="float32",
                                          attention_impl=impl)
-    return TE.ServingEngine(cfg, params_from_numpy(weights(arch)),
+    return TE.ServingEngine(cfg,
+                            params_from_numpy(weights(arch), device="cpu"),
                             batch_size=batch_size, max_len=max_len)
 
 

@@ -43,7 +43,7 @@ def make(B, S, D, N, seed=0, dtype="float32"):
     jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
     jx += [jnp.asarray(-np.abs(rng.normal(size=(D, N))), jnp.float32),
            jnp.asarray(rng.normal(size=(B, D, N)) * 0.1, jnp.float32)]
-    return jx, [tensor_from_numpy(np.asarray(a)) for a in jx]
+    return jx, [tensor_from_numpy(np.asarray(a), device="cpu") for a in jx]
 
 
 def err(a, b) -> float:
