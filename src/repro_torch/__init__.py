@@ -12,7 +12,8 @@ drives `kernels.advection.advection.stencil_fused`, which launches
 `csrc/stencil_fused.cu`. The dense-model token-serving path
 (`serving.engine.ServingEngine` -> `models.model.forward` /
 `decode_step` -> `models.blocks.attention_apply`) launches the flash-
-attention kernel `csrc/flash_attention.cu` through
+attention kernel, `csrc/flash_attention_tc.cu` for bf16 and
+`csrc/flash_attention.cu` for f32, through
 `kernels.attention.ops.gqa_layout_attention` in every prefill when
 `attention_impl="pallas"`. All are built by `nvcc` at first use
 (`_build.py`). On CPU tensors each

@@ -10,8 +10,9 @@ call that launches a kernel builds; importing the package never does.
 Build needs `nvcc` (on PATH, or under `$CUDA_HOME/bin`). Never add
 `--use_fast_math`: it changes the arithmetic and can compile `isfinite`
 away. `--fmad=false` keeps every product and sum rounded on its own, as the
-plain PyTorch versions round them; the flash-attention kernel, held to its
-plain version within a tolerance, writes its products as explicit `fmaf`.
+plain PyTorch versions round them; the f32 flash-attention kernel, held to
+its plain version within a tolerance, writes its products as explicit
+`fmaf`, and the bf16 one runs them on the tensor cores.
 
 The library carries its own CUDA runtime, which launches on the calling
 thread's current device: each wrapper makes its tensors' card current
@@ -33,7 +34,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
 SOURCES = ("advect_fused.cu", "finite_guard.cu", "advect_blocked.cu",
            "advect_dataflow.cu", "stencil_fused.cu", "flash_attention.cu",
-           "selective_scan.cu", "band_exchange.cu")
+           "flash_attention_tc.cu", "selective_scan.cu", "band_exchange.cu")
 HEADERS = ("pw_source.cuh", "stencil_ops.cuh")
 # K1 (`csrc/advect_fused.cu`) is built for T in 1..K1_MAX_T, by cells per
 # thread: the threads per block each build runs (its launch bound). The
@@ -58,7 +59,9 @@ SIGNATURES = {
     "advect_dataflow_f32": [_P] * 7 + [_I] * 9 + [_F, _SZ, _P],
     "stencil_fused_f32": ([_I] * 3 + [_P] * 9 + [_I, _P, _P] + [_I] * 10
                           + [_F, _SZ, _P]),
-    "flash_attention_fwd": [_I] + [_P] * 4 + [_I] * 9 + [_F, _SZ, _P],
+    "flash_attention_fwd": [_P] * 4 + [_LL] * 12 + [_I] * 9 + [_F, _SZ, _P],
+    "flash_attention_tc_fwd": [_P] * 4 + [_LL] * 12 + [_I] * 7 + [_F, _P],
+    "flash_attention_tc_attrs": [_I, _P],
     "selective_scan_fwd": [_I] * 2 + [_P] * 8 + [_I] * 5 + [_SZ, _P],
     "band_exchange_enter": [_P, _I, _P],
     "band_exchange_put": ([_P] * 4 + [_I] * 4 + [_LL, _LL, _I, _P, _ULL,

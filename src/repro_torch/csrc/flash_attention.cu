@@ -1,10 +1,13 @@
-// Flash-attention forward (K8) for Hopper, sm_90a.
+// Flash-attention forward (K8) for Hopper, sm_90a: the f32 kernel.
 //
 // Replaces: src/repro/kernels/attention/attention.py `flash_attention` ->
-// `_flash_kernel` (the Pallas TPU kernel).
+// `_flash_kernel` (the Pallas TPU kernel), for f32 q, k, v. bf16 inputs go
+// to the tensor-core kernel, `flash_attention_tc.cu`: the reference's f32
+// dot is exact f32, and TF32 would not hold the f32 tolerance of 1e-5.
 //
-// What it computes: for q (B, H, Sq, D) and k, v (B, Hkv, Skv, D), bf16 or
-// f32, out = softmax(q k^T * scale) v per head, with kv head h / (H / Hkv)
+// What it computes: for q (B, H, Sq, D) and k, v (B, Hkv, Skv, D), f32,
+// each addressed by its (b, h, s) strides, out = softmax(q k^T * scale) v
+// per head, with kv head h / (H / Hkv)
 // (GQA). One block per (b, h, q-tile of block_q rows) walks the kv tiles
 // of block_k keys in order, as the Pallas grid's innermost axis does, and
 // keeps what the Pallas kernel keeps in VMEM scratch in f32 shared memory:
@@ -13,15 +16,13 @@
 // where k_pos > q_pos, both counted from 0 (the top-left mask, not
 // mha_ref's bottom-right one when Sq != Skv); m_new = max(m, rowmax(s)),
 // p = exp(s - m_new), corr = exp(m - m_new), l = l * corr + rowsum(p),
-// acc = acc * corr + p v. At the end out = acc / max(l, 1e-30), rounded to
-// q's dtype.
+// acc = acc * corr + p v. At the end out = acc / max(l, 1e-30).
 //
-// Bound on one H100 SXM: operations. At q (1, 40, 2048, 128), k/v (1, 8,
-// 2048, 128) bf16, causal, the two products are 4.29e10 FLOP, 0.043 ms at
-// the 989 TFLOP/s of the bf16 tensor cores, against 50 MB of inputs and
-// output, 0.015 ms at 3.35 TB/s. This first version computes both products
-// in SIMT f32 FMA over shared-memory tiles (67 TFLOP/s peak), so it cannot
-// come near that bound; wgmma and TMA are later work. What the design does:
+// Bound on one H100 SXM: operations, at the 67 TFLOP/s of f32 outside the
+// tensor cores. BQ and BK are the caller's blocks, halved (BK first while
+// it is at least BQ) until the tiles fit one block's shared memory
+// (`attention.simt_tiles`); rows past Sq and keys past Skv of a ragged
+// tile are zero-filled and masked. What the design does:
 // each thread computes 4 x 4 outputs from two 16-byte shared-memory reads
 // per step of the inner loop (Q and K stored transposed, P transposed, rows
 // padded against bank conflicts); global loads run along D, coalesced; the
@@ -29,7 +30,6 @@
 // the diagonal are skipped. Products use explicit fmaf: the library builds
 // with --fmad=false for the stencil kernels, and attention is compared
 // within a tolerance, not bitwise.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -40,15 +40,6 @@ constexpr int kChunk = 32;             // keys per shared K/V chunk
 constexpr int kKStride = kChunk + 4;   // row stride of the transposed K chunk
 constexpr float kNegInf = -1073741824.0f;  // -2**30, the reference's NEG_INF
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_as(float x, float* p) { *p = x; }
-__device__ __forceinline__ void store_as(float x, __nv_bfloat16* p) {
-  *p = __float2bfloat16_rn(x);
-}
-
 __device__ __forceinline__ void unpack(const float4 v, float out[4]) {
   out[0] = v.x;
   out[1] = v.y;
@@ -56,11 +47,15 @@ __device__ __forceinline__ void unpack(const float4 v, float out[4]) {
   out[3] = v.w;
 }
 
-template <typename T>
+struct Strides {
+  long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s;
+};
+
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, int H, int Hkv, int Sq,
-    int Skv, int D, int BQ, int BK, int causal, float scale) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, const Strides st,
+    int H, int Hkv, int Sq, int Skv, int D, int BQ, int BK, int causal,
+    float scale) {
   extern __shared__ float4 smem4[];
   const int BQp = (BQ + 3) & ~3;
   const int Dp = (D + 3) & ~3;
@@ -82,15 +77,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int hk = h / (H / Hkv);
   const int tid = threadIdx.x;
   const int q0 = iq * BQ;
-  const T* qb = q + (((size_t)b * H + h) * Sq + q0) * (size_t)D;
-  const T* kb = k + ((size_t)b * Hkv + hk) * (size_t)Skv * D;
-  const T* vb = v + ((size_t)b * Hkv + hk) * (size_t)Skv * D;
-  T* ob = o + (((size_t)b * H + h) * Sq + q0) * (size_t)D;
+  const float* qb = q + b * st.q_b + h * st.q_h + q0 * st.q_s;
+  const float* kb = k + b * st.k_b + hk * st.k_h;
+  const float* vb = v + b * st.v_b + hk * st.v_h;
+  float* ob = o + b * st.o_b + h * st.o_h + q0 * st.o_s;
+  const int rows = min(BQ, Sq - q0);   // rows of a ragged last q tile
 
   // the q tile, transposed and zero-padded; acc = 0, m = NEG_INF, l = 0
   for (int i = tid; i < BQp * Dp; i += kThreads) {
     const int r = i / Dp, d = i % Dp;
-    Qt[d * QS + r] = (r < BQ && d < D) ? to_f32(qb[(size_t)r * D + d]) : 0.0f;
+    Qt[d * QS + r] = (r < rows && d < D) ? qb[r * st.q_s + d] : 0.0f;
     acc[i] = 0.0f;
   }
   for (int r = tid; r < BQp; r += kThreads) {
@@ -99,7 +95,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   }
   __syncthreads();
 
-  const int nk = Skv / BK;
+  const int nk = (Skv + BK - 1) / BK;
   const int q_last = q0 + BQ - 1;
   for (int ik = 0; ik < nk; ++ik) {
     const int k0 = ik * BK;
@@ -112,12 +108,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
     // 1. s = (q . k) * scale, masked, chunk by chunk of keys
     for (int c0 = 0; c0 < BK; c0 += kChunk) {
-      const int nc = min(kChunk, BK - c0);
+      const int nc = min(kChunk, min(BK, Skv - k0) - c0);
       for (int i = tid; i < kChunk * Dp; i += kThreads) {
         const int j = i / Dp, d = i % Dp;
         KV[d * kKStride + j] =
-            (j < nc && d < D) ? to_f32(kb[(size_t)(k0 + c0 + j) * D + d])
-                              : 0.0f;
+            (j < nc && d < D) ? kb[(k0 + c0 + j) * st.k_s + d] : 0.0f;
       }
       __syncthreads();
       for (int mt = tid; mt < (BQp / 4) * (kChunk / 4); mt += kThreads) {
@@ -141,7 +136,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             s[i] = a[i][j] * scale;
-            if (causal && k0 + c > q0 + 4 * rg + i) s[i] = kNegInf;
+            if (k0 + c >= Skv || (causal && k0 + c > q0 + 4 * rg + i))
+              s[i] = kNegInf;
           }
           *reinterpret_cast<float4*>(Pt + c * BQp + 4 * rg) =
               make_float4(s[0], s[1], s[2], s[3]);
@@ -188,11 +184,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
     // 3. acc = acc * corr + p v, chunk by chunk of keys
     for (int c0 = 0; c0 < BK; c0 += kChunk) {
-      const int nc = min(kChunk, BK - c0);
+      const int nc = max(0, min(kChunk, min(BK, Skv - k0) - c0));
       for (int i = tid; i < kChunk * Dp; i += kThreads) {
         const int j = i / Dp, d = i % Dp;
-        KV[i] = (j < nc && d < D) ? to_f32(vb[(size_t)(k0 + c0 + j) * D + d])
-                                  : 0.0f;
+        KV[i] = (j < nc && d < D) ? vb[(k0 + c0 + j) * st.v_s + d] : 0.0f;
       }
       __syncthreads();
       for (int mt = tid; mt < (BQp / 4) * (Dp / 4); mt += kThreads) {
@@ -227,44 +222,41 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     }
   }
 
-  // out = acc / max(l, 1e-30), in q's dtype
-  for (int i = tid; i < BQ * D; i += kThreads) {
+  // out = acc / max(l, 1e-30)
+  for (int i = tid; i < rows * D; i += kThreads) {
     const int r = i / D, d = i % D;
-    store_as(acc[r * Dp + d] / fmaxf(l_s[r], 1e-30f), ob + (size_t)r * D + d);
+    ob[r * st.o_s + d] = acc[r * Dp + d] / fmaxf(l_s[r], 1e-30f);
   }
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Hkv, int Sq, int Skv, int D, int block_q, int block_k,
-           int causal, float scale, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(Sq / block_q, H, B);
-  flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, Sq, Skv, D,
-      block_q, block_k, causal, scale);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, o: (B, H, Sq, D); k, v: (B, Hkv, Skv, D); contiguous, all f32
-// (is_bf16 = 0) or all bf16 (is_bf16 = 1). The caller checks H % Hkv == 0,
-// Sq % block_q == 0, Skv % block_k == 0 and that `smem` (the wrapper's
-// `smem_bytes`) fits one block. Returns the cudaError_t of the launch.
-extern "C" int flash_attention_fwd(int is_bf16, const void* q, const void* k,
-                                   const void* v, void* o, int B, int H,
-                                   int Hkv, int Sq, int Skv, int D,
-                                   int block_q, int block_k, int causal,
-                                   float scale, size_t smem, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, o, B, H, Hkv, Sq, Skv, D, block_q,
-                                 block_k, causal, scale, smem, s);
-  return launch<float>(q, k, v, o, B, H, Hkv, Sq, Skv, D, block_q, block_k,
-                       causal, scale, smem, s);
+// q, o: (B, H, Sq, D); k, v: (B, Hkv, Skv, D); f32, each addressed by its
+// (b, h, s) element strides with unit d stride. BQ and BK need not divide
+// Sq and Skv; `smem` is the wrapper's `smem_bytes(BQ, BK, D)`, within one
+// block's shared memory. The caller checks H % Hkv == 0. Returns the
+// cudaError_t of the launch.
+extern "C" int flash_attention_fwd(const void* q, const void* k,
+                                   const void* v, void* o, long long q_b,
+                                   long long q_h, long long q_s,
+                                   long long k_b, long long k_h,
+                                   long long k_s, long long v_b,
+                                   long long v_h, long long v_s,
+                                   long long o_b, long long o_h,
+                                   long long o_s, int B, int H, int Hkv,
+                                   int Sq, int Skv, int D, int BQ, int BK,
+                                   int causal, float scale, size_t smem,
+                                   void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const Strides st{q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h,
+                   o_s};
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  flash_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), st, H, Hkv, Sq,
+      Skv, D, BQ, BK, causal, scale);
+  return (int)cudaGetLastError();
 }

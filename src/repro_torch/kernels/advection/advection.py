@@ -311,30 +311,28 @@ def _plan_z_window(T: int, S: int, Z: int):
 def _fused_block(Y: int, Z: int, T: int,
                  y_tile: Optional[int]) -> _FusedBlock:
     """K1's block for one pass of depth T and `y_tile` (None: K1's own
-    tile). Raises ValueError, naming the limit, where no build takes it."""
+    tile). A given tile whose slab no build takes (more threads than a
+    build runs, or more shared memory than one block has, even in the
+    narrowest z window) runs as the fewest equal sub-tiles that a build
+    takes: TY / k rows for the least k dividing TY, so that the caller's
+    tile edges stay tile edges. y-tiling is bitwise invariant (the port's
+    grid-tiled == untiled contract), so the result is the same bits. A
+    sub-tile of one row always fits. Raises ValueError for T beyond the
+    build."""
     if not 1 <= T <= _build.K1_MAX_T:
         raise ValueError(f"K1 is built for T in 1..{_build.K1_MAX_T} a pass "
                          f"(its register ring holds T levels), got T={T}")
     tile = _plan_y_tile(Y, Z, T) if y_tile is None else y_tile
     TY, S, n_ty = _grid_geometry(Y, tile, T)
     window = _plan_z_window(T, S, Z)
-    if window is None:
-        w0 = min(Z, 2 * T + 1)
-        need = min(fused_shared_bytes(T, S, w0, C) for C in _build.K1_BUILDS)
-        if need > SMEM_PER_BLOCK:
-            raise ValueError(
-                f"the fused ring needs {need} B of shared memory at T={T}, "
-                f"Y={Y}, Z={Z}, y_tile={y_tile} (a slab of {S} rows, even "
-                f"in a z window of {w0} cells); one block may use "
-                f"{SMEM_PER_BLOCK} B. Pass a smaller y_tile, or none (K1 "
-                f"then plans its own)")
-        raise ValueError(
-            f"the fused ring's slab of {S} rows at T={T}, Y={Y}, Z={Z}, "
-            f"y_tile={y_tile} needs more threads than a block of K1 runs, "
-            f"even in a z window of {w0} cells: S x ceil(W / C) threads for "
-            f"C cells per thread, at most {_build.K1_BUILDS} (C: threads, "
-            f"the ring in registers). Pass a smaller y_tile, or none (K1 "
-            f"then plans its own)")
+    for k in range(2, TY + 1):
+        if window is not None:
+            break
+        if TY % k == 0:
+            geometry = _grid_geometry(Y, TY // k, T)
+            window = _plan_z_window(T, geometry[1], Z)
+            if window is not None:
+                TY, S, n_ty = geometry
     C, CZ, W, n_cz = window
     return _FusedBlock(TY, S, n_ty, CZ, W, n_cz, C, _fused_threads(S, W, C),
                        fused_plane_pitch(W, C),
@@ -365,11 +363,11 @@ def fused_launch_plan(X: int, Y: int, Z: int, T: int, B: int, n_sm: int,
                       y_tile: Optional[int] = None) -> FusedPlan:
     """One K1 pass of depth T over (B, X, Y, Z) fields on a card of `n_sm`
     SMs that holds `blocks_per_sm` of the pass's blocks at once: `y_tile`
-    as given, or K1's own (a slab of about `K1_PLAN_CELLS` cells); the
-    whole row, or z chunks, for the fewest cells per thread whose build
-    takes it (`_plan_z_window`); x chunks from `_plan_x_chunks`. Raises
-    ValueError, naming the limit, for T beyond the build, a slab beyond one
-    block's shared memory or threads, or a grid beyond CUDA's."""
+    as given (or the fewest equal sub-tiles of it that a build takes), or
+    K1's own (a slab of about `K1_PLAN_CELLS` cells); the whole row, or z
+    chunks, for the fewest cells per thread whose build takes it
+    (`_plan_z_window`); x chunks from `_plan_x_chunks`. Raises ValueError,
+    naming the limit, for T beyond the build or a grid beyond CUDA's."""
     blk = _fused_block(Y, Z, T, y_tile)
     tiles = blk.n_ty * blk.n_cz
     CX = _plan_x_chunks(X, T, tiles * B, n_sm * blocks_per_sm, n_sm)
@@ -758,9 +756,10 @@ def advect_fused(u, v, w, p: AdvectParams, *, T: int = 4, dt: float = 1.0,
     advanced fields (a separate launch: the field outputs are the same bits
     as with `guard=False`). `y_tile` runs the in-grid tiling. On CUDA,
     None lets K1 plan its own tiles and chunks (`fused_launch_plan`); a
-    given tile's slab must fit one block of K1 in some z window (its shared
+    given tile whose slab fits no block of K1 in any z window (its shared
     planes within `roofline.SMEM_PER_BLOCK`, its threads within a build's,
-    `_build.K1_BUILDS`), else this raises naming the limit. T beyond the
+    `_build.K1_BUILDS`) runs as the fewest equal sub-tiles that one does
+    (`_fused_block`), bitwise the same. T beyond the
     build's `_build.K1_MAX_T` runs as `fused_passes(T)`, one launch each.
     On the CPU the plain version ignores the tile.
     `tiling="host"` runs the host tile loop with a T-row halo instead (no

@@ -2,12 +2,15 @@
 `repro.kernels.attention.ops`).
 
 `mha(q, k, v, ...)` takes (B, H, S, D)/(B, Hkv, S, D) tensors;
-`gqa_layout_attention` adapts the model's (B, S, K, G, D) layout so the
-kernel drops into `attention_apply` when `attention_impl="pallas"`. PyTorch
+`gqa_layout_attention` hands the model's (B, S, K, G, D) layout to the
+kernel as strided views, so it drops into `attention_apply` when
+`attention_impl="pallas"` without a copy. PyTorch
 runs eagerly, so there is nothing to jit and no `interpret` switch: the
 device of the tensors picks the CUDA kernel or its plain version.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels.attention.attention import flash_attention
 from repro_torch.kernels.attention.ref import mha_ref
@@ -20,13 +23,20 @@ def mha(q, k, v, *, causal: bool = True, block_q: int = 128,
 
 
 def gqa_layout_attention(q5, k4, v4, *, causal: bool = True):
-    """(B,S,K,G,D) q / (B,S,K,D) kv -> (B,S,K,G,D), via the flash kernel."""
+    """(B,S,K,G,D) q / (B,S,K,D) kv -> (B,S,K,G,D), via the flash kernel.
+
+    q, k and v reach the kernel as (B, H, S, D) / (B, K, S, D) views of the
+    model's tensors, and the kernel writes a (B, H, S, D) view of a
+    contiguous (B, S, K, G, D) output: no copy of q, k, v or o on the card
+    (the kernel takes its operands by their strides)."""
     B, S, K, G, D = q5.shape
     q = q5.permute(0, 2, 3, 1, 4).reshape(B, K * G, S, D)
     k = k4.permute(0, 2, 1, 3)
     v = v4.permute(0, 2, 1, 3)
-    o = mha(q, k, v, causal=causal)
-    return o.reshape(B, K, G, S, D).permute(0, 3, 1, 2, 4)
+    o5 = torch.empty((B, S, K, G, D), dtype=q5.dtype, device=q5.device)
+    flash_attention(q, k, v, causal=causal,
+                    out=o5.permute(0, 2, 3, 1, 4).view(B, K * G, S, D))
+    return o5
 
 
 __all__ = ["mha", "gqa_layout_attention", "mha_ref"]

@@ -14,6 +14,7 @@ from jax.experimental import pallas as pl
 
 from repro.kernels.advection import advection as JK
 from repro.kernels.advection import ref as JREF
+from repro_torch import _build
 from repro_torch.kernels.advection import advection as TK
 from repro_torch.kernels.advection import ref as TREF
 
@@ -376,24 +377,31 @@ def test_fused_contract_errors():
         TK.finite_guard(u[0], v[0], w[0])
 
 
-def test_cuda_ring_budget_is_checked_before_any_build():
-    """K1's refusals come before any build, each naming its limit: a given
-    tile whose shared planes exceed one block's budget even in the
-    narrowest z window (Y = 1024 untiled at T = 4, Z = 64: 884,816 B), one
-    whose slab needs more threads than K1's builds run (y_tile 255: 263
-    rows, over 256 even at one thread a row), a deep T whose pass of depth
-    8 needs more shared memory than one block has, and slots beyond the grid's y limit. Without a tile K1
-    plans one that fits, and T beyond the build runs as passes, so neither
-    None nor T = 9 is refused."""
+class _ReachedTheBuild(Exception):
+    pass
+
+
+def test_cuda_ring_budget_is_checked_before_any_build(monkeypatch):
+    """K1's checks come before any build. A given tile whose shared planes
+    exceed one block's budget even in the narrowest z window (Y = 1024
+    untiled at T = 4, Z = 64: 884,816 B), one whose slab needs more threads
+    than K1's builds run (y_tile 255: 263 rows, over 256 even at one thread
+    a row) and a deep T whose pass of depth 8 at y_tile 230 needs more
+    shared memory than one block has are no longer refused: each runs as
+    the fewest equal sub-tiles that a build takes, so each call gets past
+    the checks to the build. Slots beyond the grid's y limit are refused,
+    naming the limit. Without a tile K1 plans one that fits, and T beyond
+    the build runs as passes, so neither None nor T = 9 is refused."""
+    def reached_the_build(*args, **kwargs):
+        raise _ReachedTheBuild
+
+    monkeypatch.setattr(_build, "load", reached_the_build)
     u, v, w = (torch.zeros((1, 3, 1024, 64)) for _ in range(3))
     p = TK._slot_params(TREF.default_params(64, device="cpu"), 1, 64, "cpu")
     ones = torch.ones(3), torch.ones(1024)
-    with pytest.raises(ValueError, match="232448"):
-        TK._advect_fused_cuda(u, v, w, p, 4, DT, *ones, 1024)
-    with pytest.raises(ValueError, match="more threads than a block"):
-        TK._advect_fused_cuda(u, v, w, p, 4, DT, *ones, 255)
-    with pytest.raises(ValueError, match="at T=8, .* 232448"):
-        TK._advect_fused_cuda(u, v, w, p, 16, DT, *ones, 230)
+    for T, y_tile in ((4, 1024), (4, 255), (16, 230)):
+        with pytest.raises(_ReachedTheBuild):
+            TK._advect_fused_cuda(u, v, w, p, T, DT, *ones, y_tile)
     many = [f.expand(65536, 3, 1024, 64) for f in (u, v, w)]
     with pytest.raises(ValueError, match="65535"):
         TK._advect_fused_cuda(*many, p, 4, DT, *ones, None)

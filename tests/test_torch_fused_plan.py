@@ -181,12 +181,15 @@ def test_plan_refusals_name_their_limits():
         TK.fused_launch_plan(16, 16, 8, 0, 1, H100_SMS, 1)
     with pytest.raises(ValueError, match="T must be >= 1"):
         TK.fused_passes(0)
-    with pytest.raises(ValueError, match=str(SMEM_PER_BLOCK)):
-        TK.fused_launch_plan(16, 1024, 64, 4, 1, H100_SMS, 1, y_tile=1024)
-    # 263 rows x ceil(9 / 8) threads even in the narrowest window: over the
-    # 256 of the 8-cell build, within the shared budget
-    with pytest.raises(ValueError, match="more threads than a block"):
-        TK.fused_launch_plan(16, 1024, 64, 4, 1, H100_SMS, 1, y_tile=255)
+    # a given tile no build takes is no longer refused: y_tile 1024 (the
+    # whole Y: 884,816 B of shared planes) and 255 (263 rows x ceil(9 / 8)
+    # threads even in the narrowest window, over the 8-cell build's 256)
+    # run as the fewest equal sub-tiles that a build takes
+    for y_tile, TY in ((1024, 64), (255, 85)):
+        plan = TK.fused_launch_plan(16, 1024, 64, 4, 1, H100_SMS, 1,
+                                    y_tile=y_tile)
+        check_plan(plan, 16, 1024, 64, 4)
+        assert plan.TY == TY and y_tile % plan.TY == 0
     with pytest.raises(ValueError, match="65535"):
         TK.fused_launch_plan(16, 16, 8, 2, 65536, H100_SMS, 1)
 
@@ -201,6 +204,27 @@ def test_check_launch_grid(axis, limit):
     with pytest.raises(ValueError, match=f"k: .* {'xyz'[axis]} exceeds "
                                          f"CUDA's limit of {limit}"):
         TK.check_launch_grid(tuple(grid), "k")
+
+
+@pytest.mark.parametrize("Y,Z,T,y_tile,TY", [
+    (1024, 64, 4, 128, 64), (1000, 8, 1, 400, 200), (1024, 64, 4, 120, 120),
+    (1024, 64, 4, 121, 11), (1024, 8, 1, 382, 382), (1024, 64, 5, 255, 85)])
+def test_plan_runs_a_tile_no_build_takes_as_equal_sub_tiles(Y, Z, T, y_tile,
+                                                            TY):
+    """An explicit y_tile whose slab no build of K1 takes runs as the fewest
+    equal sub-tiles that one does (TY / k for the least k dividing it), so
+    each of the caller's tile edges stays an edge: 128 at T = 4, Z = 64
+    (120 is the most a build takes there) and 400 at T = 1, Z = 8 (382)."""
+    plan = TK.fused_launch_plan(16, Y, Z, T, 1, H100_SMS, 1, y_tile=y_tile)
+    check_plan(plan, 16, Y, Z, T)
+    assert plan.TY == TY and y_tile % TY == 0
+    k = y_tile // TY
+    for fewer in range(1, k):
+        if y_tile % fewer == 0:
+            S = y_tile // fewer + 2 * T
+            assert not any(TK._fused_fits(T, S, W, C)
+                           for C in _build.K1_BUILDS
+                           for W in range(min(2 * T + 1, Z), Z + 1))
 
 
 def blocks_restitched(u, v, w, p, T, dt, xm, ym, plan):
@@ -259,3 +283,21 @@ def test_x_chunked_y_tiled_blocks_equal_whole_domain_plain(shape, T, TY, CX,
     assert all(torch.equal(a, b[0]) for a, b in zip(got, want))
     moved = max(float((a - b).abs().max()) for a, b in zip(got, (u, v, w)))
     assert moved > 0.0
+
+
+@pytest.mark.parametrize("shape,T,y_tile", [((5, 300, 64), 4, 128),
+                                           ((4, 1000, 8), 1, 400)])
+def test_sub_tiled_blocks_equal_whole_domain_plain(shape, T, y_tile):
+    """The sub-tiled plan of a tile no build takes (128 at T = 4, Z = 64;
+    400 at T = 1, Z = 8): the plain version on each block it launches,
+    restitched, is bitwise the whole-domain plain result."""
+    X, Y, Z = shape
+    u, v, w = fields(shape, seed=Y + T)
+    p = TREF.default_params(Z, dx=1.0, dy=1.0, dz=1.0, device="cpu")
+    xm, ym = torch.ones(X), torch.ones(Y)
+    plan = TK.fused_launch_plan(X, Y, Z, T, 1, H100_SMS, 1, y_tile=y_tile)
+    assert plan.TY < y_tile and y_tile % plan.TY == 0 and plan.n_ty > 2
+    got = blocks_restitched(u, v, w, p, T, STRONG_DT, xm, ym, plan)
+    want = TK._advect_fused_plain(u[None], v[None], w[None], p, T, STRONG_DT,
+                                  xm, ym)
+    assert all(torch.equal(a, b[0]) for a, b in zip(got, want))
