@@ -4,6 +4,7 @@
     python3 chip_smoke.py                      # every phase, one card
     python3 chip_smoke.py --only distributed   # phases 15-18 alone
     python3 chip_smoke.py --only k8            # K8's time and a prefill's
+    python3 chip_smoke.py --only k9            # K9's times and a prefill's
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 
@@ -77,8 +78,11 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    nonzero h0 and two chained half-length scans against one full scan,
    the serving path's prompt lengths (S = 4-23, chunk = S, D 8192), D not
    a multiple of the kernel's d-tile, within 1e-4 of the larger of 1 and
-   the plain version's largest value; and its refusals (`ValueError`, no
-   launch);
+   the plain version's largest value; the edge cases of `SCAN_EDGE_CASES`
+   (chunk below, at and above the plan's tile, S not a multiple of it, dt
+   large and tiny, D 37 and 8200, N 5 and 40) against plain and f64 in f32
+   and bf16; a chunk of 1024 steps that the old kernel refused for shared
+   memory; and its refusals (`ValueError`, no launch);
 12. drives the ssm serving path at the full width and depth of
    `falcon-mamba-7b` (f32 weights drawn on the card after qwen's are
    freed, bf16 compute, `attention_impl="pallas"`) on the same traffic,
@@ -93,9 +97,14 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    `chunked`, since this random init amplifies f32 rounding about
    1e6-fold over the stack; and in bf16 at the first 2 layers
    (tolerances and basis in PERF.md); bf16 at 64 layers is printed only;
-14. times K9 at xc (1, 2048, 8192) bf16, dt f32, B/C (1, 2048, 16) bf16
-   beside its plain version and its bound (no single PyTorch call computes
-   the scan, so no library time);
+14. prints each K9 build's registers, spills, shared bytes and resident
+   blocks per SM and the plans of its two timed shapes; times K9 (events,
+   device time by `torch.profiler`) at xc (1, 2048, 8192) bf16, dt f32,
+   B/C (1, 2048, 16) bf16 beside the launches of one 2048-token prefill,
+   and at a serving prompt's (1, 16, 8192, 16) beside the serving path's
+   launches, each beside its plain version and its bound (no single
+   PyTorch call computes the scan, so no library time); then a sweep of
+   K9's lanes and steps at the first shape, each == the planned one;
 15. holds the band exchange (K7) against its plain version on loopback
    meshes of the one card (`BAND_CASES`: (1, 2), (2, 1), (2, 2), (1, 4),
    (3, 1); dims 0 and 1; depth 1 to three hops a side): four blocks in a
@@ -120,6 +129,10 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 of 2048 tokens through the package beside the script, with entry points
 that the port has had since K8 was ported, so a copy of the script in an
 older checkout times that checkout the same way.
+
+`--only k9` times K9 at phase 14's two shapes and a bf16 `falcon-mamba-7b`
+prefill of 2048 tokens the same way, with entry points the port has had
+since K9 was ported.
 
 Prints the card's name and power limit, one JSON line of kernel records and,
 last, `{"ok": true, "device": {...}}`. Any failed check exits nonzero
@@ -264,6 +277,21 @@ SSM_PREFILL_BF16_REL_TOL = 0.03  # x max |chunked logit|; PERF.md: written
                                  # before the first chip run
 SCAN_TIMED = (1, 2048, 8192, 16, 256)   # B, S, D, N, chunk: x, B, C bf16,
                                         # dt f32 (the 2048-token prefill)
+SCAN_SERVE_TIMED = (1, 16, 8192, 16, 16)   # a serving prompt's shape
+# K9's edge cases, each against plain and f64 in f32 and bf16: chunk below,
+# at and above the plan's tile of 64 steps at S = 256; S not a multiple of
+# the tile; dt large (a -> 0) and tiny (a -> 1); B = 2 with D = 37 and
+# 8200, N = 5 and 40
+SCAN_EDGE_CASES = (  # what, B, S, D, N, chunk, dt scale
+    ("chunk below the tile", 1, 256, 64, 16, 16, 0.1),
+    ("chunk at the tile", 1, 256, 64, 16, 64, 0.1),
+    ("chunk above the tile", 1, 256, 64, 16, 256, 0.1),
+    ("S not a multiple of the tile", 1, 200, 48, 16, 40, 0.1),
+    ("dt large (a -> 0)", 2, 512, 40, 16, 512, 50.0),
+    ("dt tiny (a -> 1)", 2, 512, 40, 16, 512, 1e-6),
+    ("B 2, D 37, N 5", 2, 96, 37, 5, 32, 0.1),
+    ("B 2, D 8200, N 40", 2, 64, 8200, 40, 64, 0.1))
+K9_PLAN_SWEEP = ((4, 8), (4, 4), (8, 4), (16, 4), (16, 8), (32, 2))
 # K1's launch-plan sweep at the main grid: y_tile (None = K1's own) by the
 # plan's x chunk and these
 K1_SWEEP_TILES = (None, 4, 16)
@@ -1567,14 +1595,15 @@ def witness_f32_limit(c, p, toks, layout, lc):
 
 def prefill_gate_phase(check: Checks, cfg, params, kernel: str,
                        f32_limit, bf16_rel_tol: float,
-                       bf16_kernel: str = "") -> None:
+                       bf16_kernel: str = "") -> int:
     """`pallas` (where `kernel` runs once per layer, and `bf16_kernel`, its
     bf16 build's own count, where named, once per layer in bf16 only)
     against `chunked` prefill logits on one 2048-token prompt: f32 at all
     layers within `f32_limit(cfg, params, tokens, layout, chunked
     logits)`, bf16 at the first 2 layers within `bf16_rel_tol` x max
     |chunked logit|, bf16 at all layers printed. Prints each pallas
-    forward's wall time."""
+    forward's wall time. Returns `kernel`'s launches in the last pallas
+    forward (bf16, all layers)."""
     layout = M.make_layout(cfg, 1)
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (1, PREFILL_TOKENS)), device="cuda")
@@ -1617,7 +1646,8 @@ def prefill_gate_phase(check: Checks, cfg, params, kernel: str,
               f"{wall:.2f} s", flush=True)
         bf16_ok = not bf16_kernel or \
             n_p.pop(bf16_kernel) == (depth if name == "bf16" else 0)
-        check(bf16_ok and n_p.pop(kernel) == depth and not any(n_p.values())
+        launched = n_p.pop(kernel)
+        check(bf16_ok and launched == depth and not any(n_p.values())
               and not any(n_c.values())
               and lp.shape == (1, PREFILL_TOKENS, cfg.vocab_size)
               and bool(torch.isfinite(lp).all())
@@ -1637,6 +1667,7 @@ def prefill_gate_phase(check: Checks, cfg, params, kernel: str,
             print(f"{tag}: not gated: bf16 rounding of activations differs "
                   f"between the two algorithms and grows with depth", flush=True)
         del out, lp, lc
+    return launched
 
 
 def k8_bound(B, H, Hkv, S, D, itemsize: int = 2):
@@ -1779,14 +1810,15 @@ def k8_compare(card: str) -> int:
 # ---------------------------------------------------------------------------
 
 
-def scan_inputs(B, S, D, N, dtype, dt_dtype, seed):
+def scan_inputs(B, S, D, N, dtype, dt_dtype, seed, dt_scale=0.1):
     """The reference's test inputs (`make` in tests/test_ssm_kernel.py) on
-    the card: x, B, C in `dtype`, dt in `dt_dtype`, A and h0 f32."""
+    the card: x, B, C in `dtype`, dt in `dt_dtype` (|normal| x `dt_scale`),
+    A and h0 f32."""
     rng = np.random.default_rng(seed)
     t = lambda a, d: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
                                      device="cuda").to(d)
     return (t(rng.normal(size=(B, S, D)), dtype),
-            t(np.abs(rng.normal(size=(B, S, D))) * 0.1, dt_dtype),
+            t(np.abs(rng.normal(size=(B, S, D))) * dt_scale, dt_dtype),
             t(rng.normal(size=(B, S, N)), dtype),
             t(rng.normal(size=(B, S, N)), dtype),
             t(-np.abs(rng.normal(size=(D, N))), torch.float32),
@@ -1799,7 +1831,20 @@ def scan_err(got, want) -> float:
                for g, w in zip(got, want))
 
 
-def scan_check(check: Checks, tag: str, args, chunk: int) -> None:
+def scan_f64(xc, dt, Bmat, Cmat, A, h0):
+    """The recurrence in f64 on the card (the inputs widened exactly)."""
+    xc, dt, Bmat, Cmat, A, h = (t.double()
+                                for t in (xc, dt, Bmat, Cmat, A, h0))
+    ys = []
+    for t in range(xc.shape[1]):
+        h = torch.exp(dt[:, t, :, None] * A) * h \
+            + (dt[:, t] * xc[:, t])[..., None] * Bmat[:, t, None, :]
+        ys.append((h * Cmat[:, t, None, :]).sum(-1))
+    return torch.stack(ys, 1), h
+
+
+def scan_check(check: Checks, tag: str, args, chunk: int,
+               f64: bool = False) -> None:
     B, S, D = args[0].shape
     N = args[2].shape[-1]
     before = SS.LAUNCHES["selective_scan"]
@@ -1807,11 +1852,38 @@ def scan_check(check: Checks, tag: str, args, chunk: int) -> None:
     torch.cuda.synchronize()
     launched = SS.LAUNCHES["selective_scan"] - before
     err = scan_err(got, SS._selective_scan_plain(*args))
-    check(err <= SCAN_TOL and launched == 1
+    err64 = scan_err(got, scan_f64(*args)) if f64 else 0.0
+    check(err <= SCAN_TOL and err64 <= SCAN_TOL and launched == 1
           and got[0].shape == (B, S, D) and got[1].shape == (B, D, N)
           and all(g.dtype == torch.float32 for g in got),
-          f"K9 {tag} == plain within {SCAN_TOL} x max(1, max |plain|) "
-          f"({err:.3e}), one launch")
+          f"K9 {tag} == plain{' and f64' if f64 else ''} within {SCAN_TOL} "
+          f"x max(1, max |ref|) ({err:.3e}"
+          f"{f', f64 {err64:.3e}' if f64 else ''}), one launch")
+
+
+def scan_attrs_lines(card: str) -> None:
+    """Each K9 build's registers, spills, shared bytes and resident blocks
+    per SM at N = 16 and PLAN_LANES lanes, and the plans of the two timed
+    shapes."""
+    for x_t, dt_t in ((torch.float32, torch.float32),
+                      (torch.bfloat16, torch.float32),
+                      (torch.bfloat16, torch.bfloat16)):
+        for K in SS.STEP_BUILDS:
+            L = SS.PLAN_LANES
+            plan = SS.scan_device_plan("cuda", 1, L * K, 8192, 16, x_t,
+                                       dt_t, lanes=L, steps=K)
+            at = SS.scan_kernel_attrs("cuda", x_t, dt_t, 16, plan)
+            print(f"selective_scan build: {K} steps a lane, x "
+                  f"{str(x_t)[6:]}, dt {str(dt_t)[6:]}, at {L} lanes (N 16): "
+                  f"{at['registers']} registers, {at['local_bytes']} B "
+                  f"spilled per thread, {at['shared_bytes']} B shared, "
+                  f"{at['blocks_per_sm']} resident blocks per SM (card "
+                  f"{card})", flush=True)
+    for B, S, D, N, _ in (SCAN_TIMED, SCAN_SERVE_TIMED):
+        plan = SS.scan_device_plan("cuda", B, S, D, N, torch.bfloat16,
+                                   torch.float32)
+        print(f"selective_scan plan at {(B, S, D, N)}, x bf16, dt f32: "
+              f"{plan}", flush=True)
 
 
 def scan_small_phase(check: Checks) -> None:
@@ -1837,10 +1909,20 @@ def scan_small_phase(check: Checks) -> None:
                            torch.float32, seed=640 + S)
         scan_check(check, f"serving prompt S={S}, D {SCAN_SERVE_D}, N "
                    f"{SCAN_SERVE_N}, chunk {S}", args, S)
-    refusals = (("S % chunk != 0", (1, 96, 16, 16), 64),
-                ("a chunk over the shared-memory budget", (1, 1024, 16, 16),
-                 1024))
-    for what, (B, S, D, N), chunk in refusals:
+    for i, (what, B, S, D, N, chunk, scale) in enumerate(SCAN_EDGE_CASES):
+        for x_t in (torch.float32, torch.bfloat16):
+            args = scan_inputs(B, S, D, N, x_t, torch.float32, 680 + i,
+                               dt_scale=scale)
+            scan_check(check, f"{what}: {(B, S, D, N)} chunk {chunk} x "
+                       f"{str(x_t)[6:]} dt float32", args, chunk, f64=True)
+    # a chunk the old kernel refused for its shared memory: the staging no
+    # longer grows with the chunk
+    args = scan_inputs(1, 1024, 16, 16, torch.float32, torch.float32, 660)
+    scan_check(check, "(1, 1024, 16, 16) chunk 1024 (once over the shared-"
+               "memory budget) x float32 dt float32", args, 1024)
+    for what, (B, S, D, N), chunk in (
+            ("S % chunk != 0", (1, 96, 16, 16), 64),
+            ("N over 128 states", (1, 8, 4, 129), 8)):
         args = scan_inputs(B, S, D, N, torch.float32, torch.float32, 660)
         before = SS.LAUNCHES["selective_scan"]
         try:
@@ -1899,32 +1981,119 @@ def ssm_layer_gate_phase(check: Checks, cfg, params) -> None:
           f"|mamba mixer output| at every layer")
 
 
-def scan_timing(launches: int, card: str) -> dict:
-    """K9 at the 2048-token prefill's shape beside its plain version and
-    its bound."""
-    B, S, D, N, chunk = SCAN_TIMED
-    args = scan_inputs(B, S, D, N, torch.bfloat16, torch.float32, seed=700)
+def scan_bound(B, S, D, N, args, got):
+    """(bytes, f32 operations) of K9: read every input once (x, B, C bf16;
+    dt, A, h0 f32), write y and h_final (f32) once; per (t, d, n) dt*A,
+    exp, a*h, dx*B, the sum, h*C and its sum over n, 7 operations, and
+    dt*x per (t, d)."""
+    nbytes = sum(t.numel() * t.element_size() for t in args) + \
+        sum(t.numel() * 4 for t in got)
+    return nbytes, 7 * B * S * D * N + B * S * D
+
+
+def scan_times(shape, seed: int):
+    """K9 at `shape` (x, B, C bf16, dt f32): (args, result, ms by events,
+    device ms by torch.profiler or 0.0 where it sees none)."""
+    B, S, D, N, chunk = shape
+    args = scan_inputs(B, S, D, N, torch.bfloat16, torch.float32, seed=seed)
     got = SS.selective_scan(*args, chunk=chunk)
+    ms = time_ms(lambda: SS.selective_scan(*args, chunk=chunk))
+    dev = profiled_device_ms(lambda: SS.selective_scan(*args, chunk=chunk),
+                             "selective_scan", {args[0].device}, TIMED_RUNS)
+    return args, got, ms, dev
+
+
+def scan_timing(shape, launches: int, path: str, card: str) -> dict:
+    """K9 at `shape` beside its plain version and its bound; `launches` is
+    what the path of that shape (`path`) launched."""
+    B, S, D, N, chunk = shape
+    args, got, ms, dev = scan_times(shape, seed=700 + S)
     plain = SS._selective_scan_plain(*args)
     err = max(float((g - w).abs().max()) for g, w in zip(got, plain))
     rel = scan_err(got, plain)
-    ms = time_ms(lambda: SS.selective_scan(*args, chunk=chunk))
     plain_ms = time_ms(lambda: SS._selective_scan_plain(*args), runs=3,
                        warmup=1)
-    # bound: read every input once (x, B, C bf16; dt, A, h0 f32), write y
-    # and h_final (f32) once; per (t, d, n) dt*A, exp, a*h, dx*B, the sum,
-    # h*C and its sum over n, 7 f32 operations, and dt*x per (t, d)
-    nbytes = sum(t.numel() * t.element_size() for t in args) + \
-        sum(t.numel() * 4 for t in got)
-    ops = 7 * B * S * D * N + B * S * D
+    nbytes, ops = scan_bound(B, S, D, N, args, got)
+    exps = B * S * D * N
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"selective_scan: xc {(B, S, D)} bf16, dt f32, B/C {(B, S, N)} "
-          f"bf16, chunk {chunk} (card {card}); == plain within {SCAN_TOL} x "
+          f"bf16, chunk {chunk} ({path}; card {card}): device "
+          f"{dev:.4f} ms by torch.profiler; {exps} exps, "
+          f"{exps / (n_sm * 16 * 1.755e9) * 1e3:.4f} ms at 16 a clock per "
+          f"SM on {n_sm} SMs at 1.755 GHz; == plain within {SCAN_TOL} x "
           f"max(1, max |plain|): {rel <= SCAN_TOL} ({rel:.3e}, max abs "
-          f"{err:.3e})", flush=True)
+          f"{err:.3e})",
+          flush=True)
     rec = kernel_record("selective_scan", ms, plain_ms, nbytes, ops,
                         launches, err)
-    rec["within_tolerance"] = rel <= SCAN_TOL
+    rec.update(shape=f"{(B, S, D, N)} chunk {chunk}", path=path,
+               device_ms=dev, within_tolerance=rel <= SCAN_TOL)
     return rec
+
+
+def k9_sweep(check: Checks, card: str) -> None:
+    """K9 at the timed shape on the plan's own lanes and steps and on
+    `K9_PLAN_SWEEP`'s, each == the planned one within SCAN_TOL."""
+    B, S, D, N, chunk = SCAN_TIMED
+    args = scan_inputs(B, S, D, N, torch.bfloat16, torch.float32, seed=710)
+    want = SS.selective_scan(*args, chunk=chunk)
+    for lanes, steps in K9_PLAN_SWEEP:
+        plan = SS.scan_device_plan("cuda", B, S, D, N, torch.bfloat16,
+                                   torch.float32, lanes=lanes, steps=steps)
+
+        def call():
+            return SS._selective_scan_cuda(*args, plan)
+        err = scan_err(call(), want)
+        dev = profiled_device_ms(call, "selective_scan", {args[0].device},
+                                 TIMED_RUNS)
+        print(f"K9 plan sweep at {(B, S, D, N)}: {lanes} lanes of {steps} "
+              f"steps: {time_ms(call, runs=10):.4f} ms by events, device "
+              f"{dev:.4f} ms (card {card})", flush=True)
+        check(err <= SCAN_TOL, f"K9 at {lanes} lanes of {steps} steps == "
+              f"its own plan within {SCAN_TOL} ({err:.3e})")
+
+
+def k9_compare(card: str) -> int:
+    """`--only k9`: K9 at the 2048-token prefill's shape and at a serving
+    prompt's (events and device time) and the wall time of a bf16
+    `falcon-mamba-7b` prefill of `PREFILL_TOKENS` tokens under
+    `attention_impl="pallas"`, through the package beside this file. It
+    uses only entry points that the port has had since K9 was ported, so a
+    copy of this script in an older checkout times that checkout's K9 the
+    same way."""
+    for shape in (SCAN_TIMED, SCAN_SERVE_TIMED):
+        B, S, D, N, chunk = shape
+        args, got, ms, dev = scan_times(shape, seed=700 + S)
+        nbytes, ops = scan_bound(B, S, D, N, args, got)
+        bound, _ = bound_of(nbytes, ops)
+        print(f"k9 compare ({SS.__file__}): K9 {(B, S, D, N)} chunk {chunk}, "
+              f"x bf16, dt f32: {ms:.4f} ms by events, device {dev:.4f} ms, "
+              f"{bound / ms:.4f} of the {bound:.4f} ms bound by events; card "
+              f"{card}", flush=True)
+        del args, got
+    if hasattr(SS, "scan_kernel_attrs"):
+        scan_attrs_lines(card)
+    cfg = get_config(SSM_ARCH).replace(attention_impl="pallas")
+    params = random_params(cfg, "cuda")
+    layout = M.make_layout(cfg, 1)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, PREFILL_TOKENS)), device="cuda")
+    walls = []
+    for i in range(4):   # one warm-up, three timed
+        n0 = SS.LAUNCHES["selective_scan"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            M.forward(params, {"inputs": toks}, cfg, layout)
+        torch.cuda.synchronize()
+        if i:
+            walls.append((time.perf_counter() - t0) * 1e3)
+        launched = SS.LAUNCHES["selective_scan"] - n0
+    print(f"k9 compare ({SS.__file__}): {cfg.name} bf16 prefill of "
+          f"{PREFILL_TOKENS} tokens, pallas: {statistics.median(walls):.2f} "
+          f"ms of wall time (median of {walls}), K9 launches {launched}; "
+          f"card {card}", flush=True)
+    return 0
 
 
 def distributed_only(check: Checks, card: str) -> list:
@@ -1946,8 +2115,8 @@ def distributed_only(check: Checks, card: str) -> list:
 
 def main() -> int:
     only = sys.argv[2:] if sys.argv[1:2] == ["--only"] else None
-    if sys.argv[1:] and only not in (["distributed"], ["k8"]):
-        print("usage: chip_smoke.py [--only distributed|k8]",
+    if sys.argv[1:] and only not in (["distributed"], ["k8"], ["k9"]):
+        print("usage: chip_smoke.py [--only distributed|k8|k9]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1969,6 +2138,8 @@ def main() -> int:
     check = Checks()
     if only == ["k8"]:
         return k8_compare(card)
+    if only == ["k9"]:
+        return k9_compare(card)
     if only:
         return finish(check, distributed_only(check, card), card, t0)
     small_shape_phase(check)
@@ -2002,17 +2173,24 @@ def main() -> int:
     check(k8["within_bf16_bound"], "K8 at the timed shape == plain within "
           "bf16_bound")
     records.append(k8)
-    cfg, params, k9_launches = serving_phase(check, SSM_ARCH,
-                                             ("selective_scan",))
+    cfg, params, k9_serve = serving_phase(check, SSM_ARCH,
+                                          ("selective_scan",))
     ssm_layer_gate_phase(check, cfg, params)
-    prefill_gate_phase(check, cfg, params, "selective_scan",
-                       witness_f32_limit, SSM_PREFILL_BF16_REL_TOL)
+    k9_prefill = prefill_gate_phase(check, cfg, params, "selective_scan",
+                                    witness_f32_limit,
+                                    SSM_PREFILL_BF16_REL_TOL)
     del params
     torch.cuda.empty_cache()
-    k9 = scan_timing(k9_launches, card)
-    check(k9["within_tolerance"], f"K9 at the timed shape == plain within "
-          f"{SCAN_TOL} x max(1, max |plain|)")
-    records.append(k9)
+    scan_attrs_lines(card)
+    for shape, launches, path in (
+            (SCAN_TIMED, k9_prefill, f"one {PREFILL_TOKENS}-token prefill"),
+            (SCAN_SERVE_TIMED, k9_serve, "the serving path's prompts of "
+             "4-23 tokens")):
+        k9 = scan_timing(shape, launches, path, card)
+        check(k9["within_tolerance"], f"K9 at {k9['shape']} == plain within "
+              f"{SCAN_TOL} x max(1, max |plain|)")
+        records.append(k9)
+    k9_sweep(check, card)
     return finish(check, records, card, t0)
 
 

@@ -62,7 +62,8 @@ SIGNATURES = {
     "flash_attention_fwd": [_P] * 4 + [_LL] * 12 + [_I] * 9 + [_F, _SZ, _P],
     "flash_attention_tc_fwd": [_P] * 4 + [_LL] * 12 + [_I] * 7 + [_F, _P],
     "flash_attention_tc_attrs": [_I, _P],
-    "selective_scan_fwd": [_I] * 2 + [_P] * 8 + [_I] * 5 + [_SZ, _P],
+    "selective_scan_fwd": [_I] * 2 + [_P] * 8 + [_I] * 6 + [_SZ, _P],
+    "selective_scan_attrs": [_I] * 5 + [_SZ, _P],
     "band_exchange_enter": [_P, _I, _P],
     "band_exchange_put": ([_P] * 4 + [_I] * 4 + [_LL, _LL, _I, _P, _ULL,
                                                   _LL, _P]),

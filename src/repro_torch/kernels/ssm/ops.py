@@ -16,8 +16,8 @@ def mamba_scan(xc, dt, Bmat, Cmat, A, h0, *, chunk: int = 128):
 
 def pick_chunk(D: int, N: int, budget: int = 12 * 2**20) -> int:
     """The reference's choice: the largest power-of-two chunk whose Pallas
-    working set (`vmem_bytes`) fits the budget. `selective_scan` checks the
-    CUDA kernel's own shared memory (`smem_bytes`) at launch."""
+    working set (`vmem_bytes`) fits the budget. The CUDA kernel stages a
+    tile of its own launch plan (`scan_launch_plan`), whatever the chunk."""
     c = 1024
     while c > 8 and vmem_bytes(c, D, N) > budget:
         c //= 2

@@ -571,12 +571,13 @@ SCAN_TOL = 1e-4
 
 
 def scan_inputs(B, S, D, N, device, dtype=torch.float32, dt_dtype=None,
-                seed=0):
+                seed=0, dt_scale=0.1):
     rng = np.random.default_rng(seed)
     t = lambda a, dt_: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
                                        device=device).to(dt_)
     return (t(rng.normal(size=(B, S, D)), dtype),
-            t(np.abs(rng.normal(size=(B, S, D))) * 0.1, dt_dtype or dtype),
+            t(np.abs(rng.normal(size=(B, S, D))) * dt_scale,
+              dt_dtype or dtype),
             t(rng.normal(size=(B, S, N)), dtype),
             t(rng.normal(size=(B, S, N)), dtype),
             t(-np.abs(rng.normal(size=(D, N))), torch.float32),
@@ -625,10 +626,67 @@ def test_scan_kernel_refusals(cuda):
     args = scan_inputs(1, 96, 16, 16, cuda)
     with pytest.raises(ValueError, match="multiple of chunk"):
         TS.selective_scan(*args, chunk=64)
-    args = scan_inputs(1, 1024, 16, 16, cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        TS.selective_scan(*args, chunk=1024)
+    args = scan_inputs(1, 8, 4, 129, cuda)
+    with pytest.raises(ValueError, match="at most 128 states"):
+        TS.selective_scan(*args, chunk=8)
+    with pytest.raises(ValueError, match="lanes a d"):
+        TS.scan_device_plan(cuda, 1, 64, 16, 16, torch.float32,
+                            torch.float32, lanes=3)
     assert TS.LAUNCHES == before
+
+
+def test_scan_kernel_runs_a_chunk_once_over_shared_memory(cuda):
+    """(1, 1024, 16, 16) at chunk 1024, which the first kernel refused for
+    its shared memory, runs == plain: the staging follows the plan's tile,
+    not the chunk."""
+    args = scan_inputs(1, 1024, 16, 16, cuda)
+    before = TS.LAUNCHES["selective_scan"]
+    got = TS.selective_scan(*args, chunk=1024)
+    assert TS.LAUNCHES["selective_scan"] == before + 1
+    assert scan_close(got, TS._selective_scan_plain(*args))
+
+
+def scan_f64(xc, dt, Bmat, Cmat, A, h0):
+    xc, dt, Bmat, Cmat, A, h = (t.double()
+                                for t in (xc, dt, Bmat, Cmat, A, h0))
+    ys = []
+    for t in range(xc.shape[1]):
+        h = torch.exp(dt[:, t, :, None] * A) * h \
+            + (dt[:, t] * xc[:, t])[..., None] * Bmat[:, t, None, :]
+        ys.append((h * Cmat[:, t, None, :]).sum(-1))
+    return torch.stack(ys, 1), h
+
+
+@pytest.mark.parametrize("B,S,D,N,chunk,dt_scale", [
+    (1, 256, 64, 16, 16, 0.1),     # chunk below the plan's tile (64)
+    (1, 256, 64, 16, 64, 0.1),     # chunk at the tile
+    (1, 256, 64, 16, 256, 0.1),    # chunk above the tile
+    (1, 200, 48, 16, 40, 0.1),     # S not a multiple of the tile
+    (2, 512, 40, 16, 512, 50.0),   # dt large: a -> 0
+    (2, 512, 40, 16, 512, 1e-6),   # dt tiny: a -> 1
+    (2, 96, 37, 5, 32, 0.1), (2, 64, 8200, 40, 64, 0.1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernel_edge_cases_against_plain_and_f64(cuda, B, S, D, N,
+                                                      chunk, dt_scale,
+                                                      dtype):
+    args = scan_inputs(B, S, D, N, cuda, dtype, torch.float32, seed=S + D,
+                       dt_scale=dt_scale)
+    got = TS.selective_scan(*args, chunk=chunk)
+    assert scan_close(got, TS._selective_scan_plain(*args))
+    assert scan_close(got, scan_f64(*args))
+
+
+@pytest.mark.parametrize("lanes,steps", [
+    (4, 1), (4, 8), (8, 2), (16, 8), (16, 4), (32, 2), (32, 1)])
+def test_scan_kernel_plans_equal_plain(cuda, lanes, steps):
+    """Lanes and steps other than the plan's own, N odd (the last state
+    walked alone), a ragged last tile: == plain."""
+    args = scan_inputs(2, 150, 40, 7, cuda, torch.bfloat16, torch.float32)
+    plan = TS.scan_device_plan(cuda, 2, 150, 40, 7, torch.bfloat16,
+                               torch.float32, lanes=lanes, steps=steps)
+    got = TS._selective_scan_cuda(*args, plan)
+    assert (plan.lanes, plan.steps) == (lanes, steps)
+    assert scan_close(got, TS._selective_scan_plain(*args))
 
 
 def test_ssm_model_pallas_equals_chunked_on_the_card(cuda):

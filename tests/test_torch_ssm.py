@@ -32,6 +32,7 @@ CASES = [
 ]
 F32_TOL = 1e-4
 BF16_TOL = 5e-2
+H100_SMS = 132
 
 
 def make(B, S, D, N, seed=0, dtype="float32"):
@@ -124,13 +125,25 @@ def test_pick_chunk_pins():
 
 
 def test_smem_budget_of_the_serving_path():
-    """falcon-mamba's prefill chunks (S // max(S // 256, 1) < 512, N 16,
-    x bf16, dt f32) fit one block's shared memory; 1024 f32 steps at N 16
-    do not."""
-    assert TS.smem_bytes(256, 16, 2, 4) == 40_960
-    assert TS.smem_bytes(511, 16, 2, 4) <= SMEM_PER_BLOCK
-    assert TS.smem_bytes(511, 16, 4, 4) <= SMEM_PER_BLOCK
-    assert TS.smem_bytes(1024, 16) > SMEM_PER_BLOCK
+    """falcon-mamba's prefill (S 2048, N 16, x bf16, dt f32), its serving
+    prompts (S 4-23) and 1024 f32 steps at N 16 all plan within one block's
+    shared memory: K9 stages a tile of its own plan, whatever the chunk."""
+    for S in (2048, 1024, *range(4, 24)):
+        for xi, di in ((2, 4), (4, 4), (2, 2)):
+            plan = TS.scan_launch_plan(1, S, 8192, 16, xi, di, H100_SMS, 8)
+            assert plan.shared_bytes == TS.scan_shared_bytes(
+                plan.lanes, plan.steps, 16, xi, di) <= SMEM_PER_BLOCK
+
+
+def test_chunk_once_over_the_shared_memory_budget_runs():
+    """(1, 1024, 16, 16) at chunk 1024, which the first CUDA kernel refused
+    for its shared memory, runs == the JAX Pallas kernel and reference."""
+    jx, tx = make(1, 1024, 16, 16, seed=11)
+    y, h = TS.selective_scan(*tx, chunk=1024)
+    yp, hp = JS.selective_scan(*jx, chunk=1024)
+    yr, hr = j_ref(*jx)
+    assert err(y, yp) < F32_TOL and err(h, hp) < F32_TOL
+    assert err(y, yr) < F32_TOL and err(h, hr) < F32_TOL
 
 
 def _refuse(*args, **kwargs):
@@ -140,7 +153,6 @@ def _refuse(*args, **kwargs):
 @pytest.mark.parametrize("what,shape,chunk", [
     ("multiple of chunk", (1, 96, 16, 16), 64),
     ("multiple of chunk", (1, 20, 8, 4), 8),
-    ("shared memory", (1, 1024, 16, 16), 1024),
     ("at most 128 states", (1, 8, 4, 129), 8),
 ])
 def test_refusals_raise_value_error(monkeypatch, what, shape, chunk):
@@ -188,6 +200,172 @@ def test_cuda_dispatch_propagates_loader_errors(monkeypatch):
     monkeypatch.setattr(_build, "load", unavailable)
     before = dict(TS.LAUNCHES)
     _, tx = make(1, 16, 4, 4)
+    plan = TS.scan_launch_plan(1, 16, 4, 4, 4, 4, H100_SMS, 8)
     with pytest.raises(RuntimeError, match="kernel loader unavailable"):
-        TS._selective_scan_cuda(*tx, 16)
+        TS._selective_scan_cuda(*tx, plan)
     assert TS.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# K9's launch plan (`scan_launch_plan`) and the decomposition it launches
+# ---------------------------------------------------------------------------
+
+
+def check_plan(plan, B, S, D, N, xi=2, di=4):
+    assert plan.tile == plan.lanes * plan.steps
+    assert plan.threads == TS.D_TILE * plan.lanes
+    assert plan.grid == (-(-D // TS.D_TILE), B, 1)
+    assert plan.lanes in TS.LANE_CHOICES and plan.steps in TS.STEP_BUILDS
+    assert plan.lanes <= TS.max_lanes(plan.steps)
+    assert plan.shared_bytes == TS.scan_shared_bytes(
+        plan.lanes, plan.steps, N, xi, di) <= SMEM_PER_BLOCK
+
+
+def test_plan_at_the_timed_shape():
+    """falcon-mamba's 2048-token prefill, x bf16, dt f32, on an H100 that
+    holds 8 four-lane blocks per SM: the 512 blocks fit at once with 8
+    lanes, not with 16, so 8 lanes of 8 steps (tiles of 64 steps, 128
+    threads); four batch rows fill the card with 4 lanes."""
+    plan = TS.scan_launch_plan(1, 2048, 8192, 16, 2, 4, H100_SMS, 8)
+    check_plan(plan, 1, 2048, 8192, 16)
+    assert plan == TS.ScanPlan(8, 8, 64, 128, 37120, (512, 1, 1), 8)
+    # two raw stages (x and dt rows with 16 B of pad a lane, B, C), B and
+    # C widened to f32 at a pitch of 68, y, A and two carries
+    assert plan.shared_bytes == 2 * (
+        (64 * 32 + 8 * 16) + (64 * 64 + 8 * 16) + 2 * 64 * 32) + 4 * (
+        2 * 16 * 68 + 16 * 68 + 3 * 16 * 16)
+    four = TS.scan_launch_plan(4, 2048, 8192, 16, 2, 4, H100_SMS, 8)
+    check_plan(four, 4, 2048, 8192, 16)
+    assert (four.lanes, four.steps, four.grid) == (4, 8, (512, 4, 1))
+    # a card that holds fewer blocks keeps 4 lanes at one row too
+    assert TS.scan_launch_plan(1, 2048, 8192, 16, 2, 4, H100_SMS,
+                               7).lanes == 4
+
+
+@pytest.mark.parametrize("S", range(4, 24))
+def test_plan_at_the_serving_prompts(S):
+    """serve.py's prompts (S 4-23, chunk S): the fewest steps whose tile
+    covers S, doubled lanes halving the steps, so a short prompt walks one
+    short tile."""
+    plan = TS.scan_launch_plan(1, S, 8192, 16, 2, 4, H100_SMS, 12)
+    check_plan(plan, 1, S, 8192, 16)
+    assert plan.lanes == 8 and plan.tile >= S
+    assert plan.tile == (8 if S <= 8 else 16 if S <= 16 else 32)
+
+
+@pytest.mark.parametrize("N", [1, 5, 16, 40, 64, 128])
+@pytest.mark.parametrize("xi,di", [(4, 4), (2, 4), (2, 2)])
+@pytest.mark.parametrize("S", [1, 100, 4096])
+def test_plan_shared_bytes_within_the_block_limit(N, xi, di, S):
+    plan = TS.scan_launch_plan(2, S, 300, N, xi, di, H100_SMS, 8)
+    check_plan(plan, 2, S, 300, N, xi, di)
+
+
+def test_plan_narrow_d_takes_more_lanes():
+    """A D of 512 (32 blocks) doubles the lanes up to the 16 the 8-step
+    build takes; a D of 16384 (1024 blocks) fills the card with 4."""
+    plan = TS.scan_launch_plan(1, 2048, 512, 16, 2, 4, H100_SMS, 8)
+    check_plan(plan, 1, 2048, 512, 16)
+    assert (plan.lanes, plan.steps, plan.tile) == (16, 8, 128)
+    wide = TS.scan_launch_plan(1, 2048, 16384, 16, 2, 4, H100_SMS, 8)
+    assert (wide.lanes, wide.steps) == (4, 8)
+
+
+def test_plan_honours_given_lanes_and_steps():
+    plan = TS.scan_launch_plan(1, 2048, 8192, 16, 2, 4, H100_SMS, 8,
+                               lanes=32, steps=2)
+    check_plan(plan, 1, 2048, 8192, 16)
+    assert (plan.lanes, plan.steps, plan.threads) == (32, 2, 512)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(lanes=2), "lanes a d"), (dict(lanes=64), "lanes a d"),
+    (dict(steps=16), "steps a lane"), (dict(steps=3), "steps a lane"),
+    (dict(lanes=32, steps=8), "at most 16 lanes"),
+    (dict(lanes=32, steps=4), "at most 16 lanes"),
+])
+def test_plan_refusals_name_their_limits(kwargs, match):
+    with pytest.raises(ValueError, match=match):
+        TS.scan_launch_plan(1, 64, 64, 16, 4, 4, H100_SMS, 8, **kwargs)
+
+
+def test_plan_grid_limits():
+    TS.scan_launch_plan(65535, 8, 16, 4, 4, 4, H100_SMS, 8)
+    with pytest.raises(ValueError, match="K9: .* y exceeds CUDA's limit of "
+                                         "65535"):
+        TS.scan_launch_plan(65536, 8, 16, 4, 4, 4, H100_SMS, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        TS.scan_launch_plan(1, 64, 64, 128, 4, 4, H100_SMS, 8, lanes=16,
+                            steps=8)
+
+
+@pytest.mark.parametrize("shape,kwargs", [
+    ((65536, 8, 16, 4), {}), ((1, 8, 16, 129), {}),
+    ((1, 64, 16, 16), dict(lanes=3)), ((1, 64, 16, 16), dict(steps=16)),
+    ((1, 64, 64, 128), dict(lanes=16, steps=8)),
+])
+def test_refused_plan_never_reaches_the_loader(monkeypatch, shape, kwargs):
+    """`scan_device_plan` refuses what no build takes before it loads the
+    kernels or asks the card anything."""
+    monkeypatch.setattr(_build, "load", _refuse)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", _refuse)
+    B, S, D, N = shape
+    with pytest.raises(ValueError):
+        TS.scan_device_plan("cuda:0", B, S, D, N, torch.float32,
+                            torch.float32, **kwargs)
+
+
+def tiled_scan(xc, dt, Bmat, Cmat, A, h0, lanes, steps):
+    """K9's decomposition in plain PyTorch: tiles of lanes * steps steps,
+    each lane's `steps` pairs composed into one map, the maps of a tile's
+    lanes scanned in log2(lanes) rounds (shfl_up), the carried h folded in,
+    each lane's steps walked again for y; steps past S staged as zeros."""
+    xc, dt, Bmat, Cmat, A, h = (t.float() for t in (xc, dt, Bmat, Cmat, A,
+                                                    h0))
+    B, S, D = xc.shape
+    N = Bmat.shape[-1]
+    TL = lanes * steps
+    pad = -S % TL
+    zpad = lambda t: torch.cat(  # noqa: E731
+        [t, t.new_zeros(B, pad, t.shape[-1])], 1)
+    xc, dt, Bmat, Cmat = (zpad(t) for t in (xc, dt, Bmat, Cmat))
+    ys = []
+    for t0 in range(0, S + pad, TL):
+        cut = slice(t0, t0 + TL)
+        a = torch.exp2(dt[:, cut, :, None] * (A * 1.4426950408889634))
+        bu = (dt[:, cut] * xc[:, cut])[..., None] * Bmat[:, cut, None, :]
+        a = a.reshape(B, lanes, steps, D, N)
+        bu = bu.reshape(B, lanes, steps, D, N)
+        P, Q = torch.ones_like(a[:, :, 0]), torch.zeros_like(a[:, :, 0])
+        for i in range(steps):
+            Q = a[:, :, i] * Q + bu[:, :, i]
+            P = P * a[:, :, i]
+        off = 1
+        while off < lanes:
+            Pp, Qp = P.clone(), Q.clone()
+            Q[:, off:] = P[:, off:] * Qp[:, :-off] + Q[:, off:]
+            P[:, off:] = P[:, off:] * Pp[:, :-off]
+            off *= 2
+        after = P * h[:, None] + Q
+        start = torch.cat([h[:, None], after[:, :-1]], 1)
+        c = Cmat[:, cut].reshape(B, lanes, steps, 1, N)
+        y = torch.zeros(B, lanes, steps, D)
+        for i in range(steps):
+            start = a[:, :, i] * start + bu[:, :, i]
+            y[:, :, i] = (start * c[:, :, i]).sum(-1)
+        h = start[:, -1]
+        ys.append(y.reshape(B, TL, D))
+    return torch.cat(ys, 1)[:, :S], h
+
+
+@pytest.mark.parametrize("B,S,D,N,lanes,steps", [
+    (1, 2048, 16, 16, 4, 8), (1, 16, 24, 16, 4, 4), (1, 23, 8, 16, 4, 8),
+    (2, 200, 37, 5, 4, 8), (1, 100, 8, 40, 32, 1), (2, 77, 16, 8, 8, 2)])
+def test_tiled_decomposition_equals_the_reference(B, S, D, N, lanes, steps):
+    """The plan's tiles, lanes and carries compute the reference's scan
+    (the JAX `selective_scan_ref`), ragged last tiles included."""
+    jx, tx = make(B, S, D, N, seed=S)
+    y, h = tiled_scan(*tx, lanes, steps)
+    yr, hr = j_ref(*jx)
+    scale = max(1.0, float(np.max(np.abs(np.asarray(yr)))))
+    assert err(y, yr) < F32_TOL * scale and err(h, hr) < F32_TOL
