@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                      # every phase, one card
     python3 chip_smoke.py --only distributed   # phases 15-18 alone
+    python3 chip_smoke.py --only k6            # K6's six passes' times
     python3 chip_smoke.py --only k8            # K8's time and a prefill's
     python3 chip_smoke.py --only k9            # K9's times and a prefill's
 
@@ -34,20 +35,28 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    small shapes for the six shipped operator x integrator pairs (PW,
    tracer, diffusion x euler, rk2) over T, y_tile and interior masks:
    K6 == plain and PW-spec K6 == K1 (bitwise), the tracer's u, v, w == the
-   PW spec's, batched == sequential, boundary frozen, the f64 oracle, and
-   the refusals (a spec outside the CUDA table, PW rk2 at T = 4, Z = 64);
-5. drives the spec path at the same 67M grid: one `stencil_fused` pass per
-   operator (PW and tracer at T = 4 euler, T = 2 rk2; diffusion at T = 4),
-   the counts set to 0 just before and read just after (`stencil_fused`
-   launched once, no other kernel), == plain bitwise, PW == K1, tracer
-   velocities == PW, within `ORACLE_TOL` of the f64 oracle;
+   PW spec's, batched == sequential, boundary frozen, the f64 oracle, the
+   refusal of a spec outside the CUDA table, and K6's reach: PW and tracer
+   rk2 at T = 4 (which the shared-memory ring refused) == plain and within
+   `ORACLE_TOL` of the f64 oracle, T beyond a build's levels as passes of
+   whole steps, given plans with x and z chunk remainders, and y_tile 1024
+   == K6's own plan == y_tile 3, all == plain bitwise;
+5. drives the spec path at the same 67M grid: one `stencil_fused` call per
+   operator (PW and tracer at T = 4 euler, T = 2 rk2; diffusion at T = 4)
+   on K6's own launch plan (`spec_launch_plan`, printed per pass with the
+   card's registers, spills and resident blocks), the counts set to 0 just
+   before and read just after (`stencil_fused` launched once a pass, no
+   other kernel), == plain bitwise, PW == K1, tracer velocities == PW,
+   within `ORACLE_TOL` of the f64 oracle; then PW and tracer rk2 at T = 4
+   (`SPEC_DEEP`), == plain and within `ORACLE_TOL`;
 6. times each kernel with CUDA events (median of 20 after warm-up) beside
    its bound, the least time the card could take for the same work, each
    rung's Euler step through the domain beside K1's pass over T (and
    whether the fused rung's step beats v2's), a short sweep of K1's launch
    plans at 67M (y-tiles x x-chunks, each output == the planned one
-   bitwise), and each spec operator's pass ("spec path on the card"
-   lines);
+   bitwise), and each spec operator's call ("spec path on the card"
+   lines: events and `torch.profiler` device time) with each K6 build's
+   registers, spills, shared bytes and resident blocks per SM;
 7. holds flash attention (K8) against its plain version at small shapes:
    the reference's `CASES` and block shapes, bf16 (the tensor-core kernel,
    `csrc/flash_attention_tc.cu`) and f32 (the SIMT kernel), causal and
@@ -125,6 +134,12 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    distinct cards (peer stores over NVLink), bitwise equal to the
    loopback run; with one card it prints that it skipped.
 
+`--only k6` times the six passes of the spec path at the 67M grid (events
+and device time) at the tile `largest_fitting_y_tile` gives with
+`spec_ring_knobs`, and at K6's own plan where the package has one, beside
+K1's pass, with entry points the port has had since K6 was ported, so a
+copy of the script in an older checkout times that checkout the same way.
+
 `--only k8` times K8 at phase 10's shape and a bf16 `qwen2.5-14b` prefill
 of 2048 tokens through the package beside the script, with entry points
 that the port has had since K8 was ported, so a copy of the script in an
@@ -198,6 +213,9 @@ SMALL_DT = dict(SPEC_DT, diffusion=DIFFUSION_RESOLVED_DT)
 SPEC_PATH = (("pw", "euler", 4), ("pw", "rk2", 2), ("tracer", "euler", 4),
              ("tracer", "rk2", 2), ("diffusion", "euler", 4),
              ("diffusion", "rk2", 4))
+# PW and tracer at rk2 T = 4: the reference's depth, which the old K6 refused
+# (its ring did not fit one block's shared memory); run and checked at 67M
+SPEC_DEEP = (("pw", "rk2", 4), ("tracer", "rk2", 4))
 RUNGS = {"advect_blocked": "blocked", "advect_dataflow": "dataflow",
          "advect_wide": "wide"}
 SOURCE = {"advect_fused": "src/repro_torch/csrc/advect_fused.cu",
@@ -646,6 +664,21 @@ def k1_plan_text(plan, T=MAIN_T) -> str:
             f"spilled per thread")
 
 
+def k6_plan_text(spec, shape, T, y_tile=None) -> str:
+    """K6's launch plan on cuda:0 for one pass of T steps of `spec` over
+    one (X, Y, Z) domain, as its wrapper makes it, with what the card says
+    of the build that runs it."""
+    plan = K.spec_device_plan("cuda:0", *shape, spec, T, 1, y_tile)
+    a = K.spec_kernel_attrs("cuda:0", spec, T, plan)
+    return (f"TY={plan.TY} (slab {plan.S} rows), CX={plan.CX}, "
+            f"CZ={plan.CZ} (window {plan.W}, {plan.n_cz} z chunks), "
+            f"{plan.grid[0] * plan.grid[1]} blocks of {plan.threads} threads"
+            f" x {plan.cells_per_thread} cells, {a['blocks_per_sm']} "
+            f"resident per SM, {plan.shared_bytes} B shared, "
+            f"{a['registers']} registers, {a['local_bytes']} B spilled per "
+            f"thread")
+
+
 def frozen_edges(f0, fT) -> bool:
     return (fT[0].equal(f0[0]) and fT[-1].equal(f0[-1])
             and fT[:, 0].equal(f0[:, 0]) and fT[:, -1].equal(f0[:, -1])
@@ -720,9 +753,9 @@ def timing_phase(check: Checks, dom, fields, out, launches, k1_err, k4_err,
                   + 6 * cells)
     k4_bytes = R.guard_bytes_model(X, Y, Z)
     k4_ops = 3 * cells
-    k1_dev = profiled_device_ms(
+    k1_dev = profiled_kernels(
         lambda: K.advect_fused(u, v, w, p, T=T, dt=DT), "advect_ring_kernel",
-        ("cuda:0",), 10)
+        ("cuda:0",), 10)[0]
     dev = (f"{k1_dev:.4f} ms per pass (torch.profiler, 10 passes; "
            f"{bound_of(k1_bytes, k1_ops)[0] / k1_dev:.4f} of the bound)"
            if k1_dev > 0 else "not measured")
@@ -963,6 +996,7 @@ def spec_small_phase(check: Checks) -> None:
                           f"K6, bitwise, {tag}: {len(tally['pw'])} runs")
     spec_batched_phase(check)
     spec_refusal_phase(check)
+    spec_reach_phase(check)
 
 
 def spec_batched_phase(check: Checks) -> None:
@@ -997,6 +1031,9 @@ def spec_batched_phase(check: Checks) -> None:
 
 
 def spec_refusal_phase(check: Checks) -> None:
+    """A spec outside the CUDA table is refused on the card with no launch;
+    PW and tracer rk2 at T = 4, refused before K6 kept its ring in
+    registers, run as passes == plain and within `ORACLE_TOL` of f64."""
     custom = SP.StencilSpec(name="custom", fields=("a",),
                             offsets={"a": ((1, 0, 0),)},
                             source=lambda sh, pv: (sh(0, 1, 0, 0),),
@@ -1018,22 +1055,71 @@ def spec_refusal_phase(check: Checks) -> None:
         check(refused and K.LAUNCHES == before,
               f"a spec outside the CUDA table ({spec.name}) is refused on "
               f"the card, naming the queue, with no launch")
-    pw_rk2 = SP.pw_advection_spec("rk2")
-    fields = [torch.zeros((4, 1024, 64), device="cuda") for _ in range(3)]
-    try:
-        K.stencil_fused(fields, REF.default_params(64, device="cuda"),
-                        pw_rk2, T=4)
-        refused = False
-    except ValueError as err:
-        refused = str(R.SMEM_PER_BLOCK) in str(err)
-    try:
-        K.largest_fitting_y_tile(4, 1024, 64,
-                                 **K.spec_ring_knobs(pw_rk2, 4))
-        no_tile = False
-    except ValueError as err:
-        no_tile = str(R.SMEM_PER_BLOCK) in str(err)
-    check(refused and no_tile, f"PW rk2 at T = 4, Z = 64 refused, naming "
-          f"the {R.SMEM_PER_BLOCK} B budget (no y_tile fits)")
+    for op in ("pw", "tracer"):
+        spec = SPEC_FACTORIES[op]("rk2")
+        for shape in ((4, 1024, 64), SMALL_SHAPES[1]):
+            params, fields = spec_inputs(op, shape, 300)
+            reset_all_counts()
+            out = K.stencil_fused(fields, params, spec, T=4, dt=SPEC_DT[op])
+            torch.cuda.synchronize()
+            n = K.LAUNCHES["stencil_fused"]
+            err, scale, moved = oracle_err(out, fields, params, spec, 4,
+                                           SPEC_DT[op])
+            check(same(out, plain_spec(fields, params, spec, 4, SPEC_DT[op]))
+                  and n == len(K.spec_passes(spec, 4))
+                  and err < ORACLE_TOL < moved / 5.0,
+                  f"{spec.name} at T = 4 {shape} (the old ring refused it) "
+                  f"runs as {n} passes == plain, bitwise; vs f64 oracle "
+                  f"{err:.3e} < {ORACLE_TOL}, fields moved {moved:.3e}")
+
+
+def spec_reach_phase(check: Checks) -> None:
+    """K6's reach, each == plain bitwise: T beyond a build's levels as
+    passes of whole steps, x and z chunks with remainders on a given plan,
+    and a y_tile of the whole Y (no build takes its slab at 1024 rows) ==
+    K6's own plan == a small tile."""
+    shape = (13, 40, 70)
+    X, Y, Z = shape
+    for op, factory in SPEC_FACTORIES.items():
+        params, fields = spec_inputs(op, shape, 400)
+        dt = SMALL_DT[op]
+        for integ in SP.INTEGRATORS:
+            spec = factory(integ)
+            for T in (3, 5):
+                reset_all_counts()
+                out = K.stencil_fused(fields, params, spec, T=T, dt=dt)
+                n = K.LAUNCHES["stencil_fused"]
+                passes = K.spec_passes(spec, T)
+                check(same(out, plain_spec(fields, params, spec, T, dt))
+                      and n == len(passes),
+                      f"K6 {spec.name} T={T} as passes {passes} == plain, "
+                      f"bitwise")
+            T = 2
+            L = spec.stages * T
+            pv = K._spec_param_vectors(spec, params, "cuda")
+            ones = (torch.ones(X, device="cuda"), torch.ones(Y, device="cuda"))
+            plain = plain_spec(fields, params, spec, T, dt)
+            for TY, CX, CZ in ((5, 4, 9), (3, 6, 20), (7, 13, None)):
+                plan = K.fused_plan_with_chunks(
+                    K.spec_device_plan("cuda", X, Y, Z, spec, T, 1, TY), X,
+                    Z, L, CX=CX, CZ=CZ, knobs=K.spec_plan_knobs(spec, T))
+                got = K._stencil_fused_cuda([f[None] for f in fields], pv,
+                                            spec, T, dt, *ones, plan=plan)
+                check(same((g[0] for g in got), plain),
+                      f"K6 {spec.name} T={T} in chunks TY={plan.TY} "
+                      f"CX={plan.CX} ({plan.n_cx}) CZ={plan.CZ} "
+                      f"({plan.n_cz}) == plain, bitwise")
+    for op, factory in SPEC_FACTORIES.items():
+        params, fields = spec_inputs(op, (3, 1024, 64), 402)
+        spec = factory("euler")
+        runs = [K.stencil_fused(fields, params, spec, T=4, dt=SMALL_DT[op],
+                                y_tile=y_tile) for y_tile in (1024, None, 3)]
+        check(same(runs[0], runs[1]) and same(runs[1], runs[2])
+              and same(runs[1], plain_spec(fields, params, spec, 4,
+                                           SMALL_DT[op])),
+              f"K6 {spec.name} (3, 1024, 64) T=4: y_tile 1024 (sub-tiles "
+              f"of {K.spec_device_plan('cuda', 3, 1024, 64, spec, 4, 1, 1024).TY}"
+              f") == own plan == y_tile 3 == plain, bitwise")
 
 
 def spec_path_phase(check: Checks, fields):
@@ -1053,11 +1139,8 @@ def spec_path_phase(check: Checks, fields):
         spec = SPEC_FACTORIES[op](integ)
         params, flds = inputs[op]
         dt = SPEC_DT[op]
-        y_tile = K.largest_fitting_y_tile(T, Y, Z,
-                                          **K.spec_ring_knobs(spec, T))
-        n_ty = K._grid_geometry(Y, y_tile, spec.halo(T))[2]
-        ring = K.fused_register_bytes(T, Y, Z, 4, y_tile,
-                                      **K.spec_ring_knobs(spec, T))
+        y_tile = None    # K6's own plan
+        passes = K.spec_passes(spec, T)
         torch.cuda.synchronize()
         K.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1067,11 +1150,15 @@ def spec_path_phase(check: Checks, fields):
         launches = dict(K.LAUNCHES)
         tag = f"spec path {spec.name} T={T}"
         print(f"{tag}: {MAIN_GRID} grid {(X, Y, Z)}, {spec.n_fields} fields, "
-              f"dt={dt}, y_tile={y_tile} ({n_ty} blocks on {sms} SMs), ring "
-              f"{ring} B; wall {wall:.3f} s; launches {launches}", flush=True)
-        check(all(n == (1 if k == "stencil_fused" else 0)
+              f"dt={dt}, K6's own plan, passes {passes} on {sms} SMs; wall "
+              f"{wall:.3f} s; launches {launches}", flush=True)
+        for Tk in sorted(set(passes)):
+            print(f"{tag}: pass of T={Tk}: "
+                  f"{k6_plan_text(spec, (X, Y, Z), Tk)}", flush=True)
+        check(all(n == (len(passes) if k == "stencil_fused" else 0)
                   for k, n in launches.items()),
-              f"{tag}: stencil_fused launched once, no other kernel")
+              f"{tag}: stencil_fused launched {len(passes)} time(s), one a "
+              f"pass, no other kernel")
         check(all(o.shape == (X, Y, Z) and bool(torch.isfinite(o).all())
                   for o in out), f"{tag}: outputs finite, of shape (X, Y, Z)")
         plain = plain_spec(flds, params, spec, T, dt)
@@ -1108,6 +1195,20 @@ def spec_path_phase(check: Checks, fields):
                                oracle_err=o_err)
     for r in runs.values():
         del r["out"]
+    for op, integ, T in SPEC_DEEP:
+        spec = SPEC_FACTORIES[op](integ)
+        params, flds = inputs[op]
+        dt = SPEC_DT[op]
+        out = K.stencil_fused(flds, params, spec, T=T, dt=dt)
+        plain = plain_spec(flds, params, spec, T, dt)
+        err = max(float((a - b).abs().max()) for a, b in zip(out, plain))
+        del plain
+        o_err = oracle_err(out, flds, params, spec, T, dt)[0]
+        check(err == 0.0 and o_err < ORACLE_TOL,
+              f"spec path {spec.name} T={T} (the old ring refused it), "
+              f"{K.spec_passes(spec, T)} passes: == plain, bitwise ({err}); "
+              f"vs f64 oracle {o_err:.3e} < {ORACLE_TOL}")
+        del out
     return runs
 
 
@@ -1126,41 +1227,70 @@ def diffusion_resolved_check(check: Checks, tag, spec, params, flds, T,
           f"{moved:.3e})")
 
 
-def spec_timing(runs, probe_params):
-    """Time each operator's pass; return the `stencil_fused` record (the PW
-    euler pass, the bitwise partner of K1) with one entry per operator."""
+SPEC_PROBE = {"pw": lambda: REF.default_params(4, device="cpu"),
+              "tracer": lambda: REF.default_params(4, device="cpu"),
+              "diffusion": lambda: SP.default_diffusion_params(4,
+                                                               device="cpu")}
+
+
+def spec_bound(op, spec, params, T, shape):
+    """(bytes, operations) of T steps of `spec` over one (X, Y, Z) domain:
+    the fields read and written once, the parameter vectors and masks read
+    once; the spec's operations per interior cell at each of its stages * T
+    levels, plus the 2-op update of each field and cell."""
+    X, Y, Z = shape
+    cells, nf, rad = X * Y * Z, spec.n_fields, spec.radius
+    pv_bytes = sum(v.numel() for v in
+                   K._spec_param_vectors(spec, params, "cuda")) * 4
+    nbytes = (K.hbm_bytes_model(X, Y, Z, 4, "fused", T=T, n_fields=nf,
+                                halo_depth=spec.halo(T))
+              + pv_bytes + (X + Y) * 4)
+    interior = (X - 2 * rad) * (Y - 2 * rad) * (Z - 2 * rad)
+    ops = spec.stages * T * (interior * SP.spec_flops_per_cell(
+        spec, SPEC_PROBE[op]()) + 2 * nf * cells)
+    return nbytes, ops
+
+
+def spec_timing(runs):
+    """Time each operator's pass (events, and its kernels' device time by
+    `torch.profiler`), print the builds its plans launch; return the
+    `stencil_fused` record (the PW euler pass, the bitwise partner of K1)
+    with one entry per operator."""
     X, Y, Z = PAPER_GRIDS[MAIN_GRID]
-    cells = X * Y * Z
     per_op = []
     for (op, integ), r in runs.items():
         spec, params, flds, T, dt = (r["spec"], r["params"], r["fields"],
                                      r["T"], r["dt"])
-        y_tile, nf, rad = r["y_tile"], spec.n_fields, spec.radius
-        ms = time_ms(lambda: K.stencil_fused(flds, params, spec, T=T, dt=dt,
-                                             y_tile=y_tile))
+        y_tile = r["y_tile"]
+
+        def call():
+            return K.stencil_fused(flds, params, spec, T=T, dt=dt,
+                                   y_tile=y_tile)
+
+        ms = time_ms(call)
+        dev, seen = profiled_kernels(call, "stencil_", ("cuda:0",), 10)
         plain_ms = time_ms(lambda: plain_spec(flds, params, spec, T, dt),
                            runs=10)
-        pv_bytes = sum(v.numel() for v in
-                       K._spec_param_vectors(spec, params, "cuda")) * 4
-        nbytes = (K.hbm_bytes_model(X, Y, Z, 4, "fused", T=T, n_fields=nf,
-                                    halo_depth=spec.halo(T))
-                  + pv_bytes + (X + Y) * 4)
-        interior = (X - 2 * rad) * (Y - 2 * rad) * (Z - 2 * rad)
-        levels = spec.stages * T
-        ops = levels * (interior * SP.spec_flops_per_cell(spec, probe_params[
-            op]) + 2 * nf * cells)
+        nbytes, ops = spec_bound(op, spec, params, T, (X, Y, Z))
         bound, bound_by = bound_of(nbytes, ops)
+        device = (f"device {dev:.4f} ms ({bound / dev:.3f} of the bound; "
+                  f"{seen} of {10 * r['launches']} launches seen)"
+                  if dev > 0 else "device not measured")
         print(f"spec path on the card: {spec.name} T={T}: {ms:.4f} ms per "
-              f"pass, {ms / T:.4f} ms per step (median of {TIMED_RUNS}), "
-              f"bound {bound:.4f} ms by {bound_by} ({nbytes} B, {ops} f32 "
-              f"ops), {bound / ms:.3f} of the bound, "
-              f"{nbytes / ms / 1e6:.1f} GB/s; y_tile {y_tile}; plain "
-              f"version {plain_ms:.4f} ms", flush=True)
+              f"call, {ms / T:.4f} ms per step (median of {TIMED_RUNS}), "
+              f"{device}, bound {bound:.4f} ms by {bound_by} ({nbytes} B, "
+              f"{ops} f32 ops), {bound / ms:.3f} of the bound by events, "
+              f"{nbytes / ms / 1e6:.1f} GB/s; K6's own plan, passes "
+              f"{K.spec_passes(spec, T)}; plain version {plain_ms:.4f} ms",
+              flush=True)
         per_op.append({"operator": spec.name, "T": T, "y_tile": y_tile,
                        "launches": r["launches"], "max_abs_err": r["err"],
                        "oracle_err": r["oracle_err"], "ms": ms,
+                       "device_ms": dev if dev > 0 else None,
                        "plain_ms": plain_ms, "bound_ms": bound,
                        "bound_by": bound_by})
+    k6_deep_lines(runs)
+    k6_builds_lines(runs)
     pw = per_op[0]
     record = {"name": "stencil_fused", "route": "cuda",
               "source": SOURCE["stencil_fused"],
@@ -1172,6 +1302,95 @@ def spec_timing(runs, probe_params):
               "library_ms": None, "operators": per_op}
     return record
 
+
+def k6_deep_lines(runs) -> None:
+    """Time `SPEC_DEEP` (PW and tracer rk2 at T = 4, passes of whole steps)
+    on the spec path's fields: events and device time beside the bound."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    for op, integ, T in SPEC_DEEP:
+        r = runs[op, integ]
+        spec, params, flds, dt = r["spec"], r["params"], r["fields"], r["dt"]
+
+        def call():
+            return K.stencil_fused(flds, params, spec, T=T, dt=dt)
+
+        ms = time_ms(call)
+        dev, seen = profiled_kernels(call, "stencil_", ("cuda:0",), 10)
+        bound = bound_of(*spec_bound(op, spec, params, T, (X, Y, Z)))[0]
+        device = (f"device {dev:.4f} ms ({seen} launches seen in 10 calls; "
+                  f"{bound / dev:.3f} of the bound)" if dev > 0
+                  else "device not measured")
+        print(f"spec path on the card: {spec.name} T={T} (passes "
+              f"{K.spec_passes(spec, T)}): {ms:.4f} ms per call by events, "
+              f"{device}, bound {bound:.4f} ms", flush=True)
+
+
+def k6_builds_lines(runs) -> None:
+    """Each K6 build a pass of the spec path (and of `SPEC_DEEP`) launches:
+    its registers, spills, shared bytes and resident blocks per SM, as the
+    card reports them for the pass's plan."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    seen = {}
+    for op, integ, T in SPEC_PATH + SPEC_DEEP:
+        spec = SPEC_FACTORIES[op](integ)
+        for Tk in set(K.spec_passes(spec, T)):
+            plan = K.spec_device_plan("cuda:0", X, Y, Z, spec, Tk)
+            key = (spec.name, Tk, plan.cells_per_thread)
+            seen[key] = (plan, K.spec_kernel_attrs("cuda:0", spec, Tk, plan))
+    for (name, Tk, C), (plan, a) in seen.items():
+        print(f"K6 build {name} T={Tk} C={C}: {a['registers']} registers, "
+              f"{a['local_bytes']} B spilled per thread, "
+              f"{plan.shared_bytes} B shared, {plan.threads} threads (bound "
+              f"{a['max_threads']}), {a['blocks_per_sm']} resident per SM",
+              flush=True)
+
+
+def k6_compare(card: str) -> int:
+    """`--only k6`: the six passes of `SPEC_PATH` at the 67M grid (events,
+    and device time by `torch.profiler`) at the tile
+    `largest_fitting_y_tile` gives with `spec_ring_knobs`, and where the
+    package plans its own (`spec_launch_plan`), at y_tile None too; beside
+    K1's pass at T = 4. It uses only entry points that the port has had
+    since K6 was ported, so a copy of this script in an older checkout times
+    that checkout's K6 the same way."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    dom = AdvectionDomain(X, Y, Z, variant="fused", fuse_T=MAIN_T, dt=DT,
+                          device="cuda")
+    u0, v0, w0 = dom.init(seed=0)
+    p = REF.default_params(Z, device="cuda")
+    k1_ms = time_ms(lambda: K.advect_fused(u0, v0, w0, p, T=MAIN_T, dt=DT))
+    k1_dev = profiled_kernels(
+        lambda: K.advect_fused(u0, v0, w0, p, T=MAIN_T, dt=DT), "advect_",
+        ("cuda:0",), 10)[0]
+    print(f"k6 compare ({K.__file__}): K1 T={MAIN_T} {k1_ms:.4f} ms by "
+          f"events, device {k1_dev:.4f} ms; card {card}", flush=True)
+    inputs = {"pw": (p, (u0, v0, w0)),
+              "tracer": (p, (u0, v0, w0, SP.tracer_field(X, Y, Z,
+                                                        device="cuda"))),
+              "diffusion": (SP.default_diffusion_params(Z, device="cuda"),
+                            (SP.diffusion_field(X, Y, Z, device="cuda"),))}
+    tiles = [True, False] if hasattr(K, "spec_launch_plan") else [False]
+    for op, integ, T in SPEC_PATH:
+        spec = SPEC_FACTORIES[op](integ)
+        params, flds = inputs[op]
+        dt = SPEC_DT[op]
+        bound = bound_of(*spec_bound(op, spec, params, T, (X, Y, Z)))[0]
+        for own in tiles:
+            y_tile = None if own else K.largest_fitting_y_tile(
+                T, Y, Z, **K.spec_ring_knobs(spec, T))
+
+            def call():
+                return K.stencil_fused(flds, params, spec, T=T, dt=dt,
+                                       y_tile=y_tile)
+
+            ms = time_ms(call)
+            dev, seen = profiled_kernels(call, "stencil_", ("cuda:0",), 10)
+            print(f"k6 compare ({K.__file__}): {spec.name} T={T} y_tile="
+                  f"{y_tile}{' (own plan)' if own else ''}: {ms:.4f} ms by "
+                  f"events, device {dev:.4f} ms ({seen} launches seen in 10 "
+                  f"calls), {bound / ms:.4f} of the {bound:.4f} ms bound by "
+                  f"events; card {card}", flush=True)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -1403,15 +1622,15 @@ def k7_host_and_device_ms(call, mesh, runs: int = 20):
         host.append((time.perf_counter() - t0) * 1e3)
         for dev in set(mesh.devices):
             torch.cuda.synchronize(dev)
-    dev_ms = profiled_device_ms(call, "band_", set(mesh.devices), runs)
+    dev_ms = profiled_kernels(call, "band_", set(mesh.devices), runs)[0]
     device = f"{dev_ms:.4f} ms" if dev_ms > 0 else "not measured"
     return statistics.median(host), device
 
 
-def profiled_device_ms(call, match: str, devices, runs: int) -> float:
-    """The device time per call of the kernels whose name holds `match`,
-    summed by `torch.profiler` over `runs` calls (0.0 where the profiler
-    sees no device time)."""
+def profiled_kernels(call, match: str, devices, runs: int):
+    """(device ms per call, kernel launches seen) of the kernels whose name
+    holds `match`, summed by `torch.profiler` over `runs` calls (0.0 where
+    the profiler sees no device time)."""
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=act) as prof:
@@ -1419,9 +1638,9 @@ def profiled_device_ms(call, match: str, devices, runs: int) -> float:
             call()
         for dev in devices:
             torch.cuda.synchronize(dev)
-    dev_us = sum(getattr(e, "device_time_total", 0.0)
-                 for e in prof.key_averages() if match in e.key)
-    return dev_us / runs / 1e3
+    seen = [e for e in prof.key_averages() if match in e.key]
+    dev_us = sum(getattr(e, "device_time_total", 0.0) for e in seen)
+    return dev_us / runs / 1e3, sum(e.count for e in seen)
 
 
 def band_timing(mesh, fields, launches: int, runs, card: str,
@@ -1689,7 +1908,7 @@ def k8_times(call, kernel: str, q):
     measured" where it sees no device time) and the host ms to enqueue it
     (median, the card synchronised after each)."""
     ms = time_ms(call)
-    dev = profiled_device_ms(call, kernel, {q.device}, TIMED_RUNS)
+    dev = profiled_kernels(call, kernel, {q.device}, TIMED_RUNS)[0]
     host = []
     for _ in range(TIMED_RUNS):
         t0 = time.perf_counter()
@@ -1998,8 +2217,8 @@ def scan_times(shape, seed: int):
     args = scan_inputs(B, S, D, N, torch.bfloat16, torch.float32, seed=seed)
     got = SS.selective_scan(*args, chunk=chunk)
     ms = time_ms(lambda: SS.selective_scan(*args, chunk=chunk))
-    dev = profiled_device_ms(lambda: SS.selective_scan(*args, chunk=chunk),
-                             "selective_scan", {args[0].device}, TIMED_RUNS)
+    dev = profiled_kernels(lambda: SS.selective_scan(*args, chunk=chunk),
+                           "selective_scan", {args[0].device}, TIMED_RUNS)[0]
     return args, got, ms, dev
 
 
@@ -2044,8 +2263,8 @@ def k9_sweep(check: Checks, card: str) -> None:
         def call():
             return SS._selective_scan_cuda(*args, plan)
         err = scan_err(call(), want)
-        dev = profiled_device_ms(call, "selective_scan", {args[0].device},
-                                 TIMED_RUNS)
+        dev = profiled_kernels(call, "selective_scan", {args[0].device},
+                               TIMED_RUNS)[0]
         print(f"K9 plan sweep at {(B, S, D, N)}: {lanes} lanes of {steps} "
               f"steps: {time_ms(call, runs=10):.4f} ms by events, device "
               f"{dev:.4f} ms (card {card})", flush=True)
@@ -2115,8 +2334,9 @@ def distributed_only(check: Checks, card: str) -> list:
 
 def main() -> int:
     only = sys.argv[2:] if sys.argv[1:2] == ["--only"] else None
-    if sys.argv[1:] and only not in (["distributed"], ["k8"], ["k9"]):
-        print("usage: chip_smoke.py [--only distributed|k8|k9]",
+    if sys.argv[1:] and only not in (["distributed"], ["k6"], ["k8"],
+                                     ["k9"]):
+        print("usage: chip_smoke.py [--only distributed|k6|k8|k9]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2136,6 +2356,8 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.2f} s", flush=True)
     print(_build.build_log().strip(), flush=True)
     check = Checks()
+    if only == ["k6"]:
+        return k6_compare(card)
     if only == ["k8"]:
         return k8_compare(card)
     if only == ["k9"]:
@@ -2152,10 +2374,7 @@ def main() -> int:
     spec_runs = spec_path_phase(check, fields)
     records = timing_phase(check, dom, fields, out, launches, k1_err, k4_err,
                            ladder)
-    probe = {"pw": REF.default_params(4, device="cpu"),
-             "tracer": REF.default_params(4, device="cpu"),
-             "diffusion": SP.default_diffusion_params(4, device="cpu")}
-    records.append(spec_timing(spec_runs, probe))
+    records.append(spec_timing(spec_runs))
     k7_launches, mesh, dist_out, dist_runs = distributed_path_phase(
         check, fields, out)
     records.append(band_timing(mesh, fields, k7_launches, dist_runs, card))

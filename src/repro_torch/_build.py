@@ -41,6 +41,25 @@ HEADERS = ("pw_source.cuh", "stencil_ops.cuh")
 # flags below hand both to the source; its launch planner reads them here.
 K1_MAX_T = 8
 K1_BUILDS = {2: 512, 4: 384, 8: 256}
+# K6 (`csrc/stencil_fused.cu`) is built for 1..K6_MAX_LEVELS ring levels a
+# pass (stages * T), and by (functor id, stages) for 2 and 4 cells per
+# thread, each at the threads per block given here (its launch bound). Its
+# register ring holds 2 * fields * levels * C floats a thread, so the
+# tracer's four fields take fewer threads than PW's three. PW has no 4-cell
+# build: at 256 threads (where its ring fits without spilling) it holds no
+# slab that the 2-cell build at 512 does not. K6_COEF_VECTORS are the
+# z-coefficient vectors of `spec.pack_params` each functor reads, by
+# functor id: PW and tracer [tcx, tcy, tzc1(Z)] and [tcx, tcy, tzc2(Z)],
+# diffusion [kx, ky, kz(Z)]. All three reach the source as the header
+# `k6_table()` writes into the build, whose static_asserts hold the
+# vectors to each functor's kVectors; the spec launch planner reads them
+# here.
+K6_MAX_LEVELS = 4
+K6_BUILDS = {(0, 1): {2: 512}, (0, 2): {2: 512},
+             (1, 1): {2: 384, 4: 256}, (1, 2): {2: 384, 4: 256},
+             (2, 1): {2: 512, 4: 512}, (2, 2): {2: 512, 4: 512}}
+K6_COEF_VECTORS = (2, 2, 1)
+K6_HEADER = "k6_table.cuh"
 NVCC_FLAGS = (("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                f"-DK1_MAX_T={K1_MAX_T}")
@@ -57,8 +76,9 @@ SIGNATURES = {
     "finite_guard_f32": [_P] * 4 + [_I, _I, _LL, _I, _P],
     "advect_blocked_f32": [_P] * 7 + [_I] * 7 + [_F, _SZ, _P],
     "advect_dataflow_f32": [_P] * 7 + [_I] * 9 + [_F, _SZ, _P],
-    "stencil_fused_f32": ([_I] * 3 + [_P] * 9 + [_I, _P, _P] + [_I] * 10
+    "stencil_fused_f32": ([_I] * 2 + [_P] * 9 + [_I, _P, _P] + [_I] * 18
                           + [_F, _SZ, _P]),
+    "stencil_fused_attrs": [_I] * 5 + [_SZ, _P],
     "flash_attention_fwd": [_P] * 4 + [_LL] * 12 + [_I] * 9 + [_F, _SZ, _P],
     "flash_attention_tc_fwd": [_P] * 4 + [_LL] * 12 + [_I] * 7 + [_F, _P],
     "flash_attention_tc_attrs": [_I, _P],
@@ -83,8 +103,24 @@ def _nvcc() -> str:
                        "port's CUDA kernels are built by nvcc at first use")
 
 
+def k6_table() -> str:
+    """K6's build table as the header `csrc/stencil_fused.cu` includes
+    (`K6_HEADER`): K6_MAX_LEVELS, one X(op, stages, C, threads) of
+    K6_BUILDS(X) per build and one X(op, vectors) of K6_COEF_VECTORS(X)
+    per functor."""
+    builds = " ".join(f"X({op}, {stages}, {c}, {n})"
+                      for (op, stages), table in K6_BUILDS.items()
+                      for c, n in table.items())
+    vectors = " ".join(f"X({op}, {n})" for op, n in enumerate(K6_COEF_VECTORS))
+    return (f"// K6's build table, written by _build.py\n"
+            f"#define K6_MAX_LEVELS {K6_MAX_LEVELS}\n"
+            f"#define K6_BUILDS(X) {builds}\n"
+            f"#define K6_COEF_VECTORS(X) {vectors}\n")
+
+
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(k6_table().encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -101,9 +137,10 @@ def build() -> Path:
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        (Path(tmp) / K6_HEADER).write_text(k6_table())
         objs = [Path(tmp) / (name + ".o") for name in SOURCES]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(CSRC / name),
-                                   "-o", str(obj)],
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", tmp, "-c",
+                                   str(CSRC / name), "-o", str(obj)],
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for name, obj in zip(SOURCES, objs)]

@@ -8,74 +8,99 @@
 // its own, as PyTorch's elementwise ops round them in the plain version, so
 // the kernel equals the plain version bitwise. A spec with any other source
 // callback has no functor here and the wrapper refuses it on the card.
+//
+// The callbacks' accessor `sh(f, dx, dy, dz)` is `at<F, DX, DY, DZ>(cell)`,
+// its offsets compile-time: dx = +-1 resolves to the thread's registers
+// (the ring's x - 1 and x + 1), (0, 0, 0) to its centre register, and
+// dy, dz = +-1 to the level's centre plane in shared memory. No shipped
+// operator reads a diagonal neighbour across x, and `at` refuses one at
+// compile time.
 #pragma once
 
-#include <stddef.h>
-
-// The accessor `sh(f, dx, dy, dz)` of the callbacks, over one ring level in
-// shared memory: field f's slice x + dx at slab cell c + dy*Z + dz. The slot
-// offsets are 32-bit float offsets into the ring, set once per level, so a
-// neighbour read costs one integer add and a shared load. Only interior
-// cells read through it, so every neighbour lies inside the slab.
-template <int R, int NF>
-struct RingAccessor {
-  const float* ring;          // the block's shared memory
-  int slot[NF][2 * R + 1];    // offset of field f's plane holding slice x+dx
-  int Z;
-  int c;                      // slab cell r*Z + z
-  __device__ __forceinline__ float operator()(int f, int dx, int dy,
-                                              int dz) const {
-    return ring[slot[f][dx + R] + c + dy * Z + dz];
-  }
+// One cell of one ring level, as the operators read it: field f's values
+// at x - 1, x and x + 1 (copies of the thread's ring registers), each
+// field's centre plane of the level, the cell's index in a plane and the
+// planes' row pitch, and the cell's z coefficients (one per vector the
+// operator stages).
+template <int NF, int NP>
+struct RingCell {
+  float xm[NF], xc[NF], xp[NF];
+  const float* pl[NF];
+  int c, P;
+  float zc[NP];
 };
 
-// PW flux-form source of field fi advected by fields 0/1/2 (u, v, w).
-// pv holds `_pw_pack`'s two vectors back to back, each p_len = Z + 2 long:
-// [tcx, tcy, tzc1(Z)] and [tcx, tcy, tzc2(Z)]; the callback's
-// `t1[2:][1:-1]` at interior z (radius 1) is t1[2 + z].
+template <int F, int DX, int DY, int DZ, class Cell>
+__device__ __forceinline__ float at(const Cell& sh) {
+  static_assert(DX >= -1 && DX <= 1 && DY >= -1 && DY <= 1 && DZ >= -1 &&
+                    DZ <= 1,
+                "the CUDA ring is built for radius 1");
+  static_assert(DX == 0 || (DY == 0 && DZ == 0),
+                "an x neighbour comes from registers: no diagonal reads");
+  if constexpr (DX == -1) {
+    return sh.xm[F];
+  } else if constexpr (DX == 1) {
+    return sh.xp[F];
+  } else if constexpr (DY == 0 && DZ == 0) {
+    return sh.xc[F];
+  } else {
+    return sh.pl[F][sh.c + DY * sh.P + DZ];
+  }
+}
+
+// PW flux-form source of field FI advected by fields 0/1/2 (u, v, w).
+// `_pw_pack`'s two vectors are [tcx, tcy, tzc1(Z)] and [tcx, tcy,
+// tzc2(Z)]; the callback's `t1[2:][1:-1]` at interior z (radius 1) is
+// t1[2 + z], staged per window cell as zc[0] and zc[1].
 template <int NOUT>
 struct PwFluxOp {
   static constexpr int kFields = NOUT;
-  template <class Sh>
-  __device__ __forceinline__ static float source(const Sh& sh, int fi,
-                                                 const float* pv, int p_len,
-                                                 int z) {
-    const float* t1 = pv;
-    const float* t2 = pv + p_len;
-    const float tcx = 0.0f + t1[0];  // the callback's `0.0 + t1[0]`
-    const float tcy = t1[1];
-    const float tzc1 = t1[2 + z];
-    const float tzc2 = t2[2 + z];
-    const float fx = tcx * (sh(0, -1, 0, 0) * (sh(fi, 0, 0, 0)
-                                               + sh(fi, -1, 0, 0))
-                            - sh(0, 1, 0, 0) * (sh(fi, 0, 0, 0)
-                                                + sh(fi, 1, 0, 0)));
-    const float fy = tcy * (sh(1, 0, -1, 0) * (sh(fi, 0, 0, 0)
-                                               + sh(fi, 0, -1, 0))
-                            - sh(1, 0, 1, 0) * (sh(fi, 0, 0, 0)
-                                                + sh(fi, 0, 1, 0)));
-    const float fz = tzc1 * sh(2, 0, 0, -1) * (sh(fi, 0, 0, 0)
-                                               + sh(fi, 0, 0, -1))
-                     - tzc2 * sh(2, 0, 0, 1) * (sh(fi, 0, 0, 0)
-                                                + sh(fi, 0, 0, 1));
+  static constexpr int kVectors = 2;
+  struct Coef {
+    float tcx, tcy;
+  };
+  __device__ __forceinline__ static Coef coef(const float* pv) {
+    return {0.0f + pv[0], pv[1]};  // the callback's `0.0 + t1[0]`
+  }
+  template <int FI, class Cell>
+  __device__ __forceinline__ static float source(const Cell& sh,
+                                                 const Coef& k) {
+    const float tzc1 = sh.zc[0];
+    const float tzc2 = sh.zc[1];
+    const float fx = k.tcx * (at<0, -1, 0, 0>(sh) * (at<FI, 0, 0, 0>(sh)
+                                                     + at<FI, -1, 0, 0>(sh))
+                              - at<0, 1, 0, 0>(sh) * (at<FI, 0, 0, 0>(sh)
+                                                      + at<FI, 1, 0, 0>(sh)));
+    const float fy = k.tcy * (at<1, 0, -1, 0>(sh) * (at<FI, 0, 0, 0>(sh)
+                                                     + at<FI, 0, -1, 0>(sh))
+                              - at<1, 0, 1, 0>(sh) * (at<FI, 0, 0, 0>(sh)
+                                                      + at<FI, 0, 1, 0>(sh)));
+    const float fz = tzc1 * at<2, 0, 0, -1>(sh) * (at<FI, 0, 0, 0>(sh)
+                                                   + at<FI, 0, 0, -1>(sh))
+                     - tzc2 * at<2, 0, 0, 1>(sh) * (at<FI, 0, 0, 0>(sh)
+                                                    + at<FI, 0, 0, 1>(sh));
     return fx + fy + fz;
   }
 };
 
-// 7-point Laplacian with a per-level z metric, one field. pv is
-// `_diff_pack`'s vector [kx, ky, kz(Z)].
+// 7-point Laplacian with a per-level z metric, one field. `_diff_pack`'s
+// vector is [kx, ky, kz(Z)]; kz at window cell z is zc[0].
 struct DiffusionOp {
   static constexpr int kFields = 1;
-  template <class Sh>
-  __device__ __forceinline__ static float source(const Sh& sh, int,
-                                                 const float* pv, int,
-                                                 int z) {
-    const float kx = pv[0];
-    const float ky = pv[1];
-    const float kz = pv[2 + z];
-    const float c = sh(0, 0, 0, 0);
-    return kx * (sh(0, -1, 0, 0) - 2.0f * c + sh(0, 1, 0, 0))
-           + ky * (sh(0, 0, -1, 0) - 2.0f * c + sh(0, 0, 1, 0))
-           + kz * (sh(0, 0, 0, -1) - 2.0f * c + sh(0, 0, 0, 1));
+  static constexpr int kVectors = 1;
+  struct Coef {
+    float kx, ky;
+  };
+  __device__ __forceinline__ static Coef coef(const float* pv) {
+    return {pv[0], pv[1]};
+  }
+  template <int FI, class Cell>
+  __device__ __forceinline__ static float source(const Cell& sh,
+                                                 const Coef& k) {
+    const float kz = sh.zc[0];
+    const float c = at<0, 0, 0, 0>(sh);
+    return k.kx * (at<0, -1, 0, 0>(sh) - 2.0f * c + at<0, 1, 0, 0>(sh))
+           + k.ky * (at<0, 0, -1, 0>(sh) - 2.0f * c + at<0, 0, 1, 0>(sh))
+           + kz * (at<0, 0, 0, -1>(sh) - 2.0f * c + at<0, 0, 0, 1>(sh));
   }
 };

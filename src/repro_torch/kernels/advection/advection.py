@@ -29,13 +29,14 @@ The y-tile geometry is the reference's: tile t owns rows
 [t*TY, min((t+1)*TY, Y)) and streams a slab of S = TY + 2H rows clipped
 flush into the domain (H = 1 for v1-v3, T for v4), so every owned row keeps
 H rows of margin to a cut slab edge and tiled outputs equal untiled ones
-bitwise. A v1-v3 or spec block keeps its slab in shared memory: 3 fields x
-3 slices of S x Z floats (x T levels for K6). A tile whose slab exceeds
-`roofline.SMEM_PER_BLOCK` cannot run; `largest_fitting_y_tile` picks one
-that does. K1 keeps its ring in registers and only each level's centre
-plane in shared memory, and also cuts x, and z where a slab row does not
-fit one block, into chunks with a T-deep halo; `fused_launch_plan` sizes
-its tiles and chunks from its builds and the card's SM count.
+bitwise. A v1-v3 block keeps its slab in shared memory: 3 fields x 3
+slices of S x Z floats. A tile whose slab exceeds `roofline.SMEM_PER_BLOCK`
+cannot run; `largest_fitting_y_tile` picks one that does. K1 and K6 keep
+their rings in registers and only each level's centre plane in shared
+memory, and also cut x, and z where a slab row does not fit one block, into
+chunks with a halo as deep as the pass's dependence cone (T for K1,
+`spec.halo(T)` for K6); `fused_launch_plan` and `spec_launch_plan` size
+their tiles and chunks from the builds and the card's SM count.
 `tiling="host"` is the reference's retained host-side tile loop
 (`_y_tiled_host`): one call per halo'd block and a restitch.
 """
@@ -136,8 +137,9 @@ def fused_register_bytes(T: int, y_rows: int, Z: int, itemsize: int = 4,
     spec ring (`stencil_fused`) is sized by the same formula with
     `n_fields=spec.n_fields`, `n_slots=2*spec.radius + 1`,
     `n_levels=spec.stages*T` and `halo=spec.halo(T)` (`spec_ring_knobs`).
-    On Hopper the ring is one block's dynamic shared memory, so it must
-    stay within `roofline.SMEM_PER_BLOCK`."""
+    It is the reference's model of the ring in VMEM; on Hopper it bounds
+    the v1-v3 slab, one block's dynamic shared memory, while K1 and K6 keep
+    their rings in registers (`fused_shared_bytes` is theirs)."""
     h = T if halo is None else halo
     levels = T if n_levels is None else n_levels
     rows = y_rows if y_tile is None else min(y_tile + 2 * h, y_rows)
@@ -179,13 +181,13 @@ def largest_fitting_y_tile(T: int, Y: int, Z: int, itemsize: int = 4,
 
 
 class FusedPlan(NamedTuple):
-    """One launch of K1 (`csrc/advect_fused.cu`): y-tiles of TY owned rows
-    in slabs of S rows, z chunks of CZ owned cells in windows of W (one
-    chunk, W = Z, where a whole row fits), x chunks of CX owned slices, C
-    cells of a window row per thread (z = zt + q * ceil(W / C)), the shared
-    planes' row pitch, the launch grid ``(n_ty * n_cz * n_cx, B, 1)``, the
-    block's shared bytes and the resident blocks per SM the x split
-    assumed."""
+    """One launch of a register ring, K1 (`csrc/advect_fused.cu`) or K6
+    (`csrc/stencil_fused.cu`): y-tiles of TY owned rows in slabs of S rows,
+    z chunks of CZ owned cells in windows of W (one chunk, W = Z, where a
+    whole row fits), x chunks of CX owned slices, C cells of a window row
+    per thread (z = zt + q * ceil(W / C)), the shared planes' row pitch, the
+    launch grid ``(n_ty * n_cz * n_cx, B, 1)``, the block's shared bytes and
+    the resident blocks per SM the x split assumed."""
     TY: int
     S: int
     n_ty: int
@@ -200,6 +202,24 @@ class FusedPlan(NamedTuple):
     grid: Tuple[int, int, int]
     shared_bytes: int
     blocks_per_sm: int
+
+
+class PlanKnobs(NamedTuple):
+    """What a ring's planner takes of its kernel beyond the pass's levels,
+    which are also its halo (K1's T; K6's ``spec.stages * T``, which is
+    `spec.halo(T)` at radius 1, the only radius K6 is built for): its
+    fields, its z-coefficient vectors, its builds as (cells per thread,
+    threads per block) items, the slab cells its own tile aims at, and its
+    name in the refusals. K1's are `K1_KNOBS`, K6's `spec_plan_knobs`'."""
+    n_fields: int
+    n_coef: int
+    builds: Tuple[Tuple[int, int], ...]
+    plan_cells: int
+    what: str
+
+
+K1_KNOBS = PlanKnobs(3, 2, tuple(_build.K1_BUILDS.items()), K1_PLAN_CELLS,
+                     "K1")
 
 
 class _FusedBlock(NamedTuple):
@@ -225,75 +245,86 @@ def check_launch_grid(grid, what: str) -> None:
                              f"exceeds CUDA's limit of {limit} there")
 
 
-def fused_passes(T: int) -> List[int]:
-    """The depths of the K1 launches that advance T steps: one pass up to
-    `_build.K1_MAX_T`, else ceil(T / K1_MAX_T) passes of near-equal depth.
-    Each pass is T_k masked Euler steps, so the passes in turn are the T
-    steps, bitwise."""
+def fused_passes(T: int, max_steps: Optional[int] = None) -> List[int]:
+    """The depths of the ring launches that advance T steps: one pass up to
+    `max_steps` (K1's `_build.K1_MAX_T` by default), else
+    ceil(T / max_steps) passes of near-equal depth. Each pass is T_k whole
+    steps, so the passes in turn are the T steps, bitwise."""
     if T < 1:
         raise ValueError(f"T must be >= 1, got {T}")
-    n = -(-T // _build.K1_MAX_T)
+    m = _build.K1_MAX_T if max_steps is None else max_steps
+    n = -(-T // m)
     return [T // n + (i < T % n) for i in range(n)]
 
 
 def fused_plane_pitch(W: int, C: int) -> int:
-    """Floats per row of K1's shared planes for a window of W cells: W, or
-    where a warp covers several rows of ``zs = ceil(W / C) < 32`` threads,
-    the least odd multiple of zs at least W, so that those rows fall on
-    different banks."""
+    """Floats per row of a ring's shared planes for a window of W cells: W,
+    or where a warp covers several rows of ``zs = ceil(W / C) < 32``
+    threads, the least odd multiple of zs at least W, so that those rows
+    fall on different banks."""
     zs = -(-W // C)
     if zs >= 32 or 32 % zs:
         return W
     return (-(-W // zs) | 1) * zs
 
 
-def fused_shared_bytes(T: int, S: int, W: int, C: int) -> int:
-    """K1's shared memory for a slab of S rows and a window of W cells: the
-    window's z coefficients (2W floats), the double-buffered centre plane of
-    each level below T and field (S rows at `fused_plane_pitch`), and the
-    floats the last row's z +- 1 reads may reach past it."""
+def fused_shared_bytes(T: int, S: int, W: int, C: int, *, n_fields: int = 3,
+                       n_coef: int = 2) -> int:
+    """A ring's shared memory for a slab of S rows and a window of W cells:
+    the window's z coefficients (`n_coef` vectors of W floats), the
+    double-buffered centre plane of each of T levels and `n_fields` fields
+    (S rows at `fused_plane_pitch`), and the floats the last row's z +- 1
+    reads may reach past it. K1's by default (T its depth, u, v, w, tzc1
+    and tzc2); K6's with the knobs of `spec_plan_knobs`."""
     pitch = fused_plane_pitch(W, C)
     tail = max(-(-W // C) * C + 1 - pitch, 0)
-    return 4 * (2 * W + 2 * T * 3 * S * pitch + tail)
+    return 4 * (n_coef * W + 2 * T * n_fields * S * pitch + tail)
 
 
 def _fused_threads(S: int, W: int, C: int) -> int:
-    """Threads of K1's block: S rows of ceil(W / C), in whole warps."""
+    """Threads of a ring's block: S rows of ceil(W / C), in whole warps."""
     return -(-S * -(-W // C) // 32) * 32
 
 
-def _fused_fits(T: int, S: int, W: int, C: int) -> bool:
-    return (_fused_threads(S, W, C) <= _build.K1_BUILDS[C]
-            and fused_shared_bytes(T, S, W, C) <= SMEM_PER_BLOCK)
+def _fused_fits(T: int, S: int, W: int, C: int,
+                knobs: PlanKnobs = K1_KNOBS) -> bool:
+    """Whether the ring's build of C cells per thread takes a block of S
+    rows by W cells at T levels: its threads and its shared memory."""
+    builds = dict(knobs.builds)
+    return (C in builds and _fused_threads(S, W, C) <= builds[C]
+            and fused_shared_bytes(T, S, W, C, n_fields=knobs.n_fields,
+                                   n_coef=knobs.n_coef) <= SMEM_PER_BLOCK)
 
 
-def _plan_y_tile(Y: int, Z: int, T: int) -> Optional[int]:
-    """K1's own y_tile: None (untiled) when the whole slab holds at most
-    `K1_PLAN_CELLS` cells, else the tallest tile whose slab does (at least
-    1), taking the largest divisor of Y instead when it is at least half
-    that size, as `largest_fitting_y_tile` does."""
-    if Y * Z <= K1_PLAN_CELLS:
+def _plan_y_tile(Y: int, Z: int, T: int,
+                 cells: int = K1_PLAN_CELLS) -> Optional[int]:
+    """A ring's own y_tile at a halo of T rows: None (untiled) when the
+    whole slab holds at most `cells` cells (K1's `K1_PLAN_CELLS` by
+    default), else the tallest tile whose slab does (at least 1), taking
+    the largest divisor of Y instead when it is at least half that size, as
+    `largest_fitting_y_tile` does."""
+    if Y * Z <= cells:
         return None
-    best = max(K1_PLAN_CELLS // Z - 2 * T, 1)
+    best = max(cells // Z - 2 * T, 1)
     divisor = max(d for d in range(1, best + 1) if Y % d == 0)
     return divisor if 2 * divisor >= best else best
 
 
-def _plan_z_window(T: int, S: int, Z: int):
-    """(C, CZ, W, n_cz) for a slab of S rows: the whole row (one chunk) for
-    the fewest cells per thread whose build takes it; else z chunks with a
-    T-deep halo a side, for the fewest cells per thread whose widest
-    fitting window owns at least half its cells (else the widest window),
-    balanced where the balanced window still fits. None where no window
-    of 2T + 1 cells or more fits."""
-    builds = _build.K1_BUILDS
+def _plan_z_window(T: int, S: int, Z: int, knobs: PlanKnobs = K1_KNOBS):
+    """(C, CZ, W, n_cz) for a slab of S rows at T levels: the whole row (one
+    chunk) for the fewest cells per thread whose build takes it; else z
+    chunks with a T-deep halo a side, for the fewest cells per thread whose
+    widest fitting window owns at least half its cells (else the widest
+    window), balanced where the balanced window still fits. None where no
+    window of 2 * T + 1 cells or more fits."""
+    builds = dict(knobs.builds)
     for C in builds:
-        if _fused_fits(T, S, Z, C):
+        if _fused_fits(T, S, Z, C, knobs):
             return C, Z, Z, 1
     widest = {}
     for C in builds:
         w = next((w for w in range(Z - 1, 2 * T, -1)
-                  if _fused_fits(T, S, w, C)), None)
+                  if _fused_fits(T, S, w, C, knobs)), None)
         if w is not None:
             widest[C] = w
     if not widest:
@@ -302,49 +333,55 @@ def _plan_z_window(T: int, S: int, Z: int):
              max(widest, key=widest.get))
     CZ = widest[C] - 2 * T
     n_cz = -(-Z // CZ)
-    if _fused_fits(T, S, -(-Z // n_cz) + 2 * T, C):
+    if _fused_fits(T, S, -(-Z // n_cz) + 2 * T, C, knobs):
         CZ = -(-Z // n_cz)
     return C, CZ, CZ + 2 * T, n_cz
 
 
 @functools.lru_cache(maxsize=256)
-def _fused_block(Y: int, Z: int, T: int,
-                 y_tile: Optional[int]) -> _FusedBlock:
-    """K1's block for one pass of depth T and `y_tile` (None: K1's own
-    tile). A given tile whose slab no build takes (more threads than a
-    build runs, or more shared memory than one block has, even in the
-    narrowest z window) runs as the fewest equal sub-tiles that a build
-    takes: TY / k rows for the least k dividing TY, so that the caller's
-    tile edges stay tile edges. y-tiling is bitwise invariant (the port's
-    grid-tiled == untiled contract), so the result is the same bits. A
-    sub-tile of one row always fits. Raises ValueError for T beyond the
-    build."""
+def _fused_block(Y: int, Z: int, T: int, y_tile: Optional[int],
+                 knobs: PlanKnobs = K1_KNOBS) -> _FusedBlock:
+    """A ring's block for one pass of T levels at a halo of T and `y_tile`
+    (None: the ring's own tile, a slab of about `knobs.plan_cells` cells),
+    K1's by default, K6's with `spec_plan_knobs`. A given tile
+    whose slab no build takes (more threads than a build runs, or more
+    shared memory than one block has, even in the narrowest z window) runs
+    as the fewest equal sub-tiles that a build takes: TY / k rows for the
+    least k dividing TY, so that the caller's tile edges stay tile edges.
+    y-tiling is bitwise invariant (the port's grid-tiled == untiled
+    contract), so the result is the same bits. A sub-tile of one row always
+    fits. Raises ValueError for T beyond K1's build (K6's shallower limit,
+    `_build.K6_MAX_LEVELS`, is `spec_plan_knobs`' refusal)."""
     if not 1 <= T <= _build.K1_MAX_T:
         raise ValueError(f"K1 is built for T in 1..{_build.K1_MAX_T} a pass "
                          f"(its register ring holds T levels), got T={T}")
-    tile = _plan_y_tile(Y, Z, T) if y_tile is None else y_tile
+    tile = (_plan_y_tile(Y, Z, T, knobs.plan_cells) if y_tile is None
+            else y_tile)
     TY, S, n_ty = _grid_geometry(Y, tile, T)
-    window = _plan_z_window(T, S, Z)
+    window = _plan_z_window(T, S, Z, knobs)
     for k in range(2, TY + 1):
         if window is not None:
             break
         if TY % k == 0:
             geometry = _grid_geometry(Y, TY // k, T)
-            window = _plan_z_window(T, geometry[1], Z)
+            window = _plan_z_window(T, geometry[1], Z, knobs)
             if window is not None:
                 TY, S, n_ty = geometry
     C, CZ, W, n_cz = window
     return _FusedBlock(TY, S, n_ty, CZ, W, n_cz, C, _fused_threads(S, W, C),
                        fused_plane_pitch(W, C),
-                       fused_shared_bytes(T, S, W, C))
+                       fused_shared_bytes(T, S, W, C,
+                                          n_fields=knobs.n_fields,
+                                          n_coef=knobs.n_coef))
 
 
 def _plan_x_chunks(X: int, T: int, tiles: int, slots: int,
                    n_sm: int) -> int:
-    """Owned x-slices per chunk: the count of chunks n minimising the waves
-    of blocks (``tiles * n`` over `slots` resident at once) times the
-    slices each block walks (``ceil(X / n) + T``), among the n that give at
-    least two blocks per SM where X allows it; ties go to fewer chunks."""
+    """Owned x-slices per chunk at a halo of T slices: the count of chunks n
+    minimising the waves of blocks (``tiles * n`` over `slots` resident at
+    once) times the slices each block walks (``ceil(X / n) + T``), among
+    the n that give at least two blocks per SM where X allows it; ties go
+    to fewer chunks."""
     need = min(-(-2 * n_sm // tiles), X)
     best, best_cost = X, None
     for n in range(max(need, 1), X + 1):
@@ -358,6 +395,21 @@ def _plan_x_chunks(X: int, T: int, tiles: int, slots: int,
 
 
 @functools.lru_cache(maxsize=256)
+def _ring_launch_plan(X: int, Y: int, Z: int, T: int, B: int, n_sm: int,
+                      blocks_per_sm: int, y_tile: Optional[int],
+                      knobs: PlanKnobs = K1_KNOBS) -> FusedPlan:
+    """`_fused_block` (T levels) with its x chunks and grid."""
+    blk = _fused_block(Y, Z, T, y_tile, knobs)
+    tiles = blk.n_ty * blk.n_cz
+    CX = _plan_x_chunks(X, T, tiles * B, n_sm * blocks_per_sm, n_sm)
+    n_cx = -(-X // CX)
+    grid = (tiles * n_cx, B, 1)
+    check_launch_grid(grid, knobs.what)
+    return FusedPlan(blk.TY, blk.S, blk.n_ty, blk.CZ, blk.W, blk.n_cz, CX,
+                     n_cx, blk.C, blk.threads, blk.pitch, grid, blk.shared,
+                     blocks_per_sm)
+
+
 def fused_launch_plan(X: int, Y: int, Z: int, T: int, B: int, n_sm: int,
                       blocks_per_sm: int, *,
                       y_tile: Optional[int] = None) -> FusedPlan:
@@ -368,24 +420,19 @@ def fused_launch_plan(X: int, Y: int, Z: int, T: int, B: int, n_sm: int,
     chunks, for the fewest cells per thread whose build takes it
     (`_plan_z_window`); x chunks from `_plan_x_chunks`. Raises ValueError,
     naming the limit, for T beyond the build or a grid beyond CUDA's."""
-    blk = _fused_block(Y, Z, T, y_tile)
-    tiles = blk.n_ty * blk.n_cz
-    CX = _plan_x_chunks(X, T, tiles * B, n_sm * blocks_per_sm, n_sm)
-    n_cx = -(-X // CX)
-    grid = (tiles * n_cx, B, 1)
-    check_launch_grid(grid, "K1")
-    return FusedPlan(blk.TY, blk.S, blk.n_ty, blk.CZ, blk.W, blk.n_cz, CX,
-                     n_cx, blk.C, blk.threads, blk.pitch, grid, blk.shared,
-                     blocks_per_sm)
+    return _ring_launch_plan(X, Y, Z, T, B, n_sm, blocks_per_sm, y_tile)
 
 
 def fused_plan_with_chunks(plan: FusedPlan, X: int, Z: int, T: int, *,
                            CX: Optional[int] = None,
-                           CZ: Optional[int] = None) -> FusedPlan:
-    """`plan` (a pass of depth T) with x chunks of CX owned slices and z
-    chunks of CZ owned cells instead of its own, where given (the
-    launch-shape sweep and the tests of chunk remainders). Raises
-    ValueError where the z window does not fit the plan's build."""
+                           CZ: Optional[int] = None,
+                           knobs: PlanKnobs = K1_KNOBS) -> FusedPlan:
+    """`plan` (a pass of T levels; K1's by default, K6's with
+    `knobs=spec_plan_knobs(...)`) with x chunks of CX owned slices and z
+    chunks of CZ
+    owned cells instead of its own, where given (the launch-shape sweeps and
+    the tests of chunk remainders). Raises ValueError where the z window
+    does not fit the plan's build."""
     CX = plan.CX if CX is None else CX
     n_cx = -(-X // CX)
     plan = plan._replace(CX=CX, n_cx=n_cx,
@@ -393,23 +440,27 @@ def fused_plan_with_chunks(plan: FusedPlan, X: int, Z: int, T: int, *,
     if CZ is None:
         return plan
     W, C = min(CZ + 2 * T, Z), plan.cells_per_thread
-    if not _fused_fits(T, plan.S, W, C):
-        raise ValueError(f"a z window of {W} cells does not fit K1's build "
-                         f"of {C} cells per thread at a slab of {plan.S} rows")
+    if not _fused_fits(T, plan.S, W, C, knobs):
+        raise ValueError(f"a z window of {W} cells does not fit "
+                         f"{knobs.what}'s build of {C} cells per thread at "
+                         f"a slab of {plan.S} rows")
     n_cz = -(-Z // CZ)
     return plan._replace(CZ=CZ, W=W, n_cz=n_cz,
                          threads=_fused_threads(plan.S, W, C),
                          pitch=fused_plane_pitch(W, C),
-                         shared_bytes=fused_shared_bytes(T, plan.S, W, C),
+                         shared_bytes=fused_shared_bytes(
+                             T, plan.S, W, C, n_fields=knobs.n_fields,
+                             n_coef=knobs.n_coef),
                          grid=(plan.n_ty * n_cz * n_cx,) + plan.grid[1:])
 
 
 def _fused_block_geometry(plan: FusedPlan, X: int, Y: int, Z: int, T: int,
                           t: int, cz: int, cx: int):
-    """What K1's block (y-tile t, z-chunk cz, x-chunk cx) walks and owns, as
-    the kernel computes it: ``(slab_lo, own rows [lo, hi), window_lo, owned
-    cells [z0, z1), slices walked [xs, xe], owned slices [x0, x1))``, rows,
-    cells and slices global."""
+    """What a ring's block (y-tile t, z-chunk cz, x-chunk cx) walks and owns
+    at a halo of T (K1's depth, K6's levels), as the kernel computes
+    it: ``(slab_lo, own rows [lo, hi), window_lo, owned cells [z0, z1),
+    slices walked [xs, xe], owned slices [x0, x1))``, rows, cells and slices
+    global."""
     slab_lo = _slab_lo(t, Y, plan.TY, plan.S, T)
     own = (t * plan.TY, min((t + 1) * plan.TY, Y))
     z0 = cz * plan.CZ
@@ -1068,49 +1119,146 @@ def _stencil_fused_plain(fields, pv, spec, T: int, dt: float, xm, ym,
     return fields
 
 
+def spec_passes(spec, T: int) -> List[int]:
+    """The depths of the K6 launches that advance T steps of `spec`: whole
+    steps, at most ``_build.K6_MAX_LEVELS // spec.stages`` a pass (two
+    levels a step for rk2), split as `fused_passes` splits K1's. Each pass
+    is T_k masked integrator steps, so the passes in turn are the T steps,
+    bitwise."""
+    return fused_passes(T, _build.K6_MAX_LEVELS // spec.stages)
+
+
+def spec_plan_knobs(spec, T: int) -> PlanKnobs:
+    """The `PlanKnobs` of one K6 pass of T steps of `spec`, whose planner's
+    T is the pass's levels, ``spec.stages * T`` (= `spec.halo(T)`): the
+    spec's fields, its functor's z-coefficient vectors
+    (`_build.K6_COEF_VECTORS`), its builds (`_build.K6_BUILDS`) and the slab
+    its own tile aims at: the most cells a block of those builds holds
+    (threads x cells per thread; 1024 for PW and the tracer, as K1's
+    `K1_PLAN_CELLS`, 2048 for diffusion's single field).
+    Raises NotImplementedError for a spec outside the CUDA table and
+    ValueError for more levels than a build holds (`spec_passes` splits
+    deeper T)."""
+    op, stages = _cuda_instantiation(spec)
+    if stages * T > _build.K6_MAX_LEVELS:
+        raise ValueError(
+            f"K6 is built for up to {_build.K6_MAX_LEVELS} ring levels a "
+            f"pass, and {spec.name} at T={T} needs {stages * T}; "
+            f"spec_passes(spec, T) splits it into passes of whole steps")
+    builds = _build.K6_BUILDS[op, stages]
+    return PlanKnobs(spec.n_fields, _build.K6_COEF_VECTORS[op],
+                     tuple(builds.items()),
+                     max(c * n for c, n in builds.items()), "K6")
+
+
+def spec_launch_plan(X: int, Y: int, Z: int, spec, T: int, B: int,
+                     n_sm: int, blocks_per_sm: int, *,
+                     y_tile: Optional[int] = None) -> FusedPlan:
+    """One K6 pass of T steps of `spec` over (B, X, Y, Z) fields on a card
+    of `n_sm` SMs that holds `blocks_per_sm` of the pass's blocks at once:
+    K1's planner (`fused_launch_plan`) at the spec's ``spec.stages * T``
+    levels, which are its halo D = `spec.halo(T)` at radius 1, and with its
+    fields, z-coefficient vectors and builds (`spec_plan_knobs`). `y_tile`
+    None is K6's own tile (a slab of about the most cells a block of its
+    builds holds); a given tile runs as given, or as the fewest equal
+    sub-tiles a build takes. Raises ValueError, naming the limit, for more
+    levels than a build holds or a grid beyond CUDA's."""
+    return _ring_launch_plan(X, Y, Z, spec.stages * T, B, n_sm,
+                             blocks_per_sm, y_tile,
+                             spec_plan_knobs(spec, T))
+
+
+@functools.lru_cache(maxsize=64)
+def _spec_attrs_cached(index: int, op: int, stages: int, T: int, C: int,
+                       threads: int, shared: int) -> Tuple[int, int, int, int]:
+    lib = _build.load()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(index):
+        err = lib.stencil_fused_attrs(op, stages, T, C, threads, shared, out)
+    _build.check(err, "stencil_fused_attrs")
+    return tuple(out)
+
+
+def spec_device_plan(device, X: int, Y: int, Z: int, spec, T: int,
+                     B: int = 1, y_tile: Optional[int] = None) -> FusedPlan:
+    """`spec_launch_plan` on `device`'s card: its SM count, and the resident
+    blocks per SM the card reports for the pass's build."""
+    index = _device_index(device)
+    n_sm = torch.cuda.get_device_properties(index).multi_processor_count
+    op, stages = _cuda_instantiation(spec)
+    blk = _fused_block(Y, Z, stages * T, y_tile, spec_plan_knobs(spec, T))
+    per_sm = _spec_attrs_cached(index, op, stages, T, blk.C, blk.threads,
+                                blk.shared)[3]
+    return spec_launch_plan(X, Y, Z, spec, T, B, n_sm, per_sm, y_tile=y_tile)
+
+
+def spec_kernel_attrs(device, spec, T: int, plan: FusedPlan) -> dict:
+    """What the card says of the K6 build that runs `plan` (a pass of T
+    steps of `spec`): registers and local (spill) bytes per thread, the most
+    threads a block of it can have, and its resident blocks per SM at the
+    plan's threads and shared bytes."""
+    op, stages = _cuda_instantiation(spec)
+    regs, local, most, per_sm = _spec_attrs_cached(
+        _device_index(device), op, stages, T, plan.cells_per_thread,
+        plan.threads, plan.shared_bytes)
+    return {"registers": regs, "local_bytes": local, "max_threads": most,
+            "blocks_per_sm": per_sm}
+
+
 def _stencil_fused_cuda(fields, pv, spec, T: int, dt: float, xm, ym,
-                        y_tile=None):
-    """Launch the spec ring CUDA kernel on (B, X, Y, Z) fields."""
+                        y_tile=None, *, plan: Optional[FusedPlan] = None):
+    """Launch K6 (`csrc/stencil_fused.cu`) on (B, X, Y, Z) fields: one
+    launch a pass of `spec_passes(spec, T)`, each on `spec_device_plan`'s
+    plan for this card, or on `plan`, a plan made for these shapes and T
+    (one pass)."""
     op, stages = _cuda_instantiation(spec)
     B, X, Y, Z = fields[0].shape
-    ring = fused_register_bytes(T, Y, Z, 4, y_tile, **spec_ring_knobs(spec, T))
-    if ring > SMEM_PER_BLOCK:
-        raise ValueError(
-            f"the {spec.name} ring needs {ring} B of shared memory at T={T}, "
-            f"Y={Y}, Z={Z}, y_tile={y_tile}; one block may use "
-            f"{SMEM_PER_BLOCK} B. Pass a smaller y_tile "
-            f"(largest_fitting_y_tile with spec_ring_knobs gives one, or "
-            f"raises where none fits)")
     if any(tuple(p.shape) != (Z + 2,) for p in pv):
         raise ValueError(f"the CUDA operators read (Z+2,) = ({Z + 2},) "
                          f"parameter vectors, got "
                          f"{[tuple(p.shape) for p in pv]}")
-    if B > MAX_GRID_Y:
-        raise ValueError(f"{B} slots exceed the launch grid's {MAX_GRID_Y}")
+    n_coef = _build.K6_COEF_VECTORS[op]
+    if len(pv) != n_coef:
+        raise ValueError(f"spec {spec.name!r}: its CUDA operator reads "
+                         f"{n_coef} parameter vectors, got {len(pv)}")
+    passes = spec_passes(spec, T)
+    if plan is not None and len(passes) > 1:
+        raise ValueError(f"a given plan runs one pass, T <= "
+                         f"{_build.K6_MAX_LEVELS // stages}; got T={T}")
+    if plan is None:
+        for Tk in set(passes):   # the refusals, before any build
+            _fused_block(Y, Z, stages * Tk, y_tile, spec_plan_knobs(spec, Tk))
+        check_launch_grid((1, B, 1), "K6")
     lib = _build.load()
-    TY, S, n_ty = _grid_geometry(Y, y_tile, spec.halo(T))
     table = torch.cat(pv).contiguous()
     xmt, sx = _pack_rows([xm], B)
     ymt, sy = _pack_rows([ym], B)
-    outs = [torch.empty_like(f) for f in fields]
-    ins = [f.data_ptr() for f in fields] + [None] * (4 - len(fields))
-    out_ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
-    with torch.cuda.device(fields[0].device):
-        stream = torch.cuda.current_stream(fields[0].device).cuda_stream
-        err = lib.stencil_fused_f32(
-            op, stages, spec.radius, *ins, *out_ptrs, table.data_ptr(), Z + 2,
-            xmt.data_ptr(), ymt.data_ptr(), B, X, Y, Z, T, TY, S, n_ty, sx, sy,
-            dt, ring, stream)
-    _build.check(err, "stencil_fused_f32")
-    LAUNCHES["stencil_fused"] += 1
-    return tuple(outs)
+    device = fields[0].device
+    outs = tuple(fields)
+    pad = [None] * (4 - len(outs))
+    for Tk in passes:
+        run = plan or spec_device_plan(device, X, Y, Z, spec, Tk, B, y_tile)
+        ins, outs = outs, tuple(torch.empty_like(f) for f in fields)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.stencil_fused_f32(
+                op, stages, *(f.data_ptr() for f in ins), *pad,
+                *(o.data_ptr() for o in outs), *pad, table.data_ptr(), Z + 2,
+                xmt.data_ptr(), ymt.data_ptr(), B, X, Y, Z, Tk, run.TY,
+                run.S, run.n_ty, run.CZ, run.W, run.n_cz, run.CX, run.n_cx,
+                run.cells_per_thread, run.threads, run.pitch, sx, sy, dt,
+                run.shared_bytes, stream)
+        _build.check(err, "stencil_fused_f32")
+        LAUNCHES["stencil_fused"] += 1
+    return outs
 
 
 def stencil_fused_batched(fields, params, spec, *, T: int = 4,
                           dt: float = 1.0, y_tile: int | None = None,
                           y_interior_mask=None, x_interior_mask=None):
-    """B domains of a StencilSpec in one launch, the slot being a dimension
-    of the launch grid. `fields` are slot-stacked ``(B, X, Y, Z)``;
+    """B domains of a StencilSpec, one launch a pass of
+    `spec_passes(spec, T)` (whole steps), the slot being a dimension of the
+    launch grid. `fields` are slot-stacked ``(B, X, Y, Z)``;
     `params` is shared across slots; interior masks may be shared
     ``(X,)``/``(Y,)`` or per-slot ``(B, X)``/``(B, Y)``. Per-slot outputs
     equal B sequential `stencil_fused` calls bitwise."""
@@ -1131,18 +1279,20 @@ def stencil_fused_batched(fields, params, spec, *, T: int = 4,
 def stencil_fused(fields, params, spec, *, T: int = 4, dt: float = 1.0,
                   y_tile: int | None = None, y_interior_mask=None,
                   x_interior_mask=None):
-    """Spec-driven v4: advance a StencilSpec's fields T integrator steps in
-    one pass over device memory, the generalisation of `advect_fused` to
-    any operator.
+    """Spec-driven v4: advance a StencilSpec's fields T integrator steps,
+    one pass over device memory for each pass of whole steps of
+    `spec_passes(spec, T)`, the generalisation of `advect_fused` to any
+    operator.
 
     `fields` is a tuple of `spec.n_fields` (X, Y, Z) float32 tensors;
     `params` is whatever `spec.pack_params` consumes. The ring depth, the
     startup masks, the slab halo and the output lag all come from
     `spec.halo(T) = radius * stages * T`; `y_tile` and the interior masks
     mean what they mean for `advect_fused`. On CUDA tensors this launches
-    `csrc/stencil_fused.cu`, whose ring (`fused_register_bytes` with
-    `spec_ring_knobs`) must fit one block's shared memory, else it raises
-    naming the budget; a spec whose `cuda_op` is None raises
+    `csrc/stencil_fused.cu` (K6) on its own launch plan
+    (`spec_launch_plan`; a given `y_tile` runs as given, or as the fewest
+    equal sub-tiles a build takes, bitwise the same), one launch a pass of
+    `spec_passes(spec, T)`; a spec whose `cuda_op` is None raises
     NotImplementedError there. On CPU tensors it runs the plain version,
     for any spec. With the PW spec it equals `advect_fused` bitwise.
     """

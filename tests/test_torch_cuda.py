@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import _build
 from repro_torch.kernels.advection import advection as TK
 from repro_torch.kernels.advection import ref as TREF
 from repro_torch.kernels.attention import attention as TA
@@ -288,7 +289,8 @@ def test_spec_kernel_bitwise_equals_plain(cuda, shape, key):
                       y_interior_mask=masks[1])
             before = TK.LAUNCHES["stencil_fused"]
             full = TK.stencil_fused(flds, p, spec, **kw)
-            assert TK.LAUNCHES["stencil_fused"] == before + 1
+            assert TK.LAUNCHES["stencil_fused"] == before + len(
+                TK.spec_passes(spec, T))
             pv = TK._spec_param_vectors(spec, p, cuda)
             plain = TK._stencil_fused_plain(
                 [f[None] for f in flds], pv, spec, T, dt,
@@ -327,11 +329,26 @@ def test_spec_kernel_tracer_velocities_equal_pw(cuda):
         assert all(torch.equal(a, b) for a, b in zip(out4[:3], out3))
 
 
+def spec_plain(spec, p, flds, T, dt, cuda):
+    X, Y, _ = flds[0].shape
+    pv = TK._spec_param_vectors(spec, p, cuda)
+    out = TK._stencil_fused_plain([f[None] for f in flds], pv, spec, T, dt,
+                                  torch.ones(X, device=cuda),
+                                  torch.ones(Y, device=cuda))
+    return [o[0] for o in out]
+
+
 def test_spec_kernel_refusals(cuda):
-    spec, p, _, _ = spec_case("pw_rk2", (4, 1024, 64), cuda)
-    flds = [torch.zeros((4, 1024, 64), device=cuda) for _ in range(3)]
-    with pytest.raises(ValueError, match="232448"):
-        TK.stencil_fused(flds, p, spec, T=4)
+    """PW rk2 at T = 4 over 1024 rows, refused before K6 kept its ring in
+    registers, runs as passes == plain; a spec outside the CUDA table is
+    still refused."""
+    spec, p, flds, dt = spec_case("pw_rk2", (4, 1024, 64), cuda)
+    before = TK.LAUNCHES["stencil_fused"]
+    out = TK.stencil_fused(flds, p, spec, T=4, dt=dt)
+    assert TK.LAUNCHES["stencil_fused"] == before + len(
+        TK.spec_passes(spec, 4))
+    assert all(torch.equal(a, b)
+               for a, b in zip(out, spec_plain(spec, p, flds, 4, dt, cuda)))
     custom = TSP.StencilSpec(name="custom", fields=("a",),
                              offsets={"a": ((1, 0, 0),)},
                              source=lambda sh, pv: (sh(0, 1, 0, 0),),
@@ -339,6 +356,49 @@ def test_spec_kernel_refusals(cuda):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
         TK.stencil_fused([torch.zeros((4, 6, 6), device=cuda)], None, custom,
                          T=1)
+
+
+@pytest.mark.parametrize("key", SPEC_KEYS)
+def test_spec_kernel_chunks_and_passes_equal_plain(cuda, key):
+    """K6 on given plans with x and z chunk remainders, and T beyond one
+    build's levels as passes of whole steps, == plain bitwise."""
+    spec, p, flds, dt = spec_case(key, (13, 40, 70), cuda)
+    X, Y, Z = 13, 40, 70
+    pv = TK._spec_param_vectors(spec, p, cuda)
+    ones = (torch.ones(X, device=cuda), torch.ones(Y, device=cuda))
+    plain = spec_plain(spec, p, flds, 2, dt, cuda)
+    for TY, CX, CZ in ((5, 4, 9), (3, 6, 20)):
+        plan = TK.fused_plan_with_chunks(
+            TK.spec_device_plan(cuda, X, Y, Z, spec, 2, 1, TY), X, Z,
+            spec.stages * 2, CX=CX, CZ=CZ,
+            knobs=TK.spec_plan_knobs(spec, 2))
+        assert plan.n_cx > 1 and plan.n_cz > 1
+        got = TK._stencil_fused_cuda([f[None] for f in flds], pv, spec, 2,
+                                     dt, *ones, plan=plan)
+        assert all(torch.equal(a[0], b) for a, b in zip(got, plain))
+    for T in (3, 5):
+        out = TK.stencil_fused(flds, p, spec, T=T, dt=dt)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(out, spec_plain(spec, p, flds, T, dt, cuda)))
+
+
+@pytest.mark.parametrize("key", SPEC_KEYS)
+def test_spec_kernel_builds_do_not_spill(cuda, key):
+    """Each K6 build a plan at the paper's grid launches: no local memory,
+    its launch bound the build table's, and the plan's resident blocks the
+    card's."""
+    spec = spec_case(key, (4, 8, 8), cuda)[0]
+    op, stages = TK._cuda_instantiation(spec)
+    for T in sorted({Tk for t in range(1, 5)
+                     for Tk in TK.spec_passes(spec, t)}):
+        for y_tile in (None, 8, 16):
+            plan = TK.spec_device_plan(cuda, 1024, 1024, 64, spec, T, 1,
+                                       y_tile)
+            a = TK.spec_kernel_attrs(cuda, spec, T, plan)
+            assert a["local_bytes"] == 0, (T, y_tile, a)
+            assert a["max_threads"] == \
+                _build.K6_BUILDS[op, stages][plan.cells_per_thread]
+            assert a["blocks_per_sm"] == plan.blocks_per_sm >= 1
 
 
 # ---------------------------------------------------------------------------
