@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                      # every phase, one card
     python3 chip_smoke.py --only distributed   # phases 15-18 alone
+    python3 chip_smoke.py --only ladder        # K3's and K2's times
     python3 chip_smoke.py --only k6            # K6's six passes' times
     python3 chip_smoke.py --only k8            # K8's time and a prefill's
     python3 chip_smoke.py --only k9            # K9's times and a prefill's
@@ -17,8 +18,14 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    guarded == unguarded outputs, and the fused ring against the f64
    oracle; then the
    v1-v3 rungs: blocked (K3) and dataflow (K2) == plain for sources and
-   `fuse_update`, tiled == untiled, K2 == K3, host tiling == grid for every
-   rung and the fused ring, wide == dataflow, wide's refusal at Z = 10;
+   `fuse_update`, each on its own plan (`rung_launch_plan`, y_tile None)
+   and at given tiles, tiled == untiled, K2 == K3, host tiling == grid for
+   every rung and the fused ring, wide == dataflow, x chunks of 1-3 slices,
+   plans with x-chunk and y sub-tile remainders and a given tile the plan
+   splits (`RUNG_PLAN_CASES`), Z = 10 and 12 on the 4-byte cp.async path,
+   fields that start 4 bytes past an allocation (blocked and dataflow),
+   (3, 1024, 64) untiled and at y_tile 99 (once refused for shared
+   memory), wide's refusal at Z = 10;
 2. drives the main path at the paper's 67M grid (1024, 1024, 64):
    `AdvectionDomain(variant="fused", fuse_T=4).advance(..., 16)` (four
    fused launches, each on K1's own launch plan, printed with the card's
@@ -28,9 +35,11 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    frozen boundary planes and the guard flags;
 3. drives the Fig. 3 ladder path at the same grid: for each of `blocked`,
    `dataflow` and `wide`, with and without `fuse_update`,
-   `AdvectionDomain(variant=...).advance(..., 4)`, the counts set to 0 just
-   before and read just after (the rung's kernel launched 4 times, no other
-   kernel), the result == the plain version bitwise, boundary frozen;
+   `AdvectionDomain(variant=...).advance(..., 4)` (the domain's y_tile 64,
+   which each rung's plan runs as its own sub-tiles; the plan printed with
+   the card's registers, spills and resident blocks), the counts set to 0
+   just before and read just after (the rung's kernel launched 4 times, no
+   other kernel), the result == the plain version bitwise, boundary frozen;
 4. holds the spec ring (K6, `stencil_fused`) against its plain version at
    small shapes for the six shipped operator x integrator pairs (PW,
    tracer, diffusion x euler, rk2) over T, y_tile and interior masks:
@@ -50,11 +59,16 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    within `ORACLE_TOL` of the f64 oracle; then PW and tracer rk2 at T = 4
    (`SPEC_DEEP`), == plain and within `ORACLE_TOL`;
 6. times each kernel with CUDA events (median of 20 after warm-up) beside
-   its bound, the least time the card could take for the same work, each
-   rung's Euler step through the domain beside K1's pass over T (and
-   whether the fused rung's step beats v2's), a short sweep of K1's launch
-   plans at 67M (y-tiles x x-chunks, each output == the planned one
-   bitwise), and each spec operator's call ("spec path on the card"
+   its bound, the least time the card could take for the same work (each
+   v1-v3 rung on its own plan, with its device time by `torch.profiler`,
+   registers, spills and resident blocks per SM), each rung's Euler step
+   through the domain beside K1's pass over T (and whether the fused rung's
+   step beats v2's), a short sweep of K1's launch plans at 67M (y-tiles x
+   x-chunks, each output == the planned one bitwise), a sweep of the
+   rungs' plans (`RUNG_SWEEP_TILES` x `RUNG_SWEEP_CHUNKS`, each output ==
+   the planned one bitwise), and each spec
+   operator's call
+   ("spec path on the card"
    lines: events and `torch.profiler` device time) with each K6 build's
    registers, spills, shared bytes and resident blocks per SM;
 7. holds flash attention (K8) against its plain version at small shapes:
@@ -133,6 +147,13 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 18. where the machine has two or more cards, repeats 15-17 on a mesh of
    distinct cards (peer stores over NVLink), bitwise equal to the
    loopback run; with one card it prints that it skipped.
+
+`--only ladder` times K3, K2 `dataflow` and K2 `wide` at the 67M grid with
+`fuse_update` False and True (events and device time by `torch.profiler`),
+at y_tile 64 and, where the package plans its own (`rung_launch_plan`), at
+y_tile None, beside K1's pass over T, with entry points the port has had
+since the rungs were ported, so a copy of the script in an older checkout
+times that checkout the same way.
 
 `--only k6` times the six passes of the spec path at the 67M grid (events
 and device time) at the tile `largest_fitting_y_tile` gives with
@@ -218,6 +239,20 @@ SPEC_PATH = (("pw", "euler", 4), ("pw", "rk2", 2), ("tracer", "euler", 4),
 SPEC_DEEP = (("pw", "rk2", 4), ("tracer", "rk2", 4))
 RUNGS = {"advect_blocked": "blocked", "advect_dataflow": "dataflow",
          "advect_wide": "wide"}
+# the kernel each rung launches, as `torch.profiler` names it (wide is K2's
+# 16-byte build)
+RUNG_KERNEL = {"advect_blocked": "advect_blocked_kernel",
+               "advect_dataflow": "advect_dataflow_kernel",
+               "advect_wide": "advect_dataflow_kernel"}
+# the rungs' plans at small shapes: a given tile the plan splits into equal
+# sub-tiles (64 at Z = 64; 40 of 97 rows), x chunks that leave a remainder
+RUNG_PLAN_CASES = (  # shape, y_tile, x_chunk
+    ((7, 150, 64), 64, 3), ((9, 97, 64), 40, 4), ((5, 41, 12), 13, 2),
+    ((6, 23, 8), 30, 5), ((5, 150, 64), 64, None))
+# the rungs' plan sweep at the main grid: y-tiles by x chunks (None: the
+# plan's own), each distinct plan once
+RUNG_SWEEP_TILES = (None, 8, 16, 32)
+RUNG_SWEEP_CHUNKS = (None, 32)
 SOURCE = {"advect_fused": "src/repro_torch/csrc/advect_fused.cu",
           "finite_guard": "src/repro_torch/csrc/finite_guard.cu",
           "advect_blocked": "src/repro_torch/csrc/advect_blocked.cu",
@@ -463,8 +498,10 @@ def ladder_small_phase(check: Checks) -> None:
             k2 = K.advect_dataflow(u, v, w, p, **kw)
             torch.cuda.synchronize()
             tag = f"{shape} fuse_update={fu}"
-            check(same(k3, plain), f"K3 blocked == plain {tag}")
-            check(same(k2, plain), f"K2 dataflow == plain {tag}")
+            check(same(k3, plain), f"K3 blocked on its own plan == plain "
+                  f"{tag}")
+            check(same(k2, plain), f"K2 dataflow on its own plan == plain "
+                  f"{tag}")
             check(same(k2, k3), f"K2 == K3 {tag}")
             for name, fn in (("K3", K.advect_blocked),
                              ("K2", K.advect_dataflow)):
@@ -510,6 +547,57 @@ def ladder_small_phase(check: Checks) -> None:
     except ValueError as err:
         refused = "multiple of 16" in str(err)
     check(refused, "wide refuses Z = 10 (a row of 40 B), naming the rule")
+    rung_plan_small_phase(check)
+
+
+def rung_plan_small_phase(check: Checks) -> None:
+    """The rungs' own plans and given plans at small shapes, == plain
+    bitwise: sub-tiles and x remainders, fields 4 bytes past an allocation
+    (the 4-byte cp.async path takes any 4-byte-aligned field), the shape
+    the old slab refused."""
+    for si, (shape, y_tile, x_chunk) in enumerate(RUNG_PLAN_CASES):
+        X, Y, Z = shape
+        u, v, w = rand_fields(shape, seed=80 + si)
+        p = REF.default_params(Z, device="cuda")
+        for name in RUNGS:
+            if name == "advect_wide" and Z % 4:
+                continue
+            plan = K.rung_device_plan("cuda:0", name, X, Y, Z, y_tile,
+                                      x_chunk)
+            given = K._grid_geometry(Y, y_tile, 1)[0]
+            what = (f"{name} {shape} y_tile={y_tile} (plan TY={plan.TY}"
+                    f"{', sub-tiles' if plan.TY < given else ''}) "
+                    f"x_chunk={x_chunk} (CX={plan.CX}, {X % plan.CX} over)")
+            for fu in (False, True):
+                got = K._advect_rung_cuda(name, u, v, w, p, y_tile, fu, DT,
+                                          x_chunk=x_chunk)
+                check(same(got, K._advect_rung_plain(u, v, w, p, fu, DT)),
+                      f"{what} fuse_update={fu} == plain")
+    for shape in ((6, 10, 12), (5, 17, 12), (8, 12, 10), (7, 9, 64)):
+        X, Y, Z = shape
+        u, v, w = rand_fields(shape, seed=90 + Z)
+        p = REF.default_params(Z, device="cuda")
+        n = X * Y * Z
+        bufs = [torch.empty(n + 1, device="cuda") for _ in range(3)]
+        off = [b[1:].view(shape) for b in bufs]   # 4 bytes past the start
+        for o, f in zip(off, (u, v, w)):
+            o.copy_(f)
+        for name in ("advect_blocked", "advect_dataflow"):
+            for fu in (False, True):
+                got = getattr(K, name)(*off, p, fuse_update=fu, dt=DT)
+                check(same(got, K._advect_rung_plain(u, v, w, p, fu, DT)),
+                      f"{name} {shape} on fields 4 bytes past an allocation"
+                      f" fuse_update={fu} == plain")
+    u, v, w = rand_fields((3, 1024, 64), seed=95)
+    p = REF.default_params(64, device="cuda")
+    for name in RUNGS:
+        for y_tile in (None, 99):
+            plan = K.rung_device_plan("cuda:0", name, 3, 1024, 64, y_tile)
+            got = getattr(K, name)(u, v, w, p, y_tile=y_tile,
+                                   fuse_update=True, dt=DT)
+            check(same(got, K._advect_rung_plain(u, v, w, p, True, DT)),
+                  f"{name} (3, 1024, 64) y_tile={y_tile} on its plan "
+                  f"(TY={plan.TY}, {plan.shared_bytes} B) == plain")
 
 
 LEAF_BASE_NDIM = {"tcx": 0, "tcy": 0, "tzc1": 1, "tzc2": 1}
@@ -679,6 +767,20 @@ def k6_plan_text(spec, shape, T, y_tile=None) -> str:
             f"thread")
 
 
+def rung_plan_text(name, shape, y_tile=None, x_chunk=None) -> str:
+    """The v1-v3 kernel `name`'s launch plan on cuda:0 for one (X, Y, Z)
+    domain, as its wrapper makes it, with what the card says of it."""
+    plan = K.rung_device_plan("cuda:0", name, *shape, y_tile, x_chunk)
+    a = K.rung_kernel_attrs("cuda:0", name, plan)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (f"TY={plan.TY} (slab {plan.S} rows), CX={plan.CX}, "
+            f"{plan.planes} planes a field, "
+            f"{plan.grid[0] * plan.grid[1]} blocks of {plan.threads} threads "
+            f"on {sms} SMs, {a['blocks_per_sm']} resident per SM, "
+            f"{plan.shared_bytes} B shared, {a['registers']} registers, "
+            f"{a['local_bytes']} B spilled per thread")
+
+
 def frozen_edges(f0, fT) -> bool:
     return (fT[0].equal(f0[0]) and fT[-1].equal(f0[-1])
             and fT[:, 0].equal(f0[:, 0]) and fT[:, -1].equal(f0[:, -1])
@@ -696,7 +798,6 @@ def ladder_path_phase(check: Checks, fields):
     plain = (u0, v0, w0)
     for _ in range(LADDER_SUBSTEPS):
         plain = REF.pw_step_ref(*plain, p, DT)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {}
     for name, variant in RUNGS.items():
         errs = []
@@ -710,15 +811,13 @@ def ladder_path_phase(check: Checks, fields):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = dict(K.LAUNCHES)
-            TY, _, n_ty = K._grid_geometry(Y, dom.run_y_tile, 1)
-            blocks = n_ty * (X if name == "advect_blocked"
-                             else -(-X // K.DATAFLOW_X_CHUNK))
             tag = f"{variant} fuse_update={fu}"
             print(f"ladder path: {tag}: {MAIN_GRID} grid {(X, Y, Z)}, "
-                  f"advance({LADDER_SUBSTEPS}), y_tile={dom.run_y_tile}, "
-                  f"{blocks} blocks per launch on {sms} SMs, slab "
-                  f"{dom.vmem_register_bytes()} B; wall {wall:.3f} s; "
-                  f"launches {launches}", flush=True)
+                  f"advance({LADDER_SUBSTEPS}), y_tile={dom.run_y_tile} "
+                  f"(the reference's slab model {dom.vmem_register_bytes()} "
+                  f"B), run on {name}'s plan: "
+                  f"{rung_plan_text(name, (X, Y, Z), dom.run_y_tile)}; "
+                  f"wall {wall:.3f} s; launches {launches}", flush=True)
             check(all((n == LADDER_SUBSTEPS) if k == name else n == 0
                       for k, n in launches.items()),
                   f"{tag}: {name} launched {LADDER_SUBSTEPS} times, no other "
@@ -768,24 +867,35 @@ def timing_phase(check: Checks, dom, fields, out, launches, k1_err, k4_err,
                       launches["advect_fused"], k1_err),
         kernel_record("finite_guard", k4_ms, k4_plain, k4_bytes, k4_ops,
                       launches["finite_guard"], k4_err)]
-    # the v1-v3 rungs, at the domain's tile: each reads and writes the
-    # three fields once and reads the parameter row; 63 ops per interior
-    # cell, plus the 2-op update of 3 fields per cell with fuse_update
-    y_tile = K.largest_fitting_y_tile(1, Y, Z)
+    # the v1-v3 rungs, each on its own plan (the domain's tile 64 runs as
+    # the same sub-tiles): each reads and writes the three fields once and
+    # reads the parameter row; 63 ops per interior cell, plus the 2-op
+    # update of 3 fields per cell with fuse_update
     rung_bytes = 6 * cells * 4 + (2 + 2 * Z) * 4
     src_ops = (X - 2) * (Y - 2) * (Z - 2) * REF.flops_per_cell()
     rung_plain = time_ms(lambda: K._advect_rung_plain(u, v, w, p, True, DT),
                          runs=5)
     for name, variant in RUNGS.items():
         fn = getattr(K, name)
-        src_ms = time_ms(lambda: fn(u, v, w, p, y_tile=y_tile))
+        src_ms = time_ms(lambda: fn(u, v, w, p))
         print(f"{name} sources only: {src_ms:.4f} ms per launch, bound "
               f"{bound_of(rung_bytes, src_ops)[0]:.4f} ms", flush=True)
-        ms = time_ms(lambda: fn(u, v, w, p, y_tile=y_tile, fuse_update=True,
-                                dt=DT))
+
+        def call():
+            return fn(u, v, w, p, fuse_update=True, dt=DT)
+
+        ms = time_ms(call)
+        dev, seen = profiled_kernels(call, RUNG_KERNEL[name], ("cuda:0",), 10)
+        bound = bound_of(rung_bytes, src_ops + 6 * cells)[0]
+        device = (f"{dev:.4f} ms ({seen} of 10 launches seen; "
+                  f"{bound / dev:.4f} of the bound)" if dev > 0
+                  else "not measured")
+        print(f"{name} on its own plan ({rung_plan_text(name, (X, Y, Z))}): "
+              f"{ms:.4f} ms by events, device {device}", flush=True)
         n, err = ladder[name]
         records.append(kernel_record(name, ms, rung_plain, rung_bytes,
                                      src_ops + 6 * cells, n, err))
+        records[-1]["device_ms"] = dev if dev > 0 else None
     # the ladder per Euler step through the domain; without fuse_update the
     # step pays the separate f + dt*s pass. One step must read and write
     # the three fields once (the rung's bound); K1 shares that over T steps
@@ -820,7 +930,52 @@ def timing_phase(check: Checks, dom, fields, out, launches, k1_err, k4_err,
           f" ms of wall time (median of 5 after the checked run; "
           f"{MAIN_SUBSTEPS // T} K1 passes back to back)", flush=True)
     k1_sweep(check, u, v, w, p, T, k1_bytes, k1_ops)
+    rung_sweep(check, u, v, w, p, bound_of(rung_bytes, src_ops + 6 * cells)[0])
     return records
+
+
+def rung_sweep(check: Checks, u, v, w, p, bound: float) -> None:
+    """The rungs' launch plans at the main grid (`RUNG_SWEEP_TILES` by
+    `RUNG_SWEEP_CHUNKS`, each distinct plan once), each with `fuse_update`
+    timed (events, median of 10; device time by `torch.profiler`) and its
+    output held against the planned one."""
+    X, Y, Z = u.shape
+    for name in RUNGS:
+        want = K._advect_rung_cuda(name, u, v, w, p, None, True, DT)
+        seen = set()
+        for y_tile in RUNG_SWEEP_TILES:
+            for x_chunk in RUNG_SWEEP_CHUNKS:
+                plan = K.rung_device_plan("cuda:0", name, X, Y, Z, y_tile,
+                                          x_chunk)
+                if (plan.TY, plan.CX) in seen:
+                    continue
+                seen.add((plan.TY, plan.CX))
+                rung_sweep_case(check, name, (u, v, w), p, y_tile, x_chunk,
+                                want, bound)
+
+
+def rung_sweep_case(check: Checks, name, fields, p, y_tile, x_chunk, want,
+                    bound: float) -> None:
+    """One case of `rung_sweep`: the rung at `y_tile` and `x_chunk`."""
+
+    def run():
+        return K._advect_rung_cuda(name, *fields, p, y_tile, True, DT,
+                                   x_chunk=x_chunk)
+
+    shape = tuple(fields[0].shape)
+    plan = K.rung_device_plan("cuda:0", name, *shape, y_tile, x_chunk)
+    own = " (the rung's own plan)" if y_tile is None and x_chunk is None \
+        else ""
+    check(same(run(), want), f"{name} plan TY={plan.TY} CX={plan.CX} "
+          f"(y_tile={y_tile}, x_chunk={x_chunk}) == the planned output, "
+          f"bitwise{own}")
+    ms = time_ms(run, runs=10)
+    dev = profiled_kernels(run, RUNG_KERNEL[name], ("cuda:0",), 10)[0]
+    print(f"{name} plan sweep: y_tile={y_tile}, x_chunk={x_chunk}: "
+          f"{rung_plan_text(name, shape, y_tile, x_chunk)}:"
+          f" {ms:.4f} ms by events, device {dev:.4f} ms, "
+          f"{bound / dev if dev > 0 else 0.0:.4f} of the bound by "
+          f"device{own}", flush=True)
 
 
 def k1_sweep(check: Checks, u, v, w, p, T, nbytes, ops) -> None:
@@ -1343,6 +1498,56 @@ def k6_builds_lines(runs) -> None:
               f"{plan.shared_bytes} B shared, {plan.threads} threads (bound "
               f"{a['max_threads']}), {a['blocks_per_sm']} resident per SM",
               flush=True)
+
+
+def ladder_compare(card: str) -> int:
+    """`--only ladder`: K3, K2 `dataflow` and K2 `wide` at the 67M grid,
+    `fuse_update` False and True (events, and device time by
+    `torch.profiler`), at y_tile 64 (the domain's tile) and, where the
+    package plans its own (`rung_launch_plan`), at y_tile None too; beside
+    K1's pass at T = 4. It uses only entry points that the port has had
+    since the rungs were ported, so a copy of this script in an older
+    checkout times that checkout's rungs the same way."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    cells = X * Y * Z
+    dom = AdvectionDomain(X, Y, Z, variant="fused", fuse_T=MAIN_T, dt=DT,
+                          device="cuda")
+    u, v, w = dom.init(seed=0)
+    p = REF.default_params(Z, device="cuda")
+
+    def k1():
+        return K.advect_fused(u, v, w, p, T=MAIN_T, dt=DT)
+
+    k1_ms = time_ms(k1)
+    k1_dev = profiled_kernels(k1, "advect_ring_kernel", ("cuda:0",), 10)[0]
+    print(f"ladder compare ({K.__file__}): K1 T={MAIN_T} {k1_ms:.4f} ms by "
+          f"events a pass ({k1_ms / MAIN_T:.4f} a step), device "
+          f"{k1_dev:.4f} ms ({k1_dev / MAIN_T:.4f} a step); card {card}",
+          flush=True)
+    nbytes = 6 * cells * 4 + (2 + 2 * Z) * 4
+    src_ops = (X - 2) * (Y - 2) * (Z - 2) * REF.flops_per_cell()
+    tiles = [64, None] if hasattr(K, "rung_launch_plan") else [64]
+    for name in RUNGS:
+        fn = getattr(K, name)
+        for fu in (False, True):
+            bound = bound_of(nbytes, src_ops + 6 * cells * fu)[0]
+            for y_tile in tiles:
+
+                def call():
+                    return fn(u, v, w, p, y_tile=y_tile, fuse_update=fu,
+                              dt=DT)
+
+                ms = time_ms(call)
+                dev, seen = profiled_kernels(call, RUNG_KERNEL[name],
+                                             ("cuda:0",), 10)
+                print(f"ladder compare ({K.__file__}): {name} fuse_update="
+                      f"{fu} y_tile={y_tile}"
+                      f"{' (own plan)' if y_tile is None else ''}: {ms:.4f} "
+                      f"ms by events, device {dev:.4f} ms ({seen} launches "
+                      f"seen in 10 calls), {bound / dev if dev > 0 else 0:.4f}"
+                      f" of the {bound:.4f} ms bound by device; card {card}",
+                      flush=True)
+    return 0
 
 
 def k6_compare(card: str) -> int:
@@ -2334,9 +2539,9 @@ def distributed_only(check: Checks, card: str) -> list:
 
 def main() -> int:
     only = sys.argv[2:] if sys.argv[1:2] == ["--only"] else None
-    if sys.argv[1:] and only not in (["distributed"], ["k6"], ["k8"],
-                                     ["k9"]):
-        print("usage: chip_smoke.py [--only distributed|k6|k8|k9]",
+    if sys.argv[1:] and only not in (["distributed"], ["ladder"], ["k6"],
+                                     ["k8"], ["k9"]):
+        print("usage: chip_smoke.py [--only distributed|ladder|k6|k8|k9]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2356,6 +2561,8 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.2f} s", flush=True)
     print(_build.build_log().strip(), flush=True)
     check = Checks()
+    if only == ["ladder"]:
+        return ladder_compare(card)
     if only == ["k6"]:
         return k6_compare(card)
     if only == ["k8"]:

@@ -74,8 +74,10 @@ SIGNATURES = {
     "advect_fused_f32": [_P] * 9 + [_I] * 19 + [_F, _SZ, _P],
     "advect_fused_attrs": [_I, _I, _I, _SZ, _P],
     "finite_guard_f32": [_P] * 4 + [_I, _I, _LL, _I, _P],
-    "advect_blocked_f32": [_P] * 7 + [_I] * 7 + [_F, _SZ, _P],
-    "advect_dataflow_f32": [_P] * 7 + [_I] * 9 + [_F, _SZ, _P],
+    "advect_blocked_f32": [_P] * 7 + [_I] * 9 + [_F, _SZ, _P],
+    "advect_blocked_attrs": [_I, _SZ, _P],
+    "advect_dataflow_f32": [_P] * 7 + [_I] * 11 + [_F, _SZ, _P],
+    "advect_dataflow_attrs": [_I, _I, _SZ, _P],
     "stencil_fused_f32": ([_I] * 2 + [_P] * 9 + [_I, _P, _P] + [_I] * 18
                           + [_F, _SZ, _P]),
     "stencil_fused_attrs": [_I] * 5 + [_SZ, _P],

@@ -26,6 +26,9 @@ PEAK_FLOPS_F32 = 67e12       # f32 FLOP/s outside the tensor cores
 HBM_BW = 3.35e12             # bytes/s
 HBM_PER_CHIP = 80 * 10**9    # 80 GB
 SMEM_PER_BLOCK = 232_448     # dynamic shared memory one block may use
+SMEM_PER_SM = 233_472        # shared memory the resident blocks of one SM
+                             # share (228 KB) ...
+SMEM_RESERVED_PER_BLOCK = 1_024   # ... less 1 KB the system keeps per block
 NVLINK_BW = 450e9            # bytes/s each way to the other cards (NVLink 4)
 LOOPBACK_BW = HBM_BW / 2     # a band moved within one card: read + write
 

@@ -4,26 +4,38 @@
 // `_kernel_blocked` (the Pallas TPU kernel, :214).
 //
 // What it computes: the PW sources of u, v, w, zero on every boundary cell,
-// or with `fuse` the advanced fields cen + dt * (interior ? src : 0). One
-// block per (x, y-tile) pair, x the fast grid dimension as in the Pallas grid
-// (n_ty, X). Each block stages the x-1, x and x+1 slices (the index clipped
-// at 0 and X-1) of its slab, S = TY + 2 rows clipped flush into the domain,
-// of all three fields into dynamic shared memory: 9 * S * Z * 4 bytes. It
-// then computes and writes its owned rows [t*TY, min((t+1)*TY, Y)) only, so
-// no block writes a row another block owns.
+// or with `fuse` the advanced fields cen + dt * (interior ? src : 0).
 //
-// The triple read is this rung's point: every slice is fetched by the blocks
-// of x-1, x and x+1, the paper's v1 re-reads. Nothing is reused across x on
-// purpose. What the card's 50 MB L2 makes of the re-reads is what the rung
-// measures.
+// What bounds it on one H100 SXM: memory. The function reads the three
+// fields and writes three, 6 * X * Y * Z * 4 bytes: 1.61 GB and 0.4808 ms at
+// 3.35 TB/s at (1024, 1024, 64). Its arithmetic, 63 ops per interior cell
+// (plus 6 per cell with `fuse`), takes 0.06-0.07 ms at 67 TFLOP/s.
 //
-// Bound on one H100 SXM: memory. The function reads the three fields and
-// writes three: 6*X*Y*Z*4 bytes, 1.61 GB at (1024, 1024, 64), 0.48 ms at
-// 3.35 TB/s. Its arithmetic, 63 ops per interior cell (plus 6 per cell with
-// `fuse`), takes 0.06-0.07 ms at 67 TFLOP/s. The kernel asks the memory
-// system for 3 * (TY + 2) / TY times the compulsory reads; loads are
-// synchronous and, with one 152 KB slab per block at TY = 64, one block runs
-// per SM, so a block's load, compute and store do not overlap.
+// The rung's data movement, which the design keeps: the triple read. For
+// every output slice x, its block fetches the x-1, x and x+1 slices (the
+// index clipped at 0 and X-1) of its slab, S = TY + 2 rows clipped flush
+// into the domain, of all three fields from device memory into a stage of
+// 9 * S * Z * 4 bytes of dynamic shared memory: nine slab copies an x,
+// 3 * S / TY times the compulsory reads asked of the memory system. Nothing
+// is reused across x inside a block, on purpose: every slice is fetched for
+// x-1, x and x+1, the paper's v1 re-reads, and what the card's 50 MB L2
+// makes of them is what the rung measures. Moves are 4-byte words a thread
+// (cp.async.ca); no bulk (TMA) copy. A block computes and writes its owned
+// rows [t*TY, min((t+1)*TY, Y)) only, so no block writes a row another block
+// owns.
+//
+// What the design does about the bound: blocks that hide each other's
+// loads. A block stages the nine slabs of its x with cp.async, waits for
+// them, computes and stores. The plan (`rung_launch_plan` in
+// kernels/advection/advection.py) takes the tallest y-tile whose stage lets
+// four blocks share an SM and sizes the threads to it (4 cells a thread); at
+// (1024, 1024, 64): TY = 16, 41,472 B, 256 threads, five blocks an SM, x the
+// fast grid dimension, so the blocks at work are x-neighbours and their
+// re-reads meet in L2. A block that walked a run of x and loaded x+1 into a
+// second stage while it computed x, at two blocks an SM, took 1.04-1.05 ms
+// of device time there against this design's 0.85-0.88 in one call
+// (PERF.md) and is gone. Given a run of x (an explicit x chunk), a block
+// walks it one x at a time.
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -31,77 +43,105 @@
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kMaxThreads = 512;
 
-__global__ void __launch_bounds__(kThreads) advect_blocked_kernel(
+__global__ void __launch_bounds__(kMaxThreads, 2) advect_blocked_kernel(
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ w, float* __restrict__ ou,
     float* __restrict__ ov, float* __restrict__ ow,
     const float* __restrict__ params, int X, int Y, int Z, int TY, int S,
-    int fuse, float dt) {
-  extern __shared__ float smem[];
-  const int x = blockIdx.x;
+    int L, int fuse, float dt) {
+  extern __shared__ __align__(16) float smem[];
+  const int x0 = blockIdx.x * L;
+  const int x1 = min(x0 + L, X);
   const int t = blockIdx.y;
   const int slab_lo = min(max(t * TY - 1, 0), Y - S);
   const int own_lo = t * TY;
-  const int own_rows = min(TY, Y - own_lo);
   const int own_r0 = own_lo - slab_lo;
+  const int n_cells = min(TY, Y - own_lo) * Z;
   const size_t slice = (size_t)Y * Z;
   const int plane = S * Z;
   const float* in[3] = {u, v, w};
-  float* out[3] = {ou, ov, ow};
-  const float tcx = params[0];
-  const float tcy = params[1];
-  const float* tzc1 = params + 2;
-  const float* tzc2 = params + 2 + Z;
+  float* const out[3] = {ou, ov, ow};
+  const RungParams pr = rung_params<1>(params, Z);
 
-  RungSlices sl;
-#pragma unroll
-  for (int f = 0; f < 3; ++f) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      float* dst = smem + (size_t)(f * 3 + k) * plane;
-      const int xs = min(max(x + k - 1, 0), X - 1);
-      const float* src = in[f] + (size_t)xs * slice + (size_t)slab_lo * Z;
-      for (int idx = threadIdx.x; idx < plane; idx += kThreads)
-        dst[idx] = src[idx];
-      sl.s[f][k] = dst;
-    }
-  }
-  __syncthreads();
-
-  const bool x_ok = x >= 1 && x <= X - 2;
-  const size_t dst_off = (size_t)x * slice + (size_t)own_lo * Z;
-  for (int idx = threadIdx.x; idx < own_rows * Z; idx += kThreads) {
-    const int c = own_r0 * Z + idx;
-    const int r = c / Z, z = c - r * Z;
-    const bool interior = rung_interior(x_ok, r, z, S, Z);
+  // the nine slabs of output slice x: plane (f * 3 + k) holds field f at
+  // x + k - 1, clipped
+  for (int x = x0; x < x1; ++x) {
+    if (x > x0) __syncthreads();  // the slabs of x - 1 are read
 #pragma unroll
     for (int f = 0; f < 3; ++f)
-      out[f][dst_off + idx] = rung_value(sl, f, c, Z, interior, tcx, tcy,
-                                         tzc1[z], tzc2[z], fuse != 0, dt);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int xs = min(max(x + k - 1, 0), X - 1);
+        cp_async_plane<1>(smem + (size_t)(f * 3 + k) * plane,
+                          in[f] + (size_t)xs * slice + (size_t)slab_lo * Z,
+                          plane);
+      }
+    cp_async_commit();
+    cp_async_wait(0);
+    __syncthreads();
+    RungSlices sl;
+#pragma unroll
+    for (int f = 0; f < 3; ++f)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        sl.s[f][k] = smem + (size_t)(f * 3 + k) * plane;
+    const bool x_ok = x >= 1 && x <= X - 2;
+    const size_t dst_off = (size_t)x * slice + (size_t)own_lo * Z;
+    for (int k = threadIdx.x; k < n_cells; k += blockDim.x) {
+      const int c = own_r0 * Z + k;
+      const int r = c / Z;
+      rung_cells<1>(sl, c, c - r * Z, x_ok && r >= 1 && r <= S - 2, Z, pr,
+                    fuse != 0, dt, out, dst_off + k);
+    }
   }
 }
 
 }  // namespace
 
 // u, v, w, ou, ov, ow: (X, Y, Z) f32, contiguous. params: one row
-// [tcx, tcy, tzc1(Z), tzc2(Z)]. Geometry (TY, S, n_ty) comes from the
-// wrapper; smem_bytes = 9 * S * Z * 4. Returns the cudaError_t of the
-// attribute call or of the launch.
+// [tcx, tcy, 0, 0, tzc1(Z), tzc2(Z)]. The plan (y-tile TY, slab S, n_ty
+// tiles, runs of L slices, `threads` per block) comes from the wrapper;
+// smem_bytes = 9 * S * Z * 4. Returns the cudaError_t of the attribute call
+// or of the launch.
 extern "C" int advect_blocked_f32(const float* u, const float* v,
                                   const float* w, float* ou, float* ov,
                                   float* ow, const float* params, int X,
                                   int Y, int Z, int TY, int S, int n_ty,
-                                  int fuse, float dt, size_t smem_bytes,
-                                  void* stream) {
+                                  int L, int threads, int fuse, float dt,
+                                  size_t smem_bytes, void* stream) {
+  // the kernel stages nine slabs: 3 fields x slices x-1, x, x+1
+  if (smem_bytes < (size_t)9 * S * Z * sizeof(float))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       advect_blocked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(X, n_ty);
-  advect_blocked_kernel<<<grid, kThreads, smem_bytes,
-                          (cudaStream_t)stream>>>(u, v, w, ou, ov, ow, params,
-                                                  X, Y, Z, TY, S, fuse, dt);
+  dim3 grid((X + L - 1) / L, n_ty);
+  advect_blocked_kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+      u, v, w, ou, ov, ow, params, X, Y, Z, TY, S, L, fuse, dt);
   return (int)cudaGetLastError();
+}
+
+// What the card says of the kernel at `threads` and `smem_bytes`: out =
+// [registers per thread, local (spill) bytes per thread, most threads per
+// block, resident blocks per SM]. Returns a cudaError_t.
+extern "C" int advect_blocked_attrs(int threads, size_t smem_bytes, int* out) {
+  const void* fn = (const void*)advect_blocked_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                      smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = a.maxThreadsPerBlock;
+  out[3] = per_sm;
+  return 0;
 }

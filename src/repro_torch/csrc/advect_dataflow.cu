@@ -6,35 +6,45 @@
 //
 // What it computes: the same values as advect_blocked.cu, bitwise: the PW
 // sources of u, v, w, or with `fuse` the advanced fields
-// cen + dt * (interior ? src : 0). Each field has a 3-slot ring of (S, Z)
-// slices in dynamic shared memory, S = TY + 2 rows clipped flush into the
-// domain: 9 * S * Z * 4 bytes. Step i loads slice i into slot i % 3 and emits
-// x = i - 1 from slots ((i+1)%3, (i+2)%3, i%3) = (x-1, x, x+1), as in the
-// Pallas kernel, so every slice is read once per pass over it.
+// cen + dt * (interior ? src : 0).
 //
-// The Pallas grid walks all of x in order on one core; here blocks run
-// concurrently, so x is cut into chunks of L slices and each block owns one
-// (x-chunk, y-tile) pair. It streams its chunk's slices plus one halo slice
-// on each side (L + 2 loads for L outputs) and writes each owned row of each
-// of its slices exactly once. x = 0 and x = X-1 are not interior: they get
-// cen (fuse) or 0. The ring is zero-filled first; a slot that is never loaded
-// (x = -1, x = X) is read only by those boundary slices, which the select
-// walls off.
+// What bounds it on one H100 SXM: memory. The function reads the three
+// fields and writes three, 6 * X * Y * Z * 4 bytes: 1.61 GB and 0.4808 ms at
+// 3.35 TB/s at (1024, 1024, 64). Its arithmetic, 63 ops per interior cell
+// (plus 6 per cell with `fuse`), takes 0.06-0.07 ms at 67 TFLOP/s.
 //
-// VEC = 4 is v3 `wide`: 16-byte (float4) loads and stores in place of 4-byte
-// ones, the card's counterpart of the paper's 64 -> 256-bit port widening.
-// It needs Z % 4 == 0 and 16-byte-aligned fields, which the wrapper checks.
+// The rung's data movement, which the design keeps: the Pallas grid walks
+// x in order on one core through a 3-slot shift register per field. Here
+// blocks run at once, so x is cut into chunks of L slices and each block
+// owns one (x-chunk, y-tile) pair. It streams the slab of each slice of its
+// chunk, S = TY + 2 rows clipped flush into the domain, plus one halo slice
+// on each side, from device memory into a ring of R slots a field in
+// dynamic shared memory (3 * R * S * Z * 4 bytes), so every slice is read
+// once a chunk: (L + 2) / L times the compulsory reads, and S / TY for the
+// y halo. It writes each owned row of each slice of its chunk once.
+// VEC = 4 is v3 `wide`: every move a thread makes is 16 bytes, the global
+// loads (cp.async.cg), the shared reads and the global stores, the card's
+// counterpart of the paper's 64 -> 256-bit port widening. It needs Z % 4 == 0
+// and 16-byte-aligned fields, which the wrapper checks. VEC = 1 moves 4-byte
+// words (cp.async.ca). Neither uses a bulk (TMA) copy, which would move
+// either rung's slabs at the copy engine's width and erase the v2 -> v3 step.
 //
-// Launch at (1024, 1024, 64) with TY = 64 and L = 32: 16 y-tiles x 32
-// x-chunks = 512 blocks of 152,064 B, one per SM at a time on 132 SMs; each
-// slice is read (L + 2) / L = 1.0625 times.
-//
-// Bound on one H100 SXM: memory. The function reads the three fields and
-// writes three: 6*X*Y*Z*4 bytes, 1.61 GB at (1024, 1024, 64), 0.48 ms at
-// 3.35 TB/s; its arithmetic (63 ops per interior cell, plus 6 per cell with
-// `fuse`) takes 0.06-0.07 ms at 67 TFLOP/s. Known limits, left for later
-// work: loads are synchronous (no cp.async/TMA double buffering), two
-// barriers per slice, and one block per SM.
+// What the design does about the bound:
+// - Loads ahead. The ring has R = 3 + A slots. While a block computes slice
+//   x from the slots of x-1, x and x+1, the loads of x+1+A are in flight
+//   (cp.async, one commit group a slice), into the slot that x-2 left. One
+//   barrier a slice: it publishes x+1 and frees x-2's slot at once.
+// - Several blocks an SM. The plan (`rung_launch_plan` in
+//   kernels/advection/advection.py) takes the tallest y-tile whose ring
+//   lets two blocks share an SM, sizes the threads to the tile (4 cells a
+//   thread) and the x-chunks to whole waves of the card's resident blocks.
+//   At (1024, 1024, 64): TY = 32, R = 4, 104,448 B, 512 threads, chunks of
+//   64 slices: 512 blocks, two an SM.
+// - No zero fill. A slot that is never loaded (x = -1, x = X) is read only
+//   by the boundary slices, whose cells read nothing but their own value.
+// - No bank conflicts. A warp's 4-byte reads fall on 32 consecutive
+//   words; `wide` reads its four cells with one 16-byte load and their z
+//   neighbours from the 16-byte words on each side.
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -42,130 +52,137 @@
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kMaxThreads = 512;
 
 template <int VEC>
-struct Vec;
-template <>
-struct Vec<1> {
-  using T = float;
-  __device__ static void store(float* p, const float (&a)[1]) { *p = a[0]; }
-};
-template <>
-struct Vec<4> {
-  using T = float4;
-  __device__ static void store(float* p, const float (&a)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
-  }
-};
-
-template <int VEC>
-__global__ void __launch_bounds__(kThreads) advect_dataflow_kernel(
+__global__ void __launch_bounds__(kMaxThreads, 2) advect_dataflow_kernel(
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ w, float* __restrict__ ou,
     float* __restrict__ ov, float* __restrict__ ow,
     const float* __restrict__ params, int X, int Y, int Z, int TY, int S,
-    int L, int fuse, float dt) {
-  using VT = typename Vec<VEC>::T;
+    int L, int R, int fuse, float dt) {
   extern __shared__ __align__(16) float smem[];
   const int x0 = blockIdx.x * L;
   const int x1 = min(x0 + L, X);
   const int t = blockIdx.y;
   const int slab_lo = min(max(t * TY - 1, 0), Y - S);
   const int own_lo = t * TY;
-  const int own_rows = min(TY, Y - own_lo);
   const int own_r0 = own_lo - slab_lo;
+  const int n_vec = min(TY, Y - own_lo) * Z / VEC;  // rows of whole vectors
   const size_t slice = (size_t)Y * Z;
   const int plane = S * Z;
   const float* in[3] = {u, v, w};
-  float* out[3] = {ou, ov, ow};
-  const float tcx = params[0];
-  const float tcy = params[1];
-  const float* tzc1 = params + 2;
-  const float* tzc2 = params + 2 + Z;
+  float* const out[3] = {ou, ov, ow};
+  const RungParams pr = rung_params<VEC>(params, Z);
+  const int ahead = R - 3;
+  const int n_walk = x1 - x0 + 2;  // slices x0 - 1 .. x1
 
-  for (int idx = threadIdx.x; idx < 9 * plane; idx += kThreads)
-    smem[idx] = 0.0f;
-  __syncthreads();
-
-  for (int i = x0 - 1; i <= x1; ++i) {
-    const int s0 = (i + 3) % 3;  // i >= -1
-    if (i >= 0 && i <= X - 1) {
+  // slice j of the walk (x = x0 - 1 + j) goes to slot j % R of each field,
+  // one commit group a slice, empty where the slice lies outside the walk or
+  // the domain
+  auto issue = [&](int j) {
+    const int i = x0 - 1 + j;
+    if (j < n_walk && i >= 0 && i < X) {
       const size_t src_off = (size_t)i * slice + (size_t)slab_lo * Z;
 #pragma unroll
-      for (int f = 0; f < 3; ++f) {
-        VT* dst = reinterpret_cast<VT*>(smem + (size_t)(f * 3 + s0) * plane);
-        const VT* src = reinterpret_cast<const VT*>(in[f] + src_off);
-        for (int k = threadIdx.x; k < plane / VEC; k += kThreads)
-          dst[k] = src[k];
-      }
+      for (int f = 0; f < 3; ++f)
+        cp_async_plane<VEC>(smem + (size_t)(f * R + j % R) * plane,
+                            in[f] + src_off, plane);
     }
-    __syncthreads();
-    const int x = i - 1;
-    if (x >= x0) {
-      const int sm = (i + 4) % 3, sc = (i + 5) % 3;  // (i+1)%3, (i+2)%3
-      RungSlices sl;
+    cp_async_commit();
+  };
+
+  for (int j = 0; j < ahead + 2; ++j) issue(j);
+  for (int x = x0; x < x1; ++x) {
+    const int j = x - x0 + 1;  // the walk's slice x; x + 1 is j + 1
+    cp_async_wait(ahead - 1);  // this thread's copies of x + 1 have landed
+    __syncthreads();           // everyone's have, and x - 2's slot is free
+    issue(j + 1 + ahead);
+    RungSlices sl;
 #pragma unroll
-      for (int f = 0; f < 3; ++f) {
-        sl.s[f][0] = smem + (size_t)(f * 3 + sm) * plane;
-        sl.s[f][1] = smem + (size_t)(f * 3 + sc) * plane;
-        sl.s[f][2] = smem + (size_t)(f * 3 + s0) * plane;
-      }
-      const bool x_ok = x >= 1 && x <= X - 2;
-      const size_t dst_off = (size_t)x * slice + (size_t)own_lo * Z;
-      for (int k = threadIdx.x; k < own_rows * Z / VEC; k += kThreads) {
-        const int c0 = own_r0 * Z + k * VEC;  // a row holds whole vectors
-        const int r = c0 / Z, z0 = c0 - r * Z;
+    for (int f = 0; f < 3; ++f)
 #pragma unroll
-        for (int f = 0; f < 3; ++f) {
-          float vals[VEC];
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) {
-            const int z = z0 + e;
-            vals[e] = rung_value(sl, f, c0 + e, Z,
-                                 rung_interior(x_ok, r, z, S, Z), tcx, tcy,
-                                 tzc1[z], tzc2[z], fuse != 0, dt);
-          }
-          Vec<VEC>::store(out[f] + dst_off + (size_t)k * VEC, vals);
-        }
-      }
+      for (int k = 0; k < 3; ++k)
+        sl.s[f][k] = smem + (size_t)(f * R + (j - 1 + k) % R) * plane;
+    const bool x_ok = x >= 1 && x <= X - 2;
+    const size_t dst_off = (size_t)x * slice + (size_t)own_lo * Z;
+    for (int k = threadIdx.x; k < n_vec; k += blockDim.x) {
+      const int c0 = own_r0 * Z + k * VEC;
+      const int r = c0 / Z;
+      rung_cells<VEC>(sl, c0, c0 - r * Z, x_ok && r >= 1 && r <= S - 2, Z,
+                      pr, fuse != 0, dt, out, dst_off + (size_t)k * VEC);
     }
-    __syncthreads();
   }
+  cp_async_wait(0);
 }
 
 template <int VEC>
 int launch(const float* u, const float* v, const float* w, float* ou,
            float* ov, float* ow, const float* params, int X, int Y, int Z,
-           int TY, int S, int n_ty, int L, int fuse, float dt,
-           size_t smem_bytes, cudaStream_t stream) {
+           int TY, int S, int n_ty, int L, int R, int threads, int fuse,
+           float dt, size_t smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       advect_dataflow_kernel<VEC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((X + L - 1) / L, n_ty);
-  advect_dataflow_kernel<VEC><<<grid, kThreads, smem_bytes, stream>>>(
-      u, v, w, ou, ov, ow, params, X, Y, Z, TY, S, L, fuse, dt);
+  advect_dataflow_kernel<VEC><<<grid, threads, smem_bytes, stream>>>(
+      u, v, w, ou, ov, ow, params, X, Y, Z, TY, S, L, R, fuse, dt);
   return (int)cudaGetLastError();
+}
+
+template <int VEC>
+int attrs(int threads, size_t smem_bytes, int* out) {
+  const void* fn = (const void*)advect_dataflow_kernel<VEC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                      smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = a.maxThreadsPerBlock;
+  out[3] = per_sm;
+  return 0;
 }
 
 }  // namespace
 
 // u, v, w, ou, ov, ow: (X, Y, Z) f32, contiguous (16-byte aligned and
-// Z % 4 == 0 when vec4). params: one row [tcx, tcy, tzc1(Z), tzc2(Z)].
-// Geometry (TY, S, n_ty) and the x-chunk length L come from the wrapper;
-// smem_bytes = 9 * S * Z * 4. Returns the cudaError_t of the attribute call
-// or of the launch.
+// Z % 4 == 0 when vec4). params: one 16-byte-aligned row
+// [tcx, tcy, 0, 0, tzc1(Z), tzc2(Z)]. The plan (y-tile TY, slab S, n_ty
+// tiles, chunks of L slices, a ring of R slots in 4..5, `threads` per block)
+// comes from the wrapper; smem_bytes = 3 * R * S * Z * 4. Returns the
+// cudaError_t of the attribute call or of the launch.
 extern "C" int advect_dataflow_f32(const float* u, const float* v,
                                    const float* w, float* ou, float* ov,
                                    float* ow, const float* params, int X,
                                    int Y, int Z, int TY, int S, int n_ty,
-                                   int L, int vec4, int fuse, float dt,
-                                   size_t smem_bytes, void* stream) {
+                                   int L, int R, int threads, int vec4,
+                                   int fuse, float dt, size_t smem_bytes,
+                                   void* stream) {
+  // a ring of 3 slots has no slot to load ahead into (the wait would let
+  // the compute read x+1 before it lands); shared memory must hold R slots
+  if (R < 4 || R > 5 || smem_bytes < (size_t)3 * R * S * Z * sizeof(float))
+    return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   if (vec4)
-    return launch<4>(u, v, w, ou, ov, ow, params, X, Y, Z, TY, S, n_ty, L,
-                     fuse, dt, smem_bytes, s);
-  return launch<1>(u, v, w, ou, ov, ow, params, X, Y, Z, TY, S, n_ty, L, fuse,
-                   dt, smem_bytes, s);
+    return launch<4>(u, v, w, ou, ov, ow, params, X, Y, Z, TY, S, n_ty, L, R,
+                     threads, fuse, dt, smem_bytes, s);
+  return launch<1>(u, v, w, ou, ov, ow, params, X, Y, Z, TY, S, n_ty, L, R,
+                   threads, fuse, dt, smem_bytes, s);
+}
+
+// What the card says of the build (vec4 or not) at `threads` and
+// `smem_bytes`: out = [registers per thread, local (spill) bytes per thread,
+// most threads per block, resident blocks per SM]. Returns a cudaError_t.
+extern "C" int advect_dataflow_attrs(int vec4, int threads, size_t smem_bytes,
+                                     int* out) {
+  return vec4 ? attrs<4>(threads, smem_bytes, out)
+              : attrs<1>(threads, smem_bytes, out);
 }

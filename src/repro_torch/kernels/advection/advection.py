@@ -29,9 +29,11 @@ The y-tile geometry is the reference's: tile t owns rows
 [t*TY, min((t+1)*TY, Y)) and streams a slab of S = TY + 2H rows clipped
 flush into the domain (H = 1 for v1-v3, T for v4), so every owned row keeps
 H rows of margin to a cut slab edge and tiled outputs equal untiled ones
-bitwise. A v1-v3 block keeps its slab in shared memory: 3 fields x 3
-slices of S x Z floats. A tile whose slab exceeds `roofline.SMEM_PER_BLOCK`
-cannot run; `largest_fitting_y_tile` picks one that does. K1 and K6 keep
+bitwise. A v1-v3 block keeps its slabs in shared memory, S x Z floats each
+(K3: 3 fields x the 3 slices of one x; K2: a ring of slots a field, over a
+chunk of x); `rung_launch_plan` sizes its tile, threads and chunks so that
+several blocks share an SM, and runs a given tile too tall for that as
+equal sub-tiles. K1 and K6 keep
 their rings in registers and only each level's centre plane in shared
 memory, and also cut x, and z where a slab row does not fit one block, into
 chunks with a halo as deep as the pass's dependence cone (T for K1,
@@ -49,13 +51,13 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import _build
-from repro_torch.core.roofline import SMEM_PER_BLOCK
+from repro_torch.core.roofline import (SMEM_PER_BLOCK, SMEM_PER_SM,
+                                       SMEM_RESERVED_PER_BLOCK)
 from repro_torch.kernels.advection.ref import (AdvectParams, pw_advect_ref,
                                                pw_step_ref)
 from repro_torch.launch.mesh import dma_neighbor_coords
 
 TILINGS = ("grid", "host")
-DATAFLOW_X_CHUNK = 32   # x-slices each dataflow/wide block streams
 MAX_GRID_Y = 65535      # CUDA's limit on a launch grid's second dimension
 MAX_GRID = (2 ** 31 - 1, MAX_GRID_Y, 65535)   # CUDA's limits on (x, y, z)
 # the slab cells a planned tile of K1 (`csrc/advect_fused.cu`) aims at; its
@@ -875,6 +877,183 @@ def _host_tiled(tiling: str, y_tile: Optional[int], Y: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
+class _RungKnobs(NamedTuple):
+    """What the planner takes of a v1-v3 kernel: the (S, Z) planes a field
+    holds in shared memory (K2's ring slots, K3's three slices), whether a
+    block walks a chunk of x (K2, which loads two halo slices beyond it) or
+    computes one x (K3), and the blocks an SM its tile aims at."""
+    planes: int
+    walks_x: bool
+    blocks_per_sm: int
+
+
+# K2's ring of 4 slots a field loads slice x+2 while x computes, at two
+# blocks an SM; K3 stages the nine slabs of one x, the loads of the four or
+# five blocks an SM hiding each other (the faster of two K3 designs timed
+# in one call, PERF.md). The kernels hold these: K2's ring takes 4 or 5
+# slots, K3 stages exactly 3 planes.
+_RUNG_KNOBS = {
+    "advect_blocked": _RungKnobs(3, False, 4),
+    "advect_dataflow": _RungKnobs(4, True, 2),
+    "advect_wide": _RungKnobs(4, True, 2)}
+RUNG_MAX_THREADS = 512      # the rung kernels' launch bound
+RUNG_CELLS_PER_THREAD = 4   # owned cells of a slice each thread computes
+
+
+class RungPlan(NamedTuple):
+    """One launch of a v1-v3 kernel: y-tiles of TY owned rows in slabs of S
+    rows, x chunks of CX owned slices, the shared planes a field, the
+    threads per block, the launch grid ``(n_cx, n_ty, 1)``, the block's
+    shared bytes and the resident blocks per SM the x split assumed."""
+    TY: int
+    S: int
+    n_ty: int
+    CX: int
+    n_cx: int
+    planes: int
+    threads: int
+    grid: Tuple[int, int, int]
+    shared_bytes: int
+    blocks_per_sm: int
+
+
+def _rung_shared(knobs: _RungKnobs, S: int, Z: int) -> int:
+    """A rung block's shared bytes at a slab of S rows: 3 fields x planes of
+    S x Z floats."""
+    return 3 * knobs.planes * S * Z * 4
+
+
+def _rung_budget(blocks: int) -> int:
+    """The shared bytes a block may take so that `blocks` share an SM."""
+    return min(SMEM_PER_BLOCK, SMEM_PER_SM // blocks - SMEM_RESERVED_PER_BLOCK)
+
+
+def _rung_own_tile(knobs: _RungKnobs, Y: int, Z: int, what: str) -> int:
+    """A rung's own owned rows per tile: all of Y where that slab lets
+    `knobs.blocks_per_sm` blocks share an SM, else the tallest tile whose
+    slab does (one block an SM where none does), taking the largest divisor
+    of Y instead when it is at least half that size. Raises ValueError
+    naming the budget where not even a one-row tile fits one block."""
+    for blocks in (knobs.blocks_per_sm, 1):
+        budget = _rung_budget(blocks)
+        if _rung_shared(knobs, Y, Z) <= budget:
+            return Y
+        best = budget // _rung_shared(knobs, 1, Z) - 2
+        if best >= 1:
+            divisor = max(d for d in range(1, best + 1) if Y % d == 0)
+            return divisor if 2 * divisor >= best else best
+    raise ValueError(
+        f"{what}: even a y-tile of one row needs "
+        f"{_rung_shared(knobs, min(3, Y), Z)} B of shared memory at Z={Z}; "
+        f"one block may use {SMEM_PER_BLOCK} B")
+
+
+class _RungBlock(NamedTuple):
+    """The part of a `RungPlan` that does not depend on X or the card."""
+    TY: int
+    S: int
+    n_ty: int
+    threads: int
+    shared: int
+
+
+@functools.lru_cache(maxsize=256)
+def _rung_block(name: str, Y: int, Z: int,
+                y_tile: Optional[int]) -> _RungBlock:
+    """A rung's block at `y_tile` (None: its own, `_rung_own_tile`). A
+    given tile taller than the rung's own runs as the fewest equal
+    sub-tiles no taller: TY / k rows for the least k dividing TY, so that
+    the caller's tile edges stay tile edges. y-tiling is bitwise invariant
+    (the port's grid-tiled == untiled contract), so the result is the same
+    bits. Threads: `RUNG_CELLS_PER_THREAD` owned cells each, in whole warps,
+    at most `RUNG_MAX_THREADS`."""
+    knobs = _RUNG_KNOBS[name]
+    own = _rung_own_tile(knobs, Y, Z, name)
+    TY, S, n_ty = _grid_geometry(Y, own if y_tile is None else y_tile, 1)
+    if TY > own:
+        k = next(k for k in range(2, TY + 1) if TY % k == 0 and TY // k <= own)
+        TY, S, n_ty = _grid_geometry(Y, TY // k, 1)
+    check_launch_grid((1, n_ty, 1), name)
+    threads = -(-TY * Z // RUNG_CELLS_PER_THREAD)
+    threads = min(max(-(-threads // 32) * 32, 32), RUNG_MAX_THREADS)
+    return _RungBlock(TY, S, n_ty, threads, _rung_shared(knobs, S, Z))
+
+
+@functools.lru_cache(maxsize=256)
+def rung_launch_plan(name: str, X: int, Y: int, Z: int, n_sm: int,
+                     blocks_per_sm: int, *, y_tile: Optional[int] = None,
+                     x_chunk: Optional[int] = None) -> RungPlan:
+    """One launch of the v1-v3 kernel `name` (`advect_blocked`,
+    `advect_dataflow`, `advect_wide`) over (X, Y, Z) fields on a card of
+    `n_sm` SMs that holds `blocks_per_sm` of its blocks at once: the y-tile
+    of `_rung_block` (the rung's own, or `y_tile` in equal sub-tiles where
+    it is taller), x chunks of `x_chunk` slices where given, else one
+    slice (K3) or chunks from `_plan_x_chunks` (K2: whole waves of the
+    resident blocks, weighing the two halo slices each block loads beyond
+    its own). Raises ValueError, naming the limit, where no tile fits or
+    the grid is beyond CUDA's."""
+    knobs = _RUNG_KNOBS[name]
+    blk = _rung_block(name, Y, Z, y_tile)
+    CX = x_chunk or (_plan_x_chunks(X, 2, blk.n_ty, n_sm * blocks_per_sm,
+                                    n_sm) if knobs.walks_x else 1)
+    n_cx = -(-X // CX)
+    grid = (n_cx, blk.n_ty, 1)
+    check_launch_grid(grid, name)
+    return RungPlan(blk.TY, blk.S, blk.n_ty, CX, n_cx, knobs.planes,
+                    blk.threads, grid, blk.shared, blocks_per_sm)
+
+
+@functools.lru_cache(maxsize=64)
+def _rung_attrs_cached(index: int, name: str, threads: int,
+                       shared: int) -> Tuple[int, int, int, int]:
+    lib = _build.load()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(index):
+        if name == "advect_blocked":
+            err = lib.advect_blocked_attrs(threads, shared, out)
+        else:
+            err = lib.advect_dataflow_attrs(int(name == "advect_wide"),
+                                            threads, shared, out)
+    _build.check(err, f"{name} attrs")
+    return tuple(out)
+
+
+def rung_device_plan(device, name: str, X: int, Y: int, Z: int,
+                     y_tile: Optional[int] = None,
+                     x_chunk: Optional[int] = None) -> RungPlan:
+    """`rung_launch_plan` on `device`'s card: its SM count, and the
+    resident blocks per SM the card reports for the planned block."""
+    index = _device_index(device)
+    n_sm = torch.cuda.get_device_properties(index).multi_processor_count
+    blk = _rung_block(name, Y, Z, y_tile)
+    per_sm = _rung_attrs_cached(index, name, blk.threads, blk.shared)[3]
+    return rung_launch_plan(name, X, Y, Z, n_sm, per_sm, y_tile=y_tile,
+                            x_chunk=x_chunk)
+
+
+def rung_kernel_attrs(device, name: str, plan: RungPlan) -> dict:
+    """What the card says of the kernel that runs `plan`: registers and
+    local (spill) bytes per thread, the most threads a block of it can
+    have, and its resident blocks per SM at the plan's threads and shared
+    bytes."""
+    regs, local, most, per_sm = _rung_attrs_cached(
+        _device_index(device), name, plan.threads, plan.shared_bytes)
+    return {"registers": regs, "local_bytes": local, "max_threads": most,
+            "blocks_per_sm": per_sm}
+
+
+def _rung_block_geometry(plan: RungPlan, X: int, Y: int, t: int, cx: int):
+    """What a rung's block (y-tile t, x-chunk cx) loads and owns, as the
+    kernel computes it: ``(slab_lo, own rows [lo, hi), owned slices
+    [x0, x1))``, rows and slices global. It reads slices x0 - 1 .. x1 (K2's
+    walk; K3 fetches x - 1, x, x + 1 for each owned x), clipped to the
+    domain."""
+    x0 = cx * plan.CX
+    return (_slab_lo(t, Y, plan.TY, plan.S, 1),
+            (t * plan.TY, min((t + 1) * plan.TY, Y)),
+            (x0, min(x0 + plan.CX, X)))
+
+
 def _advect_rung_plain(u, v, w, p: AdvectParams, fuse_update: bool,
                        dt: float):
     """Plain PyTorch version of every v1-v3 kernel: the reference's sources
@@ -886,34 +1065,34 @@ def _advect_rung_plain(u, v, w, p: AdvectParams, fuse_update: bool,
 
 def _advect_rung_cuda(name: str, u, v, w, p: AdvectParams,
                       y_tile: Optional[int], fuse_update: bool, dt: float,
-                      x_chunk: int = DATAFLOW_X_CHUNK):
+                      x_chunk: Optional[int] = None):
     """Launch the blocked (K3) or dataflow/wide (K2) CUDA kernel on
-    (X, Y, Z) fields. `x_chunk` is the dataflow kernel's x-slices per
-    block."""
+    (X, Y, Z) fields, on `rung_device_plan`'s plan for this card at
+    `y_tile` (None: the rung's own tile) with x chunks of `x_chunk` slices
+    where given."""
     X, Y, Z = u.shape
-    slab = fused_register_bytes(1, Y, Z, 4, y_tile=y_tile)
-    if slab > SMEM_PER_BLOCK:
-        raise ValueError(
-            f"{name} needs a {slab} B slab of shared memory at Y={Y}, Z={Z}, "
-            f"y_tile={y_tile}; one block may use {SMEM_PER_BLOCK} B. Pass a "
-            f"smaller y_tile (largest_fitting_y_tile(1, Y, Z) gives one)")
-    TY, S, n_ty = _grid_geometry(Y, y_tile, 1)
-    if n_ty > MAX_GRID_Y:
-        raise ValueError(f"{n_ty} y-tiles exceed the launch grid's "
-                         f"{MAX_GRID_Y}; pass a larger y_tile")
+    _rung_block(name, Y, Z, y_tile)   # the refusals, before any build
     lib = _build.load()
-    pt, _ = _param_table(p, 1)
+    run = rung_device_plan(u.device, name, X, Y, Z, y_tile, x_chunk)
+    # [tcx, tcy, 0, 0, tzc1(Z), tzc2(Z)]: the z vectors start 16 bytes in,
+    # so `wide` reads each run of 4 of them in one 16-byte load
+    pt = torch.cat([torch.stack([p.tcx, p.tcy]), p.tcx.new_zeros(2), p.tzc1,
+                    p.tzc2])
     outs = [torch.empty_like(u) for _ in range(3)]
     ptrs = [f.data_ptr() for f in (u, v, w, *outs, pt)]
+    geometry = (X, Y, Z, run.TY, run.S, run.n_ty, run.CX)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         if name == "advect_blocked":
-            err = lib.advect_blocked_f32(*ptrs, X, Y, Z, TY, S, n_ty,
-                                         int(fuse_update), dt, slab, stream)
+            err = lib.advect_blocked_f32(*ptrs, *geometry, run.threads,
+                                         int(fuse_update), dt,
+                                         run.shared_bytes, stream)
         else:
-            err = lib.advect_dataflow_f32(*ptrs, X, Y, Z, TY, S, n_ty, x_chunk,
+            err = lib.advect_dataflow_f32(*ptrs, *geometry, run.planes,
+                                          run.threads,
                                           int(name == "advect_wide"),
-                                          int(fuse_update), dt, slab, stream)
+                                          int(fuse_update), dt,
+                                          run.shared_bytes, stream)
     _build.check(err, name)
     LAUNCHES[name] += 1
     return tuple(outs)
@@ -948,9 +1127,10 @@ def advect_blocked(u, v, w, p: AdvectParams, *, y_tile: int | None = None,
     """v1: PW sources of (X, Y, Z) fields, zero on the boundary, or with
     `fuse_update=True` the fields advanced one Euler step. Every output
     slice re-reads its three input slices (the paper's anti-pattern).
-    `y_tile` runs the in-grid tiling; on CUDA the 3 x 3-slice slab of the
-    chosen tile (None = untiled) must fit one block's shared memory, else
-    this raises naming the budget. `tiling="host"` runs the host tile loop.
+    `y_tile` runs the in-grid tiling; on CUDA, None runs the kernel's own
+    plan (`rung_launch_plan`) and a tile taller than the plan's runs as
+    equal sub-tiles, bitwise the same. `tiling="host"` runs the host tile
+    loop.
     """
     return _advect_rung("advect_blocked", u, v, w, p, y_tile, tiling,
                         fuse_update, dt)
@@ -959,8 +1139,8 @@ def advect_blocked(u, v, w, p: AdvectParams, *, y_tile: int | None = None,
 def advect_dataflow(u, v, w, p: AdvectParams, *, y_tile: int | None = None,
                     tiling: str = "grid", fuse_update: bool = False,
                     dt: float = 1.0):
-    """v2: `advect_blocked`'s values, bitwise, through a 3-slot shift
-    register per field that reads each slice once."""
+    """v2: `advect_blocked`'s values, bitwise, through a ring of slices
+    per field that reads each slice once per x chunk."""
     return _advect_rung("advect_dataflow", u, v, w, p, y_tile, tiling,
                         fuse_update, dt)
 

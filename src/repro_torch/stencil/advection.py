@@ -61,10 +61,12 @@ class AdvectionDomain:
     asks for "cpu"). Frozen: vary it with `dataclasses.replace`.
 
     With a v1-v3 rung on CUDA and `y_tile=None`, the domain runs the
-    largest y-tile whose slab fits one block's shared memory
-    (`advection.largest_fitting_y_tile` at depth 1; the largest divisor of
-    Y when it is at least half that size), or untiled where the whole-Y
-    slab fits. `fused` passes `y_tile` on as it is, and with None K1 runs
+    reference's tile, the largest y-tile whose 3 x 3-slice slab fits one
+    block's shared memory (`advection.largest_fitting_y_tile` at depth 1;
+    the largest divisor of Y when it is at least half that size), or
+    untiled where the whole-Y slab fits; the kernel's launch plan
+    (`advection.rung_launch_plan`) runs a tile taller than its own as equal
+    sub-tiles. `fused` passes `y_tile` on as it is, and with None K1 runs
     its own launch plan (`advection.fused_launch_plan`). Tiled and untiled
     results are equal bitwise, so neither changes a result; the byte and
     ring accounting below prices `run_y_tile` with the reference's models.

@@ -244,12 +244,38 @@ def test_dataflow_x_chunks_bitwise_equal_plain(cuda, x_chunk):
             assert all(torch.equal(a, b) for a, b in zip(got, plain))
 
 
-def test_rung_slab_over_budget_raises(cuda):
-    u, v, w = (torch.zeros((3, 1024, 64), device=cuda) for _ in range(3))
+def test_rung_slab_over_budget_runs_on_the_plan(cuda):
+    """(3, 1024, 64) untiled, once refused for a 2.4 MB slab, runs on each
+    rung's own plan (and at y_tile 99, once 232,704 B) == plain bitwise."""
+    u, v, w = fields((3, 1024, 64), 4, cuda)
     p = TREF.default_params(64, device=cuda)
     for fn in (TK.advect_blocked, TK.advect_dataflow, TK.advect_wide):
-        with pytest.raises(ValueError, match="232448"):
-            fn(u, v, w, p)
+        for fuse in (False, True):
+            plain = TK._advect_rung_plain(u, v, w, p, fuse, DT)
+            for y_tile in (None, 99):
+                got = fn(u, v, w, p, y_tile=y_tile, fuse_update=fuse, dt=DT)
+                assert all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+@pytest.mark.parametrize("name", ["advect_blocked", "advect_dataflow",
+                                  "advect_wide"])
+@pytest.mark.parametrize("shape,y_tile,x_chunk", [
+    ((7, 150, 64), 64, 3), ((9, 97, 64), 40, 4), ((5, 41, 12), 13, 2),
+    ((6, 23, 8), 30, 5)])
+def test_rung_plans_sub_tiles_and_x_remainders_equal_plain(cuda, name, shape,
+                                                           y_tile, x_chunk):
+    """A given tile taller than the plan's runs as its equal sub-tiles, x
+    chunks that leave a remainder: == plain bitwise, as planned."""
+    X, Y, Z = shape
+    u, v, w = fields(shape, 5, cuda)
+    p = TREF.default_params(Z, device=cuda)
+    plan = TK.rung_device_plan(cuda, name, X, Y, Z, y_tile, x_chunk)
+    assert X % plan.CX and plan.n_cx > 1
+    for fuse in (False, True):
+        got = TK._advect_rung_cuda(name, u, v, w, p, y_tile, fuse, DT,
+                                   x_chunk=x_chunk)
+        plain = TK._advect_rung_plain(u, v, w, p, fuse, DT)
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
 
 
 SPEC_KEYS = ["pw", "pw_rk2", "tracer", "tracer_rk2", "diffusion",

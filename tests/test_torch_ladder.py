@@ -185,15 +185,27 @@ def test_rung_contract_errors(name):
 
 @pytest.mark.parametrize("name", ["advect_blocked", "advect_dataflow",
                                   "advect_wide"])
-def test_cuda_slab_budget_is_checked_before_any_build(name):
-    """Y = 1024 untiled at Z = 64 needs a 2.4 MB slab; y_tile = 99 needs
-    232,704 B: the CUDA dispatch refuses both, naming the budget."""
+@pytest.mark.parametrize("y_tile", [None, 99])
+def test_cuda_plan_fits_the_budget_the_old_slab_exceeded(name, y_tile,
+                                                         monkeypatch):
+    """Y = 1024 untiled at Z = 64 once needed a 2.4 MB slab and y_tile = 99
+    one of 232,704 B, both refused. The CUDA route's plan runs them in
+    tiles that fit one block's shared memory, at least two blocks an SM,
+    and goes on to the build (here a loader that raises)."""
+    plan = TK.rung_launch_plan(name, 3, 1024, 64, 132, 2, y_tile=y_tile)
+    assert plan.shared_bytes <= 232448
+    assert 2 * (plan.shared_bytes + 1024) <= 233472
+    assert plan.TY * plan.n_ty >= 1024 and plan.TY <= 99
+
+    def refuse():
+        raise RuntimeError("kernel loader unavailable")
+
+    monkeypatch.setattr(TK._build, "load", refuse)
     u, v, w = (torch.zeros((3, 1024, 64)) for _ in range(3))
     p = TK._slot_params(TREF.default_params(64, device="cpu"), None, 64,
                         "cpu")
-    for y_tile in (None, 99):
-        with pytest.raises(ValueError, match="232448"):
-            TK._advect_rung_cuda(name, u, v, w, p, y_tile, False, DT)
+    with pytest.raises(RuntimeError, match="kernel loader unavailable"):
+        TK._advect_rung_cuda(name, u, v, w, p, y_tile, False, DT)
 
 
 def test_largest_fitting_y_tile_of_the_rungs():
