@@ -131,22 +131,35 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 15. holds the band exchange (K7) against its plain version on loopback
    meshes of the one card (`BAND_CASES`: (1, 2), (2, 1), (2, 2), (1, 4),
    (3, 1); dims 0 and 1; depth 1 to three hops a side): four blocks in a
-   row on the same slabs and counters, both parities, every recv slab ==
-   plain bitwise, the slot block 0 did not write untouched, error words 0;
+   row on the same extended buffers, tables and counters, both slots (the
+   last two passing the slot's interior views, so that only the bands
+   move), every buffer == plain bitwise, interior included, the slot block
+   0 did not write untouched, one put per card and exchange, error words
+   0;
 16. drives the distributed path at the 67M grid over a (2, 2) loopback
    mesh on cuda:0: `make_distributed_run(n_blocks=4, T=4, dt=DT,
    local_kernel="fused", overlap=True)`, 16 Euler substeps, with each
    engine, the counts set to 0 just before and read just after (with
-   `remote_dma` K7 once per shard, phase and block and K1 twice per shard
-   and block, 32 each; with `collective` K1 alone), `remote_dma` ==
-   `collective` == the main path's single-card `advance(16)`, bitwise;
-17. times K7 per phase at the path's shapes beside its bound (bytes read
-   and written once in the card's memory), its plain version and the
-   collective engine for the same exchange (the library time), and each
-   engine's ms per block of the run;
+   `remote_dma` K7 once per card, phase and block, 8, with no enter or
+   wait kernel, and K1 twice per shard and block, 32; with `collective`
+   K1 alone), `remote_dma` == `collective` == the main path's single-card
+   `advance(16)`, bitwise;
+17. times K7 per phase at the path's shapes: the bands alone (events, host
+   enqueue, device time) beside their bound, and the extend pass the block
+   runs (K7 landing each shard and its bands in the extended slab K1
+   reads; events and device time) beside its bound (bytes read and written
+   once in the card's memory), its plain version and the collective engine
+   for the same exchange (its band copies, and its extend pass with the
+   concatenation: the library time); then each engine's ms per block of
+   the run;
 18. where the machine has two or more cards, repeats 15-17 on a mesh of
    distinct cards (peer stores over NVLink), bitwise equal to the
    loopback run; with one card it prints that it skipped.
+
+`--only distributed` runs phases 15-18 alone. A copy of the script in a
+checkout from before K7's extended route skips phase 15 and times that
+checkout's K7, recv slabs and concatenation through the same entry points,
+so parent and change compare in one call.
 
 `--only ladder` times K3, K2 `dataflow` and K2 `wide` at the 67M grid with
 `fuse_update` False and True (events and device time by `torch.profiler`),
@@ -1678,15 +1691,31 @@ def attention_small_phase(check: Checks) -> None:
 # ---------------------------------------------------------------------------
 
 
-def slabs_equal(a, b) -> bool:
-    return all(torch.equal(x, y) for sa, sb in zip(a.slabs, b.slabs)
-               for fa, fb in zip(sa, sb) for x, y in zip(fa, fb))
+# whether the package lands K7's bands in extended buffers (a copy of this
+# script in an older checkout times that checkout's K7 and recv slabs)
+EXTENDED = hasattr(K, "ExtendedBuffers")
+
+
+def cards_of(mesh) -> list:
+    return list(dict.fromkeys(mesh.devices))
+
+
+def sync(mesh) -> None:
+    for dev in cards_of(mesh):
+        torch.cuda.synchronize(dev)
+
+
+def buffers_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a.buffers.bufs,
+                                                 b.buffers.bufs))
 
 
 def band_small_phase(check: Checks, devices=None, tag="loopback") -> None:
     """K7 against its plain version at small shapes: `BAND_BLOCKS` blocks
-    in a row on the same slabs and counters (both parities); every slab ==
-    plain bitwise, the slot block 0 did not write keeps `BAND_FILL`, the
+    in a row on the same buffers, tables and counters (both slots, blocks
+    2 on passing the slot's interior views, so only the bands move); every
+    extended buffer, interior included, == plain bitwise, the slot block 0
+    did not write keeps `BAND_FILL`, one put per card and exchange, the
     error words stay 0. `devices(n)` lays out the shards (default: n
     shards on cuda:0)."""
     for nx, ny, axis, dim, shape, depth in BAND_CASES:
@@ -1697,30 +1726,42 @@ def band_small_phase(check: Checks, devices=None, tag="loopback") -> None:
         mesh = make_stencil_mesh(nx, ny, devices=devs)
         got = K.BandSlabs(mesh, shape, depth, dim, fill=BAND_FILL)
         want = K.BandSlabs(mesh, shape, depth, dim, fill=BAND_FILL)
-        msgs = K.band_messages(mesh, axis, shape[dim], depth)
         equal = untouched = True
+        puts = []
         for block in range(BAND_BLOCKS):
+            slot = block % 2
             shards = [tuple(f.to(dev) for f in
                             rand_fields(shape, 900 + 10 * block + s))
                       for s, dev in enumerate(mesh.devices)]
-            K.halo_band_exchange_dma(shards, mesh=mesh, axis=axis,
+            src = (shards, shards)
+            if block >= 2:
+                for sl in (got, want):
+                    for own, new in zip(sl.interior(slot), shards):
+                        for a, b in zip(own, new):
+                            a.copy_(b)
+                src = (got.interior(slot), want.interior(slot))
+            sync(mesh)
+            before = K.LAUNCHES["band_exchange"]
+            K.halo_band_exchange_dma(src[0], mesh=mesh, axis=axis,
                                      depth=depth, dim=dim,
                                      block_index=block, slabs=got)
-            K._band_exchange_plain(shards, want, msgs, block % 2)
-            for dev in set(mesh.devices):
-                torch.cuda.synchronize(dev)
-            equal = equal and slabs_equal(got, want)
+            puts.append(K.LAUNCHES["band_exchange"] - before)
+            K._band_exchange_plain(src[1], want,
+                                   want.table(axis, slot, src[1]))
+            sync(mesh)
+            equal = equal and buffers_equal(got, want)
             if block == 0:
-                untouched = all(bool((sl[1] == BAND_FILL).all())
-                                for sh in got.slabs for f in sh
-                                for sl in f)
+                untouched = all(bool((b[:, 1] == BAND_FILL).all())
+                                for b in got.buffers.bufs)
         hops = len(K._band_schedule(shape[dim], depth))
         what = (f"K7 {tag} {(nx, ny)} axis {axis} dim {dim} shard {shape} "
                 f"depth {depth} ({hops} hop{'s' if hops > 1 else ''})")
-        check(equal, f"{what}: == plain bitwise over {BAND_BLOCKS} blocks, "
-              f"both slots")
+        check(equal, f"{what}: extended buffers == plain bitwise over "
+              f"{BAND_BLOCKS} blocks, both slots, interior included")
         check(untouched, f"{what}: the slot block 0 did not write is "
               f"untouched")
+        check(puts == [len(cards_of(mesh))] * BAND_BLOCKS,
+              f"{what}: one put per card and exchange ({puts})")
         errors = [int(w[2]) for w in got.words]
         check(not any(errors), f"{what}: error words {errors}")
 
@@ -1735,16 +1776,21 @@ def distributed_run(mesh, fields, exchange: str):
                                  dt=DT, local_kernel="fused", overlap=True,
                                  exchange=exchange)
     shards = D.shard(mesh, *fields)
-    for dev in set(mesh.devices):
-        torch.cuda.synchronize(dev)
+    sync(mesh)
     reset_all_counts()
     t0 = time.perf_counter()
     out = run(shards)
-    for dev in set(mesh.devices):
-        torch.cuda.synchronize(dev)
+    sync(mesh)
     wall = time.perf_counter() - t0
     launches = all_counts()
     return D.gather(mesh, out, device="cuda:0"), launches, wall, run, shards
+
+
+def k7_puts(mesh) -> int:
+    """K7's put launches in one distributed run: one per card, phase and
+    block (one per shard, phase and block before the extended route)."""
+    per = len(cards_of(mesh)) if EXTENDED else len(mesh.devices)
+    return 2 * per * DIST_BLOCKS
 
 
 def distributed_path_phase(check: Checks, fields, single):
@@ -1761,7 +1807,7 @@ def distributed_path_phase(check: Checks, fields, single):
         outs[ex], runs[ex] = out, (run, shards)
         want = {"advect_fused": 2 * nx * ny * DIST_BLOCKS}
         if ex == "remote_dma":
-            want["band_exchange"] = 2 * nx * ny * DIST_BLOCKS
+            want["band_exchange"] = k7_puts(mesh)
             k7 = launches["band_exchange"]
         print(f"distributed path: {MAIN_GRID} grid {(X, Y, Z)} over a "
               f"{(nx, ny)} loopback mesh on cuda:0, exchange={ex}, "
@@ -1769,8 +1815,9 @@ def distributed_path_phase(check: Checks, fields, single):
               f"local_kernel='fused', overlap=True); wall {wall:.3f} s; "
               f"launches {launches}", flush=True)
         check(all(n == want.get(k, 0) for k, n in launches.items()),
-              f"{ex}: launches {want}, no other kernel (K7 once per shard, "
-              f"phase and block; K1 twice per shard and block)")
+              f"{ex}: launches {want}, no other kernel (K7 one put per "
+              f"card, phase and block, no enter or wait on one card; K1 "
+              f"twice per shard and block)")
         check(all(o.shape == (X, Y, Z) and bool(torch.isfinite(o).all())
                   for o in out), f"{ex}: outputs finite, of shape (X, Y, Z)")
         check(all(frozen_edges(f0, fT) for f0, fT in zip(fields, out)),
@@ -1793,9 +1840,10 @@ def cross_card_phase(check: Checks, fields, loopback_out, card: str) -> None:
         print(f"across cards: skipped, {n} card visible (the loopback mesh "
               f"on one card carried K7)", flush=True)
         return
-    band_small_phase(check, devices=lambda k: [f"cuda:{i}"
-                                               for i in range(k)],
-                     tag="across cards")
+    if EXTENDED:
+        band_small_phase(check, devices=lambda k: [f"cuda:{i}"
+                                                   for i in range(k)],
+                         tag="across cards")
     nx, ny = DIST_MESH if n >= 4 else (2, 1)
     mesh = make_stencil_mesh(nx, ny)
     if (nx, ny) == DIST_MESH:
@@ -1813,6 +1861,10 @@ def cross_card_phase(check: Checks, fields, loopback_out, card: str) -> None:
         err = max(float((a - b).abs().max()) for a, b in zip(out, want))
         check(err == 0.0, f"across cards {(nx, ny)} {ex} == loopback "
               f"remote_dma, bitwise ({err})")
+        if ex == "remote_dma" and EXTENDED:
+            check(launches["band_exchange"] == k7_puts(mesh),
+                  f"across cards: K7 one put per card, phase and block "
+                  f"({launches['band_exchange']})")
     band_timing(mesh, fields, 0, runs, card, tag="across cards")
 
 
@@ -1825,8 +1877,7 @@ def k7_host_and_device_ms(call, mesh, runs: int = 20):
         t0 = time.perf_counter()
         call()
         host.append((time.perf_counter() - t0) * 1e3)
-        for dev in set(mesh.devices):
-            torch.cuda.synchronize(dev)
+        sync(mesh)
     dev_ms = profiled_kernels(call, "band_", set(mesh.devices), runs)[0]
     device = f"{dev_ms:.4f} ms" if dev_ms > 0 else "not measured"
     return statistics.median(host), device
@@ -1834,8 +1885,9 @@ def k7_host_and_device_ms(call, mesh, runs: int = 20):
 
 def profiled_kernels(call, match: str, devices, runs: int):
     """(device ms per call, kernel launches seen) of the kernels whose name
-    holds `match`, summed by `torch.profiler` over `runs` calls (0.0 where
-    the profiler sees no device time)."""
+    holds `match` ("" for every kernel on the card), summed by
+    `torch.profiler` over `runs` calls (0.0 where the profiler sees no
+    device time)."""
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=act) as prof:
@@ -1843,87 +1895,166 @@ def profiled_kernels(call, match: str, devices, runs: int):
             call()
         for dev in devices:
             torch.cuda.synchronize(dev)
-    seen = [e for e in prof.key_averages() if match in e.key]
+    cuda = torch.autograd.DeviceType.CUDA
+    seen = [e for e in prof.key_averages() if match in e.key
+            and getattr(e, "device_type", None) == cuda]
     dev_us = sum(getattr(e, "device_time_total", 0.0) for e in seen)
     return dev_us / runs / 1e3, sum(e.count for e in seen)
 
 
+def device_text(ms: float) -> str:
+    return f"{ms:.4f} ms" if ms > 0 else "not measured"
+
+
 def band_timing(mesh, fields, launches: int, runs, card: str,
                 tag: str = "loopback") -> dict:
-    """K7 per phase at the path's shapes beside its bound, its plain
-    version and the collective engine for the same exchange; each engine's
-    ms per block of the distributed run."""
+    """Per phase at the path's shapes: K7 moving the bands alone (events,
+    host enqueue, device time, bound), the extend pass as the distributed
+    block runs it (`_LocalBlock._extend`: K7 landing each shard and its
+    bands in the extended slab; in an older checkout its recv slabs plus
+    `torch.cat`) beside its bound, K7's plain version, and the collective
+    engine (its tensor copies of the bands, and its extend pass with the
+    concatenation); then each engine's ms per block of the run. The
+    record holds the extend pass, as the path launches K7."""
     T = MAIN_T
     shards = D.shard(mesh, *fields)
     Xl, Yl, Z = shards[0][0].shape
+    p = REF.default_params(Z, device="cuda")
+    blocks = {ex: D._LocalBlock(mesh, p, T=T, dt=DT, local_kernel="fused",
+                                y_tile=None, overlap=True, exchange=ex)
+              for ex in ("remote_dma", "collective")}
+    if EXTENDED:
+        blocks["remote_dma"]._band_slabs((Xl, Yl, Z), T, T)
     # the y phase sends from the x-extended slab
-    ext = [tuple(f.to(dev) for f in rand_fields((Xl + 2 * T, Yl, Z),
-                                                 1000 + s))
-           for s, dev in enumerate(mesh.devices)]
-    ms = plain_ms = lib_ms = bound = err = 0.0
-    nbytes_all = 0
-    for axis, dim, sh in (("x", 0, shards), ("y", 1, ext)):
-        shape = tuple(sh[0][0].shape)
+    ext = {ex: b._extend(shards, "x", 0, 0, None, None)
+           for ex, b in blocks.items()}
+    evens = iter(range(0, 10 ** 9, 2))   # slot 0 throughout
+    cards = set(mesh.devices)
+    if EXTENDED:
+        print(f"K7 put kernel ({tag}): {K.band_kernel_attrs('cuda:0')}; "
+              f"card {card}", flush=True)
+    tot = dict(k7=0.0, ext=0.0, plain=0.0, coll=0.0, coll_ext=0.0,
+               bound=0.0, ext_bound=0.0, err=0.0, nbytes=0, ext_nbytes=0)
+    for axis, dim, sh in (("x", 0, shards), ("y", 1, ext["remote_dma"])):
+        shape = (Xl, Yl, Z) if dim == 0 else (Xl + 2 * T, Yl, Z)
+        fresh = [tuple(f.to(dev) for f in rand_fields(shape, 1000 + s))
+                 for s, dev in enumerate(mesh.devices)]
         slabs = K.BandSlabs(mesh, shape, T, dim)
         plain = K.BandSlabs(mesh, shape, T, dim)
-        msgs = K.band_messages(mesh, axis, shape[dim], T)
-        blocks = iter(range(10 ** 9))
-        K.halo_band_exchange_dma(sh, mesh=mesh, axis=axis, depth=T,
-                                 dim=dim, block_index=next(blocks),
-                                 slabs=slabs)
-        K._band_exchange_plain(sh, plain, msgs, 0)
-        torch.cuda.synchronize()
-        err = max([err] + [float((x - y).abs().max())
-                           for sa, sb in zip(slabs.slabs, plain.slabs)
-                           for fa, fb in zip(sa, sb)
-                           for x, y in zip(fa, fb)])
+        if EXTENDED:
+            # the bands alone: the fields already lie in the slot's middle
+            for sl in (slabs, plain):
+                for own, new in zip(sl.interior(0), fresh):
+                    for a, b in zip(own, new):
+                        a.copy_(b)
+            src = slabs.interior(0)
+            msgs = plain.table(axis, 0, plain.interior(0))
+
+            def plain_call():
+                K._band_exchange_plain(plain.interior(0), plain, msgs)
+        else:
+            src = fresh
+            msgs = K.band_messages(mesh, axis, shape[dim], T)
+
+            def plain_call():
+                K._band_exchange_plain(fresh, plain, msgs, 0)
+
         def k7_call():
-            K.halo_band_exchange_dma(sh, mesh=mesh, axis=axis, depth=T,
-                                     dim=dim, block_index=next(blocks),
+            K.halo_band_exchange_dma(src, mesh=mesh, axis=axis, depth=T,
+                                     dim=dim, block_index=next(evens),
                                      slabs=slabs)
+
+        k7_call()
+        plain_call()
+        sync(mesh)
+        pairs = (zip(slabs.buffers.bufs, plain.buffers.bufs) if EXTENDED
+                 else ((x, y) for sa, sb in zip(slabs.slabs, plain.slabs)
+                       for fa, fb in zip(sa, sb) for x, y in zip(fa, fb)))
+        tot["err"] = max([tot["err"]] + [float((x - y).abs().max())
+                                         for x, y in pairs])
         k7 = time_ms(k7_call)
         host, device = k7_host_and_device_ms(k7_call, mesh)
         slabs.check()
-        pl = time_ms(lambda: K._band_exchange_plain(sh, plain, msgs, 0))
+        pl = time_ms(plain_call)
         coll = time_ms(lambda: [D._exchange_halos(
             mesh, [s[f] for s in sh], axis, T, dim) for f in range(3)])
-        # bound: every message's bytes read once and written once in the
-        # one card's memory (loopback)
+        phase = {ex: (lambda b=b, x=(shards if dim == 0 else ext[ex]):
+                      b._extend(x, axis, dim, next(evens), None, None))
+                 for ex, b in blocks.items()}
+        ext_ms = time_ms(phase["remote_dma"])
+        ext_dev = profiled_kernels(phase["remote_dma"], "", cards, 10)[0]
+        coll_ext = time_ms(phase["collective"])
+        coll_ext_dev = profiled_kernels(phase["collective"], "", cards,
+                                        10)[0]
+        blocks["remote_dma"].check()
+        # bounds: each byte read once and written once in the one card's
+        # memory (loopback): the bands alone, and the extend pass (the x
+        # phase also moves every shard into its slab)
         other = math.prod(shape) // shape[dim]
-        sent = sum(m.cnt * other * 4 for m in msgs)
+        sent = sum(m.cnt * other * 4
+                   for m in K.band_messages(mesh, axis, shape[dim], T))
+        owned = 3 * len(sh) * Xl * Yl * Z * 4 if dim == 0 else 0
         b, _ = bound_of(2 * sent, 0)
+        eb, _ = bound_of(2 * (sent + owned), 0)
         print(f"band_exchange {axis} phase ({tag}): {len(sh)} shards of "
               f"{shape} on {sorted({str(d) for d in mesh.devices})}, "
-              f"depth {T}, dim {dim}, {len(msgs)} messages, {sent} B sent "
-              f"({sent // len(sh)} per shard): K7 {k7:.4f} ms (median of "
-              f"{TIMED_RUNS}; enter, put and wait per shard), bound "
-              f"{b:.4f} ms ({2 * sent} B read + written at "
-              f"{R.HBM_BW:.3g} B/s, all shards on one card), "
-              f"{b / k7:.4f} of the bound; host enqueue {host:.4f} ms and "
-              f"device kernel time {device} per call; "
-              f"across cards the bound would be {sent // len(sh)} B per "
-              f"shard at {R.NVLINK_BW:.3g} B/s each way: "
-              f"{sent // len(sh) / R.NVLINK_BW * 1e3:.4f} ms; plain version "
-              f"{pl:.4f} ms; collective engine {coll:.4f} ms (card {card})",
-              flush=True)
-        ms, plain_ms, lib_ms, bound = ms + k7, plain_ms + pl, \
-            lib_ms + coll, bound + b
-        nbytes_all += 2 * sent
+              f"depth {T}, dim {dim}, {sent} B of bands sent "
+              f"({sent // len(sh)} per shard): K7, bands alone, {k7:.4f} ms "
+              f"(median of {TIMED_RUNS}), bound {b:.4f} ms ({2 * sent} B "
+              f"read + written at {R.HBM_BW:.3g} B/s), {b / k7:.4f} of the "
+              f"bound; host enqueue {host:.4f} ms and device kernel time "
+              f"{device} per call; across cards the bound would be "
+              f"{sent // len(sh)} B per shard at {R.NVLINK_BW:.3g} B/s each "
+              f"way: {sent // len(sh) / R.NVLINK_BW * 1e3:.4f} ms; plain "
+              f"version {pl:.4f} ms; collective engine's band copies "
+              f"{coll:.4f} ms (card {card})", flush=True)
+        if EXTENDED:
+            table = blocks["remote_dma"].slabs[axis].table(axis, 0, sh)
+            grids = [(str(q.card), q.tiles, q.grid)
+                     for q in table.launches()]
+            print(f"band_exchange {axis} phase ({tag}): (card, tiles of 16 "
+                  f"KB, blocks) of the path's puts {grids}", flush=True)
+        route = ("K7 into the extended slab" if EXTENDED
+                 else "K7 recv slabs + torch.cat")
+        print(f"band_exchange {axis} phase ({tag}) extend pass ({route}, "
+              f"{K.__file__}): {ext_ms:.4f} ms by events, device "
+              f"{device_text(ext_dev)}, bound {eb:.4f} ms "
+              f"({2 * (sent + owned)} B read + written), {eb / ext_ms:.4f} "
+              f"of the bound by events; collective engine's extend pass "
+              f"(copies + torch.cat) {coll_ext:.4f} ms, device "
+              f"{device_text(coll_ext_dev)} (card {card})", flush=True)
+        for key, val in (("k7", k7), ("ext", ext_ms), ("plain", pl),
+                         ("coll", coll), ("coll_ext", coll_ext),
+                         ("bound", b), ("ext_bound", eb),
+                         ("nbytes", 2 * sent),
+                         ("ext_nbytes", 2 * (sent + owned))):
+            tot[key] += val
     for ex, (run, rshards) in runs.items():
         per_block = time_ms(lambda: run(rshards), runs=5, warmup=1) / \
             DIST_BLOCKS
+        busy = profiled_kernels(lambda: run(rshards), "", cards, 2)[0] / \
+            DIST_BLOCKS
+        idle = (f"{1 - busy / (per_block * len(cards))}" if busy > 0
+                else "not measured")
         print(f"distributed path ({tag}): exchange={ex}: {per_block:.4f}"
               f" ms per block of {MAIN_T} substeps ({per_block / MAIN_T:.4f}"
               f" ms per Euler step; median of 5 runs of {DIST_BLOCKS} "
-              f"blocks; card {card})", flush=True)
-    print(f"band_exchange per block ({tag}, x + y phases): {ms:.4f} ms, bound "
-          f"{bound:.4f} ms by bytes ({nbytes_all} B), plain {plain_ms:.4f} "
-          f"ms, library (the collective engine) {lib_ms:.4f} ms", flush=True)
+              f"blocks); kernels {device_text(busy)} of device time a block"
+              f" (summed over {len(cards)} card(s)), idle share {idle}; "
+              f"{K.__file__}; card {card}", flush=True)
+    print(f"band_exchange per block ({tag}, x + y phases): bands alone "
+          f"{tot['k7']:.4f} ms, bound {tot['bound']:.4f} ms by bytes "
+          f"({tot['nbytes']} B); extend pass {tot['ext']:.4f} ms, bound "
+          f"{tot['ext_bound']:.4f} ms ({tot['ext_nbytes']} B); plain "
+          f"{tot['plain']:.4f} ms; collective engine: band copies "
+          f"{tot['coll']:.4f} ms, extend pass {tot['coll_ext']:.4f} ms",
+          flush=True)
     return {"name": "band_exchange", "route": "cuda",
             "source": SOURCE["band_exchange"],
             "replaces": REPLACES["band_exchange"], "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms}
+            "max_abs_err": tot["err"], "ms": tot["ext"],
+            "plain_ms": tot["plain"], "bound_ms": tot["ext_bound"],
+            "bound_by": "bytes", "library_ms": tot["coll_ext"]}
 
 
 def reset_all_counts() -> None:
@@ -2523,8 +2654,15 @@ def k9_compare(card: str) -> int:
 def distributed_only(check: Checks, card: str) -> list:
     """`--only distributed`: K7 at small shapes, the distributed path at
     67M against the single-card fused `advance(16)`, its timing, and the
-    cross-card phase (the run to make on a machine of several cards)."""
-    band_small_phase(check)
+    cross-card phase (the run to make on a machine of several cards). A
+    copy of this script in a checkout older than K7's extended route skips
+    the small shapes and times that checkout's K7 and concatenation with
+    the same entry points, for a before-and-after in one call."""
+    if EXTENDED:
+        band_small_phase(check)
+    else:
+        print(f"K7 small shapes: skipped, {K.__file__} predates the "
+              f"extended route", flush=True)
     X, Y, Z = PAPER_GRIDS[MAIN_GRID]
     dom = AdvectionDomain(X, Y, Z, variant="fused", fuse_T=MAIN_T, dt=DT,
                           device="cuda")

@@ -87,9 +87,9 @@ SIGNATURES = {
     "selective_scan_fwd": [_I] * 2 + [_P] * 8 + [_I] * 6 + [_SZ, _P],
     "selective_scan_attrs": [_I] * 5 + [_SZ, _P],
     "band_exchange_enter": [_P, _I, _P],
-    "band_exchange_put": ([_P] * 4 + [_I] * 4 + [_LL, _LL, _I, _P, _ULL,
-                                                  _LL, _P]),
+    "band_exchange_put": [_P, _I, _LL, _I, _P, _I, _I, _P, _ULL, _LL, _P],
     "band_exchange_wait": [_P, _ULL, _LL, _P],
+    "band_exchange_attrs": [_P],
     "band_exchange_enable_peer": [_I, _I],
 }
 

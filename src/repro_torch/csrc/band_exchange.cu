@@ -4,60 +4,86 @@
 // -> `_kernel_band_dma` (the Pallas TPU kernel that issues
 // `make_async_remote_copy` from inside the kernel).
 //
-// What it moves: for each shard, field, side and `_band_schedule` hop, the
-// `cnt` boundary planes (dim 0) or rows (dim 1) of the sender's field go into
-// the k-away ring neighbour's double-buffered recv slab, at the hop's recv
-// offset in slot block_index % 2. The wrapper (`advection._band_exchange_cuda`)
-// turns that schedule into one message per (field, side, hop): a source
-// pointer, a destination pointer already offset to its slab, slot and hop,
-// and the receiver's arrival counter.
+// What it moves: one exchange phase of a mesh, for every shard of one card
+// in one launch. Each shard has, per field and slot (block_index % 2), an
+// EXTENDED buffer, the slab the local kernel (K1) reads next: the shard's own
+// planes in the middle and `depth` halo planes (dim 0) or rows (dim 1) on
+// each side. A message is one copy into such a buffer: the shard's own field
+// into its interior (skipped when the field already lies there, as in the y
+// phase, which sends from the x-extended buffer), or one `_band_schedule`
+// band (field, side, hop) of the sender's field into the k-away ring
+// neighbour's halo. The wrapper (`advection._band_exchange_cuda`) builds the
+// table of messages once per buffers, slot and layout and keeps it in device
+// memory: per message a source index and offset, a destination address, the
+// receiver's arrival word (0 on the same card), `runs` runs of `run` floats
+// with their strides, and its first tile. Per call only the sources' base
+// pointers travel, by value.
 //
-// Design. The TPU stages each band through VMEM only because its DMA engine
-// needs a source there; here threads load the band from the sender's field
-// and store it straight into the receiver's slab, 16 bytes a thread where
-// every run and base is 16-byte aligned. On a mesh of distinct cards the
-// receiver's slab and counters are peer (UVA) pointers, so the stores cross
-// NVLink; on a loopback mesh they stay in one card's memory.
+// Bound on one H100 SXM: bytes, and at the path's shape launch latency. At
+// 67M on a (2, 2) loopback mesh, T = 4, the x phase moves each shard once
+// into its buffer (805 MB read, 805 MB written) and 12.6 MB of bands, the y
+// phase 12.8 MB of bands: 1.66 GB a block read or written, 0.496 ms at 3.35
+// TB/s. The bands alone are 50.7 MB read and written, 0.015 ms: below a
+// launch's latency, so the design puts a card's whole phase into ONE
+// launch.
 //
-// The reference's handshake is split into three kernels, so that one stream
-// can carry every shard of a loopback mesh without deadlock:
-//   enter: signal each partner's barrier word (the capacity handshake of
-//          `_kernel_band_dma`: the receiver has entered this block's
-//          exchange, so the slot being written is vacant);
-//   put:   wait until my barrier word reaches its epoch's count, store the
-//          bands, `__threadfence_system()`, then add one per block to the
-//          receiver's arrival word;
-//   wait:  spin until my arrival word reaches its epoch's count.
-// The words are u64, monotone over epochs (one exchange = one epoch), so no
-// exchange resets them. On a loopback mesh the host issues every enter, then
-// every put, then every wait on the one stream, so each wait is already met
-// when it runs. Each spin is bounded in wall time (%globaltimer, in ns, not
-// clock64: it does not depend on the SM clock): past the bound the kernel
-// sets a bit of the shard's error word and returns, and the wrapper's check
-// raises naming it.
-//
-// Bound on one H100 SXM: bytes, and at the path's shape launch latency. Per
-// shard and block at (2, 2), T = 4, the two phases move 6,340,608 B; on a
-// loopback mesh each byte is read and written once in HBM (3.35 TB/s), across
-// cards each byte crosses NVLink once (450 GB/s each way). Either is a few
-// microseconds, against three launches per shard and phase.
+// Design:
+//   * One put launch per card and phase carries every message of every
+//     shard on that card. The work is cut into tiles of kTileUnits 16-byte
+//     units, never across messages; a grid of one wave (the card's SMs times
+//     the blocks each holds, planned by the wrapper) walks the tiles, and a
+//     block finds a tile's message by a binary search over the table's
+//     first tiles. Each thread has kUnitsPerThread 16-byte loads in flight
+//     before it stores them. A message whose run, strides, offsets or bases
+//     are not 16-byte multiples (Z % 4 != 0, an odd view) takes the 4-byte
+//     path, unit by unit.
+//   * Senders and receivers on one card share its stream, so stream order is
+//     the handshake there: no enter, no wait, no fence. Only a card whose
+//     messages cross to another card's buffers (peer stores over NVLink,
+//     through UVA) keeps the reference's handshake, per card, on u64 words
+//     monotone over epochs: enter signals each sending partner card's
+//     barrier word (the receiver has entered this exchange, so the slot
+//     being written is vacant); the put waits for its barrier word, stores,
+//     and after each tile of a crossing message `__threadfence_system()`s
+//     and adds one to the receiver card's arrival word; wait spins until its
+//     arrival word reaches the tiles due. Each spin is bounded in wall time
+//     (%globaltimer, in ns, independent of the SM clock): past the bound the
+//     kernel sets a bit of the card's error word and returns, and the
+//     wrapper's check raises naming it.
+//   * No TMA: the x phase's runs are contiguous (128 KB an x-plane of a
+//     band or interior), the y phase's are 1 KB rows; plain 16-byte loads
+//     and stores already move whole lines.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxHops = 8;
-constexpr int kMaxMsgs = 3 * 2 * kMaxHops;  // field x side x hop
-constexpr int kMaxPartners = 2 * kMaxHops;
 constexpr int kThreads = 256;
-constexpr unsigned long long kErrEnter = 1ull;  // put: partners never entered
+constexpr int kUnitsPerThread = 4;  // 16-byte loads in flight per thread
+constexpr int kTileUnits = kThreads * kUnitsPerThread;  // 16 KB a tile
+constexpr int kMaxSources = 96;     // 3 fields x 32 shards on one card
+constexpr int kMaxPartners = 32;
+constexpr unsigned long long kErrEnter = 1ull;   // put: partners never entered
 constexpr unsigned long long kErrArrive = 2ull;  // wait: bands never arrived
 
-struct Messages {
-  const float* src[kMaxMsgs];           // first word of the band
-  float* dst[kMaxMsgs];                 // receiver's slab, slot and offset
-  unsigned long long* arrive[kMaxMsgs];  // receiver's arrival word
-  int cnt[kMaxMsgs];                    // planes/rows of the band
+// One row of the wrapper's table: int64 columns in this order
+// (`advection.BAND_COLUMNS`).
+struct Msg {
+  long long src;         // index into the call's source bases
+  long long src_off;     // floats from that base to the message's first word
+  long long dst;         // address of its first word in the receiver's buffer
+  long long arrive;      // receiver card's arrival word; 0 on the same card
+  long long runs;        // runs of `run` floats
+  long long run;
+  long long src_stride;  // floats from one run to the next
+  long long dst_stride;
+  long long vec4;        // run, strides, offset and dst allow 16-byte moves
+  long long tile0;       // the message's first tile
+};
+static_assert(sizeof(Msg) == 10 * sizeof(long long), "table row layout");
+
+struct Sources {
+  const float* p[kMaxSources];
 };
 
 struct Partners {
@@ -89,40 +115,84 @@ __global__ void band_enter_kernel(Partners p, int n) {
   }
 }
 
-// words: my [barrier, arrivals, error]. Message m = blockIdx.y; its band is
-// `runs` runs of cnt * inner floats, src_stride / dst_stride floats apart.
-template <bool kVec4>
-__global__ void __launch_bounds__(kThreads) band_put_kernel(
-    Messages msg, int runs, int inner, long long src_stride,
-    long long dst_stride, unsigned long long* words,
-    unsigned long long barrier_want, long long timeout_ns) {
-  __shared__ int entered;
-  if (threadIdx.x == 0) {
-    entered = wait_at_least(&words[0], barrier_want, timeout_ns);
-    if (!entered) atomicOr(&words[2], kErrEnter);
+// The message holding tile t: the last row whose first tile is <= t.
+__device__ __forceinline__ const Msg* find_msg(const Msg* msgs, int n,
+                                               long long t) {
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (__ldg(&msgs[mid].tile0) <= t) lo = mid;
+    else hi = mid - 1;
   }
-  __syncthreads();
-  if (!entered) return;
-  const int m = blockIdx.y;
-  const float* src = msg.src[m];
-  float* dst = msg.dst[m];
-  constexpr int V = kVec4 ? 4 : 1;
-  const long long run = (long long)msg.cnt[m] * inner / V;  // vectors a run
-  const long long total = run * runs;
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += step) {
-    const long long o = i / run, e = i - o * run;
-    if (kVec4) {
-      reinterpret_cast<float4*>(dst + o * dst_stride)[e] =
-          reinterpret_cast<const float4*>(src + o * src_stride)[e];
+  return &msgs[lo];
+}
+
+// words: this card's [barrier, arrivals, error], or null when no message
+// crosses to another card. Floats of one message are indexed i in
+// [0, runs * run) < 2^31 (the wrapper checks), run o = i / run.
+__global__ void __launch_bounds__(kThreads) band_put_kernel(
+    const Msg* __restrict__ msgs, int n_msgs, long long n_tiles, Sources srcs,
+    int srcs_vec4, unsigned long long* words, unsigned long long enter_want,
+    long long timeout_ns) {
+  if (words != nullptr) {
+    __shared__ int entered;
+    if (threadIdx.x == 0) {
+      entered = wait_at_least(&words[0], enter_want, timeout_ns);
+      if (!entered) atomicOr(&words[2], kErrEnter);
+    }
+    __syncthreads();
+    if (!entered) return;
+  }
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const Msg* m = find_msg(msgs, n_msgs, t);
+    const float* src = srcs.p[__ldg(&m->src)] + __ldg(&m->src_off);
+    float* dst = reinterpret_cast<float*>(__ldg(&m->dst));
+    const unsigned run = (unsigned)__ldg(&m->run);
+    const unsigned n = (unsigned)(__ldg(&m->runs) * __ldg(&m->run));
+    const long long ss = __ldg(&m->src_stride);
+    const long long ds = __ldg(&m->dst_stride);
+    const unsigned u0 =
+        (unsigned)((t - __ldg(&m->tile0)) * kTileUnits) + threadIdx.x;
+    if (__ldg(&m->vec4) && srcs_vec4) {
+      float4 v[kUnitsPerThread];
+#pragma unroll
+      for (int j = 0; j < kUnitsPerThread; ++j) {
+        const unsigned i = 4u * (u0 + j * kThreads);
+        if (i < n) {
+          const unsigned o = i / run, w = i - o * run;
+          v[j] = __ldg(reinterpret_cast<const float4*>(src + o * ss + w));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kUnitsPerThread; ++j) {
+        const unsigned i = 4u * (u0 + j * kThreads);
+        if (i < n) {
+          const unsigned o = i / run, w = i - o * run;
+          *reinterpret_cast<float4*>(dst + o * ds + w) = v[j];
+        }
+      }
     } else {
-      dst[o * dst_stride + e] = src[o * src_stride + e];
+#pragma unroll
+      for (int j = 0; j < kUnitsPerThread; ++j) {
+        const unsigned base = 4u * (u0 + j * kThreads);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const unsigned i = base + q;
+          if (i < n) {
+            const unsigned o = i / run, w = i - o * run;
+            dst[o * ds + w] = __ldg(src + o * ss + w);
+          }
+        }
+      }
+    }
+    const long long arrive = __ldg(&m->arrive);
+    if (arrive != 0) {
+      __threadfence_system();
+      __syncthreads();
+      if (threadIdx.x == 0)
+        atomicAdd_system(reinterpret_cast<unsigned long long*>(arrive), 1ull);
     }
   }
-  __threadfence_system();
-  __syncthreads();
-  if (threadIdx.x == 0) atomicAdd_system(msg.arrive[m], 1ull);
 }
 
 __global__ void band_wait_kernel(unsigned long long* words,
@@ -136,12 +206,12 @@ __global__ void band_wait_kernel(unsigned long long* words,
 
 }  // namespace
 
-// barriers: n (<= 2 * kMaxHops) device pointers to the partners' barrier
-// words. Returns the cudaError_t of the launch, or 1 (cudaErrorInvalidValue)
-// for too many partners.
+// barriers: n (<= kMaxPartners) device pointers to the sending partner
+// cards' barrier words. Returns the cudaError_t of the launch, or
+// cudaErrorInvalidValue for too many partners.
 extern "C" int band_exchange_enter(void* const* barriers, int n,
                                    void* stream) {
-  if (n < 0 || n > kMaxPartners) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > kMaxPartners) return (int)cudaErrorInvalidValue;
   Partners p{};
   for (int i = 0; i < n; ++i)
     p.barrier[i] = static_cast<unsigned long long*>(barriers[i]);
@@ -149,35 +219,25 @@ extern "C" int band_exchange_enter(void* const* barriers, int n,
   return (int)cudaGetLastError();
 }
 
-// srcs, dsts, arrives: n_msgs (<= 3 * 2 * kMaxHops) device pointers; cnts:
-// n_msgs band sizes. blocks: blocks per message. vec4: every base, run and
-// stride is a multiple of 4 floats and 16-byte aligned.
-extern "C" int band_exchange_put(void* const* srcs, void* const* dsts,
-                                 void* const* arrives, const int* cnts,
-                                 int n_msgs, int blocks, int runs, int inner,
-                                 long long src_stride, long long dst_stride,
-                                 int vec4, void* words,
-                                 unsigned long long barrier_want,
+// table: n_msgs rows of `Msg` in device memory, their tiles numbered
+// 0 .. n_tiles - 1 in row order. sources: n_sources (<= kMaxSources) device
+// pointers, the bases the rows index; srcs_vec4: every base is 16-byte
+// aligned. grid: blocks of kThreads walking the tiles.
+extern "C" int band_exchange_put(const void* table, int n_msgs,
+                                 long long n_tiles, int grid,
+                                 void* const* sources, int n_sources,
+                                 int srcs_vec4, void* words,
+                                 unsigned long long enter_want,
                                  long long timeout_ns, void* stream) {
-  if (n_msgs < 1 || n_msgs > kMaxMsgs || blocks < 1)
+  if (n_msgs < 1 || n_tiles < 1 || grid < 1 || n_sources < 1 ||
+      n_sources > kMaxSources)
     return (int)cudaErrorInvalidValue;
-  Messages msg{};
-  for (int i = 0; i < n_msgs; ++i) {
-    msg.src[i] = static_cast<const float*>(srcs[i]);
-    msg.dst[i] = static_cast<float*>(dsts[i]);
-    msg.arrive[i] = static_cast<unsigned long long*>(arrives[i]);
-    msg.cnt[i] = cnts[i];
-  }
-  dim3 grid(blocks, n_msgs);
-  auto* w = static_cast<unsigned long long*>(words);
-  if (vec4)
-    band_put_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        msg, runs, inner, src_stride, dst_stride, w, barrier_want,
-        timeout_ns);
-  else
-    band_put_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        msg, runs, inner, src_stride, dst_stride, w, barrier_want,
-        timeout_ns);
+  Sources s{};
+  for (int i = 0; i < n_sources; ++i)
+    s.p[i] = static_cast<const float*>(sources[i]);
+  band_put_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const Msg*>(table), n_msgs, n_tiles, s, srcs_vec4,
+      static_cast<unsigned long long*>(words), enter_want, timeout_ns);
   return (int)cudaGetLastError();
 }
 
@@ -186,6 +246,26 @@ extern "C" int band_exchange_wait(void* words, unsigned long long want,
   band_wait_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
       static_cast<unsigned long long*>(words), want, timeout_ns);
   return (int)cudaGetLastError();
+}
+
+// out: [registers, local (spill) bytes, resident put blocks per SM, threads
+// a block, units a tile, most sources, most partners] on the current card.
+extern "C" int band_exchange_attrs(int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, band_put_kernel);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, band_put_kernel, kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = per_sm;
+  out[3] = kThreads;
+  out[4] = kTileUnits;
+  out[5] = kMaxSources;
+  out[6] = kMaxPartners;
+  return 0;
 }
 
 // Let card `dev` store into card `peer`'s memory. Returns 0 when enabled or

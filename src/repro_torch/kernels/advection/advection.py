@@ -10,9 +10,9 @@ slot being a dimension of the launch grid; `finite_guard` flags the
 x-slices whose three fields are all finite; `stencil_fused[_batched]` is the
 v4 ring driven by a `stencil.spec.StencilSpec` (any number of fields, the
 spec's source, euler or in-ring midpoint RK2); `halo_band_exchange_dma`
-(K7) moves the boundary bands of a mesh's shards into their ring
-neighbours' recv slabs, the transport of `stencil.distributed`'s
-`remote_dma` engine.
+(K7) moves the boundary bands of a mesh's shards into the halos of their
+ring neighbours' extended slabs, beside each shard's own planes, the
+transport of `stencil.distributed`'s `remote_dma` engine.
 
 Each wrapper dispatches on where its tensors lie. On a CUDA tensor it
 launches its hand-written kernel (`csrc/advect_blocked.cu`,
@@ -44,8 +44,10 @@ their tiles and chunks from the builds and the card's SM count.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import math
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -73,7 +75,7 @@ WIDE_HOST_RULE = ("wide runs the in-grid tiled path only: the host tile loop "
 
 LAUNCHES = {"advect_fused": 0, "finite_guard": 0, "advect_blocked": 0,
             "advect_dataflow": 0, "advect_wide": 0, "stencil_fused": 0,
-            "band_exchange": 0}
+            "band_exchange": 0, "band_handshake": 0}
 
 
 def reset_launch_counts() -> None:
@@ -1494,14 +1496,19 @@ def stencil_fused(fields, params, spec, *, T: int = 4, dt: float = 1.0,
 # K7: the in-kernel halo-band exchange
 # ---------------------------------------------------------------------------
 
-BAND_MAX_HOPS = 8                 # the CUDA kernel's message table
-BAND_THREADS = 256                # threads of one put block
-BAND_VECS_PER_THREAD = 4          # 16-byte copies each thread makes
-BAND_MAX_BLOCKS = 64              # put blocks per message
 BAND_TIMEOUT_NS = 5_000_000_000   # the bound on every spin
 BAND_ERRORS = {1: "a put waited past its bound for its partners to enter "
                   "the exchange (the capacity handshake)",
                2: "a wait ran past its bound before every band arrived"}
+# one row of K7's message table (`csrc/band_exchange.cu`'s `Msg`), int64
+# columns in this order
+BAND_COLUMNS = ("src", "src_off", "dst", "arrive", "runs", "run",
+                "src_stride", "dst_stride", "vec4", "tile0")
+BAND_THREADS = 256         # threads of one put block (kThreads)
+BAND_TILE_UNITS = 1024     # 16-byte units of one tile (kTileUnits)
+BAND_MAX_SOURCES = 96      # source bases one put takes (kMaxSources)
+BAND_MAX_PARTNERS = 32     # partner cards one enter signals (kMaxPartners)
+BAND_MAX_FLOATS = 2 ** 31 - 1   # floats of one message (32-bit indices)
 
 
 def _band_schedule(L: int, depth: int):
@@ -1539,8 +1546,9 @@ def dma_slab_bytes(shape, depth: int, dim: int, itemsize: int = 4, *,
     """``(staged_send, recv)`` bytes of the reference's remote-DMA slabs for
     one phase over a `shape` shard: per-hop ``(n_fields, 2 sides) x
     (cnt planes/rows)`` staging slabs and ``n_fields x 2 sides x 2 slots``
-    of the depth band. The port's kernel keeps only the recv slabs
-    (`BandSlabs`); it stores straight from the field, with no staging."""
+    of the depth band. The port's kernel stages nothing: it stores straight
+    from the field into the halos of the extended buffers
+    (`ExtendedBuffers`), which hold the recv slabs' bytes and the shard."""
     other = 1
     for d, s in enumerate(shape):
         if d != dim:
@@ -1553,9 +1561,9 @@ def dma_slab_bytes(shape, depth: int, dim: int, itemsize: int = 4, *,
 
 class BandMessage(NamedTuple):
     """One band of one exchange: `cnt` planes/rows of `field` from
-    `sender`'s field at `src_lo` into `receiver`'s recv slab of `side`
-    (0 = hi, from the predecessor; 1 = lo, from the successor) at
-    halo-local offset `dst_off`, hop `k`."""
+    `sender`'s field at `src_lo` into `receiver`'s halo of `side` (0 = hi,
+    from the predecessor; 1 = lo, from the successor) at halo-local offset
+    `dst_off`, hop `k`."""
     sender: int
     receiver: int
     field: int
@@ -1571,7 +1579,7 @@ def band_messages(mesh, axis: str, L: int,
     """Every message of one exchange along `axis`, per sender in
     `mesh.devices` order, then field, hop and side: the reference's
     `_kernel_band_dma` loop. Side 0: my tail to the k-away successor's hi
-    slab; side 1: my head to the k-away predecessor's lo slab."""
+    halo; side 1: my head to the k-away predecessor's lo halo."""
     n = mesh.axis_size(axis)
     msgs = []
     for s in range(len(mesh.devices)):
@@ -1589,35 +1597,169 @@ def band_messages(mesh, axis: str, L: int,
     return msgs
 
 
+def band_launch_plan(n_tiles: int, n_sm: int, blocks_per_sm: int) -> int:
+    """Put blocks of one launch: one wave of the card (its SMs times the
+    put blocks each holds), fewer when the phase has fewer tiles."""
+    if n_tiles < 1 or n_sm < 1 or blocks_per_sm < 1:
+        raise ValueError(f"tiles {n_tiles}, SMs {n_sm} and blocks per SM "
+                         f"{blocks_per_sm} must be >= 1")
+    return min(n_tiles, n_sm * blocks_per_sm)
+
+
+class ExtendedBuffers:
+    """The slabs the local kernel reads after an exchange, landed in place.
+
+    Per shard of `mesh`, on its device, one float32 tensor ``(3, 2, X + 2px,
+    Y + 2py, Z)``: field f, slot k (block_index % 2) is ``bufs[s][f, k]``,
+    the shard's ``(X, Y, Z)`` at ``[px, px + X) x [py, py + Y)`` with `px`
+    halo planes and `py` halo rows on each side (`pad = (px, py)`). Two
+    slots keep the reference's guarantee: block k+1's bands land where
+    block k does not read. `fill` initialises them."""
+
+    def __init__(self, mesh, shape, pad, *, fill: float = 0.0):
+        X, Y, Z = shape
+        px, py = pad
+        if px < 0 or py < 0:
+            raise ValueError(f"pad must be >= 0, got {tuple(pad)}")
+        self.shape, self.pad = (X, Y, Z), (px, py)
+        self.ext_shape = (X + 2 * px, Y + 2 * py, Z)
+        self.devices = tuple(mesh.devices)
+        self.bufs = [torch.full((3, 2) + self.ext_shape, fill,
+                                dtype=torch.float32, device=dev)
+                     for dev in self.devices]
+
+
 class BandSlabs:
     """The state of one K7 phase on a mesh that lasts from block to block.
 
-    Per shard, on its device: the double-buffered recv slab ``(2,) +
-    band_shape`` of each field and side (`slabs[shard][field][side]`), and
-    three u64 words ``[barrier, arrivals, error]`` (`words[shard]`). The
-    words count monotone epochs, one per exchange (`epoch`), so no exchange
-    resets them. `fill` initialises the slabs (a slot no exchange wrote
-    keeps it). `check()` raises when a kernel set an error word."""
+    The phase exchanges `depth` planes (dim 0) or rows (dim 1) of shards of
+    `shape` and lands them, with each shard's own planes, in extended
+    buffers: per shard, field and slot the REGION ``buffers.bufs[s][f,
+    slot]`` cut to ``[window, window + shape[1 - dim])`` along the other of
+    dims 0 and 1, which is `shape` widened by `depth` on each side along
+    `dim` (`region`). Without `buffers` the phase has its own
+    `ExtendedBuffers`, padded along `dim` only and filled with `fill`; the
+    distributed block gives its x and y phases one set, the y phase's
+    region being the whole buffer, whose middle rows the x phase filled.
+
+    Per shard, three u64 words ``[barrier, arrivals, error]``
+    (`words[shard]`); a card's first shard holds the card's words when its
+    messages cross to other cards. They count monotone epochs, one per
+    exchange (`epoch`), so no exchange resets them. `check()` raises when a
+    kernel set an error word. `table()` keeps each layout's messages (a
+    `BandTable`) for the next block."""
 
     def __init__(self, mesh, shape, depth: int, dim: int, *,
-                 fill: float = 0.0):
+                 fill: float = 0.0, buffers: Optional[ExtendedBuffers] = None,
+                 window: int = 0):
         self.shape, self.depth, self.dim = tuple(shape), depth, dim
-        band = list(self.shape)
-        band[dim] = depth
-        self.band_shape = tuple(band)
-        self.devices = tuple(mesh.devices)
-        self.slabs = [[[torch.full((2,) + self.band_shape, fill,
-                                   dtype=torch.float32, device=dev)
-                        for _ in range(2)] for _ in range(3)]
-                      for dev in self.devices]
+        self.mesh, self.devices = mesh, tuple(mesh.devices)
+        if buffers is None:
+            pad = (depth, 0) if dim == 0 else (0, depth)
+            buffers = ExtendedBuffers(mesh, shape, pad, fill=fill)
+        ext = list(self.shape)
+        ext[dim] += 2 * depth
+        other = 1 - dim
+        be = buffers.ext_shape
+        if (buffers.devices != self.devices or be[dim] != ext[dim]
+                or be[2] != ext[2] or window < 0
+                or window + ext[other] > be[other]):
+            raise ValueError(f"buffers of {be} on {buffers.devices} hold no "
+                             f"region {tuple(ext)} at {window} along dim "
+                             f"{other} on {self.devices}")
+        self.buffers, self.window = buffers, window
         self.words = [torch.zeros(3, dtype=torch.int64, device=dev)
                       for dev in self.devices]
         self.epoch = 0
+        self._due = {}           # card -> [barrier, arrivals] due so far
+        self._msgs = {}          # axis -> (messages, bytes each shard sends)
+        self._tables = {}        # (axis, slot, in place) -> BandTable
+        self._views = {}         # (what, slot) -> per shard views
 
     def matches(self, mesh, shape, depth: int, dim: int) -> bool:
         return (tuple(mesh.devices) == self.devices
+                and tuple(mesh.shape) == tuple(self.mesh.shape)
                 and tuple(shape) == self.shape and depth == self.depth
                 and dim == self.dim)
+
+    def region(self, shard: int, field: int, slot: int) -> torch.Tensor:
+        """The extended slab of one shard and field in slot `slot`."""
+        return self.buffers.bufs[shard][field, slot].narrow(
+            1 - self.dim, self.window, self.shape[1 - self.dim])
+
+    def _per_shard(self, what: str, slot: int, view):
+        key = (what, slot)
+        if key not in self._views:
+            self._views[key] = [tuple(view(self.region(s, f, slot))
+                                      for f in range(3))
+                                for s in range(len(self.devices))]
+        return self._views[key]
+
+    def extended(self, slot: int):
+        """Per shard the extended (u, v, w) of slot `slot`."""
+        return self._per_shard("extended", slot, lambda r: r)
+
+    def interior(self, slot: int):
+        """Per shard the (u, v, w) views where its own planes land: passed
+        as the fields of an exchange of that slot, they stay in place and
+        only the bands move."""
+        d, L = self.depth, self.shape[self.dim]
+        return self._per_shard("interior", slot,
+                               lambda r: r.narrow(self.dim, d, L))
+
+    def bands(self, slot: int):
+        """Per shard the reference's ``((u_hi, u_lo), (v_hi, v_lo), (w_hi,
+        w_lo))`` of slot `slot`: `hi` the halo below the shard (from the
+        ring predecessors), `lo` the halo above it."""
+        key = ("bands", slot)
+        if key not in self._views:
+            d, L, dim = self.depth, self.shape[self.dim], self.dim
+            self._views[key] = [
+                tuple((r.narrow(dim, 0, d), r.narrow(dim, d + L, d))
+                      for r in trio) for trio in self.extended(slot)]
+        return self._views[key]
+
+    def messages(self, axis: str):
+        """(`band_messages` of this phase along `axis`, the bytes each shard
+        sends), computed once per axis."""
+        if axis not in self._msgs:
+            msgs = band_messages(self.mesh, axis, self.shape[self.dim],
+                                 self.depth)
+            other = math.prod(self.shape) // self.shape[self.dim]
+            sent = [0] * len(self.devices)
+            for m in msgs:
+                sent[m.sender] += m.cnt * other * 4
+            self._msgs[axis] = (msgs, sent)
+        return self._msgs[axis]
+
+    def table(self, axis: str, slot: int, fields,
+              ptrs=None) -> "BandTable":
+        """The messages of an exchange of `fields` along `axis` into slot
+        `slot`, built once per (axis, slot, whether the fields are this
+        slot's `interior` views). Fields that are not must be contiguous.
+        `ptrs`: the fields' `data_ptr()`s in shard and field order, when
+        the caller has them."""
+        if ptrs is None:
+            ptrs = tuple(f.data_ptr() for trio in fields for f in trio)
+        key = ("interior ptrs", slot)
+        if key not in self._views:
+            inner = self.interior(slot)
+            self._views[key] = (tuple(f.data_ptr() for trio in inner
+                                      for f in trio), inner[0][0].stride())
+        own, stride = self._views[key]
+        in_place = ptrs == own and all(f.stride() == stride
+                                       for trio in fields for f in trio)
+        if not in_place:
+            for s, trio in enumerate(fields):
+                for name, f in zip("uvw", trio):
+                    if not f.is_contiguous():
+                        raise ValueError(
+                            f"shard {s} {name} must be contiguous, or the "
+                            f"interior view of slot {slot} of these slabs")
+        key = (axis, slot, in_place)
+        if key not in self._tables:
+            self._tables[key] = BandTable(self, axis, slot, in_place)
+        return self._tables[key]
 
     def check(self) -> None:
         """Raise RuntimeError naming each shard whose kernel timed out."""
@@ -1631,18 +1773,184 @@ class BandSlabs:
                                f"{self.epoch}: {why}")
 
 
-def _band_exchange_plain(fields, slabs: BandSlabs, msgs, slot: int,
+def _runs(shape, src_strides, dst_strides):
+    """(runs, run, src_stride, dst_stride) in floats of a copy of `shape`
+    between two views whose z rows are contiguous: the rows of one x
+    merge into a run where both sides hold them back to back, and so do
+    the x planes."""
+    n0, n1, n2 = shape
+    if src_strides[2] != 1 or dst_strides[2] != 1:
+        raise ValueError("the band exchange copies contiguous z rows")
+    if n1 > 1 and not (src_strides[1] == dst_strides[1] == n2):
+        raise ValueError("the band exchange copies whole rows of an x plane")
+    run = n1 * n2
+    if n0 == 1 or (src_strides[0] == dst_strides[0] == run):
+        return 1, n0 * run, run, run
+    return n0, run, src_strides[0], dst_strides[0]
+
+
+class _CardPut:
+    """One card's share of a `BandTable`: its rows in device memory and
+    what its launches need."""
+
+    def __init__(self, card, shards):
+        self.card, self.shards = card, shards
+        self.rows, self.tiles = [], 0
+        self.crossing = set()       # remote receiver cards (barrier due)
+        self.senders = set()        # remote cards storing here (enter)
+        self.arrivals = 0           # crossing tiles landing here
+        self.table = None           # rows in device memory
+        self.sources_at = None      # its sources in the call's ptrs
+        self.words = None           # its leader's words, when crossing
+        self.grid = 0
+        self.ptrs = None            # the last call's source bases
+        self.sources = None
+        self.aligned = 0
+
+
+class BandTable:
+    """K7's messages for one phase, axis, slot and source layout: the bands
+    (`msgs`, the reference's `band_messages`) and, when the fields are not
+    already in place, each shard's own planes into its interior. The rows
+    of `csrc/band_exchange.cu`'s table (`rows()`, columns `BAND_COLUMNS`)
+    are built at first use, per sender card: the device table, the peer
+    pairs and the handshake's counts are made once here, not per
+    exchange."""
+
+    def __init__(self, slabs: BandSlabs, axis: str, slot: int,
+                 in_place: bool):
+        self.slabs, self.axis, self.slot = slabs, axis, slot
+        self.in_place = in_place
+        self.msgs, self.sent = slabs.messages(axis)
+        self._puts = None
+        self.peers_enabled = False
+
+    def dst_offset(self, m: BandMessage) -> int:
+        """Where message `m` lands along the phase's dim of its region."""
+        s = self.slabs
+        return (m.dst_off if m.side == 0
+                else s.depth + s.shape[s.dim] + m.dst_off)
+
+    def rows(self):
+        """``{card: [row, ...]}`` with each row's columns as in
+        `BAND_COLUMNS`, the sources indexed per card (3 per shard, in mesh
+        order), the tiles numbered per card."""
+        return {p.card: p.rows for p in self._card_puts()}
+
+    def _card_puts(self):
+        if self._puts is not None:
+            return self._puts
+        sl = self.slabs
+        dim, depth, shape = sl.dim, sl.depth, sl.shape
+        cards = list(dict.fromkeys(sl.devices))
+        on = {c: [s for s, d in enumerate(sl.devices) if d == c]
+              for c in cards}
+        src_index = {s: 3 * on[sl.devices[s]].index(s) for s in
+                     range(len(sl.devices))}
+        src_strides = (sl.interior(self.slot)[0][0].stride() if self.in_place
+                       else (shape[1] * shape[2], shape[2], 1))
+        dst_strides = sl.region(0, 0, self.slot).stride()
+        leader = {c: on[c][0] for c in cards}
+        copies = []   # (sender, receiver, field, shape, src_off, dst view)
+        if not self.in_place:
+            for s in range(len(sl.devices)):
+                for f in range(3):
+                    copies.append((s, s, f, shape, 0, sl.interior(
+                        self.slot)[s][f]))
+        for m in self.msgs:
+            cut = list(shape)
+            cut[dim] = m.cnt
+            dst = sl.region(m.receiver, m.field, self.slot).narrow(
+                dim, self.dst_offset(m), m.cnt)
+            copies.append((m.sender, m.receiver, m.field, tuple(cut),
+                           m.src_lo * src_strides[dim], dst))
+        if max(len(v) for v in on.values()) * 3 > BAND_MAX_SOURCES:
+            raise ValueError(f"the band exchange kernel takes "
+                             f"{BAND_MAX_SOURCES // 3} shards a card")
+        puts = {c: _CardPut(c, on[c]) for c in cards}
+        for s, r, f, cut, src_off, dst in copies:
+            runs, run, ss, ds = _runs(cut, src_strides, dst_strides)
+            if runs * run > BAND_MAX_FLOATS:
+                raise ValueError(f"a band exchange message of {runs * run} "
+                                 f"floats exceeds the kernel's 32-bit "
+                                 f"indices")
+            p, rc = puts[sl.devices[s]], sl.devices[r]
+            crossing = rc != p.card
+            arrive = sl.words[leader[rc]].data_ptr() + 8 if crossing else 0
+            vec4 = int(run % 4 == 0 and ss % 4 == 0 and ds % 4 == 0
+                       and src_off % 4 == 0 and dst.data_ptr() % 16 == 0)
+            units = -(-runs * run // 4)
+            tiles = -(-units // BAND_TILE_UNITS)
+            p.rows.append([src_index[s] + f, src_off, dst.data_ptr(), arrive,
+                           runs, run, ss, ds, vec4, p.tiles])
+            p.tiles += tiles
+            if crossing:
+                p.crossing.add(rc)
+                puts[rc].senders.add(p.card)
+                puts[rc].arrivals += tiles
+        if max(len(p.senders) for p in puts.values()) > BAND_MAX_PARTNERS:
+            raise ValueError(f"the band exchange kernel's enter signals "
+                             f"{BAND_MAX_PARTNERS} partner cards")
+        self._puts = list(puts.values())
+        return self._puts
+
+    def launches(self):
+        """The card puts with their device tables, grids and words, made
+        once."""
+        puts = self._card_puts()
+        if puts and puts[0].words is None:
+            sl = self.slabs
+            for p in puts:
+                p.words = sl.words[p.shards[0]].data_ptr()
+                at = [3 * s + f for s in p.shards for f in range(3)]
+                p.sources_at = (None if at == list(range(3 * len(sl.devices)))
+                                else at)
+                if p.rows:
+                    p.table = torch.tensor(p.rows, dtype=torch.int64,
+                                           device=p.card)
+                    n_sm, _, _, per_sm = _band_attrs_cached(p.card.index)[:4]
+                    p.grid = band_launch_plan(p.tiles, n_sm, per_sm)
+        return puts
+
+
+@functools.lru_cache(maxsize=None)
+def _band_attrs_cached(index: int):
+    with torch.cuda.device(index):
+        n_sm = torch.cuda.get_device_properties(index).multi_processor_count
+        out = (ctypes.c_int * 7)()
+        _build.check(_build.load().band_exchange_attrs(out),
+                     "band_exchange_attrs")
+    return (n_sm,) + tuple(out)
+
+
+def band_kernel_attrs(device) -> dict:
+    """What the card says of K7's put kernel: its SMs, registers and local
+    (spill) bytes per thread, resident blocks per SM, and the table limits
+    the source was built with (threads, tile units, sources, partners)."""
+    n_sm, regs, local, per_sm, threads, tile, srcs, partners = \
+        _band_attrs_cached(_device_index(device))
+    return {"sms": n_sm, "registers": regs, "local_bytes": local,
+            "blocks_per_sm": per_sm, "threads": threads, "tile_units": tile,
+            "max_sources": srcs, "max_partners": partners}
+
+
+def _band_exchange_plain(fields, slabs: BandSlabs, table: BandTable,
                          wire=None) -> None:
-    """Plain PyTorch version of K7: each message as a tensor copy into the
-    receiver's recv slab, slot `slot`, at its offset (the reference's
-    `_exchange_remote_dma_emulated`). `wire(msg, sent, received)` may
-    stand between send and receive (the integrity layer's checksum words
-    and fault hook) and returns the band that lands."""
-    dim = slabs.dim
-    for m in msgs:
+    """Plain PyTorch version of K7: each shard's own planes into its
+    interior (unless they lie there), then each band as a tensor copy into
+    the receiver's halo, slot `table.slot`, at its offset (the reference's
+    `_exchange_remote_dma_emulated`). `wire(msg, sent, received)` may stand
+    between send and receive (the integrity layer's checksum words and
+    fault hook) and returns the band that lands."""
+    dim, slot = slabs.dim, table.slot
+    if not table.in_place:
+        for trio, own in zip(fields, slabs.interior(slot)):
+            for f, dst in zip(trio, own):
+                dst.copy_(f)
+    for m in table.msgs:
         sent = fields[m.sender][m.field].narrow(dim, m.src_lo, m.cnt)
-        dst = slabs.slabs[m.receiver][m.field][m.side][slot].narrow(
-            dim, m.dst_off, m.cnt)
+        dst = slabs.region(m.receiver, m.field, slot).narrow(
+            dim, table.dst_offset(m), m.cnt)
         got = sent.to(dst.device, copy=True)
         if wire is not None:
             got = wire(m, sent, got)
@@ -1668,105 +1976,99 @@ def _enable_peers(pairs) -> None:
         _PEERS_ENABLED.add((dev, peer))
 
 
-def _ptr_array(values, ctype=ctypes.c_void_p):
-    return (ctype * len(values))(*values)
+def _on_card(index: int):
+    """Make card `index` current around a launch, unless it is."""
+    if torch.cuda.current_device() == index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)
 
 
-def _band_exchange_cuda(fields, slabs: BandSlabs, msgs, slot: int,
-                        hops: int) -> None:
-    """Launch K7 (`csrc/band_exchange.cu`): per shard an enter, a put and
-    a wait kernel on its device's current stream, every enter issued before
-    any put and every put before any wait."""
-    if hops > BAND_MAX_HOPS:
-        raise ValueError(
-            f"the band exchange kernel's message table holds "
-            f"{BAND_MAX_HOPS} hops; depth {slabs.depth} over "
-            f"{slabs.shape[slabs.dim]} planes/rows needs {hops}")
+def _band_exchange_cuda(slabs: BandSlabs, table: BandTable, ptrs) -> None:
+    """Launch K7 (`csrc/band_exchange.cu`): one put per card on its current
+    stream, carrying every message of its shards, whose fields' base
+    pointers are `ptrs` (shard by shard, u, v, w). A card whose messages
+    cross to other cards also launches an enter before any put and a wait
+    after every put; on one card stream order is the handshake."""
     lib = _build.load()
-    devs = slabs.devices
-    _enable_peers({(devs[m.sender].index, devs[m.receiver].index)
-                   for m in msgs})
-    dim, depth = slabs.dim, slabs.depth
-    A, B, C = slabs.shape
-    runs, inner = (1, B * C) if dim == 0 else (A, C)
-    src_stride, dst_stride = B * C, depth * C
-    itemsize = 4
-    n_msgs = 6 * hops
-    vecs = max(m.cnt for m in msgs) * inner * runs // 4
-    blocks = min(BAND_MAX_BLOCKS, max(1, -(-vecs // (BAND_THREADS
-                                                     * BAND_VECS_PER_THREAD))))
+    puts = table.launches()
+    if not table.peers_enabled:
+        _enable_peers({pair for p in puts for r in p.crossing
+                       for pair in ((p.card.index, r.index),
+                                    (r.index, p.card.index))})
+        table.peers_enabled = True
     slabs.epoch += 1
-    barrier_want = slabs.epoch * 2 * hops
-    arrive_want = slabs.epoch * n_msgs * blocks
-    per_sender = [[] for _ in devs]
-    for m in msgs:
-        per_sender[m.sender].append(m)
-
-    def ptr(t):
-        return t.data_ptr()
-
-    def word(shard, i):
-        return ptr(slabs.words[shard]) + 8 * i
-
-    launches = []
-    for s, mine in enumerate(per_sender):
-        srcs, dsts = [], []
-        for m in mine:
-            slab = slabs.slabs[m.receiver][m.field][m.side][slot]
-            srcs.append(ptr(fields[s][m.field]) + m.src_lo * inner * itemsize)
-            dsts.append(ptr(slab) + m.dst_off * inner * itemsize)
-        vec4 = inner % 4 == 0 and all(p % 16 == 0 for p in srcs + dsts)
-        launches.append((s, mine, srcs, dsts, vec4))
-    for s, mine, _, _, _ in launches:
-        dev = devs[s]
-        with torch.cuda.device(dev):
-            partners = _ptr_array([word(m.receiver, 0) for m in mine
-                                   if m.field == 0])
-            err = lib.band_exchange_enter(
-                ctypes.addressof(partners), len(partners),
-                torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "band_exchange_enter")
-    for s, mine, srcs, dsts, vec4 in launches:
-        dev = devs[s]
-        with torch.cuda.device(dev):
-            arr = [_ptr_array(srcs), _ptr_array(dsts),
-                   _ptr_array([word(m.receiver, 1) for m in mine]),
-                   _ptr_array([m.cnt for m in mine], ctypes.c_int)]
+    due = slabs._due
+    streams = {}
+    for p in puts:
+        d = due.setdefault(p.card, [0, 0])
+        d[0] += len(p.crossing)
+        d[1] += p.arrivals
+        streams[p.card] = torch.cuda.current_stream(p.card).cuda_stream
+        if p.senders:
+            words = [q.words for q in puts if q.card in p.senders]
+            with _on_card(p.card.index):
+                err = lib.band_exchange_enter(
+                    (ctypes.c_void_p * len(words))(*words), len(words),
+                    streams[p.card])
+            _build.check(err, "band_exchange_enter")
+            LAUNCHES["band_handshake"] += 1
+    for p in puts:
+        if not p.rows:
+            continue
+        mine = (ptrs if p.sources_at is None
+                else tuple(ptrs[i] for i in p.sources_at))
+        if mine != p.ptrs:
+            p.ptrs = mine
+            p.sources = (ctypes.c_void_p * len(mine))(*mine)
+            p.aligned = int(all(q % 16 == 0 for q in mine))
+        with _on_card(p.card.index):
             err = lib.band_exchange_put(
-                *(ctypes.addressof(a) for a in arr), n_msgs, blocks, runs,
-                inner, src_stride, dst_stride, int(vec4), word(s, 0),
-                barrier_want, BAND_TIMEOUT_NS,
-                torch.cuda.current_stream(dev).cuda_stream)
+                p.table.data_ptr(), len(p.rows), p.tiles, p.grid, p.sources,
+                len(mine), p.aligned, p.words if p.crossing else None,
+                due[p.card][0], BAND_TIMEOUT_NS, streams[p.card])
         _build.check(err, "band_exchange_put")
         LAUNCHES["band_exchange"] += 1
-    for s in range(len(devs)):
-        dev = devs[s]
-        with torch.cuda.device(dev):
-            err = lib.band_exchange_wait(
-                word(s, 0), arrive_want, BAND_TIMEOUT_NS,
-                torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "band_exchange_wait")
+    for p in puts:
+        if p.arrivals:
+            with _on_card(p.card.index):
+                err = lib.band_exchange_wait(p.words, due[p.card][1],
+                                             BAND_TIMEOUT_NS,
+                                             streams[p.card])
+            _build.check(err, "band_exchange_wait")
+            LAUNCHES["band_handshake"] += 1
 
 
-def _check_band_fields(fields, mesh) -> Tuple[int, ...]:
+def _check_band_fields(fields, mesh):
+    """(shape, the fields' `data_ptr()`s in shard and field order) of one
+    (u, v, w) of one shape and float32 per shard, on the mesh's devices."""
     if len(fields) != len(mesh.devices):
         raise ValueError(f"{len(fields)} shards given for a mesh of "
                          f"{len(mesh.devices)}")
-    shape = None
+    shape, ptrs = None, []
     for s, (trio, dev) in enumerate(zip(fields, mesh.devices)):
         if len(trio) != 3:
             raise ValueError(f"shard {s} holds {len(trio)} fields, not "
                              f"(u, v, w)")
-        _check_fields(*trio, 3, "(X, Y, Z)")
-        if trio[0].device != dev:
-            raise ValueError(f"shard {s} lies on {trio[0].device}, the mesh "
-                             f"puts it on {dev}")
-        if shape is None:
-            shape = tuple(trio[0].shape)
-        elif tuple(trio[0].shape) != shape:
-            raise ValueError(f"shard {s} has shape {tuple(trio[0].shape)}, "
-                             f"shard 0 {shape}")
-    return shape
+        for name, f in zip("uvw", trio):
+            if not isinstance(f, torch.Tensor):
+                raise TypeError(f"{name} must be a torch.Tensor, got "
+                                f"{type(f).__name__}")
+            if f.dtype != torch.float32:
+                raise TypeError(f"{name} must be float32 (bf16 is not "
+                                f"ported yet), got {f.dtype}")
+            if f.device != dev:
+                raise ValueError(f"shard {s} lies on {f.device}, the mesh "
+                                 f"puts it on {dev}")
+            if shape is None:
+                if f.ndim != 3:
+                    raise ValueError(f"{name} must be (X, Y, Z), got rank "
+                                     f"{f.ndim}")
+                shape = f.shape
+            elif f.shape != shape:
+                raise ValueError(f"shard {s} has shape {tuple(f.shape)}, "
+                                 f"shard 0 {tuple(shape)}")
+            ptrs.append(f.data_ptr())
+    return tuple(shape), tuple(ptrs)
 
 
 def halo_band_exchange_dma(fields, *, mesh, axis: str, depth: int, dim: int,
@@ -1774,30 +2076,35 @@ def halo_band_exchange_dma(fields, *, mesh, axis: str, depth: int, dim: int,
                            slabs: Optional[BandSlabs] = None, wire=None):
     """Exchange depth-`depth` boundary bands of three fields along mesh
     axis `axis`, each shard's bands stored from inside a kernel into its
-    ring neighbours' double-buffered recv slabs (K7).
+    ring neighbours' halos (K7), and each shard's own planes beside them:
+    per shard and field, slot ``block_index % 2`` of `slabs`' extended
+    slab (`BandSlabs.extended`) is the field widened by `depth` planes or
+    rows on each side along `dim`, what the collective engine builds with
+    a concatenation.
 
     `fields` holds one (u, v, w) of (X, Y, Z) float32 per shard, ordered
-    like `mesh.devices`. Returns, per shard, the reference's ``((u_hi,
-    u_lo), (v_hi, v_lo), (w_hi, w_lo))``: `hi` is the band from the ring
-    predecessors (global coordinates just below the shard), `lo` from the
-    successors, both views of slot ``block_index % 2`` of `slabs`, valid
-    until the exchange of block ``block_index + 2`` writes that slot again.
+    like `mesh.devices`, each contiguous or, to move the bands alone, the
+    slot's `BandSlabs.interior` views. Returns, per shard, the reference's
+    ``((u_hi, u_lo), (v_hi, v_lo), (w_hi, w_lo))``: `hi` is the band from
+    the ring predecessors (global coordinates just below the shard), `lo`
+    from the successors, views of the slot's halos, valid until the
+    exchange of block ``block_index + 2`` writes that slot again.
     Multi-hop: when `depth` exceeds the local extent each side moves in
     ceil(depth / L) messages (`_band_schedule`), each landing at its
     offset.
 
     `slabs` (a `BandSlabs` of this mesh, shape, depth and dim) carries the
-    recv slabs and counters from one block to the next; None makes fresh
-    ones. On CUDA shards this launches `csrc/band_exchange.cu` and the
-    caller reads `slabs.check()` once the stream has run (a spin past its
-    bound sets the error word); on CPU shards it runs the plain version,
-    `_band_exchange_plain`, whose `wire` hook the CUDA kernel does not
-    take."""
+    buffers, counters and message tables from one block to the next; None
+    makes fresh ones. On CUDA shards this launches `csrc/band_exchange.cu`,
+    one put per card, and the caller reads `slabs.check()` once the stream
+    has run (a spin past its bound sets the error word); on CPU shards it
+    runs the plain version, `_band_exchange_plain`, whose `wire` hook the
+    CUDA kernel does not take."""
     if dim not in (0, 1):
         raise ValueError(f"dim must be 0 (x-planes) or 1 (y-rows), got {dim}")
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
-    shape = _check_band_fields(fields, mesh)
+    shape, ptrs = _check_band_fields(fields, mesh)
     mesh.axis_size(axis)
     if slabs is None:
         slabs = BandSlabs(mesh, shape, depth, dim)
@@ -1806,17 +2113,14 @@ def halo_band_exchange_dma(fields, *, mesh, axis: str, depth: int, dim: int,
                          f"{slabs.depth}, dim {slabs.dim} on "
                          f"{slabs.devices}; this exchange is {shape}, "
                          f"{depth}, {dim} on {tuple(mesh.devices)}")
-    L = shape[dim]
-    msgs = band_messages(mesh, axis, L, depth)
     slot = int(block_index) % 2
+    table = slabs.table(axis, slot, fields, ptrs)
     if fields[0][0].is_cuda:
         if wire is not None:
             raise ValueError("the band exchange kernel has no wire hook: "
                              "checksums and fault injection ride the plain "
                              "version (CPU shards) or the collective engine")
-        _band_exchange_cuda(fields, slabs, msgs, slot,
-                            len(_band_schedule(L, depth)))
+        _band_exchange_cuda(slabs, table, ptrs)
     else:
-        _band_exchange_plain(fields, slabs, msgs, slot, wire)
-    return [tuple((sl[f][0][slot], sl[f][1][slot]) for f in range(3))
-            for sl in slabs.slabs]
+        _band_exchange_plain(fields, slabs, table, wire)
+    return list(slabs.bands(slot))

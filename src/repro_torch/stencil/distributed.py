@@ -24,15 +24,20 @@ either, and their results are equal bitwise:
     k-away predecessor, so T beyond the local extent needs no fallback.
   * ``"remote_dma"``: the bands are stored from inside a kernel,
     `kernels.advection.halo_band_exchange_dma` (K7), straight into the
-    ring neighbours' double-buffered recv slabs (slot = block index % 2),
-    the paper's §IV move of the transfer schedule into the kernel. On CPU
-    shards it runs K7's plain version, message for message.
+    halos of the ring neighbours' double-buffered extended slabs (slot =
+    block index % 2), the paper's §IV move of the transfer schedule into
+    the kernel. The x phase also stores each shard's own planes into the
+    middle of its slab, and the y phase sends from that x-extended slab,
+    so the slab K1 reads is built by K7 alone, with no concatenation (one
+    launch per card and phase). On CPU shards it runs K7's plain version,
+    message for message.
 
 `make_distributed_run(n_blocks=K)` runs K substep-blocks with the block
-counter feeding the recv-slot parity, so block k+1's bands land in the
-slot block k is not reading; the slabs and K7's counters live from block
-to block. As in the reference, each block still orders its exchange before
-its compute: the cross-block landing is what the slots make possible.
+counter feeding the slot parity, so block k+1's bands land in the slot
+block k is not reading; the extended slabs, K7's message tables and its
+counters live from block to block. As in the reference, each block still
+orders its exchange before its compute: the cross-block landing is what
+the slots make possible.
 
 `local_kernel="fused"` runs each shard's update through K1
 (`advect_fused`) with its x/y interior masks; `y_tile=None` lets K1 run
@@ -243,11 +248,11 @@ def _exchange_halos(mesh: StencilMesh, fs: Sequence[torch.Tensor],
 def _exchange_band_dma(mesh: StencilMesh, shards: Shards, axis: str,
                        depth: int, dim: int, block_index: int,
                        slabs: K.BandSlabs, tally: _Tally, *,
-                       integrity_out=None, corrupt=None):
-    """The remote_dma engine: K7 over every shard's (u, v, w), per shard
-    the three `(hi, lo)` of the collective engine's contract. On CPU
-    shards the integrity words and the fault hook ride K7's plain version
-    as its `wire`."""
+                       integrity_out=None, corrupt=None) -> Shards:
+    """The remote_dma engine: K7 over every shard's (u, v, w) into `slabs`'
+    extended slabs; returns per shard the extended (u, v, w), views of
+    slot `block_index % 2`. On CPU shards the integrity words and the
+    fault hook ride K7's plain version as its `wire`."""
     wire = None
     if integrity_out is not None or corrupt is not None:
         def wire(m, sent, got):
@@ -262,16 +267,12 @@ def _exchange_band_dma(mesh: StencilMesh, shards: Shards, axis: str,
                 integrity_out[m.receiver].append(K.band_checksum(got)
                                                  != word)
             return got
-    bands = K.halo_band_exchange_dma(shards, mesh=mesh, axis=axis,
-                                     depth=depth, dim=dim,
-                                     block_index=block_index, slabs=slabs,
-                                     wire=wire)
-    shape = shards[0][0].shape
-    other = shape.numel() // shape[dim]
-    for m in K.band_messages(mesh, axis, shape[dim], depth):
-        tally.add("wire", m.sender,
-                  m.cnt * other * shards[0][0].element_size())
-    return bands
+    K.halo_band_exchange_dma(shards, mesh=mesh, axis=axis, depth=depth,
+                             dim=dim, block_index=block_index, slabs=slabs,
+                             wire=wire)
+    for s, nbytes in enumerate(slabs.messages(axis)[1]):
+        tally.add("wire", s, nbytes)
+    return slabs.extended(block_index % 2)
 
 
 def remote_dma_schedule_wire_bytes(Xl: int, Yl: int, Z: int, itemsize: int,
@@ -346,10 +347,11 @@ def _on(params: AdvectParams, device, cache: dict) -> AdvectParams:
 class _LocalBlock:
     """One substep-block over every shard of the mesh: the shared body of
     `make_distributed_step` (one block) and `make_distributed_run` (K
-    blocks, the block index feeding K7's recv slot). Holds K7's recv slabs
-    and counters per phase from one block to the next.
-    `corrupt_halo=(field, rows, value)` damages that field's hop-1 hi band
-    on the last exchanged phase (y when y is decomposed, else x)."""
+    blocks, the block index feeding K7's slot). Holds K7's extended slabs,
+    tables and counters, and each shard's interior masks, from one block
+    to the next. `corrupt_halo=(field, rows, value)` damages that field's
+    hop-1 hi band on the last exchanged phase (y when y is decomposed,
+    else x)."""
 
     def __init__(self, mesh: StencilMesh, params: AdvectParams, *, T: int,
                  dt: float, local_kernel: str, y_tile: Optional[int],
@@ -359,25 +361,79 @@ class _LocalBlock:
         self.local_kernel, self.y_tile = local_kernel, y_tile
         self.overlap, self.exchange = overlap, exchange
         self.verify, self.corrupt_halo = verify_integrity, corrupt_halo
+        self.buffers: Optional[K.ExtendedBuffers] = None
         self.slabs: Dict[str, K.BandSlabs] = {}
         self.tally = _Tally()
         self._params: dict = {}
+        self._masks: dict = {}
 
-    def _substeps(self, us, vs, ws, x_int, y_int):
-        """T masked Euler substeps on a (halo'd) slab; a None mask leaves
-        that axis all-interior (the slab edge is the true boundary)."""
-        p = _on(self.params, us.device, self._params)
-        T, dt = self.T, self.dt
+    def _mask(self, x_int, y_int, device):
+        """A pass's interior mask in the form its local kernel takes: the
+        (x, y) f32 pair of K1, or one broadcast bool for the reference; a
+        None mask leaves that axis all-interior (the slab edge is the true
+        boundary)."""
         if self.local_kernel == "fused":
-            return K.advect_fused(
-                us, vs, ws, p, T=T, dt=dt, y_tile=self.y_tile,
-                x_interior_mask=None if x_int is None else x_int.float(),
-                y_interior_mask=None if y_int is None else y_int.float())
-        m = torch.ones((), dtype=torch.bool, device=us.device)
+            return tuple(None if m is None else m.float()
+                         for m in (x_int, y_int))
+        m = torch.ones((), dtype=torch.bool, device=device)
         if x_int is not None:
             m = m & x_int[:, None, None]
         if y_int is not None:
             m = m & y_int[None, :, None]
+        return m
+
+    def _shard_masks(self, s: int, Xl: int, Yl: int, dx: int, dy: int):
+        """Shard `s`'s masks, built once per shard shape: the boundary
+        pass's over the extended slab, and with overlap the interior
+        pass's over the owned slab and the select of its trusted cells."""
+        key = (s, Xl, Yl)
+        if key in self._masks:
+            return self._masks[key]
+        mesh, T = self.mesh, self.T
+        n_x, n_y = mesh.shape
+        X_g, Y_g = n_x * Xl, n_y * Yl
+        ix, iy = mesh.coords(s)
+        dev = mesh.devices[s]
+
+        def interior(lo, n, extent):
+            g = lo + torch.arange(n, device=dev)
+            return (g >= 1) & (g <= extent - 2)
+
+        # global-interior masks over the slab coordinates
+        ext = self._mask(interior(ix * Xl - dx, Xl + 2 * dx, X_g) if dx
+                         else None,
+                         interior(iy * Yl - dy, Yl + 2 * dy, Y_g) if dy
+                         else None, dev)
+        own = sel = None
+        if self.overlap and (dx or dy):
+            # interior pass: owned slab only; the cut edges contaminate < T
+            # cells inward, which the select drops
+            own = self._mask(interior(ix * Xl, Xl, X_g) if dx else None,
+                             interior(iy * Yl, Yl, Y_g) if dy else None, dev)
+            sx = torch.arange(Xl, device=dev)
+            sy = torch.arange(Yl, device=dev)
+            ok_x = torch.ones(Xl, dtype=torch.bool, device=dev)
+            ok_y = torch.ones(Yl, dtype=torch.bool, device=dev)
+            if dx:
+                ok_x = (((ix == 0) | (sx >= T))
+                        & ((ix == n_x - 1) | (sx < Xl - T)))
+            if dy:
+                ok_y = (((iy == 0) | (sy >= T))
+                        & ((iy == n_y - 1) | (sy < Yl - T)))
+            sel = (ok_x[:, None] & ok_y[None, :])[:, :, None]
+        self._masks[key] = (ext, own, sel)
+        return self._masks[key]
+
+    def _substeps(self, us, vs, ws, mask):
+        """T masked Euler substeps on a (halo'd) slab under `_mask`'s
+        mask."""
+        p = _on(self.params, us.device, self._params)
+        T, dt = self.T, self.dt
+        if self.local_kernel == "fused":
+            return K.advect_fused(us, vs, ws, p, T=T, dt=dt,
+                                  y_tile=self.y_tile, x_interior_mask=mask[0],
+                                  y_interior_mask=mask[1])
+        m = mask
         for _ in range(T):
             su, sv, sw = pw_advect_ref(us, vs, ws, p)
             us = us + dt * torch.where(m, su, 0.0)
@@ -385,37 +441,68 @@ class _LocalBlock:
             ws = ws + dt * torch.where(m, sw, 0.0)
         return us, vs, ws
 
+    def _band_slabs(self, shape, dx: int, dy: int) -> None:
+        """K7's extended slabs for shards of `shape`, made once: one set of
+        buffers padded by (dx, dy), the x phase landing in its middle rows
+        and the y phase over all of it."""
+        if self.buffers is not None and (self.buffers.shape,
+                                         self.buffers.pad) == (shape,
+                                                               (dx, dy)):
+            return
+        Xl, Yl, Z = shape
+        self.buffers = K.ExtendedBuffers(self.mesh, shape, (dx, dy))
+        self.slabs = {}
+        if dx:
+            self.slabs["x"] = K.BandSlabs(self.mesh, shape, dx, 0,
+                                          buffers=self.buffers, window=dy)
+        if dy:
+            self.slabs["y"] = K.BandSlabs(self.mesh, (Xl + 2 * dx, Yl, Z),
+                                          dy, 1, buffers=self.buffers)
+
     def _extend(self, fields: Shards, axis: str, dim: int, block_index,
                 integrity_out, corrupt_dim) -> Shards:
         """One phase: every shard's (u, v, w) extended by T planes/rows on
-        both sides along `dim`, whichever engine moved them."""
+        both sides along `dim`, whichever engine moved them. With
+        `remote_dma` the slabs are views of K7's persistent buffers, where
+        the exchange put the shard and its bands; the collective engine
+        concatenates."""
         T, ch = self.T, self.corrupt_halo
         if self.exchange == "remote_dma":
-            shape = tuple(fields[0][0].shape)
-            slabs = self.slabs.get(axis)
-            if slabs is None or not slabs.matches(self.mesh, shape, T, dim):
-                slabs = K.BandSlabs(self.mesh, shape, T, dim)
-                self.slabs[axis] = slabs
             corrupt = (None if ch is None or corrupt_dim != dim
                        else (int(ch[0]), int(ch[1]), ch[2]))
-            bands = _exchange_band_dma(self.mesh, fields, axis, T, dim,
-                                       block_index, slabs, self.tally,
-                                       integrity_out=integrity_out,
-                                       corrupt=corrupt)
-        else:
-            per_field = []
-            for fi in range(3):
-                corrupt = (None if ch is None or corrupt_dim != dim
-                           or fi != int(ch[0]) else (int(ch[1]), ch[2]))
-                per_field.append(_exchange_halos(
-                    self.mesh, [f[fi] for f in fields], axis, T, dim,
-                    tally=self.tally, integrity_out=integrity_out,
-                    corrupt=corrupt))
-            bands = [tuple(pf[s] for pf in per_field)
-                     for s in range(len(fields))]
+            return _exchange_band_dma(self.mesh, fields, axis, T, dim,
+                                      block_index, self.slabs[axis],
+                                      self.tally,
+                                      integrity_out=integrity_out,
+                                      corrupt=corrupt)
+        per_field = []
+        for fi in range(3):
+            corrupt = (None if ch is None or corrupt_dim != dim
+                       or fi != int(ch[0]) else (int(ch[1]), ch[2]))
+            per_field.append(_exchange_halos(
+                self.mesh, [f[fi] for f in fields], axis, T, dim,
+                tally=self.tally, integrity_out=integrity_out,
+                corrupt=corrupt))
+        bands = [tuple(pf[s] for pf in per_field)
+                 for s in range(len(fields))]
         return [tuple(torch.cat([hi, f, lo], dim=dim)
                       for f, (hi, lo) in zip(trio, b))
                 for trio, b in zip(fields, bands)]
+
+    def _exchange(self, shards: Shards, block_index, dx: int, dy: int,
+                  integrity_out=None, corrupt_dim=None) -> Shards:
+        """The two-phase exchange: x first, then y on the x-extended slab;
+        per shard the (u, v, w) the boundary pass reads."""
+        fields = shards
+        if self.exchange == "remote_dma":
+            self._band_slabs(tuple(shards[0][0].shape), dx, dy)
+        if dx:
+            fields = self._extend(fields, "x", 0, block_index,
+                                  integrity_out, corrupt_dim)
+        if dy:
+            fields = self._extend(fields, "y", 1, block_index,
+                                  integrity_out, corrupt_dim)
+        return fields
 
     def check(self) -> None:
         """Raise when a K7 kernel of this block's mesh timed out."""
@@ -446,54 +533,18 @@ class _LocalBlock:
         if self.corrupt_halo is not None and (dx or dy):
             corrupt_dim = 1 if dy else 0
 
-        # two-phase exchange: x first, then y on the x-extended slab
-        fields = shards
-        if dx:
-            fields = self._extend(fields, "x", 0, block_index,
-                                  integrity_out, corrupt_dim)
-        if dy:
-            fields = self._extend(fields, "y", 1, block_index,
-                                  integrity_out, corrupt_dim)
-
+        fields = self._exchange(shards, block_index, dx, dy, integrity_out,
+                                corrupt_dim)
         out = []
         for s, (own, ext) in enumerate(zip(shards, fields)):
-            ix, iy = mesh.coords(s)
-            dev = own[0].device
-            # global-interior masks over the slab coordinates
-            x_int = y_int = None
-            if dx:
-                gx = ix * Xl - dx + torch.arange(Xl + 2 * dx, device=dev)
-                x_int = (gx >= 1) & (gx <= X_g - 2)
-            if dy:
-                gy = iy * Yl - dy + torch.arange(Yl + 2 * dy, device=dev)
-                y_int = (gy >= 1) & (gy <= Y_g - 2)
+            ext_mask, own_mask, sel = self._shard_masks(s, Xl, Yl, dx, dy)
             # boundary pass (consumes the exchange), trimmed to owned rows
             bnd = tuple(f[dx:dx + Xl, dy:dy + Yl]
-                        for f in self._substeps(*ext, x_int, y_int))
-            if not (self.overlap and (dx or dy)):
+                        for f in self._substeps(*ext, ext_mask))
+            if sel is None:
                 out.append(tuple(f.contiguous() for f in bnd))
                 continue
-            # interior pass: owned slab only, no exchange dependence; the
-            # cut edges contaminate < T cells inward, which the select drops
-            ox_int = oy_int = None
-            if dx:
-                ogx = ix * Xl + torch.arange(Xl, device=dev)
-                ox_int = (ogx >= 1) & (ogx <= X_g - 2)
-            if dy:
-                ogy = iy * Yl + torch.arange(Yl, device=dev)
-                oy_int = (ogy >= 1) & (ogy <= Y_g - 2)
-            inner = self._substeps(*own, ox_int, oy_int)
-            sx = torch.arange(Xl, device=dev)
-            sy = torch.arange(Yl, device=dev)
-            ok_x = torch.ones(Xl, dtype=torch.bool, device=dev)
-            ok_y = torch.ones(Yl, dtype=torch.bool, device=dev)
-            if dx:
-                ok_x = (((ix == 0) | (sx >= T))
-                        & ((ix == n_x - 1) | (sx < Xl - T)))
-            if dy:
-                ok_y = (((iy == 0) | (sy >= T))
-                        & ((iy == n_y - 1) | (sy < Yl - T)))
-            sel = (ok_x[:, None] & ok_y[None, :])[:, :, None]
+            inner = self._substeps(*own, own_mask)
             out.append(tuple(torch.where(sel, i, b)
                              for i, b in zip(inner, bnd)))
         mismatch = None

@@ -801,7 +801,8 @@ K7_CASES = [  # nx, ny, axis, dim, shape, depth
     (1, 2, "y", 1, (5, 6, 8), 2), (2, 1, "x", 0, (4, 6, 8), 3),
     (2, 2, "x", 0, (4, 6, 8), 1), (2, 2, "y", 1, (6, 4, 12), 4),
     (1, 4, "y", 1, (5, 3, 4), 7), (3, 1, "x", 0, (3, 5, 6), 7),
-    (2, 2, "y", 0, (6, 5, 5), 2)]
+    (2, 2, "y", 0, (6, 5, 5), 2), (2, 2, "y", 1, (6, 3, 8), 5),
+    (4, 1, "x", 0, (2, 5, 8), 5)]
 
 
 def loopback_cuda(nx, ny):
@@ -812,30 +813,109 @@ def loopback_cuda(nx, ny):
 @pytest.mark.parametrize("nx,ny,axis,dim,shape,depth", K7_CASES)
 def test_band_exchange_kernel_equals_plain_bitwise(cuda, nx, ny, axis, dim,
                                                    shape, depth):
-    """Four blocks on the same slabs and counters, both parities: every
-    slab == the plain version's bit for bit, the slot a block did not
-    write keeps its fill, no error word is set."""
+    """Four blocks on the same buffers, tables and counters, both slots:
+    every extended buffer, interior included, == the plain version's bit
+    for bit; the slot block 0 did not write keeps its fill; one put per
+    card and exchange (all shards share cuda:0, so one, and no enter or
+    wait); no error word is set. Blocks 2 and 3 pass the slot's interior
+    views, so only the bands move."""
     mesh = loopback_cuda(nx, ny)
     got = TK.BandSlabs(mesh, shape, depth, dim, fill=-3.5)
     want = TK.BandSlabs(mesh, shape, depth, dim, fill=-3.5)
     for block in range(4):
+        slot = block % 2
         shards = [fields(shape, 10 * block + s, cuda)
                   for s in range(nx * ny)]
-        before = TK.LAUNCHES["band_exchange"]
-        TK.halo_band_exchange_dma(shards, mesh=mesh, axis=axis, depth=depth,
+        src = (shards, shards)
+        if block >= 2:
+            for sl in (got, want):
+                for own, new in zip(sl.interior(slot), shards):
+                    for a, b in zip(own, new):
+                        a.copy_(b)
+            src = (got.interior(slot), want.interior(slot))
+        before = dict(TK.LAUNCHES)
+        TK.halo_band_exchange_dma(src[0], mesh=mesh, axis=axis, depth=depth,
                                   dim=dim, block_index=block, slabs=got)
-        assert TK.LAUNCHES["band_exchange"] == before + nx * ny
-        msgs = TK.band_messages(mesh, axis, shape[dim], depth)
-        TK._band_exchange_plain(shards, want, msgs, block % 2)
+        assert TK.LAUNCHES["band_exchange"] == before["band_exchange"] + 1
+        assert TK.LAUNCHES["band_handshake"] == before["band_handshake"]
+        TK._band_exchange_plain(src[1], want,
+                                want.table(axis, slot, src[1]))
         torch.cuda.synchronize()
         got.check()
         assert got.epoch == block + 1
-        for a, b in zip(got.slabs, want.slabs):
-            for fa, fb in zip(a, b):
-                for sa, sb in zip(fa, fb):
-                    assert torch.equal(sa, sb)
-                    if block == 0:
-                        assert bool((sa[1] == -3.5).all())
+        assert all(int(w[2]) == 0 for w in got.words)
+        for a, b in zip(got.buffers.bufs, want.buffers.bufs):
+            assert torch.equal(a, b)
+            if block == 0:
+                assert bool((a[:, 1] == -3.5).all())
+
+
+@pytest.mark.parametrize("nx,ny,axis,dim,shape,depth", [
+    (2, 1, "x", 0, (4, 6, 8), 3), (1, 2, "y", 1, (5, 3, 4), 5),
+    (2, 2, "y", 1, (6, 4, 12), 4)])
+def test_band_exchange_across_cards_equals_plain_bitwise(cuda, nx, ny, axis,
+                                                         dim, shape, depth):
+    """Shards on distinct cards (peer stores, an enter and a wait per card
+    and exchange): four blocks, both slots, == the plain version on the
+    same layout bitwise, no error word set."""
+    n = nx * ny
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards")
+    from repro_torch.launch.mesh import make_stencil_mesh
+    mesh = make_stencil_mesh(nx, ny)
+    got = TK.BandSlabs(mesh, shape, depth, dim, fill=-3.5)
+    want = TK.BandSlabs(mesh, shape, depth, dim, fill=-3.5)
+    for block in range(4):
+        shards = [fields(shape, 20 * block + s, f"cuda:{s}")
+                  for s in range(n)]
+        before = dict(TK.LAUNCHES)
+        TK.halo_band_exchange_dma(shards, mesh=mesh, axis=axis, depth=depth,
+                                  dim=dim, block_index=block, slabs=got)
+        assert TK.LAUNCHES["band_exchange"] == before["band_exchange"] + n
+        assert TK.LAUNCHES["band_handshake"] == \
+            before["band_handshake"] + 2 * n
+        TK._band_exchange_plain(shards, want,
+                                want.table(axis, block % 2, shards))
+        for s in range(n):
+            torch.cuda.synchronize(s)
+        got.check()
+        for a, b in zip(got.buffers.bufs, want.buffers.bufs):
+            assert torch.equal(a, b)
+
+
+def test_band_kernel_reports_its_build(cuda):
+    """The put kernel's limits as the source was built == the wrapper's,
+    and it fits several blocks an SM without spilling."""
+    attrs = TK.band_kernel_attrs(cuda)
+    assert (attrs["threads"], attrs["tile_units"], attrs["max_sources"],
+            attrs["max_partners"]) == (TK.BAND_THREADS, TK.BAND_TILE_UNITS,
+                                       TK.BAND_MAX_SOURCES,
+                                       TK.BAND_MAX_PARTNERS)
+    assert attrs["blocks_per_sm"] >= 4 and attrs["local_bytes"] == 0
+
+
+def test_distributed_run_puts_once_per_card_and_phase(cuda):
+    """A (2, 2) loopback run of 3 blocks: K7 launches one put per phase
+    and block (6), no enter or wait, and K1 reads the buffers K7 filled."""
+    from repro_torch.stencil import distributed as TD
+    mesh = loopback_cuda(2, 2)
+    u, v, w = fields((8, 12, 16), 5, cuda)
+    p = TREF.default_params(16, device=cuda)
+    run = TD.make_distributed_run(mesh, p, n_blocks=3, T=2, dt=DT,
+                                  exchange="remote_dma", overlap=True,
+                                  local_kernel="fused")
+    TK.reset_launch_counts()
+    out = run(TD.shard(mesh, u, v, w))
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["band_exchange"] == 6
+    assert TK.LAUNCHES["band_handshake"] == 0
+    assert TK.LAUNCHES["advect_fused"] == 24
+    want = TD.make_distributed_run(mesh, p, n_blocks=3, T=2, dt=DT,
+                                   exchange="collective", overlap=True,
+                                   local_kernel="fused")(
+        TD.shard(mesh, u, v, w))
+    assert all(torch.equal(a, b) for sa, sb in zip(out, want)
+               for a, b in zip(sa, sb))
 
 
 def test_distributed_step_on_the_card_equals_cpu(cuda):

@@ -550,28 +550,243 @@ def band_inputs(mesh, shape, seed):
     (2, 1, "x", 1, (4, 5, 4), 1), (1, 2, "y", 0, (6, 4, 4), 4)])
 def test_band_exchange_plain_lands_the_collective_bands(nx, ny, axis, dim,
                                                         shape, depth):
-    """Each slab slot holds what the collective engine moves for the same
-    field, side and phase; the other slot keeps its fill, over several
-    blocks on the same slabs."""
+    """Each slot's halos hold what the collective engine moves for the same
+    field, side and phase, its middle the shard itself; the other slot
+    keeps its fill, over several blocks on the same slabs."""
     mesh = loopback(nx, ny)
     slabs = TK.BandSlabs(mesh, shape, depth, dim, fill=-3.5)
-    fill = torch.full((2,) + slabs.band_shape, -3.5)[0]
     for block in range(4):
         fields = band_inputs(mesh, shape, block)
         got = TK.halo_band_exchange_dma(fields, mesh=mesh, axis=axis,
                                         depth=depth, dim=dim,
                                         block_index=block, slabs=slabs)
+        assert got == slabs.bands(block % 2)
         for f in range(3):
             want = TD._exchange_halos(mesh, [s[f] for s in fields], axis,
                                       depth, dim)
             for s in range(len(fields)):
                 assert torch.equal(got[s][f][0], want[s][0])
                 assert torch.equal(got[s][f][1], want[s][1])
+                assert torch.equal(slabs.interior(block % 2)[s][f],
+                                   fields[s][f])
                 if block == 0:
-                    for side in range(2):
-                        assert torch.equal(slabs.slabs[s][f][side][1], fill)
+                    assert bool((slabs.extended(1)[s][f] == -3.5).all())
         slabs.check()
     assert slabs.epoch == 0   # the plain version counts no kernel epochs
+
+
+# (nx, ny, T): the step's meshes, x only, y only, and three hops a side
+LANDING_MESHES = MESHES + ((2, 1, 2), (1, 2, 2), (1, 2, 6))
+
+
+@pytest.mark.parametrize("mesh_case", LANDING_MESHES)
+def test_extended_landing_equals_the_collective_cat_bitwise(mesh_case):
+    """The remote_dma exchange lands each shard and its bands in K7's
+    persistent buffers: over four blocks (both slots) every extended slab
+    == the collective engine's `torch.cat` of the same phase, bit for bit,
+    and the slot a block did not write keeps the last block's slab."""
+    nx, ny, T = mesh_case
+    mesh = loopback(nx, ny)
+    dx, dy = (T if nx > 1 else 0), (T if ny > 1 else 0)
+    p = default_params(GRID[2], device="cpu")
+    blocks = {ex: TD._LocalBlock(mesh, p, T=T, dt=DT,
+                                 local_kernel="reference", y_tile=None,
+                                 overlap=True, exchange=ex)
+              for ex in ENGINES}
+    before = None
+    for k in range(4):
+        rng = np.random.default_rng(k)
+        u, v, w = (torch.from_numpy(rng.normal(size=GRID).astype(np.float32))
+                   for _ in range(3))
+        shards = TD.shard(mesh, u, v, w)
+        want = blocks["collective"]._exchange(shards, k, dx, dy)
+        got = blocks["remote_dma"]._exchange(shards, k, dx, dy)
+        assert all(torch.equal(a, b) for ga, wa in zip(got, want)
+                   for a, b in zip(ga, wa))
+        bufs = blocks["remote_dma"].buffers.bufs
+        if before is not None:
+            assert all(torch.equal(b[:, (k + 1) % 2], old)
+                       for b, old in zip(bufs, before))
+        before = [b[:, k % 2].clone() for b in bufs]
+
+
+def test_remote_dma_extend_hands_k1_the_persistent_buffers():
+    """The remote_dma phases return views of the block's own buffers (the
+    slab K1 reads is where K7 stored), slot block % 2, and run no
+    concatenation; the collective engine's phases do."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.add(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    u, v, w, p = inputs()
+    mesh = loopback(2, 2)
+    shards = TD.shard(mesh, u, v, w)
+    seen = {}
+    for ex in ENGINES:
+        block = TD._LocalBlock(mesh, p, T=2, dt=DT, local_kernel="fused",
+                               y_tile=None, overlap=True, exchange=ex)
+        for k in range(3):
+            with Ops() as ops:
+                ext = block._exchange(shards, k, 2, 2)
+            seen[ex] = ops.seen
+            if ex == "remote_dma":
+                for s, trio in enumerate(ext):
+                    for f, t in enumerate(trio):
+                        buf = block.buffers.bufs[s][f, k % 2]
+                        assert t.data_ptr() == buf.data_ptr()
+                        assert t.shape == buf.shape and t.is_contiguous()
+    assert "cat" not in seen["remote_dma"]
+    assert "cat" in seen["collective"]
+
+
+def test_band_tables_are_kept_per_slot_and_shape():
+    """A table is built once per (axis, slot, layout) and reused by the
+    blocks that follow, never for another slot, layout or shape."""
+    mesh = loopback(2, 2)
+    shape = (4, 6, 8)
+    slabs = TK.BandSlabs(mesh, shape, 2, 0)
+    fields = band_inputs(mesh, shape, 0)
+    t0 = slabs.table("x", 0, fields)
+    t1 = slabs.table("x", 1, fields)
+    assert t0 is slabs.table("x", 0, band_inputs(mesh, shape, 1))
+    assert t1 is not t0 and (t0.slot, t1.slot) == (0, 1)
+    assert t0.rows() is not None and t0.rows() != t1.rows()
+    inner = slabs.table("x", 0, slabs.interior(0))
+    assert inner.in_place and not t0.in_place and inner is not t0
+    # slot 1's interior rows passed for slot 0 are not in place, and are
+    # strided
+    rows = TK.BandSlabs(mesh, shape, 2, 1)
+    assert rows.table("y", 0, rows.interior(0)).in_place
+    with pytest.raises(ValueError, match="must be contiguous"):
+        rows.table("y", 0, rows.interior(1))
+    assert slabs.table("y", 0, fields) is not t0
+    assert not slabs.matches(mesh, (4, 6, 4), 2, 0)
+    assert not slabs.matches(loopback(1, 4), shape, 2, 0)
+    # a run on shards of a new shape builds new buffers, slabs and tables
+    p = default_params(8, device="cpu")
+    block = TD._LocalBlock(mesh, p, T=2, dt=DT, local_kernel="reference",
+                           y_tile=None, overlap=False, exchange="remote_dma")
+    u, v, w, _ = inputs()
+    block(TD.shard(mesh, u, v, w), 0)
+    first = (block.buffers, dict(block.slabs))
+    block(TD.shard(mesh, u, v, w), 1)
+    assert block.buffers is first[0] and block.slabs == first[1]
+    wide = TSA.stratus_fields(8, 16, 8, seed=1, device="cpu")
+    block(TD.shard(mesh, *wide), 0)
+    assert block.buffers is not first[0]
+    assert all(block.slabs[a] is not first[1][a] for a in "xy")
+    assert block.slabs["x"].shape == (4, 8, 8)
+    assert block.slabs["y"].shape == (8, 8, 8)
+
+
+def replay(slabs, table, fields):
+    """K7's copy loop over `table`'s rows, run on CPU memory: per row and
+    run, `run` floats from the source base plus offset to the row's
+    destination address (the kernel's addressing, without its threads)."""
+    import ctypes
+    for card, rows in table.rows().items():
+        shards = [s for s, d in enumerate(slabs.devices) if d == card]
+        bases = [f.data_ptr() for s in shards for f in fields[s]]
+        tile = 0
+        for row in rows:
+            r = dict(zip(TK.BAND_COLUMNS, row))
+            assert r["tile0"] == tile and r["arrive"] == 0
+            units = -(-r["runs"] * r["run"] // 4)
+            tile += -(-units // TK.BAND_TILE_UNITS)
+            for o in range(r["runs"]):
+                ctypes.memmove(
+                    r["dst"] + 4 * o * r["dst_stride"],
+                    bases[r["src"]] + 4 * (r["src_off"] + o * r["src_stride"]),
+                    4 * r["run"])
+
+
+@pytest.mark.parametrize("nx,ny,axis,dim,shape,depth", [
+    (2, 2, "x", 0, (4, 6, 8), 2), (2, 2, "y", 1, (4, 6, 8), 3),
+    (1, 4, "y", 1, (5, 3, 4), 7), (3, 1, "x", 0, (3, 4, 5), 7),
+    (2, 1, "x", 1, (4, 5, 4), 1), (1, 2, "y", 0, (6, 4, 4), 4),
+    (2, 2, "y", 0, (6, 5, 5), 2)])
+@pytest.mark.parametrize("in_place", [False, True])
+def test_band_table_rows_land_like_the_plain_version(nx, ny, axis, dim,
+                                                     shape, depth,
+                                                     in_place):
+    """The rows the kernel reads (sources, offsets, destinations, runs,
+    strides, tiles), replayed on the CPU, land every buffer of both slots
+    bit for bit as the plain version does; 16-byte moves are marked only
+    where Z is a multiple of 4."""
+    mesh = loopback(nx, ny)
+    got = TK.BandSlabs(mesh, shape, depth, dim, fill=-3.5)
+    want = TK.BandSlabs(mesh, shape, depth, dim, fill=-3.5)
+    for block in range(4):
+        slot = block % 2
+        fields = band_inputs(mesh, shape, 7 + block)
+        if in_place:
+            for sl in (got, want):
+                for own, new in zip(sl.interior(slot), fields):
+                    for a, b in zip(own, new):
+                        a.copy_(b)
+            src = (got.interior(slot), want.interior(slot))
+        else:
+            src = (fields, fields)
+        table = got.table(axis, slot, src[0])
+        assert table.in_place == in_place
+        replay(got, table, src[0])
+        TK._band_exchange_plain(src[1], want,
+                                want.table(axis, slot, src[1]))
+        assert all(torch.equal(a, b) for a, b in zip(got.buffers.bufs,
+                                                     want.buffers.bufs))
+        rows = [r for rs in table.rows().values() for r in rs]
+        assert len(rows) == len(table.msgs) + (0 if in_place
+                                                else 3 * nx * ny)
+        for r in (dict(zip(TK.BAND_COLUMNS, row)) for row in rows):
+            assert r["vec4"] == (r["run"] % 4 == 0
+                                 and r["src_stride"] % 4 == 0
+                                 and r["dst_stride"] % 4 == 0
+                                 and r["src_off"] % 4 == 0
+                                 and r["dst"] % 16 == 0)
+            assert r["vec4"] or shape[2] % 4
+
+
+
+def test_band_launch_plan_is_one_wave():
+    assert TK.band_launch_plan(10_000, 132, 6) == 792
+    assert TK.band_launch_plan(100, 132, 6) == 100
+    assert TK.band_launch_plan(1, 132, 8) == 1
+    with pytest.raises(ValueError, match="must be >= 1"):
+        TK.band_launch_plan(0, 132, 8)
+
+
+def test_block_masks_are_built_once():
+    """The interior masks and the overlap select of each shard are built
+    on the first block and reused by the next, for either local kernel;
+    a new shard shape builds its own."""
+    u, v, w, p = inputs()
+    mesh = loopback(2, 2)
+    for kernel in ("reference", "fused"):
+        block = TD._LocalBlock(mesh, p, T=2, dt=DT, local_kernel=kernel,
+                               y_tile=None, overlap=True,
+                               exchange="remote_dma")
+        shards = block(TD.shard(mesh, u, v, w), 0)[0]
+        masks = dict(block._masks)
+        block(shards, 1)
+        assert len(masks) == 4 and block._masks == masks
+        assert all(block._masks[k] is m for k, m in masks.items())
+        ext, own, sel = masks[(0, 4, 6)]
+        assert sel.shape == (4, 6, 1) and sel.dtype == torch.bool
+        if kernel == "fused":
+            assert [m.shape for m in ext] == [(8,), (10,)]
+            assert [m.dtype for m in own] == [torch.float32] * 2
+        else:
+            assert ext.shape == (8, 10, 1) and own.shape == (4, 6, 1)
+        block(TD.shard(mesh, *TSA.stratus_fields(8, 16, 8, seed=1,
+                                                 device="cpu")), 0)
+        assert len(block._masks) == 8
 
 
 def test_band_messages_follow_the_schedule():
@@ -610,6 +825,13 @@ def test_band_exchange_refusals():
            tuple(f[:, :5].contiguous() for f in fields[3])]
     with pytest.raises(ValueError, match="shard 3 has shape"):
         TK.halo_band_exchange_dma(odd, depth=1, dim=0, **kw)
+    strided = [tuple(f.transpose(0, 1).contiguous().transpose(0, 1)
+                     for f in trio) for trio in fields]
+    with pytest.raises(ValueError, match="shard 0 u must be contiguous"):
+        TK.halo_band_exchange_dma(strided, depth=1, dim=0, **kw)
+    with pytest.raises(ValueError, match="buffers of"):
+        TK.BandSlabs(mesh, (4, 6, 8), 2, 0,
+                     buffers=TK.ExtendedBuffers(mesh, (4, 6, 8), (1, 0)))
 
 
 def test_band_slabs_check_names_the_timeout():
