@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only k6            # K6's six passes' times
     python3 chip_smoke.py --only k8            # K8's time and a prefill's
     python3 chip_smoke.py --only k9            # K9's times and a prefill's
+    python3 chip_smoke.py --only stencil_serving   # phases 19-20 alone
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 
@@ -156,7 +157,32 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    distinct cards (peer stores over NVLink), bitwise equal to the
    loopback run; with one card it prints that it skipped.
 
-`--only distributed` runs phases 15-18 alone. A copy of the script in a
+19. drives the stencil serving tier on serve.py's own traffic at its full
+   shape: `StencilServingEngine` over slots of (64, 256, 64), T = 4, dt
+   0.005, batch 4, 8 requests of extents in [4, 64] x [4, 256] and 1-16
+   fused steps drawn as `launch.serve.stencil_requests` draws them; clean,
+   then under `SERVE_FAULT_PLAN` (a NaN poison that quarantines its slot, a
+   device loss that reshards 4 -> 1), the counts set to 0 just before each
+   run and read just after (K5, `advect_fused_batched` on K1's kernel, and
+   K4 once a mega-step each, no other kernel); every job's streamed states
+   and output == a sequential `advect_fused` of its unpadded fields on the
+   card, the faulted run's == the clean run's, bitwise; the health counters
+   and cache stats == a CPU run of the same jobs and plan (cropped to
+   `SERVE_MIRROR` slots: the fault logic depends on the schedule alone);
+20. the same on slots of the paper's Figs. 3 and 5 grid (512, 512, 64), 8
+   requests of extents in [256, 512] x [256, 512] and 1-4 fused steps (one
+   mega-launch covers 67M cells, as a main-path K1 pass); then times, at
+   batch 4: the mega-step (K5 + K4) by events, K5's and K4's device time
+   by `torch.profiler` beside their bounds, the host time to enqueue a
+   mega-step (`roofline.SERVING_LAUNCH_OVERHEAD_S`), the time to stream
+   the batch's states back, K5's plain version, `run()`'s wall time,
+   domains/s and domain-steps/s against the model, and the device's busy
+   share of a profiled `run()`.
+
+Each phase prints its seconds.
+
+`--only distributed` runs phases 15-18 alone. `--only stencil_serving`
+runs phases 19-20 alone. A copy of the script in a
 checkout from before K7's extended route skips phase 15 and times that
 checkout's K7, recv slabs and concatenation through the same entry points,
 so parent and change compare in one call.
@@ -211,18 +237,21 @@ from repro_torch.kernels.advection import ref as REF  # noqa: E402
 from repro_torch.kernels.attention import attention as A  # noqa: E402
 from repro_torch.kernels.attention.ref import mha_ref  # noqa: E402
 from repro_torch.kernels.ssm import ssm as SS  # noqa: E402
-from repro_torch.launch.serve import (random_params,  # noqa: E402
-                                      random_requests)
+from repro_torch.launch.serve import (STENCIL_DT,  # noqa: E402
+                                      STENCIL_SHAPES, random_params,
+                                      random_requests, stencil_requests)
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import blocks as BL  # noqa: E402
 from repro_torch.models.blocks import Ctx  # noqa: E402
 from repro_torch.pspec import tree_map  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.serving.stencil_engine import (  # noqa: E402
+    StencilRequest, StencilServingEngine)
 from repro_torch.launch.mesh import make_stencil_mesh  # noqa: E402
 from repro_torch.stencil import distributed as D  # noqa: E402
 from repro_torch.stencil import spec as SP  # noqa: E402
 from repro_torch.stencil.advection import (PAPER_GRIDS,  # noqa: E402
-                                           AdvectionDomain)
+                                           AdvectionDomain, stratus_fields)
 
 DT = 0.01
 MAIN_GRID = "67M"
@@ -283,7 +312,9 @@ REPLACES = {"advect_fused": "src/repro/kernels/advection/advection.py:404",
             "stencil_fused": "src/repro/kernels/advection/advection.py:677",
             "flash_attention": "src/repro/kernels/attention/attention.py:31",
             "selective_scan": "src/repro/kernels/ssm/ssm.py:39",
-            "band_exchange": "src/repro/kernels/advection/advection.py:939"}
+            "band_exchange": "src/repro/kernels/advection/advection.py:939",
+            "advect_fused_batched":
+                "src/repro/kernels/advection/advection.py:602"}
 # flash attention (K8): the reference's cases and block shapes
 # (tests/test_flash_attention.py), then Sq != Skv both ways and the serving
 # path's prompt shapes (40 q heads over 8 kv heads of 128)
@@ -374,6 +405,19 @@ BAND_BLOCKS = 4          # blocks in a row on the same slabs and counters
 BAND_FILL = -3.5         # what a recv slot holds before any block writes it
 DIST_MESH = (2, 2)       # the distributed path: the 67M grid on 4 shards
 DIST_BLOCKS = MAIN_SUBSTEPS // MAIN_T
+# the stencil serving tier: serve.py's traffic at its full shape
+# (`STENCIL_SHAPES[False]`, dt `STENCIL_DT`), then slots of the paper's
+# Figs. 3 and 5 grid, each clean and under the fault plan below; the CPU
+# run each is held to serves the same jobs cropped to `SERVE_MIRROR`
+SERVE_FAULT_PLAN = "nan_poison@1:slot=1;device_loss@2:reshard_to=1"
+SERVE_BATCH = 4
+SERVE_WIDE_BATCH = 8
+SERVE_REQUESTS = 8
+SERVE_MAX_NEW = 16
+SERVE_PAPER_SLOT = (512, 512, 64)
+SERVE_PAPER_REQUESTS = 8
+SERVE_PAPER_MAX_NEW = 4
+SERVE_MIRROR = (12, 16)
 
 
 class Checks:
@@ -2675,12 +2719,336 @@ def distributed_only(check: Checks, card: str) -> list:
     return records
 
 
+# ---------------------------------------------------------------------------
+# the stencil serving tier: K5 at B > 1 and K4 per slot
+# ---------------------------------------------------------------------------
+
+def mirror_requests(reqs, X: int, Y: int):
+    """The same jobs (uids, budgets, order) cropped to an (X, Y) slot: the
+    fault logic, and so the health counters and cache stats, depend on the
+    schedule alone, so a CPU run of the mirror at a small slot is the CPU
+    run of the same plan."""
+    return [StencilRequest(uid=r.uid, u=r.u[:X, :Y], v=r.v[:X, :Y],
+                           w=r.w[:X, :Y], n_steps=r.n_steps) for r in reqs]
+
+
+def fresh(reqs):
+    """Unserved copies of `reqs` (a run writes its requests' results)."""
+    return [StencilRequest(uid=r.uid, u=r.u, v=r.v, w=r.w,
+                           n_steps=r.n_steps) for r in reqs]
+
+
+def serve_counted(dom, reqs, batch: int, plan=None):
+    """One `StencilServingEngine.run` on `dom`'s device, the launch counts
+    set to 0 just before and read just after. Returns (engine, done,
+    launches, wall s)."""
+    eng = StencilServingEngine(dom, batch_size=batch, fault_plan=plan)
+    if dom.device != "cpu":
+        torch.cuda.synchronize()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    done = eng.run(fresh(reqs))
+    if dom.device != "cpu":
+        torch.cuda.synchronize()
+    return eng, done, all_counts(), time.perf_counter() - t0
+
+
+def sequential_equal(done, dom) -> bool:
+    """Every completed job's streamed states and `out` == a sequential
+    `K.advect_fused` of its unpadded fields on the card, bitwise."""
+    ok = True
+    for req in done.values():
+        if req.status != "done":
+            continue
+        u, v, w = REF.fields_from_numpy(req.u, req.v, req.w, device="cuda")
+        for state in req.states:
+            u, v, w = K.advect_fused(u, v, w, dom.params, T=dom.fuse_T,
+                                     dt=dom.dt)
+            ok &= all(np.array_equal(s, f.cpu().numpy())
+                      for s, f in zip(state, (u, v, w)))
+        ok &= len(req.states) == req.n_steps and all(
+            np.array_equal(a, b) for a, b in zip(req.out, req.states[-1]))
+    return ok
+
+
+def primed(dom, reqs, batch: int) -> StencilServingEngine:
+    """An engine of `batch` slots primed with the first jobs of `reqs`."""
+    eng = StencilServingEngine(dom, batch_size=batch)
+    for slot, req in enumerate(fresh(reqs)[:batch]):
+        eng._prime(slot, req)
+    return eng
+
+
+def guard_case(check: Checks, tag: str, eng) -> None:
+    """K4 on the engine's primed (B, X, Y, Z) batch == its plain version
+    bitwise, on the clean batch and with a NaN planted in slot 1 at an x
+    inside the slot's extent: the (B, X) flags must be 1 everywhere but
+    there. The launches are comparisons, outside any counted run."""
+    fields = (eng.u, eng.v, eng.w)
+    got = K.finite_guard(*fields)
+    clean_ok = (torch.equal(got, K._finite_guard_plain(*fields))
+                and bool((got == 1.0).all()))
+    slot = 1
+    Xr, Yr = eng._extent[slot]
+    x, y, z = Xr // 2, Yr - 1, eng.domain.Z // 2
+    eng.v[slot, x, y, z] = float("nan")
+    got = K.finite_guard(*fields)
+    want = torch.ones_like(got)
+    want[slot, x] = 0.0
+    nan_ok = (torch.equal(got, K._finite_guard_plain(*fields))
+              and torch.equal(got, want))
+    check(clean_ok and nan_ok, f"{tag}: K4 over the engine's {eng.B} x "
+          f"{tuple(eng.u.shape[1:])} batch == its plain version bitwise, "
+          f"clean (all 1) and with a NaN at slot {slot}, x {x} of its "
+          f"{Xr} (0 there alone)")
+
+
+def serving_case(check: Checks, tag: str, dom, reqs, batch: int):
+    """The clean run and the faulted run (`SERVE_FAULT_PLAN`) of `reqs` on
+    the card, each gated: K5 and K4 once a mega-step and no other kernel;
+    clean == sequential K1 bitwise; faulted == clean bitwise for every job
+    not quarantined; health and cache stats == the CPU run of the same
+    plan (`mirror_requests`). Returns the clean run's (engine, done,
+    launches, wall)."""
+    runs = {}
+    for plan in (None, SERVE_FAULT_PLAN):
+        eng, done, launches, wall = serve_counted(dom, reqs, batch, plan)
+        runs[plan] = (eng, done, launches, wall)
+        n = eng.megasteps_executed
+        what = f"{tag}, plan {plan or 'none'}"
+        print(f"stencil serving ({what}): {len(done)} jobs, {n} mega-steps "
+              f"({eng.steps_run} logical), batch {batch} -> {eng.B}, wall "
+              f"{wall:.4f} s ({len(done) / wall:.4f} domains/s), launches "
+              f"{ {k: v for k, v in launches.items() if v} }, cache "
+              f"{eng.cache_stats()}, health "
+              f"{ {k: v for k, v in eng.health().items() if k != 'plan'} }",
+              flush=True)
+        check(launches["advect_fused"] == n and launches["finite_guard"] == n
+              and all(v == 0 for k, v in launches.items()
+                      if k not in ("advect_fused", "finite_guard")),
+              f"{what}: K5 and K4 launched once a mega-step ({n}), no other "
+              f"kernel")
+        mirror = AdvectionDomain(*SERVE_MIRROR, dom.Z, variant="fused",
+                                 fuse_T=dom.fuse_T, dt=dom.dt, device="cpu")
+        cpu_eng = serve_counted(mirror, mirror_requests(reqs, *SERVE_MIRROR),
+                                batch, plan)[0]
+        check(eng.health() == cpu_eng.health()
+              and eng.cache_stats() == cpu_eng.cache_stats(),
+              f"{what}: health counters and cache stats == the CPU run of "
+              f"the same plan")
+    guard_case(check, tag, primed(dom, reqs, batch))
+    clean, faulted = runs[None][1], runs[SERVE_FAULT_PLAN][1]
+    check(sequential_equal(clean, dom), f"{tag}: every job's states and out "
+          f"== sequential K1 on the card, bitwise")
+    quarantined = runs[SERVE_FAULT_PLAN][0].health()["quarantined_uids"]
+    check(sorted(clean) == sorted(faulted) and len(quarantined) == 1
+          and all(all(np.array_equal(a, b) for a, b in
+                      zip(faulted[u].out, clean[u].out)) and
+                  len(faulted[u].states) == len(clean[u].states)
+                  for u in clean if u not in quarantined),
+          f"{tag}: the faulted run's outputs == the clean run's, bitwise "
+          f"(uid {quarantined} quarantined)")
+    return runs[None]
+
+
+def paper_requests(X: int, Y: int, Z: int):
+    """`SERVE_PAPER_REQUESTS` jobs on (X, Y, Z) slots: extents drawn in
+    [X/2, X] x [Y/2, Y] and budgets in [1, SERVE_PAPER_MAX_NEW] from
+    `np.random.default_rng(1)`, fields `stratus_fields(..., seed=i)`."""
+    rng = np.random.default_rng(1)
+    reqs = []
+    for i in range(SERVE_PAPER_REQUESTS):
+        Xr = int(rng.integers(X // 2, X + 1))
+        Yr = int(rng.integers(Y // 2, Y + 1))
+        u, v, w = (f.numpy() for f in stratus_fields(Xr, Yr, Z, seed=i,
+                                                     device="cpu"))
+        reqs.append(StencilRequest(uid=i, u=u, v=v, w=w, n_steps=int(
+            rng.integers(1, SERVE_PAPER_MAX_NEW + 1))))
+    return reqs
+
+
+def serving_timing(dom, reqs, launches: int, wall: float, n_done: int,
+                   n_states: int, card: str) -> dict:
+    """At B = `SERVE_BATCH` primed with the first jobs: the mega-step (K5
+    then K4 through the engine's cached launcher) and K5 alone by events;
+    K5's and K4's device time by `torch.profiler`; the host time to enqueue
+    a mega-step, and of the launch-plan lookup within it; the time to
+    stream the batch's states back; K5's plain version; and the busy share
+    of a profiled `run()`. K5's record times K5 alone."""
+    eng = primed(dom, reqs, SERVE_BATCH)
+    print(f"K5's plan at {SERVE_BATCH} x {(dom.X, dom.Y, dom.Z)}, "
+          f"T={dom.fuse_T}: " + k1_plan_text(K.fused_device_plan(
+              "cuda:0", dom.X, dom.Y, dom.Z, dom.fuse_T, SERVE_BATCH),
+              dom.fuse_T), flush=True)
+    step = eng.cache.get(eng._step_key(), eng._build_step)
+    args = (eng.u, eng.v, eng.w, REF.AdvectParams(*eng._p), eng.xm, eng.ym)
+    mega_ms = time_ms(lambda: step(*args))
+
+    def k5():
+        return K.advect_fused_batched(
+            eng.u, eng.v, eng.w, REF.AdvectParams(*eng._p), T=dom.fuse_T,
+            dt=dom.dt, y_tile=dom.y_tile, x_interior_mask=eng.xm,
+            y_interior_mask=eng.ym)
+
+    k5_ms = time_ms(k5)
+    k5_dev, k5_seen = profiled_kernels(lambda: step(*args),
+                                       "advect_ring_kernel", ("cuda:0",), 10)
+    k4_dev, k4_seen = profiled_kernels(lambda: step(*args),
+                                       "finite_guard_kernel", ("cuda:0",), 10)
+    k4_ms = time_ms(lambda: K.finite_guard(eng.u, eng.v, eng.w))
+    host = []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        step(*args)
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    host_ms = statistics.median(host) * 1e3
+    passes = K.fused_passes(dom.fuse_T)
+    looks = []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        for Tk in set(passes):
+            K._fused_block(dom.Y, dom.Z, Tk, dom.y_tile)
+        K.check_launch_grid((1, SERVE_BATCH, 1), "K1")
+        for Tk in passes:
+            K.fused_device_plan("cuda:0", dom.X, dom.Y, dom.Z, Tk,
+                                SERVE_BATCH, dom.y_tile)
+        looks.append(time.perf_counter() - t0)
+    plan_us = statistics.median(looks) * 1e6
+    crops = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for s in eng.slots.live_slots():
+            eng._crop(s)
+        crops.append((time.perf_counter() - t0) * 1e3)
+    crop_ms = statistics.median(crops)
+    crop_bytes = sum(3 * Xr * Yr * dom.Z * 4 for Xr, Yr in eng._extent)
+    ps = K._slot_params(REF.AdvectParams(*eng._p), SERVE_BATCH, dom.Z,
+                        eng.device)
+    plain_ms = time_ms(lambda: K._advect_fused_plain(
+        eng.u, eng.v, eng.w, ps, dom.fuse_T, dom.dt, eng.xm, eng.ym),
+        runs=3, warmup=1)
+    plain = K._advect_fused_plain(eng.u, eng.v, eng.w, ps, dom.fuse_T,
+                                  dom.dt, eng.xm, eng.ym)
+    got = k5()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+    del plain
+    B, (X, Y, Z) = SERVE_BATCH, (dom.X, dom.Y, dom.Z)
+    cells = B * X * Y * Z
+    # bytes: the batch read once and written once, each slot's parameter
+    # row and masks; operations: what this batch's masks leave to compute,
+    # 63 per live interior cell and the 2-op update of 3 fields, per step
+    k5_bytes = 6 * cells * 4 + B * (2 + 2 * Z) * 4 + B * (X + Y) * 4
+    live = sum(int((eng.xm[b] > 0).sum()) * int((eng.ym[b] > 0).sum())
+               for b in range(B)) * (Z - 2)
+    k5_ops = dom.fuse_T * live * (REF.flops_per_cell() + 6)
+    k4_bytes = R.guard_bytes_model(X, Y, Z, batch=B)
+    k5_bound, k5_by = bound_of(k5_bytes, k5_ops)
+    k4_bound = bound_of(k4_bytes, 3 * cells)[0]
+    prof = []
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as p:
+        t0 = time.perf_counter()
+        StencilServingEngine(dom, batch_size=SERVE_BATCH).run(fresh(reqs))
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in p.key_averages():
+        if getattr(e, "device_type", None) == cuda:
+            prof.append((e.key, getattr(e, "device_time_total", 0.0)))
+    busy_ms = sum(t for _, t in prof) / 1e3
+    kern_ms = sum(t for k, t in prof if "kernel" in k) / 1e3
+    copy_ms = sum(t for k, t in prof if "Memcpy" in k or "memcpy" in k) / 1e3
+    print(f"stencil serving at {B} x {(X, Y, Z)}, T={dom.fuse_T}: "
+          f"mega-step (K5 + K4) {mega_ms:.4f} ms by events, K5 alone "
+          f"{k5_ms:.4f} ms by events; K5 device "
+          f"{device_text(k5_dev)} ({k5_seen} of 10 seen), bound "
+          f"{k5_bound:.4f} ms by {k5_by} ({k5_bytes} B; {k5_ops} f32 ops), "
+          f"{k5_bound / k5_dev if k5_dev > 0 else float('nan'):.4f} of it by "
+          f"device time; K4 device {device_text(k4_dev)} ({k4_seen} seen), "
+          f"{k4_ms:.4f} ms by events, bound {k4_bound:.4f} ms "
+          f"({k4_bytes} B); host enqueue of a mega-step {host_ms:.4f} ms "
+          f"(median of {TIMED_RUNS}), of which K1's launch-plan lookup "
+          f"{plan_us:.2f} us (what a plan held by the launcher would save; "
+          f"the port's SERVING_LAUNCH_OVERHEAD_S "
+          f"is {R.SERVING_LAUNCH_OVERHEAD_S * 1e3:.4f} ms); streaming the "
+          f"batch's states back {crop_ms:.4f} ms ({crop_bytes} B, "
+          f"{crop_bytes / crop_ms / 1e6:.1f} GB/s); K5 plain version "
+          f"{plain_ms:.4f} ms; card {card}", flush=True)
+    print(f"stencil serving run() at {(X, Y, Z)} slots: {n_done} jobs, "
+          f"{n_states} fused steps streamed, in {wall:.4f} s "
+          f"({n_done / wall:.4f} domains/s measured, {n_states / wall:.4f} "
+          f"domain-steps/s, {launches} mega-steps; modelled "
+          f"{eng.modelled_throughput():.4f} domain-steps/s at batch {B}); a "
+          f"profiled run {prof_wall:.4f} s with {busy_ms:.4f} ms of device "
+          f"activity (kernels {kern_ms:.4f}, copies {copy_ms:.4f}): busy "
+          f"share {busy_ms / 1e3 / prof_wall:.4f}, kernels alone "
+          f"{kern_ms / 1e3 / prof_wall:.4f}; card {card}", flush=True)
+    return {"name": "advect_fused_batched", "route": "cuda",
+            "source": SOURCE["advect_fused"],
+            "replaces": REPLACES["advect_fused_batched"],
+            "launches": launches, "max_abs_err": err, "ms": k5_ms,
+            "plain_ms": plain_ms, "bound_ms": k5_bound, "bound_by": k5_by,
+            "library_ms": None, "device_ms": k5_dev if k5_dev > 0 else None}
+
+
+def stencil_serving_phases(check: Checks, card: str) -> list:
+    """The CLI's own traffic at its full shape, then paper-size slots, each
+    clean and under `SERVE_FAULT_PLAN` (`serving_case`); then the timing
+    at the paper-size slots (`serving_timing`)."""
+    X, Y, Z, T = STENCIL_SHAPES[False]
+    dom = AdvectionDomain(X, Y, Z, variant="fused", fuse_T=T, dt=STENCIL_DT,
+                          device="cuda")
+    reqs = stencil_requests(X, Y, Z, SERVE_REQUESTS, SERVE_MAX_NEW)
+    clean = serving_case(check, f"serve.py traffic, {(X, Y, Z)} slots", dom,
+                         reqs, SERVE_BATCH)[1]
+    for B in (SERVE_BATCH, SERVE_WIDE_BATCH):
+        print(f"K5's plan at {B} x {(X, Y, Z)}, T={T}: "
+              f"{k1_plan_text(K.fused_device_plan('cuda:0', X, Y, Z, T, B), T)}",
+              flush=True)
+    guard_case(check, f"serve.py traffic, batch {SERVE_WIDE_BATCH}",
+               primed(dom, reqs, SERVE_WIDE_BATCH))
+    eng, wide, launches, wall = serve_counted(dom, reqs, SERVE_WIDE_BATCH)
+    n = eng.megasteps_executed
+    print(f"stencil serving (serve.py traffic, batch {SERVE_WIDE_BATCH}): "
+          f"{n} mega-steps, wall {wall:.4f} s, launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    check(launches["advect_fused"] == n and launches["finite_guard"] == n
+          and sum(launches.values()) == 2 * n and sorted(wide) == sorted(clean)
+          and all(all(np.array_equal(a, b) for a, b in zip(x, y))
+                  for u in clean for x, y in zip(wide[u].states,
+                                                 clean[u].states)),
+          f"serve.py traffic at batch {SERVE_WIDE_BATCH}: K5 and K4 once a "
+          f"mega-step, every state == batch {SERVE_BATCH}'s, bitwise")
+    X, Y, Z = SERVE_PAPER_SLOT
+    dom = AdvectionDomain(X, Y, Z, variant="fused", fuse_T=T, dt=STENCIL_DT,
+                          device="cuda")
+    reqs = paper_requests(X, Y, Z)
+    eng, done, launches, wall = serving_case(
+        check, f"paper-size slots {(X, Y, Z)}", dom, reqs, SERVE_BATCH)
+    record = serving_timing(dom, reqs, launches["advect_fused"], wall,
+                            len(done), sum(len(r.states) for r in
+                                           done.values()), card)
+    check(record["max_abs_err"] == 0.0, "K5 at the paper-size batch == its "
+          "plain version, bitwise")
+    return [record]
+
+
+def phase(label: str, fn, *args, **kw):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"phase {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     only = sys.argv[2:] if sys.argv[1:2] == ["--only"] else None
     if sys.argv[1:] and only not in (["distributed"], ["ladder"], ["k6"],
-                                     ["k8"], ["k9"]):
-        print("usage: chip_smoke.py [--only distributed|ladder|k6|k8|k9]",
-              file=sys.stderr)
+                                     ["k8"], ["k9"], ["stencil_serving"]):
+        print("usage: chip_smoke.py [--only distributed|ladder|k6|k8|k9|"
+              "stencil_serving]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -2707,44 +3075,54 @@ def main() -> int:
         return k8_compare(card)
     if only == ["k9"]:
         return k9_compare(card)
+    if only == ["stencil_serving"]:
+        return finish(check, phase("stencil serving", stencil_serving_phases,
+                                   check, card), card, t0)
     if only:
         return finish(check, distributed_only(check, card), card, t0)
-    small_shape_phase(check)
-    spec_small_phase(check)
-    attention_small_phase(check)
-    scan_small_phase(check)
-    band_small_phase(check)
-    dom, fields, out, launches, k1_err, k4_err = main_path_phase(check)
-    ladder = ladder_path_phase(check, fields)
-    spec_runs = spec_path_phase(check, fields)
-    records = timing_phase(check, dom, fields, out, launches, k1_err, k4_err,
-                           ladder)
-    records.append(spec_timing(spec_runs))
-    k7_launches, mesh, dist_out, dist_runs = distributed_path_phase(
-        check, fields, out)
-    records.append(band_timing(mesh, fields, k7_launches, dist_runs, card))
-    cross_card_phase(check, fields, dist_out, card)
+    phase("1 small shapes", small_shape_phase, check)
+    phase("4 spec small shapes", spec_small_phase, check)
+    phase("7 attention small shapes", attention_small_phase, check)
+    phase("11 scan small shapes", scan_small_phase, check)
+    phase("15 K7 small shapes", band_small_phase, check)
+    dom, fields, out, launches, k1_err, k4_err = phase(
+        "2 main path", main_path_phase, check)
+    ladder = phase("3 ladder path", ladder_path_phase, check, fields)
+    spec_runs = phase("5 spec path", spec_path_phase, check, fields)
+    records = phase("6 timing", timing_phase, check, dom, fields, out,
+                    launches, k1_err, k4_err, ladder)
+    records.append(phase("6 spec timing", spec_timing, spec_runs))
+    k7_launches, mesh, dist_out, dist_runs = phase(
+        "16 distributed path", distributed_path_phase, check, fields, out)
+    records.append(phase("17 K7 timing", band_timing, mesh, fields,
+                         k7_launches, dist_runs, card))
+    phase("18 across cards", cross_card_phase, check, fields, dist_out, card)
     del dom, fields, out, spec_runs, dist_out, dist_runs
     torch.cuda.empty_cache()
-    cfg, params, k8_launches = serving_phase(
-        check, SERVE_ARCH, ("flash_attention", "flash_attention_tc"))
-    prefill_gate_phase(check, cfg, params, "flash_attention",
-                       fixed_f32_limit(PREFILL_F32_TOL), PREFILL_BF16_REL_TOL,
-                       bf16_kernel="flash_attention_tc")
+    records += phase("19-20 stencil serving", stencil_serving_phases, check,
+                     card)
+    torch.cuda.empty_cache()
+    cfg, params, k8_launches = phase(
+        "8 qwen serving", serving_phase, check, SERVE_ARCH,
+        ("flash_attention", "flash_attention_tc"))
+    phase("9 qwen prefill gate", prefill_gate_phase, check, cfg, params,
+          "flash_attention", fixed_f32_limit(PREFILL_F32_TOL),
+          PREFILL_BF16_REL_TOL, bf16_kernel="flash_attention_tc")
     del params
     torch.cuda.empty_cache()
-    k8 = attention_timing(k8_launches, card)
+    k8 = phase("10 K8 timing", attention_timing, k8_launches, card)
     check(k8["within_bf16_bound"], "K8 at the timed shape == plain within "
           "bf16_bound")
     records.append(k8)
-    cfg, params, k9_serve = serving_phase(check, SSM_ARCH,
-                                          ("selective_scan",))
-    ssm_layer_gate_phase(check, cfg, params)
-    k9_prefill = prefill_gate_phase(check, cfg, params, "selective_scan",
-                                    witness_f32_limit,
-                                    SSM_PREFILL_BF16_REL_TOL)
+    cfg, params, k9_serve = phase("12 ssm serving", serving_phase, check,
+                                  SSM_ARCH, ("selective_scan",))
+    phase("13 ssm layer gate", ssm_layer_gate_phase, check, cfg, params)
+    k9_prefill = phase("13 ssm prefill gate", prefill_gate_phase, check, cfg,
+                       params, "selective_scan", witness_f32_limit,
+                       SSM_PREFILL_BF16_REL_TOL)
     del params
     torch.cuda.empty_cache()
+    t_k9 = time.perf_counter()
     scan_attrs_lines(card)
     for shape, launches, path in (
             (SCAN_TIMED, k9_prefill, f"one {PREFILL_TOKENS}-token prefill"),
@@ -2755,6 +3133,8 @@ def main() -> int:
               f"{SCAN_TOL} x max(1, max |plain|)")
         records.append(k9)
     k9_sweep(check, card)
+    print(f"phase 14 K9 timing: {time.perf_counter() - t_k9:.1f} s",
+          flush=True)
     return finish(check, records, card, t0)
 
 

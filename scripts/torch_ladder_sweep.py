@@ -6,9 +6,12 @@
 Times `advect_blocked` (K3) and `advect_dataflow` / `advect_wide` (K2) with
 `fuse_update=True` at the paper's 67M grid (1024, 1024, 64) over y-tiles
 (blocks per SM) and, for K2, x-chunk lengths (blocks per launch), with CUDA
-events (median of 10 after warm-up). Prints the card's name and power limit
-first and one line per configuration. Correctness is `chip_smoke.py`'s job;
-this script only measures. Exits nonzero without a CUDA device.
+events (median of 10 after warm-up). Each line prints the launch plan the
+wrapper runs for the configuration (`rung_device_plan`: a tile taller than
+the rung's own runs as equal sub-tiles, so several given tiles may run the
+same plan), not the tile it was given. Prints the card's name and power
+limit first. Correctness is `chip_smoke.py`'s job; this script only
+measures. Exits nonzero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -59,17 +62,20 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name in ("advect_blocked", "advect_dataflow", "advect_wide"):
         for y_tile in Y_TILES:
-            _, _, n_ty = K._grid_geometry(Y, y_tile, 1)
-            slab = K.fused_register_bytes(1, Y, Z, 4, y_tile=y_tile)
             chunks = (None,) if name == "advect_blocked" else X_CHUNKS
             for x_chunk in chunks:
-                blocks = n_ty * (X if x_chunk is None else -(-X // x_chunk))
+                plan = K.rung_device_plan("cuda", name, X, Y, Z,
+                                          y_tile=y_tile, x_chunk=x_chunk)
                 kw = {} if x_chunk is None else {"x_chunk": x_chunk}
                 ms = time_ms(lambda: K._advect_rung_cuda(
                     name, u, v, w, p, y_tile, True, DT, **kw))
                 print(f"{name} y_tile={y_tile} x_chunk={x_chunk}: {ms:.4f} "
-                      f"ms per launch; {blocks} blocks of {slab} B on {sms} "
-                      f"SMs", flush=True)
+                      f"ms per launch; runs TY={plan.TY} (slab {plan.S} "
+                      f"rows), CX={plan.CX}, grid {plan.grid} "
+                      f"({plan.grid[0] * plan.grid[1]} blocks of "
+                      f"{plan.threads} threads, {plan.shared_bytes} B, "
+                      f"{plan.blocks_per_sm} an SM) on {sms} SMs",
+                      flush=True)
     return 0
 
 

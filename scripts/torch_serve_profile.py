@@ -12,9 +12,11 @@ decode steps of the batch. For each window it prints the host wall time
 (ending in a synchronise), the time of every kernel summed (kernel rows
 only, not the operator rows that launched them), their ratio (the
 device's busy share; kernels run on one stream), the share of the weight
-casts, the matrix products and K8, and the kernels that hold the most
-time; then the decode steps again without the profiler. Needs a CUDA
-device.
+casts, the matrix products, K8 (the bf16 tensor-core kernel
+`flash_wgmma_kernel` and the f32 `flash_fwd_kernel`) and K9
+(`selective_scan_chunk_kernel`, with `--arch falcon-mamba-7b`), and the
+kernels that hold the most time; then the decode steps again without the
+profiler. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -38,7 +40,9 @@ from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
 CLASSES = (("bf16 casts of f32 weights", ("bfloat16_copy",)),
            ("matrix products", ("nvjet", "gemm", "gemv", "cutlass", "sm90")),
-           ("flash attention (K8)", ("flash_fwd_kernel",)))
+           ("flash attention (K8)", ("flash_wgmma_kernel",
+                                     "flash_fwd_kernel")),
+           ("selective scan (K9)", ("selective_scan_chunk_kernel",)))
 
 
 def device_us(evt) -> float:

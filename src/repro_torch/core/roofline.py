@@ -10,8 +10,9 @@ Hopper architecture white paper: data sheet, not measured. Measured times
 live in PERF.md beside the card's name and power limit. The wire is NVLink
 between distinct cards (`NVLINK_BW`, each way) and device memory on a
 loopback mesh, whose shards share one card (`LOOPBACK_BW`: each byte is
-read and written once). The serving models of the reference wait for the
-slice that ports that tier.
+read and written once). The serving models (`serving_max_batch`,
+`serving_throughput_model`) price the stencil serving engine's mega-step on
+the card.
 """
 from __future__ import annotations
 
@@ -31,6 +32,15 @@ SMEM_PER_SM = 233_472        # shared memory the resident blocks of one SM
 SMEM_RESERVED_PER_BLOCK = 1_024   # ... less 1 KB the system keeps per block
 NVLINK_BW = 450e9            # bytes/s each way to the other cards (NVLink 4)
 LOOPBACK_BW = HBM_BW / 2     # a band moved within one card: read + write
+MAX_GRID_Y = 65535           # CUDA's limit on a launch grid's y dimension,
+                             # the slot axis of K5 and K4
+
+# the host's time to enqueue one serving mega-step's launches (K5, then K4,
+# with the engine's launch plan held), which the serving model charges once
+# per mega-step whatever the batch: 0.2151 ms, the median of 20 enqueues at
+# 4 x (512, 512, 64), T = 4, printed by chip_smoke.py's stencil serving
+# phase on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (PERF.md)
+SERVING_LAUNCH_OVERHEAD_S = 215.1e-6
 
 
 @dataclass
@@ -238,6 +248,80 @@ def integrity_bytes_model(X: int, Y: int, Z: int, *, nx: int = 1,
 
 
 GUARD_FLAG_ITEMSIZE = 4   # the finite-guard flag output is f32
+
+
+def serving_slot_bytes_model(X: int, Y: int, Z: int,
+                             itemsize: int = 4) -> int:
+    """Device bytes one slot of the stencil serving engine holds during a
+    mega-step: three copies of its three (X, Y, Z) fields (the batch, the
+    launch's outputs and the rollback snapshot), its x and y interior masks
+    (f32), its parameter row (2 + 2Z words) and its X guard flags (f32)."""
+    if min(X, Y, Z) < 1:
+        raise ValueError(f"extents must be >= 1, got {(X, Y, Z)}")
+    return (9 * X * Y * Z * itemsize + (X + Y) * 4 + (2 + 2 * Z) * itemsize
+            + X * GUARD_FLAG_ITEMSIZE)
+
+
+def serving_max_batch(slot_bytes: int, *,
+                      device_budget: int = HBM_PER_CHIP) -> int:
+    """Largest batch one mega-launch of the serving engine can carry on the
+    card. The TPU's bound was the VMEM ring of every resident slot; K5 keeps
+    no ring per slot on chip (the slot is a dimension of the launch grid, its
+    blocks run one after another through the SMs), so on Hopper two things
+    bind: the batch's buffers in device memory (`slot_bytes` a slot,
+    `serving_slot_bytes_model`, against `device_budget`) and the launch
+    grid's slot axis (`MAX_GRID_Y`, `kernels.advection.check_launch_grid`).
+    Past this `serving_throughput_model` refuses rather than extrapolating."""
+    if slot_bytes < 1:
+        raise ValueError(f"slot_bytes must be >= 1, got {slot_bytes}")
+    if slot_bytes > device_budget:
+        raise ValueError(
+            f"one slot's device buffers ({slot_bytes} B) already exceed the "
+            f"device-memory budget ({device_budget} B); shrink the slot "
+            "shape")
+    return min(device_budget // slot_bytes, MAX_GRID_Y)
+
+
+def serving_throughput_model(batch: int, *, hbm_bytes_per_domain: float,
+                             slot_bytes: int,
+                             exposed_wire_s_per_domain: float = 0.0,
+                             launch_overhead_s: float =
+                             SERVING_LAUNCH_OVERHEAD_S,
+                             device_budget: int = HBM_PER_CHIP,
+                             hbm_bw: float = HBM_BW) -> float:
+    """Domains/s of a `batch`-slot mega-launch serving step, the reference's
+    formula:
+
+        step_s    = launch_overhead_s
+                    + batch * (hbm_bytes / hbm_bw + exposed_wire_s)
+        domains/s = batch / step_s
+
+    One mega-step pays the fixed host cost of its launches once, then
+    streams every slot's pass (slots share nothing) plus each slot's
+    exposed wire seconds (0 on one card). Amortising the fixed cost makes
+    this strictly increasing in `batch` until `serving_max_batch` binds,
+    where it refuses (ValueError)."""
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    if hbm_bytes_per_domain <= 0:
+        raise ValueError(f"hbm_bytes_per_domain must be > 0, got "
+                         f"{hbm_bytes_per_domain}")
+    if exposed_wire_s_per_domain < 0:
+        raise ValueError(f"exposed_wire_s_per_domain must be >= 0, got "
+                         f"{exposed_wire_s_per_domain}")
+    if launch_overhead_s <= 0:
+        raise ValueError(f"launch_overhead_s must be > 0, got "
+                         f"{launch_overhead_s}")
+    max_b = serving_max_batch(slot_bytes, device_budget=device_budget)
+    if batch > max_b:
+        raise ValueError(
+            f"batch {batch} exceeds the serving bound {max_b}: "
+            f"{slot_bytes} B of device buffers a slot against a "
+            f"{device_budget} B budget, and at most {MAX_GRID_Y} slots in "
+            "the launch grid")
+    step_s = launch_overhead_s + batch * (
+        hbm_bytes_per_domain / hbm_bw + exposed_wire_s_per_domain)
+    return batch / step_s
 
 
 def guard_bytes_model(X: int, Y: int, Z: int, *, batch: int = 1,

@@ -53,14 +53,13 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import _build
-from repro_torch.core.roofline import (SMEM_PER_BLOCK, SMEM_PER_SM,
-                                       SMEM_RESERVED_PER_BLOCK)
+from repro_torch.core.roofline import (MAX_GRID_Y, SMEM_PER_BLOCK,
+                                       SMEM_PER_SM, SMEM_RESERVED_PER_BLOCK)
 from repro_torch.kernels.advection.ref import (AdvectParams, pw_advect_ref,
                                                pw_step_ref)
 from repro_torch.launch.mesh import dma_neighbor_coords
 
 TILINGS = ("grid", "host")
-MAX_GRID_Y = 65535      # CUDA's limit on a launch grid's second dimension
 MAX_GRID = (2 ** 31 - 1, MAX_GRID_Y, 65535)   # CUDA's limits on (x, y, z)
 # the slab cells a planned tile of K1 (`csrc/advect_fused.cu`) aims at; its
 # builds are `_build.K1_MAX_T` and `_build.K1_BUILDS`
@@ -653,11 +652,10 @@ def _slot_params(p: AdvectParams, B: Optional[int], Z: int,
 
 
 def _advect_fused_plain(u, v, w, p: AdvectParams, T: int, dt: float,
-                        xm, ym, y_tile=None):
+                        xm, ym):
     """Plain PyTorch version of the fused kernel: T masked Euler steps of
-    the reference over (B, X, Y, Z) fields. `y_tile` is taken and ignored,
-    since tiled and untiled results are equal by contract."""
-    del y_tile
+    the reference over (B, X, Y, Z) fields (untiled: tiled and untiled
+    results are equal by contract)."""
     X = u.shape[-3]
     j = torch.arange(X, device=u.device)
     x_ok = (j >= 1) & (j <= X - 2) & (xm > 0.0)
@@ -793,8 +791,11 @@ def advect_fused_batched(u, v, w, p: AdvectParams, *, T: int = 4,
     xm = _mask(x_interior_mask, X, B, "x_interior_mask", u.device)
     ym = _mask(y_interior_mask, Y, B, "y_interior_mask", u.device)
     ps = _slot_params(p, B, Z, u.device)
-    run = _advect_fused_cuda if u.is_cuda else _advect_fused_plain
-    ou, ov, ow = run(u, v, w, ps, T, float(dt), xm, ym, y_tile)
+    if u.is_cuda:
+        ou, ov, ow = _advect_fused_cuda(u, v, w, ps, T, float(dt), xm, ym,
+                                        y_tile)
+    else:
+        ou, ov, ow = _advect_fused_plain(u, v, w, ps, T, float(dt), xm, ym)
     if guard:
         return ou, ov, ow, finite_guard(ou, ov, ow)
     return ou, ov, ow

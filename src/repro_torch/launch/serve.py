@@ -1,9 +1,11 @@
 """Serving entry point: the continuous-batching token engine on random
-weights.
+weights, or forecast jobs through the stencil serving engine.
 
     python -m repro_torch.launch.serve --arch qwen2.5-14b --requests 8
     python -m repro_torch.launch.serve --arch falcon-mamba-7b --requests 8
     python -m repro_torch.launch.serve --smoke --device cpu
+    python -m repro_torch.launch.serve --stencil --smoke --device cpu \
+        --fault-plan "nan_poison@1:slot=1;device_loss@2:reshard_to=1"
 
 The port of the token path of `repro.launch.serve`: the same arguments and
 defaults, the same random prompts (`np.random.default_rng(0)`), weights
@@ -13,9 +15,17 @@ reference's default `--arch qwen3-32b` needs about 131 GB of f32 weights,
 more than one 80 GB card holds; `qwen2.5-14b` (59 GB) and `falcon-mamba-7b`
 (28 GB) fit. The engine runs the config's `attention_impl` (`chunked` for
 both), so the CLI launches neither flash attention (K8) nor the selective
-scan (K9); `chip_smoke.py` serves with `attention_impl="pallas"`. `--stencil`
-(forecast serving) waits for slice D and `--ckpt-dir` (trained weights)
-for slice G2 (ROADMAP Queue 1).
+scan (K9); `chip_smoke.py` serves with `attention_impl="pallas"`.
+`--ckpt-dir` (trained weights) waits for slice G2 (ROADMAP Queue 1).
+
+`--stencil` serves forecast jobs instead of tokens
+(`serving.stencil_engine`): slots of (64, 256, 64) at T = 4, or (12, 16, 64)
+at T = 2 with `--smoke`, dt 0.005, the reference's requests (extents and
+budgets from `np.random.default_rng(0)`, fields `stratus_fields(...,
+seed=i)`), `--max-new` bounding each job's fused steps and `--fault-plan`
+injecting a `serving.faults.FaultPlan` (``kind@step[:key=val,...]``
+clauses joined by ``;``) whose recovery counters print as the health
+surface. `--lose-device-at` is the deprecated one-fault alias.
 """
 from __future__ import annotations
 
@@ -30,6 +40,13 @@ from repro_torch import pspec
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import model as M
 from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.serving.faults import Fault, FaultPlan
+from repro_torch.serving.stencil_engine import (StencilRequest,
+                                                StencilServingEngine)
+from repro_torch.stencil.advection import AdvectionDomain, stratus_fields
+
+STENCIL_SHAPES = {True: (12, 16, 64, 2), False: (64, 256, 64, 4)}  # smoke?
+STENCIL_DT = 0.005
 
 
 def random_requests(cfg, n_requests: int, max_new: int,
@@ -51,25 +68,106 @@ def random_params(cfg, device, seed: int = 0):
     return pspec.init_params(M.param_specs(cfg, layout), gen)
 
 
+def stencil_requests(X: int, Y: int, Z: int, n_requests: int,
+                     max_new: int, seed: int = 0) -> List[StencilRequest]:
+    """The reference's forecast traffic: extents in [4, X] x [4, Y] and
+    budgets in [1, max_new] from `np.random.default_rng(seed)`, the fields
+    of job i `stratus_fields(Xr, Yr, Z, seed=i)` on the host."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n_requests):
+        Xr = int(rng.integers(4, X + 1))
+        Yr = int(rng.integers(4, Y + 1))
+        u, v, w = (f.numpy() for f in stratus_fields(Xr, Yr, Z, seed=i,
+                                                     device="cpu"))
+        reqs.append(StencilRequest(
+            uid=i, u=u, v=v, w=w,
+            n_steps=int(rng.integers(1, max_new + 1))))
+    return reqs
+
+
+def stencil_plan(fault_plan: Optional[str],
+                 lose_device_at: Optional[int]) -> Optional[FaultPlan]:
+    """`--fault-plan`, or the deprecated `--lose-device-at` alias."""
+    if fault_plan is not None:
+        if lose_device_at is not None:
+            raise SystemExit("--lose-device-at is a deprecated alias for "
+                             "--fault-plan; pass only one")
+        return FaultPlan.parse(fault_plan)
+    if lose_device_at is not None:
+        print("[serve] --lose-device-at is deprecated; use --fault-plan "
+              f'"device_loss@{lose_device_at}"')
+        return FaultPlan((Fault("device_loss", at_step=lose_device_at),))
+    return None
+
+
+def _run_stencil(args) -> None:
+    X, Y, Z, T = STENCIL_SHAPES[args.smoke]
+    dom = AdvectionDomain(X, Y, Z, variant="fused", fuse_T=T, dt=STENCIL_DT,
+                          device=args.device)
+    plan = stencil_plan(args.fault_plan, args.lose_device_at)
+    engine = StencilServingEngine(dom, batch_size=args.batch_size,
+                                  fault_plan=plan)
+    reqs = stencil_requests(X, Y, Z, args.requests, args.max_new)
+    t0 = time.time()
+    done = engine.run(reqs)
+    dt_s = time.time() - t0
+    steps = sum(len(r.states) for r in done.values() if r.states)
+    stats = engine.cache_stats()
+    print(f"[serve] {len(done)} forecast domains, {steps} fused steps "
+          f"(T={T}) in {dt_s:.1f}s; executable cache "
+          f"hits={stats['hits']} misses={stats['misses']} "
+          f"evictions={stats['evictions']}")
+    # the model prices one fused step of every slot a mega-step, so its
+    # "domains/s" are domain-steps a second: the measured figure beside it
+    # is the same unit, fused steps over the wall time
+    print(f"[serve] modelled serving throughput at batch={engine.B}: "
+          f"{engine.modelled_throughput():.1f} domains/s; measured "
+          f"{steps / dt_s:.1f} domains/s (both domain-steps/s; "
+          f"{len(done) / dt_s:.1f} finished jobs/s) on {engine.device}")
+    h = engine.health()
+    print(f"[serve] health: faults={h['faults_injected']} "
+          f"retries={h['retries']} quarantines={h['quarantines']} "
+          f"rollbacks={h['rollbacks']} degradations={h['degradations']} "
+          f"reshards={h['reshards']} exchange={h['exchange']}")
+    for t_line in h["transitions"]:
+        print(f"  [health] {t_line}")
+    for uid in sorted(done)[:4]:
+        r = done[uid]
+        if r.status == "quarantined":
+            print(f"  job {uid}: QUARANTINED ({r.error})")
+            continue
+        print(f"  job {uid}: extent {r.out[0].shape}, {len(r.states)} "
+              f"streamed states, |u|max={float(np.abs(r.out[0]).max()):.3f}")
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-32b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--stencil", action="store_true",
                     help="serve batched advection-forecast jobs instead of "
-                         "tokens (waits for slice D)")
+                         "tokens")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch-size", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--ckpt-dir", default=None,
                     help="serve trained weights (waits for slice G2)")
+    ap.add_argument("--fault-plan", default=None,
+                    help="(--stencil) deterministic fault schedule, e.g. "
+                         "'nan_poison@1:slot=1;device_loss@2:reshard_to=1' "
+                         "(serving.faults.FaultPlan.parse grammar)")
+    ap.add_argument("--lose-device-at", type=int, default=None,
+                    help="(--stencil) deprecated alias for --fault-plan "
+                         "'device_loss@K': a device loss after this many "
+                         "mega-steps, resharding to half the slots")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     if args.stencil:
-        raise NotImplementedError("--stencil (forecast serving) waits for "
-                                  "slice D (ROADMAP Queue 1)")
+        _run_stencil(args)
+        return
     if args.ckpt_dir:
         raise NotImplementedError("--ckpt-dir (checkpoint restore) waits for "
                                   "slice G2 (ROADMAP Queue 1)")

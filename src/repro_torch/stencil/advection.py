@@ -10,8 +10,10 @@ A (mesh_nx, mesh_ny) configuration also prices the 2D-decomposed
 distributed step (`stencil.distributed`): the per-shard pass, the depth-T
 exchange's wire bytes and, through `exchange` / `overlap` / `n_blocks`, how
 much of that exchange the engine hides behind the interior pass
-(`roofline_terms().collective_exposed_s`). Batch and serving accounting
-wait for the slice that ports that tier.
+(`roofline_terms().collective_exposed_s`). `batch` prices B independent
+domains of this shape packed into one mega-launch, the stencil serving
+engine's (`serving.stencil_engine`): the flops, bytes and wire accounting
+scale by it, and `serving_throughput` prices the packed launch in domains/s.
 """
 from __future__ import annotations
 
@@ -92,6 +94,10 @@ class AdvectionDomain:
                                       # accounting below
     n_blocks: int = 1                 # substep-blocks per pipelined
                                       # make_distributed_run (1 = a step)
+    batch: int = 1                    # serving slots: independent domains
+                                      # of this shape in one mega-launch;
+                                      # accounting only (step() stays one
+                                      # domain)
 
     def __post_init__(self):
         if self.exchange not in ("collective", "remote_dma"):
@@ -99,6 +105,8 @@ class AdvectionDomain:
                              f"'remote_dma', got {self.exchange!r}")
         if self.n_blocks < 1:
             raise ValueError(f"n_blocks must be >= 1, got {self.n_blocks}")
+        if self.batch < 1:
+            raise ValueError(f"batch must be >= 1, got {self.batch}")
         if self.variant not in VARIANTS:
             raise ValueError(f"variant must be one of {VARIANTS}, got "
                              f"{self.variant!r}")
@@ -171,7 +179,8 @@ class AdvectionDomain:
 
     def flops_per_step(self) -> int:
         cells = (self.X - 2) * (self.Y - 2) * (self.Z - 2)
-        return cells * REF.flops_per_cell() * self.substeps_per_step()
+        return (cells * REF.flops_per_cell() * self.substeps_per_step()
+                * self.batch)
 
     def _model_variant(self) -> str:
         return "pointwise" if self.variant == "reference" else self.variant
@@ -187,8 +196,9 @@ class AdvectionDomain:
         """Modelled device-memory bytes per step() call (fused: per T-step
         pass) on the configured path: in-grid or host tiling, and the Euler
         update in the kernel (`fused`, `fuse_update`) or as a separate
-        `f + dt*s` pass (always separate for `reference`)."""
-        return self._hbm_bytes_pass(self.X, self.Y)
+        `f + dt*s` pass (always separate for `reference`). A `batch` > 1
+        charges every packed slot's pass: slots share nothing."""
+        return self._hbm_bytes_pass(self.X, self.Y) * self.batch
 
     def shard_shape(self) -> Tuple[int, int]:
         """Owned (Xl, Yl) per-shard dims on the (mesh_nx, mesh_ny) mesh."""
@@ -208,14 +218,15 @@ class AdvectionDomain:
         Xl, Yl = self.shard_shape()
         T = self.substeps_per_step()
         return self._hbm_bytes_pass(Xl + (2 * T if self.mesh_nx > 1 else 0),
-                                    Yl + (2 * T if self.mesh_ny > 1 else 0))
+                                    Yl + (2 * T if self.mesh_ny > 1 else 0)
+                                    ) * self.batch
 
     def halo_wire_bytes_per_step(self) -> int:
         """Per-shard wire bytes of the one depth-T exchange a distributed
-        step performs (zero on a 1x1 mesh)."""
+        step performs (zero on a 1x1 mesh), per packed batch slot."""
         return R.halo_wire_bytes_model(self.X, self.Y, self.Z, self.itemsize,
                                        nx=self.mesh_nx, ny=self.mesh_ny,
-                                       T=self.substeps_per_step())
+                                       T=self.substeps_per_step()) * self.batch
 
     def _interior_fraction(self) -> float:
         Xl, Yl = self.shard_shape()
@@ -265,7 +276,7 @@ class AdvectionDomain:
             return 0
         return K.vmem_halo_bytes_model(
             self.X, self.Y, self.Z, self.itemsize, self._model_variant(),
-            T=self.substeps_per_step(), y_tile=self.run_y_tile)
+            T=self.substeps_per_step(), y_tile=self.run_y_tile) * self.batch
 
     def vmem_register_bytes(self) -> int:
         """On-chip ring bytes of the configuration, the reference's model
@@ -273,10 +284,12 @@ class AdvectionDomain:
         keeps its ring in registers and sizes its shared planes itself,
         `advection.fused_shared_bytes`). `wide`'s slab has the 1-row halo
         of `dataflow`, where the reference sizes its TPU 8-row sublane
-        halo."""
+        halo. One ring per packed batch slot, as the reference counts it
+        (K5 runs the slots as grid blocks, so the card never holds them all;
+        `serving_slot_bytes` is what binds the batch)."""
         depth = self.fuse_T if self.variant == "fused" else 1
         return K.fused_register_bytes(depth, self.Y, self.Z, self.itemsize,
-                                      y_tile=self.run_y_tile)
+                                      y_tile=self.run_y_tile) * self.batch
 
     def guard_bytes_per_step(self) -> int:
         """Extra device-memory bytes of the finite-guard pass
@@ -284,5 +297,24 @@ class AdvectionDomain:
         if self.variant != "fused":
             raise ValueError("the finite guard rides the fused kernel; "
                              f"variant={self.variant!r} has no guard path")
-        return R.guard_bytes_model(self.X, self.Y, self.Z,
+        return R.guard_bytes_model(self.X, self.Y, self.Z, batch=self.batch,
                                    itemsize=self.itemsize)
+
+    def serving_slot_bytes(self) -> int:
+        """Device bytes one serving slot of this shape holds during a
+        mega-step (`roofline.serving_slot_bytes_model`)."""
+        return R.serving_slot_bytes_model(self.X, self.Y, self.Z,
+                                          self.itemsize)
+
+    def serving_throughput(self) -> float:
+        """Modelled domains/s of serving `batch` copies of this domain per
+        mega-launch (`roofline.serving_throughput_model`): the host's fixed
+        launch cost amortised over the slots against each slot's pass and
+        exposed wire seconds. Strictly rises in `batch` until the slots'
+        device buffers or the launch grid's slot axis bind
+        (`roofline.serving_max_batch`), where the model refuses."""
+        t = self.roofline_terms()
+        return R.serving_throughput_model(
+            self.batch, hbm_bytes_per_domain=t.hbm_bytes_per_dev / self.batch,
+            slot_bytes=self.serving_slot_bytes(),
+            exposed_wire_s_per_domain=t.collective_exposed_s / self.batch)

@@ -982,3 +982,85 @@ def test_kernels_launch_on_the_cards_of_their_tensors(cuda):
     torch.cuda.synchronize(dev)
     assert all(torch.equal(a, b[0]) for a, b in zip(got, plain))
     assert torch.equal(TK.finite_guard(*got), TK._finite_guard_plain(*got))
+
+
+# -- the stencil serving engine (K5 at B > 1, K4 per slot) -------------------
+
+def stencil_serve(device, plan=None, batch_size=4):
+    from repro_torch.launch.serve import (STENCIL_DT, STENCIL_SHAPES,
+                                          stencil_requests)
+    from repro_torch.serving.stencil_engine import StencilServingEngine
+    from repro_torch.stencil.advection import AdvectionDomain
+
+    X, Y, Z, T = STENCIL_SHAPES[True]
+    dom = AdvectionDomain(X, Y, Z, variant="fused", fuse_T=T, dt=STENCIL_DT,
+                          device=device)
+    eng = StencilServingEngine(dom, batch_size=batch_size, fault_plan=plan)
+    TK.reset_launch_counts()
+    done = eng.run(stencil_requests(X, Y, Z, 8, 16))
+    torch.cuda.synchronize()
+    return eng, done, dict(TK.LAUNCHES)
+
+
+@pytest.mark.parametrize("batch_size", [4, 8])
+def test_stencil_engine_padded_equals_sequential_on_the_card(cuda,
+                                                            batch_size):
+    from repro_torch.launch.serve import STENCIL_DT, STENCIL_SHAPES
+
+    eng, done, launches = stencil_serve(cuda, batch_size=batch_size)
+    n = eng.megasteps_executed
+    assert launches == {**{k: 0 for k in launches}, "advect_fused": n,
+                        "finite_guard": n}
+    Z, T = STENCIL_SHAPES[True][2:]
+    p = TREF.default_params(Z, device=cuda)
+    for req in done.values():
+        assert req.status == "done" and len(req.states) == req.n_steps
+        u, v, w = TREF.fields_from_numpy(req.u, req.v, req.w, device=cuda)
+        for state in req.states:
+            u, v, w = TK.advect_fused(u, v, w, p, T=T, dt=STENCIL_DT)
+            assert all(np.array_equal(s, f.cpu().numpy())
+                       for s, f in zip(state, (u, v, w)))
+
+
+@pytest.mark.parametrize("batch_size", [4, 8])
+def test_stencil_engine_guard_flags_equal_plain_on_the_card(cuda,
+                                                           batch_size):
+    from repro_torch.launch.serve import (STENCIL_DT, STENCIL_SHAPES,
+                                          stencil_requests)
+    from repro_torch.serving.stencil_engine import StencilServingEngine
+    from repro_torch.stencil.advection import AdvectionDomain
+
+    X, Y, Z, T = STENCIL_SHAPES[False]
+    dom = AdvectionDomain(X, Y, Z, variant="fused", fuse_T=T, dt=STENCIL_DT,
+                          device=cuda)
+    eng = StencilServingEngine(dom, batch_size=batch_size)
+    for slot, req in enumerate(stencil_requests(X, Y, Z, batch_size, 16)):
+        eng._prime(slot, req)
+    fields = (eng.u, eng.v, eng.w)
+    flags = TK.finite_guard(*fields)
+    assert torch.equal(flags, TK._finite_guard_plain(*fields))
+    assert bool((flags == 1.0).all())
+    Xr, Yr = eng._extent[1]
+    eng.w[1, Xr // 2, Yr - 1, Z // 2] = float("inf")
+    flags = TK.finite_guard(*fields)
+    want = torch.ones_like(flags)
+    want[1, Xr // 2] = 0.0
+    assert torch.equal(flags, TK._finite_guard_plain(*fields))
+    assert torch.equal(flags, want)
+
+
+def test_stencil_engine_faults_on_the_card_equal_the_cpu_run(cuda):
+    plan = "nan_poison@1:slot=1;device_loss@2:reshard_to=1"
+    _, clean, _ = stencil_serve(cuda)
+    eng, done, launches = stencil_serve(cuda, plan)
+    cpu_eng, cpu_done, _ = stencil_serve("cpu", plan)
+    assert eng.health() == cpu_eng.health()
+    assert eng.cache_stats() == cpu_eng.cache_stats()
+    assert launches["advect_fused"] == launches["finite_guard"] == \
+        eng.megasteps_executed
+    [quid] = eng.health()["quarantined_uids"]
+    for uid, req in done.items():
+        assert req.status == cpu_done[uid].status
+        if uid != quid:
+            assert all(np.array_equal(a, b)
+                       for a, b in zip(req.out, clean[uid].out))

@@ -177,8 +177,7 @@ def test_serve_cli_smoke_on_the_cpu():
         out.stdout
 
 
-@pytest.mark.parametrize("flag,slice_", [(["--stencil"], "slice D"),
-                                         (["--ckpt-dir", "x"], "slice G2")])
+@pytest.mark.parametrize("flag,slice_", [(["--ckpt-dir", "x"], "slice G2")])
 def test_serve_cli_later_paths_name_their_slice(flag, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         TSERVE.main(["--smoke", "--device", "cpu"] + flag)
