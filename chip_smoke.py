@@ -8,6 +8,8 @@
     python3 chip_smoke.py --only k8            # K8's time and a prefill's
     python3 chip_smoke.py --only k9            # K9's times and a prefill's
     python3 chip_smoke.py --only stencil_serving   # phases 19-20 alone
+    python3 chip_smoke.py --only distributed_spec  # phase 21 alone
+    python3 chip_smoke.py --only recovery          # phases 22-23 alone
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 
@@ -177,12 +179,41 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    mega-step (`roofline.SERVING_LAUNCH_OVERHEAD_S`), the time to stream
    the batch's states back, K5's plain version, `run()`'s wall time,
    domains/s and domain-steps/s against the model, and the device's busy
-   share of a profiled `run()`.
+   share of a profiled `run()`;
+21. drives the spec-driven distributed run at the 67M grid over a (2, 2)
+   loopback mesh of cuda:0: for each pass of `SPEC_PATH`,
+   `make_distributed_run(n_blocks=2, local_kernel="fused", overlap=True,
+   exchange="collective", spec=...)` (diffusion at
+   `DIFFUSION_RESOLVED_DT`), the counts set to 0 just before and read just
+   after (K6 twice per shard, pass and block, no other kernel), == two
+   single-card `stencil_fused` calls bitwise; PW euler also == the legacy
+   run (K1 only) == `AdvectionDomain.advance(8)`; `spec=` with
+   `remote_dma` on the CUDA mesh refused at build time with no launch;
+   prints ms per block beside the single-card pass, and K6's time at a
+   shard's extended slab beside its bound;
+22. the checkpointed run on K1 and K7 over the (2, 2) loopback mesh:
+   `make_distributed_run(n_blocks=4, T=4, checkpoint_every=2,
+   checkpoint_dir=...)` == phase 16's uninterrupted run, and a run stopped
+   at block 3 then `resume_distributed_run` to block 4 == the same,
+   bitwise, also with `collective` and `verify_integrity=True` (flags sum
+   to 0); the counts of each run; a checkpoint's write and restore (each
+   805 MB) timed beside ms per block; the directories deleted;
+23. `resilient_distributed_run` on K1 over a (1, 4) loopback mesh,
+   n_blocks 4, T 4: a clean plan, twice (the first run also pays the
+   first use of its shapes), == `make_distributed_run` (K1 once per
+   shard and block, K7 once per block); a stall, a NaN poison, an
+   eviction and a 4 -> 2 -> 4 reshard on the one card, and a wire
+   corruption on the `collective` rung (verified), each == the clean run
+   bitwise; a persistent poison raises `RecoveryExhausted`; each run's
+   `health()` == a CPU run of the same plan on a small grid; prints each
+   run's wall seconds and the share spent in snapshots.
 
 Each phase prints its seconds.
 
 `--only distributed` runs phases 15-18 alone. `--only stencil_serving`
-runs phases 19-20 alone. A copy of the script in a
+runs phases 19-20 alone, `--only distributed_spec` phase 21 (its kernels
+line holds K6 at a shard's extended slab) and `--only recovery` phases
+22-23 (its kernels line holds K1 there). A copy of the script in a
 checkout from before K7's extended route skips phase 15 and times that
 checkout's K7, recv slabs and concatenation through the same entry points,
 so parent and change compare in one call.
@@ -405,6 +436,7 @@ BAND_BLOCKS = 4          # blocks in a row on the same slabs and counters
 BAND_FILL = -3.5         # what a recv slot holds before any block writes it
 DIST_MESH = (2, 2)       # the distributed path: the 67M grid on 4 shards
 DIST_BLOCKS = MAIN_SUBSTEPS // MAIN_T
+DIST_SPEC_BLOCKS = 2     # the spec-driven run: two blocks of each pass
 # the stencil serving tier: serve.py's traffic at its full shape
 # (`STENCIL_SHAPES[False]`, dt `STENCIL_DT`), then slots of the paper's
 # Figs. 3 and 5 grid, each clean and under the fault plan below; the CPU
@@ -2720,6 +2752,430 @@ def distributed_only(check: Checks, card: str) -> list:
 
 
 # ---------------------------------------------------------------------------
+# the rest of the distributed path: spec runs, checkpoints, recovery
+# ---------------------------------------------------------------------------
+
+def dist_spec_inputs(op: str, fields):
+    """(spec params, global fields, dt) of one operator at the 67M grid:
+    the main path's (u, v, w), the tracer's q, diffusion's phi at
+    `DIFFUSION_RESOLVED_DT` (so that it moves f32 bits)."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    p = REF.default_params(Z, device="cuda")
+    if op == "pw":
+        return p, tuple(fields), SPEC_DT[op]
+    if op == "tracer":
+        return (p, tuple(fields) + (SP.tracer_field(X, Y, Z, device="cuda"),),
+                SPEC_DT[op])
+    return (SP.default_diffusion_params(Z, device="cuda"),
+            (SP.diffusion_field(X, Y, Z, device="cuda"),),
+            DIFFUSION_RESOLVED_DT)
+
+
+def counted(call, mesh=None):
+    """`call()` with every launch count set to 0 just before and read just
+    after (the cards synchronised): (its result, the counts, wall s)."""
+    if mesh is None:
+        torch.cuda.synchronize()
+    else:
+        sync(mesh)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    out = call()
+    if mesh is None:
+        torch.cuda.synchronize()
+    else:
+        sync(mesh)
+    return out, all_counts(), time.perf_counter() - t0
+
+
+def only_these(launches: dict, want: dict) -> bool:
+    return all(n == want.get(k, 0) for k, n in launches.items())
+
+
+def distributed_spec_phase(check: Checks, fields, dom, card: str) -> dict:
+    """Phase 21: `make_distributed_run(n_blocks=DIST_SPEC_BLOCKS, fused,
+    overlap, collective, spec=...)` over a (2, 2) loopback mesh for each
+    pass of `SPEC_PATH`, == `DIST_SPEC_BLOCKS` single-card `stencil_fused`
+    calls bitwise, K6 launched twice per shard, pass and block and no
+    other kernel; PW euler also == the legacy run (K1) == `advance`; the
+    refusal of `remote_dma` for specs on the card. Prints ms per block
+    beside the single-card pass. Returns the K6 record of one boundary
+    pass (PW euler T = 4) at the shard's extended slab."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    nx, ny = DIST_MESH
+    mesh = make_stencil_mesh(nx, ny, devices=["cuda:0"] * (nx * ny))
+    nb = DIST_SPEC_BLOCKS
+    k6_launches, k6_err = 0, 0.0
+    for op, integ, T in SPEC_PATH:
+        spec = SPEC_FACTORIES[op](integ)
+        sp, flds, dt = dist_spec_inputs(op, fields)
+        kw = dict(n_blocks=nb, T=T, dt=dt, local_kernel="fused",
+                  overlap=True, exchange="collective")
+        run = D.make_distributed_run(mesh, sp, spec=spec, spec_params=sp,
+                                     **kw)
+        shards = D.shard(mesh, *flds)
+        out, launches, wall = counted(lambda: run(shards), mesh)
+        passes = len(K.spec_passes(spec, T))
+        want = 2 * nx * ny * passes * nb
+        tag = f"distributed spec {spec.name} T={T}"
+        print(f"{tag}: {MAIN_GRID} grid {(X, Y, Z)} over a {(nx, ny)} "
+              f"loopback mesh on cuda:0, make_distributed_run(n_blocks={nb},"
+              f" T={T}, dt={dt}, local_kernel='fused', overlap=True, "
+              f"exchange='collective', spec={spec.name}), halo depth "
+              f"{spec.halo(T)}; wall {wall:.3f} s; launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        check(only_these(launches, {"stencil_fused": want}),
+              f"{tag}: stencil_fused launched {want} times (twice per "
+              f"shard, pass and block), no other kernel")
+        k6_launches += launches["stencil_fused"]
+        got = D.gather(mesh, out)
+        del out
+        single = flds
+        for _ in range(nb):
+            single = K.stencil_fused(single, sp, spec, T=T, dt=dt)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, single))
+        k6_err = max(k6_err, err)
+        check(err == 0.0 and all(bool(torch.isfinite(o).all())
+                                 for o in got),
+              f"{tag}: == {nb} single-card stencil_fused calls at T={T}, "
+              f"bitwise ({err}), finite")
+        moved = max(float((a - b).abs().max()) for a, b in zip(got, flds))
+        check(moved > 0.0, f"{tag}: the fields moved ({moved:.3e})")
+        if op == "pw" and integ == "euler":
+            legacy = D.make_distributed_run(mesh, sp, **kw)
+            lout, llaunch, _ = counted(lambda: legacy(shards), mesh)
+            check(only_these(llaunch, {"advect_fused": 2 * nx * ny * nb}),
+                  f"{tag}: the legacy run launched K1 {2 * nx * ny * nb} "
+                  f"times, no other kernel")
+            adv = dom.advance(*flds, nb * T)
+            check(same(got, D.gather(mesh, lout)) and same(got, adv),
+                  f"{tag}: == the legacy PW make_distributed_run (K1) == "
+                  f"AdvectionDomain.advance({nb * T}), bitwise")
+            del lout, adv
+        block_ms = time_ms(lambda: run(shards), runs=5, warmup=1) / nb
+        pass_ms = time_ms(lambda: K.stencil_fused(flds, sp, spec, T=T, dt=dt),
+                          runs=5, warmup=1)
+        print(f"{tag}: {block_ms:.4f} ms per block of {T} steps by events "
+              f"(median of 5 runs of {nb} blocks) beside the single-card "
+              f"pass over the whole grid {pass_ms:.4f} ms ({block_ms / pass_ms:.4f}x); "
+              f"card {card}", flush=True)
+        del got, single, shards, run
+    p = REF.default_params(Z, device="cuda")
+    spec = SP.pw_advection_spec()
+    reset_all_counts()
+    try:
+        D.make_distributed_run(mesh, p, n_blocks=nb, T=MAIN_T, dt=DT,
+                               local_kernel="fused", exchange="remote_dma",
+                               spec=spec, spec_params=p)
+        refused = False
+    except RuntimeError as e:
+        refused = "no band exchange kernel" in str(e)
+    check(refused and sum(all_counts().values()) == 0,
+          "spec= with exchange='remote_dma' on the CUDA mesh raises at "
+          "build time, and launches nothing")
+    # K6's record: one boundary pass at the extended slab a shard reads
+    D_ = spec.halo(MAIN_T)
+    ext = (X // nx + 2 * D_, Y // ny + 2 * D_, Z)
+    slab = tuple(f[:ext[0], :ext[1]].contiguous() for f in fields)
+    xm = torch.ones(ext[0], device="cuda")
+    ym = torch.ones(ext[1], device="cuda")
+    call = lambda: K.stencil_fused(slab, p, spec, T=MAIN_T, dt=DT,  # noqa
+                                   x_interior_mask=xm, y_interior_mask=ym)
+    err = max(float((a - b).abs().max()) for a, b in
+              zip(call(), plain_spec(slab, p, spec, MAIN_T, DT, xm, ym)))
+    check(err == 0.0, f"K6 at the shard's extended slab {ext}, T={MAIN_T} "
+          f"== plain, bitwise ({err})")
+    ms = time_ms(call)
+    plain_ms = time_ms(lambda: plain_spec(slab, p, spec, MAIN_T, DT, xm, ym),
+                       runs=5)
+    nbytes, ops = spec_bound("pw", spec, p, MAIN_T, ext)
+    print(f"K6 boundary pass (distributed spec path, PW euler T={MAIN_T}) at "
+          f"{ext}:", flush=True)
+    rec = kernel_record("stencil_fused", ms, plain_ms, nbytes, ops,
+                        k6_launches, max(err, k6_err))
+    return rec
+
+
+def dist_kw(exchange: str) -> dict:
+    return dict(T=MAIN_T, dt=DT, local_kernel="fused", overlap=True,
+                exchange=exchange)
+
+
+def checkpoint_phase(check: Checks, fields, want, card: str) -> int:
+    """Phase 22: PW on K1 and K7 over the (2, 2) loopback mesh, checkpointed
+    every 2 blocks == `want` (the uninterrupted run, itself held to the
+    single-card `advance(16)`), bitwise; stopped at block 3 and resumed to
+    4 == the same; with the collective engine and `verify_integrity=True`
+    too, the flags summing to 0. Times a checkpoint's write and restore
+    beside ms per block, then deletes the directories. Returns K1's
+    launches in the uninterrupted checkpointed run."""
+    import shutil
+    import tempfile
+
+    from repro_torch.training import checkpoint as CKPT
+
+    nx, ny = DIST_MESH
+    mesh = make_stencil_mesh(nx, ny, devices=["cuda:0"] * (nx * ny))
+    Z = fields[0].shape[2]
+    p = REF.default_params(Z, device="cuda")
+    nb = DIST_BLOCKS
+    k1, k7 = 2 * nx * ny, 2 * len(cards_of(mesh))   # a block's launches
+    k1_launches = 0
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build"))
+    try:
+        print(f"checkpoints under {tmp}: "
+              f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB free", flush=True)
+        for ex, verify in (("remote_dma", False), ("collective", True)):
+            kw = dict(dist_kw(ex), verify_integrity=verify)
+            tag = f"checkpointed run, exchange={ex}, verify={verify}"
+            per = {"advect_fused": k1} if ex == "collective" else \
+                {"advect_fused": k1, "band_exchange": k7}
+
+            def fields_of(out):
+                return D.gather(mesh, out[0] if verify else out)
+
+            if ex == "remote_dma":
+                full = D.make_distributed_run(
+                    mesh, p, n_blocks=nb, checkpoint_every=2,
+                    checkpoint_dir=str(tmp / "full"), **kw)
+                out, launches, wall = counted(
+                    lambda: full(D.shard(mesh, *fields)), mesh)
+                check(only_these(launches, {k: v * nb
+                                            for k, v in per.items()}),
+                      f"{tag}: launches {launches}")
+                k1_launches = launches["advect_fused"]
+                check(same(fields_of(out), want),
+                      f"{tag}: make_distributed_run(n_blocks={nb}, T="
+                      f"{MAIN_T}, checkpoint_every=2) == the uninterrupted "
+                      f"run, bitwise (wall {wall:.3f} s, 3 checkpoints)")
+                shutil.rmtree(tmp / "full")
+            part = D.make_distributed_run(
+                mesh, p, n_blocks=3, checkpoint_every=2,
+                checkpoint_dir=str(tmp / ex), **kw)
+            _, launches, wall = counted(
+                lambda: part(D.shard(mesh, *fields)), mesh)
+            check(only_these(launches, {k: v * 3 for k, v in per.items()}),
+                  f"{tag}: the run stopped at block 3 launched {launches}")
+            res, launches, rwall = counted(
+                lambda: D.resume_distributed_run(
+                    mesh, p, D.shard(mesh, *fields), n_blocks=nb,
+                    checkpoint_dir=str(tmp / ex), **kw), mesh)
+            check(only_these(launches, per),
+                  f"{tag}: the resume from block 3 to {nb} launched "
+                  f"{launches}")
+            flags_ok = (not verify) or int(res[1].sum()) == 0
+            check(same(fields_of(res), want) and flags_ok,
+                  f"{tag}: stopped at block 3 (wall {wall:.3f} s), resumed "
+                  f"to {nb} (wall {rwall:.3f} s) == the uninterrupted run, "
+                  f"bitwise" + (", flags sum to 0" if verify else ""))
+            shutil.rmtree(tmp / ex)
+        # one checkpoint's write and restore, timed apart
+        shards = D.shard(mesh, *want)
+        nbytes = sum(f.numel() * 4 for f in want)
+        sync(mesh)
+        t0 = time.perf_counter()
+        state = D._run_state(mesh, shards, nb, None)
+        t_host = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        CKPT.save(tmp / "timed", state, nb)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, _ = CKPT.restore(tmp / "timed", {k: 0 for k in state})
+        t_read = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        up = D.shard(mesh, *(torch.from_numpy(back[k]) for k in "uvw"))
+        sync(mesh)
+        t_up = time.perf_counter() - t0
+        check(same(D.gather(mesh, up), want), "the restored checkpoint == "
+              "the fields saved, bitwise")
+        run = D.make_distributed_run(mesh, p, n_blocks=nb,
+                                     **dist_kw("remote_dma"))
+        block_ms = time_ms(lambda: run(shards), runs=5, warmup=1) / nb
+
+        def rate(s):
+            return f"{s:.4f} s ({nbytes / s / 1e9:.3f} GB/s)"
+
+        print(f"checkpoint of the (2, 2) run at {tuple(want[0].shape)}, "
+              f"{nbytes} B: write {rate(t_host + t_save)} = gather and copy "
+              f"to the host {rate(t_host)} + np.savez and rename "
+              f"{rate(t_save)}; restore {rate(t_read + t_up)} = np.load "
+              f"{rate(t_read)} + copy to the card and shard {rate(t_up)}; "
+              f"beside {block_ms:.4f} ms per block (remote_dma, events, "
+              f"median of 5 runs of {nb} blocks); card {card}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not tmp.exists(), f"the checkpoint directory {tmp} is deleted")
+    return k1_launches
+
+
+RESILIENT_MESH = (1, 4)
+RESILIENT_PLANS = (  # name, plan, ladder start, verify, raises
+    ("clean", "", None, None, False),
+    # again: the first run also pays the first use of its shapes
+    ("clean again", "", None, None, False),
+    ("faulted", "exchange_stall@1:stalls=5,rung=remote_dma;"
+     "nan_poison@2:persistent=false;cache_evict@2;"
+     "device_loss@1:reshard_to=2;device_loss@3:reshard_to=4", None, None,
+     False),
+    ("halo", "halo_corruption@2:field=v", "collective", True, False),
+    ("persistent", "nan_poison@1", None, None, True))
+RESILIENT_MIRROR = (6, 16, 12)   # the CPU run's grid (Y / 4 rows a shard)
+
+
+def resilient_case(mesh, p, fields, plan: str, start, verify):
+    """One `resilient_distributed_run` (K1, n_blocks 4, T 4): (out or None,
+    injector, RecoveryExhausted message or None)."""
+    from repro_torch.serving import faults as F
+
+    inj = F.FaultInjector(F.FaultPlan.parse(plan))
+    ladder = F.DegradationLadder(F.ELASTIC_LADDER, start=start)
+    try:
+        out, inj = F.resilient_distributed_run(
+            mesh, p, *fields, n_blocks=DIST_BLOCKS, T=MAIN_T, dt=DT,
+            local_kernel="fused", injector=inj, ladder=ladder,
+            verify_integrity=verify)
+        return out, inj, None
+    except F.RecoveryExhausted as e:
+        return None, inj, str(e)
+
+
+def resilient_phase(check: Checks, fields, want, card: str) -> None:
+    """Phase 23: `resilient_distributed_run` on K1 over a (1, 4) loopback
+    mesh, n_blocks 4, T 4. K1 at the shards' extended slab with each edge
+    shard's y mask == plain, bitwise; `make_distributed_run` on that mesh
+    == `want` (the single-card `advance(16)`, or the (2, 2) run held to
+    it), bitwise. Under each plan of `RESILIENT_PLANS`: the clean plan ==
+    `make_distributed_run`, the faulted ones == the clean run, bitwise, a
+    persistent poison raises `RecoveryExhausted`; each run's `health()` ==
+    a CPU run of the same plan on `RESILIENT_MIRROR` (the fault logic
+    depends on the schedule alone). Prints each run's wall seconds and the
+    share spent in snapshots."""
+    from repro_torch.serving import faults as F
+
+    nx, ny = RESILIENT_MESH
+    mesh = make_stencil_mesh(nx, ny, devices=["cuda:0"] * (nx * ny))
+    cpu_mesh = make_stencil_mesh(nx, ny, devices=["cpu"] * (nx * ny))
+    Z = fields[0].shape[2]
+    p = REF.default_params(Z, device="cuda")
+    Xm, Ym, Zm = RESILIENT_MIRROR
+    small = stratus_fields(Xm, Ym, Zm, seed=0, device="cpu")
+    p_small = REF.default_params(Zm, device="cpu")
+    # K1 at this mesh's shard slab: no x mask (nx = 1), the y ring D = T
+    # rows wide on each side, the edge shards' y masks freezing the walls
+    X, Y, _ = fields[0].shape
+    Yl = Y // ny
+    for iy in (0, ny - 1):
+        g = iy * Yl - MAIN_T + torch.arange(Yl + 2 * MAIN_T, device="cuda")
+        ym = ((g >= 1) & (g <= Y - 2)).float()
+        slab = tuple(f.roll(MAIN_T - iy * Yl, dims=1)[:, :Yl + 2 * MAIN_T]
+                     .contiguous() for f in fields)
+        got = K.advect_fused(*slab, p, T=MAIN_T, dt=DT, y_interior_mask=ym)
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(got, plain_fused(*slab, p, MAIN_T, None,
+                                                   ym)))
+        check(err == 0.0, f"K1 at the (1, 4) shard slab "
+              f"{tuple(slab[0].shape)}, shard y={iy}'s y mask "
+              f"({int(ym.sum())} of {len(ym)} rows interior) == plain, "
+              f"bitwise ({err})")
+        del slab, got
+    clean = D.gather(mesh, D.make_distributed_run(
+        mesh, p, n_blocks=DIST_BLOCKS, T=MAIN_T, dt=DT, local_kernel="fused",
+        exchange="remote_dma")(D.shard(mesh, *fields)))
+    check(same(clean, want), f"make_distributed_run over the (1, 4) "
+          f"loopback mesh == advance({DIST_BLOCKS * MAIN_T}), bitwise")
+    spent = [0.0]
+    real = F._snapshot
+
+    def timed_snapshot(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    F._snapshot = timed_snapshot
+    try:
+        for name, plan, start, verify, raises in RESILIENT_PLANS:
+            spent[0] = 0.0
+            (out, inj, raised), launches, wall = counted(
+                lambda: resilient_case(mesh, p, fields, plan, start, verify))
+            h = inj.health()
+            tag = f"resilient run '{name}' ({plan or 'no faults'})"
+            print(f"{tag}: (1, 4) loopback mesh on cuda:0, K1, n_blocks "
+                  f"{DIST_BLOCKS}, T {MAIN_T}; wall {wall:.3f} s, snapshots "
+                  f"{h['snapshots']} taking {spent[0]:.4f} s "
+                  f"({spent[0] / wall:.4f} of it); launches "
+                  f"{ {k: v for k, v in launches.items() if v} }; health "
+                  f"{ {k: v for k, v in h.items() if v and k != 'plan'} }; "
+                  f"card {card}", flush=True)
+            if raises:
+                check(raised is not None and "persists after" in raised,
+                      f"{tag}: raises RecoveryExhausted ({raised})")
+            else:
+                check(raised is None and same(out, clean),
+                      f"{tag}: == make_distributed_run, bitwise")
+            if name.startswith("clean"):
+                check(only_these(launches, {"advect_fused": nx * ny
+                                            * DIST_BLOCKS,
+                                            "band_exchange": DIST_BLOCKS}),
+                      f"{tag}: K1 once per shard and block, K7 once per "
+                      f"block, no other kernel")
+            if name == "halo":
+                check(h["rollbacks"] == 1, f"{tag}: one rollback")
+            cpu = resilient_case(cpu_mesh, p_small, small, plan, start,
+                                 verify)
+            check(h == cpu[1].health() and (raised is None) == (cpu[2]
+                                                                 is None),
+                  f"{tag}: health() == a CPU run of the same plan on "
+                  f"{RESILIENT_MIRROR}")
+            del out
+    finally:
+        F._snapshot = real
+
+
+def recovery_only(check: Checks, card: str) -> list:
+    """`--only recovery`: phases 22-23, both held to the single-card
+    `advance(16)`, then K1's record at a boundary pass of the (2, 2) run
+    (the shard's extended slab), with phase 22's launches of K1."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    dom = AdvectionDomain(X, Y, Z, variant="fused", fuse_T=MAIN_T, dt=DT,
+                          device="cuda")
+    fields = dom.init(seed=0)
+    want = dom.advance(*fields, DIST_BLOCKS * MAIN_T)
+    k1_launches = phase("22 checkpoint and resume", checkpoint_phase, check,
+                        fields, want, card)
+    phase("23 resilient run", resilient_phase, check, fields, want, card)
+    del want
+    nx, ny = DIST_MESH
+    ext = (X // nx + 2 * MAIN_T, Y // ny + 2 * MAIN_T, Z)
+    u, v, w = (f[:ext[0], :ext[1]].contiguous() for f in fields)
+    p = dom.params
+    xm = torch.ones(ext[0], device="cuda")
+    ym = torch.ones(ext[1], device="cuda")
+    K.reset_launch_counts()
+    got = K.advect_fused(u, v, w, p, T=MAIN_T, dt=DT, x_interior_mask=xm,
+                         y_interior_mask=ym)
+    err = max(float((a - b).abs().max())
+              for a, b in zip(got, plain_fused(u, v, w, p, MAIN_T, xm, ym)))
+    check(err == 0.0, f"K1 at the shard's extended slab {ext} == plain, "
+          f"bitwise ({err})")
+    cells = math.prod(ext)
+    nbytes = 6 * cells * 4 + 2 * (Z + 2) * 4 + (ext[0] + ext[1]) * 4
+    ops = MAIN_T * ((ext[0] - 2) * (ext[1] - 2) * (Z - 2)
+                    * REF.flops_per_cell() + 6 * cells)
+    ms = time_ms(lambda: K.advect_fused(u, v, w, p, T=MAIN_T, dt=DT,
+                                        x_interior_mask=xm,
+                                        y_interior_mask=ym))
+    plain_ms = time_ms(lambda: plain_fused(u, v, w, p, MAIN_T, xm, ym),
+                       runs=5)
+    print(f"K1 boundary pass (checkpointed run) at {ext}:", flush=True)
+    return [kernel_record("advect_fused", ms, plain_ms, nbytes, ops,
+                          k1_launches, err)]
+
+
+# ---------------------------------------------------------------------------
 # the stencil serving tier: K5 at B > 1 and K4 per slot
 # ---------------------------------------------------------------------------
 
@@ -3046,9 +3502,10 @@ def phase(label: str, fn, *args, **kw):
 def main() -> int:
     only = sys.argv[2:] if sys.argv[1:2] == ["--only"] else None
     if sys.argv[1:] and only not in (["distributed"], ["ladder"], ["k6"],
-                                     ["k8"], ["k9"], ["stencil_serving"]):
+                                     ["k8"], ["k9"], ["stencil_serving"],
+                                     ["distributed_spec"], ["recovery"]):
         print("usage: chip_smoke.py [--only distributed|ladder|k6|k8|k9|"
-              "stencil_serving]", file=sys.stderr)
+              "stencil_serving|distributed_spec|recovery]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -3078,6 +3535,15 @@ def main() -> int:
     if only == ["stencil_serving"]:
         return finish(check, phase("stencil serving", stencil_serving_phases,
                                    check, card), card, t0)
+    if only == ["distributed_spec"]:
+        X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+        dom = AdvectionDomain(X, Y, Z, variant="fused", fuse_T=MAIN_T, dt=DT,
+                              device="cuda")
+        return finish(check, [phase("21 distributed spec path",
+                                    distributed_spec_phase, check,
+                                    dom.init(seed=0), dom, card)], card, t0)
+    if only == ["recovery"]:
+        return finish(check, recovery_only(check, card), card, t0)
     if only:
         return finish(check, distributed_only(check, card), card, t0)
     phase("1 small shapes", small_shape_phase, check)
@@ -3097,7 +3563,15 @@ def main() -> int:
     records.append(phase("17 K7 timing", band_timing, mesh, fields,
                          k7_launches, dist_runs, card))
     phase("18 across cards", cross_card_phase, check, fields, dist_out, card)
-    del dom, fields, out, spec_runs, dist_out, dist_runs
+    del dist_runs, spec_runs
+    torch.cuda.empty_cache()
+    phase("21 distributed spec path", distributed_spec_phase, check, fields,
+          dom, card)
+    phase("22 checkpoint and resume", checkpoint_phase, check, fields,
+          dist_out, card)
+    phase("23 resilient run", resilient_phase, check, fields, dist_out,
+          card)
+    del dom, fields, out, dist_out
     torch.cuda.empty_cache()
     records += phase("19-20 stencil serving", stencil_serving_phases, check,
                      card)

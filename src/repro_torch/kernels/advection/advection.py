@@ -1575,17 +1575,18 @@ class BandMessage(NamedTuple):
     dst_off: int
 
 
-def band_messages(mesh, axis: str, L: int,
-                  depth: int) -> List[BandMessage]:
-    """Every message of one exchange along `axis`, per sender in
-    `mesh.devices` order, then field, hop and side: the reference's
-    `_kernel_band_dma` loop. Side 0: my tail to the k-away successor's hi
-    halo; side 1: my head to the k-away predecessor's lo halo."""
+def band_messages(mesh, axis: str, L: int, depth: int, *,
+                  n_fields: int = 3) -> List[BandMessage]:
+    """Every message of one exchange of `n_fields` fields along `axis`, per
+    sender in `mesh.devices` order, then field, hop and side: the
+    reference's `_kernel_band_dma` loop. Side 0: my tail to the k-away
+    successor's hi halo; side 1: my head to the k-away predecessor's lo
+    halo."""
     n = mesh.axis_size(axis)
     msgs = []
     for s in range(len(mesh.devices)):
         me = mesh.coords(s)
-        for f in range(3):
+        for f in range(n_fields):
             for k, cnt, hi_off, lo_off in _band_schedule(L, depth):
                 fwd = mesh.index(dma_neighbor_coords(mesh.axis_names, me,
                                                      axis, k, n))
@@ -1610,22 +1611,27 @@ def band_launch_plan(n_tiles: int, n_sm: int, blocks_per_sm: int) -> int:
 class ExtendedBuffers:
     """The slabs the local kernel reads after an exchange, landed in place.
 
-    Per shard of `mesh`, on its device, one float32 tensor ``(3, 2, X + 2px,
-    Y + 2py, Z)``: field f, slot k (block_index % 2) is ``bufs[s][f, k]``,
+    Per shard of `mesh`, on its device, one float32 tensor ``(n_fields, 2,
+    X + 2px, Y + 2py, Z)`` (3 fields, u, v and w, unless `n_fields` says
+    otherwise): field f, slot k (block_index % 2) is ``bufs[s][f, k]``,
     the shard's ``(X, Y, Z)`` at ``[px, px + X) x [py, py + Y)`` with `px`
     halo planes and `py` halo rows on each side (`pad = (px, py)`). Two
     slots keep the reference's guarantee: block k+1's bands land where
     block k does not read. `fill` initialises them."""
 
-    def __init__(self, mesh, shape, pad, *, fill: float = 0.0):
+    def __init__(self, mesh, shape, pad, *, fill: float = 0.0,
+                 n_fields: int = 3):
         X, Y, Z = shape
         px, py = pad
         if px < 0 or py < 0:
             raise ValueError(f"pad must be >= 0, got {tuple(pad)}")
+        if n_fields < 1:
+            raise ValueError(f"n_fields must be >= 1, got {n_fields}")
         self.shape, self.pad = (X, Y, Z), (px, py)
+        self.n_fields = n_fields
         self.ext_shape = (X + 2 * px, Y + 2 * py, Z)
         self.devices = tuple(mesh.devices)
-        self.bufs = [torch.full((3, 2) + self.ext_shape, fill,
+        self.bufs = [torch.full((n_fields, 2) + self.ext_shape, fill,
                                 dtype=torch.float32, device=dev)
                      for dev in self.devices]
 
@@ -1639,7 +1645,8 @@ class BandSlabs:
     slot]`` cut to ``[window, window + shape[1 - dim])`` along the other of
     dims 0 and 1, which is `shape` widened by `depth` on each side along
     `dim` (`region`). Without `buffers` the phase has its own
-    `ExtendedBuffers`, padded along `dim` only and filled with `fill`; the
+    `ExtendedBuffers` of `n_fields` fields, padded along `dim` only and
+    filled with `fill`; the
     distributed block gives its x and y phases one set, the y phase's
     region being the whole buffer, whose middle rows the x phase filled.
 
@@ -1652,12 +1659,14 @@ class BandSlabs:
 
     def __init__(self, mesh, shape, depth: int, dim: int, *,
                  fill: float = 0.0, buffers: Optional[ExtendedBuffers] = None,
-                 window: int = 0):
+                 window: int = 0, n_fields: int = 3):
         self.shape, self.depth, self.dim = tuple(shape), depth, dim
         self.mesh, self.devices = mesh, tuple(mesh.devices)
         if buffers is None:
             pad = (depth, 0) if dim == 0 else (0, depth)
-            buffers = ExtendedBuffers(mesh, shape, pad, fill=fill)
+            buffers = ExtendedBuffers(mesh, shape, pad, fill=fill,
+                                      n_fields=n_fields)
+        self.n_fields = buffers.n_fields
         ext = list(self.shape)
         ext[dim] += 2 * depth
         other = 1 - dim
@@ -1677,11 +1686,12 @@ class BandSlabs:
         self._tables = {}        # (axis, slot, in place) -> BandTable
         self._views = {}         # (what, slot) -> per shard views
 
-    def matches(self, mesh, shape, depth: int, dim: int) -> bool:
+    def matches(self, mesh, shape, depth: int, dim: int,
+                n_fields: int = 3) -> bool:
         return (tuple(mesh.devices) == self.devices
                 and tuple(mesh.shape) == tuple(self.mesh.shape)
                 and tuple(shape) == self.shape and depth == self.depth
-                and dim == self.dim)
+                and dim == self.dim and n_fields == self.n_fields)
 
     def region(self, shard: int, field: int, slot: int) -> torch.Tensor:
         """The extended slab of one shard and field in slot `slot`."""
@@ -1692,16 +1702,16 @@ class BandSlabs:
         key = (what, slot)
         if key not in self._views:
             self._views[key] = [tuple(view(self.region(s, f, slot))
-                                      for f in range(3))
+                                      for f in range(self.n_fields))
                                 for s in range(len(self.devices))]
         return self._views[key]
 
     def extended(self, slot: int):
-        """Per shard the extended (u, v, w) of slot `slot`."""
+        """Per shard the extended fields (u, v, w) of slot `slot`."""
         return self._per_shard("extended", slot, lambda r: r)
 
     def interior(self, slot: int):
-        """Per shard the (u, v, w) views where its own planes land: passed
+        """Per shard the field views where its own planes land: passed
         as the fields of an exchange of that slot, they stay in place and
         only the bands move."""
         d, L = self.depth, self.shape[self.dim]
@@ -1725,7 +1735,7 @@ class BandSlabs:
         sends), computed once per axis."""
         if axis not in self._msgs:
             msgs = band_messages(self.mesh, axis, self.shape[self.dim],
-                                 self.depth)
+                                 self.depth, n_fields=self.n_fields)
             other = math.prod(self.shape) // self.shape[self.dim]
             sent = [0] * len(self.devices)
             for m in msgs:
@@ -1752,7 +1762,7 @@ class BandSlabs:
                                        for trio in fields for f in trio)
         if not in_place:
             for s, trio in enumerate(fields):
-                for name, f in zip("uvw", trio):
+                for name, f in zip(_field_names(len(trio)), trio):
                     if not f.is_contiguous():
                         raise ValueError(
                             f"shard {s} {name} must be contiguous, or the "
@@ -1834,19 +1844,19 @@ class BandTable:
 
     def rows(self):
         """``{card: [row, ...]}`` with each row's columns as in
-        `BAND_COLUMNS`, the sources indexed per card (3 per shard, in mesh
-        order), the tiles numbered per card."""
+        `BAND_COLUMNS`, the sources indexed per card (`n_fields` per shard,
+        in mesh order), the tiles numbered per card."""
         return {p.card: p.rows for p in self._card_puts()}
 
     def _card_puts(self):
         if self._puts is not None:
             return self._puts
         sl = self.slabs
-        dim, depth, shape = sl.dim, sl.depth, sl.shape
+        dim, depth, shape, n = sl.dim, sl.depth, sl.shape, sl.n_fields
         cards = list(dict.fromkeys(sl.devices))
         on = {c: [s for s, d in enumerate(sl.devices) if d == c]
               for c in cards}
-        src_index = {s: 3 * on[sl.devices[s]].index(s) for s in
+        src_index = {s: n * on[sl.devices[s]].index(s) for s in
                      range(len(sl.devices))}
         src_strides = (sl.interior(self.slot)[0][0].stride() if self.in_place
                        else (shape[1] * shape[2], shape[2], 1))
@@ -1855,7 +1865,7 @@ class BandTable:
         copies = []   # (sender, receiver, field, shape, src_off, dst view)
         if not self.in_place:
             for s in range(len(sl.devices)):
-                for f in range(3):
+                for f in range(n):
                     copies.append((s, s, f, shape, 0, sl.interior(
                         self.slot)[s][f]))
         for m in self.msgs:
@@ -1865,9 +1875,9 @@ class BandTable:
                 dim, self.dst_offset(m), m.cnt)
             copies.append((m.sender, m.receiver, m.field, tuple(cut),
                            m.src_lo * src_strides[dim], dst))
-        if max(len(v) for v in on.values()) * 3 > BAND_MAX_SOURCES:
+        if max(len(v) for v in on.values()) * n > BAND_MAX_SOURCES:
             raise ValueError(f"the band exchange kernel takes "
-                             f"{BAND_MAX_SOURCES // 3} shards a card")
+                             f"{BAND_MAX_SOURCES // n} shards a card")
         puts = {c: _CardPut(c, on[c]) for c in cards}
         for s, r, f, cut, src_off, dst in copies:
             runs, run, ss, ds = _runs(cut, src_strides, dst_strides)
@@ -1901,10 +1911,11 @@ class BandTable:
         puts = self._card_puts()
         if puts and puts[0].words is None:
             sl = self.slabs
+            n = sl.n_fields
             for p in puts:
                 p.words = sl.words[p.shards[0]].data_ptr()
-                at = [3 * s + f for s in p.shards for f in range(3)]
-                p.sources_at = (None if at == list(range(3 * len(sl.devices)))
+                at = [n * s + f for s in p.shards for f in range(n)]
+                p.sources_at = (None if at == list(range(n * len(sl.devices)))
                                 else at)
                 if p.rows:
                     p.table = torch.tensor(p.rows, dtype=torch.int64,
@@ -2039,18 +2050,24 @@ def _band_exchange_cuda(slabs: BandSlabs, table: BandTable, ptrs) -> None:
             LAUNCHES["band_handshake"] += 1
 
 
+def _field_names(n: int):
+    return tuple("uvw") if n == 3 else tuple(f"field {i}" for i in range(n))
+
+
 def _check_band_fields(fields, mesh):
-    """(shape, the fields' `data_ptr()`s in shard and field order) of one
-    (u, v, w) of one shape and float32 per shard, on the mesh's devices."""
+    """(shape, the fields' `data_ptr()`s in shard and field order) of the
+    same number of fields of one shape and float32 per shard (u, v, w, or
+    a spec's fields), on the mesh's devices."""
     if len(fields) != len(mesh.devices):
         raise ValueError(f"{len(fields)} shards given for a mesh of "
                          f"{len(mesh.devices)}")
     shape, ptrs = None, []
+    n = len(fields[0]) if fields else 0
     for s, (trio, dev) in enumerate(zip(fields, mesh.devices)):
-        if len(trio) != 3:
-            raise ValueError(f"shard {s} holds {len(trio)} fields, not "
-                             f"(u, v, w)")
-        for name, f in zip("uvw", trio):
+        if len(trio) != n or n < 1:
+            raise ValueError(f"shard {s} holds {len(trio)} fields, shard 0 "
+                             f"{n}")
+        for name, f in zip(_field_names(n), trio):
             if not isinstance(f, torch.Tensor):
                 raise TypeError(f"{name} must be a torch.Tensor, got "
                                 f"{type(f).__name__}")
@@ -2075,8 +2092,9 @@ def _check_band_fields(fields, mesh):
 def halo_band_exchange_dma(fields, *, mesh, axis: str, depth: int, dim: int,
                            block_index: int = 0,
                            slabs: Optional[BandSlabs] = None, wire=None):
-    """Exchange depth-`depth` boundary bands of three fields along mesh
-    axis `axis`, each shard's bands stored from inside a kernel into its
+    """Exchange depth-`depth` boundary bands of three fields (u, v, w; on
+    CPU shards, any number) along mesh axis `axis`, each shard's bands
+    stored from inside a kernel into its
     ring neighbours' halos (K7), and each shard's own planes beside them:
     per shard and field, slot ``block_index % 2`` of `slabs`' extended
     slab (`BandSlabs.extended`) is the field widened by `depth` planes or
@@ -2106,17 +2124,25 @@ def halo_band_exchange_dma(fields, *, mesh, axis: str, depth: int, dim: int,
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
     shape, ptrs = _check_band_fields(fields, mesh)
+    n_fields = len(fields[0])
     mesh.axis_size(axis)
     if slabs is None:
-        slabs = BandSlabs(mesh, shape, depth, dim)
-    elif not slabs.matches(mesh, shape, depth, dim):
+        slabs = BandSlabs(mesh, shape, depth, dim, n_fields=n_fields)
+    elif not slabs.matches(mesh, shape, depth, dim, n_fields):
         raise ValueError(f"slabs for shape {slabs.shape}, depth "
-                         f"{slabs.depth}, dim {slabs.dim} on "
-                         f"{slabs.devices}; this exchange is {shape}, "
-                         f"{depth}, {dim} on {tuple(mesh.devices)}")
+                         f"{slabs.depth}, dim {slabs.dim}, {slabs.n_fields} "
+                         f"fields on {slabs.devices}; this exchange is "
+                         f"{shape}, {depth}, {dim}, {n_fields} fields on "
+                         f"{tuple(mesh.devices)}")
     slot = int(block_index) % 2
     table = slabs.table(axis, slot, fields, ptrs)
     if fields[0][0].is_cuda:
+        if n_fields != 3:
+            raise ValueError(
+                f"the band exchange kernel moves (u, v, w) on the card, got "
+                f"{n_fields} fields: spec-driven steps exchange through the "
+                f"collective engine there (the reference's compiled kernel "
+                f"is 3-field too)")
         if wire is not None:
             raise ValueError("the band exchange kernel has no wire hook: "
                              "checksums and fault injection ride the plain "

@@ -1,5 +1,5 @@
 """Deterministic fault injection and the recovery discipline of the
-serving stack (the port's copy of `repro.serving.faults`; numpy only).
+serving stack (the port's copy of `repro.serving.faults`).
 
 This module describes faults and orchestrates recovery; detection and
 repair live in the layers that own the data:
@@ -15,7 +15,11 @@ repair live in the layers that own the data:
                   quarantined with an error status;
   * degradation - `retry_with_backoff` retries a stalled exchange and a
                   `DegradationLadder` walks `remote_dma` -> `collective`
-                  -> reshard-down, each transition recorded.
+                  -> reshard-down, each transition recorded;
+  * the distributed run - `resilient_distributed_run` drives
+                  `stencil.distributed.make_distributed_step` block by
+                  block with every fault kind applied at the exchange
+                  layer, rolling back to device or disk snapshots.
 
 A `FaultPlan` is a frozen tuple of `Fault`s pinned to mega-step or
 exchange-block indices, built by hand, parsed from a
@@ -24,8 +28,7 @@ exchange-block indices, built by hand, parsed from a
 `describe()` round-trips through `parse()`. `FaultInjector` owns the
 mutable side (which faults have fired, how many stall attempts remain) and
 the `health()` counters. Plans, strings, counters and sleep sequences are
-the reference's. `resilient_distributed_run`, the exchange-block driver,
-waits for slice E2.
+the reference's.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 __all__ = [
     "FAULT_KINDS", "DEFAULT_LADDER", "ELASTIC_LADDER", "MESH_SHRINK",
@@ -52,7 +56,7 @@ FAULT_KINDS = ("device_loss", "nan_poison", "halo_corruption",
 DEFAULT_LADDER = ("remote_dma", "collective")
 
 #: the distributed run's elastic last resort: gather, rebuild a smaller
-#: stencil mesh, re-shard, continue (`resilient_distributed_run`, slice E2)
+#: stencil mesh, re-shard, continue (`resilient_distributed_run`)
 MESH_SHRINK = "mesh_shrink"
 
 #: the distributed run's full ladder: both transports, then shrink
@@ -65,10 +69,6 @@ _COUNTERS = ("faults_injected", "faults_skipped", "device_losses",
              "quarantines", "rollbacks", "retries", "degradations",
              "reshards", "cache_evictions", "snapshots",
              "replayed_blocks")
-
-LATER_SLICE = ("waits for a later slice of the port (E2: the distributed "
-               "run's checkpointed, fault-injected driver)")
-
 
 class ExchangeStalled(RuntimeError):
     """An exchange attempt hung (injected or real); retryable."""
@@ -432,10 +432,275 @@ def retry_with_backoff(attempt: Callable[[], object], *,
     raise err
 
 
+def _snapshot(mesh, shards, block: int, checkpoint_dir, keep_last: int):
+    """The resilient run's snapshot after `block` blocks: the global fields
+    gathered on the mesh's first device (new tensors), or None after
+    writing them, with the block and its parity, through
+    `training.checkpoint` when `checkpoint_dir` is given."""
+    from repro_torch.stencil import distributed as D
+    from repro_torch.training import checkpoint as CKPT
 
-def resilient_distributed_run(*args, **kwargs):
-    """The reference's fault-injected, checkpointed driver of
-    `make_distributed_step`, block by block (every `FaultPlan` kind at the
-    exchange layer, the elastic mesh shrink). Not ported yet: it needs the
-    checkpointed segments of the distributed run."""
-    raise NotImplementedError(f"resilient_distributed_run {LATER_SLICE}")
+    if checkpoint_dir is None:
+        return D.gather(mesh, shards)
+    CKPT.save(checkpoint_dir, D._run_state(mesh, shards, block, None), block,
+              keep_last=keep_last)
+    return None
+
+
+def _resized_mesh(mesh, nx: int, ny: int):
+    """`mesh` rebuilt at (nx, ny): a loopback mesh (every shard on one
+    device) stays on that device; a mesh of distinct cards asks for
+    distinct cards again."""
+    from repro_torch.launch import mesh as LM
+
+    devices = None
+    if len(set(mesh.devices)) == 1:
+        devices = [mesh.devices[0]] * (nx * ny)
+    return LM.resize_stencil_mesh(nx, ny, devices=devices)
+
+
+def _all_finite(shards) -> bool:
+    """Whether every value of every shard is finite: one flag per field
+    reduced on its device, one read back to the host."""
+    dev = shards[0][0].device
+    return bool(torch.stack([torch.isfinite(f).all().to(dev)
+                             for trio in shards for f in trio]).all())
+
+
+def resilient_distributed_run(mesh, params, u, v, w, *, n_blocks: int,
+                              T: int = 1, dt: float = 1.0,
+                              local_kernel: str = "reference",
+                              y_tile: Optional[int] = None,
+                              injector: Optional[FaultInjector] = None,
+                              ladder: Optional[DegradationLadder] = None,
+                              max_retries: int = 3,
+                              backoff_s: float = 0.0,
+                              max_backoff_s: Optional[float] = None,
+                              jitter_seed: Optional[int] = None,
+                              sleeper: Callable[[float], None] = time.sleep,
+                              checkpoint_every: int = 1,
+                              checkpoint_dir=None,
+                              keep_last: int = 3,
+                              max_replays: int = 2,
+                              verify_integrity: Optional[bool] = None,
+                              guard: bool = True):
+    """`make_distributed_step` over the (nx, ny) `StencilMesh` `mesh`,
+    driven block by block on the global (X, Y, Z) fields (u, v, w) with
+    every `FaultPlan` kind applied at the exchange layer (none skipped),
+    recovering through the whole stack, as the reference's run does:
+
+      * exchange_stall  - armed stalls hang the attempt; `retry_with_backoff`
+        absorbs transients; a persistent stall degrades the ladder and the
+        block runs again on the next transport (both engines build the
+        same extended slabs bitwise). The ELASTIC_LADDER's `mesh_shrink`
+        rung halves ny instead of exhausting.
+      * halo_corruption - one band of the field is damaged on the wire
+        (`corrupt_halo`); the checksummed exchange flags it and the run
+        rolls back to the last snapshot and replays. On a 1-shard mesh
+        there is no wire, so the damage lands on the edge rows the band
+        would have been.
+      * nan_poison      - the first owned row of the field on y-shard
+        `slot % ny` is poisoned before the block; the finite guard
+        (`guard=True`: a device-side `isfinite` over the advanced shards,
+        one read back a block) detects it after the block, and rollback
+        and replay recover. A persistent poison fires again on every
+        replay: after `max_replays` replays of one block the run raises
+        `RecoveryExhausted`.
+      * device_loss     - gather, rebuild the mesh at ny = `reshard_to`
+        (default half; larger models devices coming back), re-shard,
+        continue. A loopback mesh stays on its one device
+        (`_resized_mesh`).
+      * cache_evict     - drops the built steps; the next block builds
+        again.
+
+    A snapshot is taken every `checkpoint_every` blocks: the global fields
+    on the mesh's first device, or through `training.checkpoint`'s atomic
+    writes when `checkpoint_dir` is given (the reference's leaf dict).
+    `verify_integrity=None` verifies on CPU shards only: K7 carries no
+    checksum on the card, so a plan with `halo_corruption` there starts
+    its ladder at `collective` with `verify_integrity=True`. On a clean
+    plan the result is bitwise what `make_distributed_run` gives. Returns
+    ``(u, v, w), injector``: the global fields on the mesh's first device
+    and the injector, whose `health()` counters and notes are the
+    reference's for the same plan."""
+    from repro_torch.stencil import distributed as D
+    from repro_torch.training import checkpoint as CKPT
+
+    injector = injector or FaultInjector()
+    ladder = ladder or DegradationLadder(ELASTIC_LADDER)
+    if ladder.current not in D.EXCHANGES:
+        raise ValueError(f"ladder must start on an exchange rung "
+                         f"{D.EXCHANGES}, got {ladder.current!r}")
+    if checkpoint_every < 1:
+        raise ValueError(f"checkpoint_every must be >= 1, "
+                         f"got {checkpoint_every}")
+    if max_replays < 0:
+        raise ValueError(f"max_replays must be >= 0, got {max_replays}")
+    verify = (not mesh.is_cuda if verify_integrity is None
+              else verify_integrity)
+
+    X, Y, _ = u.shape
+    n_x, n_y = mesh.shape
+    cur_mesh = mesh
+    # private copies: poison writes into the shards in place
+    shards = D.shard(mesh, *(torch.as_tensor(f).clone() for f in (u, v, w)))
+    rung = ladder.current
+    steps: Dict[Tuple[str, int], Callable] = {}
+
+    def build_step(rng_, parity, corrupt):
+        return D.make_distributed_step(
+            cur_mesh, params, T=T, dt=dt, local_kernel=local_kernel,
+            y_tile=y_tile, exchange=rng_, dma_block_index=parity,
+            verify_integrity=verify, corrupt_halo=corrupt)
+
+    def get_step(parity, corrupt):
+        if corrupt is not None:           # one-off, never cached
+            return build_step(rung, parity, corrupt)
+        key = (rung, parity)
+        if key not in steps:
+            steps[key] = build_step(rung, parity, None)
+        return steps[key]
+
+    # -- snapshot / rollback (on the device, optionally on disk) ----------
+    snap = None
+    snap_block = 0
+
+    def take_snapshot(b):
+        nonlocal snap, snap_block
+        snap = _snapshot(cur_mesh, shards, b, checkpoint_dir, keep_last)
+        snap_block = b
+        injector.record("snapshots")
+
+    def rollback(b, reason):
+        nonlocal shards
+        if checkpoint_dir is not None:
+            like = {k: 0 for k in D._STATE_FIELDS + ("block", "parity")}
+            arrays, _ = CKPT.restore(checkpoint_dir, like, step=snap_block)
+            glob = [torch.from_numpy(arrays[k]) for k in D._STATE_FIELDS]
+        else:
+            glob = [g.clone() for g in snap]
+        shards = D.shard(cur_mesh, *glob)
+        injector.record("rollbacks")
+        if b > snap_block:
+            injector.record("replayed_blocks", b - snap_block)
+        injector.note(f"block {b}: rollback to block {snap_block} "
+                      f"({reason})")
+        return snap_block
+
+    # -- fault applicators -------------------------------------------------
+    def poison_rows(fi, row_lo, rows, value):
+        """Global rows [row_lo, row_lo + rows) of field `fi`, every x, set
+        to `value` in the shards that hold them."""
+        Yl = Y // n_y
+        for s, trio in enumerate(shards):
+            iy = cur_mesh.coords(s)[1]
+            lo = max(row_lo, iy * Yl)
+            hi = min(row_lo + rows, (iy + 1) * Yl)
+            if lo < hi:
+                trio[fi][:, lo - iy * Yl:hi - iy * Yl, :] = value
+
+    def do_reshard(target, b, why):
+        nonlocal cur_mesh, n_y, shards
+        if Y % target:
+            raise ValueError(f"cannot re-shard to ny={target}: global "
+                             f"Y={Y} is not divisible")
+        glob = D.gather(cur_mesh, shards)     # gather off the mesh
+        cur_mesh = _resized_mesh(cur_mesh, n_x, target)
+        old, n_y = n_y, target
+        shards = D.shard(cur_mesh, *glob)
+        steps.clear()
+        injector.clear_stalls()   # the lost transport died with the mesh
+        injector.record("reshards")
+        injector.note(f"block {b}: {why}: re-shard ny {old} -> {target}")
+
+    take_snapshot(0)
+    replays: Dict[int, int] = {}
+    block = 0
+    while block < n_blocks:
+        corrupt = None
+        for idx, f in injector.due(block):
+            if f.kind == "exchange_stall":
+                injector.arm_stall(idx, f)
+                injector.note(f"block {block}: armed stall on "
+                              f"{f.rung} x{f.stalls}")
+            elif f.kind == "cache_evict":
+                steps.clear()
+                injector.record("cache_evictions")
+                injector.note(f"block {block}: evicted the compiled "
+                              f"step cache")
+            elif f.kind == "nan_poison":
+                fi = _FIELDS.index(f.field)
+                poison_rows(fi, (f.slot % n_y) * (Y // n_y), 1, f.value())
+                injector.note(f"block {block}: poisoned {f.field} on "
+                              f"shard {f.slot % n_y} ({f.mode})")
+            elif f.kind == "halo_corruption":
+                if n_y > 1 or n_x > 1:
+                    corrupt = (_FIELDS.index(f.field), f.depth, f.value())
+                    injector.note(f"block {block}: corrupting {f.field} "
+                                  f"halo band on the wire (depth "
+                                  f"{f.depth}, {f.mode})")
+                else:
+                    # 1-shard mesh: no wire; the band is the slab edge
+                    poison_rows(_FIELDS.index(f.field), 0, f.depth,
+                                f.value())
+                    injector.note(f"block {block}: 1-shard mesh, "
+                                  f"corrupted the {f.field} edge rows "
+                                  f"the band would have carried")
+            elif f.kind == "device_loss":
+                injector.record("device_losses")
+                do_reshard(f.reshard_to or max(1, n_y // 2), block,
+                           "device loss" if (f.reshard_to or 0) <= n_y
+                           else "device return")
+            injector.mark_fired(idx)
+
+        while True:                       # stall/degrade loop
+            step = get_step(block % 2, corrupt)
+
+            def attempt():
+                injector.poll_stall(rung)
+                return step(shards)
+
+            try:
+                out = retry_with_backoff(
+                    attempt, max_retries=max_retries, backoff_s=backoff_s,
+                    max_backoff_s=max_backoff_s, jitter_seed=jitter_seed,
+                    sleeper=sleeper,
+                    on_retry=lambda k, e: injector.record("retries"))
+                break
+            except ExchangeStalled as e:
+                nxt = ladder.degrade(str(e))    # RecoveryExhausted up
+                injector.record("degradations")
+                injector.note(f"block {block}: {ladder.transitions[-1]}")
+                if nxt == MESH_SHRINK:
+                    if n_y <= 1:
+                        raise RecoveryExhausted(
+                            f"mesh-shrink rung reached with ny={n_y}: "
+                            f"nothing left to shrink") from e
+                    do_reshard(max(1, n_y // 2), block, "mesh shrink")
+                    exch = [r for r in ladder.rungs if r in D.EXCHANGES]
+                    rung = exch[-1] if exch else "collective"
+                else:
+                    rung = nxt
+
+        cand, flags = out if verify else (out, None)
+        bad = None
+        if flags is not None and int(flags.sum()) > 0:
+            bad = "halo corruption detected by band checksums"
+        elif guard and not _all_finite(cand):
+            bad = "non-finite field values detected"
+        if bad is not None:
+            n_rep = replays.get(block, 0) + 1
+            replays[block] = n_rep
+            if n_rep > max_replays:
+                raise RecoveryExhausted(
+                    f"block {block}: {bad} persists after {max_replays} "
+                    f"replay(s) — a persistent fault source rollback "
+                    f"cannot clear")
+            block = rollback(block, bad)
+            continue
+
+        shards = cand
+        block += 1
+        if block % checkpoint_every == 0 or block == n_blocks:
+            take_snapshot(block)
+    return tuple(D.gather(cur_mesh, shards)), injector

@@ -37,13 +37,25 @@ counter feeding the slot parity, so block k+1's bands land in the slot
 block k is not reading; the extended slabs, K7's message tables and its
 counters live from block to block. As in the reference, each block still
 orders its exchange before its compute: the cross-block landing is what
-the slots make possible.
+the slots make possible. With `checkpoint_every` and `checkpoint_dir` the
+run snapshots the global fields, the block index and the slot parity
+through `training.checkpoint` (the reference's leaf dict, so either
+package resumes what the other wrote), and `resume_distributed_run`
+continues a stopped run bitwise.
+
+`spec=` (a `stencil.spec.StencilSpec`) generalises the step and run beyond
+PW advection: `spec.n_fields` fields per shard, exchanged once a block at
+depth ``D = spec.halo(T)`` through the same engines, walls `spec.radius`
+cells wide; `local_kernel="fused"` runs K6 (`stencil_fused`) with its x/y
+masks. K7 moves (u, v, w) on the card, so a CUDA mesh refuses `spec=` with
+`remote_dma`, as the reference refuses its compiled kernel; CPU shards run
+K7's plain version at any field count.
 
 `local_kernel="fused"` runs each shard's update through K1
 (`advect_fused`) with its x/y interior masks; `y_tile=None` lets K1 run
 its own launch plan (`advection.fused_launch_plan`) on CUDA, as
 `AdvectionDomain` does. `overlap=True` adds an interior pass over the owned
-slab, which needs no exchange, and takes the T-deep bands beside each cut
+slab, which needs no exchange, and takes the D-deep bands beside each cut
 from the boundary pass.
 
 `verify_integrity=True` rides a `band_checksum` word on every band message
@@ -55,13 +67,14 @@ compiled Mosaic kernel does. `count_exchange_wire_bytes` and
 `count_integrity_bytes` read the bytes the engines tally per message, the
 counted side of the counted == modelled gates.
 
-The `spec=` builds, checkpointed runs and their resume wait for a later
-slice of the port.
+`make_distributed_advect` is the reference's legacy rung: the 1D depth-1
+exchange of the source terms on a (1, ny) mesh.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import roofline as R
@@ -69,16 +82,16 @@ from repro_torch.kernels.advection import advection as K
 from repro_torch.kernels.advection.ref import (AdvectParams, pw_advect_ref,
                                                pw_step_ref)
 from repro_torch.launch.mesh import StencilMesh, dma_neighbor_coords
+from repro_torch.stencil import spec as SP
+from repro_torch.training import checkpoint as CKPT
 
 EXCHANGES = ("collective", "remote_dma")
-LATER_SLICE = ("waits for a later slice of the port (E2: the spec= builds, "
-               "checkpointed runs and their resume)")
 
 # the per-hop band schedule lives in the kernels layer (K7 stores one band
 # per entry); the collective engine and the wire pricing address it here
 _band_schedule = K._band_schedule
 
-Shards = List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+Shards = List[Tuple[torch.Tensor, ...]]
 
 
 class HaloCorrupted(RuntimeError):
@@ -167,11 +180,11 @@ def count_integrity_bytes(fn, shards) -> int:
 # ---------------------------------------------------------------------------
 
 
-def shard(mesh: StencilMesh, u, v, w) -> Shards:
-    """Split global (X, Y, Z) fields into the mesh's (X/nx, Y/ny, Z)
-    shards, each contiguous on its device."""
+def shard(mesh: StencilMesh, *fields) -> Shards:
+    """Split global (X, Y, Z) fields (u, v, w, or a spec's) into the mesh's
+    (X/nx, Y/ny, Z) shards, each contiguous on its device."""
     nx, ny = mesh.shape
-    X, Y = u.shape[0], u.shape[1]
+    X, Y = fields[0].shape[0], fields[0].shape[1]
     if X % nx or Y % ny:
         raise ValueError(f"grid ({X}, {Y}) not divisible by mesh "
                          f"({nx}, {ny}); the mesh requires even shards")
@@ -180,20 +193,20 @@ def shard(mesh: StencilMesh, u, v, w) -> Shards:
     for s, dev in enumerate(mesh.devices):
         ix, iy = mesh.coords(s)
         out.append(tuple(f[ix * Xl:(ix + 1) * Xl, iy * Yl:(iy + 1) * Yl]
-                         .to(dev).contiguous() for f in (u, v, w)))
+                         .to(dev).contiguous() for f in fields))
     return out
 
 
 def gather(mesh: StencilMesh, shards: Shards, device=None):
-    """The global (u, v, w) of `shards`, on `device` (default: the first
-    shard's)."""
+    """The global fields of `shards`, on `device` (default: the first
+    shard's): new tensors, whatever the mesh."""
     dev = shards[0][0].device if device is None else torch.device(device)
     nx, ny = mesh.shape
     return tuple(
         torch.cat([torch.cat([shards[ix * ny + iy][f].to(dev)
                               for iy in range(ny)], dim=1)
                    for ix in range(nx)], dim=0)
-        for f in range(3))
+        for f in range(len(shards[0])))
 
 
 # ---------------------------------------------------------------------------
@@ -249,8 +262,8 @@ def _exchange_band_dma(mesh: StencilMesh, shards: Shards, axis: str,
                        depth: int, dim: int, block_index: int,
                        slabs: K.BandSlabs, tally: _Tally, *,
                        integrity_out=None, corrupt=None) -> Shards:
-    """The remote_dma engine: K7 over every shard's (u, v, w) into `slabs`'
-    extended slabs; returns per shard the extended (u, v, w), views of
+    """The remote_dma engine: K7 over every shard's fields into `slabs`'
+    extended slabs; returns per shard the extended fields, views of
     slot `block_index % 2`. On CPU shards the integrity words and the
     fault hook ride K7's plain version as its `wire`."""
     wire = None
@@ -312,9 +325,11 @@ def _check_step_config(T: int, local_kernel: str, exchange: str) -> None:
 
 
 def _check_integrity_config(verify_integrity: bool, corrupt_halo,
-                            exchange: str, mesh: StencilMesh) -> None:
+                            exchange: str, mesh: StencilMesh,
+                            n_fields: int = 3) -> None:
     """Build-time validation of the integrity knobs: K7 on a CUDA mesh
-    carries neither a checksum channel nor a fault hook."""
+    carries neither a checksum channel nor a fault hook. `n_fields` bounds
+    `corrupt_halo`'s field index: 3 (u, v, w), or `spec.n_fields`."""
     if exchange == "remote_dma" and mesh.is_cuda:
         if verify_integrity:
             raise RuntimeError(
@@ -329,17 +344,37 @@ def _check_integrity_config(verify_integrity: bool, corrupt_halo,
                 "Use exchange='collective' or CPU shards.")
     if corrupt_halo is not None:
         fi, depth, _ = corrupt_halo
-        if not (0 <= int(fi) < 3):
-            raise ValueError(f"corrupt_halo field index must be 0..2, "
-                             f"got {fi}")
+        if not (0 <= int(fi) < n_fields):
+            raise ValueError(f"corrupt_halo field index must be "
+                             f"0..{n_fields - 1}, got {fi}")
         if int(depth) < 1:
             raise ValueError(f"corrupt_halo depth must be >= 1, "
                              f"got {depth}")
 
 
-def _on(params: AdvectParams, device, cache: dict) -> AdvectParams:
+def _check_spec_step_config(spec, T: int, local_kernel: str, exchange: str,
+                            mesh: StencilMesh, verify_integrity: bool = False,
+                            corrupt_halo=None) -> None:
+    """Build-time validation of the spec-driven path."""
+    _check_step_config(T, local_kernel, exchange)
+    if not isinstance(spec, SP.StencilSpec):
+        raise ValueError(f"spec must be a StencilSpec, got {type(spec)!r}")
+    if exchange == "remote_dma" and mesh.is_cuda:
+        raise RuntimeError(
+            "spec-driven steps have no band exchange kernel on the card "
+            "(csrc/band_exchange.cu moves the 3 fields of PW advection, as "
+            "the reference's compiled kernel does); use "
+            "exchange='collective', or CPU shards for its plain version's "
+            "message-for-message schedule.")
+    _check_integrity_config(verify_integrity, corrupt_halo, exchange, mesh,
+                            n_fields=spec.n_fields)
+
+
+def _on(params, device, cache: dict):
+    """`params` (a NamedTuple of arrays: `AdvectParams`, or whatever a
+    spec's `pack_params` takes) with every leaf on `device`, made once."""
     if device not in cache:
-        cache[device] = AdvectParams(*(torch.as_tensor(leaf, device=device)
+        cache[device] = type(params)(*(torch.as_tensor(leaf, device=device)
                                        for leaf in params))
     return cache[device]
 
@@ -351,16 +386,29 @@ class _LocalBlock:
     tables and counters, and each shard's interior masks, from one block
     to the next. `corrupt_halo=(field, rows, value)` damages that field's
     hop-1 hi band on the last exchanged phase (y when y is decomposed,
-    else x)."""
+    else x).
 
-    def __init__(self, mesh: StencilMesh, params: AdvectParams, *, T: int,
+    With `spec` (and `spec_params`) the block is the reference's
+    `_build_spec_local_block`: `spec.n_fields` fields exchanged once at
+    depth D = `spec.halo(T)`, walls `spec.radius` cells wide, the local
+    update K6 (`fused`) or `spec_sources` under the masks (`reference`).
+    Without, D = T, the radius 1 and the fields (u, v, w)."""
+
+    def __init__(self, mesh: StencilMesh, params, *, T: int,
                  dt: float, local_kernel: str, y_tile: Optional[int],
                  overlap: bool, exchange: str,
-                 verify_integrity: bool = False, corrupt_halo=None):
+                 verify_integrity: bool = False, corrupt_halo=None,
+                 spec=None):
         self.mesh, self.params, self.T, self.dt = mesh, params, T, dt
         self.local_kernel, self.y_tile = local_kernel, y_tile
         self.overlap, self.exchange = overlap, exchange
         self.verify, self.corrupt_halo = verify_integrity, corrupt_halo
+        self.spec = spec
+        if spec is None:
+            self.n_fields, self.radius, self.depth = 3, 1, T
+        else:
+            self.n_fields, self.radius = spec.n_fields, spec.radius
+            self.depth = spec.halo(T)
         self.buffers: Optional[K.ExtendedBuffers] = None
         self.slabs: Dict[str, K.BandSlabs] = {}
         self.tally = _Tally()
@@ -369,9 +417,9 @@ class _LocalBlock:
 
     def _mask(self, x_int, y_int, device):
         """A pass's interior mask in the form its local kernel takes: the
-        (x, y) f32 pair of K1, or one broadcast bool for the reference; a
-        None mask leaves that axis all-interior (the slab edge is the true
-        boundary)."""
+        (x, y) f32 pair of K1 and K6, or one broadcast bool for the
+        reference; a None mask leaves that axis all-interior (the slab edge
+        is the true boundary)."""
         if self.local_kernel == "fused":
             return tuple(None if m is None else m.float()
                          for m in (x_int, y_int))
@@ -389,15 +437,17 @@ class _LocalBlock:
         key = (s, Xl, Yl)
         if key in self._masks:
             return self._masks[key]
-        mesh, T = self.mesh, self.T
+        mesh, D, r = self.mesh, self.depth, self.radius
         n_x, n_y = mesh.shape
         X_g, Y_g = n_x * Xl, n_y * Yl
         ix, iy = mesh.coords(s)
         dev = mesh.devices[s]
 
         def interior(lo, n, extent):
+            # the wall is `radius` cells wide: a radius-r stencil carries
+            # no value past r frozen cells
             g = lo + torch.arange(n, device=dev)
-            return (g >= 1) & (g <= extent - 2)
+            return (g >= r) & (g <= extent - 1 - r)
 
         # global-interior masks over the slab coordinates
         ext = self._mask(interior(ix * Xl - dx, Xl + 2 * dx, X_g) if dx
@@ -406,7 +456,7 @@ class _LocalBlock:
                          else None, dev)
         own = sel = None
         if self.overlap and (dx or dy):
-            # interior pass: owned slab only; the cut edges contaminate < T
+            # interior pass: owned slab only; the cut edges contaminate < D
             # cells inward, which the select drops
             own = self._mask(interior(ix * Xl, Xl, X_g) if dx else None,
                              interior(iy * Yl, Yl, Y_g) if dy else None, dev)
@@ -415,31 +465,44 @@ class _LocalBlock:
             ok_x = torch.ones(Xl, dtype=torch.bool, device=dev)
             ok_y = torch.ones(Yl, dtype=torch.bool, device=dev)
             if dx:
-                ok_x = (((ix == 0) | (sx >= T))
-                        & ((ix == n_x - 1) | (sx < Xl - T)))
+                ok_x = (((ix == 0) | (sx >= D))
+                        & ((ix == n_x - 1) | (sx < Xl - D)))
             if dy:
-                ok_y = (((iy == 0) | (sy >= T))
-                        & ((iy == n_y - 1) | (sy < Yl - T)))
+                ok_y = (((iy == 0) | (sy >= D))
+                        & ((iy == n_y - 1) | (sy < Yl - D)))
             sel = (ok_x[:, None] & ok_y[None, :])[:, :, None]
         self._masks[key] = (ext, own, sel)
         return self._masks[key]
 
-    def _substeps(self, us, vs, ws, mask):
-        """T masked Euler substeps on a (halo'd) slab under `_mask`'s
-        mask."""
-        p = _on(self.params, us.device, self._params)
-        T, dt = self.T, self.dt
+    def _substeps(self, fields, mask):
+        """T masked integrator steps on a (halo'd) slab under `_mask`'s
+        mask: Euler steps of PW advection, or the spec's."""
+        p = _on(self.params, fields[0].device, self._params)
+        T, dt, spec = self.T, self.dt, self.spec
         if self.local_kernel == "fused":
-            return K.advect_fused(us, vs, ws, p, T=T, dt=dt,
+            if spec is not None:
+                return K.stencil_fused(fields, p, spec, T=T, dt=dt,
+                                       y_tile=self.y_tile,
+                                       x_interior_mask=mask[0],
+                                       y_interior_mask=mask[1])
+            return K.advect_fused(*fields, p, T=T, dt=dt,
                                   y_tile=self.y_tile, x_interior_mask=mask[0],
                                   y_interior_mask=mask[1])
         m = mask
+        fields = tuple(fields)
         for _ in range(T):
-            su, sv, sw = pw_advect_ref(us, vs, ws, p)
-            us = us + dt * torch.where(m, su, 0.0)
-            vs = vs + dt * torch.where(m, sv, 0.0)
-            ws = ws + dt * torch.where(m, sw, 0.0)
-        return us, vs, ws
+            if spec is None:
+                srcs = pw_advect_ref(*fields, p)
+            elif spec.integrator == "rk2":
+                s0 = SP.spec_sources(fields, p, spec)
+                g = tuple(f + (0.5 * dt) * torch.where(m, s, 0.0)
+                          for f, s in zip(fields, s0))
+                srcs = SP.spec_sources(g, p, spec)
+            else:
+                srcs = SP.spec_sources(fields, p, spec)
+            fields = tuple(f + dt * torch.where(m, s, 0.0)
+                           for f, s in zip(fields, srcs))
+        return fields
 
     def _band_slabs(self, shape, dx: int, dy: int) -> None:
         """K7's extended slabs for shards of `shape`, made once: one set of
@@ -450,7 +513,9 @@ class _LocalBlock:
                                                                (dx, dy)):
             return
         Xl, Yl, Z = shape
-        self.buffers = K.ExtendedBuffers(self.mesh, shape, (dx, dy))
+        n = self.n_fields
+        self.buffers = K.ExtendedBuffers(self.mesh, shape, (dx, dy),
+                                         n_fields=n)
         self.slabs = {}
         if dx:
             self.slabs["x"] = K.BandSlabs(self.mesh, shape, dx, 0,
@@ -461,26 +526,26 @@ class _LocalBlock:
 
     def _extend(self, fields: Shards, axis: str, dim: int, block_index,
                 integrity_out, corrupt_dim) -> Shards:
-        """One phase: every shard's (u, v, w) extended by T planes/rows on
+        """One phase: every shard's fields extended by D planes/rows on
         both sides along `dim`, whichever engine moved them. With
         `remote_dma` the slabs are views of K7's persistent buffers, where
         the exchange put the shard and its bands; the collective engine
         concatenates."""
-        T, ch = self.T, self.corrupt_halo
+        D, ch = self.depth, self.corrupt_halo
         if self.exchange == "remote_dma":
             corrupt = (None if ch is None or corrupt_dim != dim
                        else (int(ch[0]), int(ch[1]), ch[2]))
-            return _exchange_band_dma(self.mesh, fields, axis, T, dim,
+            return _exchange_band_dma(self.mesh, fields, axis, D, dim,
                                       block_index, self.slabs[axis],
                                       self.tally,
                                       integrity_out=integrity_out,
                                       corrupt=corrupt)
         per_field = []
-        for fi in range(3):
+        for fi in range(self.n_fields):
             corrupt = (None if ch is None or corrupt_dim != dim
                        or fi != int(ch[0]) else (int(ch[1]), ch[2]))
             per_field.append(_exchange_halos(
-                self.mesh, [f[fi] for f in fields], axis, T, dim,
+                self.mesh, [f[fi] for f in fields], axis, D, dim,
                 tally=self.tally, integrity_out=integrity_out,
                 corrupt=corrupt))
         bands = [tuple(pf[s] for pf in per_field)
@@ -492,7 +557,7 @@ class _LocalBlock:
     def _exchange(self, shards: Shards, block_index, dx: int, dy: int,
                   integrity_out=None, corrupt_dim=None) -> Shards:
         """The two-phase exchange: x first, then y on the x-extended slab;
-        per shard the (u, v, w) the boundary pass reads."""
+        per shard the fields the boundary pass reads."""
         fields = shards
         if self.exchange == "remote_dma":
             self._band_slabs(tuple(shards[0][0].shape), dx, dy)
@@ -510,23 +575,27 @@ class _LocalBlock:
             slabs.check()
 
     def __call__(self, shards: Shards, block_index: int):
-        mesh, T = self.mesh, self.T
+        mesh, D, r = self.mesh, self.depth, self.radius
         n_x, n_y = mesh.shape
         if len(shards) != len(mesh.devices):
             raise ValueError(f"{len(shards)} shards given for a mesh of "
                              f"{len(mesh.devices)}")
+        if len(shards[0]) != self.n_fields:
+            raise ValueError(f"shards hold {len(shards[0])} fields, the "
+                             f"step {self.n_fields}")
         Xl, Yl, _ = shards[0][0].shape
         X_g, Y_g = n_x * Xl, n_y * Yl
-        dx = T if n_x > 1 else 0
-        dy = T if n_y > 1 else 0
-        if dy and T > Y_g - 2:
+        dx = D if n_x > 1 else 0
+        dy = D if n_y > 1 else 0
+        what = "T" if self.spec is None else "spec.halo(T)"
+        if dy and D > Y_g - 2 * r:
             raise ValueError(
-                f"halo depth T={T} exceeds the decomposable global Y "
-                f"extent ({Y_g} rows, interior {Y_g - 2}); lower T")
-        if dx and T > X_g - 2:
+                f"halo depth {what}={D} exceeds the decomposable global Y "
+                f"extent ({Y_g} rows, interior {Y_g - 2 * r}); lower T")
+        if dx and D > X_g - 2 * r:
             raise ValueError(
-                f"halo depth T={T} exceeds the decomposable global X "
-                f"extent ({X_g} planes, interior {X_g - 2}); lower T")
+                f"halo depth {what}={D} exceeds the decomposable global X "
+                f"extent ({X_g} planes, interior {X_g - 2 * r}); lower T")
         self.tally.blocks += 1
         integrity_out = [[] for _ in shards] if self.verify else None
         corrupt_dim = None
@@ -540,11 +609,11 @@ class _LocalBlock:
             ext_mask, own_mask, sel = self._shard_masks(s, Xl, Yl, dx, dy)
             # boundary pass (consumes the exchange), trimmed to owned rows
             bnd = tuple(f[dx:dx + Xl, dy:dy + Yl]
-                        for f in self._substeps(*ext, ext_mask))
+                        for f in self._substeps(ext, ext_mask))
             if sel is None:
                 out.append(tuple(f.contiguous() for f in bnd))
                 continue
-            inner = self._substeps(*own, own_mask)
+            inner = self._substeps(own, own_mask)
             out.append(tuple(torch.where(sel, i, b)
                              for i, b in zip(inner, bnd)))
         mismatch = None
@@ -559,6 +628,26 @@ class _LocalBlock:
 def _flags(mesh: StencilMesh, mismatch) -> torch.Tensor:
     """Per-shard mismatch counts as an (nx, ny) int64 tensor on the CPU."""
     return torch.stack([m.cpu() for m in mismatch]).reshape(mesh.shape)
+
+
+def _build_block(mesh: StencilMesh, params, *, T: int, dt: float,
+                 local_kernel: str, y_tile: Optional[int], overlap: bool,
+                 exchange: str, verify_integrity: bool, corrupt_halo,
+                 spec, spec_params) -> _LocalBlock:
+    """The checked `_LocalBlock` of a step or run: PW advection, or with
+    `spec` the spec's fields and `spec_params`."""
+    if spec is not None:
+        _check_spec_step_config(spec, T, local_kernel, exchange, mesh,
+                                verify_integrity, corrupt_halo)
+        params = spec_params
+    else:
+        _check_integrity_config(verify_integrity, corrupt_halo, exchange,
+                                mesh)
+        _check_step_config(T, local_kernel, exchange)
+    return _LocalBlock(mesh, params, T=T, dt=dt, local_kernel=local_kernel,
+                       y_tile=y_tile, overlap=overlap, exchange=exchange,
+                       verify_integrity=verify_integrity,
+                       corrupt_halo=corrupt_halo, spec=spec)
 
 
 def make_distributed_step(mesh: StencilMesh, params: AdvectParams, *,
@@ -583,19 +672,22 @@ def make_distributed_step(mesh: StencilMesh, params: AdvectParams, *,
     module docstring; `dma_block_index` is the block number k whose parity
     selects K7's recv slot.
 
+    `spec=` (a `StencilSpec`, with `spec_params=` whatever its
+    `pack_params` takes; `params` is then unused) makes the shards hold
+    `spec.n_fields` fields and the one exchange run at depth
+    ``spec.halo(T) = radius * stages * T``, the bound being that depth <=
+    global extent - 2 * radius.
+
     `verify_integrity=True` makes the step return ``(shards, flags)``,
     flags being the (nx, ny) int64 per-shard count of band checksum
     mismatches (`check_integrity` raises on any); the fields are the same
     bits as unverified. `corrupt_halo=(field_idx, rows, value)` is the
-    matching fault hook. `spec=` waits for a later slice."""
-    if spec is not None or spec_params is not None:
-        raise NotImplementedError(f"spec= {LATER_SLICE}")
-    _check_integrity_config(verify_integrity, corrupt_halo, exchange, mesh)
-    _check_step_config(T, local_kernel, exchange)
-    block = _LocalBlock(mesh, params, T=T, dt=dt, local_kernel=local_kernel,
-                        y_tile=y_tile, overlap=overlap, exchange=exchange,
-                        verify_integrity=verify_integrity,
-                        corrupt_halo=corrupt_halo)
+    matching fault hook."""
+    block = _build_block(mesh, params, T=T, dt=dt, local_kernel=local_kernel,
+                         y_tile=y_tile, overlap=overlap, exchange=exchange,
+                         verify_integrity=verify_integrity,
+                         corrupt_halo=corrupt_halo, spec=spec,
+                         spec_params=spec_params)
 
     def step(shards: Shards):
         out, mismatch = block(shards, dma_block_index)
@@ -606,6 +698,64 @@ def make_distributed_step(mesh: StencilMesh, params: AdvectParams, *,
     return step
 
 
+def _run_blocks(block: _LocalBlock, shards: Shards, start: int, end: int):
+    """Blocks [start, end) of a run (start < end), block k exchanging into
+    slot k % 2; returns (shards, per-shard mismatch counts summed over the
+    span, or None unverified)."""
+    total = None
+    for k in range(start, end):
+        shards, mismatch = block(shards, k)
+        if block.verify:
+            total = (mismatch if total is None
+                     else [a + b for a, b in zip(total, mismatch)])
+    block.check()
+    return shards, total
+
+
+_STATE_FIELDS = ("u", "v", "w")
+
+
+def _run_state(mesh: StencilMesh, shards: Shards, block: int,
+               flags) -> dict:
+    """The checkpoint leaf dict, the reference's: the global fields
+    gathered to host numpy, the block index and the recv-slot parity K7's
+    double buffering depends on (stored redundantly: resume refuses a
+    parity that disagrees with the block), and with verification the
+    (nx, ny) mismatch counts as uint32."""
+    state = {k: g.cpu().numpy()
+             for k, g in zip(_STATE_FIELDS, gather(mesh, shards))}
+    state["block"] = np.int64(block)
+    state["parity"] = np.int64(block % 2)
+    if flags is not None:
+        state["mismatches"] = np.asarray(flags, dtype=np.uint32)
+    return state
+
+
+def _checkpointed_segments(block: _LocalBlock, checkpoint_dir,
+                           shards: Shards, *, start: int, n_blocks: int,
+                           every: int, flags, keep_last: int,
+                           save_initial: bool):
+    """Run blocks [start, n_blocks) in `every`-block segments, saving a
+    checkpoint at each boundary and the last block through
+    `training.checkpoint`'s atomic writes. `flags` carries the mismatch
+    counts summed before `start` (restored on resume), so a resumed run's
+    flags equal the uninterrupted run's."""
+    mesh = block.mesh
+    if save_initial:
+        CKPT.save(checkpoint_dir, _run_state(mesh, shards, start, flags),
+                  start, keep_last=keep_last)
+    b = start
+    while b < n_blocks:
+        e = min(b + every, n_blocks)
+        shards, span = _run_blocks(block, shards, b, e)
+        if flags is not None:
+            flags = flags + _flags(mesh, span)
+        b = e
+        CKPT.save(checkpoint_dir, _run_state(mesh, shards, b, flags), b,
+                  keep_last=keep_last)
+    return (shards, flags) if flags is not None else shards
+
+
 def make_distributed_run(mesh: StencilMesh, params: AdvectParams, *,
                          n_blocks: int, T: int = 1, dt: float = 1.0,
                          local_kernel: str = "reference",
@@ -614,39 +764,174 @@ def make_distributed_run(mesh: StencilMesh, params: AdvectParams, *,
                          exchange: str = "collective",
                          verify_integrity: bool = False,
                          checkpoint_every: Optional[int] = None,
-                         checkpoint_dir=None, spec=None, spec_params=None):
-    """Returns run(shards): `n_blocks` substep-blocks (n_blocks * T Euler
-    substeps, one depth-T exchange per block), block k exchanging into
+                         checkpoint_dir=None, keep_last: int = 3,
+                         spec=None, spec_params=None):
+    """Returns run(shards): `n_blocks` substep-blocks (n_blocks * T
+    integrator steps, one exchange per block), block k exchanging into
     K7's recv slot k % 2 through slabs and counters kept across the
     blocks. Exactly `n_blocks` sequential `make_distributed_step` calls
     with `dma_block_index = 0 .. n_blocks-1`, bitwise. With
     `verify_integrity` the run returns ``(shards, flags)``, the counts
-    summed over the blocks. `checkpoint_every`, `checkpoint_dir` and
-    `spec=` wait for a later slice."""
+    summed over the blocks. `spec=` means what it means on
+    `make_distributed_step`.
+
+    `checkpoint_every=k` with `checkpoint_dir=` saves the global (u, v, w),
+    the block index and the slot parity (`_run_state`, the reference's
+    leaf dict) through `training.checkpoint` at block 0, every k-block
+    boundary and the last block, `keep_last` bounding the disk; a run
+    stopped on the way continues through `resume_distributed_run`, bitwise
+    the uninterrupted run. The spec-driven run takes no checkpoints, as in
+    the reference."""
     if n_blocks < 1:
         raise ValueError(f"n_blocks must be >= 1, got {n_blocks}")
-    if checkpoint_every is not None or checkpoint_dir is not None:
-        raise NotImplementedError(f"checkpointed runs {LATER_SLICE}")
-    if spec is not None or spec_params is not None:
-        raise NotImplementedError(f"spec= {LATER_SLICE}")
-    _check_integrity_config(verify_integrity, None, exchange, mesh)
-    _check_step_config(T, local_kernel, exchange)
-    block = _LocalBlock(mesh, params, T=T, dt=dt, local_kernel=local_kernel,
-                        y_tile=y_tile, overlap=overlap, exchange=exchange,
-                        verify_integrity=verify_integrity)
+    if (checkpoint_every is None) != (checkpoint_dir is None):
+        raise ValueError("checkpoint_every and checkpoint_dir come "
+                         "together: both or neither")
+    if spec is not None and checkpoint_every is not None:
+        raise ValueError(
+            "checkpointing is not wired to the spec-driven run yet "
+            "(the snapshot leaf dict is (u, v, w)-specific); run "
+            "without spec= or without checkpoint_every=")
+    block = _build_block(mesh, params, T=T, dt=dt, local_kernel=local_kernel,
+                         y_tile=y_tile, overlap=overlap, exchange=exchange,
+                         verify_integrity=verify_integrity,
+                         corrupt_halo=None, spec=spec,
+                         spec_params=spec_params)
 
-    def run(shards: Shards):
-        total = None
-        for k in range(n_blocks):
-            shards, mismatch = block(shards, k)
-            if verify_integrity:
-                total = (mismatch if total is None
-                         else [a + b for a, b in zip(total, mismatch)])
-        block.check()
-        return (shards, _flags(mesh, total)) if verify_integrity else shards
+    if checkpoint_every is None:
+        def run(shards: Shards):
+            shards, total = _run_blocks(block, shards, 0, n_blocks)
+            return ((shards, _flags(mesh, total)) if verify_integrity
+                    else shards)
+    else:
+        if checkpoint_every < 1:
+            raise ValueError(f"checkpoint_every must be >= 1, "
+                             f"got {checkpoint_every}")
+        flag0 = (torch.zeros(mesh.shape, dtype=torch.int64)
+                 if verify_integrity else None)
+
+        def run(shards: Shards):
+            return _checkpointed_segments(
+                block, checkpoint_dir, shards, start=0, n_blocks=n_blocks,
+                every=checkpoint_every, flags=flag0, keep_last=keep_last,
+                save_initial=True)
 
     run.tally = block.tally
     return run
+
+
+def resume_distributed_run(mesh: StencilMesh, params: AdvectParams,
+                           shards: Shards, *, n_blocks: int, checkpoint_dir,
+                           checkpoint_every: Optional[int] = None,
+                           step: Optional[int] = None, T: int = 1,
+                           dt: float = 1.0, local_kernel: str = "reference",
+                           y_tile: Optional[int] = None,
+                           overlap: bool = False,
+                           exchange: str = "collective",
+                           verify_integrity: bool = False,
+                           keep_last: int = 3):
+    """Restore the latest (or `step=`) checkpoint a checkpointing
+    `make_distributed_run` wrote under `checkpoint_dir` (this package's or
+    the reference's) and continue to `n_blocks`, returning what the
+    uninterrupted run would have, bitwise: the restored block index feeds
+    the slot parity, so the replayed blocks are the blocks the stopped run
+    would have run.
+
+    `shards` are templates (one (u, v, w) per shard, as the run takes):
+    their shape is checked against the snapshot and their values are
+    replaced by it. `checkpoint_every=None` continues in one segment, still
+    writing the last checkpoint. A checkpoint whose stored parity
+    disagrees with its block index, or whose step disagrees with the
+    stored block, is refused with a ValueError naming the inconsistency.
+    Build arguments must match the original run's."""
+    if n_blocks < 1:
+        raise ValueError(f"n_blocks must be >= 1, got {n_blocks}")
+    block = _build_block(mesh, params, T=T, dt=dt, local_kernel=local_kernel,
+                         y_tile=y_tile, overlap=overlap, exchange=exchange,
+                         verify_integrity=verify_integrity,
+                         corrupt_halo=None, spec=None, spec_params=None)
+    like = {k: 0 for k in _STATE_FIELDS + ("block", "parity")}
+    if verify_integrity:
+        like["mismatches"] = 0
+    state, disk_step = CKPT.restore(checkpoint_dir, like, step=step)
+    at = int(state["block"])
+    parity = int(state["parity"])
+    if parity != at % 2:
+        raise ValueError(
+            f"checkpoint step {disk_step} under {checkpoint_dir} is "
+            f"inconsistent: stored recv-slot parity {parity} != block "
+            f"{at} % 2; refusing to resume into a wrong DMA slot")
+    if disk_step != at:
+        raise ValueError(
+            f"checkpoint step {disk_step} under {checkpoint_dir} stores "
+            f"block index {at}; refusing to resume an inconsistent "
+            f"snapshot")
+    nx, ny = mesh.shape
+    Xl, Yl, Z = shards[0][0].shape
+    want = (nx * Xl, ny * Yl, Z)
+    for k in _STATE_FIELDS:
+        if tuple(state[k].shape) != want:
+            raise ValueError(f"checkpoint step {disk_step} holds {k} of "
+                             f"{tuple(state[k].shape)}, the mesh's shards "
+                             f"make {want}")
+    shards = shard(mesh, *(torch.from_numpy(np.ascontiguousarray(state[k]))
+                           for k in _STATE_FIELDS))
+    flags = None
+    if verify_integrity:
+        flags = torch.from_numpy(np.asarray(
+            state["mismatches"], dtype=np.int64)).reshape(mesh.shape)
+    if at >= n_blocks:
+        return (shards, flags) if verify_integrity else shards
+    every = checkpoint_every if checkpoint_every else n_blocks - at
+    if every < 1:
+        raise ValueError(f"checkpoint_every must be >= 1, got {every}")
+    return _checkpointed_segments(block, checkpoint_dir, shards, start=at,
+                                  n_blocks=n_blocks, every=every,
+                                  flags=flags, keep_last=keep_last,
+                                  save_initial=False)
+
+
+def make_distributed_advect(mesh: StencilMesh, params: AdvectParams):
+    """Returns advect(shards): the PW source terms of the global (u, v, w)
+    on a (1, ny) mesh, per shard. The reference's LEGACY rung, the original
+    1D depth-1 source-only exchange: each shard computes its sources
+    without halos, exchanges one row each way, recomputes its two edge rows
+    from the halo'd slab and keeps those beside a cut (the global boundary
+    rows keep the unhalo'd, walled result)."""
+    if mesh.shape[0] != 1:
+        raise ValueError(f"make_distributed_advect decomposes y alone: it "
+                         f"takes a (1, ny) mesh, got {mesh.shape}")
+    n = mesh.shape[1]
+    cache: dict = {}
+    tally = _Tally()
+
+    def advect(shards: Shards):
+        if len(shards) != n:
+            raise ValueError(f"{len(shards)} shards given for a mesh of {n}")
+        tally.blocks += 1
+        halos = [_exchange_halos(mesh, [s[f] for s in shards], "y", 1, 1,
+                                 tally=tally) for f in range(3)]
+        out = []
+        for s, (u, v, w) in enumerate(shards):
+            p = _on(params, u.device, cache)
+            interior = pw_advect_ref(u, v, w, p)
+            full = pw_advect_ref(*(torch.cat([halos[f][s][0], fld,
+                                              halos[f][s][1]], dim=1)
+                                   for f, fld in enumerate((u, v, w))), p)
+            band = [t[:, 1:-1] for t in full]
+            Y = u.shape[1]
+            rows = torch.arange(Y, device=u.device)
+            idx = mesh.coords(s)[1]
+            edge = (rows < 1) | (rows >= Y - 1)
+            glob = ((rows < 1) & (idx == 0)) | ((rows >= Y - 1)
+                                                & (idx == n - 1))
+            sel = (edge & ~glob)[None, :, None]
+            out.append(tuple(torch.where(sel, b, i)
+                             for b, i in zip(band, interior)))
+        return out
+
+    advect.tally = tally
+    return advect
 
 
 def reference_global(u, v, w, params: AdvectParams):
@@ -660,3 +945,11 @@ def reference_global_step(u, v, w, params: AdvectParams, *, T: int = 1,
     for _ in range(T):
         u, v, w = pw_step_ref(u, v, w, params, dt)
     return u, v, w
+
+
+def reference_global_spec_step(fields, spec_params, spec, *, T: int = 1,
+                               dt: float = 1.0):
+    """Single-device T-step oracle for the spec-driven step:
+    `spec_multistep`'s zero_source wall is the global-interior mask every
+    shard applies, so the sharded step reproduces it for any mesh shape."""
+    return SP.spec_multistep(fields, spec_params, spec, T, dt)

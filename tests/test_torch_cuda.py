@@ -1064,3 +1064,113 @@ def test_stencil_engine_faults_on_the_card_equal_the_cpu_run(cuda):
         if uid != quid:
             assert all(np.array_equal(a, b)
                        for a, b in zip(req.out, clean[uid].out))
+
+
+# --- the rest of the distributed path: spec runs, checkpoints, recovery ----
+
+@pytest.mark.parametrize("op,integrator,T", [("tracer", "euler", 2),
+                                             ("diffusion", "rk2", 2)])
+def test_distributed_spec_run_on_k6_equals_plain(cuda, op, integrator, T):
+    """A (2, 2) loopback spec run of 2 blocks on the card: K6 twice per
+    shard, pass and block (boundary and interior), no K1 or K7 launch, ==
+    the CPU run (K6's plain version), bitwise."""
+    from repro_torch.stencil import distributed as TD
+    X, Y, Z = 8, 12, 16
+    if op == "tracer":
+        u, v, w = fields((X, Y, Z), 7, "cpu")
+        flds = (u, v, w, TSP.tracer_field(X, Y, Z, device="cpu"))
+        spec = TSP.tracer_advection_spec(integrator)
+        sp, dt = TREF.default_params(Z, device="cpu"), DT
+    else:
+        flds = (TSP.diffusion_field(X, Y, Z, device="cpu"),)
+        spec = TSP.diffusion_spec(integrator)
+        sp, dt = TSP.default_diffusion_params(Z, device="cpu"), 1.0
+    p = TREF.default_params(Z, device="cpu")
+    mesh = loopback_cuda(2, 2)
+    cpu_mesh = type(mesh)((2, 2), (torch.device("cpu"),) * 4)
+    outs = []
+    for m in (mesh, cpu_mesh):
+        run = TD.make_distributed_run(m, p, n_blocks=2, T=T, dt=dt,
+                                      local_kernel="fused", overlap=True,
+                                      spec=spec, spec_params=sp)
+        shards = TD.shard(m, *flds)
+        TK.reset_launch_counts()
+        out = run(shards)
+        if m is mesh:
+            torch.cuda.synchronize()
+            passes = len(TK.spec_passes(spec, T))
+            assert TK.LAUNCHES["stencil_fused"] == 2 * 4 * passes * 2
+            assert TK.LAUNCHES["advect_fused"] == 0
+            assert TK.LAUNCHES["band_exchange"] == 0
+        outs.append([f.cpu() for f in TD.gather(m, out)])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_distributed_spec_remote_dma_refused_on_the_card(cuda):
+    from repro_torch.stencil import distributed as TD
+    mesh = loopback_cuda(2, 2)
+    p = TREF.default_params(16, device=cuda)
+    spec = TSP.tracer_advection_spec()
+    TK.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no band exchange kernel"):
+        TD.make_distributed_run(mesh, p, n_blocks=2, exchange="remote_dma",
+                                spec=spec, spec_params=p)
+    assert sum(TK.LAUNCHES.values()) == 0
+
+
+def test_checkpointed_run_resumes_bitwise_on_the_card(cuda, tmp_path):
+    """PW on K1 and K7 over a (2, 2) loopback mesh: checkpointed == the
+    plain run; stopped at block 3 and resumed to 4 == the same, bitwise."""
+    from repro_torch.stencil import distributed as TD
+    mesh = loopback_cuda(2, 2)
+    u, v, w = fields((8, 12, 16), 8, cuda)
+    p = TREF.default_params(16, device=cuda)
+    kw = dict(T=2, dt=DT, local_kernel="fused", overlap=True,
+              exchange="remote_dma")
+    full = TD.gather(mesh, TD.make_distributed_run(mesh, p, n_blocks=4, **kw)(
+        TD.shard(mesh, u, v, w)))
+    ck = TD.make_distributed_run(mesh, p, n_blocks=4, checkpoint_every=2,
+                                 checkpoint_dir=str(tmp_path / "ck"), **kw)
+    assert all(torch.equal(a, b) for a, b in zip(
+        full, TD.gather(mesh, ck(TD.shard(mesh, u, v, w)))))
+    TD.make_distributed_run(mesh, p, n_blocks=3, checkpoint_every=2,
+                            checkpoint_dir=str(tmp_path / "part"), **kw)(
+        TD.shard(mesh, u, v, w))
+    res = TD.resume_distributed_run(mesh, p, TD.shard(mesh, u, v, w),
+                                    n_blocks=4,
+                                    checkpoint_dir=str(tmp_path / "part"),
+                                    **kw)
+    assert all(f.device == torch.device("cuda", 0) for s in res for f in s)
+    assert all(torch.equal(a, b) for a, b in zip(full, TD.gather(mesh, res)))
+
+
+def test_reshard_keeps_every_shard_on_the_loopback_card(cuda, monkeypatch):
+    """A device loss and a device return on a (1, 4) loopback mesh of
+    cuda:0: every step the run builds lies on cuda:0 alone, and the result
+    == the clean run, bitwise."""
+    from repro_torch.serving import faults as TF
+    from repro_torch.stencil import distributed as TD
+    mesh = loopback_cuda(1, 4)
+    assert set(TF._resized_mesh(mesh, 1, 2).devices) == {
+        torch.device("cuda", 0)}
+    u, v, w = fields((6, 16, 12), 9, cuda)
+    p = TREF.default_params(12, device=cuda)
+    kw = dict(n_blocks=4, T=2, dt=DT, local_kernel="fused")
+    clean = TD.gather(mesh, TD.make_distributed_run(
+        mesh, p, exchange="remote_dma", **kw)(TD.shard(mesh, u, v, w)))
+    built = []
+    real = TD.make_distributed_step
+
+    def spy(m, params, **k):
+        built.append((m.shape, set(m.devices)))
+        return real(m, params, **k)
+
+    monkeypatch.setattr(TD, "make_distributed_step", spy)
+    plan = TF.FaultPlan.parse("device_loss@1:reshard_to=2;"
+                              "device_loss@3:reshard_to=4")
+    out, inj = TF.resilient_distributed_run(
+        mesh, p, u, v, w, injector=TF.FaultInjector(plan), **kw)
+    assert inj.health()["reshards"] == 2
+    assert {s for s, _ in built} == {(1, 4), (1, 2)}
+    assert all(d == {torch.device("cuda", 0)} for _, d in built)
+    assert all(torch.equal(a, b) for a, b in zip(out, clean))

@@ -29,6 +29,7 @@ from repro_torch.kernels.advection.ref import default_params
 from repro_torch.launch import mesh as TM
 from repro_torch.stencil import advection as TSA
 from repro_torch.stencil import distributed as TD
+from repro_torch.stencil import spec as TSP
 
 DT = 0.01
 GRID = (8, 12, 8)
@@ -858,13 +859,17 @@ def test_step_refusals():
     with pytest.raises(ValueError, match="exceeds the decomposable global X"):
         step = TD.make_distributed_step(loopback(4, 1), p, T=7)
         step(TD.shard(loopback(4, 1), u, v, w))
-    with pytest.raises(NotImplementedError, match="spec="):
+    with pytest.raises(ValueError, match="spec must be a StencilSpec"):
         TD.make_distributed_step(mesh, p, spec=object())
-    with pytest.raises(NotImplementedError, match="spec="):
+    with pytest.raises(ValueError, match="spec must be a StencilSpec"):
         TD.make_distributed_run(mesh, p, n_blocks=2, spec=object())
-    with pytest.raises(NotImplementedError, match="checkpointed runs"):
+    with pytest.raises(ValueError, match="checkpointing is not wired to the "
+                                         "spec-driven run"):
         TD.make_distributed_run(mesh, p, n_blocks=2, checkpoint_every=1,
-                                checkpoint_dir="ck")
+                                checkpoint_dir="ck",
+                                spec=TSP.pw_advection_spec(), spec_params=p)
+    with pytest.raises(ValueError, match="come together"):
+        TD.make_distributed_run(mesh, p, n_blocks=2, checkpoint_every=1)
     with pytest.raises(ValueError, match="n_blocks must be"):
         TD.make_distributed_run(mesh, p, n_blocks=0)
     with pytest.raises(ValueError, match="T must be"):

@@ -5,9 +5,12 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from _prop import given, settings, st
 from repro.serving import faults as JF
+from repro_torch.kernels.advection.ref import default_params
+from repro_torch.launch import mesh as TM
 from repro_torch.serving import faults as TF
 
 
@@ -262,6 +265,18 @@ def test_retry_with_backoff_refusals_and_other_errors():
 
 
 def test_resilient_distributed_run_names_its_slice():
-    with pytest.raises(NotImplementedError, match="E2"):
-        TF.resilient_distributed_run(None, None, None, None, None,
-                                     n_blocks=1)
+    """The run is ported (tests/test_torch_recovery.py holds it against
+    the reference); what stays here is its refusals, the reference's."""
+    mesh = TM.make_stencil_mesh(1, 2, devices=["cpu"] * 2)
+    u = torch.zeros(4, 4, 4)
+    args = (mesh, default_params(4, device="cpu"), u, u, u)
+    with pytest.raises(ValueError, match="ladder must start on an exchange "
+                                         "rung"):
+        TF.resilient_distributed_run(*args, n_blocks=1,
+                                     ladder=TF.DegradationLadder(
+                                         TF.ELASTIC_LADDER,
+                                         start=TF.MESH_SHRINK))
+    with pytest.raises(ValueError, match="checkpoint_every must be"):
+        TF.resilient_distributed_run(*args, n_blocks=1, checkpoint_every=0)
+    with pytest.raises(ValueError, match="max_replays must be"):
+        TF.resilient_distributed_run(*args, n_blocks=1, max_replays=-1)
