@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only stencil_serving   # phases 19-20 alone
     python3 chip_smoke.py --only distributed_spec  # phase 21 alone
     python3 chip_smoke.py --only recovery          # phases 22-23 alone
+    python3 chip_smoke.py --only families          # phases 24-28 alone
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 
@@ -208,7 +209,44 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    `health()` == a CPU run of the same plan on a small grid; prints each
    run's wall seconds and the share spent in snapshots.
 
+24. drives the hybrid family at the full width and depth of
+   `recurrentgemma-9b` (38 layers, 38.5 GB of f32 weights drawn on the
+   card, bf16 compute, `attention_impl="pallas"`): serve.py's traffic on
+   rings of min(window, max_len) = 128 slots, no kernel launched (the
+   window takes its attention to `attn_local`, ahead of `pallas`, and the
+   RG-LRU has no kernel); then a 3072-token prompt in f32 (past the window
+   of 2048; `attn_local` pads to 4096) and 16 greedy decode steps on a
+   ring of 2048, each step's logits == a full forward over prompt + fed
+   tokens within `RG_DECODE_F32_TOL`;
+25. drives the moe family at full width with bf16 weights, cut in depth
+   to fit the card: `llama4-maverick-400b-a17b` at 2 layers (dense + MoE)
+   and `arctic-480b` at 1: serve.py's traffic (K8 once per layer per
+   prefill), then a 2048-token bf16 prefill under `pallas` and `chunked`:
+   K8 once per layer on the pallas route only; how many tokens the two
+   routes route differently (expert choices or capacity drops); the
+   logits of the others within `MOE_BF16_REL_TOL` x max |logit|, with at
+   least `MOE_MIN_ALIKE` of the tokens routed alike; argmax agreement
+   printed;
+26. drives `qwen2-vl-72b` at full width, 4 of 80 layers (f32 weights):
+   phase 9's gate on 2048 embeddings drawn on the card, with the M-RoPE
+   positions of a 1 x 32 x 32 patch grid then 1024 text positions, then 16
+   decode steps with embeddings (no kernel);
+27. drives `whisper-large-v3` at full width and depth (32 + 32 layers,
+   f32 weights): an encoder over 1500 frames drawn on the card and a
+   decoder prompt of 384 tokens, f32, `pallas` against `chunked` decoder
+   logits (K8 once per decoder layer, never in the encoder or
+   cross-attention) within the larger of `PREFILL_F32_TOL` and
+   `WHISPER_F32_WITNESS_K` x the drift of `chunked` at attn_chunk 128;
+   then in bf16 a prefill and greedy decode to position 447;
+28. holds K8 against its plain version and times it beside SDPA and its
+   bound at the families' prefill shapes (`ATTN_FAMILY_TIMED`: arctic's
+   56/8 heads and qwen2-vl's 64/8 at 2048 tokens, whisper's 20/20 of 64
+   at 384), one kernel record each.
+
 Each phase prints its seconds.
+
+`--only families` runs phases 24-28 alone (its kernels line holds K8 at
+the families' shapes).
 
 `--only distributed` runs phases 15-18 alone. `--only stencil_serving`
 runs phases 19-20 alone, `--only distributed_spec` phase 21 (its kernels
@@ -275,7 +313,8 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import blocks as BL  # noqa: E402
 from repro_torch.models.blocks import Ctx  # noqa: E402
 from repro_torch.pspec import tree_map  # noqa: E402
-from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.serving.engine import (  # noqa: E402
+    ServingEngine, prefill_to_decode_cache)
 from repro_torch.serving.stencil_engine import (  # noqa: E402
     StencilRequest, StencilServingEngine)
 from repro_torch.launch.mesh import make_stencil_mesh  # noqa: E402
@@ -420,6 +459,27 @@ SCAN_EDGE_CASES = (  # what, B, S, D, N, chunk, dt scale
     ("B 2, D 37, N 5", 2, 96, 37, 5, 32, 0.1),
     ("B 2, D 8200, N 40", 2, 64, 8200, 40, 64, 0.1))
 K9_PLAN_SWEEP = ((4, 8), (4, 4), (8, 4), (16, 4), (16, 8), (32, 2))
+# the other model families (slice G1c): PERF.md holds the tolerances'
+# basis, written before the first chip run
+RG_ARCH = "recurrentgemma-9b"
+RG_ATTN_LAYER = 2            # the first local-attention layer (rec, rec, attn)
+RG_LONG_PROMPT = 3072        # past the window of 2048: attn_local pads to 4096
+RG_DECODE_STEPS = 16
+RG_DECODE_F32_TOL = 1e-3     # f32: each decode step's logits vs the forward
+MOE_ARCHS = (("llama4-maverick-400b-a17b", 2), ("arctic-480b", 1))  # depth
+MOE_BF16_REL_TOL = 0.05      # x max |chunked logit|, tokens routed alike
+MOE_MIN_ALIKE = 0.9          # share of tokens the two routes route alike
+VLM_ARCH, VLM_LAYERS = "qwen2-vl-72b", 4
+VLM_GRID = 32                # a 1 x 32 x 32 patch grid, then 1024 text tokens
+VLM_DECODE_STEPS = 16
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_FRAMES = 1500        # the 30-s window after the (stubbed) conv stem
+WHISPER_PROMPT = 384         # a multiple of 128, as K8 requires above 128
+WHISPER_F32_WITNESS_K = 5.0
+ATTN_FAMILY_TIMED = (        # K8 at the families' prefill shapes
+    ("arctic-480b", (1, 56, 8, PREFILL_TOKENS, 128)),
+    ("qwen2-vl-72b", (1, 64, 8, PREFILL_TOKENS, 128)),
+    ("whisper-large-v3", (1, 20, 20, WHISPER_PROMPT, 64)))
 # K1's launch-plan sweep at the main grid: y_tile (None = K1's own) by the
 # plan's x chunk and these
 K1_SWEEP_TILES = (None, 4, 16)
@@ -2143,12 +2203,16 @@ def all_counts() -> dict:
     return {**K.LAUNCHES, **A.LAUNCHES, **SS.LAUNCHES}
 
 
-def serving_phase(check: Checks, arch: str, kernels: tuple):
+def serving_phase(check: Checks, arch: str, kernels: tuple, **cut):
     """The token-serving path at full width under `attention_impl="pallas"`,
-    where each of `kernels` (K8 and its tensor-core count, or K9) runs once
-    per layer of every prefill; returns (cfg, params, the first kernel's
-    launches)."""
-    cfg = get_config(arch).replace(attention_impl="pallas")
+    where each of `kernels` (K8 and its tensor-core count, or K9; none on
+    the hybrid path) runs once per layer of every prefill; `cut` (depth,
+    weight dtype) is what one card forces, printed. Returns (cfg, params,
+    the first kernel's launches)."""
+    cfg = get_config(arch).replace(attention_impl="pallas", **cut)
+    if cut:
+        print(f"serving path: {arch} cut to {cut} to fit one card",
+              flush=True)
     t0 = time.perf_counter()
     params = random_params(cfg, "cuda")
     torch.cuda.synchronize()
@@ -2173,7 +2237,7 @@ def serving_phase(check: Checks, arch: str, kernels: tuple):
     wall = time.perf_counter() - t0
     others = all_counts()
     counts = {name: others.pop(name) for name in kernels}
-    kernel, launched = kernels[0], counts[kernels[0]]
+    launched = counts[kernels[0]] if kernels else 0
     peak = torch.cuda.max_memory_allocated()
     st = engine.stats
     total = sum(len(v) for v in done.values())
@@ -2191,7 +2255,8 @@ def serving_phase(check: Checks, arch: str, kernels: tuple):
     check(all(n == cfg.n_layers * st["prefills"] for n in counts.values())
           and st["prefills"] == len(reqs),
           f"serving {cfg.name}: {', '.join(counts)} launched {launched} "
-          f"times each = {cfg.n_layers} layers x {st['prefills']} prefills")
+          f"times each = {cfg.n_layers} layers x {st['prefills']} prefills"
+          if kernels else f"serving {cfg.name}: {st['prefills']} prefills")
     check(all(n == 0 for n in others.values()),
           f"serving {cfg.name}: no other kernel launched ({others})")
     check(sorted(done) == list(range(len(reqs)))
@@ -2226,7 +2291,7 @@ def witness_f32_limit(c, p, toks, layout, lc):
 
 def prefill_gate_phase(check: Checks, cfg, params, kernel: str,
                        f32_limit, bf16_rel_tol: float,
-                       bf16_kernel: str = "") -> int:
+                       bf16_kernel: str = "", batch=None) -> int:
     """`pallas` (where `kernel` runs once per layer, and `bf16_kernel`, its
     bf16 build's own count, where named, once per layer in bf16 only)
     against `chunked` prefill logits on one 2048-token prompt: f32 at all
@@ -2234,10 +2299,12 @@ def prefill_gate_phase(check: Checks, cfg, params, kernel: str,
     logits)`, bf16 at the first 2 layers within `bf16_rel_tol` x max
     |chunked logit|, bf16 at all layers printed. Prints each pallas
     forward's wall time. Returns `kernel`'s launches in the last pallas
-    forward (bf16, all layers)."""
+    forward (bf16, all layers). `batch` replaces the random 2048-token
+    prompt (the vlm family's embeddings and M-RoPE positions)."""
     layout = M.make_layout(cfg, 1)
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (1, PREFILL_TOKENS)), device="cuda")
+    batch = {"inputs": toks} if batch is None else batch
 
     def logits(c, p):
         out = {}
@@ -2245,7 +2312,7 @@ def prefill_gate_phase(check: Checks, cfg, params, kernel: str,
             reset_all_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out[impl] = M.forward(p, {"inputs": toks},
+            out[impl] = M.forward(p, batch,
                                   c.replace(attention_impl=impl), layout)[0]
             torch.cuda.synchronize()
             out[impl + "_s"] = time.perf_counter() - t0
@@ -2353,10 +2420,13 @@ def sdpa_ms(q, k, v) -> tuple:
     return ms, (f"{dev:.4f} ms" if dev > 0 else "not measured")
 
 
-def attention_timing(launches: int, card: str) -> dict:
-    """K8 (the tensor-core kernel, bf16) at the timed shape beside its
-    plain version, SDPA and its bound; the card's view of each build."""
-    B, H, Hkv, S, D = ATTN_TIMED
+def attention_timing(launches: int, card: str, shape=ATTN_TIMED,
+                     path: str = "") -> dict:
+    """K8 (the tensor-core kernel, bf16) at `shape` (B, H, Hkv, S, D;
+    default the timed shape, where it also prints the card's view of each
+    build) beside its plain version, SDPA and its bound; `launches` are
+    those of `path`, the path that runs K8 at that shape."""
+    B, H, Hkv, S, D = shape
     q, k, v = attn_inputs(B, H, Hkv, S, S, D, torch.bfloat16, seed=500)
     got = A.flash_attention(q, k, v, causal=True)
     plain = A._flash_attention_plain(q, k, v, True, D ** -0.5)
@@ -2379,6 +2449,16 @@ def attention_timing(launches: int, card: str) -> dict:
           f"(enable_gqa) {lib_ms:.4f} ms by events, device {lib_dev} "
           f"({ms / lib_ms:.3f} x its time by events); "
           f"== plain within bf16_bound: {ok} ({err:.3e})", flush=True)
+    rec = {"name": "flash_attention", "route": "cuda",
+           "source": SOURCE["flash_attention"],
+           "replaces": REPLACES["flash_attention"], "launches": launches,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+           "within_bf16_bound": ok}
+    if shape != ATTN_TIMED:
+        rec.update(shape=f"q {(B, H, S, D)}, k/v {(B, Hkv, S, D)} bf16 "
+                   f"causal", path=path)
+        return rec
     for d in A.TC_HEAD_DIMS:
         at = A.tc_kernel_attrs(q.device, d)
         print(f"flash_attention tensor-core build, head dim {d} (tiles "
@@ -2386,12 +2466,7 @@ def attention_timing(launches: int, card: str) -> dict:
               f"{at['local_bytes']} B spilled per thread, "
               f"{at['shared_bytes']} B shared, {at['blocks_per_sm']} "
               f"resident blocks per SM", flush=True)
-    return {"name": "flash_attention", "route": "cuda",
-            "source": SOURCE["flash_attention"],
-            "replaces": REPLACES["flash_attention"], "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
-            "within_bf16_bound": ok}
+    return rec
 
 
 def k8_compare(card: str) -> int:
@@ -3491,6 +3566,353 @@ def stencil_serving_phases(check: Checks, card: str) -> list:
     return [record]
 
 
+# ---------------------------------------------------------------------------
+# the other model families (slice G1c): hybrid, moe, vlm, encdec
+# ---------------------------------------------------------------------------
+
+
+def fam_cfg(arch: str, **cut):
+    """The config at full width under `attention_impl="pallas"`, cut only
+    as one card forces (printed)."""
+    cfg = get_config(arch).replace(attention_impl="pallas", **cut)
+    if cut:
+        print(f"{arch}: cut to {cut} to fit one card", flush=True)
+    return cfg
+
+
+def draw(cfg):
+    """The config's weights drawn on the card from seed 0, timed."""
+    t0 = time.perf_counter()
+    params = random_params(cfg, "cuda")
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.n_layers} layers, weights {cfg.param_dtype} "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) drawn on the card "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    return params
+
+
+def card_seq(*shape, seed: int):
+    """Standard-normal f32 values drawn on the card from `seed`."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=gen, device="cuda")
+
+
+def counted_forward(*args, **kw):
+    """`M.forward` with the launch counts set to 0 just before and read just
+    after: (outputs, counts, wall ms)."""
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = M.forward(*args, **kw)
+    torch.cuda.synchronize()
+    return out, all_counts(), (time.perf_counter() - t0) * 1e3
+
+
+def greedy_decode(params, caches, cfg, layout, first: int, pos0: int,
+                  steps: int, embeds=None):
+    """`steps` greedy decode steps from token `first` at `pos0`, counted:
+    (the fed tokens, each step's f32 logits, counts, ms per step)."""
+    fed, outs = [first], []
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for t in range(steps):
+            batch = {"token": torch.tensor([fed[-1]], device="cuda"),
+                     "pos": torch.tensor([pos0 + t], device="cuda")}
+            if embeds is not None:
+                batch["embeds"] = embeds[:, t:t + 1]
+            logits, caches = M.decode_step(params, caches, batch, cfg,
+                                           layout)
+            outs.append(logits[0].float())
+            fed.append(int(logits[0].argmax()))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return fed, outs, all_counts(), ms
+
+
+def hybrid_phase(check: Checks) -> None:
+    """recurrentgemma-9b at full width and depth: serve.py's traffic (no
+    kernel: the window takes the attention to `attn_local`, and the RG-LRU
+    has none), on rings of min(window, max_len) = 128 slots; then a
+    `RG_LONG_PROMPT`-token prompt in f32 compute (past the window;
+    `attn_local` pads it to two blocks of the window) and
+    `RG_DECODE_STEPS` greedy decode steps through a ring of the window,
+    each step's logits == a full forward over prompt + fed tokens."""
+    cfg, params, _ = serving_phase(check, RG_ARCH, ())
+    layout = M.make_layout(cfg, 1)
+    c32 = cfg.replace(compute_dtype="float32")
+    P, T = RG_LONG_PROMPT, RG_DECODE_STEPS
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, P)), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    (logits, _, caches), n_pre, pre_ms = counted_forward(
+        params, {"inputs": toks}, c32, layout, mode="prefill")
+    caches = prefill_to_decode_cache(c32, caches, P, P + T + 2)
+    ring = caches[RG_ATTN_LAYER]["k"].shape[1]
+    fed, outs, n_dec, dec_ms = greedy_decode(
+        params, caches, c32, layout, int(logits[0, -1].argmax()), P, T)
+    seq = torch.cat([toks, torch.tensor([fed[:T]], device="cuda")], 1)
+    (full, _, _), n_full, full_ms = counted_forward(
+        params, {"inputs": seq}, c32.replace(scan_chunk=P + T), layout)
+    peak = torch.cuda.max_memory_allocated()
+    errs = [float((outs[t] - full[0, P + t]).abs().max()) for t in range(T)]
+    agree = sum(int(outs[t].argmax()) == int(full[0, P + t].argmax())
+                for t in range(T))
+    tag = (f"{cfg.name} f32, a {P}-token prompt (window "
+           f"{cfg.hybrid.window}) + {T} decode steps on a ring of {ring}")
+    print(f"{tag}: prefill {pre_ms:.2f} ms, decode {dec_ms:.2f} ms a step, "
+          f"full forward of {P + T} tokens {full_ms:.2f} ms; max |decode - "
+          f"full forward| {max(errs):.4e} (step {errs.index(max(errs))}), "
+          f"max |logit| {float(full.abs().max()):.4f}, argmax agreement "
+          f"{agree} of {T}; peak memory {peak / 1e9:.2f} GB; launches "
+          f"{n_pre}, {n_dec}, {n_full}", flush=True)
+    check(ring == cfg.hybrid.window and not any(n_pre.values())
+          and not any(n_dec.values()) and not any(n_full.values())
+          and all(math.isfinite(e) for e in errs)
+          and logits.shape == (1, P, cfg.vocab_size),
+          f"{tag}: no kernel launched, ring of the window, logits finite")
+    check(max(errs) <= RG_DECODE_F32_TOL,
+          f"{tag}: each step == the full forward within {RG_DECODE_F32_TOL}")
+    del params, caches, logits, full, outs
+
+
+def moe_routes(record: list):
+    """Wrap `blocks.moe_route` so that each call appends its (gate_idx,
+    keep) to `record`; returns the original."""
+    orig = BL.moe_route
+
+    def wrapped(*args, **kw):
+        out = orig(*args, **kw)
+        record.append((out[3], out[5]))
+        return out
+    BL.moe_route = wrapped
+    return orig
+
+
+def moe_phase(check: Checks, arch: str, n_layers: int) -> int:
+    """An MoE config at full width, `n_layers` deep, bf16 weights:
+    serve.py's traffic (K8 once per layer per prefill), then one
+    `PREFILL_TOKENS`-token prefill in bf16 under `pallas` and `chunked`:
+    K8 once per layer on the pallas route only; the tokens whose routing
+    (expert choices and capacity drops, every MoE layer) differs between
+    the routes counted; the logits of the others within
+    `MOE_BF16_REL_TOL` x max |chunked logit|, and at least
+    `MOE_MIN_ALIKE` of the tokens routed alike. Returns K8's launches on
+    the serving path and the prefill."""
+    cfg, params, launched = serving_phase(
+        check, arch, ("flash_attention", "flash_attention_tc"),
+        n_layers=n_layers, param_dtype="bfloat16")
+    layout = M.make_layout(cfg, 1)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, PREFILL_TOKENS)), device="cuda")
+    out, routes = {}, {}
+    for impl in ("pallas", "chunked"):
+        record = []
+        orig = moe_routes(record)
+        try:
+            out[impl] = counted_forward(params, {"inputs": toks}, cfg.replace(
+                attention_impl=impl), layout)
+        finally:
+            BL.moe_route = orig
+        routes[impl] = record
+    (lp, aux_p, _), n_p, ms_p = out["pallas"]
+    (lc, aux_c, _), n_c, ms_c = out["chunked"]
+    alike = torch.ones(PREFILL_TOKENS, dtype=torch.bool, device="cuda")
+    for (ip, kp), (ic, kc) in zip(routes["pallas"], routes["chunked"]):
+        alike &= ((ip == ic) & (kp == kc)).reshape(PREFILL_TOKENS, -1).all(-1)
+    diff = (lp[0] - lc[0]).abs().amax(-1)
+    scale = float(lc.abs().max())
+    worst = float(diff[alike].max()) if bool(alike.any()) else float("inf")
+    share = float(alike.float().mean())
+    agree = float((lp.argmax(-1) == lc.argmax(-1)).float().mean())
+    n_moe = sum(k == "moe" for k in M.layer_kinds(cfg))
+    tag = (f"{cfg.name} prefill {PREFILL_TOKENS} tokens, bf16 weights and "
+           f"compute, {cfg.n_layers} layers ({n_moe} MoE)")
+    print(f"{tag}: routing differs for {int((~alike).sum())} of "
+          f"{PREFILL_TOKENS} tokens; max |pallas - chunked| over the others "
+          f"{worst:.4e}, over all {float(diff.max()):.4e}, max |logit| "
+          f"{scale:.4f}, argmax agreement {agree:.4f}; aux {float(aux_p):.6f} "
+          f"/ {float(aux_c):.6f}; pallas forward {ms_p:.2f} ms, chunked "
+          f"{ms_c:.2f} ms; K8 launches {n_p['flash_attention']} (pallas), "
+          f"{n_c['flash_attention']} (chunked)", flush=True)
+    k8 = n_p.pop("flash_attention")
+    check(k8 == cfg.n_layers and n_p.pop("flash_attention_tc") == k8
+          and not any(n_p.values()) and not any(n_c.values())
+          and len(routes["pallas"]) == n_moe
+          and bool(torch.isfinite(lp).all() and torch.isfinite(lc).all()),
+          f"{tag}: K8 once per layer on the pallas route only, no other "
+          f"kernel; logits finite")
+    check(share >= MOE_MIN_ALIKE and worst <= MOE_BF16_REL_TOL * scale,
+          f"{tag}: {share:.4f} of the tokens routed alike (>= "
+          f"{MOE_MIN_ALIKE}), their logits pallas == chunked within "
+          f"{MOE_BF16_REL_TOL} x max |logit| ({MOE_BF16_REL_TOL * scale:.4f})")
+    del params, lp, lc, out
+    return launched + k8
+
+
+def vlm_batch(cfg, n: int, seed: int):
+    """`n` embeddings drawn on the card from `seed`, with the M-RoPE
+    positions of a 1 x `VLM_GRID` x `VLM_GRID` patch grid (t 0, h the row,
+    w the column) followed by text at t = h = w = `VLM_GRID` + i."""
+    g = VLM_GRID * VLM_GRID
+    i = torch.arange(n, device="cuda")
+    pos = torch.stack([torch.zeros_like(i), i // VLM_GRID, i % VLM_GRID], -1)
+    text = (VLM_GRID + i - g)[:, None].expand(n, 3)
+    pos = torch.where((i < g)[:, None], pos, text)
+    emb = card_seq(1, n, cfg.d_model, seed=seed)
+    return {"embeds": emb, "positions": pos[None]}
+
+
+def vlm_phase(check: Checks) -> int:
+    """qwen2-vl-72b at full width, `VLM_LAYERS` deep (f32 weights): the
+    prefill gate on `PREFILL_TOKENS` embeddings under M-RoPE (K8 once per
+    layer; pallas == chunked in f32 at every layer and in bf16 at 2), then
+    `VLM_DECODE_STEPS` decode steps with embeddings (no kernel). Returns
+    K8's launches in the gate's last pallas prefill and the decode's
+    prefill."""
+    cfg = fam_cfg(VLM_ARCH, n_layers=VLM_LAYERS)
+    params = draw(cfg)
+    layout = M.make_layout(cfg, 1)
+    batch = vlm_batch(cfg, PREFILL_TOKENS, seed=1)
+    launched = prefill_gate_phase(
+        check, cfg, params, "flash_attention",
+        fixed_f32_limit(PREFILL_F32_TOL), PREFILL_BF16_REL_TOL,
+        bf16_kernel="flash_attention_tc", batch=batch)
+    T = VLM_DECODE_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    (logits, _, caches), n_pre, pre_ms = counted_forward(
+        params, batch, cfg, layout, mode="prefill")
+    caches = prefill_to_decode_cache(cfg, caches, PREFILL_TOKENS,
+                                     PREFILL_TOKENS + T)
+    embeds = card_seq(1, T, cfg.d_model, seed=2)
+    fed, outs, n_dec, dec_ms = greedy_decode(
+        params, caches, cfg, layout, 0, PREFILL_TOKENS, T, embeds=embeds)
+    peak = torch.cuda.max_memory_allocated()
+    tag = (f"{cfg.name} bf16, {PREFILL_TOKENS} embeddings under M-RoPE + "
+           f"{T} decode steps with embeddings")
+    print(f"{tag}: prefill {pre_ms:.2f} ms, decode {dec_ms:.2f} ms a step; "
+          f"peak memory {peak / 1e9:.2f} GB; K8 launches "
+          f"{n_pre['flash_attention']} (prefill), "
+          f"{n_dec['flash_attention']} (decode); greedy tokens {fed[1:]}",
+          flush=True)
+    k8 = n_pre.pop("flash_attention")
+    check(k8 == cfg.n_layers and not any(n_dec.values())
+          and all(bool(torch.isfinite(o).all()) for o in outs)
+          and outs[0].shape == (cfg.vocab_size,),
+          f"{tag}: K8 once per layer at prefill, no kernel at decode; "
+          f"logits finite")
+    del params, caches, logits, outs
+    return launched + k8
+
+
+def whisper_witness(c, p, batch, layout, lc):
+    """`WHISPER_F32_WITNESS_K` x max |chunked at attn_chunk 128 - chunked|
+    (three kv chunks against one: the association order of the
+    reference's own sums), or `PREFILL_F32_TOL` if larger."""
+    lw = M.forward(p, batch, c.replace(attention_impl="chunked",
+                                       attn_chunk=128), layout)[0]
+    w = float((lw - lc).abs().max())
+    limit = max(PREFILL_F32_TOL, WHISPER_F32_WITNESS_K * w)
+    return limit, (f"max({PREFILL_F32_TOL}, {WHISPER_F32_WITNESS_K} x that "
+                   f"of chunked at attn_chunk 128, {w:.4e}) = {limit:.4e}")
+
+
+def whisper_phase(check: Checks) -> int:
+    """whisper-large-v3 at full width and depth (32 + 32 layers, f32
+    weights): an encoder over `WHISPER_FRAMES` frames and a decoder
+    prefill of `WHISPER_PROMPT` tokens in f32 under `pallas` and
+    `chunked` (K8 once per decoder layer, never in the encoder or
+    cross-attention; the decoder logits within `whisper_witness`); then in
+    bf16 a prefill and greedy decode to position max_dec_len - 1 (no
+    kernel at decode). Returns K8's launches in the bf16 prefill."""
+    cfg = fam_cfg(WHISPER_ARCH)
+    params = draw(cfg)
+    layout = M.make_layout(cfg, 1)
+    e = cfg.encdec
+    batch = {"enc_embeds": card_seq(1, WHISPER_FRAMES, cfg.d_model, seed=3),
+             "dec_inputs": torch.as_tensor(np.random.default_rng(0).integers(
+                 0, cfg.vocab_size, (1, WHISPER_PROMPT)), device="cuda")}
+    c32 = cfg.replace(compute_dtype="float32")
+    out = {impl: counted_forward(params, batch, c32.replace(
+        attention_impl=impl), layout) for impl in ("pallas", "chunked")}
+    (lp, _, _), n_p, ms_p = out["pallas"]
+    (lc, _, _), n_c, ms_c = out["chunked"]
+    diff = float((lp - lc).abs().max())
+    limit, what = whisper_witness(c32, params, batch, layout, lc)
+    tag = (f"{cfg.name} f32, encoder over {WHISPER_FRAMES} frames, decoder "
+           f"prompt of {WHISPER_PROMPT} tokens")
+    print(f"{tag}: max |pallas - chunked| {diff:.4e}, max |logit| "
+          f"{float(lc.abs().max()):.4f}, argmax agreement "
+          f"{float((lp.argmax(-1) == lc.argmax(-1)).float().mean()):.4f}; "
+          f"pallas forward {ms_p:.2f} ms, chunked {ms_c:.2f} ms; K8 "
+          f"launches {n_p['flash_attention']} (pallas), "
+          f"{n_c['flash_attention']} (chunked)", flush=True)
+    k8 = n_p.pop("flash_attention")
+    check(k8 == e.dec_layers and not any(n_p.values())
+          and not any(n_c.values())
+          and lp.shape == (1, WHISPER_PROMPT, cfg.vocab_size)
+          and bool(torch.isfinite(lp).all() and torch.isfinite(lc).all()),
+          f"{tag}: K8 once per decoder layer ({e.dec_layers}) on the pallas "
+          f"route only, never in the encoder or cross-attention; finite")
+    check(diff <= limit, f"{tag}: pallas == chunked within {what}")
+    del out, lp, lc
+    torch.cuda.reset_peak_memory_stats()
+    (logits, _, caches), n_pre, pre_ms = counted_forward(
+        params, batch, cfg, layout, mode="prefill")
+    steps = e.max_dec_len - WHISPER_PROMPT
+    fed, outs, n_dec, dec_ms = greedy_decode(
+        params, caches, cfg, layout, int(logits[0, -1].argmax()),
+        WHISPER_PROMPT, steps)
+    peak = torch.cuda.max_memory_allocated()
+    tag = (f"{cfg.name} bf16, encoder + decoder prefill of "
+           f"{WHISPER_PROMPT} tokens, greedy decode to position "
+           f"{e.max_dec_len - 1}")
+    print(f"{tag}: prefill {pre_ms:.2f} ms, decode {dec_ms:.2f} ms a step "
+          f"({steps} steps); peak memory {peak / 1e9:.2f} GB; K8 launches "
+          f"{n_pre['flash_attention']} (prefill), "
+          f"{n_dec['flash_attention']} (decode); tokens {fed[1:11]}...",
+          flush=True)
+    launched = n_pre.pop("flash_attention")
+    check(launched == e.dec_layers and not any(n_dec.values())
+          and all(0 <= t < cfg.vocab_size for t in fed)
+          and all(bool(torch.isfinite(o).all()) for o in outs),
+          f"{tag}: K8 once per decoder layer at prefill, none at decode; "
+          f"tokens in the vocabulary, logits finite")
+    del params, caches, logits, outs
+    return launched
+
+
+def families_phases(check: Checks, card: str) -> list:
+    """Phases 24-28: the hybrid, moe, vlm and encdec families on the card,
+    each model freed before the next is drawn, then K8 at their shapes.
+    Returns the kernel records of K8 at those shapes."""
+    phase("24 hybrid (recurrentgemma-9b)", hybrid_phase, check)
+    torch.cuda.empty_cache()
+    moe_k8 = {}
+    for arch, depth in MOE_ARCHS:
+        moe_k8[arch] = phase(f"25 moe ({arch})", moe_phase, check, arch,
+                             depth)
+        torch.cuda.empty_cache()
+    vlm_k8 = phase("26 vlm (qwen2-vl-72b)", vlm_phase, check)
+    torch.cuda.empty_cache()
+    whisper_k8 = phase("27 encdec (whisper-large-v3)", whisper_phase, check)
+    torch.cuda.empty_cache()
+    records = []
+    t0 = time.perf_counter()
+    for (arch, shape), launches in zip(ATTN_FAMILY_TIMED, (
+            moe_k8["arctic-480b"], vlm_k8, whisper_k8)):
+        rec = attention_timing(launches, card, shape, path=f"{arch} "
+                               f"prefills (serving and gate)")
+        check(rec["within_bf16_bound"], f"K8 at {arch}'s shape "
+              f"{rec['shape']} == plain within bf16_bound")
+        records.append(rec)
+    print(f"phase 28 K8 at the families' shapes: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return records
+
+
 def phase(label: str, fn, *args, **kw):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -3503,9 +3925,11 @@ def main() -> int:
     only = sys.argv[2:] if sys.argv[1:2] == ["--only"] else None
     if sys.argv[1:] and only not in (["distributed"], ["ladder"], ["k6"],
                                      ["k8"], ["k9"], ["stencil_serving"],
-                                     ["distributed_spec"], ["recovery"]):
+                                     ["distributed_spec"], ["recovery"],
+                                     ["families"]):
         print("usage: chip_smoke.py [--only distributed|ladder|k6|k8|k9|"
-              "stencil_serving|distributed_spec|recovery]", file=sys.stderr)
+              "stencil_serving|distributed_spec|recovery|families]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -3544,6 +3968,8 @@ def main() -> int:
                                     dom.init(seed=0), dom, card)], card, t0)
     if only == ["recovery"]:
         return finish(check, recovery_only(check, card), card, t0)
+    if only == ["families"]:
+        return finish(check, families_phases(check, card), card, t0)
     if only:
         return finish(check, distributed_only(check, card), card, t0)
     phase("1 small shapes", small_shape_phase, check)
@@ -3609,6 +4035,7 @@ def main() -> int:
     k9_sweep(check, card)
     print(f"phase 14 K9 timing: {time.perf_counter() - t_k9:.1f} s",
           flush=True)
+    records += families_phases(check, card)
     return finish(check, records, card, t0)
 
 

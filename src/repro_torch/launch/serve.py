@@ -3,6 +3,8 @@ weights, or forecast jobs through the stencil serving engine.
 
     python -m repro_torch.launch.serve --arch qwen2.5-14b --requests 8
     python -m repro_torch.launch.serve --arch falcon-mamba-7b --requests 8
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --requests 8
+    python -m repro_torch.launch.serve --arch arctic-480b --smoke
     python -m repro_torch.launch.serve --smoke --device cpu
     python -m repro_torch.launch.serve --stencil --smoke --device cpu \
         --fault-plan "nan_poison@1:slot=1;device_loss@2:reshard_to=1"
@@ -10,12 +12,22 @@ weights, or forecast jobs through the stencil serving engine.
 The port of the token path of `repro.launch.serve`: the same arguments and
 defaults, the same random prompts (`np.random.default_rng(0)`), weights
 drawn on the device from a seeded `torch.Generator` with the reference's
-init rules. It runs on `cuda` unless `--device cpu` is given. The
-reference's default `--arch qwen3-32b` needs about 131 GB of f32 weights,
-more than one 80 GB card holds; `qwen2.5-14b` (59 GB) and `falcon-mamba-7b`
-(28 GB) fit. The engine runs the config's `attention_impl` (`chunked` for
-both), so the CLI launches neither flash attention (K8) nor the selective
-scan (K9); `chip_smoke.py` serves with `attention_impl="pallas"`.
+init rules. It runs on `cuda` unless `--device cpu` is given.
+
+What fits one 80 GB card at full width, in the configs' f32 weights:
+`qwen2.5-14b` (59 GB), `falcon-mamba-7b` (28 GB) and `recurrentgemma-9b`
+(38.5 GB; it serves at the defaults, `--max-len` 128 below its window
+of 2048, on rings of `min(window, max_len)` slots, where the reference's
+engine raises). The reference's default `--arch qwen3-32b` needs about
+131 GB. The MoE configs do not fit at full depth (`llama4-maverick-400b-
+a17b` holds 74 GB of f32 weights at 2 of its 48 layers, `arctic-480b` 56
+GB at 1 of 35), so the CLI serves them at `--smoke` size; `chip_smoke.py`
+runs them at full width, cut in depth, with bf16 weights. The vlm and
+encdec configs (`qwen2-vl-72b`, `whisper-large-v3`) take embeddings, not
+token prompts: the engine refuses them, as the reference's serves tokens
+only. The engine runs the config's `attention_impl` (`chunked` for every
+config), so the CLI launches neither flash attention (K8) nor the
+selective scan (K9); `chip_smoke.py` serves with `attention_impl="pallas"`.
 `--ckpt-dir` (trained weights) waits for slice G2 (ROADMAP Queue 1).
 
 `--stencil` serves forecast jobs instead of tokens

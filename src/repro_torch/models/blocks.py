@@ -1,20 +1,25 @@
-"""Layer blocks of the dense and ssm families: param specs + apply fns.
+"""Per-family layer blocks: param specs + apply fns.
 
-The port of the dense-family and ssm-family parts of `repro.models.blocks`:
-the attention block (self-attention with no window, in the `train` (forward
-only), `prefill` and `decode` modes, with the `dense`, `chunked` and
-`pallas` implementations), the dense MLP (`swiglu`, `sq_relu`, `gelu`) and
-the Mamba-1 block (`mamba_apply`, in all three modes). Weights stay in the
-param dtype and are cast to the compute dtype at each use, as the reference
-casts them (`.astype(x.dtype)`).
+The port of `repro.models.blocks`: the attention block (self-attention,
+windowed self-attention with its ring-buffer decode, and cross-attention,
+in the `train` (forward only), `prefill` and `decode` modes, with the
+`dense`, `chunked`, `local` and `pallas` implementations), the dense MLP
+(`swiglu`, `sq_relu`, `gelu`), the MoE block (`moe_apply`, capacity
+routing with one-hot dispatch and combine), the Mamba-1 block
+(`mamba_apply`) and the RG-LRU block (`rglru_apply`). Weights stay in the
+param dtype and are cast to the compute dtype at each use, as the
+reference casts them (`.astype(x.dtype)`).
 
 `attention_impl="pallas"` runs the flash-attention kernel K8
-(`kernels.attention.ops.gqa_layout_attention`) in attention blocks and the
-selective-scan kernel K9 (`kernels.ssm.ops.mamba_scan`) in mamba blocks at
-train and prefill: on CUDA tensors the hand-written kernels, on CPU tensors
-their plain versions. Cross-attention and windowed attention (encdec,
-hybrid), MoE and RG-LRU blocks raise `NotImplementedError` naming the slice
-that brings them (ROADMAP Queue 1).
+(`kernels.attention.ops.gqa_layout_attention`) in causal self-attention
+without a window, and the selective-scan kernel K9
+(`kernels.ssm.ops.mamba_scan`) in mamba blocks, at train and prefill: on
+CUDA tensors the hand-written kernels, on CPU tensors their plain
+versions. As in the reference, a window takes precedence over `pallas`
+(the hybrid family's attention runs `attn_local`), non-causal and cross
+attention run `attn_dense`, and the RG-LRU recurrence has no kernel.
+`flash` and `skip_core` raise `NotImplementedError` naming slice G2
+(ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -34,10 +39,9 @@ from repro_torch.pspec import ParamSpec
 
 Params = Dict[str, Any]
 
-IMPLS = ("dense", "chunked", "pallas")
+IMPLS = ("dense", "chunked", "local", "pallas")
 LATER = {"flash": "G2 (training: the custom-VJP flash path)",
-         "skip_core": "G2 (the dry run's phase-attribution lowering)",
-         "local": "G1c (the hybrid family's sliding window)"}
+         "skip_core": "G2 (the dry run's phase-attribution lowering)"}
 
 
 @dataclass
@@ -46,7 +50,7 @@ class Ctx:
     meshes wait for slice G2."""
     cfg: ArchConfig
     layout: HeadLayout
-    positions: Any = None        # (B, S)
+    positions: Any = None        # (B, S) or (B, S, 3) for mrope
     mode: str = "train"          # train | prefill | decode
     cache: Any = None            # layer cache dict at decode
     pos: Any = None              # (B,) decode position
@@ -104,14 +108,11 @@ def _write_cache(cache, new, pos):
 def attention_apply(p: Params, x, ctx: Ctx, *, kv_x=None, window: int = 0,
                     use_rope: Optional[bool] = None,
                     is_cross: bool = False):
-    """x: (B, S, E). Self-attention; at decode against the layer's cache,
-    which it updates in place (the reference returns a new one)."""
-    if kv_x is not None or is_cross:
-        raise NotImplementedError("cross-attention (the encdec family) "
-                                  "waits for slice G1c (ROADMAP Queue 1)")
-    if window:
-        raise NotImplementedError("windowed attention (the hybrid family) "
-                                  "waits for slice G1c (ROADMAP Queue 1)")
+    """x: (B, S, E). kv_x: cross-attention source (B, Skv, E) if given. At
+    decode, self-attention runs against the layer's cache, which it updates
+    in place (the reference returns a new one): a linear buffer written at
+    `pos`, or with `window` a ring written at `pos % Lc`; cross-attention
+    reads the encoder's projected `ck` / `cv`, every position valid."""
     cfg, lo = ctx.cfg, ctx.layout
     B, S, E = x.shape
     D = cfg.head_dim
@@ -121,37 +122,74 @@ def attention_apply(p: Params, x, ctx: Ctx, *, kv_x=None, window: int = 0,
                                   f"{LATER[impl]}")
     if impl not in IMPLS:
         raise ValueError(f"unknown attention_impl {impl!r}")
+    kv_src = x if kv_x is None else kv_x
+    Skv = kv_src.shape[1]
 
     q = _project(x, p["wq"], p.get("bq"))
     q = q.reshape(B, S, lo.n_kv_stored, lo.q_per_group, D)
     use_rope = cfg.pos in ("rope", "mrope") if use_rope is None else use_rope
     mrope = cfg.pos == "mrope"
-    k = _project(x, p["wk"], p.get("bk"))
-    v = _project(x, p["wv"], p.get("bv"))
-    if cfg.qk_norm:
-        q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
     scale = 1.0 / math.sqrt(D)
 
-    if ctx.mode == "decode":
+    if ctx.mode == "decode" and not is_cross:
+        k = _project(x, p["wk"], p.get("bk"))
+        v = _project(x, p["wv"], p.get("bv"))
+        if cfg.qk_norm:
+            q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
+            k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
         if use_rope:
             pos_q = ctx.pos[:, None]  # (B,1)
+            if mrope:
+                pos_q = pos_q[..., None].expand(B, 1, 3)
             q = L.apply_rope(q, pos_q, cfg.rope_theta, mrope)
             k = L.apply_rope(k, pos_q, cfg.rope_theta, mrope)
-        kc = _write_cache(ctx.cache["k"], k, ctx.pos)
-        vc = _write_cache(ctx.cache["v"], v, ctx.pos)
+        Lc = ctx.cache["k"].shape[1]
+        slot = ctx.pos % Lc if window else ctx.pos
+        kc = _write_cache(ctx.cache["k"], k, slot)
+        vc = _write_cache(ctx.cache["v"], v, slot)
         ctx.new_cache = {"k": kc, "v": vc}
-        out = L.attn_decode(q, kc, vc, pos=ctx.pos, scale=scale)
+        if window:
+            # ring buffer: the valid entries are pos-window+1..pos, at
+            # slots (idx % Lc)
+            idx = torch.arange(Lc, device=x.device)
+            age = (slot[:, None] - idx[None, :]) % Lc
+            mask = age < torch.clamp(ctx.pos + 1, max=window)[:, None]
+            logits = torch.einsum("bqkgd,bskd->bkgqs", q.float(),
+                                  kc.float()) * scale
+            logits = L._masked(logits, mask[:, None, None, None, :])
+            pr = torch.softmax(logits, dim=-1)
+            out = torch.einsum("bkgqs,bskd->bqkgd", pr,
+                               vc.float()).to(x.dtype)
+        else:
+            out = L.attn_decode(q, kc, vc, pos=ctx.pos, scale=scale)
+    elif ctx.mode == "decode":
+        # cross-attention at decode: the cached projected encoder K/V, all
+        # positions valid
+        kc, vc = ctx.cache["ck"], ctx.cache["cv"]
+        if cfg.qk_norm:
+            q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        pos_full = torch.full((B,), kc.shape[1] - 1, device=x.device)
+        out = L.attn_decode(q, kc, vc, pos=pos_full, scale=scale)
     else:
-        if use_rope:
+        k = _project(kv_src, p["wk"], p.get("bk"))
+        v = _project(kv_src, p["wv"], p.get("bv"))
+        if cfg.qk_norm:
+            q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
+            k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
+        if use_rope and kv_x is None:
             q = L.apply_rope(q, ctx.positions, cfg.rope_theta, mrope)
             k = L.apply_rope(k, ctx.positions, cfg.rope_theta, mrope)
-        q_pos = kv_pos = torch.arange(S, device=x.device)
+        q_pos = torch.arange(S, device=x.device)
+        kv_pos = torch.arange(Skv, device=x.device)
         if ctx.mode == "prefill":
             ctx.new_cache = {"k": k, "v": v}
-        if impl == "dense" or not ctx.causal:
+        if window:
+            out = L.attn_local(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                               scale=scale, window=window)
+        elif impl == "dense" or not ctx.causal:
             out = L.attn_dense(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
-                               causal=ctx.causal, scale=scale)
+                               causal=ctx.causal and kv_x is None,
+                               scale=scale)
         elif impl == "pallas":
             # the flash kernel K8 (its plain version on CPU tensors);
             # forward only, as in the reference
@@ -202,6 +240,132 @@ def mlp_apply(p: Params, x, ctx: Ctx):
     if "bo" in p:
         out = out + cast(p["bo"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (GShard-style capacity routing)
+# ---------------------------------------------------------------------------
+
+
+def moe_specs(cfg: ArchConfig, dt: str) -> Params:
+    E, m = cfg.d_model, cfg.moe
+    X, Fe = m.n_experts, m.d_ff_expert
+    # the reference's logical axes: EP-resident experts use a distinct one
+    emb = "embed" if m.expert_fsdp else "expert_embed"
+    p: Params = {
+        "router": ParamSpec((E, X), ("embed", "expert"), dt, "normal"),
+        "wi": ParamSpec((X, E, Fe), ("expert", emb, "expert_ffn"), dt),
+        "wg": ParamSpec((X, E, Fe), ("expert", emb, "expert_ffn"), dt),
+        "wo": ParamSpec((X, Fe, E), ("expert", "expert_ffn", emb), dt),
+    }
+    if m.shared_expert:
+        p["shared"] = mlp_specs(cfg, dt, d_ff=Fe)
+    if m.dense_residual:
+        p["dense"] = mlp_specs(cfg, dt, d_ff=cfg.d_ff)
+    return p
+
+
+def _top_k(probs, k: int):
+    """`jax.lax.top_k` along the last axis: the k largest, in descending
+    order, the lower index first among equal values (a stable descending
+    sort; `torch.topk` promises no order among ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_groups(cfg: ArchConfig, B: int, S: int) -> tuple:
+    """(G, g_size, cap): the reference's token groups and the capacity of
+    each expert's buffer in a group."""
+    m = cfg.moe
+    T = B * S
+    g_size = min(m.group_size or min(S, 2048), T)
+    while T % g_size:
+        g_size -= 1
+    cap = int(math.ceil(m.top_k * g_size / m.n_experts * m.capacity_factor))
+    return T // g_size, g_size, max(cap, 4)
+
+
+def moe_route(p: Params, xg, cfg: ArchConfig, cap: int):
+    """The router of one token-group batch xg (G, s, E): (logits (G,s,X)
+    f32, probs, gate_vals (G,s,k) with the dropped choices zeroed,
+    gate_idx (G,s,k), pos_in_expert (G,s,k), keep (G,s,k)). The router
+    product runs in the compute dtype, its softmax in f32, as in the
+    reference; each (token, choice) takes the next place in its expert's
+    buffer, in token order, and is dropped at `cap`."""
+    m = cfg.moe
+    X, k = m.n_experts, m.top_k
+    G, s = xg.shape[0], xg.shape[1]
+    logits = torch.einsum("gse,ex->gsx", xg,
+                          p["router"].to(xg.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = _top_k(probs, k)                     # (G,s,k)
+    gate_vals = gate_vals / torch.clamp_min(
+        gate_vals.sum(-1, keepdim=True), 1e-9)
+    experts = torch.arange(X, device=xg.device)
+    onehot = (gate_idx[..., None] == experts).long()           # (G,s,k,X)
+    flatoh = onehot.reshape(G, s * k, X)
+    pos_in_expert = torch.cumsum(flatoh, dim=1) - flatoh       # (G,s*k,X)
+    pos_in_expert = (pos_in_expert * flatoh).sum(-1).reshape(G, s, k)
+    keep = pos_in_expert < cap
+    return logits, probs, gate_vals * keep, gate_idx, pos_in_expert, keep
+
+
+def moe_apply(p: Params, x, ctx: Ctx):
+    """Returns (out, aux_loss). Token-group capacity routing.
+
+    Dispatch and combine are one-hot einsums, the reference's: pure data
+    movement, the tensors that become all-to-alls under expert
+    parallelism. Each one-hot product has one nonzero term per output, so
+    it is exact in any dtype. Expert weights are cast to the compute dtype
+    at each use (a no-op for weights stored in it)."""
+    cfg = ctx.cfg
+    m = cfg.moe
+    B, S, E = x.shape
+    X = m.n_experts
+    if cfg.attention_impl == "skip_core":
+        raise NotImplementedError(f"attention_impl='skip_core' waits for "
+                                  f"slice {LATER['skip_core']}")
+    G, g_size, cap = moe_groups(cfg, B, S)
+    xg = x.reshape(G, g_size, E)
+    logits, probs, gate_vals, gate_idx, pos_in_expert, keep = moe_route(
+        p, xg, cfg, cap)
+
+    # dispatch (G,s,X,cap) one-hot; combine carries the gate weights
+    dt = x.dtype
+    slots = torch.arange(cap, device=x.device)
+    disp = ((gate_idx[..., None] == torch.arange(X, device=x.device)).to(dt)
+            [..., None]
+            * (pos_in_expert[..., None] == slots).to(dt)[..., None, :]
+            * keep[..., None, None].to(dt))                    # (G,s,k,X,cap)
+    comb = disp * gate_vals[..., None, None].to(dt)
+    disp = disp.sum(2)                                         # (G,s,X,cap)
+    comb = comb.sum(2)
+
+    exp_in = torch.einsum("gsxc,gse->gxce", disp, xg)          # (G,X,cap,E)
+    h = (F.silu(torch.einsum("gxce,xef->gxcf", exp_in, p["wg"].to(dt)))
+         * torch.einsum("gxce,xef->gxcf", exp_in, p["wi"].to(dt)))
+    exp_out = torch.einsum("gxcf,xfe->gxce", h, p["wo"].to(dt))
+    out = torch.einsum("gsxc,gxce->gse", comb, exp_out).reshape(B, S, E)
+
+    # aux losses: load balance (Switch) + router z-loss
+    density = torch.mean((gate_idx[..., 0, None] == torch.arange(
+        X, device=x.device)).float(), dim=(0, 1))
+    p_mean = torch.mean(probs, dim=(0, 1))
+    lb = X * torch.sum(density * p_mean) * m.load_balance_loss
+    z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1))) \
+        * m.router_z_loss
+    aux = lb + z
+
+    if m.shared_expert:
+        out = out + _moe_inner_mlp(p["shared"], x)
+    if m.dense_residual:
+        out = out + _moe_inner_mlp(p["dense"], x)
+    return out, aux
+
+
+def _moe_inner_mlp(p, x):
+    h = F.silu(x @ p["wg"].to(x.dtype)) * (x @ p["wi"].to(x.dtype))
+    return h @ p["wo"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -365,4 +529,97 @@ def mamba_apply(p: Params, x, ctx: Ctx):
 
     y = y + xc * p["D"].to(x.dtype)
     y = y * F.silu(z)
+    return y @ p["out_proj"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent block (recurrentgemma)
+# ---------------------------------------------------------------------------
+
+_RG_BLOCKS = 16  # block-diagonal gate heads
+
+
+def rglru_specs(cfg: ArchConfig, dt: str) -> Params:
+    E, Dr = cfg.d_model, cfg.hybrid.d_rnn
+    K = cfg.hybrid.conv_k
+    nb = _RG_BLOCKS
+    bs = Dr // nb
+    return {
+        "in_proj": ParamSpec((E, 2 * Dr), ("embed", "ffn"), dt),
+        "conv_w": ParamSpec((K, Dr), ("conv", "ffn"), dt),
+        "conv_b": ParamSpec((Dr,), ("ffn",), dt, "zeros"),
+        "gate_a": ParamSpec((nb, bs, bs), ("heads", None, None), dt),
+        "gate_x": ParamSpec((nb, bs, bs), ("heads", None, None), dt),
+        "gate_a_b": ParamSpec((Dr,), ("ffn",), dt, "zeros"),
+        "gate_x_b": ParamSpec((Dr,), ("ffn",), dt, "zeros"),
+        "Lambda": ParamSpec((Dr,), ("ffn",), dt, "recurrent"),
+        "out_proj": ParamSpec((Dr, E), ("ffn", "embed"), dt),
+    }
+
+
+def _ssm_scan(a, b, h0, *, chunk: int):
+    """h_t = a_t * h_{t-1} + b_t elementwise; a, b (B, S, ...); h0 (B, ...).
+
+    Chunked: an associative scan within each chunk, the chunks in order
+    (the reference's `lax.scan`). The chunk is `scan_chunk_for(S, chunk)`,
+    which refuses what the reference's assertion refuses. Returns (h_all
+    (B, S, ...), h_final)."""
+    S = a.shape[1]
+    chunk = scan_chunk_for(S, chunk)
+    h, outs = h0, []
+    for j in range(S // chunk):
+        cut = slice(j * chunk, (j + 1) * chunk)
+        pa, pb = _associative_scan(a[:, cut], b[:, cut])
+        h_all = pa * h[:, None] + pb
+        outs.append(h_all)
+        h = h_all[:, -1]
+    return torch.cat(outs, dim=1), h
+
+
+def rglru_apply(p: Params, x, ctx: Ctx):
+    """The RG-LRU block. Returns (B, S, E). The recurrence is plain PyTorch,
+    as in the reference (no kernel). At decode it updates the layer's
+    `conv` and `state` caches in place (the reference returns new ones)."""
+    cfg = ctx.cfg
+    Dr = cfg.hybrid.d_rnn
+    nb = _RG_BLOCKS
+    B, S, E = x.shape
+    xg = x @ p["in_proj"].to(x.dtype)
+    xin, gate = torch.split(xg, Dr, dim=-1)
+
+    conv_cache = ctx.cache.get("conv") if ctx.mode == "decode" else None
+    xc, new_conv = _causal_conv(xin, p["conv_w"], p["conv_b"], conv_cache)
+
+    xb = xc.reshape(B, S, nb, Dr // nb)
+    r = torch.sigmoid(torch.einsum("bsnd,nde->bsne", xb,
+                                   p["gate_a"].to(x.dtype)).reshape(B, S, Dr)
+                      + p["gate_a_b"].to(x.dtype))
+    i = torch.sigmoid(torch.einsum("bsnd,nde->bsne", xb,
+                                   p["gate_x"].to(x.dtype)).reshape(B, S, Dr)
+                      + p["gate_x_b"].to(x.dtype))
+
+    c = 8.0
+    log_a = -c * _softplus(p["Lambda"].float()) * r.float()
+    a = torch.exp(log_a)
+    gated_x = (i * xc).float()
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6)) \
+        * gated_x
+
+    if ctx.mode == "decode":
+        state = ctx.cache["state"]
+        h = a[:, 0] * state.float() + b[:, 0]
+        hs = h[:, None]
+        ctx.cache["conv"].copy_(new_conv)
+        state.copy_(h.to(state.dtype))
+        ctx.new_cache = ctx.cache
+    elif cfg.attention_impl == "skip_core":
+        raise NotImplementedError(f"attention_impl='skip_core' waits for "
+                                  f"slice {LATER['skip_core']}")
+    else:
+        h0 = torch.zeros((B, Dr), dtype=torch.float32, device=x.device)
+        hs, h = _ssm_scan(a, b, h0, chunk=cfg.scan_chunk)
+        if ctx.mode == "prefill":
+            ctx.new_cache = {"conv": new_conv, "state": h.to(x.dtype)}
+
+    y = hs.to(x.dtype) * F.gelu(gate, approximate="tanh")
     return y @ p["out_proj"].to(x.dtype)

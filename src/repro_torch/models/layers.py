@@ -1,29 +1,33 @@
-"""Shared neural layers of the dense family: norms, RoPE, GQA attention.
+"""Shared neural layers: norms, RoPE / M-RoPE, GQA attention.
 
-The port of the functions of `repro.models.layers` that the dense model
-path calls. Shape conventions are the reference's:
+The port of the functions of `repro.models.layers` that the model paths
+call. Shape conventions are the reference's:
 
   x            : (B, S, E)           activations, compute dtype (bf16)
   q            : (B, S, K, G, D)     K = stored kv groups, G = q heads/group
   k, v         : (B, S, K, D)
-  decode cache : k/v (B, L, K, D) linear buffers
+  decode cache : k/v (B, L, K, D) ring/linear buffers
 
-Attention implementations: `attn_dense` (full S x S logits, the reference)
-and `attn_chunked` (online softmax streaming over KV chunks; a Python loop
-where the reference runs `lax.scan`). All softmax statistics are f32, and
-the rounding points are the reference's: `rms_norm` rounds to x's dtype
-before the weight multiply, `apply_rope` builds cos and sin in f32 and
-rounds them to x's dtype, `attn_dense` rounds p to v's dtype before PV
-while `attn_chunked` keeps p in f32.
+Attention implementations: `attn_dense` (full S x S logits, the
+reference), `attn_chunked` (online softmax streaming over KV chunks; a
+Python loop where the reference runs `lax.scan`) and `attn_local` (the
+hybrid family's sliding window, block-banded, linear in S). All softmax
+statistics are f32, and the rounding points are the reference's:
+`rms_norm` rounds to x's dtype before the weight multiply, `apply_rope`
+builds cos and sin in f32 and rounds them to x's dtype, `attn_dense` and
+`attn_local` round p to v's dtype before PV while `attn_chunked` keeps p
+in f32.
 
-M-RoPE, `attn_flash` (the custom-VJP training path) and `attn_local` (the
-hybrid family's sliding window) wait for their slices (ROADMAP Queue 1,
-G1c and G2).
+`attn_flash` (the custom-VJP training path) waits for slice G2 (ROADMAP
+Queue 1).
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -2.0 ** 30
 
@@ -64,23 +68,50 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, half, dtype=np.float64) / half))
 
 
+def mrope_sections(head_dim: int) -> Tuple[int, int, int]:
+    """Split the head_dim//2 frequency slots into (t, h, w) sections.
+
+    Uses qwen2-vl's 1/4:3/8:3/8 proportions (16:24:24 at head_dim 128).
+    """
+    half = head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    return t, h, half - t - h
+
+
 def apply_rope(x, positions, theta: float, mrope: bool = False):
-    """x: (B, S, K, G?, D) with positions (B, S) int; rope over the trailing
-    D dim, broadcast over the head dims."""
-    if mrope:
-        raise NotImplementedError("M-RoPE (the vlm family) waits for slice "
-                                  "G1c (ROADMAP Queue 1)")
+    """x: (B, S, K, G?, D) with positions (B, S) int or (B, S, 3) for
+    M-RoPE; rope over the trailing D dim, broadcast over the head dims.
+    Under M-RoPE each frequency slot reads the t, h or w position of its
+    section (`mrope_sections`)."""
     d = x.shape[-1]
     half = d // 2
     freqs = torch.as_tensor(rope_freqs(d, theta), dtype=torch.float32,
                             device=x.device)                  # (half,)
-    angles = positions.float()[..., None] * freqs             # (B, S, half)
+    if mrope:
+        sec = torch.repeat_interleave(
+            torch.arange(3, device=x.device),
+            torch.as_tensor(mrope_sections(d), device=x.device))  # (half,)
+        pos = positions.float()[..., sec]                     # (B, S, half)
+    else:
+        pos = positions.float()[..., None]                    # (B, S, 1)
+    angles = pos * freqs                                      # (B, S, half)
     for _ in range(x.ndim - 3):
         angles = angles[..., None, :]
     cos = torch.cos(angles).to(x.dtype)
     sin = torch.sin(angles).to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def sincos_positions(seq_len: int, d_model: int) -> np.ndarray:
+    """Classic transformer sinusoidal table (whisper encoder)."""
+    pos = np.arange(seq_len)[:, None]
+    dim = np.arange(d_model // 2)[None, :]
+    inv = 1.0 / (10000 ** (dim / (d_model // 2)))
+    ang = pos * inv
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=-1).astype(
+        np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -139,11 +170,55 @@ def attn_chunked(q, k, v, *, q_pos, kv_pos, causal: bool, scale: float,
     return out.to(q.dtype)
 
 
-def attn_decode(q, k_cache, v_cache, *, pos, scale: float):
+def attn_local(q, k, v, *, q_pos, kv_pos, scale: float, window: int):
+    """Sliding-window causal attention, block-banded (linear in S).
+
+    Each block of `window` queries attends to its own block and the previous
+    one under the (causal & distance < window) mask — exact sliding window.
+    S is padded to a block multiple (the pads sit after every real token,
+    so the causal mask hides them) and block 0's "previous block", which is
+    padding, is masked by global-position validity. Logits in f32, p
+    rounded to v's dtype, as `attn_dense`."""
+    B, S, K, D = k.shape
+    G = q.shape[3]
+    W = min(window, S)
+    S0 = S
+    if S % W:
+        pad = W - S % W
+        q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, pad))
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        S = S + pad
+    n = S // W
+    qb = q.reshape(B, n, W, K, G, D)
+    kb = k.reshape(B, n, W, K, D)
+    vb = v.reshape(B, n, W, K, D)
+    k_prev = F.pad(kb, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1]
+    v_prev = F.pad(vb, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1]
+    k2 = torch.cat([k_prev, kb], dim=2)  # (B, n, 2W, K, D)
+    v2 = torch.cat([v_prev, vb], dim=2)
+    logits = torch.einsum("bnqkgd,bnskd->bnkgqs", qb.float(),
+                          k2.float()) * scale
+    qp = torch.arange(W, device=q.device)
+    kp = torch.arange(2 * W, device=q.device) - W
+    rel = qp[:, None] - kp[None, :]
+    band = (rel >= 0) & (rel < W)                              # (W, 2W)
+    valid = (torch.arange(n, device=q.device)[:, None, None] * W
+             + kp[None, None, :]) >= 0
+    mask_all = band[None] & valid                              # (n, W, 2W)
+    logits = _masked(logits, mask_all[None, :, None, None])
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bnkgqs,bnskd->bnqkgd", p.to(v.dtype), v2)
+    return out.reshape(B, S, K, G, D)[:, :S0]
+
+
+def attn_decode(q, k_cache, v_cache, *, pos, scale: float, window: int = 0):
     """Single-token decode vs a (B, L, K, D) cache. pos: (B,) current index."""
     B, L, K, D = k_cache.shape
     idx = torch.arange(L, device=q.device)
     mask = idx[None, :] <= pos[:, None]                      # (B, L)
+    if window:
+        mask = mask & (pos[:, None] - idx[None, :] < window)
     logits = torch.einsum("bqkgd,bskd->bkgqs", q.float(),
                           k_cache.float()) * scale
     logits = _masked(logits, mask[:, None, None, None, :])

@@ -1,25 +1,26 @@
-"""Model assembly of the dense and ssm families: parameter trees,
-forward, decode.
+"""Model assembly: parameter trees, forward, decode.
 
-The port of the dense-family and ssm-family parts of `repro.models.model`,
-with its uniform API:
+The port of `repro.models.model` for every family (dense, ssm, moe,
+hybrid, encdec, vlm), with its uniform API:
 
   layout      = make_layout(cfg, tp)
   specs       = param_specs(cfg, layout)          # tree of ParamSpec
   params      = pspec.init_params(specs, gen)     # or abstract_params(specs)
-  logits, _, kv = forward(params, batch, cfg, layout, mode="prefill")
-  logits, kv    = decode_step(params, caches, batch, cfg, layout)
+  logits, aux, kv = forward(params, batch, cfg, layout, mode="prefill")
+  logits, kv      = decode_step(params, caches, batch, cfg, layout)
 
-Parameters keep the reference's layout, stacked on a leading layer axis
-`(n_layers, ...)`, so weights carry across one to one
-(`models.convert.params_from_numpy`); `_run_stack` loops over that axis in
-Python where the reference runs `lax.scan`. The other families (moe,
-hybrid, encdec, vlm), training's loss, remat and sharding wait for slices
-G1c and G2 (ROADMAP Queue 1) and raise `NotImplementedError` here.
+Parameters keep the reference's layout: a uniform stack under
+`scan_layers` is stacked on a leading layer axis `(n_layers, ...)`, any
+other stack (the hybrid and interleaved-MoE patterns, or
+`scan_layers=False`) is a list of per-layer trees, and encdec keeps
+stacked `enc_layers` and `dec_layers`. So weights carry across one to one
+(`models.convert.params_from_numpy`); `_run_stack` loops over the layers
+in Python where the reference runs `lax.scan`. Training's loss, remat and
+sharding wait for slice G2 (ROADMAP Queue 1).
 
 JAX clamps an out-of-range index where torch would raise or read past the
 end, so `_embed` refuses a token outside the vocabulary and `decode_step`
-a position outside the cache (the serving engine reaches neither).
+a position outside a linear cache (the serving engine reaches neither).
 """
 from __future__ import annotations
 
@@ -37,19 +38,6 @@ from repro_torch.models.blocks import Ctx
 from repro_torch.pspec import ParamSpec, stack_specs, torch_dtype, tree_map
 
 Params = Dict[str, Any]
-FAMILIES = ("dense", "ssm")
-BLOCK_KINDS = ("attn_mlp", "mamba")
-
-
-def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family waits for slice G1c "
-            f"(ROADMAP Queue 1); the port runs the dense and ssm families")
-    if not cfg.scan_layers:
-        raise NotImplementedError(
-            "scan_layers=False (per-layer parameter lists) is not ported; "
-            "the port keeps the reference's stacked (n_layers, ...) layout")
 
 
 def make_layout(cfg: ArchConfig, tp: int = 1) -> HeadLayout:
@@ -83,23 +71,35 @@ def _apply_norm(p: Params, x, eps: float):
     return L.rms_norm(x, p["w"], eps)
 
 
-def _require_kind(kind: str, what: str = "block") -> None:
-    if kind not in BLOCK_KINDS:
-        raise NotImplementedError(f"the {kind!r} {what} waits for slice G1c "
-                                  f"(ROADMAP Queue 1)")
-
-
 def block_specs(cfg: ArchConfig, layout: HeadLayout, kind: str,
                 dt: str) -> Params:
-    _require_kind(kind)
+    ln_bias = cfg.family == "encdec"
+    if kind == "attn_mlp":
+        return {"ln1": _norm_specs(cfg, dt, ln_bias),
+                "attn": B.attention_specs(cfg, layout, dt),
+                "ln2": _norm_specs(cfg, dt, ln_bias),
+                "mlp": B.mlp_specs(cfg, dt, bias=ln_bias)}
+    if kind == "moe":
+        return {"ln1": _norm_specs(cfg, dt),
+                "attn": B.attention_specs(cfg, layout, dt),
+                "ln2": _norm_specs(cfg, dt),
+                "moe": B.moe_specs(cfg, dt)}
     if kind == "mamba":
         return {"ln": _norm_specs(cfg, dt),
                 "mamba": B.mamba_specs(cfg, dt)}
-    ln_bias = cfg.family == "encdec"
-    return {"ln1": _norm_specs(cfg, dt, ln_bias),
-            "attn": B.attention_specs(cfg, layout, dt),
-            "ln2": _norm_specs(cfg, dt, ln_bias),
-            "mlp": B.mlp_specs(cfg, dt, bias=ln_bias)}
+    if kind == "rec":
+        return {"ln1": _norm_specs(cfg, dt),
+                "rec": B.rglru_specs(cfg, dt),
+                "ln2": _norm_specs(cfg, dt),
+                "mlp": B.mlp_specs(cfg, dt)}
+    if kind == "dec":  # enc-dec decoder layer: self + cross + mlp
+        return {"ln1": _norm_specs(cfg, dt, True),
+                "self": B.attention_specs(cfg, layout, dt),
+                "ln2": _norm_specs(cfg, dt, True),
+                "cross": B.attention_specs(cfg, layout, dt),
+                "ln3": _norm_specs(cfg, dt, True),
+                "mlp": B.mlp_specs(cfg, dt, bias=True)}
+    raise ValueError(kind)
 
 
 def layer_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
@@ -119,21 +119,48 @@ def layer_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
     return ("attn_mlp",) * cfg.n_layers
 
 
+def _uniform(kinds) -> bool:
+    return len(set(kinds)) == 1
+
+
+def _scanned(cfg: ArchConfig) -> bool:
+    """Whether the layers are stacked on a leading axis (else a list)."""
+    return cfg.scan_layers and _uniform(layer_kinds(cfg))
+
+
 def _stacked(tree, n: int):
     return tree_map(lambda s: stack_specs(s, n), tree)
 
 
 def param_specs(cfg: ArchConfig, layout: HeadLayout) -> Params:
-    _require_ported(cfg)
     dt = cfg.param_dtype
     E = cfg.d_model
     Vp = padded_vocab(cfg, layout.tp)
     specs: Params = {}
+
+    if cfg.family == "encdec":
+        e = cfg.encdec
+        specs["tok_embed"] = ParamSpec((Vp, E), ("vocab", "embed"), dt,
+                                       "embed", 0.02)
+        specs["dec_pos"] = ParamSpec((e.max_dec_len, E), (None, "embed"), dt,
+                                     "embed", 0.02)
+        specs["enc_layers"] = _stacked(
+            block_specs(cfg, layout, "attn_mlp", dt), e.enc_layers)
+        specs["dec_layers"] = _stacked(block_specs(cfg, layout, "dec", dt),
+                                       e.dec_layers)
+        specs["enc_norm"] = _norm_specs(cfg, dt, True)
+        specs["final_norm"] = _norm_specs(cfg, dt, True)
+        return specs
+
     if not cfg.embeds_input:
         specs["tok_embed"] = ParamSpec((Vp, E), ("vocab", "embed"), dt,
                                        "embed", 0.02)
-    specs["layers"] = _stacked(block_specs(cfg, layout, layer_kinds(cfg)[0],
-                                           dt), cfg.n_layers)
+    kinds = layer_kinds(cfg)
+    if _scanned(cfg):
+        specs["layers"] = _stacked(block_specs(cfg, layout, kinds[0], dt),
+                                   cfg.n_layers)
+    else:
+        specs["layers"] = [block_specs(cfg, layout, k, dt) for k in kinds]
     specs["final_norm"] = _norm_specs(cfg, dt)
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((E, Vp), ("embed", "vocab"), dt,
@@ -148,25 +175,49 @@ def param_specs(cfg: ArchConfig, layout: HeadLayout) -> Params:
 
 def layer_cache_specs(cfg: ArchConfig, layout: HeadLayout, kind: str,
                       batch: int, max_len: int, dt: str) -> Params:
-    _require_kind(kind, "cache")
+    D = cfg.head_dim
+    Ks = layout.n_kv_stored
+    ax = ("batch", None, "act_kv_heads", None)
+    if kind in ("attn_mlp", "moe"):
+        W = cfg.hybrid.window if cfg.family == "hybrid" else 0
+        Lc = min(max_len, W) if W else max_len
+        return {"k": ParamSpec((batch, Lc, Ks, D), ax, dt, "zeros"),
+                "v": ParamSpec((batch, Lc, Ks, D), ax, dt, "zeros")}
     if kind == "mamba":
         Di, N, K = cfg.d_inner, cfg.ssm.d_state, cfg.ssm.conv_k
         return {"conv": ParamSpec((batch, K - 1, Di),
                                   ("batch", None, "act_ffn"), dt, "zeros"),
                 "state": ParamSpec((batch, Di, N),
                                    ("batch", "act_ffn", None), dt, "zeros")}
-    D, Ks = cfg.head_dim, layout.n_kv_stored
-    ax = ("batch", None, "act_kv_heads", None)
-    return {"k": ParamSpec((batch, max_len, Ks, D), ax, dt, "zeros"),
-            "v": ParamSpec((batch, max_len, Ks, D), ax, dt, "zeros")}
+    if kind == "rec":
+        Dr, K = cfg.hybrid.d_rnn, cfg.hybrid.conv_k
+        return {"conv": ParamSpec((batch, K - 1, Dr),
+                                  ("batch", None, "act_ffn"), dt, "zeros"),
+                "state": ParamSpec((batch, Dr), ("batch", "act_ffn"), dt,
+                                   "zeros")}
+    if kind == "dec":
+        e = cfg.encdec
+        return {"k": ParamSpec((batch, e.max_dec_len, Ks, D), ax, dt,
+                               "zeros"),
+                "v": ParamSpec((batch, e.max_dec_len, Ks, D), ax, dt,
+                               "zeros"),
+                "ck": ParamSpec((batch, max_len, Ks, D), ax, dt, "zeros"),
+                "cv": ParamSpec((batch, max_len, Ks, D), ax, dt, "zeros")}
+    raise ValueError(kind)
 
 
 def cache_specs(cfg: ArchConfig, layout: HeadLayout, batch: int,
                 max_len: int) -> Any:
-    _require_ported(cfg)
-    one = layer_cache_specs(cfg, layout, layer_kinds(cfg)[0], batch,
-                            max_len, cfg.compute_dtype)
-    return _stacked(one, cfg.n_layers)
+    dt = cfg.compute_dtype
+    if cfg.family == "encdec":
+        return _stacked(layer_cache_specs(cfg, layout, "dec", batch, max_len,
+                                          dt), cfg.encdec.dec_layers)
+    kinds = layer_kinds(cfg)
+    if _scanned(cfg):
+        return _stacked(layer_cache_specs(cfg, layout, kinds[0], batch,
+                                          max_len, dt), cfg.n_layers)
+    return [layer_cache_specs(cfg, layout, k, batch, max_len, dt)
+            for k in kinds]
 
 
 # ---------------------------------------------------------------------------
@@ -175,39 +226,108 @@ def cache_specs(cfg: ArchConfig, layout: HeadLayout, batch: int,
 
 
 def _apply_block(kind: str, p: Params, x, ctx: Ctx, cache=None):
-    """Returns (x, new_cache)."""
-    _require_kind(kind)
+    """Returns (x, aux, new_cache)."""
     cfg = ctx.cfg
     ctx = dataclasses.replace(ctx, cache=cache, new_cache=None)
-    if kind == "mamba":
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "attn_mlp":
+        window = cfg.hybrid.window if cfg.family == "hybrid" else 0
+        x = x + B.attention_apply(p["attn"], _apply_norm(p["ln1"], x,
+                                                         cfg.norm_eps),
+                                  ctx, window=window)
+        x = x + B.mlp_apply(p["mlp"], _apply_norm(p["ln2"], x, cfg.norm_eps),
+                            ctx)
+    elif kind == "moe":
+        x = x + B.attention_apply(p["attn"], _apply_norm(p["ln1"], x,
+                                                         cfg.norm_eps), ctx)
+        out, aux = B.moe_apply(p["moe"], _apply_norm(p["ln2"], x,
+                                                     cfg.norm_eps), ctx)
+        x = x + out
+    elif kind == "mamba":
         x = x + B.mamba_apply(p["mamba"], _apply_norm(p["ln"], x,
                                                       cfg.norm_eps), ctx)
-        return x, ctx.new_cache
-    x = x + B.attention_apply(p["attn"], _apply_norm(p["ln1"], x,
-                                                     cfg.norm_eps), ctx)
-    x = x + B.mlp_apply(p["mlp"], _apply_norm(p["ln2"], x, cfg.norm_eps), ctx)
-    return x, ctx.new_cache
+    elif kind == "rec":
+        x = x + B.rglru_apply(p["rec"], _apply_norm(p["ln1"], x,
+                                                    cfg.norm_eps), ctx)
+        x = x + B.mlp_apply(p["mlp"], _apply_norm(p["ln2"], x, cfg.norm_eps),
+                            ctx)
+    elif kind == "enc":
+        sub = dataclasses.replace(ctx, causal=False)
+        x = x + B.attention_apply(p["attn"], _apply_norm(p["ln1"], x,
+                                                         cfg.norm_eps),
+                                  sub, use_rope=False)
+        x = x + B.mlp_apply(p["mlp"], _apply_norm(p["ln2"], x, cfg.norm_eps),
+                            ctx)
+    else:
+        raise ValueError(kind)
+    return x, aux, ctx.new_cache
+
+
+def _apply_dec_block(p: Params, x, enc_out, ctx: Ctx, cache=None):
+    """An encdec decoder layer: causal self-attention, cross-attention
+    (from `enc_out` at prefill, from the cached `ck` / `cv` at decode),
+    MLP. Returns (x, new_cache): at prefill the self-attention's k, v and
+    the cross-attention's as ck, cv; at decode the layer's cache, updated
+    in place."""
+    cfg = ctx.cfg
+    new_cache = {}
+    c1 = dataclasses.replace(ctx, cache=cache, new_cache=None)
+    x = x + B.attention_apply(p["self"], _apply_norm(p["ln1"], x,
+                                                     cfg.norm_eps),
+                              c1, use_rope=False)
+    if c1.new_cache:
+        new_cache.update(c1.new_cache)
+    if ctx.mode == "decode":
+        c2 = dataclasses.replace(ctx, cache=cache, new_cache=None)
+        x = x + B.attention_apply(p["cross"], _apply_norm(p["ln2"], x,
+                                                          cfg.norm_eps),
+                                  c2, is_cross=True, use_rope=False)
+    else:
+        c2 = dataclasses.replace(ctx, cache=cache, new_cache=None,
+                                 causal=False)
+        x = x + B.attention_apply(p["cross"], _apply_norm(p["ln2"], x,
+                                                          cfg.norm_eps),
+                                  c2, kv_x=enc_out, is_cross=True,
+                                  use_rope=False)
+        if ctx.mode == "prefill" and c2.new_cache:
+            new_cache["ck"] = c2.new_cache["k"]
+            new_cache["cv"] = c2.new_cache["v"]
+    x = x + B.mlp_apply(p["mlp"], _apply_norm(p["ln3"], x, cfg.norm_eps),
+                        ctx)
+    return x, new_cache
 
 
 def _layer(tree, i: int):
-    """Layer i of a stacked tree, as views."""
+    """Layer i of a stacked tree, as views; of a list, its i-th tree."""
+    if isinstance(tree, list):
+        return tree[i]
     return tree_map(lambda a: a[i], tree, is_leaf=torch.is_tensor)
 
 
+def _restack(new: list):
+    """Per-layer prefill caches, stacked on a leading layer axis."""
+    return {k: torch.stack([c[k] for c in new]) for k in new[0]}
+
+
 def _run_stack(params_layers, kinds, x, ctx: Ctx, caches=None):
-    """Apply the layer stack in order (the reference's `lax.scan` over the
-    stacked axis). Returns (x, new caches): in prefill, stacked like the
+    """Apply the layer stack in order (the reference's `lax.scan` over a
+    stacked axis, or its loop over a list). Returns (x, aux summed over the
+    layers, new caches): in prefill, stacked or listed like the
     parameters; in decode, `caches`, updated in place; else None."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new = []
     for i, kind in enumerate(kinds):
         cache = None if caches is None else _layer(caches, i)
-        x, nc = _apply_block(kind, _layer(params_layers, i), x, ctx, cache)
+        x, a, nc = _apply_block(kind, _layer(params_layers, i), x, ctx,
+                                cache)
+        aux = aux + a
         new.append(nc)
     if ctx.mode == "decode":
-        return x, caches
+        return x, aux, caches
     if ctx.mode != "prefill":
-        return x, None
-    return x, {k: torch.stack([c[k] for c in new]) for k in new[0]}
+        return x, aux, None
+    return x, aux, (new if isinstance(params_layers, list)
+                    else _restack(new))
 
 
 # ---------------------------------------------------------------------------
@@ -246,46 +366,131 @@ def _lm_logits(params, cfg: ArchConfig, layout: HeadLayout, x):
 def _default_positions(cfg: ArchConfig, batch_dict, Bsz, S, device):
     if "positions" in batch_dict:
         return batch_dict["positions"]
-    return torch.arange(S, device=device)[None].expand(Bsz, S)
+    pos = torch.arange(S, device=device)[None].expand(Bsz, S)
+    if cfg.pos == "mrope":
+        pos = pos[..., None].expand(Bsz, S, 3)
+    return pos
 
 
 def forward(params, batch, cfg: ArchConfig, layout: HeadLayout, *,
             mode: str = "train"):
     """Full-sequence forward (train, forward only, or prefill).
-    batch: {"inputs": (B, S) int}. Returns (logits (B, S, Vp) f32, aux,
-    caches): the prefill caches are stacked on the layer axis: (L, B, S,
-    Ks, D) for attention, (L, B, K-1, Di) and (L, B, Di, N) for mamba."""
-    _require_ported(cfg)
+
+    batch: {"inputs": (B, S) int}, or {"embeds": (B, S, E)} for the vlm
+    family, with optional "positions" ((B, S, 3) under M-RoPE); encdec
+    takes {"enc_embeds": (B, Se, E), "dec_inputs": (B, Td) int}. Returns
+    (logits (B, S, Vp) f32, aux (the MoE losses summed over the layers),
+    caches). The prefill caches are stacked on the layer axis where the
+    parameters are ((L, B, S, Ks, D) for attention, (L, B, K-1, Di) and
+    (L, B, Di, N) for mamba), else a list of per-layer dicts (rec: conv
+    (B, K-1, Dr), state (B, Dr)); encdec's hold k, v padded to
+    max_dec_len and the encoder's ck, cv."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward runs mode 'train' or 'prefill', got "
                          f"{mode!r}; decode is `decode_step`")
-    x = _embed(params, cfg, batch["inputs"])
+    if cfg.family == "encdec":
+        return _forward_encdec(params, batch, cfg, layout, mode=mode)
+    if cfg.embeds_input:
+        x = batch["embeds"].to(torch_dtype(cfg.compute_dtype))
+    else:
+        x = _embed(params, cfg, batch["inputs"])
     Bsz, S = x.shape[0], x.shape[1]
     positions = _default_positions(cfg, batch, Bsz, S, x.device)
     ctx = Ctx(cfg=cfg, layout=layout, positions=positions, mode=mode)
-    x, caches = _run_stack(params["layers"], layer_kinds(cfg), x, ctx)
+    x, aux, caches = _run_stack(params["layers"], layer_kinds(cfg), x, ctx)
     x = _apply_norm(params["final_norm"], x, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _lm_logits(params, cfg, layout, x), aux, caches
 
 
+def _forward_encdec(params, batch, cfg: ArchConfig, layout: HeadLayout, *,
+                    mode: str):
+    dtc = torch_dtype(cfg.compute_dtype)
+    enc_x = batch["enc_embeds"].to(dtc)
+    Bsz, Se = enc_x.shape[0], enc_x.shape[1]
+    table = torch.as_tensor(L.sincos_positions(Se, cfg.d_model),
+                            device=enc_x.device)
+    enc_x = enc_x + table.to(dtc)
+    ctx = Ctx(cfg=cfg, layout=layout, mode="train")
+    e = cfg.encdec
+    x = enc_x
+    for i in range(e.enc_layers):
+        x, _, _ = _apply_block("enc", _layer(params["enc_layers"], i), x,
+                               ctx)
+    enc_out = _apply_norm(params["enc_norm"], x, cfg.norm_eps)
+
+    dec_tokens = batch["dec_inputs"]
+    Td = dec_tokens.shape[1]
+    if Td > e.max_dec_len:
+        raise ValueError(f"a decoder prompt of {Td} tokens exceeds "
+                         f"max_dec_len {e.max_dec_len}, the length of the "
+                         f"learned positions and the self-attention cache")
+    x = _embed(params, cfg, dec_tokens)
+    x = x + params["dec_pos"][:Td].to(dtc)[None]
+    dpos = torch.arange(Td, device=x.device)[None].expand(Bsz, Td)
+    dctx = Ctx(cfg=cfg, layout=layout, positions=dpos, mode=mode)
+    new = []
+    for i in range(e.dec_layers):
+        x, nc = _apply_dec_block(_layer(params["dec_layers"], i), x,
+                                 enc_out, dctx)
+        new.append(nc)
+    x = _apply_norm(params["final_norm"], x, cfg.norm_eps)
+    logits = _lm_logits(params, cfg, layout, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mode != "prefill":
+        return logits, aux, None
+    caches = _restack(new)
+    # pad the self-attention cache out to max_dec_len
+    for name in ("k", "v"):
+        k = caches[name]
+        caches[name] = torch.cat([k, k.new_zeros(
+            k.shape[:2] + (e.max_dec_len - Td,) + k.shape[3:])], dim=2)
+    return logits, aux, caches
+
+
+def _check_positions(caches, pos, cfg: ArchConfig) -> None:
+    """Refuse a decode position a cache would clamp or misplace: outside
+    [0, length) of a linear cache, or of a hybrid ring shorter than the
+    window (it wraps only where the window hides what it overwrites);
+    below 0 for a ring of the window (written at pos % length). A
+    recurrent state reads no position."""
+    layers = caches if isinstance(caches, list) else [caches]
+    for c in layers:
+        if "k" not in c:
+            continue
+        Lc = c["k"].shape[-3]
+        ring = cfg.family == "hybrid" and Lc >= cfg.hybrid.window
+        hi = None if ring else Lc
+        if bool((pos < 0).any()) or (hi is not None
+                                     and bool((pos >= hi).any())):
+            raise ValueError(f"decode positions must lie in [0, "
+                             f"{hi if hi is not None else 'inf'}), the "
+                             f"cache length; got {pos.tolist()}")
+
+
 def decode_step(params, caches, batch, cfg: ArchConfig, layout: HeadLayout):
-    """One-token decode. batch: {"token": (B,), "pos": (B,)}.
+    """One-token decode. batch: {"token": (B,), "pos": (B,)}, with
+    "embeds" (B, 1, E) for the vlm family (whose M-RoPE position is `pos`
+    on all three axes, as in the reference).
 
     Returns (logits (B, Vp), caches): the caches are updated in place (the
-    reference returns new ones). Where there is a positional cache, a
-    position outside [0, cache length) raises before anything is written;
-    a mamba step reads no position."""
-    _require_ported(cfg)
+    reference returns new ones). A position outside a linear cache, or
+    negative, raises before anything is written; a mamba or rec step reads
+    no position."""
     tok, pos = batch["token"], batch["pos"]
-    if "k" in caches:
-        Lc = caches["k"].shape[-3]
-        if bool(((pos < 0) | (pos >= Lc)).any()):
-            raise ValueError(f"decode positions must lie in [0, {Lc}), the "
-                             f"cache length; got {pos.tolist()}")
+    _check_positions(caches, pos, cfg)
     pos = pos.long()
-    x = _embed(params, cfg, tok[:, None])
     ctx = Ctx(cfg=cfg, layout=layout, mode="decode", pos=pos)
-    x, caches = _run_stack(params["layers"], layer_kinds(cfg), x, ctx, caches)
+    if cfg.family == "encdec":
+        x = _embed(params, cfg, tok[:, None])
+        x = x + torch.index_select(params["dec_pos"], 0, pos)[:, None].to(
+            x.dtype)
+        for i in range(cfg.encdec.dec_layers):
+            x, _ = _apply_dec_block(_layer(params["dec_layers"], i), x,
+                                    None, ctx, _layer(caches, i))
+    else:
+        x = _embed(params, cfg, tok[:, None]) if not cfg.embeds_input else \
+            batch["embeds"].to(torch_dtype(cfg.compute_dtype))
+        x, _, caches = _run_stack(params["layers"], layer_kinds(cfg), x, ctx,
+                                  caches)
     x = _apply_norm(params["final_norm"], x, cfg.norm_eps)
     return _lm_logits(params, cfg, layout, x)[:, 0], caches

@@ -1,15 +1,18 @@
 """Serving: prefill -> decode cache management + a batched request engine.
 
-The port of the dense-family and ssm-family parts of
-`repro.serving.engine`. Decode caches, stacked on a leading layer axis:
+The port of `repro.serving.engine`. Decode caches, stacked on a leading
+layer axis where the parameters are, else a list of per-layer dicts:
 
-  * attention layers: (B, max_len, Ks, D) linear buffers, written at `pos`;
-  * mamba layers: the O(1) conv window (B, K-1, Di) and state (B, Di, N).
+  * full-attention layers: (B, max_len, Ks, D) linear buffers, written at
+    `pos`;
+  * hybrid local-attention layers: (B, Lc, Ks, D) ring buffers (slot =
+    pos % Lc), Lc = min(window, max_len);
+  * mamba / rec layers: the O(1) conv window and recurrent state;
+  * encdec: the decoder's self-attention k, v (max_dec_len) and the
+    encoder's projected ck, cv.
 
-`prefill_to_decode_cache` pads the prefill attention caches (length =
-prompt) out to the serving length and passes the mamba caches through. The
-ring buffers of the hybrid family and the rec layers' states wait for slice
-G1c.
+`prefill_to_decode_cache` converts the prefill caches (length = prompt)
+into decode buffers of the serving length.
 """
 from __future__ import annotations
 
@@ -40,16 +43,55 @@ def _to_linear(k: torch.Tensor, max_len: int) -> torch.Tensor:
     return out
 
 
+def _to_ring(k: torch.Tensor, window: int) -> torch.Tensor:
+    """([L,] B, S, ...) -> ([L,] B, W, ...) ring: the last W tokens at slot
+    t % W."""
+    ax = k.ndim - 3
+    S, W = k.shape[ax], window
+    shape = list(k.shape)
+    shape[ax] = W
+    out = k.new_zeros(shape)
+    if S <= W:
+        out.narrow(ax, 0, S).copy_(k)
+        return out
+    tpos = torch.arange(S - W, S, device=k.device) % W
+    out.index_copy_(ax, tpos, k.narrow(ax, S - W, W))
+    return out
+
+
 def prefill_to_decode_cache(cfg: ArchConfig, caches, prompt_len: int,
                             max_len: int):
-    """Convert prefill caches into decode buffers. Mamba caches come back
-    as they are, so a decode step then updates them in place."""
+    """Convert prefill caches into decode buffers. Mamba and rec caches and
+    encdec's (already padded to max_dec_len by the forward) come back as
+    they are, so a decode step then updates them in place.
+
+    A hybrid attention layer's ring holds min(window, max_len) slots, as
+    `init_decode_cache` sizes it; the reference converts to `window` slots
+    whatever max_len is, so its engine cannot serve below the window (ROADMAP
+    Queue 3). Below the window the ring is a linear buffer of max_len, exact
+    while every position stays below max_len (the engine retires a slot
+    before it reaches max_len); a prompt longer than such a ring raises."""
     if caches is None:
         return None
-    M._require_ported(cfg)
-    if "state" in caches:         # mamba: O(1) state, pass through
+    if cfg.family == "encdec":
         return caches
-    return {name: _to_linear(c, max_len) for name, c in caches.items()}
+
+    def convert_layer(c):
+        if "state" in c:          # mamba / rg-lru: O(1) state, pass through
+            return c
+        if cfg.family == "hybrid":
+            W = min(cfg.hybrid.window, max_len)
+            S = c["k"].shape[-3]
+            if W < cfg.hybrid.window and S > W:
+                raise ValueError(f"a prefill cache of {S} positions does "
+                                 f"not fit a ring of max_len {max_len} "
+                                 f"below the window {cfg.hybrid.window}")
+            return {name: _to_ring(t, W) for name, t in c.items()}
+        return {name: _to_linear(t, max_len) for name, t in c.items()}
+
+    if isinstance(caches, list):
+        return [convert_layer(c) for c in caches]
+    return convert_layer(caches)
 
 
 def init_decode_cache(cfg: ArchConfig, layout: HeadLayout, batch: int,
@@ -77,10 +119,18 @@ class ServingEngine:
     errors are the reference's.
 
     A primed request's cache goes into batch row `slot` of every layer
-    (axis 1 of the stacked caches). The reference's `_prime` writes it into
-    layer `slot` instead (`dst.at[slot]` on the layer axis), so its later
-    tokens are not the model's greedy tokens (ROADMAP Queue 3); the port's
-    tokens are held to the reference model's greedy decode.
+    (axis 1 of the stacked caches, axis 0 of each listed layer's). For
+    stacked caches the reference's `_prime` writes it into layer `slot`
+    instead (`dst.at[slot]` on the layer axis), so its later tokens are not
+    the model's greedy tokens (ROADMAP Queue 3); the port's tokens are
+    held to the reference model's greedy decode. For listed caches (the
+    hybrid family, interleaved MoE) the reference writes the batch row, as
+    the port does.
+
+    It serves token prompts, as the reference's (`_prime` feeds
+    `{"inputs": prompt}`): the vlm and encdec families, whose inputs are
+    embeddings, raise `ValueError`; their path is `forward(mode="prefill")`
+    then `decode_step`.
 
     The engine runs where its parameters lie. `stats` counts prefills and
     decode steps and their host seconds; each ends in a device-to-host
@@ -89,6 +139,12 @@ class ServingEngine:
 
     def __init__(self, cfg: ArchConfig, params, *, batch_size: int = 4,
                  max_len: int = 256, tp: int = 1):
+        if cfg.embeds_input or cfg.family == "encdec":
+            raise ValueError(f"{cfg.name}: the serving engine takes token "
+                             f"prompts, and the {cfg.family} family's "
+                             f"inputs are embeddings (as in the reference, "
+                             f"whose _prime feeds 'inputs'); run "
+                             f"forward(mode='prefill') and decode_step")
         self.cfg = cfg
         self.layout = M.make_layout(cfg, tp)
         self.params = params
@@ -137,8 +193,13 @@ class ServingEngine:
         caches = prefill_to_decode_cache(cfg, caches, prompt.shape[1],
                                          self.max_len)
         # this request's cache into batch row `slot` of every layer
-        for name, dst in self.caches.items():
-            dst[:, slot] = caches[name][:, 0].to(dst.dtype)
+        if isinstance(self.caches, list):
+            for dst, src in zip(self.caches, caches):
+                for name, d in dst.items():
+                    d[slot] = src[name][0].to(d.dtype)
+        else:
+            for name, dst in self.caches.items():
+                dst[:, slot] = caches[name][:, 0].to(dst.dtype)
         self.pos[slot] = len(req.prompt) - 1  # next decode writes at prompt_len
         nxt = int(torch.argmax(logits[0, -1]))
         self.stats["prefills"] += 1

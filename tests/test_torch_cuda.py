@@ -462,14 +462,70 @@ def test_flash_kernel_equals_plain(cuda, Sq, Skv, D, causal, bq, bk, dtype):
         assert TA.within_bf16_bound(got, plain, q, k, v, causal)
 
 
-def test_flash_kernel_gqa_layout_equals_plain(cuda):
-    rng = np.random.default_rng(1)
+GQA_F32_SHAPES = ((2, 40, 2, 5, 64), (2, 40, 2, 64), (2, 40, 2, 64))
+
+
+def gqa_f64(q5, k4, v4):
+    """The gqa-layout case in f64 on the CPU: the value both f32 sides
+    round."""
+    B, S, K, G, D = q5.shape
+    s = torch.einsum("bqkgd,bskd->bkgqs", q5.double(), k4.double()) \
+        * D ** -0.5
+    mask = torch.ones(S, S, dtype=torch.bool).tril()
+    s = torch.where(mask, s, torch.full_like(s, -2.0 ** 30))
+    o = torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(s, -1), v4.double())
+    return o
+
+
+def gqa_plain(q5, k4, v4):
+    """K8's plain version of the gqa-layout case where the tensors lie,
+    through `_flash_attention_plain` on (B, H, S, D) views, back in the
+    (B, S, K, G, D) layout."""
+    B, S, K, G, D = q5.shape
+    q = q5.permute(0, 2, 3, 1, 4).reshape(B, K * G, S, D)
+    o = TA._flash_attention_plain(q, k4.permute(0, 2, 1, 3),
+                                  v4.permute(0, 2, 1, 3), True, D ** -0.5)
+    return o.reshape(B, K, G, S, D).permute(0, 3, 1, 2, 4)
+
+
+def gqa_miss(got, want, exact, cpu) -> str:
+    """What a miss of the gqa-layout case keeps: the largest |card -
+    plain|, its index, and there the card's value, the plain version's on
+    the card and on the CPU, and the f64 value, so that the report says
+    which side moved."""
+    d = (got - want).abs()
+    i = np.unravel_index(int(d.argmax()), tuple(d.shape))
+    return (f"max |card - plain| {float(d.max()):.3e} at {tuple(map(int, i))}"
+            f": card {float(got[i]):.9e}, plain {float(want[i]):.9e} (on the "
+            f"CPU {float(cpu[i]):.9e}), f64 {float(exact[i]):.9e}; max |card "
+            f"- f64| {float((got.double() - exact).abs().max()):.3e}, max "
+            f"|plain - f64| {float((want.double() - exact).abs().max()):.3e}")
+
+
+def gqa_case(seed, cuda):
+    """The gqa-layout f32 case of `seed`: (card, plain on the card, f64,
+    the CPU inputs), all on the CPU."""
+    rng = np.random.default_rng(seed)
     q5, k4, v4 = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
-                  for s in ((2, 40, 2, 5, 64), (2, 40, 2, 64),
-                            (2, 40, 2, 64)))
-    got = TOPS.gqa_layout_attention(q5.to(cuda), k4.to(cuda), v4.to(cuda))
-    want = TOPS.gqa_layout_attention(q5, k4, v4)
-    assert float((got.cpu() - want).abs().max()) <= 1e-5
+                  for s in GQA_F32_SHAPES)
+    on_card = [t.to(cuda) for t in (q5, k4, v4)]
+    got = TOPS.gqa_layout_attention(*on_card).cpu()
+    want = gqa_plain(*on_card).cpu()
+    return got, want, gqa_f64(q5, k4, v4), (q5, k4, v4)
+
+
+def test_flash_kernel_gqa_layout_equals_plain(cuda):
+    """Within 1e-5 of the plain version on the card and of the f64 value;
+    a miss reports its size, index and the values there (`gqa_miss`). The
+    plain version runs on the card, as in the other K8 tests: in a run of
+    these tests after a full `chip_smoke.py`, the plain version on the CPU
+    came out 6.47e-5 from f64 at one element, once, where the card was
+    8.5e-7 from it (ROADMAP Queue 3)."""
+    got, want, exact, cpu_in = gqa_case(1, cuda)
+    assert float((got - want).abs().max()) <= 1e-5, \
+        gqa_miss(got, want, exact, gqa_plain(*cpu_in))
+    assert float((got.double() - exact).abs().max()) <= 1e-5, \
+        gqa_miss(got, want, exact, gqa_plain(*cpu_in))
 
 
 # (B, H, Hkv, Sq, Skv, D, causal): every head dim the configs name, the
@@ -549,36 +605,17 @@ def test_flash_kernel_strided_path_makes_no_copy(cuda, monkeypatch, dtype, B,
                        ref)
 
 
-GQA_F32_SHAPES = ((2, 40, 2, 5, 64), (2, 40, 2, 64), (2, 40, 2, 64))
-
-
-def gqa_f64(q5, k4, v4):
-    """The gqa-layout case in f64 on the CPU: the value both f32 sides
-    round."""
-    B, S, K, G, D = q5.shape
-    s = torch.einsum("bqkgd,bskd->bkgqs", q5.double(), k4.double()) \
-        * D ** -0.5
-    mask = torch.ones(S, S, dtype=torch.bool).tril()
-    s = torch.where(mask, s, torch.full_like(s, -2.0 ** 30))
-    o = torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(s, -1), v4.double())
-    return o
-
-
 @pytest.mark.parametrize("seed", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_flash_kernel_gqa_layout_equals_plain_over_seeds(cuda, seed):
     """The gqa-layout f32 case repeated over seeds: within 1e-5 of the
-    plain version, and the card no farther from the f64 value than the
-    plain version on the CPU is plus 1e-5."""
-    rng = np.random.default_rng(seed)
-    q5, k4, v4 = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
-                  for s in GQA_F32_SHAPES)
-    got = TOPS.gqa_layout_attention(q5.to(cuda), k4.to(cuda),
-                                    v4.to(cuda)).cpu()
-    want = TOPS.gqa_layout_attention(q5, k4, v4)
-    exact = gqa_f64(q5, k4, v4)
-    assert float((got - want).abs().max()) <= 1e-5
+    plain version on the card, and the card no farther from the f64 value
+    than that plain version is plus 1e-5."""
+    got, want, exact, cpu_in = gqa_case(seed, cuda)
+    assert float((got - want).abs().max()) <= 1e-5, \
+        gqa_miss(got, want, exact, gqa_plain(*cpu_in))
     assert float((got.double() - exact).abs().max()) <= \
-        float((want.double() - exact).abs().max()) + 1e-5
+        float((want.double() - exact).abs().max()) + 1e-5, \
+        gqa_miss(got, want, exact, gqa_plain(*cpu_in))
 
 
 def test_flash_kernel_f32_repeats_within_tolerance(cuda):
@@ -1174,3 +1211,76 @@ def test_reshard_keeps_every_shard_on_the_loopback_card(cuda, monkeypatch):
     assert {s for s, _ in built} == {(1, 4), (1, 2)}
     assert all(d == {torch.device("cuda", 0)} for _, d in built)
     assert all(torch.equal(a, b) for a, b in zip(out, clean))
+
+
+# the other model families: K8 at their prefill shapes (arctic's 56/8
+# heads and qwen2-vl's 64/8 at 2048 tokens, whisper's 20/20 of 64 at 384),
+# and one smoke-size forward per family on the card == the CPU's
+FAMILY_K8 = [(1, 56, 8, 2048, 128), (1, 64, 8, 2048, 128),
+             (1, 20, 20, 384, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,Hkv,S,D", FAMILY_K8)
+def test_flash_kernel_at_the_families_shapes_equals_plain(cuda, B, H, Hkv,
+                                                          S, D, dtype):
+    """Causal, the model's default blocks: bf16 (the tensor-core kernel)
+    within `bf16_bound`, f32 (the SIMT kernel) within 1e-5."""
+    q, k, v = attn((B, H, S, D), (B, Hkv, S, D), dtype, cuda, seed=H + S)
+    before = TA.LAUNCHES["flash_attention"]
+    got = TA.flash_attention(q, k, v, causal=True)
+    assert TA.LAUNCHES["flash_attention"] == before + 1
+    plain = TA._flash_attention_plain(q, k, v, True, D ** -0.5)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        assert float((got - plain).abs().max()) <= 1e-5
+    else:
+        assert TA.within_bf16_bound(got, plain, q, k, v, True)
+
+
+def family_batch(cfg, device):
+    """A smoke-size input of `cfg`'s family, made from a seed with numpy."""
+    rng = np.random.default_rng(0)
+    if cfg.family == "encdec":
+        return {"enc_embeds": torch.as_tensor(rng.normal(
+                    size=(2, 32, cfg.d_model)), dtype=torch.float32).to(device),
+                "dec_inputs": torch.as_tensor(rng.integers(
+                    0, cfg.vocab_size, (2, 8))).to(device)}
+    if cfg.embeds_input:
+        pos = np.broadcast_to(np.arange(32)[None, :, None], (2, 32, 3)).copy()
+        pos[:, :16, 1:] = np.stack([np.arange(16) // 4, np.arange(16) % 4], -1)
+        return {"embeds": torch.as_tensor(rng.normal(
+                    size=(2, 32, cfg.d_model)), dtype=torch.float32).to(device),
+                "positions": torch.as_tensor(pos).to(device)}
+    return {"inputs": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (2, 32))).to(device)}
+
+
+@pytest.mark.parametrize("arch,k8", [
+    ("recurrentgemma-9b", 0), ("arctic-480b", 2),
+    ("llama4-maverick-400b-a17b", 2), ("qwen2-vl-72b", 2),
+    ("whisper-large-v3", 2)])
+def test_family_forward_on_the_card_equals_cpu(cuda, arch, k8):
+    """Each family's smoke config, f32 compute, `pallas`, weights drawn on
+    the CPU from seed 0 and copied: the card's prefill logits == the CPU's
+    within 1e-4 (the f32 logit tolerance of the CPU tests), and K8
+    launched once per causal self-attention layer (none on the hybrid's
+    window, nor in whisper's encoder or cross-attention)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import random_params
+    from repro_torch.models import model as TM
+    from repro_torch.pspec import tree_map
+    cfg = get_smoke_config(arch).replace(compute_dtype="float32",
+                                         attention_impl="pallas")
+    layout = TM.make_layout(cfg, 1)
+    params = random_params(cfg, "cpu")
+    on_card = tree_map(lambda a: a.to(cuda), params, is_leaf=torch.is_tensor)
+    want = TM.forward(params, family_batch(cfg, "cpu"), cfg, layout,
+                      mode="prefill")[0]
+    before = TA.LAUNCHES["flash_attention"]
+    got = TM.forward(on_card, family_batch(cfg, cuda), cfg, layout,
+                     mode="prefill")[0]
+    torch.cuda.synchronize()
+    assert TA.LAUNCHES["flash_attention"] == before + k8
+    assert float((got.cpu() - want).abs().max()) < 1e-4

@@ -36,9 +36,6 @@ from repro_torch.serving.engine import prefill_to_decode_cache as t_p2d
 
 DENSE = ["qwen2.5-14b", "qwen3-32b", "nemotron-4-15b", "nemotron-4-340b"]
 SSM = "falcon-mamba-7b"
-PORTED = DENSE + [SSM]
-OTHER = [a for a in ARCH_IDS if a.replace("_", "-").replace("2-5", "2.5")
-         not in PORTED]
 F32_LOGIT_TOL = 1e-4
 F32_CACHE_REL = 2e-5
 BF16_REL = 0.1
@@ -119,7 +116,7 @@ def test_configs_equal_reference_field_by_field(arch):
         j_get_config(arch).replace(n_layers=3, compute_dtype="float32"))
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_param_specs_equal_reference_at_full_width(arch):
     tc, jc = get_config(arch), j_get_config(arch)
     tspecs = TM.param_specs(tc, TM.make_layout(tc, 1))
@@ -153,14 +150,6 @@ def test_falcon_mamba_7b_has_7_006e9_parameters():
     cfg = get_config(SSM)
     assert TP.count_params(TM.param_specs(cfg, TM.make_layout(cfg, 1))) \
         == 7_006_326_784
-
-
-@pytest.mark.parametrize("arch", OTHER)
-def test_other_families_wait_for_their_slice(arch):
-    cfg = get_smoke_config(arch)
-    assert cfg.family not in ("dense", "ssm")
-    with pytest.raises(NotImplementedError, match="G1c"):
-        TM.param_specs(cfg, TM.make_layout(cfg, 1))
 
 
 def test_init_rules_on_the_device():
@@ -343,8 +332,7 @@ def test_out_of_range_indices_raise_instead_of_clamping():
 
 
 @pytest.mark.parametrize("knob,value,slice_", [
-    ("attention_impl", "flash", "G2"), ("attention_impl", "skip_core", "G2"),
-    ("pos", "mrope", "G1c"), ("scan_layers", False, "stacked")])
+    ("attention_impl", "flash", "G2"), ("attention_impl", "skip_core", "G2")])
 def test_later_paths_raise_naming_their_slice(knob, value, slice_):
     cfg = get_smoke_config("qwen2.5-14b").replace(**{knob: value})
     params = params_from_numpy(smoke_weights("qwen2.5-14b"), device="cpu")
