@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only distributed_spec  # phase 21 alone
     python3 chip_smoke.py --only recovery          # phases 22-23 alone
     python3 chip_smoke.py --only families          # phases 24-28 alone
+    python3 chip_smoke.py --only train             # phases 29-31 alone
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 
@@ -241,9 +242,39 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 28. holds K8 against its plain version and times it beside SDPA and its
    bound at the families' prefill shapes (`ATTN_FAMILY_TIMED`: arctic's
    56/8 heads and qwen2-vl's 64/8 at 2048 tokens, whisper's 20/20 of 64
-   at 384), one kernel record each.
+   at 384), one kernel record each;
+29. trains `qwen3-32b` at full width, cut to 4 of 64 layers (3.51 B
+   params; f32 params and AdamW moments, 56 GB of state; bf16 compute,
+   `attention_impl="flash"`, `remat="full"`, weights drawn on the card
+   from seed 0) through `launch.train.train_loop` at train.py's defaults
+   (batch 8, seq 128, Markov data, lr 3e-3): 20 steps, every one good and
+   the last loss below the first, then a poisoned 21st that the NaN guard
+   skips and counts; none of the port's kernels launched (the reference's
+   training path runs no Pallas kernel); then a step's ms by events,
+   tokens/s, its share of the bf16 peak by `roofline.model_flops`, the
+   device's busy share (`torch.profiler`), the peak memory, and a
+   poisoned step leaving the state's digest unchanged;
+30. at the same width in f32, batch 1, seq 2048 (two flash chunks):
+   remat "none" and "dots" and scan_group 2 == remat "full", loss and
+   every gradient bitwise; `chunked` against `flash` within
+   `FLASH_GRAD_REL`; grad_accum 2 against 1 at 2 x 1024 at the reference
+   test's tolerances; K8's and K9's routes raising under grad on the card;
+31. one train step of each other family at smoke width (f32, flash; the
+   hybrid at 7 layers, pattern-grouped) on the card against the CPU: loss
+   and gradients within `ORDER_GRAD_REL`, the card's gradients repeating
+   bitwise, the step == its update by hand on the card bitwise and within
+   1e-6 of the CPU's update from the same gradients; a checkpointed
+   `train_loop` of the
+   4-layer smoke `qwen3-32b` (scan_group 2) killed after step 3 (its last
+   checkpoint incomplete) and resumed from step 2 to 6 == the
+   uninterrupted run, bitwise; `serve.py --ckpt-dir` serving 4 requests
+   from a trainer's checkpoint with an engine's tokens over the trained
+   params; the directories deleted.
 
 Each phase prints its seconds.
+
+`--only train` runs phases 29-31 alone (its kernels line is empty: the
+training path launches none).
 
 `--only families` runs phases 24-28 alone (its kernels line holds K8 at
 the families' shapes).
@@ -284,8 +315,11 @@ without that last line, as does a machine without a CUDA device.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -318,6 +352,15 @@ from repro_torch.serving.engine import (  # noqa: E402
 from repro_torch.serving.stencil_engine import (  # noqa: E402
     StencilRequest, StencilServingEngine)
 from repro_torch.launch.mesh import make_stencil_mesh  # noqa: E402
+from repro_torch import pspec as PS  # noqa: E402
+from repro_torch.config import RunShape  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.data.pipeline import synth_batch, to_device  # noqa: E402
+from repro_torch.launch import serve as SERVE  # noqa: E402
+from repro_torch.launch.train import train_loop  # noqa: E402
+from repro_torch.training import checkpoint as CKPT  # noqa: E402
+from repro_torch.training import optimizer as TO  # noqa: E402
+from repro_torch.training import step as TS  # noqa: E402
 from repro_torch.stencil import distributed as D  # noqa: E402
 from repro_torch.stencil import spec as SP  # noqa: E402
 from repro_torch.stencil.advection import (PAPER_GRIDS,  # noqa: E402
@@ -510,6 +553,25 @@ SERVE_PAPER_SLOT = (512, 512, 64)
 SERVE_PAPER_REQUESTS = 8
 SERVE_PAPER_MAX_NEW = 4
 SERVE_MIRROR = (12, 16)
+TRAIN_ARCH = "qwen3-32b"
+TRAIN_DEPTH = 4              # of 64 layers: 3.51 B params, 56.2 GB of state
+TRAIN_STEPS = 20             # train.py's defaults otherwise: batch 8, seq 128
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 128, 3e-3
+TRAIN_TIMED = 5              # steps timed by events after the loop
+GATE_SEQ = 2048              # phase 30: two flash chunks of attn_chunk 1024
+GATE_ACCUM = (2, 1024)       # batch, seq of the grad_accum gate
+LOSS_REL = 1e-5              # x max(1, |loss|): port against port, f32
+FLASH_GRAD_REL = 1e-4        # flash vs chunked, x each leaf's max |grad|;
+#                              PERF.md: from a reduced-width CPU rehearsal
+ORDER_GRAD_REL = 3e-3        # x each leaf's max |grad|: the same f32 sums
+#                              in two orders (card vs CPU, grad_accum 2 vs
+#                              1); the CPU tests' port-vs-JAX bound, whose
+#                              worst leaf reads 1.4e-3
+FAMILY_TRAIN = (("falcon-mamba-7b", {}),
+                ("recurrentgemma-9b", dict(n_layers=7, scan_group=1)),
+                ("arctic-480b", {}), ("qwen2-vl-72b", {}),
+                ("whisper-large-v3", {}))
+RESUME_DEPTH, RESUME_STEPS, RESUME_KILL, RESUME_EVERY = 4, 6, 3, 2
 
 
 class Checks:
@@ -3913,6 +3975,327 @@ def families_phases(check: Checks, card: str) -> list:
     return records
 
 
+# ---------------------------------------------------------------------------
+# training (slice G2a): qwen3-32b at full width, its gates, the families
+# ---------------------------------------------------------------------------
+
+
+def leaves(tree) -> list:
+    return PS.tree_leaves(tree, is_leaf=torch.is_tensor)
+
+
+def digest(tree) -> list:
+    """Two wrapping 64-bit sums (of the bits, and of their squares) of
+    every slice of every leaf: what a bitwise comparison with a 56 GB
+    state's copy would read, without the copy."""
+    out = []
+    for t in leaves(tree):
+        for sl in TO.slices(t):
+            b = sl.reshape(-1).view(torch.int32).to(torch.int64)
+            out.append((int(b.sum()), int((b * b).sum())))
+    return out
+
+
+def max_rel(got, want) -> float:
+    """Largest of each leaf's max |got - want| over its max |want|."""
+    return max(float((g.float() - w.float()).abs().max())
+               / max(float(w.float().abs().max()), 1e-30)
+               for g, w in zip(leaves(got), leaves(want)))
+
+
+def train_cfg(**kw):
+    return get_config(TRAIN_ARCH).replace(n_layers=TRAIN_DEPTH,
+                                          attention_impl="flash", **kw)
+
+
+def train_phase(check: Checks, card: str) -> None:
+    """Phase 29: `launch.train.train_loop` on qwen3-32b at full width, 4 of
+    64 layers, at train.py's defaults (batch 8, seq 128, Markov data, lr
+    3e-3): 20 steps, then a poisoned 21st that the guard skips; then the
+    step timed by events, profiled, and a poisoned step's state digest."""
+    cfg = train_cfg(remat="full")
+    shape = RunShape("train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    opt = TO.OptConfig(peak_lr=TRAIN_LR, warmup_steps=min(
+        20, TRAIN_STEPS // 5), total_steps=TRAIN_STEPS)
+    print(f"{cfg.name}: cut to {TRAIN_DEPTH} of 64 layers to fit one card; "
+          f"{cfg.param_count() / 1e9:.3f} B params, f32 params and moments, "
+          f"bf16 compute, attention_impl flash, remat full", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    state, hist, info = train_loop(cfg, steps=TRAIN_STEPS + 1,
+                                   batch=TRAIN_BATCH, seq=TRAIN_SEQ, opt=opt,
+                                   log_every=5, seed=0,
+                                   inject_nan_at=TRAIN_STEPS, device="cuda")
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(info["skipped"] == 1 and len(hist) == TRAIN_STEPS
+          and all(math.isfinite(h) for h in hist),
+          f"{cfg.name} train: {TRAIN_STEPS} of {TRAIN_STEPS} steps good, "
+          f"the poisoned step {TRAIN_STEPS + 1} skipped and counted once")
+    check(hist[-1] < hist[0], f"{cfg.name} train: last loss {hist[-1]:.4f} "
+          f"below the first {hist[0]:.4f}")
+    check(not any(all_counts().values()), "the training path launched none "
+          "of the port's kernels (flash attention and AdamW are plain "
+          "PyTorch, as the reference's are jnp)")
+    walls = [t * 1e3 for t in info["step_s"][2:TRAIN_STEPS]]
+    layout = M.make_layout(cfg, 1)
+    step = TS.make_train_step(cfg, layout, opt=opt)
+    batch = to_device(synth_batch(cfg, shape, TRAIN_STEPS + 1, seed=0),
+                      "cuda")
+    ms = time_ms(lambda: step(state, batch), runs=TRAIN_TIMED, warmup=1)
+    dev_ms, n_kernels = profiled_kernels(lambda: step(state, batch), "",
+                                         [0], 2)
+    # the step's two halves: the gradients, and the global norm with AdamW
+    metrics, grads = TS.accumulated_grads(state["params"], batch, cfg,
+                                          layout)
+
+    def update():
+        gn = TO.global_norm(grads)
+        TO.adamw_update(TS.split_layers(state["params"]), grads,
+                        TS.split_opt(state["opt"]), opt, gnorm=gn,
+                        good=torch.isfinite(metrics["loss"])
+                        & torch.isfinite(gn))
+    opt_ms = time_ms(update, runs=TRAIN_TIMED, warmup=1)
+    del grads
+    before = digest(state)
+    state, m = step(state, batch, poison=True)
+    check(not bool(m["good"]) and digest(state) == before,
+          f"{cfg.name} train: a poisoned step is not good and leaves the "
+          f"params, moments and step as they were (digest of "
+          f"{len(before)} slices)")
+    flops = R.model_flops(cfg, shape)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"phase 29 {cfg.name} ({TRAIN_DEPTH} L) train, {card}: "
+          f"{TRAIN_STEPS + 1} steps in {loop_s:.2f} s; a step "
+          f"{ms:.4f} ms by events (median of {TRAIN_TIMED}), "
+          f"{statistics.median(walls):.4f} ms wall in the loop (median of "
+          f"steps 3-{TRAIN_STEPS}); {tokens / ms * 1e3:.1f} tokens/s; "
+          f"{flops / 1e12:.3f} TFLOP a step (6 N D), "
+          f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, "
+          f"{flops / (ms / 1e3) / R.PEAK_FLOPS_BF16:.4f} of the bf16 peak; "
+          f"the global norm and AdamW {opt_ms:.4f} ms by events, the "
+          f"forward and backward the other {ms - opt_ms:.4f}; "
+          f"kernels {device_text(dev_ms)} a step ({n_kernels // 2} "
+          f"launches), busy share "
+          f"{dev_ms / ms if dev_ms > 0 else 'not measured'}; peak "
+          f"{peak:.2f} GB; losses {[round(h, 4) for h in hist]}",
+          flush=True)
+    del state, batch, step
+
+
+def grads_of(params, batch, cfg, tag: str):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _, g = TS.loss_and_grads(params, batch, cfg, M.make_layout(cfg, 1))
+    torch.cuda.synchronize()
+    print(f"  {tag}: loss {float(loss):.6f}, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return loss, g
+
+
+def train_gate_phase(check: Checks) -> None:
+    """Phase 30: qwen3-32b at full width, 4 layers, f32 compute, batch 1,
+    seq 2048: remat none / dots and scan_group 2 == remat full (flat),
+    bitwise; chunked against flash; grad_accum 2 against 1; the kernel
+    routes' refusal of grad on the card."""
+    cfg = train_cfg(remat="full", compute_dtype="float32")
+    params = random_params(cfg, "cuda")
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, GATE_SEQ + 1)), device="cuda")
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    ref_loss, ref = grads_of(params, batch, cfg, "flash, remat full")
+    for kw in (dict(remat="none"), dict(remat="dots"),
+               dict(scan_group=2)):
+        loss, g = grads_of(params, batch, cfg.replace(**kw), str(kw))
+        check(torch.equal(loss, ref_loss) and all(
+            torch.equal(a, b) for a, b in zip(leaves(g), leaves(ref))),
+            f"{cfg.name} f32 at {GATE_SEQ} tokens: {kw} == remat full, "
+            f"loss and every gradient bitwise")
+        del g
+    loss, g = grads_of(params, batch, cfg.replace(attention_impl="chunked"),
+                       "chunked")
+    err, lerr = max_rel(g, ref), abs(float(loss) - float(ref_loss))
+    check(lerr <= LOSS_REL * max(1.0, abs(float(ref_loss)))
+          and err <= FLASH_GRAD_REL,
+          f"{cfg.name} f32: chunked vs flash loss {lerr:.3e} (limit "
+          f"{LOSS_REL} x max(1, |loss|)), gradients {err:.3e} x each "
+          f"leaf's max (limit {FLASH_GRAD_REL}): the same function, other "
+          f"operations (flash's hand-written backward)")
+    del g, ref
+    B, S = GATE_ACCUM
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (B, S + 1)), device="cuda")
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    layout = M.make_layout(cfg, 1)
+    runs = [TS.accumulated_grads(params, batch, cfg.replace(grad_accum=a),
+                                 layout) for a in (1, 2)]
+    oc = TO.OptConfig(peak_lr=1e-3, warmup_steps=0, total_steps=10,
+                      clip_norm=1e9, weight_decay=0.0)
+    norms = [TO.global_norm(g) for _, g in runs]
+    gerr = max_rel(runs[1][1], runs[0][1])
+    worst, bad, flipped = 0.0, 0, 0
+    for i, p in enumerate(leaves(TS.split_layers(params))):
+        new = []
+        for (_, g), gn in zip(runs, norms):
+            one = {"p": p.clone()}
+            TO.adamw_update(one, {"p": leaves(g)[i]}, TO.init_opt_state(one),
+                            oc, gnorm=gn)
+            new.append(one["p"])
+        g1 = leaves(runs[0][1])[i]
+        # AdamW's first step is about lr x sign(g): where g lies within the
+        # two orders' rounding of 0, either sign is the right one
+        near0 = g1.abs() <= ORDER_GRAD_REL * g1.abs().max()
+        out = (new[0] - new[1]).abs() > 2e-4 + 5e-2 * new[1].abs()
+        bad += int((out & ~near0).sum())
+        flipped += int((out & near0).sum())
+        worst = max(worst, float((new[0] - new[1]).abs().max()))
+        del new, out, near0
+    lerr = abs(float(runs[0][0]["loss"]) - float(runs[1][0]["loss"]))
+    check(lerr < 5e-3 and gerr <= ORDER_GRAD_REL and bad == 0,
+          f"{cfg.name} f32 at {B} x {S}: grad_accum 2 vs 1, loss {lerr:.3e} "
+          f"(limit 5e-3), gradients {gerr:.3e} x each leaf's max (limit "
+          f"{ORDER_GRAD_REL}), params after one AdamW step within the "
+          f"reference test's rtol 5e-2 + atol 2e-4 wherever the gradient "
+          f"is not within that of 0 ({bad} outside; {flipped} elements "
+          f"with near-0 gradients stepped the other way; largest "
+          f"difference {worst:.3e})")
+    del runs
+    pallas = cfg.replace(attention_impl="pallas")
+    try:
+        TS.loss_and_grads(params, {"inputs": toks[:, :129],
+                                   "targets": toks[:, 1:130]}, pallas, layout)
+        raised = False
+    except RuntimeError as e:
+        raised = "forward-only" in str(e)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    xc = torch.randn(1, 16, 32, device="cuda", generator=g,
+                     requires_grad=True)
+    try:
+        SS.selective_scan(xc, torch.rand_like(xc), torch.randn(
+            1, 16, 4, device="cuda"), torch.randn(1, 16, 4, device="cuda"),
+            -torch.rand(32, 4, device="cuda"), torch.zeros(1, 32, 4,
+                                                           device="cuda"))
+        raised_k9 = False
+    except RuntimeError as e:
+        raised_k9 = "forward-only" in str(e)
+    check(raised and raised_k9, "on the card, attention_impl='pallas' (K8) "
+          "under a train step and K9 with a grad-requiring input raise "
+          "(forward-only), where the CUDA route returned outputs without "
+          "autograd history")
+    del params
+
+
+def family_train_phase(check: Checks) -> None:
+    """Phase 31: one train step of each other family at smoke width
+    (f32, flash) on the card against the CPU: loss and gradients within
+    the two summation orders' tolerance, the update against the CPU's
+    from the same gradients; then a checkpointed train loop killed and
+    resumed on the card == the uninterrupted run, bitwise; then serve.py
+    --ckpt-dir."""
+    for arch, kw in FAMILY_TRAIN:
+        cfg = get_smoke_config(arch).replace(compute_dtype="float32",
+                                             attention_impl="flash", **kw)
+        layout = M.make_layout(cfg, 1)
+        oc = TO.OptConfig(peak_lr=1e-3, warmup_steps=0, total_steps=10)
+        cpu = TS.init_state(cfg, layout, torch.Generator().manual_seed(0))
+        gpu = tree_map(lambda t: t.to("cuda"), cpu, is_leaf=torch.is_tensor)
+        raw = synth_batch(cfg, RunShape("t", "train", 32, 2), 0, seed=0)
+        cb, gb = to_device(raw, "cpu"), to_device(raw, "cuda")
+        lc, _, gc = TS.loss_and_grads(cpu["params"], cb, cfg, layout)
+        lg, _, gg = TS.loss_and_grads(gpu["params"], gb, cfg, layout)
+        again = TS.loss_and_grads(gpu["params"], gb, cfg, layout)[2]
+        repeat = all(torch.equal(a, b) for a, b in zip(leaves(gg),
+                                                        leaves(again)))
+        gerr = max_rel([t.cpu() for t in leaves(gg)], leaves(gc))
+        lerr = abs(float(lg) - float(lc))
+        # the step on the card, then the same update by hand on a copy (on
+        # the card, and on the CPU from the card's gradients): AdamW's
+        # first step is about lr x sign(g), so it is held to the CPU's
+        # given the same gradients, not across their rounding
+        copy = tree_map(torch.clone, gpu, is_leaf=torch.is_tensor)
+        gpu, mg = TS.make_train_step(cfg, layout, opt=oc)(gpu, gb)
+        gn = TO.global_norm(gg)
+        TO.adamw_update(TS.split_layers(copy["params"]), gg,
+                        TS.split_opt(copy["opt"]), oc, gnorm=gn,
+                        good=torch.isfinite(lg) & torch.isfinite(gn))
+        by_hand = all(torch.equal(a, b) for a, b in zip(leaves(gpu),
+                                                        leaves(copy)))
+        host = tree_map(lambda t: t.cpu(), gg, is_leaf=torch.is_tensor)
+        TO.adamw_update(TS.split_layers(cpu["params"]), host,
+                        TS.split_opt(cpu["opt"]), oc, gnorm=gn.cpu())
+        uerr = max(float(((a.cpu() - b).abs() - 1e-6 * b.abs()).max())
+                   for a, b in zip(leaves(gpu), leaves(cpu)))
+        check(lerr <= LOSS_REL * max(1.0, abs(float(lc)))
+              and gerr <= ORDER_GRAD_REL and bool(mg["good"]) and repeat
+              and by_hand and uerr <= 1e-9,
+              f"{cfg.name} ({cfg.n_layers} L{', scan_group 1' if kw else ''}) "
+              f"one step on the card vs the CPU: loss {lerr:.3e}, gradients "
+              f"{gerr:.3e} x each leaf's max (limit {ORDER_GRAD_REL}), the "
+              f"card's gradients repeat bitwise; the step == its update by "
+              f"hand, bitwise, and the params, moments and step within "
+              f"1e-6 x each value + 1e-9 of the CPU's update from the "
+              f"card's gradients (excess over 1e-6 x each value "
+              f"{uerr:.1e})")
+    cfg = get_smoke_config(TRAIN_ARCH).replace(n_layers=RESUME_DEPTH,
+                                               scan_group=2)
+    opt = TO.OptConfig(peak_lr=1e-3, warmup_steps=0, total_steps=RESUME_STEPS)
+    kw = dict(batch=2, seq=32, opt=opt, log_every=0, seed=99, device="cuda")
+    full, hist_full, _ = train_loop(cfg, steps=RESUME_STEPS, **kw)
+    d = ROOT / "build" / "ckpt_train"
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        _, h1, _ = train_loop(cfg, steps=RESUME_KILL, ckpt_dir=d,
+                              ckpt_every=RESUME_EVERY, **kw)
+        # the kill: step RESUME_KILL's checkpoint never completed
+        shutil.rmtree(d / f"step_{RESUME_KILL:09d}")
+        resumed_from = CKPT.latest_step(d)
+        resumed, h2, _ = train_loop(cfg, steps=RESUME_STEPS, ckpt_dir=d,
+                                    ckpt_every=RESUME_EVERY, **kw)
+        check(resumed_from == RESUME_EVERY
+              and h1[:resumed_from] + h2 == hist_full
+              and all(torch.equal(a, b) for a, b in zip(leaves(full),
+                                                        leaves(resumed))),
+              f"{cfg.name} ({RESUME_DEPTH} L, scan_group 2) on the card: "
+              f"{RESUME_KILL} steps, killed, resumed from step "
+              f"{resumed_from} to {RESUME_STEPS} == the uninterrupted run "
+              f"(losses and final state bitwise)")
+        serve_cfg = get_smoke_config(TRAIN_ARCH)
+        state, _, _ = train_loop(serve_cfg, steps=2, ckpt_dir=d / "serve",
+                                 **dict(kw, opt=TO.OptConfig(
+                                     peak_lr=3e-2, warmup_steps=0,
+                                     total_steps=2)))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            SERVE.main(["--arch", TRAIN_ARCH, "--smoke", "--requests", "4",
+                        "--max-new", "8", "--ckpt-dir", str(d / "serve"),
+                        "--device", "cuda"])
+        out = buf.getvalue()
+        print(out, end="", flush=True)
+        want = ServingEngine(serve_cfg, state["params"], batch_size=4,
+                             max_len=128).run(
+            random_requests(serve_cfg, 4, 8))
+        check("[serve] restored step 2" in out and all(
+            f"  req {u}: {want[u][:10]}" in out for u in range(4)),
+            "serve.py --ckpt-dir on the card served the trained weights: "
+            "its tokens are an engine's over the trained params")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def training_phases(check: Checks, card: str) -> None:
+    """Phases 29-31: training (slice G2a)."""
+    phase("29 qwen3-32b train", train_phase, check, card)
+    torch.cuda.empty_cache()
+    phase("30 qwen3-32b train gates", train_gate_phase, check)
+    torch.cuda.empty_cache()
+    phase("31 families train, resume, serve --ckpt-dir", family_train_phase,
+          check)
+    torch.cuda.empty_cache()
+
+
 def phase(label: str, fn, *args, **kw):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -3926,9 +4309,9 @@ def main() -> int:
     if sys.argv[1:] and only not in (["distributed"], ["ladder"], ["k6"],
                                      ["k8"], ["k9"], ["stencil_serving"],
                                      ["distributed_spec"], ["recovery"],
-                                     ["families"]):
+                                     ["families"], ["train"]):
         print("usage: chip_smoke.py [--only distributed|ladder|k6|k8|k9|"
-              "stencil_serving|distributed_spec|recovery|families]",
+              "stencil_serving|distributed_spec|recovery|families|train]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3970,6 +4353,9 @@ def main() -> int:
         return finish(check, recovery_only(check, card), card, t0)
     if only == ["families"]:
         return finish(check, families_phases(check, card), card, t0)
+    if only == ["train"]:
+        training_phases(check, card)
+        return finish(check, [], card, t0)
     if only:
         return finish(check, distributed_only(check, card), card, t0)
     phase("1 small shapes", small_shape_phase, check)
@@ -4036,6 +4422,7 @@ def main() -> int:
     print(f"phase 14 K9 timing: {time.perf_counter() - t_k9:.1f} s",
           flush=True)
     records += families_phases(check, card)
+    training_phases(check, card)
     return finish(check, records, card, t0)
 
 

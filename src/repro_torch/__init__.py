@@ -18,5 +18,8 @@ attention kernel, `csrc/flash_attention_tc.cu` for bf16 and
 `attention_impl="pallas"`. All are built by `nvcc` at first use
 (`_build.py`). On CPU tensors each
 wrapper runs its plain PyTorch version instead, which is what the CPU test
-tier holds against the JAX reference.
+tier holds against the JAX reference. Training (`launch.train` ->
+`training.step.make_train_step` -> `models.model.loss_fn`, AdamW in
+`training.optimizer`) runs plain PyTorch, as the reference's runs jnp:
+the kernel routes are forward-only and refuse a gradient.
 """

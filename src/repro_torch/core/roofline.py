@@ -12,7 +12,7 @@ between distinct cards (`NVLINK_BW`, each way) and device memory on a
 loopback mesh, whose shards share one card (`LOOPBACK_BW`: each byte is
 read and written once). The serving models (`serving_max_batch`,
 `serving_throughput_model`) price the stencil serving engine's mega-step on
-the card.
+the card; `model_flops` counts a model step's FLOPs (6 N D to train).
 """
 from __future__ import annotations
 
@@ -379,3 +379,18 @@ def stencil_ridge_T(flops_per_cell: float, bytes_per_cell_pass: float,
         flops_per_cell, bytes_per_cell_pass,
         tiling_bytes_factor=tiling_bytes_factor)
     return max(1, math.ceil(ridge / ai1))
+
+
+def model_flops(cfg, shape) -> float:
+    """Analytic model FLOPs of a step of `shape` (a `config.RunShape`):
+    6 N D to train, 2 N D to prefill, 2 N per sequence to decode, N the
+    active parameters (`cfg.active_param_count()`: MoE counts its routed
+    top-k) and D the tokens (encdec: encoder frames + decoder tokens)."""
+    n_active = cfg.active_param_count()
+    toks = shape.tokens if cfg.family != "encdec" else (
+        shape.global_batch * (shape.seq_len + cfg.encdec.dec_len))
+    if shape.kind == "train":
+        return 6.0 * n_active * toks
+    if shape.kind == "prefill":
+        return 2.0 * n_active * toks
+    return 2.0 * n_active * shape.global_batch

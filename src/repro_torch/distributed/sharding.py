@@ -5,7 +5,7 @@ Attention heads use a group-aligned stored layout that pads or replicates q
 and kv heads so that the head dim always divides the tensor-parallel degree.
 At tp = 1, the only degree the port runs so far, the stored layout is the
 logical one. The logical-axis rules, `constrain` and meshes wait for the
-slice that ports sharding (ROADMAP Queue 1, G2).
+slice that ports sharding (ROADMAP Queue 1, G2b).
 """
 from __future__ import annotations
 

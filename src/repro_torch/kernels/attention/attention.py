@@ -30,6 +30,7 @@ import torch
 
 from repro_torch import _build
 from repro_torch.core.roofline import SMEM_PER_BLOCK
+from repro_torch.kernels import refuse_grad
 
 NEG_INF = -2.0 ** 30
 THREADS = 256      # threads per block of the SIMT kernel
@@ -293,7 +294,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     Skv is not a multiple of its block (after `min(block, S)`), as the
     reference asserts. The blocks do not size the card's tiles: the
     tensor-core kernel picks its own (`tc_tiles`), the SIMT kernel caps
-    them to fit (`simt_tiles`)."""
+    them to fit (`simt_tiles`). Forward-only: raises RuntimeError, on
+    either device, where autograd would need a backward
+    (`kernels.refuse_grad`)."""
+    refuse_grad("flash_attention (K8)", q, k, v)
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention takes q (B,H,Sq,D) and k, v "
                          f"(B,Hkv,Skv,D); got {tuple(q.shape)}, "

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.attention.attention import flash_attention
 from repro_torch.kernels.attention.ref import mha_ref
 
@@ -28,7 +29,9 @@ def gqa_layout_attention(q5, k4, v4, *, causal: bool = True):
     q, k and v reach the kernel as (B, H, S, D) / (B, K, S, D) views of the
     model's tensors, and the kernel writes a (B, H, S, D) view of a
     contiguous (B, S, K, G, D) output: no copy of q, k, v or o on the card
-    (the kernel takes its operands by their strides)."""
+    (the kernel takes its operands by their strides). Forward-only, as
+    the reference's route: raises RuntimeError under grad."""
+    refuse_grad("gqa_layout_attention (K8)", q5, k4, v4)
     B, S, K, G, D = q5.shape
     q = q5.permute(0, 2, 3, 1, 4).reshape(B, K * G, S, D)
     k = k4.permute(0, 2, 1, 3)

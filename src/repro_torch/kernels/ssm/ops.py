@@ -7,10 +7,14 @@ plain version.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.ssm.ssm import selective_scan, vmem_bytes
 
 
 def mamba_scan(xc, dt, Bmat, Cmat, A, h0, *, chunk: int = 128):
+    """K9 over the mamba block's tensors; forward-only, as the
+    reference's route: raises RuntimeError under grad."""
+    refuse_grad("mamba_scan (K9)", xc, dt, Bmat, Cmat, A, h0)
     return selective_scan(xc, dt, Bmat, Cmat, A, h0, chunk=chunk)
 
 

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch import _build
 from repro_torch.core.roofline import SMEM_PER_BLOCK
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.advection.advection import (_device_index,
                                                      check_launch_grid)
 
@@ -281,7 +282,10 @@ def selective_scan(xc, dt, Bmat, Cmat, A, h0, *, chunk: int = 128):
     Raises ValueError, on either device, where the shapes disagree, where
     S is not a multiple of `chunk` (after `min(chunk, S)`, as the reference
     asserts) and where N exceeds MAX_N; on CUDA also where no build takes
-    the plan (`scan_launch_plan`)."""
+    the plan (`scan_launch_plan`). Forward-only: raises RuntimeError, on
+    either device, where autograd would need a backward
+    (`kernels.refuse_grad`)."""
+    refuse_grad("selective_scan (K9)", xc, dt, Bmat, Cmat, A, h0)
     if xc.ndim != 3 or dt.shape != xc.shape or Bmat.ndim != 3 \
             or Cmat.shape != Bmat.shape or Bmat.shape[:2] != xc.shape[:2]:
         raise ValueError(f"selective_scan takes xc, dt (B,S,D) and Bmat, "

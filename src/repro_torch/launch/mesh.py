@@ -1,13 +1,18 @@
-"""The (nx, ny) device mesh of the distributed stencil step.
+"""Device meshes: the (nx, ny) mesh of the distributed stencil step, and
+the host mesh a training run holds.
 
-Counterpart of the stencil helpers of `repro.launch.mesh`. The reference
-runs one controller: `shard_map` over a mesh, in one process. The port
-keeps that design: one process holds a `StencilMesh`, a shape and the
-`torch.device` of each shard, and drives every shard from the host. A
-mesh whose shards lie on distinct cards moves bands between them over
-NVLink; a loopback mesh, whose shards share one device (asked for with
-`devices=["cuda:0"] * 4`, or `["cpu"] * 4` in the tests), moves them
-within that device's memory through the same code.
+Counterpart of `repro.launch.mesh`'s stencil helpers, `make_host_mesh`
+and `tp_degree`. The training path runs on one card so far: its host
+mesh is ("data", "model") = (1, 1), tp = 1; wider meshes, and the rules
+that shard a model over them, wait for slice G2b (ROADMAP Queue 1).
+
+The reference runs one controller: `shard_map` over a mesh, in one
+process. The port keeps that design: one process holds a `StencilMesh`,
+a shape and the `torch.device` of each shard, and drives every shard from
+the host. A mesh whose shards lie on distinct cards moves bands between
+them over NVLink; a loopback mesh, whose shards share one device (asked
+for with `devices=["cuda:0"] * 4`, or `["cpu"] * 4` in the tests), moves
+them within that device's memory through the same code.
 """
 from __future__ import annotations
 
@@ -124,3 +129,28 @@ def resize_stencil_mesh(nx: int, ny: int, *,
     contract, with a clear error when the requested shape exceeds the
     cards this process can see."""
     return make_stencil_mesh(nx, ny, devices=devices, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class HostMesh:
+    """The devices a training run holds, with the reference's mesh axes:
+    `shape` maps "data" and "model" to their sizes."""
+    shape: dict
+    devices: Tuple[torch.device, ...]
+
+
+def make_host_mesh(*, model: int = 1, device: str = "cuda") -> HostMesh:
+    """One device of type `device` (card 0 for "cuda") as a (1, 1) mesh.
+    A model axis wider than 1 (tensor parallelism) raises
+    NotImplementedError naming slice G2b."""
+    if model != 1:
+        raise NotImplementedError(f"a host mesh with model={model} (tensor "
+                                  f"parallelism) waits for slice G2b")
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", 0)
+    return HostMesh({"data": 1, "model": 1}, (dev,))
+
+
+def tp_degree(mesh) -> int:
+    return mesh.shape.get("model", 1)

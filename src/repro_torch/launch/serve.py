@@ -28,7 +28,9 @@ token prompts: the engine refuses them, as the reference's serves tokens
 only. The engine runs the config's `attention_impl` (`chunked` for every
 config), so the CLI launches neither flash attention (K8) nor the
 selective scan (K9); `chip_smoke.py` serves with `attention_impl="pallas"`.
-`--ckpt-dir` (trained weights) waits for slice G2 (ROADMAP Queue 1).
+`--ckpt-dir` serves trained weights instead: the params of the latest
+train state under that directory (`launch.train`'s checkpoints, or the
+reference's: the format is shared), re-laid-out for tp = 1.
 
 `--stencil` serves forecast jobs instead of tokens
 (`serving.stencil_engine`): slots of (64, 256, 64) at T = 4, or (12, 16, 64)
@@ -56,6 +58,8 @@ from repro_torch.serving.faults import Fault, FaultPlan
 from repro_torch.serving.stencil_engine import (StencilRequest,
                                                 StencilServingEngine)
 from repro_torch.stencil.advection import AdvectionDomain, stratus_fields
+from repro_torch.training import checkpoint as CKPT
+from repro_torch.training import step as TS
 
 STENCIL_SHAPES = {True: (12, 16, 64, 2), False: (64, 256, 64, 4)}  # smoke?
 STENCIL_DT = 0.005
@@ -78,6 +82,18 @@ def random_params(cfg, device, seed: int = 0):
     layout = M.make_layout(cfg, tp=1)
     gen = torch.Generator(device=device).manual_seed(seed)
     return pspec.init_params(M.param_specs(cfg, layout), gen)
+
+
+def restored_params(cfg, ckpt_dir, device):
+    """(the params of the latest train state under `ckpt_dir`, laid out
+    for tp = 1 on `device`, its step)."""
+    layout = M.make_layout(cfg, tp=1)
+    like = pspec.abstract_params(TS.state_specs(cfg, layout))
+    state, step = CKPT.restore(ckpt_dir, like, cfg=cfg, layout=layout)
+    params = pspec.tree_map(lambda a: torch.from_numpy(a).to(device),
+                            state["params"],
+                            is_leaf=lambda x: isinstance(x, np.ndarray))
+    return params, step
 
 
 def stencil_requests(X: int, Y: int, Z: int, n_requests: int,
@@ -165,7 +181,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--ckpt-dir", default=None,
-                    help="serve trained weights (waits for slice G2)")
+                    help="serve the params of the latest train state there")
     ap.add_argument("--fault-plan", default=None,
                     help="(--stencil) deterministic fault schedule, e.g. "
                          "'nan_poison@1:slot=1;device_loss@2:reshard_to=1' "
@@ -180,11 +196,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.stencil:
         _run_stencil(args)
         return
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir (checkpoint restore) waits for "
-                                  "slice G2 (ROADMAP Queue 1)")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    params = random_params(cfg, args.device)
+    if args.ckpt_dir:
+        params, step = restored_params(cfg, args.ckpt_dir, args.device)
+        print(f"[serve] restored step {step} from {args.ckpt_dir}")
+    else:
+        params = random_params(cfg, args.device)
     engine = ServingEngine(cfg, params, batch_size=args.batch_size,
                            max_len=args.max_len)
     reqs = random_requests(cfg, args.requests, args.max_new)

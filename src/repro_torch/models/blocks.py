@@ -15,11 +15,14 @@ reference casts them (`.astype(x.dtype)`).
 without a window, and the selective-scan kernel K9
 (`kernels.ssm.ops.mamba_scan`) in mamba blocks, at train and prefill: on
 CUDA tensors the hand-written kernels, on CPU tensors their plain
-versions. As in the reference, a window takes precedence over `pallas`
-(the hybrid family's attention runs `attn_local`), non-causal and cross
+versions. Both routes are forward-only, as the reference's: they raise
+under grad. `flash` (causal self-attention through `layers.attn_flash`,
+whose backward recomputes the probabilities) and `chunked` train. As in
+the reference, a window takes precedence over `pallas` and `flash` (the
+hybrid family's attention runs `attn_local`), non-causal and cross
 attention run `attn_dense`, and the RG-LRU recurrence has no kernel.
-`flash` and `skip_core` raise `NotImplementedError` naming slice G2
-(ROADMAP Queue 1).
+`skip_core` raises `NotImplementedError` naming slice G2b (ROADMAP
+Queue 1).
 """
 from __future__ import annotations
 
@@ -39,15 +42,14 @@ from repro_torch.pspec import ParamSpec
 
 Params = Dict[str, Any]
 
-IMPLS = ("dense", "chunked", "local", "pallas")
-LATER = {"flash": "G2 (training: the custom-VJP flash path)",
-         "skip_core": "G2 (the dry run's phase-attribution lowering)"}
+IMPLS = ("dense", "chunked", "local", "pallas", "flash")
+LATER = {"skip_core": "G2b (the dry run's phase-attribution lowering)"}
 
 
 @dataclass
 class Ctx:
     """Per-call context: positions, mode, cache slot. Sharding rules and
-    meshes wait for slice G2."""
+    meshes wait for slice G2b."""
     cfg: ArchConfig
     layout: HeadLayout
     positions: Any = None        # (B, S) or (B, S, 3) for mrope
@@ -190,6 +192,9 @@ def attention_apply(p: Params, x, ctx: Ctx, *, kv_x=None, window: int = 0,
             out = L.attn_dense(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
                                causal=ctx.causal and kv_x is None,
                                scale=scale)
+        elif impl == "flash":
+            out = L.attn_flash(q, k, v, q_pos, kv_pos, True, scale,
+                               cfg.attn_chunk)
         elif impl == "pallas":
             # the flash kernel K8 (its plain version on CPU tensors);
             # forward only, as in the reference

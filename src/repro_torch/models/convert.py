@@ -7,6 +7,9 @@ the stencil side's `params_from_numpy` does). The two layouts are the same
 leaf for leaf (the stacked `(n_layers, ...)` axis included), so both
 packages then compute the same function on the same weights. bfloat16
 arrays (numpy's `ml_dtypes` bfloat16) come across bit for bit.
+`state_from_numpy` carries a whole train state ({"params", "opt": {"m",
+"v", "step"}}) the same way, so both packages start a step from the same
+state.
 """
 from __future__ import annotations
 
@@ -29,3 +32,14 @@ def params_from_numpy(tree, *, device="cuda"):
     """A tree (dicts and lists) of numpy arrays as a tree of tensors."""
     return tree_map(lambda a: tensor_from_numpy(a, device), tree,
                     is_leaf=lambda x: isinstance(x, np.ndarray))
+
+
+def state_from_numpy(state, *, device="cuda"):
+    """The reference's train state, as numpy arrays, as the port's: params
+    and AdamW moments tensor for tensor, the step an int32 0-dim tensor."""
+    opt = state["opt"]
+    return {"params": params_from_numpy(state["params"], device=device),
+            "opt": {"m": params_from_numpy(opt["m"], device=device),
+                    "v": params_from_numpy(opt["v"], device=device),
+                    "step": torch.tensor(int(opt["step"]), dtype=torch.int32,
+                                         device=device)}}

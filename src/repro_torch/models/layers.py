@@ -18,8 +18,11 @@ builds cos and sin in f32 and rounds them to x's dtype, `attn_dense` and
 `attn_local` round p to v's dtype before PV while `attn_chunked` keeps p
 in f32.
 
-`attn_flash` (the custom-VJP training path) waits for slice G2 (ROADMAP
-Queue 1).
+`attn_flash` is the training path's attention: an autograd Function whose
+forward streams the KV chunks as `attn_chunked` does and saves only (q, k,
+v, out, logsumexp), and whose backward recomputes each chunk's
+probabilities (the reference's custom VJP, plain PyTorch: the reference
+runs it outside any Pallas kernel).
 """
 from __future__ import annotations
 
@@ -168,6 +171,100 @@ def attn_chunked(q, k, v, *, q_pos, kv_pos, causal: bool, scale: float,
         m = m_new
     out = acc / torch.clamp_min(torch.movedim(l, -1, 1)[..., None], 1e-20)
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention with a hand-written backward (the reference's custom VJP)
+# ---------------------------------------------------------------------------
+#
+# `attn_chunked` under autograd saves every chunk's logits and
+# probabilities for the backward pass. Flash backward saves only (q, k, v,
+# out, logsumexp) and recomputes each chunk's probabilities: compute traded
+# for data movement.
+
+
+def _flash_chunks(Skv: int, chunk: int) -> int:
+    n = max(Skv // chunk, 1)
+    if Skv % n:
+        raise ValueError(f"attn_flash: {Skv} keys do not split into {n} "
+                         f"equal chunks of about {chunk}")
+    return Skv // n
+
+
+def _flash_fwd_impl(q, k, v, q_pos, kv_pos, causal, scale, chunk):
+    """Returns (out in q's dtype, lse (B,K,G,Sq) f32)."""
+    B, Skv, K, D = k.shape
+    Sq, G = q.shape[1], q.shape[3]
+    c = _flash_chunks(Skv, chunk)
+    qf = q.float()
+    m = torch.full((B, K, G, Sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, K, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Sq, K, G, D), dtype=torch.float32, device=q.device)
+    for j in range(Skv // c):
+        sl = slice(j * c, (j + 1) * c)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, k[:, sl].float()) * scale
+        if causal:
+            s = _masked(s, _causal_mask(q_pos, kv_pos[sl]))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgqs,bskd->bqkgd", p, v[:, sl].float())
+        acc = acc * torch.movedim(corr, -1, 1)[..., None] + pv
+        m = m_new
+    lse = m + torch.log(torch.clamp_min(l, 1e-30))
+    out = acc / torch.clamp_min(torch.movedim(l, -1, 1)[..., None], 1e-30)
+    return out.to(q.dtype), lse
+
+
+class _AttnFlash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, causal, scale, chunk):
+        out, lse = _flash_fwd_impl(q, k, v, q_pos, kv_pos, causal, scale,
+                                   chunk)
+        ctx.save_for_backward(q, k, v, out, lse, q_pos, kv_pos)
+        ctx.causal, ctx.scale, ctx.chunk = causal, scale, chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, q_pos, kv_pos = ctx.saved_tensors
+        causal, scale = ctx.causal, ctx.scale
+        Skv = k.shape[1]
+        c = _flash_chunks(Skv, ctx.chunk)
+        qf = q.float()
+        dof = do.float()
+        # rowwise D_i = sum_d dO * O
+        drow = torch.einsum("bqkgd,bqkgd->bkgq", dof, out.float())
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dks, dvs = [], []
+        for j in range(Skv // c):
+            sl = slice(j * c, (j + 1) * c)
+            kj, vj = k[:, sl].float(), v[:, sl].float()
+            s = torch.einsum("bqkgd,bskd->bkgqs", qf, kj) * scale
+            if causal:
+                s = _masked(s, _causal_mask(q_pos, kv_pos[sl]))
+            p = torch.exp(s - lse[..., None])                 # (B,K,G,Sq,C)
+            dvs.append(torch.einsum("bkgqs,bqkgd->bskd", p, dof))
+            dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vj)
+            ds = p * (dp - drow[..., None]) * scale
+            dq = dq + torch.einsum("bkgqs,bskd->bqkgd", ds, kj)
+            dks.append(torch.einsum("bkgqs,bqkgd->bskd", ds, qf))
+        dk = torch.cat(dks, dim=1)
+        dv = torch.cat(dvs, dim=1)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None, None)
+
+
+def attn_flash(q, k, v, q_pos, kv_pos, causal: bool, scale: float,
+               chunk: int):
+    """Flash attention for training: q (B,Sq,K,G,D), k/v (B,Skv,K,D) ->
+    (B,Sq,K,G,D) in q's dtype. The forward is `attn_chunked`'s online
+    softmax (p in f32); the backward recomputes each chunk's p from the
+    saved logsumexp and accumulates dq, dk, dv in f32, as the reference's
+    `_attn_flash_bwd` does."""
+    return _AttnFlash.apply(q, k, v, q_pos, kv_pos, causal, scale, chunk)
 
 
 def attn_local(q, k, v, *, q_pos, kv_pos, scale: float, window: int):

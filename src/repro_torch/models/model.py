@@ -6,6 +6,7 @@ hybrid, encdec, vlm), with its uniform API:
   layout      = make_layout(cfg, tp)
   specs       = param_specs(cfg, layout)          # tree of ParamSpec
   params      = pspec.init_params(specs, gen)     # or abstract_params(specs)
+  loss, metrics   = loss_fn(params, batch, cfg, layout)          (train)
   logits, aux, kv = forward(params, batch, cfg, layout, mode="prefill")
   logits, kv      = decode_step(params, caches, batch, cfg, layout)
 
@@ -15,8 +16,22 @@ other stack (the hybrid and interleaved-MoE patterns, or
 `scan_layers=False`) is a list of per-layer trees, and encdec keeps
 stacked `enc_layers` and `dec_layers`. So weights carry across one to one
 (`models.convert.params_from_numpy`); `_run_stack` loops over the layers
-in Python where the reference runs `lax.scan`. Training's loss, remat and
-sharding wait for slice G2 (ROADMAP Queue 1).
+in Python where the reference runs `lax.scan`. A list may also hold
+per-layer views of a stacked tree (`training.step.split_layers`: the train
+step differentiates the layers as leaves of their own).
+
+In `mode="train"` under autograd, `cfg.remat` recomputes in backward what
+the reference's `jax.checkpoint` does: "full" saves only each layer's
+input (`torch.utils.checkpoint`, non-reentrant), "dots" also the outputs
+of the products without batch dimensions (`DOTS_POLICY`, the counterpart
+of `checkpoint_dots_with_no_batch_dims`). `cfg.scan_group` g > 1 saves
+only the boundaries of groups of g layers (the reference's sqrt-remat
+group scan), and a non-uniform stack of at least 6 layers with a
+repeating pattern saves only the pattern groups' boundaries (the
+reference's `_run_grouped_pattern`; both in `_run_train_stack`).
+Recompute runs the same operations on the same inputs, so the loss and
+gradients are the flat run's, bitwise. Sharding waits for slice G2b
+(ROADMAP Queue 1).
 
 JAX clamps an out-of-range index where torch would raise or read past the
 end, so `_embed` refuses a token outside the vocabulary and `decode_step`
@@ -25,10 +40,13 @@ a position outside a linear cache (the serving engine reaches neither).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.config import ArchConfig
 from repro_torch.distributed.sharding import HeadLayout, make_head_layout
@@ -309,11 +327,46 @@ def _restack(new: list):
     return {k: torch.stack([c[k] for c in new]) for k in new[0]}
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the products without batch dimensions (2-D `mm` and `addmm`,
+    and `bmm` over a batch of one: the weight projections); recompute
+    the rest (attention's batched products, the elementwise ops)."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+DOTS_POLICY = functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                _dots_policy)
+
+
+def _remat(fn, remat: str):
+    """`fn` recomputed in backward under `remat` ("none" returns it)."""
+    if remat == "none":
+        return fn
+    if remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {remat!r}")
+    kw = {"context_fn": DOTS_POLICY} if remat == "dots" else {}
+    return lambda *a: _ckpt.checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
+def _training(ctx: Ctx, caches) -> bool:
+    """Whether remat applies: a train-mode forward under autograd."""
+    return ctx.mode == "train" and caches is None and torch.is_grad_enabled()
+
+
 def _run_stack(params_layers, kinds, x, ctx: Ctx, caches=None):
     """Apply the layer stack in order (the reference's `lax.scan` over a
     stacked axis, or its loop over a list). Returns (x, aux summed over the
     layers, new caches): in prefill, stacked or listed like the
-    parameters; in decode, `caches`, updated in place; else None."""
+    parameters; in decode, `caches`, updated in place; else None.
+
+    In training the layers run under `cfg.remat`, in groups where
+    `cfg.scan_group` asks for them (`_group_spans`)."""
+    if _training(ctx, caches):
+        return _run_train_stack(params_layers, kinds, x, ctx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new = []
     for i, kind in enumerate(kinds):
@@ -330,6 +383,64 @@ def _run_stack(params_layers, kinds, x, ctx: Ctx, caches=None):
                     else _restack(new))
 
 
+def _pattern_period(kinds) -> int:
+    """Smallest repeating period of the layer-kind pattern (0 if none)."""
+    for p in range(1, len(kinds) // 2 + 1):
+        if all(kinds[i] == kinds[i % p] for i in range(len(kinds))):
+            return p
+    return 0
+
+
+def _group_spans(cfg: ArchConfig, kinds):
+    """(layers in a group, the group's remat, each layer's remat inside
+    it), or None for a flat stack. A stacked uniform stack groups
+    `scan_group` layers when they split it into more than one group: each
+    group recomputed whatever `cfg.remat` is, each layer inside under it
+    (the reference's checkpointed outer scan over its inner scan of
+    remat'd blocks). A non-uniform stack of at least 6 layers with
+    `scan_group` set groups its repeating pattern: each group recomputed
+    unless `cfg.remat` is "none", the layers inside not (the reference's
+    `_run_grouped_pattern`)."""
+    g, nL = cfg.scan_group, len(kinds)
+    if _uniform(kinds):
+        if cfg.scan_layers and g > 1 and nL % g == 0 and nL // g > 1:
+            return g, "full", cfg.remat
+        return None
+    if g and nL >= 6:
+        pat = _pattern_period(kinds)
+        if pat and nL // pat > 1:
+            return pat, "none" if cfg.remat == "none" else "full", "none"
+    return None
+
+
+def _run_train_stack(params_layers, kinds, x, ctx: Ctx):
+    """The training forward of the stack, with remat and groups: returns
+    (x, aux summed over the layers in order, None)."""
+    cfg = ctx.cfg
+
+    def run(layers, remat, x, aux):
+        for i in layers:
+            def f(p, x, kind=kinds[i]):
+                return _apply_block(kind, p, x, ctx)[:2]
+            x, a = _remat(f, remat)(_layer(params_layers, i), x)
+            aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    spans = _group_spans(cfg, kinds)
+    if spans is None:
+        return (*run(range(len(kinds)), cfg.remat, x, aux), None)
+    size, group_remat, inside = spans
+    n_groups = len(kinds) // size
+    for gi in range(n_groups):
+        group = functools.partial(run, range(gi * size, (gi + 1) * size),
+                                  inside)
+        x, aux = _remat(group, group_remat)(x, aux)
+    # the pattern's tail, layer by layer (a uniform stack has none)
+    x, aux = run(range(n_groups * size, len(kinds)), group_remat, x, aux)
+    return x, aux, None
+
+
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
@@ -342,8 +453,10 @@ def _embed(params, cfg: ArchConfig, tokens):
         raise ValueError(f"token ids must lie in [0, {tab.shape[0]}); "
                          f"jnp.take would clamp or fill them, torch would "
                          f"read out of bounds")
-    x = torch.index_select(tab, 0, tokens.reshape(-1).long())
-    x = x.reshape(tuple(tokens.shape) + (tab.shape[1],))
+    # `F.embedding`: the rows `index_select` gathers, and a backward that
+    # sums repeated tokens' rows in a fixed order on CUDA (index_select's
+    # adds them atomically, so a train step would not repeat bitwise)
+    x = F.embedding(tokens.long(), tab)
     return x.to(torch_dtype(cfg.compute_dtype))
 
 
@@ -494,3 +607,31 @@ def decode_step(params, caches, batch, cfg: ArchConfig, layout: HeadLayout):
                                   caches)
     x = _apply_norm(params["final_norm"], x, cfg.norm_eps)
     return _lm_logits(params, cfg, layout, x)[:, 0], caches
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(logits, targets, *, z_loss: float = 1e-4):
+    """Masked softmax cross-entropy in f32, plus `z_loss` times the mean
+    squared log-partition. targets < 0 are masked."""
+    logits = logits.float()
+    mask = (targets >= 0).float()
+    tgt = torch.clamp_min(targets, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    nll = (logz - ll) * mask
+    z = torch.square(logz) * mask
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    return nll.sum() / denom + z_loss * z.sum() / denom
+
+
+def loss_fn(params, batch, cfg: ArchConfig, layout: HeadLayout):
+    """Training loss: `lm_loss` of the train-mode logits against
+    batch["targets"], plus the MoE aux losses. Returns (loss, {"loss",
+    "aux"})."""
+    logits, aux, _ = forward(params, batch, cfg, layout, mode="train")
+    loss = lm_loss(logits, batch["targets"]) + aux
+    return loss, {"loss": loss, "aux": aux}

@@ -6,7 +6,7 @@ dicts and lists) of `ParamSpec`s. From that single source come
     by the reference's init rules (`init_params`),
   * tensors on PyTorch's "meta" device, which carry shape and dtype and
     allocate nothing (`abstract_params`).
-Shardings wait for the slice that ports them (ROADMAP Queue 1, G2).
+Shardings wait for the slice that ports them (ROADMAP Queue 1, G2b).
 
 The two frameworks draw different numbers from the same seed, so the tests
 carry the reference's initialised weights across as numpy arrays
@@ -20,7 +20,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int32": torch.int32}
 
 
 def torch_dtype(name: str) -> torch.dtype:

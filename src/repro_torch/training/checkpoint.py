@@ -1,5 +1,5 @@
-"""Checkpoint and restore of nested arrays with atomic writes (the port's
-copy of the array half of `repro.training.checkpoint`).
+"""Checkpoint and restore of nested arrays with atomic writes (the port of
+`repro.training.checkpoint`).
 
 Layout on disk, the reference's:
     <dir>/step_000000123/
@@ -18,9 +18,11 @@ leaf. So either package restores what the other saved.
   * `keep_last` bounds disk usage; `AsyncCheckpointer` overlaps the
     serialisation with the caller's next step (one save in flight).
 
-Restored leaves are numpy arrays, as in the reference. The model half
-(`cfg=` with `layout=`, the logical head relayout of a model's params)
-waits for slice G2.
+Restored leaves are numpy arrays, as in the reference. With `cfg=` and
+`layout=`, a train state's params are stored in the logical (tp = 1) head
+layout (`models.relayout.to_logical`) and mapped back to `layout` on
+restore (`from_logical`), each leaf then coerced to the dtype of its
+`like_state` leaf: a restart on another TP degree re-lays-out on load.
 """
 from __future__ import annotations
 
@@ -35,8 +37,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-LATER_SLICE = ("waits for a later slice of the port (G2: the model half of "
-               "the checkpoint, the logical head relayout)")
+from repro_torch.models import relayout as R
 
 
 def _is_namedtuple(x) -> bool:
@@ -103,16 +104,17 @@ def _tree_to_host(state) -> Any:
                               _flatten_with_paths(state)])
 
 
-def _check_no_relayout(cfg, layout) -> None:
-    if cfg is not None and layout is not None:
-        raise NotImplementedError(f"checkpoint relayout (cfg= with layout=) "
-                                  f"{LATER_SLICE}")
+def _np_dtype(leaf):
+    """The numpy dtype of a leaf (tensor, array or scalar), or None."""
+    if torch.is_tensor(leaf):
+        return torch.empty((), dtype=leaf.dtype).numpy().dtype
+    return getattr(leaf, "dtype", None)
 
 
 def save(ckpt_dir: str | Path, state: Dict[str, Any], step: int, *,
          cfg=None, layout=None, keep_last: int = 3) -> Path:
-    """Synchronous atomic checkpoint save."""
-    _check_no_relayout(cfg, layout)
+    """Synchronous atomic checkpoint save; with `cfg` and `layout`,
+    state["params"] in the logical head layout."""
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     tmp = ckpt_dir / f".tmp_step_{step:09d}_{os.getpid()}"
@@ -120,6 +122,9 @@ def save(ckpt_dir: str | Path, state: Dict[str, Any], step: int, *,
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
+    if cfg is not None and layout is not None:
+        state = {**state, "params": R.to_logical(state["params"], cfg,
+                                                 layout)}
     leaves = [(k, _to_host(v)) for k, v in _flatten_with_paths(state)]
     np.savez(tmp / "arrays.npz", **dict(leaves))
     manifest = {
@@ -157,7 +162,6 @@ class AsyncCheckpointer:
         self.last_error: Optional[BaseException] = None
 
     def save(self, state, step: int, *, cfg=None, layout=None):
-        _check_no_relayout(cfg, layout)
         self.wait()
         # copy to host memory now (cheap beside the serialisation), so the
         # caller may go on changing its tensors
@@ -166,7 +170,7 @@ class AsyncCheckpointer:
         def work():
             try:
                 save(self.ckpt_dir, host_state, step, cfg=cfg,
-                     keep_last=self.keep_last)
+                     layout=layout, keep_last=self.keep_last)
             except BaseException as e:  # noqa: BLE001
                 self.last_error = e
 
@@ -212,12 +216,14 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
 def restore(ckpt_dir: str | Path, like_state: Dict[str, Any], *,
             step: Optional[int] = None, cfg=None,
             layout=None) -> Tuple[Dict[str, Any], int]:
-    """Restore into the structure of `like_state`, leaves as numpy arrays.
+    """Restore into the structure of `like_state`, leaves as numpy arrays;
+    with `cfg` and `layout`, state["params"] re-laid-out from the logical
+    head layout to `layout`, and every leaf coerced to the dtype of its
+    `like_state` leaf (tensor, array or scalar).
 
     A truncated or otherwise damaged archive raises `CheckpointCorrupted`
     naming the path; a checkpoint that is not there raises
     FileNotFoundError; a leaf the archive lacks raises KeyError."""
-    _check_no_relayout(cfg, layout)
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -244,4 +250,13 @@ def restore(ckpt_dir: str | Path, like_state: Dict[str, Any], *,
             f"checkpoint archive {npz} is unreadable "
             f"({type(e).__name__}: {e}); the write was likely truncated - "
             f"restore an earlier step") from e
-    return _unflatten(like_state, vals), step
+    state = _unflatten(like_state, vals)
+    if cfg is not None and layout is not None:
+        state = {**state, "params": R.from_logical(state["params"], cfg,
+                                                   layout)}
+        like = [_np_dtype(v) for _, v in _flatten_with_paths(like_state)]
+        got = [v for _, v in _flatten_with_paths(state)]
+        state = _unflatten(like_state, [
+            np.asarray(a) if dt is None else np.asarray(a, dtype=dt)
+            for a, dt in zip(got, like)])
+    return state, step

@@ -143,10 +143,31 @@ def test_async_checkpointer_snapshots_at_call_time(tmp_path):
 
 
 def test_relayout_branch_names_its_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="G2"):
-        TC.save(tmp_path, state(), 0, cfg=object(), layout=object())
-    with pytest.raises(NotImplementedError, match="G2"):
-        TC.restore(tmp_path, state(), cfg=object(), layout=object())
-    with pytest.raises(NotImplementedError, match="G2"):
-        TC.AsyncCheckpointer(tmp_path).save(state(), 0, cfg=object(),
-                                            layout=object())
+    """The relayout branch (cfg= with layout=), ported with slice G2a: a
+    train state saved under tp=4 by `save` and by `AsyncCheckpointer` is
+    stored in the logical layout (the reference restores it at tp=1 to
+    the tp=1 state) and restored at tp=4 to the saved state, bitwise."""
+    from repro_torch import pspec as TP
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as TM
+    from repro_torch.models import relayout as TR
+    from repro_torch.training import step as TS
+    cfg = get_smoke_config("qwen3-32b")
+    lo1, lo4 = TM.make_layout(cfg, 1), TM.make_layout(cfg, 4)
+    s1 = TS.init_state(cfg, lo1, torch.Generator().manual_seed(0))
+    s4 = {**s1, "params": TR.from_logical(s1["params"], cfg, lo4)}
+    TC.save(tmp_path / "a", s4, 5, cfg=cfg, layout=lo4)
+    ck = TC.AsyncCheckpointer(tmp_path / "b")
+    ck.save(s4, 5, cfg=cfg, layout=lo4)
+    ck.wait()
+    flat = lambda t: TP.tree_leaves(t, is_leaf=lambda x: isinstance(  # noqa
+        x, (np.ndarray, torch.Tensor)))
+    for d in ("a", "b"):
+        back, step = TC.restore(tmp_path / d, s4, cfg=cfg, layout=lo4)
+        assert step == 5
+        assert all(np.array_equal(a, b.numpy())
+                   for a, b in zip(flat(back), flat(s4)))
+        logical = JC.restore(tmp_path / d, TP.tree_map(
+            lambda t: t.numpy(), s1, is_leaf=torch.is_tensor))[0]
+        assert all(np.array_equal(a, b.numpy())
+                   for a, b in zip(flat(logical), flat(s1)))

@@ -12,6 +12,7 @@ from repro_torch.kernels.advection import advection as TK
 from repro_torch.kernels.advection import ref as TREF
 from repro_torch.kernels.attention import attention as TA
 from repro_torch.kernels.attention import ops as TOPS
+from repro_torch.kernels.ssm import ops as TSOPS
 from repro_torch.kernels.ssm import ssm as TS
 from repro_torch.stencil import spec as TSP
 
@@ -1284,3 +1285,76 @@ def test_family_forward_on_the_card_equals_cpu(cuda, arch, k8):
     torch.cuda.synchronize()
     assert TA.LAUNCHES["flash_attention"] == before + k8
     assert float((got.cpu() - want).abs().max()) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# training (slice G2a): the kernel routes are forward-only on the card too
+# ---------------------------------------------------------------------------
+
+
+def _grad_inputs(name, device):
+    g = torch.Generator(device=device).manual_seed(0)
+    if name in ("flash_attention", "gqa_layout_attention"):
+        shape = (1, 4, 128, 64) if name == "flash_attention" else \
+            (1, 128, 2, 2, 64)
+        q = torch.randn(shape, generator=g, device=device)
+        kv = (1, 2, 128, 64) if name == "flash_attention" else (1, 128, 2, 64)
+        k = torch.randn(kv, generator=g, device=device)
+        return q, k, torch.randn(kv, generator=g, device=device)
+    B, S, D, N = 1, 32, 32, 4
+    return (torch.randn(B, S, D, generator=g, device=device),
+            torch.rand(B, S, D, generator=g, device=device) * 0.1,
+            torch.randn(B, S, N, generator=g, device=device),
+            torch.randn(B, S, N, generator=g, device=device),
+            -torch.rand(D, N, generator=g, device=device),
+            torch.zeros(B, D, N, device=device))
+
+
+GRAD_ENTRY = {"flash_attention": TA.flash_attention,
+              "gqa_layout_attention": TOPS.gqa_layout_attention,
+              "selective_scan": TS.selective_scan,
+              "mamba_scan": lambda *a: TSOPS.mamba_scan(*a, chunk=32)}
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_ENTRY))
+def test_kernel_routes_refuse_grad_on_the_card(cuda, name):
+    """On CUDA tensors the kernels' outputs carry no autograd history, so
+    each entry point raises under grad; under no_grad it launches."""
+    args = _grad_inputs(name, cuda)
+    args[1].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        GRAD_ENTRY[name](*args)
+    with torch.no_grad():
+        out = GRAD_ENTRY[name](*args)
+    out = out if isinstance(out, tuple) else (out,)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+
+
+def test_train_step_repeats_bitwise_on_the_card(cuda):
+    """A train step's loss and gradients on the card repeat bitwise (the
+    resume gate rests on it: the embedding's backward sums in a fixed
+    order), and are within 1e-4 of each leaf's largest of the CPU's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as TM
+    from repro_torch.pspec import tree_leaves, tree_map
+    from repro_torch.training import step as TSTEP
+    cfg = get_smoke_config("qwen3-32b").replace(compute_dtype="float32")
+    layout = TM.make_layout(cfg, 1)
+    state = TSTEP.init_state(cfg, layout, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (4, 65),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    cpu = TSTEP.loss_and_grads(state["params"], batch, cfg, layout)
+    on = lambda t: {k: v.to(cuda) for k, v in t.items()}  # noqa: E731
+    params = tree_map(lambda t: t.to(cuda), state["params"],
+                      is_leaf=torch.is_tensor)
+    runs = [TSTEP.loss_and_grads(params, on(batch), cfg, layout)
+            for _ in range(2)]
+    leaves = lambda t: tree_leaves(t, is_leaf=torch.is_tensor)  # noqa
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(leaves(runs[0][2]),
+                                                  leaves(runs[1][2])))
+    assert abs(float(runs[0][0]) - float(cpu[0])) < 1e-5
+    for a, b in zip(leaves(runs[0][2]), leaves(cpu[2])):
+        assert float((a.cpu() - b).abs().max()) <= \
+            1e-4 * float(b.abs().max())

@@ -178,9 +178,35 @@ def test_serve_cli_smoke_on_the_cpu():
 
 
 @pytest.mark.parametrize("flag,slice_", [(["--ckpt-dir", "x"], "slice G2")])
-def test_serve_cli_later_paths_name_their_slice(flag, slice_):
-    with pytest.raises(NotImplementedError, match=slice_):
-        TSERVE.main(["--smoke", "--device", "cpu"] + flag)
+def test_serve_cli_later_paths_name_their_slice(flag, slice_, tmp_path,
+                                                capsys):
+    """`--ckpt-dir`, ported with slice G2a: serve.py restores the params a
+    port trainer checkpointed and serves them, the tokens those of an
+    engine over the trained params (not the random ones); a directory
+    without a checkpoint raises FileNotFoundError."""
+    from repro_torch.launch.train import train_loop
+    from repro_torch.training.optimizer import OptConfig
+    cfg = get_smoke_config("qwen3-32b")
+    d = tmp_path / flag[1]
+    state, _, _ = train_loop(cfg, steps=3, batch=2, seq=16, ckpt_dir=d,
+                             opt=OptConfig(peak_lr=3e-2, warmup_steps=0,
+                                           total_steps=3),
+                             log_every=0, device="cpu")
+    TSERVE.main(["--smoke", "--device", "cpu", "--requests", "3",
+                 "--max-new", "4", flag[0], str(d)])
+    out = capsys.readouterr().out
+    assert f"[serve] restored step 3 from {d}" in out
+    want = TE.ServingEngine(cfg, state["params"], batch_size=4,
+                         max_len=128).run(TSERVE.random_requests(cfg, 3, 4))
+    random = TE.ServingEngine(cfg, TSERVE.random_params(cfg, "cpu"),
+                           batch_size=4, max_len=128).run(
+        TSERVE.random_requests(cfg, 3, 4))
+    assert want != random
+    for uid in range(3):
+        assert f"  req {uid}: {want[uid][:10]}" in out
+    with pytest.raises(FileNotFoundError):
+        TSERVE.main(["--smoke", "--device", "cpu", flag[0],
+                     str(tmp_path / "empty")])
 
 
 @pytest.mark.parametrize("impl", ["chunked", "pallas"])
