@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only recovery          # phases 22-23 alone
     python3 chip_smoke.py --only families          # phases 24-28 alone
     python3 chip_smoke.py --only train             # phases 29-31 alone
+    python3 chip_smoke.py --only analysis          # phases 32-34 alone
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 
@@ -271,7 +272,32 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    from a trainer's checkpoint with an engine's tokens over the trained
    params; the directories deleted.
 
+32. the movement ledger live on the card (`analysis.ledger`, every hand
+   kernel a `repro_torch` op, `kernels.library`): `advance(16)` at the 67M
+   grid, T = 4, then K4; the (2, 2) loopback `make_distributed_run` at
+   `n_blocks=4` under both engines and the verified `collective` exchange;
+   the serving mega-step at 4 x (512, 512, 64); the spec path's six
+   passes; one K8 call at q (1, 40, 2048, 128) bf16 and one K9 call at
+   (1, 2048, 8192) bf16 (`analysis.programs`). Each category == its model
+   exactly (per shard and block on the distributed runs),
+   `check_model_coverage` passes with `pallas_control` unpriced, the live
+   ledger == a fake trace of the same program category by category, and
+   each kernel op's count == its `LAUNCHES` delta;
+33. the tiling linter over every op phase 32 launched (no error, at the
+   card's SM count), each kernel's planned shared bytes (`analysis.smem`)
+   == the bytes its launch asked for (`LAUNCHED_SHARED`; K8's tensor-core
+   build by its attrs call), and an oversized plan raising with its largest
+   buffer named;
+34. the retrace detector on the card: each engine's distributed block at
+   block indices 2-5 (one stream, no launch cache growing), `n_blocks` 3
+   and 5 sharing their last block's stream, `y_tile` changing it; the red fixture
+   flagged and the green one clean. Then the op layer's host cost: the
+   host milliseconds of one call before its launch returns, through the
+   op and through the bare launch function, for K1, K7 and K8.
+
 Each phase prints its seconds.
+
+`--only analysis` runs phases 32-34 and the host-cost lines alone.
 
 `--only train` runs phases 29-31 alone (its kernels line is empty: the
 training path launches none).
@@ -333,6 +359,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import _build  # noqa: E402
+from repro_torch import analysis as AN  # noqa: E402
+from repro_torch.analysis import programs as PR  # noqa: E402
+from repro_torch.analysis import smem as SM  # noqa: E402
+from repro_torch.analysis import trace as TR  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import roofline as R  # noqa: E402
 from repro_torch.kernels.advection import advection as K  # noqa: E402
@@ -4296,6 +4326,360 @@ def training_phases(check: Checks, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 32-34: the static data-movement analyzer on the card
+# ---------------------------------------------------------------------------
+
+# kernel op -> its counts in LAUNCHES (K2's wide launches count apart)
+OP_LAUNCH_KEYS = {"advect_fused": ("advect_fused",),
+                  "finite_guard": ("finite_guard",),
+                  "advect_blocked": ("advect_blocked",),
+                  "advect_dataflow": ("advect_dataflow", "advect_wide"),
+                  "stencil_fused": ("stencil_fused",),
+                  "band_exchange": ("band_exchange",),
+                  "flash_attention": ("flash_attention",),
+                  "selective_scan": ("selective_scan",)}
+ANALYSIS_SERVE = (512, 512, 64)
+ANALYSIS_BATCH = 4
+HOST_RUNS = 50
+
+
+def analysis_programs() -> list:
+    """Phase 32's programs at the paper's sizes (`analysis.programs`)."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    B, H, Hkv, S, Dh = ATTN_TIMED
+    return [
+        PR.advance_program(X, Y, Z, T=MAIN_T, n_substeps=MAIN_SUBSTEPS,
+                           dt=DT),
+        PR.distributed_program(X, Y, Z, exchange="collective", T=MAIN_T,
+                               n_blocks=DIST_BLOCKS, mesh=DIST_MESH, dt=DT),
+        PR.distributed_program(X, Y, Z, exchange="remote_dma", T=MAIN_T,
+                               n_blocks=DIST_BLOCKS, mesh=DIST_MESH, dt=DT),
+        PR.distributed_program(X, Y, Z, exchange="collective", T=MAIN_T,
+                               n_blocks=DIST_BLOCKS, mesh=DIST_MESH,
+                               verify=True, dt=DT),
+        PR.serving_program(*ANALYSIS_SERVE, B=ANALYSIS_BATCH, T=MAIN_T, dt=DT),
+        PR.spec_path_program(X, Y, Z, dt=DT),
+        PR.attention_program(B, H, Hkv, S, Dh),
+        PR.scan_program(*SCAN_TIMED[:3], SCAN_TIMED[3]),
+    ]
+
+
+def ledger_of(prog, records) -> dict:
+    led = AN.MovementLedger.from_ops(records)
+    if prog.per_block:
+        return led.per_shard_block_totals(prog.n_shards)
+    return led.totals()
+
+
+def op_counts(records) -> dict:
+    out = {}
+    for r in records:
+        if r.op is not None and r.op != "band_send":
+            out[r.op] = out.get(r.op, 0) + 1
+    return out
+
+
+def ledger_phase(check: Checks) -> list:
+    """Phase 32: each program's ledger live on the card against its models,
+    its fake trace and its launch counts. Returns (program, records, the
+    kernels' launched shared bytes) for phase 33."""
+    recorded = []
+    for prog in analysis_programs():
+        with TR.fake_mode():
+            fn, args = prog.build("cuda")
+            fake = ledger_of(prog, TR.record_ops(fn, *args))
+        del fn, args
+        fn, args = prog.build("cuda")
+        torch.cuda.synchronize()
+        reset_all_counts()
+        t0 = time.perf_counter()
+        records = TR.record_ops(fn, *args, execute=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_counts()
+        shared = {**K.LAUNCHED_SHARED, **A.LAUNCHED_SHARED,
+                  **SS.LAUNCHED_SHARED}
+        del fn, args
+        torch.cuda.empty_cache()
+        live = ledger_of(prog, records)
+        moved = {c: b for c, b in live.items() if b}
+        unit = " per shard and block" if prog.per_block else ""
+        print(f"ledger {prog.name}{unit}: {moved} (claims {prog.claims}); "
+              f"{len(records)} ops recorded in {wall:.2f} s", flush=True)
+        for cat, want in prog.claims.items():
+            check(live[cat] == want, f"32 {prog.name}: {cat} {live[cat]} == "
+                  f"model {want}{unit}")
+        report = AN.check_model_coverage(live, prog.claims)
+        check(report.ok, f"32 {prog.name}: model coverage (pallas_control "
+              f"unpriced) {[str(f) for f in report.failures]}")
+        check(live == fake, f"32 {prog.name}: live ledger == fake trace, "
+              f"category by category")
+        ops = op_counts(records)
+        for op, n in ops.items():
+            got = sum(launches[k] for k in OP_LAUNCH_KEYS[op])
+            check(n == got, f"32 {prog.name}: {op} ops {n} == LAUNCHES "
+                  f"delta {got}")
+        check(ops == prog.launches, f"32 {prog.name}: kernel ops {ops} == "
+              f"{prog.launches}")
+        recorded.append((prog, records, shared))
+    return recorded
+
+
+def n_sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def plan_phase(check: Checks, recorded) -> None:
+    """Phase 33: the linter over phase 32's ops, planned == launched shared
+    bytes, and an oversized plan's refusal."""
+    sms = n_sms()
+    for prog, records, _ in recorded:
+        report = AN.lint_records(records, n_sm=sms)
+        kinds = sorted({i.kind for i in report.warnings})
+        print(f"lint {prog.name}: {report.kernels} kernel ops, "
+              f"{len(report.errors)} errors, {len(report.warnings)} "
+              f"warnings {kinds}", flush=True)
+        check(not report.errors, f"33 {prog.name}: no tiling error "
+              f"{[str(e) for e in report.errors[:3]]}")
+    shared = {prog.name: sh for prog, _, sh in recorded}
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    nx, ny = DIST_MESH
+    ext = (X // nx + 2 * MAIN_T, Y // ny + 2 * MAIN_T, Z)
+    plans = [
+        ("advance", "advect_fused",
+         SM.fused_ring_plan(X, Y, Z, T=MAIN_T, n_sm=sms)),
+        ("serving", "advect_fused",
+         SM.serving_ring_plan(*ANALYSIS_SERVE, batch=ANALYSIS_BATCH,
+                              T=MAIN_T, n_sm=sms)),
+        ("distributed_remote_dma", "advect_fused",
+         SM.distributed_block_plan((X // nx, Y // ny, Z), T=MAIN_T,
+                                   local_kernel="fused",
+                                   exchange="remote_dma", nx=nx, ny=ny,
+                                   shards_per_card=nx * ny, n_sm=sms)),
+        ("spec_path", "stencil_fused",
+         SM.fused_ring_plan(X, Y, Z, T=PR.SPEC_PAIRS[-1][2], n_sm=sms,
+                            spec=PR._spec(*PR.SPEC_PAIRS[-1][:2]))),
+        ("scan", "selective_scan", None),
+    ]
+    for name, kernel, plan in plans:
+        if plan is None:
+            B, S_, Dd, N = SCAN_TIMED[:4]
+            dev_plan = SS.scan_device_plan("cuda", B, S_, Dd, N,
+                                           torch.bfloat16, torch.bfloat16)
+            plan = SM.scan_plan(B, S_, Dd, N, x_itemsize=2, dt_itemsize=2,
+                                n_sm=sms,
+                                blocks_per_sm=dev_plan.blocks_per_sm)
+        got = shared[name].get(kernel)
+        print(f"smem plan {name} ({kernel}): {plan.total()} B planned, "
+              f"{got} B launched\n{plan.table()}", flush=True)
+        check(plan.total() == got, f"33 {name}: {kernel}'s planned shared "
+              f"bytes {plan.total()} == launched {got}")
+    # the ext slab's plan is K1's at the extended shape
+    check(SM.fused_ring_plan(*ext, T=MAIN_T, n_sm=sms).total()
+          == shared["distributed_collective"].get("advect_fused"),
+          "33 distributed_collective: K1's planned shared bytes at the "
+          "extended slab == launched")
+    # the ladder's rungs, and K8's two kernels
+    u, v, w = rand_fields((X, Y, Z), 3)
+    p = REF.default_params(Z, device="cuda")
+    for name in ("advect_blocked", "advect_dataflow", "advect_wide"):
+        getattr(K, name)(u, v, w, p, fuse_update=True, dt=DT)
+        torch.cuda.synchronize()
+        per_sm = K.rung_device_plan("cuda", name, X, Y, Z).blocks_per_sm
+        plan = SM.rung_plan(name, X, Y, Z, n_sm=sms, blocks_per_sm=per_sm)
+        check(plan.total() == K.LAUNCHED_SHARED.get(name), f"33 {name}: planned "
+              f"shared bytes {plan.total()} == launched "
+              f"{K.LAUNCHED_SHARED.get(name)}")
+    del u, v, w
+    B, H, Hkv, S, Dh = ATTN_TIMED
+    tc = A.tc_kernel_attrs(0, Dh)["shared_bytes"]
+    plan = SM.attention_plan(Dh, torch.bfloat16)
+    check(plan.total() == tc, f"33 K8 tensor-core build at D={Dh}: planned "
+          f"shared bytes {plan.total()} == its attrs' {tc}")
+    q, k, v = attn_inputs(1, 4, 2, 256, 256, Dh, torch.float32, 5)
+    A.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    plan = SM.attention_plan(Dh, torch.float32)
+    got = A.LAUNCHED_SHARED.get("flash_attention")
+    check(plan.total() == got, f"33 K8 SIMT build at D={Dh}: planned shared "
+          f"bytes {plan.total()} == launched {got}")
+    # an oversized plan raises, naming its largest buffer
+    big = SM.distributed_block_plan((X, Y, Z), T=MAIN_T, local_kernel="fused",
+                                    exchange="remote_dma", nx=2, ny=2,
+                                    shards_per_card=64, n_sm=sms)
+    try:
+        big.check()
+        check(False, "33 an oversized plan raises SmemBudgetExceeded")
+    except SM.SmemBudgetExceeded as e:
+        check("largest buffer: 'K7 extended buffers (2 slots)'" in str(e),
+              f"33 an oversized plan raises naming its largest buffer: "
+              f"{str(e).splitlines()[0][:160]}")
+
+
+def retrace_phase(check: Checks) -> None:
+    """Phase 34: the distributed drivers on the card are free of retrace,
+    and the fixture pair is red and green."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    nx, ny = DIST_MESH
+    mesh = make_stencil_mesh(nx, ny, devices=["cuda:0"] * (nx * ny))
+    p = REF.default_params(Z, device="cuda")
+    shards = D.shard(mesh, *rand_fields((X, Y, Z), 4))
+    for exchange in D.EXCHANGES:
+        block = D._build_block(mesh, p, T=MAIN_T, dt=DT,
+                               local_kernel="fused", y_tile=None,
+                               overlap=False, exchange=exchange,
+                               verify_integrity=False, corrupt_halo=None,
+                               spec=None, spec_params=None)
+        for k in (0, 1):    # warm: buffers, masks and both slots' tables
+            block(shards, k)
+
+        def at_block(dma_block_index):
+            return (lambda sh: block(sh, dma_block_index)), (shards,)
+
+        report = AN.detect_retrace(
+            at_block, [AN.Perturbation("dma_block_index", (2, 3, 4, 5))],
+            caches=lambda: AN.launch_cache_sizes(block), execute=True)
+        check(report.ok, f"34 {exchange} block: dma_block_index 2-5 share "
+              f"one op stream and grow no launch cache "
+              f"{[str(f) for f in report.findings]}")
+
+        def run_of(n_blocks=DIST_BLOCKS, y_tile=None):
+            run = D.make_distributed_run(mesh, p, n_blocks=n_blocks,
+                                         T=MAIN_T, dt=DT,
+                                         local_kernel="fused",
+                                         y_tile=y_tile, exchange=exchange)
+            return run, (shards,)
+
+        report = AN.detect_retrace(
+            run_of, [AN.Perturbation("n_blocks", (3, 5)),
+                     AN.Perturbation("y_tile", (None, 64), "distinct")],
+            execute=True)
+        check(report.ok, f"34 {exchange} run: n_blocks shared, y_tile "
+              f"distinct {[str(f) for f in report.findings]}")
+        del block
+    red, green = {}, {}
+    report = AN.detect_retrace(
+        lambda block_index: AN.make_static_parity_driver(
+            block_index, tables=red, device="cuda"),
+        [AN.Perturbation("block_index", (0, 1, 2, 3))],
+        caches=lambda: {"tables": len(red)}, execute=True)
+    check(not report.ok and report.findings[0].kind == "leak",
+          f"34 red fixture (table rebuilt from Python parity every block) "
+          f"flagged: {[str(f) for f in report.findings][:1]}")
+    report = AN.detect_retrace(
+        lambda block_index: AN.make_traced_parity_driver(
+            block_index, tables=green, device="cuda"),
+        [AN.Perturbation("block_index", (0, 1, 2, 3))],
+        caches=lambda: {"tables": len(green)}, execute=True)
+    check(report.ok, f"34 green fixture (tables built once) clean "
+          f"{[str(f) for f in report.findings]}")
+    del shards
+    torch.cuda.empty_cache()
+
+
+def host_ms(calls: dict, runs: int = HOST_RUNS) -> dict:
+    """Median host milliseconds of one call of each of `calls` (name ->
+    callable), without synchronising inside it: the time before its launch
+    returns. The calls take turns, one of each per round (the card idle at
+    each start), so that no order or warm-up favours one."""
+    for _ in range(5):
+        for call in calls.values():
+            call()
+    torch.cuda.synchronize()
+    times = {name: [] for name in calls}
+    for _ in range(runs):
+        for name, call in calls.items():
+            t0 = time.perf_counter()
+            call()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def _dispatch_floor_op():
+    """An op of K1's schema whose CUDA implementation does nothing: the
+    dispatcher's own cost of a call, the floor under the op layer's."""
+    lib = torch.library.Library("chip_smoke_probe", "FRAGMENT")
+    lib.define("k1_schema(Tensor u, Tensor v, Tensor w, Tensor tcx, "
+               "Tensor tcy, Tensor tzc1, Tensor tzc2, Tensor xm, Tensor ym, "
+               "int T, float dt, int y_tile) -> ()")
+    lib.impl("k1_schema", lambda *args: None, "CUDA")
+    return lib, torch.ops.chip_smoke_probe.k1_schema.default
+
+
+def host_cost_lines(card: str) -> dict:
+    """The op layer's host cost: K1, K7 and K8 through their op, their bare
+    launch function and their public wrapper, at the main path's shapes,
+    in one call; and the dispatcher's floor at K1's schema."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    out = {}
+    u, v, w = rand_fields((X, Y, Z), 6)
+    p = REF.default_params(Z, device="cuda")
+    ps = K._slot_params(p, 1, Z, u.device)
+    ub, vb, wb = u[None], v[None], w[None]
+    xm, ym = torch.ones(X, device="cuda"), torch.ones(Y, device="cuda")
+    lib, floor_op = _dispatch_floor_op()
+    k1 = host_ms({
+        "op": lambda: K._OP_K1(ub, vb, wb, *ps, xm, ym, MAIN_T, DT, 0),
+        "bare": lambda: K._advect_fused_cuda(ub, vb, wb, ps, MAIN_T, DT, xm,
+                                             ym),
+        "wrapper": lambda: K.advect_fused(u, v, w, p, T=MAIN_T, dt=DT),
+        "floor": lambda: floor_op(ub, vb, wb, *ps, xm, ym, MAIN_T, DT, 0)})
+    del lib
+    floor = k1.pop("floor")
+    out["K1"] = (k1["op"], k1["bare"], k1["wrapper"])
+    del u, v, w, ub, vb, wb
+    nx, ny = DIST_MESH
+    mesh = make_stencil_mesh(nx, ny, devices=["cuda:0"] * (nx * ny))
+    shards = D.shard(mesh, *rand_fields((X, Y, Z), 7))
+    slabs = K.BandSlabs(mesh, shards[0][0].shape, MAIN_T, 0)
+    table = slabs.table("x", 0, shards)
+    ptrs = tuple(f.data_ptr() for trio in shards for f in trio)
+    flat = [f for trio in shards for f in trio]
+    regions = [f for trio in slabs.extended(0) for f in trio]
+    k7 = host_ms({
+        "op": lambda: K._OP_K7(flat, regions, slabs.words, table.handle,
+                               -1, False),
+        "bare": lambda: K._band_exchange_cuda(slabs, table, ptrs),
+        "wrapper": lambda: K.halo_band_exchange_dma(
+            shards, mesh=mesh, axis="x", depth=MAIN_T, dim=0, slabs=slabs)})
+    out["K7"] = (k7["op"], k7["bare"], k7["wrapper"])
+    del shards, slabs, table, flat, regions
+    torch.cuda.empty_cache()
+    B, H, Hkv, S, Dh = ATTN_TIMED
+    q, k, v = attn_inputs(B, H, Hkv, S, S, Dh, torch.bfloat16, 8)
+    o = torch.empty_like(q)
+    scale = Dh ** -0.5
+    k8 = host_ms({
+        "op": lambda: A._OP_K8(q, k, v, o, True, scale, 128, 128),
+        "bare": lambda: A._flash_attention_cuda(q, k, v, True, scale, 128,
+                                                128, o),
+        "wrapper": lambda: A.flash_attention(q, k, v, causal=True, out=o)})
+    out["K8"] = (k8["op"], k8["bare"], k8["wrapper"])
+    for name, (op_ms, bare_ms, wrap_ms) in out.items():
+        print(f"op layer host cost {name}: {op_ms:.4f} ms through the op, "
+              f"{bare_ms:.4f} ms through the bare launch, {wrap_ms:.4f} ms "
+              f"through the public wrapper (the op's cost "
+              f"{op_ms - bare_ms:+.4f} ms; medians of {HOST_RUNS}, the "
+              f"three taking turns; {card})",
+              flush=True)
+    print(f"op layer host cost: a no-op op of K1's schema {floor:.4f} ms "
+          f"(the dispatcher's floor; {card})", flush=True)
+    out["floor"] = floor
+    return out
+
+
+def analysis_phases(check: Checks, card: str) -> list:
+    recorded = phase("32 movement ledger", ledger_phase, check)
+    phase("33 plans and alignment", plan_phase, check, recorded)
+    del recorded
+    torch.cuda.empty_cache()
+    phase("34 retrace", retrace_phase, check)
+    phase("34 op host cost", host_cost_lines, card)
+    return []
+
+
 def phase(label: str, fn, *args, **kw):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -4309,10 +4693,11 @@ def main() -> int:
     if sys.argv[1:] and only not in (["distributed"], ["ladder"], ["k6"],
                                      ["k8"], ["k9"], ["stencil_serving"],
                                      ["distributed_spec"], ["recovery"],
-                                     ["families"], ["train"]):
+                                     ["families"], ["train"],
+                                     ["analysis"]):
         print("usage: chip_smoke.py [--only distributed|ladder|k6|k8|k9|"
-              "stencil_serving|distributed_spec|recovery|families|train]",
-              file=sys.stderr)
+              "stencil_serving|distributed_spec|recovery|families|train|"
+              "analysis]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -4356,6 +4741,8 @@ def main() -> int:
     if only == ["train"]:
         training_phases(check, card)
         return finish(check, [], card, t0)
+    if only == ["analysis"]:
+        return finish(check, analysis_phases(check, card), card, t0)
     if only:
         return finish(check, distributed_only(check, card), card, t0)
     phase("1 small shapes", small_shape_phase, check)
@@ -4387,6 +4774,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     records += phase("19-20 stencil serving", stencil_serving_phases, check,
                      card)
+    torch.cuda.empty_cache()
+    analysis_phases(check, card)
     torch.cuda.empty_cache()
     cfg, params, k8_launches = phase(
         "8 qwen serving", serving_phase, check, SERVE_ARCH,

@@ -227,6 +227,25 @@ def halo_wire_bytes_model(X: int, Y: int, Z: int, itemsize: int, *,
     return (phase_x + phase_y) * n_fields * itemsize
 
 
+def band_slab_bytes_model(X: int, Y: int, Z: int, itemsize: int, *,
+                          nx: int = 1, ny: int = 1, T: int = 1,
+                          n_fields: int = 3,
+                          depth: int | None = None) -> int:
+    """Per-shard device-memory bytes K7 (`halo_band_exchange_dma`) moves
+    for ONE two-phase exchange of the remote_dma engine: every band read
+    from its sender's field and landed in its receiver's slab (twice
+    `halo_wire_bytes_model`), and the shard's own planes landed in the
+    middle of its slab by the first phase (read and written once; the
+    second phase sends from that slab in place). Zero where no axis is
+    decomposed. The movement ledger counts K7's calls against it."""
+    wire = halo_wire_bytes_model(X, Y, Z, itemsize, nx=nx, ny=ny, T=T,
+                                 n_fields=n_fields, depth=depth)
+    if not wire:
+        return 0
+    own = n_fields * (X // nx) * (Y // ny) * Z * itemsize
+    return 2 * (wire + own)
+
+
 INTEGRITY_WORD_ITEMSIZE = 4   # band checksums are one uint32 word each
 
 

@@ -47,12 +47,15 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import itertools
 import math
+import weakref
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import _build
+from repro_torch.kernels import library as L
 from repro_torch.core.roofline import (MAX_GRID_Y, SMEM_PER_BLOCK,
                                        SMEM_PER_SM, SMEM_RESERVED_PER_BLOCK)
 from repro_torch.kernels.advection.ref import (AdvectParams, pw_advect_ref,
@@ -75,6 +78,10 @@ WIDE_HOST_RULE = ("wide runs the in-grid tiled path only: the host tile loop "
 LAUNCHES = {"advect_fused": 0, "finite_guard": 0, "advect_blocked": 0,
             "advect_dataflow": 0, "advect_wide": 0, "stencil_fused": 0,
             "band_exchange": 0, "band_handshake": 0}
+
+
+# the shared bytes each kernel's last launch asked for (what its plan says)
+LAUNCHED_SHARED = {}
 
 
 def reset_launch_counts() -> None:
@@ -590,6 +597,15 @@ def vmem_halo_bytes_model(X: int, Y: int, Z: int, itemsize: int,
 # ---------------------------------------------------------------------------
 
 
+def base_address(t: torch.Tensor) -> int:
+    """`t.data_ptr()`; for a fake tensor (a trace, which holds no memory)
+    its byte offset into its storage, whose alignment is the address's (the
+    caching allocator's blocks start 512-byte aligned)."""
+    if L.is_fake(t):
+        return t.storage_offset() * t.element_size()
+    return t.data_ptr()
+
+
 def _check_fields(u, v, w, rank: int, what: str) -> None:
     for name, f in (("u", u), ("v", v), ("w", w)):
         if not torch.is_tensor(f):
@@ -721,6 +737,7 @@ def _advect_fused_cuda(u, v, w, p: AdvectParams, T: int, dt: float,
                 run.shared_bytes, stream)
         _build.check(err, "advect_fused_f32")
         LAUNCHES["advect_fused"] += 1
+        LAUNCHED_SHARED["advect_fused"] = run.shared_bytes
     return outs
 
 
@@ -763,6 +780,31 @@ def fused_kernel_attrs(device, T: int, plan: FusedPlan) -> dict:
             "blocks_per_sm": per_sm}
 
 
+def _k1_cpu(u, v, w, tcx, tcy, tzc1, tzc2, xm, ym, T, dt, y_tile):
+    del y_tile
+    return _advect_fused_plain(u, v, w, AdvectParams(tcx, tcy, tzc1, tzc2),
+                               T, dt, xm, ym)
+
+
+def _k1_cuda(u, v, w, tcx, tcy, tzc1, tzc2, xm, ym, T, dt, y_tile):
+    return _advect_fused_cuda(u, v, w, AdvectParams(tcx, tcy, tzc1, tzc2),
+                              T, dt, xm, ym, y_tile or None)
+
+
+def _fields_fake(u, v, w, *rest):
+    del rest
+    return tuple(torch.empty_like(f) for f in (u, v, w))
+
+
+_OP_K1 = L.define(
+    "advect_fused",
+    "(Tensor u, Tensor v, Tensor w, Tensor tcx, Tensor tcy, Tensor tzc1, "
+    "Tensor tzc2, Tensor xm, Tensor ym, int T, float dt, int y_tile) -> "
+    "(Tensor, Tensor, Tensor)",
+    kind="field", cpu=_k1_cpu, cuda=_k1_cuda, fake=_fields_fake,
+    static=("T", "y_tile"))
+
+
 def advect_fused_batched(u, v, w, p: AdvectParams, *, T: int = 4,
                          dt: float = 1.0, y_tile: int | None = None,
                          tiling: str = "grid", y_interior_mask=None,
@@ -791,11 +833,10 @@ def advect_fused_batched(u, v, w, p: AdvectParams, *, T: int = 4,
     xm = _mask(x_interior_mask, X, B, "x_interior_mask", u.device)
     ym = _mask(y_interior_mask, Y, B, "y_interior_mask", u.device)
     ps = _slot_params(p, B, Z, u.device)
-    if u.is_cuda:
-        ou, ov, ow = _advect_fused_cuda(u, v, w, ps, T, float(dt), xm, ym,
-                                        y_tile)
-    else:
-        ou, ov, ow = _advect_fused_plain(u, v, w, ps, T, float(dt), xm, ym)
+    ou, ov, ow = u, v, w
+    for Tk in fused_passes(T):
+        ou, ov, ow = _OP_K1(ou, ov, ow, *ps, xm, ym, Tk, float(dt),
+                            y_tile or 0)
     if guard:
         return ou, ov, ow, finite_guard(ou, ov, ow)
     return ou, ov, ow
@@ -1098,6 +1139,7 @@ def _advect_rung_cuda(name: str, u, v, w, p: AdvectParams,
                                           run.shared_bytes, stream)
     _build.check(err, name)
     LAUNCHES[name] += 1
+    LAUNCHED_SHARED[name] = run.shared_bytes
     return tuple(outs)
 
 
@@ -1109,7 +1151,7 @@ def _advect_rung(name: str, u, v, w, p: AdvectParams, y_tile, tiling,
     X, Y, Z = u.shape
     if name == "advect_wide":
         _check_wide_model(Y, Z, 4, y_tile, grid_tiled=tiling == "grid")
-        if any(f.data_ptr() % 16 for f in (u, v, w)):
+        if any(base_address(f) % 16 for f in (u, v, w)):
             raise ValueError("wide moves 16-byte vectors: u, v and w must "
                              "start on a 16-byte boundary")
     if _host_tiled(tiling, y_tile, Y):
@@ -1118,10 +1160,45 @@ def _advect_rung(name: str, u, v, w, p: AdvectParams, y_tile, tiling,
                                          fuse_update, dt),
             u, v, w, y_tile=y_tile, halo=1)
     ps = _slot_params(p, None, Z, u.device)
-    if u.is_cuda:
-        return _advect_rung_cuda(name, u, v, w, ps, y_tile, fuse_update,
-                                 float(dt))
-    return _advect_rung_plain(u, v, w, ps, fuse_update, float(dt))
+    if name == "advect_blocked":
+        return _OP_K3(u, v, w, *ps, y_tile or 0, bool(fuse_update),
+                      float(dt))
+    return _OP_K2(u, v, w, *ps, y_tile or 0, name == "advect_wide",
+                  bool(fuse_update), float(dt))
+
+
+def _k3_cpu(u, v, w, tcx, tcy, tzc1, tzc2, y_tile, fuse_update, dt):
+    return _advect_rung_plain(u, v, w, AdvectParams(tcx, tcy, tzc1, tzc2),
+                              fuse_update, dt)
+
+
+def _k3_cuda(u, v, w, tcx, tcy, tzc1, tzc2, y_tile, fuse_update, dt):
+    return _advect_rung_cuda("advect_blocked", u, v, w,
+                             AdvectParams(tcx, tcy, tzc1, tzc2),
+                             y_tile or None, fuse_update, dt)
+
+
+def _k2_cpu(u, v, w, tcx, tcy, tzc1, tzc2, y_tile, wide, fuse_update, dt):
+    return _advect_rung_plain(u, v, w, AdvectParams(tcx, tcy, tzc1, tzc2),
+                              fuse_update, dt)
+
+
+def _k2_cuda(u, v, w, tcx, tcy, tzc1, tzc2, y_tile, wide, fuse_update, dt):
+    return _advect_rung_cuda("advect_wide" if wide else "advect_dataflow",
+                             u, v, w, AdvectParams(tcx, tcy, tzc1, tzc2),
+                             y_tile or None, fuse_update, dt)
+
+
+_RUNG_ARGS = ("(Tensor u, Tensor v, Tensor w, Tensor tcx, Tensor tcy, "
+              "Tensor tzc1, Tensor tzc2, int y_tile, ")
+_OP_K3 = L.define(
+    "advect_blocked", _RUNG_ARGS + "bool fuse_update, float dt) -> "
+    "(Tensor, Tensor, Tensor)", kind="field", cpu=_k3_cpu, cuda=_k3_cuda,
+    fake=_fields_fake, static=("y_tile", "fuse_update"))
+_OP_K2 = L.define(
+    "advect_dataflow", _RUNG_ARGS + "bool wide, bool fuse_update, float dt) "
+    "-> (Tensor, Tensor, Tensor)", kind="field", cpu=_k2_cpu, cuda=_k2_cuda,
+    fake=_fields_fake, static=("y_tile", "wide", "fuse_update"))
 
 
 def advect_blocked(u, v, w, p: AdvectParams, *, y_tile: int | None = None,
@@ -1203,11 +1280,23 @@ def finite_guard(u, v, w):
         raise ValueError("finite_guard takes (X, Y, Z) or slot-stacked "
                          "(B, X, Y, Z) fields")
     _check_fields(u, v, w, u.ndim, "(X, Y, Z) or (B, X, Y, Z)")
-    if not u.is_cuda:
-        return _finite_guard_plain(u, v, w)
     if u.ndim == 3:
-        return _finite_guard_cuda(u[None], v[None], w[None])[0]
+        return _OP_K4(u[None], v[None], w[None])[0]
+    return _OP_K4(u, v, w)
+
+
+def _k4_cuda(u, v, w):
+    _build.load()
     return _finite_guard_cuda(u, v, w)
+
+
+def _k4_fake(u, v, w):
+    return u.new_empty(u.shape[:2])
+
+
+_OP_K4 = L.define("finite_guard", "(Tensor u, Tensor v, Tensor w) -> Tensor",
+                  kind="guard", cpu=_finite_guard_plain, cuda=_k4_cuda,
+                  fake=_k4_fake)
 
 
 # ---------------------------------------------------------------------------
@@ -1433,6 +1522,7 @@ def _stencil_fused_cuda(fields, pv, spec, T: int, dt: float, xm, ym,
                 run.shared_bytes, stream)
         _build.check(err, "stencil_fused_f32")
         LAUNCHES["stencil_fused"] += 1
+        LAUNCHED_SHARED["stencil_fused"] = run.shared_bytes
     return outs
 
 
@@ -1454,9 +1544,55 @@ def stencil_fused_batched(fields, params, spec, *, T: int = 4,
     device = fields[0].device
     xm = _mask(x_interior_mask, X, B, "x_interior_mask", device)
     ym = _mask(y_interior_mask, Y, B, "y_interior_mask", device)
-    pv = _spec_param_vectors(spec, params, device)
-    run = _stencil_fused_cuda if fields[0].is_cuda else _stencil_fused_plain
-    return run(fields, pv, spec, T, float(dt), xm, ym, y_tile)
+    pv = list(_spec_param_vectors(spec, params, device))
+    handle = spec_handle(spec)
+    for Tk in spec_passes(spec, T):
+        fields = tuple(_OP_K6(list(fields), pv, xm, ym, handle, Tk,
+                              float(dt), y_tile or 0))
+    return fields
+
+
+_SPECS: List = []            # spec_handle's specs, by handle
+_SPEC_IDS: dict = {}         # id of a spec object seen -> its handle
+
+
+def spec_handle(spec) -> int:
+    """The int K6's op takes for `spec` (the same for equal specs): its
+    index in a table of the distinct specs the process has run."""
+    handle = _SPEC_IDS.get(id(spec))
+    if handle is None or _SPECS[handle] is not spec:
+        handle = next((i for i, s in enumerate(_SPECS) if s == spec), None)
+        if handle is None:
+            handle = len(_SPECS)
+            _SPECS.append(spec)
+        _SPEC_IDS[id(spec)] = handle
+    return handle
+
+
+def spec_of(handle: int):
+    return _SPECS[handle]
+
+
+def _k6_cpu(fields, pv, xm, ym, spec, T, dt, y_tile):
+    return list(_stencil_fused_plain(fields, tuple(pv), spec_of(spec), T,
+                                     dt, xm, ym))
+
+
+def _k6_cuda(fields, pv, xm, ym, spec, T, dt, y_tile):
+    return list(_stencil_fused_cuda(fields, tuple(pv), spec_of(spec), T, dt,
+                                    xm, ym, y_tile or None))
+
+
+def _k6_fake(fields, pv, xm, ym, spec, T, dt, y_tile):
+    return [torch.empty_like(f) for f in fields]
+
+
+_OP_K6 = L.define(
+    "stencil_fused",
+    "(Tensor[] fields, Tensor[] params, Tensor xm, Tensor ym, int spec, "
+    "int T, float dt, int y_tile) -> Tensor[]",
+    kind="field", cpu=_k6_cpu, cuda=_k6_cuda, fake=_k6_fake,
+    static=("spec", "T", "y_tile"))
 
 
 def stencil_fused(fields, params, spec, *, T: int = 4, dt: float = 1.0,
@@ -1743,23 +1879,14 @@ class BandSlabs:
             self._msgs[axis] = (msgs, sent)
         return self._msgs[axis]
 
-    def table(self, axis: str, slot: int, fields,
-              ptrs=None) -> "BandTable":
+    def table(self, axis: str, slot: int, fields) -> "BandTable":
         """The messages of an exchange of `fields` along `axis` into slot
         `slot`, built once per (axis, slot, whether the fields are this
-        slot's `interior` views). Fields that are not must be contiguous.
-        `ptrs`: the fields' `data_ptr()`s in shard and field order, when
-        the caller has them."""
-        if ptrs is None:
-            ptrs = tuple(f.data_ptr() for trio in fields for f in trio)
-        key = ("interior ptrs", slot)
-        if key not in self._views:
-            inner = self.interior(slot)
-            self._views[key] = (tuple(f.data_ptr() for trio in inner
-                                      for f in trio), inner[0][0].stride())
-        own, stride = self._views[key]
-        in_place = ptrs == own and all(f.stride() == stride
-                                       for trio in fields for f in trio)
+        slot's `interior` views: the same memory, shape and strides).
+        Fields that are not must be contiguous."""
+        inner = self.interior(slot)
+        in_place = all(_same_view(f, own) for trio, own_trio in
+                       zip(fields, inner) for f, own in zip(trio, own_trio))
         if not in_place:
             for s, trio in enumerate(fields):
                 for name, f in zip(_field_names(len(trio)), trio):
@@ -1774,6 +1901,8 @@ class BandSlabs:
 
     def check(self) -> None:
         """Raise RuntimeError naming each shard whose kernel timed out."""
+        if any(L.is_fake(w) for w in self.words):
+            return   # a trace: no kernel ran
         bad = {s: int(w[2]) for s, w in enumerate(self.words) if int(w[2])}
         if bad:
             why = "; ".join(
@@ -1782,6 +1911,14 @@ class BandSlabs:
                 for s, code in bad.items())
             raise RuntimeError(f"band exchange failed after epoch "
                                f"{self.epoch}: {why}")
+
+
+def _same_view(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two views address the same elements of one allocation."""
+    root_a = a if a._base is None else a._base
+    root_b = b if b._base is None else b._base
+    return (root_a is root_b and a.storage_offset() == b.storage_offset()
+            and a.shape == b.shape and a.stride() == b.stride())
 
 
 def _runs(shape, src_strides, dst_strides):
@@ -1819,6 +1956,13 @@ class _CardPut:
         self.aligned = 0
 
 
+# K7's op takes its table by handle: every live `BandTable`, weakly held,
+# by its handle, the count of tables built before it
+BAND_TABLES: "weakref.WeakValueDictionary[int, BandTable]" = \
+    weakref.WeakValueDictionary()
+BAND_TABLES_BUILT = 0
+
+
 class BandTable:
     """K7's messages for one phase, axis, slot and source layout: the bands
     (`msgs`, the reference's `band_messages`) and, when the fields are not
@@ -1830,11 +1974,25 @@ class BandTable:
 
     def __init__(self, slabs: BandSlabs, axis: str, slot: int,
                  in_place: bool):
-        self.slabs, self.axis, self.slot = slabs, axis, slot
+        # held weakly: the slabs keep their tables, so that a run's extended
+        # buffers go when the run does, with no cycle for the collector
+        self._slabs = weakref.ref(slabs)
+        self.axis, self.slot = axis, slot
         self.in_place = in_place
         self.msgs, self.sent = slabs.messages(axis)
         self._puts = None
         self.peers_enabled = False
+        global BAND_TABLES_BUILT
+        self.handle = BAND_TABLES_BUILT
+        BAND_TABLES_BUILT += 1
+        BAND_TABLES[self.handle] = self
+
+    @property
+    def slabs(self) -> BandSlabs:
+        slabs = self._slabs()
+        if slabs is None:
+            raise ReferenceError("the BandSlabs of this BandTable are gone")
+        return slabs
 
     def dst_offset(self, m: BandMessage) -> int:
         """Where message `m` lands along the phase's dim of its region."""
@@ -1963,7 +2121,7 @@ def _band_exchange_plain(fields, slabs: BandSlabs, table: BandTable,
         sent = fields[m.sender][m.field].narrow(dim, m.src_lo, m.cnt)
         dst = slabs.region(m.receiver, m.field, slot).narrow(
             dim, table.dst_offset(m), m.cnt)
-        got = sent.to(dst.device, copy=True)
+        got = L.band_send(sent, dst.device, m.sender)
         if wire is not None:
             got = wire(m, sent, got)
         dst.copy_(got)
@@ -2055,13 +2213,12 @@ def _field_names(n: int):
 
 
 def _check_band_fields(fields, mesh):
-    """(shape, the fields' `data_ptr()`s in shard and field order) of the
-    same number of fields of one shape and float32 per shard (u, v, w, or
-    a spec's fields), on the mesh's devices."""
+    """The shape of the same number of fields of one shape and float32 per
+    shard (u, v, w, or a spec's fields), on the mesh's devices."""
     if len(fields) != len(mesh.devices):
         raise ValueError(f"{len(fields)} shards given for a mesh of "
                          f"{len(mesh.devices)}")
-    shape, ptrs = None, []
+    shape = None
     n = len(fields[0]) if fields else 0
     for s, (trio, dev) in enumerate(zip(fields, mesh.devices)):
         if len(trio) != n or n < 1:
@@ -2085,13 +2242,13 @@ def _check_band_fields(fields, mesh):
             elif f.shape != shape:
                 raise ValueError(f"shard {s} has shape {tuple(f.shape)}, "
                                  f"shard 0 {tuple(shape)}")
-            ptrs.append(f.data_ptr())
-    return tuple(shape), tuple(ptrs)
+    return tuple(shape)
 
 
 def halo_band_exchange_dma(fields, *, mesh, axis: str, depth: int, dim: int,
                            block_index: int = 0,
-                           slabs: Optional[BandSlabs] = None, wire=None):
+                           slabs: Optional[BandSlabs] = None, wire=None,
+                           checksums: bool = False):
     """Exchange depth-`depth` boundary bands of three fields (u, v, w; on
     CPU shards, any number) along mesh axis `axis`, each shard's bands
     stored from inside a kernel into its
@@ -2118,12 +2275,21 @@ def halo_band_exchange_dma(fields, *, mesh, axis: str, depth: int, dim: int,
     one put per card, and the caller reads `slabs.check()` once the stream
     has run (a spin past its bound sets the error word); on CPU shards it
     runs the plain version, `_band_exchange_plain`, whose `wire` hook the
-    CUDA kernel does not take."""
+    CUDA kernel does not take.
+
+    The exchange is the op ``repro_torch::band_exchange``: it takes every
+    shard's fields and, as the buffers it writes, the slot's extended
+    slabs and the counter words; its table by handle (`BandTable.handle`)
+    and the hook by handle (`_WIRES`, -1 for none). The plain version's
+    `band_send`s run inside the op, where a recording does not see them,
+    so a ledger prices K7's messages from its table (`band_movement`), and
+    `checksums=True` declares that the hook sends a checksum word beside
+    each band: the ledger reads it, neither implementation does."""
     if dim not in (0, 1):
         raise ValueError(f"dim must be 0 (x-planes) or 1 (y-rows), got {dim}")
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
-    shape, ptrs = _check_band_fields(fields, mesh)
+    shape = _check_band_fields(fields, mesh)
     n_fields = len(fields[0])
     mesh.axis_size(axis)
     if slabs is None:
@@ -2135,7 +2301,7 @@ def halo_band_exchange_dma(fields, *, mesh, axis: str, depth: int, dim: int,
                          f"{shape}, {depth}, {dim}, {n_fields} fields on "
                          f"{tuple(mesh.devices)}")
     slot = int(block_index) % 2
-    table = slabs.table(axis, slot, fields, ptrs)
+    table = slabs.table(axis, slot, fields)
     if fields[0][0].is_cuda:
         if n_fields != 3:
             raise ValueError(
@@ -2147,7 +2313,68 @@ def halo_band_exchange_dma(fields, *, mesh, axis: str, depth: int, dim: int,
             raise ValueError("the band exchange kernel has no wire hook: "
                              "checksums and fault injection ride the plain "
                              "version (CPU shards) or the collective engine")
-        _band_exchange_cuda(slabs, table, ptrs)
-    else:
-        _band_exchange_plain(fields, slabs, table, wire)
+    hook = -1
+    if wire is not None:
+        hook = next(_WIRE_HANDLES)
+        _WIRES[hook] = wire
+    try:
+        _OP_K7([f for trio in fields for f in trio],
+               [f for trio in slabs.extended(slot) for f in trio],
+               slabs.words, table.handle, hook, bool(checksums))
+    finally:
+        _WIRES.pop(hook, None)
     return list(slabs.bands(slot))
+
+
+# the plain version's wire hooks by the handle K7's op takes, each held
+# for one call of `halo_band_exchange_dma`
+_WIRES: dict = {}
+_WIRE_HANDLES = itertools.count()
+
+
+def band_movement(handle: int) -> dict:
+    """What one K7 call on table `handle` moves, from its messages:
+    ``{"messages": ((sender, bytes), ...), "own": ((shard, bytes), ...),
+    "in_place": bool, "extended": shape}``: a band per message, per shard
+    its own planes landed in its slab (none where the fields lie there
+    already), and the extended shape of the slabs it writes."""
+    t = BAND_TABLES[handle]
+    sl = t.slabs
+    size = math.prod(sl.shape)
+    other = size // sl.shape[sl.dim]
+    own = 0 if t.in_place else sl.n_fields * size * 4
+    ext = list(sl.shape)
+    ext[sl.dim] += 2 * sl.depth
+    return {"messages": tuple((m.sender, m.cnt * other * 4) for m in t.msgs),
+            "own": tuple((s, own) for s in range(len(sl.devices))),
+            "in_place": t.in_place, "extended": tuple(ext)}
+
+
+def _k7_cpu(fields, regions, words, table, wire, checksums):
+    del regions, words, checksums
+    t = BAND_TABLES[table]
+    n = t.slabs.n_fields
+    _band_exchange_plain([tuple(fields[i:i + n])
+                          for i in range(0, len(fields), n)],
+                         t.slabs, t, _WIRES[wire] if wire >= 0 else None)
+
+
+def _k7_cuda(fields, regions, words, table, wire, checksums):
+    del regions, words, checksums
+    if wire >= 0:
+        raise ValueError("the band exchange kernel has no wire hook")
+    _build.load()
+    t = BAND_TABLES[table]
+    _band_exchange_cuda(t.slabs, t, tuple(f.data_ptr() for f in fields))
+
+
+def _k7_fake(fields, regions, words, table, wire, checksums):
+    return None
+
+
+_OP_K7 = L.define(
+    "band_exchange",
+    "(Tensor[] fields, Tensor(a!)[] regions, Tensor(b!)[] words, int table, "
+    "int wire, bool checksums) -> ()",
+    kind="band", cpu=_k7_cpu, cuda=_k7_cuda, fake=_k7_fake,
+    static=("checksums",))

@@ -30,6 +30,7 @@ import torch
 
 from repro_torch import _build
 from repro_torch.core.roofline import SMEM_PER_BLOCK
+from repro_torch.kernels import library as L
 from repro_torch.kernels import refuse_grad
 
 NEG_INF = -2.0 ** 30
@@ -41,6 +42,8 @@ TC_ALIGN = 8       # bf16 elements in the 16-byte rows it loads and stores
 TC_STAGES = 2      # its ring of K and V tiles
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0}
+# the shared bytes the SIMT kernel's last launch asked for
+LAUNCHED_SHARED = {}
 
 
 def reset_launch_counts() -> None:
@@ -115,6 +118,14 @@ def tc_kernel_attrs(device, D: int) -> dict:
     _build.check(err, "flash_attention_tc_attrs")
     return dict(zip(("registers", "local_bytes", "shared_bytes",
                      "blocks_per_sm"), out))
+
+
+def hbm_bytes_model(B: int, H: int, Hkv: int, Sq: int, Skv: int, D: int,
+                    itemsize: int) -> int:
+    """Device-memory bytes of one K8 call: q and k, v read once, the output
+    written once (the streams of its operands; the kernels re-read K and V
+    per query tile from L2)."""
+    return itemsize * (2 * B * H * Sq * D + 2 * B * Hkv * Skv * D)
 
 
 def vmem_bytes(block_q: int, block_k: int, D: int, itemsize: int = 2) -> int:
@@ -278,6 +289,7 @@ def _flash_attention_cuda(q, k, v, causal: bool, scale: float,
                       *_strides(qs, ks, vs, os_), B, H, Hkv, Sq, Skv, D, bq,
                       bk, int(causal), scale, smem_bytes(bq, bk, D))
         _build.check(err, "flash_attention_fwd")
+        LAUNCHED_SHARED["flash_attention"] = smem_bytes(bq, bk, D)
         if os_ is not out:
             out.copy_(os_)
     LAUNCHES["flash_attention"] += 1
@@ -319,8 +331,28 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"Sq={Sq} and Skv={Skv} must be multiples of "
                          f"block_q={block_q} and block_k={block_k}")
     scale = scale or D ** -0.5
-    if not q.is_cuda:
-        o = _flash_attention_plain(q, k, v, causal, scale)
-        return o if out is None else out.copy_(o)
-    return _flash_attention_cuda(q, k, v, causal, scale, block_q, block_k,
-                                 out)
+    if out is None:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _OP_K8(q, k, v, out, bool(causal), float(scale), block_q, block_k)
+    return out
+
+
+def _k8_cpu(q, k, v, out, causal, scale, block_q, block_k):
+    out.copy_(_flash_attention_plain(q, k, v, causal, scale))
+
+
+def _k8_cuda(q, k, v, out, causal, scale, block_q, block_k):
+    _build.load()
+    _flash_attention_cuda(q, k, v, causal, scale, block_q, block_k, out)
+
+
+def _k8_fake(q, k, v, out, causal, scale, block_q, block_k):
+    return None
+
+
+_OP_K8 = L.define(
+    "flash_attention",
+    "(Tensor q, Tensor k, Tensor v, Tensor(a!) out, bool causal, "
+    "float scale, int block_q, int block_k) -> ()",
+    kind="field", cpu=_k8_cpu, cuda=_k8_cuda, fake=_k8_fake,
+    static=("causal", "block_q", "block_k"))

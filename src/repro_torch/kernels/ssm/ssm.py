@@ -23,6 +23,7 @@ import torch
 
 from repro_torch import _build
 from repro_torch.core.roofline import SMEM_PER_BLOCK
+from repro_torch.kernels import library as L
 from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.advection.advection import (_device_index,
                                                      check_launch_grid)
@@ -37,6 +38,7 @@ MAX_N = 128                      # states per d the kernel takes
 DTYPES = (torch.float32, torch.bfloat16)
 
 LAUNCHES = {"selective_scan": 0}
+LAUNCHED_SHARED = {}    # the shared bytes the last launch asked for
 
 
 def reset_launch_counts() -> None:
@@ -205,6 +207,15 @@ def scan_kernel_attrs(device, x_type: torch.dtype, dt_type: torch.dtype,
             "shared_bytes": plan.shared_bytes, "blocks_per_sm": per_sm}
 
 
+def hbm_bytes_model(B: int, S: int, D: int, N: int, x_itemsize: int,
+                    dt_itemsize: int, h0_itemsize: int = 4) -> int:
+    """Device-memory bytes of one K9 call's streams: x, B, C (x's type) and
+    dt read once, h0 read once, y and the final state written once in f32.
+    A (D, N) is a coefficient table, the ledger's `pallas_control`."""
+    return (x_itemsize * (B * S * D + 2 * B * S * N) + dt_itemsize * B * S * D
+            + h0_itemsize * B * D * N + 4 * B * S * D + 4 * B * D * N)
+
+
 def vmem_bytes(chunk: int, D: int, N: int, itemsize: int = 2) -> int:
     """The reference's VMEM working set of one Pallas program: chunk IO +
     (chunk, D, N) scan tensors (its formula, pinned by the tests). The CUDA
@@ -268,6 +279,7 @@ def _selective_scan_cuda(xc, dt, Bmat, Cmat, A, h0, plan: ScanPlan):
             B, S, D, N, plan.lanes, plan.steps, plan.shared_bytes, stream)
     _build.check(err, "selective_scan_fwd")
     LAUNCHES["selective_scan"] += 1
+    LAUNCHED_SHARED["selective_scan"] = plan.shared_bytes
     return y, hout
 
 
@@ -304,8 +316,29 @@ def selective_scan(xc, dt, Bmat, Cmat, A, h0, *, chunk: int = 128):
     if N > MAX_N:
         raise ValueError(f"selective_scan holds at most {MAX_N} states per "
                          f"d (N = {N})")
-    if not xc.is_cuda:
-        return _selective_scan_plain(xc, dt, Bmat, Cmat, A, h0)
+    y, h = _OP_K9(xc, dt, Bmat, Cmat, A, h0)
+    return y, h
+
+
+def _k9_cuda(xc, dt, Bmat, Cmat, A, h0):
     x_type, dt_type = _kernel_dtypes(xc, dt, Bmat, Cmat)
+    B, S, D = xc.shape
+    N = Bmat.shape[-1]
+    _plan_block(B, S, D, N, x_type.itemsize, dt_type.itemsize, PLAN_LANES,
+                None)   # the refusal, before the kernels load
+    _build.load()
     plan = scan_device_plan(xc.device, B, S, D, N, x_type, dt_type)
     return _selective_scan_cuda(xc, dt, Bmat, Cmat, A, h0, plan)
+
+
+def _k9_fake(xc, dt, Bmat, Cmat, A, h0):
+    B, S, D = xc.shape
+    return (xc.new_empty((B, S, D), dtype=torch.float32),
+            xc.new_empty((B, D, Bmat.shape[-1]), dtype=torch.float32))
+
+
+_OP_K9 = L.define(
+    "selective_scan",
+    "(Tensor xc, Tensor dt, Tensor Bmat, Tensor Cmat, Tensor A, Tensor h0) "
+    "-> (Tensor, Tensor)",
+    kind="field", cpu=_selective_scan_plain, cuda=_k9_cuda, fake=_k9_fake)

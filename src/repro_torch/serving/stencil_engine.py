@@ -52,6 +52,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.analysis import smem as SM
 from repro_torch.core import roofline as R
 from repro_torch.kernels.advection import advection as K
 from repro_torch.kernels.advection.ref import AdvectParams
@@ -252,8 +253,9 @@ class StencilServingEngine:
     def _check_batch(self, batch_size: int) -> None:
         """Refuse, before any allocation or build, a batch K5 cannot run:
         K1's plan must exist for the slot shape at each pass's depth, the
-        launch grid's slot axis must hold the batch, and the batch's device
-        buffers must fit `roofline.serving_max_batch`."""
+        launch grid's slot axis must hold the batch, the batch's device
+        buffers must fit `roofline.serving_max_batch`, and the mega-step's
+        plan must fit the card (`analysis.smem.serving_ring_plan`)."""
         d = self.domain
         for Tk in set(K.fused_passes(d.fuse_T)):
             K._fused_block(d.Y, d.Z, Tk, d.y_tile)
@@ -271,6 +273,11 @@ class StencilServingEngine:
                 f"{(d.X, d.Y, d.Z)} slots), over the {R.HBM_PER_CHIP} B "
                 f"budget; at most {max_b} slots fit: lower batch_size or "
                 "the slot shape")
+        # the mega-step's shared-memory plan (K5's block) and slot buffers,
+        # before any allocation (the analysis layer's smem pass)
+        SM.serving_ring_plan(d.X, d.Y, d.Z, batch=batch_size, T=d.fuse_T,
+                             y_tile=d.y_tile,
+                             context="serving engine slot buffers").check()
 
     def _alloc(self, batch_size: int) -> None:
         self._check_batch(batch_size)

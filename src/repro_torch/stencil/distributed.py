@@ -63,9 +63,15 @@ of the collective engine and of K7's plain version, and returns per-shard
 mismatch counts; `corrupt_halo=(field, rows, value)` damages one received
 band on the wire. K7 itself carries no checksum channel and no fault hook,
 so a CUDA mesh refuses both knobs with `remote_dma`, as the reference's
-compiled Mosaic kernel does. `count_exchange_wire_bytes` and
-`count_integrity_bytes` read the bytes the engines tally per message, the
-counted side of the counted == modelled gates.
+compiled Mosaic kernel does. Every message goes through the op
+`repro_torch::band_send` (the counterpart of `ppermute`) or K7's op, whose
+messages a ledger prices from its table, and each block runs in a block scope and each shard's update in its shard
+scope (`kernels.library.scope`), so `count_exchange_wire_bytes`,
+`count_integrity_bytes`, `count_pallas_hbm_bytes` and `count_guard_bytes`
+read the movement ledger (`analysis.ledger`) of a run per shard and per
+block: the counted side of the counted == modelled gates. The drivers
+check their shared-memory plan (`analysis.smem.distributed_block_plan`)
+once per shard shape, before the first block launches.
 
 `make_distributed_advect` is the reference's legacy rung: the 1D depth-1
 exchange of the source terms on a (1, ny) mesh.
@@ -77,7 +83,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import roofline as R
+from repro_torch.analysis import smem as SM
+from repro_torch.analysis.ledger import MovementLedger
+from repro_torch.kernels import library as L
 from repro_torch.kernels.advection import advection as K
 from repro_torch.kernels.advection.ref import (AdvectParams, pw_advect_ref,
                                                pw_step_ref)
@@ -123,56 +131,56 @@ def _corrupt_band(g: torch.Tensor, dim: int, rows: int,
 
 
 # ---------------------------------------------------------------------------
-# byte tally: what the engines send, per shard
+# counted bytes: the movement ledger of a run, per shard and block
 # ---------------------------------------------------------------------------
-
-
-class _Tally:
-    """Bytes each shard sent (`wire`: band payloads, `integrity`: checksum
-    words) and the blocks run, since the last `reset`. A step or run owns
-    one, as its `tally` attribute."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self) -> None:
-        self.sent: Dict[str, Dict[int, int]] = {"wire": {}, "integrity": {}}
-        self.blocks = 0
-
-    def add(self, kind: str, shard: int, nbytes: int) -> None:
-        self.sent[kind][shard] = self.sent[kind].get(shard, 0) + nbytes
-
-    def per_shard_block(self, kind: str, n_shards: int) -> int:
-        sent = [self.sent[kind].get(s, 0) for s in range(n_shards)]
-        if len(set(sent)) != 1:
-            raise RuntimeError(f"shards sent different {kind} bytes: {sent}")
-        if self.blocks == 0 or sent[0] % self.blocks:
-            raise RuntimeError(f"{sent[0]} {kind} bytes over {self.blocks} "
-                               f"blocks")
-        return sent[0] // self.blocks
-
-
-def _count(kind: str, fn, shards) -> int:
-    fn.tally.reset()
-    fn(shards)
-    return fn.tally.per_shard_block(kind, len(shards))
 
 
 def count_exchange_wire_bytes(fn, shards) -> int:
     """Per-shard, per-block FIELD bytes the engines sent while `fn(shards)`
-    ran (`fn` a distributed step or run): the summed sizes of every band
-    message, whichever engine moved it. Checksum words are counted by
-    `count_integrity_bytes` instead, so this count is the same with
-    verification on or off. The counted side of
-    `roofline.halo_wire_bytes_model`."""
-    return _count("wire", fn, shards)
+    ran (`fn` a distributed step or run): the `ppermute_wire` category of
+    its movement ledger: the collective engine's `band_send`s and K7's
+    messages from its table.
+    Checksum words are counted by `count_integrity_bytes` instead, so this
+    count is the same with verification on or off. The counted side of
+    `roofline.halo_wire_bytes_model`; raises where shards or blocks sent
+    different bytes."""
+    return _ledger_count(fn, (shards,), "ppermute_wire")
 
 
 def count_integrity_bytes(fn, shards) -> int:
     """Per-shard, per-block CHECKSUM bytes (one 4-byte word per band
     message of a verified exchange; 0 unverified) sent while `fn(shards)`
-    ran. The counted side of `roofline.integrity_bytes_model`."""
-    return _count("integrity", fn, shards)
+    ran: the `integrity_words` category. The counted side of
+    `roofline.integrity_bytes_model`."""
+    return _ledger_count(fn, (shards,), "integrity_words")
+
+
+def count_pallas_hbm_bytes(fn, *args) -> int:
+    """Device-memory bytes the kernels streamed while `fn(*args)` ran: the
+    ledger's `pallas_hbm` and `guard_field_reads` (every kernel op's
+    rank >= 3 operands and results, the guard's re-read included, and K7's
+    landed slabs; the reference's legacy semantics). On a distributed step
+    or run (`fn(shards)`) per shard and per block, as the wire counters;
+    on a program without block scopes (a kernel call, the serving
+    mega-step) the whole program's bytes."""
+    return _ledger_count(fn, args, "pallas_hbm", "guard_field_reads")
+
+
+def count_guard_bytes(fn, *args) -> int:
+    """Device-memory bytes of the finite-guard passes while `fn(*args)` ran:
+    the ledger's `guard_field_reads` and `guard_flag_words`, the quantity
+    of `roofline.guard_bytes_model`; per shard and block on a distributed
+    program, as `count_pallas_hbm_bytes`."""
+    return _ledger_count(fn, args, "guard_field_reads", "guard_flag_words")
+
+
+def _ledger_count(fn, args, *categories) -> int:
+    """`categories`' bytes while `fn(*args)` ran: per shard and block where
+    it ran in block scopes (`args[0]` being its shards), else in all."""
+    ledger = MovementLedger.record(fn, *args)
+    if ledger.blocks:
+        return ledger.per_shard_block(*categories, n_shards=len(args[0]))
+    return ledger.total(*categories)
 
 
 # ---------------------------------------------------------------------------
@@ -220,8 +228,14 @@ def _ring(mesh: StencilMesh, s: int, axis: str, delta: int) -> int:
                                           axis, delta, n))
 
 
+def _word(band: torch.Tensor) -> torch.Tensor:
+    """`band_checksum(band)` as the one 4-byte word the wire carries: the
+    low half of the int64 that holds the uint32 sum."""
+    return K.band_checksum(band).view(torch.int32)[:1]
+
+
 def _exchange_halos(mesh: StencilMesh, fs: Sequence[torch.Tensor],
-                    axis: str, depth: int, dim: int, *, tally=None,
+                    axis: str, depth: int, dim: int, *,
                     integrity_out=None, corrupt=None):
     """The collective engine for one field: per shard `(hi, lo)`, the
     `depth` planes (dim 0) or rows (dim 1) just below and just above the
@@ -229,29 +243,27 @@ def _exchange_halos(mesh: StencilMesh, fs: Sequence[torch.Tensor],
     from the k-away neighbour, a tensor copy to the receiver's device, so
     the total is `depth` whatever the hop count.
 
-    `tally` (a `_Tally`) adds up what each shard sends; `integrity_out` (a
-    list per shard) receives one mismatch indicator per received band,
-    from a `band_checksum` word moved beside it; `corrupt=(rows, value)`
-    damages every shard's hop-1 hi band after the sender's checksum."""
-    tally = _Tally() if tally is None else tally
-    L = fs[0].shape[dim]
+    Each band, and each checksum word, is one `band_send` from its sender.
+    `integrity_out` (a list per shard) receives one mismatch indicator per
+    received band, from a `band_checksum` word moved beside it;
+    `corrupt=(rows, value)` damages every shard's hop-1 hi band after the
+    sender's checksum."""
+    n = fs[0].shape[dim]
     hi_parts = [[] for _ in fs]
     lo_parts = [[] for _ in fs]
-    for k, cnt, _, _ in _band_schedule(L, depth):
+    for k, cnt, _, _ in _band_schedule(n, depth):
         for r, dst in enumerate(fs):
-            for side, src, lo in ((0, _ring(mesh, r, axis, -k), L - cnt),
+            for side, src, lo in ((0, _ring(mesh, r, axis, -k), n - cnt),
                                   (1, _ring(mesh, r, axis, k), 0)):
                 sent = fs[src].narrow(dim, lo, cnt)
-                got = sent.to(dst.device, copy=True)
-                tally.add("wire", src, sent.numel() * sent.element_size())
+                got = L.band_send(sent, dst.device, src)
                 if integrity_out is not None:
-                    word = K.band_checksum(sent).to(dst.device)
-                    tally.add("integrity", src, R.INTEGRITY_WORD_ITEMSIZE)
+                    word = L.band_send(_word(sent), dst.device, src)
                 if corrupt is not None and side == 0 and k == 1:
                     got = _corrupt_band(got, dim, min(corrupt[0], cnt),
                                         corrupt[1])
                 if integrity_out is not None:
-                    integrity_out[r].append(K.band_checksum(got) != word)
+                    integrity_out[r].append(_word(got) != word)
                 (hi_parts if side == 0 else lo_parts)[r].append(got)
     # hi: farthest predecessor first, so global coordinates ascend
     return [(torch.cat(h[::-1], dim=dim), torch.cat(lo, dim=dim))
@@ -260,7 +272,7 @@ def _exchange_halos(mesh: StencilMesh, fs: Sequence[torch.Tensor],
 
 def _exchange_band_dma(mesh: StencilMesh, shards: Shards, axis: str,
                        depth: int, dim: int, block_index: int,
-                       slabs: K.BandSlabs, tally: _Tally, *,
+                       slabs: K.BandSlabs, *,
                        integrity_out=None, corrupt=None) -> Shards:
     """The remote_dma engine: K7 over every shard's fields into `slabs`'
     extended slabs; returns per shard the extended fields, views of
@@ -270,21 +282,17 @@ def _exchange_band_dma(mesh: StencilMesh, shards: Shards, axis: str,
     if integrity_out is not None or corrupt is not None:
         def wire(m, sent, got):
             if integrity_out is not None:
-                word = K.band_checksum(sent).to(got.device)
-                tally.add("integrity", m.sender, R.INTEGRITY_WORD_ITEMSIZE)
+                word = L.band_send(_word(sent), got.device, m.sender)
             if (corrupt is not None and m.field == corrupt[0]
                     and m.side == 0 and m.k == 1):
                 got = _corrupt_band(got, dim, min(corrupt[1], m.cnt),
                                     corrupt[2])
             if integrity_out is not None:
-                integrity_out[m.receiver].append(K.band_checksum(got)
-                                                 != word)
+                integrity_out[m.receiver].append(_word(got) != word)
             return got
     K.halo_band_exchange_dma(shards, mesh=mesh, axis=axis, depth=depth,
                              dim=dim, block_index=block_index, slabs=slabs,
-                             wire=wire)
-    for s, nbytes in enumerate(slabs.messages(axis)[1]):
-        tally.add("wire", s, nbytes)
+                             wire=wire, checksums=integrity_out is not None)
     return slabs.extended(block_index % 2)
 
 
@@ -411,9 +419,9 @@ class _LocalBlock:
             self.depth = spec.halo(T)
         self.buffers: Optional[K.ExtendedBuffers] = None
         self.slabs: Dict[str, K.BandSlabs] = {}
-        self.tally = _Tally()
         self._params: dict = {}
         self._masks: dict = {}
+        self._planned: set = set()
 
     def _mask(self, x_int, y_int, device):
         """A pass's interior mask in the form its local kernel takes: the
@@ -537,7 +545,6 @@ class _LocalBlock:
                        else (int(ch[0]), int(ch[1]), ch[2]))
             return _exchange_band_dma(self.mesh, fields, axis, D, dim,
                                       block_index, self.slabs[axis],
-                                      self.tally,
                                       integrity_out=integrity_out,
                                       corrupt=corrupt)
         per_field = []
@@ -546,8 +553,7 @@ class _LocalBlock:
                        or fi != int(ch[0]) else (int(ch[1]), ch[2]))
             per_field.append(_exchange_halos(
                 self.mesh, [f[fi] for f in fields], axis, D, dim,
-                tally=self.tally, integrity_out=integrity_out,
-                corrupt=corrupt))
+                integrity_out=integrity_out, corrupt=corrupt))
         bands = [tuple(pf[s] for pf in per_field)
                  for s in range(len(fields))]
         return [tuple(torch.cat([hi, f, lo], dim=dim)
@@ -568,6 +574,23 @@ class _LocalBlock:
             fields = self._extend(fields, "y", 1, block_index,
                                   integrity_out, corrupt_dim)
         return fields
+
+    def plan(self, shape, dx: int, dy: int) -> None:
+        """Check the block's shared-memory plan for shards of `shape`
+        (`analysis.smem.distributed_block_plan`: the local kernel's block
+        over the extended slab, K7's extended buffers on the busiest card),
+        once per shape, before anything launches; raises
+        `SmemBudgetExceeded` naming the largest buffer."""
+        if shape in self._planned:
+            return
+        cards = [d for d in self.mesh.devices]
+        SM.distributed_block_plan(
+            shape, T=self.T, local_kernel=self.local_kernel,
+            exchange=self.exchange, y_tile=self.y_tile,
+            nx=2 if dx else 1, ny=2 if dy else 1, spec=self.spec,
+            shards_per_card=max(cards.count(d) for d in cards),
+            context="distributed block").check()
+        self._planned.add(shape)
 
     def check(self) -> None:
         """Raise when a K7 kernel of this block's mesh timed out."""
@@ -596,7 +619,12 @@ class _LocalBlock:
             raise ValueError(
                 f"halo depth {what}={D} exceeds the decomposable global X "
                 f"extent ({X_g} planes, interior {X_g - 2 * r}); lower T")
-        self.tally.blocks += 1
+        self.plan(tuple(shards[0][0].shape), dx, dy)
+        with L.scope(block=True):
+            return self._block(shards, block_index, Xl, Yl, dx, dy)
+
+    def _block(self, shards: Shards, block_index: int, Xl: int, Yl: int,
+               dx: int, dy: int):
         integrity_out = [[] for _ in shards] if self.verify else None
         corrupt_dim = None
         if self.corrupt_halo is not None and (dx or dy):
@@ -606,16 +634,8 @@ class _LocalBlock:
                                 corrupt_dim)
         out = []
         for s, (own, ext) in enumerate(zip(shards, fields)):
-            ext_mask, own_mask, sel = self._shard_masks(s, Xl, Yl, dx, dy)
-            # boundary pass (consumes the exchange), trimmed to owned rows
-            bnd = tuple(f[dx:dx + Xl, dy:dy + Yl]
-                        for f in self._substeps(ext, ext_mask))
-            if sel is None:
-                out.append(tuple(f.contiguous() for f in bnd))
-                continue
-            inner = self._substeps(own, own_mask)
-            out.append(tuple(torch.where(sel, i, b)
-                             for i, b in zip(inner, bnd)))
+            with L.scope(shard=s):
+                out.append(self._shard_update(s, own, ext, Xl, Yl, dx, dy))
         mismatch = None
         if self.verify:
             mismatch = [sum((m.to(torch.int64).sum() for m in ms),
@@ -623,6 +643,21 @@ class _LocalBlock:
                                         device=own[0].device))
                         for ms, own in zip(integrity_out, shards)]
         return out, mismatch
+
+
+    def _shard_update(self, s: int, own, ext, Xl: int, Yl: int, dx: int,
+                      dy: int):
+        """Shard `s`'s fields after the block: the boundary pass over the
+        extended slab, trimmed to the owned rows, and with overlap the
+        interior pass's trusted cells."""
+        ext_mask, own_mask, sel = self._shard_masks(s, Xl, Yl, dx, dy)
+        # boundary pass (consumes the exchange), trimmed to owned rows
+        bnd = tuple(f[dx:dx + Xl, dy:dy + Yl]
+                    for f in self._substeps(ext, ext_mask))
+        if sel is None:
+            return tuple(f.contiguous() for f in bnd)
+        inner = self._substeps(own, own_mask)
+        return tuple(torch.where(sel, i, b) for i, b in zip(inner, bnd))
 
 
 def _flags(mesh: StencilMesh, mismatch) -> torch.Tensor:
@@ -694,7 +729,6 @@ def make_distributed_step(mesh: StencilMesh, params: AdvectParams, *,
         block.check()
         return (out, _flags(mesh, mismatch)) if verify_integrity else out
 
-    step.tally = block.tally
     return step
 
 
@@ -816,7 +850,6 @@ def make_distributed_run(mesh: StencilMesh, params: AdvectParams, *,
                 every=checkpoint_every, flags=flag0, keep_last=keep_last,
                 save_initial=True)
 
-    run.tally = block.tally
     return run
 
 
@@ -903,14 +936,16 @@ def make_distributed_advect(mesh: StencilMesh, params: AdvectParams):
                          f"takes a (1, ny) mesh, got {mesh.shape}")
     n = mesh.shape[1]
     cache: dict = {}
-    tally = _Tally()
 
     def advect(shards: Shards):
         if len(shards) != n:
             raise ValueError(f"{len(shards)} shards given for a mesh of {n}")
-        tally.blocks += 1
-        halos = [_exchange_halos(mesh, [s[f] for s in shards], "y", 1, 1,
-                                 tally=tally) for f in range(3)]
+        with L.scope(block=True):
+            return _advect(shards)
+
+    def _advect(shards: Shards):
+        halos = [_exchange_halos(mesh, [s[f] for s in shards], "y", 1, 1)
+                 for f in range(3)]
         out = []
         for s, (u, v, w) in enumerate(shards):
             p = _on(params, u.device, cache)
@@ -930,7 +965,6 @@ def make_distributed_advect(mesh: StencilMesh, params: AdvectParams):
                              for b, i in zip(band, interior)))
         return out
 
-    advect.tally = tally
     return advect
 
 

@@ -1358,3 +1358,135 @@ def test_train_step_repeats_bitwise_on_the_card(cuda):
     for a, b in zip(leaves(runs[0][2]), leaves(cpu[2])):
         assert float((a.cpu() - b).abs().max()) <= \
             1e-4 * float(b.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the op layer (`kernels.library`) and the movement ledger on the card
+# ---------------------------------------------------------------------------
+
+def _op_vs_bare(cuda):
+    """(name, through the op, through the bare launch function) per
+    kernel at a probe shape."""
+    from repro_torch.launch.mesh import make_stencil_mesh
+    shape = (6, 10, 16)
+    u, v, w = fields(shape, 11, cuda)
+    p = TK._slot_params(TREF.default_params(16, device=cuda), 1, 16, cuda)
+    p1 = TK._slot_params(TREF.default_params(16, device=cuda), None, 16,
+                         cuda)
+    xm, ym = torch.ones(6, device=cuda), torch.ones(10, device=cuda)
+    ub, vb, wb = u[None], v[None], w[None]
+    spec = TSP.tracer_advection_spec("rk2")
+    q4 = torch.randn(6, 10, 16, device=cuda)
+    pv = TK._spec_param_vectors(spec, TREF.default_params(16, device=cuda),
+                                cuda)
+    out = [
+        ("advect_fused",
+         lambda: TK._OP_K1(ub, vb, wb, *p, xm, ym, 3, DT, 0),
+         lambda: TK._advect_fused_cuda(ub, vb, wb, p, 3, DT, xm, ym)),
+        ("advect_blocked",
+         lambda: TK._OP_K3(u, v, w, *p1, 0, True, DT),
+         lambda: TK._advect_rung_cuda("advect_blocked", u, v, w, p1, None,
+                                      True, DT)),
+        ("advect_dataflow",
+         lambda: TK._OP_K2(u, v, w, *p1, 0, False, False, DT),
+         lambda: TK._advect_rung_cuda("advect_dataflow", u, v, w, p1, None,
+                                      False, DT)),
+        ("advect_wide",
+         lambda: TK._OP_K2(u, v, w, *p1, 0, True, True, DT),
+         lambda: TK._advect_rung_cuda("advect_wide", u, v, w, p1, None,
+                                      True, DT)),
+        ("finite_guard", lambda: TK._OP_K4(ub, vb, wb),
+         lambda: TK._finite_guard_cuda(ub, vb, wb)),
+        ("stencil_fused",
+         lambda: TK._OP_K6([ub, vb, wb, q4[None]], list(pv), xm, ym,
+                           TK.spec_handle(spec), 2, DT, 0),
+         lambda: TK._stencil_fused_cuda([ub, vb, wb, q4[None]], pv, spec, 2,
+                                        DT, xm, ym)),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, vv = (torch.randn(s, device=cuda).to(dtype)
+                    for s in ((1, 4, 128, 64), (1, 2, 128, 64),
+                              (1, 2, 128, 64)))
+
+        def through_op(q=q, k=k, vv=vv):
+            o = torch.empty_like(q)
+            TA._OP_K8(q, k, vv, o, True, 0.125, 128, 128)
+            return o
+        out.append((f"flash_attention_{dtype}", through_op,
+                    lambda q=q, k=k, vv=vv: TA._flash_attention_cuda(
+                        q, k, vv, True, 0.125, 128, 128)))
+    xc, dtt = (torch.randn(1, 64, 32, device=cuda) for _ in range(2))
+    Bm, Cm = (torch.randn(1, 64, 16, device=cuda) for _ in range(2))
+    A = -torch.rand(32, 16, device=cuda) - 0.5
+    h0 = torch.zeros(1, 32, 16, device=cuda)
+    args = (xc, 0.1 * dtt.abs(), Bm, Cm, A, h0)
+    plan = TS.scan_device_plan(cuda, 1, 64, 32, 16, torch.float32,
+                               torch.float32)
+    out.append(("selective_scan", lambda: TS._OP_K9(*args),
+                lambda: TS._selective_scan_cuda(*args, plan)))
+    mesh = make_stencil_mesh(2, 2, devices=["cuda:0"] * 4)
+    shards = [tuple(torch.randn(4, 6, 16, device=cuda) for _ in range(3))
+              for _ in range(4)]
+
+    def k7(bare):
+        slabs = TK.BandSlabs(mesh, (4, 6, 16), 2, 1, fill=-1.0)
+        if bare:
+            table = slabs.table("y", 0, shards)
+            TK._band_exchange_cuda(slabs, table, tuple(
+                f.data_ptr() for trio in shards for f in trio))
+        else:
+            TK.halo_band_exchange_dma(shards, mesh=mesh, axis="y", depth=2,
+                                      dim=1, slabs=slabs)
+        return tuple(slabs.buffers.bufs)
+    out.append(("band_exchange", lambda: k7(False), lambda: k7(True)))
+    return out
+
+
+def test_each_op_equals_its_bare_launch_bitwise(cuda):
+    for name, op, bare in _op_vs_bare(cuda):
+        before = {**TK.LAUNCHES, **TA.LAUNCHES, **TS.LAUNCHES}
+        got = op()
+        mid = {**TK.LAUNCHES, **TA.LAUNCHES, **TS.LAUNCHES}
+        want = bare()
+        after = {**TK.LAUNCHES, **TA.LAUNCHES, **TS.LAUNCHES}
+        torch.cuda.synchronize()
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), name
+        # the op counts exactly what the bare launch counts
+        assert {k: mid[k] - before[k] for k in mid} == \
+            {k: after[k] - mid[k] for k in mid}, name
+
+
+def test_fake_outputs_match_the_real_ones(cuda):
+    from repro_torch.analysis import trace as TR
+    for name, op, _ in _op_vs_bare(cuda):
+        if name == "band_exchange":
+            continue
+        real = TR._results(op())
+        fake_records = TR.record_ops(op)
+        fake = next(r for r in reversed(fake_records) if r.op).results
+        if not fake:   # K8 writes its `out` in place
+            continue
+        assert [(m.shape, m.dtype, m.device, m.stride) for m in fake] == \
+            [(m.shape, m.dtype, m.device, m.stride) for m in real], name
+
+
+def test_live_ledger_equals_fake_ledger_and_models(cuda):
+    from repro_torch.analysis import ledger as LG
+    from repro_torch.analysis import programs as PR
+    from repro_torch.analysis import trace as TR
+    for prog in PR.programs(small=True):
+        with TR.fake_mode():
+            fn, args = prog.build(cuda)
+            fake = LG.MovementLedger.from_ops(TR.record_ops(fn, *args))
+        fn, args = prog.build(cuda)
+        live = LG.MovementLedger.from_ops(TR.record_ops(fn, *args,
+                                                        execute=True))
+        if prog.per_block:
+            fake = fake.per_shard_block_totals(prog.n_shards)
+            live = live.per_shard_block_totals(prog.n_shards)
+        else:
+            fake, live = fake.totals(), live.totals()
+        assert live == fake, prog.name
+        assert LG.check_model_coverage(live, prog.claims).ok, prog.name

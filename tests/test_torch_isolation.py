@@ -121,3 +121,54 @@ def test_build_key_follows_the_shared_header(monkeypatch, tmp_path):
     header = tmp_path / "pw_source.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     assert _build._digest() != key
+
+
+def test_every_op_cuda_route_raises_the_loader_error(monkeypatch):
+    """Each `repro_torch` op's CUDA implementation loads the kernels before
+    it launches, and raises what the loader raises: no op falls back to
+    its plain version."""
+    from repro_torch.kernels import library as L
+    from repro_torch.kernels.attention import attention as TA
+    from repro_torch.kernels.ssm import ssm as TS
+    from repro_torch.launch.mesh import make_stencil_mesh
+    from repro_torch.stencil import spec as TSP
+
+    monkeypatch.setattr(_build, "load", _refuse)
+    before = dict(TK.LAUNCHES)
+    u, v, w = (torch.zeros((1, 4, 8, 8)) for _ in range(3))
+    p = TREF.default_params(8, device="cpu")
+    xm, ym = torch.ones(4), torch.ones(8)
+    spec = TSP.pw_advection_spec()
+    pv = list(TK._spec_param_vectors(spec, p, "cpu"))
+    mesh = make_stencil_mesh(2, 1, devices=["cpu"] * 2)
+    shards = [tuple(f[0] for f in (u, v, w)) for _ in range(2)]
+    slabs = TK.BandSlabs(mesh, (4, 8, 8), 1, 0)
+    table = slabs.table("x", 0, shards)
+    q = torch.zeros(1, 2, 16, 32)
+    routes = {
+        "advect_fused": lambda: TK._k1_cuda(u, v, w, *p, xm, ym, 2, 0.01,
+                                            0),
+        "advect_blocked": lambda: TK._k3_cuda(u[0], v[0], w[0], *p, 0,
+                                              True, 0.01),
+        "advect_dataflow": lambda: TK._k2_cuda(u[0], v[0], w[0], *p, 0,
+                                               True, True, 0.01),
+        "finite_guard": lambda: TK._k4_cuda(u, v, w),
+        "stencil_fused": lambda: TK._k6_cuda([u, v, w], pv, xm, ym,
+                                             TK.spec_handle(spec), 2, 0.01,
+                                             0),
+        "band_exchange": lambda: TK._k7_cuda(
+            [f for trio in shards for f in trio],
+            [f for trio in slabs.extended(0) for f in trio], slabs.words,
+            table.handle, -1, False),
+        "flash_attention": lambda: TA._k8_cuda(q, q, q, torch.empty_like(q),
+                                               True, 0.2, 16, 16),
+        "selective_scan": lambda: TS._k9_cuda(
+            torch.zeros(1, 16, 32), torch.zeros(1, 16, 32),
+            torch.zeros(1, 16, 8), torch.zeros(1, 16, 8),
+            torch.zeros(32, 8), torch.zeros(1, 32, 8)),
+    }
+    assert set(routes) == set(L.OPS) - {"band_send"}
+    for name, route in routes.items():
+        with pytest.raises(RuntimeError, match="kernel loader unavailable"):
+            route()
+    assert TK.LAUNCHES == before
