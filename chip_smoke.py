@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only families          # phases 24-28 alone
     python3 chip_smoke.py --only train             # phases 29-31 alone
     python3 chip_smoke.py --only analysis          # phases 32-34 alone
+    python3 chip_smoke.py --only bf16              # phases 35-39 alone
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 
@@ -276,7 +277,8 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    kernel a `repro_torch` op, `kernels.library`): `advance(16)` at the 67M
    grid, T = 4, then K4; the (2, 2) loopback `make_distributed_run` at
    `n_blocks=4` under both engines and the verified `collective` exchange;
-   the serving mega-step at 4 x (512, 512, 64); the spec path's six
+   the serving mega-step at 4 x (512, 512, 64); the bf16 `advance(16)`
+   and serving mega-step (`pallas_hbm` half f32's); the spec path's six
    passes; one K8 call at q (1, 40, 2048, 128) bf16 and one K9 call at
    (1, 2048, 8192) bf16 (`analysis.programs`). Each category == its model
    exactly (per shard and block on the distributed runs),
@@ -286,7 +288,8 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 33. the tiling linter over every op phase 32 launched (no error, at the
    card's SM count), each kernel's planned shared bytes (`analysis.smem`)
    == the bytes its launch asked for (`LAUNCHED_SHARED`; K8's tensor-core
-   build by its attrs call), and an oversized plan raising with its largest
+   build by its attrs call; the bf16 ring and rungs too), and an oversized
+   plan raising with its largest
    buffer named;
 34. the retrace detector on the card: each engine's distributed block at
    block indices 2-5 (one stream, no launch cache growing), `n_blocks` 3
@@ -295,7 +298,32 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    host milliseconds of one call before its launch returns, through the
    op and through the bare launch function, for K1, K7 and K8.
 
+35. the bf16 PW path at small shapes, with f32 and with bf16 coefficients
+   (`AdvectionDomain(dtype="bfloat16")`'s): K1 == plain bitwise at T 1-4
+   and T = 10 (passes), tiled == untiled at y_tile 4, 5, 7, x/y masks,
+   guarded == unguarded; K5 with per-slot coefficients and masks and a
+   padded request == sequential == plain; K4 clean and with a NaN and an
+   inf, on the 16-byte and the 1-cell path; K3, K2 and `wide` (8 cells a
+   16-byte move) == plain for sources and `fuse_update`, tiled, x chunks,
+   host tiling, fields 2 bytes past an allocation; `wide`'s refusal of
+   Z % 8 != 0 and K6's of bf16 fields;
+36. the bf16 main path: `AdvectionDomain(1024, 1024, 64, variant="fused",
+   dtype="bfloat16").advance(16)` and K4, counted (4 K1 launches, 1 K4),
+   == plain bitwise, within `bf16_oracle_bound` of the f64 oracle, edges
+   frozen;
+37. the bf16 ladder: `blocked`, `dataflow` and `wide`, `fuse_update` False
+   and True, `advance(4)` on bf16 domains, counted, == plain bitwise;
+38. the bf16 serving tier: `SERVE_PAPER_SLOT` slots at batch 4, clean and
+   under `SERVE_FAULT_PLAN`, with disk snapshots (written under
+   `build/bf16_snapshots`, then deleted): batched == sequential and
+   rolled back == clean, bitwise, K4 over the batch; K5's time;
+39. the bf16 kernels' times at the 67M grid (events and device time, their
+   bounds, registers and spills).
+
 Each phase prints its seconds.
+
+`--only bf16` runs phases 35-39 alone (its kernels line holds the bf16
+kernels).
 
 `--only analysis` runs phases 32-34 and the host-cost lines alone.
 
@@ -438,7 +466,7 @@ RUNG_PLAN_CASES = (  # shape, y_tile, x_chunk
 # plan's own), each distinct plan once
 RUNG_SWEEP_TILES = (None, 8, 16, 32)
 RUNG_SWEEP_CHUNKS = (None, 32)
-SOURCE = {"advect_fused": "src/repro_torch/csrc/advect_fused.cu",
+SOURCE = {"advect_fused": "src/repro_torch/csrc/advect_fused.cuh",
           "finite_guard": "src/repro_torch/csrc/finite_guard.cu",
           "advect_blocked": "src/repro_torch/csrc/advect_blocked.cu",
           "advect_dataflow": "src/repro_torch/csrc/advect_dataflow.cu",
@@ -623,21 +651,21 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def rand_fields(shape, seed):
+def rand_fields(shape, seed, dtype=torch.float32):
     rng = np.random.default_rng(seed)
     return REF.fields_from_numpy(*(rng.normal(size=shape) for _ in range(3)),
-                                 device="cuda")
+                                 dtype=dtype, device="cuda")
 
 
 def same(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def plain_fused(u, v, w, p, T, xm=None, ym=None):
+def plain_fused(u, v, w, p, T, xm=None, ym=None, dt=DT):
     """The plain version on one (X, Y, Z) domain."""
     X, Y = u.shape[0], u.shape[1]
     ones = lambda n: torch.ones(n, device=u.device)  # noqa: E731
-    out = K._advect_fused_plain(u[None], v[None], w[None], p, T, DT,
+    out = K._advect_fused_plain(u[None], v[None], w[None], p, T, dt,
                                 ones(X) if xm is None else xm,
                                 ones(Y) if ym is None else ym)
     return tuple(o[0] for o in out)
@@ -1245,22 +1273,25 @@ def k1_sweep(check: Checks, u, v, w, p, T, nbytes, ops) -> None:
                   f"pass, {bound / ms:.4f} of the bound{tag}", flush=True)
 
 
-def bound_of(nbytes: int, ops: int):
+def bound_of(nbytes: int, ops: int, peak: float = R.PEAK_FLOPS_F32):
     """(bound ms, "bytes" or "operations"): the larger of the bytes over the
-    card's memory rate and the f32 operations over its peak rate."""
+    card's memory rate and the operations over its peak rate for their
+    type (`peak`: f32 by default, `R.PEAK_FLOPS_BF16_SIMT` for ops that
+    round to bf16)."""
     t_bytes = nbytes / R.HBM_BW * 1e3
-    t_ops = ops / R.PEAK_FLOPS_F32 * 1e3
+    t_ops = ops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
-def kernel_record(name, ms, plain_ms, nbytes, ops, launches, err) -> dict:
-    bound, bound_by = bound_of(nbytes, ops)
+def kernel_record(name, ms, plain_ms, nbytes, ops, launches, err,
+                  peak: float = R.PEAK_FLOPS_F32) -> dict:
+    bound, bound_by = bound_of(nbytes, ops, peak)
+    kind = "bf16" if peak == R.PEAK_FLOPS_BF16_SIMT else "f32"
     print(f"{name}: {ms:.4f} ms per launch (median of {TIMED_RUNS}), "
           f"bound {bound:.4f} ms by {bound_by} ({nbytes} B at "
-          f"{R.HBM_BW:.3g} B/s: {nbytes / R.HBM_BW * 1e3:.4f} ms; {ops} f32 "
-          f"ops at {R.PEAK_FLOPS_F32:.3g}/s: "
-          f"{ops / R.PEAK_FLOPS_F32 * 1e3:.4f} ms), "
+          f"{R.HBM_BW:.3g} B/s: {nbytes / R.HBM_BW * 1e3:.4f} ms; {ops} "
+          f"{kind} ops at {peak:.4g}/s: {ops / peak * 1e3:.4f} ms), "
           f"{nbytes / ms / 1e6:.1f} GB/s achieved, {bound / ms:.3f} of the "
           f"bound; plain version {plain_ms:.4f} ms; no single PyTorch call "
           f"computes this function, so no library time", flush=True)
@@ -3361,11 +3392,12 @@ def fresh(reqs):
                            n_steps=r.n_steps) for r in reqs]
 
 
-def serve_counted(dom, reqs, batch: int, plan=None):
-    """One `StencilServingEngine.run` on `dom`'s device, the launch counts
-    set to 0 just before and read just after. Returns (engine, done,
-    launches, wall s)."""
-    eng = StencilServingEngine(dom, batch_size=batch, fault_plan=plan)
+def serve_counted(dom, reqs, batch: int, plan=None, snapshot_dir=None):
+    """One `StencilServingEngine.run` on `dom`'s device (disk snapshots in
+    `snapshot_dir` where given), the launch counts set to 0 just before and
+    read just after. Returns (engine, done, launches, wall s)."""
+    eng = StencilServingEngine(dom, batch_size=batch, fault_plan=plan,
+                               snapshot_dir=snapshot_dir)
     if dom.device != "cpu":
         torch.cuda.synchronize()
     reset_all_counts()
@@ -3383,11 +3415,13 @@ def sequential_equal(done, dom) -> bool:
     for req in done.values():
         if req.status != "done":
             continue
-        u, v, w = REF.fields_from_numpy(req.u, req.v, req.w, device="cuda")
+        u, v, w = REF.fields_from_numpy(req.u, req.v, req.w,
+                                        dtype=getattr(torch, dom.dtype),
+                                        device="cuda")
         for state in req.states:
             u, v, w = K.advect_fused(u, v, w, dom.params, T=dom.fuse_T,
                                      dt=dom.dt)
-            ok &= all(np.array_equal(s, f.cpu().numpy())
+            ok &= all(np.array_equal(s, f.float().cpu().numpy())
                       for s, f in zip(state, (u, v, w)))
         ok &= len(req.states) == req.n_steps and all(
             np.array_equal(a, b) for a, b in zip(req.out, req.states[-1]))
@@ -3426,16 +3460,22 @@ def guard_case(check: Checks, tag: str, eng) -> None:
           f"{Xr} (0 there alone)")
 
 
-def serving_case(check: Checks, tag: str, dom, reqs, batch: int):
+def serving_case(check: Checks, tag: str, dom, reqs, batch: int,
+                 snapshot_dir=None):
     """The clean run and the faulted run (`SERVE_FAULT_PLAN`) of `reqs` on
-    the card, each gated: K5 and K4 once a mega-step and no other kernel;
-    clean == sequential K1 bitwise; faulted == clean bitwise for every job
-    not quarantined; health and cache stats == the CPU run of the same
-    plan (`mirror_requests`). Returns the clean run's (engine, done,
-    launches, wall)."""
+    the card (disk snapshots in `snapshot_dir` where given), each gated: K5
+    and K4 once a mega-step and no other kernel; clean == sequential K1
+    bitwise; faulted == clean bitwise for every job not quarantined; health
+    and cache stats == the CPU run of the same plan (`mirror_requests`).
+    Returns the clean run's (engine, done, launches, wall)."""
     runs = {}
     for plan in (None, SERVE_FAULT_PLAN):
-        eng, done, launches, wall = serve_counted(dom, reqs, batch, plan)
+        # a directory a run: a checkpoint directory keeps its newest steps,
+        # so one run's snapshots would prune the next one's
+        eng, done, launches, wall = serve_counted(
+            dom, reqs, batch, plan, None if snapshot_dir is None
+            else Path(snapshot_dir) / ("clean" if plan is None
+                                       else "faulted"))
         runs[plan] = (eng, done, launches, wall)
         n = eng.megasteps_executed
         what = f"{tag}, plan {plan or 'none'}"
@@ -3452,7 +3492,8 @@ def serving_case(check: Checks, tag: str, dom, reqs, batch: int):
               f"{what}: K5 and K4 launched once a mega-step ({n}), no other "
               f"kernel")
         mirror = AdvectionDomain(*SERVE_MIRROR, dom.Z, variant="fused",
-                                 fuse_T=dom.fuse_T, dt=dom.dt, device="cpu")
+                                 fuse_T=dom.fuse_T, dt=dom.dt, device="cpu",
+                                 dtype=dom.dtype)
         cpu_eng = serve_counted(mirror, mirror_requests(reqs, *SERVE_MIRROR),
                                 batch, plan)[0]
         check(eng.health() == cpu_eng.health()
@@ -4359,6 +4400,10 @@ def analysis_programs() -> list:
                                n_blocks=DIST_BLOCKS, mesh=DIST_MESH,
                                verify=True, dt=DT),
         PR.serving_program(*ANALYSIS_SERVE, B=ANALYSIS_BATCH, T=MAIN_T, dt=DT),
+        PR.advance_program(X, Y, Z, T=MAIN_T, n_substeps=MAIN_SUBSTEPS,
+                           dt=DT, dtype=torch.bfloat16),
+        PR.serving_program(*ANALYSIS_SERVE, B=ANALYSIS_BATCH, T=MAIN_T, dt=DT,
+                           dtype=torch.bfloat16),
         PR.spec_path_program(X, Y, Z, dt=DT),
         PR.attention_program(B, H, Hkv, S, Dh),
         PR.scan_program(*SCAN_TIMED[:3], SCAN_TIMED[3]),
@@ -4452,6 +4497,12 @@ def plan_phase(check: Checks, recorded) -> None:
         ("serving", "advect_fused",
          SM.serving_ring_plan(*ANALYSIS_SERVE, batch=ANALYSIS_BATCH,
                               T=MAIN_T, n_sm=sms)),
+        # the bf16 ring plans as the f32 one: f32 words in its planes
+        ("advance_bf16", "advect_fused",
+         SM.fused_ring_plan(X, Y, Z, T=MAIN_T, n_sm=sms)),
+        ("serving_bf16", "advect_fused",
+         SM.serving_ring_plan(*ANALYSIS_SERVE, batch=ANALYSIS_BATCH,
+                              T=MAIN_T, itemsize=2, n_sm=sms)),
         ("distributed_remote_dma", "advect_fused",
          SM.distributed_block_plan((X // nx, Y // ny, Z), T=MAIN_T,
                                    local_kernel="fused",
@@ -4491,7 +4542,21 @@ def plan_phase(check: Checks, recorded) -> None:
         check(plan.total() == K.LAUNCHED_SHARED.get(name), f"33 {name}: planned "
               f"shared bytes {plan.total()} == launched "
               f"{K.LAUNCHED_SHARED.get(name)}")
-    del u, v, w
+    # the bf16 rungs: their stages hold 2-byte cells
+    ub, vb, wb = (f.to(torch.bfloat16) for f in (u, v, w))
+    pb = REF.default_params(Z, dtype=torch.bfloat16, device="cuda")
+    for name in ("advect_blocked", "advect_dataflow", "advect_wide"):
+        getattr(K, name)(ub, vb, wb, pb, fuse_update=True, dt=DT)
+        torch.cuda.synchronize()
+        per_sm = K.rung_device_plan("cuda", name, X, Y, Z,
+                                    dtype=torch.bfloat16,
+                                    coef=True).blocks_per_sm
+        plan = SM.rung_plan(name, X, Y, Z, n_sm=sms, blocks_per_sm=per_sm,
+                            itemsize=2)
+        check(plan.total() == K.LAUNCHED_SHARED.get(name), f"33 {name} bf16: "
+              f"planned shared bytes {plan.total()} == launched "
+              f"{K.LAUNCHED_SHARED.get(name)}")
+    del u, v, w, ub, vb, wb
     B, H, Hkv, S, Dh = ATTN_TIMED
     tc = A.tc_kernel_attrs(0, Dh)["shared_bytes"]
     plan = SM.attention_plan(Dh, torch.bfloat16)
@@ -4680,6 +4745,551 @@ def analysis_phases(check: Checks, card: str) -> list:
     return []
 
 
+# ---------------------------------------------------------------------------
+# the bf16 PW path: K1/K5, K4, K3 and K2 on bf16 fields (phases 35-39)
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+# shapes with remainder y-tiles at y_tile 4, 5, 7 (Z = 16 and 24 let `wide`
+# move 8 bf16 cells a vector; Z = 12 takes the 1-cell path only)
+BF16_SHAPES = ((6, 10, 16), (5, 17, 12), (8, 12, 24))
+BF16_U = 2.0 ** -8      # bf16's unit roundoff (8 significant bits)
+BF16_ORACLE_SLACK = 1.1  # the stencil's propagation of earlier roundings
+BF16_SNAPSHOTS = ROOT / "build" / "bf16_snapshots"
+# dt of phase 36's second gate: at the paper's DT an update below half a
+# bf16 ulp of its cell rounds away, and few cells move
+BF16_RESOLVED_DT = 0.5
+# the bf16 kernels' launch keys and their entry in the kernels line
+BF16_RUNGS = {"advect_blocked": "blocked", "advect_dataflow": "dataflow",
+              "advect_wide": "wide"}
+# the rate of the timed bf16 kernels' operations: with a bf16 domain's
+# coefficients every op of the source and the update rounds to bf16
+BF16_PEAK = R.PEAK_FLOPS_BF16_SIMT
+
+
+def bf16_params(Z: int, coef: str):
+    """The domain's coefficients in f32 (the kernel tests' case) or bf16
+    (a bf16 domain's)."""
+    return REF.default_params(Z, dtype=torch.float32 if coef == "f32"
+                              else BF16, device="cuda")
+
+
+def bf16_oracle_bound(oracle, n: int) -> float:
+    """The bound on a bf16 run of n Euler steps against the f64 oracle: each
+    step's update rounds once to bf16, an error of at most u = 2^-8 of the
+    field's magnitude M (the largest |oracle| over the run's fields), and
+    the source's own bf16 roundings are scaled by dt (under 1 % of that at
+    the paper's dt); `BF16_ORACLE_SLACK` covers the stencil carrying the
+    earlier steps' errors (a factor 1 + n * dt * |d src / d f| < 1.03)."""
+    M = max(float(o.abs().max()) for o in oracle)
+    return BF16_ORACLE_SLACK * n * BF16_U * M
+
+
+def cell_gate(check: Checks, tag: str, out, fields, oracle, bounds) -> None:
+    """`out` within `REF.pw_multistep_bf16_bound`'s bound of the f64 oracle
+    in every cell, and the gate able to fail a no-op: `fields`, the inputs,
+    lie outside it somewhere."""
+    def over(got):
+        return sum(int(((g.double() - o).abs() > b).sum())
+                   for g, o, b in zip(got, oracle, bounds))
+
+    n_out, n_noop = over(out), over(fields)
+    worst = max(float(((g.double() - o).abs() / b.clamp_min(1e-300)).max())
+                for g, o, b in zip(out, oracle, bounds))
+    cells = sum(f.numel() for f in fields)
+    print(f"{tag} against the f64 oracle cell by cell: {n_out} of {cells} "
+          f"cells outside their bound (largest |err| / bound {worst:.4f}; "
+          f"largest bound {max(float(b.max()) for b in bounds):.6f}); the "
+          f"inputs returned unchanged would lie outside it at {n_noop} "
+          f"cells", flush=True)
+    check(n_out == 0, f"{tag}: every cell within its derived bound of the "
+          f"f64 oracle ({n_out} outside)")
+    check(n_noop > 0, f"{tag}: the per-cell gate fails a no-op ({n_noop} "
+          f"cells)")
+
+
+def device_per_launch(call, match: str, runs: int = 10):
+    """(device ms per launch the profiler saw, launches seen) of `call`,
+    which launches one kernel matching `match` a run: a trace that drops
+    events then reads low by none of them."""
+    dev, seen = profiled_kernels(call, match, ("cuda:0",), runs)
+    return (dev * runs / seen if seen else 0.0), seen
+
+
+def bf16_small_phase(check: Checks) -> None:
+    """Phase 35: every bf16 kernel == its plain version bitwise at small
+    shapes, with f32 and with bf16 coefficients."""
+    for coef in ("f32", "bf16"):
+        for si, shape in enumerate(BF16_SHAPES):
+            X, Y, Z = shape
+            u, v, w = rand_fields(shape, seed=300 + si, dtype=BF16)
+            p = bf16_params(Z, coef)
+            tag = f"bf16 {shape} {coef} coefficients"
+            for T in (1, 2, 3, 4):
+                full = K.advect_fused(u, v, w, p, T=T, dt=DT)
+                torch.cuda.synchronize()
+                check(all(o.dtype == BF16 for o in full)
+                      and same(full, plain_fused(u, v, w, p, T)),
+                      f"35 K1 == plain, {tag} T={T}")
+                for y_tile in (4, 5, 7):
+                    check(same(K.advect_fused(u, v, w, p, T=T, dt=DT,
+                                              y_tile=y_tile), full),
+                          f"35 K1 tiled == untiled, {tag} T={T} "
+                          f"y_tile={y_tile}")
+            check(same(K.advect_fused(u, v, w, p, T=10, dt=DT, y_tile=5),
+                       plain_fused(u, v, w, p, 10)),
+                  f"35 K1 T=10 as passes {K.fused_passes(10)} == plain, "
+                  f"{tag}")
+            xm = torch.ones(X, device="cuda")
+            xm[:2] = 0.0
+            ym = torch.ones(Y, device="cuda")
+            ym[Y // 2:] = 0.0
+            masked = K.advect_fused(u, v, w, p, T=3, dt=DT, x_interior_mask=xm,
+                                    y_interior_mask=ym, y_tile=4)
+            check(same(masked, plain_fused(u, v, w, p, 3, xm, ym)),
+                  f"35 K1 masked tiled == plain masked, {tag}")
+            gu, gv, gw, flags = K.advect_fused(u, v, w, p, T=2, dt=DT,
+                                               guard=True)
+            check(same((gu, gv, gw), K.advect_fused(u, v, w, p, T=2, dt=DT))
+                  and flags.dtype == torch.float32
+                  and bool((flags == 1.0).all()),
+                  f"35 K1 guarded == unguarded, f32 flags all 1, {tag}")
+            for fu in (False, True):
+                plain = K._advect_rung_plain(u, v, w, p, fu, DT)
+                kw = dict(fuse_update=fu, dt=DT)
+                rtag = f"{tag} fuse_update={fu}"
+                for name in BF16_RUNGS:
+                    if name == "advect_wide" and Z % 8:
+                        continue
+                    fn = getattr(K, name)
+                    got = fn(u, v, w, p, **kw)
+                    check(all(o.dtype == BF16 for o in got)
+                          and same(got, plain),
+                          f"35 {name} own plan == plain, {rtag}")
+                    for y_tile in (3, 4, 5):
+                        check(same(fn(u, v, w, p, y_tile=y_tile, **kw),
+                                   plain),
+                              f"35 {name} tiled == untiled, {rtag} "
+                              f"y_tile={y_tile}")
+                    for x_chunk in (1, 3):
+                        got = K._advect_rung_cuda(name, u, v, w, p, 4, fu,
+                                                  DT, x_chunk=x_chunk)
+                        check(same(got, plain), f"35 {name} x-chunks of "
+                              f"{x_chunk} == plain, {rtag}")
+                    if name != "advect_wide":
+                        check(same(fn(u, v, w, p, y_tile=4, tiling="host",
+                                      **kw), plain),
+                              f"35 {name} host == grid, {rtag}")
+    bf16_batched_phase(check)
+    bf16_guard_phase(check)
+    # fields 2 bytes past an allocation: the 1-cell rungs copy cell by cell
+    shape = (5, 9, 12)
+    u, v, w = rand_fields(shape, seed=320, dtype=BF16)
+    p = bf16_params(12, "bf16")
+    bufs = [torch.empty(math.prod(shape) + 1, device="cuda", dtype=BF16)
+            for _ in range(3)]
+    off = [b[1:].view(shape) for b in bufs]
+    for o, f in zip(off, (u, v, w)):
+        o.copy_(f)
+    for name in ("advect_blocked", "advect_dataflow"):
+        got = getattr(K, name)(*off, p, fuse_update=True, dt=DT)
+        check(same(got, K._advect_rung_plain(u, v, w, p, True, DT)),
+              f"35 {name} bf16 on fields 2 bytes past an allocation == "
+              f"plain")
+    try:
+        K.advect_wide(u, v, w, p)
+        refused = False
+    except ValueError as err:
+        refused = "Z % 8" in str(err)
+    check(refused, "35 bf16 wide refuses Z = 12 (24 B rows), naming Z % 8")
+    try:
+        K.stencil_fused([u, v, w], p, SP.pw_advection_spec("euler"), T=1)
+        refused = False
+    except NotImplementedError as err:
+        refused = "next slice" in str(err)
+    check(refused, "35 K6 refuses bf16 fields, naming the next slice")
+
+
+def bf16_batched_phase(check: Checks) -> None:
+    """K5 on bf16 slots: per-slot bf16 (and f32) coefficients and masks, a
+    smaller request padded into slot 2, == sequential and == plain."""
+    B, X, Y, Z, T = 3, 5, 17, 16, 2
+    Xr, Yr = 4, 11
+    fields = [rand_fields((X, Y, Z), seed=330 + b, dtype=BF16)
+              for b in range(B)]
+    for f in fields[2]:
+        f[Xr:] = 0.0
+        f[:, Yr:] = 0.0
+    u, v, w = (torch.stack([fl[i] for fl in fields]) for i in range(3))
+    xm = torch.ones(B, X, device="cuda")
+    ym = torch.ones(B, Y, device="cuda")
+    xm[1, 2] = 0.0
+    ym[0, 5:9] = 0.0
+    xm[2] = (torch.arange(X, device="cuda") <= Xr - 2).float()
+    xm[2, 0] = 0.0
+    ym[2] = ((torch.arange(Y, device="cuda") >= 1)
+             & (torch.arange(Y, device="cuda") <= Yr - 2)).float()
+    for coef in ("f32", "bf16"):
+        base = bf16_params(Z, coef)
+        scale = torch.tensor([1.0, 1.5, 0.5], device="cuda",
+                             dtype=base.tcx.dtype)
+        p = REF.AdvectParams(base.tcx * scale, base.tcy * scale,
+                             base.tzc1[None] * scale[:, None], base.tzc2)
+        for y_tile in (None, 5):
+            out = K.advect_fused_batched(u, v, w, p, T=T, dt=DT,
+                                         y_tile=y_tile, x_interior_mask=xm,
+                                         y_interior_mask=ym)
+            seq = all(same([o[b] for o in out], K.advect_fused(
+                u[b], v[b], w[b], slot_params(p, b), T=T, dt=DT,
+                y_tile=y_tile, x_interior_mask=xm[b], y_interior_mask=ym[b]))
+                for b in range(B))
+            plain = K._advect_fused_plain(u, v, w,
+                                          K._slot_params(p, B, Z, "cuda"),
+                                          T, DT, xm, ym)
+            alone = K.advect_fused(*(f[2, :Xr, :Yr].contiguous()
+                                     for f in (u, v, w)), slot_params(p, 2),
+                                   T=T, dt=DT)
+            check(seq and same(out, plain)
+                  and same([o[2, :Xr, :Yr] for o in out], alone),
+                  f"35 K5 bf16, per-slot {coef} coefficients, y_tile="
+                  f"{y_tile}: batched == sequential == plain, the padded "
+                  f"request == its unpadded run")
+
+
+def bf16_guard_phase(check: Checks) -> None:
+    """K4 on bf16 fields: clean, and with a NaN and an inf planted, on the
+    16-byte path and the 1-cell path, batched too."""
+    X, Y, Z = 8, 16, 64
+    u, v, w = rand_fields((X, Y, Z), seed=340, dtype=BF16)
+    clean = K.finite_guard(u, v, w)
+    check(torch.equal(clean, K._finite_guard_plain(u, v, w))
+          and clean.dtype == torch.float32 and bool((clean == 1.0).all()),
+          "35 K4 bf16 clean: f32 flags all 1 == plain")
+    bad = [f.clone() for f in (u, v, w)]
+    bad[0][2, 3, 5] = float("nan")
+    bad[2][5, 0, 0] = float("inf")
+    bad[1][7, 15, 63] = float("-inf")
+    got = K.finite_guard(*bad)
+    check(torch.equal(got, K._finite_guard_plain(*bad))
+          and got.tolist() == [1.0, 1.0, 0.0, 1.0, 1.0, 0.0, 1.0, 0.0],
+          "35 K4 bf16 with NaN and inf planted == plain")
+    stacked = [torch.stack([f, g, f]) for f, g in zip((u, v, w), bad)]
+    check(torch.equal(K.finite_guard(*stacked),
+                      K._finite_guard_plain(*stacked)),
+          "35 K4 bf16 batched == plain")
+    odd = [f[:, :15, :61].contiguous() for f in bad]   # Y*Z % 8 != 0
+    check(torch.equal(K.finite_guard(*odd), K._finite_guard_plain(*odd)),
+          "35 K4 bf16 on the 1-cell path == plain")
+
+
+def bf16_main_path_phase(check: Checks):
+    """Phase 36: `AdvectionDomain(67M, fused, dtype="bfloat16")
+    .advance(16)` and K4, counted; == plain bitwise, within the bound of
+    the f64 oracle, edges frozen."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    dom = AdvectionDomain(X, Y, Z, variant="fused", fuse_T=MAIN_T, dt=DT,
+                          device="cuda", dtype="bfloat16")
+    u0, v0, w0 = dom.init(seed=0)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = dom.advance(u0, v0, w0, MAIN_SUBSTEPS)
+    flags = K.finite_guard(*out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    plan = K.fused_device_plan("cuda:0", X, Y, Z, MAIN_T, dtype=BF16,
+                               coef=True)
+    a = K.fused_kernel_attrs("cuda:0", MAIN_T, plan, dtype=BF16, coef=True)
+    print(f"bf16 main path: {MAIN_GRID} grid {(X, Y, Z)} bf16 fields and "
+          f"coefficients, advance({MAIN_SUBSTEPS}) with fuse_T={MAIN_T}; K1 "
+          f"plan TY={plan.TY}, CX={plan.CX}, {plan.grid[0]} blocks of "
+          f"{plan.threads} threads, {plan.shared_bytes} B shared, "
+          f"{a['registers']} registers, {a['local_bytes']} B spilled, "
+          f"{a['blocks_per_sm']} resident per SM; wall {wall:.3f} s; "
+          f"launches {launches}", flush=True)
+    for name, n in launches.items():
+        want = {"advect_fused": MAIN_SUBSTEPS // MAIN_T,
+                "finite_guard": 1}.get(name, 0)
+        check(n == want, f"36 bf16 main path: {name} launched {n} times "
+              f"({want} expected)")
+    check(all(o.dtype == BF16 and o.shape == (X, Y, Z)
+              and bool(torch.isfinite(o).all()) for o in out)
+          and bool((flags == 1.0).all()),
+          "36 bf16 outputs finite bf16 of shape (X, Y, Z), flags all 1")
+    for f0, fT in zip((u0, v0, w0), out):
+        check(frozen_edges(f0, fT), "36 bf16 boundary planes unchanged")
+    plain = plain_fused(u0, v0, w0, dom.params, MAIN_SUBSTEPS)
+    k1_err = max(float((a - b).float().abs().max())
+                 for a, b in zip(out, plain))
+    check(k1_err == 0.0, f"36 bf16 main path == plain version, bitwise "
+          f"({k1_err})")
+    del plain
+    k4_err = float((flags - K._finite_guard_plain(*out)).abs().max())
+    check(k4_err == 0.0, "36 bf16 guard flags == plain flags")
+    oracle, cell_bounds = REF.pw_multistep_bf16_bound(
+        u0, v0, w0, dom.params, MAIN_SUBSTEPS, DT)
+    err = max(float((o.double() - r).abs().max())
+              for o, r in zip(out, oracle))
+    bound = bf16_oracle_bound(oracle, MAIN_SUBSTEPS)
+    moved = max(float((a.double() - r).abs().max())
+                for a, r in zip((u0, v0, w0), oracle))
+    print(f"bf16 main path against the f64 oracle: max |err| {err:.6f}, "
+          f"bound {bound:.6f} (1.1 x {MAIN_SUBSTEPS} x 2^-8 x max |f|); the "
+          f"oracle moved the fields by up to {moved:.6f}, so a no-op "
+          f"{'passes' if moved <= bound else 'fails'} this bound",
+          flush=True)
+    check(err <= bound, f"36 bf16 main path within {bound:.6f} of the f64 "
+          f"oracle ({err:.6f})")
+    cell_gate(check, "36 bf16 main path", out, (u0, v0, w0), oracle,
+              cell_bounds)
+    del oracle, cell_bounds
+    changed = sum(int((a != b).sum()) for a, b in zip(out, (u0, v0, w0)))
+    print(f"bf16 main path: {changed} of {3 * X * Y * Z} cells changed over "
+          f"advance({MAIN_SUBSTEPS}) (an update below half a bf16 ulp of its "
+          f"cell rounds away)", flush=True)
+    check(changed > 0, "36 the bf16 fields moved")
+    return dom, (u0, v0, w0), out, launches, k1_err, k4_err
+
+
+def bf16_resolved_phase(check: Checks) -> None:
+    """Phase 36, at `BF16_RESOLVED_DT`: a bf16 domain at the 67M grid on
+    normal fields, one K1 pass (T = 4) where most updates exceed half a bf16
+    ulp of their cell, == plain bitwise and within the per-cell bound of the
+    f64 oracle, which a no-op breaks in most cells."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    dom = AdvectionDomain(X, Y, Z, variant="fused", fuse_T=MAIN_T,
+                          dt=BF16_RESOLVED_DT, device="cuda",
+                          dtype="bfloat16")
+    fields = rand_fields((X, Y, Z), seed=350, dtype=BF16)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    out = dom.advance(*fields, MAIN_T)
+    torch.cuda.synchronize()
+    tag = f"36 bf16 at dt={BF16_RESOLVED_DT}"
+    check(dict(K.LAUNCHES).get("advect_fused") == 1,
+          f"{tag}: K1 launched once, one pass ({dict(K.LAUNCHES)})")
+    plain = plain_fused(*fields, dom.params, MAIN_T, dt=BF16_RESOLVED_DT)
+    check(same(out, plain), f"{tag}: == plain version, bitwise")
+    del plain
+    oracle, bounds = REF.pw_multistep_bf16_bound(
+        *fields, dom.params, MAIN_T, BF16_RESOLVED_DT)
+    cell_gate(check, tag, out, fields, oracle, bounds)
+    changed = sum(int((a != b).sum()) for a, b in zip(out, fields))
+    print(f"{tag}: {changed} of {3 * X * Y * Z} cells changed", flush=True)
+
+
+def bf16_ladder_phase(check: Checks, fields):
+    """Phase 37: each rung through a bf16 domain at the 67M grid, with and
+    without `fuse_update`, advance(4), counted, == plain bitwise."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    u0, v0, w0 = fields
+    results = {}
+    for name, variant in BF16_RUNGS.items():
+        errs = []
+        for fu in (False, True):
+            dom = AdvectionDomain(X, Y, Z, variant=variant, fuse_update=fu,
+                                  dt=DT, device="cuda", dtype="bfloat16")
+            plain = (u0, v0, w0)
+            for _ in range(LADDER_SUBSTEPS):
+                s = K._advect_rung_plain(*plain, dom.params, fu, DT)
+                plain = s if fu else tuple(K._euler(f, si, DT) for f, si
+                                           in zip(plain, s))
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            out = dom.advance(u0, v0, w0, LADDER_SUBSTEPS)
+            torch.cuda.synchronize()
+            launches = dict(K.LAUNCHES)
+            tag = f"bf16 {variant} fuse_update={fu}"
+            rp = K.rung_device_plan("cuda:0", name, X, Y, Z, dom.run_y_tile,
+                                    dtype=BF16, coef=True)
+            a = K.rung_kernel_attrs("cuda:0", name, rp, dtype=BF16, coef=True)
+            print(f"bf16 ladder path: {tag}, y_tile={dom.run_y_tile}, plan "
+                  f"TY={rp.TY}, CX={rp.CX}, {rp.threads} threads, "
+                  f"{rp.shared_bytes} B shared, {a['registers']} registers, "
+                  f"{a['local_bytes']} B spilled, {a['blocks_per_sm']} "
+                  f"resident per SM; launches {launches}", flush=True)
+            check(all((n == LADDER_SUBSTEPS) if k == name else n == 0
+                      for k, n in launches.items()),
+                  f"37 {tag}: {name} launched {LADDER_SUBSTEPS} times, no "
+                  f"other kernel")
+            err = max(float((a - b).float().abs().max())
+                      for a, b in zip(out, plain))
+            check(err == 0.0, f"37 {tag}: == plain version, bitwise ({err})")
+            check(all(frozen_edges(f0, fT) for f0, fT in zip(fields, out)),
+                  f"37 {tag}: boundary planes unchanged")
+            errs.append(err)
+            del out, plain
+        results[name] = (launches[name], max(errs))
+    return results
+
+
+def bf16_serving_phase(check: Checks, card: str) -> list:
+    """Phase 38: the serving tier on bf16 slots of `SERVE_PAPER_SLOT`,
+    clean and under `SERVE_FAULT_PLAN`, with disk snapshots: K5 and K4 once
+    a mega-step, batched == sequential and rolled back == clean, bitwise;
+    K4 over the batch; then K5's times."""
+    X, Y, Z = SERVE_PAPER_SLOT
+    dom = AdvectionDomain(X, Y, Z, variant="fused", fuse_T=MAIN_T,
+                          dt=STENCIL_DT, device="cuda", dtype="bfloat16")
+    reqs = paper_requests(X, Y, Z)
+    shutil.rmtree(BF16_SNAPSHOTS, ignore_errors=True)
+    try:
+        eng, done, launches, wall = serving_case(
+            check, f"38 bf16 paper-size slots {(X, Y, Z)}, disk snapshots",
+            dom, reqs, SERVE_BATCH, snapshot_dir=BF16_SNAPSHOTS)
+        written = sorted(p.name for p in BF16_SNAPSHOTS.glob("*/step_*"))
+    finally:
+        shutil.rmtree(BF16_SNAPSHOTS, ignore_errors=True)
+    check(bool(written), f"38 bf16 snapshots written to disk ({written})")
+    check(all(r.out is None or r.out[0].dtype == np.float32
+              for r in done.values()),
+          "38 bf16 outputs come back as float32 arrays of the bf16 values")
+    eng = primed(dom, reqs, SERVE_BATCH)
+    step = eng.cache.get(eng._step_key(), eng._build_step)
+    args = (eng.u, eng.v, eng.w, REF.AdvectParams(*eng._p), eng.xm, eng.ym)
+
+    def k5():
+        return K.advect_fused_batched(
+            eng.u, eng.v, eng.w, REF.AdvectParams(*eng._p), T=dom.fuse_T,
+            dt=dom.dt, x_interior_mask=eng.xm, y_interior_mask=eng.ym)
+
+    ps = K._slot_params(REF.AdvectParams(*eng._p), SERVE_BATCH, Z, eng.device)
+    plain = K._advect_fused_plain(eng.u, eng.v, eng.w, ps, dom.fuse_T,
+                                  dom.dt, eng.xm, eng.ym)
+    err = max(float((a - b).float().abs().max())
+              for a, b in zip(k5(), plain))
+    del plain
+    check(err == 0.0, f"38 K5 bf16 at {SERVE_BATCH} x {(X, Y, Z)} == plain, "
+          f"bitwise")
+    guard_case(check, "38 bf16 paper-size slots", primed(dom, reqs,
+                                                         SERVE_BATCH))
+    k5_ms = time_ms(k5)
+    mega_ms = time_ms(lambda: step(*args))
+    k5_dev, seen = device_per_launch(k5, "advect_ring_kernel")
+    plain_ms = time_ms(lambda: K._advect_fused_plain(
+        eng.u, eng.v, eng.w, ps, dom.fuse_T, dom.dt, eng.xm, eng.ym),
+        runs=3, warmup=1)
+    B, cells = SERVE_BATCH, SERVE_BATCH * X * Y * Z
+    nbytes = 6 * cells * 2 + B * (2 + 2 * Z) * 4 + B * (X + Y) * 4
+    live = sum(int((eng.xm[b] > 0).sum()) * int((eng.ym[b] > 0).sum())
+               for b in range(B)) * (Z - 2)
+    ops = dom.fuse_T * live * (REF.flops_per_cell() + 6)
+    rec = kernel_record("advect_fused", k5_ms, plain_ms, nbytes, ops,
+                        launches["advect_fused"], err, BF16_PEAK)
+    rec.update(name="advect_fused_batched_bf16",
+               replaces=REPLACES["advect_fused_batched"],
+               device_ms=k5_dev if k5_dev > 0 else None)
+    print(f"bf16 stencil serving at {B} x {(X, Y, Z)}: K5 {k5_ms:.4f} ms by "
+          f"events, device {device_text(k5_dev)} ({seen} of 10 seen), "
+          f"{rec['bound_ms'] / k5_dev if k5_dev > 0 else 0.0:.4f} of the "
+          f"bound by device; the mega-step (K5 + K4) {mega_ms:.4f} ms; "
+          f"run() {wall:.4f} s for {len(done)} jobs; card {card}",
+          flush=True)
+    return [rec]
+
+
+def bf16_timing_phase(check: Checks, dom, fields, out, launches, k1_err,
+                      k4_err, ladder, card: str) -> list:
+    """Phase 39: each bf16 kernel at the 67M grid by events and device
+    time, beside its bound, plain time, registers and spills."""
+    X, Y, Z = dom.X, dom.Y, dom.Z
+    u, v, w = fields
+    p, T, cells = dom.params, dom.fuse_T, X * Y * Z
+    ones_x = torch.ones(X, device="cuda")
+    ones_y = torch.ones(Y, device="cuda")
+    src_ops = (X - 2) * (Y - 2) * (Z - 2) * REF.flops_per_cell()
+
+    def k1():
+        return K.advect_fused(u, v, w, p, T=T, dt=DT)
+
+    k1_ms = time_ms(k1)
+    k1_dev, k1_seen = device_per_launch(k1, "advect_ring_kernel")
+    k1_plain = time_ms(lambda: K._advect_fused_plain(
+        u[None], v[None], w[None], p, T, DT, ones_x, ones_y), runs=5)
+    k1_bytes = 6 * cells * 2 + 2 * (Z + 2) * 4 + (X + Y) * 4
+    k1_ops = T * (src_ops + 6 * cells)
+    k4_ms = time_ms(lambda: K.finite_guard(*out))
+    k4_dev, k4_seen = device_per_launch(lambda: K.finite_guard(*out),
+                                        "finite_guard")
+    k4_plain = time_ms(lambda: K._finite_guard_plain(*out))
+    k4_bytes = R.guard_bytes_model(X, Y, Z, itemsize=2)
+    records = []
+    for name, ms, dev, seen, plain_ms, nbytes, ops, peak, n, err in (
+            ("advect_fused", k1_ms, k1_dev, k1_seen, k1_plain, k1_bytes,
+             k1_ops, BF16_PEAK, launches["advect_fused"], k1_err),
+            ("finite_guard", k4_ms, k4_dev, k4_seen, k4_plain, k4_bytes,
+             3 * cells, R.PEAK_FLOPS_F32, launches["finite_guard"], k4_err)):
+        rec = kernel_record(name, ms, plain_ms, nbytes, ops, n, err, peak)
+        rec.update(name=name + "_bf16", device_ms=dev if dev > 0 else None)
+        print(f"{name} bf16 at {(X, Y, Z)}: device {device_text(dev)} a "
+              f"launch ({seen} of 10 seen), "
+              f"{rec['bound_ms'] / dev if dev > 0 else 0.0:.4f} of the bound "
+              f"by device; card {card}", flush=True)
+        records.append(rec)
+    plan = K.fused_device_plan("cuda:0", X, Y, Z, T, dtype=BF16, coef=True)
+    for coef in (False, True):
+        a = K.fused_kernel_attrs("cuda:0", T, plan, dtype=BF16, coef=coef)
+        print(f"K1 bf16 build T={T} C={plan.cells_per_thread} "
+              f"({'bf16' if coef else 'f32'} coefficients): "
+              f"{a['registers']} registers, {a['local_bytes']} B spilled, "
+              f"{a['blocks_per_sm']} resident per SM", flush=True)
+    rung_bytes = 6 * cells * 2 + (2 + 2 * Z) * 4
+    rung_plain = time_ms(lambda: K._advect_rung_plain(u, v, w, p, True, DT),
+                         runs=5)
+    for name in BF16_RUNGS:
+        fn = getattr(K, name)
+
+        def call():
+            return fn(u, v, w, p, fuse_update=True, dt=DT)
+
+        ms = time_ms(call)
+        dev, seen = device_per_launch(call, RUNG_KERNEL[name])
+        rp = K.rung_device_plan("cuda:0", name, X, Y, Z, dtype=BF16,
+                                coef=True)
+        a = K.rung_kernel_attrs("cuda:0", name, rp, dtype=BF16, coef=True)
+        n, err = ladder[name]
+        rec = kernel_record(name, ms, rung_plain, rung_bytes,
+                            src_ops + 6 * cells, n, err, BF16_PEAK)
+        rec.update(name=name + "_bf16", device_ms=dev if dev > 0 else None)
+        print(f"{name} bf16 fuse_update=True on its own plan (TY={rp.TY}, "
+              f"CX={rp.CX}, {rp.threads} threads, {rp.shared_bytes} B, "
+              f"{a['registers']} registers, {a['local_bytes']} B spilled, "
+              f"{a['blocks_per_sm']} resident per SM): {ms:.4f} ms by "
+              f"events, device {device_text(dev)} ({seen} of 10 seen), "
+              f"{rec['bound_ms'] / dev if dev > 0 else 0.0:.4f} of the bound "
+              f"by device; card {card}", flush=True)
+        records.append(rec)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dom.advance(u, v, w, MAIN_SUBSTEPS)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"bf16 main path: advance({MAIN_SUBSTEPS}) "
+          f"{statistics.median(walls):.4f} ms of wall time (median of 5); "
+          f"card {card}", flush=True)
+    return records
+
+
+def bf16_phases(check: Checks, card: str) -> list:
+    """Phases 35-39: the bf16 PW path."""
+    phase("35 bf16 small shapes", bf16_small_phase, check)
+    dom, fields, out, launches, k1_err, k4_err = phase(
+        "36 bf16 main path", bf16_main_path_phase, check)
+    phase("36 bf16 resolved dt", bf16_resolved_phase, check)
+    ladder = phase("37 bf16 ladder path", bf16_ladder_phase, check, fields)
+    records = phase("39 bf16 timing", bf16_timing_phase, check, dom, fields,
+                    out, launches, k1_err, k4_err, ladder, card)
+    del dom, fields, out
+    torch.cuda.empty_cache()
+    records += phase("38 bf16 stencil serving", bf16_serving_phase, check,
+                     card)
+    torch.cuda.empty_cache()
+    return records
+
+
 def phase(label: str, fn, *args, **kw):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -4694,10 +5304,10 @@ def main() -> int:
                                      ["k8"], ["k9"], ["stencil_serving"],
                                      ["distributed_spec"], ["recovery"],
                                      ["families"], ["train"],
-                                     ["analysis"]):
+                                     ["analysis"], ["bf16"]):
         print("usage: chip_smoke.py [--only distributed|ladder|k6|k8|k9|"
               "stencil_serving|distributed_spec|recovery|families|train|"
-              "analysis]", file=sys.stderr)
+              "analysis|bf16]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -4743,6 +5353,8 @@ def main() -> int:
         return finish(check, [], card, t0)
     if only == ["analysis"]:
         return finish(check, analysis_phases(check, card), card, t0)
+    if only == ["bf16"]:
+        return finish(check, bf16_phases(check, card), card, t0)
     if only:
         return finish(check, distributed_only(check, card), card, t0)
     phase("1 small shapes", small_shape_phase, check)
@@ -4775,6 +5387,7 @@ def main() -> int:
     records += phase("19-20 stencil serving", stencil_serving_phases, check,
                      card)
     torch.cuda.empty_cache()
+    records += bf16_phases(check, card)
     analysis_phases(check, card)
     torch.cuda.empty_cache()
     cfg, params, k8_launches = phase(

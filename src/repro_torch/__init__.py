@@ -5,7 +5,7 @@ The JAX package `repro` is the reference; this package never imports it
 `stencil.advection.AdvectionDomain(variant="fused")` ->
 `kernels.advection.ops.pw_advect_fused` -> `kernels.advection.advection.
 advect_fused`, which launches the hand-written CUDA ring kernel in
-`csrc/advect_fused.cu`; `finite_guard` launches `csrc/finite_guard.cu`;
+`csrc/advect_fused.cuh`; `finite_guard` launches `csrc/finite_guard.cu`;
 the other ladder rungs launch `csrc/advect_blocked.cu` and
 `csrc/advect_dataflow.cu`. The stencil-spec frontend (`stencil.spec`)
 drives `kernels.advection.advection.stencil_fused`, which launches

@@ -32,11 +32,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
-SOURCES = ("advect_fused.cu", "finite_guard.cu", "advect_blocked.cu",
+SOURCES = ("advect_fused.cu", "advect_fused_bf16.cu",
+           "advect_fused_bf16_coef.cu", "finite_guard.cu",
+           "advect_blocked.cu",
            "advect_dataflow.cu", "stencil_fused.cu", "flash_attention.cu",
            "flash_attention_tc.cu", "selective_scan.cu", "band_exchange.cu")
-HEADERS = ("pw_source.cuh", "stencil_ops.cuh")
-# K1 (`csrc/advect_fused.cu`) is built for T in 1..K1_MAX_T, by cells per
+HEADERS = ("advect_fused.cuh", "cells.cuh", "pw_source.cuh",
+           "stencil_ops.cuh")
+# K1 (`csrc/advect_fused.cuh`) is built for T in 1..K1_MAX_T, by cells per
 # thread: the threads per block each build runs (its launch bound). The
 # flags below hand both to the source; its launch planner reads them here.
 K1_MAX_T = 8
@@ -73,11 +76,20 @@ _P, _I, _F, _LL, _ULL, _SZ = (ctypes.c_void_p, ctypes.c_int,
 SIGNATURES = {
     "advect_fused_f32": [_P] * 9 + [_I] * 19 + [_F, _SZ, _P],
     "advect_fused_attrs": [_I, _I, _I, _SZ, _P],
+    "advect_fused_bf16": [_P] * 9 + [_I] * 19 + [_F, _SZ, _P],
+    "advect_fused_bf16_attrs": [_I, _I, _I, _SZ, _P],
+    "advect_fused_bf16_coef": [_P] * 9 + [_I] * 19 + [_F, _SZ, _P],
+    "advect_fused_bf16_coef_attrs": [_I, _I, _I, _SZ, _P],
     "finite_guard_f32": [_P] * 4 + [_I, _I, _LL, _I, _P],
+    "finite_guard_bf16": [_P] * 4 + [_I, _I, _LL, _I, _P],
     "advect_blocked_f32": [_P] * 7 + [_I] * 9 + [_F, _SZ, _P],
     "advect_blocked_attrs": [_I, _SZ, _P],
+    "advect_blocked_bf16": [_P] * 7 + [_I] * 10 + [_F, _SZ, _P],
+    "advect_blocked_bf16_attrs": [_I, _I, _SZ, _P],
     "advect_dataflow_f32": [_P] * 7 + [_I] * 11 + [_F, _SZ, _P],
     "advect_dataflow_attrs": [_I, _I, _SZ, _P],
+    "advect_dataflow_bf16": [_P] * 7 + [_I] * 12 + [_F, _SZ, _P],
+    "advect_dataflow_bf16_attrs": [_I, _I, _I, _SZ, _P],
     "stencil_fused_f32": ([_I] * 2 + [_P] * 9 + [_I, _P, _P] + [_I] * 18
                           + [_F, _SZ, _P]),
     "stencil_fused_attrs": [_I] * 5 + [_SZ, _P],

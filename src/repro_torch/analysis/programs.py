@@ -13,12 +13,12 @@ tensors, `chip_smoke.py`'s phases 32-34 at the paper's sizes on the card,
 and the tests at probe sizes.
 
 The programs: `advance` (`AdvectionDomain.advance` on K1, then K4 over the
-result: the main path), `grid_tiled` (K1 at a given y_tile), `ladder` (K3,
-K2 and K2 wide; linted, not priced: the blocked rung re-reads its slices
-inside the kernel), `distributed` (a (2, 2) loopback
+result: the main path; `advance_bf16` on a bf16 domain), `grid_tiled` (K1
+at a given y_tile), `ladder` (K3, K2 and K2 wide, f32 or bf16; linted, not
+priced: the blocked rung re-reads its slices inside the kernel), `distributed` (a (2, 2) loopback
 `make_distributed_run`: K1 with either exchange, K6 with the collective
 one, verified or not), `serving` (the stencil serving engine's mega-step,
-K5 then K4 over B slots), `spec_path` (K6, one call per shipped operator x
+K5 then K4 over B slots; `serving_bf16` on bf16 slots), `spec_path` (K6, one call per shipped operator x
 integrator pair), `attention` (K8) and `scan` (K9).
 """
 from __future__ import annotations
@@ -73,43 +73,52 @@ def place(tree, device):
     return tree
 
 
-def _fields(shape, n: int = 3, seed: int = 0):
-    """`n` float32 fields on the CPU: normal draws from `seed`, or in a
+def _fields(shape, n: int = 3, seed: int = 0, dtype=torch.float32):
+    """`n` fields of `dtype` on the CPU: normal draws from `seed`, or in a
     trace (whose values are never read) fake tensors."""
     if TR._ACTIVE:
-        return tuple(torch.empty(shape) for _ in range(n))
+        return tuple(torch.empty(shape, dtype=dtype) for _ in range(n))
     g = torch.Generator().manual_seed(seed)
-    return tuple(torch.randn(shape, generator=g) for _ in range(n))
+    return tuple(torch.randn(shape, generator=g).to(dtype) for _ in range(n))
 
 
-def _fused_hbm(X, Y, Z, T, n_fields=3):
-    return K.hbm_bytes_model(X, Y, Z, 4, "fused", T=T, n_fields=n_fields)
+def _fused_hbm(X, Y, Z, T, n_fields=3, itemsize=4):
+    return K.hbm_bytes_model(X, Y, Z, itemsize, "fused", T=T,
+                             n_fields=n_fields)
+
+
+def _tag(dtype) -> str:
+    """A program name's dtype suffix: none for f32, "_bf16" for bf16."""
+    return "" if dtype == torch.float32 else "_bf16"
 
 
 # ---- the single-card paths ---------------------------------------------
 
 def advance_program(X: int, Y: int, Z: int, *, T: int = 4,
-                    n_substeps: int = 16, dt: float = 0.01) -> Program:
-    """`AdvectionDomain(variant="fused", fuse_T=T).advance(n_substeps)`,
-    then `finite_guard` over the result."""
+                    n_substeps: int = 16, dt: float = 0.01,
+                    dtype=torch.float32) -> Program:
+    """`AdvectionDomain(variant="fused", fuse_T=T, dtype=...)
+    .advance(n_substeps)`, then `finite_guard` over the result (f32 or
+    bf16 fields and coefficients: "advance" or "advance_bf16")."""
     from repro_torch.stencil.advection import AdvectionDomain
     passes = n_substeps // T
+    item = K._itemsize(dtype)
 
     def build(device):
         dom = AdvectionDomain(X, Y, Z, variant="fused", fuse_T=T, dt=dt,
-                              device="cpu")
+                              device="cpu", dtype=str(dtype).split(".")[-1])
         object.__setattr__(dom, "device", device)
         object.__setattr__(dom, "params", place(dom.params, device))
-        fields = place(_fields((X, Y, Z)), device)
+        fields = place(_fields((X, Y, Z), dtype=dtype), device)
 
         def fn(u, v, w):
             out = dom.advance(u, v, w, n_substeps)
             return out, K.finite_guard(*out)
         return fn, fields
 
-    parts = R.guard_bytes_model_parts(X, Y, Z)
-    return Program("advance", build, {
-        "pallas_hbm": passes * _fused_hbm(X, Y, Z, T),
+    parts = R.guard_bytes_model_parts(X, Y, Z, itemsize=item)
+    return Program("advance" + _tag(dtype), build, {
+        "pallas_hbm": passes * _fused_hbm(X, Y, Z, T, itemsize=item),
         "guard_field_reads": parts["field_reads"],
         "guard_flag_words": parts["flag_words"]},
         launches={"advect_fused": passes * len(K.fused_passes(T)),
@@ -132,25 +141,26 @@ def grid_tiled_program(X: int, Y: int, Z: int, *, T: int = 4,
                    launches={"advect_fused": passes})
 
 
-def ladder_program(X: int, Y: int, Z: int, *, dt: float = 0.01) -> Program:
-    """K3, K2 and K2 `wide`, one Euler step each (`fuse_update`): linted,
-    not priced (no claims)."""
+def ladder_program(X: int, Y: int, Z: int, *, dt: float = 0.01,
+                   dtype=torch.float32) -> Program:
+    """K3, K2 and K2 `wide`, one Euler step each (`fuse_update`), on fields
+    and coefficients of `dtype`: linted, not priced (no claims)."""
     def build(device):
-        p = place(REF.default_params(Z, device="cpu"), device)
+        p = place(REF.default_params(Z, dtype=dtype, device="cpu"), device)
 
         def fn(u, v, w):
             return tuple(rung(u, v, w, p, fuse_update=True, dt=dt)
                          for rung in (K.advect_blocked, K.advect_dataflow,
                                       K.advect_wide))
-        return fn, place(_fields((X, Y, Z)), device)
+        return fn, place(_fields((X, Y, Z), dtype=dtype), device)
 
-    return Program("ladder", build, {},
+    return Program("ladder" + _tag(dtype), build, {},
                    launches={"advect_blocked": 1, "advect_dataflow": 1,
                              "advect_wide": 1})
 
 
 def serving_program(X: int, Y: int, Z: int, *, B: int = 4, T: int = 4,
-                    dt: float = 0.01) -> Program:
+                    dt: float = 0.01, dtype=torch.float32) -> Program:
     """One mega-step of `StencilServingEngine`, the engine `serve.py
     --stencil` runs: an engine of B (X, Y, Z) slots at depth T with a
     request admitted to each slot, and the step its launcher cache builds
@@ -159,20 +169,22 @@ def serving_program(X: int, Y: int, Z: int, *, B: int = 4, T: int = 4,
     That step is the counterpart of the reference's jitted mega-step;
     `_mega_step`'s host side (reading the flags back, the slot
     bookkeeping) is not recorded. A fake trace reads no values, so there
-    the slots stay empty: the step's ops do not depend on them."""
+    the slots stay empty: the step's ops do not depend on them. `dtype`:
+    the engine domain's (its slots and coefficients)."""
     from repro_torch.serving.stencil_engine import (StencilRequest,
                                                     StencilServingEngine)
     from repro_torch.stencil.advection import AdvectionDomain
+    item = K._itemsize(dtype)
 
     def build(device):
         dom = AdvectionDomain(X, Y, Z, variant="fused", fuse_T=T, dt=dt,
-                              device="cpu")
+                              device="cpu", dtype=str(dtype).split(".")[-1])
         object.__setattr__(dom, "device", device)
         object.__setattr__(dom, "params", place(dom.params, device))
         engine = StencilServingEngine(dom, batch_size=B)
         if not TR._ACTIVE:
             for slot in range(B):
-                u, v, w = _fields((X, Y, Z), seed=slot)
+                u, v, w = _fields((X, Y, Z), seed=slot, dtype=dtype)
                 engine._prime(slot, StencilRequest(slot, u, v, w, n_steps=1))
         step = engine.cache.get(engine._step_key(), engine._build_step)
 
@@ -181,9 +193,10 @@ def serving_program(X: int, Y: int, Z: int, *, B: int = 4, T: int = 4,
                         REF.AdvectParams(*engine._p), engine.xm, engine.ym)
         return fn, ()
 
-    parts = R.guard_bytes_model_parts(X, Y, Z, batch=B)
-    return Program("serving", build, {
-        "pallas_hbm": B * len(K.fused_passes(T)) * _fused_hbm(X, Y, Z, T),
+    parts = R.guard_bytes_model_parts(X, Y, Z, batch=B, itemsize=item)
+    return Program("serving" + _tag(dtype), build, {
+        "pallas_hbm": B * len(K.fused_passes(T)) * _fused_hbm(
+            X, Y, Z, T, itemsize=item),
         "guard_field_reads": parts["field_reads"],
         "guard_flag_words": parts["flag_words"]},
         launches={"advect_fused": len(K.fused_passes(T)),
@@ -345,8 +358,10 @@ def programs(small: bool = True) -> Tuple[Program, ...]:
     X, Y, Z = s["grid"]
     Xd, Yd, Zd = s["dist"]
     out = [advance_program(X, Y, Z),
+           advance_program(X, Y, Z, dtype=torch.bfloat16),
            grid_tiled_program(X, Y, Z, y_tile=4 if small else 64),
            serving_program(*s["serve"], B=4),
+           serving_program(*s["serve"], B=4, dtype=torch.bfloat16),
            spec_path_program(X, Y, Z)]
     for exchange in ("collective", "remote_dma"):
         out.append(distributed_program(Xd, Yd, Zd, exchange=exchange))

@@ -259,16 +259,19 @@ def plan_max_batch(X: int, Y: int, Z: int, *, itemsize: int = 4,
 
 def rung_plan(name: str, X: int, Y: int, Z: int, *,
               y_tile: Optional[int] = None, n_sm: int = H100_SMS,
-              blocks_per_sm: Optional[int] = None,
+              blocks_per_sm: Optional[int] = None, itemsize: int = 4,
               context: str = "") -> SmemPlan:
     """One launch of a v1-v3 rung (`rung_launch_plan`): 3 fields x the
-    kernel's planes of a slab of S x Z floats, at the blocks per SM its
+    kernel's planes of a slab of S x Z cells of `itemsize` bytes (2 for
+    bf16: cp.async stages the cells as stored), at the blocks per SM its
     tile aims at (`blocks_per_sm`, else the rung's own)."""
     per_sm = (K._RUNG_KNOBS[name].blocks_per_sm if blocks_per_sm is None
               else blocks_per_sm)
-    plan = K.rung_launch_plan(name, X, Y, Z, n_sm, per_sm, y_tile=y_tile)
+    plan = K.rung_launch_plan(name, X, Y, Z, n_sm, per_sm, y_tile=y_tile,
+                              itemsize=itemsize)
     buf = SmemBuffer(f"{name} slabs", plan.shared_bytes,
-                     f"3 fields x {plan.planes} planes of {plan.S} x {Z}")
+                     f"3 fields x {plan.planes} planes of {plan.S} x {Z} "
+                     f"cells of {itemsize} B")
     return SmemPlan((buf,), blocks_per_sm=min(per_sm, _fits(plan.shared_bytes)),
                     context=context)
 

@@ -7,8 +7,9 @@ statically, from the op records. Counterpart of
 Errors:
 
   align16        an operand base that is not 16-byte aligned where the
-                 kernel moves 16 bytes at a time: K2 `wide` (float4 loads
-                 and stores), K7 (its 16-byte path), K8's tensor-core
+                 kernel moves 16 bytes at a time: K2 `wide` (16-byte loads
+                 and stores of 4 f32 or 8 bf16 cells: a row of 2-byte cells
+                 is whole vectors at Z % 8 == 0, on a 16-byte base), K7 (its 16-byte path), K8's tensor-core
                  kernel (TMA) and K9 (`cp.async`). A base is its byte
                  offset into its allocation, whose blocks the caching
                  allocator starts 512-byte aligned.
@@ -172,10 +173,12 @@ def _check_rung(r, issues, n_sm, max_grid_points):
     from repro_torch.kernels.advection import advection as K
     name = ("advect_blocked" if r.op == "advect_blocked"
             else "advect_wide" if r.arg("wide") else "advect_dataflow")
-    X, Y, Z = r.arg("u").shape
+    u = r.arg("u")
+    X, Y, Z = u.shape
     plan = K.rung_launch_plan(name, X, Y, Z, n_sm,
                               K._RUNG_KNOBS[name].blocks_per_sm,
-                              y_tile=r.arg("y_tile") or None)
+                              y_tile=r.arg("y_tile") or None,
+                              itemsize=u.itemsize)
     for t, cx in _grid_points((plan.n_ty, plan.n_cx), max_grid_points):
         slab_lo, own, owned = K._rung_block_geometry(plan, X, Y, t, cx)
         if slab_lo < 0 or slab_lo + plan.S > Y or owned[0] >= X:

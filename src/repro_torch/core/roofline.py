@@ -24,6 +24,10 @@ from typing import Dict
 # NVIDIA H100 SXM, data sheet, not measured (dense rates, 700 W part)
 PEAK_FLOPS_BF16 = 989e12     # bf16 tensor-core FLOP/s
 PEAK_FLOPS_F32 = 67e12       # f32 FLOP/s outside the tensor cores
+# bf16 FLOP/s outside the tensor cores (two packed to an instruction; the
+# H100 architecture whitepaper's SXM5 figure): the rate of an op that
+# rounds to bf16, which gives the bits of the f32 op rounded to bf16
+PEAK_FLOPS_BF16_SIMT = 133.8e12
 HBM_BW = 3.35e12             # bytes/s
 HBM_PER_CHIP = 80 * 10**9    # 80 GB
 SMEM_PER_BLOCK = 232_448     # dynamic shared memory one block may use

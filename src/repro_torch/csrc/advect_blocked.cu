@@ -36,6 +36,12 @@
 // of device time there against this design's 0.85-0.88 in one call
 // (PERF.md) and is gone. Given a run of x (an explicit x chunk), a block
 // walks it one x at a time.
+//
+// bf16 fields (E = __nv_bfloat16): the stage holds 2-byte cells as
+// cp.async lands them (pairs of cells a 4-byte move), so its bytes halve,
+// and the plan (`rung_launch_plan` at itemsize 2) takes the tile for that.
+// The arithmetic rounds as pw_source.cuh says, with f32 or bf16
+// coefficients (CB).
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -45,13 +51,14 @@ namespace {
 
 constexpr int kMaxThreads = 512;
 
+template <typename E, bool CB>
 __global__ void __launch_bounds__(kMaxThreads, 2) advect_blocked_kernel(
-    const float* __restrict__ u, const float* __restrict__ v,
-    const float* __restrict__ w, float* __restrict__ ou,
-    float* __restrict__ ov, float* __restrict__ ow,
-    const float* __restrict__ params, int X, int Y, int Z, int TY, int S,
-    int L, int fuse, float dt) {
-  extern __shared__ __align__(16) float smem[];
+    const E* __restrict__ u, const E* __restrict__ v,
+    const E* __restrict__ w, E* __restrict__ ou, E* __restrict__ ov,
+    E* __restrict__ ow, const float* __restrict__ params, int X, int Y,
+    int Z, int TY, int S, int L, int fuse, float dt) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* smem = reinterpret_cast<E*>(smem_raw);
   const int x0 = blockIdx.x * L;
   const int x1 = min(x0 + L, X);
   const int t = blockIdx.y;
@@ -61,8 +68,8 @@ __global__ void __launch_bounds__(kMaxThreads, 2) advect_blocked_kernel(
   const int n_cells = min(TY, Y - own_lo) * Z;
   const size_t slice = (size_t)Y * Z;
   const int plane = S * Z;
-  const float* in[3] = {u, v, w};
-  float* const out[3] = {ou, ov, ow};
+  const E* in[3] = {u, v, w};
+  E* const out[3] = {ou, ov, ow};
   const RungParams pr = rung_params<1>(params, Z);
 
   // the nine slabs of output slice x: plane (f * 3 + k) holds field f at
@@ -74,14 +81,14 @@ __global__ void __launch_bounds__(kMaxThreads, 2) advect_blocked_kernel(
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
         const int xs = min(max(x + k - 1, 0), X - 1);
-        cp_async_plane<1>(smem + (size_t)(f * 3 + k) * plane,
+        cp_async_plane<E, 1>(smem + (size_t)(f * 3 + k) * plane,
                           in[f] + (size_t)xs * slice + (size_t)slab_lo * Z,
                           plane);
       }
     cp_async_commit();
     cp_async_wait(0);
     __syncthreads();
-    RungSlices sl;
+    RungSlices<E> sl;
 #pragma unroll
     for (int f = 0; f < 3; ++f)
 #pragma unroll
@@ -92,43 +99,35 @@ __global__ void __launch_bounds__(kMaxThreads, 2) advect_blocked_kernel(
     for (int k = threadIdx.x; k < n_cells; k += blockDim.x) {
       const int c = own_r0 * Z + k;
       const int r = c / Z;
-      rung_cells<1>(sl, c, c - r * Z, x_ok && r >= 1 && r <= S - 2, Z, pr,
-                    fuse != 0, dt, out, dst_off + k);
+      rung_cells<E, CB, 1>(sl, c, c - r * Z, x_ok && r >= 1 && r <= S - 2,
+                           Z, pr, fuse != 0, dt, out, dst_off + k);
     }
   }
 }
 
-}  // namespace
-
-// u, v, w, ou, ov, ow: (X, Y, Z) f32, contiguous. params: one row
-// [tcx, tcy, 0, 0, tzc1(Z), tzc2(Z)]. The plan (y-tile TY, slab S, n_ty
-// tiles, runs of L slices, `threads` per block) comes from the wrapper;
-// smem_bytes = 9 * S * Z * 4. Returns the cudaError_t of the attribute call
-// or of the launch.
-extern "C" int advect_blocked_f32(const float* u, const float* v,
-                                  const float* w, float* ou, float* ov,
-                                  float* ow, const float* params, int X,
-                                  int Y, int Z, int TY, int S, int n_ty,
-                                  int L, int threads, int fuse, float dt,
-                                  size_t smem_bytes, void* stream) {
+template <typename E, bool CB>
+int launch(const void* u, const void* v, const void* w, void* ou, void* ov,
+           void* ow, const float* params, int X, int Y, int Z, int TY, int S,
+           int n_ty, int L, int threads, int fuse, float dt,
+           size_t smem_bytes, cudaStream_t stream) {
   // the kernel stages nine slabs: 3 fields x slices x-1, x, x+1
-  if (smem_bytes < (size_t)9 * S * Z * sizeof(float))
+  if (smem_bytes < (size_t)9 * S * Z * sizeof(E))
     return (int)cudaErrorInvalidValue;
+  auto kern = advect_blocked_kernel<E, CB>;
   cudaError_t err = cudaFuncSetAttribute(
-      advect_blocked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((X + L - 1) / L, n_ty);
-  advect_blocked_kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
-      u, v, w, ou, ov, ow, params, X, Y, Z, TY, S, L, fuse, dt);
+  kern<<<grid, threads, smem_bytes, stream>>>(
+      static_cast<const E*>(u), static_cast<const E*>(v),
+      static_cast<const E*>(w), static_cast<E*>(ou), static_cast<E*>(ov),
+      static_cast<E*>(ow), params, X, Y, Z, TY, S, L, fuse, dt);
   return (int)cudaGetLastError();
 }
 
-// What the card says of the kernel at `threads` and `smem_bytes`: out =
-// [registers per thread, local (spill) bytes per thread, most threads per
-// block, resident blocks per SM]. Returns a cudaError_t.
-extern "C" int advect_blocked_attrs(int threads, size_t smem_bytes, int* out) {
-  const void* fn = (const void*)advect_blocked_kernel;
+template <typename E, bool CB>
+int attrs(int threads, size_t smem_bytes, int* out) {
+  const void* fn = (const void*)advect_blocked_kernel<E, CB>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -144,4 +143,57 @@ extern "C" int advect_blocked_attrs(int threads, size_t smem_bytes, int* out) {
   out[2] = a.maxThreadsPerBlock;
   out[3] = per_sm;
   return 0;
+}
+
+}  // namespace
+
+// u, v, w, ou, ov, ow: (X, Y, Z) f32, contiguous. params: one row
+// [tcx, tcy, 0, 0, tzc1(Z), tzc2(Z)]. The plan (y-tile TY, slab S, n_ty
+// tiles, runs of L slices, `threads` per block) comes from the wrapper;
+// smem_bytes = 9 * S * Z * 4. Returns the cudaError_t of the attribute call
+// or of the launch.
+extern "C" int advect_blocked_f32(const float* u, const float* v,
+                                  const float* w, float* ou, float* ov,
+                                  float* ow, const float* params, int X,
+                                  int Y, int Z, int TY, int S, int n_ty,
+                                  int L, int threads, int fuse, float dt,
+                                  size_t smem_bytes, void* stream) {
+  return launch<float, false>(u, v, w, ou, ov, ow, params, X, Y, Z, TY, S,
+                              n_ty, L, threads, fuse, dt, smem_bytes,
+                              (cudaStream_t)stream);
+}
+
+// advect_blocked_f32 on bf16 fields (smem_bytes = 9 * S * Z * 2), with
+// coef_bf16 nonzero where the coefficients in the f32 row are bf16 values
+// (each product with one rounds to bf16); dt is the bf16 value of dt.
+extern "C" int advect_blocked_bf16(const void* u, const void* v,
+                                   const void* w, void* ou, void* ov,
+                                   void* ow, const float* params, int X,
+                                   int Y, int Z, int TY, int S, int n_ty,
+                                   int L, int threads, int fuse,
+                                   int coef_bf16, float dt,
+                                   size_t smem_bytes, void* stream) {
+  auto s = (cudaStream_t)stream;
+  if (coef_bf16)
+    return launch<__nv_bfloat16, true>(u, v, w, ou, ov, ow, params, X, Y, Z,
+                                       TY, S, n_ty, L, threads, fuse, dt,
+                                       smem_bytes, s);
+  return launch<__nv_bfloat16, false>(u, v, w, ou, ov, ow, params, X, Y, Z,
+                                      TY, S, n_ty, L, threads, fuse, dt,
+                                      smem_bytes, s);
+}
+
+// What the card says of the kernel at `threads` and `smem_bytes`: out =
+// [registers per thread, local (spill) bytes per thread, most threads per
+// block, resident blocks per SM]. Returns a cudaError_t.
+extern "C" int advect_blocked_attrs(int threads, size_t smem_bytes, int* out) {
+  return attrs<float, false>(threads, smem_bytes, out);
+}
+
+// advect_blocked_attrs of the bf16 build, f32 (coef_bf16 = 0) or bf16
+// coefficients.
+extern "C" int advect_blocked_bf16_attrs(int coef_bf16, int threads,
+                                         size_t smem_bytes, int* out) {
+  return coef_bf16 ? attrs<__nv_bfloat16, true>(threads, smem_bytes, out)
+                   : attrs<__nv_bfloat16, false>(threads, smem_bytes, out);
 }

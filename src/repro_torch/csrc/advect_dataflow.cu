@@ -45,6 +45,12 @@
 // - No bank conflicts. A warp's 4-byte reads fall on 32 consecutive
 //   words; `wide` reads its four cells with one 16-byte load and their z
 //   neighbours from the 16-byte words on each side.
+//
+// bf16 fields (E = __nv_bfloat16): the ring holds 2-byte cells as cp.async
+// lands them, so its bytes halve and the plan (`rung_launch_plan` at
+// itemsize 2) takes the tile for that; `wide` moves 16-byte vectors of 8
+// cells (Z % 8 == 0). The arithmetic rounds as pw_source.cuh says, with f32
+// or bf16 coefficients (CB).
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -54,14 +60,14 @@ namespace {
 
 constexpr int kMaxThreads = 512;
 
-template <int VEC>
+template <typename E, bool CB, int VEC>
 __global__ void __launch_bounds__(kMaxThreads, 2) advect_dataflow_kernel(
-    const float* __restrict__ u, const float* __restrict__ v,
-    const float* __restrict__ w, float* __restrict__ ou,
-    float* __restrict__ ov, float* __restrict__ ow,
-    const float* __restrict__ params, int X, int Y, int Z, int TY, int S,
-    int L, int R, int fuse, float dt) {
-  extern __shared__ __align__(16) float smem[];
+    const E* __restrict__ u, const E* __restrict__ v,
+    const E* __restrict__ w, E* __restrict__ ou, E* __restrict__ ov,
+    E* __restrict__ ow, const float* __restrict__ params, int X, int Y,
+    int Z, int TY, int S, int L, int R, int fuse, float dt) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* smem = reinterpret_cast<E*>(smem_raw);
   const int x0 = blockIdx.x * L;
   const int x1 = min(x0 + L, X);
   const int t = blockIdx.y;
@@ -71,8 +77,8 @@ __global__ void __launch_bounds__(kMaxThreads, 2) advect_dataflow_kernel(
   const int n_vec = min(TY, Y - own_lo) * Z / VEC;  // rows of whole vectors
   const size_t slice = (size_t)Y * Z;
   const int plane = S * Z;
-  const float* in[3] = {u, v, w};
-  float* const out[3] = {ou, ov, ow};
+  const E* in[3] = {u, v, w};
+  E* const out[3] = {ou, ov, ow};
   const RungParams pr = rung_params<VEC>(params, Z);
   const int ahead = R - 3;
   const int n_walk = x1 - x0 + 2;  // slices x0 - 1 .. x1
@@ -86,7 +92,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) advect_dataflow_kernel(
       const size_t src_off = (size_t)i * slice + (size_t)slab_lo * Z;
 #pragma unroll
       for (int f = 0; f < 3; ++f)
-        cp_async_plane<VEC>(smem + (size_t)(f * R + j % R) * plane,
+        cp_async_plane<E, VEC>(smem + (size_t)(f * R + j % R) * plane,
                             in[f] + src_off, plane);
     }
     cp_async_commit();
@@ -98,7 +104,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) advect_dataflow_kernel(
     cp_async_wait(ahead - 1);  // this thread's copies of x + 1 have landed
     __syncthreads();           // everyone's have, and x - 2's slot is free
     issue(j + 1 + ahead);
-    RungSlices sl;
+    RungSlices<E> sl;
 #pragma unroll
     for (int f = 0; f < 3; ++f)
 #pragma unroll
@@ -109,31 +115,38 @@ __global__ void __launch_bounds__(kMaxThreads, 2) advect_dataflow_kernel(
     for (int k = threadIdx.x; k < n_vec; k += blockDim.x) {
       const int c0 = own_r0 * Z + k * VEC;
       const int r = c0 / Z;
-      rung_cells<VEC>(sl, c0, c0 - r * Z, x_ok && r >= 1 && r <= S - 2, Z,
-                      pr, fuse != 0, dt, out, dst_off + (size_t)k * VEC);
+      rung_cells<E, CB, VEC>(sl, c0, c0 - r * Z,
+                             x_ok && r >= 1 && r <= S - 2, Z, pr, fuse != 0,
+                             dt, out, dst_off + (size_t)k * VEC);
     }
   }
   cp_async_wait(0);
 }
 
-template <int VEC>
-int launch(const float* u, const float* v, const float* w, float* ou,
-           float* ov, float* ow, const float* params, int X, int Y, int Z,
-           int TY, int S, int n_ty, int L, int R, int threads, int fuse,
-           float dt, size_t smem_bytes, cudaStream_t stream) {
+template <typename E, bool CB, int VEC>
+int launch(const void* u, const void* v, const void* w, void* ou, void* ov,
+           void* ow, const float* params, int X, int Y, int Z, int TY, int S,
+           int n_ty, int L, int R, int threads, int fuse, float dt,
+           size_t smem_bytes, cudaStream_t stream) {
+  // a ring of 3 slots has no slot to load ahead into (the wait would let
+  // the compute read x+1 before it lands); shared memory must hold R slots
+  if (R < 4 || R > 5 || smem_bytes < (size_t)3 * R * S * Z * sizeof(E))
+    return (int)cudaErrorInvalidValue;
+  auto kern = advect_dataflow_kernel<E, CB, VEC>;
   cudaError_t err = cudaFuncSetAttribute(
-      advect_dataflow_kernel<VEC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((X + L - 1) / L, n_ty);
-  advect_dataflow_kernel<VEC><<<grid, threads, smem_bytes, stream>>>(
-      u, v, w, ou, ov, ow, params, X, Y, Z, TY, S, L, R, fuse, dt);
+  kern<<<grid, threads, smem_bytes, stream>>>(
+      static_cast<const E*>(u), static_cast<const E*>(v),
+      static_cast<const E*>(w), static_cast<E*>(ou), static_cast<E*>(ov),
+      static_cast<E*>(ow), params, X, Y, Z, TY, S, L, R, fuse, dt);
   return (int)cudaGetLastError();
 }
 
-template <int VEC>
+template <typename E, bool CB, int VEC>
 int attrs(int threads, size_t smem_bytes, int* out) {
-  const void* fn = (const void*)advect_dataflow_kernel<VEC>;
+  const void* fn = (const void*)advect_dataflow_kernel<E, CB, VEC>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -151,6 +164,8 @@ int attrs(int threads, size_t smem_bytes, int* out) {
   return 0;
 }
 
+constexpr int kBf16Vec = 8;   // bf16 cells in a 16-byte vector
+
 }  // namespace
 
 // u, v, w, ou, ov, ow: (X, Y, Z) f32, contiguous (16-byte aligned and
@@ -166,16 +181,37 @@ extern "C" int advect_dataflow_f32(const float* u, const float* v,
                                    int L, int R, int threads, int vec4,
                                    int fuse, float dt, size_t smem_bytes,
                                    void* stream) {
-  // a ring of 3 slots has no slot to load ahead into (the wait would let
-  // the compute read x+1 before it lands); shared memory must hold R slots
-  if (R < 4 || R > 5 || smem_bytes < (size_t)3 * R * S * Z * sizeof(float))
-    return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   if (vec4)
-    return launch<4>(u, v, w, ou, ov, ow, params, X, Y, Z, TY, S, n_ty, L, R,
-                     threads, fuse, dt, smem_bytes, s);
-  return launch<1>(u, v, w, ou, ov, ow, params, X, Y, Z, TY, S, n_ty, L, R,
-                   threads, fuse, dt, smem_bytes, s);
+    return launch<float, false, 4>(u, v, w, ou, ov, ow, params, X, Y, Z, TY,
+                                   S, n_ty, L, R, threads, fuse, dt,
+                                   smem_bytes, s);
+  return launch<float, false, 1>(u, v, w, ou, ov, ow, params, X, Y, Z, TY, S,
+                                 n_ty, L, R, threads, fuse, dt, smem_bytes,
+                                 s);
+}
+
+// advect_dataflow_f32 on bf16 fields (smem_bytes = 3 * R * S * Z * 2): vec
+// nonzero is `wide`, 16-byte moves of 8 cells (Z % 8 == 0, 16-byte-aligned
+// fields); coef_bf16 nonzero where the coefficients in the f32 row are bf16
+// values (each product with one rounds to bf16); dt is the bf16 value of dt.
+extern "C" int advect_dataflow_bf16(const void* u, const void* v,
+                                    const void* w, void* ou, void* ov,
+                                    void* ow, const float* params, int X,
+                                    int Y, int Z, int TY, int S, int n_ty,
+                                    int L, int R, int threads, int vec,
+                                    int fuse, int coef_bf16, float dt,
+                                    size_t smem_bytes, void* stream) {
+  using B = __nv_bfloat16;
+  auto s = (cudaStream_t)stream;
+  auto run = [&](auto fn) {
+    return fn(u, v, w, ou, ov, ow, params, X, Y, Z, TY, S, n_ty, L, R,
+              threads, fuse, dt, smem_bytes, s);
+  };
+  if (vec)
+    return coef_bf16 ? run(launch<B, true, kBf16Vec>)
+                     : run(launch<B, false, kBf16Vec>);
+  return coef_bf16 ? run(launch<B, true, 1>) : run(launch<B, false, 1>);
 }
 
 // What the card says of the build (vec4 or not) at `threads` and
@@ -183,6 +219,19 @@ extern "C" int advect_dataflow_f32(const float* u, const float* v,
 // most threads per block, resident blocks per SM]. Returns a cudaError_t.
 extern "C" int advect_dataflow_attrs(int vec4, int threads, size_t smem_bytes,
                                      int* out) {
-  return vec4 ? attrs<4>(threads, smem_bytes, out)
-              : attrs<1>(threads, smem_bytes, out);
+  return vec4 ? attrs<float, false, 4>(threads, smem_bytes, out)
+              : attrs<float, false, 1>(threads, smem_bytes, out);
+}
+
+// advect_dataflow_attrs of the bf16 builds (vec: `wide`), with f32
+// (coef_bf16 = 0) or bf16 coefficients.
+extern "C" int advect_dataflow_bf16_attrs(int vec, int coef_bf16,
+                                          int threads, size_t smem_bytes,
+                                          int* out) {
+  using B = __nv_bfloat16;
+  if (vec)
+    return coef_bf16 ? attrs<B, true, kBf16Vec>(threads, smem_bytes, out)
+                     : attrs<B, false, kBf16Vec>(threads, smem_bytes, out);
+  return coef_bf16 ? attrs<B, true, 1>(threads, smem_bytes, out)
+                   : attrs<B, false, 1>(threads, smem_bytes, out);
 }

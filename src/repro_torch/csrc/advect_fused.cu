@@ -1,336 +1,8 @@
-// Fused PW advection ring (v4 temporal blocking) for Hopper, sm_90a.
+// K1/K5's f32 build: the entry points of the ring in advect_fused.cuh on
+// f32 fields and coefficients.
 //
-// Replaces: src/repro/kernels/advection/advection.py `advect_fused` ->
-// `_kernel_fused` (the Pallas TPU kernel), and its vmap over slots,
-// `advect_fused_batched`.
-//
-// What it computes: T masked explicit-Euler PW steps of u, v, w in one pass
-// over device memory. A block owns one (y-tile, z-chunk, x-chunk, slot): rows
-// [t*TY, min((t+1)*TY, Y)) of a slab of S = TY + 2T rows clipped flush into
-// the domain, cells [z0, z1) of a z window of W = CZ + 2T cells clipped the
-// same way (W = Z, one chunk, wherever a slab row fits a block), and slices
-// [x0, x1) of a chunk of CX. It walks x from max(x0 - T, 0) to x1 - 1 + T;
-// at step i slice min(i, X-1) enters level 0 and level k computes slice
-// j = i - k from level k-1's slices j-1, j, j+1. Level k is exact from slice
-// x0 - T + k on, so the output (level T, slices [x0, x1), owned rows and
-// cells) sees only exact operands: the T-deep x halo is the x analogue of
-// the y and z halos, and tiled and chunked results equal the untiled ones
-// bitwise. A slab's or window's cut edge is a wall (no source), as the
-// domain's edges are. No block writes a cell another block owns.
-//
-// Update: new = cen + dt * (interior ? src : 0.0f), a select and never a
-// multiply. src keeps the reference's operation order, fx + fy + fz, each
-// parenthesised as in `_source_slices`; with --fmad=false every product and
-// sum rounds on its own, as in the plain PyTorch version.
-//
-// Bound on one H100 SXM: memory. One pass reads and writes the three fields
-// once: 6*X*Y*Z*4 bytes, 1.61 GB at (1024, 1024, 64), 0.48 ms at 3.35 TB/s.
-// Its arithmetic without FMA (about 67 operations per cell and level) needs
-// about 0.54 ms at 128 f32 lanes per SM, before any halo recomputation. The
-// design:
-// - A register ring. A thread owns C cells of one slab row, z = zt + q*ZS
-//   (ZS = ceil(W / C)), and keeps, per level below T, each field's value at
-//   x - 1 and x in registers; x + 1 is the value the level below just
-//   computed. Only the centre slice of each level is seen by neighbours:
-//   y +- 1 and z +- 1 come from one shared plane per level and field,
-//   double-buffered, so a slice costs one barrier. Shared memory: 2 * T * 3
-//   * S rows of P floats (P >= W pads the row so that the rows a warp
-//   covers when ZS divides 32 fall on different banks).
-// - One branch per thread and level. A row is computed at level k only if
-//   it feeds an owned row (d rows outside the owned rows: levels 1..T-d),
-//   so the test is the same for all of a thread's cells and their loads
-//   and arithmetic interleave; z walls are a select. Cells of a z window
-//   outside the owned cells are computed at every level: the ones past
-//   T - k are inexact, but no owned cell reads them.
-// - Chunks. The grid is (n_ty * n_cz * n_cx, B): the launch planner
-//   (`fused_launch_plan`) sizes TY, CZ and CX from the builds' threads, the
-//   SM count, the kernel's resident blocks per SM and a model of waves times
-//   slices walked.
-// - Loads ahead of compute: slice i + 1 is loaded (coalesced along z) into
-//   registers before slice i's levels compute, and lands in level 0 after.
-//
-// The builds: T in 1..K1_MAX_T by C in {2, 4, 8} cells per thread, each C at
-// K1_THREADS_C<C> threads per block (__launch_bounds__). Both come from the
-// build's flags (`_build.py`'s K1_MAX_T and K1_BUILDS), which the launch
-// planner reads too; the wrapper runs a deeper T as several passes.
-#include <cuda_runtime.h>
-#include <stddef.h>
-
-#include <array>
-#include <utility>
-
-#if !defined(K1_MAX_T) || !defined(K1_THREADS_C2) || \
-    !defined(K1_THREADS_C4) || !defined(K1_THREADS_C8)
-#error "K1's builds come from _build.py: -DK1_MAX_T, -DK1_THREADS_C<C>"
-#endif
-
-namespace {
-
-template <int C>
-struct Bounds;
-template <>
-struct Bounds<2> { static constexpr int threads = K1_THREADS_C2; };
-template <>
-struct Bounds<4> { static constexpr int threads = K1_THREADS_C4; };
-template <>
-struct Bounds<8> { static constexpr int threads = K1_THREADS_C8; };
-
-template <int T, int C>
-__global__ void __launch_bounds__(Bounds<C>::threads) advect_ring_kernel(
-    const float* __restrict__ u, const float* __restrict__ v,
-    const float* __restrict__ w, float* __restrict__ ou,
-    float* __restrict__ ov, float* __restrict__ ow,
-    const float* __restrict__ params, const float* __restrict__ xm,
-    const float* __restrict__ ym, int X, int Y, int Z, int TY, int S,
-    int n_ty, int CZ, int W, int n_cz, int CX, int P, int p_stride,
-    int xm_stride, int ym_stride, float dt) {
-  extern __shared__ float smem[];
-  const int nt = blockDim.x;
-  const int tid = threadIdx.x;
-  const int t = blockIdx.x % n_ty;
-  const int rest = blockIdx.x / n_ty;
-  const int cz = rest % n_cz;
-  const int cx = rest / n_cz;
-  const int b = blockIdx.y;
-  const int slab_lo = min(max(t * TY - T, 0), Y - S);
-  const int own_lo = t * TY - slab_lo;               // slab rows owned:
-  const int own_hi = own_lo + min(TY, Y - t * TY);   // [own_lo, own_hi)
-  const int z0 = cz * CZ;
-  const int z1 = min(z0 + CZ, Z);
-  const int zlo = min(max(z0 - T, 0), Z - W);        // the window's first z
-  const int x0 = cx * CX;
-  const int x1 = min(x0 + CX, X);
-  const int xs = max(x0 - T, 0);
-  const int xe = x1 - 1 + T;
-  const int plane = S * P;
-  const size_t slice = (size_t)Y * Z;
-  const size_t base = (size_t)b * X * slice + (size_t)slab_lo * Z + zlo;
-  const float* in[3] = {u + base, v + base, w + base};
-  float* out[3] = {ou + base, ov + base, ow + base};
-  // this slot's row of [tcx, tcy, tzc1(Z), tzc2(Z)]
-  const float* prow = params + (size_t)b * p_stride;
-  const float tcx = prow[0];
-  const float tcy = prow[1];
-  const float* xmb = xm + (size_t)b * xm_stride;
-  const float* ymb = ym + (size_t)b * ym_stride + slab_lo;
-  float* tz = smem;                       // the window's tzc1, then tzc2
-  float* planes = smem + 2 * W;           // [2][T][3][S][P]
-  const size_t buf_sz = (size_t)T * 3 * plane;
-  for (int i = tid; i < 2 * W; i += nt)
-    tz[i] = prow[2 + zlo + (i < W ? i : Z + i - W)];
-
-  // this thread's slab row r and window cells z = zt + q*ZS, worked out once
-  const int ZS = (W + C - 1) / C;
-  const int r = tid / ZS;
-  const int zt = tid - r * ZS;
-  const bool row_ok = r < S;
-  const int dist = r < own_lo ? own_lo - r
-                              : (r >= own_hi ? r - own_hi + 1 : 0);
-  const bool owned = row_ok && dist == 0;
-  // the levels 1..levels at which the row takes a source
-  const int levels = row_ok && r >= 1 && r <= S - 2 && ymb[r] > 0.0f
-                         ? max(T - dist, 0) : 0;
-  // bit q: z in the window; z takes a source; z owned
-  unsigned zcell = 0, zsrc = 0, zown = 0;
-#pragma unroll
-  for (int q = 0; q < C; ++q) {
-    const int z = zt + q * ZS;
-    if (row_ok && z < W) zcell |= 1u << q;
-    if (z >= 1 && z <= W - 2) zsrc |= 1u << q;
-    if (owned && z < W && zlo + z >= z0 && zlo + z < z1) zown |= 1u << q;
-  }
-  const int c0 = r * P + zt;   // plane index of cell 0
-  const int g0 = r * Z + zt;   // its offset in a slice of the slab window
-
-  // the ring: per level below T, each field at x - 1 (prv) and x (cur);
-  // nxt is level 0's newest slice, pf the slice loaded ahead
-  float prv[T][3][C], cur[T][3][C], nxt[3][C], pf[3][C];
-#pragma unroll
-  for (int q = 0; q < C; ++q) {
-#pragma unroll
-    for (int f = 0; f < 3; ++f) {
-      pf[f][q] = 0.0f;
-#pragma unroll
-      for (int m = 0; m < T; ++m) prv[m][f][q] = cur[m][f][q] = 0.0f;
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < C; ++q) {
-    if (zcell >> q & 1u) {
-      const size_t off = (size_t)xs * slice + g0 + q * ZS;
-#pragma unroll
-      for (int f = 0; f < 3; ++f) pf[f][q] = __ldg(in[f] + off);
-    }
-  }
-  __syncthreads();
-
-  int rd = 0;
-  for (int i = xs; i <= xe; ++i) {
-#pragma unroll
-    for (int q = 0; q < C; ++q) {
-#pragma unroll
-      for (int f = 0; f < 3; ++f) nxt[f][q] = pf[f][q];
-    }
-    if (i < xe) {
-      const size_t off = (size_t)min(i + 1, X - 1) * slice + g0;
-#pragma unroll
-      for (int q = 0; q < C; ++q) {
-        if (zcell >> q & 1u) {
-#pragma unroll
-          for (int f = 0; f < 3; ++f)
-            pf[f][q] = __ldg(in[f] + off + q * ZS);
-        }
-      }
-    }
-    const float* prd = planes + rd * buf_sz;
-    float* pwr = planes + (rd ^ 1) * buf_sz;
-#pragma unroll
-    for (int k = 1; k <= T; ++k) {
-      const int j = i - k;
-      const bool x_ok = j >= 1 && j <= X - 2 && j >= x0 - T + k &&
-                        xmb[j] > 0.0f;
-      const float* pu = prd + (size_t)(k - 1) * 3 * plane;
-      const float* pl[3] = {pu, pu + plane, pu + 2 * plane};
-      float* wl = pwr + (size_t)(k - 1) * 3 * plane;
-      float src[3][C];
-#pragma unroll
-      for (int q = 0; q < C; ++q) {
-#pragma unroll
-        for (int f = 0; f < 3; ++f) src[f][q] = 0.0f;
-      }
-      // an interior row: its neighbour rows and z +- 1 lie in the planes
-      // (the z walls' reads too, into the pitch's pad or the next row)
-      if (x_ok && k <= levels) {
-#pragma unroll
-        for (int q = 0; q < C; ++q) {
-          const int c = c0 + q * ZS;
-          const int z = zt + q * ZS;
-          const float t1 = tz[z];
-          const float t2 = tz[W + z];
-          const float um = prv[k - 1][0][q];
-          const float up = nxt[0][q];
-#pragma unroll
-          for (int f = 0; f < 3; ++f) {
-            const float fc = cur[k - 1][f][q];
-            const float* fs = pl[f];
-            const float fx = tcx * (um * (fc + prv[k - 1][f][q])
-                                    - up * (fc + nxt[f][q]));
-            const float fy = tcy * (pl[1][c - P] * (fc + fs[c - P])
-                                    - pl[1][c + P] * (fc + fs[c + P]));
-            const float fz = t1 * pl[2][c - 1] * (fc + fs[c - 1])
-                             - t2 * pl[2][c + 1] * (fc + fs[c + 1]);
-            src[f][q] = zsrc >> q & 1u ? fx + fy + fz : 0.0f;
-          }
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < C; ++q) {
-        // level k-1's newest slice becomes its centre plane for the next
-        // step (the other buffer), and its ring moves one slice on
-        if (zcell >> q & 1u) {
-#pragma unroll
-          for (int f = 0; f < 3; ++f)
-            wl[f * plane + c0 + q * ZS] = nxt[f][q];
-        }
-#pragma unroll
-        for (int f = 0; f < 3; ++f) {
-          const float res = cur[k - 1][f][q] + dt * src[f][q];
-          prv[k - 1][f][q] = cur[k - 1][f][q];
-          cur[k - 1][f][q] = nxt[f][q];
-          nxt[f][q] = res;
-        }
-      }
-    }
-    // nxt now holds level T at slice i - T
-    const int j = i - T;
-    if (j >= x0 && zown) {
-      const size_t off = (size_t)j * slice + g0;
-#pragma unroll
-      for (int q = 0; q < C; ++q) {
-        if (zown >> q & 1u) {
-#pragma unroll
-          for (int f = 0; f < 3; ++f) out[f][off + q * ZS] = nxt[f][q];
-        }
-      }
-    }
-    __syncthreads();
-    rd ^= 1;
-  }
-}
-
-struct Args {
-  const float *u, *v, *w;
-  float *ou, *ov, *ow;
-  const float *params, *xm, *ym;
-  int B, X, Y, Z, T, TY, S, n_ty, CZ, W, n_cz, CX, n_cx, threads, P,
-      p_stride, xm_stride, ym_stride;
-  float dt;
-  size_t smem;
-  cudaStream_t stream;
-};
-
-template <int T, int C>
-int launch(const Args& a) {
-  auto kern = advect_ring_kernel<T, C>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.n_ty * a.n_cz * a.n_cx, a.B);
-  kern<<<grid, a.threads, a.smem, a.stream>>>(
-      a.u, a.v, a.w, a.ou, a.ov, a.ow, a.params, a.xm, a.ym, a.X, a.Y, a.Z,
-      a.TY, a.S, a.n_ty, a.CZ, a.W, a.n_cz, a.CX, a.P, a.p_stride,
-      a.xm_stride, a.ym_stride, a.dt);
-  return (int)cudaGetLastError();
-}
-
-// out: registers per thread, local (spill) bytes per thread, the most
-// threads a block can have, and resident blocks per SM at (threads, smem)
-template <int T, int C>
-int attrs(int threads, size_t smem, int* out) {
-  auto kern = advect_ring_kernel<T, C>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, kern);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
-                                                      smem);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = fa.numRegs;
-  out[1] = (int)fa.localSizeBytes;
-  out[2] = fa.maxThreadsPerBlock;
-  out[3] = per_sm;
-  return 0;
-}
-
-using LaunchFn = int (*)(const Args&);
-using AttrsFn = int (*)(int, size_t, int*);
-
-// row T - 1 of each table: the builds of depth T for C = 2, 4, 8
-template <int... I>
-std::array<std::array<LaunchFn, 3>, sizeof...(I)> launch_table(
-    std::integer_sequence<int, I...>) {
-  return {{std::array<LaunchFn, 3>{
-      {launch<I + 1, 2>, launch<I + 1, 4>, launch<I + 1, 8>}}...}};
-}
-template <int... I>
-std::array<std::array<AttrsFn, 3>, sizeof...(I)> attrs_table(
-    std::integer_sequence<int, I...>) {
-  return {{std::array<AttrsFn, 3>{
-      {attrs<I + 1, 2>, attrs<I + 1, 4>, attrs<I + 1, 8>}}...}};
-}
-const auto kLaunch = launch_table(std::make_integer_sequence<int, K1_MAX_T>{});
-const auto kAttrs = attrs_table(std::make_integer_sequence<int, K1_MAX_T>{});
-
-// column of C in the tables above, or -1
-int c_index(int C) { return C == 2 ? 0 : C == 4 ? 1 : C == 8 ? 2 : -1; }
-
-}  // namespace
-
 // u, v, w, ou, ov, ow: (B, X, Y, Z) f32, contiguous.
-// params: rows of [tcx, tcy, tzc1(Z), tzc2(Z)], slot stride p_stride
+// params: rows of [tcx, tcy, tzc1(Z), tzc2(Z)] f32, slot stride p_stride
 // (0 = one row shared by every slot, else 2 + 2Z).
 // xm: rows of X, ym: rows of Y, slot strides 0 (shared) or X / Y.
 // The plan (TY, S, n_ty, CZ, W, n_cz, CX, n_cx, C cells per thread, threads,
@@ -338,6 +10,8 @@ int c_index(int C) { return C == 2 ? 0 : C == 4 ? 1 : C == 8 ? 2 : -1; }
 // `fused_launch_plan`.
 // Returns the cudaError_t of the attribute call or of the launch;
 // cudaErrorInvalidValue for a (T, C) the library was not built for.
+#include "advect_fused.cuh"
+
 extern "C" int advect_fused_f32(const float* u, const float* v,
                                 const float* w, float* ou, float* ov,
                                 float* ow, const float* params,
@@ -347,19 +21,15 @@ extern "C" int advect_fused_f32(const float* u, const float* v,
                                 int n_cx, int C, int threads, int P,
                                 int p_stride, int xm_stride, int ym_stride,
                                 float dt, size_t smem_bytes, void* stream) {
-  const int ci = c_index(C);
-  if (T < 1 || T > K1_MAX_T || ci < 0) return (int)cudaErrorInvalidValue;
   const Args a{u, v, w, ou, ov, ow, params, xm, ym, B, X, Y, Z, T, TY, S,
                n_ty, CZ, W, n_cz, CX, n_cx, threads, P, p_stride, xm_stride,
                ym_stride, dt, smem_bytes, (cudaStream_t)stream};
-  return kLaunch[T - 1][ci](a);
+  return launch_build<float, false>(a, C);
 }
 
 // out[4]: registers, local bytes per thread, max threads per block and
 // resident blocks per SM of the (T, C) build at (threads, smem).
 extern "C" int advect_fused_attrs(int T, int C, int threads,
                                   size_t smem_bytes, int* out) {
-  const int ci = c_index(C);
-  if (T < 1 || T > K1_MAX_T || ci < 0) return (int)cudaErrorInvalidValue;
-  return kAttrs[T - 1][ci](threads, smem_bytes, out);
+  return attrs_build<float, false>(T, C, threads, smem_bytes, out);
 }

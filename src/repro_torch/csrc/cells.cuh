@@ -1,0 +1,60 @@
+// What the stencil kernels (advect_fused.cuh, advect_blocked.cu,
+// advect_dataflow.cu, finite_guard.cu) share of their storage types: a cell
+// is a float (f32 fields) or an __nv_bfloat16 (bf16 fields), and every
+// kernel computes in f32 registers.
+//
+// The rounding contract of bf16 fields is the reference's: JAX promotes a
+// bf16 op's operands and rounds its result to bf16, so a bf16 op here is the
+// f32 op, rounded to nearest even (`rnd<true>`). A product of a bf16 value
+// and an f32 coefficient is an f32 op (`rnd<false>`, the identity). Loads
+// widen a bf16 cell exactly; stores round (the values stored are already
+// bf16 values, so the store is exact).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+template <typename E>
+struct CellOf;
+template <>
+struct CellOf<float> {
+  static constexpr bool bf16 = false;
+};
+template <>
+struct CellOf<__nv_bfloat16> {
+  static constexpr bool bf16 = true;
+};
+
+// x rounded to bf16 (and widened back) where R, else x
+template <bool R>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (R)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
+__device__ __forceinline__ float ld_cell(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_cell(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+__device__ __forceinline__ void st_cell(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st_cell(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// the two bf16 cells of a 32-bit word, widened (element 0 is the low half)
+__device__ __forceinline__ float bf16_lo(unsigned word) {
+  return __uint_as_float(word << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned word) {
+  return __uint_as_float(word & 0xffff0000u);
+}
+
+// two floats rounded to bf16 as one 32-bit word, lo in the low half (exact
+// where they are bf16 values already, as every value a kernel stores is)
+__device__ __forceinline__ unsigned bf16_pack(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}

@@ -16,7 +16,7 @@ transport of `stencil.distributed`'s `remote_dma` engine.
 
 Each wrapper dispatches on where its tensors lie. On a CUDA tensor it
 launches its hand-written kernel (`csrc/advect_blocked.cu`,
-`csrc/advect_dataflow.cu`, `csrc/advect_fused.cu`, `csrc/finite_guard.cu`,
+`csrc/advect_dataflow.cu`, `csrc/advect_fused.cuh`, `csrc/finite_guard.cu`,
 `csrc/stencil_fused.cu`, `csrc/band_exchange.cu`) or raises; on a CPU
 tensor it runs the kernel's plain PyTorch version beside it
 (`_advect_rung_plain`, `_advect_fused_plain`, `_finite_guard_plain`,
@@ -59,17 +59,18 @@ from repro_torch.kernels import library as L
 from repro_torch.core.roofline import (MAX_GRID_Y, SMEM_PER_BLOCK,
                                        SMEM_PER_SM, SMEM_RESERVED_PER_BLOCK)
 from repro_torch.kernels.advection.ref import (AdvectParams, pw_advect_ref,
-                                               pw_step_ref)
+                                               step_dt)
 from repro_torch.launch.mesh import dma_neighbor_coords
 
 TILINGS = ("grid", "host")
 MAX_GRID = (2 ** 31 - 1, MAX_GRID_Y, 65535)   # CUDA's limits on (x, y, z)
-# the slab cells a planned tile of K1 (`csrc/advect_fused.cu`) aims at; its
+# the slab cells a planned tile of K1 (`csrc/advect_fused.cuh`) aims at; its
 # builds are `_build.K1_MAX_T` and `_build.K1_BUILDS`
 K1_PLAN_CELLS = 1024
-WIDE_ROW_RULE = ("wide moves each Z row as 16-byte vectors: Z * 4 bytes must "
-                 "be a multiple of 16 (Z % 4 == 0), got Z={Z} ({row} B); use "
-                 "dataflow for this Z")
+WIDE_ROW_RULE = ("wide moves each Z row as 16-byte vectors: Z * {item} bytes "
+                 "must be a multiple of 16 (Z % {cells} == 0), got Z={Z} "
+                 "({row} B); use dataflow for this Z")
+FIELD_DTYPES = (torch.float32, torch.bfloat16)
 WIDE_HOST_RULE = ("wide runs the in-grid tiled path only: the host tile loop "
                   "is kept as the anti-pattern baseline of the other rungs, "
                   "and the reference refuses it for wide too; use "
@@ -191,7 +192,7 @@ def largest_fitting_y_tile(T: int, Y: int, Z: int, itemsize: int = 4,
 
 
 class FusedPlan(NamedTuple):
-    """One launch of a register ring, K1 (`csrc/advect_fused.cu`) or K6
+    """One launch of a register ring, K1 (`csrc/advect_fused.cuh`) or K6
     (`csrc/stencil_fused.cu`): y-tiles of TY owned rows in slabs of S rows,
     z chunks of CZ owned cells in windows of W (one chunk, W = Z, where a
     whole row fits), x chunks of CX owned slices, C cells of a window row
@@ -498,7 +499,9 @@ def _check_wide_model(Y: int, Z: int, itemsize: int, y_tile: int | None,
     """Where `advect_wide` refuses to run, and the models refuse to price
     it: a Z row that is not whole 16-byte vectors, or host tiling."""
     if Z * itemsize % 16:
-        raise ValueError(WIDE_ROW_RULE.format(Z=Z, row=Z * itemsize))
+        raise ValueError(WIDE_ROW_RULE.format(Z=Z, row=Z * itemsize,
+                                              item=itemsize,
+                                              cells=16 // itemsize))
     if not grid_tiled and y_tile is not None and y_tile < Y:
         raise ValueError(WIDE_HOST_RULE)
 
@@ -613,9 +616,11 @@ def _check_fields(u, v, w, rank: int, what: str) -> None:
                             f"{type(f).__name__}")
         if f.ndim != rank:
             raise ValueError(f"{name} must be {what}, got rank {f.ndim}")
-        if f.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32 (bf16 is not ported "
-                            f"yet), got {f.dtype}")
+        if f.dtype not in FIELD_DTYPES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got "
+                            f"{f.dtype}")
+        if f.dtype != u.dtype:
+            raise TypeError(f"{name} is {f.dtype}, u {u.dtype}")
         if f.device != u.device:
             raise ValueError(f"{name} is on {f.device}, u on {u.device}")
         if not f.is_contiguous():
@@ -645,14 +650,25 @@ def _check_domain_masks(y_interior_mask, x_interior_mask, X: int,
                              f"{tuple(torch.as_tensor(m).shape)}")
 
 
+def coef_bf16(p: AdvectParams) -> bool:
+    """Whether the coefficients are bf16: every leaf a bf16 tensor, as a
+    bf16 domain's are. Then a product of one with a bf16 field value is a
+    bf16 op, as in the reference, whose kernels concatenate the leaves
+    into one vector (an f32 leaf makes it f32)."""
+    return all(torch.is_tensor(leaf) and leaf.dtype == torch.bfloat16
+               for leaf in p)
+
+
 def _slot_params(p: AdvectParams, B: Optional[int], Z: int,
                  device) -> AdvectParams:
     """Check each leaf is shared (unbatched) or per-slot (leading B);
-    B = None admits unbatched leaves only (one domain)."""
+    B = None admits unbatched leaves only (one domain). The leaves come
+    back bf16 where all four are (`coef_bf16`), else f32."""
+    dtype = torch.bfloat16 if coef_bf16(p) else torch.float32
     leaves = []
     for name, leaf, base in (("tcx", p.tcx, ()), ("tcy", p.tcy, ()),
                              ("tzc1", p.tzc1, (Z,)), ("tzc2", p.tzc2, (Z,))):
-        t = torch.as_tensor(leaf, dtype=torch.float32, device=device)
+        t = torch.as_tensor(leaf, dtype=dtype, device=device)
         shapes = (base,) if B is None else (base, (B,) + base)
         if tuple(t.shape) not in shapes:
             raise ValueError(f"params.{name} must have shape "
@@ -667,20 +683,28 @@ def _slot_params(p: AdvectParams, B: Optional[int], Z: int,
 # ---------------------------------------------------------------------------
 
 
+def _euler(f, s, dt: float):
+    """The kernels' update ``f + dt * s``, the source first rounded to the
+    field's dtype and the update run in it (the reference's
+    `_emit_tile_outputs` and `_kernel_fused`: ``cen + dt *
+    src.astype(cen.dtype)``, dt a weakly typed scalar)."""
+    return f + step_dt(dt, f.dtype) * s.to(f.dtype)
+
+
 def _advect_fused_plain(u, v, w, p: AdvectParams, T: int, dt: float,
                         xm, ym):
     """Plain PyTorch version of the fused kernel: T masked Euler steps of
     the reference over (B, X, Y, Z) fields (untiled: tiled and untiled
-    results are equal by contract)."""
+    results are equal by contract), each level in the fields' dtype."""
     X = u.shape[-3]
     j = torch.arange(X, device=u.device)
     x_ok = (j >= 1) & (j <= X - 2) & (xm > 0.0)
     m = x_ok[..., :, None, None] & (ym > 0.0)[..., None, :, None]
     for _ in range(T):
         su, sv, sw = pw_advect_ref(u, v, w, p)
-        u = u + dt * torch.where(m, su, 0.0)
-        v = v + dt * torch.where(m, sv, 0.0)
-        w = w + dt * torch.where(m, sw, 0.0)
+        u = _euler(u, torch.where(m, su, 0.0), dt)
+        v = _euler(v, torch.where(m, sv, 0.0), dt)
+        w = _euler(w, torch.where(m, sw, 0.0), dt)
     return u, v, w
 
 
@@ -698,16 +722,19 @@ def _pack_rows(rows, B: int) -> Tuple[torch.Tensor, int]:
 
 
 def _param_table(p: AdvectParams, B: int) -> Tuple[torch.Tensor, int]:
-    """The kernel's parameter rows [tcx, tcy, tzc1(Z), tzc2(Z)]: one row
-    shared by every slot (stride 0) when no leaf is per-slot, else one row
-    per slot (stride 2 + 2Z), a shared leaf repeated in each."""
-    return _pack_rows([p.tcx[..., None], p.tcy[..., None], p.tzc1, p.tzc2], B)
+    """The kernel's parameter rows [tcx, tcy, tzc1(Z), tzc2(Z)] in f32 (bf16
+    coefficients as their exact f32 values): one row shared by every slot
+    (stride 0) when no leaf is per-slot, else one row per slot (stride
+    2 + 2Z), a shared leaf repeated in each."""
+    return _pack_rows([leaf.float() for leaf in
+                       (p.tcx[..., None], p.tcy[..., None], p.tzc1, p.tzc2)],
+                      B)
 
 
 def _advect_fused_cuda(u, v, w, p: AdvectParams, T: int, dt: float,
                        xm, ym, y_tile=None, *,
                        plan: Optional[FusedPlan] = None):
-    """Launch K1 (`csrc/advect_fused.cu`) on (B, X, Y, Z) fields: one launch
+    """Launch K1 (`csrc/advect_fused.cuh`) on (B, X, Y, Z) fields: one launch
     a pass of `fused_passes(T)`, each on `fused_device_plan`'s plan for this
     card, or on `plan`, a plan made for these shapes and T (one pass)."""
     B, X, Y, Z = u.shape
@@ -723,19 +750,21 @@ def _advect_fused_cuda(u, v, w, p: AdvectParams, T: int, dt: float,
     pt, sp = _param_table(p, B)
     xmt, sx = _pack_rows([xm], B)
     ymt, sy = _pack_rows([ym], B)
+    entry = _FUSED_ENTRY[_build_of(u.dtype, coef_bf16(p))]
     outs = (u, v, w)
     for Tk in passes:
-        run = plan or fused_device_plan(u.device, X, Y, Z, Tk, B, y_tile)
+        run = plan or fused_device_plan(u.device, X, Y, Z, Tk, B, y_tile,
+                                        dtype=u.dtype, coef=coef_bf16(p))
         ins, outs = outs, tuple(torch.empty_like(u) for _ in range(3))
         with torch.cuda.device(u.device):
             stream = torch.cuda.current_stream(u.device).cuda_stream
-            err = lib.advect_fused_f32(
+            err = getattr(lib, entry)(
                 *(f.data_ptr() for f in ins + outs), pt.data_ptr(),
                 xmt.data_ptr(), ymt.data_ptr(), B, X, Y, Z, Tk, run.TY,
                 run.S, run.n_ty, run.CZ, run.W, run.n_cz, run.CX, run.n_cx,
-                run.cells_per_thread, run.threads, run.pitch, sp, sx, sy, dt,
-                run.shared_bytes, stream)
-        _build.check(err, "advect_fused_f32")
+                run.cells_per_thread, run.threads, run.pitch, sp, sx, sy,
+                step_dt(dt, u.dtype), run.shared_bytes, stream)
+        _build.check(err, entry)
         LAUNCHES["advect_fused"] += 1
         LAUNCHED_SHARED["advect_fused"] = run.shared_bytes
     return outs
@@ -743,13 +772,35 @@ def _advect_fused_cuda(u, v, w, p: AdvectParams, T: int, dt: float,
 
 @functools.lru_cache(maxsize=64)
 def _fused_attrs_cached(index: int, T: int, C: int, threads: int,
-                        shared: int) -> Tuple[int, int, int, int]:
+                        shared: int, build: Tuple[bool, bool] = (False, False)
+                        ) -> Tuple[int, int, int, int]:
+    """The card's attributes of K1's (T, C) build; `build` is (bf16
+    fields, bf16 coefficients)."""
     lib = _build.load()
     out = (ctypes.c_int * 4)()
+    entry = _FUSED_ATTRS[build]
     with torch.cuda.device(index):
-        err = lib.advect_fused_attrs(T, C, threads, shared, out)
-    _build.check(err, "advect_fused_attrs")
+        err = getattr(lib, entry)(T, C, threads, shared, out)
+    _build.check(err, entry)
     return tuple(out)
+
+
+# K1's entry points by build (bf16 fields, bf16 coefficients): the bf16
+# builds take dt rounded to bf16, as the reference's update rounds it
+_FUSED_ENTRY = {(False, False): "advect_fused_f32",
+                (True, False): "advect_fused_bf16",
+                (True, True): "advect_fused_bf16_coef"}
+_FUSED_ATTRS = {(False, False): "advect_fused_attrs",
+                (True, False): "advect_fused_bf16_attrs",
+                (True, True): "advect_fused_bf16_coef_attrs"}
+
+
+def _build_of(dtype, coef: bool) -> Tuple[bool, bool]:
+    """Which build of a PW kernel (K1, K3, K2) runs fields of `dtype`:
+    (bf16 fields, bf16 coefficients); the f32 build has one kind of
+    coefficient."""
+    bf16 = dtype == torch.bfloat16
+    return bf16, bf16 and bool(coef)
 
 
 def _device_index(device) -> int:
@@ -758,24 +809,30 @@ def _device_index(device) -> int:
 
 
 def fused_device_plan(device, X: int, Y: int, Z: int, T: int, B: int = 1,
-                      y_tile: Optional[int] = None) -> FusedPlan:
+                      y_tile: Optional[int] = None, *,
+                      dtype=torch.float32, coef: bool = False) -> FusedPlan:
     """`fused_launch_plan` on `device`'s card: its SM count, and the
-    resident blocks per SM the card reports for the pass's build."""
+    resident blocks per SM the card reports for the pass's build (f32, or
+    bf16 fields with f32 or bf16 coefficients, `coef`). The bf16 build
+    plans as the f32 one: its registers and shared planes hold f32 words."""
     index = _device_index(device)
     n_sm = torch.cuda.get_device_properties(index).multi_processor_count
     blk = _fused_block(Y, Z, T, y_tile)
-    per_sm = _fused_attrs_cached(index, T, blk.C, blk.threads, blk.shared)[3]
+    per_sm = _fused_attrs_cached(index, T, blk.C, blk.threads, blk.shared,
+                                 _build_of(dtype, coef))[3]
     return fused_launch_plan(X, Y, Z, T, B, n_sm, per_sm, y_tile=y_tile)
 
 
-def fused_kernel_attrs(device, T: int, plan: FusedPlan) -> dict:
-    """What the card says of the K1 build that runs `plan` at depth T:
-    registers and local (spill) bytes per thread, the most threads a block
-    of it can have, and its resident blocks per SM at the plan's threads and
-    shared bytes."""
+def fused_kernel_attrs(device, T: int, plan: FusedPlan, *,
+                       dtype=torch.float32, coef: bool = False) -> dict:
+    """What the card says of the K1 build that runs `plan` at depth T
+    (f32, or bf16 fields with f32 or bf16 coefficients, `coef`): registers
+    and local (spill) bytes per thread, the most threads a block of it can
+    have, and its resident blocks per SM at the plan's threads and shared
+    bytes."""
     regs, local, most, per_sm = _fused_attrs_cached(
         _device_index(device), T, plan.cells_per_thread, plan.threads,
-        plan.shared_bytes)
+        plan.shared_bytes, _build_of(dtype, coef))
     return {"registers": regs, "local_bytes": local, "max_threads": most,
             "blocks_per_sm": per_sm}
 
@@ -961,10 +1018,11 @@ class RungPlan(NamedTuple):
     blocks_per_sm: int
 
 
-def _rung_shared(knobs: _RungKnobs, S: int, Z: int) -> int:
+def _rung_shared(knobs: _RungKnobs, S: int, Z: int, itemsize: int = 4) -> int:
     """A rung block's shared bytes at a slab of S rows: 3 fields x planes of
-    S x Z floats."""
-    return 3 * knobs.planes * S * Z * 4
+    S x Z cells of `itemsize` bytes (cp.async stages the cells as they are
+    stored: 4-byte f32, 2-byte bf16)."""
+    return 3 * knobs.planes * S * Z * itemsize
 
 
 def _rung_budget(blocks: int) -> int:
@@ -972,7 +1030,8 @@ def _rung_budget(blocks: int) -> int:
     return min(SMEM_PER_BLOCK, SMEM_PER_SM // blocks - SMEM_RESERVED_PER_BLOCK)
 
 
-def _rung_own_tile(knobs: _RungKnobs, Y: int, Z: int, what: str) -> int:
+def _rung_own_tile(knobs: _RungKnobs, Y: int, Z: int, what: str,
+                   itemsize: int = 4) -> int:
     """A rung's own owned rows per tile: all of Y where that slab lets
     `knobs.blocks_per_sm` blocks share an SM, else the tallest tile whose
     slab does (one block an SM where none does), taking the largest divisor
@@ -980,15 +1039,16 @@ def _rung_own_tile(knobs: _RungKnobs, Y: int, Z: int, what: str) -> int:
     naming the budget where not even a one-row tile fits one block."""
     for blocks in (knobs.blocks_per_sm, 1):
         budget = _rung_budget(blocks)
-        if _rung_shared(knobs, Y, Z) <= budget:
+        if _rung_shared(knobs, Y, Z, itemsize) <= budget:
             return Y
-        best = budget // _rung_shared(knobs, 1, Z) - 2
+        best = budget // _rung_shared(knobs, 1, Z, itemsize) - 2
         if best >= 1:
             divisor = max(d for d in range(1, best + 1) if Y % d == 0)
             return divisor if 2 * divisor >= best else best
     raise ValueError(
         f"{what}: even a y-tile of one row needs "
-        f"{_rung_shared(knobs, min(3, Y), Z)} B of shared memory at Z={Z}; "
+        f"{_rung_shared(knobs, min(3, Y), Z, itemsize)} B of shared memory "
+        f"at Z={Z}; "
         f"one block may use {SMEM_PER_BLOCK} B")
 
 
@@ -1002,17 +1062,17 @@ class _RungBlock(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def _rung_block(name: str, Y: int, Z: int,
-                y_tile: Optional[int]) -> _RungBlock:
+def _rung_block(name: str, Y: int, Z: int, y_tile: Optional[int],
+                itemsize: int = 4) -> _RungBlock:
     """A rung's block at `y_tile` (None: its own, `_rung_own_tile`). A
     given tile taller than the rung's own runs as the fewest equal
     sub-tiles no taller: TY / k rows for the least k dividing TY, so that
     the caller's tile edges stay tile edges. y-tiling is bitwise invariant
     (the port's grid-tiled == untiled contract), so the result is the same
     bits. Threads: `RUNG_CELLS_PER_THREAD` owned cells each, in whole warps,
-    at most `RUNG_MAX_THREADS`."""
+    at most `RUNG_MAX_THREADS`. `itemsize`: the fields' (4 f32, 2 bf16)."""
     knobs = _RUNG_KNOBS[name]
-    own = _rung_own_tile(knobs, Y, Z, name)
+    own = _rung_own_tile(knobs, Y, Z, name, itemsize)
     TY, S, n_ty = _grid_geometry(Y, own if y_tile is None else y_tile, 1)
     if TY > own:
         k = next(k for k in range(2, TY + 1) if TY % k == 0 and TY // k <= own)
@@ -1020,13 +1080,15 @@ def _rung_block(name: str, Y: int, Z: int,
     check_launch_grid((1, n_ty, 1), name)
     threads = -(-TY * Z // RUNG_CELLS_PER_THREAD)
     threads = min(max(-(-threads // 32) * 32, 32), RUNG_MAX_THREADS)
-    return _RungBlock(TY, S, n_ty, threads, _rung_shared(knobs, S, Z))
+    return _RungBlock(TY, S, n_ty, threads,
+                      _rung_shared(knobs, S, Z, itemsize))
 
 
 @functools.lru_cache(maxsize=256)
 def rung_launch_plan(name: str, X: int, Y: int, Z: int, n_sm: int,
                      blocks_per_sm: int, *, y_tile: Optional[int] = None,
-                     x_chunk: Optional[int] = None) -> RungPlan:
+                     x_chunk: Optional[int] = None,
+                     itemsize: int = 4) -> RungPlan:
     """One launch of the v1-v3 kernel `name` (`advect_blocked`,
     `advect_dataflow`, `advect_wide`) over (X, Y, Z) fields on a card of
     `n_sm` SMs that holds `blocks_per_sm` of its blocks at once: the y-tile
@@ -1034,10 +1096,11 @@ def rung_launch_plan(name: str, X: int, Y: int, Z: int, n_sm: int,
     it is taller), x chunks of `x_chunk` slices where given, else one
     slice (K3) or chunks from `_plan_x_chunks` (K2: whole waves of the
     resident blocks, weighing the two halo slices each block loads beyond
-    its own). Raises ValueError, naming the limit, where no tile fits or
-    the grid is beyond CUDA's."""
+    its own). `itemsize` is the fields' (2 for bf16, whose stage holds
+    2-byte cells). Raises ValueError, naming the limit, where no tile fits
+    or the grid is beyond CUDA's."""
     knobs = _RUNG_KNOBS[name]
-    blk = _rung_block(name, Y, Z, y_tile)
+    blk = _rung_block(name, Y, Z, y_tile, itemsize)
     CX = x_chunk or (_plan_x_chunks(X, 2, blk.n_ty, n_sm * blocks_per_sm,
                                     n_sm) if knobs.walks_x else 1)
     n_cx = -(-X // CX)
@@ -1048,40 +1111,54 @@ def rung_launch_plan(name: str, X: int, Y: int, Z: int, n_sm: int,
 
 
 @functools.lru_cache(maxsize=64)
-def _rung_attrs_cached(index: int, name: str, threads: int,
-                       shared: int) -> Tuple[int, int, int, int]:
+def _rung_attrs_cached(index: int, name: str, threads: int, shared: int,
+                       build: Tuple[bool, bool] = (False, False)
+                       ) -> Tuple[int, int, int, int]:
+    """The card's attributes of the rung's build; `build` is (bf16 fields,
+    bf16 coefficients)."""
     lib = _build.load()
     out = (ctypes.c_int * 4)()
+    wide = int(name == "advect_wide")
     with torch.cuda.device(index):
         if name == "advect_blocked":
-            err = lib.advect_blocked_attrs(threads, shared, out)
+            err = (lib.advect_blocked_bf16_attrs(int(build[1]), threads,
+                                                 shared, out) if build[0]
+                   else lib.advect_blocked_attrs(threads, shared, out))
+        elif build[0]:
+            err = lib.advect_dataflow_bf16_attrs(wide, int(build[1]),
+                                                 threads, shared, out)
         else:
-            err = lib.advect_dataflow_attrs(int(name == "advect_wide"),
-                                            threads, shared, out)
+            err = lib.advect_dataflow_attrs(wide, threads, shared, out)
     _build.check(err, f"{name} attrs")
     return tuple(out)
 
 
 def rung_device_plan(device, name: str, X: int, Y: int, Z: int,
                      y_tile: Optional[int] = None,
-                     x_chunk: Optional[int] = None) -> RungPlan:
+                     x_chunk: Optional[int] = None, *, dtype=torch.float32,
+                     coef: bool = False) -> RungPlan:
     """`rung_launch_plan` on `device`'s card: its SM count, and the
-    resident blocks per SM the card reports for the planned block."""
+    resident blocks per SM the card reports for the planned block of the
+    build for fields of `dtype` (bf16 with bf16 coefficients: `coef`)."""
     index = _device_index(device)
     n_sm = torch.cuda.get_device_properties(index).multi_processor_count
-    blk = _rung_block(name, Y, Z, y_tile)
-    per_sm = _rung_attrs_cached(index, name, blk.threads, blk.shared)[3]
+    itemsize = _itemsize(dtype)
+    blk = _rung_block(name, Y, Z, y_tile, itemsize)
+    per_sm = _rung_attrs_cached(index, name, blk.threads, blk.shared,
+                                _build_of(dtype, coef))[3]
     return rung_launch_plan(name, X, Y, Z, n_sm, per_sm, y_tile=y_tile,
-                            x_chunk=x_chunk)
+                            x_chunk=x_chunk, itemsize=itemsize)
 
 
-def rung_kernel_attrs(device, name: str, plan: RungPlan) -> dict:
-    """What the card says of the kernel that runs `plan`: registers and
-    local (spill) bytes per thread, the most threads a block of it can
-    have, and its resident blocks per SM at the plan's threads and shared
-    bytes."""
+def rung_kernel_attrs(device, name: str, plan: RungPlan, *,
+                      dtype=torch.float32, coef: bool = False) -> dict:
+    """What the card says of the kernel that runs `plan` (the build for
+    fields of `dtype`, bf16 coefficients where `coef`): registers and local
+    (spill) bytes per thread, the most threads a block of it can have, and
+    its resident blocks per SM at the plan's threads and shared bytes."""
     regs, local, most, per_sm = _rung_attrs_cached(
-        _device_index(device), name, plan.threads, plan.shared_bytes)
+        _device_index(device), name, plan.threads, plan.shared_bytes,
+        _build_of(dtype, coef))
     return {"registers": regs, "local_bytes": local, "max_threads": most,
             "blocks_per_sm": per_sm}
 
@@ -1098,13 +1175,19 @@ def _rung_block_geometry(plan: RungPlan, X: int, Y: int, t: int, cx: int):
             (x0, min(x0 + plan.CX, X)))
 
 
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
 def _advect_rung_plain(u, v, w, p: AdvectParams, fuse_update: bool,
                        dt: float):
     """Plain PyTorch version of every v1-v3 kernel: the reference's sources
-    (zero on the boundary), or one Euler step with `fuse_update`."""
+    (zero on the boundary) in the fields' dtype, or one Euler step with
+    `fuse_update`, the update in the fields' dtype (`_emit_tile_outputs`)."""
+    srcs = tuple(s.to(u.dtype) for s in pw_advect_ref(u, v, w, p))
     if fuse_update:
-        return pw_step_ref(u, v, w, p, dt)
-    return pw_advect_ref(u, v, w, p)
+        return tuple(_euler(f, s, dt) for f, s in zip((u, v, w), srcs))
+    return srcs
 
 
 def _advect_rung_cuda(name: str, u, v, w, p: AdvectParams,
@@ -1115,29 +1198,43 @@ def _advect_rung_cuda(name: str, u, v, w, p: AdvectParams,
     `y_tile` (None: the rung's own tile) with x chunks of `x_chunk` slices
     where given."""
     X, Y, Z = u.shape
-    _rung_block(name, Y, Z, y_tile)   # the refusals, before any build
-    lib = _build.load()
-    run = rung_device_plan(u.device, name, X, Y, Z, y_tile, x_chunk)
-    # [tcx, tcy, 0, 0, tzc1(Z), tzc2(Z)]: the z vectors start 16 bytes in,
-    # so `wide` reads each run of 4 of them in one 16-byte load
+    bf16, coef = u.dtype == torch.bfloat16, coef_bf16(p)
+    _rung_block(name, Y, Z, y_tile, u.element_size())   # the refusals,
+    lib = _build.load()                                  # before any build
+    run = rung_device_plan(u.device, name, X, Y, Z, y_tile, x_chunk,
+                           dtype=u.dtype, coef=coef)
+    # [tcx, tcy, 0, 0, tzc1(Z), tzc2(Z)] in f32: the z vectors start 16
+    # bytes in, so `wide` reads each run of them in 16-byte loads
     pt = torch.cat([torch.stack([p.tcx, p.tcy]), p.tcx.new_zeros(2), p.tzc1,
-                    p.tzc2])
+                    p.tzc2]).float()
     outs = [torch.empty_like(u) for _ in range(3)]
     ptrs = [f.data_ptr() for f in (u, v, w, *outs, pt)]
     geometry = (X, Y, Z, run.TY, run.S, run.n_ty, run.CX)
+    wide, fuse = int(name == "advect_wide"), int(fuse_update)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        if name == "advect_blocked":
-            err = lib.advect_blocked_f32(*ptrs, *geometry, run.threads,
-                                         int(fuse_update), dt,
-                                         run.shared_bytes, stream)
-        else:
-            err = lib.advect_dataflow_f32(*ptrs, *geometry, run.planes,
-                                          run.threads,
-                                          int(name == "advect_wide"),
-                                          int(fuse_update), dt,
+        if name == "advect_blocked" and bf16:
+            entry = "advect_blocked_bf16"
+            err = lib.advect_blocked_bf16(*ptrs, *geometry, run.threads,
+                                          fuse, int(coef),
+                                          step_dt(dt, u.dtype),
                                           run.shared_bytes, stream)
-    _build.check(err, name)
+        elif name == "advect_blocked":
+            entry = "advect_blocked_f32"
+            err = lib.advect_blocked_f32(*ptrs, *geometry, run.threads,
+                                         fuse, dt, run.shared_bytes, stream)
+        elif bf16:
+            entry = "advect_dataflow_bf16"
+            err = lib.advect_dataflow_bf16(*ptrs, *geometry, run.planes,
+                                           run.threads, wide, fuse,
+                                           int(coef), step_dt(dt, u.dtype),
+                                           run.shared_bytes, stream)
+        else:
+            entry = "advect_dataflow_f32"
+            err = lib.advect_dataflow_f32(*ptrs, *geometry, run.planes,
+                                          run.threads, wide, fuse, dt,
+                                          run.shared_bytes, stream)
+    _build.check(err, entry)
     LAUNCHES[name] += 1
     LAUNCHED_SHARED[name] = run.shared_bytes
     return tuple(outs)
@@ -1150,7 +1247,8 @@ def _advect_rung(name: str, u, v, w, p: AdvectParams, y_tile, tiling,
     _check_fields(u, v, w, 3, "(X, Y, Z)")
     X, Y, Z = u.shape
     if name == "advect_wide":
-        _check_wide_model(Y, Z, 4, y_tile, grid_tiled=tiling == "grid")
+        _check_wide_model(Y, Z, u.element_size(), y_tile,
+                          grid_tiled=tiling == "grid")
         if any(base_address(f) % 16 for f in (u, v, w)):
             raise ValueError("wide moves 16-byte vectors: u, v and w must "
                              "start on a 16-byte boundary")
@@ -1228,13 +1326,15 @@ def advect_dataflow(u, v, w, p: AdvectParams, *, y_tile: int | None = None,
 def advect_wide(u, v, w, p: AdvectParams, *, y_tile: int | None = None,
                 tiling: str = "grid", fuse_update: bool = False,
                 dt: float = 1.0):
-    """v3: `advect_dataflow` with 16-byte (float4) loads and stores.
+    """v3: `advect_dataflow` with 16-byte loads and stores (4 f32 or 8
+    bf16 cells a move).
 
     Its contract is the card's, not the TPU's (Z % 128, Y % 8): each Z row
-    must be whole 16-byte vectors (Z * 4 % 16 == 0) and the fields must
-    start on 16-byte boundaries, else this raises; it runs the in-grid path
-    only and refuses host tiling, as the reference does. So it runs at the
-    paper's Z = 64, where the TPU's contract refuses it."""
+    must be whole 16-byte vectors (Z * itemsize % 16 == 0: Z % 4 in f32,
+    Z % 8 in bf16) and the fields must start on 16-byte boundaries, else
+    this raises; it runs the in-grid path only and refuses host tiling, as
+    the reference does. So it runs at the paper's Z = 64, where the TPU's
+    contract refuses it."""
     return _advect_rung("advect_wide", u, v, w, p, y_tile, tiling,
                         fuse_update, dt)
 
@@ -1245,7 +1345,9 @@ def advect_wide(u, v, w, p: AdvectParams, *, y_tile: int | None = None,
 
 
 def _finite_guard_plain(u, v, w):
-    """Plain version: (..., X) f32 flags, 1.0 iff slice x is all finite."""
+    """Plain version: (..., X) f32 flags, 1.0 iff slice x is all finite
+    (f32 or bf16 fields; the flags are f32 either way, as the
+    reference's)."""
     ok = torch.ones(u.shape[:-2], dtype=torch.bool, device=u.device)
     for f in (u, v, w):
         ok &= torch.isfinite(f).flatten(-2).all(dim=-1)
@@ -1258,13 +1360,18 @@ def _finite_guard_cuda(u, v, w):
     check_launch_grid((X, B, 1), "K4 (finite_guard)")
     lib = _build.load()
     flags = torch.empty((B, X), dtype=torch.float32, device=u.device)
-    vec4 = int((Y * Z) % 4 == 0
-               and all(f.data_ptr() % 16 == 0 for f in (u, v, w)))
+    # 16-byte loads where a slice is whole 16-byte words: 4 f32 or 8 bf16
+    # cells
+    per_word = 16 // u.element_size()
+    vec = int((Y * Z) % per_word == 0
+              and all(f.data_ptr() % 16 == 0 for f in (u, v, w)))
+    entry = ("finite_guard_bf16" if u.dtype == torch.bfloat16
+             else "finite_guard_f32")
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = lib.finite_guard_f32(u.data_ptr(), v.data_ptr(), w.data_ptr(),
-                                   flags.data_ptr(), B, X, Y * Z, vec4, stream)
-    _build.check(err, "finite_guard_f32")
+        err = getattr(lib, entry)(u.data_ptr(), v.data_ptr(), w.data_ptr(),
+                                  flags.data_ptr(), B, X, Y * Z, vec, stream)
+    _build.check(err, entry)
     LAUNCHES["finite_guard"] += 1
     return flags
 
@@ -1272,8 +1379,8 @@ def _finite_guard_cuda(u, v, w):
 def finite_guard(u, v, w):
     """Flags of the x-slices that are entirely finite in u, v and w.
 
-    (X, Y, Z) fields give (X,) f32 flags, slot-stacked (B, X, Y, Z) fields
-    give (B, X): ``flags[..., x] == 1.0`` iff slice x of all three fields is
+    (X, Y, Z) fields (f32 or bf16) give (X,) f32 flags, slot-stacked
+    (B, X, Y, Z) fields give (B, X): ``flags[..., x] == 1.0`` iff slice x of all three fields is
     finite, so ``flags.min() > 0`` iff the whole state is. Its bytes are
     `roofline.guard_bytes_model`."""
     if not torch.is_tensor(u) or u.ndim not in (3, 4):
@@ -1291,7 +1398,7 @@ def _k4_cuda(u, v, w):
 
 
 def _k4_fake(u, v, w):
-    return u.new_empty(u.shape[:2])
+    return u.new_empty(u.shape[:2], dtype=torch.float32)
 
 
 _OP_K4 = L.define("finite_guard", "(Tensor u, Tensor v, Tensor w) -> Tensor",
@@ -1338,8 +1445,9 @@ def _check_spec_fields(fields, spec, rank: int, what: str) -> None:
             raise ValueError(f"field {name!r} shape {tuple(f.shape)} != "
                              f"{tuple(shape)}")
         if f.dtype == torch.bfloat16:
-            raise NotImplementedError("only float32 is ported; bf16 is "
-                                      "queued in ROADMAP Queue 2")
+            raise NotImplementedError(
+                "K6 (stencil_fused) takes float32 fields: its bf16 path comes "
+                "in the next slice of the port, with K7's (ROADMAP Queue 2)")
         if f.dtype != torch.float32:
             raise TypeError(f"field {name!r} must be float32, got {f.dtype}")
         if f.device != fields[0].device:
@@ -2228,9 +2336,13 @@ def _check_band_fields(fields, mesh):
             if not isinstance(f, torch.Tensor):
                 raise TypeError(f"{name} must be a torch.Tensor, got "
                                 f"{type(f).__name__}")
+            if f.dtype == torch.bfloat16:
+                raise NotImplementedError(
+                    f"{name}: K7 (halo_band_exchange_dma) takes float32 "
+                    "shards: its bf16 path comes in the next slice of the "
+                    "port, with K6's (ROADMAP Queue 2)")
             if f.dtype != torch.float32:
-                raise TypeError(f"{name} must be float32 (bf16 is not "
-                                f"ported yet), got {f.dtype}")
+                raise TypeError(f"{name} must be float32, got {f.dtype}")
             if f.device != dev:
                 raise ValueError(f"shard {s} lies on {f.device}, the mesh "
                                  f"puts it on {dev}")

@@ -37,9 +37,13 @@ Contracts (the reference's, held by tests/test_torch_stencil_serving.py):
     their in-flight state when slots free up, bitwise.
 
 The batch (B, X, Y, Z), its masks (B, X) and (B, Y) and the per-slot
-parameter leaves live on the domain's device between mega-steps. Requests
-come in as host arrays (or tensors); states and outputs go back as host
-numpy arrays.
+parameter leaves live on the domain's device between mega-steps, in the
+domain's dtype (float32 or bfloat16; the masks stay f32). Requests come in
+as host arrays (or tensors); states and outputs go back as host numpy
+arrays. By design, a bf16 engine's states and outputs are float32 arrays
+holding the bf16 values (an exact widening), where the reference's are
+`ml_dtypes` bf16 arrays: numpy has no bf16 without that package, which the
+port does not use. Its disk snapshots hold the reference's `<V2` words.
 """
 from __future__ import annotations
 
@@ -55,7 +59,8 @@ import torch
 from repro_torch.analysis import smem as SM
 from repro_torch.core import roofline as R
 from repro_torch.kernels.advection import advection as K
-from repro_torch.kernels.advection.ref import AdvectParams
+from repro_torch.kernels.advection.ref import (AdvectParams,
+                                               tensor_from_numpy)
 from repro_torch.serving.faults import (DEFAULT_LADDER, DegradationLadder,
                                         ExchangeStalled, Fault, FaultInjector,
                                         FaultPlan, RecoveryExhausted,
@@ -66,17 +71,25 @@ from repro_torch.training import checkpoint as CKPT
 
 
 def _host(a) -> np.ndarray:
-    """A request's array (numpy-convertible or a tensor) on the host."""
+    """A request's array (numpy-convertible or a tensor) on the host; a
+    bf16 tensor as float32 (exact)."""
     if torch.is_tensor(a):
-        return a.detach().cpu().numpy()
+        a = a.detach().cpu()
+        return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
     return np.asarray(a)
 
 
 def _tensor(a, dtype) -> torch.Tensor:
-    """A tensor as it is, or a host array copied into a new one."""
+    """A tensor as it is, or a host array copied into a new one of `dtype`
+    (a bf16 array bit for bit, `ref.tensor_from_numpy`)."""
     if torch.is_tensor(a):
         return a
-    return torch.tensor(np.asarray(a), dtype=dtype)
+    return tensor_from_numpy(a, dtype, "cpu")
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as a numpy array: bf16 as float32 (exact)."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 @dataclasses.dataclass
@@ -276,7 +289,7 @@ class StencilServingEngine:
         # the mega-step's shared-memory plan (K5's block) and slot buffers,
         # before any allocation (the analysis layer's smem pass)
         SM.serving_ring_plan(d.X, d.Y, d.Z, batch=batch_size, T=d.fuse_T,
-                             y_tile=d.y_tile,
+                             itemsize=d.itemsize, y_tile=d.y_tile,
                              context="serving engine slot buffers").check()
 
     def _alloc(self, batch_size: int) -> None:
@@ -369,8 +382,12 @@ class StencilServingEngine:
             raise ValueError(f"request {req.uid} params are not for Z={d.Z}")
         req.states = []
         if req.n_steps == 0:
-            req.out = tuple(np.array(f, dtype=np.dtype(d.dtype))
-                            for f in (u, v, w))
+            if d.dtype == "bfloat16":
+                req.out = tuple(_to_numpy(_tensor(f, torch.bfloat16))
+                                for f in (u, v, w))
+            else:
+                req.out = tuple(np.array(f, dtype=np.dtype(d.dtype))
+                                for f in (u, v, w))
             req.status = "done"
             return True
         self._pack(slot, u, v, w, req.params, (Xr, Yr))
@@ -399,7 +416,7 @@ class StencilServingEngine:
         Xr, Yr = self._extent[slot]
         # a copy even on the CPU, where .cpu() would alias the batch that
         # later mega-steps and faults write in place
-        return tuple(f[slot, :Xr, :Yr].to("cpu", copy=True).numpy()
+        return tuple(_to_numpy(f[slot, :Xr, :Yr].to("cpu", copy=True))
                      for f in (self.u, self.v, self.w))
 
     # -- the mega-step -----------------------------------------------------

@@ -29,6 +29,7 @@ from repro_torch.kernels.advection import ops
 from repro_torch.kernels.advection import ref as REF
 
 VARIANTS = ("reference", "blocked", "dataflow", "wide", "fused")
+DTYPES = ("float32", "bfloat16")
 
 # the paper's experiment grid sizes (Fig. 8), (x, y, z)
 PAPER_GRIDS = {
@@ -72,6 +73,12 @@ class AdvectionDomain:
     its own launch plan (`advection.fused_launch_plan`). Tiled and untiled
     results are equal bitwise, so neither changes a result; the byte and
     ring accounting below prices `run_y_tile` with the reference's models.
+
+    `dtype` is "float32" or "bfloat16". A bf16 domain holds its fields and
+    its coefficients (`params`) in bf16, as the reference's does, so every
+    op of its step is a bf16 op (rounded to bf16) on every rung, the
+    kernels' and the plain reference's alike, and its byte models price
+    2-byte cells.
     """
     X: int
     Y: int
@@ -110,9 +117,9 @@ class AdvectionDomain:
         if self.variant not in VARIANTS:
             raise ValueError(f"variant must be one of {VARIANTS}, got "
                              f"{self.variant!r}")
-        if self.dtype != "float32":
-            raise NotImplementedError("only float32 is ported; bf16 is "
-                                      "queued in ROADMAP Queue 2")
+        if self.dtype not in DTYPES:
+            raise NotImplementedError(f"dtype must be one of {DTYPES}, got "
+                                      f"{self.dtype!r}")
         K._check_tiling(self.tiling)
         K._check_y_tile(self.y_tile)
         tile = self.y_tile
@@ -122,7 +129,8 @@ class AdvectionDomain:
                                             self.Z, self.itemsize)
         object.__setattr__(self, "run_y_tile", tile)
         object.__setattr__(self, "params",
-                           REF.default_params(self.Z, dtype=torch.float32,
+                           REF.default_params(self.Z,
+                                              dtype=getattr(torch, self.dtype),
                                               device=self.device))
 
     @property
@@ -160,6 +168,7 @@ class AdvectionDomain:
                                  fuse_update=True, dt=self.dt)
         dt = self.dt if dt is None else dt
         su, sv, sw = self.sources(u, v, w)
+        dt = REF.step_dt(dt, su.dtype)
         return u + dt * su, v + dt * sv, w + dt * sw
 
     def substeps_per_step(self) -> int:

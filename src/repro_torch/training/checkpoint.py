@@ -18,7 +18,15 @@ leaf. So either package restores what the other saved.
   * `keep_last` bounds disk usage; `AsyncCheckpointer` overlaps the
     serialisation with the caller's next step (one save in flight).
 
-Restored leaves are numpy arrays, as in the reference. With `cfg=` and
+A bf16 leaf (a tensor) is written as the reference writes one: its raw
+2-byte words, which `np.save` stores as `<V2` (numpy has no bfloat16
+without `ml_dtypes`, which the port does not use), with "bfloat16" in the
+manifest. Either package restores the other's bf16 leaves bitwise.
+
+Restored leaves are numpy arrays, as in the reference, except where the
+`like_state` leaf is a bf16 tensor: a `<V2` leaf then comes back as a bf16
+tensor on the CPU, bit for bit (without such a leaf it stays the raw
+`<V2` array the reference returns). With `cfg=` and
 `layout=`, a train state's params are stored in the logical (tp = 1) head
 layout (`models.relayout.to_logical`) and mapped back to `layout` on
 restore (`from_logical`), each leaf then coerced to the dtype of its
@@ -92,9 +100,42 @@ def _unflatten(like, values: List[Any]):
 
 
 def _to_host(leaf, copy: bool = False) -> np.ndarray:
+    """A leaf as a host numpy array; a bf16 tensor as its raw 2-byte words
+    (`<V2`), the reference's bytes for a bf16 leaf."""
     if torch.is_tensor(leaf):
-        return leaf.detach().to("cpu", copy=copy).numpy()
+        host = leaf.detach().to("cpu", copy=copy)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view("V2")
+        return host.numpy()
     return np.array(leaf, copy=True) if copy else np.asarray(leaf)
+
+
+def _is_bf16(leaf) -> bool:
+    return torch.is_tensor(leaf) and leaf.dtype == torch.bfloat16
+
+
+def _dtype_name(leaf, host: np.ndarray) -> str:
+    """The manifest's dtype of a leaf: the reference's name, "bfloat16",
+    for a bf16 one (a tensor, or an `ml_dtypes` array)."""
+    if _is_bf16(leaf) or getattr(getattr(leaf, "dtype", None), "name",
+                                 None) == "bfloat16":
+        return "bfloat16"
+    return str(host.dtype)
+
+
+def _bf16_tensor(a: np.ndarray) -> torch.Tensor:
+    """A bf16 leaf's raw 2-byte words (`<V2`, or an `ml_dtypes` array) as
+    a bf16 tensor on the CPU, bit for bit."""
+    return torch.from_numpy(np.array(a, order="C").view(np.int16)).view(
+        torch.bfloat16)
+
+
+def _restored(a: np.ndarray, like):
+    """A stored leaf for a `like_state` leaf: a bf16 tensor where `like` is
+    one and the leaf holds 2-byte words, else the array as stored."""
+    if _is_bf16(like) and a.dtype.itemsize == 2 and a.dtype.kind == "V":
+        return _bf16_tensor(a)
+    return a
 
 
 def _tree_to_host(state) -> Any:
@@ -105,10 +146,27 @@ def _tree_to_host(state) -> Any:
 
 
 def _np_dtype(leaf):
-    """The numpy dtype of a leaf (tensor, array or scalar), or None."""
+    """The numpy dtype of a leaf (tensor, array or scalar), or None; None
+    too for a bf16 tensor, which numpy has no dtype for (`_coerce`)."""
+    if _is_bf16(leaf):
+        return None
     if torch.is_tensor(leaf):
         return torch.empty((), dtype=leaf.dtype).numpy().dtype
     return getattr(leaf, "dtype", None)
+
+
+def _coerce(a, like):
+    """A restored leaf in the dtype of its `like_state` leaf: a bf16 tensor
+    for a bf16 one (2-byte words bit for bit, other values rounded)."""
+    if _is_bf16(like):
+        if torch.is_tensor(a):
+            return a.to(torch.bfloat16)
+        a = np.asarray(a)
+        if a.dtype.itemsize == 2 and a.dtype.kind == "V":
+            return _bf16_tensor(a)
+        return torch.from_numpy(np.array(a, order="C")).to(torch.bfloat16)
+    dt = _np_dtype(like)
+    return np.asarray(a) if dt is None else np.asarray(a, dtype=dt)
 
 
 def save(ckpt_dir: str | Path, state: Dict[str, Any], step: int, *,
@@ -125,7 +183,8 @@ def save(ckpt_dir: str | Path, state: Dict[str, Any], step: int, *,
     if cfg is not None and layout is not None:
         state = {**state, "params": R.to_logical(state["params"], cfg,
                                                  layout)}
-    leaves = [(k, _to_host(v)) for k, v in _flatten_with_paths(state)]
+    flat = _flatten_with_paths(state)
+    leaves = [(k, _to_host(v)) for k, v in flat]
     np.savez(tmp / "arrays.npz", **dict(leaves))
     manifest = {
         "step": step,
@@ -133,7 +192,8 @@ def save(ckpt_dir: str | Path, state: Dict[str, Any], step: int, *,
         "arch": cfg.name if cfg else None,
         "keys": [k for k, _ in leaves],
         "shapes": {k: list(v.shape) for k, v in leaves},
-        "dtypes": {k: str(v.dtype) for k, v in leaves},
+        "dtypes": {k: _dtype_name(leaf, v)
+                   for (k, v), (_, leaf) in zip(leaves, flat)},
     }
     (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
     if final.exists():
@@ -216,8 +276,9 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
 def restore(ckpt_dir: str | Path, like_state: Dict[str, Any], *,
             step: Optional[int] = None, cfg=None,
             layout=None) -> Tuple[Dict[str, Any], int]:
-    """Restore into the structure of `like_state`, leaves as numpy arrays;
-    with `cfg` and `layout`, state["params"] re-laid-out from the logical
+    """Restore into the structure of `like_state`, leaves as numpy arrays
+    (a bf16 tensor where the `like_state` leaf is one); with `cfg` and
+    `layout`, state["params"] re-laid-out from the logical
     head layout to `layout`, and every leaf coerced to the dtype of its
     `like_state` leaf (tensor, array or scalar).
 
@@ -234,15 +295,15 @@ def restore(ckpt_dir: str | Path, like_state: Dict[str, Any], *,
     if not npz.exists():
         raise FileNotFoundError(f"checkpoint step {step}: no arrays file "
                                 f"at {npz}")
-    keys = [k for k, _ in _flatten_with_paths(like_state)]
+    like_flat = _flatten_with_paths(like_state)
     vals = []
     try:
         with np.load(npz, allow_pickle=False) as data:
             stored_keys = set(data.files)
-            for k in keys:
+            for k, like in like_flat:
                 if k not in stored_keys:
                     raise KeyError(f"checkpoint missing leaf {k}")
-                vals.append(np.asarray(data[k]))
+                vals.append(_restored(np.asarray(data[k]), like))
     except (KeyError, FileNotFoundError):
         raise
     except Exception as e:   # torn npz: BadZipFile / EOFError / OSError / ...
@@ -254,9 +315,7 @@ def restore(ckpt_dir: str | Path, like_state: Dict[str, Any], *,
     if cfg is not None and layout is not None:
         state = {**state, "params": R.from_logical(state["params"], cfg,
                                                    layout)}
-        like = [_np_dtype(v) for _, v in _flatten_with_paths(like_state)]
         got = [v for _, v in _flatten_with_paths(state)]
         state = _unflatten(like_state, [
-            np.asarray(a) if dt is None else np.asarray(a, dtype=dt)
-            for a, dt in zip(got, like)])
+            _coerce(a, like) for a, (_, like) in zip(got, like_flat)])
     return state, step

@@ -25,7 +25,9 @@ def lint(prog, **kw):
 
 
 @pytest.mark.parametrize("prog", PR.programs(small=True)
-                         + (PR.ladder_program(8, 16, 32),),
+                         + (PR.ladder_program(8, 16, 32),
+                            PR.ladder_program(8, 16, 32,
+                                              dtype=torch.bfloat16)),
                          ids=lambda p: p.name)
 def test_repo_programs_are_error_free(prog):
     report = lint(prog)
@@ -46,6 +48,26 @@ def test_misaligned_rows_warn_not_error():
     assert kinds == {("line", "advect_fused"), ("line", "finite_guard")}
     assert "48 B is not a whole number of 128-byte lines" in \
         report.warnings[0].detail
+
+
+def test_linter_takes_bf16_wide_rows_on_16_byte_bases():
+    """2-byte rows of Z = 16 (32 B: two 16-byte vectors) on 16-byte bases
+    lint clean but for the line warning; a base 8 bytes in is refused."""
+    def lint_at(base):
+        with TR.fake_mode():
+            p = PR.place(default_params(16, dtype=torch.bfloat16, device="cpu"),
+                         "cuda")
+            bufs = [torch.empty(base + 4 * 8 * 16, dtype=torch.bfloat16, device="cuda")
+                    for _ in range(3)]
+            u, v, w = (b[base:].view(4, 8, 16) for b in bufs)
+            return TL.lint_tiling(lambda: TK.advect_wide(
+                u, v, w, p, fuse_update=True, dt=DT))
+
+    report = lint_at(0)
+    assert report.kernels == 1 and not report.errors
+    assert {i.kind for i in report.warnings} == {"line"}
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        lint_at(4)
 
 
 def k1_call(shape, T=2, y_tile=0):

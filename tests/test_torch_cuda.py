@@ -1490,3 +1490,122 @@ def test_live_ledger_equals_fake_ledger_and_models(cuda):
             fake, live = fake.totals(), live.totals()
         assert live == fake, prog.name
         assert LG.check_model_coverage(live, prog.claims).ok, prog.name
+
+
+# -- the bf16 PW path: K1/K5, K4, K3 and K2 on bf16 fields ---------------------
+
+def bf16_inputs(shape, seed, device, coef):
+    u, v, w = (f.to(torch.bfloat16) for f in fields(shape, seed, device))
+    p = TREF.default_params(shape[2], device=device,
+                            dtype=torch.float32 if coef == "f32"
+                            else torch.bfloat16)
+    return u, v, w, p
+
+
+@pytest.mark.parametrize("coef", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(6, 10, 16), (5, 17, 12)])
+@pytest.mark.parametrize("T", [1, 2, 4, 10])
+def test_bf16_fused_kernel_bitwise_equals_plain(cuda, shape, T, coef):
+    u, v, w, p = bf16_inputs(shape, 60, cuda, coef)
+    X, Y, _ = shape
+    xm = torch.ones(X, device=cuda)
+    xm[1] = 0.0
+    ym = torch.ones(Y, device=cuda)
+    ym[Y // 2:] = 0.0
+    before = TK.LAUNCHES["advect_fused"]
+    got = TK.advect_fused(u, v, w, p, T=T, dt=DT, x_interior_mask=xm,
+                          y_interior_mask=ym)
+    assert TK.LAUNCHES["advect_fused"] == before + len(TK.fused_passes(T))
+    plain = TK._advect_fused_plain(u[None], v[None], w[None], p, T, DT, xm,
+                                   ym)
+    torch.cuda.synchronize()
+    assert all(a.dtype == torch.bfloat16 and torch.equal(a, b[0])
+               for a, b in zip(got, plain))
+    for y_tile in (4, 5, 7):
+        tiled = TK.advect_fused(u, v, w, p, T=T, dt=DT, y_tile=y_tile,
+                                x_interior_mask=xm, y_interior_mask=ym)
+        assert all(torch.equal(a, b) for a, b in zip(tiled, got))
+
+
+@pytest.mark.parametrize("coef", ["f32", "bf16"])
+def test_bf16_batched_kernel_equals_sequential_and_plain(cuda, coef):
+    B, X, Y, Z, T = 3, 5, 17, 16, 2
+    slots = [bf16_inputs((X, Y, Z), 70 + b, cuda, coef) for b in range(B)]
+    u, v, w = (torch.stack([s[i] for s in slots]) for i in range(3))
+    base = slots[0][3]
+    scale = torch.tensor([1.0, 1.5, 0.5], device=cuda, dtype=base.tcx.dtype)
+    p = TREF.AdvectParams(base.tcx * scale, base.tcy * scale,
+                          base.tzc1[None] * scale[:, None], base.tzc2)
+    xm = torch.ones(B, X, device=cuda)
+    ym = torch.ones(B, Y, device=cuda)
+    xm[1, 2] = 0.0
+    ym[0, 5:9] = 0.0
+    out = TK.advect_fused_batched(u, v, w, p, T=T, dt=DT, y_tile=5,
+                                  x_interior_mask=xm, y_interior_mask=ym)
+    plain = TK._advect_fused_plain(u, v, w, TK._slot_params(p, B, Z, cuda), T,
+                                   DT, xm, ym)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, plain))
+    for b in range(B):
+        pb = TREF.AdvectParams(p.tcx[b], p.tcy[b], p.tzc1[b], p.tzc2)
+        seq = TK.advect_fused(u[b], v[b], w[b], pb, T=T, dt=DT,
+                              x_interior_mask=xm[b], y_interior_mask=ym[b])
+        assert all(torch.equal(a[b], s) for a, s in zip(out, seq))
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 64), (8, 15, 61)])
+def test_bf16_guard_kernel_equals_plain(cuda, shape):
+    u, v, w, _ = bf16_inputs(shape, 80, cuda, "bf16")
+    clean = TK.finite_guard(u, v, w)
+    assert clean.dtype == torch.float32 and bool((clean == 1.0).all())
+    u[2, 3, 5] = float("nan")
+    w[5, 0, 0] = float("inf")
+    before = TK.LAUNCHES["finite_guard"]
+    got = TK.finite_guard(u, v, w)
+    assert TK.LAUNCHES["finite_guard"] == before + 1
+    assert torch.equal(got, TK._finite_guard_plain(u, v, w))
+    assert got.tolist() == [1.0, 1.0, 0.0, 1.0, 1.0, 0.0, 1.0, 1.0]
+
+
+@pytest.mark.parametrize("coef", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(6, 10, 16), (5, 17, 12), (8, 12, 24)])
+@pytest.mark.parametrize("name", ["advect_blocked", "advect_dataflow",
+                                  "advect_wide"])
+def test_bf16_rung_kernels_bitwise_equal_plain(cuda, shape, name, coef):
+    if name == "advect_wide" and shape[2] % 8:
+        with pytest.raises(ValueError, match=r"Z % 8"):
+            TK.advect_wide(*bf16_inputs(shape, 90, cuda, coef))
+        return
+    u, v, w, p = bf16_inputs(shape, 90, cuda, coef)
+    fn = getattr(TK, name)
+    for fu in (False, True):
+        before = TK.LAUNCHES[name]
+        got = fn(u, v, w, p, fuse_update=fu, dt=DT)
+        assert TK.LAUNCHES[name] == before + 1
+        plain = TK._advect_rung_plain(u, v, w, p, fu, DT)
+        torch.cuda.synchronize()
+        assert all(a.dtype == torch.bfloat16 and torch.equal(a, b)
+                   for a, b in zip(got, plain))
+        for y_tile in (3, 4, 5):
+            tiled = fn(u, v, w, p, y_tile=y_tile, fuse_update=fu, dt=DT)
+            assert all(torch.equal(a, b) for a, b in zip(tiled, plain))
+        for x_chunk in (1, 3):
+            chunked = TK._advect_rung_cuda(name, u, v, w, p, 4, fu, DT,
+                                           x_chunk=x_chunk)
+            assert all(torch.equal(a, b) for a, b in zip(chunked, plain))
+
+
+def test_bf16_rungs_on_fields_two_bytes_past_an_allocation(cuda):
+    shape = (5, 9, 12)
+    u, v, w, p = bf16_inputs(shape, 95, cuda, "bf16")
+    n = u.numel()
+    off = []
+    for f in (u, v, w):
+        buf = torch.empty(n + 1, device=cuda, dtype=torch.bfloat16)
+        off.append(buf[1:].view(shape))
+        off[-1].copy_(f)
+    for name in ("advect_blocked", "advect_dataflow"):
+        got = getattr(TK, name)(*off, p, fuse_update=True, dt=DT)
+        plain = TK._advect_rung_plain(u, v, w, p, True, DT)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))

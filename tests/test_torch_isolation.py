@@ -1,5 +1,6 @@
 """The port stands alone: no module of `repro_torch`, and not
-`chip_smoke.py`, imports JAX or the reference package `repro`; and the
+`chip_smoke.py`, imports JAX, the reference package `repro` or
+`ml_dtypes` (numpy's bf16, which the card's machine lacks); and the
 CUDA dispatch raises what the kernel loader raises instead of falling back
 to a plain version."""
 import os
@@ -23,7 +24,7 @@ import importlib, importlib.abc, importlib.util, pkgutil, sys
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"):
             raise ImportError(f"the port imported {name}")
         return None
 
@@ -37,7 +38,8 @@ spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)
 assert hasattr(smoke, "main")
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "repro", "ml_dtypes")]
 assert not bad, bad
 print(len(names), "modules")
 """
@@ -53,7 +55,7 @@ def test_port_and_smoke_import_without_jax_or_reference():
 
 
 def test_no_source_line_imports_jax_or_reference():
-    pattern = re.compile(r"^\s*(import|from) (jax|repro)\b")
+    pattern = re.compile(r"^\s*(import|from) (jax|repro|ml_dtypes)\b")
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     hits = [f"{f}:{n}" for f in files
             for n, line in enumerate(f.read_text().splitlines(), 1)
