@@ -13,7 +13,8 @@
     python3 chip_smoke.py --only families          # phases 24-28 alone
     python3 chip_smoke.py --only train             # phases 29-31 alone
     python3 chip_smoke.py --only analysis          # phases 32-34 alone
-    python3 chip_smoke.py --only bf16              # phases 35-39 alone
+    python3 chip_smoke.py --only bf16              # phases 35-43 alone
+    python3 chip_smoke.py --only spec_codegen      # phase 43 alone
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 
@@ -306,7 +307,7 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    inf, on the 16-byte and the 1-cell path; K3, K2 and `wide` (8 cells a
    16-byte move) == plain for sources and `fuse_update`, tiled, x chunks,
    host tiling, fields 2 bytes past an allocation; `wide`'s refusal of
-   Z % 8 != 0 and K6's of bf16 fields;
+   Z % 8 != 0, and K6 on bf16 fields == K1 bf16;
 36. the bf16 main path: `AdvectionDomain(1024, 1024, 64, variant="fused",
    dtype="bfloat16").advance(16)` and K4, counted (4 K1 launches, 1 K4),
    == plain bitwise, within `bf16_oracle_bound` of the f64 oracle, edges
@@ -318,12 +319,37 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    `build/bf16_snapshots`, then deleted): batched == sequential and
    rolled back == clean, bitwise, K4 over the batch; K5's time;
 39. the bf16 kernels' times at the 67M grid (events and device time, their
-   bounds, registers and spills).
+   bounds, registers and spills);
+40. K6 in bf16: at small shapes (unit spacings, where updates resolve in
+   bf16), the six operator x integrator pairs with f32 and with bf16
+   coefficients == plain bitwise (T 1-3, tiled == untiled, masks, x and z
+   chunks with remainders on given plans, T = 5 as passes), the PW spec
+   == K1 bf16, batched == sequential; at the 67M grid the six passes on
+   bf16 fields and coefficients == plain bitwise and within
+   `TOL_REL_BF16` of the f64 oracle's scale, then timed (events, device
+   time) beside their bounds;
+41. the bf16 distributed run: K7 bf16 at small shapes == plain; the 67M
+   grid over the (2, 2) loopback mesh, `make_distributed_run(n_blocks=4,
+   T=4, fused)`, overlap False and True: remote_dma (K7 bf16 8 puts, K1
+   bf16) == collective == the single-card bf16 `advance(16)`, bitwise, and
+   within `DIST_BF16_TOL` of `reference_global_step`; K7 bf16 timed per
+   phase (the bands alone, the extend pass);
+42. the bf16 `spec=` runs on `collective` (K6 bf16) == single-card K6 ==
+   the plain spec loop, bitwise; a checkpointed bf16 run and its resume ==
+   the clean run, bitwise (checkpoints under `build/ckpt_bf16_*`, then
+   deleted);
+43. user-written specs (a Laplacian with its own x, y and z coefficients,
+   a y-z cross derivative reading the centre plane's diagonals, Gray-Scott
+   reaction-diffusion of two fields), each on the functor generated from
+   its callback (`stencil.spec_cuda`) in f32 and bf16, euler and rk2, at
+   small shapes and at the 67M grid == the callback's plain version,
+   bitwise; their 12 builds made at once and timed, and again from the
+   cache; the analyzer's live ledger == fake == model for one of them.
 
 Each phase prints its seconds.
 
-`--only bf16` runs phases 35-39 alone (its kernels line holds the bf16
-kernels).
+`--only bf16` runs phases 35-43 alone (its kernels line holds the bf16
+kernels and the generated K6); `--only spec_codegen` phase 43 alone.
 
 `--only analysis` runs phases 32-34 and the host-cost lines alone.
 
@@ -333,7 +359,9 @@ training path launches none).
 `--only families` runs phases 24-28 alone (its kernels line holds K8 at
 the families' shapes).
 
-`--only distributed` runs phases 15-18 alone. `--only stencil_serving`
+`--only distributed` runs phases 15-18 alone, then K7 at small shapes,
+the distributed path and K7's times, and the cross-card phase again in
+bf16 (the call to make on four cards). `--only stencil_serving`
 runs phases 19-20 alone, `--only distributed_spec` phase 21 (its kernels
 line holds K6 at a shard's extended slab) and `--only recovery` phases
 22-23 (its kernels line holds K1 there). A copy of the script in a
@@ -471,7 +499,8 @@ SOURCE = {"advect_fused": "src/repro_torch/csrc/advect_fused.cuh",
           "advect_blocked": "src/repro_torch/csrc/advect_blocked.cu",
           "advect_dataflow": "src/repro_torch/csrc/advect_dataflow.cu",
           "advect_wide": "src/repro_torch/csrc/advect_dataflow.cu",
-          "stencil_fused": "src/repro_torch/csrc/stencil_fused.cu",
+          "stencil_fused": "src/repro_torch/csrc/stencil_fused.cuh",
+          "stencil_generated": "src/repro_torch/csrc/stencil_generated.cu",
           "flash_attention": "src/repro_torch/csrc/flash_attention_tc.cu",
           "selective_scan": "src/repro_torch/csrc/selective_scan.cu",
           "band_exchange": "src/repro_torch/csrc/band_exchange.cu"}
@@ -481,6 +510,8 @@ REPLACES = {"advect_fused": "src/repro/kernels/advection/advection.py:404",
             "advect_dataflow": "src/repro/kernels/advection/advection.py:272",
             "advect_wide": "src/repro/kernels/advection/advection.py:367",
             "stencil_fused": "src/repro/kernels/advection/advection.py:677",
+            "stencil_generated":
+                "src/repro/kernels/advection/advection.py:677",
             "flash_attention": "src/repro/kernels/attention/attention.py:31",
             "selective_scan": "src/repro/kernels/ssm/ssm.py:39",
             "band_exchange": "src/repro/kernels/advection/advection.py:939",
@@ -1334,7 +1365,7 @@ def plain_spec(fields, params, spec, T, dt, xm=None, ym=None):
     """The plain version on one (X, Y, Z) domain."""
     X, Y = fields[0].shape[0], fields[0].shape[1]
     ones = lambda n: torch.ones(n, device="cuda")  # noqa: E731
-    pv = K._spec_param_vectors(spec, params, "cuda")
+    pv = K._spec_param_vectors(spec, params, "cuda", fields[0].dtype)
     out = K._stencil_fused_plain([f[None] for f in fields], pv, spec, T, dt,
                                  ones(X) if xm is None else xm,
                                  ones(Y) if ym is None else ym)
@@ -1458,9 +1489,10 @@ def spec_batched_phase(check: Checks) -> None:
 
 
 def spec_refusal_phase(check: Checks) -> None:
-    """A spec outside the CUDA table is refused on the card with no launch;
-    PW and tracer rk2 at T = 4, refused before K6 kept its ring in
-    registers, run as passes == plain and within `ORACLE_TOL` of f64."""
+    """A radius-2 spec is refused on the card with no launch, and a
+    radius-1 user spec runs its generated functor (== plain, bitwise); PW
+    and tracer rk2 at T = 4, refused before K6 kept its ring in registers,
+    run as passes == plain and within `ORACLE_TOL` of f64."""
     custom = SP.StencilSpec(name="custom", fields=("a",),
                             offsets={"a": ((1, 0, 0),)},
                             source=lambda sh, pv: (sh(0, 1, 0, 0),),
@@ -1471,17 +1503,23 @@ def spec_refusal_phase(check: Checks) -> None:
                              source=SP._diff_source,
                              pack_params=SP._diff_pack)
     dp = SP.default_diffusion_params(8, device="cuda")
-    for spec, params in ((custom, None), (radius2, dp)):
-        before = dict(K.LAUNCHES)
-        try:
-            K.stencil_fused([torch.zeros((6, 8, 8), device="cuda")], params,
-                            spec, T=1)
-            refused = False
-        except NotImplementedError as err:
-            refused = "ROADMAP Queue 2" in str(err)
-        check(refused and K.LAUNCHES == before,
-              f"a spec outside the CUDA table ({spec.name}) is refused on "
-              f"the card, naming the queue, with no launch")
+    before = dict(K.LAUNCHES)
+    try:
+        K.stencil_fused([torch.zeros((6, 8, 8), device="cuda")], dp,
+                        radius2, T=1)
+        refused = False
+    except NotImplementedError as err:
+        refused = "ROADMAP Queue 2" in str(err)
+    check(refused and K.LAUNCHES == before,
+          f"a radius-2 spec ({radius2.name}) is refused on the card, naming "
+          f"the queue, with no launch")
+    a = rand_fields((6, 8, 8), 77)[:1]
+    out, launches, _ = counted(lambda: K.stencil_fused(a, None, custom, T=2,
+                                                       dt=0.1))
+    check(only_these(launches, {"stencil_generated": 1})
+          and same(out, plain_spec(a, None, custom, 2, 0.1)),
+          f"a radius-1 user spec ({custom.name}) runs its generated functor "
+          f"(one launch) == plain, bitwise")
     for op in ("pw", "tracer"):
         spec = SPEC_FACTORIES[op]("rk2")
         for shape in ((4, 1024, 64), SMALL_SHAPES[1]):
@@ -1660,21 +1698,24 @@ SPEC_PROBE = {"pw": lambda: REF.default_params(4, device="cpu"),
                                                                device="cpu")}
 
 
-def spec_bound(op, spec, params, T, shape):
-    """(bytes, operations) of T steps of `spec` over one (X, Y, Z) domain:
-    the fields read and written once, the parameter vectors and masks read
-    once; the spec's operations per interior cell at each of its stages * T
-    levels, plus the 2-op update of each field and cell."""
+def spec_bound(op, spec, params, T, shape, itemsize: int = 4, probe=None):
+    """(bytes, operations) of T steps of `spec` over one (X, Y, Z) domain of
+    `itemsize`-byte cells: the fields read and written once, the parameter
+    vectors (f32 in the kernel's table) and masks read once; the spec's
+    operations per interior cell at each of its stages * T levels, plus the
+    2-op update of each field and cell. `probe`: the parameters of the op
+    census's probe grid (`SPEC_PROBE[op]()` by default)."""
     X, Y, Z = shape
     cells, nf, rad = X * Y * Z, spec.n_fields, spec.radius
     pv_bytes = sum(v.numel() for v in
                    K._spec_param_vectors(spec, params, "cuda")) * 4
-    nbytes = (K.hbm_bytes_model(X, Y, Z, 4, "fused", T=T, n_fields=nf,
+    nbytes = (K.hbm_bytes_model(X, Y, Z, itemsize, "fused", T=T, n_fields=nf,
                                 halo_depth=spec.halo(T))
               + pv_bytes + (X + Y) * 4)
     interior = (X - 2 * rad) * (Y - 2 * rad) * (Z - 2 * rad)
     ops = spec.stages * T * (interior * SP.spec_flops_per_cell(
-        spec, SPEC_PROBE[op]()) + 2 * nf * cells)
+        spec, SPEC_PROBE[op]() if probe is None else probe)
+        + 2 * nf * cells)
     return nbytes, ops
 
 
@@ -1969,28 +2010,33 @@ def buffers_equal(a, b) -> bool:
                                                  b.buffers.bufs))
 
 
-def band_small_phase(check: Checks, devices=None, tag="loopback") -> None:
+def band_small_phase(check: Checks, devices=None, tag="loopback",
+                     dtype=torch.float32) -> None:
     """K7 against its plain version at small shapes: `BAND_BLOCKS` blocks
     in a row on the same buffers, tables and counters (both slots, blocks
     2 on passing the slot's interior views, so only the bands move); every
     extended buffer, interior included, == plain bitwise, the slot block 0
     did not write keeps `BAND_FILL`, one put per card and exchange, the
     error words stay 0. `devices(n)` lays out the shards (default: n
-    shards on cuda:0)."""
+    shards on cuda:0); `dtype` is the fields' (K7 moves bf16 bytes
+    alike)."""
+    kw = dict(dtype=dtype) if dtype != torch.float32 else {}
+    if kw:
+        tag += " bf16"
     for nx, ny, axis, dim, shape, depth in BAND_CASES:
         n = nx * ny
         if devices is not None and n > torch.cuda.device_count():
             continue
         devs = ["cuda:0"] * n if devices is None else devices(n)
         mesh = make_stencil_mesh(nx, ny, devices=devs)
-        got = K.BandSlabs(mesh, shape, depth, dim, fill=BAND_FILL)
-        want = K.BandSlabs(mesh, shape, depth, dim, fill=BAND_FILL)
+        got = K.BandSlabs(mesh, shape, depth, dim, fill=BAND_FILL, **kw)
+        want = K.BandSlabs(mesh, shape, depth, dim, fill=BAND_FILL, **kw)
         equal = untouched = True
         puts = []
         for block in range(BAND_BLOCKS):
             slot = block % 2
             shards = [tuple(f.to(dev) for f in
-                            rand_fields(shape, 900 + 10 * block + s))
+                            rand_fields(shape, 900 + 10 * block + s, dtype))
                       for s, dev in enumerate(mesh.devices)]
             src = (shards, shards)
             if block >= 2:
@@ -2025,15 +2071,16 @@ def band_small_phase(check: Checks, devices=None, tag="loopback") -> None:
         check(not any(errors), f"{what}: error words {errors}")
 
 
-def distributed_run(mesh, fields, exchange: str):
+def distributed_run(mesh, fields, exchange: str, overlap: bool = True):
     """`make_distributed_run` on the 67M grid over `mesh`, the counts set
     to 0 just before and read just after; returns (global out, launches,
-    wall s, run, shards)."""
+    wall s, run, shards). The coefficients are the fields' dtype (a bf16
+    domain's are bf16)."""
     Z = fields[0].shape[2]
-    p = REF.default_params(Z, device="cuda")
+    p = REF.default_params(Z, dtype=fields[0].dtype, device="cuda")
     run = D.make_distributed_run(mesh, p, n_blocks=DIST_BLOCKS, T=MAIN_T,
-                                 dt=DT, local_kernel="fused", overlap=True,
-                                 exchange=exchange)
+                                 dt=DT, local_kernel="fused",
+                                 overlap=overlap, exchange=exchange)
     shards = D.shard(mesh, *fields)
     sync(mesh)
     reset_all_counts()
@@ -2102,7 +2149,7 @@ def cross_card_phase(check: Checks, fields, loopback_out, card: str) -> None:
     if EXTENDED:
         band_small_phase(check, devices=lambda k: [f"cuda:{i}"
                                                    for i in range(k)],
-                         tag="across cards")
+                         tag="across cards", dtype=fields[0].dtype)
     nx, ny = DIST_MESH if n >= 4 else (2, 1)
     mesh = make_stencil_mesh(nx, ny)
     if (nx, ny) == DIST_MESH:
@@ -2114,12 +2161,13 @@ def cross_card_phase(check: Checks, fields, loopback_out, card: str) -> None:
     for ex in ("remote_dma", "collective"):
         out, launches, wall, run, shards = distributed_run(mesh, fields, ex)
         runs[ex] = (run, shards)
-        print(f"across cards: ran, exchange={ex}, a {(nx, ny)} mesh over "
+        print(f"across cards{' bf16' if fields[0].dtype == BF16 else ''}: "
+              f"ran, exchange={ex}, a {(nx, ny)} mesh over "
               f"{[str(d) for d in mesh.devices]}; wall {wall:.3f} s; "
               f"launches {launches}", flush=True)
         err = max(float((a - b).abs().max()) for a, b in zip(out, want))
         check(err == 0.0, f"across cards {(nx, ny)} {ex} == loopback "
-              f"remote_dma, bitwise ({err})")
+              f"remote_dma, bitwise ({err}), {fields[0].dtype}")
         if ex == "remote_dma" and EXTENDED:
             check(launches["band_exchange"] == k7_puts(mesh),
                   f"across cards: K7 one put per card, phase and block "
@@ -2137,9 +2185,23 @@ def k7_host_and_device_ms(call, mesh, runs: int = 20):
         call()
         host.append((time.perf_counter() - t0) * 1e3)
         sync(mesh)
-    dev_ms = profiled_kernels(call, "band_", set(mesh.devices), runs)[0]
+    dev_ms = device_per_call(call, "band_", set(mesh.devices), runs)[0]
     device = f"{dev_ms:.4f} ms" if dev_ms > 0 else "not measured"
     return statistics.median(host), device
+
+
+def device_per_call(call, match: str, devices, runs: int = 10):
+    """(device ms per call, launches seen) of `call`, whose kernels are the
+    ones it counts in `LAUNCHES`: the profiler's device time per launch it
+    saw, times the launches one call makes, so that a trace that drops
+    events reads low by none of them."""
+    before = sum(all_counts().values())
+    call()
+    per = sum(all_counts().values()) - before
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+    dev, seen = profiled_kernels(call, match, devices, runs)
+    return (dev * runs / seen * per if seen else 0.0), seen
 
 
 def profiled_kernels(call, match: str, devices, runs: int):
@@ -2178,12 +2240,18 @@ def band_timing(mesh, fields, launches: int, runs, card: str,
     T = MAIN_T
     shards = D.shard(mesh, *fields)
     Xl, Yl, Z = shards[0][0].shape
-    p = REF.default_params(Z, device="cuda")
+    dtype = fields[0].dtype
+    bf16 = dtype == BF16
+    item = fields[0].element_size()
+    p = REF.default_params(Z, dtype=dtype, device="cuda")
     blocks = {ex: D._LocalBlock(mesh, p, T=T, dt=DT, local_kernel="fused",
                                 y_tile=None, overlap=True, exchange=ex)
               for ex in ("remote_dma", "collective")}
     if EXTENDED:
-        blocks["remote_dma"]._band_slabs((Xl, Yl, Z), T, T)
+        blocks["remote_dma"]._band_slabs((Xl, Yl, Z), T, T,
+                                         *((dtype,) if bf16 else ()))
+    kw_dtype = dict(dtype=dtype) if bf16 else {}
+    tag = tag + (" bf16" if bf16 else "")
     # the y phase sends from the x-extended slab
     ext = {ex: b._extend(shards, "x", 0, 0, None, None)
            for ex, b in blocks.items()}
@@ -2196,10 +2264,11 @@ def band_timing(mesh, fields, launches: int, runs, card: str,
                bound=0.0, ext_bound=0.0, err=0.0, nbytes=0, ext_nbytes=0)
     for axis, dim, sh in (("x", 0, shards), ("y", 1, ext["remote_dma"])):
         shape = (Xl, Yl, Z) if dim == 0 else (Xl + 2 * T, Yl, Z)
-        fresh = [tuple(f.to(dev) for f in rand_fields(shape, 1000 + s))
+        fresh = [tuple(f.to(dev) for f in rand_fields(shape, 1000 + s,
+                                                       dtype))
                  for s, dev in enumerate(mesh.devices)]
-        slabs = K.BandSlabs(mesh, shape, T, dim)
-        plain = K.BandSlabs(mesh, shape, T, dim)
+        slabs = K.BandSlabs(mesh, shape, T, dim, **kw_dtype)
+        plain = K.BandSlabs(mesh, shape, T, dim, **kw_dtype)
         if EXTENDED:
             # the bands alone: the fields already lie in the slot's middle
             for sl in (slabs, plain):
@@ -2229,7 +2298,7 @@ def band_timing(mesh, fields, launches: int, runs, card: str,
         pairs = (zip(slabs.buffers.bufs, plain.buffers.bufs) if EXTENDED
                  else ((x, y) for sa, sb in zip(slabs.slabs, plain.slabs)
                        for fa, fb in zip(sa, sb) for x, y in zip(fa, fb)))
-        tot["err"] = max([tot["err"]] + [float((x - y).abs().max())
+        tot["err"] = max([tot["err"]] + [float((x - y).float().abs().max())
                                          for x, y in pairs])
         k7 = time_ms(k7_call)
         host, device = k7_host_and_device_ms(k7_call, mesh)
@@ -2241,7 +2310,7 @@ def band_timing(mesh, fields, launches: int, runs, card: str,
                       b._extend(x, axis, dim, next(evens), None, None))
                  for ex, b in blocks.items()}
         ext_ms = time_ms(phase["remote_dma"])
-        ext_dev = profiled_kernels(phase["remote_dma"], "", cards, 10)[0]
+        ext_dev = device_per_call(phase["remote_dma"], "band_", cards)[0]
         coll_ext = time_ms(phase["collective"])
         coll_ext_dev = profiled_kernels(phase["collective"], "", cards,
                                         10)[0]
@@ -2250,9 +2319,9 @@ def band_timing(mesh, fields, launches: int, runs, card: str,
         # memory (loopback): the bands alone, and the extend pass (the x
         # phase also moves every shard into its slab)
         other = math.prod(shape) // shape[dim]
-        sent = sum(m.cnt * other * 4
+        sent = sum(m.cnt * other * item
                    for m in K.band_messages(mesh, axis, shape[dim], T))
-        owned = 3 * len(sh) * Xl * Yl * Z * 4 if dim == 0 else 0
+        owned = 3 * len(sh) * Xl * Yl * Z * item if dim == 0 else 0
         b, _ = bound_of(2 * sent, 0)
         eb, _ = bound_of(2 * (sent + owned), 0)
         print(f"band_exchange {axis} phase ({tag}): {len(sh)} shards of "
@@ -2308,8 +2377,8 @@ def band_timing(mesh, fields, launches: int, runs, card: str,
           f"{tot['plain']:.4f} ms; collective engine: band copies "
           f"{tot['coll']:.4f} ms, extend pass {tot['coll_ext']:.4f} ms",
           flush=True)
-    return {"name": "band_exchange", "route": "cuda",
-            "source": SOURCE["band_exchange"],
+    return {"name": "band_exchange" + ("_bf16" if bf16 else ""),
+            "route": "cuda", "source": SOURCE["band_exchange"],
             "replaces": REPLACES["band_exchange"], "launches": launches,
             "max_abs_err": tot["err"], "ms": tot["ext"],
             "plain_ms": tot["plain"], "bound_ms": tot["ext_bound"],
@@ -2946,6 +3015,16 @@ def distributed_only(check: Checks, card: str) -> list:
         check, fields, single)
     records = [band_timing(mesh, fields, k7_launches, dist_runs, card)]
     cross_card_phase(check, fields, dist_out, card)
+    del dist_runs, dist_out, single
+    torch.cuda.empty_cache()
+    # the same in bf16: K7 bf16 and K1 bf16, loopback and across cards
+    band_small_phase(check, dtype=BF16)
+    dom16 = AdvectionDomain(X, Y, Z, variant="fused", fuse_T=MAIN_T, dt=DT,
+                            device="cuda", dtype="bfloat16")
+    f16 = dom16.init(seed=0)
+    k7, mesh, out16, runs16 = bf16_distributed_phase(check, dom16, f16, card)
+    records.append(band_timing(mesh, f16, k7, runs16, card))
+    cross_card_phase(check, f16, out16, card)
     return records
 
 
@@ -4376,7 +4455,7 @@ OP_LAUNCH_KEYS = {"advect_fused": ("advect_fused",),
                   "finite_guard": ("finite_guard",),
                   "advect_blocked": ("advect_blocked",),
                   "advect_dataflow": ("advect_dataflow", "advect_wide"),
-                  "stencil_fused": ("stencil_fused",),
+                  "stencil_fused": ("stencil_fused", "stencil_generated"),
                   "band_exchange": ("band_exchange",),
                   "flash_attention": ("flash_attention",),
                   "selective_scan": ("selective_scan",)}
@@ -4405,6 +4484,10 @@ def analysis_programs() -> list:
         PR.serving_program(*ANALYSIS_SERVE, B=ANALYSIS_BATCH, T=MAIN_T, dt=DT,
                            dtype=torch.bfloat16),
         PR.spec_path_program(X, Y, Z, dt=DT),
+        PR.spec_path_program(X, Y, Z, dt=DT, dtype=torch.bfloat16),
+        PR.distributed_program(X, Y, Z, exchange="remote_dma", T=MAIN_T,
+                               n_blocks=DIST_BLOCKS, mesh=DIST_MESH, dt=DT,
+                               dtype=torch.bfloat16),
         PR.attention_program(B, H, Hkv, S, Dh),
         PR.scan_program(*SCAN_TIMED[:3], SCAN_TIMED[3]),
     ]
@@ -4511,6 +4594,16 @@ def plan_phase(check: Checks, recorded) -> None:
         ("spec_path", "stencil_fused",
          SM.fused_ring_plan(X, Y, Z, T=PR.SPEC_PAIRS[-1][2], n_sm=sms,
                             spec=PR._spec(*PR.SPEC_PAIRS[-1][:2]))),
+        # K6 and K1 in bf16 plan as in f32: f32 words in their planes
+        ("spec_path_bf16", "stencil_fused",
+         SM.fused_ring_plan(X, Y, Z, T=PR.SPEC_PAIRS[-1][2], n_sm=sms,
+                            spec=PR._spec(*PR.SPEC_PAIRS[-1][:2]))),
+        ("distributed_remote_dma_bf16", "advect_fused",
+         SM.distributed_block_plan((X // nx, Y // ny, Z), T=MAIN_T,
+                                   local_kernel="fused",
+                                   exchange="remote_dma", nx=nx, ny=ny,
+                                   shards_per_card=nx * ny, n_sm=sms,
+                                   itemsize=2)),
         ("scan", "selective_scan", None),
     ]
     for name, kernel, plan in plans:
@@ -4902,12 +4995,10 @@ def bf16_small_phase(check: Checks) -> None:
     except ValueError as err:
         refused = "Z % 8" in str(err)
     check(refused, "35 bf16 wide refuses Z = 12 (24 B rows), naming Z % 8")
-    try:
-        K.stencil_fused([u, v, w], p, SP.pw_advection_spec("euler"), T=1)
-        refused = False
-    except NotImplementedError as err:
-        refused = "next slice" in str(err)
-    check(refused, "35 K6 refuses bf16 fields, naming the next slice")
+    out = K.stencil_fused([u, v, w], p, SP.pw_advection_spec("euler"), T=1)
+    check(same(out, K.advect_fused(u, v, w, p, T=1, dt=1.0))
+          and all(o.dtype == BF16 for o in out),
+          "35 K6 takes bf16 fields (its refusal lifted): == K1 bf16, bitwise")
 
 
 def bf16_batched_phase(check: Checks) -> None:
@@ -5273,19 +5364,651 @@ def bf16_timing_phase(check: Checks, dom, fields, out, launches, k1_err,
     return records
 
 
+# ---------------------------------------------------------------------------
+# phases 40-43: K6 and K7 in bf16, and K6 for user-written specs
+# ---------------------------------------------------------------------------
+
+TOL_REL_BF16 = 0.02     # the reference's TOL_REL["bfloat16"] of the field
+#                         scale (tests/test_stencil_spec.py:35)
+DIST_BF16_TOL = 0.1     # the reference's bf16 2D step against its global
+#                         oracle (tests/test_distributed_2d.py:64)
+SPEC_BF16_SHAPES = ((6, 10, 12), (9, 14, 20))
+SPEC_BF16_DT = 0.1      # at unit spacings most updates exceed half a bf16
+#                         ulp of their cell, so == plain says something
+SPEC_BF16_CHUNKS = ((5, 4, 9), (3, 2, None))   # TY, CX, CZ of given plans
+
+
+def unit_spec_inputs(op: str, shape, seed: int, fields_dtype, coef_dtype):
+    """(params, fields) of one shipped operator at unit spacings: normal
+    fields of `fields_dtype`, coefficients of `coef_dtype` (diffusion at
+    nu = 0.1)."""
+    X, Y, Z = shape
+    n = {"pw": 3, "tracer": 4, "diffusion": 1}[op]
+    fields = rand_fields(shape, seed, fields_dtype)
+    fields = (fields + rand_fields(shape, seed + 1, fields_dtype))[:n]
+    if op == "diffusion":
+        return (SP.default_diffusion_params(Z, dx=1.0, dy=1.0, dz=1.0,
+                                            nu=0.1, dtype=coef_dtype,
+                                            device="cuda"), fields)
+    return (REF.default_params(Z, dx=1.0, dy=1.0, dz=1.0, dtype=coef_dtype,
+                               device="cuda"), fields)
+
+
+def ones_cuda(n: int) -> torch.Tensor:
+    return torch.ones(n, device="cuda")
+
+
+def k6_bf16_small_phase(check: Checks) -> None:
+    """Phase 40 at small shapes: K6 on bf16 fields == its plain version,
+    bitwise, for the six operator x integrator pairs with f32 and with bf16
+    coefficients: T 1-3, y_tile None and 3 (tiled == untiled), with and
+    without masks; x and z chunks with remainders on given plans; T = 5 as
+    passes; the PW spec == K1 bf16; batched == sequential. Each check also
+    asks that the fields moved."""
+    dt = SPEC_BF16_DT
+    for coef in ("f32", "bf16"):
+        cd = torch.float32 if coef == "f32" else BF16
+        for si, shape in enumerate(SPEC_BF16_SHAPES):
+            X, Y, Z = shape
+            xm, ym = ones_cuda(X), ones_cuda(Y)
+            xm[2] = 0.0
+            ym[3:5] = 0.0
+            for op, factory in SPEC_FACTORIES.items():
+                params, fields = unit_spec_inputs(op, shape, 600 + 10 * si,
+                                                  BF16, cd)
+                for integ in SP.INTEGRATORS:
+                    spec = factory(integ)
+                    tally = {"plain": [], "moved": [], "k1": [],
+                             "chunks": [], "passes": []}
+                    for T in (1, 2, 3):
+                        for masked in (False, True):
+                            mk = dict(x_interior_mask=xm if masked else None,
+                                      y_interior_mask=ym if masked else None)
+                            plain = plain_spec(fields, params, spec, T, dt,
+                                               *mk.values())
+                            tally["moved"].append(not same(plain, fields))
+                            for y_tile in (None, 3):
+                                out = K.stencil_fused(fields, params, spec,
+                                                      T=T, dt=dt,
+                                                      y_tile=y_tile, **mk)
+                                tally["plain"].append(
+                                    same(out, plain)
+                                    and all(o.dtype == BF16 for o in out))
+                                if op == "pw" and integ == "euler":
+                                    tally["k1"].append(same(out, K.advect_fused(
+                                        *fields, params, T=T, dt=dt,
+                                        y_tile=y_tile, **mk)))
+                    pv = K._spec_param_vectors(spec, params, "cuda", BF16)
+                    plain = plain_spec(fields, params, spec, 2, dt)
+                    for TY, CX, CZ in SPEC_BF16_CHUNKS:
+                        plan = K.fused_plan_with_chunks(
+                            K.spec_device_plan("cuda", X, Y, Z, spec, 2, 1, TY,
+                                               dtype=BF16,
+                                               coef=coef == "bf16"),
+                            X, Z, spec.stages * 2, CX=CX, CZ=CZ,
+                            knobs=K.spec_plan_knobs(spec, 2))
+                        got = K._stencil_fused_cuda(
+                            [f[None] for f in fields], pv, spec, 2, dt,
+                            ones_cuda(X), ones_cuda(Y), plan=plan)
+                        tally["chunks"].append(
+                            plan.n_cx > 1 and same((g[0] for g in got), plain))
+                    out, launches, _ = counted(lambda: K.stencil_fused(
+                        fields, params, spec, T=5, dt=dt))
+                    tally["passes"].append(
+                        same(out, plain_spec(fields, params, spec, 5, dt))
+                        and only_these(launches, {"stencil_fused": len(
+                            K.spec_passes(spec, 5))}))
+                    tag = f"40 K6 bf16 {spec.name} {shape} {coef} coefficients"
+                    check(all(tally["plain"]) and all(tally["moved"]),
+                          f"{tag}: == plain, bitwise, bf16 out, "
+                          f"{len(tally['plain'])} runs (T 1-3, y_tile None "
+                          f"and 3, masks), the fields moved")
+                    check(all(tally["chunks"]), f"{tag}: x and z chunks "
+                          f"with remainders on given plans == plain, bitwise")
+                    check(all(tally["passes"]), f"{tag}: T = 5 as passes "
+                          f"{K.spec_passes(spec, 5)} == plain, bitwise")
+                    if tally["k1"]:
+                        check(all(tally["k1"]), f"{tag}: the PW spec == K1 "
+                              f"bf16 (advect_fused), bitwise, "
+                              f"{len(tally['k1'])} runs")
+    B, shape = 3, SPEC_BF16_SHAPES[1]
+    X, Y, Z = shape
+    xm, ym = torch.ones(B, X, device="cuda"), torch.ones(B, Y, device="cuda")
+    xm[1, 2] = 0.0
+    ym[2, 5:9] = 0.0
+    for op, factory in SPEC_FACTORIES.items():
+        slots = [unit_spec_inputs(op, shape, 700 + 2 * b, BF16, BF16)
+                 for b in range(B)]
+        params = slots[0][0]
+        fields = [torch.stack([sl[1][i] for sl in slots])
+                  for i in range(len(slots[0][1]))]
+        for integ in SP.INTEGRATORS:
+            spec = factory(integ)
+            out = K.stencil_fused_batched(fields, params, spec, T=2, dt=dt,
+                                          x_interior_mask=xm,
+                                          y_interior_mask=ym)
+            ok = [same([o[b] for o in out], K.stencil_fused(
+                [f[b] for f in fields], params, spec, T=2, dt=dt,
+                x_interior_mask=xm[b], y_interior_mask=ym[b]))
+                for b in range(B)]
+            check(all(ok), f"40 K6 bf16 batched (B = {B}, per-slot masks) "
+                  f"== sequential, bitwise, {spec.name}")
+
+
+def k6_bf16_path_phase(check: Checks, fields) -> dict:
+    """Phase 40 at the 67M grid: one `stencil_fused` pass per operator of
+    `SPEC_PATH` on bf16 fields (the bf16 domain's u, v, w, the tracer's q,
+    diffusion's phi) and bf16 coefficients, counted; == plain, bitwise, and
+    within `TOL_REL_BF16` of the f64 oracle's field scale. Returns
+    {(op, integrator): run record}."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    u0, v0, w0 = fields
+    q0 = SP.tracer_field(X, Y, Z, dtype=BF16, device="cuda")
+    phi0 = SP.diffusion_field(X, Y, Z, dtype=BF16, device="cuda")
+    p = REF.default_params(Z, dtype=BF16, device="cuda")
+    inputs = {"pw": (p, (u0, v0, w0)), "tracer": (p, (u0, v0, w0, q0)),
+              "diffusion": (SP.default_diffusion_params(Z, dtype=BF16,
+                                                        device="cuda"),
+                            (phi0,))}
+    runs = {}
+    for op, integ, T in SPEC_PATH:
+        spec = SPEC_FACTORIES[op](integ)
+        params, flds = inputs[op]
+        dt = SPEC_DT[op]
+        out, launches, wall = counted(lambda: K.stencil_fused(
+            flds, params, spec, T=T, dt=dt))
+        n = len(K.spec_passes(spec, T))
+        plain = plain_spec(flds, params, spec, T, dt)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(out, plain))
+        o_err, scale, moved = oracle_err(out, flds, params, spec, T, dt)
+        tag = f"40 K6 bf16 {spec.name} T={T} at {(X, Y, Z)}"
+        print(f"{tag}: wall {wall:.3f} s, launches "
+              f"{ {k: v for k, v in launches.items() if v} }; vs plain "
+              f"{err}; vs f64 oracle {o_err:.4e} (scale {scale:.4e}, the "
+              f"oracle moved the fields by {moved:.4e})", flush=True)
+        check(only_these(launches, {"stencil_fused": n}) and err == 0.0
+              and all(o.dtype == BF16 for o in out),
+              f"{tag}: {n} launch(es), == plain, bitwise")
+        check(o_err <= TOL_REL_BF16 * scale, f"{tag}: within "
+              f"{TOL_REL_BF16} x the field scale of the f64 oracle "
+              f"({o_err:.4e} <= {TOL_REL_BF16 * scale:.4e})")
+        runs[op, integ] = dict(spec=spec, params=params, fields=flds, T=T,
+                               dt=dt, launches=launches["stencil_fused"],
+                               err=err)
+        del plain, out
+        # at the path's dt most bf16 updates round away (the error above is
+        # the oracle's own motion): once more at unit spacings and
+        # `SPEC_BF16_DT` on normal fields, where they resolve
+        up, uf = unit_spec_inputs(op, (X, Y, Z), 950, BF16, BF16)
+        got = K.stencil_fused(uf, up, spec, T=T, dt=SPEC_BF16_DT)
+        moved = sum(int((a != b).sum()) for a, b in zip(got, uf))
+        check(same(got, plain_spec(uf, up, spec, T, SPEC_BF16_DT))
+              and moved > 0, f"{tag}, at unit spacings and dt "
+              f"{SPEC_BF16_DT} on normal fields: == plain, bitwise, "
+              f"{moved} cells moved")
+        del got, uf
+    return runs
+
+
+def k6_bf16_timing(runs, card: str) -> dict:
+    """Each bf16 pass of phase 40 timed (events, device time), beside its
+    bound at 2-byte cells and bf16 operations, and its plain version; the
+    record is the PW euler pass (K1 bf16's bitwise partner)."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    per_op = []
+    for (op, integ), r in runs.items():
+        spec, params, flds, T, dt = (r["spec"], r["params"], r["fields"],
+                                     r["T"], r["dt"])
+
+        def call():
+            return K.stencil_fused(flds, params, spec, T=T, dt=dt)
+
+        ms = time_ms(call)
+        dev, seen = device_per_call(call, "stencil_", ("cuda:0",))
+        plain_ms = time_ms(lambda: plain_spec(flds, params, spec, T, dt),
+                           runs=5)
+        nbytes, ops = spec_bound(op, spec, params, T, (X, Y, Z), itemsize=2)
+        bound, bound_by = bound_of(nbytes, ops, BF16_PEAK)
+        print(f"spec path bf16 on the card: {spec.name} T={T}: {ms:.4f} ms "
+              f"per call by events (median of {TIMED_RUNS}), device "
+              f"{device_text(dev)} a call ({seen} launches seen in 10 "
+              f"calls), "
+              f"bound {bound:.4f} ms by {bound_by} ({nbytes} B, {ops} bf16 "
+              f"ops), {bound / dev if dev > 0 else 0.0:.4f} of the bound by "
+              f"device; plain version {plain_ms:.4f} ms; card {card}",
+              flush=True)
+        per_op.append({"operator": spec.name, "T": T,
+                       "launches": r["launches"], "max_abs_err": r["err"],
+                       "ms": ms, "device_ms": dev if dev > 0 else None,
+                       "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": bound_by})
+    for coef in (False, True):
+        spec = SP.pw_advection_spec()
+        plan = K.spec_device_plan("cuda:0", X, Y, Z, spec, MAIN_T,
+                                  dtype=BF16, coef=coef)
+        a = K.spec_kernel_attrs("cuda:0", spec, MAIN_T, plan, dtype=BF16,
+                                coef=coef)
+        print(f"K6 bf16 build pw_advection T={MAIN_T} "
+              f"C={plan.cells_per_thread} ({'bf16' if coef else 'f32'} "
+              f"coefficients): {a['registers']} registers, "
+              f"{a['local_bytes']} B spilled, {a['blocks_per_sm']} resident "
+              f"per SM", flush=True)
+    pw = per_op[0]
+    return {"name": "stencil_fused_bf16", "route": "cuda",
+            "source": SOURCE["stencil_fused"],
+            "replaces": REPLACES["stencil_fused"],
+            "launches": sum(o["launches"] for o in per_op),
+            "max_abs_err": max(o["max_abs_err"] for o in per_op),
+            "ms": pw["ms"], "device_ms": pw["device_ms"],
+            "plain_ms": pw["plain_ms"], "bound_ms": pw["bound_ms"],
+            "bound_by": pw["bound_by"], "library_ms": None,
+            "operators": per_op}
+
+
+def bf16_distributed_phase(check: Checks, dom, fields, card: str):
+    """Phase 41: the bf16 PW run at the 67M grid over the (2, 2) loopback
+    mesh, `make_distributed_run(n_blocks=4, T=4, fused)` with overlap False
+    and True: `remote_dma` (K7 bf16, one put per card, phase and block; K1
+    bf16) == `collective`, == the single-card bf16 `advance(16)`, bitwise,
+    and within `DIST_BF16_TOL` of `reference_global_step` in bf16. Returns
+    (K7's launches, the mesh, the remote_dma output, the overlap runs)."""
+    X, Y, Z = dom.X, dom.Y, dom.Z
+    nx, ny = DIST_MESH
+    mesh = make_stencil_mesh(nx, ny, devices=["cuda:0"] * (nx * ny))
+    single = dom.advance(*fields, MAIN_SUBSTEPS)
+    k7, outs, runs = 0, {}, {}
+    for overlap in (False, True):
+        for ex in ("remote_dma", "collective"):
+            out, launches, wall, run, shards = distributed_run(
+                mesh, fields, ex, overlap=overlap)
+            outs[ex, overlap] = out
+            if overlap:
+                runs[ex] = (run, shards)
+            want = {"advect_fused": (2 if overlap else 1) * nx * ny
+                    * DIST_BLOCKS}
+            if ex == "remote_dma":
+                want["band_exchange"] = k7_puts(mesh)
+                k7 = launches["band_exchange"]
+            tag = f"41 bf16 distributed {ex} overlap={overlap}"
+            print(f"{tag}: {MAIN_GRID} grid {(X, Y, Z)} over a {(nx, ny)} "
+                  f"loopback mesh on cuda:0, make_distributed_run(n_blocks="
+                  f"{DIST_BLOCKS}, T={MAIN_T}, local_kernel='fused'); wall "
+                  f"{wall:.3f} s; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+            check(only_these(launches, want), f"{tag}: launches {want}, no "
+                  f"other kernel")
+            check(all(o.dtype == BF16 and bool(torch.isfinite(o).all())
+                      for o in out), f"{tag}: finite bf16 outputs")
+        check(same(outs["remote_dma", overlap], outs["collective", overlap]),
+              f"41 bf16 distributed overlap={overlap}: remote_dma == "
+              f"collective, bitwise")
+        check(same(outs["remote_dma", overlap], single),
+              f"41 bf16 distributed overlap={overlap}: == the single-card "
+              f"bf16 advance({MAIN_SUBSTEPS}), bitwise")
+    oracle = D.reference_global_step(*fields, dom.params, T=MAIN_SUBSTEPS,
+                                     dt=DT)
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(outs["remote_dma", True], oracle))
+    check(err < DIST_BF16_TOL, f"41 bf16 distributed: within "
+          f"{DIST_BF16_TOL} of reference_global_step in bf16 ({err:.4e})")
+    del oracle, single
+    return k7, mesh, outs["remote_dma", True], runs
+
+
+def bf16_dist_spec_phase(check: Checks, fields, want, card: str) -> None:
+    """Phase 42: the `spec=` runs on `collective` with K6 bf16 (each pass of
+    `SPEC_PATH`, bf16 fields and coefficients, two blocks) == two
+    single-card K6 bf16 calls == the plain spec loop, bitwise; the
+    `remote_dma` refusal for specs on the card stands; then a checkpointed
+    bf16 PW run (K1 and K7 bf16) and its resume from block 3 == the clean
+    run `want` (phase 41's), bitwise."""
+    import shutil
+    import tempfile
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    nx, ny = DIST_MESH
+    mesh = make_stencil_mesh(nx, ny, devices=["cuda:0"] * (nx * ny))
+    nb = DIST_SPEC_BLOCKS
+    p = REF.default_params(Z, dtype=BF16, device="cuda")
+    # phi ~ 300 would not move in bf16: diffusion runs on a normal field
+    inputs = {"pw": (p, tuple(fields), SPEC_DT["pw"]),
+              "tracer": (p, tuple(fields) + (SP.tracer_field(
+                  X, Y, Z, dtype=BF16, device="cuda"),), SPEC_DT["tracer"]),
+              "diffusion": (SP.default_diffusion_params(Z, dtype=BF16,
+                                                        device="cuda"),
+                            rand_fields((X, Y, Z), 42, BF16)[:1], 4.0)}
+    for op, integ, T in SPEC_PATH:
+        spec = SPEC_FACTORIES[op](integ)
+        sp, flds, dt = inputs[op]
+        run = D.make_distributed_run(mesh, sp, spec=spec, spec_params=sp,
+                                     n_blocks=nb, T=T, dt=dt,
+                                     local_kernel="fused", overlap=True,
+                                     exchange="collective")
+        shards = D.shard(mesh, *flds)
+        out, launches, wall = counted(lambda: run(shards), mesh)
+        got = D.gather(mesh, out)
+        del out, shards
+        n = 2 * nx * ny * len(K.spec_passes(spec, T)) * nb
+        single = plain = flds
+        for _ in range(nb):
+            single = K.stencil_fused(single, sp, spec, T=T, dt=dt)
+            plain = plain_spec(plain, sp, spec, T, dt)
+        tag = f"42 bf16 distributed spec {spec.name} T={T}"
+        moved = not same(got, flds)
+        print(f"{tag}: collective, {nb} blocks, wall {wall:.3f} s, launches "
+              f"{ {k: v for k, v in launches.items() if v} }, the fields "
+              f"moved: {moved}", flush=True)
+        check(only_these(launches, {"stencil_fused": n}), f"{tag}: K6 "
+              f"launched {n} times, no other kernel")
+        check(same(got, single) and same(got, plain) and moved
+              and all(g.dtype == BF16 for g in got),
+              f"{tag}: == {nb} single-card K6 bf16 calls == the plain spec "
+              f"loop, bitwise; the fields moved")
+        del got, single, plain
+    reset_all_counts()
+    try:
+        D.make_distributed_run(mesh, p, n_blocks=nb, T=MAIN_T, dt=DT,
+                               local_kernel="fused", exchange="remote_dma",
+                               spec=SP.pw_advection_spec(), spec_params=p)
+        refused = False
+    except RuntimeError as e:
+        refused = "no band exchange kernel" in str(e)
+    check(refused and sum(all_counts().values()) == 0,
+          "42 spec= with exchange='remote_dma' on the CUDA mesh still raises "
+          "at build time (by design), launching nothing")
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="ckpt_bf16_", dir=ROOT / "build"))
+    try:
+        kw = dict(dist_kw("remote_dma"))
+        full = D.make_distributed_run(mesh, p, n_blocks=DIST_BLOCKS,
+                                      checkpoint_every=2,
+                                      checkpoint_dir=str(tmp / "full"), **kw)
+        out, launches, wall = counted(lambda: full(D.shard(mesh, *fields)),
+                                      mesh)
+        check(same(D.gather(mesh, out), want), f"42 bf16 checkpointed run "
+              f"(remote_dma, every 2 blocks) == the clean run, bitwise "
+              f"(wall {wall:.3f} s)")
+        part = D.make_distributed_run(mesh, p, n_blocks=3, checkpoint_every=2,
+                                      checkpoint_dir=str(tmp / "part"), **kw)
+        part(D.shard(mesh, *fields))
+        res, launches, rwall = counted(lambda: D.resume_distributed_run(
+            mesh, p, D.shard(mesh, *fields), n_blocks=DIST_BLOCKS,
+            checkpoint_dir=str(tmp / "part"), **kw), mesh)
+        per = {"advect_fused": 2 * nx * ny, "band_exchange": 2}
+        check(only_these(launches, per) and same(D.gather(mesh, res), want)
+              and all(r.dtype == BF16 for trio in res for r in trio),
+              f"42 bf16 run stopped at block 3, resumed to {DIST_BLOCKS} "
+              f"(wall {rwall:.3f} s, launches {per}) == the clean run, "
+              f"bitwise, bf16 shards")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not tmp.exists(), f"42 the checkpoint directory {tmp} is deleted")
+
+
+# --- phase 43: user-written specs, built from their own callbacks ----------
+
+USER_STAR = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0),
+             (0, 0, -1), (0, 0, 1))
+
+
+def lap_xyz_source(sh, pv):
+    """A 7-point Laplacian whose x, y and z terms each have a coefficient of
+    their own, [cx, cy, cz(Z)] (cz per level)."""
+    (t,) = pv
+    cx, cy, cz = t[0], t[1], t[2:][1:-1]
+    c = sh(0, 0, 0, 0)
+    return (cx * (sh(0, -1, 0, 0) + sh(0, 1, 0, 0))
+            + cy * (sh(0, 0, -1, 0) + sh(0, 0, 1, 0))
+            + cz * (sh(0, 0, 0, -1) + sh(0, 0, 0, 1))
+            - 2.0 * (cx + cy + cz) * c,)
+
+
+def yz_cross_source(sh, pv):
+    """The mixed y-z derivative (the centre plane's four diagonals) and an
+    x difference, [k_yz, k_x]."""
+    (t,) = pv
+    return (t[0] * (sh(0, 0, 1, 1) - sh(0, 0, 1, -1) - sh(0, 0, -1, 1)
+                    + sh(0, 0, -1, -1))
+            + t[1] * (sh(0, 1, 0, 0) - sh(0, 0, 0, 0)),)
+
+
+def gray_scott_source(sh, pv):
+    """Gray-Scott reaction-diffusion of u and v, constant coefficients."""
+    del pv
+
+    def lap(f):
+        return (sh(f, -1, 0, 0) + sh(f, 1, 0, 0) + sh(f, 0, -1, 0)
+                + sh(f, 0, 1, 0) + sh(f, 0, 0, -1) + sh(f, 0, 0, 1)
+                - 6.0 * sh(f, 0, 0, 0))
+
+    u, v = sh(0, 0, 0, 0), sh(1, 0, 0, 0)
+    uvv = u * v * v
+    return (0.16 * lap(0) - uvv + 0.035 * (1.0 - u),
+            0.08 * lap(1) + uvv - 0.095 * v)
+
+
+def user_spec(name: str, integrator: str):
+    fields, source, pack, extra = {
+        "lap_xyz": (("phi",), lap_xyz_source, lambda q: (q,), ()),
+        "yz_cross": (("a",), yz_cross_source, lambda q: (q,),
+                     ((0, 1, 1), (0, 1, -1), (0, -1, 1), (0, -1, -1))),
+        "gray_scott": (("u", "v"), gray_scott_source, lambda q: (), ())}[name]
+    return SP.StencilSpec(name=name, fields=fields,
+                          offsets={f: USER_STAR + extra for f in fields},
+                          source=source, pack_params=pack,
+                          integrator=integrator)
+
+
+USER_SPECS = ("lap_xyz", "yz_cross", "gray_scott")
+USER_DT = {"lap_xyz": 0.5, "yz_cross": 0.2, "gray_scott": 0.5}
+
+
+def user_inputs(name: str, shape, dtype, seed: int):
+    """(params, fields) of a user spec: normal fields (Gray-Scott's u and v
+    in [0.5, 1] and [0, 0.25]), coefficients of `dtype`."""
+    X, Y, Z = shape
+    if name == "gray_scott":
+        a, b = rand_fields(shape, seed)[:2]
+        return None, ((1.0 - 0.5 * a.abs().clamp(max=1.0)).to(dtype),
+                      (0.25 * b.abs().clamp(max=1.0)).to(dtype))
+    field = rand_fields(shape, seed, dtype)[:1]
+    if name == "lap_xyz":
+        q = torch.cat([torch.tensor([0.1, 0.15]),
+                       torch.linspace(0.05, 0.1, Z)])
+    else:
+        q = torch.tensor([0.2, 0.3])
+    return q.to(dtype).cuda(), field
+
+
+USER_PROBE = {"lap_xyz": torch.ones(6), "yz_cross": torch.ones(2),
+              "gray_scott": None}
+
+
+def user_spec_phase(check: Checks, card: str) -> dict:
+    """Phase 43: three specs written here (none uses a shipped callback),
+    each run on its generated functor in f32 and bf16 (bf16 coefficients),
+    euler and rk2: their builds made at once and timed, then again from the
+    cache; at small shapes (T 1-3, y_tile None and 3, masks) and at the 67M
+    grid == the callback's plain version, bitwise, each launch counted; the
+    analyzer's live ledger == fake == model for one of them. Returns the
+    `stencil_generated` record (lap_xyz, f32, euler, T = 4 at 67M)."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    cases = []
+    for name in USER_SPECS:
+        for integ in SP.INTEGRATORS:
+            for dtype in (torch.float32, BF16):
+                spec = user_spec(name, integ)
+                pv = K._spec_param_vectors(spec, user_inputs(
+                    name, SPEC_BF16_SHAPES[0], dtype, 0)[0], "cuda", dtype)
+                cases.append((spec, dtype, K._coef_is_bf16(pv)))
+    t0 = time.perf_counter()
+    n_builds = K.build_spec_kernels(cases)
+    first = time.perf_counter() - t0
+    print(f"43 generated K6 builds: {n_builds} (3 specs x euler, rk2 x f32, "
+          f"bf16), compiled at once in {first:.2f} s", flush=True)
+    gen = user_spec("lap_xyz", "euler").cuda_functor()
+    flags = _build.generated_flags(1, False, False, K._k6_builds(gen, 1))
+    _build.load_generated.cache_clear()
+    t0 = time.perf_counter()
+    again = K.build_spec_kernels(cases)
+    lib = _build.load_generated(gen.text, flags)
+    second = time.perf_counter() - t0
+    print(f"43 the same builds again (a second run, the cache cleared in the "
+          f"process): {second:.4f} s, from {Path(lib._name).parent.name}",
+          flush=True)
+    check(n_builds == again == 12 and second < first / 10,
+          f"43 the generated builds are cached by their digest: {second:.4f} "
+          f"s the second time, {first:.2f} s the first")
+    for spec, dt_, _ in cases:
+        op = spec.cuda_functor()
+        check(not isinstance(op, int) and op.n_fields == spec.n_fields,
+              f"43 {spec.name} {spec.integrator} runs a generated functor "
+              f"(digest {op.digest})")
+    runs = {}
+    for name in USER_SPECS:
+        dt = USER_DT[name]
+        for integ in SP.INTEGRATORS:
+            spec = user_spec(name, integ)
+            for dtype in (torch.float32, BF16):
+                tag = (f"43 {name} {integ} "
+                       f"{'bf16' if dtype == BF16 else 'f32'}")
+                ok, moved = [], []
+                for si, shape in enumerate(SPEC_BF16_SHAPES):
+                    params, flds = user_inputs(name, shape, dtype, 800 + si)
+                    xm, ym = ones_cuda(shape[0]), ones_cuda(shape[1])
+                    xm[2] = 0.0
+                    ym[3:5] = 0.0
+                    for T in (1, 2, 3):
+                        for masked in (False, True):
+                            mk = dict(x_interior_mask=xm if masked else None,
+                                      y_interior_mask=ym if masked else None)
+                            plain = plain_spec(flds, params, spec, T, dt,
+                                               *mk.values())
+                            moved.append(not same(plain, flds))
+                            for y_tile in (None, 3):
+                                out, launches, _ = counted(
+                                    lambda: K.stencil_fused(
+                                        flds, params, spec, T=T, dt=dt,
+                                        y_tile=y_tile, **mk))
+                                ok.append(same(out, plain) and only_these(
+                                    launches, {"stencil_generated": len(
+                                        K.spec_passes(spec, T))}))
+                check(all(ok) and all(moved), f"{tag}: at small shapes == "
+                      f"the callback's plain version, bitwise, {len(ok)} "
+                      f"runs, each launch counted; the fields moved")
+                T = 4 if integ == "euler" else 2
+                params, flds = user_inputs(name, (X, Y, Z), dtype, 900)
+                out, launches, wall = counted(lambda: K.stencil_fused(
+                    flds, params, spec, T=T, dt=dt))
+                plain = plain_spec(flds, params, spec, T, dt)
+                err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(out, plain))
+                n = len(K.spec_passes(spec, T))
+                print(f"{tag} T={T} at {(X, Y, Z)}: wall {wall:.3f} s, "
+                      f"launches {launches['stencil_generated']}, vs plain "
+                      f"{err}", flush=True)
+                check(err == 0.0 and not same(out, flds) and only_these(
+                    launches, {"stencil_generated": n}),
+                      f"{tag} T={T} at {(X, Y, Z)}: == plain, bitwise, "
+                      f"{n} launch(es), the fields moved")
+                runs[name, integ, dtype] = dict(
+                    spec=spec, params=params, fields=flds, T=T, dt=dt,
+                    launches=launches["stencil_generated"], err=err)
+                del out, plain
+    # the analyzer: lap_xyz's ledger live == fake == model
+    spec = user_spec("lap_xyz", "euler")
+    q = user_inputs("lap_xyz", (X, Y, Z), torch.float32, 900)[0].cpu()
+    prog = PR.user_spec_program(spec, X, Y, Z, params=q, T=MAIN_T, dt=0.5)
+    with TR.fake_mode():
+        fn, args = prog.build("cuda")
+        fake = ledger_of(prog, TR.record_ops(fn, *args))
+    del fn, args
+    fn, args = prog.build("cuda")
+    records = TR.record_ops(fn, *args, execute=True)
+    torch.cuda.synchronize()
+    live = ledger_of(prog, records)
+    del fn, args
+    print(f"43 ledger {prog.name}: {live} (claims {prog.claims})", flush=True)
+    check(live == fake and all(live[c] == b for c, b in prog.claims.items())
+          and op_counts(records) == prog.launches,
+          f"43 {prog.name}: live ledger == fake trace == model "
+          f"{prog.claims}, ops {prog.launches}")
+    r = runs["lap_xyz", "euler", torch.float32]
+    flds, params, T, dt = r["fields"], r["params"], r["T"], r["dt"]
+
+    def call():
+        return K.stencil_fused(flds, params, spec, T=T, dt=dt)
+
+    ms = time_ms(call)
+    dev, seen = device_per_launch(call, "stencil_")   # one launch a call
+    plain_ms = time_ms(lambda: plain_spec(flds, params, spec, T, dt), runs=5)
+    nbytes, ops = spec_bound(None, spec, params, T, (X, Y, Z),
+                             probe=USER_PROBE["lap_xyz"])
+    for name in USER_SPECS:
+        for dtype in (torch.float32, BF16):
+            rr = runs[name, "euler", dtype]
+            t = time_ms(lambda: K.stencil_fused(rr["fields"], rr["params"],
+                                                rr["spec"], T=rr["T"],
+                                                dt=rr["dt"]))
+            plan = K.spec_device_plan("cuda:0", X, Y, Z, rr["spec"], rr["T"],
+                                      dtype=dtype, coef=dtype == BF16)
+            a = K.spec_kernel_attrs("cuda:0", rr["spec"], rr["T"], plan,
+                                    dtype=dtype, coef=dtype == BF16)
+            print(f"43 generated K6 {name} euler T={rr['T']} "
+                  f"{'bf16' if dtype == BF16 else 'f32'} at {(X, Y, Z)}: "
+                  f"{t:.4f} ms by events; build C={plan.cells_per_thread}, "
+                  f"{plan.threads} threads, {a['registers']} registers, "
+                  f"{a['local_bytes']} B spilled, {a['blocks_per_sm']} "
+                  f"resident per SM; card {card}", flush=True)
+    print("generated K6 (lap_xyz, f32, euler) at the 67M grid:", flush=True)
+    rec = kernel_record("stencil_generated", ms, plain_ms, nbytes, ops,
+                        sum(v["launches"] for v in runs.values()),
+                        max(v["err"] for v in runs.values()))
+    rec["device_ms"] = dev if dev > 0 else None
+    print(f"stencil_generated: device {device_text(dev)} a launch ({seen} "
+          f"launches seen in 10 calls); card {card}", flush=True)
+    return rec
+
+
+def spec_codegen_only(check: Checks, card: str) -> list:
+    """`--only spec_codegen`: phase 43 alone."""
+    return [phase("43 user-written specs", user_spec_phase, check, card)]
+
+
 def bf16_phases(check: Checks, card: str) -> list:
-    """Phases 35-39: the bf16 PW path."""
+    """Phases 35-39: the bf16 PW path; phases 40-43: K6 and K7 in bf16 and
+    K6 for user-written specs."""
     phase("35 bf16 small shapes", bf16_small_phase, check)
+    phase("40 K6 bf16 small shapes", k6_bf16_small_phase, check)
     dom, fields, out, launches, k1_err, k4_err = phase(
         "36 bf16 main path", bf16_main_path_phase, check)
     phase("36 bf16 resolved dt", bf16_resolved_phase, check)
     ladder = phase("37 bf16 ladder path", bf16_ladder_phase, check, fields)
     records = phase("39 bf16 timing", bf16_timing_phase, check, dom, fields,
                     out, launches, k1_err, k4_err, ladder, card)
-    del dom, fields, out
+    del out
+    torch.cuda.empty_cache()
+    k6_runs = phase("40 K6 bf16 path", k6_bf16_path_phase, check, fields)
+    records.append(phase("40 K6 bf16 timing", k6_bf16_timing, k6_runs, card))
+    del k6_runs
+    torch.cuda.empty_cache()
+    phase("41 K7 bf16 small shapes", band_small_phase, check, dtype=BF16)
+    k7, mesh, dist_out, runs = phase("41 bf16 distributed path",
+                                     bf16_distributed_phase, check, dom,
+                                     fields, card)
+    records.append(phase("41 K7 bf16 timing", band_timing, mesh, fields, k7,
+                         runs, card))
+    del runs
+    torch.cuda.empty_cache()
+    phase("42 bf16 distributed spec path and checkpoint",
+          bf16_dist_spec_phase, check, fields, dist_out, card)
+    del dom, fields, dist_out
     torch.cuda.empty_cache()
     records += phase("38 bf16 stencil serving", bf16_serving_phase, check,
                      card)
+    torch.cuda.empty_cache()
+    records.append(phase("43 user-written specs", user_spec_phase, check,
+                         card))
     torch.cuda.empty_cache()
     return records
 
@@ -5304,10 +6027,11 @@ def main() -> int:
                                      ["k8"], ["k9"], ["stencil_serving"],
                                      ["distributed_spec"], ["recovery"],
                                      ["families"], ["train"],
-                                     ["analysis"], ["bf16"]):
+                                     ["analysis"], ["bf16"],
+                                     ["spec_codegen"]):
         print("usage: chip_smoke.py [--only distributed|ladder|k6|k8|k9|"
               "stencil_serving|distributed_spec|recovery|families|train|"
-              "analysis|bf16]", file=sys.stderr)
+              "analysis|bf16|spec_codegen]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -5355,6 +6079,8 @@ def main() -> int:
         return finish(check, analysis_phases(check, card), card, t0)
     if only == ["bf16"]:
         return finish(check, bf16_phases(check, card), card, t0)
+    if only == ["spec_codegen"]:
+        return finish(check, spec_codegen_only(check, card), card, t0)
     if only:
         return finish(check, distributed_only(check, card), card, t0)
     phase("1 small shapes", small_shape_phase, check)

@@ -9,7 +9,8 @@ advect_fused`, which launches the hand-written CUDA ring kernel in
 the other ladder rungs launch `csrc/advect_blocked.cu` and
 `csrc/advect_dataflow.cu`. The stencil-spec frontend (`stencil.spec`)
 drives `kernels.advection.advection.stencil_fused`, which launches
-`csrc/stencil_fused.cu`. The dense-model token-serving path
+`csrc/stencil_fused.cuh` (a user's spec: its generated functor,
+`stencil.spec_cuda`). The dense-model token-serving path
 (`serving.engine.ServingEngine` -> `models.model.forward` /
 `decode_step` -> `models.blocks.attention_apply`) launches the flash-
 attention kernel, `csrc/flash_attention_tc.cu` for bf16 and

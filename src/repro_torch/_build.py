@@ -29,22 +29,28 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
 SOURCES = ("advect_fused.cu", "advect_fused_bf16.cu",
            "advect_fused_bf16_coef.cu", "finite_guard.cu",
            "advect_blocked.cu",
-           "advect_dataflow.cu", "stencil_fused.cu", "flash_attention.cu",
+           "advect_dataflow.cu", "stencil_fused.cu", "stencil_fused_bf16.cu",
+           "stencil_fused_bf16_coef.cu", "flash_attention.cu",
            "flash_attention_tc.cu", "selective_scan.cu", "band_exchange.cu")
 HEADERS = ("advect_fused.cuh", "cells.cuh", "pw_source.cuh",
-           "stencil_ops.cuh")
+           "stencil_fused.cuh", "stencil_ops.cuh")
+# K6 of one user-written spec (`stencil.spec_cuda`): its entry source, built
+# apart with the generated functor as `K6_GENERATED_HEADER`
+GENERATED_SOURCE = "stencil_generated.cu"
+K6_GENERATED_HEADER = "k6_generated_op.cuh"
 # K1 (`csrc/advect_fused.cuh`) is built for T in 1..K1_MAX_T, by cells per
 # thread: the threads per block each build runs (its launch bound). The
 # flags below hand both to the source; its launch planner reads them here.
 K1_MAX_T = 8
 K1_BUILDS = {2: 512, 4: 384, 8: 256}
-# K6 (`csrc/stencil_fused.cu`) is built for 1..K6_MAX_LEVELS ring levels a
+# K6 (`csrc/stencil_fused.cuh`) is built for 1..K6_MAX_LEVELS ring levels a
 # pass (stages * T), and by (functor id, stages) for 2 and 4 cells per
 # thread, each at the threads per block given here (its launch bound). Its
 # register ring holds 2 * fields * levels * C floats a thread, so the
@@ -56,7 +62,8 @@ K1_BUILDS = {2: 512, 4: 384, 8: 256}
 # diffusion [kx, ky, kz(Z)]. All three reach the source as the header
 # `k6_table()` writes into the build, whose static_asserts hold the
 # vectors to each functor's kVectors; the spec launch planner reads them
-# here.
+# here. Each storage build (f32; bf16 fields with f32 coefficients; both
+# bf16) has its own entry source, compiled in parallel.
 K6_MAX_LEVELS = 4
 K6_BUILDS = {(0, 1): {2: 512}, (0, 2): {2: 512},
              (1, 1): {2: 384, 4: 256}, (1, 2): {2: 384, 4: 256},
@@ -93,6 +100,12 @@ SIGNATURES = {
     "stencil_fused_f32": ([_I] * 2 + [_P] * 9 + [_I, _P, _P] + [_I] * 18
                           + [_F, _SZ, _P]),
     "stencil_fused_attrs": [_I] * 5 + [_SZ, _P],
+    "stencil_fused_bf16": ([_I] * 2 + [_P] * 9 + [_I, _P, _P] + [_I] * 18
+                           + [_F, _SZ, _P]),
+    "stencil_fused_bf16_attrs": [_I] * 5 + [_SZ, _P],
+    "stencil_fused_bf16_coef": ([_I] * 2 + [_P] * 9 + [_I, _P, _P]
+                                + [_I] * 18 + [_F, _SZ, _P]),
+    "stencil_fused_bf16_coef_attrs": [_I] * 5 + [_SZ, _P],
     "flash_attention_fwd": [_P] * 4 + [_LL] * 12 + [_I] * 9 + [_F, _SZ, _P],
     "flash_attention_tc_fwd": [_P] * 4 + [_LL] * 12 + [_I] * 7 + [_F, _P],
     "flash_attention_tc_attrs": [_I, _P],
@@ -118,7 +131,7 @@ def _nvcc() -> str:
 
 
 def k6_table() -> str:
-    """K6's build table as the header `csrc/stencil_fused.cu` includes
+    """K6's build table as the header `csrc/stencil_fused.cuh` includes
     (`K6_HEADER`): K6_MAX_LEVELS, one X(op, stages, C, threads) of
     K6_BUILDS(X) per build and one X(op, vectors) of K6_COEF_VECTORS(X)
     per functor."""
@@ -196,3 +209,86 @@ def check(err: int, name: str) -> None:
     """Raise when a C entry point returned a nonzero cudaError_t."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+# --- K6 for user-written specs ------------------------------------------------
+
+GENERATED_SIGNATURES = {
+    "k6_generated": SIGNATURES["stencil_fused_f32"],
+    "k6_generated_attrs": SIGNATURES["stencil_fused_attrs"],
+}
+
+
+def generated_flags(stages: int, bf16: bool, coef: bool,
+                    threads: dict) -> Tuple[str, ...]:
+    """The nvcc flags of one generated K6 build: the library's, its
+    integrator's stages, its storage (bf16 fields, bf16 coefficients) and
+    the launch bound of its 2- and 4-cell builds (0: none)."""
+    return NVCC_FLAGS + (f"-DK6G_STAGES={stages}", f"-DK6G_BF16={int(bf16)}",
+                         f"-DK6G_COEF_BF16={int(bf16 and coef)}",
+                         f"-DK6G_THREADS_C2={threads.get(2, 0)}",
+                         f"-DK6G_THREADS_C4={threads.get(4, 0)}")
+
+
+def generated_digest(text: str, flags) -> str:
+    """The key of a generated build: its functor's text, its flags, the
+    K6 table and every source and header it compiles."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(text.encode())
+    h.update(k6_table().encode())
+    for name in (GENERATED_SOURCE,) + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _generated_dir(text: str, flags) -> Path:
+    return BUILD_ROOT / f"k6g-{generated_digest(text, flags)}"
+
+
+def build_generated(jobs) -> List[Path]:
+    """Compile generated K6 builds, each ``(functor text, flags)``, all at
+    once (one nvcc each, started together), each into
+    `build/k6g-<digest>/`; reuses a build made before. Returns the
+    libraries' paths in the order of `jobs`."""
+    libs = [_generated_dir(text, flags) / LIB_NAME for text, flags in jobs]
+    todo = [(job, lib) for job, lib in zip(jobs, libs) if not lib.exists()]
+    if not todo:
+        return libs
+    nvcc = _nvcc()
+    running = []
+    for (text, flags), lib in todo:
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = Path(tempfile.mkdtemp(dir=lib.parent))
+        (tmp / K6_HEADER).write_text(k6_table())
+        (tmp / K6_GENERATED_HEADER).write_text(text)
+        out = tmp / LIB_NAME
+        running.append((lib, tmp, out, subprocess.Popen(
+            [nvcc, *flags, "-I", str(tmp), "-shared",
+             str(CSRC / GENERATED_SOURCE), "-o", str(out)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for lib, tmp, out, proc in running:
+        log = proc.communicate()[0]
+        (lib.parent / LOG_NAME).write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{lib.parent.name}:\n{log}")
+        else:
+            os.replace(out, lib)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failed:
+        raise RuntimeError("nvcc failed on generated K6 builds:\n"
+                           + "\n".join(failed))
+    return libs
+
+
+@functools.lru_cache(maxsize=None)
+def load_generated(text: str, flags: Tuple[str, ...]) -> ctypes.CDLL:
+    """The generated K6 build of `text` at `flags` (`generated_flags`),
+    built at first use, with its entry points' signatures declared."""
+    lib = ctypes.CDLL(str(build_generated([(text, flags)])[0]))
+    for name, argtypes in GENERATED_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

@@ -19,7 +19,10 @@ priced: the blocked rung re-reads its slices inside the kernel), `distributed` (
 `make_distributed_run`: K1 with either exchange, K6 with the collective
 one, verified or not), `serving` (the stencil serving engine's mega-step,
 K5 then K4 over B slots; `serving_bf16` on bf16 slots), `spec_path` (K6, one call per shipped operator x
-integrator pair), `attention` (K8) and `scan` (K9).
+integrator pair; `spec_path_bf16` in bf16), `attention` (K8) and `scan`
+(K9). `distributed_remote_dma_bf16` is the bf16 distributed block: K7 and
+K1 in bf16, its categories at itemsize 2. `user_spec_program` prices one
+K6 call of any spec the kernel runs, a user's generated functor too.
 """
 from __future__ import annotations
 
@@ -37,8 +40,8 @@ from repro_torch.kernels.ssm import ssm as SS
 
 __all__ = ["Program", "place", "advance_program", "grid_tiled_program",
            "ladder_program", "distributed_program", "serving_program",
-           "spec_path_program", "attention_program", "scan_program",
-           "SPEC_PAIRS"]
+           "spec_path_program", "user_spec_program", "attention_program",
+           "scan_program", "SPEC_PAIRS"]
 
 # the spec path's operator x integrator pairs and their depths
 SPEC_PAIRS = (("pw", "euler", 4), ("pw", "rk2", 2), ("tracer", "euler", 4),
@@ -209,33 +212,38 @@ def _spec(op: str, integrator: str):
             "diffusion": SP.diffusion_spec}[op](integrator)
 
 
-def _spec_inputs(op: str, shape, seed: int = 0):
-    """(params, fields) of one operator on the CPU."""
+def _spec_inputs(op: str, shape, seed: int = 0, dtype=torch.float32):
+    """(params, fields) of one operator on the CPU, fields and
+    coefficients in `dtype` (a bf16 run's coefficients bf16 too)."""
     from repro_torch.stencil import spec as SP
     Z = shape[2]
     if op == "diffusion":
-        phi = _fields(shape, 1, seed)[0] + 300.0
-        return SP.default_diffusion_params(Z, device="cpu"), (phi,)
+        phi = (_fields(shape, 1, seed)[0] + 300.0).to(dtype)
+        return SP.default_diffusion_params(Z, dtype=dtype, device="cpu"), \
+            (phi,)
     n = 4 if op == "tracer" else 3
-    return REF.default_params(Z, device="cpu"), _fields(shape, n, seed)
+    return (REF.default_params(Z, dtype=dtype, device="cpu"),
+            _fields(shape, n, seed, dtype))
 
 
 def spec_path_program(X: int, Y: int, Z: int, *, pairs=SPEC_PAIRS,
-                      dt: float = 0.01) -> Program:
+                      dt: float = 0.01, dtype=torch.float32) -> Program:
     """K6 (`stencil_fused`): one call per operator x integrator pair, each
-    at its depth, on K6's own plan."""
+    at its depth, on K6's own plan, on fields and coefficients of `dtype`
+    ("spec_path" or "spec_path_bf16")."""
     hbm, launches = 0, 0
+    item = K._itemsize(dtype)
     for op, integrator, T in pairs:
         spec = _spec(op, integrator)
         passes = K.spec_passes(spec, T)
         hbm += len(passes) * K.hbm_bytes_model(
-            X, Y, Z, 4, "fused", T=T, n_fields=spec.n_fields)
+            X, Y, Z, item, "fused", T=T, n_fields=spec.n_fields)
         launches += len(passes)
 
     def build(device):
         calls = []
         for op, integrator, T in pairs:
-            params, fields = _spec_inputs(op, (X, Y, Z))
+            params, fields = _spec_inputs(op, (X, Y, Z), dtype=dtype)
             calls.append((_spec(op, integrator), place(params, device),
                           place(fields, device), T))
 
@@ -244,8 +252,31 @@ def spec_path_program(X: int, Y: int, Z: int, *, pairs=SPEC_PAIRS,
                     for spec, p, f, T in calls]
         return fn, ()
 
-    return Program("spec_path", build, {"pallas_hbm": hbm},
+    return Program("spec_path" + _tag(dtype), build, {"pallas_hbm": hbm},
                    launches={"stencil_fused": launches})
+
+
+def user_spec_program(spec, X: int, Y: int, Z: int, *, params=None,
+                      T: int = 4, dt: float = 0.01,
+                      dtype=torch.float32) -> Program:
+    """One `stencil_fused` call of any spec K6 runs (a user's: its generated
+    functor) over (X, Y, Z) fields of `dtype`, `params` what its
+    `pack_params` takes (on the CPU)."""
+    item = K._itemsize(dtype)
+    passes = K.spec_passes(spec, T)
+
+    def build(device):
+        p = place(params, device)
+
+        def fn(*fields):
+            return K.stencil_fused(fields, p, spec, T=T, dt=dt)
+        return fn, place(_fields((X, Y, Z), spec.n_fields, dtype=dtype),
+                         device)
+
+    return Program(f"spec_{spec.name}" + _tag(dtype), build, {
+        "pallas_hbm": len(passes) * K.hbm_bytes_model(
+            X, Y, Z, item, "fused", T=T, n_fields=spec.n_fields)},
+        launches={"stencil_fused": len(passes)})
 
 
 def attention_program(B: int, H: int, Hkv: int, S: int, D: int, *,
@@ -285,13 +316,14 @@ def scan_program(B: int, S: int, D: int, N: int = 16, *,
 def distributed_program(X: int, Y: int, Z: int, *, exchange: str,
                         T: int = 4, n_blocks: int = 4, mesh=(2, 2),
                         verify: bool = False, spec: Optional[str] = None,
-                        overlap: bool = False,
-                        dt: float = 0.01) -> Program:
+                        overlap: bool = False, dt: float = 0.01,
+                        dtype=torch.float32) -> Program:
     """`make_distributed_run(n_blocks=...)` on a loopback mesh of `mesh`
     shards of the (X, Y, Z) grid with `local_kernel="fused"`: K1 (or K6
     for the spec operator `spec`, an ``"op/integrator"`` name) and either
-    exchange engine, `verify` riding checksum words. Its claims are per
-    shard and per block."""
+    exchange engine, `verify` riding checksum words, on fields and
+    coefficients of `dtype` (bf16: K7 and K1 or K6 in bf16, every
+    category at itemsize 2). Its claims are per shard and per block."""
     from repro_torch.launch.mesh import make_stencil_mesh
     from repro_torch.stencil import distributed as D
     nx, ny = mesh
@@ -303,14 +335,15 @@ def distributed_program(X: int, Y: int, Z: int, *, exchange: str,
            Yl + (2 * depth if ny > 1 else 0))
     passes = K.fused_passes(T) if sp is None else K.spec_passes(sp, T)
     kw = dict(nx=nx, ny=ny, T=T, n_fields=n_fields, depth=depth)
-    hbm = sum(K.hbm_bytes_model(*ext, Z, 4, "fused", T=Tk,
+    item = K._itemsize(dtype)
+    hbm = sum(K.hbm_bytes_model(*ext, Z, item, "fused", T=Tk,
                                 n_fields=n_fields) for Tk in passes)
     if overlap:
-        hbm += sum(K.hbm_bytes_model(Xl, Yl, Z, 4, "fused", T=Tk,
+        hbm += sum(K.hbm_bytes_model(Xl, Yl, Z, item, "fused", T=Tk,
                                      n_fields=n_fields) for Tk in passes)
     if exchange == "remote_dma":
-        hbm += R.band_slab_bytes_model(X, Y, Z, 4, **kw)
-    claims = {"ppermute_wire": R.halo_wire_bytes_model(X, Y, Z, 4, **kw),
+        hbm += R.band_slab_bytes_model(X, Y, Z, item, **kw)
+    claims = {"ppermute_wire": R.halo_wire_bytes_model(X, Y, Z, item, **kw),
               "pallas_hbm": hbm}
     if verify:
         claims["integrity_words"] = R.integrity_bytes_model(X, Y, Z, **kw)
@@ -324,10 +357,12 @@ def distributed_program(X: int, Y: int, Z: int, *, exchange: str,
     def build(device):
         m = make_stencil_mesh(nx, ny, devices=[device] * n)
         if sp is None:
-            p, fields = REF.default_params(Z, device="cpu"), _fields((X, Y, Z))
+            p = REF.default_params(Z, dtype=dtype, device="cpu")
+            fields = _fields((X, Y, Z), dtype=dtype)
             kw_run = {}
         else:
-            p, fields = _spec_inputs(spec.split("/")[0], (X, Y, Z))
+            p, fields = _spec_inputs(spec.split("/")[0], (X, Y, Z),
+                                     dtype=dtype)
             kw_run = dict(spec=sp, spec_params=place(p, device))
         run = D.make_distributed_run(
             m, place(p, device), n_blocks=n_blocks, T=T, dt=dt,
@@ -336,7 +371,7 @@ def distributed_program(X: int, Y: int, Z: int, *, exchange: str,
         return run, (D.shard(m, *place(fields, device)),)
 
     name = (f"distributed_{exchange}" + ("" if sp is None else f"_{spec}")
-            + ("_verified" if verify else ""))
+            + ("_verified" if verify else "") + _tag(dtype))
     return Program(name, build, claims, per_block=True, n_shards=n,
                    launches=launches)
 
@@ -362,9 +397,12 @@ def programs(small: bool = True) -> Tuple[Program, ...]:
            grid_tiled_program(X, Y, Z, y_tile=4 if small else 64),
            serving_program(*s["serve"], B=4),
            serving_program(*s["serve"], B=4, dtype=torch.bfloat16),
-           spec_path_program(X, Y, Z)]
+           spec_path_program(X, Y, Z),
+           spec_path_program(X, Y, Z, dtype=torch.bfloat16)]
     for exchange in ("collective", "remote_dma"):
         out.append(distributed_program(Xd, Yd, Zd, exchange=exchange))
+    out.append(distributed_program(Xd, Yd, Zd, exchange="remote_dma",
+                                   dtype=torch.bfloat16))
     out.append(distributed_program(Xd, Yd, Zd, exchange="collective",
                                    verify=True))
     out.append(distributed_program(Xd, Yd, Zd, exchange="collective",

@@ -195,13 +195,13 @@ def distributed_block_plan(shard_shape: Tuple[int, int, int], *, T: int,
                            y_tile: Optional[int] = None, nx: int = 1,
                            ny: int = 1, spec=None, shards_per_card: int = 1,
                            n_sm: int = H100_SMS, blocks_per_sm: int = 1,
-                           context: str = "") -> SmemPlan:
+                           itemsize: int = 4, context: str = "") -> SmemPlan:
     """One distributed substep-block of a shard: K1's (or K6's, with
     `spec`) block over the halo-extended slab at depth ``spec.halo(T)``
     (T without a spec), when `local_kernel="fused"`; and with
     `exchange="remote_dma"` K7's `ExtendedBuffers` (2 slots x the fields
-    of the extended slab) of the `shards_per_card` shards one card
-    holds."""
+    of the extended slab, cells of `itemsize` bytes) of the
+    `shards_per_card` shards one card holds."""
     Xl, Yl, Z = shard_shape
     depth = spec.halo(T) if spec is not None else T
     n_fields = spec.n_fields if spec is not None else 3
@@ -209,8 +209,7 @@ def distributed_block_plan(shard_shape: Tuple[int, int, int], *, T: int,
     dy = depth if ny > 1 else 0
     ext = (Xl + 2 * dx, Yl + 2 * dy, Z)
     buffers = []
-    if local_kernel == "fused" and (spec is None
-                                    or spec.cuda_op is not None):
+    if local_kernel == "fused" and (spec is None or K.spec_on_card(spec)):
         passes = (K.spec_passes(spec, T) if spec is not None
                   else K.fused_passes(T))
         ring = fused_ring_plan(*ext, T=max(passes), y_tile=y_tile, spec=spec,
@@ -221,7 +220,7 @@ def distributed_block_plan(shard_shape: Tuple[int, int, int], *, T: int,
     if exchange == "remote_dma" and (dx or dy):
         buffers.append(SmemBuffer(
             "K7 extended buffers (2 slots)",
-            shards_per_card * n_fields * 2 * ext[0] * ext[1] * Z * 4,
+            shards_per_card * n_fields * 2 * ext[0] * ext[1] * Z * itemsize,
             f"{shards_per_card} shards x {n_fields} fields x 2 slots of "
             f"{ext}", space="device"))
     return SmemPlan(tuple(buffers), blocks_per_sm=blocks_per_sm,

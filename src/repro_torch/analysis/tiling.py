@@ -128,7 +128,7 @@ def _ring_plan(r, n_sm, blocks_per_sm):
     T, y_tile = r.arg("T"), r.arg("y_tile") or None
     if r.op == "stencil_fused":
         spec = K.spec_of(r.arg("spec"))
-        if spec.cuda_op is None:
+        if not K.spec_on_card(spec):
             return None, None, first.shape
         levels = spec.stages * T
         plan = K.spec_launch_plan(X, Y, Z, spec, T, B, n_sm, blocks_per_sm,

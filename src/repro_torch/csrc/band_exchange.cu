@@ -15,17 +15,18 @@
 // neighbour's halo. The wrapper (`advection._band_exchange_cuda`) builds the
 // table of messages once per buffers, slot and layout and keeps it in device
 // memory: per message a source index and offset, a destination address, the
-// receiver's arrival word (0 on the same card), `runs` runs of `run` floats
+// receiver's arrival word (0 on the same card), `runs` runs of `run` bytes
 // with their strides, and its first tile. Per call only the sources' base
-// pointers travel, by value.
+// pointers travel, by value. The table counts bytes, so the kernel is blind
+// to the cells' type: f32 and bf16 fields move alike, bit for bit.
 //
 // Bound on one H100 SXM: bytes, and at the path's shape launch latency. At
 // 67M on a (2, 2) loopback mesh, T = 4, the x phase moves each shard once
 // into its buffer (805 MB read, 805 MB written) and 12.6 MB of bands, the y
 // phase 12.8 MB of bands: 1.66 GB a block read or written, 0.496 ms at 3.35
-// TB/s. The bands alone are 50.7 MB read and written, 0.015 ms: below a
-// launch's latency, so the design puts a card's whole phase into ONE
-// launch.
+// TB/s (half in bf16). The bands alone are 50.7 MB read and written, 0.015
+// ms: below a launch's latency, so the design puts a card's whole phase
+// into ONE launch.
 //
 // Design:
 //   * One put launch per card and phase carries every message of every
@@ -35,8 +36,9 @@
 //     block finds a tile's message by a binary search over the table's
 //     first tiles. Each thread has kUnitsPerThread 16-byte loads in flight
 //     before it stores them. A message whose run, strides, offsets or bases
-//     are not 16-byte multiples (Z % 4 != 0, an odd view) takes the 4-byte
-//     path, unit by unit.
+//     are not 16-byte multiples (a row of Z cells that is not, an odd view)
+//     takes the narrow path, unit by unit in 2-byte moves (every cell is 2
+//     or 4 bytes).
 //   * Senders and receivers on one card share its stream, so stream order is
 //     the handshake there: no enter, no wait, no fence. Only a card whose
 //     messages cross to another card's buffers (peer stores over NVLink,
@@ -51,8 +53,9 @@
 //     kernel sets a bit of the card's error word and returns, and the
 //     wrapper's check raises naming it.
 //   * No TMA: the x phase's runs are contiguous (128 KB an x-plane of a
-//     band or interior), the y phase's are 1 KB rows; plain 16-byte loads
-//     and stores already move whole lines.
+//     band or interior), the y phase's are rows of Z cells (256 B at Z = 64
+//     in f32, 128 B in bf16); plain 16-byte loads and stores already move
+//     whole lines.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,23 +70,23 @@ constexpr unsigned long long kErrEnter = 1ull;   // put: partners never entered
 constexpr unsigned long long kErrArrive = 2ull;  // wait: bands never arrived
 
 // One row of the wrapper's table: int64 columns in this order
-// (`advection.BAND_COLUMNS`).
+// (`advection.BAND_COLUMNS`), every size and offset in bytes.
 struct Msg {
   long long src;         // index into the call's source bases
-  long long src_off;     // floats from that base to the message's first word
-  long long dst;         // address of its first word in the receiver's buffer
+  long long src_off;     // bytes from that base to the message's first byte
+  long long dst;         // address of its first byte in the receiver's buffer
   long long arrive;      // receiver card's arrival word; 0 on the same card
-  long long runs;        // runs of `run` floats
+  long long runs;        // runs of `run` bytes
   long long run;
-  long long src_stride;  // floats from one run to the next
+  long long src_stride;  // bytes from one run to the next
   long long dst_stride;
-  long long vec4;        // run, strides, offset and dst allow 16-byte moves
+  long long vec16;       // run, strides, offset and dst allow 16-byte moves
   long long tile0;       // the message's first tile
 };
 static_assert(sizeof(Msg) == 10 * sizeof(long long), "table row layout");
 
 struct Sources {
-  const float* p[kMaxSources];
+  const char* p[kMaxSources];
 };
 
 struct Partners {
@@ -128,11 +131,11 @@ __device__ __forceinline__ const Msg* find_msg(const Msg* msgs, int n,
 }
 
 // words: this card's [barrier, arrivals, error], or null when no message
-// crosses to another card. Floats of one message are indexed i in
+// crosses to another card. Bytes of one message are indexed i in
 // [0, runs * run) < 2^31 (the wrapper checks), run o = i / run.
 __global__ void __launch_bounds__(kThreads) band_put_kernel(
     const Msg* __restrict__ msgs, int n_msgs, long long n_tiles, Sources srcs,
-    int srcs_vec4, unsigned long long* words, unsigned long long enter_want,
+    int srcs_vec16, unsigned long long* words, unsigned long long enter_want,
     long long timeout_ns) {
   if (words != nullptr) {
     __shared__ int entered;
@@ -145,42 +148,44 @@ __global__ void __launch_bounds__(kThreads) band_put_kernel(
   }
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const Msg* m = find_msg(msgs, n_msgs, t);
-    const float* src = srcs.p[__ldg(&m->src)] + __ldg(&m->src_off);
-    float* dst = reinterpret_cast<float*>(__ldg(&m->dst));
+    const char* src = srcs.p[__ldg(&m->src)] + __ldg(&m->src_off);
+    char* dst = reinterpret_cast<char*>(__ldg(&m->dst));
     const unsigned run = (unsigned)__ldg(&m->run);
     const unsigned n = (unsigned)(__ldg(&m->runs) * __ldg(&m->run));
     const long long ss = __ldg(&m->src_stride);
     const long long ds = __ldg(&m->dst_stride);
     const unsigned u0 =
         (unsigned)((t - __ldg(&m->tile0)) * kTileUnits) + threadIdx.x;
-    if (__ldg(&m->vec4) && srcs_vec4) {
-      float4 v[kUnitsPerThread];
+    if (__ldg(&m->vec16) && srcs_vec16) {
+      uint4 v[kUnitsPerThread];
 #pragma unroll
       for (int j = 0; j < kUnitsPerThread; ++j) {
-        const unsigned i = 4u * (u0 + j * kThreads);
+        const unsigned i = 16u * (u0 + j * kThreads);
         if (i < n) {
           const unsigned o = i / run, w = i - o * run;
-          v[j] = __ldg(reinterpret_cast<const float4*>(src + o * ss + w));
+          v[j] = __ldg(reinterpret_cast<const uint4*>(src + o * ss + w));
         }
       }
 #pragma unroll
       for (int j = 0; j < kUnitsPerThread; ++j) {
-        const unsigned i = 4u * (u0 + j * kThreads);
+        const unsigned i = 16u * (u0 + j * kThreads);
         if (i < n) {
           const unsigned o = i / run, w = i - o * run;
-          *reinterpret_cast<float4*>(dst + o * ds + w) = v[j];
+          *reinterpret_cast<uint4*>(dst + o * ds + w) = v[j];
         }
       }
     } else {
 #pragma unroll
       for (int j = 0; j < kUnitsPerThread; ++j) {
-        const unsigned base = 4u * (u0 + j * kThreads);
+        const unsigned base = 16u * (u0 + j * kThreads);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
+        for (int q = 0; q < 16; q += 2) {
           const unsigned i = base + q;
           if (i < n) {
             const unsigned o = i / run, w = i - o * run;
-            dst[o * ds + w] = __ldg(src + o * ss + w);
+            *reinterpret_cast<unsigned short*>(dst + o * ds + w) =
+                __ldg(reinterpret_cast<const unsigned short*>(src + o * ss +
+                                                              w));
           }
         }
       }
@@ -221,12 +226,12 @@ extern "C" int band_exchange_enter(void* const* barriers, int n,
 
 // table: n_msgs rows of `Msg` in device memory, their tiles numbered
 // 0 .. n_tiles - 1 in row order. sources: n_sources (<= kMaxSources) device
-// pointers, the bases the rows index; srcs_vec4: every base is 16-byte
+// pointers, the bases the rows index; srcs_vec16: every base is 16-byte
 // aligned. grid: blocks of kThreads walking the tiles.
 extern "C" int band_exchange_put(const void* table, int n_msgs,
                                  long long n_tiles, int grid,
                                  void* const* sources, int n_sources,
-                                 int srcs_vec4, void* words,
+                                 int srcs_vec16, void* words,
                                  unsigned long long enter_want,
                                  long long timeout_ns, void* stream) {
   if (n_msgs < 1 || n_tiles < 1 || grid < 1 || n_sources < 1 ||
@@ -234,9 +239,9 @@ extern "C" int band_exchange_put(const void* table, int n_msgs,
     return (int)cudaErrorInvalidValue;
   Sources s{};
   for (int i = 0; i < n_sources; ++i)
-    s.p[i] = static_cast<const float*>(sources[i]);
+    s.p[i] = static_cast<const char*>(sources[i]);
   band_put_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const Msg*>(table), n_msgs, n_tiles, s, srcs_vec4,
+      static_cast<const Msg*>(table), n_msgs, n_tiles, s, srcs_vec16,
       static_cast<unsigned long long*>(words), enter_want, timeout_ns);
   return (int)cudaGetLastError();
 }

@@ -1,21 +1,36 @@
-// Per-cell source functors of the spec ring kernel (stencil_fused.cu), one
-// per shipped StencilSpec operator of src/repro_torch/stencil/spec.py.
+// Per-cell source functors of the spec ring kernel (stencil_fused.cuh), one
+// per shipped StencilSpec operator of src/repro_torch/stencil/spec.py; a
+// user's radius-1 spec gets one of the same form, generated from its
+// callback by `repro_torch.stencil.spec_cuda`.
 //
 // Each functor mirrors its Python callback term by term, operand order
 // included: `_pw_flux_source` (PwFluxOp<3> for the PW spec, PwFluxOp<4> for
 // the tracer, which advects a fourth field q by u, v, w) and `_diff_source`
 // (DiffusionOp). Built with --fmad=false, every product and sum rounds on
 // its own, as PyTorch's elementwise ops round them in the plain version, so
-// the kernel equals the plain version bitwise. A spec with any other source
-// callback has no functor here and the wrapper refuses it on the card.
+// the kernel equals the plain version bitwise. With bf16 fields an op
+// rounds to bf16 where torch's promotion makes it a bf16 op (cells.cuh):
+// `rnd<RF>` where its operands are field values or Python scalars (weak),
+// `rnd<RC>` where a coefficient takes part (RC is set only when the
+// coefficients are bf16 too: a bf16 field times an f32 coefficient is an
+// f32 op). The coefficients reach the callback dimensioned (a 0-d one
+// would not take part in torch's promotion), as the reference's do in JAX.
+//
+// A functor's interface: kFields, kVectors (the z-coefficient vectors it
+// stages per window cell, `zc[p]`: element zoff(p) + z of parameter vector
+// zvec(p) at cell z), Coef and coef(pv, p_len) (its scalar coefficients,
+// element j of vector i at pv[i * p_len + j]), and source<FI, RF, RC>.
 //
 // The callbacks' accessor `sh(f, dx, dy, dz)` is `at<F, DX, DY, DZ>(cell)`,
 // its offsets compile-time: dx = +-1 resolves to the thread's registers
 // (the ring's x - 1 and x + 1), (0, 0, 0) to its centre register, and
-// dy, dz = +-1 to the level's centre plane in shared memory. No shipped
-// operator reads a diagonal neighbour across x, and `at` refuses one at
-// compile time.
+// dy, dz = +-1 (the y-z diagonals too) to the level's centre plane in
+// shared memory. The ring holds no x neighbour's plane, so a read at
+// x +- 1 with a nonzero dy or dz has no operand here: `at` refuses one at
+// compile time, and the tracer before any build.
 #pragma once
+
+#include "cells.cuh"
 
 // One cell of one ring level, as the operators read it: field f's values
 // at x - 1, x and x + 1 (copies of the thread's ring registers), each
@@ -56,30 +71,36 @@ template <int NOUT>
 struct PwFluxOp {
   static constexpr int kFields = NOUT;
   static constexpr int kVectors = 2;
+  __device__ static constexpr int zvec(int p) { return p; }
+  __device__ static constexpr int zoff(int) { return 2; }
   struct Coef {
     float tcx, tcy;
   };
-  __device__ __forceinline__ static Coef coef(const float* pv) {
-    return {0.0f + pv[0], pv[1]};  // the callback's `0.0 + t1[0]`
+  __device__ __forceinline__ static Coef coef(const float* pv, int) {
+    return {0.0f + pv[0], pv[1]};  // the callback's `0.0 + t1[0]` (exact)
   }
-  template <int FI, class Cell>
+  template <int FI, bool RF, bool RC, class Cell>
   __device__ __forceinline__ static float source(const Cell& sh,
                                                  const Coef& k) {
     const float tzc1 = sh.zc[0];
     const float tzc2 = sh.zc[1];
-    const float fx = k.tcx * (at<0, -1, 0, 0>(sh) * (at<FI, 0, 0, 0>(sh)
-                                                     + at<FI, -1, 0, 0>(sh))
-                              - at<0, 1, 0, 0>(sh) * (at<FI, 0, 0, 0>(sh)
-                                                      + at<FI, 1, 0, 0>(sh)));
-    const float fy = k.tcy * (at<1, 0, -1, 0>(sh) * (at<FI, 0, 0, 0>(sh)
-                                                     + at<FI, 0, -1, 0>(sh))
-                              - at<1, 0, 1, 0>(sh) * (at<FI, 0, 0, 0>(sh)
-                                                      + at<FI, 0, 1, 0>(sh)));
-    const float fz = tzc1 * at<2, 0, 0, -1>(sh) * (at<FI, 0, 0, 0>(sh)
-                                                   + at<FI, 0, 0, -1>(sh))
-                     - tzc2 * at<2, 0, 0, 1>(sh) * (at<FI, 0, 0, 0>(sh)
-                                                    + at<FI, 0, 0, 1>(sh));
-    return fx + fy + fz;
+    const float fc = at<FI, 0, 0, 0>(sh);
+    const float fx = rnd<RC>(
+        k.tcx * rnd<RF>(rnd<RF>(at<0, -1, 0, 0>(sh) *
+                                rnd<RF>(fc + at<FI, -1, 0, 0>(sh)))
+                        - rnd<RF>(at<0, 1, 0, 0>(sh) *
+                                  rnd<RF>(fc + at<FI, 1, 0, 0>(sh)))));
+    const float fy = rnd<RC>(
+        k.tcy * rnd<RF>(rnd<RF>(at<1, 0, -1, 0>(sh) *
+                                rnd<RF>(fc + at<FI, 0, -1, 0>(sh)))
+                        - rnd<RF>(at<1, 0, 1, 0>(sh) *
+                                  rnd<RF>(fc + at<FI, 0, 1, 0>(sh)))));
+    const float fz = rnd<RC>(
+        rnd<RC>(rnd<RC>(tzc1 * at<2, 0, 0, -1>(sh)) *
+                rnd<RF>(fc + at<FI, 0, 0, -1>(sh)))
+        - rnd<RC>(rnd<RC>(tzc2 * at<2, 0, 0, 1>(sh)) *
+                  rnd<RF>(fc + at<FI, 0, 0, 1>(sh))));
+    return rnd<RC>(rnd<RC>(fx + fy) + fz);
   }
 };
 
@@ -88,19 +109,28 @@ struct PwFluxOp {
 struct DiffusionOp {
   static constexpr int kFields = 1;
   static constexpr int kVectors = 1;
+  __device__ static constexpr int zvec(int) { return 0; }
+  __device__ static constexpr int zoff(int) { return 2; }
   struct Coef {
     float kx, ky;
   };
-  __device__ __forceinline__ static Coef coef(const float* pv) {
+  __device__ __forceinline__ static Coef coef(const float* pv, int) {
     return {pv[0], pv[1]};
   }
-  template <int FI, class Cell>
+  template <int FI, bool RF, bool RC, class Cell>
   __device__ __forceinline__ static float source(const Cell& sh,
                                                  const Coef& k) {
     const float kz = sh.zc[0];
     const float c = at<0, 0, 0, 0>(sh);
-    return k.kx * (at<0, -1, 0, 0>(sh) - 2.0f * c + at<0, 1, 0, 0>(sh))
-           + k.ky * (at<0, 0, -1, 0>(sh) - 2.0f * c + at<0, 0, 1, 0>(sh))
-           + kz * (at<0, 0, 0, -1>(sh) - 2.0f * c + at<0, 0, 0, 1>(sh));
+    return rnd<RC>(
+        rnd<RC>(rnd<RC>(k.kx * rnd<RF>(rnd<RF>(at<0, -1, 0, 0>(sh)
+                                               - rnd<RF>(2.0f * c))
+                                       + at<0, 1, 0, 0>(sh)))
+                + rnd<RC>(k.ky * rnd<RF>(rnd<RF>(at<0, 0, -1, 0>(sh)
+                                                 - rnd<RF>(2.0f * c))
+                                         + at<0, 0, 1, 0>(sh))))
+        + rnd<RC>(kz * rnd<RF>(rnd<RF>(at<0, 0, 0, -1>(sh)
+                                       - rnd<RF>(2.0f * c))
+                               + at<0, 0, 0, 1>(sh))));
   }
 };

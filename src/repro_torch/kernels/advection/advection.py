@@ -17,7 +17,7 @@ transport of `stencil.distributed`'s `remote_dma` engine.
 Each wrapper dispatches on where its tensors lie. On a CUDA tensor it
 launches its hand-written kernel (`csrc/advect_blocked.cu`,
 `csrc/advect_dataflow.cu`, `csrc/advect_fused.cuh`, `csrc/finite_guard.cu`,
-`csrc/stencil_fused.cu`, `csrc/band_exchange.cu`) or raises; on a CPU
+`csrc/stencil_fused.cuh`, `csrc/band_exchange.cu`) or raises; on a CPU
 tensor it runs the kernel's plain PyTorch version beside it
 (`_advect_rung_plain`, `_advect_fused_plain`, `_finite_guard_plain`,
 `_stencil_fused_plain`, `_band_exchange_plain`).
@@ -78,7 +78,7 @@ WIDE_HOST_RULE = ("wide runs the in-grid tiled path only: the host tile loop "
 
 LAUNCHES = {"advect_fused": 0, "finite_guard": 0, "advect_blocked": 0,
             "advect_dataflow": 0, "advect_wide": 0, "stencil_fused": 0,
-            "band_exchange": 0, "band_handshake": 0}
+            "stencil_generated": 0, "band_exchange": 0, "band_handshake": 0}
 
 
 # the shared bytes each kernel's last launch asked for (what its plan says)
@@ -193,7 +193,7 @@ def largest_fitting_y_tile(T: int, Y: int, Z: int, itemsize: int = 4,
 
 class FusedPlan(NamedTuple):
     """One launch of a register ring, K1 (`csrc/advect_fused.cuh`) or K6
-    (`csrc/stencil_fused.cu`): y-tiles of TY owned rows in slabs of S rows,
+    (`csrc/stencil_fused.cuh`): y-tiles of TY owned rows in slabs of S rows,
     z chunks of CZ owned cells in windows of W (one chunk, W = Z, where a
     whole row fits), x chunks of CX owned slices, C cells of a window row
     per thread (z = zt + q * ceil(W / C)), the shared planes' row pitch, the
@@ -1410,21 +1410,81 @@ _OP_K4 = L.define("finite_guard", "(Tensor u, Tensor v, Tensor w) -> Tensor",
 # K6: the spec ring
 # ---------------------------------------------------------------------------
 
-def _cuda_instantiation(spec) -> Tuple[int, int]:
-    """(functor id, stages) of the CUDA instantiation that runs `spec`,
-    the id being the spec's own `cuda_op`; raises for a spec the kernel was
-    not built for."""
-    op = spec.cuda_op
-    if op is None:
-        raise NotImplementedError(
-            f"spec {spec.name!r} (source {spec.source.__name__}, radius "
-            f"{spec.radius}, integrator {spec.integrator}) has no CUDA "
-            f"instantiation: csrc/stencil_fused.cu is built for the shipped "
-            f"PW, tracer and diffusion specs at radius 1, euler or rk2. CUDA "
-            f"sources for user-defined specs (generated from the callback) "
-            f"are queued in ROADMAP Queue 2; on CPU tensors the plain "
-            f"version runs any spec")
-    return op, spec.stages
+def _cuda_instantiation(spec):
+    """(functor, stages) of the K6 build that runs `spec` on the card: the
+    functor is a shipped one's id (`_build.K6_BUILDS`) or the one generated
+    from the spec's callback (a `stencil.spec_cuda.Generated`), read off
+    the spec (`spec.cuda_functor()`); raises NotImplementedError naming
+    ROADMAP Queue 2, before any build, for a spec K6 cannot run (radius
+    > 1, x-diagonal reads, more than four fields, operations other than
+    + - *)."""
+    return spec.cuda_functor(), spec.stages
+
+
+def spec_on_card(spec) -> bool:
+    """Whether K6 runs `spec` on the card (`_cuda_instantiation`)."""
+    try:
+        _cuda_instantiation(spec)
+    except NotImplementedError:
+        return False
+    return True
+
+
+def _k6_builds(op, stages: int) -> dict:
+    """{cells per thread: threads} of the functor's builds at `stages`: a
+    generated functor takes those of the shipped one of its field count."""
+    return _build.K6_BUILDS[op if isinstance(op, int) else op.like, stages]
+
+
+def _k6_vectors(op) -> int:
+    """The z-coefficient vectors the functor stages per window cell."""
+    return _build.K6_COEF_VECTORS[op] if isinstance(op, int) else \
+        op.n_vectors
+
+
+# K6's entry points by build (bf16 fields, bf16 coefficients): (launch,
+# attributes)
+_SPEC_ENTRY = {(False, False): ("stencil_fused_f32", "stencil_fused_attrs"),
+               (True, False): ("stencil_fused_bf16",
+                               "stencil_fused_bf16_attrs"),
+               (True, True): ("stencil_fused_bf16_coef",
+                              "stencil_fused_bf16_coef_attrs")}
+
+
+def _k6_entry(op, stages: int, build: Tuple[bool, bool]):
+    """(library, launch entry, attributes entry, op argument) of the K6
+    build that runs functor `op` at `stages` in storage `build`: the shipped
+    library's, or the generated functor's own build (`_build.
+    load_generated`, compiled at first use)."""
+    if isinstance(op, int):
+        return (_build.load(),) + _SPEC_ENTRY[build] + (op,)
+    flags = _build.generated_flags(stages, *build, _k6_builds(op, stages))
+    return (_build.load_generated(op.text, flags), "k6_generated",
+            "k6_generated_attrs", 0)
+
+
+def build_spec_kernels(cases) -> int:
+    """Build, all at once (one nvcc each, started together), the generated
+    K6 builds that `cases` launch, each ``(spec, field dtype, whether the
+    coefficients are bf16)``; a shipped functor needs none, and a build made
+    before is reused. Returns the number of generated builds the cases
+    take."""
+    jobs = []
+    for spec, dtype, coef in cases:
+        op, stages = _cuda_instantiation(spec)
+        if isinstance(op, int):
+            continue
+        job = (op.text, _build.generated_flags(
+            stages, *_build_of(dtype, coef), _k6_builds(op, stages)))
+        if job not in jobs:
+            jobs.append(job)
+    _build.build_generated(jobs)
+    return len(jobs)
+
+
+def _coef_is_bf16(pv) -> bool:
+    """Whether the parameter vectors are bf16 (every one of them)."""
+    return bool(pv) and all(p.dtype == torch.bfloat16 for p in pv)
 
 
 def _check_spec_fields(fields, spec, rank: int, what: str) -> None:
@@ -1444,12 +1504,12 @@ def _check_spec_fields(fields, spec, rank: int, what: str) -> None:
         if f.shape != shape:
             raise ValueError(f"field {name!r} shape {tuple(f.shape)} != "
                              f"{tuple(shape)}")
-        if f.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "K6 (stencil_fused) takes float32 fields: its bf16 path comes "
-                "in the next slice of the port, with K7's (ROADMAP Queue 2)")
-        if f.dtype != torch.float32:
-            raise TypeError(f"field {name!r} must be float32, got {f.dtype}")
+        if f.dtype not in FIELD_DTYPES:
+            raise TypeError(f"field {name!r} must be float32 or bfloat16, "
+                            f"got {f.dtype}")
+        if f.dtype != fields[0].dtype:
+            raise TypeError(f"field {name!r} is {f.dtype}, "
+                            f"{spec.fields[0]!r} {fields[0].dtype}")
         if f.device != fields[0].device:
             raise ValueError(f"field {name!r} is on {f.device}, "
                              f"{spec.fields[0]!r} on {fields[0].device}")
@@ -1457,16 +1517,20 @@ def _check_spec_fields(fields, spec, rank: int, what: str) -> None:
             raise ValueError(f"field {name!r} must be contiguous")
 
 
-def _spec_param_vectors(spec, params, device) -> Tuple[torch.Tensor, ...]:
-    """`spec.pack_params(params)` as f32 vectors on `device`, checked 1-D."""
-    pv = tuple(torch.as_tensor(p, dtype=torch.float32, device=device)
+def _spec_param_vectors(spec, params, device,
+                        dtype=torch.float32) -> Tuple[torch.Tensor, ...]:
+    """`spec.pack_params(params)` as vectors on `device`, checked 1-D: bf16
+    where the fields are (`dtype`) and every vector is, as a bf16 domain's
+    coefficients are, else f32 (K1's rule, `_slot_params`)."""
+    pv = tuple(torch.as_tensor(p, device=device)
                for p in spec.pack_params(params))
     for p in pv:
         if p.ndim != 1:
             raise ValueError(
                 f"spec {spec.name!r}: pack_params must return 1-D vectors, "
                 f"got shape {tuple(p.shape)}")
-    return pv
+    keep = dtype == torch.bfloat16 and _coef_is_bf16(pv)
+    return tuple(p.to(torch.bfloat16 if keep else torch.float32) for p in pv)
 
 
 def _stencil_fused_plain(fields, pv, spec, T: int, dt: float, xm, ym,
@@ -1474,9 +1538,11 @@ def _stencil_fused_plain(fields, pv, spec, T: int, dt: float, xm, ym,
     """Plain PyTorch version of the spec ring: T masked integrator steps
     of the spec's sources over (B, X, Y, Z) fields. Euler
     `f + dt*where(m, S(f), 0)`; rk2 `g = f + (dt/2)*where(m, S(f), 0)`, then
-    `f + dt*where(m, S(g), 0)`, m being the x/y interior mask. `y_tile` is
-    taken and ignored, since tiled and untiled results are equal by
-    contract."""
+    `f + dt*where(m, S(g), 0)`, m being the x/y interior mask, each update
+    the kernels' (`_euler`: the source rounded to the field's dtype, dt a
+    weak scalar), so that bf16 fields run op for op as the reference's
+    ring does. `y_tile` is taken and ignored, since tiled and untiled
+    results are equal by contract."""
     del y_tile
     X = fields[0].shape[-3]
     r = spec.radius
@@ -1491,11 +1557,12 @@ def _stencil_fused_plain(fields, pv, spec, T: int, dt: float, xm, ym,
     fields = tuple(fields)
     for _ in range(T):
         if spec.stages == 1:
-            fields = tuple(f + dt * s for f, s in zip(fields, masked(fields)))
+            fields = tuple(_euler(f, s, dt)
+                           for f, s in zip(fields, masked(fields)))
         else:
-            g = tuple(f + (0.5 * dt) * s
+            g = tuple(_euler(f, s, 0.5 * dt)
                       for f, s in zip(fields, masked(fields)))
-            fields = tuple(f + dt * s for f, s in zip(fields, masked(g)))
+            fields = tuple(_euler(f, s, dt) for f, s in zip(fields, masked(g)))
     return fields
 
 
@@ -1512,10 +1579,13 @@ def spec_plan_knobs(spec, T: int) -> PlanKnobs:
     """The `PlanKnobs` of one K6 pass of T steps of `spec`, whose planner's
     T is the pass's levels, ``spec.stages * T`` (= `spec.halo(T)`): the
     spec's fields, its functor's z-coefficient vectors
-    (`_build.K6_COEF_VECTORS`), its builds (`_build.K6_BUILDS`) and the slab
-    its own tile aims at: the most cells a block of those builds holds
-    (threads x cells per thread; 1024 for PW and the tracer, as K1's
-    `K1_PLAN_CELLS`, 2048 for diffusion's single field).
+    (`_build.K6_COEF_VECTORS`, or a generated functor's), its builds
+    (`_build.K6_BUILDS`; a generated functor takes those of the shipped one
+    of its field count) and the slab its own tile aims at: the most cells a
+    block of those builds holds (threads x cells per thread; 1024 for PW and
+    the tracer, as K1's `K1_PLAN_CELLS`, 2048 for diffusion's single
+    field). The storage (f32 or bf16) plans alike: the ring's registers and
+    planes hold f32 words.
     Raises NotImplementedError for a spec outside the CUDA table and
     ValueError for more levels than a build holds (`spec_passes` splits
     deeper T)."""
@@ -1525,9 +1595,8 @@ def spec_plan_knobs(spec, T: int) -> PlanKnobs:
             f"K6 is built for up to {_build.K6_MAX_LEVELS} ring levels a "
             f"pass, and {spec.name} at T={T} needs {stages * T}; "
             f"spec_passes(spec, T) splits it into passes of whole steps")
-    builds = _build.K6_BUILDS[op, stages]
-    return PlanKnobs(spec.n_fields, _build.K6_COEF_VECTORS[op],
-                     tuple(builds.items()),
+    builds = _k6_builds(op, stages)
+    return PlanKnobs(spec.n_fields, _k6_vectors(op), tuple(builds.items()),
                      max(c * n for c, n in builds.items()), "K6")
 
 
@@ -1549,58 +1618,84 @@ def spec_launch_plan(X: int, Y: int, Z: int, spec, T: int, B: int,
 
 
 @functools.lru_cache(maxsize=64)
-def _spec_attrs_cached(index: int, op: int, stages: int, T: int, C: int,
-                       threads: int, shared: int) -> Tuple[int, int, int, int]:
-    lib = _build.load()
+def _spec_attrs_cached(index: int, op, stages: int, T: int, C: int,
+                       threads: int, shared: int,
+                       build: Tuple[bool, bool] = (False, False)
+                       ) -> Tuple[int, int, int, int]:
+    """The card's attributes of K6's (op, stages, T, C) build in storage
+    `build` (bf16 fields, bf16 coefficients)."""
+    lib, _, entry, op_id = _k6_entry(op, stages, build)
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(index):
-        err = lib.stencil_fused_attrs(op, stages, T, C, threads, shared, out)
-    _build.check(err, "stencil_fused_attrs")
+        err = getattr(lib, entry)(op_id, stages, T, C, threads, shared, out)
+    _build.check(err, entry)
     return tuple(out)
 
 
 def spec_device_plan(device, X: int, Y: int, Z: int, spec, T: int,
-                     B: int = 1, y_tile: Optional[int] = None) -> FusedPlan:
+                     B: int = 1, y_tile: Optional[int] = None, *,
+                     dtype=torch.float32, coef: bool = False) -> FusedPlan:
     """`spec_launch_plan` on `device`'s card: its SM count, and the resident
-    blocks per SM the card reports for the pass's build."""
+    blocks per SM the card reports for the pass's build (f32, or bf16
+    fields with f32 or bf16 coefficients, `coef`)."""
     index = _device_index(device)
     n_sm = torch.cuda.get_device_properties(index).multi_processor_count
     op, stages = _cuda_instantiation(spec)
     blk = _fused_block(Y, Z, stages * T, y_tile, spec_plan_knobs(spec, T))
     per_sm = _spec_attrs_cached(index, op, stages, T, blk.C, blk.threads,
-                                blk.shared)[3]
+                                blk.shared, _build_of(dtype, coef))[3]
     return spec_launch_plan(X, Y, Z, spec, T, B, n_sm, per_sm, y_tile=y_tile)
 
 
-def spec_kernel_attrs(device, spec, T: int, plan: FusedPlan) -> dict:
+def spec_kernel_attrs(device, spec, T: int, plan: FusedPlan, *,
+                      dtype=torch.float32, coef: bool = False) -> dict:
     """What the card says of the K6 build that runs `plan` (a pass of T
-    steps of `spec`): registers and local (spill) bytes per thread, the most
-    threads a block of it can have, and its resident blocks per SM at the
-    plan's threads and shared bytes."""
+    steps of `spec`, f32 or bf16 fields with f32 or bf16 coefficients):
+    registers and local (spill) bytes per thread, the most threads a block
+    of it can have, and its resident blocks per SM at the plan's threads and
+    shared bytes."""
     op, stages = _cuda_instantiation(spec)
     regs, local, most, per_sm = _spec_attrs_cached(
         _device_index(device), op, stages, T, plan.cells_per_thread,
-        plan.threads, plan.shared_bytes)
+        plan.threads, plan.shared_bytes, _build_of(dtype, coef))
     return {"registers": regs, "local_bytes": local, "max_threads": most,
             "blocks_per_sm": per_sm}
 
 
+def _param_block(pv, device, pad: int = 0) -> Tuple[torch.Tensor, int]:
+    """The kernel's parameter vectors as f32 (bf16 ones as their exact f32
+    values), each with `pad` zeros before it and zeros after it to the
+    longest plus `pad`, p_len, and laid back to back; one zero where there
+    are none."""
+    if not pv:
+        return torch.zeros(1, dtype=torch.float32, device=device), 1
+    p_len = max(p.shape[0] for p in pv) + 2 * pad
+    return torch.cat([torch.cat([p.new_zeros(pad, dtype=torch.float32),
+                                 p.float(), p.new_zeros(
+        p_len - pad - p.shape[0], dtype=torch.float32)]) for p in pv]), p_len
+
+
 def _stencil_fused_cuda(fields, pv, spec, T: int, dt: float, xm, ym,
                         y_tile=None, *, plan: Optional[FusedPlan] = None):
-    """Launch K6 (`csrc/stencil_fused.cu`) on (B, X, Y, Z) fields: one
-    launch a pass of `spec_passes(spec, T)`, each on `spec_device_plan`'s
-    plan for this card, or on `plan`, a plan made for these shapes and T
-    (one pass)."""
+    """Launch K6 on (B, X, Y, Z) fields: one launch a pass of
+    `spec_passes(spec, T)`, each on `spec_device_plan`'s plan for this
+    card, or on `plan`, a plan made for these shapes and T (one pass). A
+    shipped functor runs in the library's build of the fields' storage
+    (`csrc/stencil_fused*.cu`), a generated one in its own
+    (`csrc/stencil_generated.cu`)."""
     op, stages = _cuda_instantiation(spec)
     B, X, Y, Z = fields[0].shape
-    if any(tuple(p.shape) != (Z + 2,) for p in pv):
-        raise ValueError(f"the CUDA operators read (Z+2,) = ({Z + 2},) "
-                         f"parameter vectors, got "
-                         f"{[tuple(p.shape) for p in pv]}")
-    n_coef = _build.K6_COEF_VECTORS[op]
-    if len(pv) != n_coef:
-        raise ValueError(f"spec {spec.name!r}: its CUDA operator reads "
-                         f"{n_coef} parameter vectors, got {len(pv)}")
+    if isinstance(op, int):
+        if any(tuple(p.shape) != (Z + 2,) for p in pv):
+            raise ValueError(f"the CUDA operators read (Z+2,) = ({Z + 2},) "
+                             f"parameter vectors, got "
+                             f"{[tuple(p.shape) for p in pv]}")
+        n_coef = _build.K6_COEF_VECTORS[op]
+        if len(pv) != n_coef:
+            raise ValueError(f"spec {spec.name!r}: its CUDA operator reads "
+                             f"{n_coef} parameter vectors, got {len(pv)}")
+    else:
+        op.check_vectors(spec.name, pv, Z)
     passes = spec_passes(spec, T)
     if plan is not None and len(passes) > 1:
         raise ValueError(f"a given plan runs one pass, T <= "
@@ -1609,27 +1704,31 @@ def _stencil_fused_cuda(fields, pv, spec, T: int, dt: float, xm, ym,
         for Tk in set(passes):   # the refusals, before any build
             _fused_block(Y, Z, stages * Tk, y_tile, spec_plan_knobs(spec, Tk))
         check_launch_grid((1, B, 1), "K6")
-    lib = _build.load()
-    table = torch.cat(pv).contiguous()
+    dtype, coef = fields[0].dtype, _coef_is_bf16(pv)
+    lib, entry, _, op_id = _k6_entry(op, stages, _build_of(dtype, coef))
+    device = fields[0].device
+    table, p_len = _param_block(pv, device,
+                                0 if isinstance(op, int) else op.pad)
     xmt, sx = _pack_rows([xm], B)
     ymt, sy = _pack_rows([ym], B)
-    device = fields[0].device
     outs = tuple(fields)
     pad = [None] * (4 - len(outs))
+    count = "stencil_fused" if isinstance(op, int) else "stencil_generated"
     for Tk in passes:
-        run = plan or spec_device_plan(device, X, Y, Z, spec, Tk, B, y_tile)
+        run = plan or spec_device_plan(device, X, Y, Z, spec, Tk, B, y_tile,
+                                       dtype=dtype, coef=coef)
         ins, outs = outs, tuple(torch.empty_like(f) for f in fields)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            err = lib.stencil_fused_f32(
-                op, stages, *(f.data_ptr() for f in ins), *pad,
-                *(o.data_ptr() for o in outs), *pad, table.data_ptr(), Z + 2,
+            err = getattr(lib, entry)(
+                op_id, stages, *(f.data_ptr() for f in ins), *pad,
+                *(o.data_ptr() for o in outs), *pad, table.data_ptr(), p_len,
                 xmt.data_ptr(), ymt.data_ptr(), B, X, Y, Z, Tk, run.TY,
                 run.S, run.n_ty, run.CZ, run.W, run.n_cz, run.CX, run.n_cx,
-                run.cells_per_thread, run.threads, run.pitch, sx, sy, dt,
-                run.shared_bytes, stream)
-        _build.check(err, "stencil_fused_f32")
-        LAUNCHES["stencil_fused"] += 1
+                run.cells_per_thread, run.threads, run.pitch, sx, sy,
+                step_dt(dt, dtype), run.shared_bytes, stream)
+        _build.check(err, entry)
+        LAUNCHES[count] += 1
         LAUNCHED_SHARED["stencil_fused"] = run.shared_bytes
     return outs
 
@@ -1652,7 +1751,7 @@ def stencil_fused_batched(fields, params, spec, *, T: int = 4,
     device = fields[0].device
     xm = _mask(x_interior_mask, X, B, "x_interior_mask", device)
     ym = _mask(y_interior_mask, Y, B, "y_interior_mask", device)
-    pv = list(_spec_param_vectors(spec, params, device))
+    pv = list(_spec_param_vectors(spec, params, device, fields[0].dtype))
     handle = spec_handle(spec)
     for Tk in spec_passes(spec, T):
         fields = tuple(_OP_K6(list(fields), pv, xm, ym, handle, Tk,
@@ -1711,17 +1810,22 @@ def stencil_fused(fields, params, spec, *, T: int = 4, dt: float = 1.0,
     `spec_passes(spec, T)`, the generalisation of `advect_fused` to any
     operator.
 
-    `fields` is a tuple of `spec.n_fields` (X, Y, Z) float32 tensors;
-    `params` is whatever `spec.pack_params` consumes. The ring depth, the
-    startup masks, the slab halo and the output lag all come from
+    `fields` is a tuple of `spec.n_fields` (X, Y, Z) tensors, all float32
+    or all bfloat16 (the ring then runs in bf16 as the reference's does);
+    `params` is whatever `spec.pack_params` consumes (kept bf16 for bf16
+    fields where every vector is, else f32). The ring depth, the startup
+    masks, the slab halo and the output lag all come from
     `spec.halo(T) = radius * stages * T`; `y_tile` and the interior masks
     mean what they mean for `advect_fused`. On CUDA tensors this launches
-    `csrc/stencil_fused.cu` (K6) on its own launch plan
-    (`spec_launch_plan`; a given `y_tile` runs as given, or as the fewest
-    equal sub-tiles a build takes, bitwise the same), one launch a pass of
-    `spec_passes(spec, T)`; a spec whose `cuda_op` is None raises
-    NotImplementedError there. On CPU tensors it runs the plain version,
-    for any spec. With the PW spec it equals `advect_fused` bitwise.
+    K6 on its own launch plan (`spec_launch_plan`; a given `y_tile` runs as
+    given, or as the fewest equal sub-tiles a build takes, bitwise the
+    same), one launch a pass of `spec_passes(spec, T)`: the shipped
+    specs' functors (`csrc/stencil_fused.cuh`), or for any other radius-1
+    spec of + - * the functor generated from its callback
+    (`stencil.spec_cuda`, built at first use); a spec it cannot generate
+    raises NotImplementedError there, naming ROADMAP Queue 2. On CPU
+    tensors it runs the plain version, for any spec. With the PW spec it
+    equals `advect_fused` bitwise.
     """
     if T < 1:
         raise ValueError(f"T must be >= 1, got {T}")
@@ -1746,14 +1850,14 @@ BAND_ERRORS = {1: "a put waited past its bound for its partners to enter "
                   "the exchange (the capacity handshake)",
                2: "a wait ran past its bound before every band arrived"}
 # one row of K7's message table (`csrc/band_exchange.cu`'s `Msg`), int64
-# columns in this order
+# columns in this order, every size and offset in bytes
 BAND_COLUMNS = ("src", "src_off", "dst", "arrive", "runs", "run",
-                "src_stride", "dst_stride", "vec4", "tile0")
+                "src_stride", "dst_stride", "vec16", "tile0")
 BAND_THREADS = 256         # threads of one put block (kThreads)
 BAND_TILE_UNITS = 1024     # 16-byte units of one tile (kTileUnits)
 BAND_MAX_SOURCES = 96      # source bases one put takes (kMaxSources)
 BAND_MAX_PARTNERS = 32     # partner cards one enter signals (kMaxPartners)
-BAND_MAX_FLOATS = 2 ** 31 - 1   # floats of one message (32-bit indices)
+BAND_MAX_BYTES = 2 ** 31 - 1    # bytes of one message (32-bit indices)
 
 
 def _band_schedule(L: int, depth: int):
@@ -1855,16 +1959,17 @@ def band_launch_plan(n_tiles: int, n_sm: int, blocks_per_sm: int) -> int:
 class ExtendedBuffers:
     """The slabs the local kernel reads after an exchange, landed in place.
 
-    Per shard of `mesh`, on its device, one float32 tensor ``(n_fields, 2,
-    X + 2px, Y + 2py, Z)`` (3 fields, u, v and w, unless `n_fields` says
-    otherwise): field f, slot k (block_index % 2) is ``bufs[s][f, k]``,
+    Per shard of `mesh`, on its device, one tensor ``(n_fields, 2,
+    X + 2px, Y + 2py, Z)`` of the fields' `dtype` (float32 or bfloat16; 3
+    fields, u, v and w, unless `n_fields` says otherwise): field f, slot k
+    (block_index % 2) is ``bufs[s][f, k]``,
     the shard's ``(X, Y, Z)`` at ``[px, px + X) x [py, py + Y)`` with `px`
     halo planes and `py` halo rows on each side (`pad = (px, py)`). Two
     slots keep the reference's guarantee: block k+1's bands land where
     block k does not read. `fill` initialises them."""
 
     def __init__(self, mesh, shape, pad, *, fill: float = 0.0,
-                 n_fields: int = 3):
+                 n_fields: int = 3, dtype=torch.float32):
         X, Y, Z = shape
         px, py = pad
         if px < 0 or py < 0:
@@ -1872,11 +1977,11 @@ class ExtendedBuffers:
         if n_fields < 1:
             raise ValueError(f"n_fields must be >= 1, got {n_fields}")
         self.shape, self.pad = (X, Y, Z), (px, py)
-        self.n_fields = n_fields
+        self.n_fields, self.dtype = n_fields, dtype
         self.ext_shape = (X + 2 * px, Y + 2 * py, Z)
         self.devices = tuple(mesh.devices)
         self.bufs = [torch.full((n_fields, 2) + self.ext_shape, fill,
-                                dtype=torch.float32, device=dev)
+                                dtype=dtype, device=dev)
                      for dev in self.devices]
 
 
@@ -1893,6 +1998,7 @@ class BandSlabs:
     filled with `fill`; the
     distributed block gives its x and y phases one set, the y phase's
     region being the whole buffer, whose middle rows the x phase filled.
+    The buffers' dtype is the fields' (`dtype`, or the given buffers').
 
     Per shard, three u64 words ``[barrier, arrivals, error]``
     (`words[shard]`); a card's first shard holds the card's words when its
@@ -1903,14 +2009,15 @@ class BandSlabs:
 
     def __init__(self, mesh, shape, depth: int, dim: int, *,
                  fill: float = 0.0, buffers: Optional[ExtendedBuffers] = None,
-                 window: int = 0, n_fields: int = 3):
+                 window: int = 0, n_fields: int = 3, dtype=torch.float32):
         self.shape, self.depth, self.dim = tuple(shape), depth, dim
         self.mesh, self.devices = mesh, tuple(mesh.devices)
         if buffers is None:
             pad = (depth, 0) if dim == 0 else (0, depth)
             buffers = ExtendedBuffers(mesh, shape, pad, fill=fill,
-                                      n_fields=n_fields)
-        self.n_fields = buffers.n_fields
+                                      n_fields=n_fields, dtype=dtype)
+        self.n_fields, self.dtype = buffers.n_fields, buffers.dtype
+        self.itemsize = torch.empty((), dtype=self.dtype).element_size()
         ext = list(self.shape)
         ext[dim] += 2 * depth
         other = 1 - dim
@@ -1931,11 +2038,12 @@ class BandSlabs:
         self._views = {}         # (what, slot) -> per shard views
 
     def matches(self, mesh, shape, depth: int, dim: int,
-                n_fields: int = 3) -> bool:
+                n_fields: int = 3, dtype=torch.float32) -> bool:
         return (tuple(mesh.devices) == self.devices
                 and tuple(mesh.shape) == tuple(self.mesh.shape)
                 and tuple(shape) == self.shape and depth == self.depth
-                and dim == self.dim and n_fields == self.n_fields)
+                and dim == self.dim and n_fields == self.n_fields
+                and dtype == self.dtype)
 
     def region(self, shard: int, field: int, slot: int) -> torch.Tensor:
         """The extended slab of one shard and field in slot `slot`."""
@@ -1983,7 +2091,7 @@ class BandSlabs:
             other = math.prod(self.shape) // self.shape[self.dim]
             sent = [0] * len(self.devices)
             for m in msgs:
-                sent[m.sender] += m.cnt * other * 4
+                sent[m.sender] += m.cnt * other * self.itemsize
             self._msgs[axis] = (msgs, sent)
         return self._msgs[axis]
 
@@ -2030,7 +2138,7 @@ def _same_view(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def _runs(shape, src_strides, dst_strides):
-    """(runs, run, src_stride, dst_stride) in floats of a copy of `shape`
+    """(runs, run, src_stride, dst_stride) in cells of a copy of `shape`
     between two views whose z rows are contiguous: the rows of one x
     merge into a run where both sides hold them back to back, and so do
     the x planes."""
@@ -2145,21 +2253,22 @@ class BandTable:
             raise ValueError(f"the band exchange kernel takes "
                              f"{BAND_MAX_SOURCES // n} shards a card")
         puts = {c: _CardPut(c, on[c]) for c in cards}
+        item = sl.itemsize
         for s, r, f, cut, src_off, dst in copies:
             runs, run, ss, ds = _runs(cut, src_strides, dst_strides)
-            if runs * run > BAND_MAX_FLOATS:
+            run, ss, ds, off = run * item, ss * item, ds * item, src_off * item
+            if runs * run > BAND_MAX_BYTES:
                 raise ValueError(f"a band exchange message of {runs * run} "
-                                 f"floats exceeds the kernel's 32-bit "
-                                 f"indices")
+                                 f"bytes exceeds the kernel's 32-bit indices")
             p, rc = puts[sl.devices[s]], sl.devices[r]
             crossing = rc != p.card
             arrive = sl.words[leader[rc]].data_ptr() + 8 if crossing else 0
-            vec4 = int(run % 4 == 0 and ss % 4 == 0 and ds % 4 == 0
-                       and src_off % 4 == 0 and dst.data_ptr() % 16 == 0)
-            units = -(-runs * run // 4)
+            vec16 = int(run % 16 == 0 and ss % 16 == 0 and ds % 16 == 0
+                        and off % 16 == 0 and dst.data_ptr() % 16 == 0)
+            units = -(-runs * run // 16)
             tiles = -(-units // BAND_TILE_UNITS)
-            p.rows.append([src_index[s] + f, src_off, dst.data_ptr(), arrive,
-                           runs, run, ss, ds, vec4, p.tiles])
+            p.rows.append([src_index[s] + f, off, dst.data_ptr(), arrive,
+                           runs, run, ss, ds, vec16, p.tiles])
             p.tiles += tiles
             if crossing:
                 p.crossing.add(rc)
@@ -2321,8 +2430,9 @@ def _field_names(n: int):
 
 
 def _check_band_fields(fields, mesh):
-    """The shape of the same number of fields of one shape and float32 per
-    shard (u, v, w, or a spec's fields), on the mesh's devices."""
+    """The shape of the same number of fields of one shape and one dtype,
+    float32 or bfloat16, per shard (u, v, w, or a spec's fields), on the
+    mesh's devices."""
     if len(fields) != len(mesh.devices):
         raise ValueError(f"{len(fields)} shards given for a mesh of "
                          f"{len(mesh.devices)}")
@@ -2336,13 +2446,12 @@ def _check_band_fields(fields, mesh):
             if not isinstance(f, torch.Tensor):
                 raise TypeError(f"{name} must be a torch.Tensor, got "
                                 f"{type(f).__name__}")
-            if f.dtype == torch.bfloat16:
-                raise NotImplementedError(
-                    f"{name}: K7 (halo_band_exchange_dma) takes float32 "
-                    "shards: its bf16 path comes in the next slice of the "
-                    "port, with K6's (ROADMAP Queue 2)")
-            if f.dtype != torch.float32:
-                raise TypeError(f"{name} must be float32, got {f.dtype}")
+            if f.dtype not in FIELD_DTYPES:
+                raise TypeError(f"{name} must be float32 or bfloat16, got "
+                                f"{f.dtype}")
+            if f.dtype != fields[0][0].dtype:
+                raise TypeError(f"shard {s} {name} is {f.dtype}, shard 0's "
+                                f"fields {fields[0][0].dtype}")
             if f.device != dev:
                 raise ValueError(f"shard {s} lies on {f.device}, the mesh "
                                  f"puts it on {dev}")
@@ -2370,9 +2479,10 @@ def halo_band_exchange_dma(fields, *, mesh, axis: str, depth: int, dim: int,
     rows on each side along `dim`, what the collective engine builds with
     a concatenation.
 
-    `fields` holds one (u, v, w) of (X, Y, Z) float32 per shard, ordered
-    like `mesh.devices`, each contiguous or, to move the bands alone, the
-    slot's `BandSlabs.interior` views. Returns, per shard, the reference's
+    `fields` holds one (u, v, w) of (X, Y, Z) per shard, all float32 or all
+    bfloat16 (the kernel moves bytes, so both alike), ordered like
+    `mesh.devices`, each contiguous or, to move the bands alone, the slot's
+    `BandSlabs.interior` views. Returns, per shard, the reference's
     ``((u_hi, u_lo), (v_hi, v_lo), (w_hi, w_lo))``: `hi` is the band from
     the ring predecessors (global coordinates just below the shard), `lo`
     from the successors, views of the slot's halos, valid until the
@@ -2402,16 +2512,17 @@ def halo_band_exchange_dma(fields, *, mesh, axis: str, depth: int, dim: int,
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
     shape = _check_band_fields(fields, mesh)
-    n_fields = len(fields[0])
+    n_fields, dtype = len(fields[0]), fields[0][0].dtype
     mesh.axis_size(axis)
     if slabs is None:
-        slabs = BandSlabs(mesh, shape, depth, dim, n_fields=n_fields)
-    elif not slabs.matches(mesh, shape, depth, dim, n_fields):
+        slabs = BandSlabs(mesh, shape, depth, dim, n_fields=n_fields,
+                          dtype=dtype)
+    elif not slabs.matches(mesh, shape, depth, dim, n_fields, dtype):
         raise ValueError(f"slabs for shape {slabs.shape}, depth "
                          f"{slabs.depth}, dim {slabs.dim}, {slabs.n_fields} "
-                         f"fields on {slabs.devices}; this exchange is "
-                         f"{shape}, {depth}, {dim}, {n_fields} fields on "
-                         f"{tuple(mesh.devices)}")
+                         f"fields of {slabs.dtype} on {slabs.devices}; this "
+                         f"exchange is {shape}, {depth}, {dim}, {n_fields} "
+                         f"fields of {dtype} on {tuple(mesh.devices)}")
     slot = int(block_index) % 2
     table = slabs.table(axis, slot, fields)
     if fields[0][0].is_cuda:
@@ -2454,10 +2565,11 @@ def band_movement(handle: int) -> dict:
     sl = t.slabs
     size = math.prod(sl.shape)
     other = size // sl.shape[sl.dim]
-    own = 0 if t.in_place else sl.n_fields * size * 4
+    own = 0 if t.in_place else sl.n_fields * size * sl.itemsize
     ext = list(sl.shape)
     ext[sl.dim] += 2 * sl.depth
-    return {"messages": tuple((m.sender, m.cnt * other * 4) for m in t.msgs),
+    return {"messages": tuple((m.sender, m.cnt * other * sl.itemsize)
+                              for m in t.msgs),
             "own": tuple((s, own) for s in range(len(sl.devices))),
             "in_place": t.in_place, "extended": tuple(ext)}
 

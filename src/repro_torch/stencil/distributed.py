@@ -88,7 +88,7 @@ from repro_torch.analysis.ledger import MovementLedger
 from repro_torch.kernels import library as L
 from repro_torch.kernels.advection import advection as K
 from repro_torch.kernels.advection.ref import (AdvectParams, pw_advect_ref,
-                                               pw_step_ref)
+                                               pw_step_ref, step_dt)
 from repro_torch.launch.mesh import StencilMesh, dma_neighbor_coords
 from repro_torch.stencil import spec as SP
 from repro_torch.training import checkpoint as CKPT
@@ -497,33 +497,39 @@ class _LocalBlock:
                                   y_tile=self.y_tile, x_interior_mask=mask[0],
                                   y_interior_mask=mask[1])
         m = mask
+
+        def update(f, s, k):
+            # the reference's `f + k * where(m, s, 0)`, k weak: rounded to
+            # bf16 where the product is a bf16 op
+            return f + step_dt(k, s.dtype) * torch.where(m, s, 0.0)
+
         fields = tuple(fields)
         for _ in range(T):
             if spec is None:
                 srcs = pw_advect_ref(*fields, p)
             elif spec.integrator == "rk2":
                 s0 = SP.spec_sources(fields, p, spec)
-                g = tuple(f + (0.5 * dt) * torch.where(m, s, 0.0)
+                g = tuple(update(f, s, 0.5 * dt)
                           for f, s in zip(fields, s0))
                 srcs = SP.spec_sources(g, p, spec)
             else:
                 srcs = SP.spec_sources(fields, p, spec)
-            fields = tuple(f + dt * torch.where(m, s, 0.0)
-                           for f, s in zip(fields, srcs))
+            fields = tuple(update(f, s, dt) for f, s in zip(fields, srcs))
         return fields
 
-    def _band_slabs(self, shape, dx: int, dy: int) -> None:
-        """K7's extended slabs for shards of `shape`, made once: one set of
-        buffers padded by (dx, dy), the x phase landing in its middle rows
-        and the y phase over all of it."""
-        if self.buffers is not None and (self.buffers.shape,
-                                         self.buffers.pad) == (shape,
-                                                               (dx, dy)):
+    def _band_slabs(self, shape, dx: int, dy: int,
+                    dtype=torch.float32) -> None:
+        """K7's extended slabs for shards of `shape` and `dtype`, made once:
+        one set of buffers padded by (dx, dy), the x phase landing in its
+        middle rows and the y phase over all of it."""
+        if self.buffers is not None and (
+                self.buffers.shape, self.buffers.pad,
+                self.buffers.dtype) == (shape, (dx, dy), dtype):
             return
         Xl, Yl, Z = shape
         n = self.n_fields
         self.buffers = K.ExtendedBuffers(self.mesh, shape, (dx, dy),
-                                         n_fields=n)
+                                         n_fields=n, dtype=dtype)
         self.slabs = {}
         if dx:
             self.slabs["x"] = K.BandSlabs(self.mesh, shape, dx, 0,
@@ -566,7 +572,8 @@ class _LocalBlock:
         per shard the fields the boundary pass reads."""
         fields = shards
         if self.exchange == "remote_dma":
-            self._band_slabs(tuple(shards[0][0].shape), dx, dy)
+            self._band_slabs(tuple(shards[0][0].shape), dx, dy,
+                             shards[0][0].dtype)
         if dx:
             fields = self._extend(fields, "x", 0, block_index,
                                   integrity_out, corrupt_dim)
@@ -575,13 +582,13 @@ class _LocalBlock:
                                   integrity_out, corrupt_dim)
         return fields
 
-    def plan(self, shape, dx: int, dy: int) -> None:
+    def plan(self, shape, dx: int, dy: int, itemsize: int = 4) -> None:
         """Check the block's shared-memory plan for shards of `shape`
         (`analysis.smem.distributed_block_plan`: the local kernel's block
         over the extended slab, K7's extended buffers on the busiest card),
         once per shape, before anything launches; raises
         `SmemBudgetExceeded` naming the largest buffer."""
-        if shape in self._planned:
+        if (shape, itemsize) in self._planned:
             return
         cards = [d for d in self.mesh.devices]
         SM.distributed_block_plan(
@@ -589,8 +596,8 @@ class _LocalBlock:
             exchange=self.exchange, y_tile=self.y_tile,
             nx=2 if dx else 1, ny=2 if dy else 1, spec=self.spec,
             shards_per_card=max(cards.count(d) for d in cards),
-            context="distributed block").check()
-        self._planned.add(shape)
+            itemsize=itemsize, context="distributed block").check()
+        self._planned.add((shape, itemsize))
 
     def check(self) -> None:
         """Raise when a K7 kernel of this block's mesh timed out."""
@@ -619,7 +626,8 @@ class _LocalBlock:
             raise ValueError(
                 f"halo depth {what}={D} exceeds the decomposable global X "
                 f"extent ({X_g} planes, interior {X_g - 2 * r}); lower T")
-        self.plan(tuple(shards[0][0].shape), dx, dy)
+        self.plan(tuple(shards[0][0].shape), dx, dy,
+                  shards[0][0].element_size())
         with L.scope(block=True):
             return self._block(shards, block_index, Xl, Yl, dx, dy)
 
@@ -756,7 +764,7 @@ def _run_state(mesh: StencilMesh, shards: Shards, block: int,
     double buffering depends on (stored redundantly: resume refuses a
     parity that disagrees with the block), and with verification the
     (nx, ny) mismatch counts as uint32."""
-    state = {k: g.cpu().numpy()
+    state = {k: g.cpu() if g.dtype == torch.bfloat16 else g.cpu().numpy()
              for k, g in zip(_STATE_FIELDS, gather(mesh, shards))}
     state["block"] = np.int64(block)
     state["parity"] = np.int64(block % 2)
@@ -883,7 +891,10 @@ def resume_distributed_run(mesh: StencilMesh, params: AdvectParams,
                          y_tile=y_tile, overlap=overlap, exchange=exchange,
                          verify_integrity=verify_integrity,
                          corrupt_halo=None, spec=None, spec_params=None)
-    like = {k: 0 for k in _STATE_FIELDS + ("block", "parity")}
+    bf16 = shards[0][0].dtype == torch.bfloat16
+    like = {k: torch.zeros((), dtype=torch.bfloat16) if bf16 else 0
+            for k in _STATE_FIELDS}
+    like.update(block=0, parity=0)
     if verify_integrity:
         like["mismatches"] = 0
     state, disk_step = CKPT.restore(checkpoint_dir, like, step=step)
@@ -907,7 +918,8 @@ def resume_distributed_run(mesh: StencilMesh, params: AdvectParams,
             raise ValueError(f"checkpoint step {disk_step} holds {k} of "
                              f"{tuple(state[k].shape)}, the mesh's shards "
                              f"make {want}")
-    shards = shard(mesh, *(torch.from_numpy(np.ascontiguousarray(state[k]))
+    shards = shard(mesh, *(state[k] if torch.is_tensor(state[k]) else
+                           torch.from_numpy(np.ascontiguousarray(state[k]))
                            for k in _STATE_FIELDS))
     flags = None
     if verify_integrity:

@@ -30,7 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.advection.ref import AdvectParams, _ArithCensus
+from repro_torch.kernels.advection.ref import (AdvectParams, _ArithCensus,
+                                               tensor_from_numpy)
 
 INTEGRATORS = ("euler", "rk2")
 BOUNDARIES = ("zero_source",)
@@ -128,7 +129,8 @@ class StencilSpec:
     def packed_sources(self, fields, pv):
         """`spec_sources` given the packed parameter vectors
         `pv = pack_params(params)`: one (..., X, Y, Z) tensor per field,
-        the outermost `radius` cells zero."""
+        the outermost `radius` cells zero. The callback reads each vector
+        as a `CoefVector`, whose coefficients stay dimensioned."""
         fields = tuple(fields)
         if len(fields) != self.n_fields:
             raise ValueError(
@@ -142,6 +144,7 @@ class StencilSpec:
             return f[..., r + dx:X - r + dx, r + dy:Y - r + dy,
                      r + dz:Z - r + dz]
 
+        pv = tuple(CoefVector(p) if torch.is_tensor(p) else p for p in pv)
         srcs = self.source(checked_accessor(self, raw_sh), pv)
         if len(srcs) != self.n_fields:
             raise ValueError(
@@ -152,10 +155,18 @@ class StencilSpec:
     @property
     def cuda_op(self) -> Optional[int]:
         """Id of the `csrc/stencil_ops.cuh` functor that runs this spec in
-        the CUDA ring (`CUDA_OPS`), or None for a spec the kernel was not
-        built for."""
+        the CUDA ring (`CUDA_OPS`), or None for a spec of another callback."""
         return CUDA_OPS.get((self.source, self.pack_params, self.radius,
                              self.integrator))
+
+    def cuda_functor(self):
+        """What runs this spec in K6 on the card: a shipped functor's id,
+        or the functor `stencil.spec_cuda` generates from the callback (a
+        `spec_cuda.Generated`); raises NotImplementedError naming ROADMAP
+        Queue 2 for a spec it cannot generate (radius > 1, x-diagonal
+        reads, more than four fields, operations other than + - *)."""
+        from repro_torch.stencil import spec_cuda
+        return spec_cuda.instantiation(self)
 
     def halo(self, T: int) -> int:
         """Halo depth of T fused substeps: each ring level advances the
@@ -166,6 +177,62 @@ class StencilSpec:
         if T < 1:
             raise ValueError(f"T must be >= 1, got {T}")
         return self.radius * self.stages * T
+
+
+class CoefVector:
+    """A packed parameter vector as a source callback reads it: an int
+    index gives a (1,) tensor, where a tensor's would be 0-d, and a slice a
+    `CoefVector`; arithmetic and torch functions see the tensor.
+
+    The reference's coefficients are JAX arrays, whose 0-d elements take
+    part in promotion as their dtype: an f32 coefficient times a bf16 field
+    is an f32 op there. A 0-d torch tensor does not (torch makes that
+    product bf16, rounding the coefficient first on the card and not on the
+    CPU), so the callback gets dimensioned coefficients, which make torch
+    promote as JAX does, on both devices; with f32 and f64 fields nothing
+    changes."""
+    __slots__ = ("data",)
+
+    def __init__(self, data: torch.Tensor):
+        self.data = data
+
+    def __getitem__(self, k):
+        out = self.data[k]
+        if out.ndim == 0:
+            return out.reshape(1)
+        return CoefVector(out) if isinstance(k, slice) else out
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+    def __getattr__(self, name):
+        return getattr(self.data, name)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        return func(*_tensors(args), **dict(zip(kwargs or {}, _tensors(
+            (kwargs or {}).values()))))
+
+
+def _tensors(args):
+    return [a.data if isinstance(a, CoefVector) else
+            type(a)(_tensors(a)) if isinstance(a, (list, tuple)) else a
+            for a in args]
+
+
+def _coef_op(name: str):
+    def op(self, *args):
+        return getattr(self.data, name)(*_tensors(args))
+    op.__name__ = name
+    return op
+
+
+for _name in ("add", "radd", "sub", "rsub", "mul", "rmul", "truediv",
+              "rtruediv", "pow", "rpow", "neg", "pos", "abs"):
+    setattr(CoefVector, f"__{_name}__", _coef_op(f"__{_name}__"))
 
 
 def checked_accessor(spec: StencilSpec, raw_sh: Callable) -> Callable:
@@ -343,10 +410,9 @@ def default_diffusion_params(Z: int, dx: float = 100.0, dy: float = 100.0,
 def diffusion_params_from_numpy(p, *, dtype=torch.float32,
                                 device="cuda") -> DiffusionParams:
     """Any object with numpy-convertible `kx`, `ky`, `kz` (the reference's
-    `DiffusionParams` included) -> `DiffusionParams` of tensors on
-    `device`."""
-    return DiffusionParams(*(torch.tensor(np.asarray(leaf), dtype=dtype,
-                                          device=device)
+    `DiffusionParams` included, bf16 leaves too) -> `DiffusionParams` of
+    tensors of `dtype` on `device`."""
+    return DiffusionParams(*(tensor_from_numpy(leaf, dtype, device)
                              for leaf in (p.kx, p.ky, p.kz)))
 
 
@@ -380,7 +446,7 @@ def diffusion_spec(integrator: str = "euler") -> StencilSpec:
 
 # (source, pack_params, radius, integrator) of each shipped operator -> the
 # id of its functor in csrc/stencil_ops.cuh, the instantiations of the CUDA
-# ring (csrc/stencil_fused.cu) that `StencilSpec.cuda_op` looks up
+# ring (csrc/stencil_fused.cuh) that `StencilSpec.cuda_op` looks up
 CUDA_OPS = {
     (source, pack, 1, integrator): op
     for op, (source, pack) in enumerate(

@@ -608,15 +608,23 @@ def test_bf16_engine_runs_without_jax_or_ml_dtypes():
 # -- refusals, the models and the analyzer at itemsize 2 ----------------------
 
 def test_k6_and_k7_refuse_bf16_naming_the_next_slice():
+    """The bf16 refusals of K6 and K7 are lifted: both take bf16 fields
+    and keep the dtype (K6's result, K7's extended buffers and bands)."""
     from repro_torch.stencil import spec as SP
     from repro_torch.launch import mesh as TM
-    u, v, w = (torch.zeros(4, 6, 8, dtype=BF16) for _ in range(3))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TK.stencil_fused([u, v, w], TREF.default_params(8, device="cpu"),
-                         SP.pw_advection_spec("euler"), T=1)
+    u, v, w = tb(np_fields((4, 6, 8)))
+    out = TK.stencil_fused([u, v, w], TREF.default_params(8, device="cpu"),
+                           SP.pw_advection_spec("euler"), T=1)
+    assert all(o.dtype == BF16 and o.shape == (4, 6, 8) for o in out)
     mesh = TM.make_stencil_mesh(1, 2, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TK._check_band_fields([(u, v, w), (u, v, w)], mesh)
+    shards = [(u, v, w), (w, u, v)]
+    assert TK._check_band_fields(shards, mesh) == (4, 6, 8)
+    bands = TK.halo_band_exchange_dma(shards, mesh=mesh, axis="y", depth=2,
+                                      dim=1)
+    assert all(b.dtype == BF16 for trio in bands for pair in trio
+               for b in pair)
+    with pytest.raises(TypeError, match="shard 1 u is torch.float32"):
+        TK._check_band_fields([(u, v, w), (u.float(), v, w)], mesh)
 
 
 def test_bf16_refusals_of_the_ladder():

@@ -358,7 +358,7 @@ def test_spec_kernel_tracer_velocities_equal_pw(cuda):
 
 def spec_plain(spec, p, flds, T, dt, cuda):
     X, Y, _ = flds[0].shape
-    pv = TK._spec_param_vectors(spec, p, cuda)
+    pv = TK._spec_param_vectors(spec, p, cuda, flds[0].dtype)
     out = TK._stencil_fused_plain([f[None] for f in flds], pv, spec, T, dt,
                                   torch.ones(X, device=cuda),
                                   torch.ones(Y, device=cuda))
@@ -367,8 +367,8 @@ def spec_plain(spec, p, flds, T, dt, cuda):
 
 def test_spec_kernel_refusals(cuda):
     """PW rk2 at T = 4 over 1024 rows, refused before K6 kept its ring in
-    registers, runs as passes == plain; a spec outside the CUDA table is
-    still refused."""
+    registers, runs as passes == plain; a radius-2 spec is still refused,
+    and a radius-1 user spec runs its generated functor == plain."""
     spec, p, flds, dt = spec_case("pw_rk2", (4, 1024, 64), cuda)
     before = TK.LAUNCHES["stencil_fused"]
     out = TK.stencil_fused(flds, p, spec, T=4, dt=dt)
@@ -376,13 +376,25 @@ def test_spec_kernel_refusals(cuda):
         TK.spec_passes(spec, 4))
     assert all(torch.equal(a, b)
                for a, b in zip(out, spec_plain(spec, p, flds, 4, dt, cuda)))
+    star2 = tuple((d, 0, 0) for d in (-2, -1, 0, 1, 2))
+    wide = TSP.StencilSpec(name="diffusion_r2", fields=("phi",),
+                           offsets={"phi": star2}, source=TSP._diff_source,
+                           pack_params=TSP._diff_pack)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+        TK.stencil_fused([torch.zeros((4, 6, 6), device=cuda)],
+                         TSP.default_diffusion_params(6, device=cuda), wide,
+                         T=1)
+    # a radius-1 user spec runs its generated functor, == its callback
     custom = TSP.StencilSpec(name="custom", fields=("a",),
                              offsets={"a": ((1, 0, 0),)},
                              source=lambda sh, pv: (sh(0, 1, 0, 0),),
                              pack_params=lambda q: ())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        TK.stencil_fused([torch.zeros((4, 6, 6), device=cuda)], None, custom,
-                         T=1)
+    a = torch.tensor(np.random.default_rng(5).normal(size=(5, 6, 6)),
+                     dtype=torch.float32, device=cuda)
+    before = TK.LAUNCHES["stencil_generated"]
+    got = TK.stencil_fused([a], None, custom, T=2, dt=0.1)
+    assert TK.LAUNCHES["stencil_generated"] == before + 1
+    assert torch.equal(got[0], spec_plain(custom, None, [a], 2, 0.1, cuda)[0])
 
 
 @pytest.mark.parametrize("key", SPEC_KEYS)
@@ -1609,3 +1621,108 @@ def test_bf16_rungs_on_fields_two_bytes_past_an_allocation(cuda):
         plain = TK._advect_rung_plain(u, v, w, p, True, DT)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+# ---------------------------------------------------------------------------
+# K6 and K7 in bf16, and K6 for user-written specs
+# ---------------------------------------------------------------------------
+
+BF16_SPEC_KEYS = ["pw", "pw_rk2", "tracer", "tracer_rk2", "diffusion",
+                  "diffusion_rk2"]
+
+
+def unit_spec_case(key, shape, device, coef):
+    """(spec, params, bf16 fields) at unit spacings, where bf16 updates
+    resolve; coefficients f32 or bf16."""
+    Z = shape[2]
+    integ = "rk2" if key.endswith("rk2") else "euler"
+    cd = torch.float32 if coef == "f32" else torch.bfloat16
+    rng = np.random.default_rng(sum(shape) + 7)
+    if key.startswith("diffusion"):
+        return (TSP.diffusion_spec(integ),
+                TSP.default_diffusion_params(Z, dx=1.0, dy=1.0, dz=1.0,
+                                             nu=0.1, dtype=cd,
+                                             device=device),
+                TREF.fields_from_numpy(rng.normal(size=shape),
+                                       dtype=torch.bfloat16, device=device))
+    n = 4 if key.startswith("tracer") else 3
+    spec = (TSP.tracer_advection_spec(integ) if n == 4
+            else TSP.pw_advection_spec(integ))
+    return (spec, TREF.default_params(Z, dx=1.0, dy=1.0, dz=1.0, dtype=cd,
+                                      device=device),
+            TREF.fields_from_numpy(*(rng.normal(size=shape)
+                                     for _ in range(n)),
+                                   dtype=torch.bfloat16, device=device))
+
+
+@pytest.mark.parametrize("key", BF16_SPEC_KEYS)
+@pytest.mark.parametrize("coef", ["f32", "bf16"])
+def test_bf16_spec_kernel_bitwise_equals_plain(cuda, key, coef):
+    """K6 on bf16 fields == its plain version, bitwise, T 1-3 and 5 (as
+    passes), tiled == untiled; the PW spec == K1 bf16."""
+    spec, p, flds = unit_spec_case(key, (7, 12, 16), cuda, coef)
+    for T in (1, 3, 5):
+        before = TK.LAUNCHES["stencil_fused"]
+        out = TK.stencil_fused(flds, p, spec, T=T, dt=0.1)
+        assert TK.LAUNCHES["stencil_fused"] == before + len(
+            TK.spec_passes(spec, T))
+        plain = spec_plain(spec, p, flds, T, 0.1, cuda)
+        torch.cuda.synchronize()
+        assert all(a.dtype == torch.bfloat16 and torch.equal(a, b)
+                   for a, b in zip(out, plain))
+        assert not all(torch.equal(a, b) for a, b in zip(out, flds))
+        tiled = TK.stencil_fused(flds, p, spec, T=T, dt=0.1, y_tile=4)
+        assert all(torch.equal(a, b) for a, b in zip(tiled, out))
+        if key == "pw":
+            k1 = TK.advect_fused(*flds, p, T=T, dt=0.1)
+            assert all(torch.equal(a, b) for a, b in zip(out, k1))
+
+
+@pytest.mark.parametrize("nx,ny,axis,dim,shape,depth", K7_CASES)
+def test_bf16_band_exchange_kernel_equals_plain_bitwise(cuda, nx, ny, axis,
+                                                        dim, shape, depth):
+    """K7 on bf16 shards (the table in bytes, 16-byte moves where a row
+    is a multiple of 16 bytes, 2-byte moves elsewhere) == the plain
+    version, bitwise, over both slots."""
+    mesh = loopback_cuda(nx, ny)
+    bf16 = torch.bfloat16
+    got = TK.BandSlabs(mesh, shape, depth, dim, fill=-3.5, dtype=bf16)
+    want = TK.BandSlabs(mesh, shape, depth, dim, fill=-3.5, dtype=bf16)
+    for block in range(3):
+        shards = [tuple(f.to(bf16) for f in fields(shape, 10 * block + s,
+                                                    cuda))
+                  for s in range(nx * ny)]
+        TK.halo_band_exchange_dma(shards, mesh=mesh, axis=axis, depth=depth,
+                                  dim=dim, block_index=block, slabs=got)
+        TK._band_exchange_plain(shards, want,
+                                want.table(axis, block % 2, shards))
+        torch.cuda.synchronize()
+        got.check()
+        for a, b in zip(got.buffers.bufs, want.buffers.bufs):
+            assert a.dtype == bf16 and torch.equal(a, b)
+
+
+def test_user_spec_runs_its_generated_kernel(cuda):
+    """A radius-1 user spec with a z-coefficient vector and a y-z diagonal
+    read runs its generated K6 in f32 and bf16 == its callback's plain
+    version, bitwise, each launch counted under `stencil_generated`."""
+    def source(sh, pv):
+        (t,) = pv
+        return (t[0] * (sh(0, 0, 1, 1) - sh(0, 0, -1, -1))
+                + t[2:][1:-1] * (sh(0, 1, 0, 0) - 2.0 * sh(0, 0, 0, 0)
+                                 + sh(0, -1, 0, 0)),)
+
+    spec = TSP.StencilSpec(name="user", fields=("a",),
+                           offsets={"a": ((1, 0, 0), (0, 1, 1))},
+                           source=source, pack_params=lambda q: (q,))
+    shape = (7, 12, 16)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.linspace(0.05, 0.3, shape[2] + 2, device=cuda).to(dtype)
+        a = fields(shape, 3, cuda)[0].to(dtype)
+        for T in (1, 3):
+            before = TK.LAUNCHES["stencil_generated"]
+            out = TK.stencil_fused([a], q, spec, T=T, dt=0.5)
+            assert TK.LAUNCHES["stencil_generated"] == before + 1
+            plain = spec_plain(spec, q, [a], T, 0.5, cuda)
+            torch.cuda.synchronize()
+            assert torch.equal(out[0], plain[0]) and out[0].dtype == dtype

@@ -539,10 +539,10 @@ def test_counted_bytes_equal_the_models(mesh_case, exchange):
 
 # --- K7's plain version -----------------------------------------------------
 
-def band_inputs(mesh, shape, seed):
+def band_inputs(mesh, shape, seed, dtype=torch.float32):
     rng = np.random.default_rng(seed)
     return [tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32))
-                  for _ in range(3)) for _ in mesh.devices]
+                  .to(dtype) for _ in range(3)) for _ in mesh.devices]
 
 
 @pytest.mark.parametrize("nx,ny,axis,dim,shape,depth", [
@@ -689,7 +689,7 @@ def test_band_tables_are_kept_per_slot_and_shape():
 
 def replay(slabs, table, fields):
     """K7's copy loop over `table`'s rows, run on CPU memory: per row and
-    run, `run` floats from the source base plus offset to the row's
+    run, `run` bytes from the source base plus offset to the row's
     destination address (the kernel's addressing, without its threads)."""
     import ctypes
     for card, rows in table.rows().items():
@@ -699,13 +699,13 @@ def replay(slabs, table, fields):
         for row in rows:
             r = dict(zip(TK.BAND_COLUMNS, row))
             assert r["tile0"] == tile and r["arrive"] == 0
-            units = -(-r["runs"] * r["run"] // 4)
+            units = -(-r["runs"] * r["run"] // 16)
             tile += -(-units // TK.BAND_TILE_UNITS)
             for o in range(r["runs"]):
                 ctypes.memmove(
-                    r["dst"] + 4 * o * r["dst_stride"],
-                    bases[r["src"]] + 4 * (r["src_off"] + o * r["src_stride"]),
-                    4 * r["run"])
+                    r["dst"] + o * r["dst_stride"],
+                    bases[r["src"]] + r["src_off"] + o * r["src_stride"],
+                    r["run"])
 
 
 @pytest.mark.parametrize("nx,ny,axis,dim,shape,depth", [
@@ -714,19 +714,22 @@ def replay(slabs, table, fields):
     (2, 1, "x", 1, (4, 5, 4), 1), (1, 2, "y", 0, (6, 4, 4), 4),
     (2, 2, "y", 0, (6, 5, 5), 2)])
 @pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_band_table_rows_land_like_the_plain_version(nx, ny, axis, dim,
                                                      shape, depth,
-                                                     in_place):
+                                                     in_place, dtype):
     """The rows the kernel reads (sources, offsets, destinations, runs,
-    strides, tiles), replayed on the CPU, land every buffer of both slots
-    bit for bit as the plain version does; 16-byte moves are marked only
-    where Z is a multiple of 4."""
+    strides, tiles, all in bytes), replayed on the CPU, land every buffer
+    of both slots bit for bit as the plain version does, in f32 and in
+    bf16; 16-byte moves are marked only where a row of Z cells is a
+    multiple of 16 bytes."""
     mesh = loopback(nx, ny)
-    got = TK.BandSlabs(mesh, shape, depth, dim, fill=-3.5)
-    want = TK.BandSlabs(mesh, shape, depth, dim, fill=-3.5)
+    got = TK.BandSlabs(mesh, shape, depth, dim, fill=-3.5, dtype=dtype)
+    want = TK.BandSlabs(mesh, shape, depth, dim, fill=-3.5, dtype=dtype)
+    item = torch.empty((), dtype=dtype).element_size()
     for block in range(4):
         slot = block % 2
-        fields = band_inputs(mesh, shape, 7 + block)
+        fields = band_inputs(mesh, shape, 7 + block, dtype)
         if in_place:
             for sl in (got, want):
                 for own, new in zip(sl.interior(slot), fields):
@@ -746,12 +749,13 @@ def test_band_table_rows_land_like_the_plain_version(nx, ny, axis, dim,
         assert len(rows) == len(table.msgs) + (0 if in_place
                                                 else 3 * nx * ny)
         for r in (dict(zip(TK.BAND_COLUMNS, row)) for row in rows):
-            assert r["vec4"] == (r["run"] % 4 == 0
-                                 and r["src_stride"] % 4 == 0
-                                 and r["dst_stride"] % 4 == 0
-                                 and r["src_off"] % 4 == 0
-                                 and r["dst"] % 16 == 0)
-            assert r["vec4"] or shape[2] % 4
+            assert r["vec16"] == (r["run"] % 16 == 0
+                                  and r["src_stride"] % 16 == 0
+                                  and r["dst_stride"] % 16 == 0
+                                  and r["src_off"] % 16 == 0
+                                  and r["dst"] % 16 == 0)
+            assert r["vec16"] or shape[2] * item % 16
+            assert r["run"] % item == 0 and r["src_off"] % item == 0
 
 
 

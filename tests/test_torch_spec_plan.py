@@ -82,7 +82,7 @@ def test_build_table_covers_every_instantiation():
     assert "#define K6_COEF_VECTORS(X) X(0, 2) X(1, 2) X(2, 1)\n" in header
     assert not any(f.startswith("-DK6_") for f in _build.NVCC_FLAGS)
     assert '#include "k6_table.cuh"' in (
-        _build.CSRC / "stencil_fused.cu").read_text()
+        _build.CSRC / "stencil_fused.cuh").read_text()
     assert "stencil_fused_attrs" in _build.SIGNATURES
 
 
@@ -268,12 +268,24 @@ def test_plan_refusals_name_their_limits():
     spec = TSP.tracer_advection_spec("rk2")
     with pytest.raises(ValueError, match="65535"):
         TK.spec_launch_plan(16, 16, 8, spec, 1, 65536, H100_SMS, 1)
+    star2 = tuple((d, 0, 0) for d in (-2, -1, 0, 1, 2))
+    wide = TSP.StencilSpec(name="diffusion_r2", fields=("phi",),
+                           offsets={"phi": star2}, source=TSP._diff_source,
+                           pack_params=TSP._diff_pack)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+        TK.spec_launch_plan(16, 16, 8, wide, 1, 1, H100_SMS, 1)
+    # a radius-1 user spec plans on its generated functor, with the builds
+    # of the shipped functor of its field count (diffusion's, one field)
     custom = TSP.StencilSpec(name="custom", fields=("a",),
                              offsets={"a": ((1, 0, 0),)},
                              source=lambda sh, pv: (sh(0, 1, 0, 0),),
                              pack_params=lambda p: ())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        TK.spec_launch_plan(16, 16, 8, custom, 1, 1, H100_SMS, 1)
+    plan = TK.spec_launch_plan(16, 16, 8, custom, 1, 1, H100_SMS, 1)
+    assert plan == TK.spec_launch_plan(16, 16, 8, TSP.diffusion_spec(), 1, 1,
+                                       H100_SMS, 1)._replace(
+        shared_bytes=plan.shared_bytes)
+    assert plan.shared_bytes == TK.fused_shared_bytes(
+        1, plan.S, plan.W, plan.cells_per_thread, n_fields=1, n_coef=0)
     with pytest.raises(ValueError, match="4 ring levels a pass"):
         TK.spec_plan_knobs(TSP.pw_advection_spec("rk2"), 4)
 

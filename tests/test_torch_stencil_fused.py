@@ -230,10 +230,19 @@ def test_rejects_bad_args_as_reference():
 
 
 def test_bf16_is_refused_naming_the_queue():
+    """The bf16 refusal is lifted: the bf16 call runs, keeps the dtype and
+    equals the plain loop (`_stencil_fused_plain`) bitwise."""
     ts, _, tp, _, fields, _ = operator("pw")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        TK.stencil_fused([f.bfloat16() for f in tfields(fields)], tp, ts,
-                         T=1)
+    dt = 0.5    # most updates move a cell by more than half a bf16 ulp
+    f16 = [f.bfloat16() for f in tfields(fields)]
+    got = TK.stencil_fused(f16, tp, ts, T=2, dt=dt)
+    X, Y, _ = SHAPE
+    pv = TK._spec_param_vectors(ts, tp, "cpu", torch.bfloat16)
+    want = TK._stencil_fused_plain([f[None] for f in f16], pv, ts, 2, dt,
+                                   torch.ones(X), torch.ones(Y))
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    assert bitwise(got, [w[0] for w in want])
+    assert not bitwise(got, f16)
 
 
 def test_pack_params_must_return_vectors():
@@ -434,20 +443,49 @@ def _custom_specs():
     }
 
 
+# what the CUDA route makes of each: a generated functor, the shipped PW
+# functor (its callback's text is PW's), or a refusal
+CUSTOM_OUTCOMES = {"custom source": "generated",
+                   "pw source, diffusion pack": 0,
+                   "radius 2": "refused"}
+
+
 @pytest.mark.parametrize("case", sorted(_custom_specs()))
 def test_unlisted_spec_refused_on_the_cuda_route(case, monkeypatch):
-    """The CUDA route names the queue and launches nothing; it refuses
-    before any build."""
+    """Each spec outside the shipped table meets its expected outcome on
+    the CUDA route, which launches nothing and builds nothing before it
+    decides: a radius-1 callback of + - * gets an instantiation (its own
+    generated functor, or the shipped one whose text it generates); a
+    radius-2 spec is refused, naming the queue."""
     monkeypatch.setattr(_build, "load", _refuse)
+    monkeypatch.setattr(_build, "load_generated", _refuse)
     spec = _custom_specs()[case]
-    with pytest.raises(NotImplementedError,
-                       match="CUDA sources for user-defined specs"):
-        TK._cuda_instantiation(spec)
+    want = CUSTOM_OUTCOMES[case]
     before = dict(TK.LAUNCHES)
     fields = [torch.zeros(1, 6, 6, 6) for _ in range(spec.n_fields)]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        TK._stencil_fused_cuda(fields, (torch.zeros(8),), spec, 1, 0.01,
-                               torch.ones(6), torch.ones(6))
+    if want == "refused":
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+            TK._cuda_instantiation(spec)
+        with pytest.raises(NotImplementedError, match="radius is 2"):
+            TK._stencil_fused_cuda(fields, (torch.zeros(8),), spec, 1, 0.01,
+                                   torch.ones(6), torch.ones(6))
+    else:
+        op, stages = TK._cuda_instantiation(spec)
+        assert stages == spec.stages
+        if want == "generated":
+            assert op.n_fields == spec.n_fields and op.n_vectors == 0
+            assert "struct GeneratedOp" in op.text
+        else:
+            assert op == want
+        # the parameter vectors are checked before the build: PW's functor
+        # reads two, the diffusion pack gives one
+        pv = () if want == "generated" else (torch.zeros(8),)
+        err, msg = ((RuntimeError, "kernel loader unavailable")
+                    if want == "generated" else
+                    (ValueError, "reads 2 parameter vectors"))
+        with pytest.raises(err, match=msg):
+            TK._stencil_fused_cuda(fields, pv, spec, 1, 0.01, torch.ones(6),
+                                   torch.ones(6))
     assert TK.LAUNCHES == before
 
 
