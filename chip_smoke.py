@@ -14,7 +14,7 @@
     python3 chip_smoke.py --only train             # phases 29-31 alone
     python3 chip_smoke.py --only analysis          # phases 32-34 alone
     python3 chip_smoke.py --only bf16              # phases 35-43 alone
-    python3 chip_smoke.py --only spec_codegen      # phase 43 alone
+    python3 chip_smoke.py --only spec_codegen      # phases 43-46 alone
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 
@@ -344,12 +344,28 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    its callback (`stencil.spec_cuda`) in f32 and bf16, euler and rk2, at
    small shapes and at the 67M grid == the callback's plain version,
    bitwise; their 12 builds made at once and timed, and again from the
-   cache; the analyzer's live ledger == fake == model for one of them.
+   cache; the analyzer's live ledger == fake == model for one of them;
+44. every spec shape the reference's kernel runs, through four user specs
+   (`tests/_spec_shapes.py`: `hyperdiff4` radius 2, `smag_cross` reading
+   x-diagonals, `moist6` six fields, `tvd_vl` radius 2 with division,
+   abs, minimum, maximum and where on comparisons) and a sqrt/division
+   check: their builds at once, then at small shapes (T 1-3, y_tile None
+   and 3, masks, x and z chunks on given plans, batched == sequential)
+   == the plain version on the card, bitwise;
+45. the four at the 67M grid, euler and rk2, f32 and bf16, T = 4 in
+   passes, each pass's plan printed with the card's registers and spills:
+   == plain bitwise, one launch a pass, launched == planned shared bytes,
+   within `ORACLE_TOL` (f32) or a per-cell bound that fails a no-op
+   (bf16) of one f64 oracle; `collective` (2, 2) runs of hyperdiff4 and
+   moist6 == single-card T = 16 bitwise, `remote_dma` refused; each
+   spec's ledger live == fake == model;
+46. each spec's pass timed (events, device time per launch seen) beside
+   its bound, with its build's registers, spills and shared bytes.
 
 Each phase prints its seconds.
 
 `--only bf16` runs phases 35-43 alone (its kernels line holds the bf16
-kernels and the generated K6); `--only spec_codegen` phase 43 alone.
+kernels and the generated K6); `--only spec_codegen` phases 43-46.
 
 `--only analysis` runs phases 32-34 and the host-cost lines alone.
 
@@ -407,9 +423,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -451,6 +466,7 @@ from repro_torch.stencil import distributed as D  # noqa: E402
 from repro_torch.stencil import spec as SP  # noqa: E402
 from repro_torch.stencil.advection import (PAPER_GRIDS,  # noqa: E402
                                            AdvectionDomain, stratus_fields)
+import _spec_shapes as SHAPES  # noqa: E402
 
 DT = 0.01
 MAIN_GRID = "67M"
@@ -501,6 +517,9 @@ SOURCE = {"advect_fused": "src/repro_torch/csrc/advect_fused.cuh",
           "advect_wide": "src/repro_torch/csrc/advect_dataflow.cu",
           "stencil_fused": "src/repro_torch/csrc/stencil_fused.cuh",
           "stencil_generated": "src/repro_torch/csrc/stencil_generated.cu",
+          **{f"stencil_generated_{n}":
+             "src/repro_torch/csrc/stencil_generated.cu"
+             for n in ("hyperdiff4", "smag_cross", "moist6", "tvd_vl")},
           "flash_attention": "src/repro_torch/csrc/flash_attention_tc.cu",
           "selective_scan": "src/repro_torch/csrc/selective_scan.cu",
           "band_exchange": "src/repro_torch/csrc/band_exchange.cu"}
@@ -512,6 +531,9 @@ REPLACES = {"advect_fused": "src/repro/kernels/advection/advection.py:404",
             "stencil_fused": "src/repro/kernels/advection/advection.py:677",
             "stencil_generated":
                 "src/repro/kernels/advection/advection.py:677",
+            **{f"stencil_generated_{n}":
+               "src/repro/kernels/advection/advection.py:677"
+               for n in ("hyperdiff4", "smag_cross", "moist6", "tvd_vl")},
             "flash_attention": "src/repro/kernels/attention/attention.py:31",
             "selective_scan": "src/repro/kernels/ssm/ssm.py:39",
             "band_exchange": "src/repro/kernels/advection/advection.py:939",
@@ -1489,7 +1511,8 @@ def spec_batched_phase(check: Checks) -> None:
 
 
 def spec_refusal_phase(check: Checks) -> None:
-    """A radius-2 spec is refused on the card with no launch, and a
+    """A radius-2 spec whose z coefficients are cut for radius 1
+    (diffusion's callback) is refused on the card with no launch, and a
     radius-1 user spec runs its generated functor (== plain, bitwise); PW
     and tracer rk2 at T = 4, refused before K6 kept its ring in registers,
     run as passes == plain and within `ORACLE_TOL` of f64."""
@@ -1511,8 +1534,9 @@ def spec_refusal_phase(check: Checks) -> None:
     except NotImplementedError as err:
         refused = "ROADMAP Queue 2" in str(err)
     check(refused and K.LAUNCHES == before,
-          f"a radius-2 spec ({radius2.name}) is refused on the card, naming "
-          f"the queue, with no launch")
+          f"a radius-2 spec ({radius2.name}) whose z coefficients are cut "
+          f"for radius 1 is refused on the card, naming the queue, with no "
+          f"launch")
     a = rand_fields((6, 8, 8), 77)[:1]
     out, launches, _ = counted(lambda: K.stencil_fused(a, None, custom, T=2,
                                                        dt=0.1))
@@ -5970,9 +5994,505 @@ def user_spec_phase(check: Checks, card: str) -> dict:
     return rec
 
 
+# --- phases 44-46: every spec shape the reference's kernel runs -------------
+
+# the four specs' torch side (their JAX twins are in
+# tests/test_torch_spec_shapes.py): hyperdiff4 (radius 2), smag_cross
+# (x-diagonal reads), moist6 (six fields), tvd_vl (radius 2, the limiter
+# operations), and sqrt_div (sqrt, a division by a Python number)
+SHAPE_NAMES = SHAPES.NAMES
+SHAPE_DT = dict(SHAPES.DT, sqrt_div=0.1)
+# (5, 9, 8)-like shapes, the least a radius-2 ring takes on every axis
+# (2R + 2), and one of several y-tiles and z chunks
+SHAPE_SMALL = ((5, 9, 8), (6, 6, 6), (13, 23, 17))
+SHAPE_CHUNKS = ((5, 4, None), (5, 3, 5), (4, 6, 4))   # TY, CX, CZ
+SHAPE_T = 4
+SHAPE_BLOCKS = 4      # the distributed runs: 4 blocks of T = 4 == T = 16
+SHAPE_DIST = ("hyperdiff4", "moist6")
+
+
+def shape_spec(name: str, integrator: str = "euler"):
+    return SHAPES.port_spec(name, integrator)
+
+
+def shape_params(name: str, Z: int, dtype=torch.float32):
+    """The parameter vectors of one spec at unit spacings, on the card,
+    bf16 values in either storage (so that f32 and bf16 runs share one f64
+    oracle)."""
+    if name == "sqrt_div":
+        return ()
+    p = SHAPES.params(name, Z, BF16, "cuda")
+    return type(p)(*(v.to(dtype) for v in p))
+
+
+def shape_fields(name: str, shape, dtype, seed: int):
+    """Seeded normal fields (tvd_vl's winds at half that), bf16 values in
+    either storage."""
+    return tuple(torch.tensor(f, device="cuda").to(BF16).to(dtype)
+                 for f in SHAPES.np_fields(
+                     "smag_cross" if name == "sqrt_div" else name, shape,
+                     seed))
+
+
+def graph_ops(gen) -> int:
+    """Operations the functor runs per interior cell and level: each
+    field's source as emitted (every arithmetic node it needs, comparisons,
+    selects, min and max included), counted field by field."""
+    total = 0
+    for out in gen.outs:
+        need, stack = set(), [out]
+        while stack:
+            i = stack.pop()
+            if i not in need:
+                need.add(i)
+                node = gen.nodes[i]
+                stack += [a for a in node[1:] if isinstance(a, int)
+                          and node[0] not in ("field", "coef", "zvec")]
+        total += sum(gen.nodes[i][0] not in ("field", "coef", "zvec")
+                     for i in need)
+    return total
+
+
+def shape_bound(spec, params, T: int, shape, itemsize: int):
+    """(bytes, operations) of one `stencil_fused` call of T steps: the
+    fields read and written once, the parameter table and masks read once;
+    the functor's operations (`graph_ops`) at every interior cell of each
+    of its stages * T levels and the 2-op update of each field and cell."""
+    X, Y, Z = shape
+    r, nf = spec.radius, spec.n_fields
+    gen = spec.cuda_functor()
+    pv = K._spec_param_vectors(spec, params, "cuda")
+    nbytes = (2 * nf * X * Y * Z * itemsize
+              + sum(v.numel() for v in pv) * 4 + (X + Y) * 4)
+    interior = (X - 2 * r) * (Y - 2 * r) * (Z - 2 * r)
+    ops = spec.stages * T * (interior * graph_ops(gen) + 2 * nf * X * Y * Z)
+    return nbytes, ops
+
+
+def shape_cases():
+    """(spec, field dtype, bf16 coefficients) of every build phases 44-46
+    launch: the four specs x euler, rk2 x f32, bf16 (bf16 coefficients),
+    and the sqrt/division check in f32 and bf16."""
+    out = [(shape_spec(n, i), d, d == BF16) for n in SHAPE_NAMES
+           for i in SP.INTEGRATORS for d in (torch.float32, BF16)]
+    return out + [(shape_spec("sqrt_div"), d, False)
+                  for d in (torch.float32, BF16)]
+
+
+def shape_small_phase(check: Checks) -> None:
+    """Phase 44: the generated builds of the four specs (radius 2,
+    x-diagonal reads, six fields, the limiter operations) made at once;
+    then each spec x integrator x storage through K6 at small shapes ==
+    its plain version on the card, bitwise: T 1-3 (passes where a pass
+    holds fewer levels), y_tile None and 3, masks, x and z chunks with
+    remainders on given plans, and batched (B = 3, per-slot masks) ==
+    sequential; the sqrt/division check spec likewise."""
+    t0 = time.perf_counter()
+    n_builds = K.build_spec_kernels(shape_cases())
+    print(f"44 generated K6 builds: {n_builds} (4 specs x euler, rk2 x f32, "
+          f"bf16, and the sqrt/division check in f32 and bf16), compiled "
+          f"at once in {time.perf_counter() - t0:.2f} s", flush=True)
+    for name in SHAPE_NAMES + ("sqrt_div",):
+        integs = SP.INTEGRATORS if name != "sqrt_div" else ("euler",)
+        for integ in integs:
+            spec = shape_spec(name, integ)
+            gen = spec.cuda_functor()
+            check(not isinstance(gen, int) and gen.n_fields == spec.n_fields,
+                  f"44 {spec.name} runs a generated functor (digest "
+                  f"{gen.digest}, radius {gen.radius}, planes at x offsets "
+                  f"{gen.plane_lo}..{gen.plane_hi}, builds "
+                  f"{gen.builds(spec.stages)}, {K.spec_levels(spec)} levels "
+                  f"a pass)")
+            for dtype in (torch.float32, BF16):
+                tag = (f"44 {spec.name} {'bf16' if dtype == BF16 else 'f32'}")
+                dt = SHAPE_DT[name]
+                ok, moved, chunks = [], [], []
+                for si, shape in enumerate(SHAPE_SMALL):
+                    X, Y, Z = shape
+                    params = shape_params(name, Z, dtype)
+                    flds = shape_fields(name, shape, dtype, 440 + 10 * si)
+                    xm, ym = ones_cuda(X), ones_cuda(Y)
+                    # where x = 2 is the one interior slice (X = 5 at
+                    # radius 2) the y mask alone walls cells off
+                    if X - 2 * gen.radius > 1:
+                        xm[2] = 0.0
+                    ym[3:5] = 0.0
+                    for T in (1, 2, 3):
+                        for masked in (False, True):
+                            mk = dict(x_interior_mask=xm if masked else None,
+                                      y_interior_mask=ym if masked else None)
+                            plain = plain_spec(flds, params, spec, T, dt,
+                                               *mk.values())
+                            moved.append(not same(plain, flds))
+                            for y_tile in (None, 3):
+                                out, launches, _ = counted(
+                                    lambda: K.stencil_fused(
+                                        flds, params, spec, T=T, dt=dt,
+                                        y_tile=y_tile, **mk))
+                                ok.append(same(out, plain) and only_these(
+                                    launches, {"stencil_generated": len(
+                                        K.spec_passes(spec, T))}))
+                    if si < 2:
+                        continue
+                    pv = K._spec_param_vectors(spec, params, "cuda", dtype)
+                    T = 1
+                    plain = plain_spec(flds, params, spec, T, dt)
+                    for TY, CX, CZ in SHAPE_CHUNKS:
+                        plan = K.fused_plan_with_chunks(
+                            K.spec_device_plan("cuda", X, Y, Z, spec, T, 1,
+                                               TY, dtype=dtype,
+                                               coef=dtype == BF16),
+                            X, Z, spec.stages * T, CX=CX, CZ=CZ,
+                            knobs=K.spec_plan_knobs(spec, T))
+                        got = K._stencil_fused_cuda(
+                            [f[None] for f in flds], pv, spec, T, dt,
+                            ones_cuda(X), ones_cuda(Y), plan=plan)
+                        chunks.append(plan.n_cx > 1 and plan.n_ty > 1 and (
+                            CZ is None or plan.n_cz > 1)
+                            and same((g[0] for g in got), plain))
+                check(all(ok) and all(moved), f"{tag}: == plain on the card, "
+                      f"bitwise, {len(ok)} runs over {SHAPE_SMALL} (T 1-3, "
+                      f"y_tile None and 3, masks), each launch counted; the "
+                      f"fields moved")
+                check(all(chunks) and chunks, f"{tag}: x chunks, y-tiles and "
+                      f"z chunks with remainders on given plans "
+                      f"{SHAPE_CHUNKS} == plain, bitwise")
+    B, shape = 3, SHAPE_SMALL[2]
+    X, Y, Z = shape
+    xm, ym = torch.ones(B, X, device="cuda"), torch.ones(B, Y, device="cuda")
+    xm[1, 2] = 0.0
+    ym[2, 5:9] = 0.0
+    for name in SHAPE_NAMES:
+        for integ in SP.INTEGRATORS:
+            spec = shape_spec(name, integ)
+            for dtype in (torch.float32, BF16):
+                params = shape_params(name, Z, dtype)
+                slots = [shape_fields(name, shape, dtype, 470 + 7 * b)
+                         for b in range(B)]
+                fields = [torch.stack([sl[i] for sl in slots])
+                          for i in range(spec.n_fields)]
+                out = K.stencil_fused_batched(
+                    fields, params, spec, T=2, dt=SHAPE_DT[name],
+                    x_interior_mask=xm, y_interior_mask=ym)
+                ok = [same([o[b] for o in out], K.stencil_fused(
+                    [f[b] for f in fields], params, spec, T=2,
+                    dt=SHAPE_DT[name], x_interior_mask=xm[b],
+                    y_interior_mask=ym[b])) for b in range(B)]
+                check(all(ok), f"44 {spec.name} "
+                      f"{'bf16' if dtype == BF16 else 'f32'} batched (B = "
+                      f"{B}, per-slot masks) == sequential, bitwise")
+
+
+def shape_path_tiles_and_slots(check: Checks, tag: str, spec, params,
+                               flds, dt: float, out) -> None:
+    """Phase 45's other equalities at the 67M grid, for a spec whose
+    untiled run of `SHAPE_T` steps gave `out`: an explicit y_tile of half
+    the spec's own tile == untiled, and two slots with per-slot masks
+    (`flds` and `flds` reversed along x) batched == sequential, bitwise,
+    each with K6 alone once a pass, the masks changing the result."""
+    X, Y, Z = flds[0].shape
+    T, dtype = SHAPE_T, flds[0].dtype
+    passes = K.spec_passes(spec, T)
+    want = {"stencil_generated": len(passes)}
+    own = K.spec_device_plan("cuda:0", X, Y, Z, spec, passes[0],
+                             dtype=dtype, coef=dtype == BF16)
+    y_tile = max(2, own.TY // 2)
+    given = K.spec_device_plan("cuda:0", X, Y, Z, spec, passes[0], 1,
+                               y_tile, dtype=dtype, coef=dtype == BF16)
+    tiled, launches, _ = counted(lambda: K.stencil_fused(
+        flds, params, spec, T=T, dt=dt, y_tile=y_tile))
+    check(same(tiled, out) and given.TY != own.TY
+          and only_these(launches, want),
+          f"{tag} T={T} at {(X, Y, Z)} with y_tile={y_tile} (tile "
+          f"{given.TY}, K6's own {own.TY}) == untiled, bitwise, "
+          f"{len(passes)} launch(es)")
+    del tiled
+    B = 2
+    xm = torch.ones(B, X, device="cuda")
+    ym = torch.ones(B, Y, device="cuda")
+    xm[1, X // 2 - 20:X // 2 + 20] = 0.0
+    ym[0, Y // 3:Y // 3 + 40] = 0.0
+    slots = (flds, tuple(f.flip(0) for f in flds))
+    stacked = [torch.stack([sl[i] for sl in slots])
+               for i in range(spec.n_fields)]
+    batched, launches, _ = counted(lambda: K.stencil_fused_batched(
+        stacked, params, spec, T=T, dt=dt, x_interior_mask=xm,
+        y_interior_mask=ym))
+    del stacked
+    ok = [same([o[b] for o in batched], K.stencil_fused(
+        slots[b], params, spec, T=T, dt=dt, x_interior_mask=xm[b],
+        y_interior_mask=ym[b])) for b in range(B)]
+    masked = not same([o[0] for o in batched], out)
+    del batched, slots
+    check(all(ok) and masked and only_these(launches, want),
+          f"{tag} T={T} at {(X, Y, Z)} batched (B = {B}, per-slot masks) "
+          f"== sequential, bitwise, {len(passes)} launch(es); the masks "
+          f"changed the result")
+
+
+def shape_path_phase(check: Checks, card: str) -> dict:
+    """Phase 45 at the 67M grid: each spec x integrator x storage through
+    `stencil_fused` at T = 4 on K6's own plan (each pass's plan printed with
+    the card's registers, spills and resident blocks), the counts set to 0
+    just before and read just after (`stencil_generated` once a pass, no
+    other kernel), == the plain version on the card bitwise; f32 within
+    `ORACLE_TOL` x scale of the f64 oracle, bf16 within its per-cell bound
+    (`cell_gate`, which fails a no-op); the launched shared bytes == the
+    analyzer's plan; an explicit y_tile == untiled and two slots batched ==
+    sequential (`shape_path_tiles_and_slots`). The f32 and bf16 runs start
+    from the same bf16 values, so they share one f64 oracle. Returns the
+    runs for the timing phase."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    T = SHAPE_T
+    runs = {}
+    for name in SHAPE_NAMES:
+        dt = SHAPE_DT[name]
+        start = shape_fields(name, (X, Y, Z), BF16, 450)
+        for integ in SP.INTEGRATORS:
+            spec = shape_spec(name, integ)
+            passes = K.spec_passes(spec, T)
+            oracle = SP.spec_multistep_ref_f64(
+                start, shape_params(name, Z, BF16), spec, T, dt)
+            for dtype in (torch.float32, BF16):
+                tag = f"45 {spec.name} {'bf16' if dtype == BF16 else 'f32'}"
+                params = shape_params(name, Z, dtype)
+                flds = tuple(f.to(dtype) for f in start)
+                for Tk in sorted(set(passes)):
+                    plan = K.spec_device_plan("cuda:0", X, Y, Z, spec, Tk,
+                                              dtype=dtype,
+                                              coef=dtype == BF16)
+                    a = K.spec_kernel_attrs("cuda:0", spec, Tk, plan,
+                                            dtype=dtype, coef=dtype == BF16)
+                    ring = SM.fused_ring_plan(X, Y, Z, T=Tk, spec=spec,
+                                              n_sm=n_sms(),
+                                              blocks_per_sm=plan.blocks_per_sm)
+                    print(f"{tag} pass T={Tk} at {(X, Y, Z)}: plan TY "
+                          f"{plan.TY} S {plan.S} CZ {plan.CZ} W {plan.W} CX "
+                          f"{plan.CX} C {plan.cells_per_thread} threads "
+                          f"{plan.threads} shared {plan.shared_bytes} B grid "
+                          f"{plan.grid}; {a['registers']} registers, "
+                          f"{a['local_bytes']} B spilled, "
+                          f"{a['blocks_per_sm']} resident per SM; card {card}",
+                          flush=True)
+                    check(ring.total() == plan.shared_bytes,
+                          f"{tag} pass T={Tk}: the analyzer's shared-memory "
+                          f"plan {ring.total()} B == the launch plan's "
+                          f"{plan.shared_bytes} B")
+                    check(a["local_bytes"] == 0, f"{tag} pass T={Tk}: the "
+                          f"build spills nothing ({a['local_bytes']} B, "
+                          f"{a['registers']} registers)")
+                out, launches, wall = counted(lambda: K.stencil_fused(
+                    flds, params, spec, T=T, dt=dt))
+                launched = K.LAUNCHED_SHARED.get("stencil_fused")
+                plain = plain_spec(flds, params, spec, T, dt)
+                err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(out, plain))
+                del plain
+                print(f"{tag} T={T} at {(X, Y, Z)}: wall {wall:.3f} s, "
+                      f"launches {launches['stencil_generated']} "
+                      f"({passes}), vs plain {err}", flush=True)
+                check(err == 0.0 and not same(out, flds) and only_these(
+                    launches, {"stencil_generated": len(passes)}),
+                    f"{tag} T={T} at {(X, Y, Z)}: == plain, bitwise, "
+                    f"{len(passes)} launch(es), the fields moved")
+                last = K.spec_device_plan("cuda:0", X, Y, Z, spec,
+                                          passes[-1], dtype=dtype,
+                                          coef=dtype == BF16)
+                check(launched == last.shared_bytes, f"{tag}: launched "
+                      f"{launched} B of shared memory == planned "
+                      f"{last.shared_bytes} B")
+                shape_path_tiles_and_slots(check, tag, spec, params, flds,
+                                           dt, out)
+                if dtype == torch.float32:
+                    oerr = max(float((a.double() - b).abs().max())
+                               for a, b in zip(out, oracle))
+                    scale = max(1.0, max(float(b.abs().max())
+                                         for b in oracle))
+                    moved = max(float((b - a.double()).abs().max())
+                                for a, b in zip(flds, oracle))
+                    print(f"{tag} against the f64 oracle: {oerr:.4e} (TOL "
+                          f"{ORACLE_TOL} x scale {scale:.4f}); the oracle "
+                          f"moved {moved:.4e}", flush=True)
+                    check(oerr <= ORACLE_TOL * scale
+                          and moved > ORACLE_TOL * scale,
+                          f"{tag}: within {ORACLE_TOL} x scale of the f64 "
+                          f"oracle ({oerr:.3e}), which a no-op misses")
+                else:
+                    # one bf16 rounding of the update a level; the
+                    # sources' own roundings, scaled by dt, stay inside
+                    # the slack at these coefficients and dt
+                    bound = bf16_oracle_bound(oracle, spec.stages * T)
+                    cell_gate(check, tag, out, flds, oracle,
+                              [torch.full_like(o, bound) for o in oracle])
+                runs[name, integ, dtype] = dict(
+                    spec=spec, params=params, fields=flds, dt=dt,
+                    launches=launches["stencil_generated"], err=err)
+                del out
+            del oracle
+            torch.cuda.empty_cache()
+        del start
+    # the shipped specs keep their shipped functors
+    for op, factory in SPEC_FACTORIES.items():
+        for integ in SP.INTEGRATORS:
+            check(isinstance(factory(integ).cuda_functor(), int),
+                  f"45 {factory(integ).name} runs its shipped functor")
+    return runs
+
+
+def shape_dist_phase(check: Checks, card: str) -> None:
+    """Phase 45's distributed runs: the `collective` engine over the (2, 2)
+    loopback mesh, `make_distributed_run(n_blocks=4, T=4, fused, overlap)`
+    for hyperdiff4 and moist6 at depth `spec.halo(4)`, == single-card
+    `stencil_fused` at T = 16, bitwise, K6 twice a shard, pass and block;
+    `remote_dma` refused for `spec=` on the card, launching nothing."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    nx, ny = DIST_MESH
+    mesh = make_stencil_mesh(nx, ny, devices=["cuda:0"] * (nx * ny))
+    nb, T = SHAPE_BLOCKS, SHAPE_T
+    for name in SHAPE_DIST:
+        spec = shape_spec(name)
+        sp = shape_params(name, Z)
+        flds = shape_fields(name, (X, Y, Z), torch.float32, 460)
+        dt = SHAPE_DT[name]
+        run = D.make_distributed_run(mesh, sp, n_blocks=nb, T=T, dt=dt,
+                                     local_kernel="fused", overlap=True,
+                                     exchange="collective", spec=spec,
+                                     spec_params=sp)
+        shards = D.shard(mesh, *flds)
+        out, launches, wall = counted(lambda: run(shards), mesh)
+        want = 2 * nx * ny * len(K.spec_passes(spec, T)) * nb
+        got = D.gather(mesh, out)
+        del out, shards
+        single = K.stencil_fused(flds, sp, spec, T=nb * T, dt=dt)
+        tag = (f"45 distributed {spec.name} over a {(nx, ny)} loopback mesh, "
+               f"collective, {nb} blocks of T={T} at depth {spec.halo(T)}")
+        print(f"{tag}: wall {wall:.3f} s, launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        check(only_these(launches, {"stencil_generated": want}),
+              f"{tag}: stencil_generated launched {want} times, no other "
+              f"kernel")
+        check(same(got, single) and not same(got, flds),
+              f"{tag}: == single-card stencil_fused(T={nb * T}), bitwise, "
+              f"the fields moved")
+        del got, single
+        torch.cuda.empty_cache()
+    spec = shape_spec("hyperdiff4")
+    sp = shape_params("hyperdiff4", Z)
+    reset_all_counts()
+    try:
+        D.make_distributed_run(mesh, sp, n_blocks=nb, T=T, dt=0.5,
+                               local_kernel="fused", exchange="remote_dma",
+                               spec=spec, spec_params=sp)
+        refused = False
+    except RuntimeError as e:
+        refused = "no band exchange kernel" in str(e)
+    check(refused and sum(all_counts().values()) == 0,
+          "45 hyperdiff4 with exchange='remote_dma' on the CUDA mesh raises "
+          "at build time, and launches nothing")
+
+
+def shape_ledger_phase(check: Checks) -> None:
+    """Phase 45's analyzer gate: each spec's K6 call recorded live on the
+    card == its fake trace == its model (each pass's fields read and
+    written once), with `check_model_coverage` and the ops == the passes."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    for name in SHAPE_NAMES:
+        spec = shape_spec(name)
+        q = shape_params(name, Z)
+        q = type(q)(*(v.cpu() for v in q))
+        prog = PR.user_spec_program(spec, X, Y, Z, params=q, T=SHAPE_T,
+                                    dt=SHAPE_DT[name])
+        with TR.fake_mode():
+            fn, args = prog.build("cuda")
+            fake = ledger_of(prog, TR.record_ops(fn, *args))
+        del fn, args
+        fn, args = prog.build("cuda")
+        records = TR.record_ops(fn, *args, execute=True)
+        torch.cuda.synchronize()
+        live = ledger_of(prog, records)
+        del fn, args
+        torch.cuda.empty_cache()
+        report = AN.check_model_coverage(live, prog.claims)
+        print(f"45 ledger {prog.name}: {live} (claims {prog.claims})",
+              flush=True)
+        check(live == fake and report.ok and op_counts(records)
+              == prog.launches, f"45 {prog.name}: live ledger == fake trace "
+              f"== model {prog.claims}, model coverage "
+              f"{[str(f) for f in report.failures]}, ops {prog.launches}")
+
+
+def shape_timing(runs, card: str) -> list:
+    """Phase 46: each spec's K6 pass at the 67M grid (euler, one pass of
+    its most steps a pass), f32 and bf16: events (median of 20) and device
+    time by `torch.profiler` (divided by the launches seen), the plain
+    version, the bound; the build's registers, spills and shared bytes.
+    Returns one kernels-line record per spec (f32), its launches the
+    phase-45 path's."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    records = []
+    for name in SHAPE_NAMES:
+        spec = shape_spec(name)
+        Tp = K.spec_passes(spec, SHAPE_T)[0]
+        launches = sum(r["launches"] for (n, _, _), r in runs.items()
+                       if n == name)
+        err = max(r["err"] for (n, _, _), r in runs.items() if n == name)
+        for dtype in (torch.float32, BF16):
+            r = runs[name, "euler", dtype]
+            flds, params, dt = r["fields"], r["params"], r["dt"]
+
+            def call():
+                return K.stencil_fused(flds, params, spec, T=Tp, dt=dt)
+
+            ms = time_ms(call)
+            dev, seen = device_per_launch(call, "stencil_")
+            plan = K.spec_device_plan("cuda:0", X, Y, Z, spec, Tp,
+                                      dtype=dtype, coef=dtype == BF16)
+            a = K.spec_kernel_attrs("cuda:0", spec, Tp, plan, dtype=dtype,
+                                    coef=dtype == BF16)
+            item = 2 if dtype == BF16 else 4
+            nbytes, ops = shape_bound(spec, params, Tp, (X, Y, Z), item)
+            peak = R.PEAK_FLOPS_BF16_SIMT if dtype == BF16 \
+                else R.PEAK_FLOPS_F32
+            bound, by = bound_of(nbytes, ops, peak)
+            kind = "bf16" if dtype == BF16 else "f32"
+            print(f"46 K6 {name} {kind} euler pass T={Tp} at {(X, Y, Z)}: "
+                  f"{ms:.4f} ms by events, device {device_text(dev)} a "
+                  f"launch ({seen} launches seen in 10 calls); bound "
+                  f"{bound:.4f} ms by {by} ({nbytes} B, {ops} ops, "
+                  f"{graph_ops(spec.cuda_functor())} a cell and level); "
+                  f"build C={plan.cells_per_thread}, {plan.threads} threads, "
+                  f"{a['registers']} registers, {a['local_bytes']} B "
+                  f"spilled, {plan.shared_bytes} B shared, "
+                  f"{a['blocks_per_sm']} resident per SM; card {card}",
+                  flush=True)
+            if dtype == BF16:
+                continue
+            plain_ms = time_ms(lambda: plain_spec(flds, params, spec, Tp,
+                                                  dt), runs=3, warmup=1)
+            rec = kernel_record(f"stencil_generated_{name}", ms, plain_ms,
+                                nbytes, ops, launches, err)
+            rec["device_ms"] = dev if dev > 0 else None
+            records.append(rec)
+    return records
+
+
+def spec_shapes_phases(check: Checks, card: str) -> list:
+    """Phases 44-46: every spec shape the reference's kernel runs."""
+    phase("44 spec shapes small", shape_small_phase, check)
+    runs = phase("45 spec shapes at 67M", shape_path_phase, check, card)
+    phase("45 spec shapes distributed", shape_dist_phase, check, card)
+    phase("45 spec shapes ledger", shape_ledger_phase, check)
+    records = phase("46 spec shapes timing", shape_timing, runs, card)
+    del runs
+    torch.cuda.empty_cache()
+    return records
+
+
 def spec_codegen_only(check: Checks, card: str) -> list:
-    """`--only spec_codegen`: phase 43 alone."""
-    return [phase("43 user-written specs", user_spec_phase, check, card)]
+    """`--only spec_codegen`: phase 43, then phases 44-46."""
+    records = [phase("43 user-written specs", user_spec_phase, check, card)]
+    torch.cuda.empty_cache()
+    return records + spec_shapes_phases(check, card)
 
 
 def bf16_phases(check: Checks, card: str) -> list:
@@ -6114,6 +6634,7 @@ def main() -> int:
                      card)
     torch.cuda.empty_cache()
     records += bf16_phases(check, card)
+    records += spec_shapes_phases(check, card)
     analysis_phases(check, card)
     torch.cuda.empty_cache()
     cfg, params, k8_launches = phase(

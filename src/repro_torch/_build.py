@@ -53,8 +53,10 @@ K1_BUILDS = {2: 512, 4: 384, 8: 256}
 # K6 (`csrc/stencil_fused.cuh`) is built for 1..K6_MAX_LEVELS ring levels a
 # pass (stages * T), and by (functor id, stages) for 2 and 4 cells per
 # thread, each at the threads per block given here (its launch bound). Its
-# register ring holds 2 * fields * levels * C floats a thread, so the
-# tracer's four fields take fewer threads than PW's three. PW has no 4-cell
+# register ring holds 2 * fields * levels * C floats a thread at radius 1,
+# so the tracer's four fields take fewer threads than PW's three (a
+# generated functor of another ring sizes its own builds,
+# `spec_cuda.Generated.builds`, and passes them as flags). PW has no 4-cell
 # build: at 256 threads (where its ring fits without spilling) it holds no
 # slab that the 2-cell build at 512 does not. K6_COEF_VECTORS are the
 # z-coefficient vectors of `spec.pack_params` each functor reads, by
@@ -97,14 +99,11 @@ SIGNATURES = {
     "advect_dataflow_attrs": [_I, _I, _SZ, _P],
     "advect_dataflow_bf16": [_P] * 7 + [_I] * 12 + [_F, _SZ, _P],
     "advect_dataflow_bf16_attrs": [_I, _I, _I, _SZ, _P],
-    "stencil_fused_f32": ([_I] * 2 + [_P] * 9 + [_I, _P, _P] + [_I] * 18
-                          + [_F, _SZ, _P]),
+    "stencil_fused_f32": [_I, _I, _P],
     "stencil_fused_attrs": [_I] * 5 + [_SZ, _P],
-    "stencil_fused_bf16": ([_I] * 2 + [_P] * 9 + [_I, _P, _P] + [_I] * 18
-                           + [_F, _SZ, _P]),
+    "stencil_fused_bf16": [_I, _I, _P],
     "stencil_fused_bf16_attrs": [_I] * 5 + [_SZ, _P],
-    "stencil_fused_bf16_coef": ([_I] * 2 + [_P] * 9 + [_I, _P, _P]
-                                + [_I] * 18 + [_F, _SZ, _P]),
+    "stencil_fused_bf16_coef": [_I, _I, _P],
     "stencil_fused_bf16_coef_attrs": [_I] * 5 + [_SZ, _P],
     "flash_attention_fwd": [_P] * 4 + [_LL] * 12 + [_I] * 9 + [_F, _SZ, _P],
     "flash_attention_tc_fwd": [_P] * 4 + [_LL] * 12 + [_I] * 7 + [_F, _P],
@@ -219,15 +218,17 @@ GENERATED_SIGNATURES = {
 }
 
 
-def generated_flags(stages: int, bf16: bool, coef: bool,
-                    threads: dict) -> Tuple[str, ...]:
+def generated_flags(stages: int, bf16: bool, coef: bool, threads: dict,
+                    max_levels: int = K6_MAX_LEVELS) -> Tuple[str, ...]:
     """The nvcc flags of one generated K6 build: the library's, its
-    integrator's stages, its storage (bf16 fields, bf16 coefficients) and
-    the launch bound of its 2- and 4-cell builds (0: none)."""
+    integrator's stages, its storage (bf16 fields, bf16 coefficients), the
+    launch bound of its 2- and 4-cell builds (0: none) and the most ring
+    levels a pass of it runs."""
     return NVCC_FLAGS + (f"-DK6G_STAGES={stages}", f"-DK6G_BF16={int(bf16)}",
                          f"-DK6G_COEF_BF16={int(bf16 and coef)}",
                          f"-DK6G_THREADS_C2={threads.get(2, 0)}",
-                         f"-DK6G_THREADS_C4={threads.get(4, 0)}")
+                         f"-DK6G_THREADS_C4={threads.get(4, 0)}",
+                         f"-DK6G_MAX_LEVELS={max_levels}")
 
 
 def generated_digest(text: str, flags) -> str:

@@ -141,25 +141,31 @@ class SmemPlan:
 
 # ---- builders ----------------------------------------------------------
 
-def _ring_buffers(plan: K.FusedPlan, levels: int, *, n_fields: int = 3,
-                  n_coef: int = 2, what: str = "K1", n_slots: int = 3):
+def _ring_buffers(plan: K.FusedPlan, levels: int,
+                  knobs: K.PlanKnobs = K.K1_KNOBS, *, n_slots: int = 3):
     """The shared buffers of one ring launch at `levels` ring levels
-    (`fused_shared_bytes`' terms), and its register ring."""
+    (`fused_shared_bytes`' terms, with `knobs`' fields, vectors and ring:
+    K1's by default, K6's with `spec_plan_knobs`), and its register ring
+    (`n_slots` slices a level, the reference's ring model)."""
     pitch, W, C, S = plan.pitch, plan.W, plan.cells_per_thread, plan.S
-    tail = max(-(-W // C) * C + 1 - pitch, 0)
-    return (
+    n_fields, n_coef, what = knobs.n_fields, knobs.n_coef, knobs.what
+    tail = max(-(-W // C) * C + knobs.radius - pitch, 0)
+    head = (SmemBuffer(f"{what} head", 4 * knobs.head,
+                       f"{knobs.head} floats before the first plane row's "
+                       f"dy = -{knobs.radius} reads"),) if knobs.head else ()
+    return head + (
         SmemBuffer(f"{what} z coefficients", 4 * n_coef * W,
                    f"{n_coef} vectors of a {W}-cell window"),
         SmemBuffer(f"{what} centre planes",
-                   4 * 2 * levels * n_fields * S * pitch,
-                   f"2 buffers x {levels} levels x {n_fields} fields x {S} "
-                   f"rows x pitch {pitch}"),
+                   4 * knobs.slots * levels * n_fields * S * pitch,
+                   f"{knobs.slots} buffers x {levels} levels x {n_fields} "
+                   f"fields x {S} rows x pitch {pitch}"),
         SmemBuffer(f"{what} row tail", 4 * tail,
                    f"{tail} floats past the last row's window"),
         SmemBuffer(f"{what} register ring",
                    K.fused_register_bytes(
                        levels, S, W, n_fields=n_fields, n_slots=n_slots,
-                       n_levels=levels, halo=levels),
+                       n_levels=levels, halo=knobs.radius * levels),
                    f"{n_fields} fields x {n_slots} slots x {levels} levels "
                    f"of a {S} x {W} slab, over the block's threads",
                    space="registers"),
@@ -182,10 +188,8 @@ def fused_ring_plan(X: int, Y: int, Z: int, *, T: int, B: int = 1,
     else:
         plan = K.spec_launch_plan(X, Y, Z, spec, T, B, n_sm, blocks_per_sm,
                                   y_tile=y_tile)
-        knobs = K.spec_plan_knobs(spec, T)
-        levels = spec.stages * T
-        bufs = _ring_buffers(plan, levels, n_fields=knobs.n_fields,
-                             n_coef=knobs.n_coef, what="K6",
+        bufs = _ring_buffers(plan, spec.stages * T,
+                             K.spec_plan_knobs(spec, T),
                              n_slots=2 * spec.radius + 1)
     return SmemPlan(bufs, blocks_per_sm=blocks_per_sm, context=context)
 

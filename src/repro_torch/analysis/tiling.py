@@ -119,8 +119,9 @@ def _window_end(m: TensorMeta) -> int:
 
 
 def _ring_plan(r, n_sm, blocks_per_sm):
-    """(plan, levels, shape) of a K1 or K6 record: the plan the wrapper's
-    launch takes at the record's arguments on a card of `n_sm` SMs."""
+    """(plan, halo, shape) of a K1 or K6 record: the plan the wrapper's
+    launch takes at the record's arguments on a card of `n_sm` SMs, and the
+    halo its blocks reach (K1's T, K6's `spec.halo(T)`)."""
     from repro_torch.kernels.advection import advection as K
     first = r.tensors("fields")[0] if r.op == "stencil_fused" \
         else r.arg("u")
@@ -130,26 +131,26 @@ def _ring_plan(r, n_sm, blocks_per_sm):
         spec = K.spec_of(r.arg("spec"))
         if not K.spec_on_card(spec):
             return None, None, first.shape
-        levels = spec.stages * T
+        halo = spec.halo(T)
         plan = K.spec_launch_plan(X, Y, Z, spec, T, B, n_sm, blocks_per_sm,
                                   y_tile=y_tile)
     else:
-        levels = T
+        halo = T
         plan = K.fused_launch_plan(X, Y, Z, T, B, n_sm, blocks_per_sm,
                                    y_tile=y_tile)
-    return plan, levels, first.shape
+    return plan, halo, first.shape
 
 
 def _check_ring(r, issues, n_sm, blocks_per_sm, max_grid_points):
     from repro_torch.kernels.advection import advection as K
-    plan, levels, shape = _ring_plan(r, n_sm, blocks_per_sm)
+    plan, halo, shape = _ring_plan(r, n_sm, blocks_per_sm)
     if plan is None:
         return
     _, X, Y, Z = shape
     for t, cz, cx in _grid_points((plan.n_ty, plan.n_cz, plan.n_cx),
                                   max_grid_points):
         slab_lo, own, zlo, cells, walk, owned = K._fused_block_geometry(
-            plan, X, Y, Z, levels, t, cz, cx)
+            plan, X, Y, Z, halo, t, cz, cx)
         bad = []
         if slab_lo < 0 or slab_lo + plan.S > Y:
             bad.append(f"slab rows [{slab_lo}, {slab_lo + plan.S}) of "

@@ -7,14 +7,15 @@
 // flags K6G_STAGES (1 euler, 2 rk2), K6G_BF16 and K6G_COEF_BF16 (the
 // storage: f32, bf16 fields with f32 coefficients, or both bf16) and
 // K6G_THREADS_C2 / K6G_THREADS_C4 (the launch bound of its 2- and 4-cell
-// builds, 0 for none; the shipped builds' of its field count). Arguments:
-// `K6_ENTRY_ARGS` in stencil_fused.cuh; `op` must be 0 and `stages`
-// K6G_STAGES.
+// builds, 0 for none) and K6G_MAX_LEVELS (the most ring levels a pass of
+// it runs, `Generated.builds`). Arguments: the entry points' comment at the
+// end of stencil_fused.cuh; `op` must be 0 and `stages` K6G_STAGES.
 #include "stencil_fused.cuh"
 #include "k6_generated_op.cuh"
 
 #if !defined(K6G_STAGES) || !defined(K6G_BF16) || !defined(K6G_COEF_BF16) \
-    || !defined(K6G_THREADS_C2) || !defined(K6G_THREADS_C4)
+    || !defined(K6G_THREADS_C2) || !defined(K6G_THREADS_C4) \
+    || !defined(K6G_MAX_LEVELS)
 #error "a generated K6 build takes its flags from _build.load_generated"
 #endif
 
@@ -28,7 +29,7 @@ template <int S>
 constexpr Table gen_table() {
   if constexpr (S == K6G_STAGES)
     return table<GeneratedOp, S, K6G_THREADS_C2, K6G_THREADS_C4, GenE,
-                 kGenCoef>(kLevels);
+                 kGenCoef, K6G_MAX_LEVELS>(kLevels);
   else
     return Table{};
 }
@@ -41,13 +42,13 @@ const Entry* find_generated(int op, int stages, int T, int C) {
 
 }  // namespace
 
-extern "C" int k6_generated(K6_ENTRY_ARGS) {
-  const Entry* e = find_generated(op, stages, T, C);
-  return K6_LAUNCH(e);
+extern "C" int k6_generated(int op, int stages, const K6Call* call) {
+  const Entry* e = find_generated(op, stages, call->T, call->C);
+  return k6_launch(e, call);
 }
 
 extern "C" int k6_generated_attrs(int op, int stages, int T, int C,
                                   int threads, size_t smem_bytes, int* out) {
   const Entry* e = find_generated(op, stages, T, C);
-  return K6_ATTRS(e);
+  return k6_attrs(e, threads, smem_bytes, out);
 }

@@ -1,7 +1,7 @@
 // Per-cell source functors of the spec ring kernel (stencil_fused.cuh), one
 // per shipped StencilSpec operator of src/repro_torch/stencil/spec.py; a
-// user's radius-1 spec gets one of the same form, generated from its
-// callback by `repro_torch.stencil.spec_cuda`.
+// user's spec gets one of the same form, generated from its callback by
+// `repro_torch.stencil.spec_cuda`.
 //
 // Each functor mirrors its Python callback term by term, operand order
 // included: `_pw_flux_source` (PwFluxOp<3> for the PW spec, PwFluxOp<4> for
@@ -19,47 +19,51 @@
 // A functor's interface: kFields, kVectors (the z-coefficient vectors it
 // stages per window cell, `zc[p]`: element zoff(p) + z of parameter vector
 // zvec(p) at cell z), Coef and coef(pv, p_len) (its scalar coefficients,
-// element j of vector i at pv[i * p_len + j]), and source<FI, RF, RC>.
+// element j of vector i at pv[i * p_len + j]), source<FI, RF, RC>, and the
+// ring's shape: kRadius (R, the reach of its reads on every axis),
+// kPlaneLo / kPlaneHi (the x offsets of its reads off the centre row, 0 / 0
+// where it reads none at an x neighbour) and kHead (floats the ring lays
+// before its shared memory so that a read at dy = -R, dz < 0 of the first
+// row stays inside it; 0 wherever z coefficients lie there).
 //
 // The callbacks' accessor `sh(f, dx, dy, dz)` is `at<F, DX, DY, DZ>(cell)`,
-// its offsets compile-time: dx = +-1 resolves to the thread's registers
-// (the ring's x - 1 and x + 1), (0, 0, 0) to its centre register, and
-// dy, dz = +-1 (the y-z diagonals too) to the level's centre plane in
-// shared memory. The ring holds no x neighbour's plane, so a read at
-// x +- 1 with a nonzero dy or dz has no operand here: `at` refuses one at
-// compile time, and the tracer before any build.
+// its offsets compile-time: (dx, 0, 0) resolves to the thread's registers
+// (the ring keeps each level's slices x - R .. x + R there), and a read
+// with a nonzero dy or dz to the shared plane of slice x + dx of the level,
+// y-z diagonals and x-diagonals alike.
 #pragma once
 
 #include "cells.cuh"
 
 // One cell of one ring level, as the operators read it: field f's values
-// at x - 1, x and x + 1 (copies of the thread's ring registers), each
-// field's centre plane of the level, the cell's index in a plane and the
-// planes' row pitch, and the cell's z coefficients (one per vector the
-// operator stages).
-template <int NF, int NP>
+// at x + d, d = -R..R, as xv[d + R][f] (copies of the thread's ring
+// registers), the planes of slices x + d, d = XLO..XLO + NX - 1, as
+// pl[d - XLO][f], the cell's index in a plane and the planes' row pitch,
+// and the cell's z coefficients (one per vector the operator stages).
+template <int NF, int NP, int R, int NX, int XLO>
 struct RingCell {
-  float xm[NF], xc[NF], xp[NF];
-  const float* pl[NF];
+  static constexpr int kRadius = R;
+  static constexpr int kPlaneLo = XLO;
+  static constexpr int kPlanes = NX;
+  float xv[2 * R + 1][NF];
+  const float* pl[NX][NF];
   int c, P;
   float zc[NP];
 };
 
 template <int F, int DX, int DY, int DZ, class Cell>
 __device__ __forceinline__ float at(const Cell& sh) {
-  static_assert(DX >= -1 && DX <= 1 && DY >= -1 && DY <= 1 && DZ >= -1 &&
-                    DZ <= 1,
-                "the CUDA ring is built for radius 1");
-  static_assert(DX == 0 || (DY == 0 && DZ == 0),
-                "an x neighbour comes from registers: no diagonal reads");
-  if constexpr (DX == -1) {
-    return sh.xm[F];
-  } else if constexpr (DX == 1) {
-    return sh.xp[F];
-  } else if constexpr (DY == 0 && DZ == 0) {
-    return sh.xc[F];
+  constexpr int R = Cell::kRadius;
+  static_assert(DX >= -R && DX <= R && DY >= -R && DY <= R && DZ >= -R &&
+                    DZ <= R,
+                "a read beyond the functor's radius");
+  if constexpr (DY == 0 && DZ == 0) {
+    return sh.xv[DX + R][F];
   } else {
-    return sh.pl[F][sh.c + DY * sh.P + DZ];
+    static_assert(DX >= Cell::kPlaneLo &&
+                      DX < Cell::kPlaneLo + Cell::kPlanes,
+                  "an off-row read at an x offset the ring keeps no plane of");
+    return sh.pl[DX - Cell::kPlaneLo][F][sh.c + DY * sh.P + DZ];
   }
 }
 
@@ -71,6 +75,7 @@ template <int NOUT>
 struct PwFluxOp {
   static constexpr int kFields = NOUT;
   static constexpr int kVectors = 2;
+  static constexpr int kRadius = 1, kPlaneLo = 0, kPlaneHi = 0, kHead = 0;
   __device__ static constexpr int zvec(int p) { return p; }
   __device__ static constexpr int zoff(int) { return 2; }
   struct Coef {
@@ -109,6 +114,7 @@ struct PwFluxOp {
 struct DiffusionOp {
   static constexpr int kFields = 1;
   static constexpr int kVectors = 1;
+  static constexpr int kRadius = 1, kPlaneLo = 0, kPlaneHi = 0, kHead = 0;
   __device__ static constexpr int zvec(int) { return 0; }
   __device__ static constexpr int zoff(int) { return 2; }
   struct Coef {

@@ -216,17 +216,22 @@ class FusedPlan(NamedTuple):
 
 
 class PlanKnobs(NamedTuple):
-    """What a ring's planner takes of its kernel beyond the pass's levels,
-    which are also its halo (K1's T; K6's ``spec.stages * T``, which is
-    `spec.halo(T)` at radius 1, the only radius K6 is built for): its
-    fields, its z-coefficient vectors, its builds as (cells per thread,
-    threads per block) items, the slab cells its own tile aims at, and its
-    name in the refusals. K1's are `K1_KNOBS`, K6's `spec_plan_knobs`'."""
+    """What a ring's planner takes of its kernel beyond the pass's levels
+    (K1's T; K6's ``spec.stages * T``): its fields, its z-coefficient
+    vectors, its builds as (cells per thread, threads per block) items, the
+    slab cells its own tile aims at, its name in the refusals, and the
+    ring's shape: its radius (the halo is ``radius * levels``,
+    `spec.halo(T)`), the shared planes a level and field keeps and the
+    floats laid before its shared memory (`fused_shared_bytes`). K1's are
+    `K1_KNOBS`, K6's `spec_plan_knobs`'."""
     n_fields: int
     n_coef: int
     builds: Tuple[Tuple[int, int], ...]
     plan_cells: int
     what: str
+    radius: int = 1
+    slots: int = 2
+    head: int = 0
 
 
 K1_KNOBS = PlanKnobs(3, 2, tuple(_build.K1_BUILDS.items()), K1_PLAN_CELLS,
@@ -280,16 +285,25 @@ def fused_plane_pitch(W: int, C: int) -> int:
 
 
 def fused_shared_bytes(T: int, S: int, W: int, C: int, *, n_fields: int = 3,
-                       n_coef: int = 2) -> int:
+                       n_coef: int = 2, radius: int = 1, slots: int = 2,
+                       head: int = 0) -> int:
     """A ring's shared memory for a slab of S rows and a window of W cells:
-    the window's z coefficients (`n_coef` vectors of W floats), the
-    double-buffered centre plane of each of T levels and `n_fields` fields
-    (S rows at `fused_plane_pitch`), and the floats the last row's z +- 1
-    reads may reach past it. K1's by default (T its depth, u, v, w, tzc1
-    and tzc2); K6's with the knobs of `spec_plan_knobs`."""
+    `head` floats before the rest, the window's z coefficients (`n_coef`
+    vectors of W floats), `slots` planes (two: the centre plane,
+    double-buffered) of each of T levels and `n_fields` fields (S rows at
+    `fused_plane_pitch`), and the floats the last row's z + `radius` reads
+    may reach past it. K1's by default (T its depth, u, v, w, tzc1 and
+    tzc2); K6's with the knobs of `spec_plan_knobs`."""
     pitch = fused_plane_pitch(W, C)
-    tail = max(-(-W // C) * C + 1 - pitch, 0)
-    return 4 * (n_coef * W + 2 * T * n_fields * S * pitch + tail)
+    tail = max(-(-W // C) * C + radius - pitch, 0)
+    return 4 * (head + n_coef * W + slots * T * n_fields * S * pitch + tail)
+
+
+def _knob_shared(T: int, S: int, W: int, C: int, knobs: PlanKnobs) -> int:
+    """`fused_shared_bytes` of a block of T levels with `knobs`' ring."""
+    return fused_shared_bytes(T, S, W, C, n_fields=knobs.n_fields,
+                              n_coef=knobs.n_coef, radius=knobs.radius,
+                              slots=knobs.slots, head=knobs.head)
 
 
 def _fused_threads(S: int, W: int, C: int) -> int:
@@ -303,8 +317,7 @@ def _fused_fits(T: int, S: int, W: int, C: int,
     rows by W cells at T levels: its threads and its shared memory."""
     builds = dict(knobs.builds)
     return (C in builds and _fused_threads(S, W, C) <= builds[C]
-            and fused_shared_bytes(T, S, W, C, n_fields=knobs.n_fields,
-                                   n_coef=knobs.n_coef) <= SMEM_PER_BLOCK)
+            and _knob_shared(T, S, W, C, knobs) <= SMEM_PER_BLOCK)
 
 
 def _plan_y_tile(Y: int, Z: int, T: int,
@@ -324,66 +337,78 @@ def _plan_y_tile(Y: int, Z: int, T: int,
 def _plan_z_window(T: int, S: int, Z: int, knobs: PlanKnobs = K1_KNOBS):
     """(C, CZ, W, n_cz) for a slab of S rows at T levels: the whole row (one
     chunk) for the fewest cells per thread whose build takes it; else z
-    chunks with a T-deep halo a side, for the fewest cells per thread whose
-    widest fitting window owns at least half its cells (else the widest
-    window), balanced where the balanced window still fits. None where no
-    window of 2 * T + 1 cells or more fits."""
+    chunks with an H-deep halo a side (H = radius * T), for the fewest
+    cells per thread whose widest fitting window owns at least half its
+    cells (else the widest window), balanced where the balanced window
+    still fits. None where no window of 2 * H + 1 cells or more fits."""
+    H = knobs.radius * T
     builds = dict(knobs.builds)
     for C in builds:
         if _fused_fits(T, S, Z, C, knobs):
             return C, Z, Z, 1
     widest = {}
     for C in builds:
-        w = next((w for w in range(Z - 1, 2 * T, -1)
+        w = next((w for w in range(Z - 1, 2 * H, -1)
                   if _fused_fits(T, S, w, C, knobs)), None)
         if w is not None:
             widest[C] = w
     if not widest:
         return None
-    C = next((c for c, w in widest.items() if w - 2 * T >= w // 2),
+    C = next((c for c, w in widest.items() if w - 2 * H >= w // 2),
              max(widest, key=widest.get))
-    CZ = widest[C] - 2 * T
+    CZ = widest[C] - 2 * H
     n_cz = -(-Z // CZ)
-    if _fused_fits(T, S, -(-Z // n_cz) + 2 * T, C, knobs):
+    if _fused_fits(T, S, -(-Z // n_cz) + 2 * H, C, knobs):
         CZ = -(-Z // n_cz)
-    return C, CZ, CZ + 2 * T, n_cz
+    return C, CZ, CZ + 2 * H, n_cz
 
 
 @functools.lru_cache(maxsize=256)
 def _fused_block(Y: int, Z: int, T: int, y_tile: Optional[int],
                  knobs: PlanKnobs = K1_KNOBS) -> _FusedBlock:
-    """A ring's block for one pass of T levels at a halo of T and `y_tile`
-    (None: the ring's own tile, a slab of about `knobs.plan_cells` cells),
-    K1's by default, K6's with `spec_plan_knobs`. A given tile
-    whose slab no build takes (more threads than a build runs, or more
-    shared memory than one block has, even in the narrowest z window) runs
-    as the fewest equal sub-tiles that a build takes: TY / k rows for the
-    least k dividing TY, so that the caller's tile edges stay tile edges.
-    y-tiling is bitwise invariant (the port's grid-tiled == untiled
-    contract), so the result is the same bits. A sub-tile of one row always
-    fits. Raises ValueError for T beyond K1's build (K6's shallower limit,
-    `_build.K6_MAX_LEVELS`, is `spec_plan_knobs`' refusal)."""
+    """A ring's block for one pass of T levels at a halo of H = radius * T
+    rows and cells and `y_tile` (None: the ring's own tile, a slab of about
+    `knobs.plan_cells` cells), K1's by default, K6's with
+    `spec_plan_knobs`. A given tile whose slab no build takes (more threads
+    than a build runs, or more shared memory than one block has, even in
+    the narrowest z window) runs as the fewest equal sub-tiles that a build
+    takes: TY / k rows for the least k dividing TY, so that the caller's
+    tile edges stay tile edges. y-tiling is bitwise invariant (the port's
+    grid-tiled == untiled contract), so the result is the same bits.
+    Raises ValueError for T beyond K1's build (K6's shallower limits are
+    `spec_plan_knobs`' refusal), and, naming the bytes, where not even a
+    one-row sub-tile's block fits a build (a ring of many fields)."""
     if not 1 <= T <= _build.K1_MAX_T:
         raise ValueError(f"K1 is built for T in 1..{_build.K1_MAX_T} a pass "
                          f"(its register ring holds T levels), got T={T}")
-    tile = (_plan_y_tile(Y, Z, T, knobs.plan_cells) if y_tile is None
+    H = knobs.radius * T
+    tile = (_plan_y_tile(Y, Z, H, knobs.plan_cells) if y_tile is None
             else y_tile)
-    TY, S, n_ty = _grid_geometry(Y, tile, T)
+    TY, S, n_ty = _grid_geometry(Y, tile, H)
     window = _plan_z_window(T, S, Z, knobs)
     for k in range(2, TY + 1):
         if window is not None:
             break
         if TY % k == 0:
-            geometry = _grid_geometry(Y, TY // k, T)
+            geometry = _grid_geometry(Y, TY // k, H)
             window = _plan_z_window(T, geometry[1], Z, knobs)
             if window is not None:
                 TY, S, n_ty = geometry
+    if window is None:
+        S1 = _grid_geometry(Y, 1, H)[1]
+        W1 = min(2 * H + 1, Z)
+        C1 = min(dict(knobs.builds))
+        raise ValueError(
+            f"{knobs.what}: no block of its ring fits one block's "
+            f"{SMEM_PER_BLOCK} B of shared memory at {T} levels: a one-row "
+            f"tile's slab of {S1} rows in a {W1}-cell window needs "
+            f"{_knob_shared(T, S1, W1, C1, knobs)} B ({knobs.n_fields} "
+            f"fields x {knobs.slots} planes x {T} levels, {C1} cells a "
+            f"thread)")
     C, CZ, W, n_cz = window
     return _FusedBlock(TY, S, n_ty, CZ, W, n_cz, C, _fused_threads(S, W, C),
                        fused_plane_pitch(W, C),
-                       fused_shared_bytes(T, S, W, C,
-                                          n_fields=knobs.n_fields,
-                                          n_coef=knobs.n_coef))
+                       _knob_shared(T, S, W, C, knobs))
 
 
 def _plan_x_chunks(X: int, T: int, tiles: int, slots: int,
@@ -412,7 +437,8 @@ def _ring_launch_plan(X: int, Y: int, Z: int, T: int, B: int, n_sm: int,
     """`_fused_block` (T levels) with its x chunks and grid."""
     blk = _fused_block(Y, Z, T, y_tile, knobs)
     tiles = blk.n_ty * blk.n_cz
-    CX = _plan_x_chunks(X, T, tiles * B, n_sm * blocks_per_sm, n_sm)
+    CX = _plan_x_chunks(X, knobs.radius * T, tiles * B, n_sm * blocks_per_sm,
+                        n_sm)
     n_cx = -(-X // CX)
     grid = (tiles * n_cx, B, 1)
     check_launch_grid(grid, knobs.what)
@@ -440,17 +466,17 @@ def fused_plan_with_chunks(plan: FusedPlan, X: int, Z: int, T: int, *,
                            knobs: PlanKnobs = K1_KNOBS) -> FusedPlan:
     """`plan` (a pass of T levels; K1's by default, K6's with
     `knobs=spec_plan_knobs(...)`) with x chunks of CX owned slices and z
-    chunks of CZ
-    owned cells instead of its own, where given (the launch-shape sweeps and
-    the tests of chunk remainders). Raises ValueError where the z window
-    does not fit the plan's build."""
+    chunks of CZ owned cells (in windows of CZ + 2 * radius * T) instead of
+    its own, where given (the launch-shape sweeps and the tests of chunk
+    remainders). Raises ValueError where the z window does not fit the
+    plan's build."""
     CX = plan.CX if CX is None else CX
     n_cx = -(-X // CX)
     plan = plan._replace(CX=CX, n_cx=n_cx,
                          grid=(plan.n_ty * plan.n_cz * n_cx,) + plan.grid[1:])
     if CZ is None:
         return plan
-    W, C = min(CZ + 2 * T, Z), plan.cells_per_thread
+    W, C = min(CZ + 2 * knobs.radius * T, Z), plan.cells_per_thread
     if not _fused_fits(T, plan.S, W, C, knobs):
         raise ValueError(f"a z window of {W} cells does not fit "
                          f"{knobs.what}'s build of {C} cells per thread at "
@@ -459,9 +485,7 @@ def fused_plan_with_chunks(plan: FusedPlan, X: int, Z: int, T: int, *,
     return plan._replace(CZ=CZ, W=W, n_cz=n_cz,
                          threads=_fused_threads(plan.S, W, C),
                          pitch=fused_plane_pitch(W, C),
-                         shared_bytes=fused_shared_bytes(
-                             T, plan.S, W, C, n_fields=knobs.n_fields,
-                             n_coef=knobs.n_coef),
+                         shared_bytes=_knob_shared(T, plan.S, W, C, knobs),
                          grid=(plan.n_ty * n_cz * n_cx,) + plan.grid[1:])
 
 
@@ -1415,9 +1439,9 @@ def _cuda_instantiation(spec):
     functor is a shipped one's id (`_build.K6_BUILDS`) or the one generated
     from the spec's callback (a `stencil.spec_cuda.Generated`), read off
     the spec (`spec.cuda_functor()`); raises NotImplementedError naming
-    ROADMAP Queue 2, before any build, for a spec K6 cannot run (radius
-    > 1, x-diagonal reads, more than four fields, operations other than
-    + - *)."""
+    ROADMAP Queue 2, before any build, for a spec K6 cannot run (a
+    transcendental function, a power, a Python branch on a traced value:
+    `stencil.spec_cuda`)."""
     return spec.cuda_functor(), spec.stages
 
 
@@ -1432,8 +1456,24 @@ def spec_on_card(spec) -> bool:
 
 def _k6_builds(op, stages: int) -> dict:
     """{cells per thread: threads} of the functor's builds at `stages`: a
-    generated functor takes those of the shipped one of its field count."""
-    return _build.K6_BUILDS[op if isinstance(op, int) else op.like, stages]
+    generated functor's own (`Generated.builds`: the shipped ones of its
+    field count where its ring is a shipped one's)."""
+    if isinstance(op, int):
+        return _build.K6_BUILDS[op, stages]
+    return op.builds(stages)
+
+
+def _k6_max_levels(op, stages: int) -> int:
+    """The most ring levels a pass of the functor runs at `stages`."""
+    if isinstance(op, int):
+        return _build.K6_MAX_LEVELS
+    return op.max_levels(stages)
+
+
+def _k6_flags(op, stages: int, build: Tuple[bool, bool]):
+    """The nvcc flags of a generated functor's build in storage `build`."""
+    return _build.generated_flags(stages, *build, _k6_builds(op, stages),
+                                  _k6_max_levels(op, stages))
 
 
 def _k6_vectors(op) -> int:
@@ -1458,9 +1498,8 @@ def _k6_entry(op, stages: int, build: Tuple[bool, bool]):
     load_generated`, compiled at first use)."""
     if isinstance(op, int):
         return (_build.load(),) + _SPEC_ENTRY[build] + (op,)
-    flags = _build.generated_flags(stages, *build, _k6_builds(op, stages))
-    return (_build.load_generated(op.text, flags), "k6_generated",
-            "k6_generated_attrs", 0)
+    return (_build.load_generated(op.text, _k6_flags(op, stages, build)),
+            "k6_generated", "k6_generated_attrs", 0)
 
 
 def build_spec_kernels(cases) -> int:
@@ -1474,8 +1513,7 @@ def build_spec_kernels(cases) -> int:
         op, stages = _cuda_instantiation(spec)
         if isinstance(op, int):
             continue
-        job = (op.text, _build.generated_flags(
-            stages, *_build_of(dtype, coef), _k6_builds(op, stages)))
+        job = (op.text, _k6_flags(op, stages, _build_of(dtype, coef)))
         if job not in jobs:
             jobs.append(job)
     _build.build_generated(jobs)
@@ -1566,38 +1604,59 @@ def _stencil_fused_plain(fields, pv, spec, T: int, dt: float, xm, ym,
     return fields
 
 
-def spec_passes(spec, T: int) -> List[int]:
-    """The depths of the K6 launches that advance T steps of `spec`: whole
-    steps, at most ``_build.K6_MAX_LEVELS // spec.stages`` a pass (two
-    levels a step for rk2), split as `fused_passes` splits K1's. Each pass
-    is T_k masked integrator steps, so the passes in turn are the T steps,
+def spec_levels(spec, device="cuda") -> int:
+    """The most ring levels a K6 pass of `spec` runs on `device`: on the
+    card `_build.K6_MAX_LEVELS`, or a generated functor's fewer where its
+    ring's registers would spill (`Generated.max_levels`), and
+    `_build.K6_MAX_LEVELS` for a spec K6 cannot run; on the CPU
+    `_build.K6_MAX_LEVELS`, without tracing the callback (the plain
+    version runs any split of whole steps bitwise alike)."""
+    if torch.device(device).type == "cpu":
+        return _build.K6_MAX_LEVELS
+    try:
+        op, stages = _cuda_instantiation(spec)
+    except NotImplementedError:
+        return _build.K6_MAX_LEVELS
+    return _k6_max_levels(op, stages)
+
+
+def spec_passes(spec, T: int, device="cuda") -> List[int]:
+    """The depths of the K6 launches that advance T steps of `spec` on
+    `device` (the card's unless a CPU device is given): whole steps, at
+    most ``spec_levels(spec, device) // spec.stages`` a pass (two levels
+    a step for rk2), split as `fused_passes` splits K1's. Each pass is T_k
+    masked integrator steps, so the passes in turn are the T steps,
     bitwise."""
-    return fused_passes(T, _build.K6_MAX_LEVELS // spec.stages)
+    return fused_passes(T, max(spec_levels(spec, device) // spec.stages, 1))
 
 
 def spec_plan_knobs(spec, T: int) -> PlanKnobs:
     """The `PlanKnobs` of one K6 pass of T steps of `spec`, whose planner's
-    T is the pass's levels, ``spec.stages * T`` (= `spec.halo(T)`): the
-    spec's fields, its functor's z-coefficient vectors
-    (`_build.K6_COEF_VECTORS`, or a generated functor's), its builds
-    (`_build.K6_BUILDS`; a generated functor takes those of the shipped one
-    of its field count) and the slab its own tile aims at: the most cells a
-    block of those builds holds (threads x cells per thread; 1024 for PW and
-    the tracer, as K1's `K1_PLAN_CELLS`, 2048 for diffusion's single
-    field). The storage (f32 or bf16) plans alike: the ring's registers and
-    planes hold f32 words.
+    T is the pass's levels, ``spec.stages * T`` (its halo `spec.halo(T)` at
+    the spec's radius): the spec's fields, its functor's z-coefficient
+    vectors (`_build.K6_COEF_VECTORS`, or a generated functor's), its
+    builds (`_build.K6_BUILDS`, or a generated functor's own) and the slab
+    its own tile aims at: the most cells a block of those builds holds
+    (threads x cells per thread; 1024 for PW and the tracer, as K1's
+    `K1_PLAN_CELLS`, 2048 for diffusion's single field); and its ring's
+    radius, shared planes a level and field (two, or one more than the x
+    offsets it reads off the centre row) and head floats. The storage (f32
+    or bf16) plans alike: the ring's registers and planes hold f32 words.
     Raises NotImplementedError for a spec outside the CUDA table and
     ValueError for more levels than a build holds (`spec_passes` splits
     deeper T)."""
     op, stages = _cuda_instantiation(spec)
-    if stages * T > _build.K6_MAX_LEVELS:
+    most = _k6_max_levels(op, stages)
+    if stages * T > most:
         raise ValueError(
-            f"K6 is built for up to {_build.K6_MAX_LEVELS} ring levels a "
-            f"pass, and {spec.name} at T={T} needs {stages * T}; "
+            f"K6 is built for up to {most} ring levels a pass of "
+            f"{spec.name}, and T={T} needs {stages * T}; "
             f"spec_passes(spec, T) splits it into passes of whole steps")
     builds = _k6_builds(op, stages)
+    shape = (1, 2, 0) if isinstance(op, int) else (op.radius, op.slots,
+                                                   op.head)
     return PlanKnobs(spec.n_fields, _k6_vectors(op), tuple(builds.items()),
-                     max(c * n for c, n in builds.items()), "K6")
+                     max(c * n for c, n in builds.items()), "K6", *shape)
 
 
 def spec_launch_plan(X: int, Y: int, Z: int, spec, T: int, B: int,
@@ -1606,8 +1665,10 @@ def spec_launch_plan(X: int, Y: int, Z: int, spec, T: int, B: int,
     """One K6 pass of T steps of `spec` over (B, X, Y, Z) fields on a card
     of `n_sm` SMs that holds `blocks_per_sm` of the pass's blocks at once:
     K1's planner (`fused_launch_plan`) at the spec's ``spec.stages * T``
-    levels, which are its halo D = `spec.halo(T)` at radius 1, and with its
-    fields, z-coefficient vectors and builds (`spec_plan_knobs`). `y_tile`
+    levels and its halo D = `spec.halo(T)` (radius x levels), with its
+    fields, z-coefficient vectors, builds and ring (`spec_plan_knobs`);
+    a ring of more fields than one block's planes hold raises ValueError,
+    naming the bytes. `y_tile`
     None is K6's own tile (a slab of about the most cells a block of its
     builds holds); a given tile runs as given, or as the fewest equal
     sub-tiles a build takes. Raises ValueError, naming the limit, for more
@@ -1675,6 +1736,21 @@ def _param_block(pv, device, pad: int = 0) -> Tuple[torch.Tensor, int]:
         p_len - pad - p.shape[0], dtype=torch.float32)]) for p in pv]), p_len
 
 
+class _K6Call(ctypes.Structure):
+    """The host struct every K6 entry point takes (`K6Call` in
+    `csrc/stencil_fused.cuh`), field for field."""
+    _fields_ = ([(n, ctypes.POINTER(ctypes.c_void_p)) for n in ("ins",
+                                                                 "outs")]
+                + [(n, ctypes.c_void_p) for n in ("pv", "xm", "ym",
+                                                  "stream")]
+                + [("smem_bytes", ctypes.c_size_t)]
+                + [(n, ctypes.c_int) for n in (
+                    "nf", "p_len", "B", "X", "Y", "Z", "T", "TY", "S", "n_ty",
+                    "CZ", "W", "n_cz", "CX", "n_cx", "C", "threads", "P",
+                    "xm_stride", "ym_stride")]
+                + [("dt", ctypes.c_float)])
+
+
 def _stencil_fused_cuda(fields, pv, spec, T: int, dt: float, xm, ym,
                         y_tile=None, *, plan: Optional[FusedPlan] = None):
     """Launch K6 on (B, X, Y, Z) fields: one launch a pass of
@@ -1682,8 +1758,10 @@ def _stencil_fused_cuda(fields, pv, spec, T: int, dt: float, xm, ym,
     card, or on `plan`, a plan made for these shapes and T (one pass). A
     shipped functor runs in the library's build of the fields' storage
     (`csrc/stencil_fused*.cu`), a generated one in its own
-    (`csrc/stencil_generated.cu`)."""
+    (`csrc/stencil_generated.cu`); the fields reach it as arrays of
+    pointers (`_K6Call`), however many there are."""
     op, stages = _cuda_instantiation(spec)
+    nf = len(fields)
     B, X, Y, Z = fields[0].shape
     if isinstance(op, int):
         if any(tuple(p.shape) != (Z + 2,) for p in pv):
@@ -1699,7 +1777,7 @@ def _stencil_fused_cuda(fields, pv, spec, T: int, dt: float, xm, ym,
     passes = spec_passes(spec, T)
     if plan is not None and len(passes) > 1:
         raise ValueError(f"a given plan runs one pass, T <= "
-                         f"{_build.K6_MAX_LEVELS // stages}; got T={T}")
+                         f"{_k6_max_levels(op, stages) // stages}; got T={T}")
     if plan is None:
         for Tk in set(passes):   # the refusals, before any build
             _fused_block(Y, Z, stages * Tk, y_tile, spec_plan_knobs(spec, Tk))
@@ -1712,21 +1790,22 @@ def _stencil_fused_cuda(fields, pv, spec, T: int, dt: float, xm, ym,
     xmt, sx = _pack_rows([xm], B)
     ymt, sy = _pack_rows([ym], B)
     outs = tuple(fields)
-    pad = [None] * (4 - len(outs))
     count = "stencil_fused" if isinstance(op, int) else "stencil_generated"
     for Tk in passes:
         run = plan or spec_device_plan(device, X, Y, Z, spec, Tk, B, y_tile,
                                        dtype=dtype, coef=coef)
         ins, outs = outs, tuple(torch.empty_like(f) for f in fields)
+        in_ptrs = (ctypes.c_void_p * nf)(*(f.data_ptr() for f in ins))
+        out_ptrs = (ctypes.c_void_p * nf)(*(o.data_ptr() for o in outs))
         with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = getattr(lib, entry)(
-                op_id, stages, *(f.data_ptr() for f in ins), *pad,
-                *(o.data_ptr() for o in outs), *pad, table.data_ptr(), p_len,
-                xmt.data_ptr(), ymt.data_ptr(), B, X, Y, Z, Tk, run.TY,
-                run.S, run.n_ty, run.CZ, run.W, run.n_cz, run.CX, run.n_cx,
+            call = _K6Call(
+                in_ptrs, out_ptrs, table.data_ptr(), xmt.data_ptr(),
+                ymt.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+                run.shared_bytes, nf, p_len, B, X, Y, Z, Tk, run.TY, run.S,
+                run.n_ty, run.CZ, run.W, run.n_cz, run.CX, run.n_cx,
                 run.cells_per_thread, run.threads, run.pitch, sx, sy,
-                step_dt(dt, dtype), run.shared_bytes, stream)
+                step_dt(dt, dtype))
+            err = getattr(lib, entry)(op_id, stages, ctypes.byref(call))
         _build.check(err, entry)
         LAUNCHES[count] += 1
         LAUNCHED_SHARED["stencil_fused"] = run.shared_bytes
@@ -1753,7 +1832,7 @@ def stencil_fused_batched(fields, params, spec, *, T: int = 4,
     ym = _mask(y_interior_mask, Y, B, "y_interior_mask", device)
     pv = list(_spec_param_vectors(spec, params, device, fields[0].dtype))
     handle = spec_handle(spec)
-    for Tk in spec_passes(spec, T):
+    for Tk in spec_passes(spec, T, device):
         fields = tuple(_OP_K6(list(fields), pv, xm, ym, handle, Tk,
                               float(dt), y_tile or 0))
     return fields
@@ -1820,10 +1899,14 @@ def stencil_fused(fields, params, spec, *, T: int = 4, dt: float = 1.0,
     K6 on its own launch plan (`spec_launch_plan`; a given `y_tile` runs as
     given, or as the fewest equal sub-tiles a build takes, bitwise the
     same), one launch a pass of `spec_passes(spec, T)`: the shipped
-    specs' functors (`csrc/stencil_fused.cuh`), or for any other radius-1
-    spec of + - * the functor generated from its callback
-    (`stencil.spec_cuda`, built at first use); a spec it cannot generate
-    raises NotImplementedError there, naming ROADMAP Queue 2. On CPU
+    specs' functors (`csrc/stencil_fused.cuh`), or for any other spec (any
+    radius and field count, x-diagonal reads, + - * /, abs, sqrt, minimum,
+    maximum and where on comparisons) the functor generated from its
+    callback (`stencil.spec_cuda`, built at first use); a spec it cannot
+    generate (a transcendental function, a power, a Python branch on a
+    traced value) raises NotImplementedError there, naming ROADMAP Queue 2,
+    and a ring of more fields than one block's shared memory holds raises
+    ValueError naming the bytes. On CPU
     tensors it runs the plain version, for any spec. With the PW spec it
     equals `advect_fused` bitwise.
     """

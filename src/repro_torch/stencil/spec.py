@@ -163,8 +163,8 @@ class StencilSpec:
         """What runs this spec in K6 on the card: a shipped functor's id,
         or the functor `stencil.spec_cuda` generates from the callback (a
         `spec_cuda.Generated`); raises NotImplementedError naming ROADMAP
-        Queue 2 for a spec it cannot generate (radius > 1, x-diagonal
-        reads, more than four fields, operations other than + - *)."""
+        Queue 2 for a spec it cannot generate (a transcendental function,
+        a power, a Python branch on a traced value: `spec_cuda`)."""
         from repro_torch.stencil import spec_cuda
         return spec_cuda.instantiation(self)
 

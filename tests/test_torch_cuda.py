@@ -367,8 +367,9 @@ def spec_plain(spec, p, flds, T, dt, cuda):
 
 def test_spec_kernel_refusals(cuda):
     """PW rk2 at T = 4 over 1024 rows, refused before K6 kept its ring in
-    registers, runs as passes == plain; a radius-2 spec is still refused,
-    and a radius-1 user spec runs its generated functor == plain."""
+    registers, runs as passes == plain; a radius-2 spec whose z
+    coefficients are cut for radius 1 (diffusion's callback) is refused at
+    launch, and a radius-1 user spec runs its generated functor == plain."""
     spec, p, flds, dt = spec_case("pw_rk2", (4, 1024, 64), cuda)
     before = TK.LAUNCHES["stencil_fused"]
     out = TK.stencil_fused(flds, p, spec, T=4, dt=dt)
@@ -440,6 +441,39 @@ def test_spec_kernel_builds_do_not_spill(cuda, key):
             assert a["blocks_per_sm"] == plan.blocks_per_sm >= 1
 
 
+@pytest.mark.parametrize("name", ["hyperdiff4", "smag_cross", "moist6",
+                                  "tvd_vl", "sqrt_div"])
+@pytest.mark.parametrize("integ", ["euler", "rk2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spec_shapes_kernel_equals_plain(cuda, name, integ, dtype):
+    """K6 generated for radius 2, x-diagonal reads, six fields and the
+    limiter operations (`tests/_spec_shapes.py`) == its plain version on
+    the card, bitwise, untiled and at y_tile 3, with masks, bf16 with bf16
+    coefficients; one launch a pass."""
+    from _spec_shapes import DT as SDT, np_fields, params, port_spec
+    spec = port_spec(name, integ)
+    X, Y, Z = 9, 10, 12
+    flds = [torch.tensor(f).to(dtype).to(cuda)
+            for f in np_fields("smag_cross" if name == "sqrt_div" else name,
+                               (X, Y, Z), 11)]
+    p = () if name == "sqrt_div" else params(name, Z, dtype, cuda)
+    xm = torch.ones(X, device=cuda)
+    ym = torch.ones(Y, device=cuda)
+    xm[3] = 0.0
+    pv = TK._spec_param_vectors(spec, p, cuda, dtype)
+    dt = SDT.get(name, 0.1)
+    want = TK._stencil_fused_plain([f[None] for f in flds], pv, spec, 3, dt,
+                                   xm, ym)
+    for y_tile in (None, 3):
+        before = TK.LAUNCHES["stencil_generated"]
+        got = TK.stencil_fused(flds, p, spec, T=3, dt=dt, y_tile=y_tile,
+                               x_interior_mask=xm, y_interior_mask=ym)
+        assert TK.LAUNCHES["stencil_generated"] == before + len(
+            TK.spec_passes(spec, 3))
+        assert all(torch.equal(a, b[0]) for a, b in zip(got, want))
+    assert not all(torch.equal(a, b) for a, b in zip(got, flds))
+
+
 # ---------------------------------------------------------------------------
 # flash attention (K8)
 # ---------------------------------------------------------------------------
@@ -450,6 +484,7 @@ def attn(shape_q, shape_kv, dtype, device, seed=0):
     return [torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
                             device=device).to(dtype)
             for s in (shape_q, shape_kv, shape_kv)]
+
 
 
 @pytest.mark.parametrize("Sq,Skv,D,causal,bq,bk", [

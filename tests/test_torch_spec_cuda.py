@@ -280,24 +280,58 @@ def _five(sh, pv):
     return tuple(sh(f, 1, 0, 0) for f in range(5))
 
 
-REFUSED = {
+# spec shapes past radius-1 + - * on at most four fields, each traced into
+# a generated functor: (spec, radius, x offsets read off the centre row)
+FORMERLY_REFUSED = {
     "radius 2": (TSP.StencilSpec(
         name="r2", fields=("a",),
         offsets={"a": ((2, 0, 0), (-2, 0, 0))},
         source=lambda sh, pv: (sh(0, 2, 0, 0) - sh(0, -2, 0, 0),),
-        pack_params=lambda p: ()), "radius is 2"),
+        pack_params=lambda p: ()), 2, (0, 0)),
     "x-diagonal": (TSP.StencilSpec(
         name="xdiag", fields=("a",), offsets={"a": ((1, 1, 0),)},
         source=lambda sh, pv: (sh(0, 1, 1, 0),),
-        pack_params=lambda p: ()), "x neighbour off the centre row"),
+        pack_params=lambda p: ()), 1, (1, 1)),
     "five fields": (TSP.StencilSpec(
         name="five", fields=tuple("abcde"),
         offsets={f: ((1, 0, 0),) for f in "abcde"}, source=_five,
-        pack_params=lambda p: ()), "5 fields"),
+        pack_params=lambda p: ()), 1, (0, 0)),
     "division": (TSP.StencilSpec(
         name="div", fields=("a",), offsets={"a": ((1, 0, 0),)},
         source=lambda sh, pv: (sh(0, 1, 0, 0) / 2.0,),
-        pack_params=lambda p: ()), "division"),
+        pack_params=lambda p: ()), 1, (0, 0)),
+    "a comparison": (TSP.StencilSpec(
+        name="cmp", fields=("a",), offsets={"a": ((1, 0, 0),)},
+        source=lambda sh, pv: (torch.where(sh(0, 1, 0, 0) > 0,
+                                           sh(0, 0, 0, 0), 0.0),),
+        pack_params=lambda p: ()), 1, (0, 0)),
+}
+
+
+@pytest.mark.parametrize("case_name", sorted(FORMERLY_REFUSED))
+def test_formerly_refused_shapes_now_trace(case_name, monkeypatch):
+    """Radius 2, an x-diagonal read, five fields, a division and a
+    comparison: each gets a generated functor of its ring's shape and a
+    launch plan, building nothing and launching nothing to decide; its
+    graph replays the callback bitwise."""
+    monkeypatch.setattr(_build, "load", _refuse)
+    monkeypatch.setattr(_build, "load_generated", _refuse)
+    spec, radius, planes = FORMERLY_REFUSED[case_name]
+    before = dict(TK.LAUNCHES)
+    op, stages = TK._cuda_instantiation(spec)
+    assert isinstance(op, G.Generated) and stages == spec.stages
+    assert (op.radius, (op.plane_lo, op.plane_hi)) == (radius, planes)
+    assert op.n_fields == spec.n_fields and TK.spec_on_card(spec)
+    plan = TK.spec_launch_plan(16, 16, 8, spec, 1, 1, 132, 1)
+    assert plan.S == min(plan.TY + 2 * spec.halo(1), 16)
+    fields = [torch.tensor(np.random.default_rng(1).normal(size=(7, 8, 9)),
+                           dtype=torch.float32) for _ in spec.fields]
+    sh = accessor(fields, radius)
+    assert bitwise(G.evaluate(op, sh, ()), spec.source(sh, ()))
+    assert TK.LAUNCHES == before
+
+
+REFUSED = {
     "torch.exp": (TSP.StencilSpec(
         name="exp", fields=("a",), offsets={"a": ((1, 0, 0),)},
         source=lambda sh, pv: (torch.exp(sh(0, 1, 0, 0)),),
@@ -310,11 +344,6 @@ REFUSED = {
         name="sl", fields=("a",), offsets={"a": ((1, 0, 0),)},
         source=lambda sh, pv: (pv[0][1:3] * sh(0, 1, 0, 0),),
         pack_params=lambda p: (p,)), "does not line up with z"),
-    "a comparison": (TSP.StencilSpec(
-        name="cmp", fields=("a",), offsets={"a": ((1, 0, 0),)},
-        source=lambda sh, pv: (torch.where(sh(0, 1, 0, 0) > 0,
-                                           sh(0, 0, 0, 0), 0.0),),
-        pack_params=lambda p: ()), "comparison"),
     "a field read as a number": (TSP.StencilSpec(
         name="num", fields=("a",), offsets={"a": ((1, 0, 0),)},
         source=lambda sh, pv: (float(sh(0, 1, 0, 0)) * sh(0, 0, 0, 0),),
@@ -409,9 +438,10 @@ def test_generated_source_is_registered():
     assert '#include "stencil_fused.cuh"' in src
     assert set(_build.GENERATED_SIGNATURES) == {"k6_generated",
                                                "k6_generated_attrs"}
-    assert len(_build.GENERATED_SIGNATURES["k6_generated"]) == 35
+    # (op, stages, the K6Call struct): the fields as arrays of pointers
+    assert len(_build.GENERATED_SIGNATURES["k6_generated"]) == 3
     for name in ("stencil_fused_bf16", "stencil_fused_bf16_coef"):
-        assert len(_build.SIGNATURES[name]) == 35
+        assert len(_build.SIGNATURES[name]) == 3
         assert name + ".cu" in _build.SOURCES
     assert "stencil_fused.cuh" in _build.HEADERS
 

@@ -272,8 +272,9 @@ def test_plan_refusals_name_their_limits():
     wide = TSP.StencilSpec(name="diffusion_r2", fields=("phi",),
                            offsets={"phi": star2}, source=TSP._diff_source,
                            pack_params=TSP._diff_pack)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        TK.spec_launch_plan(16, 16, 8, wide, 1, 1, H100_SMS, 1)
+    # diffusion's callback declared at radius 2 plans at its halo, 2 a level
+    plan = TK.spec_launch_plan(16, 16, 8, wide, 1, 1, H100_SMS, 1)
+    assert plan.S == min(plan.TY + 4, 16) and plan.W == 8
     # a radius-1 user spec plans on its generated functor, with the builds
     # of the shipped functor of its field count (diffusion's, one field)
     custom = TSP.StencilSpec(name="custom", fields=("a",),

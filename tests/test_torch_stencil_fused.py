@@ -444,31 +444,36 @@ def _custom_specs():
 
 
 # what the CUDA route makes of each: a generated functor, the shipped PW
-# functor (its callback's text is PW's), or a refusal
+# functor (its callback's text is PW's), or a generated functor whose
+# parameter vectors the launch refuses (diffusion's callback declared at
+# radius 2 slices its z coefficients for radius 1)
 CUSTOM_OUTCOMES = {"custom source": "generated",
                    "pw source, diffusion pack": 0,
-                   "radius 2": "refused"}
+                   "radius 2": "misaligned"}
 
 
 @pytest.mark.parametrize("case", sorted(_custom_specs()))
 def test_unlisted_spec_refused_on_the_cuda_route(case, monkeypatch):
     """Each spec outside the shipped table meets its expected outcome on
     the CUDA route, which launches nothing and builds nothing before it
-    decides: a radius-1 callback of + - * gets an instantiation (its own
-    generated functor, or the shipped one whose text it generates); a
-    radius-2 spec is refused, naming the queue."""
+    decides: a callback gets an instantiation (its own generated functor,
+    or the shipped one whose text it generates); a radius-2 spec whose z
+    coefficients are sliced for radius 1 is refused at launch, naming the
+    queue."""
     monkeypatch.setattr(_build, "load", _refuse)
     monkeypatch.setattr(_build, "load_generated", _refuse)
     spec = _custom_specs()[case]
     want = CUSTOM_OUTCOMES[case]
     before = dict(TK.LAUNCHES)
     fields = [torch.zeros(1, 6, 6, 6) for _ in range(spec.n_fields)]
-    if want == "refused":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-            TK._cuda_instantiation(spec)
-        with pytest.raises(NotImplementedError, match="radius is 2"):
+    if want == "misaligned":
+        op, _ = TK._cuda_instantiation(spec)
+        assert op.radius == 2 and op.zslots == ((0, 3, 1),)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 2") as e:
             TK._stencil_fused_cuda(fields, (torch.zeros(8),), spec, 1, 0.01,
                                    torch.ones(6), torch.ones(6))
+        assert "Z - 4 = 2 interior cells" in str(e.value)
     else:
         op, stages = TK._cuda_instantiation(spec)
         assert stages == spec.stages
@@ -531,4 +536,4 @@ def test_cpu_tensors_take_the_plain_version_without_launching(monkeypatch):
 def test_build_registers_the_spec_kernel():
     assert "stencil_fused.cu" in _build.SOURCES
     assert "stencil_ops.cuh" in _build.HEADERS
-    assert len(_build.SIGNATURES["stencil_fused_f32"]) == 35
+    assert len(_build.SIGNATURES["stencil_fused_f32"]) == 3
