@@ -15,6 +15,8 @@
     python3 chip_smoke.py --only analysis          # phases 32-34 alone
     python3 chip_smoke.py --only bf16              # phases 35-43 alone
     python3 chip_smoke.py --only spec_codegen      # phases 43-46 alone
+    python3 chip_smoke.py --only bf16_round        # phases 47-49 alone
+    python3 chip_smoke.py --only bf16_times        # phase 49's times alone
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 
@@ -360,9 +362,29 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    moist6 == single-card T = 16 bitwise, `remote_dma` refused; each
    spec's ledger live == fake == model;
 46. each spec's pass timed (events, device time per launch seen) beside
-   its bound, with its build's registers, spills and shared bytes.
+   its bound, with its build's registers, spills and shared bytes;
+47. each bf16 rounding route of `csrc/bf16_round.cu` alone (K1/K5 and K6
+   round by "pack_hi", `rpk` of `csrc/cells.cuh`: one `cvt.rn.bf16x2.f32`
+   of the value and 0.0f a round): its rounds a clock per SM and all 2^32
+   f32 bit patterns against `__float2bfloat16_rn`, the same bits or NaN
+   to NaN;
+48. K1 bf16 (f32 and bf16 coefficients, T 1, 2, 4), K5 bf16 (B = 2), K6
+   bf16 (PW, tracer, diffusion, euler and rk2) and `tvd_vl` on fields that
+   span f32 subnormals, values near 2^111 and bf16's largest, +-0, +-Inf
+   and NaN (mixed, tiny and huge fields): == plain on the card, the same
+   bits where not NaN and NaN at the same cells;
+49. the times the rounding moves: K1 bf16's pass at 67M (both coefficient
+   storages), K5 bf16 at 4 x (512, 512, 64), K6 bf16's six spec passes,
+   the four spec shapes of phases 44-46 in bf16, and the f32 K1 and K6 PW
+   passes as controls, each build's registers, spills and resident
+   blocks, none of which may spill.
 
 Each phase prints its seconds.
+
+`--only bf16_round` runs phases 47-49 alone; `--only bf16_times` phase 49
+alone, with entry points the port has had since phases 44-46 came, so
+that a copy of the script in an older checkout times that checkout the
+same way.
 
 `--only bf16` runs phases 35-43 alone (its kernels line holds the bf16
 kernels and the generated K6); `--only spec_codegen` phases 43-46.
@@ -6533,6 +6555,270 @@ def bf16_phases(check: Checks, card: str) -> list:
     return records
 
 
+# ---------------------------------------------------------------------------
+# phases 47-49: how K1/K5 and K6 round to bf16 (`rpk`: one
+# `cvt.rn.bf16x2.f32` of the value and 0.0f a round, off the conversion unit
+# that `__float2bfloat16_rn` queues on)
+# ---------------------------------------------------------------------------
+
+ROUND_SHAPES = ((6, 10, 16), (7, 12, 20))
+ROUND_T = (1, 2, 4)
+ROUND_DT = 0.1
+# the runs: normal cells of each field (u, v, w, q) times its scale, with
+# a share of them replaced by planted magnitudes, each with a random sign.
+# "mixed": near 1, with zero, bf16 subnormals (2^-133 the least), f32's
+# least normal, values near and past 2^111, bf16's largest, Inf and NaN;
+# "tiny": q (the tracer's, and diffusion's phi) near f32's least normal,
+# so that its sources, linear in it, are f32 subnormals that move it;
+# "huge": products near and past bf16's largest
+BF16_MAX = 3.3895313892515355e38
+ROUND_CASES = (
+    ("mixed", (1.0,) * 4, 0.03,
+     (0.0, 2.0 ** -133, 1e-39, 2.0 ** -126, 1e-20, 1e19, 2.0 ** 110,
+      1.5 * 2.0 ** 110, 2.0 ** 111, 2.0 ** 112, BF16_MAX, float("inf"),
+      float("nan"))),
+    ("tiny", (1.0, 1.0, 1.0, 2.0 ** -126), 0.15,
+     (0.0, 2.0 ** -133, 1e-39, 2.0 ** -126)),
+    ("huge", (1e19,) * 4, 0.03,
+     (0.0, 2.0 ** 110, 1.5 * 2.0 ** 110, 2.0 ** 111, 2.0 ** 112, BF16_MAX)))
+
+
+def bits_nan_equal(a, b) -> bool:
+    """Each pair of tensors holds the same bits wherever neither is NaN
+    (the sign of zero included), and NaN at the same cells."""
+    for x, y in zip(a, b):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        nx, ny = torch.isnan(x), torch.isnan(y)
+        ints = torch.int16 if x.dtype == BF16 else torch.int32
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        if not (torch.equal(nx, ny) and torch.equal(
+                torch.where(nx, zero, x).view(ints),
+                torch.where(ny, zero, y).view(ints))):
+            return False
+    return True
+
+
+def extreme_fields(shape, seed: int, scales, share: float, planted):
+    """A bf16 field per scale: normal values times it, with `share` of the
+    cells replaced by `planted` magnitudes, each with a random sign."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for scale in scales:
+        f = rng.normal(size=shape) * scale
+        hit = rng.random(size=shape) < share
+        vals = np.array(planted)[rng.integers(len(planted),
+                                              size=int(hit.sum()))]
+        f[hit] = vals * rng.choice((-1.0, 1.0), size=vals.shape)
+        out.append(torch.tensor(f, dtype=torch.float32,
+                                device="cuda").to(BF16))
+    return tuple(out)
+
+
+def kinds_of(fields) -> str:
+    """How many cells of `fields` are NaN, +-Inf, zero and subnormal."""
+    cat = torch.cat([f.float().flatten() for f in fields])
+    tiny = (cat != 0) & (cat.abs() < 2.0 ** -126)
+    return (f"{int(torch.isnan(cat).sum())} NaN, "
+            f"{int(torch.isinf(cat).sum())} Inf, {int((cat == 0).sum())} "
+            f"zero, {int(tiny.sum())} subnormal of {cat.numel()}")
+
+
+def round_routes_phase(check: Checks, card: str) -> None:
+    """Phase 47: each rounding route of `csrc/bf16_round.cu` alone: its
+    rounds a clock per SM and how many of the 2^32 f32 bit patterns it
+    rounds as `__float2bfloat16_rn` does; every route must take all."""
+    from repro_torch.kernels import bf16_round as BR
+    for route in BR.ROUTES:
+        r = BR.route_rate(route)
+        n = BR.check_route(route)
+        chosen = " (K1/K5 and K6 round by it)" if route == BR.ROUTE else ""
+        print(f"47 route {route}{chosen}: {r['per_clock_per_sm']:.2f} rounds "
+              f"a clock per SM ({r['rounds']} rounds in {r['ms']:.4f} ms at "
+              f"{r['ghz']:.3f} GHz); exact on {n:,} of {BR.PATTERNS:,} bit "
+              f"patterns; card {card}", flush=True)
+        check(n == BR.PATTERNS, f"47 route {route}{chosen}: "
+              f"{n:,} of {BR.PATTERNS:,} f32 bit patterns round as "
+              f"__float2bfloat16_rn (NaN to NaN)")
+
+
+def round_extremes_phase(check: Checks) -> None:
+    """Phase 48: K1 bf16 (f32 and bf16 coefficients), K5 bf16 (B = 2), K6
+    bf16 (PW, tracer, diffusion; euler and rk2) and `tvd_vl` (which
+    divides) on fields that span f32 subnormals, values near 2^111 and near
+    bf16's largest, +-0, +-Inf and NaN (`ROUND_CASES`: mixed, tiny and huge
+    fields): each == its plain version on the card, the same bits where not
+    NaN and NaN at the same cells."""
+    for si, shape in enumerate(ROUND_SHAPES):
+        X, Y, Z = shape
+        for ci, (case, scales, share, planted) in enumerate(ROUND_CASES):
+            seed = 1000 + 10 * si + ci
+            u, v, w, q = extreme_fields(shape, seed, scales, share, planted)
+            tag = f"48 {shape} {case}"
+            print(f"{tag}: inputs {kinds_of((u, v, w, q))}", flush=True)
+            for coef in ("f32", "bf16"):
+                cd = torch.float32 if coef == "f32" else BF16
+                p = REF.default_params(Z, dx=1.0, dy=1.0, dz=1.0, dtype=cd,
+                                       device="cuda")
+                for T in ROUND_T:
+                    out = K.advect_fused(u, v, w, p, T=T, dt=ROUND_DT)
+                    want = plain_fused(u, v, w, p, T, dt=ROUND_DT)
+                    check(bits_nan_equal(out, want), f"{tag} K1 bf16 {coef} "
+                          f"coefficients T={T} == plain, bits and NaN "
+                          f"({kinds_of(out)})")
+                ub, vb, wb = (torch.stack([a, b]) for a, b in
+                              ((u, v), (v, w), (w, q)))
+                out = K.advect_fused_batched(ub, vb, wb, p, T=2, dt=ROUND_DT)
+                want = K._advect_fused_plain(
+                    ub, vb, wb, K._slot_params(p, 2, Z, "cuda"), 2, ROUND_DT,
+                    torch.ones(2, X, device="cuda"),
+                    torch.ones(2, Y, device="cuda"))
+                check(bits_nan_equal(out, want), f"{tag} K5 bf16 (B = 2) "
+                      f"{coef} coefficients T=2 == plain, bits and NaN "
+                      f"({kinds_of(out)})")
+                for op, factory in SPEC_FACTORIES.items():
+                    flds = {"pw": (u, v, w), "tracer": (u, v, w, q),
+                            "diffusion": (q,)}[op]
+                    params = (SP.default_diffusion_params(
+                        Z, dx=1.0, dy=1.0, dz=1.0, nu=0.1, dtype=cd,
+                        device="cuda") if op == "diffusion" else p)
+                    for integ in SP.INTEGRATORS:
+                        spec = factory(integ)
+                        out = K.stencil_fused(flds, params, spec, T=2,
+                                              dt=ROUND_DT)
+                        want = plain_spec(flds, params, spec, 2, ROUND_DT)
+                        check(bits_nan_equal(out, want), f"{tag} K6 bf16 "
+                              f"{spec.name} {coef} coefficients T=2 == "
+                              f"plain, bits and NaN ({kinds_of(out)})")
+            spec = shape_spec("tvd_vl")
+            flds = (u, v, w, q)[:spec.n_fields]
+            params = shape_params("tvd_vl", Z, BF16)
+            dt = SHAPE_DT["tvd_vl"]
+            out = K.stencil_fused(flds, params, spec, T=2, dt=dt)
+            want = plain_spec(flds, params, spec, 2, dt)
+            check(bits_nan_equal(out, want), f"{tag} K6 bf16 tvd_vl (bf16 "
+                  f"coefficients) T=2 == plain, bits and NaN "
+                  f"({kinds_of(out)})")
+
+
+def round_timing(card: str) -> None:
+    """Phase 49: the times this rounding moves, device time by
+    `torch.profiler` (divided by the launches seen) and events (median of
+    20): K1 bf16's pass at 67M, T = 4, with f32 and bf16 coefficients; K5
+    bf16 at 4 x (512, 512, 64); K6 bf16's six spec passes (phase 40); the
+    four spec shapes in bf16, euler, a pass (phase 46); and the f32 K1 and
+    K6 PW passes as controls; each build's registers, spills and resident
+    blocks. Runs in a checkout from before the paired rounding too
+    (`--only bf16_times`), so that one call times both. Returns each
+    build's (name, local bytes spilled)."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    T = MAIN_T
+    spills = []
+
+    def line(what, call, match, extra=""):
+        ms = time_ms(call)
+        dev, seen = device_per_launch(call, match)
+        print(f"49 {what}: device {device_text(dev)} a launch ({seen} of 10 "
+              f"seen), {ms:.4f} ms by events{extra}; card {card}",
+              flush=True)
+
+    for dtype in (torch.float32, BF16):
+        u, v, w = rand_fields((X, Y, Z), seed=0, dtype=dtype)
+        for coef in ((False,) if dtype == torch.float32 else (False, True)):
+            p = REF.default_params(Z, dtype=BF16 if coef else torch.float32,
+                                   device="cuda")
+            plan = K.fused_device_plan("cuda:0", X, Y, Z, T, dtype=dtype,
+                                       coef=coef)
+            a = K.fused_kernel_attrs("cuda:0", T, plan, dtype=dtype,
+                                     coef=coef)
+            kind = ("f32" if dtype == torch.float32 else
+                    f"bf16, {'bf16' if coef else 'f32'} coefficients")
+            spills.append((f"K1 {kind} T={T} C={plan.cells_per_thread}",
+                           a["local_bytes"]))
+            line(f"K1 {kind} pass T={T} at {(X, Y, Z)}",
+                 lambda: K.advect_fused(u, v, w, p, T=T, dt=DT),
+                 "advect_ring_kernel",
+                 f"; build C={plan.cells_per_thread}, {plan.threads} "
+                 f"threads, {a['registers']} registers, {a['local_bytes']} "
+                 f"B spilled, {a['blocks_per_sm']} resident per SM")
+        del u, v, w
+    B, (Xs, Ys, Zs) = SERVE_BATCH, SERVE_PAPER_SLOT
+    slots = [torch.stack(f) for f in zip(*(
+        rand_fields((Xs, Ys, Zs), seed=20 + b, dtype=BF16)
+        for b in range(B)))]
+    p = REF.default_params(Zs, dtype=BF16, device="cuda")
+    line(f"K5 bf16 at {B} x {(Xs, Ys, Zs)} T={T}",
+         lambda: K.advect_fused_batched(*slots, p, T=T, dt=DT),
+         "advect_ring_kernel")
+    del slots
+    u, v, w = rand_fields((X, Y, Z), seed=0, dtype=BF16)
+    q = SP.tracer_field(X, Y, Z, dtype=BF16, device="cuda")
+    phi = SP.diffusion_field(X, Y, Z, dtype=BF16, device="cuda")
+    for dtype in (torch.float32, BF16):
+        p = REF.default_params(Z, dtype=dtype, device="cuda")
+        inputs = {"pw": (p, (u, v, w)), "tracer": (p, (u, v, w, q)),
+                  "diffusion": (SP.default_diffusion_params(
+                      Z, dtype=dtype, device="cuda"), (phi,))}
+        for op, integ, Ts in SPEC_PATH:
+            if dtype == torch.float32 and (op, integ) != ("pw", "euler"):
+                continue
+            spec = SPEC_FACTORIES[op](integ)
+            params, flds = inputs[op]
+            flds = tuple(f.to(dtype) for f in flds)
+            seen_builds = []
+            for Tk in sorted(set(K.spec_passes(spec, Ts))):
+                plan = K.spec_device_plan("cuda:0", X, Y, Z, spec, Tk,
+                                          dtype=dtype, coef=dtype == BF16)
+                a = K.spec_kernel_attrs("cuda:0", spec, Tk, plan,
+                                        dtype=dtype, coef=dtype == BF16)
+                spills.append((f"K6 {dtype} {spec.name} T={Tk} "
+                               f"C={plan.cells_per_thread}", a["local_bytes"]))
+                seen_builds.append(
+                    f"T={Tk} C={plan.cells_per_thread}, {plan.threads} "
+                    f"threads, {a['registers']} registers, "
+                    f"{a['local_bytes']} B spilled, {a['blocks_per_sm']} "
+                    f"resident per SM")
+            kind = "bf16" if dtype == BF16 else "f32"
+            n_pass = len(K.spec_passes(spec, Ts))
+            line(f"K6 {kind} {spec.name} T={Ts} ({n_pass} pass(es)) at "
+                 f"{(X, Y, Z)}",
+                 lambda: K.stencil_fused(flds, params, spec, T=Ts,
+                                         dt=SPEC_DT[op]),
+                 "stencil_", "; builds " + "; ".join(seen_builds))
+    del u, v, w, q, phi
+    for name in SHAPE_NAMES:
+        spec = shape_spec(name)
+        Tp = K.spec_passes(spec, SHAPE_T)[0]
+        flds = shape_fields(name, (X, Y, Z), BF16, 450)
+        params = shape_params(name, Z, BF16)
+        plan = K.spec_device_plan("cuda:0", X, Y, Z, spec, Tp, dtype=BF16,
+                                  coef=True)
+        a = K.spec_kernel_attrs("cuda:0", spec, Tp, plan, dtype=BF16,
+                                coef=True)
+        spills.append((f"K6 bf16 {name} T={Tp} C={plan.cells_per_thread}",
+                       a["local_bytes"]))
+        line(f"K6 bf16 {name} euler pass T={Tp} at {(X, Y, Z)}",
+             lambda: K.stencil_fused(flds, params, spec, T=Tp,
+                                     dt=SHAPE_DT[name]),
+             "stencil_",
+             f"; build C={plan.cells_per_thread}, {plan.threads} threads, "
+             f"{a['registers']} registers, {a['local_bytes']} B spilled, "
+             f"{a['blocks_per_sm']} resident per SM")
+        del flds
+    torch.cuda.empty_cache()
+    return spills
+
+
+def rounding_phases(check: Checks, card: str) -> None:
+    """Phases 47-49: the routes alone, the extreme values, the times (and
+    no build they time spills)."""
+    phase("47 bf16 rounding routes", round_routes_phase, check, card)
+    phase("48 bf16 rounding at extreme values", round_extremes_phase, check)
+    for name, spilled in phase("49 bf16 rounding times", round_timing, card):
+        check(spilled == 0, f"49 {name}: the build spills nothing "
+              f"({spilled} B)")
+
+
 def phase(label: str, fn, *args, **kw):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -6548,10 +6834,12 @@ def main() -> int:
                                      ["distributed_spec"], ["recovery"],
                                      ["families"], ["train"],
                                      ["analysis"], ["bf16"],
-                                     ["spec_codegen"]):
+                                     ["spec_codegen"], ["bf16_round"],
+                                     ["bf16_times"]):
         print("usage: chip_smoke.py [--only distributed|ladder|k6|k8|k9|"
               "stencil_serving|distributed_spec|recovery|families|train|"
-              "analysis|bf16|spec_codegen]", file=sys.stderr)
+              "analysis|bf16|spec_codegen|bf16_round|bf16_times]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -6601,6 +6889,12 @@ def main() -> int:
         return finish(check, bf16_phases(check, card), card, t0)
     if only == ["spec_codegen"]:
         return finish(check, spec_codegen_only(check, card), card, t0)
+    if only == ["bf16_round"]:
+        rounding_phases(check, card)
+        return finish(check, [], card, t0)
+    if only == ["bf16_times"]:
+        phase("49 bf16 rounding times", round_timing, card)
+        return finish(check, [], card, t0)
     if only:
         return finish(check, distributed_only(check, card), card, t0)
     phase("1 small shapes", small_shape_phase, check)
@@ -6635,6 +6929,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     records += bf16_phases(check, card)
     records += spec_shapes_phases(check, card)
+    rounding_phases(check, card)
     analysis_phases(check, card)
     torch.cuda.empty_cache()
     cfg, params, k8_launches = phase(

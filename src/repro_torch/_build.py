@@ -38,7 +38,8 @@ SOURCES = ("advect_fused.cu", "advect_fused_bf16.cu",
            "advect_blocked.cu",
            "advect_dataflow.cu", "stencil_fused.cu", "stencil_fused_bf16.cu",
            "stencil_fused_bf16_coef.cu", "flash_attention.cu",
-           "flash_attention_tc.cu", "selective_scan.cu", "band_exchange.cu")
+           "flash_attention_tc.cu", "selective_scan.cu", "band_exchange.cu",
+           "bf16_round.cu")
 HEADERS = ("advect_fused.cuh", "cells.cuh", "pw_source.cuh",
            "stencil_fused.cuh", "stencil_ops.cuh")
 # K6 of one user-written spec (`stencil.spec_cuda`): its entry source, built
@@ -115,6 +116,9 @@ SIGNATURES = {
     "band_exchange_wait": [_P, _ULL, _LL, _P],
     "band_exchange_attrs": [_P],
     "band_exchange_enable_peer": [_I, _I],
+    "bf16_round_check": [_I, _P, _I, _P],
+    "bf16_round_rate": [_I, _I, _I, _I, _F, _P, _P, _P],
+    "bf16_round_chains": [],
 }
 
 

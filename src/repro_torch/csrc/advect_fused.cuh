@@ -25,11 +25,13 @@
 //
 // Storage: f32 or bf16 fields (E), and f32 or bf16 coefficients (CB). With
 // bf16 fields every op of the reference's ring that JAX runs in bf16 rounds
-// to bf16 here (cells.cuh): the ring is `u.dtype`, so each level is a bf16
-// value; a sum or product of two field values is a bf16 op; a product with
-// a coefficient is a bf16 op only where the coefficients are bf16 too (a
-// bf16 domain's), else an f32 op, and the source is rounded to bf16 before
-// the update, whose dt the wrapper passes rounded to bf16. The registers
+// to bf16 here, each by one paired convert with a zero lane (`rpk`,
+// cells.cuh; a `__float2bfloat16_rn` a round would queue on the conversion
+// unit): the ring is `u.dtype`, so each level is a bf16 value; a sum or
+// product of two field values is a bf16 op; a product with a coefficient
+// is a bf16 op only where the coefficients are bf16 too (a bf16 domain's),
+// else an f32 op, and the source is rounded to bf16 before the update,
+// whose dt the wrapper passes rounded to bf16. The registers
 // and shared planes hold f32 words of bf16 values, so the plan and its
 // shared bytes are the f32 build's; only device memory moves 2-byte cells.
 //
@@ -234,19 +236,19 @@ __global__ void __launch_bounds__(Bounds<C>::threads) advect_ring_kernel(
           for (int f = 0; f < 3; ++f) {
             const float fc = cur[k - 1][f][q];
             const float* fs = pl[f];
-            const float fx = rnd<RC>(
-                tcx * rnd<RF>(rnd<RF>(um * rnd<RF>(fc + prv[k - 1][f][q]))
-                              - rnd<RF>(up * rnd<RF>(fc + nxt[f][q]))));
-            const float fy = rnd<RC>(
-                tcy * rnd<RF>(rnd<RF>(pl[1][c - P] * rnd<RF>(fc + fs[c - P]))
-                              - rnd<RF>(pl[1][c + P] *
-                                        rnd<RF>(fc + fs[c + P]))));
-            const float fz = rnd<RC>(
-                rnd<RC>(rnd<RC>(t1 * pl[2][c - 1]) * rnd<RF>(fc + fs[c - 1]))
-                - rnd<RC>(rnd<RC>(t2 * pl[2][c + 1]) *
-                          rnd<RF>(fc + fs[c + 1])));
+            const float fx = rpk<RC>(
+                tcx * rpk<RF>(rpk<RF>(um * rpk<RF>(fc + prv[k - 1][f][q]))
+                              - rpk<RF>(up * rpk<RF>(fc + nxt[f][q]))));
+            const float fy = rpk<RC>(
+                tcy * rpk<RF>(rpk<RF>(pl[1][c - P] * rpk<RF>(fc + fs[c - P]))
+                              - rpk<RF>(pl[1][c + P] *
+                                        rpk<RF>(fc + fs[c + P]))));
+            const float fz = rpk<RC>(
+                rpk<RC>(rpk<RC>(t1 * pl[2][c - 1]) * rpk<RF>(fc + fs[c - 1]))
+                - rpk<RC>(rpk<RC>(t2 * pl[2][c + 1]) *
+                          rpk<RF>(fc + fs[c + 1])));
             src[f][q] = zsrc >> q & 1u
-                            ? rnd<RF>(rnd<RC>(rnd<RC>(fx + fy) + fz))
+                            ? rpk<RF>(rpk<RC>(rpk<RC>(fx + fy) + fz))
                             : 0.0f;
           }
         }
@@ -263,7 +265,7 @@ __global__ void __launch_bounds__(Bounds<C>::threads) advect_ring_kernel(
 #pragma unroll
         for (int f = 0; f < 3; ++f) {
           const float res =
-              rnd<RF>(cur[k - 1][f][q] + rnd<RF>(dt * src[f][q]));
+              rpk<RF>(cur[k - 1][f][q] + rpk<RF>(dt * src[f][q]));
           prv[k - 1][f][q] = cur[k - 1][f][q];
           cur[k - 1][f][q] = nxt[f][q];
           nxt[f][q] = res;

@@ -9,6 +9,17 @@
 // and an f32 coefficient is an f32 op (`rnd<false>`, the identity). Loads
 // widen a bf16 cell exactly; stores round (the values stored are already
 // bf16 values, so the store is exact).
+//
+// `rnd` rounds by `__float2bfloat16_rn`, which the card runs as
+// `F2F.BF16.F32` on its conversion unit, 16 a clock per SM: a ring with a
+// round in every op queues on it. K1/K5 (advect_fused.cuh) and K6
+// (stencil_fused.cuh, its functors) round by `rpk` instead, which gives
+// the same value by another instruction: one `cvt.rn.bf16x2.f32` of the
+// value and 0.0f (`F2FP.BF16.F32.PACK_AB`), whose 32-bit result holds the
+// value's bf16 in its high half and zero in its low half, and so is that
+// bf16 value as an f32, with no widening after it. The v1-v3 rungs
+// (pw_source.cuh) keep `rnd`. `csrc/bf16_round.cu` measures both and the
+// other routes, and checks each on all 2^32 f32 bit patterns.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,4 +68,15 @@ __device__ __forceinline__ float bf16_hi(unsigned word) {
 __device__ __forceinline__ unsigned bf16_pack(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// x rounded to bf16 (and widened back) where R, else x: `rnd`'s value by
+// one paired convert whose low lane is 0.0f, round to nearest even (NaN to
+// NaN), off the conversion unit
+template <bool R>
+__device__ __forceinline__ float rpk(float x) {
+  if constexpr (R)
+    return __uint_as_float(bf16_pack(0.0f, x));
+  else
+    return x;
 }

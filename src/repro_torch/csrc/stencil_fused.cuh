@@ -39,10 +39,11 @@
 // Storage: f32 or bf16 fields (E), and f32 or bf16 coefficients (CB), as
 // K1's (cells.cuh). The reference's ring is `fields[0].dtype`: with bf16
 // fields each level is a bf16 value, every op of the source that torch's
-// promotion runs in bf16 rounds to bf16 (the functor's `rnd<RF>` where its
-// operands are field values or weak scalars, `rnd<RC>` where a coefficient
-// takes part, RC being set only when the coefficients are bf16 too), the
-// source is rounded to the field's dtype before the update, and the update
+// promotion runs in bf16 rounds to bf16 (`rpk`, one paired convert with a
+// zero lane; the functor's `rpk<RF>` where its operands are field values
+// or weak scalars, `rpk<RC>` where a coefficient takes part, RC being set
+// only when the coefficients are bf16 too), the source is rounded to the
+// field's dtype before the update, and the update
 // is two bf16 ops on dt rounded to bf16 by the wrapper. Registers and shared
 // planes hold f32 words of bf16 values, so the plan and its shared bytes
 // are the f32 build's; only device memory moves 2-byte cells.
@@ -375,7 +376,7 @@ __global__ void __launch_bounds__(THREADS)
             constexpr int f = decltype(fc)::value;
             // the source in the field's dtype (`astype(base.dtype)`)
             const float s =
-                rnd<RF>(Op::template source<f, RF, RC>(cell, coef));
+                rpk<RF>(Op::template source<f, RF, RC>(cell, coef));
             src[f][q] = zin ? s : 0.0f;
           });
         }
@@ -393,9 +394,9 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int f = 0; f < NF; ++f) {
           const float res =
-              rnd<RF>((full_level ? hold[(k - 2) / 2][0][f][q]
+              rpk<RF>((full_level ? hold[(k - 2) / 2][0][f][q]
                                   : ring[k - 1][R][f][q])
-                      + rnd<RF>(step_dt * src[f][q]));
+                      + rpk<RF>(step_dt * src[f][q]));
           // slice j-R of level k-1: the base of level k+1 LAG-R steps on
           if (g_level) {
 #pragma unroll

@@ -9,12 +9,14 @@
 // (DiffusionOp). Built with --fmad=false, every product and sum rounds on
 // its own, as PyTorch's elementwise ops round them in the plain version, so
 // the kernel equals the plain version bitwise. With bf16 fields an op
-// rounds to bf16 where torch's promotion makes it a bf16 op (cells.cuh):
-// `rnd<RF>` where its operands are field values or Python scalars (weak),
-// `rnd<RC>` where a coefficient takes part (RC is set only when the
+// rounds to bf16 where torch's promotion makes it a bf16 op (cells.cuh's
+// `rpk`): `rpk<RF>` where its operands are field values or Python scalars
+// (weak), `rpk<RC>` where a coefficient takes part (RC is set only when the
 // coefficients are bf16 too: a bf16 field times an f32 coefficient is an
-// f32 op). The coefficients reach the callback dimensioned (a 0-d one
-// would not take part in torch's promotion), as the reference's do in JAX.
+// f32 op). An op exact in bf16 by construction takes no round: 2 * c of a
+// bf16 value c is one (or Inf in f32 too). The coefficients reach the
+// callback dimensioned (a 0-d one would not take part in torch's
+// promotion), as the reference's do in JAX.
 //
 // A functor's interface: kFields, kVectors (the z-coefficient vectors it
 // stages per window cell, `zc[p]`: element zoff(p) + z of parameter vector
@@ -90,22 +92,22 @@ struct PwFluxOp {
     const float tzc1 = sh.zc[0];
     const float tzc2 = sh.zc[1];
     const float fc = at<FI, 0, 0, 0>(sh);
-    const float fx = rnd<RC>(
-        k.tcx * rnd<RF>(rnd<RF>(at<0, -1, 0, 0>(sh) *
-                                rnd<RF>(fc + at<FI, -1, 0, 0>(sh)))
-                        - rnd<RF>(at<0, 1, 0, 0>(sh) *
-                                  rnd<RF>(fc + at<FI, 1, 0, 0>(sh)))));
-    const float fy = rnd<RC>(
-        k.tcy * rnd<RF>(rnd<RF>(at<1, 0, -1, 0>(sh) *
-                                rnd<RF>(fc + at<FI, 0, -1, 0>(sh)))
-                        - rnd<RF>(at<1, 0, 1, 0>(sh) *
-                                  rnd<RF>(fc + at<FI, 0, 1, 0>(sh)))));
-    const float fz = rnd<RC>(
-        rnd<RC>(rnd<RC>(tzc1 * at<2, 0, 0, -1>(sh)) *
-                rnd<RF>(fc + at<FI, 0, 0, -1>(sh)))
-        - rnd<RC>(rnd<RC>(tzc2 * at<2, 0, 0, 1>(sh)) *
-                  rnd<RF>(fc + at<FI, 0, 0, 1>(sh))));
-    return rnd<RC>(rnd<RC>(fx + fy) + fz);
+    const float fx = rpk<RC>(
+        k.tcx * rpk<RF>(rpk<RF>(at<0, -1, 0, 0>(sh) *
+                                rpk<RF>(fc + at<FI, -1, 0, 0>(sh)))
+                        - rpk<RF>(at<0, 1, 0, 0>(sh) *
+                                  rpk<RF>(fc + at<FI, 1, 0, 0>(sh)))));
+    const float fy = rpk<RC>(
+        k.tcy * rpk<RF>(rpk<RF>(at<1, 0, -1, 0>(sh) *
+                                rpk<RF>(fc + at<FI, 0, -1, 0>(sh)))
+                        - rpk<RF>(at<1, 0, 1, 0>(sh) *
+                                  rpk<RF>(fc + at<FI, 0, 1, 0>(sh)))));
+    const float fz = rpk<RC>(
+        rpk<RC>(rpk<RC>(tzc1 * at<2, 0, 0, -1>(sh)) *
+                rpk<RF>(fc + at<FI, 0, 0, -1>(sh)))
+        - rpk<RC>(rpk<RC>(tzc2 * at<2, 0, 0, 1>(sh)) *
+                  rpk<RF>(fc + at<FI, 0, 0, 1>(sh))));
+    return rpk<RC>(rpk<RC>(fx + fy) + fz);
   }
 };
 
@@ -127,16 +129,13 @@ struct DiffusionOp {
   __device__ __forceinline__ static float source(const Cell& sh,
                                                  const Coef& k) {
     const float kz = sh.zc[0];
-    const float c = at<0, 0, 0, 0>(sh);
-    return rnd<RC>(
-        rnd<RC>(rnd<RC>(k.kx * rnd<RF>(rnd<RF>(at<0, -1, 0, 0>(sh)
-                                               - rnd<RF>(2.0f * c))
+    const float c2 = 2.0f * at<0, 0, 0, 0>(sh);
+    return rpk<RC>(
+        rpk<RC>(rpk<RC>(k.kx * rpk<RF>(rpk<RF>(at<0, -1, 0, 0>(sh) - c2)
                                        + at<0, 1, 0, 0>(sh)))
-                + rnd<RC>(k.ky * rnd<RF>(rnd<RF>(at<0, 0, -1, 0>(sh)
-                                                 - rnd<RF>(2.0f * c))
+                + rpk<RC>(k.ky * rpk<RF>(rpk<RF>(at<0, 0, -1, 0>(sh) - c2)
                                          + at<0, 0, 1, 0>(sh))))
-        + rnd<RC>(kz * rnd<RF>(rnd<RF>(at<0, 0, 0, -1>(sh)
-                                       - rnd<RF>(2.0f * c))
+        + rpk<RC>(kz * rpk<RF>(rpk<RF>(at<0, 0, 0, -1>(sh) - c2)
                                + at<0, 0, 0, 1>(sh))));
   }
 };

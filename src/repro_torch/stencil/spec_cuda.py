@@ -22,8 +22,11 @@ proxy carries a sample tensor for each storage build (f32; bf16 fields
 with f32 coefficients; both bf16), dimensioned as the plain version's
 coefficients are (`spec.CoefVector`), and each node learns its result
 dtype from torch's own promotion of its operands' samples: an op that is
-bf16 with bf16 fields rounds with `rnd<RF>`, one that is bf16 only with
-bf16 coefficients too with `rnd<RC>`. Each of these operations is
+bf16 with bf16 fields rounds with `rpk<RF>` (`csrc/cells.cuh`: the
+convert's round to nearest even by one paired convert, off the conversion
+unit), one that is bf16 only with bf16 coefficients too with `rpk<RC>`,
+and a product by a number +-2^k, k >= 0, exact in its operand's dtype,
+with neither. Each of these operations is
 correctly rounded or exact in CUDA without fast math (a division by a
 Python number is emitted as torch runs it on the card, a product with the
 f32 reciprocal), so with `--fmad=false` the kernel rounds as the callback
@@ -147,6 +150,24 @@ def _arith(o: str, x, y):
     if torch.is_tensor(x):
         return _ARITH[o](x, y)
     return getattr(y, _REFLECTED[o])(x)
+
+
+def _exact_scale(node) -> bool:
+    """Whether an "op" node is a product of a traced value and a number
+    +-2^k, k >= 0, or its quotient by +-2^-k: exact in the value's dtype,
+    which is the node's (a weak number keeps it), so a bf16 ring need not
+    round it."""
+    _, o, a, b = node
+    if o not in ("*", "/"):
+        return False
+    num = [x for x in (a, b) if not isinstance(x, int)]
+    if len(num) != 1 or (o == "/" and not isinstance(a, int)):
+        return False
+    m = np.float32(abs(float(np.float32(num[0][1]))))
+    if o == "/":
+        with np.errstate(divide="ignore", over="ignore"):
+            m = np.float32(1.0) / m
+    return bool(np.isfinite(m) and m >= 1.0 and np.frexp(m)[0] == 0.5)
 
 
 def _rounding_of(dtypes) -> Optional[str]:
@@ -589,10 +610,10 @@ def _emit(g: _Graph, outs) -> str:
         if isinstance(a, int):
             return f"t{a}"
         lit = _literal(a[1])
-        return f"rnd<{rounding}>({lit})" if rounding else lit
+        return f"rpk<{rounding}>({lit})" if rounding else lit
 
     def rounded(body: str, r) -> str:
-        return f"rnd<{r}>({body})" if r else f"({body})"
+        return f"rpk<{r}>({body})" if r else f"({body})"
 
     def expr(i: int) -> str:
         node = g.nodes[i]
@@ -627,7 +648,7 @@ def _emit(g: _Graph, outs) -> str:
             body = f"{operand(a)} * {_reciprocal(b[1])}"
         else:
             body = f"{operand(a)} {o} {operand(b)}"
-        return rounded(body, g.rounding(i))
+        return rounded(body, None if _exact_scale(node) else g.rounding(i))
 
     def chain(table, pick) -> str:
         if not table:

@@ -163,8 +163,10 @@ def test_graph_evaluated_in_torch_equals_the_callback(name, storage):
 @pytest.mark.parametrize("name", list(SHIPPED) + list(USER))
 def test_rounding_in_the_text_is_torchs_promotion(name):
     """Each binary node rounds in the text as torch types its result: with
-    bf16 fields (`rnd<RF>`) or only with bf16 coefficients too (`rnd<RC>`);
-    none in f32. A field op is RF, a product with a coefficient RC."""
+    bf16 fields (`rpk<RF>`) or only with bf16 coefficients too (`rpk<RC>`);
+    none in f32. A field op is RF, a product with a coefficient RC. A
+    product by a number +-2^k, k >= 0, is exact in its operand's dtype and
+    rounds nowhere."""
     spec, _ = case(name)
     gen = G.trace(spec)
     lines = {ln.split("=", 1)[0].split()[-1]: ln for ln in
@@ -175,15 +177,40 @@ def test_rounding_in_the_text_is_torchs_promotion(name):
     for i, node in enumerate(gen.nodes):
         if node[0] != "op" or f"t{i}" not in lines:
             continue
-        emitted += 1
         line = lines[f"t{i}"]
-        assert line.count("rnd<RF>(") + line.count("rnd<RC>(") == 1, line
-        if any(isinstance(x, int) and x in rc for x in node[2:]):
-            assert "rnd<RC>(" in line, line
+        coef = any(isinstance(x, int) and x in rc for x in node[2:])
+        if coef:
             rc.add(i)
-        else:
-            assert "rnd<RF>(" in line, line
+        if G._exact_scale(node):
+            assert "rpk<" not in line and "rnd<" not in line, line
+            continue
+        emitted += 1
+        assert line.count("rpk<RF>(") + line.count("rpk<RC>(") == 1, line
+        assert ("rpk<RC>(" if coef else "rpk<RF>(") in line, line
     assert emitted >= 3
+
+
+def test_exact_scales_are_powers_of_two_at_least_one():
+    """The emitter leaves a product unrounded only where a bf16 value times
+    the number is a bf16 value: +-2^k, k >= 0 (x / 2^-k alike); a product
+    by 0.5 can land among bf16 subnormals and rounds."""
+    def node(o, a, b):
+        return ("op", o, a, b)
+
+    two, half, three = ("const", 2.0), ("const", 0.5), ("const", 3.0)
+    assert G._exact_scale(node("*", 0, two))
+    assert G._exact_scale(node("*", two, 0))
+    assert G._exact_scale(node("*", 0, ("const", -4.0)))
+    assert G._exact_scale(node("*", 0, ("const", 1.0)))
+    assert G._exact_scale(node("/", 0, half))
+    assert not G._exact_scale(node("*", 0, half))
+    assert not G._exact_scale(node("*", 0, three))
+    assert not G._exact_scale(node("/", 0, two))
+    assert not G._exact_scale(node("/", two, 0))
+    assert not G._exact_scale(node("/", 0, ("const", 1e-45)))
+    assert not G._exact_scale(node("+", 0, two))
+    assert not G._exact_scale(node("*", 0, 1))
+    assert not G._exact_scale(node("*", 0, ("const", 0.0)))
 
 
 @pytest.mark.parametrize("name", USER)
