@@ -308,8 +308,9 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    padded request == sequential == plain; K4 clean and with a NaN and an
    inf, on the 16-byte and the 1-cell path; K3, K2 and `wide` (8 cells a
    16-byte move) == plain for sources and `fuse_update`, tiled, x chunks,
-   host tiling, fields 2 bytes past an allocation; `wide`'s refusal of
-   Z % 8 != 0, and K6 on bf16 fields == K1 bf16;
+   host tiling, their pair build (even Z) and one-cell build (odd Z, and
+   fields 2 bytes past an allocation); `wide`'s refusal of Z % 8 != 0,
+   and K6 on bf16 fields == K1 bf16;
 36. the bf16 main path: `AdvectionDomain(1024, 1024, 64, variant="fused",
    dtype="bfloat16").advance(16)` and K4, counted (4 K1 launches, 1 K4),
    == plain bitwise, within `bf16_oracle_bound` of the f64 oracle, edges
@@ -363,20 +364,28 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    spec's ledger live == fake == model;
 46. each spec's pass timed (events, device time per launch seen) beside
    its bound, with its build's registers, spills and shared bytes;
-47. each bf16 rounding route of `csrc/bf16_round.cu` alone (K1/K5 and K6
-   round by "pack_hi", `rpk` of `csrc/cells.cuh`: one `cvt.rn.bf16x2.f32`
-   of the value and 0.0f a round): its rounds a clock per SM and all 2^32
-   f32 bit patterns against `__float2bfloat16_rn`, the same bits or NaN
-   to NaN;
+47. each bf16 rounding route of `csrc/bf16_round.cu` alone (K1/K5, K6 and
+   the rungs' one-cell build round by "pack_hi", `rpk` of
+   `csrc/cells.cuh`: one `cvt.rn.bf16x2.f32` of the value and 0.0f a
+   round): its rounds a clock per SM and all 2^32 f32 bit patterns against
+   `__float2bfloat16_rn`, the same bits or NaN to NaN; and each bf16x2 op
+   the rungs' pair build computes with (add, sub, mul): its ops a clock
+   per SM and all 2^32 pairs of bf16 operands against `rpk` of the f32
+   op, the same bits (the sign of zero included) or NaN to NaN;
 48. K1 bf16 (f32 and bf16 coefficients, T 1, 2, 4), K5 bf16 (B = 2), K6
-   bf16 (PW, tracer, diffusion, euler and rk2) and `tvd_vl` on fields that
-   span f32 subnormals, values near 2^111 and bf16's largest, +-0, +-Inf
-   and NaN (mixed, tiny and huge fields): == plain on the card, the same
-   bits where not NaN and NaN at the same cells;
+   bf16 (PW, tracer, diffusion, euler and rk2), `tvd_vl`, and K3, K2
+   `dataflow` and `wide` (f32 and bf16 coefficients, `fuse_update` False
+   and True; the pair build, and the one-cell build on fields 2 bytes past
+   an allocation) on fields that span f32 subnormals, values near 2^111
+   and bf16's largest, +-0, +-Inf and NaN (mixed, tiny and huge fields):
+   == plain on the card, the same bits where not NaN and NaN at the same
+   cells;
 49. the times the rounding moves: K1 bf16's pass at 67M (both coefficient
    storages), K5 bf16 at 4 x (512, 512, 64), K6 bf16's six spec passes,
-   the four spec shapes of phases 44-46 in bf16, and the f32 K1 and K6 PW
-   passes as controls, each build's registers, spills and resident
+   the four spec shapes of phases 44-46 in bf16, the bf16 rungs K3, K2
+   `dataflow` and `wide` at 67M (both coefficient storages, `fuse_update`
+   False and True, each on its own plan), and the f32 K1 and K6 PW passes
+   and f32 rungs as controls, each build's registers, spills and resident
    blocks, none of which may spill.
 
 Each phase prints its seconds.
@@ -4890,8 +4899,9 @@ def analysis_phases(check: Checks, card: str) -> list:
 
 BF16 = torch.bfloat16
 # shapes with remainder y-tiles at y_tile 4, 5, 7 (Z = 16 and 24 let `wide`
-# move 8 bf16 cells a vector; Z = 12 takes the 1-cell path only)
-BF16_SHAPES = ((6, 10, 16), (5, 17, 12), (8, 12, 24))
+# move 8 bf16 cells a vector; Z = 12 takes K4's 1-cell path only; the rungs
+# run their pair build at even Z and their one-cell build at Z = 15)
+BF16_SHAPES = ((6, 10, 16), (5, 17, 12), (8, 12, 24), (6, 10, 15))
 BF16_U = 2.0 ** -8      # bf16's unit roundoff (8 significant bits)
 BF16_ORACLE_SLACK = 1.1  # the stencil's propagation of earlier roundings
 BF16_SNAPSHOTS = ROOT / "build" / "bf16_snapshots"
@@ -4993,6 +5003,9 @@ def bf16_small_phase(check: Checks) -> None:
                   and flags.dtype == torch.float32
                   and bool((flags == 1.0).all()),
                   f"35 K1 guarded == unguarded, f32 flags all 1, {tag}")
+            check(K.rung_pairs(u, v, w) == (Z % 2 == 0),
+                  f"35 the rungs run their "
+                  f"{'pair' if Z % 2 == 0 else 'one-cell'} build, {tag}")
             for fu in (False, True):
                 plain = K._advect_rung_plain(u, v, w, p, fu, DT)
                 kw = dict(fuse_update=fu, dt=DT)
@@ -5025,11 +5038,9 @@ def bf16_small_phase(check: Checks) -> None:
     shape = (5, 9, 12)
     u, v, w = rand_fields(shape, seed=320, dtype=BF16)
     p = bf16_params(12, "bf16")
-    bufs = [torch.empty(math.prod(shape) + 1, device="cuda", dtype=BF16)
-            for _ in range(3)]
-    off = [b[1:].view(shape) for b in bufs]
-    for o, f in zip(off, (u, v, w)):
-        o.copy_(f)
+    off = offset_copies((u, v, w))
+    check(not K.rung_pairs(*off), "35 fields 2 bytes past an allocation run "
+          "the rungs' one-cell build")
     for name in ("advect_blocked", "advect_dataflow"):
         got = getattr(K, name)(*off, p, fuse_update=True, dt=DT)
         check(same(got, K._advect_rung_plain(u, v, w, p, True, DT)),
@@ -5045,6 +5056,17 @@ def bf16_small_phase(check: Checks) -> None:
     check(same(out, K.advect_fused(u, v, w, p, T=1, dt=1.0))
           and all(o.dtype == BF16 for o in out),
           "35 K6 takes bf16 fields (its refusal lifted): == K1 bf16, bitwise")
+
+
+def offset_copies(fields):
+    """Copies of bf16 `fields`, each starting 2 bytes past an allocation (off
+    every 4-byte boundary: the rungs run their one-cell build on them)."""
+    out = []
+    for f in fields:
+        buf = torch.empty(f.numel() + 1, device=f.device, dtype=f.dtype)
+        out.append(buf[1:].view(f.shape))
+        out[-1].copy_(f)
+    return out
 
 
 def bf16_batched_phase(check: Checks) -> None:
@@ -6627,12 +6649,16 @@ def kinds_of(fields) -> str:
 def round_routes_phase(check: Checks, card: str) -> None:
     """Phase 47: each rounding route of `csrc/bf16_round.cu` alone: its
     rounds a clock per SM and how many of the 2^32 f32 bit patterns it
-    rounds as `__float2bfloat16_rn` does; every route must take all."""
+    rounds as `__float2bfloat16_rn` does; every route must take all. Then
+    each bf16x2 op of the rungs' pair build alone: its ops a clock per SM
+    and how many of the 2^32 pairs of bf16 operands it computes as `rpk` of
+    the f32 op does; every op must take all."""
     from repro_torch.kernels import bf16_round as BR
     for route in BR.ROUTES:
         r = BR.route_rate(route)
         n = BR.check_route(route)
-        chosen = " (K1/K5 and K6 round by it)" if route == BR.ROUTE else ""
+        chosen = (" (K1/K5, K6 and the rungs' one-cell build round by it)"
+                  if route == BR.ROUTE else "")
         print(f"47 route {route}{chosen}: {r['per_clock_per_sm']:.2f} rounds "
               f"a clock per SM ({r['rounds']} rounds in {r['ms']:.4f} ms at "
               f"{r['ghz']:.3f} GHz); exact on {n:,} of {BR.PATTERNS:,} bit "
@@ -6640,15 +6666,30 @@ def round_routes_phase(check: Checks, card: str) -> None:
         check(n == BR.PATTERNS, f"47 route {route}{chosen}: "
               f"{n:,} of {BR.PATTERNS:,} f32 bit patterns round as "
               f"__float2bfloat16_rn (NaN to NaN)")
+    for op in BR.PAIR_OPS:
+        r = BR.pair_op_rate(op)
+        n = BR.check_pair_op(op)
+        print(f"47 bf16x2 {op} (the rungs' pair build): "
+              f"{r['per_clock_per_sm']:.2f} ops a clock per SM, two an "
+              f"instruction ({r['rounds']} ops in {r['ms']:.4f} ms at "
+              f"{r['ghz']:.3f} GHz); equal to rpk of the f32 op on {n:,} "
+              f"of {BR.PATTERNS:,} pairs of bf16 operands; card {card}",
+              flush=True)
+        check(n == BR.PATTERNS, f"47 bf16x2 {op}: {n:,} of "
+              f"{BR.PATTERNS:,} pairs of bf16 operands == rpk of the f32 "
+              f"op (the sign of zero included, NaN as NaN)")
 
 
 def round_extremes_phase(check: Checks) -> None:
     """Phase 48: K1 bf16 (f32 and bf16 coefficients), K5 bf16 (B = 2), K6
-    bf16 (PW, tracer, diffusion; euler and rk2) and `tvd_vl` (which
-    divides) on fields that span f32 subnormals, values near 2^111 and near
-    bf16's largest, +-0, +-Inf and NaN (`ROUND_CASES`: mixed, tiny and huge
-    fields): each == its plain version on the card, the same bits where not
-    NaN and NaN at the same cells."""
+    bf16 (PW, tracer, diffusion; euler and rk2), `tvd_vl` (which divides)
+    and the rungs K3, K2 `dataflow` and `wide` (both coefficient storages,
+    `fuse_update` False and True; their pair build, and the one-cell build
+    on copies 2 bytes past an allocation) on fields that span f32
+    subnormals, values near 2^111 and near bf16's largest, +-0, +-Inf and
+    NaN (`ROUND_CASES`: mixed, tiny and huge fields): each == its plain
+    version on the card, the same bits where not NaN and NaN at the same
+    cells."""
     for si, shape in enumerate(ROUND_SHAPES):
         X, Y, Z = shape
         for ci, (case, scales, share, planted) in enumerate(ROUND_CASES):
@@ -6699,18 +6740,41 @@ def round_extremes_phase(check: Checks) -> None:
             check(bits_nan_equal(out, want), f"{tag} K6 bf16 tvd_vl (bf16 "
                   f"coefficients) T=2 == plain, bits and NaN "
                   f"({kinds_of(out)})")
+            off = offset_copies((u, v, w))
+            for coef in ("f32", "bf16"):
+                cd = torch.float32 if coef == "f32" else BF16
+                p = REF.default_params(Z, dx=1.0, dy=1.0, dz=1.0, dtype=cd,
+                                       device="cuda")
+                for name in BF16_RUNGS:
+                    if name == "advect_wide" and Z % 8:
+                        continue
+                    builds = [("pair", (u, v, w))]
+                    if name != "advect_wide":
+                        builds.append(("one-cell", off))
+                    for fu in (False, True):
+                        want = K._advect_rung_plain(u, v, w, p, fu, ROUND_DT)
+                        for build, flds in builds:
+                            out = getattr(K, name)(*flds, p, fuse_update=fu,
+                                                   dt=ROUND_DT)
+                            check(bits_nan_equal(out, want),
+                                  f"{tag} {name} bf16 {build} build {coef} "
+                                  f"coefficients fuse_update={fu} == plain, "
+                                  f"bits and NaN ({kinds_of(out)})")
 
 
 def round_timing(card: str) -> None:
     """Phase 49: the times this rounding moves, device time by
     `torch.profiler` (divided by the launches seen) and events (median of
-    20): K1 bf16's pass at 67M, T = 4, with f32 and bf16 coefficients; K5
-    bf16 at 4 x (512, 512, 64); K6 bf16's six spec passes (phase 40); the
-    four spec shapes in bf16, euler, a pass (phase 46); and the f32 K1 and
-    K6 PW passes as controls; each build's registers, spills and resident
-    blocks. Runs in a checkout from before the paired rounding too
-    (`--only bf16_times`), so that one call times both. Returns each
-    build's (name, local bytes spilled)."""
+    20): the rungs K3, K2 `dataflow` and `wide` at 67M, bf16 with f32 and
+    with bf16 coefficients and f32 as controls, `fuse_update` False and
+    True, each on its own plan; K1 bf16's pass at 67M, T = 4, with f32 and
+    bf16 coefficients; K5 bf16 at 4 x (512, 512, 64); K6 bf16's six spec
+    passes (phase 40); the four spec shapes in bf16, euler, a pass (phase
+    46); and the f32 K1 and K6 PW passes as controls; each build's
+    registers, spills and resident blocks. Runs in a checkout from before
+    the paired rounding or the rungs' pairs too (`--only bf16_times`),
+    through entry points such a checkout has, so that one call times both.
+    Returns each build's (name, local bytes spilled)."""
     X, Y, Z = PAPER_GRIDS[MAIN_GRID]
     T = MAIN_T
     spills = []
@@ -6721,6 +6785,30 @@ def round_timing(card: str) -> None:
         print(f"49 {what}: device {device_text(dev)} a launch ({seen} of 10 "
               f"seen), {ms:.4f} ms by events{extra}; card {card}",
               flush=True)
+
+    for dtype in (torch.float32, BF16):
+        u, v, w = rand_fields((X, Y, Z), seed=0, dtype=dtype)
+        for coef in ((False,) if dtype == torch.float32 else (False, True)):
+            p = REF.default_params(Z, dtype=BF16 if coef else torch.float32,
+                                   device="cuda")
+            kind = ("f32" if dtype == torch.float32 else
+                    f"bf16, {'bf16' if coef else 'f32'} coefficients")
+            for name in BF16_RUNGS:
+                rp = K.rung_device_plan("cuda:0", name, X, Y, Z, dtype=dtype,
+                                        coef=coef)
+                a = K.rung_kernel_attrs("cuda:0", name, rp, dtype=dtype,
+                                        coef=coef)
+                spills.append((f"{name} {kind}", a["local_bytes"]))
+                for fu in (False, True):
+                    line(f"{name} {kind} fuse_update={fu} at {(X, Y, Z)}",
+                         lambda: getattr(K, name)(u, v, w, p, fuse_update=fu,
+                                                  dt=DT),
+                         RUNG_KERNEL[name],
+                         f"; plan TY={rp.TY}, CX={rp.CX}, {rp.threads} "
+                         f"threads, {rp.shared_bytes} B, {a['registers']} "
+                         f"registers, {a['local_bytes']} B spilled, "
+                         f"{a['blocks_per_sm']} resident per SM")
+        del u, v, w
 
     for dtype in (torch.float32, BF16):
         u, v, w = rand_fields((X, Y, Z), seed=0, dtype=dtype)

@@ -94,12 +94,12 @@ SIGNATURES = {
     "finite_guard_bf16": [_P] * 4 + [_I, _I, _LL, _I, _P],
     "advect_blocked_f32": [_P] * 7 + [_I] * 9 + [_F, _SZ, _P],
     "advect_blocked_attrs": [_I, _SZ, _P],
-    "advect_blocked_bf16": [_P] * 7 + [_I] * 10 + [_F, _SZ, _P],
-    "advect_blocked_bf16_attrs": [_I, _I, _SZ, _P],
+    "advect_blocked_bf16": [_P] * 7 + [_I] * 11 + [_F, _SZ, _P],
+    "advect_blocked_bf16_attrs": [_I, _I, _I, _SZ, _P],
     "advect_dataflow_f32": [_P] * 7 + [_I] * 11 + [_F, _SZ, _P],
     "advect_dataflow_attrs": [_I, _I, _SZ, _P],
-    "advect_dataflow_bf16": [_P] * 7 + [_I] * 12 + [_F, _SZ, _P],
-    "advect_dataflow_bf16_attrs": [_I, _I, _I, _SZ, _P],
+    "advect_dataflow_bf16": [_P] * 7 + [_I] * 13 + [_F, _SZ, _P],
+    "advect_dataflow_bf16_attrs": [_I, _I, _I, _I, _SZ, _P],
     "stencil_fused_f32": [_I, _I, _P],
     "stencil_fused_attrs": [_I] * 5 + [_SZ, _P],
     "stencil_fused_bf16": [_I, _I, _P],
@@ -119,6 +119,8 @@ SIGNATURES = {
     "bf16_round_check": [_I, _P, _I, _P],
     "bf16_round_rate": [_I, _I, _I, _I, _F, _P, _P, _P],
     "bf16_round_chains": [],
+    "bf16_pair_check": [_I, _P, _I, _P],
+    "bf16_pair_rate": [_I, _I, _I, _I, _F, _P, _P, _P],
 }
 
 

@@ -41,7 +41,11 @@
 // cp.async lands them (pairs of cells a 4-byte move), so its bytes halve,
 // and the plan (`rung_launch_plan` at itemsize 2) takes the tile for that.
 // The arithmetic rounds as pw_source.cuh says, with f32 or bf16
-// coefficients (CB).
+// coefficients (CB). Where Z is even and every field starts on a 4-byte
+// boundary (the wrapper's choice, before the launch) a thread computes the
+// two cells of a 32-bit word of the stage at once (VEC = 2), each bf16 op of
+// both one bf16x2 instruction; elsewhere it computes one cell (VEC = 1),
+// each bf16 op an f32 op rounded by `rpk`. Both still move 4-byte words.
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -51,7 +55,7 @@ namespace {
 
 constexpr int kMaxThreads = 512;
 
-template <typename E, bool CB>
+template <typename E, bool CB, int VEC>
 __global__ void __launch_bounds__(kMaxThreads, 2) advect_blocked_kernel(
     const E* __restrict__ u, const E* __restrict__ v,
     const E* __restrict__ w, E* __restrict__ ou, E* __restrict__ ov,
@@ -65,7 +69,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) advect_blocked_kernel(
   const int slab_lo = min(max(t * TY - 1, 0), Y - S);
   const int own_lo = t * TY;
   const int own_r0 = own_lo - slab_lo;
-  const int n_cells = min(TY, Y - own_lo) * Z;
+  const int n_vec = min(TY, Y - own_lo) * Z / VEC;  // runs of VEC cells
   const size_t slice = (size_t)Y * Z;
   const int plane = S * Z;
   const E* in[3] = {u, v, w};
@@ -81,9 +85,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2) advect_blocked_kernel(
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
         const int xs = min(max(x + k - 1, 0), X - 1);
-        cp_async_plane<E, 1>(smem + (size_t)(f * 3 + k) * plane,
-                          in[f] + (size_t)xs * slice + (size_t)slab_lo * Z,
-                          plane);
+        cp_async_plane<E, VEC>(
+            smem + (size_t)(f * 3 + k) * plane,
+            in[f] + (size_t)xs * slice + (size_t)slab_lo * Z, plane);
       }
     cp_async_commit();
     cp_async_wait(0);
@@ -96,16 +100,17 @@ __global__ void __launch_bounds__(kMaxThreads, 2) advect_blocked_kernel(
         sl.s[f][k] = smem + (size_t)(f * 3 + k) * plane;
     const bool x_ok = x >= 1 && x <= X - 2;
     const size_t dst_off = (size_t)x * slice + (size_t)own_lo * Z;
-    for (int k = threadIdx.x; k < n_cells; k += blockDim.x) {
-      const int c = own_r0 * Z + k;
+    for (int k = threadIdx.x; k < n_vec; k += blockDim.x) {
+      const int c = own_r0 * Z + k * VEC;
       const int r = c / Z;
-      rung_cells<E, CB, 1>(sl, c, c - r * Z, x_ok && r >= 1 && r <= S - 2,
-                           Z, pr, fuse != 0, dt, out, dst_off + k);
+      rung_run<E, CB, VEC>(sl, c, c - r * Z, x_ok && r >= 1 && r <= S - 2,
+                           Z, pr, fuse != 0, dt, out,
+                           dst_off + (size_t)k * VEC);
     }
   }
 }
 
-template <typename E, bool CB>
+template <typename E, bool CB, int VEC>
 int launch(const void* u, const void* v, const void* w, void* ou, void* ov,
            void* ow, const float* params, int X, int Y, int Z, int TY, int S,
            int n_ty, int L, int threads, int fuse, float dt,
@@ -113,7 +118,7 @@ int launch(const void* u, const void* v, const void* w, void* ou, void* ov,
   // the kernel stages nine slabs: 3 fields x slices x-1, x, x+1
   if (smem_bytes < (size_t)9 * S * Z * sizeof(E))
     return (int)cudaErrorInvalidValue;
-  auto kern = advect_blocked_kernel<E, CB>;
+  auto kern = advect_blocked_kernel<E, CB, VEC>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -125,9 +130,9 @@ int launch(const void* u, const void* v, const void* w, void* ou, void* ov,
   return (int)cudaGetLastError();
 }
 
-template <typename E, bool CB>
+template <typename E, bool CB, int VEC>
 int attrs(int threads, size_t smem_bytes, int* out) {
-  const void* fn = (const void*)advect_blocked_kernel<E, CB>;
+  const void* fn = (const void*)advect_blocked_kernel<E, CB, VEC>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -158,42 +163,51 @@ extern "C" int advect_blocked_f32(const float* u, const float* v,
                                   int Y, int Z, int TY, int S, int n_ty,
                                   int L, int threads, int fuse, float dt,
                                   size_t smem_bytes, void* stream) {
-  return launch<float, false>(u, v, w, ou, ov, ow, params, X, Y, Z, TY, S,
-                              n_ty, L, threads, fuse, dt, smem_bytes,
-                              (cudaStream_t)stream);
+  return launch<float, false, 1>(u, v, w, ou, ov, ow, params, X, Y, Z, TY, S,
+                                 n_ty, L, threads, fuse, dt, smem_bytes,
+                                 (cudaStream_t)stream);
 }
 
 // advect_blocked_f32 on bf16 fields (smem_bytes = 9 * S * Z * 2), with
 // coef_bf16 nonzero where the coefficients in the f32 row are bf16 values
-// (each product with one rounds to bf16); dt is the bf16 value of dt.
+// (each product with one rounds to bf16); dt is the bf16 value of dt. pairs
+// nonzero runs the pair build (two cells a 32-bit word: Z even, every field
+// on a 4-byte boundary), else the one-cell build.
 extern "C" int advect_blocked_bf16(const void* u, const void* v,
                                    const void* w, void* ou, void* ov,
                                    void* ow, const float* params, int X,
                                    int Y, int Z, int TY, int S, int n_ty,
-                                   int L, int threads, int fuse,
+                                   int L, int threads, int pairs, int fuse,
                                    int coef_bf16, float dt,
                                    size_t smem_bytes, void* stream) {
+  using B = __nv_bfloat16;
+  if (pairs && Z % 2) return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
-  if (coef_bf16)
-    return launch<__nv_bfloat16, true>(u, v, w, ou, ov, ow, params, X, Y, Z,
-                                       TY, S, n_ty, L, threads, fuse, dt,
-                                       smem_bytes, s);
-  return launch<__nv_bfloat16, false>(u, v, w, ou, ov, ow, params, X, Y, Z,
-                                      TY, S, n_ty, L, threads, fuse, dt,
-                                      smem_bytes, s);
+  auto run = [&](auto fn) {
+    return fn(u, v, w, ou, ov, ow, params, X, Y, Z, TY, S, n_ty, L, threads,
+              fuse, dt, smem_bytes, s);
+  };
+  if (pairs)
+    return coef_bf16 ? run(launch<B, true, 2>) : run(launch<B, false, 2>);
+  return coef_bf16 ? run(launch<B, true, 1>) : run(launch<B, false, 1>);
 }
 
 // What the card says of the kernel at `threads` and `smem_bytes`: out =
 // [registers per thread, local (spill) bytes per thread, most threads per
 // block, resident blocks per SM]. Returns a cudaError_t.
 extern "C" int advect_blocked_attrs(int threads, size_t smem_bytes, int* out) {
-  return attrs<float, false>(threads, smem_bytes, out);
+  return attrs<float, false, 1>(threads, smem_bytes, out);
 }
 
-// advect_blocked_attrs of the bf16 build, f32 (coef_bf16 = 0) or bf16
-// coefficients.
-extern "C" int advect_blocked_bf16_attrs(int coef_bf16, int threads,
-                                         size_t smem_bytes, int* out) {
-  return coef_bf16 ? attrs<__nv_bfloat16, true>(threads, smem_bytes, out)
-                   : attrs<__nv_bfloat16, false>(threads, smem_bytes, out);
+// advect_blocked_attrs of the bf16 builds: f32 (coef_bf16 = 0) or bf16
+// coefficients, the pair or the one-cell build.
+extern "C" int advect_blocked_bf16_attrs(int coef_bf16, int pairs,
+                                         int threads, size_t smem_bytes,
+                                         int* out) {
+  using B = __nv_bfloat16;
+  if (pairs)
+    return coef_bf16 ? attrs<B, true, 2>(threads, smem_bytes, out)
+                     : attrs<B, false, 2>(threads, smem_bytes, out);
+  return coef_bf16 ? attrs<B, true, 1>(threads, smem_bytes, out)
+                   : attrs<B, false, 1>(threads, smem_bytes, out);
 }

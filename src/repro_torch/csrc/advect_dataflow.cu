@@ -48,9 +48,14 @@
 //
 // bf16 fields (E = __nv_bfloat16): the ring holds 2-byte cells as cp.async
 // lands them, so its bytes halve and the plan (`rung_launch_plan` at
-// itemsize 2) takes the tile for that; `wide` moves 16-byte vectors of 8
-// cells (Z % 8 == 0). The arithmetic rounds as pw_source.cuh says, with f32
-// or bf16 coefficients (CB).
+// itemsize 2) takes the tile for that. The arithmetic rounds as
+// pw_source.cuh says, with f32 or bf16 coefficients (CB). `wide` moves
+// 16-byte vectors of 8 cells (Z % 8 == 0) and computes them as four 32-bit
+// words of two cells, each bf16 op of a word one bf16x2 instruction. The
+// 4-byte build does the same for one word (VEC = 2) where Z is even and
+// every field starts on a 4-byte boundary (the wrapper's choice, before the
+// launch), and elsewhere computes one cell (VEC = 1), each bf16 op an f32
+// op rounded by `rpk`; both move 4-byte words.
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -115,7 +120,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) advect_dataflow_kernel(
     for (int k = threadIdx.x; k < n_vec; k += blockDim.x) {
       const int c0 = own_r0 * Z + k * VEC;
       const int r = c0 / Z;
-      rung_cells<E, CB, VEC>(sl, c0, c0 - r * Z,
+      rung_run<E, CB, VEC>(sl, c0, c0 - r * Z,
                              x_ok && r >= 1 && r <= S - 2, Z, pr, fuse != 0,
                              dt, out, dst_off + (size_t)k * VEC);
     }
@@ -192,17 +197,22 @@ extern "C" int advect_dataflow_f32(const float* u, const float* v,
 }
 
 // advect_dataflow_f32 on bf16 fields (smem_bytes = 3 * R * S * Z * 2): vec
-// nonzero is `wide`, 16-byte moves of 8 cells (Z % 8 == 0, 16-byte-aligned
-// fields); coef_bf16 nonzero where the coefficients in the f32 row are bf16
-// values (each product with one rounds to bf16); dt is the bf16 value of dt.
+// nonzero is `wide`, 16-byte moves of 8 cells, four pairs (Z % 8 == 0,
+// 16-byte-aligned fields); else pairs nonzero runs the pair build (two cells
+// a 32-bit word: Z even, every field on a 4-byte boundary), pairs zero the
+// one-cell build. coef_bf16 nonzero where the coefficients in the f32 row
+// are bf16 values (each product with one rounds to bf16); dt is the bf16
+// value of dt.
 extern "C" int advect_dataflow_bf16(const void* u, const void* v,
                                     const void* w, void* ou, void* ov,
                                     void* ow, const float* params, int X,
                                     int Y, int Z, int TY, int S, int n_ty,
                                     int L, int R, int threads, int vec,
-                                    int fuse, int coef_bf16, float dt,
-                                    size_t smem_bytes, void* stream) {
+                                    int pairs, int fuse, int coef_bf16,
+                                    float dt, size_t smem_bytes,
+                                    void* stream) {
   using B = __nv_bfloat16;
+  if ((vec && !pairs) || (pairs && Z % 2)) return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   auto run = [&](auto fn) {
     return fn(u, v, w, ou, ov, ow, params, X, Y, Z, TY, S, n_ty, L, R,
@@ -211,6 +221,8 @@ extern "C" int advect_dataflow_bf16(const void* u, const void* v,
   if (vec)
     return coef_bf16 ? run(launch<B, true, kBf16Vec>)
                      : run(launch<B, false, kBf16Vec>);
+  if (pairs)
+    return coef_bf16 ? run(launch<B, true, 2>) : run(launch<B, false, 2>);
   return coef_bf16 ? run(launch<B, true, 1>) : run(launch<B, false, 1>);
 }
 
@@ -223,15 +235,19 @@ extern "C" int advect_dataflow_attrs(int vec4, int threads, size_t smem_bytes,
               : attrs<float, false, 1>(threads, smem_bytes, out);
 }
 
-// advect_dataflow_attrs of the bf16 builds (vec: `wide`), with f32
-// (coef_bf16 = 0) or bf16 coefficients.
-extern "C" int advect_dataflow_bf16_attrs(int vec, int coef_bf16,
+// advect_dataflow_attrs of the bf16 builds (vec: `wide`, four pairs a
+// thread; else pairs or one cell), with f32 (coef_bf16 = 0) or bf16
+// coefficients.
+extern "C" int advect_dataflow_bf16_attrs(int vec, int pairs, int coef_bf16,
                                           int threads, size_t smem_bytes,
                                           int* out) {
   using B = __nv_bfloat16;
   if (vec)
     return coef_bf16 ? attrs<B, true, kBf16Vec>(threads, smem_bytes, out)
                      : attrs<B, false, kBf16Vec>(threads, smem_bytes, out);
+  if (pairs)
+    return coef_bf16 ? attrs<B, true, 2>(threads, smem_bytes, out)
+                     : attrs<B, false, 2>(threads, smem_bytes, out);
   return coef_bf16 ? attrs<B, true, 1>(threads, smem_bytes, out)
                    : attrs<B, false, 1>(threads, smem_bytes, out);
 }

@@ -1,9 +1,14 @@
 // The routes by which a bf16 ring can round an f32 result to bf16, each
 // alone: an exhaustive check against `__float2bfloat16_rn` and a throughput
-// kernel per route. K1/K5 (advect_fused.cuh) and K6 (stencil_fused.cuh)
-// round by route 6, cells.cuh's `rpk<true>`, which the route below calls;
-// the v1-v3 rungs by route 0 (`rnd<true>`); the others are measured here
-// and used nowhere.
+// kernel per route. K1/K5 (advect_fused.cuh), K6 (stencil_fused.cuh) and
+// the v1-v3 rungs' one-cell build (pw_source.cuh) round by route 6,
+// cells.cuh's `rpk<true>`, which the route below calls; the others are
+// measured here and used nowhere.
+//
+// And the bf16x2 ops the rungs' pair build computes with (cells.cuh's
+// `b2_add`, `b2_sub`, `b2_mul`, `op` of the pair entry points 0, 1, 2):
+// each checked on all 2^32 pairs of bf16 operands against `rpk<true>` of
+// the f32 op, the sign of zero included and NaN as NaN, and timed alone.
 //
 // Routes (`route` of the entry points):
 //   0 cvt         `__float2bfloat16_rn`, widened: one `F2F.BF16.F32` a
@@ -209,6 +214,86 @@ __global__ void check_kernel(unsigned long long* __restrict__ count) {
   if ((threadIdx.x & 31) == 0) atomicAdd(count, n);
 }
 
+// ---------------------------------------------------------------------------
+// the bf16x2 ops
+// ---------------------------------------------------------------------------
+
+template <int OP>
+__device__ __forceinline__ unsigned pair_op(unsigned a, unsigned b) {
+  return OP == 0 ? b2_add(a, b) : OP == 1 ? b2_sub(a, b) : b2_mul(a, b);
+}
+
+// the reference's bf16 op: the f32 op of the widened operands, rounded
+template <int OP>
+__device__ __forceinline__ float f32_op(float a, float b) {
+  return rpk<true>(OP == 0   ? __fadd_rn(a, b)
+                   : OP == 1 ? __fsub_rn(a, b)
+                             : __fmul_rn(a, b));
+}
+
+// lane `half` (a bf16 in the low 16 bits) equals the reference's op of the
+// bf16 patterns a and b: the same bits, or NaN where it gives NaN
+template <int OP>
+__device__ __forceinline__ bool pair_agrees(unsigned half, unsigned a,
+                                            unsigned b) {
+  const float want = f32_op<OP>(__uint_as_float(a << 16),
+                                __uint_as_float(b << 16));
+  const float got = __uint_as_float(half << 16);
+  return want != want ? got != got
+                      : __float_as_uint(got) == __float_as_uint(want);
+}
+
+// every pair of bf16 patterns once: step p in [0, 2^31) puts a = p >> 15
+// in both lanes and b = p & 0x7fff, b | 0x8000 (its negative) in the low
+// and high lanes of one instruction
+template <int OP>
+__global__ void pair_check_kernel(unsigned long long* __restrict__ count) {
+  unsigned long long n = 0;
+  const unsigned stride = gridDim.x * blockDim.x;
+  for (unsigned p = blockIdx.x * blockDim.x + threadIdx.x; p < 0x80000000u;
+       p += stride) {
+    const unsigned a = p >> 15, b = p & 0x7fffu, nb = b | 0x8000u;
+    const unsigned got = pair_op<OP>(a | (a << 16), b | (nb << 16));
+    n += pair_agrees<OP>(got & 0xffffu, a, b) +
+         pair_agrees<OP>(got >> 16, a, nb);
+  }
+  for (int o = 16; o > 0; o >>= 1) n += __shfl_down_sync(0xffffffffu, n, o);
+  if ((threadIdx.x & 31) == 0) atomicAdd(count, n);
+}
+
+// NCH independent chains of words a thread, each step v = op(v, d): one
+// instruction, two ops
+template <int OP>
+__global__ void pair_rate_kernel(int iters, float d, float* __restrict__ sink,
+                                 unsigned long long* __restrict__ clk) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool timer = g == 0;
+  unsigned long long c0 = 0, t0 = 0;
+  if (timer) {
+    c0 = clock64();
+    t0 = global_ns();
+  }
+  const unsigned dd = bf16_pack(d, d);
+  unsigned v[NCH];
+#pragma unroll
+  for (int i = 0; i < NCH; ++i) {
+    const float x = 1.0f + (float)((g * NCH + i) & 1023) * 0x1p-10f;
+    v[i] = bf16_pack(x, x);
+  }
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < NCH; ++i) v[i] = pair_op<OP>(v[i], dd);
+  }
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NCH; ++i) s += bf16_lo(v[i]) + bf16_hi(v[i]);
+  sink[g] = s;
+  if (timer) {
+    clk[0] = clock64() - c0;
+    clk[1] = global_ns() - t0;
+  }
+}
+
 using RateFn = void (*)(int, float, float*, unsigned long long*);
 using CheckFn = void (*)(unsigned long long*);
 constexpr int kRoutes = 7;
@@ -219,6 +304,13 @@ const CheckFn kCheck[kRoutes] = {check_kernel<0>, check_kernel<1>,
                                  check_kernel<2>, check_kernel<3>,
                                  check_kernel<4>, check_kernel<5>,
                                  check_kernel<6>};
+
+constexpr int kPairOps = 3;
+const RateFn kPairRate[kPairOps] = {pair_rate_kernel<0>, pair_rate_kernel<1>,
+                                    pair_rate_kernel<2>};
+const CheckFn kPairCheck[kPairOps] = {pair_check_kernel<0>,
+                                      pair_check_kernel<1>,
+                                      pair_check_kernel<2>};
 
 }  // namespace
 
@@ -248,3 +340,27 @@ extern "C" int bf16_round_rate(int route, int blocks, int threads, int iters,
 
 // rounds of one step of each chain a thread
 extern "C" int bf16_round_chains() { return NCH; }
+
+// Adds to *count (device, zeroed by the caller) the pairs of bf16 operands
+// of all 2^32 whose bf16x2 op `op` (0 add, 1 sub, 2 mul) equals `rpk<true>`
+// of the f32 op (NaN as NaN).
+extern "C" int bf16_pair_check(int op, unsigned long long* count, int blocks,
+                               void* stream) {
+  if (op < 0 || op >= kPairOps || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  kPairCheck[op]<<<blocks, 256, 0, (cudaStream_t)stream>>>(count);
+  return (int)cudaGetLastError();
+}
+
+// blocks x threads threads, each NCH chains of `iters` bf16x2 ops `op` (two
+// ops an instruction) by d; sink and clk as bf16_round_rate's.
+extern "C" int bf16_pair_rate(int op, int blocks, int threads, int iters,
+                              float d, float* sink, unsigned long long* clk,
+                              void* stream) {
+  if (op < 0 || op >= kPairOps || blocks < 1 || threads < 32 ||
+      threads > 1024)
+    return (int)cudaErrorInvalidValue;
+  kPairRate[op]<<<blocks, threads, 0, (cudaStream_t)stream>>>(iters, d, sink,
+                                                              clk);
+  return (int)cudaGetLastError();
+}

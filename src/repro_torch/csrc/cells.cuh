@@ -1,7 +1,7 @@
 // What the stencil kernels (advect_fused.cuh, advect_blocked.cu,
 // advect_dataflow.cu, finite_guard.cu) share of their storage types: a cell
 // is a float (f32 fields) or an __nv_bfloat16 (bf16 fields), and every
-// kernel computes in f32 registers.
+// kernel computes in f32 registers, or in bf16 pairs (below).
 //
 // The rounding contract of bf16 fields is the reference's: JAX promotes a
 // bf16 op's operands and rounds its result to bf16, so a bf16 op here is the
@@ -12,14 +12,16 @@
 //
 // `rnd` rounds by `__float2bfloat16_rn`, which the card runs as
 // `F2F.BF16.F32` on its conversion unit, 16 a clock per SM: a ring with a
-// round in every op queues on it. K1/K5 (advect_fused.cuh) and K6
-// (stencil_fused.cuh, its functors) round by `rpk` instead, which gives
-// the same value by another instruction: one `cvt.rn.bf16x2.f32` of the
-// value and 0.0f (`F2FP.BF16.F32.PACK_AB`), whose 32-bit result holds the
-// value's bf16 in its high half and zero in its low half, and so is that
-// bf16 value as an f32, with no widening after it. The v1-v3 rungs
-// (pw_source.cuh) keep `rnd`. `csrc/bf16_round.cu` measures both and the
-// other routes, and checks each on all 2^32 f32 bit patterns.
+// round in every op queues on it. The kernels round by `rpk` instead, which
+// gives the same value by another instruction: one `cvt.rn.bf16x2.f32` of
+// the value and 0.0f (`F2FP.BF16.F32.PACK_AB`), whose 32-bit result holds
+// the value's bf16 in its high half and zero in its low half, and so is
+// that bf16 value as an f32, with no widening after it. The v1-v3 rungs
+// (pw_source.cuh) compute two cells a 32-bit word where they can, each bf16
+// op of both by one bf16x2 instruction (`b2_add`, `b2_sub`, `b2_mul`), and
+// round by `rpk` elsewhere. `csrc/bf16_round.cu` measures these and the
+// other routes, and checks each rounding route on all 2^32 f32 bit patterns
+// and each bf16x2 op on all 2^32 pairs of bf16 operands.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -79,4 +81,37 @@ __device__ __forceinline__ float rpk(float x) {
     return __uint_as_float(bf16_pack(0.0f, x));
   else
     return x;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 pairs: two bf16 values a 32-bit word, the low half first
+// ---------------------------------------------------------------------------
+//
+// One bf16x2 instruction computes both lanes' exact results, each rounded
+// once to bf16, nearest even. Where the f32 op rounds first, the double
+// rounding is innocuous for +, - and * of bf16 operands (f32's 24 bits are
+// at least 2 * 8 + 2), so each lane equals `rpk<true>` of the f32 op: the
+// reference's bf16 op. `csrc/bf16_round.cu` checks that on all 2^32 operand
+// pairs, the sign of zero included and NaN as NaN. The `_rn` intrinsics
+// (`add.rn.bf16x2`, `sub.rn.bf16x2`, `mul.rn.bf16x2` on sm_90) are never
+// contracted into a fused multiply-add, whatever --fmad says.
+
+__device__ __forceinline__ __nv_bfloat162 b2_of(unsigned word) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&word);
+}
+
+__device__ __forceinline__ unsigned word_of(__nv_bfloat162 h) {
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+__device__ __forceinline__ unsigned b2_add(unsigned a, unsigned b) {
+  return word_of(__hadd2_rn(b2_of(a), b2_of(b)));
+}
+
+__device__ __forceinline__ unsigned b2_sub(unsigned a, unsigned b) {
+  return word_of(__hsub2_rn(b2_of(a), b2_of(b)));
+}
+
+__device__ __forceinline__ unsigned b2_mul(unsigned a, unsigned b) {
+  return word_of(__hmul2_rn(b2_of(a), b2_of(b)));
 }

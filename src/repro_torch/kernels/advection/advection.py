@@ -1022,7 +1022,11 @@ _RUNG_KNOBS = {
     "advect_dataflow": _RungKnobs(4, True, 2),
     "advect_wide": _RungKnobs(4, True, 2)}
 RUNG_MAX_THREADS = 512      # the rung kernels' launch bound
-RUNG_CELLS_PER_THREAD = 4   # owned cells of a slice each thread computes
+# owned cells of a slice each thread computes, by the fields' itemsize: 16
+# bytes of them either way (K3's bf16 tile at 256 threads fits five blocks
+# an SM where 512 fit two, 0.4454-0.4466 ms of device time against
+# 0.5620-0.5728 at 67M on one H100, PERF.md)
+RUNG_CELLS_PER_THREAD = {4: 4, 2: 8}
 
 
 class RungPlan(NamedTuple):
@@ -1093,8 +1097,9 @@ def _rung_block(name: str, Y: int, Z: int, y_tile: Optional[int],
     sub-tiles no taller: TY / k rows for the least k dividing TY, so that
     the caller's tile edges stay tile edges. y-tiling is bitwise invariant
     (the port's grid-tiled == untiled contract), so the result is the same
-    bits. Threads: `RUNG_CELLS_PER_THREAD` owned cells each, in whole warps,
-    at most `RUNG_MAX_THREADS`. `itemsize`: the fields' (4 f32, 2 bf16)."""
+    bits. Threads: `RUNG_CELLS_PER_THREAD[itemsize]` owned cells each, in
+    whole warps, at most `RUNG_MAX_THREADS`. `itemsize`: the fields' (4
+    f32, 2 bf16)."""
     knobs = _RUNG_KNOBS[name]
     own = _rung_own_tile(knobs, Y, Z, name, itemsize)
     TY, S, n_ty = _grid_geometry(Y, own if y_tile is None else y_tile, 1)
@@ -1102,7 +1107,7 @@ def _rung_block(name: str, Y: int, Z: int, y_tile: Optional[int],
         k = next(k for k in range(2, TY + 1) if TY % k == 0 and TY // k <= own)
         TY, S, n_ty = _grid_geometry(Y, TY // k, 1)
     check_launch_grid((1, n_ty, 1), name)
-    threads = -(-TY * Z // RUNG_CELLS_PER_THREAD)
+    threads = -(-TY * Z // RUNG_CELLS_PER_THREAD[itemsize])
     threads = min(max(-(-threads // 32) * 32, 32), RUNG_MAX_THREADS)
     return _RungBlock(TY, S, n_ty, threads,
                       _rung_shared(knobs, S, Z, itemsize))
@@ -1134,22 +1139,34 @@ def rung_launch_plan(name: str, X: int, Y: int, Z: int, n_sm: int,
                     blk.threads, grid, blk.shared, blocks_per_sm)
 
 
+def rung_pairs(u, v, w) -> bool:
+    """Whether a bf16 rung runs its pair build on these fields: each thread
+    computes the two cells of a 32-bit word, each bf16 op of both one
+    bf16x2 instruction, which needs Z even and every field on a 4-byte
+    boundary. Elsewhere (odd Z, a field 2 bytes past a boundary) the
+    one-cell build runs; f32 fields have no pair build. `advect_wide`'s
+    fields always qualify (Z % 8 == 0, 16-byte boundaries)."""
+    return (u.dtype == torch.bfloat16 and u.shape[-1] % 2 == 0
+            and all(base_address(f) % 4 == 0 for f in (u, v, w)))
+
+
 @functools.lru_cache(maxsize=64)
 def _rung_attrs_cached(index: int, name: str, threads: int, shared: int,
-                       build: Tuple[bool, bool] = (False, False)
-                       ) -> Tuple[int, int, int, int]:
+                       build: Tuple[bool, bool] = (False, False),
+                       pairs: bool = False) -> Tuple[int, int, int, int]:
     """The card's attributes of the rung's build; `build` is (bf16 fields,
-    bf16 coefficients)."""
+    bf16 coefficients), `pairs` the bf16 pair build (`rung_pairs`)."""
     lib = _build.load()
     out = (ctypes.c_int * 4)()
-    wide = int(name == "advect_wide")
+    wide, pairs = int(name == "advect_wide"), int(pairs)
     with torch.cuda.device(index):
         if name == "advect_blocked":
-            err = (lib.advect_blocked_bf16_attrs(int(build[1]), threads,
-                                                 shared, out) if build[0]
+            err = (lib.advect_blocked_bf16_attrs(int(build[1]), pairs,
+                                                 threads, shared, out)
+                   if build[0]
                    else lib.advect_blocked_attrs(threads, shared, out))
         elif build[0]:
-            err = lib.advect_dataflow_bf16_attrs(wide, int(build[1]),
+            err = lib.advect_dataflow_bf16_attrs(wide, pairs, int(build[1]),
                                                  threads, shared, out)
         else:
             err = lib.advect_dataflow_attrs(wide, threads, shared, out)
@@ -1160,16 +1177,21 @@ def _rung_attrs_cached(index: int, name: str, threads: int, shared: int,
 def rung_device_plan(device, name: str, X: int, Y: int, Z: int,
                      y_tile: Optional[int] = None,
                      x_chunk: Optional[int] = None, *, dtype=torch.float32,
-                     coef: bool = False) -> RungPlan:
+                     coef: bool = False,
+                     pairs: Optional[bool] = None) -> RungPlan:
     """`rung_launch_plan` on `device`'s card: its SM count, and the
     resident blocks per SM the card reports for the planned block of the
-    build for fields of `dtype` (bf16 with bf16 coefficients: `coef`)."""
+    build for fields of `dtype` (bf16 with bf16 coefficients: `coef`; the
+    pair build where `pairs`, by default where Z is even, as it runs on
+    fields on 4-byte boundaries)."""
     index = _device_index(device)
     n_sm = torch.cuda.get_device_properties(index).multi_processor_count
     itemsize = _itemsize(dtype)
     blk = _rung_block(name, Y, Z, y_tile, itemsize)
+    if pairs is None:
+        pairs = dtype == torch.bfloat16 and Z % 2 == 0
     per_sm = _rung_attrs_cached(index, name, blk.threads, blk.shared,
-                                _build_of(dtype, coef))[3]
+                                _build_of(dtype, coef), bool(pairs))[3]
     return rung_launch_plan(name, X, Y, Z, n_sm, per_sm, y_tile=y_tile,
                             x_chunk=x_chunk, itemsize=itemsize)
 
@@ -1177,12 +1199,14 @@ def rung_device_plan(device, name: str, X: int, Y: int, Z: int,
 def rung_kernel_attrs(device, name: str, plan: RungPlan, *,
                       dtype=torch.float32, coef: bool = False) -> dict:
     """What the card says of the kernel that runs `plan` (the build for
-    fields of `dtype`, bf16 coefficients where `coef`): registers and local
-    (spill) bytes per thread, the most threads a block of it can have, and
-    its resident blocks per SM at the plan's threads and shared bytes."""
+    fields of `dtype`, bf16 coefficients where `coef`; for bf16 the pair
+    build, which runs at even Z on fields on 4-byte boundaries): registers
+    and local (spill) bytes per thread, the most threads a block of it can
+    have, and its resident blocks per SM at the plan's threads and shared
+    bytes."""
     regs, local, most, per_sm = _rung_attrs_cached(
         _device_index(device), name, plan.threads, plan.shared_bytes,
-        _build_of(dtype, coef))
+        _build_of(dtype, coef), dtype == torch.bfloat16)
     return {"registers": regs, "local_bytes": local, "max_threads": most,
             "blocks_per_sm": per_sm}
 
@@ -1220,13 +1244,15 @@ def _advect_rung_cuda(name: str, u, v, w, p: AdvectParams,
     """Launch the blocked (K3) or dataflow/wide (K2) CUDA kernel on
     (X, Y, Z) fields, on `rung_device_plan`'s plan for this card at
     `y_tile` (None: the rung's own tile) with x chunks of `x_chunk` slices
-    where given."""
+    where given; bf16 fields run the pair build where `rung_pairs`, else
+    the one-cell build."""
     X, Y, Z = u.shape
     bf16, coef = u.dtype == torch.bfloat16, coef_bf16(p)
+    pairs = rung_pairs(u, v, w)
     _rung_block(name, Y, Z, y_tile, u.element_size())   # the refusals,
     lib = _build.load()                                  # before any build
     run = rung_device_plan(u.device, name, X, Y, Z, y_tile, x_chunk,
-                           dtype=u.dtype, coef=coef)
+                           dtype=u.dtype, coef=coef, pairs=pairs)
     # [tcx, tcy, 0, 0, tzc1(Z), tzc2(Z)] in f32: the z vectors start 16
     # bytes in, so `wide` reads each run of them in 16-byte loads
     pt = torch.cat([torch.stack([p.tcx, p.tcy]), p.tcx.new_zeros(2), p.tzc1,
@@ -1240,7 +1266,7 @@ def _advect_rung_cuda(name: str, u, v, w, p: AdvectParams,
         if name == "advect_blocked" and bf16:
             entry = "advect_blocked_bf16"
             err = lib.advect_blocked_bf16(*ptrs, *geometry, run.threads,
-                                          fuse, int(coef),
+                                          int(pairs), fuse, int(coef),
                                           step_dt(dt, u.dtype),
                                           run.shared_bytes, stream)
         elif name == "advect_blocked":
@@ -1250,8 +1276,9 @@ def _advect_rung_cuda(name: str, u, v, w, p: AdvectParams,
         elif bf16:
             entry = "advect_dataflow_bf16"
             err = lib.advect_dataflow_bf16(*ptrs, *geometry, run.planes,
-                                           run.threads, wide, fuse,
-                                           int(coef), step_dt(dt, u.dtype),
+                                           run.threads, wide, int(pairs),
+                                           fuse, int(coef),
+                                           step_dt(dt, u.dtype),
                                            run.shared_bytes, stream)
         else:
             entry = "advect_dataflow_f32"

@@ -220,3 +220,145 @@ def test_the_route_kernels_are_built_and_declared():
     src = (_build.CSRC / "bf16_round.cu").read_text()
     for i, route in enumerate(BR.ROUTES):
         assert f"//   {i} {route} " in src, route
+
+
+# --- the bf16x2 ops of the rungs' pair build -----------------------------------
+
+TORCH_OPS = {"add": torch.add, "sub": torch.sub, "mul": torch.mul}
+
+
+def bf16_of_f64(x: torch.Tensor) -> torch.Tensor:
+    """f64 values rounded to bf16 directly (not through f32): nearest even
+    at 8 significant bits, subnormals on bf16's grid of 2^-133, overflow to
+    Inf, NaN to the canonical NaN; the bf16 bit patterns as int64."""
+    ax = x.abs()
+    e = ((ax.view(torch.int64) >> 52) & 0x7FF) - 1023   # ax in [2^e, 2^e+1)
+    qe = torch.clamp(e - 7, min=-133)          # the bf16 quantum's exponent
+    quantum = ((qe + 1023) << 52).view(torch.float64)
+    val = torch.round(ax / quantum) * quantum  # exact scalings; half to even
+    val = torch.where((val >= 2.0 ** 128) | torch.isinf(ax), torch.inf, val)
+    bits = (val.float().view(torch.int32).to(torch.int64) >> 16) & 0x7FFF
+    bits |= torch.signbit(x).to(torch.int64) << 15
+    return torch.where(torch.isnan(x), 0x7FC0, bits)
+
+
+def bf16_values(bits: torch.Tensor) -> torch.Tensor:
+    """bf16 patterns (int64) as exact f32 values."""
+    return as_f32((bits & 0xFFFF) << 16)
+
+
+def structured_operands() -> torch.Tensor:
+    """+-0, the ends of the subnormals, both ends of every binade (the
+    largest finite value the last), +-Inf and NaN; the negative of every
+    eighth binade's ends too. bf16 patterns as int64."""
+    ends = [(e << 7) | m for e in range(1, 255) for m in (0x00, 0x7F)]
+    neg = [b | 0x8000 for b in ends[::16] + ends[1::16]]
+    special = [0x0000, 0x8000, 0x0001, 0x8001, 0x007F, 0x807F, 0x7F80,
+               0xFF80, 0x7FC0]
+    return torch.tensor(special + ends + neg, dtype=torch.int64)
+
+
+def same_or_both_nan(got: torch.Tensor, want: torch.Tensor) -> bool:
+    nan = (want & 0x7FFF) > 0x7F80
+    return bool(torch.equal((got & 0x7FFF) > 0x7F80, nan)
+                and torch.equal(got[~nan], want[~nan]))
+
+
+def f32_op_rounded(op: str, a: torch.Tensor, b: torch.Tensor):
+    """The reference's bf16 op: the f32 op of the operands, rounded to bf16
+    by torch's conversion (`rpk<true>`'s value); bf16 patterns."""
+    out = TORCH_OPS[op](bf16_values(a), bf16_values(b)).to(torch.bfloat16)
+    return out.view(torch.int16).to(torch.int64) & 0xFFFF
+
+
+def f64_op_rounded(op: str, a: torch.Tensor, b: torch.Tensor):
+    """The exact op's result rounded once to bf16: the f64 op (exact for *,
+    and for + and - its own rounding lies far below bf16's), rounded
+    directly."""
+    return bf16_of_f64(TORCH_OPS[op](bf16_values(a).double(),
+                                     bf16_values(b).double()))
+
+
+@pytest.mark.parametrize("op", list(TORCH_OPS))
+def test_the_f32_op_rounded_once_equals_the_f64_op_rounded_once(op):
+    """The premise of the pair build: for every bf16 value against the
+    structured operands, the f32 op rounded to bf16 equals the f64 op
+    rounded to bf16 (sub in both orders; add and mul commute in both), the
+    sign of zero included and NaN as NaN. f32's 24 bits are at least
+    2 * 8 + 2, so the f32 rounding never moves a result across a bf16
+    rounding boundary."""
+    every = torch.arange(1 << 16, dtype=torch.int64)[:, None]
+    for ops in structured_operands().split(32):
+        ops = ops[None, :]
+        orders = [(every, ops)] + ([(ops, every)] if op == "sub" else [])
+        for x, y in orders:
+            x, y = torch.broadcast_tensors(x, y)
+            assert same_or_both_nan(f32_op_rounded(op, x, y),
+                                    f64_op_rounded(op, x, y)), op
+
+
+def test_the_direct_f64_rounding_is_bf16_round_to_nearest_even():
+    """`bf16_of_f64` on values torch's f32 conversion rounds exactly (f64
+    values that are f32 values): the same bits, ties to even, subnormals,
+    overflow and NaN."""
+    x = as_f32(torch.cat([patterns("ties"), patterns("specials")]))
+    want = x.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+    assert same_or_both_nan(bf16_of_f64(x.double()), want)
+
+
+def pair_instruction(op: str, wa: torch.Tensor, wb: torch.Tensor):
+    """One bf16x2 instruction (`b2_add`, `b2_sub`, `b2_mul` of
+    `csrc/cells.cuh`) on 32-bit words as int64: each lane (the low half
+    first) the exact result rounded once to bf16, nearest even."""
+    lo = f64_op_rounded(op, wa & 0xFFFF, wb & 0xFFFF)
+    hi = f64_op_rounded(op, (wa >> 16) & 0xFFFF, (wb >> 16) & 0xFFFF)
+    return lo | (hi << 16)
+
+
+@pytest.mark.parametrize("kind", ("ties", "specials", "random"))
+@pytest.mark.parametrize("op", BR.PAIR_OPS)
+def test_pair_op_computes_each_lane_as_the_reference(op, kind):
+    """Words of two bf16 values (a seeded sample, the specials' and the
+    tie patterns as words): each lane of the pair op equals the reference's
+    bf16 op of that lane's operands."""
+    wa = patterns(kind) & MASK32
+    gen = torch.Generator().manual_seed(35)
+    wb = wa[torch.randperm(wa.numel(), generator=gen)]
+    got = pair_instruction(op, wa, wb)
+    for shift in (0, 16):
+        a, b = (wa >> shift) & 0xFFFF, (wb >> shift) & 0xFFFF
+        assert same_or_both_nan((got >> shift) & 0xFFFF,
+                                f32_op_rounded(op, a, b))
+
+
+def byte_perm(x: int, y: int, sel: int) -> int:
+    """`__byte_perm(x, y, sel)`: byte i of the result is byte (sel's nibble
+    i) of the eight bytes of x (0-3) and y (4-7)."""
+    src = x | (y << 32)
+    return sum(((src >> (8 * ((sel >> (4 * i)) & 0x7))) & 0xFF) << (8 * i)
+               for i in range(4))
+
+
+def test_the_z_neighbour_words_are_one_byte_permutation():
+    """`lds_z_pairs`: the word of cells (z - 1, z) is `__byte_perm(word
+    before, own word, 0x5432)`, the word of (z + 1, z + 2) `__byte_perm(own
+    word, word after, 0x5432)`."""
+    cells = list(range(0x3F80, 0x3F80 + 16))     # a row of 16 bf16 cells
+    words = [cells[2 * k] | (cells[2 * k + 1] << 16) for k in range(8)]
+    for k in range(1, 7):
+        z = 2 * k
+        assert byte_perm(words[k - 1], words[k], 0x5432) == \
+            cells[z - 1] | (cells[z] << 16)
+        assert byte_perm(words[k], words[k + 1], 0x5432) == \
+            cells[z + 1] | (cells[z + 2] << 16)
+
+
+def test_the_pair_ops_are_built_and_declared():
+    for name in ("bf16_pair_check", "bf16_pair_rate"):
+        assert name in _build.SIGNATURES
+    assert BR.PAIR_OPS == ("add", "sub", "mul")
+    src = (_build.CSRC / "bf16_round.cu").read_text()
+    cells = (_build.CSRC / "cells.cuh").read_text()
+    for op, intrinsic in (("add", "__hadd2_rn"), ("sub", "__hsub2_rn"),
+                          ("mul", "__hmul2_rn")):
+        assert f"b2_{op}" in src and intrinsic in cells

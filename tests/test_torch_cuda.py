@@ -1615,15 +1615,18 @@ def test_bf16_guard_kernel_equals_plain(cuda, shape):
 
 
 @pytest.mark.parametrize("coef", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(6, 10, 16), (5, 17, 12), (8, 12, 24)])
+@pytest.mark.parametrize("shape", [(6, 10, 16), (5, 17, 12), (8, 12, 24),
+                                   (6, 10, 15)])
 @pytest.mark.parametrize("name", ["advect_blocked", "advect_dataflow",
                                   "advect_wide"])
 def test_bf16_rung_kernels_bitwise_equal_plain(cuda, shape, name, coef):
+    """The pair build at even Z, the one-cell build at odd Z."""
     if name == "advect_wide" and shape[2] % 8:
         with pytest.raises(ValueError, match=r"Z % 8"):
             TK.advect_wide(*bf16_inputs(shape, 90, cuda, coef))
         return
     u, v, w, p = bf16_inputs(shape, 90, cuda, coef)
+    assert TK.rung_pairs(u, v, w) == (shape[2] % 2 == 0)
     fn = getattr(TK, name)
     for fu in (False, True):
         before = TK.LAUNCHES[name]
@@ -1642,20 +1645,54 @@ def test_bf16_rung_kernels_bitwise_equal_plain(cuda, shape, name, coef):
             assert all(torch.equal(a, b) for a, b in zip(chunked, plain))
 
 
+def offset_copies(fields):
+    """Copies of `fields` starting 2 bytes past an allocation."""
+    out = []
+    for f in fields:
+        buf = torch.empty(f.numel() + 1, device=f.device, dtype=f.dtype)
+        out.append(buf[1:].view(f.shape))
+        out[-1].copy_(f)
+    return out
+
+
 def test_bf16_rungs_on_fields_two_bytes_past_an_allocation(cuda):
     shape = (5, 9, 12)
     u, v, w, p = bf16_inputs(shape, 95, cuda, "bf16")
-    n = u.numel()
-    off = []
-    for f in (u, v, w):
-        buf = torch.empty(n + 1, device=cuda, dtype=torch.bfloat16)
-        off.append(buf[1:].view(shape))
-        off[-1].copy_(f)
+    off = offset_copies((u, v, w))
+    assert not TK.rung_pairs(*off)
     for name in ("advect_blocked", "advect_dataflow"):
         got = getattr(TK, name)(*off, p, fuse_update=True, dt=DT)
         plain = TK._advect_rung_plain(u, v, w, p, True, DT)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+@pytest.mark.parametrize("coef", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(6, 10, 16), (7, 9, 14), (6, 10, 15),
+                                   (5, 9, 13)])
+@pytest.mark.parametrize("name", ["advect_blocked", "advect_dataflow"])
+def test_bf16_rung_pair_and_one_cell_builds_equal_plain(cuda, name, shape,
+                                                        coef):
+    """Both builds of a 4-byte rung on the same values: the pair build
+    where the fields sit on 4-byte boundaries at even Z, the one-cell build
+    on copies 2 bytes past an allocation and at odd Z, each == plain
+    bitwise, sources and `fuse_update`, tiled and in x chunks."""
+    u, v, w, p = bf16_inputs(shape, 97, cuda, coef)
+    off = offset_copies((u, v, w))
+    assert TK.rung_pairs(u, v, w) == (shape[2] % 2 == 0)
+    assert not TK.rung_pairs(*off)
+    for fu in (False, True):
+        plain = TK._advect_rung_plain(u, v, w, p, fu, DT)
+        for flds in ((u, v, w), off):
+            got = getattr(TK, name)(*flds, p, fuse_update=fu, dt=DT)
+            tiled = getattr(TK, name)(*flds, p, y_tile=3, fuse_update=fu,
+                                      dt=DT)
+            chunked = TK._advect_rung_cuda(name, *flds, p, 4, fu, DT,
+                                           x_chunk=2)
+            torch.cuda.synchronize()
+            for out in (got, tiled, chunked):
+                assert all(a.dtype == torch.bfloat16 and torch.equal(a, b)
+                           for a, b in zip(out, plain))
 
 
 # ---------------------------------------------------------------------------
