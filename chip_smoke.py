@@ -17,6 +17,7 @@
     python3 chip_smoke.py --only spec_codegen      # phases 43-46 alone
     python3 chip_smoke.py --only bf16_round        # phases 47-49 alone
     python3 chip_smoke.py --only bf16_times        # phase 49's times alone
+    python3 chip_smoke.py --only sharding          # phase 50 alone
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 
@@ -388,7 +389,30 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    and f32 rungs as controls, each build's registers, spills and resident
    blocks, none of which may spill.
 
+50. the sharding layer (`distributed.sharding`: the logical-axis rules as
+   DTensor placements). 50a, on one card, a (1, 1) `DeviceMesh` over a
+   single-rank NCCL group: the full-width `qwen2.5-14b` bf16 `pallas`
+   prefill of phase 9's prompt through `make_prefill_step(cfg, layout,
+   rules, mesh)` == the plain step bitwise (last-position logits, caches),
+   K8 48 times, each call's host and wall time (DTensor's dispatch cost),
+   then K8 timed again for the kernels line with the sharded prefill's
+   launches; `train_loop` on `qwen3-32b` at full width, 2 of 64 layers,
+   `flash`, remat, 3 steps of 8 x 128, plain and then under the rules on
+   the mesh (each run freed before the next): losses, gradient norms and
+   final params bitwise. 50b, with two or more cards, one NCCL rank a card
+   (`torch.multiprocessing.spawn`): `qwen2.5-14b` prefills at tp = 2 (4 kv
+   groups a rank; f32 at 48 layers within `PREFILL_F32_TOL` of 50a's tp =
+   1 logits, bf16 at 2 layers within `PREFILL_BF16_REL_TOL`, bf16 at 48
+   printed; K8 once a layer on every rank), `pipeline_apply` over the
+   ranks == the sequential stack bitwise, `compressed_psum` == a host
+   recomputation (residuals bitwise, means within the CPU test's bound);
+   with one card it prints "sharding across cards: skipped, 1 card
+   visible".
+
 Each phase prints its seconds.
+
+`--only sharding` runs phase 50 alone (its kernels line holds K8 with the
+sharded prefill's launches); on four cards it is the call that runs 50b.
 
 `--only bf16_round` runs phases 47-49 alone; `--only bf16_times` phase 49
 alone, with entry points the port has had since phases 44-46 came, so
@@ -6907,6 +6931,392 @@ def rounding_phases(check: Checks, card: str) -> None:
               f"({spilled} B)")
 
 
+# --- phase 50: the sharding layer --------------------------------------------
+
+SHARD_TP = 2                 # 50b: qwen2.5-14b's 8 kv heads, 4 a rank
+SHARD_TRAIN_DEPTH = 2        # of 64 qwen3-32b layers (50a)
+SHARD_TRAIN_STEPS = 3
+SHARD_REF = ROOT / "build" / "sharding_ref.pt"   # 50a's tp = 1 logits
+SHARD_DIR = ROOT / "build" / "sharding"          # 50b's store and results
+PIPE_SHAPE = (8, 1024, 6, 64)    # layers, width, micro-batches, rows
+PSUM_N = 1 << 20                 # elements of 50b's compressed gradient
+PSUM_STEPS = 2
+
+
+def psum_mean_rel(n: int) -> float:
+    """The CPU test's bound on |mean - host mean| / |host mean| of
+    `compressed_psum` over n ranks: two orders of the scale sum differ by
+    2(n-1) units of rounding, and the product rounds once on each side
+    (exact divisions by n, a power of two)."""
+    return (2 * (n - 1) + 2) * 2.0 ** -24
+
+
+def prefill_tokens(vocab: int) -> torch.Tensor:
+    """Phase 9's prompt."""
+    return torch.as_tensor(np.random.default_rng(0).integers(
+        0, vocab, (1, PREFILL_TOKENS)), device="cuda")
+
+
+def timed_prefill(step, params, batch, calls: int = 2):
+    """`calls` prefills (the first pays DTensor's sharding propagation);
+    returns (the last one's logits and caches, [(host s, wall s)] a call,
+    the last call's launch counts). Host: until the call returns; wall:
+    until the card is done."""
+    times = []
+    for _ in range(calls):
+        reset_all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = step(params, batch)
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        times.append((host, time.perf_counter() - t0))
+        counts = all_counts()
+    return logits, caches, times, counts
+
+
+def times_text(times) -> str:
+    return ", ".join(f"call {i + 1}: host {h * 1e3:.2f} ms, wall "
+                     f"{w * 1e3:.2f} ms" for i, (h, w) in enumerate(times))
+
+
+def one_card_mesh():
+    """A (1, 1) `DeviceMesh` on card 0 over a single-rank NCCL group (its
+    store a `HashStore`: no address, no port)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as TMESH
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1,
+                                device_id=torch.device("cuda", 0))
+    return TMESH.make_host_mesh(model=1, device="cuda")
+
+
+def shard_prefill_phase(check: Checks, card: str, mesh) -> dict:
+    """50a, prefill: qwen2.5-14b at full width and depth (f32 weights drawn
+    on the card, bf16 compute, `pallas`) on phase 9's 2048-token prompt,
+    the plain step, then the sharded step on the (1, 1) mesh (params
+    placed, no copy): last-position logits and caches bitwise, K8 48
+    times on each, each call's host and wall time. Saves the tp = 1
+    last-position logits 50b holds its tp = 2 runs to. Returns a kernel
+    record of K8 with the sharded prefill's launches."""
+    from repro_torch.distributed.sharding import make_rules
+    cfg = get_config(SERVE_ARCH).replace(attention_impl="pallas")
+    layout = M.make_layout(cfg, 1)
+    rules = make_rules(multi_pod=False)
+    params = random_params(cfg, "cuda")
+    batch = {"inputs": prefill_tokens(cfg.vocab_size)}
+    tag = (f"50a {cfg.name} prefill {PREFILL_TOKENS} tokens, bf16 compute, "
+           f"{cfg.n_layers} layers")
+    got = {}
+    for name in ("plain", "sharded"):
+        if name == "plain":
+            step, p = TS.make_prefill_step(cfg, layout), params
+        else:
+            step = TS.make_prefill_step(cfg, layout, rules, mesh)
+            p = PS.place_tree(params, M.param_specs(cfg, layout), rules, mesh)
+        logits, caches, times, counts = timed_prefill(step, p, batch)
+        logits, caches = PS.gather_tree(logits), PS.gather_tree(caches)
+        got[name] = (logits.clone(), digest(caches), times, counts)
+        print(f"{tag}, {name} step: {times_text(times)}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        del logits, caches, p
+        torch.cuda.empty_cache()
+    (lp, dp, tp_, cp), (ls, ds, ts, cs) = got["plain"], got["sharded"]
+    check(torch.equal(lp, ls) and dp == ds,
+          f"{tag}: the sharded step on the (1, 1) mesh == the plain step, "
+          f"bitwise (last-position logits, caches by digest)")
+    n_tc = cs.pop("flash_attention_tc")
+    n_k8 = cs.pop("flash_attention")
+    check(n_tc == n_k8 == cfg.n_layers and not any(cs.values())
+          and cp["flash_attention_tc"] == cfg.n_layers,
+          f"{tag}: K8 (its tensor-core build) {n_tc} times on the sharded "
+          f"step = {cfg.n_layers} layers, no other kernel")
+    print(f"{tag}: DTensor dispatch, host time a call {ts[-1][0] * 1e3:.2f}"
+          f" ms sharded against {tp_[-1][0] * 1e3:.2f} ms plain (warm); "
+          f"wall {ts[-1][1] * 1e3:.2f} ms against {tp_[-1][1] * 1e3:.2f} ms;"
+          f" first sharded call {ts[0][1]:.2f} s; card {card}", flush=True)
+    if torch.cuda.device_count() >= 2:
+        # 50b's tp = 1 references, on the same weights and prompt
+        first2 = dict(params, layers=tree_map(lambda a: a[:2],
+                                              params["layers"],
+                                              is_leaf=torch.is_tensor))
+        ref = {"bf16": lp}
+        for key, c, p in (("f32", cfg.replace(compute_dtype="float32"),
+                           params),
+                          ("bf16_2", cfg.replace(n_layers=2), first2)):
+            ref[key] = TS.make_prefill_step(c, layout)(p, batch)[0].cpu()
+        SHARD_REF.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({k: v.cpu() for k, v in ref.items()}, SHARD_REF)
+        del first2
+    del params, got
+    torch.cuda.empty_cache()
+    rec = attention_timing(n_tc, card)
+    rec.update(path=f"the sharded prefill on a (1, 1) mesh: "
+               f"{PREFILL_TOKENS} tokens of {cfg.name}, one launch a layer",
+               shape=f"q {(1, cfg.n_heads, PREFILL_TOKENS, cfg.head_dim)}, "
+               f"k/v {(1, cfg.n_kv_heads, PREFILL_TOKENS, cfg.head_dim)} "
+               f"bf16 causal")
+    check(rec.pop("within_bf16_bound"), "K8 at the sharded prefill's shape "
+          "== plain within bf16_bound")
+    return rec
+
+
+def shard_train_phase(check: Checks, card: str, mesh) -> None:
+    """50a, train: `train_loop` on qwen3-32b at full width, 2 of 64
+    layers, `flash`, remat, batch 8 x 128, 3 steps, on a plain host mesh
+    and then on the (1, 1) `DeviceMesh` under `make_rules`: losses,
+    gradient norms and the final params (by digest) bitwise. Each run is
+    freed before the next."""
+    from repro_torch.launch import mesh as TMESH
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=SHARD_TRAIN_DEPTH,
+                                         attention_impl="flash",
+                                         remat="full")
+    opt = TO.OptConfig(peak_lr=TRAIN_LR, warmup_steps=1,
+                       total_steps=SHARD_TRAIN_STEPS)
+    host = TMESH.HostMesh({"data": 1, "model": 1},
+                          (torch.device("cuda", 0),))
+    tag = (f"50a {cfg.name} ({SHARD_TRAIN_DEPTH} L) train, "
+           f"{SHARD_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}")
+    got = {}
+    for name, m in (("plain", host), ("sharded", mesh)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, hist, info = train_loop(
+            cfg, steps=SHARD_TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            opt=opt, log_every=1, seed=0, device="cuda", mesh=m)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        params = PS.gather_tree(state["params"])
+        got[name] = (hist, info["grad_norm"], digest(params))
+        print(f"{tag}, {name}: {wall:.2f} s in all; steps "
+              f"{[round(s * 1e3, 2) for s in info['step_s']]} ms (wall, "
+              f"the loss read); losses {hist}; gradient norms "
+              f"{info['grad_norm']}; peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {card}",
+              flush=True)
+        del state, params
+    torch.cuda.empty_cache()
+    (hp, gp, dp), (hs, gs, ds) = got["plain"], got["sharded"]
+    check(len(hp) == SHARD_TRAIN_STEPS and hp == hs and gp == gs
+          and dp == ds and all(math.isfinite(h) for h in hp),
+          f"{tag}: on the (1, 1) mesh == plain, bitwise (losses, gradient "
+          f"norms, final params by digest of {len(dp)} slices)")
+
+
+def sharding_rank(rank: int, world: int) -> None:
+    """50b, one NCCL rank a card (`torch.multiprocessing.spawn`): the tp =
+    2 prefill, the pipeline and the compressed all-reduce. Writes its
+    readings to `SHARD_DIR/rank<r>.json`; raises on any failure."""
+    import torch.distributed as dist
+    from repro_torch.distributed import compression as CMP
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch import mesh as TMESH
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=(SHARD_DIR / "store")
+                            .as_uri(), rank=rank, world_size=world,
+                            device_id=torch.device("cuda", rank))
+    _build.load()
+    out = {"rank": rank}
+    try:
+        mesh = TMESH.make_host_mesh(model=SHARD_TP, device="cuda")
+        out["mesh"] = list(mesh.shape)
+        rules = make_rules(multi_pod=False)
+        cfg = get_config(SERVE_ARCH).replace(attention_impl="pallas")
+        layout = M.make_layout(cfg, SHARD_TP)
+        shapes = [s.shape for s in leaves(M.param_specs(cfg, layout))]
+        if shapes != [s.shape for s in leaves(M.param_specs(
+                cfg, M.make_layout(cfg, 1)))]:
+            raise ValueError(f"{cfg.name} at tp = {SHARD_TP} stores other "
+                             f"shapes than at tp = 1: the draws would "
+                             f"differ from 50a's")
+        gen = torch.Generator(device=f"cuda:{rank}").manual_seed(0)
+        params = PS.init_sharded(M.param_specs(cfg, layout), gen, rules,
+                                 mesh)
+        out["param_gb"] = sum(t.to_local().numel() * 4 for t in leaves(
+            params)) / 1e9
+        ref = torch.load(SHARD_REF)
+        batch = {"inputs": prefill_tokens(cfg.vocab_size)}
+        first2 = dict(params, layers=tree_map(lambda a: a[:2],
+                                              params["layers"],
+                                              is_leaf=torch.is_tensor))
+        for key, c, p in (("f32", cfg.replace(compute_dtype="float32"),
+                           params),
+                          ("bf16_2", cfg.replace(n_layers=2), first2),
+                          ("bf16", cfg, params)):
+            step = TS.make_prefill_step(c, layout, rules, mesh)
+            logits, _, times, counts = timed_prefill(step, p, batch)
+            logits = PS.gather_tree(logits).float().cpu()
+            out[key] = {"diff": float((logits - ref[key]).abs().max()),
+                        "scale": float(ref[key].abs().max()),
+                        "finite": bool(torch.isfinite(logits).all()),
+                        "times": times,
+                        "counts": {k: v for k, v in counts.items() if v}}
+        del params, first2
+        torch.cuda.empty_cache()
+        # the pipeline: one stage a rank, == the sequential stack bitwise
+        L, D, n_micro, rows = PIPE_SHAPE
+        g = torch.Generator(device="cuda").manual_seed(7)
+        stack = {"w": torch.randn(L, D, D, generator=g, device="cuda")
+                 * D ** -0.5,
+                 "b": torch.randn(L, D, generator=g, device="cuda") * 0.1}
+        xs = torch.randn(n_micro, rows, D, generator=g, device="cuda")
+
+        def block(p, x):
+            return torch.tanh(x @ p["w"] + p["b"])
+
+        def seq(x):
+            for i in range(L):
+                x = block({k: v[i] for k, v in stack.items()}, x)
+            return x
+        want = torch.stack([seq(xs[i]) for i in range(n_micro)])
+        stages = world if L % world == 0 else 2
+        pmesh = None
+        if stages != world:
+            from torch.distributed.device_mesh import init_device_mesh
+            pmesh = init_device_mesh("cuda", (stages, world // stages),
+                                     mesh_dim_names=("pod", "data"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = pipeline_apply(stack, xs, block, pmesh, axis="pod")
+        torch.cuda.synchronize()
+        out["pipeline"] = {"stages": stages, "equal": torch.equal(got, want),
+                           "s": time.perf_counter() - t0}
+        # the compressed all-reduce against a host recomputation
+        res, ok_res, worst = None, True, 0.0
+        for s in range(PSUM_STEPS):
+            grads = []
+            for r in range(world):
+                gr = torch.Generator(device="cuda").manual_seed(
+                    1000 * s + r)
+                grads.append(torch.randn(PSUM_N, generator=gr,
+                                         device="cuda") * 10.0 ** (r - 2))
+            if res is None:
+                res = [torch.zeros(PSUM_N, device="cuda")
+                       for _ in range(world)]
+            mean, mine = CMP.compressed_psum(grads[rank], None, res[rank])
+            # host: every rank's quantisation, the int32 sum, the scales
+            # summed in rank order
+            qs, scales, hres = [], [], []
+            for r in range(world):
+                xf = grads[r].cpu() + res[r].cpu()
+                q, sc = CMP.quantize_int8(xf)
+                qs.append(q.to(torch.int32))
+                scales.append(sc)
+                hres.append(CMP._residual(xf, q, sc))
+            ssum = scales[0].clone()
+            for sc in scales[1:]:
+                ssum = ssum + sc
+            hmean = torch.stack(qs).sum(0).float() * (ssum / world) / world
+            ok_res &= torch.equal(mine.cpu(), hres[rank])
+            err = (mean.cpu() - hmean).abs()
+            worst = max(worst, float((err / hmean.abs().clamp_min(
+                1e-30))[hmean != 0].max()) if bool((hmean != 0).any())
+                else 0.0)
+            ok_res &= bool((err[hmean == 0] == 0).all())
+            res = hres
+            res = [t.to("cuda") for t in res]
+        out["psum"] = {"residual_bitwise": bool(ok_res),
+                       "mean_rel": worst}
+    finally:
+        (SHARD_DIR / f"rank{rank}.json").write_text(json.dumps(out))
+        dist.destroy_process_group()
+
+
+def shard_cards_phase(check: Checks, card: str) -> None:
+    """50b: with two or more cards, one NCCL rank a card (`sharding_rank`):
+    qwen2.5-14b prefills on the (world / 2, 2) mesh, f32 at 48 layers
+    within phase 9's f32 limit of 50a's tp = 1 logits, bf16 at 2 layers
+    within phase 9's bf16 limit, bf16 at 48 layers printed (the depth
+    phase 9 gates neither), K8 once a layer on every rank; the pipeline
+    over the ranks == the sequential stack bitwise; `compressed_psum`
+    == a host recomputation (residuals bitwise, means within
+    `psum_mean_rel`)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print("sharding across cards: skipped, 1 card visible", flush=True)
+        return
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    SHARD_DIR.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        torch.multiprocessing.spawn(sharding_rank, args=(n,), nprocs=n,
+                                    join=True)
+        failed = ""
+    except Exception as e:      # a rank raised: its traceback is in e
+        failed = f"{type(e).__name__}: {e}"[-3000:]
+    print(f"50b: {n} ranks in {time.perf_counter() - t0:.1f} s", flush=True)
+    check(not failed, f"50b: every one of {n} ranks ran to its end"
+          f"{' (' + failed + ')' if failed else ''}")
+    outs = []
+    for r in range(n):
+        path = SHARD_DIR / f"rank{r}.json"
+        outs.append(json.loads(path.read_text()) if path.exists() else {})
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    SHARD_REF.unlink(missing_ok=True)
+    if failed:
+        return
+    cfg = get_config(SERVE_ARCH)
+    tp_tag = (f"50b {cfg.name} prefill {PREFILL_TOKENS} tokens at tp = "
+              f"{SHARD_TP}, mesh {outs[0]['mesh']} over {n} cards")
+    for key, what, depth, limit in (
+            ("f32", "f32 compute", cfg.n_layers, lambda s: PREFILL_F32_TOL),
+            ("bf16_2", "bf16 compute", 2,
+             lambda s: PREFILL_BF16_REL_TOL * s),
+            ("bf16", "bf16 compute", cfg.n_layers, None)):
+        for o in outs:
+            rec = o[key]
+            print(f"{tp_tag}, {what}, {depth} layers, rank {o['rank']} "
+                  f"({o['param_gb']:.2f} GB of params): max |tp 2 - tp 1| "
+                  f"{rec['diff']:.4e} (last position), max |logit| "
+                  f"{rec['scale']:.4f}; {times_text(rec['times'])}; "
+                  f"launches {rec['counts']}; {card}", flush=True)
+        kernel = "flash_attention_tc" if key != "f32" else "flash_attention"
+        check(all(o[key]["counts"].get(kernel) == depth
+                  and o[key]["counts"].get("flash_attention") == depth
+                  and o[key]["finite"] for o in outs),
+              f"{tp_tag}, {what}, {depth} layers: K8 {depth} times on every "
+              f"rank ({kernel}), logits finite")
+        if limit is None:
+            print(f"{tp_tag}, {what}, {depth} layers: not gated, as phase 9 "
+                  f"gates bf16 only at 2 layers", flush=True)
+            continue
+        lim = limit(outs[0][key]["scale"])
+        check(all(o[key]["diff"] <= lim for o in outs),
+              f"{tp_tag}, {what}, {depth} layers: tp 2 == tp 1 within "
+              f"phase 9's limit ({lim:.4g})")
+    pipe = outs[0]["pipeline"]
+    check(all(o["pipeline"]["equal"] for o in outs),
+          f"50b pipeline_apply over {pipe['stages']} stages "
+          f"({PIPE_SHAPE[0]} layers of {PIPE_SHAPE[1]}, {PIPE_SHAPE[2]} "
+          f"micro-batches of {PIPE_SHAPE[3]}) == the sequential stack, "
+          f"bitwise ({pipe['s'] * 1e3:.2f} ms, first call)")
+    worst = max(o["psum"]["mean_rel"] for o in outs)
+    check(all(o["psum"]["residual_bitwise"] for o in outs)
+          and worst <= psum_mean_rel(n),
+          f"50b compressed_psum over {n} ranks, {PSUM_STEPS} steps of "
+          f"{PSUM_N} elements: residuals == host bitwise, means within "
+          f"{psum_mean_rel(n):.3e} relative (worst {worst:.3e})")
+
+
+def sharding_phases(check: Checks, card: str) -> list:
+    """Phase 50: 50a on one card (the (1, 1) mesh), then 50b across the
+    cards. Returns the kernel records (K8 on the sharded prefill)."""
+    import torch.distributed as dist
+    mesh = one_card_mesh()
+    rec = phase("50a sharded prefill", shard_prefill_phase, check, card,
+                mesh)
+    phase("50a sharded train", shard_train_phase, check, card, mesh)
+    dist.destroy_process_group()
+    phase("50b sharding across cards", shard_cards_phase, check, card)
+    return [rec]
+
+
 def phase(label: str, fn, *args, **kw):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -6923,10 +7333,10 @@ def main() -> int:
                                      ["families"], ["train"],
                                      ["analysis"], ["bf16"],
                                      ["spec_codegen"], ["bf16_round"],
-                                     ["bf16_times"]):
+                                     ["bf16_times"], ["sharding"]):
         print("usage: chip_smoke.py [--only distributed|ladder|k6|k8|k9|"
               "stencil_serving|distributed_spec|recovery|families|train|"
-              "analysis|bf16|spec_codegen|bf16_round|bf16_times]",
+              "analysis|bf16|spec_codegen|bf16_round|bf16_times|sharding]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -6983,6 +7393,8 @@ def main() -> int:
     if only == ["bf16_times"]:
         phase("49 bf16 rounding times", round_timing, card)
         return finish(check, [], card, t0)
+    if only == ["sharding"]:
+        return finish(check, sharding_phases(check, card), card, t0)
     if only:
         return finish(check, distributed_only(check, card), card, t0)
     phase("1 small shapes", small_shape_phase, check)
@@ -7055,6 +7467,7 @@ def main() -> int:
           flush=True)
     records += families_phases(check, card)
     training_phases(check, card)
+    records += sharding_phases(check, card)
     return finish(check, records, card, t0)
 
 

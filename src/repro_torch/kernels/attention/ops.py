@@ -7,11 +7,18 @@ kernel as strided views, so it drops into `attention_apply` when
 `attention_impl="pallas"` without a copy. PyTorch
 runs eagerly, so there is nothing to jit and no `interpret` switch: the
 device of the tensors picks the CUDA kernel or its plain version.
+
+On DTensors (the model under a `DeviceMesh`) `gqa_layout_attention` runs
+the kernel through `local_map` (`sharding.per_group`): each rank launches
+it on its own block, the kv groups (dim 2) split over the mesh, and the
+output is placed as q is. `repro_torch::flash_attention` writes into a
+mutated `out` and returns nothing, a schema no DTensor sharding rule fits.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import per_group
 from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.attention.attention import flash_attention
 from repro_torch.kernels.attention.ref import mha_ref
@@ -30,8 +37,18 @@ def gqa_layout_attention(q5, k4, v4, *, causal: bool = True):
     model's tensors, and the kernel writes a (B, H, S, D) view of a
     contiguous (B, S, K, G, D) output: no copy of q, k, v or o on the card
     (the kernel takes its operands by their strides). Forward-only, as
-    the reference's route: raises RuntimeError under grad."""
+    the reference's route: raises RuntimeError under grad.
+
+    DTensor operands must share their placements on the batch and group
+    dims (0 and 2) and leave the sequence, group size and head dims whole:
+    each rank then attends its own groups, and the output is a DTensor
+    placed as q."""
     refuse_grad("gqa_layout_attention (K8)", q5, k4, v4)
+    return per_group(lambda q, k, v: _gqa_plain(q, k, v, causal), q5, k4,
+                     v4)
+
+
+def _gqa_plain(q5, k4, v4, causal: bool):
     B, S, K, G, D = q5.shape
     q = q5.permute(0, 2, 3, 1, 4).reshape(B, K * G, S, D)
     k = k4.permute(0, 2, 1, 3)

@@ -1,13 +1,16 @@
 """Device meshes: the (nx, ny) mesh of the distributed stencil step, and
-the host mesh a training run holds.
+the ("data", "model") meshes a model runs on.
 
-Counterpart of `repro.launch.mesh`'s stencil helpers, `make_host_mesh`
-and `tp_degree`. The training path runs on one card so far: its host
-mesh is ("data", "model") = (1, 1), tp = 1; wider meshes, and the rules
-that shard a model over them, wait for slice G2b (ROADMAP Queue 1).
+Counterpart of `repro.launch.mesh`'s stencil helpers, `make_host_mesh`,
+`make_production_mesh` and `tp_degree`. A model's mesh is a
+`torch.distributed` `DeviceMesh`, one rank per card (SPMD; see
+`distributed.sharding`): `make_host_mesh` spreads the initialised
+process group's world over ("data", "model"), and without a process
+group returns the single-device `HostMesh` (1, 1) a one-card run holds.
 
-The reference runs one controller: `shard_map` over a mesh, in one
-process. The port keeps that design: one process holds a `StencilMesh`,
+For the stencil the reference runs one controller: `shard_map` over a
+mesh, in one process. The port keeps that design there: one process
+holds a `StencilMesh`,
 a shape and the `torch.device` of each shard, and drives every shard from
 the host. A mesh whose shards lie on distinct cards moves bands between
 them over NVLink; a loopback mesh, whose shards share one device (asked
@@ -139,18 +142,70 @@ class HostMesh:
     devices: Tuple[torch.device, ...]
 
 
-def make_host_mesh(*, model: int = 1, device: str = "cuda") -> HostMesh:
-    """One device of type `device` (card 0 for "cuda") as a (1, 1) mesh.
-    A model axis wider than 1 (tensor parallelism) raises
-    NotImplementedError naming slice G2b."""
+def make_host_mesh(*, model: int = 1, device: str = "cuda"):
+    """The mesh a model runs on.
+
+    With a `torch.distributed` process group initialised, a `DeviceMesh`
+    of shape (world // model, model) named ("data", "model") on devices of
+    type `device`, each rank on its own card (rank % the cards visible,
+    made the current device). Raises ValueError where `model` does not
+    divide the world size.
+
+    Without a process group, one device of type `device` (card 0 for
+    "cuda") as the (1, 1) `HostMesh`; a model axis wider than 1 then
+    raises ValueError (tensor parallelism needs one rank a card)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        world = dist.get_world_size()
+        if model < 1 or world % model:
+            raise ValueError(f"model={model} does not divide the world "
+                             f"size {world}")
+        return _device_mesh((world // model, model), ("data", "model"),
+                            device)
     if model != 1:
-        raise NotImplementedError(f"a host mesh with model={model} (tensor "
-                                  f"parallelism) waits for slice G2b")
+        raise ValueError(f"a host mesh with model={model} needs one rank a "
+                         f"card: initialise a process group of a multiple "
+                         f"of {model} ranks first")
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", 0)
     return HostMesh({"data": 1, "model": 1}, (dev,))
 
 
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):
+    """The production mesh: (16, 16) over ("data", "model"), 256 ranks, or
+    (2, 16, 16) over ("pod", "data", "model"), 512. Needs a process group
+    of exactly that world size, and raises ValueError naming it
+    otherwise."""
+    import torch.distributed as dist
+    shape, names = PRODUCTION_SHAPES[multi_pod]
+    n = 1
+    for d in shape:
+        n *= d
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n:
+        raise ValueError(f"the {'two-pod' if multi_pod else 'single-pod'} "
+                         f"production mesh {shape} needs a world of {n} "
+                         f"ranks, got {world}")
+    return _device_mesh(shape, names, device)
+
+
+def _device_mesh(shape, names, device: str):
+    from torch.distributed.device_mesh import init_device_mesh
+    dev_type = torch.device(device).type
+    if dev_type == "cuda":
+        import torch.distributed as dist
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+    return init_device_mesh(dev_type, tuple(shape), mesh_dim_names=names)
+
+
 def tp_degree(mesh) -> int:
-    return mesh.shape.get("model", 1)
+    """The size of the mesh's "model" axis (1 where it has none): a
+    `HostMesh`, a `DeviceMesh` or any mesh whose `.shape` maps names to
+    sizes."""
+    from repro_torch.distributed.sharding import axis_sizes
+    return axis_sizes(mesh).get("model", 1)

@@ -23,6 +23,13 @@ hybrid family's attention runs `attn_local`), non-causal and cross
 attention run `attn_dense`, and the RG-LRU recurrence has no kernel.
 `skip_core` raises `NotImplementedError` naming slice G2b (ROADMAP
 Queue 1).
+
+Under a `DeviceMesh` with rules (`Ctx.rules`, `Ctx.mesh`), parameters and
+activations are DTensors and `Ctx.con` redistributes an activation to
+the placements of its logical axes at the reference's constraint sites.
+`pallas` then runs K8 on each rank's own kv groups (`gqa_layout_attention`
+under `local_map`). Without rules `con` returns its input: the
+single-device path is unchanged.
 """
 from __future__ import annotations
 
@@ -34,7 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ArchConfig
-from repro_torch.distributed.sharding import HeadLayout
+from repro_torch.distributed.sharding import (HeadLayout, Rules, constrain,
+                                              is_dtensor, per_group)
 from repro_torch.kernels.attention.ops import gqa_layout_attention
 from repro_torch.kernels.ssm.ops import mamba_scan
 from repro_torch.models import layers as L
@@ -48,16 +56,21 @@ LATER = {"skip_core": "G2b (the dry run's phase-attribution lowering)"}
 
 @dataclass
 class Ctx:
-    """Per-call context: positions, mode, cache slot. Sharding rules and
-    meshes wait for slice G2b."""
+    """Per-call context: positions, mode, sharding rules and mesh, cache
+    slot."""
     cfg: ArchConfig
     layout: HeadLayout
+    rules: Optional[Rules] = None
+    mesh: Any = None
     positions: Any = None        # (B, S) or (B, S, 3) for mrope
     mode: str = "train"          # train | prefill | decode
     cache: Any = None            # layer cache dict at decode
     pos: Any = None              # (B,) decode position
     causal: bool = True
     new_cache: Any = None        # out: updated layer cache
+
+    def con(self, x, axes):
+        return constrain(x, axes, self.rules, self.mesh) if self.rules else x
 
 
 # ---------------------------------------------------------------------------
@@ -92,9 +105,50 @@ def _q_head_mask(layout: HeadLayout, dtype, device):
                                                   layout.q_per_group)
 
 
+def _einsum(eq: str, a, w):
+    """torch.einsum(eq, a, w) of an activation and a weight. On DTensors
+    rank by rank (`local_map`): DTensor's view rules refuse some of the
+    einsum's internal reshapes of a sharded dim (the output projection at
+    a batch of 1 on torch 2.11). On each mesh dimension, where `a` is
+    sharded the weight follows it (sharded on the same letter where it
+    has it, else whole); where only the weight is sharded it stays so if
+    that letter reaches the output (column-parallel), else it is gathered
+    (FSDP). The output is sharded on the shared letter, or a partial sum
+    where that letter is contracted (row-parallel). In backward an
+    operand's gradient is a partial sum over the ranks where the other
+    operand alone was sharded (the weight's over the batch's shards, the
+    activation's over a column-parallel weight's)."""
+    if not is_dtensor(a):
+        return torch.einsum(eq, a, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    ins, out = eq.split("->")
+    la, lw = ins.split(",")
+    apl, wpl, opl, agrad, wgrad = [], [], [], [], []
+    for pa, pw in zip(a.placements, w.placements):
+        ka = la[pa.dim] if isinstance(pa, Shard) else None
+        kw = lw[pw.dim] if isinstance(pw, Shard) else None
+        if ka is not None:
+            kw = ka if ka in lw else None
+        elif kw is not None and kw not in out:
+            kw = None
+        k = ka or kw
+        apl.append(Shard(la.index(ka)) if ka else Replicate())
+        wpl.append(Shard(lw.index(kw)) if kw else Replicate())
+        opl.append(Shard(out.index(k)) if k and k in out else
+                   Partial() if k else Replicate())
+        agrad.append(Partial() if kw and not ka else apl[-1])
+        wgrad.append(Partial() if ka and not kw else wpl[-1])
+    fn = local_map(lambda x, y: torch.einsum(eq, x, y), out_placements=opl,
+                   in_placements=(apl, wpl),
+                   in_grad_placements=(agrad, wgrad),
+                   device_mesh=a.device_mesh, redistribute_inputs=True)
+    return fn(a, w)
+
+
 def _project(x, w, b=None):
     """x (B,S,E) @ w (E,H,D) in x's dtype, plus the bias."""
-    out = torch.einsum("bse,ehd->bshd", x, w.to(x.dtype))
+    out = _einsum("bse,ehd->bshd", x, w.to(x.dtype))
     return out if b is None else out + b.to(x.dtype)
 
 
@@ -129,6 +183,7 @@ def attention_apply(p: Params, x, ctx: Ctx, *, kv_x=None, window: int = 0,
 
     q = _project(x, p["wq"], p.get("bq"))
     q = q.reshape(B, S, lo.n_kv_stored, lo.q_per_group, D)
+    q = ctx.con(q, ("batch", "seq", "act_kv_heads", None, None))
     use_rope = cfg.pos in ("rope", "mrope") if use_rope is None else use_rope
     mrope = cfg.pos == "mrope"
     scale = 1.0 / math.sqrt(D)
@@ -178,6 +233,7 @@ def attention_apply(p: Params, x, ctx: Ctx, *, kv_x=None, window: int = 0,
         if cfg.qk_norm:
             q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
             k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
+        k = ctx.con(k, ("batch", "seq", "act_kv_heads", None))
         if use_rope and kv_x is None:
             q = L.apply_rope(q, ctx.positions, cfg.rope_theta, mrope)
             k = L.apply_rope(k, ctx.positions, cfg.rope_theta, mrope)
@@ -188,27 +244,35 @@ def attention_apply(p: Params, x, ctx: Ctx, *, kv_x=None, window: int = 0,
         if window:
             out = L.attn_local(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
                                scale=scale, window=window)
-        elif impl == "dense" or not ctx.causal:
-            out = L.attn_dense(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
-                               causal=ctx.causal and kv_x is None,
-                               scale=scale)
-        elif impl == "flash":
-            out = L.attn_flash(q, k, v, q_pos, kv_pos, True, scale,
-                               cfg.attn_chunk)
-        elif impl == "pallas":
-            # the flash kernel K8 (its plain version on CPU tensors);
-            # forward only, as in the reference
-            out = gqa_layout_attention(q, k, v, causal=True)
         else:
-            out = L.attn_chunked(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
-                                 causal=True, scale=scale,
-                                 chunk=cfg.attn_chunk)
+            # each rank attends its own batch rows and kv groups: the whole
+            # sequence local, the groups split over "model"
+            q = ctx.con(q, ("batch", None, "act_kv_heads", None, None))
+            k = ctx.con(k, ("batch", None, "act_kv_heads", None))
+            v = ctx.con(v, ("batch", None, "act_kv_heads", None))
+            if impl == "dense" or not ctx.causal:
+                out = per_group(lambda q, k, v: L.attn_dense(
+                    q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                    causal=ctx.causal and kv_x is None, scale=scale),
+                    q, k, v)
+            elif impl == "flash":
+                out = per_group(lambda q, k, v: L.attn_flash(
+                    q, k, v, q_pos, kv_pos, True, scale, cfg.attn_chunk),
+                    q, k, v)
+            elif impl == "pallas":
+                # the flash kernel K8 (its plain version on CPU tensors);
+                # forward only, as in the reference
+                out = gqa_layout_attention(q, k, v, causal=True)
+            else:
+                out = per_group(lambda q, k, v: L.attn_chunked(
+                    q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=True,
+                    scale=scale, chunk=cfg.attn_chunk), q, k, v)
 
     mask = _q_head_mask(lo, out.dtype, out.device)
     if mask is not None:
         out = out * mask[None, None, :, :, None]
     out = out.reshape(B, out.shape[1], lo.n_q_stored, D)
-    return torch.einsum("bshd,hde->bse", out, p["wo"].to(x.dtype))
+    return _einsum("bshd,hde->bse", out, p["wo"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -241,6 +305,7 @@ def mlp_apply(p: Params, x, ctx: Ctx):
         if "bi" in p:
             h = h + cast(p["bi"])
         h = F.gelu(h, approximate="tanh")
+    h = ctx.con(h, ("batch", "seq", "act_ffn"))
     out = h @ cast(p["wo"])
     if "bo" in p:
         out = out + cast(p["bo"])
@@ -300,8 +365,7 @@ def moe_route(p: Params, xg, cfg: ArchConfig, cap: int):
     m = cfg.moe
     X, k = m.n_experts, m.top_k
     G, s = xg.shape[0], xg.shape[1]
-    logits = torch.einsum("gse,ex->gsx", xg,
-                          p["router"].to(xg.dtype)).float()
+    logits = _einsum("gse,ex->gsx", xg, p["router"].to(xg.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = _top_k(probs, k)                     # (G,s,k)
     gate_vals = gate_vals / torch.clamp_min(
@@ -346,11 +410,12 @@ def moe_apply(p: Params, x, ctx: Ctx):
     disp = disp.sum(2)                                         # (G,s,X,cap)
     comb = comb.sum(2)
 
-    exp_in = torch.einsum("gsxc,gse->gxce", disp, xg)          # (G,X,cap,E)
-    h = (F.silu(torch.einsum("gxce,xef->gxcf", exp_in, p["wg"].to(dt)))
-         * torch.einsum("gxce,xef->gxcf", exp_in, p["wi"].to(dt)))
-    exp_out = torch.einsum("gxcf,xfe->gxce", h, p["wo"].to(dt))
-    out = torch.einsum("gsxc,gxce->gse", comb, exp_out).reshape(B, S, E)
+    exp_in = _einsum("gsxc,gse->gxce", disp, xg)               # (G,X,cap,E)
+    exp_in = ctx.con(exp_in, (None, "act_expert", None, None))
+    h = (F.silu(_einsum("gxce,xef->gxcf", exp_in, p["wg"].to(dt)))
+         * _einsum("gxce,xef->gxcf", exp_in, p["wi"].to(dt)))
+    exp_out = _einsum("gxcf,xfe->gxce", h, p["wo"].to(dt))
+    out = _einsum("gsxc,gxce->gse", comb, exp_out).reshape(B, S, E)
 
     # aux losses: load balance (Switch) + router z-loss
     density = torch.mean((gate_idx[..., 0, None] == torch.arange(
@@ -362,14 +427,15 @@ def moe_apply(p: Params, x, ctx: Ctx):
     aux = lb + z
 
     if m.shared_expert:
-        out = out + _moe_inner_mlp(p["shared"], x)
+        out = out + _moe_inner_mlp(p["shared"], x, ctx)
     if m.dense_residual:
-        out = out + _moe_inner_mlp(p["dense"], x)
+        out = out + _moe_inner_mlp(p["dense"], x, ctx)
     return out, aux
 
 
-def _moe_inner_mlp(p, x):
+def _moe_inner_mlp(p, x, ctx: Ctx):
     h = F.silu(x @ p["wg"].to(x.dtype)) * (x @ p["wi"].to(x.dtype))
+    h = ctx.con(h, ("batch", "seq", "act_ffn"))
     return h @ p["wo"].to(x.dtype)
 
 
@@ -497,6 +563,7 @@ def mamba_apply(p: Params, x, ctx: Ctx):
     Di = cfg.d_inner
     xz = x @ p["in_proj"].to(x.dtype)
     xin, z = torch.split(xz, Di, dim=-1)
+    xin = ctx.con(xin, ("batch", "seq", "act_ffn"))
 
     conv_cache = ctx.cache.get("conv") if ctx.mode == "decode" else None
     xc, new_conv = _causal_conv(xin, p["conv_w"], p["conv_b"], conv_cache)
@@ -591,16 +658,17 @@ def rglru_apply(p: Params, x, ctx: Ctx):
     B, S, E = x.shape
     xg = x @ p["in_proj"].to(x.dtype)
     xin, gate = torch.split(xg, Dr, dim=-1)
+    xin = ctx.con(xin, ("batch", "seq", "act_ffn"))
 
     conv_cache = ctx.cache.get("conv") if ctx.mode == "decode" else None
     xc, new_conv = _causal_conv(xin, p["conv_w"], p["conv_b"], conv_cache)
 
     xb = xc.reshape(B, S, nb, Dr // nb)
-    r = torch.sigmoid(torch.einsum("bsnd,nde->bsne", xb,
-                                   p["gate_a"].to(x.dtype)).reshape(B, S, Dr)
+    r = torch.sigmoid(_einsum("bsnd,nde->bsne", xb,
+                              p["gate_a"].to(x.dtype)).reshape(B, S, Dr)
                       + p["gate_a_b"].to(x.dtype))
-    i = torch.sigmoid(torch.einsum("bsnd,nde->bsne", xb,
-                                   p["gate_x"].to(x.dtype)).reshape(B, S, Dr)
+    i = torch.sigmoid(_einsum("bsnd,nde->bsne", xb,
+                              p["gate_x"].to(x.dtype)).reshape(B, S, Dr)
                       + p["gate_x_b"].to(x.dtype))
 
     c = 8.0

@@ -30,8 +30,16 @@ group scan), and a non-uniform stack of at least 6 layers with a
 repeating pattern saves only the pattern groups' boundaries (the
 reference's `_run_grouped_pattern`; both in `_run_train_stack`).
 Recompute runs the same operations on the same inputs, so the loss and
-gradients are the flat run's, bitwise. Sharding waits for slice G2b
-(ROADMAP Queue 1).
+gradients are the flat run's, bitwise.
+
+`forward`, `decode_step` and `loss_fn` take the reference's `rules` and
+`mesh`. Under a `DeviceMesh` the params and the batch are DTensors
+(`pspec.place_tree`), plain tensors made inside count as replicated
+(`implicit_replication`), and the residual stream is constrained at the
+reference's sites. The embedding table and the loss's logits are
+gathered whole over the mesh first: DTensor's vocab-sharded lookup and
+gather (`MaskPartial`) fail on a batch sharded over "data". Without a
+`DeviceMesh` the rules change nothing.
 
 JAX clamps an out-of-range index where torch would raise or read past the
 end, so `_embed` refuses a token outside the vocabulary and `decode_step`
@@ -39,17 +47,20 @@ a position outside a linear cache (the serving engine reaches neither).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.config import ArchConfig
-from repro_torch.distributed.sharding import HeadLayout, make_head_layout
+from repro_torch.distributed.sharding import (HeadLayout, Rules,
+                                              is_device_mesh, is_dtensor,
+                                              make_head_layout)
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import Ctx
@@ -278,6 +289,7 @@ def _apply_block(kind: str, p: Params, x, ctx: Ctx, cache=None):
                             ctx)
     else:
         raise ValueError(kind)
+    x = ctx.con(x, ("batch", "res_seq", "act_embed"))
     return x, aux, ctx.new_cache
 
 
@@ -312,6 +324,7 @@ def _apply_dec_block(p: Params, x, enc_out, ctx: Ctx, cache=None):
             new_cache["cv"] = c2.new_cache["v"]
     x = x + B.mlp_apply(p["mlp"], _apply_norm(p["ln3"], x, cfg.norm_eps),
                         ctx)
+    x = ctx.con(x, ("batch", "res_seq", "act_embed"))
     return x, new_cache
 
 
@@ -446,8 +459,30 @@ def _run_train_stack(params_layers, kinds, x, ctx: Ctx):
 # ---------------------------------------------------------------------------
 
 
+def _replicated(t):
+    """A DTensor gathered whole on every rank (a plain tensor as it is)."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
+def sharded_context(rules, mesh):
+    """The context a forward under `mesh` runs in: plain tensors made
+    inside count as replicated DTensors. Autograd carries the setting
+    into the backward's threads. `implicit_replication` turns it off on
+    exit whatever it was before, so a nested call enters nothing."""
+    if rules and is_device_mesh(mesh):
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        if not DTensor._op_dispatcher._allow_implicit_replication:
+            return implicit_replication()
+    return contextlib.nullcontext()
+
+
 def _embed(params, cfg: ArchConfig, tokens):
-    tab = params["tok_embed"]
+    tab = _replicated(params["tok_embed"])
     bad = (tokens < 0) | (tokens >= tab.shape[0])
     if bool(bad.any()):
         raise ValueError(f"token ids must lie in [0, {tab.shape[0]}); "
@@ -463,7 +498,7 @@ def _embed(params, cfg: ArchConfig, tokens):
 def _lm_logits(params, cfg: ArchConfig, layout: HeadLayout, x):
     if cfg.tie_embeddings:
         w = params["tok_embed"].to(x.dtype)
-        logits = torch.einsum("bse,ve->bsv", x, w)
+        logits = B._einsum("bse,ve->bsv", x, w)
     else:
         logits = x @ params["lm_head"].to(x.dtype)
     logits = logits.float()
@@ -486,7 +521,7 @@ def _default_positions(cfg: ArchConfig, batch_dict, Bsz, S, device):
 
 
 def forward(params, batch, cfg: ArchConfig, layout: HeadLayout, *,
-            mode: str = "train"):
+            rules: Optional[Rules] = None, mesh=None, mode: str = "train"):
     """Full-sequence forward (train, forward only, or prefill).
 
     batch: {"inputs": (B, S) int}, or {"embeds": (B, S, E)} for the vlm
@@ -501,29 +536,39 @@ def forward(params, batch, cfg: ArchConfig, layout: HeadLayout, *,
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward runs mode 'train' or 'prefill', got "
                          f"{mode!r}; decode is `decode_step`")
-    if cfg.family == "encdec":
-        return _forward_encdec(params, batch, cfg, layout, mode=mode)
+    with sharded_context(rules, mesh):
+        if cfg.family == "encdec":
+            return _forward_encdec(params, batch, cfg, layout, rules=rules,
+                                   mesh=mesh, mode=mode)
+        return _forward(params, batch, cfg, layout, rules, mesh, mode)
+
+
+def _forward(params, batch, cfg: ArchConfig, layout: HeadLayout, rules,
+             mesh, mode: str):
     if cfg.embeds_input:
         x = batch["embeds"].to(torch_dtype(cfg.compute_dtype))
     else:
         x = _embed(params, cfg, batch["inputs"])
     Bsz, S = x.shape[0], x.shape[1]
     positions = _default_positions(cfg, batch, Bsz, S, x.device)
-    ctx = Ctx(cfg=cfg, layout=layout, positions=positions, mode=mode)
+    ctx = Ctx(cfg=cfg, layout=layout, rules=rules, mesh=mesh,
+              positions=positions, mode=mode)
+    x = ctx.con(x, ("batch", "res_seq", "act_embed"))
     x, aux, caches = _run_stack(params["layers"], layer_kinds(cfg), x, ctx)
     x = _apply_norm(params["final_norm"], x, cfg.norm_eps)
     return _lm_logits(params, cfg, layout, x), aux, caches
 
 
 def _forward_encdec(params, batch, cfg: ArchConfig, layout: HeadLayout, *,
-                    mode: str):
+                    rules, mesh, mode: str):
     dtc = torch_dtype(cfg.compute_dtype)
     enc_x = batch["enc_embeds"].to(dtc)
     Bsz, Se = enc_x.shape[0], enc_x.shape[1]
     table = torch.as_tensor(L.sincos_positions(Se, cfg.d_model),
                             device=enc_x.device)
     enc_x = enc_x + table.to(dtc)
-    ctx = Ctx(cfg=cfg, layout=layout, mode="train")
+    ctx = Ctx(cfg=cfg, layout=layout, rules=rules, mesh=mesh, mode="train")
+    enc_x = ctx.con(enc_x, ("batch", "res_seq", "act_embed"))
     e = cfg.encdec
     x = enc_x
     for i in range(e.enc_layers):
@@ -540,7 +585,9 @@ def _forward_encdec(params, batch, cfg: ArchConfig, layout: HeadLayout, *,
     x = _embed(params, cfg, dec_tokens)
     x = x + params["dec_pos"][:Td].to(dtc)[None]
     dpos = torch.arange(Td, device=x.device)[None].expand(Bsz, Td)
-    dctx = Ctx(cfg=cfg, layout=layout, positions=dpos, mode=mode)
+    dctx = Ctx(cfg=cfg, layout=layout, rules=rules, mesh=mesh,
+               positions=dpos, mode=mode)
+    x = dctx.con(x, ("batch", "res_seq", "act_embed"))
     new = []
     for i in range(e.dec_layers):
         x, nc = _apply_dec_block(_layer(params["dec_layers"], i), x,
@@ -580,7 +627,8 @@ def _check_positions(caches, pos, cfg: ArchConfig) -> None:
                              f"cache length; got {pos.tolist()}")
 
 
-def decode_step(params, caches, batch, cfg: ArchConfig, layout: HeadLayout):
+def decode_step(params, caches, batch, cfg: ArchConfig, layout: HeadLayout,
+                *, rules: Optional[Rules] = None, mesh=None):
     """One-token decode. batch: {"token": (B,), "pos": (B,)}, with
     "embeds" (B, 1, E) for the vlm family (whose M-RoPE position is `pos`
     on all three axes, as in the reference).
@@ -589,10 +637,17 @@ def decode_step(params, caches, batch, cfg: ArchConfig, layout: HeadLayout):
     reference returns new ones). A position outside a linear cache, or
     negative, raises before anything is written; a mamba or rec step reads
     no position."""
+    with sharded_context(rules, mesh):
+        return _decode_step(params, caches, batch, cfg, layout, rules, mesh)
+
+
+def _decode_step(params, caches, batch, cfg: ArchConfig, layout: HeadLayout,
+                 rules, mesh):
     tok, pos = batch["token"], batch["pos"]
     _check_positions(caches, pos, cfg)
     pos = pos.long()
-    ctx = Ctx(cfg=cfg, layout=layout, mode="decode", pos=pos)
+    ctx = Ctx(cfg=cfg, layout=layout, rules=rules, mesh=mesh, mode="decode",
+              pos=pos)
     if cfg.family == "encdec":
         x = _embed(params, cfg, tok[:, None])
         x = x + torch.index_select(params["dec_pos"], 0, pos)[:, None].to(
@@ -628,10 +683,16 @@ def lm_loss(logits, targets, *, z_loss: float = 1e-4):
     return nll.sum() / denom + z_loss * z.sum() / denom
 
 
-def loss_fn(params, batch, cfg: ArchConfig, layout: HeadLayout):
+def loss_fn(params, batch, cfg: ArchConfig, layout: HeadLayout, *,
+            rules: Optional[Rules] = None, mesh=None):
     """Training loss: `lm_loss` of the train-mode logits against
     batch["targets"], plus the MoE aux losses. Returns (loss, {"loss",
     "aux"})."""
-    logits, aux, _ = forward(params, batch, cfg, layout, mode="train")
-    loss = lm_loss(logits, batch["targets"]) + aux
+    logits, aux, _ = forward(params, batch, cfg, layout, rules=rules,
+                             mesh=mesh, mode="train")
+    with sharded_context(rules, mesh):
+        if rules:
+            logits = Ctx(cfg=cfg, layout=layout, rules=rules,
+                         mesh=mesh).con(logits, ("batch", None, None))
+        loss = lm_loss(logits, batch["targets"]) + aux
     return loss, {"loss": loss, "aux": aux}

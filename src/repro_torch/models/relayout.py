@@ -5,7 +5,9 @@ Checkpoints store the logical (tp = 1) layout; on restore the params are
 re-laid-out for the run's TP degree. Dead padded heads are zero-filled
 and masked at run time, so the relayout preserves the model's function.
 The functions take trees of tensors (the model's params) or of numpy
-arrays (a checkpoint on the host) and return the same kind.
+arrays (a checkpoint on the host) and return the same kind; DTensor
+leaves (params placed on a mesh) are gathered whole first
+(`pspec.gather_tree`).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 from repro_torch.config import ArchConfig
 from repro_torch.distributed.sharding import HeadLayout
 from repro_torch.models.model import padded_vocab
+from repro_torch.pspec import gather_tree
 
 # key -> (head axis, unstacked ndim); stacked layers shift axes by +1
 _Q_KEYS = {"wq": (1, 3), "bq": (0, 2)}
@@ -116,14 +119,14 @@ def _resize_vocab(params, vocab: int):
 
 
 def to_logical(params, cfg: ArchConfig, layout: HeadLayout):
-    params = _resize_vocab(params, cfg.vocab_size)
+    params = _resize_vocab(gather_tree(params), cfg.vocab_size)
     if layout.n_q_stored == layout.n_q and layout.n_kv_stored == layout.n_kv:
         return params
     return _map_attn(params, lambda p: _attn_to_logical(p, layout))
 
 
 def from_logical(params, cfg: ArchConfig, layout: HeadLayout):
-    params = _resize_vocab(params, padded_vocab(cfg, layout.tp))
+    params = _resize_vocab(gather_tree(params), padded_vocab(cfg, layout.tp))
     if layout.n_q_stored == layout.n_q and layout.n_kv_stored == layout.n_kv:
         return params
     return _map_attn(params, lambda p: _attn_from_logical(p, layout))

@@ -5,8 +5,10 @@ dicts and lists) of `ParamSpec`s. From that single source come
   * real initialised tensors, drawn on the device from a `torch.Generator`
     by the reference's init rules (`init_params`),
   * tensors on PyTorch's "meta" device, which carry shape and dtype and
-    allocate nothing (`abstract_params`).
-Shardings wait for the slice that ports them (ROADMAP Queue 1, G2b).
+    allocate nothing (`abstract_params`),
+  * PartitionSpecs and shardings by the logical-axis rules
+    (`param_pspecs`, `param_shardings`), and DTensors placed by them
+    (`place_tree`, `init_sharded`; `gather_tree` is the inverse).
 
 The two frameworks draw different numbers from the same seed, so the tests
 carry the reference's initialised weights across as numpy arrays
@@ -19,6 +21,9 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import (Rules, gather, place,
+                                              sharding_for, spec_for)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "int32": torch.int32}
@@ -115,6 +120,41 @@ def abstract_params(specs):
     """Meta-device tensors of each spec's shape and dtype: no allocation."""
     return tree_map(lambda s: torch.empty(s.shape, dtype=torch_dtype(s.dtype),
                                           device="meta"), specs)
+
+
+def param_shardings(specs, rules: Rules, mesh):
+    return tree_map(lambda s: sharding_for(s.shape, s.axes, rules, mesh),
+                    specs)
+
+
+def param_pspecs(specs, rules: Rules, mesh):
+    return tree_map(lambda s: spec_for(s.shape, s.axes, rules, mesh), specs)
+
+
+def place_tree(tree, specs, rules: Rules, mesh):
+    """A tree of plain tensors (the same on every rank) as DTensors on
+    `mesh`, each placed by its spec's logical axes: each rank keeps its
+    own block only."""
+    return tree_map(lambda t, s: place(t, sharding_for(s.shape, s.axes,
+                                                       rules, mesh)),
+                    tree, specs, is_leaf=torch.is_tensor)
+
+
+def gather_tree(tree):
+    """The inverse of `place_tree`: every DTensor leaf as its full plain
+    tensor (on every rank), any other leaf as it is."""
+    return tree_map(gather, tree, is_leaf=torch.is_tensor)
+
+
+def init_sharded(specs, generator: torch.Generator, rules: Rules, mesh,
+                 device=None):
+    """`init_params`' tensors (the same draws, leaf by leaf), each placed
+    on `mesh` as soon as it is drawn and the full leaf freed, so a rank
+    holds at most one full leaf beside its blocks."""
+    device = generator.device if device is None else torch.device(device)
+    return tree_map(lambda s: place(_init_leaf(s, generator, device),
+                                    sharding_for(s.shape, s.axes, rules,
+                                                 mesh)), specs)
 
 
 def count_params(specs) -> int:

@@ -104,13 +104,18 @@ def slices(t: torch.Tensor, limit: int = SLICE_ELEMS) -> Iterator:
 
 @torch.no_grad()
 def adamw_update(params, grads, opt_state, oc: OptConfig, *, gnorm=None,
-                 good=None):
+                 good=None, regather=None):
     """One AdamW step, in place. Returns (params, opt_state, {"lr",
     "grad_norm"}), the same trees as given, updated.
 
     `grads` has the params' structure. `gnorm` is their global norm where
     the caller has it. Where `good` (a bool 0-dim tensor) is given, the
-    new params, moments and step are written only where it is true."""
+    new params, moments and step are written only where it is true.
+
+    `regather` (the sharded train step's) holds per leaf None, or (block,
+    gather) where the moments cover only `block`, a copy of a part of the
+    param (and the gradient is given for that part too): the update then
+    runs on `block`, and `gather(block)` is copied into the param."""
     step = opt_state["step"]
     lr = lr_at(step, oc)
     if gnorm is None:
@@ -124,9 +129,12 @@ def adamw_update(params, grads, opt_state, oc: OptConfig, *, gnorm=None,
     def put(dst, new):
         dst.copy_(new if good is None else torch.where(good, new, dst))
 
-    for p, g, m, v in zip(*(_leaves(x) for x in (
-            params, grads, opt_state["m"], opt_state["v"]))):
-        for ps, gs, ms, vs in zip(slices(p), slices(g), slices(m),
+    leaves = list(zip(*(_leaves(x) for x in (
+        params, grads, opt_state["m"], opt_state["v"]))))
+    for i, (p, g, m, v) in enumerate(leaves):
+        re = regather[i] if regather is not None else None
+        dst = p if re is None else re[0]
+        for ps, gs, ms, vs in zip(slices(dst), slices(g), slices(m),
                                   slices(v)):
             gf = (gs.float() * scale).to(gs.dtype).float()
             m_new = b1 * ms.float() + (1 - b1) * gf
@@ -136,5 +144,7 @@ def adamw_update(params, grads, opt_state, oc: OptConfig, *, gnorm=None,
             put(ps, (ps.float() - lr * delta).to(ps.dtype))
             put(ms, m_new.to(ms.dtype))
             put(vs, v_new.to(vs.dtype))
+        if re is not None:
+            p.copy_(re[1](dst))
     put(step, step + 1)
     return params, opt_state, {"lr": lr, "grad_norm": gnorm}
