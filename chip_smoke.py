@@ -18,6 +18,9 @@
     python3 chip_smoke.py --only bf16_round        # phases 47-49 alone
     python3 chip_smoke.py --only bf16_times        # phase 49's times alone
     python3 chip_smoke.py --only sharding          # phase 50 alone
+    python3 chip_smoke.py --only chunking          # phase 51 alone
+    python3 chip_smoke.py --only dryrun            # phase 52 alone
+    python3 chip_smoke.py --only nemotron          # phase 53 alone
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 
@@ -409,7 +412,27 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    with one card it prints "sharding across cards: skipped, 1 card
    visible".
 
+Phases 51-53 (after phase 23, after phase 9 and after phase 10): 51, the
+paper's §IV chunked host-to-card streaming (`core.chunking.ChunkScheduler`,
+a copy-in, a compute and a copy-out stream over pinned staging buffers) of
+the 268M grid cut in x into 64 chunks, K2 (`pw_advect(variant="wide")`) a
+chunk: overlapped == serial bitwise, each chunk == K2 on it resident, 64 K2
+launches a run; serial and overlapped seconds, the host link's rates each
+way from pinned memory, the host's copies into the staging buffers and out
+of them into new numpy arrays, each alone, K2's time a chunk, `overlap_model` beside the measured time, depth 1, 2, 4 and 8. 52,
+`core.profiler.wallclock` on K1 beside the events median, and the dry run's
+trace (`launch.dryrun.trace_cell`, a (1, 1) fake mesh) of phase 9's
+`qwen2.5-14b` bf16 prefill against the same prefill live on the card under
+`FlopCounterMode`: FLOPs equal, traced resident bytes against the measured
+peak. 53, `nemotron-4-15b` at full width and depth and `nemotron-4-340b` at
+full width, 1 of 96 layers (f32 weights), each a bf16 `pallas` prefill of
+2048 tokens against `flash` on the card, K8 once a layer (D 192 for 340b).
+
 Each phase prints its seconds.
+
+`--only chunking`, `--only dryrun` and `--only nemotron` run phases 51, 52
+(drawing `qwen2.5-14b` first) and 53 alone; their kernels lines hold K2 on
+the chunked path and K8 at D 192.
 
 `--only sharding` runs phase 50 alone (its kernels line holds K8 with the
 sharded prefill's launches); on four cards it is the call that runs 50b.
@@ -489,6 +512,11 @@ from repro_torch import analysis as AN  # noqa: E402
 from repro_torch.analysis import programs as PR  # noqa: E402
 from repro_torch.analysis import smem as SM  # noqa: E402
 from repro_torch.analysis import trace as TR  # noqa: E402
+from repro_torch.core import profiler as PF  # noqa: E402
+from repro_torch.core.chunking import ChunkScheduler, overlap_model  # noqa: E402
+from repro_torch.kernels.advection import ops as AOPS  # noqa: E402
+from repro_torch.launch import dryrun as DRY  # noqa: E402
+from repro_torch.launch import specs as LSP  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import roofline as R  # noqa: E402
 from repro_torch.kernels.advection import advection as K  # noqa: E402
@@ -634,6 +662,21 @@ PREFILL_F32_TOL = 1e-2       # PERF.md: written before the first chip run
 PREFILL_BF16_REL_TOL = 0.03  # x max |chunked logit|: 3.8x this gate's own
                              # reading on the card (PERF.md)
 ATTN_TIMED = (1, 40, 8, 2048, 128)   # B, H, Hkv, S, D: bf16, causal
+# phase 51: the paper's §IV on the 268M grid, cut in x into the chunks of
+# benchmarks/fig8_gridsize.py's N_CHUNKS
+CHUNK_GRID = "268M"
+CHUNK_N = 64
+CHUNK_SEED = 0
+CHUNK_DEPTH = 4              # ChunkScheduler's default kernel pool
+CHUNK_DEPTHS = (1, 2, 4, 8)
+CHUNK_RUNS = 5               # runs a median of the serial and overlapped
+LINK_BYTES = 1 << 30         # one pinned copy each way, alone
+# phase 52: PERF.md, written before the first chip run
+WALLCLOCK_REL = 0.05         # profiler.wallclock vs the events median
+RESIDENT_RATIO = (0.9, 1.1)  # traced resident / measured peak
+# phase 53: depth cuts one card forces (f32 weights; PERF.md reckons them)
+NEMOTRON = (("nemotron-4-15b", {}), ("nemotron-4-340b", {"n_layers": 1}))
+NEMOTRON_GATE_LAYERS = 2     # phase 9 gates bf16 at its first 2 layers
 # selective scan (K9): the reference's cases (tests/test_ssm_kernel.py),
 # then D not a multiple of the kernel's d-tile of 16, N not a power of two
 # and N over 32 (two states per thread)
@@ -7317,6 +7360,304 @@ def sharding_phases(check: Checks, card: str) -> list:
     return [rec]
 
 
+# ---------------------------------------------------------------------------
+# phase 51: the paper's §IV, chunked host-to-card streaming
+# ---------------------------------------------------------------------------
+
+
+def wall_s(fn, runs: int = CHUNK_RUNS) -> float:
+    """Median seconds of `fn` on the host's clock, the card synchronised
+    before and after each run."""
+    ts = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return statistics.median(ts)
+
+
+def chunking_phase(check: Checks, card: str) -> dict:
+    """Phase 51: the 268M grid (3 f32 fields drawn on the host from
+    `CHUNK_SEED`) cut in x into `CHUNK_N` independent chunks, each K2's
+    sources (`pw_advect(variant="wide")`) through `ChunkScheduler`:
+    `run_overlapped` (the main path, K2 counted) == `run_serial` bitwise,
+    chunk by chunk, and each chunk == K2 on it already on the card; then the
+    times. Returns K2's record on this path."""
+    X, Y, Z = PAPER_GRIDS[CHUNK_GRID]
+    cx = X // CHUNK_N
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(CHUNK_SEED)
+    fields = [rng.standard_normal((X, Y, Z), dtype=np.float32)
+              for _ in range(3)]
+    chunks = [tuple(f[i * cx:(i + 1) * cx] for f in fields)
+              for i in range(CHUNK_N)]
+    one_way = sum(f.nbytes for f in fields)
+    print(f"chunking: {CHUNK_GRID} grid {(X, Y, Z)} f32, 3 fields "
+          f"({one_way / 1e9:.3f} GB each way) drawn on the host in "
+          f"{time.perf_counter() - t0:.2f} s, cut in x into {CHUNK_N} "
+          f"chunks of {(cx, Y, Z)}", flush=True)
+    p = REF.default_params(Z, device="cuda")
+
+    def k2(u, v, w):
+        return AOPS.pw_advect(u, v, w, p, variant="wide")
+
+    sched = ChunkScheduler(k2, depth=CHUNK_DEPTH, device="cuda")
+    sched.run_serial(chunks[:1])
+    sched.run_overlapped(chunks[:CHUNK_DEPTH])
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    over = sched.run_overlapped(chunks)
+    launches = K.LAUNCHES["advect_wide"]
+    others = {k: n for k, n in K.LAUNCHES.items() if k != "advect_wide" and n}
+    check(launches == CHUNK_N and not others,
+          f"chunked path: {launches} K2 launches for {CHUNK_N} chunks "
+          f"(want {CHUNK_N}), no other kernel ({others})")
+    serial = sched.run_serial(chunks)
+    check(all(len(a) == 3 and all(np.array_equal(x, y) for x, y in zip(a, b))
+              for a, b in zip(over, serial)),
+          f"chunked path: run_overlapped == run_serial bitwise, all "
+          f"{CHUNK_N} chunks")
+    bad, err = 0, 0.0
+    for c, got in zip(chunks, over):
+        dev = tuple(torch.from_numpy(a).cuda() for a in c)
+        want = k2(*dev)
+        bad += sum(not np.array_equal(g, w.cpu().numpy())
+                   for g, w in zip(got, want))
+        del dev, want
+    check(bad == 0, f"chunked path: each chunk's sources == K2 on that "
+          f"chunk resident on the card, bitwise ({bad} of {3 * CHUNK_N} "
+          f"arrays differ)")
+    dev = tuple(torch.from_numpy(a).cuda() for a in chunks[0])
+    plain = K._advect_rung_plain(*dev, p, False, 1.0)
+    err = max(float((a - b).abs().max()) for a, b in zip(k2(*dev), plain))
+    check(err == 0.0, f"chunked path: K2 == plain on chunk 0 ({err})")
+
+    allocs0 = torch.cuda.memory_stats().get("num_device_alloc", 0)
+    t_serial = wall_s(lambda: sched.run_serial(chunks))
+    allocs1 = torch.cuda.memory_stats().get("num_device_alloc", 0)
+    t_over = wall_s(lambda: sched.run_overlapped(chunks))
+    allocs2 = torch.cuda.memory_stats().get("num_device_alloc", 0)
+    hbuf = torch.empty(LINK_BYTES // 4, dtype=torch.float32, pin_memory=True)
+    dbuf = torch.empty_like(hbuf, device="cuda")
+    h2d_ms = time_ms(lambda: dbuf.copy_(hbuf, non_blocking=True), runs=5,
+                     warmup=2)
+    d2h_ms = time_ms(lambda: hbuf.copy_(dbuf, non_blocking=True), runs=5,
+                     warmup=2)
+    h2d, d2h = LINK_BYTES / h2d_ms / 1e6, LINK_BYTES / d2h_ms / 1e6
+    del hbuf, dbuf
+    pins = [torch.empty((cx, Y, Z), pin_memory=True) for _ in range(3)]
+    t_memcpy = wall_s(lambda: [b.copy_(torch.from_numpy(a)) for c in chunks
+                               for b, a in zip(pins, c)])
+    t_npcopy = wall_s(lambda: [np.copyto(b.numpy(), a) for c in chunks
+                               for b, a in zip(pins, c)])
+    t_take = wall_s(lambda: [torch.from_numpy(np.empty(b.shape,
+                                                       np.float32)).copy_(b)
+                             for _ in chunks for b in pins])
+    k2_ms = time_ms(lambda: k2(*dev))
+    k2_dev = profiled_kernels(lambda: k2(*dev), RUNG_KERNEL["advect_wide"],
+                              ("cuda:0",), 10)[0]
+    plain_ms = time_ms(lambda: K._advect_rung_plain(*dev, p, False, 1.0),
+                       runs=5)
+    bw = (h2d + d2h) / 2 * 1e9
+    model = overlap_model(one_way, CHUNK_N * k2_ms / 1e3, bw, CHUNK_N)
+    print(f"chunked path ({card}): serial {t_serial:.4f} s, overlapped "
+          f"{t_over:.4f} s (median of {CHUNK_RUNS}, depth {CHUNK_DEPTH}), "
+          f"overlapped / serial {t_over / t_serial:.4f} (cudaMallocs in the "
+          f"timed runs: serial {allocs1 - allocs0}, overlapped "
+          f"{allocs2 - allocs1}); host link from "
+          f"pinned memory, {LINK_BYTES} B alone: host-to-card "
+          f"{h2d:.2f} GB/s, card-to-host {d2h:.2f} GB/s (PCIe Gen5 x16 data "
+          f"sheet {R.PCIE_BW / 1e9:.0f} GB/s each way); the host's copy of "
+          f"every chunk into pinned staging buffers alone {t_memcpy:.4f} s "
+          f"({one_way / t_memcpy / 1e9:.2f} GB/s, torch's copy on "
+          f"{torch.get_num_threads()} threads; numpy's on one "
+          f"{t_npcopy:.4f} s, {one_way / t_npcopy / 1e9:.2f} GB/s); the "
+          f"copy out of them into new numpy arrays alone (the worker's "
+          f"share) {t_take:.4f} s ({one_way / t_take / 1e9:.2f} GB/s); the "
+          f"host memory traffic of a run (each way a copy's read and write "
+          f"and the transfer's read or write: {6 * one_way} B) at the rate "
+          f"of the copy in alone {3 * t_memcpy:.4f} s; K2 "
+          f"{k2_ms:.4f} ms a chunk "
+          f"by events, device "
+          f"{f'{k2_dev:.4f} ms' if k2_dev > 0 else 'not measured'}; "
+          f"overlap_model(bytes {one_way}, compute {CHUNK_N} x K2, bw "
+          f"{bw / 1e9:.2f} GB/s, {CHUNK_N}): serial "
+          f"{model['serial_s']:.4f} s, overlapped {model['overlapped_s']:.4f}"
+          f" s, beside the measured {t_serial:.4f} s and {t_over:.4f} s",
+          flush=True)
+    for depth in CHUNK_DEPTHS:
+        s = ChunkScheduler(k2, depth=depth, device="cuda")
+        s.run_overlapped(chunks[:depth])
+        t = wall_s(lambda: s.run_overlapped(chunks))
+        print(f"chunked path: run_overlapped at depth {depth}: {t:.4f} s "
+              f"(median of {CHUNK_RUNS}; {t / t_serial:.4f} of serial)",
+              flush=True)
+        del s
+    cells = cx * Y * Z
+    rec = kernel_record("advect_wide", k2_ms, plain_ms,
+                        6 * cells * 4 + (2 + 2 * Z) * 4,
+                        (cx - 2) * (Y - 2) * (Z - 2) * REF.flops_per_cell(),
+                        launches, err)
+    rec.update(path=f"§IV chunked streaming: {CHUNK_N} chunks of "
+               f"{(cx, Y, Z)}", shape=str((cx, Y, Z)),
+               device_ms=k2_dev if k2_dev > 0 else None)
+    del sched, over, serial, chunks, fields, dev, plain, pins
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 52: the profiler and the dry run against the card
+# ---------------------------------------------------------------------------
+
+
+def profiler_phase(check: Checks, card: str, cfg0, params) -> None:
+    """Phase 52: `profiler.wallclock` on K1 at 67M, T = 4, beside the
+    events median; then phase 9's prefill (2048 tokens, bf16 compute, the
+    dry run's execution policy) traced by `dryrun.trace_cell` on a (1, 1)
+    fake mesh and run live on the card under `FlopCounterMode`: the FLOPs
+    equal, the traced resident bytes against the measured peak."""
+    X, Y, Z = PAPER_GRIDS[MAIN_GRID]
+    u, v, w = rand_fields((X, Y, Z), seed=520)
+    p = REF.default_params(Z, device="cuda")
+    wc = PF.wallclock(lambda *f: K.advect_fused(*f, p, T=MAIN_T, dt=DT),
+                      u, v, w, iters=TIMED_RUNS, warmup=WARMUP) * 1e3
+    ev = time_ms(lambda: K.advect_fused(u, v, w, p, T=MAIN_T, dt=DT))
+    print(f"profiler.wallclock: K1 at {(X, Y, Z)}, T={MAIN_T}: {wc:.4f} ms "
+          f"(median of {TIMED_RUNS}), events median {ev:.4f} ms; ratio "
+          f"{wc / ev:.4f}", flush=True)
+    check(abs(wc - ev) <= WALLCLOCK_REL * ev, f"profiler.wallclock == the "
+          f"events median within {WALLCLOCK_REL:.0%} ({wc:.4f} vs "
+          f"{ev:.4f} ms)")
+    del u, v, w
+    shape = RunShape("prefill_2048", "prefill", PREFILL_TOKENS, 1)
+    cfg = DRY.exec_policy(cfg0, shape)
+    t0 = time.perf_counter()
+    with DRY.fake_group(1):
+        mesh = DRY._mesh(False, (1, 1))
+        cell = DRY.trace_cell(cfg, shape, mesh)
+    tr, mem = cell["trace"], cell["memory"]
+    trace_s = time.perf_counter() - t0
+    layout = M.make_layout(cfg, 1)
+    batch = LSP.make_batch(cfg, shape, np.random.default_rng(0),
+                           device="cuda")
+    step = TS.make_prefill_step(cfg, layout)
+    from torch.utils.flop_counter import FlopCounterMode
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    args = sum(t.numel() * t.element_size() for t in PF.local_tensors(
+        (params, batch)))
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        out = step(params, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - (held - args)
+    live = fc.get_total_flops()
+    del out
+    ratio = mem["resident_bytes_per_dev"] / peak
+    print(f"dry run vs the card ({card}): {cfg.name} prefill "
+          f"{PREFILL_TOKENS} tokens, {cfg.compute_dtype} compute, "
+          f"{cfg.attention_impl}, traced in {trace_s:.1f} s on a (1, 1) fake "
+          f"mesh: FLOPs traced {tr.flops:.0f}, live {live}; resident traced "
+          f"{mem['resident_bytes_per_dev']} B (arguments "
+          f"{mem['argument_size_in_bytes']} B), measured peak {peak} B "
+          f"(max_memory_allocated less {held - args} B the process held "
+          f"besides the step's arguments); traced / measured {ratio:.4f}",
+          flush=True)
+    check(int(tr.flops) == int(live), f"dry run: traced FLOPs == live "
+          f"FlopCounterMode FLOPs ({tr.flops:.0f} vs {live})")
+    lo, hi = RESIDENT_RATIO
+    check(lo <= ratio <= hi, f"dry run: traced resident / measured peak "
+          f"{ratio:.4f} within [{lo}, {hi}]")
+
+
+# ---------------------------------------------------------------------------
+# phase 53: nemotron on the card
+# ---------------------------------------------------------------------------
+
+
+def nemotron_phase(check: Checks, card: str) -> list:
+    """Phase 53: each `NEMOTRON` config at full width (cut in depth as one
+    card forces, f32 weights), a bf16 `pallas` prefill of
+    `PREFILL_TOKENS` tokens against `flash` on the card: K8 once a layer
+    (its tensor-core build), no other kernel; the logits of the first
+    `NEMOTRON_GATE_LAYERS` layers within phase 9's bf16 limit, every layer
+    printed. Returns K8's record at nemotron-4-340b's head dim (192)."""
+    records = []
+    for arch, cut in NEMOTRON:
+        cfg = fam_cfg(arch, **cut)
+        params = draw(cfg)
+        layout = M.make_layout(cfg, 1)
+        toks = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (1, PREFILL_TOKENS)), device="cuda")
+        depths = sorted({min(NEMOTRON_GATE_LAYERS, cfg.n_layers),
+                         cfg.n_layers})
+        launched = {}
+        for depth in depths:
+            c = cfg.replace(n_layers=depth)
+            pp = dict(params, layers=tree_map(lambda a: a[:depth],
+                                              params["layers"],
+                                              is_leaf=torch.is_tensor))
+            (lp, _, _), n_p, ms_p = counted_forward(pp, {"inputs": toks}, c,
+                                                    layout)
+            (lf, _, _), n_f, ms_f = counted_forward(
+                pp, {"inputs": toks}, c.replace(attention_impl="flash"),
+                layout)
+            diff = float((lp - lf).abs().max())
+            scale = float(lf.abs().max())
+            tag = (f"{arch} bf16 prefill {PREFILL_TOKENS} tokens, {depth} of "
+                   f"{get_config(arch).n_layers} layers")
+            print(f"{tag}: max |pallas - flash| {diff:.4e}, max |logit| "
+                  f"{scale:.4f} ({diff / scale:.4e} of it); pallas "
+                  f"{ms_p:.1f} ms, flash {ms_f:.1f} ms of wall time; K8 "
+                  f"launches {n_p['flash_attention']} "
+                  f"({n_p['flash_attention_tc']} tensor-core)", flush=True)
+            k8 = n_p.pop("flash_attention")
+            tc = n_p.pop("flash_attention_tc")
+            launched[depth] = k8
+            check(k8 == depth and tc == depth and not any(n_p.values())
+                  and not any(n_f.values())
+                  and lp.shape == (1, PREFILL_TOKENS, cfg.vocab_size)
+                  and bool(torch.isfinite(lp).all()),
+                  f"{tag}: K8 once a layer (tensor-core build, head dim "
+                  f"{cfg.head_dim}) on the pallas path only; logits finite")
+            if depth <= NEMOTRON_GATE_LAYERS:
+                check(diff <= PREFILL_BF16_REL_TOL * scale,
+                      f"{tag}: pallas == flash within "
+                      f"{PREFILL_BF16_REL_TOL} x max |logit| "
+                      f"({PREFILL_BF16_REL_TOL * scale:.4f})")
+            else:
+                print(f"{tag}: not gated, as phase 9's {cfg.n_layers}-layer "
+                      f"bf16 run is not: the two algorithms' bf16 rounding "
+                      f"of activations differs and grows with depth",
+                      flush=True)
+            del lp, lf
+        del params, pp
+        torch.cuda.empty_cache()
+        if cfg.head_dim == 192:
+            rec = attention_timing(
+                launched[cfg.n_layers], card,
+                shape=(1, cfg.n_heads, cfg.n_kv_heads, PREFILL_TOKENS,
+                       cfg.head_dim),
+                path=f"{arch} bf16 prefill of {PREFILL_TOKENS} tokens, "
+                f"{cfg.n_layers} layer(s)")
+            check(rec["within_bf16_bound"], f"K8 at {arch}'s shape == plain "
+                  f"within bf16_bound")
+            records.append(rec)
+    return records
+
+
+def dryrun_only(check: Checks, card: str) -> list:
+    """`--only dryrun`: phase 52 with `qwen2.5-14b` drawn first."""
+    cfg = get_config(SERVE_ARCH)
+    params = draw(cfg)
+    phase("52 profiler and dry run", profiler_phase, check, card, cfg, params)
+    return []
+
+
 def phase(label: str, fn, *args, **kw):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -7333,11 +7674,13 @@ def main() -> int:
                                      ["families"], ["train"],
                                      ["analysis"], ["bf16"],
                                      ["spec_codegen"], ["bf16_round"],
-                                     ["bf16_times"], ["sharding"]):
+                                     ["bf16_times"], ["sharding"],
+                                     ["chunking"], ["dryrun"],
+                                     ["nemotron"]):
         print("usage: chip_smoke.py [--only distributed|ladder|k6|k8|k9|"
               "stencil_serving|distributed_spec|recovery|families|train|"
-              "analysis|bf16|spec_codegen|bf16_round|bf16_times|sharding]",
-              file=sys.stderr)
+              "analysis|bf16|spec_codegen|bf16_round|bf16_times|sharding|"
+              "chunking|dryrun|nemotron]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -7395,6 +7738,14 @@ def main() -> int:
         return finish(check, [], card, t0)
     if only == ["sharding"]:
         return finish(check, sharding_phases(check, card), card, t0)
+    if only == ["chunking"]:
+        return finish(check, [phase("51 chunked streaming", chunking_phase,
+                                    check, card)], card, t0)
+    if only == ["dryrun"]:
+        return finish(check, dryrun_only(check, card), card, t0)
+    if only == ["nemotron"]:
+        return finish(check, phase("53 nemotron", nemotron_phase, check,
+                                   card), card, t0)
     if only:
         return finish(check, distributed_only(check, card), card, t0)
     phase("1 small shapes", small_shape_phase, check)
@@ -7424,6 +7775,8 @@ def main() -> int:
           card)
     del dom, fields, out, dist_out
     torch.cuda.empty_cache()
+    records.append(phase("51 chunked streaming", chunking_phase, check,
+                         card))
     records += phase("19-20 stencil serving", stencil_serving_phases, check,
                      card)
     torch.cuda.empty_cache()
@@ -7438,12 +7791,15 @@ def main() -> int:
     phase("9 qwen prefill gate", prefill_gate_phase, check, cfg, params,
           "flash_attention", fixed_f32_limit(PREFILL_F32_TOL),
           PREFILL_BF16_REL_TOL, bf16_kernel="flash_attention_tc")
+    phase("52 profiler and dry run", profiler_phase, check, card, cfg,
+          params)
     del params
     torch.cuda.empty_cache()
     k8 = phase("10 K8 timing", attention_timing, k8_launches, card)
     check(k8["within_bf16_bound"], "K8 at the timed shape == plain within "
           "bf16_bound")
     records.append(k8)
+    records += phase("53 nemotron", nemotron_phase, check, card)
     cfg, params, k9_serve = phase("12 ssm serving", serving_phase, check,
                                   SSM_ARCH, ("selective_scan",))
     phase("13 ssm layer gate", ssm_layer_gate_phase, check, cfg, params)

@@ -287,6 +287,103 @@ def fake_mode():
                 setattr(FakeTensor, name, fn)
 
 
+# ---------------------------------------------------------------------------
+# DTensor's private internals, patched in one place
+# ---------------------------------------------------------------------------
+
+_PLANNING = [0]          # DTensor planning calls in progress
+_PATCHED: dict = {}      # (owner, name) -> the original, while patched
+
+
+def dtensor_planning() -> bool:
+    """Whether a DTensor planning call is in progress: sharding propagation
+    or strided-shard geometry, which run ops on fake tensors of the global
+    shapes to learn metadata, not on a rank's data."""
+    return _PLANNING[0] > 0
+
+
+def _planning(orig, unfaked: bool = False):
+    """`orig` counted as planning; with `unfaked`, run outside the ambient
+    fake mode (`_StridedShard.local_shard_size_and_offset` builds an index
+    tensor with `torch.arange` and reads it back, which a fake tensor
+    cannot do)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    def planning(*args, **kwargs):
+        _PLANNING[0] += 1
+        try:
+            if not unfaked:
+                return orig(*args, **kwargs)
+            with unset_fake_temporarily():
+                return orig(*args, **kwargs)
+        finally:
+            _PLANNING[0] -= 1
+    return planning
+
+
+def _card_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+    """DTensor's shard-to-shard move as the all-to-all it dispatches on a
+    CUDA mesh (`_dtensor::shard_dim_alltoall`), whatever the mesh's
+    device type."""
+    from torch.distributed import _functional_collectives as funcol
+    group = funcol._resolve_group((mesh, mesh_dim))
+    return torch.ops._dtensor.shard_dim_alltoall(
+        input, gather_dim, shard_dim, funcol._group_or_group_name(group))
+
+
+_SHARDING_PROP = "torch.distributed.tensor._sharding_prop"
+_PLACEMENTS = "torch.distributed.tensor.placement_types"
+# (module, class in it or None for the module, attribute, its stand-in)
+DTENSOR_SITES = (
+    (_SHARDING_PROP, "ShardingPropagator",
+     "_propagate_tensor_meta_non_cached", _planning),
+    (_SHARDING_PROP, "ShardingPropagator",
+     "propagate_op_sharding_non_cached", _planning),
+    (_PLACEMENTS, "_StridedShard", "local_shard_size_and_offset",
+     lambda orig: _planning(orig, unfaked=True)),
+)
+CARD_ALLTOALL_SITE = (_PLACEMENTS, None, "shard_dim_alltoall",
+                      lambda orig: _card_alltoall)
+
+
+def _site_owner(mod_name: str, cls_name: Optional[str], name: str):
+    import importlib
+    owner = importlib.import_module(mod_name)
+    if cls_name is not None:
+        owner = getattr(owner, cls_name, None)
+    orig = None if owner is None else vars(owner).get(name)
+    if orig is None or isinstance(orig, (staticmethod, classmethod)):
+        where = ".".join(filter(None, (mod_name, cls_name, name)))
+        raise RuntimeError(f"{where} is not a plain function in torch "
+                           f"{torch.__version__}; the DTensor trace patches "
+                           "it and cannot count ranks' work without it")
+    return owner, orig
+
+
+@contextlib.contextmanager
+def dtensor_internals(*, card_alltoall: bool = False):
+    """Every patch the port makes to DTensor's private internals, for the
+    duration: its planning calls (`DTENSOR_SITES`) counted by
+    `dtensor_planning` and the strided-shard geometry run outside the fake
+    mode; with `card_alltoall`, the shard-to-shard move dispatched as the
+    all-to-all of a CUDA mesh. Re-entrant: a site already patched by an
+    enclosing call is left as it is. Raises where a site is missing."""
+    sites = DTENSOR_SITES + ((CARD_ALLTOALL_SITE,) if card_alltoall else ())
+    found = [(*_site_owner(m, c, name), name, wrap)
+             for m, c, name, wrap in sites]
+    mine = []
+    try:
+        for owner, orig, name, wrap in found:
+            if (owner, name) not in _PATCHED:
+                _PATCHED[(owner, name)] = orig
+                mine.append((owner, name))
+                setattr(owner, name, wrap(orig))
+        yield
+    finally:
+        for owner, name in reversed(mine):
+            setattr(owner, name, _PATCHED.pop((owner, name)))
+
+
 def _to_fake(mode, value):
     if isinstance(value, torch.Tensor):
         return value if L.is_fake(value) else mode.from_tensor(value)

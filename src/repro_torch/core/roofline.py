@@ -10,7 +10,9 @@ Hopper architecture white paper: data sheet, not measured. Measured times
 live in PERF.md beside the card's name and power limit. The wire is NVLink
 between distinct cards (`NVLINK_BW`, each way) and device memory on a
 loopback mesh, whose shards share one card (`LOOPBACK_BW`: each byte is
-read and written once). The serving models (`serving_max_batch`,
+read and written once). Across pods the wire is the cluster's network
+(`CROSS_POD_BW`, an assumption); to the host it is PCIe (`PCIE_BW`), whose
+measured rate PERF.md keeps. The serving models (`serving_max_batch`,
 `serving_throughput_model`) price the stencil serving engine's mega-step on
 the card; `model_flops` counts a model step's FLOPs (6 N D to train).
 """
@@ -19,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 # NVIDIA H100 SXM, data sheet, not measured (dense rates, 700 W part)
 PEAK_FLOPS_BF16 = 989e12     # bf16 tensor-core FLOP/s
@@ -35,6 +37,11 @@ SMEM_PER_SM = 233_472        # shared memory the resident blocks of one SM
                              # share (228 KB) ...
 SMEM_RESERVED_PER_BLOCK = 1_024   # ... less 1 KB the system keeps per block
 NVLINK_BW = 450e9            # bytes/s each way to the other cards (NVLink 4)
+PCIE_BW = 64e9               # bytes/s each way to the host: PCIe Gen5 x16
+# across pods (the production mesh's "pod" axis), an assumption: one
+# 400 Gb/s NDR InfiniBand port a card, as the DGX H100 data sheet lists
+# (eight ConnectX-7 ports for eight cards); bytes/s each way
+CROSS_POD_BW = 50e9
 LOOPBACK_BW = HBM_BW / 2     # a band moved within one card: read + write
 MAX_GRID_Y = 65535           # CUDA's limit on a launch grid's y dimension,
                              # the slot axis of K5 and K4
@@ -57,6 +64,8 @@ class RooflineTerms:
     wire_bytes: float = 0.0           # halo bytes a shard sends per step
     wire_bw: float = NVLINK_BW        # LOOPBACK_BW on a loopback mesh
     n_chips: int = 1
+    cross_wire_bytes: float = 0.0     # bytes a device sends across pods
+    cross_wire_bw: float = CROSS_POD_BW
     overlap_efficiency: float = 0.0   # fraction of collective_s the exchange
                                       # engine hides (overlap_efficiency_model)
 
@@ -75,7 +84,8 @@ class RooflineTerms:
 
     @property
     def collective_s(self) -> float:
-        return self.wire_bytes / self.wire_bw
+        return (self.wire_bytes / self.wire_bw
+                + self.cross_wire_bytes / self.cross_wire_bw)
 
     @property
     def collective_hidden_s(self) -> float:
@@ -125,6 +135,7 @@ class RooflineTerms:
         return self.compute_s / self.step_time_s
 
     def as_dict(self) -> Dict:
+        """The fields and the derived terms."""
         d = dataclasses.asdict(self)
         d.update(compute_s=self.compute_s, memory_s=self.memory_s,
                  bound=self.bound, step_time_s=self.step_time_s,
@@ -402,6 +413,130 @@ def stencil_ridge_T(flops_per_cell: float, bytes_per_cell_pass: float,
         flops_per_cell, bytes_per_cell_pass,
         tiling_bytes_factor=tiling_bytes_factor)
     return max(1, math.ceil(ridge / ai1))
+
+
+def stencil_tiling_bytes_factor(Y: int, y_tile: Optional[int], halo: int,
+                                *, grid_tiled: bool = True) -> float:
+    """Multiplier on the compulsory per-pass device-memory bytes from
+    y-tiling. The in-grid `(y_tile, x)` path (`grid_tiled=True`, the
+    kernels' default) serves halo re-reads from the block's shared-memory
+    slab and writes each output row once: 1.0, whatever `y_tile`. The
+    host-side loop restages `2*halo` rows per interior tile boundary on
+    both the read and write side, inflating every pass by
+    `(Y + 2*halo*(n_tiles-1)) / Y`."""
+    if halo < 0:
+        raise ValueError(f"halo must be >= 0, got {halo}")
+    if y_tile is None or y_tile >= Y or grid_tiled:
+        return 1.0
+    n_tiles = -(-Y // y_tile)
+    return (Y + 2 * halo * (n_tiles - 1)) / Y
+
+
+def differential(cost1: Dict[str, float], cost2: Dict[str, float],
+                 n_layers: int, key: str) -> float:
+    """total(key) = const + n_layers * (cost2-cost1) with const from cost1."""
+    c1, c2 = cost1.get(key, 0.0) or 0.0, cost2.get(key, 0.0) or 0.0
+    per_layer = max(c2 - c1, 0.0)
+    const = max(c1 - per_layer, 0.0)
+    return const + n_layers * per_layer
+
+
+def kernel_core_io_bytes(cfg, shape, layout,
+                         mesh_shape: Dict[str, int]) -> float:
+    """Per-device memory bytes a fused kernel moves for the S^2 and scan
+    cores: the reference's analytic I/O, term for term.
+
+    The dispatched ops' bytes charge every softmax and scan intermediate
+    as memory traffic, but K8 (flash attention) and K9 (the selective
+    scan) keep those tiles in shared memory and registers and stream only
+    their inputs and outputs:
+
+      attention : read Q,K,V + write O  (x ~3.5 with backward recompute)
+      ssm       : read xc, dt_r, B, C + write y + inter-chunk states
+    """
+    dp = mesh_shape.get("data", 1) * mesh_shape.get("pod", 1)
+    tp = mesh_shape.get("model", 1)
+    B, S = shape.global_batch, shape.seq_len
+    train = shape.kind == "train"
+    passes = 3.5 if train else 1.0
+    bpe = 2.0  # bf16 core I/O
+
+    def attn_io(n_layers, s_q, s_kv) -> float:
+        hq = max(layout.n_q_stored // tp, 1)
+        hkv = max(layout.n_kv_stored // tp, 1)
+        d = cfg.head_dim
+        per_b = (s_q * hq * d) * 2 + (s_kv * hkv * d) * 2  # q+o, k+v
+        return n_layers * (B / dp) * per_b * bpe * passes
+
+    fam = cfg.family
+    if fam == "moe":
+        m = cfg.moe
+        n_moe = cfg.n_layers // m.moe_every
+        toks = (B / dp) * S
+        slots = toks * m.top_k * m.capacity_factor
+        d = cfg.d_model
+        # a fused (sort-based) dispatch/combine kernel: token reads and
+        # gathered buffer writes in, the reverse out
+        disp = n_moe * (toks * d + 2 * slots * d) * 2 * bpe * passes
+        return attn_io(cfg.n_layers, S, S) + disp
+    if fam in ("dense", "vlm"):
+        return attn_io(cfg.n_layers, S, S)
+    if fam == "encdec":
+        e = cfg.encdec
+        td = e.dec_len
+        return (attn_io(e.enc_layers, S, S) + attn_io(e.dec_layers, td, td)
+                + attn_io(e.dec_layers, td, S))
+    if fam == "ssm":
+        di = max(cfg.d_inner // tp, 1)
+        n = cfg.ssm.d_state
+        nchunks = max(S // cfg.scan_chunk, 1)
+        io_b = 2.0   # chunks stream in bf16; the f32 state stays on chip
+        per_b = (2 * S * di            # xc read + y write
+                 + S * (cfg.ssm.dt_rank + 2 * n)) * io_b \
+            + nchunks * di * n * 4.0   # inter-chunk state spill (f32)
+        return cfg.n_layers * (B / dp) * per_b * passes
+    if fam == "hybrid":
+        pat = cfg._pattern_full()
+        n_attn = sum(1 for p in pat if p == "attn")
+        n_rec = len(pat) - n_attn
+        w = cfg.hybrid.window
+        dr = max(cfg.hybrid.d_rnn // tp, 1)
+        attn = attn_io(n_attn, S, min(2 * w, S))
+        rec = n_rec * (B / dp) * (3 * S * dr) * 4.0 * passes
+        return attn + rec
+    return 0.0
+
+
+MATERIALIZATIONS_PER_BLOCK = 16   # fusion-boundary tensors per layer (est.)
+
+
+def streaming_memory_bytes(cfg, shape, *, args_bytes_per_dev: float,
+                           core_io_bytes: float,
+                           mesh_shape: Dict[str, int]) -> float:
+    """A well-fused program's device-memory traffic (the optimistic
+    bound), the reference's model term for term:
+      * state I/O: params read (forward and backward recompute), gradient
+        write and AdamW moment read/write: ~4x the per-device argument
+        bytes to train, 1x to prefill or decode;
+      * activations: MATERIALIZATIONS_PER_BLOCK tensors of the residual
+        stream's size per layer, x1 forward or x3.5 with remat backward;
+      * the fused core I/O (`kernel_core_io_bytes`).
+    Reported beside the dispatched-op and kernel-adjusted terms; the three
+    bracket the truth from both sides."""
+    dp = mesh_shape.get("data", 1) * mesh_shape.get("pod", 1)
+    tp = mesh_shape.get("model", 1)
+    B, S = shape.global_batch, shape.seq_len
+    train = shape.kind == "train"
+    passes = 3.5 if train else 1.0
+    state_io = args_bytes_per_dev * (4.0 if train else 1.0)
+    seq_local = S / tp if (cfg.seq_parallel and shape.kind != "decode") else S
+    if shape.kind == "decode":
+        seq_local = 1
+    act = (B / dp) * seq_local * cfg.d_model * 2.0
+    n_layers = (cfg.encdec.enc_layers + cfg.encdec.dec_layers
+                if cfg.family == "encdec" else cfg.n_layers)
+    act_io = n_layers * MATERIALIZATIONS_PER_BLOCK * act * passes
+    return state_io + act_io + core_io_bytes
 
 
 def model_flops(cfg, shape) -> float:

@@ -195,10 +195,13 @@ def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):
 
 
 def _device_mesh(shape, names, device: str):
+    """A DeviceMesh over the process group's world. Under a `"fake"` group
+    (the dry run's, `launch.dryrun.fake_group`) no card is made current:
+    a fake group touches none."""
     from torch.distributed.device_mesh import init_device_mesh
     dev_type = torch.device(device).type
-    if dev_type == "cuda":
-        import torch.distributed as dist
+    import torch.distributed as dist
+    if dev_type == "cuda" and dist.get_backend() != "fake":
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
     return init_device_mesh(dev_type, tuple(shape), mesh_dim_names=names)
 

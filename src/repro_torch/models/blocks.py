@@ -21,8 +21,11 @@ whose backward recomputes the probabilities) and `chunked` train. As in
 the reference, a window takes precedence over `pallas` and `flash` (the
 hybrid family's attention runs `attn_local`), non-causal and cross
 attention run `attn_dense`, and the RG-LRU recurrence has no kernel.
-`skip_core` raises `NotImplementedError` naming slice G2b (ROADMAP
-Queue 1).
+`skip_core` is the reference's phase-attribution lowering, which the dry
+run's cost pair uses: it keeps every projection and drops the S^2
+attention core, the MoE one-hot dispatch and combine, the mamba scan and
+the RG-LRU recurrence, with `0.0 * x` terms that keep the dropped inputs
+live in the trace.
 
 Under a `DeviceMesh` with rules (`Ctx.rules`, `Ctx.mesh`), parameters and
 activations are DTensors and `Ctx.con` redistributes an activation to
@@ -50,8 +53,7 @@ from repro_torch.pspec import ParamSpec
 
 Params = Dict[str, Any]
 
-IMPLS = ("dense", "chunked", "local", "pallas", "flash")
-LATER = {"skip_core": "G2b (the dry run's phase-attribution lowering)"}
+IMPLS = ("dense", "chunked", "local", "pallas", "flash", "skip_core")
 
 
 @dataclass
@@ -155,7 +157,22 @@ def _project(x, w, b=None):
 def _write_cache(cache, new, pos):
     """cache[b, pos[b]] = new[b, 0], in place. The reference's
     `dynamic_update_slice` clamps an out-of-range position; here the caller
-    (`model.decode_step`) has refused one, so none reaches this write."""
+    (`model.decode_step`) has refused one, so none reaches this write. A
+    DTensor cache (batch and heads split over the mesh) is written rank by
+    rank on its own block (`local_map`): DTensor has no in-place rule for
+    an indexed write into a sharded tensor."""
+    if is_dtensor(cache):
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+        mesh, pl = cache.device_mesh, list(cache.placements)
+        new = new.redistribute(mesh, pl)
+        pos_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                  for p in pl]
+        pos = pos.redistribute(mesh, pos_pl)
+        local_map(_write_cache, out_placements=pl,
+                  in_placements=(pl, pl, pos_pl), device_mesh=mesh)(
+            cache, new, pos)
+        return cache
     rows = torch.arange(cache.shape[0], device=cache.device)
     cache[rows, pos] = new[:, 0].to(cache.dtype)
     return cache
@@ -173,9 +190,6 @@ def attention_apply(p: Params, x, ctx: Ctx, *, kv_x=None, window: int = 0,
     B, S, E = x.shape
     D = cfg.head_dim
     impl = cfg.attention_impl
-    if impl in LATER:
-        raise NotImplementedError(f"attention_impl={impl!r} waits for slice "
-                                  f"{LATER[impl]}")
     if impl not in IMPLS:
         raise ValueError(f"unknown attention_impl {impl!r}")
     kv_src = x if kv_x is None else kv_x
@@ -241,7 +255,13 @@ def attention_apply(p: Params, x, ctx: Ctx, *, kv_x=None, window: int = 0,
         kv_pos = torch.arange(Skv, device=x.device)
         if ctx.mode == "prefill":
             ctx.new_cache = {"k": k, "v": v}
-        if window:
+        if impl == "skip_core":
+            # phase-attribution lowering: keep projections, drop the S^2 core
+            vv = v if Skv == S else v[:, :S]
+            out = vv[:, :, :, None, :].expand(
+                B, S, lo.n_kv_stored, lo.q_per_group, D).to(q.dtype)
+            out = out + 0.0 * q
+        elif window:
             out = L.attn_local(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
                                scale=scale, window=window)
         else:
@@ -392,8 +412,7 @@ def moe_apply(p: Params, x, ctx: Ctx):
     B, S, E = x.shape
     X = m.n_experts
     if cfg.attention_impl == "skip_core":
-        raise NotImplementedError(f"attention_impl='skip_core' waits for "
-                                  f"slice {LATER['skip_core']}")
+        return _moe_skip_core(p, x, ctx)
     G, g_size, cap = moe_groups(cfg, B, S)
     xg = x.reshape(G, g_size, E)
     logits, probs, gate_vals, gate_idx, pos_in_expert, keep = moe_route(
@@ -426,6 +445,42 @@ def moe_apply(p: Params, x, ctx: Ctx):
         * m.router_z_loss
     aux = lb + z
 
+    if m.shared_expert:
+        out = out + _moe_inner_mlp(p["shared"], x, ctx)
+    if m.dense_residual:
+        out = out + _moe_inner_mlp(p["dense"], x, ctx)
+    return out, aux
+
+
+def _moe_skip_core(p: Params, x, ctx: Ctx):
+    """The phase-attribution lowering of `moe_apply`: the router's softmax
+    and the expert products stay (FLOP parity), the one-hot dispatch and
+    combine products go, so their differential is the dispatch's data
+    movement. Each expert takes the group's first `cap` tokens; expert 0's
+    output lands on them."""
+    cfg = ctx.cfg
+    m = cfg.moe
+    B, S, E = x.shape
+    X = m.n_experts
+    G, g_size, cap = moe_groups(cfg, B, S)
+    xg = x.reshape(G, g_size, E)
+    dt = x.dtype
+    logits = _einsum("gse,ex->gsx", xg, p["router"].to(dt)).float()
+    probs = torch.softmax(logits, dim=-1)
+    tok = (xg[:, :cap] if cap <= g_size
+           else F.pad(xg, (0, 0, 0, cap - g_size)))
+    exp_in = tok[:, None].expand(G, X, cap, E).to(dt)
+    exp_in = ctx.con(exp_in, (None, "act_expert", None, None))
+    h = (F.silu(_einsum("gxce,xef->gxcf", exp_in, p["wg"].to(dt)))
+         * _einsum("gxce,xef->gxcf", exp_in, p["wi"].to(dt)))
+    exp_out = _einsum("gxcf,xfe->gxce", h, p["wo"].to(dt))
+    n = min(cap, g_size)
+    pad = exp_out[:, 0, :n]
+    if n < g_size:
+        pad = torch.cat([pad, torch.zeros_like(xg[:, n:])], dim=1)
+    out = (pad + (0.0 * probs.sum(-1, keepdim=True)).to(pad.dtype)
+           ).reshape(B, S, E)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if m.shared_expert:
         out = out + _moe_inner_mlp(p["shared"], x, ctx)
     if m.dense_residual:
@@ -500,12 +555,14 @@ def scan_chunk_for(S: int, scan_chunk: int) -> int:
 def _associative_scan(a, b):
     """Prefix composition of h -> a*h + b along axis 1 (the reference's
     `lax.associative_scan(combine, (a, b), axis=1)`), in log2(length)
-    rounds: returns (pa, pb) with h_t = pa_t * h_(-1) + pb_t."""
+    rounds: returns (pa, pb) with h_t = pa_t * h_(-1) + pb_t. Each round
+    is built out of place (`cat`): DTensor has no plan for the backward of
+    a slice written into a sharded tensor."""
     step = 1
     while step < a.shape[1]:
-        pa, pb = a.clone(), b.clone()
-        pa[:, step:] = a[:, step:] * a[:, :-step]
-        pb[:, step:] = a[:, step:] * b[:, :-step] + b[:, step:]
+        pa = torch.cat([a[:, :step], a[:, step:] * a[:, :-step]], dim=1)
+        pb = torch.cat([b[:, :step], a[:, step:] * b[:, :-step]
+                        + b[:, step:]], dim=1)
         a, b, step = pa, pb, 2 * step
     return a, b
 
@@ -587,8 +644,10 @@ def mamba_apply(p: Params, x, ctx: Ctx):
         ctx.new_cache = ctx.cache
         y = torch.einsum("bdn,bsn->bsd", h, Cmat.float()).to(x.dtype)
     elif cfg.attention_impl == "skip_core":
-        raise NotImplementedError(f"attention_impl='skip_core' waits for "
-                                  f"slice {LATER['skip_core']}")
+        # phase-attribution lowering: drop the scan core, keep projections
+        y = (xc.to(x.dtype) + 0.0 * Bmat.sum(-1, keepdim=True)
+             + 0.0 * Cmat.sum(-1, keepdim=True)
+             + 0.0 * dt_r.sum(-1, keepdim=True))
     else:
         scan = _mamba_kernel_scan if cfg.attention_impl == "pallas" else \
             _mamba_chunk_scan
@@ -686,8 +745,7 @@ def rglru_apply(p: Params, x, ctx: Ctx):
         state.copy_(h.to(state.dtype))
         ctx.new_cache = ctx.cache
     elif cfg.attention_impl == "skip_core":
-        raise NotImplementedError(f"attention_impl='skip_core' waits for "
-                                  f"slice {LATER['skip_core']}")
+        hs = b  # phase-attribution lowering: drop the recurrence core
     else:
         h0 = torch.zeros((B, Dr), dtype=torch.float32, device=x.device)
         hs, h = _ssm_scan(a, b, h0, chunk=cfg.scan_chunk)

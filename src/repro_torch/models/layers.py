@@ -92,9 +92,10 @@ def apply_rope(x, positions, theta: float, mrope: bool = False):
     freqs = torch.as_tensor(rope_freqs(d, theta), dtype=torch.float32,
                             device=x.device)                  # (half,)
     if mrope:
-        sec = torch.repeat_interleave(
-            torch.arange(3, device=x.device),
-            torch.as_tensor(mrope_sections(d), device=x.device))  # (half,)
+        # the section of each slot, built on the host (a traced
+        # repeat_interleave's length would depend on its values)
+        sec = torch.as_tensor(np.repeat(np.arange(3), mrope_sections(d)),
+                              device=x.device)                 # (half,)
         pos = positions.float()[..., sec]                     # (B, S, half)
     else:
         pos = positions.float()[..., None]                    # (B, S, 1)

@@ -336,7 +336,11 @@ def _layer(tree, i: int):
 
 
 def _restack(new: list):
-    """Per-layer prefill caches, stacked on a leading layer axis."""
+    """Per-layer prefill caches, stacked on a leading layer axis; None
+    where the layers keep none (the ssm's `skip_core` lowering, as in the
+    reference)."""
+    if any(c is None for c in new):
+        return None
     return {k: torch.stack([c[k] for c in new]) for k in new[0]}
 
 
@@ -481,10 +485,18 @@ def sharded_context(rules, mesh):
     return contextlib.nullcontext()
 
 
+def _traced(t) -> bool:
+    """Whether `t` is a trace's fake tensor, or a DTensor of one: a dry
+    run's input, whose values cannot be read (their checks are skipped)."""
+    from repro_torch.kernels.library import is_fake
+    local = t.to_local() if is_dtensor(t) else t
+    return is_fake(local)
+
+
 def _embed(params, cfg: ArchConfig, tokens):
     tab = _replicated(params["tok_embed"])
     bad = (tokens < 0) | (tokens >= tab.shape[0])
-    if bool(bad.any()):
+    if not _traced(tokens) and bool(bad.any()):
         raise ValueError(f"token ids must lie in [0, {tab.shape[0]}); "
                          f"jnp.take would clamp or fill them, torch would "
                          f"read out of bounds")
@@ -613,6 +625,8 @@ def _check_positions(caches, pos, cfg: ArchConfig) -> None:
     window (it wraps only where the window hides what it overwrites);
     below 0 for a ring of the window (written at pos % length). A
     recurrent state reads no position."""
+    if _traced(pos):
+        return
     layers = caches if isinstance(caches, list) else [caches]
     for c in layers:
         if "k" not in c:
@@ -669,6 +683,25 @@ def _decode_step(params, caches, batch, cfg: ArchConfig, layout: HeadLayout,
 # ---------------------------------------------------------------------------
 
 
+def _take_target(logits, tgt):
+    """logits[..., tgt]: each position's target logit. On DTensors (logits
+    split over the batch, the vocab whole; targets split alike) each rank
+    gathers from its own rows (`local_map`): DTensor's own `gather` rule
+    replicates both operands, which gathers every rank's logits to every
+    rank (the whole global batch's, 637 GB a rank for `qwen3-32b` at
+    train_4k on 16 x 16)."""
+    if not is_dtensor(logits):
+        return torch.gather(logits, -1, tgt[..., None])[..., 0]
+    from torch.distributed.tensor.experimental import local_map
+    tgt = tgt.redistribute(logits.device_mesh, logits.placements)
+    fn = local_map(lambda lg, t: torch.gather(lg, -1, t[..., None])[..., 0],
+                   out_placements=list(tgt.placements),
+                   in_placements=(list(logits.placements),
+                                  list(tgt.placements)),
+                   device_mesh=logits.device_mesh)
+    return fn(logits, tgt)
+
+
 def lm_loss(logits, targets, *, z_loss: float = 1e-4):
     """Masked softmax cross-entropy in f32, plus `z_loss` times the mean
     squared log-partition. targets < 0 are masked."""
@@ -676,7 +709,7 @@ def lm_loss(logits, targets, *, z_loss: float = 1e-4):
     mask = (targets >= 0).float()
     tgt = torch.clamp_min(targets, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    ll = _take_target(logits, tgt)
     nll = (logz - ll) * mask
     z = torch.square(logz) * mask
     denom = torch.clamp_min(mask.sum(), 1.0)
@@ -692,7 +725,11 @@ def loss_fn(params, batch, cfg: ArchConfig, layout: HeadLayout, *,
                              mesh=mesh, mode="train")
     with sharded_context(rules, mesh):
         if rules:
-            logits = Ctx(cfg=cfg, layout=layout, rules=rules,
-                         mesh=mesh).con(logits, ("batch", None, None))
+            # the sequence gathered first, then the vocab: DTensor plans
+            # the one-step move from the sequence-parallel placement as an
+            # all-gather of the whole global batch to every rank
+            ctx = Ctx(cfg=cfg, layout=layout, rules=rules, mesh=mesh)
+            logits = ctx.con(logits, ("batch", None, "act_vocab"))
+            logits = ctx.con(logits, ("batch", None, None))
         loss = lm_loss(logits, batch["targets"]) + aux
     return loss, {"loss": loss, "aux": aux}

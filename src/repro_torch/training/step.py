@@ -42,7 +42,8 @@ import torch
 from repro_torch import pspec
 from repro_torch.config import ArchConfig
 from repro_torch.distributed.sharding import (Rules, gather, is_device_mesh,
-                                              place, sharding_for)
+                                              is_dtensor, place,
+                                              sharding_for)
 from repro_torch.models import model as M
 from repro_torch.training import optimizer as O
 
@@ -89,7 +90,10 @@ def loss_and_grads(params, batch, cfg: ArchConfig, layout, *,
         if poison:
             loss = loss * float("nan")
             metrics = {**metrics, "loss": loss}
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not reach (k's projection under the
+        # `skip_core` lowering) gets a zero gradient, as under jax.grad
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
     it = iter(grads)
     tree = pspec.tree_map(lambda _: next(it), split, is_leaf=torch.is_tensor)
     metrics = {k: v.detach() for k, v in metrics.items()}
@@ -106,9 +110,11 @@ def _micro(batch, accum: int, i: int):
 
 def place_batch(batch, rules: Rules, mesh):
     """A batch of plain tensors (the same on every rank) as DTensors split
-    over the `batch` rule on their leading axis."""
-    return {k: place(v, sharding_for(v.shape, ("batch",) + (None,) * (
-        v.ndim - 1), rules, mesh)) for k, v in batch.items()}
+    over the `batch` rule on their leading axis; a DTensor (a batch the
+    caller placed, as the dry run does) stays as it is."""
+    return {k: v if is_dtensor(v) else place(v, sharding_for(
+        v.shape, ("batch",) + (None,) * (v.ndim - 1), rules, mesh))
+        for k, v in batch.items()}
 
 
 def accumulated_grads(params, batch, cfg: ArchConfig, layout, *,

@@ -300,15 +300,17 @@ def test_h100_constants_from_the_data_sheet():
 def test_roofline_terms_algebra_equals_jax(flops):
     """The single-device terms equal the reference's on one chip with no
     wire bytes, memory-bound and compute-bound alike. The wire inputs are
-    the port's own (NVLink or loopback bytes and rate, where the reference
-    has ICI and DCN); every other key is the reference's, at its value."""
+    the port's own (NVLink or loopback bytes and rate, and the cross-pod
+    bytes and rate, where the reference has ICI and DCN); every other key
+    is the reference's, at its value."""
     kw = dict(flops_per_dev=flops, hbm_bytes_per_dev=1.6e9,
               model_flops_global=0.8 * flops, peak_flops=67e12,
               hbm_bw=3.35e12)
     got = TR.RooflineTerms(**kw).as_dict()
     want = JR.RooflineTerms(**kw, ici_wire_bytes=0.0, dcn_wire_bytes=0.0,
                             n_chips=1).as_dict()
-    assert set(got) - set(want) == {"wire_bytes", "wire_bw"}
+    assert set(got) - set(want) == {"wire_bytes", "wire_bw",
+                                    "cross_wire_bytes", "cross_wire_bw"}
     assert {k: got[k] for k in got if k in want} == \
         {k: want[k] for k in got if k in want}
     assert TR.RooflineTerms(**kw).bound == ("compute" if flops == 6.4e13

@@ -334,17 +334,22 @@ def test_out_of_range_indices_raise_instead_of_clamping():
 @pytest.mark.parametrize("knob,value,slice_", [
     ("attention_impl", "flash", "G2"), ("attention_impl", "skip_core", "G2")])
 def test_later_paths_raise_naming_their_slice(knob, value, slice_):
-    """`skip_core` still raises, naming slice G2b. `flash`, ported with
-    slice G2a, now runs: its f32 forward and gradients equal `chunked`'s
+    """Both later paths now run. `skip_core`, ported with slice G2b, gives
+    the reference's skip_core logits (within 2e-5 of the largest;
+    `tests/test_torch_skip_core.py` holds every family). `flash`, ported
+    with slice G2a: its f32 forward and gradients equal `chunked`'s
     (within 1e-5 and 1e-4 of each leaf's largest: the backward is the
     reference's hand-written one, not autograd's)."""
     cfg = get_smoke_config("qwen2.5-14b").replace(**{knob: value})
     params = params_from_numpy(smoke_weights("qwen2.5-14b"), device="cpu")
     layout = TM.make_layout(cfg, 1)
     if value != "flash":
-        with pytest.raises(NotImplementedError, match=slice_):
-            TM.forward(params, {"inputs": torch.tensor([[1, 2]])}, cfg,
-                       layout)
+        (jc, jlo, jp), (tc, tlo, tp) = both(
+            "qwen2.5-14b", compute_dtype="float32", **{knob: value})
+        toks = tokens(tc, (1, 12))
+        jl = JM.forward(jp, {"inputs": jnp.asarray(toks)}, jc, jlo)[0]
+        tl = TM.forward(tp, {"inputs": torch.as_tensor(toks)}, tc, tlo)[0]
+        assert err(tl, jl) <= 2e-5 * max(1.0, float(np.abs(f32(jl)).max()))
         return
     from repro_torch.training.step import loss_and_grads
     toks = torch.as_tensor(np.random.default_rng(0).integers(
@@ -533,11 +538,15 @@ def test_ssm_lengths_the_chunked_scan_refuses():
 
 
 def test_ssm_skip_core_raises_naming_g2():
-    cfg = get_smoke_config(SSM).replace(attention_impl="skip_core")
-    params = params_from_numpy(smoke_weights(SSM), device="cpu")
-    with pytest.raises(NotImplementedError, match="G2"):
-        TM.forward(params, {"inputs": torch.tensor([[1, 2]])}, cfg,
-                   TM.make_layout(cfg, 1))
+    """The ssm skip_core lowering, which raised until slice G2b, now runs
+    and gives the reference's skip_core logits (within 2e-5 of the
+    largest)."""
+    (jc, jlo, jp), (tc, tlo, tp) = both(SSM, compute_dtype="float32",
+                                        attention_impl="skip_core")
+    toks = tokens(tc, (1, 12))
+    jl = JM.forward(jp, {"inputs": jnp.asarray(toks)}, jc, jlo)[0]
+    tl = TM.forward(tp, {"inputs": torch.as_tensor(toks)}, tc, tlo)[0]
+    assert err(tl, jl) <= 2e-5 * max(1.0, float(np.abs(f32(jl)).max()))
 
 
 def test_softplus_is_logaddexp_above_the_torch_threshold():
