@@ -14,13 +14,14 @@
     python3 chip_smoke.py --only train             # phases 29-31 alone
     python3 chip_smoke.py --only analysis          # phases 32-34 alone
     python3 chip_smoke.py --only bf16              # phases 35-43 alone
-    python3 chip_smoke.py --only spec_codegen      # phases 43-46 alone
+    python3 chip_smoke.py --only spec_codegen      # phases 43, 54, 44-46
     python3 chip_smoke.py --only bf16_round        # phases 47-49 alone
     python3 chip_smoke.py --only bf16_times        # phase 49's times alone
     python3 chip_smoke.py --only sharding          # phase 50 alone
     python3 chip_smoke.py --only chunking          # phase 51 alone
     python3 chip_smoke.py --only dryrun            # phase 52 alone
     python3 chip_smoke.py --only nemotron          # phase 53 alone
+    python3 chip_smoke.py --only spec_math         # phases 54, 44-46
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 
@@ -352,20 +353,30 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    small shapes and at the 67M grid == the callback's plain version,
    bitwise; their 12 builds made at once and timed, and again from the
    cache; the analyzer's live ledger == fake == model for one of them;
-44. every spec shape the reference's kernel runs, through four user specs
+44. every spec shape the reference's kernel runs, through seven user specs
    (`tests/_spec_shapes.py`: `hyperdiff4` radius 2, `smag_cross` reading
    x-diagonals, `moist6` six fields, `tvd_vl` radius 2 with division,
-   abs, minimum, maximum and where on comparisons) and a sqrt/division
-   check: their builds at once, then at small shapes (T 1-3, y_tile None
-   and 3, masks, x and z chunks on given plans, batched == sequential)
-   == the plain version on the card, bitwise;
-45. the four at the 67M grid, euler and rk2, f32 and bf16, T = 4 in
-   passes, each pass's plan printed with the card's registers and spills:
-   == plain bitwise, one launch a pass, launched == planned shared bytes,
-   within `ORACLE_TOL` (f32) or a per-cell bound that fails a no-op
-   (bf16) of one f64 oracle; `collective` (2, 2) runs of hyperdiff4 and
-   moist6 == single-card T = 16 bitwise, `remote_dma` refused; each
-   spec's ledger live == fake == model;
+   abs, minimum, maximum and where on comparisons; the cloud-model specs
+   of the math nodes, `satadj3` exp and division by traced values,
+   `sponge_log` log, tanh, clamp, a generic power and `t[-1]`,
+   `wrap_phase` `%`, `//`, sin and comparisons as numbers), a sqrt/division
+   check and a z slice with a positive stop: their builds at once, then
+   each spec in f32 and bf16 with bf16 coefficients (the math specs also
+   with f32 ones) at small shapes (T 1-3, y_tile None and 3, masks, one
+   build for every Z, x and z chunks on given plans, batched ==
+   sequential) == the plain version on the card, bitwise; the positive
+   stop == plain where it lines up with z, refused before any launch where
+   not;
+45. the seven at the 67M grid, euler and rk2, in their storages, T = 4 in
+   passes, each pass's plan printed with the card's registers and spills
+   (none for the four; a math spec's spill is a finding): == plain
+   bitwise, one launch a pass, analyzer plan == launch plan == launched
+   shared bytes, an explicit y_tile and two batched slots alike, within
+   `ORACLE_TOL` x max(1, max |field|) of one f64 oracle field by field
+   (f32) or a per-field bound that fails a no-op (bf16); `collective`
+   (2, 2) runs of hyperdiff4, moist6 and satadj3 == single-card T = 16
+   bitwise, `remote_dma` refused; each spec's ledger live == fake ==
+   model;
 46. each spec's pass timed (events, device time per launch seen) beside
    its bound, with its build's registers, spills and shared bytes;
 47. each bf16 rounding route of `csrc/bf16_round.cu` alone (K1/K5, K6 and
@@ -402,13 +413,17 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
    launches; `train_loop` on `qwen3-32b` at full width, 2 of 64 layers,
    `flash`, remat, 3 steps of 8 x 128, plain and then under the rules on
    the mesh (each run freed before the next): losses, gradient norms and
-   final params bitwise. 50b, with two or more cards, one NCCL rank a card
+   final params bitwise; then one f32 step plain, 50b's reference. 50b,
+   with two or more cards, one NCCL rank a card
    (`torch.multiprocessing.spawn`): `qwen2.5-14b` prefills at tp = 2 (4 kv
    groups a rank; f32 at 48 layers within `PREFILL_F32_TOL` of 50a's tp =
    1 logits, bf16 at 2 layers within `PREFILL_BF16_REL_TOL`, bf16 at 48
-   printed; K8 once a layer on every rank), `pipeline_apply` over the
-   ranks == the sequential stack bitwise, `compressed_psum` == a host
-   recomputation (residuals bitwise, means within the CPU test's bound);
+   printed; K8 once a layer on every rank), 50a's f32 `qwen3-32b` train
+   step (2 layers, 8 x 128) at tp = 2 through the vocab-parallel loss
+   within 2e-5 of one card's loss and gradient norm, `pipeline_apply`
+   over the ranks == the sequential stack bitwise, `compressed_psum` == a
+   host recomputation (residuals bitwise, means within the CPU test's
+   bound);
    with one card it prints "sharding across cards: skipped, 1 card
    visible".
 
@@ -428,6 +443,16 @@ peak. 53, `nemotron-4-15b` at full width and depth and `nemotron-4-340b` at
 full width, 1 of 96 layers (f32 weights), each a bf16 `pallas` prefill of
 2048 tokens against `flash` on the card, K8 once a layer (D 192 for 340b).
 
+Phase 54 (before phase 44): every new node of the tracer
+(`spec_cuda.probe_cases`: the math functions, the powers and their
+special exponents, clamps, floor division and remainder by values, by
+numbers and of numbers, comparisons as numbers, `&` in a select), emitted
+as in a functor into one probe (`_build.load_probe`, the generated builds'
+flags), == torch's op on the card (the case's callback) over every f32
+bit pattern and every bf16 one (one operand), every pair of bf16 patterns
+and 2^28 random f32 pairs with the special values' pairs (two): the same
+bits, or NaN for NaN.
+
 Each phase prints its seconds.
 
 `--only chunking`, `--only dryrun` and `--only nemotron` run phases 51, 52
@@ -443,7 +468,8 @@ that a copy of the script in an older checkout times that checkout the
 same way.
 
 `--only bf16` runs phases 35-43 alone (its kernels line holds the bf16
-kernels and the generated K6); `--only spec_codegen` phases 43-46.
+kernels and the generated K6); `--only spec_codegen` phases 43, 54 and
+44-46; `--only spec_math` phases 54 and 44-46.
 
 `--only analysis` runs phases 32-34 and the host-cost lines alone.
 
@@ -547,6 +573,7 @@ from repro_torch.training import optimizer as TO  # noqa: E402
 from repro_torch.training import step as TS  # noqa: E402
 from repro_torch.stencil import distributed as D  # noqa: E402
 from repro_torch.stencil import spec as SP  # noqa: E402
+from repro_torch.stencil import spec_cuda as G  # noqa: E402
 from repro_torch.stencil.advection import (PAPER_GRIDS,  # noqa: E402
                                            AdvectionDomain, stratus_fields)
 import _spec_shapes as SHAPES  # noqa: E402
@@ -602,7 +629,8 @@ SOURCE = {"advect_fused": "src/repro_torch/csrc/advect_fused.cuh",
           "stencil_generated": "src/repro_torch/csrc/stencil_generated.cu",
           **{f"stencil_generated_{n}":
              "src/repro_torch/csrc/stencil_generated.cu"
-             for n in ("hyperdiff4", "smag_cross", "moist6", "tvd_vl")},
+             for n in ("hyperdiff4", "smag_cross", "moist6", "tvd_vl",
+                       "satadj3", "sponge_log", "wrap_phase")},
           "flash_attention": "src/repro_torch/csrc/flash_attention_tc.cu",
           "selective_scan": "src/repro_torch/csrc/selective_scan.cu",
           "band_exchange": "src/repro_torch/csrc/band_exchange.cu"}
@@ -616,7 +644,8 @@ REPLACES = {"advect_fused": "src/repro/kernels/advection/advection.py:404",
                 "src/repro/kernels/advection/advection.py:677",
             **{f"stencil_generated_{n}":
                "src/repro/kernels/advection/advection.py:677"
-               for n in ("hyperdiff4", "smag_cross", "moist6", "tvd_vl")},
+               for n in ("hyperdiff4", "smag_cross", "moist6", "tvd_vl",
+                         "satadj3", "sponge_log", "wrap_phase")},
             "flash_attention": "src/repro/kernels/attention/attention.py:31",
             "selective_scan": "src/repro/kernels/ssm/ssm.py:39",
             "band_exchange": "src/repro/kernels/advection/advection.py:939",
@@ -6110,8 +6139,13 @@ def user_spec_phase(check: Checks, card: str) -> dict:
 # the four specs' torch side (their JAX twins are in
 # tests/test_torch_spec_shapes.py): hyperdiff4 (radius 2), smag_cross
 # (x-diagonal reads), moist6 (six fields), tvd_vl (radius 2, the limiter
-# operations), and sqrt_div (sqrt, a division by a Python number)
+# operations); the three cloud-model specs of the math nodes: satadj3 (exp,
+# division by traced values), sponge_log (log, tanh, clamp, a generic
+# power, `t[-1]`), wrap_phase (`%`, `//`, sin, comparisons as numbers); and
+# sqrt_div (sqrt, a division by a Python number)
 SHAPE_NAMES = SHAPES.NAMES
+MATH_NAMES = SHAPES.MATH_NAMES
+SHAPE_ALL = SHAPE_NAMES + MATH_NAMES
 SHAPE_DT = dict(SHAPES.DT, sqrt_div=0.1)
 # (5, 9, 8)-like shapes, the least a radius-2 ring takes on every axis
 # (2R + 2), and one of several y-tiles and z chunks
@@ -6119,11 +6153,28 @@ SHAPE_SMALL = ((5, 9, 8), (6, 6, 6), (13, 23, 17))
 SHAPE_CHUNKS = ((5, 4, None), (5, 3, 5), (4, 6, 4))   # TY, CX, CZ
 SHAPE_T = 4
 SHAPE_BLOCKS = 4      # the distributed runs: 4 blocks of T = 4 == T = 16
-SHAPE_DIST = ("hyperdiff4", "moist6")
+SHAPE_DIST = ("hyperdiff4", "moist6", "satadj3")
+STOP_Z = 14           # the z-slice with a positive stop lines up at this Z
 
 
 def shape_spec(name: str, integrator: str = "euler"):
     return SHAPES.port_spec(name, integrator)
+
+
+def shape_storages(name: str) -> tuple:
+    """(field dtype, bf16 coefficients) of one spec's runs: f32, and bf16
+    with bf16 coefficients (a bf16 domain's); the math specs also bf16 with
+    f32 coefficients, and sqrt_div, which has none, f32 and bf16."""
+    if name in MATH_NAMES:
+        return ((torch.float32, False), (BF16, False), (BF16, True))
+    if name == "sqrt_div":
+        return ((torch.float32, False), (BF16, False))
+    return ((torch.float32, False), (BF16, True))
+
+
+def storage_tag(dtype, coef: bool) -> str:
+    return ("f32" if dtype == torch.float32 else
+            "bf16" if coef else "bf16/f32 coef")
 
 
 def shape_params(name: str, Z: int, dtype=torch.float32):
@@ -6136,8 +6187,13 @@ def shape_params(name: str, Z: int, dtype=torch.float32):
     return type(p)(*(v.to(dtype) for v in p))
 
 
+def storage_params(name: str, Z: int, coef: bool):
+    """`shape_params` in bf16 where `coef`, else in f32."""
+    return shape_params(name, Z, BF16 if coef else torch.float32)
+
+
 def shape_fields(name: str, shape, dtype, seed: int):
-    """Seeded normal fields (tvd_vl's winds at half that), bf16 values in
+    """Seeded fields (`tests/_spec_shapes.np_fields`), bf16 values in
     either storage."""
     return tuple(torch.tensor(f, device="cuda").to(BF16).to(dtype)
                  for f in SHAPES.np_fields(
@@ -6145,30 +6201,12 @@ def shape_fields(name: str, shape, dtype, seed: int):
                      seed))
 
 
-def graph_ops(gen) -> int:
-    """Operations the functor runs per interior cell and level: each
-    field's source as emitted (every arithmetic node it needs, comparisons,
-    selects, min and max included), counted field by field."""
-    total = 0
-    for out in gen.outs:
-        need, stack = set(), [out]
-        while stack:
-            i = stack.pop()
-            if i not in need:
-                need.add(i)
-                node = gen.nodes[i]
-                stack += [a for a in node[1:] if isinstance(a, int)
-                          and node[0] not in ("field", "coef", "zvec")]
-        total += sum(gen.nodes[i][0] not in ("field", "coef", "zvec")
-                     for i in need)
-    return total
-
-
 def shape_bound(spec, params, T: int, shape, itemsize: int):
     """(bytes, operations) of one `stencil_fused` call of T steps: the
     fields read and written once, the parameter table and masks read once;
-    the functor's operations (`graph_ops`) at every interior cell of each
-    of its stages * T levels and the 2-op update of each field and cell."""
+    the functor's operations (`Generated.ops_per_cell`) at every interior
+    cell of each of its stages * T levels and the 2-op update of each field
+    and cell."""
     X, Y, Z = shape
     r, nf = spec.radius, spec.n_fields
     gen = spec.cuda_functor()
@@ -6176,51 +6214,93 @@ def shape_bound(spec, params, T: int, shape, itemsize: int):
     nbytes = (2 * nf * X * Y * Z * itemsize
               + sum(v.numel() for v in pv) * 4 + (X + Y) * 4)
     interior = (X - 2 * r) * (Y - 2 * r) * (Z - 2 * r)
-    ops = spec.stages * T * (interior * graph_ops(gen) + 2 * nf * X * Y * Z)
+    ops = spec.stages * T * (interior * gen.ops_per_cell()
+                             + 2 * nf * X * Y * Z)
     return nbytes, ops
+
+
+def stop_spec():
+    """A one-field spec whose z coefficients are a slice with a positive
+    stop, `t[1:STOP_Z - 1]`: it lines up with z at Z = STOP_Z only."""
+    def src(sh, pv):
+        return (pv[0][1:STOP_Z - 1] * (sh(0, 1, 0, 0) - sh(0, 0, 0, 0)),)
+    return SP.StencilSpec(name="stop_slice", fields=("a",),
+                          offsets={"a": SHAPES.STAR1}, source=src,
+                          pack_params=lambda p: tuple(p))
 
 
 def shape_cases():
     """(spec, field dtype, bf16 coefficients) of every build phases 44-46
-    launch: the four specs x euler, rk2 x f32, bf16 (bf16 coefficients),
-    and the sqrt/division check in f32 and bf16."""
-    out = [(shape_spec(n, i), d, d == BF16) for n in SHAPE_NAMES
-           for i in SP.INTEGRATORS for d in (torch.float32, BF16)]
-    return out + [(shape_spec("sqrt_div"), d, False)
-                  for d in (torch.float32, BF16)]
+    launch: each spec x euler, rk2 x its storages, sqrt_div (euler) in f32
+    and bf16, and the positive-stop spec in f32."""
+    out = [(shape_spec(n, i), d, c) for n in SHAPE_ALL
+           for i in SP.INTEGRATORS for d, c in shape_storages(n)]
+    return out + [(shape_spec("sqrt_div"), d, c)
+                  for d, c in shape_storages("sqrt_div")] + [
+        (stop_spec(), torch.float32, False)]
+
+
+def stop_slice_checks(check: Checks) -> None:
+    """Phase 44's positive-stop z slice: == plain at the Z it lines up
+    with, one launch; refused before any launch at another."""
+    spec = stop_spec()
+    for Z in (STOP_Z, STOP_Z - 2):
+        flds = (torch.randn(7, 9, Z, device="cuda"),)
+        params = (torch.linspace(0.1, 0.9, Z + 2, device="cuda"),)
+        if Z == STOP_Z:
+            out, launches, _ = counted(lambda: K.stencil_fused(
+                flds, params, spec, T=2, dt=0.1))
+            check(same(out, plain_spec(flds, params, spec, 2, 0.1))
+                  and only_these(launches, {"stencil_generated": 1}),
+                  f"44 z slice [1:{STOP_Z - 1}] (a positive stop) at Z = "
+                  f"{Z}: == plain, bitwise, one launch")
+            continue
+        reset_all_counts()
+        try:
+            K.stencil_fused(flds, params, spec, T=2, dt=0.1)
+            refused = False
+        except NotImplementedError as e:
+            refused = "does not line up with z" in str(e)
+        check(refused and sum(all_counts().values()) == 0,
+              f"44 z slice [1:{STOP_Z - 1}] at Z = {Z}: refused before any "
+              f"launch (it holds {STOP_Z - 2} cells, z has {Z - 2})")
 
 
 def shape_small_phase(check: Checks) -> None:
-    """Phase 44: the generated builds of the four specs (radius 2,
-    x-diagonal reads, six fields, the limiter operations) made at once;
-    then each spec x integrator x storage through K6 at small shapes ==
-    its plain version on the card, bitwise: T 1-3 (passes where a pass
-    holds fewer levels), y_tile None and 3, masks, x and z chunks with
-    remainders on given plans, and batched (B = 3, per-slot masks) ==
-    sequential; the sqrt/division check spec likewise."""
+    """Phase 44: the generated builds of the seven specs (radius 2,
+    x-diagonal reads, six fields, the limiter operations, the math nodes)
+    made at once; then each spec x integrator x storage through K6 at small
+    shapes == its plain version on the card, bitwise: T 1-3 (passes where a
+    pass holds fewer levels), y_tile None and 3, masks, one build for every
+    Z, x and z chunks with remainders on given plans, and batched (B = 3,
+    per-slot masks) == sequential; the sqrt/division check spec likewise;
+    the positive-stop z slice (`stop_slice_checks`)."""
     t0 = time.perf_counter()
     n_builds = K.build_spec_kernels(shape_cases())
-    print(f"44 generated K6 builds: {n_builds} (4 specs x euler, rk2 x f32, "
-          f"bf16, and the sqrt/division check in f32 and bf16), compiled "
-          f"at once in {time.perf_counter() - t0:.2f} s", flush=True)
-    for name in SHAPE_NAMES + ("sqrt_div",):
+    print(f"44 generated K6 builds: {n_builds} (7 specs x euler, rk2 x "
+          f"their storages, the sqrt/division check in f32 and bf16, the "
+          f"positive-stop spec), compiled at once in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for name in SHAPE_ALL + ("sqrt_div",):
         integs = SP.INTEGRATORS if name != "sqrt_div" else ("euler",)
         for integ in integs:
             spec = shape_spec(name, integ)
             gen = spec.cuda_functor()
-            check(not isinstance(gen, int) and gen.n_fields == spec.n_fields,
+            check(not isinstance(gen, int) and gen.n_fields == spec.n_fields
+                  and K.spec_on_card(spec),
                   f"44 {spec.name} runs a generated functor (digest "
                   f"{gen.digest}, radius {gen.radius}, planes at x offsets "
-                  f"{gen.plane_lo}..{gen.plane_hi}, builds "
+                  f"{gen.plane_lo}..{gen.plane_hi}, {gen.ops_per_cell()} "
+                  f"operations a cell and level, builds "
                   f"{gen.builds(spec.stages)}, {K.spec_levels(spec)} levels "
                   f"a pass)")
-            for dtype in (torch.float32, BF16):
-                tag = (f"44 {spec.name} {'bf16' if dtype == BF16 else 'f32'}")
+            for dtype, coef in shape_storages(name):
+                tag = f"44 {spec.name} {storage_tag(dtype, coef)}"
                 dt = SHAPE_DT[name]
                 ok, moved, chunks = [], [], []
                 for si, shape in enumerate(SHAPE_SMALL):
                     X, Y, Z = shape
-                    params = shape_params(name, Z, dtype)
+                    params = storage_params(name, Z, coef)
                     flds = shape_fields(name, shape, dtype, 440 + 10 * si)
                     xm, ym = ones_cuda(X), ones_cuda(Y)
                     # where x = 2 is the one interior slice (X = 5 at
@@ -6251,8 +6331,7 @@ def shape_small_phase(check: Checks) -> None:
                     for TY, CX, CZ in SHAPE_CHUNKS:
                         plan = K.fused_plan_with_chunks(
                             K.spec_device_plan("cuda", X, Y, Z, spec, T, 1,
-                                               TY, dtype=dtype,
-                                               coef=dtype == BF16),
+                                               TY, dtype=dtype, coef=coef),
                             X, Z, spec.stages * T, CX=CX, CZ=CZ,
                             knobs=K.spec_plan_knobs(spec, T))
                         got = K._stencil_fused_cuda(
@@ -6263,8 +6342,8 @@ def shape_small_phase(check: Checks) -> None:
                             and same((g[0] for g in got), plain))
                 check(all(ok) and all(moved), f"{tag}: == plain on the card, "
                       f"bitwise, {len(ok)} runs over {SHAPE_SMALL} (T 1-3, "
-                      f"y_tile None and 3, masks), each launch counted; the "
-                      f"fields moved")
+                      f"y_tile None and 3, masks; one build for every Z), "
+                      f"each launch counted; the fields moved")
                 check(all(chunks) and chunks, f"{tag}: x chunks, y-tiles and "
                       f"z chunks with remainders on given plans "
                       f"{SHAPE_CHUNKS} == plain, bitwise")
@@ -6273,11 +6352,11 @@ def shape_small_phase(check: Checks) -> None:
     xm, ym = torch.ones(B, X, device="cuda"), torch.ones(B, Y, device="cuda")
     xm[1, 2] = 0.0
     ym[2, 5:9] = 0.0
-    for name in SHAPE_NAMES:
+    for name in SHAPE_ALL:
         for integ in SP.INTEGRATORS:
             spec = shape_spec(name, integ)
-            for dtype in (torch.float32, BF16):
-                params = shape_params(name, Z, dtype)
+            for dtype, coef in shape_storages(name):
+                params = storage_params(name, Z, coef)
                 slots = [shape_fields(name, shape, dtype, 470 + 7 * b)
                          for b in range(B)]
                 fields = [torch.stack([sl[i] for sl in slots])
@@ -6289,13 +6368,14 @@ def shape_small_phase(check: Checks) -> None:
                     [f[b] for f in fields], params, spec, T=2,
                     dt=SHAPE_DT[name], x_interior_mask=xm[b],
                     y_interior_mask=ym[b])) for b in range(B)]
-                check(all(ok), f"44 {spec.name} "
-                      f"{'bf16' if dtype == BF16 else 'f32'} batched (B = "
-                      f"{B}, per-slot masks) == sequential, bitwise")
+                check(all(ok), f"44 {spec.name} {storage_tag(dtype, coef)} "
+                      f"batched (B = {B}, per-slot masks) == sequential, "
+                      f"bitwise")
+    stop_slice_checks(check)
 
 
 def shape_path_tiles_and_slots(check: Checks, tag: str, spec, params,
-                               flds, dt: float, out) -> None:
+                               flds, dt: float, out, coef: bool) -> None:
     """Phase 45's other equalities at the 67M grid, for a spec whose
     untiled run of `SHAPE_T` steps gave `out`: an explicit y_tile of half
     the spec's own tile == untiled, and two slots with per-slot masks
@@ -6306,10 +6386,10 @@ def shape_path_tiles_and_slots(check: Checks, tag: str, spec, params,
     passes = K.spec_passes(spec, T)
     want = {"stencil_generated": len(passes)}
     own = K.spec_device_plan("cuda:0", X, Y, Z, spec, passes[0],
-                             dtype=dtype, coef=dtype == BF16)
+                             dtype=dtype, coef=coef)
     y_tile = max(2, own.TY // 2)
     given = K.spec_device_plan("cuda:0", X, Y, Z, spec, passes[0], 1,
-                               y_tile, dtype=dtype, coef=dtype == BF16)
+                               y_tile, dtype=dtype, coef=coef)
     tiled, launches, _ = counted(lambda: K.stencil_fused(
         flds, params, spec, T=T, dt=dt, y_tile=y_tile))
     check(same(tiled, out) and given.TY != own.TY
@@ -6341,22 +6421,50 @@ def shape_path_tiles_and_slots(check: Checks, tag: str, spec, params,
           f"changed the result")
 
 
+def shape_bf16_bounds(spec, start, params, oracle, levels: int,
+                      dt: float) -> list:
+    """Per field f, the bound on a bf16 run of `levels` ring levels against
+    the f64 oracle: BF16_ORACLE_SLACK x levels x (u M_f + dt E_f), each
+    level's update rounding once to bf16 (at most u = 2^-8 of the field's
+    largest |value| M_f) and adding the error of its source's own bf16
+    roundings, dt E_f, E_f the largest |source in the run's storage -
+    source in f64| over the start fields (the plain version's
+    `spec_sources` on the card; a property of the spec and the storage, not
+    of K6). The slack covers the stencil carrying earlier errors."""
+    src = SP.spec_sources(start, params, spec)
+    src64 = SP.spec_sources([f.double() for f in start],
+                            type(params)(*(v.double() for v in params)),
+                            spec)
+    return [BF16_ORACLE_SLACK * levels * (
+        BF16_U * float(o.abs().max())
+        + dt * float((s.double() - s64).abs().max()))
+        for o, s, s64 in zip(oracle, src, src64)]
+
+
+def field_errs(got, want) -> list:
+    """Per field, the largest |got - want|."""
+    return [float((g.double() - w.double()).abs().max())
+            for g, w in zip(got, want)]
+
+
 def shape_path_phase(check: Checks, card: str) -> dict:
     """Phase 45 at the 67M grid: each spec x integrator x storage through
     `stencil_fused` at T = 4 on K6's own plan (each pass's plan printed with
     the card's registers, spills and resident blocks), the counts set to 0
     just before and read just after (`stencil_generated` once a pass, no
     other kernel), == the plain version on the card bitwise; f32 within
-    `ORACLE_TOL` x scale of the f64 oracle, bf16 within its per-cell bound
-    (`cell_gate`, which fails a no-op); the launched shared bytes == the
-    analyzer's plan; an explicit y_tile == untiled and two slots batched ==
-    sequential (`shape_path_tiles_and_slots`). The f32 and bf16 runs start
-    from the same bf16 values, so they share one f64 oracle. Returns the
-    runs for the timing phase."""
+    `ORACLE_TOL` x max(1, max |field|) of the f64 oracle field by field,
+    bf16 within its per-field bound (`shape_bf16_bounds`, by `cell_gate`,
+    which fails a no-op); the analyzer's shared-memory plan == the launch
+    plan == the launched shared bytes; an explicit y_tile == untiled and two
+    slots batched == sequential (`shape_path_tiles_and_slots`). A build of
+    the four specs spills nothing; a math spec's spill is printed, a
+    finding. The runs of a spec start from the same bf16 values, so they
+    share one f64 oracle. Returns the runs for the timing phase."""
     X, Y, Z = PAPER_GRIDS[MAIN_GRID]
     T = SHAPE_T
     runs = {}
-    for name in SHAPE_NAMES:
+    for name in SHAPE_ALL:
         dt = SHAPE_DT[name]
         start = shape_fields(name, (X, Y, Z), BF16, 450)
         for integ in SP.INTEGRATORS:
@@ -6364,16 +6472,15 @@ def shape_path_phase(check: Checks, card: str) -> dict:
             passes = K.spec_passes(spec, T)
             oracle = SP.spec_multistep_ref_f64(
                 start, shape_params(name, Z, BF16), spec, T, dt)
-            for dtype in (torch.float32, BF16):
-                tag = f"45 {spec.name} {'bf16' if dtype == BF16 else 'f32'}"
-                params = shape_params(name, Z, dtype)
+            for dtype, coef in shape_storages(name):
+                tag = f"45 {spec.name} {storage_tag(dtype, coef)}"
+                params = storage_params(name, Z, coef)
                 flds = tuple(f.to(dtype) for f in start)
                 for Tk in sorted(set(passes)):
                     plan = K.spec_device_plan("cuda:0", X, Y, Z, spec, Tk,
-                                              dtype=dtype,
-                                              coef=dtype == BF16)
+                                              dtype=dtype, coef=coef)
                     a = K.spec_kernel_attrs("cuda:0", spec, Tk, plan,
-                                            dtype=dtype, coef=dtype == BF16)
+                                            dtype=dtype, coef=coef)
                     ring = SM.fused_ring_plan(X, Y, Z, T=Tk, spec=spec,
                                               n_sm=n_sms(),
                                               blocks_per_sm=plan.blocks_per_sm)
@@ -6389,53 +6496,53 @@ def shape_path_phase(check: Checks, card: str) -> dict:
                           f"{tag} pass T={Tk}: the analyzer's shared-memory "
                           f"plan {ring.total()} B == the launch plan's "
                           f"{plan.shared_bytes} B")
-                    check(a["local_bytes"] == 0, f"{tag} pass T={Tk}: the "
-                          f"build spills nothing ({a['local_bytes']} B, "
-                          f"{a['registers']} registers)")
+                    if name not in MATH_NAMES:
+                        check(a["local_bytes"] == 0, f"{tag} pass T={Tk}: "
+                              f"the build spills nothing ({a['local_bytes']} "
+                              f"B, {a['registers']} registers)")
                 out, launches, wall = counted(lambda: K.stencil_fused(
                     flds, params, spec, T=T, dt=dt))
                 launched = K.LAUNCHED_SHARED.get("stencil_fused")
                 plain = plain_spec(flds, params, spec, T, dt)
                 err = max(float((a.float() - b.float()).abs().max())
                           for a, b in zip(out, plain))
+                bitwise = same(out, plain)
                 del plain
                 print(f"{tag} T={T} at {(X, Y, Z)}: wall {wall:.3f} s, "
                       f"launches {launches['stencil_generated']} "
                       f"({passes}), vs plain {err}", flush=True)
-                check(err == 0.0 and not same(out, flds) and only_these(
+                check(bitwise and not same(out, flds) and only_these(
                     launches, {"stencil_generated": len(passes)}),
                     f"{tag} T={T} at {(X, Y, Z)}: == plain, bitwise, "
                     f"{len(passes)} launch(es), the fields moved")
                 last = K.spec_device_plan("cuda:0", X, Y, Z, spec,
-                                          passes[-1], dtype=dtype,
-                                          coef=dtype == BF16)
+                                          passes[-1], dtype=dtype, coef=coef)
                 check(launched == last.shared_bytes, f"{tag}: launched "
                       f"{launched} B of shared memory == planned "
                       f"{last.shared_bytes} B")
                 shape_path_tiles_and_slots(check, tag, spec, params, flds,
-                                           dt, out)
+                                           dt, out, coef)
+                errs, moved = field_errs(out, oracle), field_errs(flds, oracle)
                 if dtype == torch.float32:
-                    oerr = max(float((a.double() - b).abs().max())
-                               for a, b in zip(out, oracle))
-                    scale = max(1.0, max(float(b.abs().max())
-                                         for b in oracle))
-                    moved = max(float((b - a.double()).abs().max())
-                                for a, b in zip(flds, oracle))
-                    print(f"{tag} against the f64 oracle: {oerr:.4e} (TOL "
-                          f"{ORACLE_TOL} x scale {scale:.4f}); the oracle "
-                          f"moved {moved:.4e}", flush=True)
-                    check(oerr <= ORACLE_TOL * scale
-                          and moved > ORACLE_TOL * scale,
-                          f"{tag}: within {ORACLE_TOL} x scale of the f64 "
-                          f"oracle ({oerr:.3e}), which a no-op misses")
+                    tols = [ORACLE_TOL * max(1.0, float(o.abs().max()))
+                            for o in oracle]
+                    print(f"{tag} against the f64 oracle, field by field: "
+                          f"{[f'{e:.3e}' for e in errs]} (TOL {ORACLE_TOL} x "
+                          f"max(1, max |field|): "
+                          f"{[f'{t:.3e}' for t in tols]}); the oracle moved "
+                          f"{[f'{m:.3e}' for m in moved]}", flush=True)
+                    check(all(e <= t for e, t in zip(errs, tols))
+                          and any(m > t for m, t in zip(moved, tols)),
+                          f"{tag}: each field within {ORACLE_TOL} x max(1, "
+                          f"max |field|) of the f64 oracle, which a no-op "
+                          f"misses")
                 else:
-                    # one bf16 rounding of the update a level; the
-                    # sources' own roundings, scaled by dt, stay inside
-                    # the slack at these coefficients and dt
-                    bound = bf16_oracle_bound(oracle, spec.stages * T)
+                    bounds = shape_bf16_bounds(spec, flds, params, oracle,
+                                               spec.stages * T, dt)
                     cell_gate(check, tag, out, flds, oracle,
-                              [torch.full_like(o, bound) for o in oracle])
-                runs[name, integ, dtype] = dict(
+                              [torch.full_like(o, b)
+                               for o, b in zip(oracle, bounds)])
+                runs[name, integ, dtype, coef] = dict(
                     spec=spec, params=params, fields=flds, dt=dt,
                     launches=launches["stencil_generated"], err=err)
                 del out
@@ -6453,9 +6560,10 @@ def shape_path_phase(check: Checks, card: str) -> dict:
 def shape_dist_phase(check: Checks, card: str) -> None:
     """Phase 45's distributed runs: the `collective` engine over the (2, 2)
     loopback mesh, `make_distributed_run(n_blocks=4, T=4, fused, overlap)`
-    for hyperdiff4 and moist6 at depth `spec.halo(4)`, == single-card
-    `stencil_fused` at T = 16, bitwise, K6 twice a shard, pass and block;
-    `remote_dma` refused for `spec=` on the card, launching nothing."""
+    for hyperdiff4, moist6 and satadj3 at depth `spec.halo(4)`, ==
+    single-card `stencil_fused` at T = 16, bitwise, K6 twice a shard,
+    pass and block; `remote_dma` refused for `spec=` on the card,
+    launching nothing."""
     X, Y, Z = PAPER_GRIDS[MAIN_GRID]
     nx, ny = DIST_MESH
     mesh = make_stencil_mesh(nx, ny, devices=["cuda:0"] * (nx * ny))
@@ -6507,7 +6615,7 @@ def shape_ledger_phase(check: Checks) -> None:
     card == its fake trace == its model (each pass's fields read and
     written once), with `check_model_coverage` and the ops == the passes."""
     X, Y, Z = PAPER_GRIDS[MAIN_GRID]
-    for name in SHAPE_NAMES:
+    for name in SHAPE_ALL:
         spec = shape_spec(name)
         q = shape_params(name, Z)
         q = type(q)(*(v.cpu() for v in q))
@@ -6536,19 +6644,19 @@ def shape_timing(runs, card: str) -> list:
     """Phase 46: each spec's K6 pass at the 67M grid (euler, one pass of
     its most steps a pass), f32 and bf16: events (median of 20) and device
     time by `torch.profiler` (divided by the launches seen), the plain
-    version, the bound; the build's registers, spills and shared bytes.
-    Returns one kernels-line record per spec (f32), its launches the
-    phase-45 path's."""
+    version, the bound; the build's registers, spills and shared bytes
+    (bf16 with bf16 coefficients). Returns one kernels-line record per spec
+    (f32), its launches the phase-45 path's."""
     X, Y, Z = PAPER_GRIDS[MAIN_GRID]
     records = []
-    for name in SHAPE_NAMES:
+    for name in SHAPE_ALL:
         spec = shape_spec(name)
         Tp = K.spec_passes(spec, SHAPE_T)[0]
-        launches = sum(r["launches"] for (n, _, _), r in runs.items()
+        launches = sum(r["launches"] for (n, *_), r in runs.items()
                        if n == name)
-        err = max(r["err"] for (n, _, _), r in runs.items() if n == name)
+        err = max(r["err"] for (n, *_), r in runs.items() if n == name)
         for dtype in (torch.float32, BF16):
-            r = runs[name, "euler", dtype]
+            r = runs[name, "euler", dtype, dtype == BF16]
             flds, params, dt = r["fields"], r["params"], r["dt"]
 
             def call():
@@ -6570,7 +6678,7 @@ def shape_timing(runs, card: str) -> list:
                   f"{ms:.4f} ms by events, device {device_text(dev)} a "
                   f"launch ({seen} launches seen in 10 calls); bound "
                   f"{bound:.4f} ms by {by} ({nbytes} B, {ops} ops, "
-                  f"{graph_ops(spec.cuda_functor())} a cell and level); "
+                  f"{spec.cuda_functor().ops_per_cell()} a cell and level); "
                   f"build C={plan.cells_per_thread}, {plan.threads} threads, "
                   f"{a['registers']} registers, {a['local_bytes']} B "
                   f"spilled, {plan.shared_bytes} B shared, "
@@ -6588,7 +6696,10 @@ def shape_timing(runs, card: str) -> list:
 
 
 def spec_shapes_phases(check: Checks, card: str) -> list:
-    """Phases 44-46: every spec shape the reference's kernel runs."""
+    """Phase 54, the probe of the tracer's math nodes, then phases 44-46:
+    every spec shape the reference's kernel runs."""
+    phase("54 node probe", probe_node_phase, check, card)
+    torch.cuda.empty_cache()
     phase("44 spec shapes small", shape_small_phase, check)
     runs = phase("45 spec shapes at 67M", shape_path_phase, check, card)
     phase("45 spec shapes distributed", shape_dist_phase, check, card)
@@ -6600,7 +6711,7 @@ def spec_shapes_phases(check: Checks, card: str) -> list:
 
 
 def spec_codegen_only(check: Checks, card: str) -> list:
-    """`--only spec_codegen`: phase 43, then phases 44-46."""
+    """`--only spec_codegen`: phase 43, then phases 54 and 44-46."""
     records = [phase("43 user-written specs", user_spec_phase, check, card)]
     torch.cuda.empty_cache()
     return records + spec_shapes_phases(check, card)
@@ -6980,6 +7091,9 @@ SHARD_TP = 2                 # 50b: qwen2.5-14b's 8 kv heads, 4 a rank
 SHARD_TRAIN_DEPTH = 2        # of 64 qwen3-32b layers (50a)
 SHARD_TRAIN_STEPS = 3
 SHARD_REF = ROOT / "build" / "sharding_ref.pt"   # 50a's tp = 1 logits
+# 50a's single-card f32 train step, 50b's reference at tp = 2
+SHARD_TRAIN_REF = ROOT / "build" / "sharding_train_ref.json"
+SHARD_TRAIN_TOL = 2e-5   # relative; the reference's TOL_REL["float32"]
 SHARD_DIR = ROOT / "build" / "sharding"          # 50b's store and results
 PIPE_SHAPE = (8, 1024, 6, 64)    # layers, width, micro-batches, rows
 PSUM_N = 1 << 20                 # elements of 50b's compressed gradient
@@ -7146,11 +7260,56 @@ def shard_train_phase(check: Checks, card: str, mesh) -> None:
           and dp == ds and all(math.isfinite(h) for h in hp),
           f"{tag}: on the (1, 1) mesh == plain, bitwise (losses, gradient "
           f"norms, final params by digest of {len(dp)} slices)")
+    # 50b's reference: one f32 step on the card alone, its loss (the
+    # vocabulary whole) and gradient norm
+    state, hist, info = train_loop(
+        cfg.replace(compute_dtype="float32"), steps=1, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, opt=opt, log_every=0, seed=0, device="cuda",
+        mesh=host)
+    del state
+    torch.cuda.empty_cache()
+    SHARD_TRAIN_REF.parent.mkdir(parents=True, exist_ok=True)
+    SHARD_TRAIN_REF.write_text(json.dumps(
+        {"loss": hist[0], "grad_norm": info["grad_norm"][0]}))
+
+
+def vocab_train_step(mesh) -> dict:
+    """50b, on one rank: 50a's f32 train step (qwen3-32b at full width,
+    2 layers, one step of 8 x 128) on the NCCL mesh at tp = 2, the loss
+    vocab-parallel (`models.model._vocab_parallel`, counted, on logits of
+    V / 2 columns a rank). Returns its loss, gradient norm and counts."""
+    cfg = get_config(TRAIN_ARCH).replace(
+        n_layers=SHARD_TRAIN_DEPTH, attention_impl="flash", remat="full",
+        compute_dtype="float32")
+    opt = TO.OptConfig(peak_lr=TRAIN_LR, warmup_steps=1,
+                       total_steps=SHARD_TRAIN_STEPS)
+    inner, seen = M._vocab_parallel, []
+
+    def counting(logits, tgt, dims):
+        seen.append(logits.to_local().shape[-1])
+        return inner(logits, tgt, dims)
+    M._vocab_parallel = counting
+    try:
+        t0 = time.perf_counter()
+        state, hist, info = train_loop(
+            cfg, steps=1, batch=TRAIN_BATCH, seq=TRAIN_SEQ, opt=opt,
+            log_every=0, seed=0, device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        M._vocab_parallel = inner
+    del state
+    return {"loss": hist[0] if hist else math.nan,
+            "grad_norm": info["grad_norm"][0] if hist else math.nan,
+            "columns": seen, "vocab": M.param_specs(cfg, M.make_layout(
+                cfg, SHARD_TP))["lm_head"].shape[-1], "s": wall}
 
 
 def sharding_rank(rank: int, world: int) -> None:
     """50b, one NCCL rank a card (`torch.multiprocessing.spawn`): the tp =
-    2 prefill, the pipeline and the compressed all-reduce. Writes its
+    2 prefill, the f32 train step through the vocab-parallel loss
+    (`vocab_train_step`), the pipeline and the compressed all-reduce.
+    Writes its
     readings to `SHARD_DIR/rank<r>.json`; raises on any failure."""
     import torch.distributed as dist
     from repro_torch.distributed import compression as CMP
@@ -7200,6 +7359,8 @@ def sharding_rank(rank: int, world: int) -> None:
                         "times": times,
                         "counts": {k: v for k, v in counts.items() if v}}
         del params, first2
+        torch.cuda.empty_cache()
+        out["train"] = vocab_train_step(mesh)
         torch.cuda.empty_cache()
         # the pipeline: one stage a rank, == the sequential stack bitwise
         L, D, n_micro, rows = PIPE_SHAPE
@@ -7275,8 +7436,11 @@ def shard_cards_phase(check: Checks, card: str) -> None:
     qwen2.5-14b prefills on the (world / 2, 2) mesh, f32 at 48 layers
     within phase 9's f32 limit of 50a's tp = 1 logits, bf16 at 2 layers
     within phase 9's bf16 limit, bf16 at 48 layers printed (the depth
-    phase 9 gates neither), K8 once a layer on every rank; the pipeline
-    over the ranks == the sequential stack bitwise; `compressed_psum`
+    phase 9 gates neither), K8 once a layer on every rank; 50a's f32
+    qwen3-32b train step at tp = 2, its loss vocab-parallel (V / 2
+    columns a rank), loss and gradient norm within `SHARD_TRAIN_TOL` of
+    50a's one card; the pipeline over the ranks == the sequential stack
+    bitwise; `compressed_psum`
     == a host recomputation (residuals bitwise, means within
     `psum_mean_rel`)."""
     n = torch.cuda.device_count()
@@ -7333,6 +7497,26 @@ def shard_cards_phase(check: Checks, card: str) -> None:
         check(all(o[key]["diff"] <= lim for o in outs),
               f"{tp_tag}, {what}, {depth} layers: tp 2 == tp 1 within "
               f"phase 9's limit ({lim:.4g})")
+    ref = json.loads(SHARD_TRAIN_REF.read_text())
+    SHARD_TRAIN_REF.unlink(missing_ok=True)
+    tr_tag = (f"50b {TRAIN_ARCH} ({SHARD_TRAIN_DEPTH} L) f32 train step of "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} at tp = {SHARD_TP}, mesh "
+              f"{outs[0]['mesh']} over {n} cards")
+    for o in outs:
+        t = o["train"]
+        print(f"{tr_tag}, rank {o['rank']}: loss {t['loss']!r} (one card "
+              f"{ref['loss']!r}), gradient norm {t['grad_norm']!r} (one card "
+              f"{ref['grad_norm']!r}); the loss vocab-parallel "
+              f"{len(t['columns'])} time(s) on {t['columns']} of "
+              f"{t['vocab']} columns; {t['s']:.2f} s; {card}", flush=True)
+    rel = max(max(abs(o["train"][k] - ref[k]) / abs(ref[k])
+                  for k in ("loss", "grad_norm")) for o in outs)
+    check(all(o["train"]["columns"] and all(
+        2 * c == o["train"]["vocab"] for c in o["train"]["columns"])
+        for o in outs) and rel <= SHARD_TRAIN_TOL,
+        f"{tr_tag}: the loss vocab-parallel on every rank (V / 2 columns "
+        f"a rank), loss and gradient norm == one card's within "
+        f"{SHARD_TRAIN_TOL} relative ({rel:.3e})")
     pipe = outs[0]["pipeline"]
     check(all(o["pipeline"]["equal"] for o in outs),
           f"50b pipeline_apply over {pipe['stages']} stages "
@@ -7658,6 +7842,116 @@ def dryrun_only(check: Checks, card: str) -> list:
     return []
 
 
+# ---------------------------------------------------------------------------
+# phase 54: the device code of each node the tracer emits for the math
+# callbacks (math functions, powers, floor division and remainder,
+# comparisons as numbers), held against torch's op on the card over every
+# input of its probe; the specs that use them run in phases 44-46
+# ---------------------------------------------------------------------------
+
+PROBE_CHUNK = 1 << 28        # elements a probe launch takes
+PROBE_F32_PAIRS = 1 << 28    # random f32 operand pairs of a binary node
+PROBE_SPECIALS = (0.0, -0.0, math.inf, -math.inf, math.nan, 1e-45, -1e-45,
+                  1.1754942e-38, 1.1754944e-38, -1.1754944e-38,
+                  3.4028235e38, -3.4028235e38, 1.0, -1.0, 0.5, -0.5, 2.0,
+                  -2.0, 3.0, -3.0, 0.75, -0.75, 0.1, -0.1, 180.0, -180.0,
+                  360.0, -360.0, 720.0, -540.0, 7.5, -7.5, 1e-30, 1e30,
+                  2.0 ** 24, -(2.0 ** 24), 2.0 ** 24 + 2.0, 123456.0, 88.5,
+                  -87.5, 0.3, 1.5, 2.5)
+
+
+def probe_bits(start: int, n: int, dtype) -> torch.Tensor:
+    """n consecutive bit patterns of `dtype` from `start` (modulo its
+    width)."""
+    idx = torch.arange(start, start + n, dtype=torch.int64, device="cuda")
+    if dtype == BF16:
+        return idx.to(torch.int16).view(BF16)
+    return idx.to(torch.int32).view(torch.float32)
+
+
+def probe_inputs(arity: int, dtype):
+    """The operands a probe case runs on, chunk by chunk: every bit
+    pattern (one operand); every pair of bf16 patterns, or PROBE_F32_PAIRS
+    random f32 pairs (random bits, and normal values times powers of ten)
+    and every pair of PROBE_SPECIALS (two)."""
+    width = 16 if dtype == BF16 else 32
+    if arity == 1:
+        total = 1 << width
+        for start in range(0, total, PROBE_CHUNK):
+            yield probe_bits(start, min(PROBE_CHUNK, total - start), dtype), \
+                None
+        return
+    if dtype == BF16:
+        for start in range(0, 1 << 32, PROBE_CHUNK):
+            idx = torch.arange(start, start + PROBE_CHUNK, dtype=torch.int64,
+                               device="cuda")
+            yield ((idx >> 16).to(torch.int16).view(BF16),
+                   (idx & 0xFFFF).to(torch.int16).view(BF16))
+        return
+    gen = torch.Generator(device="cuda").manual_seed(54)
+    for _ in range(0, PROBE_F32_PAIRS, PROBE_CHUNK):
+        a, b = (torch.randint(-2 ** 31, 2 ** 31, (PROBE_CHUNK // 2,),
+                              dtype=torch.int64, device="cuda",
+                              generator=gen).to(torch.int32)
+                .view(torch.float32) for _ in range(2))
+        yield a, b
+        a, b = (torch.randn(PROBE_CHUNK // 2, device="cuda", generator=gen)
+                * 10.0 ** torch.randint(-4, 5, (PROBE_CHUNK // 2,),
+                                        device="cuda", generator=gen)
+                for _ in range(2))
+        yield a, b
+    sp = torch.tensor(PROBE_SPECIALS, dtype=torch.float32, device="cuda")
+    yield sp.repeat_interleave(len(sp)), sp.repeat(len(sp))
+
+
+def probe_mismatch(got, want) -> tuple:
+    """(inputs whose result bits differ, NaN to NaN allowed; the first
+    such index)."""
+    it = torch.int16 if got.dtype == BF16 else torch.int32
+    bad = (got.view(it) != want.view(it)) & ~(torch.isnan(got)
+                                              & torch.isnan(want))
+    n = int(bad.sum())
+    return n, (int(bad.nonzero()[0, 0]) if n else None)
+
+
+def probe_node_phase(check: Checks, card: str) -> dict:
+    """Phase 54: every new node's device code, as the tracer emits it into
+    a functor (`spec_cuda.probe_cases`, built into one probe with the
+    generated builds' flags), == torch's op on the card (the case's own
+    callback) over every input of `probe_inputs`: the same bits, or NaN for
+    NaN. Returns {case name: differing inputs}."""
+    t0 = time.perf_counter()
+    _build.load_probe(G.probe_header())
+    print(f"54 probe of {len(G.probe_cases())} node cases built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    out = {}
+    for i, (name, arity, _) in enumerate(G.probe_cases()):
+        for dtype in (torch.float32, BF16):
+            kind = "bf16" if dtype == BF16 else "f32"
+            n_in, n_bad, first = 0, 0, None
+            for a, b in probe_inputs(arity, dtype):
+                want = G.probe_reference(i, a, b)
+                got = G.run_probe(i, a, b)
+                bad, at = probe_mismatch(got, want)
+                if bad and first is None:
+                    first = (float(a[at]), None if b is None else float(b[at]),
+                             float(got[at]), float(want[at]))
+                n_bad += bad
+                n_in += a.numel()
+                del want, got
+            out[f"{name} {kind}"] = n_bad
+            what = ("every bit pattern" if arity == 1 else
+                    "every pair of bit patterns" if dtype == BF16 else
+                    f"{PROBE_F32_PAIRS} random pairs and "
+                    f"{len(PROBE_SPECIALS) ** 2} pairs of special values")
+            check(n_bad == 0, f"54 node {name!r} {kind}: the functor's code "
+                  f"== torch's op on the card over {what} ({n_in} inputs): "
+                  f"{n_bad} differ (first: a, b, card, torch = {first})")
+    print(f"54 probe: {time.perf_counter() - t0:.1f} s; card {card}",
+          flush=True)
+    return out
+
+
 def phase(label: str, fn, *args, **kw):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -7676,11 +7970,11 @@ def main() -> int:
                                      ["spec_codegen"], ["bf16_round"],
                                      ["bf16_times"], ["sharding"],
                                      ["chunking"], ["dryrun"],
-                                     ["nemotron"]):
+                                     ["nemotron"], ["spec_math"]):
         print("usage: chip_smoke.py [--only distributed|ladder|k6|k8|k9|"
               "stencil_serving|distributed_spec|recovery|families|train|"
               "analysis|bf16|spec_codegen|bf16_round|bf16_times|sharding|"
-              "chunking|dryrun|nemotron]", file=sys.stderr)
+              "chunking|dryrun|nemotron|spec_math]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -7730,6 +8024,8 @@ def main() -> int:
         return finish(check, bf16_phases(check, card), card, t0)
     if only == ["spec_codegen"]:
         return finish(check, spec_codegen_only(check, card), card, t0)
+    if only == ["spec_math"]:
+        return finish(check, spec_shapes_phases(check, card), card, t0)
     if only == ["bf16_round"]:
         rounding_phases(check, card)
         return finish(check, [], card, t0)

@@ -43,9 +43,16 @@ SOURCES = ("advect_fused.cu", "advect_fused_bf16.cu",
 HEADERS = ("advect_fused.cuh", "cells.cuh", "pw_source.cuh",
            "stencil_fused.cuh", "stencil_ops.cuh")
 # K6 of one user-written spec (`stencil.spec_cuda`): its entry source, built
-# apart with the generated functor as `K6_GENERATED_HEADER`
+# apart with the generated functor as `K6_GENERATED_HEADER`, and the headers
+# only it includes
 GENERATED_SOURCE = "stencil_generated.cu"
 K6_GENERATED_HEADER = "k6_generated_op.cuh"
+GENERATED_HEADERS = ("spec_math.cuh",)
+# the probe of a generated functor's nodes (`spec_cuda.probe_cases`): its
+# source, built at first use (never with the library) with the nodes'
+# functors as `PROBE_HEADER`
+PROBE_SOURCE = "spec_probe.cu"
+PROBE_HEADER = "k6_probe_cases.cuh"
 # K1 (`csrc/advect_fused.cuh`) is built for T in 1..K1_MAX_T, by cells per
 # thread: the threads per block each build runs (its launch bound). The
 # flags below hand both to the source; its launch planner reads them here.
@@ -237,28 +244,32 @@ def generated_flags(stages: int, bf16: bool, coef: bool, threads: dict,
                          f"-DK6G_MAX_LEVELS={max_levels}")
 
 
-def generated_digest(text: str, flags) -> str:
+def generated_digest(text: str, flags, source: str = GENERATED_SOURCE) -> str:
     """The key of a generated build: its functor's text, its flags, the
     K6 table and every source and header it compiles."""
     h = hashlib.sha256(" ".join(flags).encode())
     h.update(text.encode())
     h.update(k6_table().encode())
-    for name in (GENERATED_SOURCE,) + HEADERS:
+    for name in (source,) + HEADERS + GENERATED_HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def _generated_dir(text: str, flags) -> Path:
-    return BUILD_ROOT / f"k6g-{generated_digest(text, flags)}"
+def _generated_dir(text: str, flags, source: str = GENERATED_SOURCE) -> Path:
+    prefix = "k6g" if source == GENERATED_SOURCE else "k6p"
+    return BUILD_ROOT / f"{prefix}-{generated_digest(text, flags, source)}"
 
 
-def build_generated(jobs) -> List[Path]:
+def build_generated(jobs, source: str = GENERATED_SOURCE,
+                    header: str = K6_GENERATED_HEADER) -> List[Path]:
     """Compile generated K6 builds, each ``(functor text, flags)``, all at
     once (one nvcc each, started together), each into
-    `build/k6g-<digest>/`; reuses a build made before. Returns the
+    `build/k6g-<digest>/` (`build/k6p-<digest>/` for the probe's `source`,
+    its text written as `header`); reuses a build made before. Returns the
     libraries' paths in the order of `jobs`."""
-    libs = [_generated_dir(text, flags) / LIB_NAME for text, flags in jobs]
+    libs = [_generated_dir(text, flags, source) / LIB_NAME
+            for text, flags in jobs]
     todo = [(job, lib) for job, lib in zip(jobs, libs) if not lib.exists()]
     if not todo:
         return libs
@@ -268,11 +279,11 @@ def build_generated(jobs) -> List[Path]:
         lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = Path(tempfile.mkdtemp(dir=lib.parent))
         (tmp / K6_HEADER).write_text(k6_table())
-        (tmp / K6_GENERATED_HEADER).write_text(text)
+        (tmp / header).write_text(text)
         out = tmp / LIB_NAME
         running.append((lib, tmp, out, subprocess.Popen(
             [nvcc, *flags, "-I", str(tmp), "-shared",
-             str(CSRC / GENERATED_SOURCE), "-o", str(out)],
+             str(CSRC / source), "-o", str(out)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
     for lib, tmp, out, proc in running:
@@ -284,7 +295,7 @@ def build_generated(jobs) -> List[Path]:
             os.replace(out, lib)
         shutil.rmtree(tmp, ignore_errors=True)
     if failed:
-        raise RuntimeError("nvcc failed on generated K6 builds:\n"
+        raise RuntimeError(f"nvcc failed on generated builds of {source}:\n"
                            + "\n".join(failed))
     return libs
 
@@ -295,6 +306,24 @@ def load_generated(text: str, flags: Tuple[str, ...]) -> ctypes.CDLL:
     built at first use, with its entry points' signatures declared."""
     lib = ctypes.CDLL(str(build_generated([(text, flags)])[0]))
     for name, argtypes in GENERATED_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+PROBE_SIGNATURES = {"k6_probe": [_I, _I, _P, _P, _P, _LL, _P]}
+
+
+@functools.lru_cache(maxsize=None)
+def load_probe(text: str) -> ctypes.CDLL:
+    """The probe of generated nodes (`csrc/spec_probe.cu` with `text`,
+    `spec_cuda.probe_header`, as `PROBE_HEADER`) at the generated builds'
+    flags, built at first use into `build/k6p-<digest>/`, its entry
+    point's signature declared."""
+    lib = ctypes.CDLL(str(build_generated([(text, NVCC_FLAGS)], PROBE_SOURCE,
+                                          PROBE_HEADER)[0]))
+    for name, argtypes in PROBE_SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

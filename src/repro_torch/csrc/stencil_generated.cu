@@ -10,7 +10,9 @@
 // builds, 0 for none) and K6G_MAX_LEVELS (the most ring levels a pass of
 // it runs, `Generated.builds`). Arguments: the entry points' comment at the
 // end of stencil_fused.cuh; `op` must be 0 and `stages` K6G_STAGES.
+// The functor's floor division and remainder nodes are spec_math.cuh's.
 #include "stencil_fused.cuh"
+#include "spec_math.cuh"
 #include "k6_generated_op.cuh"
 
 #if !defined(K6G_STAGES) || !defined(K6G_BF16) || !defined(K6G_COEF_BF16) \

@@ -337,6 +337,20 @@ def local_block(shape: Sequence[int], spec: PartitionSpec, mesh,
     return tuple(out)
 
 
+def vocab_offset(n: int, mesh, dims: Sequence[int]) -> int:
+    """The first index this rank holds of a dimension of `n` split evenly
+    over mesh `dims` (the first major, as `local_block` and DTensor's
+    nested `Shard` lay blocks); raises where the split is uneven."""
+    block, ranks = 0, 1
+    for i in dims:
+        block = block * mesh.size(i) + mesh.get_local_rank(i)
+        ranks *= mesh.size(i)
+    if n % ranks:
+        raise ValueError(f"a dimension of {n} does not split evenly over "
+                         f"{ranks} ranks")
+    return block * (n // ranks)
+
+
 def place(x: torch.Tensor, sharding: NamedSharding):
     """A DTensor of the plain tensor `x` (the same on every rank) placed
     by `sharding`: each rank keeps only its own block, moved to the mesh's

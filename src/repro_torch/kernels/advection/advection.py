@@ -1466,9 +1466,14 @@ def _cuda_instantiation(spec):
     functor is a shipped one's id (`_build.K6_BUILDS`) or the one generated
     from the spec's callback (a `stencil.spec_cuda.Generated`), read off
     the spec (`spec.cuda_functor()`); raises NotImplementedError naming
-    ROADMAP Queue 2, before any build, for a spec K6 cannot run (a
-    transcendental function, a power, a Python branch on a traced value:
-    `stencil.spec_cuda`)."""
+    ROADMAP Queue 2, before any build, for a spec K6 cannot run (a Python
+    branch on a traced value or its conversion to a number, `where` on a
+    condition that is not a comparison: `stencil.spec_cuda`). Its
+    parameter vectors are checked at the launch (`Generated.check_vectors`:
+    a z slice, its stop negative or positive, must hold the Z - 2R interior
+    cells); a coefficient or slice counted from a vector's end reaches the
+    kernel as a row of its own (`Generated.rows`), so one build serves
+    every Z."""
     return spec.cuda_functor(), spec.stages
 
 
@@ -1812,8 +1817,10 @@ def _stencil_fused_cuda(fields, pv, spec, T: int, dt: float, xm, ym,
     dtype, coef = fields[0].dtype, _coef_is_bf16(pv)
     lib, entry, _, op_id = _k6_entry(op, stages, _build_of(dtype, coef))
     device = fields[0].device
-    table, p_len = _param_block(pv, device,
-                                0 if isinstance(op, int) else op.pad)
+    if isinstance(op, int):
+        table, p_len = _param_block(pv, device)
+    else:
+        table, p_len = _param_block(op.rows(pv), device, op.pad)
     xmt, sx = _pack_rows([xm], B)
     ymt, sy = _pack_rows([ym], B)
     outs = tuple(fields)

@@ -36,10 +36,12 @@ gradients are the flat run's, bitwise.
 `mesh`. Under a `DeviceMesh` the params and the batch are DTensors
 (`pspec.place_tree`), plain tensors made inside count as replicated
 (`implicit_replication`), and the residual stream is constrained at the
-reference's sites. The embedding table and the loss's logits are
-gathered whole over the mesh first: DTensor's vocab-sharded lookup and
-gather (`MaskPartial`) fail on a batch sharded over "data". Without a
-`DeviceMesh` the rules change nothing.
+reference's sites. The embedding table is gathered whole over the mesh
+first: DTensor's vocab-sharded lookup (`MaskPartial`) fails on a batch
+sharded over "data". The loss's logits stay split over the vocab, and
+`lm_loss` computes its log-partition and target logits vocab-parallel, as
+XLA partitions the reference's. Without a `DeviceMesh` the rules change
+nothing.
 
 JAX clamps an out-of-range index where torch would raise or read past the
 end, so `_embed` refuses a token outside the vocabulary and `decode_step`
@@ -60,7 +62,7 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch.config import ArchConfig
 from repro_torch.distributed.sharding import (HeadLayout, Rules,
                                               is_device_mesh, is_dtensor,
-                                              make_head_layout)
+                                              make_head_layout, vocab_offset)
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import Ctx
@@ -702,14 +704,115 @@ def _take_target(logits, tgt):
     return fn(logits, tgt)
 
 
+def _all_reduce(x, op: str, groups):
+    """x reduced by `op` over each (mesh, dim) of `groups` in turn."""
+    from torch.distributed import _functional_collectives as funcol
+    for group in groups:
+        x = funcol.wait_tensor(funcol.all_reduce(x, op, group))
+    return x
+
+
+class _VocabLogZ(torch.autograd.Function):
+    """The log-partition of logits split over the vocab: each rank's max,
+    reduced by max (it only keeps the sums stable, so it takes no
+    gradient), then the log of the sum over the ranks of each one's sum of
+    exp, as `torch.logsumexp` computes it on one rank (a max of +-inf taken
+    as 0). Its gradient is logsumexp's, ``g * exp(logits - logz)``, on each
+    rank's own columns."""
+
+    @staticmethod
+    def forward(ctx, lg, groups):
+        m = _all_reduce(lg.amax(-1), "max", groups)
+        m = m.masked_fill(m.abs() == math.inf, 0.0)
+        s = _all_reduce(torch.exp(lg - m[..., None]).sum(-1), "sum", groups)
+        logz = torch.log(s) + m
+        ctx.save_for_backward(lg, logz)
+        return logz
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, logz = ctx.saved_tensors
+        return g[..., None] * torch.exp(lg - logz[..., None]), None
+
+
+class _VocabTarget(torch.autograd.Function):
+    """Each position's target logit from logits split over the vocab: the
+    rank whose columns [v0, v0 + V/tp) hold the target gathers it, every
+    other rank gives 0, and a sum over the ranks leaves the one logit
+    (exactly: the other terms are zeros). Its gradient goes to that rank's
+    column."""
+
+    @staticmethod
+    def forward(ctx, lg, tgt, v0: int, groups):
+        lt = tgt - v0
+        own = (lt >= 0) & (lt < lg.shape[-1])
+        idx = torch.clamp(lt, 0, lg.shape[-1] - 1)
+        ll = torch.gather(lg, -1, idx[..., None])[..., 0]
+        ll = _all_reduce(torch.where(own, ll, 0.0), "sum", groups)
+        ctx.save_for_backward(idx, own)
+        ctx.shape = lg.shape
+        return ll
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, own = ctx.saved_tensors
+        grad = g.new_zeros(ctx.shape)
+        grad.scatter_(-1, idx[..., None], torch.where(own, g, 0.0)[..., None])
+        return grad, None, None, None
+
+
+def _vocab_dims(logits) -> Tuple[int, ...]:
+    """The mesh dims of more than one rank that split DTensor logits' last
+    (vocab) axis, in mesh order."""
+    if not is_dtensor(logits):
+        return ()
+    mesh, d = logits.device_mesh, logits.ndim - 1
+    return tuple(i for i, p in enumerate(logits.placements)
+                 if p.is_shard(d) and mesh.size(i) > 1)
+
+
+def _vocab_parallel(logits, tgt, dims):
+    """(logz, target logit) of logits split over the vocab on mesh `dims`,
+    each rank reading only its own V/tp columns (`local_map`); both come
+    back split as the batch is and replicated over `dims`."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh, d = logits.device_mesh, logits.ndim - 1
+    v0 = vocab_offset(logits.shape[-1], mesh, dims)
+    out = [Replicate() if p.is_shard(d) else p for p in logits.placements]
+    tgt = tgt.redistribute(mesh, out)
+    groups = [(mesh, i) for i in dims]
+
+    def terms(lg, t):
+        return _VocabLogZ.apply(lg, groups), \
+            _VocabTarget.apply(lg, t, v0, groups)
+    fn = local_map(terms, out_placements=(out, out),
+                   in_placements=(list(logits.placements), out),
+                   device_mesh=mesh)
+    return fn(logits, tgt)
+
+
 def lm_loss(logits, targets, *, z_loss: float = 1e-4):
     """Masked softmax cross-entropy in f32, plus `z_loss` times the mean
-    squared log-partition. targets < 0 are masked."""
+    squared log-partition. targets < 0 are masked. On DTensor logits split
+    over the vocab by more than one rank, vocab-parallel: no rank holds a
+    logits-shaped tensor wider than its own columns (`_vocab_parallel`);
+    split by one rank (or whole), each rank computes on its own rows."""
     logits = logits.float()
     mask = (targets >= 0).float()
     tgt = torch.clamp_min(targets, 0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = _take_target(logits, tgt)
+    dims = _vocab_dims(logits)
+    if dims:
+        logz, ll = _vocab_parallel(logits, tgt, dims)
+    else:
+        if is_dtensor(logits):
+            from torch.distributed.tensor import Replicate
+            d = logits.ndim - 1
+            logits = logits.redistribute(
+                logits.device_mesh, [Replicate() if p.is_shard(d) else p
+                                     for p in logits.placements])
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = _take_target(logits, tgt)
     nll = (logz - ll) * mask
     z = torch.square(logz) * mask
     denom = torch.clamp_min(mask.sum(), 1.0)
@@ -725,11 +828,11 @@ def loss_fn(params, batch, cfg: ArchConfig, layout: HeadLayout, *,
                              mesh=mesh, mode="train")
     with sharded_context(rules, mesh):
         if rules:
-            # the sequence gathered first, then the vocab: DTensor plans
-            # the one-step move from the sequence-parallel placement as an
-            # all-gather of the whole global batch to every rank
+            # the sequence gathered, the vocab left split over "model":
+            # `lm_loss` is vocab-parallel (DTensor plans the one-step move
+            # from the sequence-parallel placement as an all-gather of the
+            # whole global batch to every rank)
             ctx = Ctx(cfg=cfg, layout=layout, rules=rules, mesh=mesh)
             logits = ctx.con(logits, ("batch", None, "act_vocab"))
-            logits = ctx.con(logits, ("batch", None, None))
         loss = lm_loss(logits, batch["targets"]) + aux
     return loss, {"loss": loss, "aux": aux}

@@ -231,8 +231,11 @@ def _coef_op(name: str):
 
 
 for _name in ("add", "radd", "sub", "rsub", "mul", "rmul", "truediv",
-              "rtruediv", "pow", "rpow", "neg", "pos", "abs"):
+              "rtruediv", "pow", "rpow", "floordiv", "rfloordiv", "mod",
+              "rmod", "neg", "pos", "abs", "lt", "le", "gt", "ge", "eq",
+              "ne"):
     setattr(CoefVector, f"__{_name}__", _coef_op(f"__{_name}__"))
+CoefVector.__hash__ = object.__hash__
 
 
 def checked_accessor(spec: StencilSpec, raw_sh: Callable) -> Callable:

@@ -6,31 +6,51 @@ kernels (`_build.load_generated`).
 
 The trace calls `spec.source(sh, pv)` once. `sh(f, dx, dy, dz)` returns a
 field read, a leaf, at any offset within the spec's radius. `pv` is a tuple
-of vector proxies: `pv[i][j]` (an int j >= 0) is a scalar coefficient, and
-a slice of `pv[i]` whose stop is negative or None (such as `t1[2:][1:-1]`,
-or `t[2:][2:-2]` at radius 2) is a z-coefficient vector, the cell at
-interior z reading element ``start + z - radius`` (the launch checks that
-the slice holds exactly the Z - 2 * radius interior cells). The nodes:
-`+`, `-`, `*`, `/`, unary minus, `abs()` / `torch.abs`, `torch.sqrt`,
-`torch.minimum` and `torch.maximum` (between traced values, NaN
-propagating as torch's), the comparisons `<`, `<=`, `>`, `>=`, `==` and
-`!=` (between traced values or numbers), which only `torch.where` takes
-as its condition, and `torch.where(cond, a, b)` (a and b traced values or
-numbers; both are computed, as torch computes them), each keeping its
-operands in the callback's order; Python numbers are weak scalars. Every
-proxy carries a sample tensor for each storage build (f32; bf16 fields
+of vector proxies: `pv[i][j]` is a scalar coefficient (j < 0 counts from the
+vector's end), and a slice of `pv[i]` (step 1; any start and stop, such as
+`t1[2:][1:-1]`, `t[2:][2:-2]` at radius 2 or `t[3:65]`) is a z-coefficient
+vector, the cell at interior z reading its element ``z - radius`` (the
+launch checks that the slice holds exactly the Z - 2 * radius interior
+cells). A coefficient or slice whose first element is counted from the
+vector's end is copied by the launch into a row of its own after the
+vectors (`Generated.rows`), so that the generated text, which keys the
+build, does not depend on a vector's length: one build serves every Z.
+
+The nodes, each keeping its operands in the callback's order (Python
+numbers are weak scalars): `+`, `-`, `*`, `/`, unary minus; `abs`, `sqrt`,
+and the math functions `exp`, `expm1`, `log`, `log1p`, `tanh`, `sigmoid`,
+`sin`, `cos`, `erf`, `rsqrt`, `reciprocal`, `floor`, `ceil` and `square`;
+`torch.clamp` / `clamp_min` / `clamp_max` with number bounds; `**` /
+`torch.pow` (value by number, number by value, value by value); `//` /
+`torch.floor_divide` and `%` / `torch.remainder`; `torch.minimum` and
+`torch.maximum` (NaN propagating as torch's); the comparisons `<`, `<=`,
+`>`, `>=`, `==`, `!=` and `&`, `|`, `~` of comparisons, which are
+`torch.where`'s condition or a number (1 or 0, promoted as torch promotes a
+bool tensor); and `torch.where(cond, a, b)` (both branches computed, as
+torch computes them). Each is accepted as a torch function (keyword
+arguments included) and as a tensor method (`x.exp()`, `x.clamp(min=0.0)`).
+
+Every proxy carries a sample tensor for each storage build (f32; bf16 fields
 with f32 coefficients; both bf16), dimensioned as the plain version's
-coefficients are (`spec.CoefVector`), and each node learns its result
-dtype from torch's own promotion of its operands' samples: an op that is
-bf16 with bf16 fields rounds with `rpk<RF>` (`csrc/cells.cuh`: the
-convert's round to nearest even by one paired convert, off the conversion
-unit), one that is bf16 only with bf16 coefficients too with `rpk<RC>`,
-and a product by a number +-2^k, k >= 0, exact in its operand's dtype,
-with neither. Each of these operations is
-correctly rounded or exact in CUDA without fast math (a division by a
-Python number is emitted as torch runs it on the card, a product with the
-f32 reciprocal), so with `--fmad=false` the kernel rounds as the callback
-does in torch on the card, bitwise.
+coefficients are (`spec.CoefVector`), and each node learns its result dtype
+from torch's own promotion of its operands' samples: an op that is bf16 with
+bf16 fields rounds with `rpk<RF>` (`csrc/cells.cuh`: the convert's round to
+nearest even by one paired convert, off the conversion unit), one that is
+bf16 only with bf16 coefficients too with `rpk<RC>`, and a product by a
+number +-2^k, k >= 0, exact in its operand's dtype, with neither. Each node
+computes what torch's CUDA kernel of its op computes, step by step
+(`csrc/spec_math.cuh`): a division by a Python number as a product with the
+f32 reciprocal; a math function in f32 by the CUDA math library, rounded
+once for bf16; `sigmoid` as ``1 / (1 + exp(-x))``; a power by a number
+through torch's special cases (0, 1, 0.5, -0.5, -1 on the number as given;
+2, 3 and -2 on the number in the op's dtype); floor division and remainder
+as torch's `fmod`-based kernels, in f32 and rounded once (a floor division
+by a number also rounds its floor to bf16 before the last correction); a
+number operand of a comparison, a remainder, a clamp or a power in the op's
+dtype where torch takes it so. With `--fmad=false` the kernel then rounds
+as the callback does in torch on the card, bitwise; `chip_smoke.py` phase
+54 holds every node's device code against torch's op on the card over every
+input of its probe (`probe_cases`).
 
 The trace also fixes the ring's shape (`Generated`): the radius, the x
 offsets the callback reads off the centre row (x-diagonal reads: the ring
@@ -44,11 +64,14 @@ the callback on 0, 1, 2, ... vectors and keeps the first count it
 accepts.
 
 Refused, with NotImplementedError naming ROADMAP Queue 2, before any
-build and launch: the transcendental functions (`torch.exp`, `log`,
-`tanh`, ...), powers, floor division and modulo, any other function or
-attribute; a Python branch on a traced value (`if a > b:`, `bool()`,
-`float()`); a comparison used as a number; a coefficient indexed another
-way (from the end, with a step, by a slice whose stop is positive).
+build and launch: a Python branch on a traced value (`if a > b:`,
+`bool()`), which JAX's trace refuses too; a conversion of a traced value
+to a number (`float()`, `math.exp`); `torch.where` on a condition that is
+not a comparison, which torch itself refuses for a float tensor; a value
+torch types as an integer or a bool where a number is meant; a slice with
+a step, which never lines up with z; any other function or attribute. At
+the launch: a z-coefficient slice that does not hold the Z - 2 * radius
+interior cells at the Z given.
 
 The emitted text is deterministic, so is its digest, which keys its
 build; a spec whose text equals a shipped spec's runs the shipped
@@ -58,6 +81,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import hashlib
+import inspect
 import operator
 from typing import Dict, Optional, Tuple
 
@@ -106,9 +130,21 @@ _REFLECTED = {"+": "__radd__", "-": "__rsub__", "*": "__rmul__",
               "/": "__rtruediv__"}
 _COMPARE = {"<": operator.lt, "<=": operator.le, ">": operator.gt,
             ">=": operator.ge, "==": operator.eq, "!=": operator.ne}
+_LOGIC = {"&": (operator.and_, "&&"), "|": (operator.or_, "||")}
 _PICK = {"min": (torch.minimum, "fminf"), "max": (torch.maximum, "fmaxf")}
 _UNARY = {"abs": torch.abs, "sqrt": torch.sqrt}
-_TYPE = {"cmp": "bool"}      # a node's C type in the functor, by kind
+# the math functions ("fn" nodes): torch's function, and the device code
+# of torch's CUDA kernel of it on the f32 (opmath) value {}
+_MATH = {"exp": "expf({})", "expm1": "expm1f({})", "log": "logf({})",
+         "log1p": "log1pf({})", "tanh": "tanhf({})",
+         "sigmoid": "(1.0f / (1.0f + expf(-{})))", "sin": "sinf({})",
+         "cos": "cosf({})", "erf": "erff({})", "rsqrt": "rsqrtf({})",
+         "reciprocal": "(1.0f / {})", "floor": "floorf({})",
+         "ceil": "ceilf({})"}
+# the binary ops torch runs by a kernel of its own ("pow", "fdiv", "mod")
+_BINARY = {"pow": torch.pow, "fdiv": torch.floor_divide,
+           "mod": torch.remainder}
+_BOOL = ("cmp", "logic", "not")   # nodes whose C type is bool
 
 
 class Refused(NotImplementedError):
@@ -124,17 +160,24 @@ def _refuse(name: str, why: str):
     raise Refused(
         f"spec {name!r} has no CUDA instantiation: {why}. K6 generates "
         f"kernels for specs of any radius and field count whose source is "
-        f"built from + - * /, abs, sqrt, minimum, maximum and where on "
-        f"comparisons of field reads, coefficients and numbers; the rest "
-        f"(transcendental functions, powers, Python branches on traced "
-        f"values, coefficients indexed from a vector's end) is queued in "
-        f"{QUEUE}. On CPU tensors the plain version runs any spec")
+        f"built from field reads, coefficients and numbers by + - * /, "
+        f"powers, floor division, remainders, torch's math functions, "
+        f"clamps, minimum, maximum, comparisons and where; what is left (a "
+        f"Python branch on a traced value or a conversion of one to a "
+        f"number, as JAX's trace refuses them; where on a condition that is "
+        f"not a comparison, as torch refuses it) is listed in {QUEUE}. On "
+        f"CPU tensors the plain version runs any spec")
 
 
 def _literal(value) -> str:
     """A Python number as the f32 the op computes with (torch takes a
-    weak scalar in the op's f32 opmath), an exact hex literal."""
-    return float(np.float32(value)).hex() + "f"
+    weak scalar in the op's f32 opmath), an exact hex literal; +-inf as
+    its bits."""
+    v = np.float32(value)
+    if np.isinf(v):
+        return "__int_as_float(0x7f800000)" if v > 0 else \
+            "__int_as_float(0xff800000)"
+    return float(v).hex() + "f"
 
 
 def _reciprocal(value) -> str:
@@ -143,6 +186,10 @@ def _reciprocal(value) -> str:
     multiplies by it."""
     with np.errstate(divide="ignore"):
         return _literal(np.float32(1.0) / np.float32(value))
+
+
+def _number(x) -> bool:
+    return isinstance(x, (int, float)) and not isinstance(x, bool)
 
 
 def _arith(o: str, x, y):
@@ -177,6 +224,50 @@ def _rounding_of(dtypes) -> Optional[str]:
     return _ROUNDING[key]
 
 
+def _in_dtype(value, bf16: bool) -> float:
+    """A Python number as torch converts a Scalar to the op's dtype
+    (``Scalar::to<scalar_t>``: to f32, then to bf16 by round to nearest
+    even)."""
+    v = torch.tensor(float(np.float32(value)), dtype=torch.float32)
+    return float(v.to(torch.bfloat16)) if bf16 else float(v)
+
+
+# --- the parameter vectors' slots --------------------------------------------
+#
+# A slot is a tuple (vector, start, cut[, ops]). Without `ops`, the slot's
+# view is elements [start, len - cut) of the vector (a scalar's is its one
+# element `start`). With `ops`, the view is the vector's indices sliced by
+# `ops` in turn (Python's own semantics, `_positions`): pairs (start, stop)
+# and, for a scalar, a last int index. `start` is then the view's first
+# element where no slice or index counts from the end (a read at a fixed
+# element, whatever the length), else -1: the launch copies the view into a
+# row of its own (`Generated.rows`).
+
+def _positions(slot, n: int, scalar: bool = False) -> range:
+    """The elements of a vector of n elements that `slot` (a scalar's,
+    where `scalar`) reads; raises IndexError for a scalar past its view."""
+    if len(slot) == 3:
+        _, start, cut = slot
+        if scalar:
+            if start >= n - cut:
+                raise IndexError(start)
+            return range(start, start + 1)
+        return range(start, max(start, n - cut))
+    r = range(n)
+    for op in slot[3]:
+        if isinstance(op, tuple):
+            r = r[op[0]:op[1]]
+        else:
+            r = r[op:op + 1] if op >= 0 else r[len(r) + op:len(r) + op + 1]
+            if len(r) != 1:
+                raise IndexError(op)
+    return r
+
+
+def _resolved(slot) -> bool:
+    return len(slot) == 4 and slot[1] < 0
+
+
 class _Graph:
     """The nodes of one trace, in the order the callback made them (which
     is an order in which every node follows its operands)."""
@@ -185,13 +276,17 @@ class _Graph:
         self.spec = spec
         self.nodes = []       # ("field", f, dx, dy, dz) | ("coef", slot) |
         #                       ("zvec", slot) | ("neg" | "abs" | "sqrt", a)
-        #                       | ("op", o, a, b) | ("pick", "min" | "max",
-        #                       a, b) | ("cmp", o, a, b, rounding of a
-        #                       number operand) | ("where", c, a, b)
+        #                       | ("fn", name, a) | ("op", o, a, b) |
+        #                       ("pow" | "fdiv" | "mod", a, b) | ("clamp",
+        #                       a, lo, hi) | ("pick", "min" | "max", a, b) |
+        #                       ("cmp", o, a, b, rounding of a number
+        #                       operand) | ("logic", o, a, b) | ("not", a) |
+        #                       ("where", c, a, b)
         self.samples = []     # per node: a sample per storage
         self.reads = []       # per node: whether it reads a field
-        self.scalars = []     # (vector, element, cut): a slot each
-        self.zslots = []      # (vector, start, cut): a slot each
+        self.scalars = []     # scalar slots, a slot each
+        self.zslots = []      # z-coefficient slots, a slot each
+        self.used = 0         # the parameter vectors the callback ran on
 
     def refuse(self, why: str):
         _refuse(self.spec.name, why)
@@ -223,15 +318,15 @@ class _Graph:
             table.append(key)
         return table.index(key)
 
-    def coef(self, vec: int, element: int, cut: int) -> "_Node":
-        slot = self._slot(self.scalars, (vec, element, cut))
-        return self.leaf(("coef", slot), tuple(torch.ones(1, dtype=cd)
-                                               for _, cd in STORAGES))
+    def coef(self, slot) -> "_Node":
+        i = self._slot(self.scalars, slot)
+        return self.leaf(("coef", i), tuple(torch.ones(1, dtype=cd)
+                                            for _, cd in STORAGES))
 
-    def zvec(self, vec: int, start: int, cut: int) -> "_Node":
-        slot = self._slot(self.zslots, (vec, start, cut))
-        return self.leaf(("zvec", slot), tuple(torch.ones(2, dtype=cd)
-                                               for _, cd in STORAGES))
+    def zvec(self, slot) -> "_Node":
+        i = self._slot(self.zslots, slot)
+        return self.leaf(("zvec", i), tuple(torch.ones(2, dtype=cd)
+                                            for _, cd in STORAGES))
 
     def operand(self, x, numbers: bool = True):
         """A node's operand: a node's index, or (where `numbers`) a Python
@@ -242,8 +337,7 @@ class _Graph:
             if x.g is not self:
                 self.refuse("it mixes two traces")
             return x.i
-        if numbers and isinstance(x, (int, float)) and \
-                not isinstance(x, bool):
+        if numbers and _number(x):
             if not np.isfinite(np.float32(x)):
                 self.refuse(f"it takes the constant {x!r}, which is not "
                             f"finite in float32")
@@ -252,14 +346,6 @@ class _Graph:
                 else "fields and coefficients")
         self.refuse(f"it takes an operand of type {type(x).__name__} "
                     f"({what} only)")
-
-    def value(self, x, numbers: bool = True):
-        """`operand`, refusing a comparison where a number is meant."""
-        a = self.operand(x, numbers)
-        if isinstance(a, int) and self.nodes[a][0] == "cmp":
-            self.refuse("it uses a comparison as a number (a comparison is "
-                        "only the condition of torch.where)")
-        return a
 
     def _sample(self, a, s: int):
         return self.samples[a][s] if isinstance(a, int) else a[1]
@@ -271,45 +357,91 @@ class _Graph:
         return tuple(fn(*(self._sample(a, s) for a in args))
                      for s in range(len(STORAGES)))
 
+    def node(self, key, fn, *args, boolean: bool = False) -> "_Node":
+        """A node `key` of operands `args`, its samples `fn` of theirs: a
+        float in every storage (a bool where `boolean`), else refused."""
+        try:
+            samples = self._each(fn, *args)
+        except (RuntimeError, TypeError) as e:
+            self.refuse(f"torch refuses its {key[0]} node ({e})")
+        want = (torch.bool,) if boolean else (torch.float32, torch.bfloat16)
+        bad = [t.dtype for t in samples if t.dtype not in want]
+        if bad:
+            self.refuse(f"its {key[0]} node gives a {bad[0]} value where "
+                        f"{'a comparison' if boolean else 'a number'} is "
+                        f"meant")
+        return self.leaf(key, samples, self._reads(*args))
+
     def op(self, o: str, x, y) -> "_Node":
-        a, b = self.value(x), self.value(y)
-        return self.leaf(("op", o, a, b),
-                         self._each(functools.partial(_arith, o), a, b),
-                         self._reads(a, b))
+        a, b = self.operand(x), self.operand(y)
+        return self.node(("op", o, a, b), functools.partial(_arith, o), a, b)
 
     def unary(self, kind: str, x) -> "_Node":
-        a = self.value(x, numbers=False)
+        a = self.operand(x, numbers=False)
         fn = (lambda t: -t) if kind == "neg" else _UNARY[kind]
-        return self.leaf((kind, a), self._each(fn, a), self._reads(a))
+        return self.node((kind, a), fn, a)
 
     def neg(self, x) -> "_Node":
         return self.unary("neg", x)
 
+    def math(self, name: str, x) -> "_Node":
+        a = self.operand(x, numbers=False)
+        return self.node(("fn", name, a), getattr(torch, name), a)
+
+    def binary(self, kind: str, x, y) -> "_Node":
+        """A power, floor division or remainder: value by value, value by
+        number or number by value."""
+        a, b = self.operand(x), self.operand(y)
+        if not isinstance(a, int) and not isinstance(b, int):
+            self.refuse(f"its {kind} takes two numbers")
+        return self.node((kind, a, b), _BINARY[kind], a, b)
+
+    def clamp(self, x, lo=None, hi=None) -> "_Node":
+        a = self.operand(x, numbers=False)
+        lo_, hi_ = (None if v is None else self.operand(v) for v in (lo, hi))
+        if any(isinstance(v, int) for v in (lo_, hi_)):
+            self.refuse("its clamp takes a traced bound (number bounds "
+                        "only: write torch.minimum / torch.maximum)")
+        if lo_ is None and hi_ is None:
+            self.refuse("its clamp has neither bound")
+
+        def fn(t):
+            return torch.clamp(t, min=None if lo_ is None else lo_[1],
+                               max=None if hi_ is None else hi_[1])
+        return self.node(("clamp", a, lo_, hi_), fn, a)
+
     def pick(self, which: str, x, y) -> "_Node":
-        a, b = self.value(x, numbers=False), self.value(y, numbers=False)
-        return self.leaf(("pick", which, a, b),
-                         self._each(_PICK[which][0], a, b),
-                         self._reads(a, b))
+        a, b = self.operand(x, numbers=False), self.operand(y, numbers=False)
+        return self.node(("pick", which, a, b), _PICK[which][0], a, b)
 
     def compare(self, o: str, x, y) -> "_Node":
-        a, b = self.value(x), self.value(y)
+        a, b = self.operand(x), self.operand(y)
         # a number operand takes the comparison's common dtype
-        common = tuple(torch.result_type(self._sample(a, s),
-                                         self._sample(b, s))
-                       for s in range(len(STORAGES)))
-        samples = self._each(_COMPARE[o], a, b)
-        return self.leaf(("cmp", o, a, b, _rounding_of(common)), samples,
-                         self._reads(a, b))
+        try:
+            common = tuple(torch.result_type(self._sample(a, s),
+                                             self._sample(b, s))
+                           for s in range(len(STORAGES)))
+        except (RuntimeError, TypeError) as e:
+            self.refuse(f"torch refuses its comparison ({e})")
+        return self.node(("cmp", o, a, b, _rounding_of(common)),
+                         _COMPARE[o], a, b, boolean=True)
+
+    def logic(self, o: str, x, y) -> "_Node":
+        a, b = self.operand(x, numbers=False), self.operand(y, numbers=False)
+        return self.node(("logic", o, a, b), _LOGIC[o][0], a, b,
+                         boolean=True)
+
+    def invert(self, x) -> "_Node":
+        a = self.operand(x, numbers=False)
+        return self.node(("not", a), operator.inv, a, boolean=True)
 
     def where(self, c, x, y) -> "_Node":
         ci = self.operand(c, numbers=False)
-        if self.nodes[ci][0] != "cmp":
+        if self.nodes[ci][0] not in _BOOL:
             self.refuse("its torch.where takes a condition that is not a "
                         "comparison of traced values")
-        a, b = self.value(x), self.value(y)
-        return self.leaf(("where", ci, a, b),
-                         self._each(torch.where, ci, a, b),
-                         self._reads(ci, a, b))
+        a, b = self.operand(x), self.operand(y)
+        return self.node(("where", ci, a, b), torch.where, ci, a, b)
 
     def rounding(self, i: int) -> Optional[str]:
         return _rounding_of(t.dtype for t in self.samples[i])
@@ -321,37 +453,104 @@ def _refusing(what: str):
     return method
 
 
-# torch functions a traced value takes, by the graph's method
-_FUNCTIONS = {torch.abs: lambda g, x: g.unary("abs", x),
-              torch.sqrt: lambda g, x: g.unary("sqrt", x),
-              torch.minimum: lambda g, x, y: g.pick("min", x, y),
-              torch.maximum: lambda g, x, y: g.pick("max", x, y),
-              torch.where: lambda g, c, x, y: g.where(c, x, y)}
+def _math(name):
+    def fn(g, input):
+        return g.math(name, input)
+    return fn
+
+
+def _clamp(g, input, min=None, max=None):
+    return g.clamp(input, min, max)
+
+
+def _clamp_min(g, input, min):
+    return g.clamp(input, min, None)
+
+
+def _clamp_max(g, input, max):
+    return g.clamp(input, None, max)
+
+
+def _binary_fn(kind):
+    def fn(g, input, other):
+        return g.binary(kind, input, other)
+    return fn
+
+
+def _pow(g, input, exponent):
+    return g.binary("pow", input, exponent)
+
+
+def _square(g, input):
+    return g.binary("pow", input, 2)
+
+
+def _pick_fn(which):
+    def fn(g, input, other):
+        return g.pick(which, input, other)
+    return fn
+
+
+def _where(g, condition, input, other):
+    return g.where(condition, input, other)
+
+
+# torch functions a traced value takes, by the graph's method, each taking
+# torch's own parameter names as keywords
+_FUNCTIONS = {torch.abs: lambda g, input: g.unary("abs", input),
+              torch.sqrt: lambda g, input: g.unary("sqrt", input),
+              torch.neg: lambda g, input: g.neg(input),
+              torch.minimum: _pick_fn("min"), torch.maximum: _pick_fn("max"),
+              torch.where: _where, torch.clamp: _clamp,
+              torch.clip: _clamp, torch.clamp_min: _clamp_min,
+              torch.clamp_max: _clamp_max, torch.pow: _pow,
+              torch.square: _square,
+              torch.floor_divide: _binary_fn("fdiv"),
+              torch.remainder: _binary_fn("mod")}
+_FUNCTIONS.update({getattr(torch, n): _math(n) for n in _MATH})
+_BY_NAME = {f.__name__: f for f in _FUNCTIONS}
+
+
+def _call(proxy, func, args, kwargs):
+    """`func(*args, **kwargs)` on the trace of `proxy`, or refused."""
+    name = proxy.g.spec.name
+    handler = _FUNCTIONS.get(func)
+    if handler is None:
+        _refuse(name, f"its source calls {getattr(func, '__name__', func)}")
+    try:
+        inspect.signature(handler).bind(proxy.g, *args, **kwargs)
+    except TypeError as e:
+        _refuse(name, f"its source calls {func.__name__} with arguments it "
+                f"does not take ({e})")
+    return handler(proxy.g, *args, **kwargs)
 
 
 class _Proxy:
-    """What both proxies refuse: every operation the functor cannot run."""
+    """What both proxies share: torch's functions and the tensor methods
+    of them (`x.exp()`, `x.clamp(min=0.0)`), and the refusal of every
+    operation the functor cannot run."""
     __slots__ = ()
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
-        flat = [a for x in args for a in (x if isinstance(x, (list, tuple))
-                                          else (x,))]
+        flat = [a for x in (*args, *(kwargs or {}).values())
+                for a in (x if isinstance(x, (list, tuple)) else (x,))]
         proxy = next((a for a in flat if isinstance(a, _Proxy)), None)
-        name = proxy.g.spec.name if proxy is not None else "?"
-        if func in _FUNCTIONS and not kwargs and proxy is not None:
-            try:
-                return _FUNCTIONS[func](proxy.g, *args)
-            except TypeError:
-                pass
-        _refuse(name, f"its source calls {getattr(func, '__name__', func)}")
+        if proxy is None:
+            _refuse("?", f"its source calls {getattr(func, '__name__', func)}")
+        return _call(proxy, func, args, kwargs or {})
 
     def __getattr__(self, name):
-        self.g.refuse(f"its source reads attribute {name!r} of an operand")
+        func = _BY_NAME.get(name)
+        if func is None or name.startswith("_"):
+            self.g.refuse(f"its source reads attribute {name!r} of an "
+                          f"operand")
+        if func is torch.where:     # x.where(condition, y): x where it holds
+            return lambda condition, other: self.g.where(condition, self,
+                                                         other)
+        return lambda *args, **kwargs: _call(self, func, (self, *args),
+                                             kwargs)
 
-    __floordiv__ = __rfloordiv__ = _refusing("floor division")
-    __mod__ = __rmod__ = _refusing("a modulo")
-    __pow__ = __rpow__ = _refusing("a power")
     __matmul__ = __rmatmul__ = _refusing("a matrix product")
     __bool__ = _refusing("a truth test: a Python branch on a traced value "
                          "(use torch.where)")
@@ -365,8 +564,18 @@ def _binary(o: str, reflected: bool = False):
     return lambda self, x: self.g.op(o, self, x)
 
 
+def _kernel_op(kind: str, reflected: bool = False):
+    if reflected:
+        return lambda self, x: self.g.binary(kind, x, self)
+    return lambda self, x: self.g.binary(kind, self, x)
+
+
 def _comparison(o: str):
     return lambda self, x: self.g.compare(o, self, x)
+
+
+def _logical(o: str):
+    return lambda self, x: self.g.logic(o, self, x)
 
 
 class _Node(_Proxy):
@@ -379,9 +588,15 @@ class _Node(_Proxy):
     __sub__, __rsub__ = _binary("-"), _binary("-", True)
     __mul__, __rmul__ = _binary("*"), _binary("*", True)
     __truediv__, __rtruediv__ = _binary("/"), _binary("/", True)
+    __pow__, __rpow__ = _kernel_op("pow"), _kernel_op("pow", True)
+    __floordiv__ = _kernel_op("fdiv")
+    __rfloordiv__ = _kernel_op("fdiv", True)
+    __mod__, __rmod__ = _kernel_op("mod"), _kernel_op("mod", True)
     __lt__, __le__ = _comparison("<"), _comparison("<=")
     __gt__, __ge__ = _comparison(">"), _comparison(">=")
     __eq__, __ne__ = _comparison("=="), _comparison("!=")
+    __and__ = __rand__ = _logical("&")
+    __or__ = __ror__ = _logical("|")
     __hash__ = object.__hash__
 
     def __neg__(self):
@@ -392,6 +607,9 @@ class _Node(_Proxy):
 
     def __abs__(self):
         return self.g.unary("abs", self)
+
+    def __invert__(self):
+        return self.g.invert(self)
 
     __getitem__ = _refusing("an index to a field expression")
     __iter__ = _refusing("iteration to a field expression")
@@ -404,45 +622,64 @@ def _through_leaf(name: str):
 
 
 class _Vector(_Proxy):
-    """`pv[vec]` cut to elements [start, len - cut)."""
-    __slots__ = ("g", "vec", "start", "cut")
+    """`pv[vec]` sliced by `ops` ((start, stop) pairs, in turn)."""
+    __slots__ = ("g", "vec", "ops")
 
-    def __init__(self, g: _Graph, vec: int, start: int = 0, cut: int = 0):
-        self.g, self.vec, self.start, self.cut = g, vec, start, cut
+    def __init__(self, g: _Graph, vec: int, ops: tuple = ()):
+        self.g, self.vec, self.ops = g, vec, ops
+
+    def _slot(self, index: Optional[int] = None):
+        """The slot of this view (of its element `index`): (vec, start,
+        cut) where every slice starts at a fixed element and stops at the
+        vector's end or a fixed count before it, else (vec, start or -1, 0,
+        ops)."""
+        ops = self.ops + (() if index is None else (index,))
+        starts = [op[0] if isinstance(op, tuple) else op for op in ops]
+        start = sum(starts) if min(starts, default=0) >= 0 else -1
+        if start >= 0 and all(op[1] is None or op[1] < 0
+                              for op in self.ops):
+            return (self.vec, start, -sum(op[1] or 0 for op in self.ops))
+        return (self.vec, start, 0, ops)
 
     def __getitem__(self, k):
         if isinstance(k, int) and not isinstance(k, bool):
-            if k < 0:
-                self.g.refuse(f"it indexes parameter vector {self.vec} from "
-                              f"its end ({k})")
-            return self.g.coef(self.vec, self.start + k, self.cut)
+            return self.g.coef(self._slot(k))
         if isinstance(k, slice):
-            start = 0 if k.start is None else k.start
-            stop = k.stop
-            if k.step not in (None, 1) or not isinstance(start, int) or \
-                    start < 0 or not (stop is None or (isinstance(stop, int)
-                                                       and stop < 0)):
+            if k.step not in (None, 1):
                 self.g.refuse(f"it slices parameter vector {self.vec} as "
-                              f"[{k.start}:{k.stop}:{k.step}], which does not "
-                              f"line up with z (a z-coefficient vector is a "
-                              f"slice [a:-b] or [a:] with a >= 0)")
-            return _Vector(self.g, self.vec, self.start + start,
-                           self.cut + (0 if stop is None else -stop))
+                              f"[{k.start}:{k.stop}:{k.step}]: a slice with "
+                              f"a step never lines up with z")
+            for v in (k.start, k.stop):
+                if v is not None and (not isinstance(v, int) or
+                                      isinstance(v, bool)):
+                    self.g.refuse(f"it slices parameter vector {self.vec} "
+                                  f"by {v!r}")
+            return _Vector(self.g, self.vec,
+                           self.ops + ((k.start or 0, k.stop),))
         self.g.refuse(f"it indexes parameter vector {self.vec} by {k!r}")
 
     def leaf(self) -> _Node:
-        return self.g.zvec(self.vec, self.start, self.cut)
+        return self.g.zvec(self._slot())
 
     __add__, __radd__ = _through_leaf("__add__"), _through_leaf("__radd__")
     __sub__, __rsub__ = _through_leaf("__sub__"), _through_leaf("__rsub__")
     __mul__, __rmul__ = _through_leaf("__mul__"), _through_leaf("__rmul__")
     __truediv__ = _through_leaf("__truediv__")
     __rtruediv__ = _through_leaf("__rtruediv__")
+    __pow__, __rpow__ = _through_leaf("__pow__"), _through_leaf("__rpow__")
+    __floordiv__ = _through_leaf("__floordiv__")
+    __rfloordiv__ = _through_leaf("__rfloordiv__")
+    __mod__, __rmod__ = _through_leaf("__mod__"), _through_leaf("__rmod__")
     __neg__, __abs__ = _through_leaf("__neg__"), _through_leaf("__abs__")
     __lt__, __le__ = _through_leaf("__lt__"), _through_leaf("__le__")
     __gt__, __ge__ = _through_leaf("__gt__"), _through_leaf("__ge__")
     __eq__, __ne__ = _through_leaf("__eq__"), _through_leaf("__ne__")
     __hash__ = object.__hash__
+
+    def __getattr__(self, name):
+        if name in _BY_NAME:
+            return getattr(self.leaf(), name)
+        return _Proxy.__getattr__(self, name)
 
     __iter__ = _refusing("iteration to a parameter vector (its length is "
                          "not known to the tracer)")
@@ -454,16 +691,15 @@ class Generated:
     """A generated functor: its header (`text`, the key of its build), the
     traced graph it was emitted from (`nodes`, and the node of each field's
     source, `outs`), and what the launch needs of it: its fields, its
-    z-coefficient slots ``(vector, start, cut)`` and scalar slots
-    ``(vector, element, cut)``, the vectors the callback ran on (`used`,
-    the fewest it takes), and its ring's shape: the radius, the x offsets
-    `plane_lo`..`plane_hi` of its reads off the centre row (0, 0 where it
-    reads no x neighbour there) and the floats the ring lays before its
-    shared memory (`head`)."""
+    z-coefficient slots and scalar slots (see `_positions`), the vectors
+    the callback ran on (`used`, the fewest it takes), and its ring's
+    shape: the radius, the x offsets `plane_lo`..`plane_hi` of its reads
+    off the centre row (0, 0 where it reads no x neighbour there) and the
+    floats the ring lays before its shared memory (`head`)."""
     text: str
     n_fields: int
-    zslots: Tuple[Tuple[int, int, int], ...]
-    scalars: Tuple[Tuple[int, int, int], ...]
+    zslots: Tuple[tuple, ...]
+    scalars: Tuple[tuple, ...]
     used: int
     nodes: Tuple[tuple, ...] = ()
     outs: Tuple[int, ...] = ()
@@ -550,6 +786,26 @@ class Generated:
     def digest(self) -> str:
         return hashlib.sha256(self.text.encode()).hexdigest()[:16]
 
+    @property
+    def resolved(self) -> Tuple[tuple, ...]:
+        """The slots the launch copies into rows of their own, after the
+        `used` vectors, in order: the z slots', then the scalars'."""
+        return tuple(s for s in self.zslots + self.scalars if _resolved(s))
+
+    def ops_per_cell(self) -> int:
+        """Operations the functor runs per interior cell and level: each
+        field's source as emitted, every node it needs but the leaves (an
+        arithmetic op, a comparison, a select, a min or max, a clamp, and a
+        math function, a power, a floor division or a remainder as one
+        operation each, though each of the last four runs several
+        instructions), counted field by field."""
+        total = 0
+        for out in self.outs:
+            need = _needed(self.nodes, out)
+            total += sum(self.nodes[i][0] not in ("field", "coef", "zvec")
+                         for i in need)
+        return total
+
     def check_vectors(self, name: str, pv, Z: int) -> None:
         """Raise, before any launch, where the parameter vectors do not fit
         the trace: too few of them, a scalar past a vector's end, or a
@@ -558,32 +814,76 @@ class Generated:
         if len(pv) < self.used:
             raise ValueError(f"spec {name!r}: its source indexes "
                              f"{self.used} parameter vectors, got {len(pv)}")
-        for vec, element, cut in self.scalars:
-            if element + cut >= pv[vec].shape[0]:
-                raise ValueError(f"spec {name!r}: coefficient {element} of "
-                                 f"parameter vector {vec} (cut by {cut}) is "
-                                 f"past its {pv[vec].shape[0]} elements")
+        for slot in self.scalars:
+            vec, n = slot[0], pv[slot[0]].shape[0]
+            try:
+                r = _positions(slot, n, scalar=True)
+            except IndexError:
+                r = range(0)
+            if len(r) != 1:
+                raise ValueError(f"spec {name!r}: coefficient "
+                                 f"{_describe(slot)} of parameter vector "
+                                 f"{vec} is past its {n} elements")
         inner = Z - 2 * self.radius
-        for vec, start, cut in self.zslots:
-            n = pv[vec].shape[0] - start - cut
-            if n != inner:
-                _refuse(name, f"the slice [{start}:{-cut or ''}] of parameter "
-                        f"vector {vec} ({pv[vec].shape[0]} elements) holds "
-                        f"{n} cells where z has Z - {2 * self.radius} = "
-                        f"{inner} interior cells, so it does not line up "
-                        f"with z")
+        for slot in self.zslots:
+            vec, n = slot[0], pv[slot[0]].shape[0]
+            got = len(_positions(slot, n))
+            if got != inner:
+                _refuse(name, f"the slice {_describe(slot)} of parameter "
+                        f"vector {vec} ({n} elements) holds {got} cells "
+                        f"where z has Z - {2 * self.radius} = {inner} "
+                        f"interior cells, so it does not line up with z")
+
+    def rows(self, pv) -> tuple:
+        """The vectors the launch lays in the kernel's table: `pv`, or,
+        where a slot is resolved by the launch, the `used` vectors and a
+        row for each `resolved` slot (its elements, in order)."""
+        if not self.resolved:
+            return tuple(pv)
+        out = list(pv[:self.used])
+        for slot in self.resolved:
+            r = _positions(slot, pv[slot[0]].shape[0], slot in self.scalars)
+            out.append(pv[slot[0]][r.start:r.start + len(r)])
+        return tuple(out)
+
+
+def _describe(slot) -> str:
+    """A slot as the callback wrote it."""
+    if len(slot) == 3:
+        _, start, cut = slot
+        return f"[{start}:{-cut or ''}]"
+    return "".join(f"[{op[0]}:{'' if op[1] is None else op[1]}]"
+                   if isinstance(op, tuple) else f"[{op}]" for op in slot[3])
 
 
 def _operands(node) -> tuple:
     """The operand indices and constants of a node, in its order."""
     kind = node[0]
-    if kind in ("neg", "abs", "sqrt"):
+    if kind in ("neg", "abs", "sqrt", "not"):
         return node[1:2]
-    if kind in ("op", "pick", "cmp"):
+    if kind == "fn":
+        return node[2:3]
+    if kind in ("op", "pick", "cmp", "logic"):
         return node[2:4]
+    if kind in ("pow", "fdiv", "mod"):
+        return node[1:3]
+    if kind == "clamp":
+        return tuple(a for a in node[1:4] if a is not None)
     if kind == "where":
         return node[1:4]
     return ()
+
+
+def _needed(nodes, out: int) -> set:
+    """The nodes the source `out` needs, itself included."""
+    need, stack = set(), [out]
+    while stack:
+        i = stack.pop()
+        if i in need:
+            continue
+        need.add(i)
+        stack += [a for a in _operands(nodes[i]) if isinstance(a, int)]
+    return need
 
 
 def _shape(g: _Graph) -> Tuple[int, int, int]:
@@ -602,9 +902,55 @@ def _shape(g: _Graph) -> Tuple[int, int, int]:
     return min(xs), max(xs), head
 
 
+def _flag(r: Optional[str]) -> str:
+    """A node's rounding as the functor's template flag."""
+    return r or "false"
+
+
+def _pow_code(x: str, e, r: Optional[str]) -> str:
+    """x ** e, e a Python number, as torch's CUDA kernel of a tensor by a
+    scalar computes it in the op's dtype (bf16 where `r`): 0 and 1 are
+    handled before any kernel, 0.5, -0.5 and -1 run sqrt, rsqrt and
+    reciprocal, and on the number in the op's dtype 2, 3 and -2 are
+    products (each bf16 product rounded to bf16), any other a `powf`."""
+    if e == 0:
+        return "1.0f"
+    if e == 1:
+        return x
+    special = {0.5: f"sqrtf({x})", -0.5: f"rsqrtf({x})", -1: f"(1.0f / {x})"}
+    if e in special:
+        return f"rpk<{_flag(r)}>({special[e]})"
+
+    f = _flag(r)
+
+    def code(es: float) -> str:
+        if es == 2:
+            return f"rpk<{f}>({x} * {x})"
+        if es == 3:
+            return f"rpk<{f}>(rpk<{f}>({x} * {x}) * {x})"
+        if es == -2:
+            return f"rpk<{f}>((float)(1.0 / (double)rpk<{f}>({x} * {x})))"
+        return f"rpk<{f}>(powf({x}, {_literal(es)}))"
+    f32 = code(_in_dtype(e, False))
+    if r is None:
+        return f32
+    bf16 = code(_in_dtype(e, True))
+    return bf16 if f32 == bf16 else f"({r} ? {bf16} : {f32})"
+
+
+def _number_code(value, r: Optional[str]) -> str:
+    """A Python number converted to the op's dtype as torch converts a
+    Scalar operand of a kernel that takes it in `scalar_t` (bf16 where
+    `r`)."""
+    lit = _literal(value)
+    return f"rpk<{r}>({lit})" if r else lit
+
+
 def _emit(g: _Graph, outs) -> str:
     R = g.spec.radius
     lo, hi, head = _shape(g)
+    used = g.used
+    resolved = [s for s in g.zslots + g.scalars if _resolved(s)]
 
     def operand(a, rounding=None) -> str:
         if isinstance(a, int):
@@ -631,6 +977,45 @@ def _emit(g: _Graph, outs) -> str:
             return f"fabsf({operand(node[1])})"
         if kind == "sqrt":
             return rounded(f"sqrtf({operand(node[1])})", g.rounding(i))
+        if kind == "fn":
+            _, name, a = node
+            return rounded(_MATH[name].format(operand(a)), g.rounding(i))
+        if kind == "pow":
+            _, a, b = node
+            r = g.rounding(i)
+            if not isinstance(b, int):
+                return _pow_code(operand(a), b[1], r)
+            if not isinstance(a, int) and a[1] == 1:
+                return "1.0f"
+            base = operand(a) if isinstance(a, int) else \
+                _number_code(a[1], r)
+            return rounded(f"powf({base}, {operand(b)})", r)
+        if kind == "fdiv":
+            _, a, b = node
+            r = g.rounding(i)
+            if not isinstance(b, int):
+                if float(np.float32(b[1])) == 0.0:
+                    return rounded(f"{operand(a)} * {_reciprocal(b[1])}", r)
+                return (f"k6_fdiv_scalar<{_flag(r)}>({operand(a)}, "
+                        f"{_literal(b[1])}, {_reciprocal(b[1])})")
+            x = operand(a) if isinstance(a, int) else _number_code(a[1], r)
+            return rounded(f"k6_fdiv({x}, {operand(b)})", r)
+        if kind == "mod":
+            _, a, b = node
+            r = g.rounding(i)
+            x, y = (operand(v) if isinstance(v, int) else
+                    _number_code(v[1], r) for v in (a, b))
+            return rounded(f"k6_mod({x}, {y})", r)
+        if kind == "clamp":
+            _, a, lo_, hi_ = node
+            r = g.rounding(i)
+            x = operand(a)
+            body = x
+            if lo_ is not None:
+                body = f"fmaxf({body}, {_number_code(lo_[1], r)})"
+            if hi_ is not None:
+                body = f"fminf({body}, {_number_code(hi_[1], r)})"
+            return f"({x} != {x} ? (float){x} : {body})"
         if kind == "pick":
             _, which, a, b = node
             x, y = operand(a), operand(b)
@@ -639,6 +1024,11 @@ def _emit(g: _Graph, outs) -> str:
         if kind == "cmp":
             _, o, a, b, r = node
             return f"({operand(a, r)} {o} {operand(b, r)})"
+        if kind == "logic":
+            _, o, a, b = node
+            return f"({operand(a)} {_LOGIC[o][1]} {operand(b)})"
+        if kind == "not":
+            return f"!{operand(node[1])}"
         if kind == "where":
             _, c, a, b = node
             r = g.rounding(i)
@@ -658,6 +1048,12 @@ def _emit(g: _Graph, outs) -> str:
             text = f"p == {p} ? {pick(table[p])} : {text}"
         return text
 
+    def row(slot) -> int:
+        return used + resolved.index(slot) if _resolved(slot) else slot[0]
+
+    def first(slot) -> int:
+        return 0 if _resolved(slot) else slot[1]
+
     nz = len(g.zslots)
     lines = [HEADER, "#pragma once", "", "struct GeneratedOp {",
              f"  static constexpr int kFields = {len(outs)};",
@@ -665,14 +1061,14 @@ def _emit(g: _Graph, outs) -> str:
     lines.append(f"  static constexpr int kRadius = {R}, kPlaneLo = {lo}, "
                  f"kPlaneHi = {hi}, kHead = {head};")
     lines += ["  __device__ static constexpr int zvec(int p) {",
-              f"    return {chain(g.zslots, lambda s: s[0])};", "  }",
+              f"    return {chain(g.zslots, row)};", "  }",
               "  __device__ static constexpr int zoff(int p) {",
-              f"    return {chain(g.zslots, lambda s: s[1] - R + PAD * R)};",
+              f"    return {chain(g.zslots, lambda s: first(s) - R + PAD * R)};",
               "  }"]
     if g.scalars:
         names = ", ".join(f"s{i}" for i in range(len(g.scalars)))
-        loads = ", ".join(f"pv[{v} * (size_t)p_len + {e + PAD * R}]"
-                          for v, e, _ in g.scalars)
+        loads = ", ".join(f"pv[{row(s)} * (size_t)p_len + "
+                          f"{first(s) + PAD * R}]" for s in g.scalars)
         lines += ["  struct Coef {", f"    float {names};", "  };",
                   "  __device__ __forceinline__ static Coef coef("
                   "const float* pv, int p_len) {",
@@ -685,17 +1081,11 @@ def _emit(g: _Graph, outs) -> str:
               "  __device__ __forceinline__ static float source("
               "const Cell& sh, const Coef& k) {"]
     for f, out in enumerate(outs):
-        need, stack = set(), [out]
-        while stack:
-            i = stack.pop()
-            if i in need:
-                continue
-            need.add(i)
-            stack += [a for a in _operands(g.nodes[i]) if isinstance(a, int)]
+        need = _needed(g.nodes, out)
         lines.append(f"    {'if' if f == 0 else '} else if'} constexpr "
                      f"(FI == {f}) {{")
-        lines += [f"      const {_TYPE.get(g.nodes[i][0], 'float')} t{i} = "
-                  f"{expr(i)};" for i in sorted(need)]
+        lines += [f"      const {'bool' if g.nodes[i][0] in _BOOL else 'float'}"
+                  f" t{i} = {expr(i)};" for i in sorted(need)]
         lines.append(f"      return t{out};")
     lines += ["    } else {", "      return 0.0f;", "    }", "  }", "};", ""]
     return "\n".join(lines)
@@ -713,7 +1103,7 @@ def _outputs(g: _Graph, srcs):
             s = s.leaf()
         if not isinstance(s, _Node) or s.g is not g or not g.reads[s.i]:
             g.refuse(f"the source of field {spec.fields[f]!r} reads no field")
-        if g.nodes[s.i][0] == "cmp":
+        if g.nodes[s.i][0] in _BOOL:
             g.refuse(f"the source of field {spec.fields[f]!r} is a "
                      f"comparison")
         outs.append(s.i)
@@ -728,6 +1118,7 @@ def _trace(source, name: str, fields: Tuple[str, ...], radius: int):
     last = None
     for n in range(MAX_VECTORS + 1):
         g = _Graph(view)
+        g.used = n
         try:
             srcs = source(g.sh, tuple(_Vector(g, i) for i in range(n)))
         except (Refused, _SpecBug):
@@ -767,26 +1158,40 @@ def evaluate(gen: Generated, sh, pv):
     def operand(a):
         return vals[a] if isinstance(a, int) else a[1]
 
+    def view(slot, scalar=False):
+        r = _positions(slot, pv[slot[0]].shape[0], scalar)
+        return pv[slot[0]][r.start:r.start + len(r)]
+
     for node in gen.nodes:
         kind = node[0]
         if kind == "field":
             vals.append(sh(*node[1:]))
         elif kind == "coef":
-            vec, element, _ = gen.scalars[node[1]]
-            vals.append(pv[vec][element:element + 1])
+            vals.append(view(gen.scalars[node[1]], scalar=True))
         elif kind == "zvec":
-            vec, start, cut = gen.zslots[node[1]]
-            vals.append(pv[vec][start:pv[vec].shape[0] - cut])
+            vals.append(view(gen.zslots[node[1]]))
         elif kind == "neg":
             vals.append(-operand(node[1]))
         elif kind in _UNARY:
             vals.append(_UNARY[kind](operand(node[1])))
+        elif kind == "fn":
+            vals.append(getattr(torch, node[1])(operand(node[2])))
+        elif kind in _BINARY:
+            vals.append(_BINARY[kind](operand(node[1]), operand(node[2])))
+        elif kind == "clamp":
+            lo, hi = (None if v is None else v[1] for v in node[2:4])
+            vals.append(torch.clamp(operand(node[1]), min=lo, max=hi))
         elif kind == "pick":
             vals.append(_PICK[node[1]][0](operand(node[2]),
                                           operand(node[3])))
         elif kind == "cmp":
             vals.append(_COMPARE[node[1]](operand(node[2]),
                                           operand(node[3])))
+        elif kind == "logic":
+            vals.append(_LOGIC[node[1]][0](operand(node[2]),
+                                           operand(node[3])))
+        elif kind == "not":
+            vals.append(~operand(node[1]))
         elif kind == "where":
             vals.append(torch.where(*(operand(a) for a in node[1:4])))
         else:
@@ -820,3 +1225,126 @@ def instantiation(spec):
         return spec.cuda_op
     gen = trace(spec)
     return shipped_texts().get(gen.text, gen)
+
+
+# --- the probe of the nodes ---------------------------------------------------
+
+def _probe(fn, arity: int = 1):
+    """A one-node callback of field a (and b, where `arity` is 2: b's own
+    source is b, so the probe's field 0 is the node)."""
+    if arity == 1:
+        return lambda sh, pv: (fn(sh(0, 0, 0, 0)),)
+    return lambda sh, pv: (fn(sh(0, 0, 0, 0), sh(1, 0, 0, 0)),
+                           sh(1, 0, 0, 0))
+
+
+def _math_probe(name):
+    return _probe(lambda a: getattr(torch, name)(a))
+
+
+def _pow_probe(e):
+    return _probe(lambda a: a ** e)
+
+
+def _rpow_probe(b):
+    return _probe(lambda a: b ** a)
+
+
+def _scalar_probe(kind, b, reflected=False):
+    fn = _BINARY[kind]
+    return _probe((lambda a: fn(b, a)) if reflected else (lambda a: fn(a, b)))
+
+
+# exponents of the power-by-number probes: torch's special cases (0, 1,
+# 0.5, -0.5, -1 as given; 2, 3, -2 in the op's dtype), a number that is 2
+# in bf16 only, and generic ones
+PROBE_EXPONENTS = (0, 1, 0.5, -0.5, -1, 2, 3, -2, 2.001, 1.5, -1.5, 2.5,
+                   1.0 / 3.0)
+# divisors of the floor-division and remainder-by-number probes
+PROBE_DIVISORS = (360.0, -0.75, 0.1, 3.0, 0.0)
+
+
+@functools.lru_cache(maxsize=None)
+def probe_cases() -> Tuple[Tuple[str, int, object], ...]:
+    """(name, operands, callback) of every case the probe holds against
+    torch: each new node kind in one-line specs of one or two fields, each
+    math function, each exponent case of a power by a number, a number by a
+    value and a value by a value, the clamps, floor division and remainder
+    by values, by numbers (0 included) and of numbers, a comparison as a
+    number and a select on `&`, `~` and `|` of comparisons; with `sqrt` and
+    `/` for reference."""
+    out = [(n, 1, _math_probe(n)) for n in _MATH]
+    out += [("sqrt", 1, _probe(torch.sqrt)), ("square", 1,
+                                              _probe(torch.square)),
+            ("a / b", 2, _probe(operator.truediv, 2))]
+    out += [(f"a ** {e!r}", 1, _pow_probe(e)) for e in PROBE_EXPONENTS]
+    out += [(f"{b!r} ** a", 1, _rpow_probe(b)) for b in (2.0, 0.5, 10.0,
+                                                          1.0)]
+    out += [("a ** b", 2, _probe(operator.pow, 2)),
+            ("clamp(a, -1.5, 2.0)", 1, _probe(lambda a: a.clamp(-1.5, 2.0))),
+            ("clamp_min(a, 0.0)", 1, _probe(lambda a: torch.clamp_min(a,
+                                                                      0.0))),
+            ("clamp(a, max=0.3)", 1, _probe(lambda a: torch.clamp(a,
+                                                                  max=0.3))),
+            ("clamp(a, 1.1, 0.7)", 1, _probe(lambda a: torch.clamp(a, 1.1,
+                                                                   0.7)))]
+    for kind, sym in (("fdiv", "//"), ("mod", "%")):
+        out.append((f"a {sym} b", 2, _probe(_BINARY[kind], 2)))
+        out += [(f"a {sym} {b!r}", 1, _scalar_probe(kind, b))
+                for b in PROBE_DIVISORS]
+        out.append((f"7.5 {sym} a", 1, _scalar_probe(kind, 7.5, True)))
+    out += [("(a > b) * a", 2, _probe(lambda a, b: (a > b) * a, 2)),
+            ("where((a > 0) & ~(b < 0) | (a == b), a, b)", 2,
+             _probe(lambda a, b: torch.where(
+                 (a > 0.0) & ~(b < 0.0) | (a == b), a, b), 2))]
+    return tuple(out)
+
+
+def probe_functor(case: int) -> Generated:
+    name, arity, fn = probe_cases()[case]
+    return _trace(fn, f"probe {name}", ("a", "b")[:arity], 1)
+
+
+def probe_header() -> str:
+    """The probe's cases as `_build.PROBE_HEADER`: each case's functor in
+    namespace k6p<case>, as the tracer emits it for a spec."""
+    parts = [HEADER, "#pragma once", ""]
+    for i, (name, _, _) in enumerate(probe_cases()):
+        body = probe_functor(i).text.replace(HEADER, "").replace(
+            "#pragma once\n", "")
+        parts += [f"// {name}", f"namespace k6p{i} {{", body.strip(),
+                  f"}}  // namespace k6p{i}", ""]
+    parts.append("#define K6_PROBE_CASES(X) " + " ".join(
+        f"X({i})" for i in range(len(probe_cases()))))
+    return "\n".join(parts) + "\n"
+
+
+def probe_reference(case: int, a, b=None):
+    """torch's op of the case on `a` (and `b`): the case's own callback,
+    the plain version the probe is held to."""
+    fields = (a, a if b is None else b)
+    return probe_cases()[case][2](lambda f, dx, dy, dz: fields[f], ())[0]
+
+
+def run_probe(case: int, a: torch.Tensor,
+              b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The probe's node `case` applied elementwise on the card to `a` (and
+    `b`), 1-D contiguous CUDA tensors of f32 or bf16 cells, in the
+    generated builds' flags; built at first use (`_build.load_probe`)."""
+    if a.device.type != "cuda":
+        raise ValueError("the probe runs on CUDA tensors only (on the CPU, "
+                         "`probe_reference` is torch's op)")
+    b = a if b is None else b
+    if a.dtype not in (torch.float32, torch.bfloat16) or b.dtype != a.dtype \
+            or a.shape != b.shape or a.ndim != 1:
+        raise ValueError("the probe takes 1-D f32 or bf16 operands of one "
+                         "shape and dtype")
+    a, b = a.contiguous(), b.contiguous()
+    lib = _build.load_probe(probe_header())
+    out = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        err = lib.k6_probe(case, int(a.dtype == torch.bfloat16), a.data_ptr(),
+                           b.data_ptr(), out.data_ptr(), a.numel(),
+                           torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(err, "k6_probe")
+    return out

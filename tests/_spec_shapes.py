@@ -1,8 +1,11 @@
-"""The four user-written specs of the spec-shape tests, torch side (the JAX
+"""The user-written specs of the spec-shape tests, torch side (the JAX
 side, term by term alike, is in `test_torch_spec_shapes.py`): radius 2
 (`hyperdiff4`, `tvd_vl`), x-diagonal reads (`smag_cross`), six fields
-(`moist6`) and the limiter operations (`tvd_vl`); with their parameters at
-unit spacings and seeded fields. No JAX here: the card tests import it."""
+(`moist6`) and the limiter operations (`tvd_vl`); and three cloud-model
+terms on the math functions, powers, floor division and remainder,
+comparisons as numbers and a coefficient indexed from its vector's end
+(`satadj3`, `sponge_log`, `wrap_phase`); with their parameters at unit
+spacings and seeded fields. No JAX here: the card tests import it."""
 from typing import NamedTuple
 
 import numpy as np
@@ -23,10 +26,13 @@ EDGES = tuple((a, b, 0) for a in (-1, 1) for b in (-1, 1)) + \
     tuple((a, 0, b) for a in (-1, 1) for b in (-1, 1)) + \
     tuple((0, a, b) for a in (-1, 1) for b in (-1, 1))
 NAMES = ("hyperdiff4", "smag_cross", "moist6", "tvd_vl")
+MATH_NAMES = ("satadj3", "sponge_log", "wrap_phase")
 FIELDS = {"hyperdiff4": ("phi",), "smag_cross": ("phi",),
           "moist6": ("u", "v", "w", "theta", "qv", "qc"),
-          "tvd_vl": ("u", "v", "w", "q")}
-DT = {"hyperdiff4": 0.5, "smag_cross": 0.5, "moist6": 0.05, "tvd_vl": 0.1}
+          "tvd_vl": ("u", "v", "w", "q"), "satadj3": ("theta", "qv", "qc"),
+          "sponge_log": ("u", "v", "w"), "wrap_phase": ("phi",)}
+DT = {"hyperdiff4": 0.5, "smag_cross": 0.5, "moist6": 0.05, "tvd_vl": 0.1,
+      "satadj3": 0.5, "sponge_log": 0.1, "wrap_phase": 0.5}
 
 
 # --- the four specs, for torch -----------------------------------------------
@@ -111,6 +117,75 @@ def tvd_vl(sh, pv):
             0.0 * sh(2, 0, 0, 0), dq)
 
 
+def satadj3(sh, pv):
+    """Diffusion of theta, q_v and q_c (a 7-point star times kd) plus a
+    saturation adjustment, theta an anomaly about 285 K: q_sat = 0.622
+    e_s(T) / p(z) with Tetens' e_s = 610.78 exp(17.27 (T - 273.15) / (T -
+    35.86)) Pa, written in the anomaly, and the condensation rate tau^-1
+    max(q_v - q_sat, -q_c), which moves q_v to q_c and heats theta by L/cp;
+    [kd, 1/tau, L/cp, p(Z)]."""
+    (t,) = pv
+    kd, rtau, lcp, p = t[0], t[1], t[2], t[3:][1:-1]
+
+    def diff(f):
+        return kd * (sh(f, -1, 0, 0) + sh(f, 1, 0, 0) + sh(f, 0, -1, 0)
+                     + sh(f, 0, 1, 0) + sh(f, 0, 0, -1) + sh(f, 0, 0, 1)
+                     - 6.0 * sh(f, 0, 0, 0))
+    th, qv, qc = sh(0, 0, 0, 0), sh(1, 0, 0, 0), sh(2, 0, 0, 0)
+    # T - 273.15 and T - 35.86 at T = 285 + th, kept small for bf16 fields
+    qsat = 0.622 * 610.78 * torch.exp(17.27 * (11.85 + th) / (249.14 + th)) \
+        / p
+    rate = rtau * torch.maximum(qv - qsat, -qc)
+    return (diff(0) + lcp * rate, diff(1) - rate, diff(2) + rate)
+
+
+def sponge_log(sh, pv):
+    """Vertical eddy diffusion of (u, v, w) by a mixing-length coefficient
+    (kappa z)^2 |du/dz|^1.5 (kappa = 0.4, a generic power), u relaxed to
+    the log-law wind u*/kappa log(z / z0) and v, w to rest by a Rayleigh
+    sponge r_max tanh(max((z - z_s) / (z_top - z_s), 0)), z_top the last
+    height of the vector (`t[-1]`); [u*/kappa, z0, r_max, z_s, z(Z)]."""
+    (t,) = pv
+    us_k, z0, rmax, zs, z = t[0], t[1], t[2], t[3], t[4:][1:-1]
+    ztop = t[-1]
+    kz2 = (0.4 * z) ** 2
+    target = us_k * torch.log(z / z0)
+    rate = rmax * torch.tanh(torch.clamp((z - zs) / (ztop - zs), min=0.0))
+    out = []
+    for f in range(3):
+        c, up, dn = sh(f, 0, 0, 0), sh(f, 0, 0, 1), sh(f, 0, 0, -1)
+        k = kz2 * (0.5 * abs(up - dn)) ** 1.5
+        rest = target - c if f == 0 else -c
+        out.append(k * (up - 2.0 * c + dn) + rate * rest)
+    return tuple(out)
+
+
+def _wrap(d):
+    """An angle difference in degrees wrapped into [-180, 180)."""
+    return ((d + 180.0) % 360.0) - 180.0
+
+
+def wrap_phase(sh, pv):
+    """Upwind advection of a wind direction phi (degrees, wrapped into
+    [-180, 180) with seams where it crosses south) by steady advection
+    numbers (cx, cy, cz(z)), each one-sided difference wrapped into [-180,
+    180) and picked by the wind's sign (comparisons as numbers), plus a
+    veering toward north at kd degrees a unit of time, kd sin(phi), on phi
+    wrapped by the source's own floor division, phi - 360 floor((phi + 180)
+    / 360); [cx, cy, kd, cz(Z)]."""
+    (t,) = pv
+    cx, cy, kd, cz = t[0], t[1], t[2], t[3:][1:-1]
+    phi = sh(0, 0, 0, 0)
+
+    def upwind(c, lo, hi):
+        return c * ((c > 0.0) * _wrap(phi - lo) + (c <= 0.0) * _wrap(hi - phi))
+    adv = (upwind(cx, sh(0, -1, 0, 0), sh(0, 1, 0, 0))
+           + upwind(cy, sh(0, 0, -1, 0), sh(0, 0, 1, 0))
+           + upwind(cz, sh(0, 0, 0, -1), sh(0, 0, 0, 1)))
+    own = phi - 360.0 * ((phi + 180.0) // 360.0)
+    return (-adv - kd * torch.sin(0.017453292519943295 * own),)
+
+
 def sqrt_spec():
     def src(sh, pv):
         a = sh(0, 1, 0, 0)
@@ -122,9 +197,11 @@ def sqrt_spec():
 
 
 SOURCES = {"hyperdiff4": hyperdiff4, "smag_cross": smag_cross,
-           "moist6": moist6, "tvd_vl": tvd_vl}
+           "moist6": moist6, "tvd_vl": tvd_vl, "satadj3": satadj3,
+           "sponge_log": sponge_log, "wrap_phase": wrap_phase}
 OFFSETS = {"hyperdiff4": STAR2, "smag_cross": STAR1 + EDGES,
-           "moist6": STAR1, "tvd_vl": STAR2}
+           "moist6": STAR1, "tvd_vl": STAR2, "satadj3": STAR1,
+           "sponge_log": STAR1, "wrap_phase": STAR1}
 
 
 class OneVector(NamedTuple):
@@ -144,7 +221,7 @@ def _pack(p):
 
 
 def port_spec(name, integ="euler"):
-    """The port's spec of one of the four (or `sqrt_div`)."""
+    """The port's spec of one of the seven (or `sqrt_div`)."""
     if name == "sqrt_div":
         return sqrt_spec()
     fields = FIELDS[name]
@@ -164,6 +241,15 @@ def np_params(name, Z):
         q = [0.10, 0.08, 0.03, -0.02, 0.025, *(0.06 * (1.0 + 0.01 * k))]
     elif name == "tvd_vl":
         q = [1.0, 1.0, *(1.0 / (1.0 + 0.01 * k))]
+    elif name == "satadj3":
+        # p(z): 1000 hPa, a scale height of 80 levels
+        q = [0.05, 1.0, 2500.0, *(1.0e5 * np.exp(-k / 80.0))]
+    elif name == "sponge_log":
+        # heights (k + 0.5) / Z of a unit column; z0 = 0.002, the sponge
+        # above 0.7
+        q = [0.75, 0.002, 0.2, 0.7, *((k + 0.5) / Z)]
+    elif name == "wrap_phase":
+        q = [0.6, -0.5, 20.0, *(0.4 * np.cos(0.3 * k))]
     else:
         z1 = 0.5 / (1.0 + 0.01 * k)
         return (np.array([-0.25, -0.25, *z1], np.float32),
@@ -172,13 +258,30 @@ def np_params(name, Z):
 
 
 def np_fields(name, shape=SHAPE, seed=0):
-    """Seeded fields: normal, but tvd_vl's winds at half that."""
+    """Seeded fields: normal, but tvd_vl's winds at half that; satadj3's
+    theta anomaly at 3 K, q_v about 8.6 g/kg (q_sat at 285 K and 1000 hPa)
+    and q_c at 0.2 g/kg; wrap_phase's phi a smooth direction field of
+    random phases spanning about +-400 degrees, wrapped into [-180, 180)
+    (seams where neighbours differ by about 360), plus 0.5 degrees of noise
+    (which puts some cells just outside, for the source's own wrap)."""
     rng = np.random.default_rng(seed)
     out = [rng.normal(size=shape).astype(np.float32)
            for _ in FIELDS[name]]
     if name == "tvd_vl":
         out[:3] = [(0.5 * f).astype(np.float32) for f in out[:3]]
-    return out
+    elif name == "satadj3":
+        out = [3.0 * out[0], 8.6e-3 + 1.0e-3 * out[1],
+               2.0e-4 * np.abs(out[2])]
+    elif name == "wrap_phase":
+        X, Y, Z = shape
+        x, y, z = np.meshgrid(np.arange(X), np.arange(Y), np.arange(Z),
+                              indexing="ij")
+        ph = rng.uniform(0.0, 2.0 * np.pi, 3)
+        smooth = (250.0 * np.sin(2.0 * np.pi * x / 23.0 + ph[0])
+                  + 150.0 * np.sin(2.0 * np.pi * y / 31.0 + ph[1])
+                  + 40.0 * np.cos(2.0 * np.pi * z / 17.0 + ph[2]))
+        out = [(smooth + 180.0) % 360.0 - 180.0 + 0.5 * out[0]]
+    return [np.asarray(f, np.float32) for f in out]
 
 
 def params(name, Z, dtype=torch.float32, device="cpu"):

@@ -359,23 +359,80 @@ def test_formerly_refused_shapes_now_trace(case_name, monkeypatch):
 
 
 REFUSED = {
-    "torch.exp": (TSP.StencilSpec(
-        name="exp", fields=("a",), offsets={"a": ((1, 0, 0),)},
-        source=lambda sh, pv: (torch.exp(sh(0, 1, 0, 0)),),
-        pack_params=lambda p: ()), "calls exp"),
-    "index from the end": (TSP.StencilSpec(
-        name="end", fields=("a",), offsets={"a": ((1, 0, 0),)},
-        source=lambda sh, pv: (pv[0][-1] * sh(0, 1, 0, 0),),
-        pack_params=lambda p: (p,)), "from its end"),
-    "slice off z": (TSP.StencilSpec(
-        name="sl", fields=("a",), offsets={"a": ((1, 0, 0),)},
-        source=lambda sh, pv: (pv[0][1:3] * sh(0, 1, 0, 0),),
-        pack_params=lambda p: (p,)), "does not line up with z"),
     "a field read as a number": (TSP.StencilSpec(
         name="num", fields=("a",), offsets={"a": ((1, 0, 0),)},
         source=lambda sh, pv: (float(sh(0, 1, 0, 0)) * sh(0, 0, 0, 0),),
         pack_params=lambda p: ()), "conversion to a number"),
 }
+
+# refused until the math nodes and the launch-resolved coefficients came:
+# (spec, its parameter vectors at Z = 6)
+FORMERLY_REFUSED_CALLBACKS = {
+    "torch.exp": (TSP.StencilSpec(
+        name="exp", fields=("a",), offsets={"a": ((1, 0, 0),)},
+        source=lambda sh, pv: (torch.exp(sh(0, 1, 0, 0)),),
+        pack_params=lambda p: ()), ()),
+    "index from the end": (TSP.StencilSpec(
+        name="end", fields=("a",), offsets={"a": ((1, 0, 0),)},
+        source=lambda sh, pv: (pv[0][-1] * sh(0, 1, 0, 0),),
+        pack_params=lambda p: (p,)), (torch.linspace(0.5, 1.5, 8),)),
+    "slice off z": (TSP.StencilSpec(
+        name="sl", fields=("a",), offsets={"a": ((1, 0, 0),)},
+        source=lambda sh, pv: (pv[0][1:5] * sh(0, 1, 0, 0),),
+        pack_params=lambda p: (p,)), (torch.linspace(0.5, 1.5, 8),)),
+    "a slice from the end": (TSP.StencilSpec(
+        name="tail", fields=("a",), offsets={"a": ((1, 0, 0),)},
+        source=lambda sh, pv: (pv[0][-4:] * sh(0, 1, 0, 0),),
+        pack_params=lambda p: (p,)), (torch.linspace(0.5, 1.5, 8),)),
+}
+
+
+@pytest.mark.parametrize("case_name", sorted(FORMERLY_REFUSED_CALLBACKS))
+def test_formerly_refused_callbacks_now_trace(case_name, monkeypatch):
+    """A math function, a coefficient indexed from its vector's end and a
+    z slice with a positive stop: each gets a generated functor and a
+    launch plan, building and launching nothing to decide; the launch's
+    checks take its vectors at Z = 6, and its graph replays the callback
+    bitwise on them."""
+    monkeypatch.setattr(_build, "load", _refuse)
+    monkeypatch.setattr(_build, "load_generated", _refuse)
+    spec, pv = FORMERLY_REFUSED_CALLBACKS[case_name]
+    before = dict(TK.LAUNCHES)
+    op, stages = TK._cuda_instantiation(spec)
+    assert isinstance(op, G.Generated) and TK.spec_on_card(spec)
+    TK.spec_launch_plan(16, 16, 6, spec, 1, 1, 132, 1)
+    op.check_vectors(spec.name, pv, 6)
+    # a slot counted from the end reaches the kernel as a row of its own,
+    # read as the kernel reads it: element z - 1 at window cell z
+    rows = op.rows(pv)
+    table, p_len = TK._param_block(rows, "cpu", op.pad)
+    for slot in op.resolved:
+        row = op.used + op.resolved.index(slot)
+        want = pv[0][-1:] if slot in op.scalars else pv[0][-4:]
+        got = table[row * p_len + op.pad:row * p_len + op.pad + len(want)]
+        assert torch.equal(got, want)
+    field = torch.tensor(np.random.default_rng(2).normal(size=(7, 8, 6)),
+                         dtype=torch.float32)
+    wrapped = tuple(TSP.CoefVector(p) for p in pv)
+    sh = accessor([field])
+    assert bitwise(G.evaluate(op, sh, wrapped), spec.source(sh, wrapped))
+    assert TK.LAUNCHES == before
+
+
+@pytest.mark.parametrize("Z", [5, 8])
+def test_a_z_slice_that_does_not_line_up_is_refused_at_launch(Z,
+                                                               monkeypatch):
+    """The positive-stop slice `pv[0][1:5]` holds 4 cells: at any Z but 6
+    the launch refuses it, naming the queue, before any build or launch."""
+    monkeypatch.setattr(_build, "load", _refuse)
+    monkeypatch.setattr(_build, "load_generated", _refuse)
+    spec, pv = FORMERLY_REFUSED_CALLBACKS["slice off z"]
+    before = dict(TK.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2") as e:
+        TK._stencil_fused_cuda([torch.zeros(1, 6, 6, Z)], pv, spec, 1, 0.01,
+                               torch.ones(6), torch.ones(6))
+    assert "does not line up with z" in str(e.value)
+    assert TK.LAUNCHES == before
 
 
 @pytest.mark.parametrize("case_name", sorted(REFUSED))

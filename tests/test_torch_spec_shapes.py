@@ -20,21 +20,26 @@ Tolerances: the port's plain version against the JAX reference's
 of the field scale (tests/test_torch_spec.py's rule), the fields moving by
 more than 5x that, so a no-op fails; in bf16 against the reference ring's
 bf16 masked loop (`test_torch_stencil_bf16.jax_bf16_loop`) bitwise, as
-that file holds the shipped specs. The traced graph against the callback,
-and everything within the port: bitwise. The generated functor compiles
+that file holds the shipped specs, with each product of a bf16 value and
+a number bf16 does not hold written in the JAX twin as torch computes it
+(`by_number`), and a ring whose sources round once shown to fail it.
+The traced graph against the callback, and everything within the port:
+bitwise. The generated functor compiles
 and runs only on the card (`chip_smoke.py` phases 44-46 and
 `tests/test_torch_cuda.py`); the torch side of the four specs is
 `tests/_spec_shapes.py`."""
 import hashlib
 import textwrap
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _spec_shapes import (BF16, DT, NAMES, SHAPE, STAR1, STORAGES,
-                          TOL_REL_F32, OneVector, TwoVectors, accessor,
+from _spec_shapes import (BF16, DT, MATH_NAMES, NAMES, SHAPE, STAR1,
+                          STORAGES, TOL_REL_F32, OneVector, TwoVectors,
+                          accessor,
                           bitwise, np_fields, np_params, params, port_spec,
                           sqrt_spec)
 from _subproc import run_ok
@@ -115,12 +120,75 @@ def tvd_vl_jax(sh, pv):
             0.0 * sh(2, 0, 0, 0), dq)
 
 
+def by_number(c, x):
+    """The Python number c times x, as torch's CPU kernel computes it for a
+    bf16 x: in f32, c an f32, the product rounded once to x's dtype. JAX
+    rounds a weak-typed number to the array's dtype first (17.27 -> 17.25 in
+    bf16); for an f32 x the two rules are one. (Torch's CPU kernels of a
+    bf16 sum with a number round the number to bf16 first, as JAX does.)
+    The three specs below multiply by numbers that bf16 does not hold; the
+    four above only by numbers it does (2, 4, 6, 0.5)."""
+    return (jnp.float32(c) * x.astype(jnp.float32)).astype(x.dtype)
+
+
+def satadj3_jax(sh, pv):
+    (t,) = pv
+    kd, rtau, lcp, p = t[0], t[1], t[2], t[3:][1:-1]
+
+    def diff(f):
+        return kd * (sh(f, -1, 0, 0) + sh(f, 1, 0, 0) + sh(f, 0, -1, 0)
+                     + sh(f, 0, 1, 0) + sh(f, 0, 0, -1) + sh(f, 0, 0, 1)
+                     - 6.0 * sh(f, 0, 0, 0))
+    th, qv, qc = sh(0, 0, 0, 0), sh(1, 0, 0, 0), sh(2, 0, 0, 0)
+    qsat = by_number(0.622 * 610.78, jnp.exp(
+        by_number(17.27, 11.85 + th) / (249.14 + th))) / p
+    rate = rtau * jnp.maximum(qv - qsat, -qc)
+    return (diff(0) + lcp * rate, diff(1) - rate, diff(2) + rate)
+
+
+def sponge_log_jax(sh, pv):
+    (t,) = pv
+    us_k, z0, rmax, zs, z = t[0], t[1], t[2], t[3], t[4:][1:-1]
+    ztop = t[-1]
+    kz2 = by_number(0.4, z) ** 2
+    target = us_k * jnp.log(z / z0)
+    rate = rmax * jnp.tanh(jnp.clip((z - zs) / (ztop - zs), min=0.0))
+    out = []
+    for f in range(3):
+        c, up, dn = sh(f, 0, 0, 0), sh(f, 0, 0, 1), sh(f, 0, 0, -1)
+        k = kz2 * (0.5 * abs(up - dn)) ** 1.5
+        rest = target - c if f == 0 else -c
+        out.append(k * (up - 2.0 * c + dn) + rate * rest)
+    return tuple(out)
+
+
+def _wrap_jax(d):
+    return ((d + 180.0) % 360.0) - 180.0
+
+
+def wrap_phase_jax(sh, pv):
+    (t,) = pv
+    cx, cy, kd, cz = t[0], t[1], t[2], t[3:][1:-1]
+    phi = sh(0, 0, 0, 0)
+
+    def upwind(c, lo, hi):
+        return c * ((c > 0.0) * _wrap_jax(phi - lo)
+                    + (c <= 0.0) * _wrap_jax(hi - phi))
+    adv = (upwind(cx, sh(0, -1, 0, 0), sh(0, 1, 0, 0))
+           + upwind(cy, sh(0, 0, -1, 0), sh(0, 0, 1, 0))
+           + upwind(cz, sh(0, 0, 0, -1), sh(0, 0, 0, 1)))
+    own = phi - 360.0 * ((phi + 180.0) // 360.0)
+    return (-adv - kd * jnp.sin(by_number(0.017453292519943295, own)),)
+
+
 JAX_SOURCES = {"hyperdiff4": hyperdiff4_jax, "smag_cross": smag_cross_jax,
-               "moist6": moist6_jax, "tvd_vl": tvd_vl_jax}
+               "moist6": moist6_jax, "tvd_vl": tvd_vl_jax,
+               "satadj3": satadj3_jax, "sponge_log": sponge_log_jax,
+               "wrap_phase": wrap_phase_jax}
 
 
 def specs(name, integ="euler"):
-    """(port spec, reference spec) of one of the four."""
+    """(port spec, reference spec) of one of the seven."""
     port = port_spec(name, integ)
     return port, JSP.StencilSpec(
         name=port.name, fields=port.fields, offsets=port.offsets,
@@ -165,7 +233,7 @@ def test_the_four_specs_trace_to_their_ring_shapes():
         assert TK.spec_on_card(specs(name)[0])
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + MATH_NAMES)
 @pytest.mark.parametrize("integ", ["euler", "rk2"])
 @pytest.mark.parametrize("storage", range(3))
 def test_graph_replayed_equals_the_callback(name, integ, storage):
@@ -190,10 +258,12 @@ def test_graph_replayed_equals_the_callback(name, integ, storage):
 # pinned: a change to the tracer or the emitter that changes what the
 # kernel computes changes these
 DIGESTS = {"hyperdiff4": "f9f3663de3f817a5", "smag_cross": "5ae39cea87eb8d0d",
-           "moist6": "527f190ca06d0e95", "tvd_vl": "a1bfd85d0941c2cb"}
+           "moist6": "527f190ca06d0e95", "tvd_vl": "a1bfd85d0941c2cb",
+           "satadj3": "bc23f335cfa5e1be", "sponge_log": "18569ed29a9ebbcd",
+           "wrap_phase": "9271f3aa7dbb548d"}
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + MATH_NAMES)
 def test_generated_text_against_its_pinned_digest(name):
     gen = specs(name)[0].cuda_functor()
     assert gen.digest == DIGESTS[name], gen.digest
@@ -253,20 +323,10 @@ def _branch(sh, pv):
 
 
 REFUSED = {
-    "torch.exp": (lambda sh, pv: (torch.exp(sh(0, 1, 0, 0)),), "calls exp"),
-    "torch.log": (lambda sh, pv: (torch.log(sh(0, 1, 0, 0)),), "calls log"),
-    "torch.tanh": (lambda sh, pv: (torch.tanh(sh(0, 1, 0, 0)),),
-                   "calls tanh"),
-    "a power": (lambda sh, pv: (sh(0, 1, 0, 0) ** 0.5,), "a power"),
     "a Python branch": (_branch, "a Python branch on a traced value"),
-    "a comparison as a number": (
-        lambda sh, pv: ((sh(0, 1, 0, 0) > 0.0) * sh(0, 0, 0, 0),),
-        "uses a comparison as a number"),
     "where on a value": (
         lambda sh, pv: (torch.where(sh(0, 1, 0, 0), sh(0, 0, 0, 0), 0.0),),
         "not a comparison"),
-    "floor division": (lambda sh, pv: (sh(0, 1, 0, 0) // 2.0,),
-                       "floor division"),
 }
 
 
@@ -274,7 +334,10 @@ REFUSED = {
 def test_remaining_refusals_name_the_queue_and_launch_nothing(case_name,
                                                               monkeypatch):
     """Each still raises NotImplementedError naming ROADMAP Queue 2 and
-    why, before any build or launch (the loaders monkeypatched to raise)."""
+    why, before any build or launch (the loaders monkeypatched to raise):
+    a Python branch on a traced value (JAX's trace refuses it too) and
+    `where` on a condition that is not a comparison (torch refuses it for
+    a float tensor)."""
     def refuse(*args, **kwargs):
         raise RuntimeError("kernel loader unavailable")
 
@@ -292,6 +355,163 @@ def test_remaining_refusals_name_the_queue_and_launch_nothing(case_name,
                                torch.ones(6))
     assert not TK.spec_on_card(spec)
     assert TK.LAUNCHES == before
+
+
+# refused until the math nodes came: each now traces to a generated functor
+FORMERLY_REFUSED = {
+    "torch.exp": lambda sh, pv: (torch.exp(sh(0, 1, 0, 0)),),
+    "torch.log": lambda sh, pv: (torch.log(sh(0, 1, 0, 0)),),
+    "torch.tanh": lambda sh, pv: (torch.tanh(sh(0, 1, 0, 0)),),
+    "a power": lambda sh, pv: (sh(0, 1, 0, 0) ** 0.5,),
+    "a comparison as a number": (
+        lambda sh, pv: ((sh(0, 1, 0, 0) > 0.0) * sh(0, 0, 0, 0),)),
+    "floor division": lambda sh, pv: (sh(0, 1, 0, 0) // 2.0,),
+}
+
+
+@pytest.mark.parametrize("case_name", sorted(FORMERLY_REFUSED))
+def test_formerly_refused_callbacks_now_trace(case_name, monkeypatch):
+    """Each gets a generated functor and runs on the card (`spec_on_card`),
+    deciding so without a build or a launch; its graph replays the
+    callback bitwise in every storage."""
+    def refuse(*args, **kwargs):
+        raise RuntimeError("kernel loader unavailable")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "load_generated", refuse)
+    spec = _one(FORMERLY_REFUSED[case_name])
+    before = dict(TK.LAUNCHES)
+    op, stages = TK._cuda_instantiation(spec)
+    assert isinstance(op, G.Generated) and TK.spec_on_card(spec)
+    TK.spec_launch_plan(16, 16, 8, spec, 1, 1, 132, 1)
+    for fd, _ in STORAGES:
+        # positive fields: log and the square root of a negative are NaN
+        f = torch.tensor(np.abs(np_fields("smag_cross", seed=2)[0])
+                         + 0.25).to(fd)
+        sh = accessor([f], 1)
+        assert bitwise(G.evaluate(op, sh, ()), spec.source(sh, ()))
+    assert TK.LAUNCHES == before
+
+
+# --- each new node ------------------------------------------------------------
+
+def node_operands(dtype):
+    """Two operands over signs, zeros, integers, halves and wide
+    magnitudes (the probe's own inputs are every bit pattern, on the
+    card)."""
+    rng = np.random.default_rng(38)
+    a = np.concatenate([rng.normal(size=200) * 10.0 ** rng.integers(
+        -3, 4, 200), [0.0, -0.0, 1.0, -1.0, 0.5, 2.0, 3.0, -2.5, 180.0,
+                      -180.0, 360.0, 720.0, 7.5, -7.5]])
+    b = np.roll(a, 7)
+    return (torch.tensor(a, dtype=torch.float32).to(dtype),
+            torch.tensor(b, dtype=torch.float32).to(dtype))
+
+
+def bits_or_nan(a, b) -> bool:
+    nan = torch.isnan(a) & torch.isnan(b)
+    return a.dtype == b.dtype and bool(torch.all(nan | (a == b) & (
+        torch.signbit(a) == torch.signbit(b))))
+
+
+@pytest.mark.parametrize("case", range(len(G.probe_cases())),
+                         ids=[c[0] for c in G.probe_cases()])
+@pytest.mark.parametrize("storage", range(3))
+def test_each_node_replays_its_callback(case, storage):
+    """Each new node in a one-line spec (the cases `chip_smoke.py` phase
+    54 probes on the card): its graph replayed by `evaluate` == the
+    callback, bitwise (NaN for NaN), in each storage's field dtype."""
+    _, arity, fn = G.probe_cases()[case]
+    gen = G.probe_functor(case)
+    a, b = node_operands(STORAGES[storage][0])
+
+    def sh(f, dx, dy, dz):
+        return (a, b)[f]
+    got, want = G.evaluate(gen, sh, ())[0], fn(sh, ())[0]
+    assert bits_or_nan(got, want)
+    # the op model counts each node one operation: a comparison and its
+    # product, two; three comparisons, ~, &, | and the select, seven
+    want_ops = {"(a > b) * a": 2,
+                "where((a > 0) & ~(b < 0) | (a == b), a, b)": 7}
+    assert gen.ops_per_cell() == want_ops.get(G.probe_cases()[case][0], 1)
+
+
+# (function form, method or keyword form): one text
+FORMS = {
+    "exp": (torch.exp, lambda a: a.exp()),
+    "clamp(min=)": (lambda a: torch.clamp(a, min=0.0),
+                    lambda a: a.clamp(min=0.0)),
+    "clamp(max=) by keyword": (lambda a: torch.clamp(a, None, 0.5),
+                               lambda a: torch.clamp(input=a, max=0.5)),
+    "clamp_min": (lambda a: torch.clamp_min(a, 0.0),
+                  lambda a: a.clamp_min(0.0)),
+    "pow": (lambda a: a ** 2, lambda a: a.pow(2)),
+    "pow(exponent=)": (lambda a: a ** 1.5,
+                       lambda a: torch.pow(a, exponent=1.5)),
+    "square": (torch.square, lambda a: a.square()),
+    "remainder": (lambda a: a % 3.0, lambda a: a.remainder(3.0)),
+    "floor_divide": (lambda a: a // 3.0, lambda a: a.floor_divide(3.0)),
+    "sigmoid": (torch.sigmoid, lambda a: a.sigmoid()),
+    "maximum": (lambda a: torch.maximum(a, -a), lambda a: a.maximum(-a)),
+    "where": (lambda a: torch.where(a > 0.0, a, -a),
+              lambda a: a.where(a > 0.0, -a)),
+}
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_method_and_keyword_forms_trace_alike(form):
+    fn, method = FORMS[form]
+    texts = [_one(lambda sh, pv, f=f: (f(sh(0, 1, 0, 0)),)).cuda_functor()
+             .text for f in (fn, method)]
+    assert texts[0] == texts[1]
+
+
+# --- the three cloud-model specs ------------------------------------------------
+
+def test_the_math_specs_trace_and_one_build_serves_every_z():
+    """satadj3, sponge_log and wrap_phase trace to generated functors of
+    PW's and diffusion's rings (radius 1, no x-diagonal read); sponge_log's
+    `t[-1]` is a coefficient the launch copies into a row of its own after
+    the vector (`rows`), read at a fixed place, so the text is one for
+    every Z; the launch's checks take every Z whose slices line up."""
+    for name, like in (("satadj3", 0), ("sponge_log", 0),
+                       ("wrap_phase", 2)):
+        gen = specs(name)[0].cuda_functor()
+        assert isinstance(gen, G.Generated) and gen.like == like
+        assert TK.spec_on_card(specs(name)[0])
+    gen = specs("sponge_log")[0].cuda_functor()
+    assert gen.resolved == ((0, -1, 0, (-1,)),) and gen.used == 1
+    assert "pv[1 * (size_t)p_len + 1]" in gen.text
+    for Z in (6, 12, 64):
+        pv = TK._spec_param_vectors(specs("sponge_log")[0],
+                                    params("sponge_log", Z), "cpu")
+        gen.check_vectors("sponge_log", pv, Z)
+        rows = gen.rows(pv)
+        assert len(rows) == 2 and torch.equal(rows[1], pv[0][-1:])
+        table, p_len = TK._param_block(rows, "cpu", gen.pad)
+        assert table[p_len + gen.pad] == pv[0][-1]
+        assert specs("sponge_log")[0].cuda_functor().text == gen.text
+
+
+def test_a_positive_stop_lines_up_at_one_z():
+    """A z slice with a positive stop (`t[1:13]`) traces; the launch takes
+    it at the Z where it holds the Z - 2 interior cells and refuses it,
+    naming the queue, at any other, before any build."""
+    spec = _one(lambda sh, pv: (pv[0][1:13] * sh(0, 1, 0, 0),))
+    spec = TSP.StencilSpec(name="stop", fields=("a",),
+                           offsets={"a": STAR1}, source=spec.source,
+                           pack_params=lambda p: (p,))
+    gen = spec.cuda_functor()
+    assert gen.zslots == ((0, 1, 0, ((1, 13),)),)
+    assert "return 1;" in gen.text      # zoff: element 1 - 1 + pad
+    gen.check_vectors("stop", (torch.zeros(20),), 14)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+        gen.check_vectors("stop", (torch.zeros(20),), 16)
+    # an element past its view (Python's slicing, whatever the length)
+    # is refused at the launch too
+    past = _one(lambda sh, pv: (pv[0][1:3][5] * sh(0, 1, 0, 0),))
+    with pytest.raises(ValueError, match="past its"):
+        past.cuda_functor().check_vectors("past", (torch.zeros(20),), 14)
 
 
 # --- builds, plans and shared bytes ------------------------------------------
@@ -406,7 +626,7 @@ def run_port(name, integ, fields, T, dtype, coef_dtype, xm=None, ym=None):
                             y_interior_mask=ym)
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + MATH_NAMES)
 @pytest.mark.parametrize("integ", ["euler", "rk2"])
 def test_f32_plain_equals_jax_spec_multistep(name, integ):
     """f32: the port's `stencil_fused` (its plain version here) == the
@@ -424,22 +644,30 @@ def test_f32_plain_equals_jax_spec_multistep(name, integ):
     assert max_diff(want, fields) > 5 * tol
 
 
-@pytest.mark.parametrize("name", NAMES)
+def jax_bf16_ring(name, integ, fields, coef, T, xm, ym, spec=None):
+    """The reference ring's bf16 masked loop of one spec (or `spec`) from
+    `fields` rounded to bf16, its coefficients in `coef`."""
+    from test_torch_stencil_bf16 import jax_bf16_loop
+    jd = jnp.float32 if coef == "f32" else jnp.bfloat16
+    return jax_bf16_loop(tuple(jnp.asarray(f, jnp.bfloat16) for f in fields),
+                         jparams(name, SHAPE[2], jd),
+                         spec or specs(name, integ)[1], T, DT[name], xm, ym)
+
+
+@pytest.mark.parametrize("name", NAMES + MATH_NAMES)
 @pytest.mark.parametrize("integ", ["euler", "rk2"])
 @pytest.mark.parametrize("coef", ["f32", "bf16"])
 def test_bf16_plain_equals_jax_bf16_ring(name, integ, coef):
     """bf16 fields, f32 or bf16 coefficients, with interior masks: the
     port's plain version == the reference ring's bf16 masked loop,
-    bitwise; the fields move."""
-    from test_torch_stencil_bf16 import jax_bf16_loop, masks
+    bitwise (the three math specs' twins multiply by a number as torch
+    does, `by_number`); the fields move."""
+    from test_torch_stencil_bf16 import masks
     T = 2
     fields = np_fields(name, seed=5)
     xm, ym = masks(SHAPE)
-    ts, js = specs(name, integ)
     cd = torch.float32 if coef == "f32" else BF16
-    jd = jnp.float32 if coef == "f32" else jnp.bfloat16
-    want = jax_bf16_loop(tuple(jnp.asarray(f, jnp.bfloat16) for f in fields),
-                         jparams(name, SHAPE[2], jd), js, T, DT[name], xm, ym)
+    want = jax_bf16_ring(name, integ, fields, coef, T, xm, ym)
     got = run_port(name, integ, fields, T, BF16, cd, torch.tensor(xm),
                    torch.tensor(ym))
     assert all(g.dtype == BF16 for g in got)
@@ -450,7 +678,88 @@ def test_bf16_plain_equals_jax_bf16_ring(name, integ, coef):
                      for f in fields]) > 0.0
 
 
-@pytest.mark.parametrize("name", NAMES)
+def f32_once(js):
+    """A JAX spec whose sources are `js`'s computed in f32 from the bf16
+    fields and coefficients and rounded once to bf16: what a port that
+    skipped the bf16 roundings between a source's operations would give."""
+    def source(sh, pv):
+        out = js.source(lambda *a: sh(*a).astype(jnp.float32),
+                        tuple(v.astype(jnp.float32) for v in pv))
+        return tuple(o.astype(jnp.bfloat16) for o in out)
+    return JSP.StencilSpec(name=js.name, fields=js.fields,
+                           offsets=js.offsets, source=source,
+                           pack_params=js.pack_params,
+                           integrator=js.integrator)
+
+
+@pytest.mark.parametrize("name", MATH_NAMES)
+@pytest.mark.parametrize("integ", ["euler", "rk2"])
+@pytest.mark.parametrize("coef", ["f32", "bf16"])
+def test_the_bf16_gate_fails_sources_rounded_once(name, integ, coef):
+    """The bitwise bf16 gate above can tell where the roundings fall: the
+    reference ring with each source computed in f32 and rounded once
+    (`f32_once`) differs from the port's plain version in some cell of
+    some field."""
+    from test_torch_stencil_bf16 import masks
+    T = 2
+    fields = np_fields(name, seed=5)
+    xm, ym = masks(SHAPE)
+    cd = torch.float32 if coef == "f32" else BF16
+    once = jax_bf16_ring(name, integ, fields, coef, T, xm, ym,
+                         f32_once(specs(name, integ)[1]))
+    got = run_port(name, integ, fields, T, BF16, cd, torch.tensor(xm),
+                   torch.tensor(ym))
+    assert not all(np.array_equal(as_np(g), np.asarray(w, np.float32))
+                   for g, w in zip(got, once))
+
+
+@pytest.mark.parametrize("name", MATH_NAMES)
+def test_spec_flops_per_cell_equals_the_reference(name):
+    """The port's op census == the reference's jaxpr census on each of the
+    three specs (a math function, a power, a floor division, a remainder
+    and a clip count nothing in either; a comparison times a value one
+    mul)."""
+    ts, js = specs(name)
+    want = {"satadj3": 34, "sponge_log": 33, "wrap_phase": 38}[name]
+    assert TSP.spec_flops_per_cell(ts, params(name, 4)) == want
+    assert JSP.spec_flops_per_cell(js, jparams(name, 4)) == want
+
+
+# one-line specs, torch and JAX, and their census
+CENSUS = {
+    "(a > 0) * b": (lambda sh, pv: ((sh(0, 1, 0, 0) > 0.0) * sh(0, 0, 0, 0),),
+                    lambda sh, pv: ((sh(0, 1, 0, 0) > 0.0) * sh(0, 0, 0, 0),),
+                    1),
+    "a ** 2": (lambda sh, pv: (sh(0, 1, 0, 0) ** 2,),
+               lambda sh, pv: (sh(0, 1, 0, 0) ** 2,), 0),
+    "a ** 1.5": (lambda sh, pv: (sh(0, 1, 0, 0) ** 1.5,),
+                 lambda sh, pv: (sh(0, 1, 0, 0) ** 1.5,), 0),
+    "a // 3 + a % 3": (
+        lambda sh, pv: (sh(0, 1, 0, 0) // 3.0 + sh(0, 1, 0, 0) % 3.0,),
+        lambda sh, pv: (sh(0, 1, 0, 0) // 3.0 + sh(0, 1, 0, 0) % 3.0,), 1),
+    "clip * 2": (lambda sh, pv: (torch.clamp(sh(0, 1, 0, 0), min=0.0) * 2.0,),
+                 lambda sh, pv: (jnp.clip(sh(0, 1, 0, 0), min=0.0) * 2.0,),
+                 1),
+    "exp - sigmoid": (
+        lambda sh, pv: (torch.exp(sh(0, 1, 0, 0))
+                        - torch.sigmoid(sh(0, 0, 0, 0)),),
+        lambda sh, pv: (jnp.exp(sh(0, 1, 0, 0))
+                        - jax.nn.sigmoid(sh(0, 0, 0, 0)),), 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CENSUS))
+def test_one_node_census_equals_the_reference(case):
+    tf, jf, want = CENSUS[case]
+    ts = TSP.StencilSpec(name="c", fields=("a",), offsets={"a": STAR1},
+                         source=tf, pack_params=lambda p: ())
+    js = JSP.StencilSpec(name="c", fields=("a",), offsets={"a": STAR1},
+                         source=jf, pack_params=lambda p: ())
+    assert TSP.spec_flops_per_cell(ts, ()) == want == \
+        JSP.spec_flops_per_cell(js, ())
+
+
+@pytest.mark.parametrize("name", NAMES + MATH_NAMES)
 def test_batched_equals_sequential_and_passes_equal_one_run(name):
     """B = 3 slots with per-slot masks == three calls, bitwise; T = 5 as
     the passes `spec_passes` splits it == five steps of the plain loop."""
@@ -478,7 +787,7 @@ def test_batched_equals_sequential_and_passes_equal_one_run(name):
     assert bitwise(deep, steps)
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + MATH_NAMES)
 def test_the_plain_version_does_not_trace_the_callback(name, monkeypatch):
     """On CPU tensors the plain version neither traces the callback into
     CUDA text nor asks the functor's levels: with the functor raising (a
@@ -505,7 +814,7 @@ def test_the_plain_version_does_not_trace_the_callback(name, monkeypatch):
 
 # --- the analyzer ------------------------------------------------------------
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + MATH_NAMES)
 def test_the_ledger_prices_each_pass_at_its_model(name):
     """On fake CUDA tensors: each K6 pass of the spec is one op whose
     bytes are its model (each field read and written once), live == fake
