@@ -22,6 +22,7 @@
     python3 chip_smoke.py --only dryrun            # phase 52 alone
     python3 chip_smoke.py --only nemotron          # phase 53 alone
     python3 chip_smoke.py --only spec_math         # phases 54, 44-46
+    python3 chip_smoke.py --only host_train        # phase 55 alone
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc/` with nvcc, then:
 
@@ -453,11 +454,40 @@ bit pattern and every bf16 one (one operand), every pair of bf16 patterns
 and 2^28 random f32 pairs with the special values' pairs (two): the same
 bits, or NaN for NaN.
 
+Phase 55 (last): training on every card of the host (`launch.ranks`,
+`train_loop` under a process group, the leaf-by-leaf checkpoint). 55a, on
+one card: `train_loop` on a (1, 1) `DeviceMesh` over a one-rank NCCL
+group, `qwen3-32b` at full width, 2 of 64 layers (30.4 GB of state),
+`flash`, remat, 4 steps of 8 x 128 straight, then 2 steps with a
+checkpoint at step 2 (leaf by leaf) and a resume to 4: losses, gradient
+norms and the final state by digest bitwise; the device peak during the
+save and the restore against the state plus its largest leaf; then
+`python -m repro_torch.launch.train --arch qwen3-32b --smoke --steps 3` as
+a child: exit 0, one log. 55b, with two or more cards: `python -m
+repro_torch.launch.train --arch falcon-mamba-7b --steps 6 --batch 8 --seq
+128 --ckpt-every 4` (whole: 84.1 GB of state, one NCCL rank a card) killed
+once step 4's checkpoint is published, the same command resumed to step 6,
+then `--ckpt-every 6` into a second directory straight: the two step-6
+archives equal bitwise and so the printed losses, each card's
+memory.used peak, the runs' seconds (checkpoints in memory, in a directory
+of this run's own under `/dev/shm`, the host's available memory checked
+first, removed at the phase's end); `qwen3-32b` at 16 of 64 layers
+(112.3 GB) through `train_loop` on (world, 1), 3 steps, losses finite and
+the same on every rank, each card's device peak; the elastic restart (f32,
+2 layers, written at step 2 on (world, 1)), resumed on (world / 2, 2) at
+tp = 2 and on one card, each within 2e-5 of the straight run's losses and
+gradient norms. With one card 55b prints "host_train across cards:
+skipped, 1 card visible".
+
 Each phase prints its seconds.
 
 `--only chunking`, `--only dryrun` and `--only nemotron` run phases 51, 52
 (drawing `qwen2.5-14b` first) and 53 alone; their kernels lines hold K2 on
 the chunked path and K8 at D 192.
+
+`--only host_train` runs phase 55 alone, without building the kernels
+(its kernels line is empty: training launches none); on four cards it
+runs 55b after 55a, and `--only host_train_cards` runs 55b alone.
 
 `--only sharding` runs phase 50 alone (its kernels line holds K8 with the
 sharded prefill's launches); on four cards it is the call that runs 50b.
@@ -518,14 +548,18 @@ without that last line, as does a machine without a CUDA device.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import zipfile
 from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
@@ -7952,6 +7986,523 @@ def probe_node_phase(check: Checks, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 55: training on every card of the host
+# ---------------------------------------------------------------------------
+
+HOST_TRAIN_DEPTH = 2         # of 64 qwen3-32b layers: 30.4 GB of state
+HOST_TRAIN_STEPS = 4
+HOST_TRAIN_AT = 2            # 55a's checkpoint, the resume's first step
+HOST_TRAIN_DIR = ROOT / "build" / "host_train"   # logs and readings
+# the checkpoints: in memory (a call may write 45 GiB to the machine's
+# disk; one 84 GB archive is more), in a directory of the run's own there
+HOST_CKPT_PARENT = Path("/dev/shm")
+HOST_SSM_STEPS, HOST_SSM_KILL = 6, 4   # 55b's command line runs
+HOST_QWEN_DEPTH = 16         # 55b: 112.3 GB of state over the cards
+HOST_QWEN_STEPS = 3
+# 55b's host memory: two whole falcon-mamba-7b archives at once and the
+# writing rank's host copy of the state, beside the ranks themselves
+HOST_MEM_GB = 3 * 84.1 + 16
+HOST_ROOM = 1.01             # an archive's bytes over its state's (headers)
+HOST_CLI_TIMEOUT = 1800      # seconds a command line run may take
+HOST_ELASTIC_TOL = 2e-5      # relative: 50b's gate (the reference's f32)
+
+
+def state_bytes(cfg, tp: int = 1) -> tuple:
+    """(bytes of the whole train state, bytes of its largest leaf), from
+    `state_specs`."""
+    sizes = [int(np.prod(s.shape)) * torch.empty((), dtype=PS.torch_dtype(
+        s.dtype)).element_size() for s in leaves(TS.state_specs(
+            cfg, M.make_layout(cfg, tp)))]
+    return sum(sizes), max(sizes)
+
+
+@contextlib.contextmanager
+def ckpt_probe():
+    """Each `AsyncCheckpointer.save` (its gathers and host copy) and
+    `restore_placed` in this process, recorded: seconds, the device memory
+    allocated before, and the device peak during it. The archive a restore
+    read is deleted once read (the checkpoints live in memory)."""
+    rec = []
+    save, restore = CKPT.AsyncCheckpointer.save, CKPT.restore_placed
+
+    def probed(fn, what):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            rec.append({"what": what, "s": time.perf_counter() - t0,
+                        "base": base,
+                        "peak": torch.cuda.max_memory_allocated()})
+            if what == "restore":
+                shutil.rmtree(Path(a[0]) / f"step_{out[1]:09d}")
+            return out
+        return call
+    CKPT.AsyncCheckpointer.save = probed(save, "save")
+    CKPT.restore_placed = probed(restore, "restore")
+    try:
+        yield rec
+    finally:
+        CKPT.AsyncCheckpointer.save, CKPT.restore_placed = save, restore
+
+
+def drop_state() -> None:
+    """Free the device memory of a state the caller dropped: the cyclic
+    collector first (torch's first DTensor call in a process imports
+    `torch._dynamo`, whose `torch.fx.wrap` keeps the calling frames, and
+    with them the first `train_loop`'s state, in a reference cycle), then
+    the caching allocator's blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def host_cfg(depth: int, **kw):
+    return get_config(TRAIN_ARCH).replace(n_layers=depth,
+                                          attention_impl="flash",
+                                          remat="full", **kw)
+
+
+def host_train_one_phase(check: Checks, card: str, ckpt_root: Path) -> None:
+    """55a, on one card: `train_loop` on a (1, 1) `DeviceMesh` over a
+    one-rank NCCL group, qwen3-32b at full width, 2 of 64 layers, `flash`,
+    remat, 4 steps of 8 x 128 straight; then 2 steps with a checkpoint at
+    step 2 (leaf by leaf) and a resume to step 4: losses, gradient norms
+    and the final state (by digest) bitwise; the device peak during the
+    save and the restore against the state plus its largest leaf; then
+    `python -m repro_torch.launch.train --arch qwen3-32b --smoke --steps
+    3` as a child: exit 0, one log. Checkpoints under `ckpt_root`."""
+    import torch.distributed as dist
+    mesh = one_card_mesh()
+    cfg = host_cfg(HOST_TRAIN_DEPTH)
+    whole, largest = state_bytes(cfg)
+    opt = TO.OptConfig(peak_lr=TRAIN_LR, warmup_steps=1,
+                       total_steps=HOST_TRAIN_STEPS)
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, opt=opt, log_every=1,
+              seed=0, device="cuda", mesh=mesh)
+    d = ckpt_root / "one_card"
+    tag = (f"55a {cfg.name} ({HOST_TRAIN_DEPTH} L, {whole / 1e9:.2f} GB of "
+           f"state, largest leaf {largest / 1e9:.2f} GB) on a (1, 1) "
+           f"DeviceMesh, {HOST_TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+           f"{TRAIN_SEQ}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, hist, info = train_loop(cfg, steps=HOST_TRAIN_STEPS, **kw)
+    straight = (hist, info["grad_norm"], digest(PS.gather_tree(state)))
+    ms = [round(s * 1e3, 2) for s in info["step_s"]]
+    print(f"{tag}, straight: steps {ms} ms; losses {hist}; gradient norms "
+          f"{info['grad_norm']}; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {card}",
+          flush=True)
+    del state
+    drop_state()
+    try:
+        with ckpt_probe() as rec:
+            state, h1, i1 = train_loop(cfg, steps=HOST_TRAIN_AT, ckpt_dir=d,
+                                       ckpt_every=HOST_TRAIN_AT, **kw)
+            del state
+            drop_state()
+            state, h2, i2 = train_loop(cfg, steps=HOST_TRAIN_STEPS,
+                                       ckpt_dir=d,
+                                       ckpt_every=HOST_TRAIN_STEPS, **kw)
+        latest = CKPT.latest_step(d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    resumed = (h1 + h2, i1["grad_norm"] + i2["grad_norm"],
+               digest(PS.gather_tree(state)))
+    del state
+    drop_state()
+    check(straight == resumed and latest == HOST_TRAIN_STEPS
+          and all(math.isfinite(h) for h in hist),
+          f"{tag}: {HOST_TRAIN_AT} steps, a checkpoint leaf by leaf, a resume "
+          f"to {HOST_TRAIN_STEPS} == {HOST_TRAIN_STEPS} straight, bitwise "
+          f"(losses, gradient norms, the final state by digest of "
+          f"{len(straight[2])} slices)")
+    for r in rec:
+        print(f"{tag}: {r['what']} {r['s']:.2f} s, device "
+              f"{r['base'] / 1e9:.2f} GB before, peak "
+              f"{r['peak'] / 1e9:.2f} GB against the state "
+              f"plus its largest leaf {(whole + largest) / 1e9:.2f} GB; "
+              f"{card}", flush=True)
+    for c in i1["ckpt_s"] + i2["ckpt_s"]:
+        print(f"{tag}: checkpoint step {c['step']}: host copy "
+              f"{c['copy_s']:.2f} s, write {c.get('write_s', 0):.2f} s "
+              f"({whole / 1e9 / max(c.get('write_s', 0), 1e-9):.2f} GB/s) "
+              f"under {ckpt_root}; {card}", flush=True)
+    print(f"{tag}: the resume's restore {i2['restore_s']:.2f} s "
+          f"({whole / 1e9 / i2['restore_s']:.2f} GB/s); {card}", flush=True)
+    check(len(rec) == 3 and all(r["peak"] - r["base"] <= largest
+                                for r in rec if r["what"] == "save")
+          and all(r["peak"] <= whole + largest for r in rec)
+          and all(r["base"] < largest for r in rec
+                  if r["what"] == "restore"),
+          f"{tag}: the device peak during the save at most its state plus "
+          f"one whole leaf, during the restore at most the state plus its "
+          f"largest leaf, with less than one leaf allocated before it (no "
+          f"dropped state left)")
+    dist.destroy_process_group()
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         TRAIN_ARCH, "--smoke", "--steps", "3"], capture_output=True,
+        text=True, cwd=ROOT, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    print(f"55a `python -m repro_torch.launch.train --arch {TRAIN_ARCH} "
+          f"--smoke --steps 3` ({torch.cuda.device_count()} card(s)): exit "
+          f"{out.returncode} in {time.perf_counter() - t0:.1f} s; "
+          f"{out.stdout.strip().splitlines()[-1:]}", flush=True)
+    err = out.stderr.strip()[-2000:] if out.returncode else "ok"
+    check(out.returncode == 0 and out.stdout.count("[train] done") == 1,
+          f"55a the command line on {torch.cuda.device_count()} card(s): "
+          f"exit 0, one log ({err})")
+
+
+def mem_available() -> int:
+    """The host's available memory in bytes (`/proc/meminfo`)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    return 0
+
+
+def smi_memory() -> list:
+    """Each card's memory.used in MiB (the NVIDIA driver's view: every
+    process's context and PyTorch's cache included)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    return [int(x) for x in out.stdout.split()]
+
+
+def cli_run(args: list, log: Path, kill_at=None, drop=None) -> dict:
+    """`python -m repro_torch.launch.train` with `args`, its output into
+    `log`, each card's memory.used sampled while it runs. With `kill_at`
+    (a checkpoint directory and a step) the run is killed, every process it
+    started with it, once that step's checkpoint is published; `drop` (a
+    checkpoint's directory) is deleted once the run says it resumed (the
+    checkpoints live in memory). Returns the exit code, the wall seconds,
+    each card's peak MiB and the output."""
+    import signal
+    peaks = smi_memory()
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        p = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train"]
+                             + args, stdout=f, stderr=subprocess.STDOUT,
+                             text=True, cwd=ROOT, start_new_session=True,
+                             env=dict(os.environ, PYTHONUNBUFFERED="1",
+                                      PYTHONPATH=str(ROOT / "src")))
+        killed = False
+        while p.poll() is None:
+            peaks = [max(a, b) for a, b in zip(peaks, smi_memory())]
+            if kill_at is not None and CKPT.latest_step(kill_at[0]) == \
+                    kill_at[1]:
+                os.killpg(p.pid, signal.SIGKILL)
+                killed = True
+            if drop is not None and "[train] resumed" in log.read_text():
+                shutil.rmtree(drop, ignore_errors=True)
+                drop = None
+            if time.perf_counter() - t0 > HOST_CLI_TIMEOUT:
+                os.killpg(p.pid, signal.SIGKILL)
+            time.sleep(0.5)
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(p.pid, signal.SIGKILL)
+    return {"rc": p.returncode, "killed": killed,
+            "s": time.perf_counter() - t0, "peaks": peaks,
+            "out": log.read_text()}
+
+
+def log_lines(out: str, what: str) -> list:
+    return [ln for ln in out.splitlines() if ln.startswith(what)]
+
+
+def member_spans(path: Path) -> dict:
+    """{member: (offset of its bytes in the file, size, CRC)} of an
+    uncompressed zip archive (`np.savez`'s)."""
+    import struct
+    out = {}
+    with zipfile.ZipFile(path) as z, open(path, "rb") as f:
+        for info in z.infolist():
+            f.seek(info.header_offset)
+            head = f.read(30)          # the local header: its name, extra
+            n, m = struct.unpack("<HH", head[26:30])
+            out[info.filename] = (info.header_offset + 30 + n + m,
+                                  info.file_size, info.CRC)
+    return out
+
+
+def archives_equal(a: Path, b: Path, chunk: int = 1 << 26) -> tuple:
+    """(every member of the two archives equal, byte for byte and by its
+    CRC, members compared), the bytes read a chunk at a time."""
+    sa, sb = member_spans(a), member_spans(b)
+    if sa.keys() != sb.keys() or any(sa[k][1:] != sb[k][1:] for k in sa):
+        return False, len(sa)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        for k, (off, size, _) in sa.items():
+            fa.seek(off)
+            fb.seek(sb[k][0])
+            left = size
+            while left:
+                n = min(chunk, left)
+                if fa.read(n) != fb.read(n):
+                    return False, len(sa)
+                left -= n
+    return True, len(sa)
+
+
+def host_cli_phase(check: Checks, card: str, n: int,
+                   ckpt_root: Path) -> None:
+    """55b, the command line on every card: falcon-mamba-7b at full width
+    and depth, `--steps 6 --ckpt-every 4`, killed once step 4's checkpoint
+    is published (a node lost), the same command again (it resumes from
+    step 4 and writes step 6), then `--steps 6 --ckpt-every 6` into a
+    second directory, uninterrupted: the two step-6 archives equal member
+    for member, bitwise, and so the loss lines the runs print.
+    Checkpoints under `ckpt_root`."""
+    cfg = get_config(SSM_ARCH)
+    whole, largest = state_bytes(cfg)
+    HOST_TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    d, d2 = ckpt_root / "ssm", ckpt_root / "ssm_straight"
+    free = mem_available()
+    room = shutil.disk_usage(ckpt_root).free
+    tag = (f"55b {cfg.name} whole ({whole / 1e9:.2f} GB of state, largest "
+           f"leaf {largest / 1e9:.2f} GB) on {n} cards, the command line")
+    print(f"{tag}: checkpoints under {ckpt_root} (in memory, "
+          f"{room / 1e9:.1f} GB free there for two archives of "
+          f"{whole / 1e9:.1f}), {free / 1e9:.1f} GB of host memory "
+          f"available (two archives and a host copy need "
+          f"{HOST_MEM_GB:.1f})", flush=True)
+    enough = free >= HOST_MEM_GB * 1e9 and room >= 2 * whole * HOST_ROOM
+    check(enough, f"{tag}: host memory and room under {ckpt_root} for two "
+          f"archives and a host copy")
+    if not enough:
+        return
+    try:
+        cli_runs(check, card, tag, d, d2)
+    finally:
+        for x in (d, d2):
+            shutil.rmtree(x, ignore_errors=True)
+
+
+def cli_runs(check: Checks, card: str, tag: str, d: Path, d2: Path) -> None:
+    """55b's three command line runs into `d` and `d2`, and their checks
+    (`host_cli_phase`)."""
+    base = ["--arch", SSM_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--steps", str(HOST_SSM_STEPS)]
+    drop_state()
+    runs = {}
+    for name, args, kill, drop in (
+            ("killed", ["--ckpt-dir", str(d), "--ckpt-every",
+                        str(HOST_SSM_KILL)], (d, HOST_SSM_KILL), None),
+            ("resumed", ["--ckpt-dir", str(d), "--ckpt-every",
+                         str(HOST_SSM_KILL)], None,
+             d / f"step_{HOST_SSM_KILL:09d}"),
+            ("straight", ["--ckpt-dir", str(d2), "--ckpt-every",
+                          str(HOST_SSM_STEPS)], None, None)):
+        r = cli_run(base + args, HOST_TRAIN_DIR / f"{name}.log", kill, drop)
+        runs[name] = r
+        lines = [ln for what in ("step", "resumed", "checkpoint", "done")
+                 for ln in log_lines(r["out"], f"[train] {what}")]
+        print(f"{tag}, {name}: exit {r['rc']}"
+              f"{' (killed)' if r['killed'] else ''} in {r['s']:.1f} s; "
+              f"memory.used peak a card "
+              f"{[round(p / 1024, 2) for p in r['peaks']]} GiB; {lines}; "
+              f"{card}", flush=True)
+        for x in d.glob(".tmp_*"):       # the killed run's partial write
+            shutil.rmtree(x, ignore_errors=True)
+    k, r, s = runs["killed"], runs["resumed"], runs["straight"]
+    ok_runs = (k["killed"] and r["rc"] == 0 and s["rc"] == 0
+               and log_lines(r["out"], "[train] resumed from step "
+                             f"{HOST_SSM_KILL} ")
+               and r["out"].count("[train] done") == 1
+               and s["out"].count("[train] done") == 1)
+    check(bool(ok_runs), f"{tag}: the run killed after step "
+          f"{HOST_SSM_KILL}'s checkpoint, the resume and the straight run "
+          f"each one run (exit 0, one log)")
+    last = f"[train] step {HOST_SSM_STEPS - 1:5d}"
+    first = f"[train] step {0:5d}"
+    strip = lambda ls: [ln.split(" (")[0] for ln in ls]   # noqa: E731
+    check(ok_runs and strip(log_lines(r["out"], last))
+          == strip(log_lines(s["out"], last)) != []
+          and strip(log_lines(k["out"], first))
+          == strip(log_lines(s["out"], first)) != [],
+          f"{tag}: the losses printed equal (step 0: killed vs straight; "
+          f"step {HOST_SSM_STEPS - 1}: resumed vs straight)")
+    t0 = time.perf_counter()
+    name = f"step_{HOST_SSM_STEPS:09d}"
+    same_archive, members = (archives_equal(d / name / "arrays.npz",
+                                            d2 / name / "arrays.npz")
+                             if ok_runs else (False, 0))
+    print(f"{tag}: the two step-{HOST_SSM_STEPS} archives compared in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(same_archive and members > 0,
+          f"{tag}: the resumed run's step-{HOST_SSM_STEPS} archive == the "
+          f"straight run's, member for member, bitwise ({members} leaves)")
+
+
+def host_cards_rank(out_dir: str, ckpt_root: str) -> None:
+    """55b, on each rank (`ranks.launch`): qwen3-32b at 16 of 64 layers
+    through `train_loop` on the host mesh (world, 1), 3 steps; then the
+    elastic restart in f32 compute: 2 layers, 4 steps straight on (world,
+    1), 2 steps with a checkpoint, its resume on (world / 2, 2) at tp = 2
+    and on one card (rank 0, no group), its checkpoints under
+    `ckpt_root`. Writes its readings to `out_dir/rank<r>.json`."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as TMESH
+    from repro_torch.launch import ranks as RK
+    rank = dist.get_rank()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank, "card": torch.cuda.current_device()}
+    try:
+        mesh = TMESH.make_host_mesh(device="cuda")
+        out["mesh"] = list(mesh.shape)
+        cfg = host_cfg(HOST_QWEN_DEPTH)
+        torch.cuda.reset_peak_memory_stats()
+        state, hist, info = train_loop(
+            cfg, steps=HOST_QWEN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            log_every=1, seed=0, device="cuda", mesh=mesh,
+            opt=TO.OptConfig(peak_lr=TRAIN_LR, warmup_steps=1,
+                             total_steps=HOST_QWEN_STEPS))
+        out["qwen"] = {"losses": hist, "norms": info["grad_norm"],
+                       "step_s": info["step_s"],
+                       "local_gb": sum(t.to_local().numel() * t.element_size()
+                                       for t in leaves(state)) / 1e9,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del state
+        drop_state()
+        cfg = host_cfg(HOST_TRAIN_DEPTH, compute_dtype="float32")
+        kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=0, seed=0,
+                  device="cuda", opt=TO.OptConfig(
+                      peak_lr=TRAIN_LR, warmup_steps=1,
+                      total_steps=HOST_TRAIN_STEPS))
+        e = Path(ckpt_root) / "elastic"
+
+        def losses(steps, m, **ck):
+            """The run's losses and gradient norms, its state freed."""
+            _, h, i = train_loop(cfg, steps=steps, mesh=m, **ck, **kw)
+            drop_state()
+            return h, i["grad_norm"]
+        runs = {"straight": losses(HOST_TRAIN_STEPS, mesh),
+                "written": losses(HOST_TRAIN_AT, mesh, ckpt_dir=e,
+                                  ckpt_every=HOST_TRAIN_AT)}
+        mesh22 = TMESH.make_host_mesh(model=2, device="cuda")
+        out["tp2_mesh"] = list(mesh22.shape)
+        runs["tp2"] = losses(HOST_TRAIN_STEPS, mesh22, ckpt_dir=e,
+                             ckpt_every=HOST_TRAIN_STEPS)
+        if rank == 0:   # back to step 2, then one card with no mesh
+            shutil.rmtree(e / f"step_{HOST_TRAIN_STEPS:09d}")
+            one = TMESH.HostMesh({"data": 1, "model": 1},
+                                 (torch.device("cuda", 0),))
+            runs["one card"] = losses(HOST_TRAIN_STEPS, one, ckpt_dir=e,
+                                      ckpt_every=HOST_TRAIN_STEPS)
+            shutil.rmtree(e, ignore_errors=True)
+        RK.barrier()
+        out["elastic"] = runs
+    finally:
+        if rank == 0:
+            shutil.rmtree(Path(ckpt_root) / "elastic", ignore_errors=True)
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def host_cards_phase(check: Checks, card: str, n: int,
+                     ckpt_root: Path) -> None:
+    """55b through `train_loop` on one NCCL rank a card
+    (`launch.ranks.launch`, `host_cards_rank`): qwen3-32b at 16 layers on
+    (n, 1), losses finite and the same on every rank, each card's device
+    peak; the elastic restart: each resume's losses and gradient norms
+    within `HOST_ELASTIC_TOL` of the straight (n, 1) run's."""
+    from repro_torch.launch import ranks as RK
+    out_dir = HOST_TRAIN_DIR / "ranks"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    drop_state()
+    t0 = time.perf_counter()
+    try:
+        RK.launch(host_cards_rank, (str(out_dir), str(ckpt_root)),
+                  device="cuda")
+        failed = ""
+    except Exception as e:      # a rank raised: its traceback is in e
+        failed = f"{type(e).__name__}: {e}"[-3000:]
+    print(f"55b: {n} ranks in {time.perf_counter() - t0:.1f} s", flush=True)
+    check(not failed, f"55b: every one of {n} ranks ran to its end"
+          f"{' (' + failed + ')' if failed else ''}")
+    outs = [json.loads(p.read_text()) for p in sorted(out_dir.glob("*.json"))]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if failed or len(outs) != n:
+        return
+    qcfg = host_cfg(HOST_QWEN_DEPTH)
+    whole, largest = state_bytes(qcfg)
+    tag = (f"55b {qcfg.name} ({HOST_QWEN_DEPTH} L, {whole / 1e9:.2f} GB of "
+           f"state, largest leaf {largest / 1e9:.2f} GB) through train_loop "
+           f"on mesh {outs[0]['mesh']}, {HOST_QWEN_STEPS} steps of "
+           f"{TRAIN_BATCH} x {TRAIN_SEQ}")
+    for o in outs:
+        q = o["qwen"]
+        print(f"{tag}, rank {o['rank']} (card {o['card']}): losses "
+              f"{q['losses']}; gradient norms {q['norms']}; steps "
+              f"{[round(s * 1e3, 2) for s in q['step_s']]} ms; own blocks "
+              f"{q['local_gb']:.2f} GB, device peak {q['peak_gb']:.2f} GB; "
+              f"{card}", flush=True)
+    q0 = outs[0]["qwen"]
+    check(len(q0["losses"]) == HOST_QWEN_STEPS
+          and all(math.isfinite(x) for x in q0["losses"])
+          and all(o["qwen"]["losses"] == q0["losses"] for o in outs)
+          and all(o["qwen"]["peak_gb"] < 80 for o in outs),
+          f"{tag}: losses finite and the same on every rank, every card's "
+          f"peak below 80 GB")
+    runs = outs[0]["elastic"]
+    straight = runs["straight"]
+    etag = (f"55b elastic restart, {TRAIN_ARCH} ({HOST_TRAIN_DEPTH} L) f32, "
+            f"written at step {HOST_TRAIN_AT} on {outs[0]['mesh']}")
+    worst = 0.0
+    for name in ("tp2", "one card"):
+        h, g = runs[name]
+        want_h = straight[0][HOST_TRAIN_AT:]
+        want_g = straight[1][HOST_TRAIN_AT:]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(h + g, want_h + want_g))
+        worst = max(worst, rel)
+        where = (f"mesh {outs[0]['tp2_mesh']} at tp = 2" if name == "tp2"
+                 else "one card, no group")
+        print(f"{etag}, resumed on {where}: losses {h}, gradient norms {g}; "
+              f"straight {want_h}, {want_g}; worst relative {rel:.3e}; "
+              f"{card}", flush=True)
+        check(len(h) == HOST_TRAIN_STEPS - HOST_TRAIN_AT
+              and rel <= HOST_ELASTIC_TOL,
+              f"{etag}, resumed on {where} to step {HOST_TRAIN_STEPS}: "
+              f"losses and gradient norms within {HOST_ELASTIC_TOL} of the "
+              f"straight run's ({rel:.3e})")
+    check(runs["written"][0] == straight[0][:HOST_TRAIN_AT]
+          and all(o["elastic"]["straight"] == straight for o in outs),
+          f"{etag}: the run that wrote it == the straight run's first "
+          f"{HOST_TRAIN_AT} steps, bitwise; every rank the same")
+
+
+def host_train_phases(check: Checks, card: str,
+                      one_card: bool = True) -> None:
+    """Phase 55: 55a on one card (where `one_card`), then 55b across the
+    cards, their checkpoints in a directory of this run's own, removed at
+    the end."""
+    root = Path(tempfile.mkdtemp(prefix="repro_torch_host_train_",
+                                 dir=HOST_CKPT_PARENT))
+    try:
+        if one_card:
+            phase("55a train on one card", host_train_one_phase, check,
+                  card, root)
+        n = torch.cuda.device_count()
+        if n < 2:
+            print("host_train across cards: skipped, 1 card visible",
+                  flush=True)
+            return
+        phase("55b the command line on every card", host_cli_phase, check,
+              card, n, root)
+        phase("55b train_loop on every card", host_cards_phase, check, card,
+              n, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase(label: str, fn, *args, **kw):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -7970,11 +8521,15 @@ def main() -> int:
                                      ["spec_codegen"], ["bf16_round"],
                                      ["bf16_times"], ["sharding"],
                                      ["chunking"], ["dryrun"],
-                                     ["nemotron"], ["spec_math"]):
+                                     ["nemotron"], ["spec_math"],
+                                     ["host_train"],
+                                     ["host_train_cards"]):
         print("usage: chip_smoke.py [--only distributed|ladder|k6|k8|k9|"
               "stencil_serving|distributed_spec|recovery|families|train|"
               "analysis|bf16|spec_codegen|bf16_round|bf16_times|sharding|"
-              "chunking|dryrun|nemotron|spec_math]", file=sys.stderr)
+              "chunking|dryrun|nemotron|spec_math|host_train|"
+              "host_train_cards]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -7989,10 +8544,13 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
+    check = Checks()
+    if only in (["host_train"], ["host_train_cards"]):   # no hand kernel
+        host_train_phases(check, card, one_card=only == ["host_train"])
+        return finish(check, [], card, t0)
     _build.load()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s", flush=True)
     print(_build.build_log().strip(), flush=True)
-    check = Checks()
     if only == ["ladder"]:
         return ladder_compare(card)
     if only == ["k6"]:
@@ -8120,6 +8678,7 @@ def main() -> int:
     records += families_phases(check, card)
     training_phases(check, card)
     records += sharding_phases(check, card)
+    host_train_phases(check, card)
     return finish(check, records, card, t0)
 
 

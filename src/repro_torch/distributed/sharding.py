@@ -354,11 +354,18 @@ def vocab_offset(n: int, mesh, dims: Sequence[int]) -> int:
 def place(x: torch.Tensor, sharding: NamedSharding):
     """A DTensor of the plain tensor `x` (the same on every rank) placed
     by `sharding`: each rank keeps only its own block, moved to the mesh's
-    device type, so no rank holds a second full-size copy on the card."""
+    device type, so no rank holds a second full-size copy on the card.
+    A block that is a part of `x` is a copy of its own (a view would keep
+    the whole of `x` alive)."""
     from torch.distributed.tensor import DTensor
     mesh = sharding.mesh
     blk = local_block(x.shape, sharding.spec, mesh, mesh.get_coordinate())
-    local = x[blk].to(_mesh_device(mesh)).contiguous()
+    local = x[blk].to(_mesh_device(mesh))
+    if local.numel() < x.numel() and local.untyped_storage().data_ptr() \
+            == x.untyped_storage().data_ptr():
+        local = local.clone(memory_format=torch.contiguous_format)
+    else:
+        local = local.contiguous()
     return DTensor.from_local(local, mesh, sharding.placements,
                               run_check=False, shape=x.shape,
                               stride=_contiguous_stride(x.shape))

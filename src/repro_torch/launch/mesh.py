@@ -149,7 +149,10 @@ def make_host_mesh(*, model: int = 1, device: str = "cuda"):
     of shape (world // model, model) named ("data", "model") on devices of
     type `device`, each rank on its own card (rank % the cards visible,
     made the current device). Raises ValueError where `model` does not
-    divide the world size.
+    divide the world size. The group is the caller's to start:
+    `launch.ranks.launch` starts one rank a card (or joins `torchrun`'s),
+    as `python -m repro_torch.launch.train` does, so that the default
+    (model=1) is the reference's host mesh (n, 1) over every card.
 
     Without a process group, one device of type `device` (card 0 for
     "cuda") as the (1, 1) `HostMesh`; a model axis wider than 1 then

@@ -4,28 +4,43 @@ Config registry -> host mesh -> train step -> prefetching data pipeline
 -> checkpoint and auto-resume -> NaN guard:
 
     python -m repro_torch.launch.train --arch qwen3-32b --smoke --device cpu
-    python -m repro_torch.launch.train --arch qwen3-32b --smoke --steps 50
+    python -m repro_torch.launch.train --arch falcon-mamba-7b --steps 50
 
-It runs on `cuda` unless `--device cpu` is given, and raises where CUDA is
-asked for and no card is visible. At full width `qwen3-32b` needs about
-131 GB of f32 params alone: one 80 GB card trains it cut in depth
-(`chip_smoke.py` phase 29, 4 of 64 layers).
+It trains on every card of the host, as the reference trains on every
+chip: with k >= 2 cards visible the command starts one NCCL rank a card
+(`launch.ranks`), and `train_loop` takes the host mesh (k, 1) over
+("data", "model"), the reference's (n, 1). The other way in is
+`torchrun`, one rank a card, each joining the group from its variables:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --steps 50
+
+With one card, or with `--device cpu`, it runs in one process with no
+group. It runs on `cuda` unless `--device cpu` is given, and raises where
+CUDA is asked for and no card is visible. At full width `qwen3-32b` needs
+about 131 GB of f32 params alone: one 80 GB card trains it cut in depth
+(`chip_smoke.py` phase 29, 4 of 64 layers); `falcon-mamba-7b`'s 84.1 GB
+of train state trains whole on four (phase 55b).
 
 `train_loop(mesh=...)` given a `DeviceMesh` (`launch.mesh.make_host_mesh`
 under an initialised process group, one rank a card) trains sharded, as
 the reference does under its mesh: the rules are `make_rules(multi_pod=
 "pod" in the mesh)`, the state is drawn leaf by leaf and placed by them,
 and every rank feeds the same batch, which the step splits over "data".
-Rank 0 writes the checkpoints (the state gathered whole).
+Checkpoints go leaf by leaf (`training.checkpoint`): every rank gathers
+each leaf in turn, rank 0 copies it to the host and writes the archive;
+a resume reads each leaf on every rank and keeps the rank's block. Rank
+0 alone prints; every rank returns the same history.
 
 Fault tolerance, as in the reference:
-  * auto-resume from the LATEST checkpoint,
+  * auto-resume from the LATEST checkpoint (under a group, the step rank
+    0 reads, broadcast),
   * deterministic per-step data (seeded), so a resumed run consumes exactly
     the batches it would have seen,
   * the NaN guard: a step whose loss or gradient norm is not finite leaves
     the state unchanged and is counted as skipped,
   * asynchronous checkpoints (`AsyncCheckpointer`): the host copy is taken
-    at the call, the serialisation overlaps the next steps.
+    at the call, the serialisation overlaps the next steps; the run
+    returns once the last write is done, on every rank.
 """
 from __future__ import annotations
 
@@ -34,6 +49,7 @@ import time
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import pspec
 from repro_torch.config import RunShape
@@ -41,6 +57,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import Prefetcher, synth_batch, to_device
 from repro_torch.distributed.sharding import (axis_sizes, is_device_mesh,
                                               make_rules)
+from repro_torch.launch import ranks
 from repro_torch.launch.mesh import make_host_mesh, tp_degree
 from repro_torch.models import model as M
 from repro_torch.training import checkpoint as CKPT
@@ -65,8 +82,11 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, ckpt_dir=None,
     info["skipped"] counts the steps the NaN guard skipped, info["step_s"]
     holds each step's wall seconds (the step and the read of its loss,
     which waits for the device), info["grad_norm"] each good step's
-    gradient norm. `inject_nan_at` poisons that step's batch (its float
-    inputs times NaN; a batch of tokens only, the step's loss). Under a
+    gradient norm, info["restore_s"] the resume's seconds (None without
+    one), info["ckpt_s"] each checkpoint's step and seconds
+    (`AsyncCheckpointer.seconds`). `inject_nan_at` poisons that step's
+    batch (its float inputs times NaN; a batch of tokens only, the step's
+    loss). Under a
     `DeviceMesh` the state comes back as DTensors (`pspec.gather_tree`
     makes it plain)."""
     mesh = mesh or make_host_mesh(device=device)
@@ -83,27 +103,37 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, ckpt_dir=None,
     layout = M.make_layout(cfg, tp_degree(mesh))
     opt = opt or O.OptConfig(peak_lr=3e-3, warmup_steps=20, total_steps=steps)
 
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    if sharded:
-        state = TS.init_sharded_state(cfg, layout, gen, rules, mesh)
-    else:
-        state = TS.init_state(cfg, layout, gen)
     writer = not sharded or mesh.get_rank() == 0
-    start_step = 0
-    ckpt = None
+    say = print if writer else _silent
+    start_step, state, ckpt, restore_s = 0, None, None, None
     if ckpt_dir is not None:
-        ckpt = CKPT.AsyncCheckpointer(ckpt_dir) if writer else None
-        if resume and CKPT.latest_step(ckpt_dir) is not None:
+        ckpt = CKPT.AsyncCheckpointer(ckpt_dir, writer=writer)
+        latest = CKPT.latest_step(ckpt_dir) if resume and writer else None
+        if sharded:   # every rank resumes from the step rank 0 found
+            latest = ranks.broadcast(latest)
+        t_restore = time.perf_counter()
+        if latest is not None and sharded:
+            state, start_step = CKPT.restore_placed(
+                ckpt_dir, TS.state_specs(cfg, layout), rules, mesh,
+                step=latest, cfg=cfg, layout=layout)
+        elif latest is not None:
+            state = TS.init_state(cfg, layout, torch.Generator(
+                device=dev).manual_seed(seed))
             restored, start_step = CKPT.restore(
-                ckpt_dir, pspec.gather_tree(state) if sharded else state,
-                cfg=cfg, layout=layout)
+                ckpt_dir, state, step=latest, cfg=cfg, layout=layout)
             restored = pspec.tree_map(torch.as_tensor, restored,
                                       is_leaf=lambda a: hasattr(a, "dtype"))
-            if sharded:
-                restored = TS.place_state(restored, cfg, layout, rules, mesh)
-            pspec.tree_map(_copy_into, state, restored,
+            pspec.tree_map(torch.Tensor.copy_, state, restored,
                            is_leaf=torch.is_tensor)
-            print(f"[train] resumed from step {start_step}")
+            del restored
+        if latest is not None:
+            restore_s = time.perf_counter() - t_restore
+            say(f"[train] resumed from step {start_step} (restored in "
+                f"{restore_s:.2f} s)")
+    if state is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        state = (TS.init_sharded_state(cfg, layout, gen, rules, mesh)
+                 if sharded else TS.init_state(cfg, layout, gen))
 
     shape = RunShape("adhoc", "train", seq, batch)
     step_fn = TS.make_train_step(cfg, layout, rules, mesh, opt=opt)
@@ -129,35 +159,35 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, ckpt_dir=None,
             step_s.append(time.perf_counter() - t_step)
             if not bool(metrics["good"]):
                 skipped += 1
-                print(f"[train] step {i}: non-finite loss, update skipped "
-                      f"in-graph")
+                say(f"[train] step {i}: non-finite loss, update skipped "
+                    f"in-graph")
                 continue
             history.append(loss)
             norms.append(float(metrics["grad_norm"]))
             if log_every and (i % log_every == 0 or i == steps - 1):
                 dt = time.time() - t0
-                print(f"[train] step {i:5d} loss {loss:8.4f} "
-                      f"gnorm {float(metrics['grad_norm']):7.3f} "
-                      f"lr {float(metrics['lr']):.2e} ({dt:.1f}s)")
-            if ckpt_dir is not None and ((i + 1) % ckpt_every == 0
-                                         or i == steps - 1):
-                whole = pspec.gather_tree(state) if sharded else state
-                if ckpt is not None:
-                    ckpt.save(whole, i + 1, cfg=cfg, layout=layout)
-                del whole
+                say(f"[train] step {i:5d} loss {loss:8.4f} "
+                    f"gnorm {float(metrics['grad_norm']):7.3f} "
+                    f"lr {float(metrics['lr']):.2e} ({dt:.1f}s)")
+            if ckpt is not None and ((i + 1) % ckpt_every == 0
+                                     or i == steps - 1):
+                ckpt.save(state, i + 1, cfg=cfg, layout=layout)
     finally:
         pf.close()
         if ckpt is not None:
             ckpt.wait()
+    if sharded and ckpt is not None:   # no rank returns before LATEST
+        ranks.barrier()
+    for rec in ckpt.seconds if ckpt is not None and log_every else ():
+        say(f"[train] checkpoint step {rec['step']}: host copy "
+            f"{rec['copy_s']:.2f} s, write {rec.get('write_s', 0.0):.2f} s")
     return state, history, {"skipped": skipped, "step_s": step_s,
-                            "grad_norm": norms}
+                            "grad_norm": norms, "restore_s": restore_s,
+                            "ckpt_s": ckpt.seconds if ckpt else []}
 
 
-def _copy_into(dst, src):
-    """Copy `src` into `dst` in place (each rank's own shard of DTensors)."""
-    if hasattr(dst, "to_local"):
-        dst, src = dst.to_local(), src.to_local()
-    dst.copy_(src)
+def _silent(*_args, **_kw) -> None:
+    """`print` on the ranks that do not log."""
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -175,15 +205,21 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    ranks.launch(_run, (args,), device=args.device)
+
+
+def _run(args) -> None:
+    """The command's run on one rank (every rank under a group)."""
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     opt = O.OptConfig(peak_lr=args.lr, warmup_steps=min(20, args.steps // 5),
                       total_steps=args.steps)
-    state, history, info = train_loop(
+    _, history, info = train_loop(
         cfg, steps=args.steps, batch=args.batch, seq=args.seq,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, opt=opt,
         resume=not args.no_resume, device=args.device)
-    print(f"[train] done: first loss {history[0]:.4f} -> last "
-          f"{history[-1]:.4f} ({info['skipped']} skipped)")
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(f"[train] done: first loss {history[0]:.4f} -> last "
+              f"{history[-1]:.4f} ({info['skipped']} skipped)")
 
 
 if __name__ == "__main__":

@@ -5,21 +5,20 @@ Checkpoints store the logical (tp = 1) layout; on restore the params are
 re-laid-out for the run's TP degree. Dead padded heads are zero-filled
 and masked at run time, so the relayout preserves the model's function.
 The functions take trees of tensors (the model's params) or of numpy
-arrays (a checkpoint on the host) and return the same kind; DTensor
-leaves (params placed on a mesh) are gathered whole first
-(`pspec.gather_tree`).
+arrays (a checkpoint on the host) and return the same kind, leaf by leaf:
+each leaf's map depends only on its key and on whether its dict is an
+attention dict (`leaf_maps`), so a checkpoint maps one leaf at a time. A
+DTensor leaf (params placed on a mesh) is gathered whole first, one leaf
+at a time (`sharding.gather`).
 """
 from __future__ import annotations
-
-from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from repro_torch.config import ArchConfig
-from repro_torch.distributed.sharding import HeadLayout
+from repro_torch.distributed.sharding import HeadLayout, gather
 from repro_torch.models.model import padded_vocab
-from repro_torch.pspec import gather_tree
 
 # key -> (head axis, unstacked ndim); stacked layers shift axes by +1
 _Q_KEYS = {"wq": (1, 3), "bq": (0, 2)}
@@ -49,52 +48,8 @@ def _gather_pad(arr, idx: np.ndarray, live: np.ndarray, axis: int):
     return out * mask.astype(out.dtype)
 
 
-def _attn_to_logical(p: Dict[str, Any], lo: HeadLayout) -> Dict[str, Any]:
-    """Stored layout -> logical (tp=1, unpadded) layout."""
-    qmask = lo.q_head_mask().astype(bool)
-    qidx = lo.q_gather_index()
-    # inverse permutation: logical head h lives at stored slot inv[h]
-    inv = np.zeros((lo.n_q,), np.int64)
-    for stored, logical in enumerate(qidx):
-        if qmask[stored]:
-            inv[logical] = stored
-    kv_first = np.arange(lo.n_kv) * lo.kv_repeat  # first stored copy
-    out = dict(p)
-    for keys, idx in ((_Q_KEYS, inv), (_KV_KEYS, kv_first), (_O_KEYS, inv)):
-        for k, ax in keys.items():
-            if k in p:
-                out[k] = _take(p[k], idx, _ax(p[k], ax))
-    return out
-
-
-def _attn_from_logical(p: Dict[str, Any], lo: HeadLayout) -> Dict[str, Any]:
-    """Logical layout -> stored layout for `lo` (pad / replicate)."""
-    qidx, qlive = lo.q_gather_index(), lo.q_head_mask().astype(bool)
-    kidx = lo.kv_gather_index()
-    klive = np.ones((lo.n_kv_stored,), bool)
-    if lo.n_kv_dead:
-        klive[-lo.n_kv_dead:] = False
-    out = dict(p)
-    for keys, idx, live in ((_Q_KEYS, qidx, qlive), (_KV_KEYS, kidx, klive),
-                            (_O_KEYS, qidx, qlive)):
-        for k, ax in keys.items():
-            if k in p:
-                out[k] = _gather_pad(p[k], idx, live, _ax(p[k], ax))
-    return out
-
-
 def _is_attn(d) -> bool:
     return isinstance(d, dict) and "wq" in d and "wo" in d
-
-
-def _map_attn(tree, fn):
-    if _is_attn(tree):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: _map_attn(v, fn) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map_attn(v, fn) for v in tree]
-    return tree
 
 
 def _resize(arr, axis: int, n: int):
@@ -109,27 +64,91 @@ def _resize(arr, axis: int, n: int):
     return np.concatenate([arr, np.zeros(shape, arr.dtype)], axis=axis)
 
 
-def _resize_vocab(params, vocab: int):
-    out = dict(params)
-    if "tok_embed" in out:
-        out["tok_embed"] = _resize(out["tok_embed"], 0, vocab)
-    if "lm_head" in out:
-        out["lm_head"] = _resize(out["lm_head"], 1, vocab)
-    return out
+_VOCAB_AXES = {"tok_embed": 0, "lm_head": 1}
+
+
+def _attn_leaf(key: str, lo: HeadLayout, logical: bool):
+    """The map of one attention leaf (`key` of an attention dict) between
+    the stored layout for `lo` and the logical one, or None where `key`
+    has no head axis. The keys are independent: each takes its own head
+    index along its own axis."""
+    for keys, kind in ((_Q_KEYS, "q"), (_KV_KEYS, "kv"), (_O_KEYS, "q")):
+        if key in keys:
+            ax_nd = keys[key]
+            break
+    else:
+        return None
+    if logical:
+        if kind == "kv":
+            idx = np.arange(lo.n_kv) * lo.kv_repeat   # first stored copy
+        else:
+            # inverse permutation: logical head h lives at stored slot inv[h]
+            qmask = lo.q_head_mask().astype(bool)
+            idx = np.zeros((lo.n_q,), np.int64)
+            for stored, logical_h in enumerate(lo.q_gather_index()):
+                if qmask[stored]:
+                    idx[logical_h] = stored
+        return lambda a: _take(a, idx, _ax(a, ax_nd))
+    if kind == "kv":
+        idx = lo.kv_gather_index()
+        live = np.ones((lo.n_kv_stored,), bool)
+        if lo.n_kv_dead:
+            live[-lo.n_kv_dead:] = False
+    else:
+        idx, live = lo.q_gather_index(), lo.q_head_mask().astype(bool)
+    return lambda a: _gather_pad(a, idx, live, _ax(a, ax_nd))
+
+
+def leaf_maps(params, cfg: ArchConfig, layout: HeadLayout,
+              logical: bool):
+    """`params`' structure (any tree of that structure: tensors, numpy
+    arrays, `ParamSpec`s) with each leaf replaced by the function that
+    maps that leaf alone from the stored layout for `layout` to the
+    logical one (`logical=True`) or back, or by None where the leaf stays
+    as it is. The vocabulary leaves are cut or padded to their size, each
+    attention leaf with a head axis is re-indexed along it."""
+    vocab = cfg.vocab_size if logical else padded_vocab(cfg, layout.tp)
+    heads = not (layout.n_q_stored == layout.n_q
+                 and layout.n_kv_stored == layout.n_kv)
+
+    def walk(node, top: bool):
+        if isinstance(node, dict):
+            attn = heads and _is_attn(node)
+            out = {}
+            for k, v in node.items():
+                if isinstance(v, (dict, list)):
+                    out[k] = walk(v, False)
+                elif top and k in _VOCAB_AXES:
+                    out[k] = (lambda a, ax=_VOCAB_AXES[k]:
+                              _resize(a, ax, vocab))
+                else:
+                    out[k] = _attn_leaf(k, layout, logical) if attn else None
+            return out
+        if isinstance(node, list):
+            return [walk(v, False) for v in node]
+        return None
+
+    return walk(params, True)
+
+
+def _apply(params, maps):
+    """Each leaf of `params` gathered whole (`sharding.gather`: a DTensor
+    leaf's full tensor) and mapped by its function in `maps`, one leaf at
+    a time."""
+    if isinstance(params, dict):
+        return {k: _apply(v, maps[k]) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_apply(v, m) for v, m in zip(params, maps)]
+    full = gather(params)
+    return full if maps is None else maps(full)
 
 
 def to_logical(params, cfg: ArchConfig, layout: HeadLayout):
-    params = _resize_vocab(gather_tree(params), cfg.vocab_size)
-    if layout.n_q_stored == layout.n_q and layout.n_kv_stored == layout.n_kv:
-        return params
-    return _map_attn(params, lambda p: _attn_to_logical(p, layout))
+    return _apply(params, leaf_maps(params, cfg, layout, logical=True))
 
 
 def from_logical(params, cfg: ArchConfig, layout: HeadLayout):
-    params = _resize_vocab(gather_tree(params), padded_vocab(cfg, layout.tp))
-    if layout.n_q_stored == layout.n_q and layout.n_kv_stored == layout.n_kv:
-        return params
-    return _map_attn(params, lambda p: _attn_from_logical(p, layout))
+    return _apply(params, leaf_maps(params, cfg, layout, logical=False))
 
 
 def relayout(params, cfg: ArchConfig, src: HeadLayout, dst: HeadLayout):

@@ -31,9 +31,21 @@ tensor on the CPU, bit for bit (without such a leaf it stays the raw
 layout (`models.relayout.to_logical`) and mapped back to `layout` on
 restore (`from_logical`), each leaf then coerced to the dtype of its
 `like_state` leaf: a restart on another TP degree re-lays-out on load.
+
+A state placed on a `DeviceMesh` (DTensor leaves, one rank a card) is
+saved and restored one leaf at a time, so that no rank holds more than
+its own blocks and one whole leaf on its card. `AsyncCheckpointer.save`
+gathers each leaf whole on every rank (a collective, on the caller's
+thread, in the same order on every rank), copies it to the host on the
+writing rank only and frees it before the next; the writing rank's host
+copy goes to the writer thread, which writes the same archive as one
+process would. `restore_placed` reads one leaf at a time on every rank,
+re-lays it out (`relayout.leaf_maps`) and keeps the rank's own block
+(`sharding.place`). The format does not change.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -45,6 +57,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import pspec
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import relayout as R
 
 
@@ -66,37 +80,40 @@ def _children(node) -> Optional[List[Tuple[str, Any]]]:
 
 def _flatten_with_paths(tree) -> List[Tuple[str, Any]]:
     out: List[Tuple[str, Any]] = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        kids = _children(node)
-        if kids is None:
-            out.append(("/".join(path), node))
-            return
-        for key, child in kids:
-            walk(child, path + [key])
-
-    walk(tree, [])
+    _walk(tree, [], out)
     return out
+
+
+# The recursions are module functions, not closures: a closure that calls
+# itself is a reference cycle, and one over `out` or `values` would keep
+# every leaf of a dropped state (a sharded state's blocks on the card)
+# alive until the cyclic collector runs.
+def _walk(node, path: List[str], out: List[Tuple[str, Any]]) -> None:
+    if node is None:
+        return
+    kids = _children(node)
+    if kids is None:
+        out.append(("/".join(path), node))
+        return
+    for key, child in kids:
+        _walk(child, path + [key], out)
 
 
 def _unflatten(like, values: List[Any]):
     """`like`'s structure with its leaves replaced, in flattening order."""
-    it = iter(values)
+    return _build(like, iter(values))
 
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if _is_namedtuple(node):
-            return type(node)(*(build(c) for c in node))
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(c) for c in node)
-        return next(it)
 
-    return build(like)
+def _build(node, it):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if _is_namedtuple(node):
+        return type(node)(*(_build(c, it) for c in node))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(c, it) for c in node)
+    return next(it)
 
 
 def _to_host(leaf, copy: bool = False) -> np.ndarray:
@@ -138,11 +155,20 @@ def _restored(a: np.ndarray, like):
     return a
 
 
-def _tree_to_host(state) -> Any:
+def _gathered_to_host(state, keep: bool):
     """`state` with every leaf copied to a host numpy array of its own (a
-    CPU tensor's or an array's memory is not shared)."""
-    return _unflatten(state, [_to_host(v, copy=True) for _, v in
-                              _flatten_with_paths(state)])
+    CPU tensor's or an array's memory is not shared), one leaf at a time:
+    a DTensor leaf gathered whole first (`sharding.gather`, a collective:
+    every rank calls this with the same tree) and freed before the next
+    leaf. Where not `keep` (a rank that writes nothing) the leaves are
+    gathered and dropped, and None comes back."""
+    hosts = []
+    for _, leaf in _flatten_with_paths(state):
+        full = SH.gather(leaf)
+        if keep:
+            hosts.append(_to_host(full, copy=True))
+        del full
+    return _unflatten(state, hosts) if keep else None
 
 
 def _np_dtype(leaf):
@@ -213,24 +239,41 @@ def _gc(ckpt_dir: Path, keep_last: int):
 
 
 class AsyncCheckpointer:
-    """Overlap checkpoint serialisation with the caller (one in flight)."""
+    """Overlap checkpoint serialisation with the caller (one in flight).
 
-    def __init__(self, ckpt_dir: str | Path, keep_last: int = 3):
+    Under a `DeviceMesh` every rank holds one and calls `save` with its
+    DTensor state at the same step (the gather is a collective); only
+    the one made with `writer=True` writes. `seconds` holds, per save,
+    the step, the seconds of the host copy (the gathers included) and,
+    once done, of the write."""
+
+    def __init__(self, ckpt_dir: str | Path, keep_last: int = 3, *,
+                 writer: bool = True):
         self.ckpt_dir = Path(ckpt_dir)
         self.keep_last = keep_last
+        self.writer = writer
         self._thread: Optional[threading.Thread] = None
         self.last_error: Optional[BaseException] = None
+        self.seconds: List[Dict[str, float]] = []
 
     def save(self, state, step: int, *, cfg=None, layout=None):
         self.wait()
         # copy to host memory now (cheap beside the serialisation), so the
-        # caller may go on changing its tensors
-        host_state = _tree_to_host(state)
+        # caller may go on changing its tensors; a placed state leaf by
+        # leaf, every rank taking part in each leaf's gather
+        t0 = time.perf_counter()
+        host_state = _gathered_to_host(state, keep=self.writer)
+        rec = {"step": step, "copy_s": time.perf_counter() - t0}
+        self.seconds.append(rec)
+        if not self.writer:
+            return
 
         def work():
+            t1 = time.perf_counter()
             try:
                 save(self.ckpt_dir, host_state, step, cfg=cfg,
                      layout=layout, keep_last=self.keep_last)
+                rec["write_s"] = time.perf_counter() - t1
             except BaseException as e:  # noqa: BLE001
                 self.last_error = e
 
@@ -273,6 +316,52 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
     return int(steps[-1].name.split("_")[1])
 
 
+def _archive(ckpt_dir: Path, step: Optional[int]) -> Tuple[Path, int]:
+    """The arrays file of checkpoint `step` (the latest where None) and
+    the step; FileNotFoundError where there is none."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    npz = ckpt_dir / f"step_{step:09d}" / "arrays.npz"
+    if not npz.exists():
+        raise FileNotFoundError(f"checkpoint step {step}: no arrays file "
+                                f"at {npz}")
+    return npz, step
+
+
+@contextlib.contextmanager
+def _members(npz: Path):
+    """The archive open, as a function from a leaf's key to its array,
+    read when asked for (`np.load` reads each member lazily). A leaf the
+    archive lacks raises KeyError; a truncated or otherwise damaged
+    archive raises `CheckpointCorrupted` naming the path."""
+    def corrupted(e):
+        return CheckpointCorrupted(
+            f"checkpoint archive {npz} is unreadable "
+            f"({type(e).__name__}: {e}); the write was likely truncated - "
+            f"restore an earlier step")
+    try:
+        data = np.load(npz, allow_pickle=False)
+        stored_keys = set(data.files)
+    except FileNotFoundError:
+        raise
+    except Exception as e:   # torn npz: BadZipFile / EOFError / OSError / ...
+        raise corrupted(e) from e
+
+    def read(k: str) -> np.ndarray:
+        if k not in stored_keys:
+            raise KeyError(f"checkpoint missing leaf {k}")
+        try:
+            return np.asarray(data[k])
+        except Exception as e:   # a torn member
+            raise corrupted(e) from e
+    try:
+        yield read
+    finally:
+        data.close()
+
+
 def restore(ckpt_dir: str | Path, like_state: Dict[str, Any], *,
             step: Optional[int] = None, cfg=None,
             layout=None) -> Tuple[Dict[str, Any], int]:
@@ -285,32 +374,10 @@ def restore(ckpt_dir: str | Path, like_state: Dict[str, Any], *,
     A truncated or otherwise damaged archive raises `CheckpointCorrupted`
     naming the path; a checkpoint that is not there raises
     FileNotFoundError; a leaf the archive lacks raises KeyError."""
-    ckpt_dir = Path(ckpt_dir)
-    if step is None:
-        step = latest_step(ckpt_dir)
-        if step is None:
-            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
-    d = ckpt_dir / f"step_{step:09d}"
-    npz = d / "arrays.npz"
-    if not npz.exists():
-        raise FileNotFoundError(f"checkpoint step {step}: no arrays file "
-                                f"at {npz}")
+    npz, step = _archive(Path(ckpt_dir), step)
     like_flat = _flatten_with_paths(like_state)
-    vals = []
-    try:
-        with np.load(npz, allow_pickle=False) as data:
-            stored_keys = set(data.files)
-            for k, like in like_flat:
-                if k not in stored_keys:
-                    raise KeyError(f"checkpoint missing leaf {k}")
-                vals.append(_restored(np.asarray(data[k]), like))
-    except (KeyError, FileNotFoundError):
-        raise
-    except Exception as e:   # torn npz: BadZipFile / EOFError / OSError / ...
-        raise CheckpointCorrupted(
-            f"checkpoint archive {npz} is unreadable "
-            f"({type(e).__name__}: {e}); the write was likely truncated - "
-            f"restore an earlier step") from e
+    with _members(npz) as read:
+        vals = [_restored(read(k), like) for k, like in like_flat]
     state = _unflatten(like_state, vals)
     if cfg is not None and layout is not None:
         state = {**state, "params": R.from_logical(state["params"], cfg,
@@ -319,3 +386,34 @@ def restore(ckpt_dir: str | Path, like_state: Dict[str, Any], *,
         state = _unflatten(like_state, [
             _coerce(a, like) for a, (_, like) in zip(got, like_flat)])
     return state, step
+
+
+def restore_placed(ckpt_dir: str | Path, specs, rules, mesh, *,
+                   step: Optional[int] = None, cfg=None,
+                   layout=None) -> Tuple[Dict[str, Any], int]:
+    """Restore a state of `ParamSpec`s' structure (`training.step.
+    state_specs`) onto `mesh`, one leaf at a time: each leaf read from the
+    archive (on every rank), with `cfg` and `layout` state["params"]'s
+    leaves re-laid-out from the logical head layout
+    (`relayout.leaf_maps`), coerced to its spec's dtype and placed by its
+    spec's logical axes (`sharding.place`: the rank keeps its own block on
+    its card), the host copy dropped before the next leaf. Returns (the
+    state of DTensors, the step). Errors as `restore`. Every rank must
+    ask for the same step."""
+    npz, step = _archive(Path(ckpt_dir), step)
+    like = pspec.abstract_params(specs)
+    maps = pspec.tree_map(lambda _: None, specs)
+    if cfg is not None and layout is not None:
+        maps["params"] = R.leaf_maps(specs["params"], cfg, layout,
+                                     logical=False)
+    shardings = pspec.tree_leaves(pspec.param_shardings(specs, rules, mesh))
+    vals = []
+    with _members(npz) as read:
+        for (k, lk), sh, fn in zip(_flatten_with_paths(like), shardings,
+                                   pspec.tree_leaves(maps)):
+            a = _restored(read(k), lk)
+            if fn is not None:
+                a = fn(a)
+            vals.append(SH.place(torch.as_tensor(_coerce(a, lk)), sh))
+            del a
+    return _unflatten(like, vals), step
